@@ -1,0 +1,51 @@
+"""The port's plain CABAC op stream of an intra slice against x264_tpu's
+compact_ops(i16_slice_ops(...)), both fed the same intra syntax planes
+(the port's plain encode_i16_frame output, which test_torch_intra holds
+equal to x264_tpu's). The live ops and n_ops must be exactly equal, and
+the port's two host coders (native C and its Python twin) must turn the
+stream into the same bytes."""
+
+import numpy as np
+import pytest
+import torch
+
+from x264_tpu.encoder import pipeline as jpipe
+from x264_tpu.entropy import cabac_planes as jcp
+from x264_tpu_torch import native, tables
+from x264_tpu_torch.encoder import intra as tintra
+from x264_tpu_torch.entropy import cabac as tcabac
+from x264_tpu_torch.entropy import cabac_planes as tcp
+from x264_tpu_torch.entropy import cabac_tables as tctab
+
+from test_torch_intra import planes
+
+# one intra-op thread: the suite runs several test processes at once
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("mb_h,mb_w,qp", [(3, 7, 18), (3, 7, 26),
+                                          (3, 7, 38)])
+def test_op_stream_matches_jax(mb_h, mb_w, qp, monkeypatch):
+    y, u, v = (torch.from_numpy(a) for a in planes(mb_h, mb_w, qp))
+    out = tintra.encode_i16_frame(
+        mb_h, mb_w, y, u, v,
+        tintra.make_qtab(qp, tables.chroma_qp(qp), "cpu"),
+        int(tables.LAMBDA_TABLE[qp]))
+    ops = jcp.i16_slice_ops({k: t.numpy() for k, t in out.items()}, mb_h,
+                            mb_w, t8_mode=False)
+    jops, jn = jcp.compact_ops(ops, jpipe.cabac_capacity(mb_h * mb_w))
+    tops, tn = tcp.i_slice_ops(out, mb_h, mb_w)
+    n = int(jn)
+    assert int(tn) == n
+    assert tops.shape[0] == tcp.capacity(mb_h * mb_w) == jops.shape[0]
+    np.testing.assert_array_equal(np.asarray(jops)[:n],
+                                  tops.numpy().view(np.uint32)[:n])
+    assert not tops[n:].any()
+
+    live = tops.numpy().view(np.uint32)[:n]
+    assert native.load() is not None
+    code = lambda: tcabac.encode_ops(tctab.init_states(True, qp, 0), live,
+                                     0x5A)
+    c_bytes = code()
+    monkeypatch.setattr(native, "load", lambda: None)
+    assert code() == c_bytes

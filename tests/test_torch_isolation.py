@@ -1,0 +1,93 @@
+"""The port stands alone: no module of x264_tpu_torch, and not
+chip_smoke.py, imports jax or x264_tpu; the package imports with jax
+blocked; Encoder runs on the card by default and raises where there is
+none; wrappers never fall back from a kernel to its plain version on a
+non-CPU tensor; parameters outside the slice raise."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import x264_tpu_torch
+from x264_tpu_torch.encoder import intra
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "x264_tpu")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted((ROOT / "x264_tpu_torch").rglob("*.py")) \
+        + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(f.name, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'x264_tpu'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import x264_tpu_torch, x264_tpu_torch.encoder.core\n"
+            "import x264_tpu_torch.convert\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def _params(**kw):
+    p = x264_tpu_torch.EncoderParams(i_width=64, i_height=48, i_keyint_max=1,
+                                     i_log_level=0)
+    p.rc.i_rc_method = 0
+    p.analyse.b_transform_8x8 = False
+    for k, v in kw.items():
+        obj = p
+        *path, last = k.split("__")
+        for a in path:
+            obj = getattr(obj, a)
+        setattr(obj, last, v)
+    return p
+
+
+def test_encoder_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        assert x264_tpu_torch.Encoder(_params()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            x264_tpu_torch.Encoder(_params())
+
+
+@pytest.mark.parametrize("field,value", [
+    ("i_keyint_max", 30), ("b_cabac", False), ("rc__i_rc_method", 1),
+    ("analyse__b_transform_8x8", True), ("i_bframe", 2),
+    ("analyse__i_trellis", 1), ("rc__i_qp_constant", 0)])
+def test_outside_the_slice_raises(field, value):
+    with pytest.raises(NotImplementedError):
+        x264_tpu_torch.Encoder(_params(**{field: value}), device="cpu")
+
+
+def test_wrapper_never_falls_back_off_the_cpu():
+    mb_h, mb_w = 1, 2
+    t = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")
+    qtab = intra.make_qtab(26, 26, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        intra.encode_i16_frame(mb_h, mb_w, t(16, 32), t(8, 16), t(8, 16),
+                               qtab, 1)

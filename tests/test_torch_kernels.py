@@ -1,0 +1,141 @@
+"""The port's CUDA / Triton kernels against their plain PyTorch versions
+on the card, at small frames, and the card's Encoder against the CPU's.
+Marked `cuda`: they skip where there is no card. On a machine with one:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py
+
+(--noconftest because tests/conftest.py sets up JAX for the reference's
+tests; these import only the port)."""
+
+import numpy as np
+import pytest
+import torch
+
+import x264_tpu_torch
+from x264_tpu_torch import tables
+from x264_tpu_torch.encoder import intra, pipeline, stats
+from x264_tpu_torch.entropy import cabac_planes
+from x264_tpu_torch.ops import deblock
+
+MB_H, MB_W = 5, 7
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _frame(dev, seed=0):
+    rng = np.random.default_rng(seed)
+    h, w = MB_H * 16, MB_W * 16
+    yy, xx = np.mgrid[0:h, 0:w]
+    t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    return (t(((xx // 3 + yy // 2) % 200 + rng.integers(0, 24, (h, w)))
+              .clip(0, 255)),
+            t(rng.integers(0, 256, (h // 2, w // 2))),
+            t(128 + rng.integers(-20, 20, (h // 2, w // 2))))
+
+
+def _intra(dev, qp=26):
+    y, u, v = _frame(dev, qp)
+    q = intra.make_qtab(qp, tables.chroma_qp(qp), dev)
+    lam = int(tables.LAMBDA_TABLE[qp])
+    return (y, u, v), intra.encode_i16_frame(MB_H, MB_W, y, u, v, q, lam), \
+        (q, lam)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [18, 26, 38])
+def test_intra_kernel_matches_plain(card, qp):
+    (y, u, v), k, (q, lam) = _intra(card, qp)
+    p = intra.encode_i16_frame_plain(MB_H, MB_W, y, u, v, q, lam)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [18, 38])
+def test_cabac_ops_kernel_matches_plain(card, qp):
+    _, out, _ = _intra(card, qp)
+    k_ops, k_n = cabac_planes.i_slice_ops(out, MB_H, MB_W)
+    p_ops, p_n = cabac_planes.i_slice_ops_plain(out, MB_H, MB_W)
+    n = int(p_n)
+    assert int(k_n) == n and torch.equal(k_ops[:n], p_ops[:n])
+
+
+def _deblock_maps(kind, dev):
+    """The slice's all-intra maps, or random qp / intra / nnz / ref / mv
+    maps of the kind a P slice gives, with nonzero filter offsets."""
+    if kind == "intra":
+        intra_mb, z4, zmv = pipeline._zero_maps(MB_H, MB_W, dev)
+        qp_mb = torch.full((MB_H, MB_W), 26, dtype=torch.int32, device=dev)
+        return (qp_mb, intra_mb, z4, z4, zmv, z4, zmv, False, 0, 0, 0)
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    h4, w4 = MB_H * 4, MB_W * 4
+    i32 = lambda a: t(a.astype(np.int32))
+    return (i32(rng.integers(20, 46, (MB_H, MB_W))),
+            t(rng.random((MB_H, MB_W)) < 0.3),
+            i32(rng.integers(0, 2, (h4, w4))),
+            i32(rng.integers(0, 2, (h4, w4))),
+            i32(rng.integers(-8, 8, (h4, w4, 2))),
+            i32(np.zeros((h4, w4))), i32(np.zeros((h4, w4, 2))),
+            False, -2, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["intra", "random"])
+def test_deblock_kernel_matches_plain(card, kind):
+    _, out, _ = _intra(card)
+    args = _deblock_maps(kind, card)
+    src = [out[k] for k in ("recon_y", "recon_u", "recon_v")]
+    p = deblock.deblock_frame_plain(MB_H, MB_W, *src, *args)
+    k = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *args)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert not torch.equal(p[0], src[0])        # the filter acted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop", [(0, 0), (6, 4)])
+def test_metrics_kernel_matches_plain(card, crop):
+    (y, u, v), out, _ = _intra(card)
+    r = [out[k] for k in ("recon_y", "recon_u", "recon_v")]
+    w, h = MB_W * 16 - crop[0], MB_H * 16 - crop[1]
+    k = stats.frame_metrics(y, u, v, *r, w, h).double()
+    p = stats.frame_metrics_plain(y, u, v, *r, w, h).double()
+    rel = (k - p).abs() / p.abs()
+    assert rel[:3].max() <= 1e-6 and rel[3] <= 1e-5
+
+
+@pytest.mark.cuda
+def test_encoder_on_the_card_matches_the_cpu(card):
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(7)
+    frames = [x264_tpu_torch.Frame(
+        rng.integers(0, 256, (h, w), dtype=np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+        for _ in range(3)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_keyint_max=1, i_log_level=0,
+                                         i_frame_parallel=3)
+        p.rc.i_rc_method, p.rc.i_qp_constant = 0, 30
+        p.analyse.b_transform_8x8 = False
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs = [enc.encode(f) for f in frames]
+        outs = [o for o in outs if o is not None] + enc.flush()
+        return enc.headers(), outs, enc.close()
+
+    (kh, kout, ksum), (ph, pout, psum) = run(card), run("cpu")
+    assert kh == ph and len(kout) == len(pout) == 3
+    for a, b in zip(kout, pout):
+        assert a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(), getattr(b.recon, pl))
+    assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
+    assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5

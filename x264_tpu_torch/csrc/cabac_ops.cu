@@ -1,0 +1,260 @@
+// K3 cabac_i_ops: the compacted CABAC bin-op stream of an intra slice.
+//
+// Replaces x264_tpu/entropy/cabac_planes.py:i16_slice_ops (with
+// residual_block_ops, i4_pred_mode_ops, _dqp_slots, _nbr_grids) followed
+// by compact_ops. Plain twin: x264_tpu_torch/entropy/cabac_planes.py
+// i_slice_ops_plain; wrapper: i_slice_ops.
+//
+// Design. The JAX version fills fixed per-MB slot planes (560 slots, a
+// pad op where a bin is absent) and compacts them with a cumsum and a
+// scatter. Here three short kernels do the same without the pad slots:
+//   1. emit: one thread per MB writes its live ops, in exactly the order
+//      of the slot concatenation (header1, pred modes, header2, luma DC,
+//      luma blocks, chroma DC, chroma AC, terminal), into its own
+//      560-slot row of a scratch buffer and stores its count. It reads
+//      the neighbour flags (coded blocks, cbp, modes) from the intra
+//      kernel's syntax planes of the left and top MBs;
+//   2. scan: one CTA turns the counts into exclusive offsets (and the
+//      total n_ops at offsets[nmb]);
+//   3. scatter: one CTA per MB copies its row to its offset.
+// What bounds it on the H100: bytes. The syntax planes (~10 MB at
+// 1080p as int32) are read once by the emit kernel, the live ops are
+// written twice (scratch, then the dense stream) and read once; the
+// emit kernel's thread-per-MB loop is serial per MB but 8160 MBs fill
+// the card. Op packing: kind << 29 | b << 17 | a (entropy/cabac.py).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int OPS_PER_MB = 560;
+constexpr int SCAN_NT = 1024;
+enum { K_DEC = 0, K_TERM = 3, K_SIGMAP = 6, K_LEVEL = 7 };
+
+__constant__ int kRasterOfZ[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
+__constant__ int kZOfRaster[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
+
+struct Planes {
+  const int* mode16;
+  const int* modec;
+  const uint8_t* i4_mb;
+  const int* i4_modes;
+  const int* cbp;
+  const int* luma_dc;
+  const int* luma_ac;
+  const int* chroma_dc;
+  const int* chroma_ac;
+  int mb_w;
+
+  // 4x4 luma block (raster index r) of `mb` coded with a nonzero level
+  __device__ int luma_coded(int mb, int r) const {
+    int z = kZOfRaster[r];
+    if (!((cbp[mb] >> (z >> 2)) & 1)) return 0;
+    const int* c = luma_ac + (mb * 16 + z) * 16;
+    for (int i = 0; i < 16; ++i)
+      if (c[i]) return 1;
+    return 0;
+  }
+  __device__ int luma_dc_nz(int mb) const {
+    if (i4_mb[mb]) return 0;
+    for (int i = 0; i < 16; ++i)
+      if (luma_dc[mb * 16 + i]) return 1;
+    return 0;
+  }
+  __device__ int chroma_dc_nz(int mb, int ch) const {
+    for (int i = 0; i < 4; ++i)
+      if (chroma_dc[mb * 8 + ch * 4 + i]) return 1;
+    return 0;
+  }
+  __device__ int chroma_ac_nz(int mb, int ch, int blk) const {
+    const int* c = chroma_ac + ((mb * 2 + ch) * 4 + blk) * 16;
+    for (int i = 1; i < 16; ++i)
+      if (c[i]) return 1;
+    return 0;
+  }
+  __device__ int cbp_chroma(int mb) const {
+    for (int ch = 0; ch < 2; ++ch)
+      for (int b = 0; b < 4; ++b)
+        if (chroma_ac_nz(mb, ch, b)) return 2;
+    return (chroma_dc_nz(mb, 0) || chroma_dc_nz(mb, 1)) ? 1 : 0;
+  }
+};
+
+struct Emitter {
+  uint32_t* out;
+  int n;
+  __device__ void put(int kind, uint32_t a, uint32_t b) {
+    out[n++] = ((uint32_t)kind << 29) | (b << 17) | a;
+  }
+  __device__ void dec(int ctx, int bin) { put(K_DEC, (uint32_t)ctx, (uint32_t)bin); }
+  // block_residual_write_cabac: cbf, then significance map and levels
+  __device__ void residual(const int* c, int C, int cat, int cbf_ctx) {
+    int last = -1;
+    uint32_t mask = 0;
+    for (int i = 0; i < C; ++i)
+      if (c[i]) {
+        last = i;
+        if (i < C - 1) mask |= 1u << i;
+      }
+    dec(85 + 4 * cat + cbf_ctx, last >= 0);
+    if (last < 0) return;
+    put(K_SIGMAP, mask, (uint32_t)(cat | (last << 3)));
+    for (int i = C - 1; i >= 0; --i)
+      if (c[i]) put(K_LEVEL, (uint32_t)min(abs(c[i]) - 1, 0x1FFFF), c[i] < 0);
+  }
+};
+
+__global__ void emit_kernel(Planes P, int mb_h, uint32_t* __restrict__ scratch,
+                            int* __restrict__ counts) {
+  const int mb_w = P.mb_w, nmb = mb_h * mb_w;
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= nmb) return;
+  const int mx = mb % mb_w, my = mb / mb_w;
+  const bool hl = mx > 0, ht = my > 0;
+  const int mbl = mb - 1, mbt = mb - mb_w;
+  const bool i4 = P.i4_mb[mb];
+  const int cbp = P.cbp[mb];
+  const int cbpc = P.cbp_chroma(mb);
+  Emitter E{scratch + (size_t)mb * OPS_PER_MB, 0};
+
+  // ---- header1: mb_type (ctxInc counts available non-I4x4 neighbours)
+  const int ctx_mbtype = 3 + (hl && !P.i4_mb[mbl]) + (ht && !P.i4_mb[mbt]);
+  E.dec(ctx_mbtype, !i4);
+  if (!i4) {
+    const int m16 = P.mode16[mb];
+    E.put(K_TERM, 0, 0);
+    E.dec(6, cbp > 0);
+    E.dec(7, cbpc > 0);
+    if (cbpc > 0) E.dec(8, cbpc == 2);
+    E.dec(9, m16 >> 1);
+    E.dec(10, m16 & 1);
+  }
+  // ---- prev_intra4x4_pred_mode / rem_intra4x4_pred_mode
+  if (i4) {
+    const int* md = P.i4_modes + mb * 16;
+    for (int z = 0; z < 16; ++z) {
+      const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
+      const int lm = bx > 0 ? md[r - 1] : hl ? P.i4_modes[mbl * 16 + 4 * by + 3] : 2;
+      const int tm = by > 0 ? md[r - 4] : ht ? P.i4_modes[mbt * 16 + 12 + bx] : 2;
+      const int mpm = min(lm, tm), m = md[r];
+      E.dec(68, m == mpm);
+      if (m != mpm) {
+        const int rem = m - (m > mpm);
+        for (int k = 0; k < 3; ++k) E.dec(69, (rem >> k) & 1);
+      }
+    }
+  }
+  // ---- header2: chroma pred mode, I4x4 cbp, mb_qp_delta
+  const int cm = P.modec[mb];
+  E.dec(64 + (hl && P.modec[mbl] != 0) + (ht && P.modec[mbt] != 0), cm > 0);
+  if (cm > 0) E.dec(67, cm > 1);
+  if (cm > 1) E.dec(67, cm > 2);
+  if (i4) {
+    const int cl = hl ? P.cbp[mbl] : -1, ct = ht ? P.cbp[mbt] : -1;
+    const int ctx[4] = {76 - ((cl >> 1) & 1) - ((ct >> 1) & 2),
+                        76 - (cbp & 1) - ((ct >> 2) & 2),
+                        76 - ((cl >> 3) & 1) - ((cbp << 1) & 2),
+                        76 - ((cbp >> 2) & 1) - (cbp & 2)};
+    for (int k = 0; k < 4; ++k) E.dec(ctx[k], (cbp >> k) & 1);
+    const int ccl = hl ? P.cbp_chroma(mbl) : -1, cct = ht ? P.cbp_chroma(mbt) : -1;
+    E.dec(77 + (ccl > 0) + 2 * (cct > 0), cbpc > 0);
+    if (cbpc > 0) E.dec(81 + (ccl == 2) + 2 * (cct == 2), cbpc == 2);
+  }
+  if (!i4 || cbp > 0 || cbpc > 0) E.dec(60, 0);   // mb_qp_delta = 0
+
+  // ---- luma DC (I16x16, cat 0); outside the frame counts as coded
+  if (!i4) {
+    const int a = hl ? P.luma_dc_nz(mbl) : 1, b = ht ? P.luma_dc_nz(mbt) : 1;
+    E.residual(P.luma_dc + mb * 16, 16, 0, 2 * b + a);
+  }
+  // ---- luma 4x4 blocks: I16 AC (cat 1) or I4x4 (cat 2)
+  for (int z = 0; z < 16; ++z) {
+    const bool coded = i4 ? ((cbp >> (z >> 2)) & 1) : cbp > 0;
+    if (!coded) continue;
+    const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
+    const int a = bx > 0 ? P.luma_coded(mb, r - 1) : hl ? P.luma_coded(mbl, r + 3) : 1;
+    const int b = by > 0 ? P.luma_coded(mb, r - 4) : ht ? P.luma_coded(mbt, r + 12) : 1;
+    const int* c = P.luma_ac + (mb * 16 + z) * 16;
+    if (i4) E.residual(c, 16, 2, 2 * b + a);
+    else E.residual(c + 1, 15, 1, 2 * b + a);
+  }
+  // ---- chroma DC (cat 3) and AC (cat 4)
+  if (cbpc > 0)
+    for (int ch = 0; ch < 2; ++ch) {
+      const int a = hl ? P.chroma_dc_nz(mbl, ch) : 1;
+      const int b = ht ? P.chroma_dc_nz(mbt, ch) : 1;
+      E.residual(P.chroma_dc + mb * 8 + ch * 4, 4, 3, 2 * b + a);
+    }
+  if (cbpc == 2)
+    for (int ch = 0; ch < 2; ++ch)
+      for (int blk = 0; blk < 4; ++blk) {
+        const int by = blk >> 1, bx = blk & 1;
+        const int a = bx ? P.chroma_ac_nz(mb, ch, blk - 1)
+                    : hl ? P.chroma_ac_nz(mbl, ch, blk + 1) : 1;
+        const int b = by ? P.chroma_ac_nz(mb, ch, blk - 2)
+                    : ht ? P.chroma_ac_nz(mbt, ch, blk + 2) : 1;
+        E.residual(P.chroma_ac + ((mb * 2 + ch) * 4 + blk) * 16 + 1, 15, 4,
+                   2 * b + a);
+      }
+  // ---- end_of_slice_flag = 0 after every MB but the last
+  if (mb != nmb - 1) E.put(K_TERM, 0, 0);
+  counts[mb] = E.n;
+}
+
+// exclusive scan of counts[0..n) into offsets[0..n], offsets[n] = total
+__global__ void __launch_bounds__(SCAN_NT) scan_kernel(
+    const int* __restrict__ counts, int* __restrict__ offsets, int n) {
+  __shared__ int part[SCAN_NT];
+  const int t = threadIdx.x;
+  const int per = (n + SCAN_NT - 1) / SCAN_NT;
+  const int lo = min(n, t * per), hi = min(n, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += counts[i];
+  part[t] = s;
+  __syncthreads();
+  for (int off = 1; off < SCAN_NT; off <<= 1) {     // Hillis-Steele inclusive
+    int v = t >= off ? part[t - off] : 0;
+    __syncthreads();
+    part[t] += v;
+    __syncthreads();
+  }
+  int run = part[t] - s;
+  for (int i = lo; i < hi; ++i) {
+    offsets[i] = run;
+    run += counts[i];
+  }
+  if (t == SCAN_NT - 1) offsets[n] = part[t];
+}
+
+__global__ void scatter_kernel(const uint32_t* __restrict__ scratch,
+                               const int* __restrict__ counts,
+                               const int* __restrict__ offsets,
+                               uint32_t* __restrict__ ops) {
+  const int mb = blockIdx.x;
+  const uint32_t* src = scratch + (size_t)mb * OPS_PER_MB;
+  uint32_t* dst = ops + offsets[mb];
+  for (int i = threadIdx.x; i < counts[mb]; i += blockDim.x) dst[i] = src[i];
+}
+
+}  // namespace
+
+extern "C" int cabac_i_ops(const int* mode16, const int* modec,
+                           const uint8_t* i4_mb, const int* i4_modes,
+                           const int* cbp_luma_bits, const int* luma_dc,
+                           const int* luma_ac, const int* chroma_dc,
+                           const int* chroma_ac, uint32_t* scratch,
+                           int* counts, int* offsets, uint32_t* ops, int mb_h,
+                           int mb_w, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nmb = mb_h * mb_w;
+  Planes P{mode16, modec, i4_mb, i4_modes, cbp_luma_bits, luma_dc, luma_ac,
+           chroma_dc, chroma_ac, mb_w};
+  emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, scratch, counts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scatter_kernel<<<nmb, 128, 0, s>>>(scratch, counts, offsets, ops);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,109 @@
+// Integer transform, quantisation and SATD building blocks shared by
+// the CUDA kernels. Each is the per-block form of a batched function in
+// x264_tpu_torch/ops/ (dct.py, quant.py, pixel.py) and is bit-exact
+// with it: int32 arithmetic, arithmetic right shifts, no floats.
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace x264t {
+
+__device__ __forceinline__ int clip255(int x) { return min(max(x, 0), 255); }
+
+// forward 4x4 core transform Y = C d C^T (dct.py:dct4x4), raster in/out
+__device__ __forceinline__ void dct4x4(const int* d, int* out) {
+  int t[16];
+  for (int j = 0; j < 4; ++j) {
+    int x0 = d[j], x1 = d[4 + j], x2 = d[8 + j], x3 = d[12 + j];
+    t[j] = x0 + x1 + x2 + x3;
+    t[4 + j] = 2 * x0 + x1 - x2 - 2 * x3;
+    t[8 + j] = x0 - x1 - x2 + x3;
+    t[12 + j] = x0 - 2 * x1 + 2 * x2 - x3;
+  }
+  for (int i = 0; i < 4; ++i) {
+    int x0 = t[4 * i], x1 = t[4 * i + 1], x2 = t[4 * i + 2], x3 = t[4 * i + 3];
+    out[4 * i] = x0 + x1 + x2 + x3;
+    out[4 * i + 1] = 2 * x0 + x1 - x2 - 2 * x3;
+    out[4 * i + 2] = x0 - x1 - x2 + x3;
+    out[4 * i + 3] = x0 - 2 * x1 + 2 * x2 - x3;
+  }
+}
+
+// inverse 4x4 transform incl. (x+32)>>6, rows first (dct.py:idct4x4)
+__device__ __forceinline__ void idct4x4(const int* c, int* out) {
+  int t[16];
+  for (int i = 0; i < 4; ++i) {
+    int x0 = c[4 * i], x1 = c[4 * i + 1], x2 = c[4 * i + 2], x3 = c[4 * i + 3];
+    int e0 = x0 + x2, e1 = x0 - x2, e2 = (x1 >> 1) - x3, e3 = x1 + (x3 >> 1);
+    t[4 * i] = e0 + e3;
+    t[4 * i + 1] = e1 + e2;
+    t[4 * i + 2] = e1 - e2;
+    t[4 * i + 3] = e0 - e3;
+  }
+  for (int j = 0; j < 4; ++j) {
+    int x0 = t[j], x1 = t[4 + j], x2 = t[8 + j], x3 = t[12 + j];
+    int e0 = x0 + x2, e1 = x0 - x2, e2 = (x1 >> 1) - x3, e3 = x1 + (x3 >> 1);
+    out[j] = (e0 + e3 + 32) >> 6;
+    out[4 + j] = (e1 + e2 + 32) >> 6;
+    out[8 + j] = (e1 - e2 + 32) >> 6;
+    out[12 + j] = (e0 - e3 + 32) >> 6;
+  }
+}
+
+// 2-D 4x4 Hadamard H d H, raster in/out (dct.py:hadamard4x4_inv)
+__device__ __forceinline__ void had4x4(const int* d, int* out) {
+  int t[16];
+  for (int j = 0; j < 4; ++j) {
+    int x0 = d[j], x1 = d[4 + j], x2 = d[8 + j], x3 = d[12 + j];
+    t[j] = x0 + x1 + x2 + x3;
+    t[4 + j] = x0 + x1 - x2 - x3;
+    t[8 + j] = x0 - x1 - x2 + x3;
+    t[12 + j] = x0 - x1 + x2 - x3;
+  }
+  for (int i = 0; i < 4; ++i) {
+    int x0 = t[4 * i], x1 = t[4 * i + 1], x2 = t[4 * i + 2], x3 = t[4 * i + 3];
+    out[4 * i] = x0 + x1 + x2 + x3;
+    out[4 * i + 1] = x0 + x1 - x2 - x3;
+    out[4 * i + 2] = x0 - x1 - x2 + x3;
+    out[4 * i + 3] = x0 - x1 + x2 - x3;
+  }
+}
+
+// sum |H d H| of one 4x4 difference block (pixel.py:satd before the >>1)
+__device__ __forceinline__ int abs_had4x4(const int* d) {
+  int h[16];
+  had4x4(d, h);
+  int s = 0;
+  for (int i = 0; i < 16; ++i) s += abs(h[i]);
+  return s;
+}
+
+// deadzone quantisation (quant.py:quant)
+__device__ __forceinline__ int quant(int c, int mf, int bias) {
+  int mag = ((bias + abs(c)) * mf) >> 16;
+  return c >= 0 ? mag : -mag;
+}
+
+// dequant_4x4 with i_qbits = qp/6 - 4 (quant.py:dequant)
+__device__ __forceinline__ int dequant(int lv, int dmf, int qpdiv6) {
+  int qbits = qpdiv6 - 4;
+  int prod = lv * dmf;
+  if (qbits >= 0) return prod * (1 << qbits);
+  return (prod + (1 << (-qbits - 1))) >> -qbits;
+}
+
+// dequant_4x4_dc after the inverse Hadamard (quant.py:dequant_4x4_dc)
+__device__ __forceinline__ int dequant_4x4_dc(int lv, int dmf0, int qpdiv6) {
+  int qbits = qpdiv6 - 6;
+  if (qbits >= 0) return lv * (dmf0 * (1 << qbits));
+  return (lv * dmf0 + (1 << (-qbits - 1))) >> -qbits;
+}
+
+// chroma DC dequant after the inverse 2x2 Hadamard (quant.py:dequant_2x2_dc)
+__device__ __forceinline__ int dequant_2x2_dc(int x, int dmf0, int qpdiv6) {
+  int qbits = qpdiv6 - 5;
+  int dmf_eff = dmf0 * (1 << max(qbits, 0));
+  return (x * dmf_eff) >> max(-qbits, 0);
+}
+
+}  // namespace x264t

@@ -1,0 +1,301 @@
+"""Encoder orchestration — the analogue of encoder/encoder.c, ported from
+x264_tpu/encoder/core.py for the all-intra CABAC slice.
+
+Open / encode / close lifecycle (x264_encoder_open:623,
+x264_encoder_encode:1362, x264_encoder_close:1878): parameter
+validation, headers, dispatch of each frame's device work to the
+current CUDA stream, and the host tail — CABAC arithmetic coding of the
+device-produced op stream, NAL assembly, rate control and statistics.
+
+With i_frame_parallel > 1 the output is delayed (x264_encoder_encode's
+contract: a call may return no frame; flush() drains): frame N's kernels
+are queued, its op stream and metrics vector start a non-blocking copy
+into pinned host memory ordered by a CUDA event, and the host CABAC of
+an earlier frame runs while the card works.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import tables
+from ..entropy import cabac as ecabac
+from ..entropy import cabac_tables as ctab
+from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE_IDR
+from ..headers import PPS, SPS, SLICE_I, SliceHeader, sei_version
+from ..params import ANALYSE_I4x4, EncoderParams
+from . import intra
+from . import pipeline
+from . import ratecontrol as rcmod
+from . import stats as estats
+
+
+def pad_plane(plane: np.ndarray, target_h: int, target_w: int) -> np.ndarray:
+    """Edge-replicate to MB-aligned size (expand_border_mod16,
+    common/frame.c:310-330)."""
+    h, w = plane.shape
+    out = np.empty((target_h, target_w), dtype=plane.dtype)
+    out[:h, :w] = plane
+    if w < target_w:
+        out[:h, w:] = plane[:, w - 1:w]
+    if h < target_h:
+        out[h:, :] = out[h - 1:h, :]
+    return out
+
+
+class Frame:
+    """A picture in planar 8-bit 4:2:0 (x264_picture_t analogue): numpy
+    arrays on input; device tensors in an EncodedFrame's recon."""
+
+    def __init__(self, y, u, v):
+        self.y, self.u, self.v = y, u, v
+
+    @property
+    def shape(self):
+        return self.y.shape
+
+
+class EncodedFrame:
+    def __init__(self, payload: bytes, frame_type: str, recon: Frame,
+                 bits: int, display_idx: int = -1):
+        self.payload = payload
+        self.frame_type = frame_type
+        self.recon = recon
+        self.bits = bits
+        self.display_idx = display_idx
+
+
+def _check_slice(p: EncoderParams) -> None:
+    """Raise on every parameter outside this slice of the port."""
+    a, rc = p.analyse, p.rc
+    later = [
+        (p.i_keyint_max != 1, "P frames (i_keyint_max > 1)", "the P slice"),
+        (p.i_bframe > 0, "B frames", "the B slice"),
+        (not p.b_cabac, "CAVLC", "the CAVLC slice"),
+        (rc.i_qp_constant == 0, "lossless (qp 0)", "a later slice"),
+        (a.b_transform_8x8, "the 8x8 transform / I8x8 (use 8x8dct=0)",
+         "the P slice with I8x8"),
+        (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
+        (a.i_trellis > 0, "trellis", "the trellis slice"),
+        (p.i_mb_row_shards > 1, "MB-row sharding", "the multi-GPU slice"),
+        (a.i_noise_reduction > 0, "noise reduction", "a later slice"),
+        (p.i_cqm_preset != 0, "custom quant matrices", "a later slice"),
+        (rc.i_vbv_max_bitrate > 0 or rc.i_vbv_buffer_size > 0, "VBV",
+         "the rate-control slice"),
+    ]
+    for bad, what, when in later:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not in this slice of the port; it comes with "
+                f"{when}")
+
+
+class Encoder:
+    """x264_encoder_open / encode / close for all-intra CABAC at
+    constant QP. device: "cuda" (the default, which needs a card) or
+    "cpu", where every kernel runs its plain PyTorch version."""
+
+    def __init__(self, params: EncoderParams, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device: Encoder runs on the card by default; "
+                    "pass device='cpu' for the plain PyTorch versions")
+            device = "cuda"
+        self.device = torch.device(device)
+        self.params = params.validate()
+        p = self.params
+        _check_slice(p)
+        self.rc = rcmod.RateControl(p)
+        self.sps = SPS.from_params(p)
+        self.pps = PPS.from_params(p)
+        self.frame_num = 0
+        self.idr_pic_id = 0
+        self.poc = 0
+        self.frame_count = 0
+        self._disp_abs = 0
+        self._qtab_cache: dict = {}
+        self.stats = estats.Stats(
+            p.i_width, p.i_height, p.i_fps_num / max(1, p.i_fps_den),
+            b_psnr=p.analyse.b_psnr, b_ssim=p.analyse.b_ssim)
+        self._with_metrics = bool(p.analyse.b_psnr or p.analyse.b_ssim)
+        self._pending: list = []
+        self._delay = max(0, p.i_frame_parallel - 1)
+
+    def reconfig(self, new_params: EncoderParams) -> None:
+        raise NotImplementedError("reconfig comes with a later slice of "
+                                  "the port")
+
+    # ------------------------------------------------------------- headers
+    def headers(self) -> bytes:
+        """x264_encoder_headers: SPS + PPS + version SEI NALs
+        (encoder/encoder.c:880-910 + x264_sei_version_write)."""
+        return (self.sps.write() + self.pps.write()
+                + sei_version(self.params.to_string()))
+
+    # ------------------------------------------------------------- encode
+    def encode(self, frame: Frame, forced_type: str | None = None,
+               forced_qp: int | None = None) -> EncodedFrame | None:
+        """x264_encoder_encode: every frame of this slice is an IDR. With
+        i_frame_parallel > 1 this queues the frame and returns an earlier
+        one (or None while the pipe fills); flush() drains."""
+        if forced_type not in (None, "I", "IDR"):
+            raise NotImplementedError(f"forced {forced_type} frames come "
+                                      "with the P/B slices of the port")
+        disp = self._disp_abs
+        self._disp_abs += 1
+        qp = self.rc.start("I", frame_idx=self.frame_count)
+        if forced_qp is not None:
+            qp = max(0, min(51, int(forced_qp)))
+            self.rc.last_qp = qp
+        pend = self._submit_idr(frame, qp)
+        pend.update(frame=frame, qp=qp, disp=disp)
+        self.frame_count += 1
+        self._start_fetch(pend)
+        self._pending.append(pend)
+        if len(self._pending) > self._delay:
+            return self._finalize(self._pending.pop(0))
+        return None
+
+    def _qtab(self, qp: int, qp_c: int) -> dict:
+        key = (qp, qp_c)
+        if key not in self._qtab_cache:
+            self._qtab_cache[key] = intra.make_qtab(qp, qp_c, self.device)
+        return self._qtab_cache[key]
+
+    def _pad_input(self, frame: Frame):
+        """MB-aligned int32 planes on the device. On the card the bytes
+        cross from pinned memory without blocking the host."""
+        p = self.params
+        mb_w, mb_h = p.mb_width, p.mb_height
+        planes = [pad_plane(np.asarray(a, np.uint8), mb_h * s, mb_w * s)
+                  for a, s in ((frame.y, 16), (frame.u, 8), (frame.v, 8))]
+        if self.device.type == "cpu":
+            return [torch.from_numpy(a).to(torch.int32) for a in planes]
+        out = []
+        for a in planes:
+            staged = torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
+            staged.numpy()[:] = a
+            out.append(staged.to(self.device, non_blocking=True)
+                       .to(torch.int32))
+        return out
+
+    def _slice_header(self, qp: int) -> SliceHeader:
+        p = self.params
+        return SliceHeader(
+            slice_type=SLICE_I, frame_num=self.frame_num,
+            idr_pic_id=self.idr_pic_id,
+            poc_lsb=self.poc % (1 << self.sps.log2_max_poc_lsb),
+            qp=qp, pic_init_qp=self.pps.pic_init_qp,
+            disable_deblock=0 if p.b_deblocking_filter else 1,
+            alpha_c0_offset=p.i_deblocking_filter_alphac0,
+            beta_offset=p.i_deblocking_filter_beta,
+            cabac=p.b_cabac, num_ref_idx_l0=1, num_ref_idx_l1=1,
+            num_ref_idx_override=False,
+            log2_max_frame_num=self.sps.log2_max_frame_num,
+            log2_max_poc_lsb=self.sps.log2_max_poc_lsb)
+
+    def _cabac_header(self, qp: int) -> bytearray:
+        """Slice header bytes + cabac_alignment_one_bit (spec 7.3.4),
+        built at submit time while frame_num / POC / idr_pic_id hold this
+        frame's values."""
+        hdr = BitWriter()
+        self._slice_header(qp).write_rbsp(hdr, nal_ref_idc=3)
+        pad = (-hdr.bit_pos) % 8
+        if pad:
+            hdr.put((1 << pad) - 1, pad)
+        return bytearray(hdr.pack())
+
+    def _submit_idr(self, frame: Frame, qp: int) -> dict:
+        p = self.params
+        mb_w, mb_h = p.mb_width, p.mb_height
+        y, u, v = self._pad_input(frame)
+        qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
+        # an IDR resets frame_num and POC (spec 7.4.3)
+        self.frame_num = 0
+        self.poc = 0
+        hdr_bytes = self._cabac_header(qp)
+        out = pipeline.encode_i16_idr_cabac(
+            mb_h, mb_w, bool(p.b_deblocking_filter), y, u, v,
+            self._qtab(qp, qp_c), int(tables.LAMBDA_TABLE[qp]), qp,
+            2 * p.i_deblocking_filter_alphac0,
+            2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
+            crop_w=p.i_width, crop_h=p.i_height,
+            with_metrics=self._with_metrics)
+        self.frame_num = (self.frame_num + 1) \
+            % (1 << self.sps.log2_max_frame_num)
+        crop = lambda t, a: t[:a.shape[0], :a.shape[1]]
+        recon = Frame(crop(out["recon_y"], frame.y),
+                      crop(out["recon_u"], frame.u),
+                      crop(out["recon_v"], frame.v))
+        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        return dict(out=out, hdr_bytes=hdr_bytes, recon=recon,
+                    nmb=mb_h * mb_w)
+
+    def _start_fetch(self, pend: dict) -> None:
+        """Queue the d2h of this frame's op stream and host32 vector right
+        behind its kernels: non-blocking copies into pinned memory and a
+        CUDA event that _finalize waits on."""
+        out = pend["out"]
+        if self.device.type == "cpu":
+            pend["fetch"] = (None, out["ops"], out["host32"])
+            return
+        ops_h = torch.empty(out["ops"].shape, dtype=torch.int32,
+                            pin_memory=True)
+        h32_h = torch.empty(out["host32"].shape, dtype=torch.int32,
+                            pin_memory=True)
+        ops_h.copy_(out["ops"], non_blocking=True)
+        h32_h.copy_(out["host32"], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        pend["fetch"] = (done, ops_h, h32_h)
+
+    def flush(self) -> list:
+        """Drain delayed frames (the pic_in=NULL flush loop contract,
+        x264.c:870-873)."""
+        out = []
+        while self._pending:
+            out.append(self._finalize(self._pending.pop(0)))
+        return out
+
+    def _cabac_payload(self, pend: dict, ops: np.ndarray) -> bytes:
+        """Arithmetic coding of the device-produced op stream
+        (x264_slice_write CABAC branch, encoder/encoder.c:1155-1199)."""
+        hdr_bytes = pend["hdr_bytes"]
+        states = ctab.init_states(True, pend["qp"],
+                                  self.params.i_cabac_init_idc)
+        payload, fixup = ecabac.encode_ops(states, ops, hdr_bytes[-1])
+        hdr_bytes[-1] = fixup
+        return nal_unit(NAL_SLICE_IDR, 3, bytes(hdr_bytes) + payload)
+
+    def _finalize(self, pend: dict) -> EncodedFrame:
+        """Host tail of one frame: wait for its copies, entropy-code, RC
+        accounting and stats (x264_encoder_frame_end,
+        encoder/encoder.c:1705)."""
+        done, ops_t, h32_t = pend["fetch"]
+        if done is not None:
+            done.synchronize()
+        h32 = h32_t.numpy()
+        n_ops = int(h32[0])
+        ops = ops_t.numpy()[:n_ops].view(np.uint32)
+        payload = self._cabac_payload(pend, ops)
+        bits = len(payload) * 8
+        counts = (pend["nmb"], 0, 0)
+        self.rc.end("I", bits, pend["qp"], counts)
+        metrics = None
+        if self._with_metrics:
+            metrics = tuple(float(x) for x in h32[3:7].view(np.float32))
+        self.stats.add_frame("IDR", bits, pend["qp"], metrics, counts)
+        return EncodedFrame(payload, "IDR", pend["recon"], bits, pend["disp"])
+
+    def close(self) -> dict:
+        """x264_encoder_close: emit the global stats report
+        (encoder/encoder.c:1878-2080) and return it as a dict."""
+        self.rc.write_stats()
+        summary = self.stats.summary()
+        if self.params.i_log_level >= 1 and summary:
+            from .. import log as xlog
+            for line in self.stats.report_lines():
+                xlog.log(xlog.LOG_INFO, line)
+        return summary

@@ -1,0 +1,370 @@
+"""All-intra (I16x16 + I4x4 + chroma) frame encode — plain PyTorch twin
+of x264_tpu/encoder/intra.py and the wrapper of its CUDA kernel
+(csrc/intra.cu, kernel K1).
+
+The reference encodes macroblocks in raster order because intra
+prediction reads the reconstruction of the left / top neighbours
+(x264_slice_write, encoder/encoder.c:1141). Macroblocks on one
+anti-diagonal (x + y = d) have no mutual dependency, so both versions
+walk the 187 diagonals of a 1080p frame in order and encode every MB of
+a diagonal together: predictions, SATD mode decision, DCT, quant,
+dequant, IDCT and reconstruction (x264_mb_analyse_intra,
+encoder/analyse.c:612; x264_mb_encode_i16x16 / _i4x4 / _8x8_chroma,
+encoder/macroblock.c:116-364).
+
+This slice runs the I16x16 + I4x4 ladder at one frame QP; the I8x8
+ladder (slope-2 wavefront), lossless bypass and per-MB (AQ) tables come
+with later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import tables
+from .. import cuda
+from ..ops import dct as odct
+from ..ops import pixel as opix
+from ..ops import predict as opred
+from ..ops import quant as oquant
+
+I32 = torch.int32
+
+# ue() bit cost of the I16x16 mode index (x264_mb_analyse_intra's
+# lambda * bs_size_ue term, encoder/analyse.c:677)
+_MODE_BITS_16 = (1, 3, 3, 5)
+_BIG = 1 << 28
+# z-scan blocks whose top-right samples are not yet decoded: the spec
+# substitutes t3 (8.3.1.2.1); z 5's top-right lies in the top-right MB,
+# which the anti-diagonal wavefront has not coded: DDL/VL are never
+# chosen there
+_TR_SUBST_Z = (3, 7, 11, 13, 15)
+_TR_MASK_Z = (5,)
+_I4_COST_BITS = 24   # mb-level signalling cost (x264_mb_analyse_intra)
+
+# key order of the packed table the kernel reads (csrc/intra.cu QTab)
+QTAB_VEC_KEYS = ("y_mf", "y_bias", "y_dmf", "c_mf", "c_bias", "c_dmf")
+QTAB_SCALAR_KEYS = ("y_dmf0", "y_mf_dc", "y_bias_dc", "y_qpdiv6",
+                    "c_dmf0", "c_mf_dc", "c_bias_dc", "c_qpdiv6")
+
+
+def make_qtab(qp_y: int, qp_c: int, device,
+              qt: tables.QuantTables | None = None) -> dict:
+    """Per-QP table slices of the intra encode (x264_tpu make_qtab): luma
+    from CQM_4IY, chroma from CQM_4IC; DC multipliers mf[0] >> 1 and
+    bias[0] << 1 (encoder/macroblock.c:282)."""
+    qt = qt or tables.DEFAULT_QUANT
+    a = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    y, c = tables.CQM_4IY, tables.CQM_4IC
+    return dict(
+        y_mf=a(qt.quant4_mf[y, qp_y]),
+        y_bias=a(qt.quant4_bias[y, qp_y]),
+        y_dmf=a(qt.dequant4_mf[y, qp_y % 6]),
+        y_dmf0=a(qt.dequant4_mf[y, qp_y % 6][0]),
+        y_mf_dc=a(qt.quant4_mf[y, qp_y][0] >> 1),
+        y_bias_dc=a(qt.quant4_bias[y, qp_y][0] << 1),
+        y_qpdiv6=a(qp_y // 6),
+        c_mf=a(qt.quant4_mf[c, qp_c]),
+        c_bias=a(qt.quant4_bias[c, qp_c]),
+        c_dmf=a(qt.dequant4_mf[c, qp_c % 6]),
+        c_dmf0=a(qt.dequant4_mf[c, qp_c % 6][0]),
+        c_mf_dc=a(qt.quant4_mf[c, qp_c][0] >> 1),
+        c_bias_dc=a(qt.quant4_bias[c, qp_c][0] << 1),
+        c_qpdiv6=a(qp_c // 6),
+    )
+
+
+def pack_qtab(qtab: dict) -> torch.Tensor:
+    """The qtab as the one int32 vector csrc/intra.cu reads (6 x 16
+    vectors, then 8 scalars)."""
+    return torch.cat([qtab[k].reshape(-1).to(I32) for k in QTAB_VEC_KEYS]
+                     + [qtab[k].reshape(1).to(I32) for k in QTAB_SCALAR_KEYS])
+
+
+def _blocks4(block, n):
+    """(..., n*4, n*4) -> (..., n, n, 4, 4) raster block order."""
+    s = block.shape[:-2]
+    return block.reshape(*s, n, 4, n, 4).transpose(-3, -2)
+
+
+def _unblocks4(blocks, n):
+    s = blocks.shape[:-4]
+    return blocks.transpose(-3, -2).reshape(*s, n * 4, n * 4)
+
+
+def _pick(preds, mode):
+    """preds (K, M, h, w), mode (K,) -> (K, h, w)."""
+    idx = mode.long()[:, None, None, None].expand(-1, 1, *preds.shape[2:])
+    return preds.gather(1, idx)[:, 0]
+
+
+def _zig(device):
+    return torch.as_tensor(tables.ZIGZAG4, device=device).long()
+
+
+def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam):
+    """I16x16 luma for a batch of MBs: mode decision + residual +
+    reconstruction (x264_mb_analyse_intra + x264_mb_encode_i16x16).
+    Returns dict(cost, mode, recon, dc_z (K,16), ac_z (K,16,16), cbp)."""
+    K, dev = fenc.shape[0], fenc.device
+    zig = _zig(dev)
+    preds = opred.predict_16x16(top, left, topleft, has_top, has_left)
+    avail = opred.mode_available_16x16(has_top, has_left)
+    cost = opix.satd(fenc[:, None], preds) \
+        + lam * torch.tensor(_MODE_BITS_16, dtype=I32, device=dev)
+    cost = torch.where(avail, cost, torch.full_like(cost, _BIG))
+    best_cost = cost.min(-1).values
+    mode = cost.argmin(-1).to(I32)
+    pred = _pick(preds, mode)
+
+    coef = odct.dct4x4(_blocks4(fenc - pred, 4))       # (K,4,4,4,4)
+    dc_raster = coef[..., 0, 0].clone()                # (K,4,4)
+    ac = coef.clone()
+    ac[..., 0, 0] = 0
+    ac_lv = oquant.quant(ac.reshape(K, 16, 16), qtab["y_mf"],
+                         qtab["y_bias"]).reshape(K, 4, 4, 4, 4)
+    cbp_luma = (ac_lv != 0).any(-1).any(-1).any(-1).any(-1)   # (K,)
+    ac_deq = oquant.dequant(ac_lv.reshape(K, 16, 16), qtab["y_dmf"],
+                            qtab["y_qpdiv6"], 4).reshape(K, 4, 4, 4, 4)
+    dc_lv = oquant.quant_dc(odct.hadamard4x4_fwd(dc_raster),
+                            qtab["y_mf_dc"], qtab["y_bias_dc"])
+    dc_rec = oquant.dequant_4x4_dc(odct.hadamard4x4_inv(dc_lv),
+                                   qtab["y_dmf0"], qtab["y_qpdiv6"])
+    ac_deq[..., 0, 0] = dc_rec
+    full = odct.idct4x4(ac_deq)
+    dconly = ((dc_rec + 32) >> 6)[..., None, None].expand_as(full)
+    res = torch.where(cbp_luma[:, None, None, None, None], full, dconly)
+    recon = (pred + _unblocks4(res, 4)).clamp(0, 255)
+
+    zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    ac_z = ac_lv.reshape(K, 16, 16)[:, zorder][:, :, zig]
+    dc_z = dc_lv.reshape(K, 16)[:, zig]
+    return dict(cost=best_cost, mode=mode, recon=recon, dc_z=dc_z,
+                ac_z=ac_z, cbp=cbp_luma)
+
+
+def chroma_residual(fencc, cpred, qtab):
+    """Chroma 8x8 residual path of one channel for a batch of MBs
+    (x264_mb_encode_8x8_chroma, encoder/macroblock.c:272). Returns
+    (recon, dc (K,4) in [c00,c01,c10,c11] order, ac (K,4,16) zig-zag)."""
+    K, zig = fencc.shape[0], _zig(fencc.device)
+    ccoef = odct.dct4x4(_blocks4(fencc - cpred, 2))    # (K,2,2,4,4)
+    cdc = ccoef[..., 0, 0].clone()
+    cac = ccoef.clone()
+    cac[..., 0, 0] = 0
+    cac_lv = oquant.quant(cac.reshape(K, 4, 16), qtab["c_mf"],
+                          qtab["c_bias"]).reshape(K, 2, 2, 4, 4)
+    cnz_ac = (cac_lv != 0).reshape(K, -1).any(-1)
+    cac_deq = oquant.dequant(cac_lv.reshape(K, 4, 16), qtab["c_dmf"],
+                             qtab["c_qpdiv6"], 4).reshape(K, 2, 2, 4, 4)
+    cdc_lv = oquant.quant_dc(odct.hadamard2x2(cdc), qtab["c_mf_dc"],
+                             qtab["c_bias_dc"])
+    cdc_rec = oquant.dequant_2x2_dc(odct.hadamard2x2(cdc_lv),
+                                    qtab["c_dmf0"], qtab["c_qpdiv6"])
+    cac_deq[..., 0, 0] = cdc_rec
+    cfull = odct.idct4x4(cac_deq)
+    cdconly = ((cdc_rec + 32) >> 6)[..., None, None].expand_as(cfull)
+    cres = torch.where(cnz_ac[:, None, None, None, None], cfull, cdconly)
+    crecon = (cpred + _unblocks4(cres, 2)).clamp(0, 255)
+    return crecon, cdc_lv.reshape(K, 4), cac_lv.reshape(K, 4, 16)[..., zig]
+
+
+def luma_i4_path(fenc, top_row, topleft_px, left_col, nbr_modes_top,
+                 nbr_modes_left, has_top, has_left, qtab, lam):
+    """I4x4 luma: 16 blocks in z-scan order, each reading the recon of
+    the blocks before it, batched over MBs (x264_mb_analyse_intra i4x4
+    ladder, encoder/analyse.c:707-843 + x264_mb_encode_i4x4).
+    Returns dict(cost, modes (K,4,4) raster, blocks_z (K,16,16),
+    recon (K,16,16), cbp_bits (K,))."""
+    K, dev = fenc.shape[0], fenc.device
+    zig = _zig(dev)
+    ext = torch.zeros((K, 17, 21), dtype=I32, device=dev)
+    ext[:, 0, 0] = topleft_px
+    ext[:, 0, 1:17] = top_row
+    ext[:, 0, 17:21] = top_row[:, 15:16]
+    ext[:, 1:17, 0] = left_col
+    modes_r = torch.full((K, 4, 4), 2, dtype=I32, device=dev)
+    total_cost = torch.zeros(K, dtype=I32, device=dev)
+    blocks_z = torch.zeros((K, 16, 16), dtype=I32, device=dev)
+    nnz_z = torch.zeros((K, 16), dtype=I32, device=dev)
+    mode_ids = torch.arange(9, dtype=I32, device=dev)
+    ones = torch.ones_like(has_top)
+
+    for z in range(16):
+        bx, by = (int(v) for v in tables.LUMA4x4_BLOCK_XY[z])
+        t = ext[:, 4 * by, 1 + 4 * bx:5 + 4 * bx]
+        tl = ext[:, 4 * by, 4 * bx]
+        left = ext[:, 1 + 4 * by:5 + 4 * by, 4 * bx]
+        if z in _TR_SUBST_Z or z in _TR_MASK_Z:
+            tr = t[:, 3:4].expand(K, 4)
+        else:
+            tr = ext[:, 4 * by, 5 + 4 * bx:9 + 4 * bx]
+        ht = has_top if by == 0 else ones
+        hl = has_left if bx == 0 else ones
+        preds = opred.predict_4x4(left, tl, t, tr, ht, hl)   # (K,9,4,4)
+        avail = opred.mode_available_4x4(ht, hl)
+        if z in _TR_MASK_Z:
+            avail = avail.clone()
+            avail[:, 3] = False
+            avail[:, 7] = False
+        lmode = modes_r[:, by, bx - 1] if bx > 0 else nbr_modes_left[:, by]
+        tmode = modes_r[:, by - 1, bx] if by > 0 else nbr_modes_top[:, bx]
+        mpm = torch.minimum(lmode, tmode)
+
+        fb = fenc[:, 4 * by:4 * by + 4, 4 * bx:4 * bx + 4]
+        bits = torch.where(mode_ids[None, :] == mpm[:, None], 1, 4).to(I32)
+        cost = torch.where(avail, opix.satd(fb[:, None], preds) + lam * bits,
+                           torch.full((K, 9), _BIG, dtype=I32, device=dev))
+        mode = cost.argmin(-1).to(I32)
+        total_cost = total_cost + cost.min(-1).values
+        pred = _pick(preds, mode)
+
+        lv = oquant.quant(odct.dct4x4(fb - pred).reshape(K, 16),
+                          qtab["y_mf"], qtab["y_bias"])
+        deq = oquant.dequant(lv, qtab["y_dmf"], qtab["y_qpdiv6"], 4)
+        rec = (pred + odct.idct4x4(deq.reshape(K, 4, 4))).clamp(0, 255)
+        ext[:, 1 + 4 * by:5 + 4 * by, 1 + 4 * bx:5 + 4 * bx] = rec
+        modes_r[:, by, bx] = mode
+        blocks_z[:, z] = lv[:, zig]
+        nnz_z[:, z] = (lv != 0).sum(-1, dtype=I32)
+
+    # an 8x8 group with no nonzero level is not coded; its levels are
+    # already zero, so the recon needs no re-walk (nothing is dropped
+    # that the decoder would see)
+    cbp8 = nnz_z.reshape(K, 4, 4).sum(-1) > 0
+    cbp_bits = (cbp8 * torch.tensor([1, 2, 4, 8], device=dev)).sum(
+        -1, dtype=I32)
+    return dict(cost=total_cost + lam * _I4_COST_BITS, modes=modes_r,
+                blocks_z=blocks_z, recon=ext[:, 1:17, 1:17],
+                cbp_bits=cbp_bits)
+
+
+def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
+    """Plain version of K1: the x+y wavefront over whole diagonals.
+
+    y: (mb_h*16, mb_w*16) int32; u, v: (mb_h*8, mb_w*8) int32; qtab from
+    make_qtab on the same device; lam: the frame's lambda. Returns the
+    dict of x264_tpu's encode_i16_frame(..., i4x4=True): recon planes
+    and the per-MB syntax planes."""
+    dev = y.device
+    ty = torch.zeros((mb_h, mb_w, 16, 16), dtype=I32, device=dev)
+    tu = torch.zeros((mb_h, mb_w, 8, 8), dtype=I32, device=dev)
+    tv = torch.zeros_like(tu)
+    y_t = y.to(I32).reshape(mb_h, 16, mb_w, 16).transpose(1, 2)
+    u_t = u.to(I32).reshape(mb_h, 8, mb_w, 8).transpose(1, 2)
+    v_t = v.to(I32).reshape(mb_h, 8, mb_w, 8).transpose(1, 2)
+    z = lambda *s: torch.zeros(s, dtype=I32, device=dev)
+    out = dict(mode16=z(mb_h, mb_w), modec=z(mb_h, mb_w),
+               luma_dc=z(mb_h, mb_w, 16), luma_ac=z(mb_h, mb_w, 16, 16),
+               chroma_dc=z(mb_h, mb_w, 2, 4),
+               chroma_ac=z(mb_h, mb_w, 2, 4, 16),
+               i4_mb=torch.zeros((mb_h, mb_w), dtype=torch.bool, device=dev),
+               i4_modes=torch.full((mb_h, mb_w, 4, 4), 2, dtype=I32,
+                                   device=dev),
+               cbp_luma_bits=z(mb_h, mb_w))
+
+    for d in range(mb_h + mb_w - 1):
+        y0 = max(0, d - (mb_w - 1))
+        ys = torch.arange(y0, min(mb_h - 1, d) + 1, device=dev)
+        xs = d - ys
+        ym, xm = (ys - 1).clamp(min=0), (xs - 1).clamp(min=0)
+        has_top, has_left = ys > 0, xs > 0
+
+        fenc = y_t[ys, xs]
+        top = ty[ym, xs, 15, :]
+        left = ty[ys, xm, :, 15]
+        topleft = ty[ym, xm, 15, 15]
+        lp = luma_i16_path(fenc, top, left, topleft, has_top, has_left,
+                           qtab, lam)
+        two = torch.full((ys.shape[0], 4), 2, dtype=I32, device=dev)
+        nmt = torch.where(has_top[:, None], out["i4_modes"][ym, xs, 3, :],
+                          two)
+        nml = torch.where(has_left[:, None], out["i4_modes"][ys, xm, :, 3],
+                          two)
+        lp4 = luma_i4_path(fenc, top, topleft, left, nmt, nml, has_top,
+                           has_left, qtab, lam)
+        use_i4 = lp4["cost"] < lp["cost"]
+        sel = use_i4[:, None, None]
+        ty[ys, xs] = torch.where(sel, lp4["recon"], lp["recon"])
+        out["luma_ac"][ys, xs] = torch.where(sel, lp4["blocks_z"],
+                                             lp["ac_z"])
+        out["luma_dc"][ys, xs] = torch.where(use_i4[:, None], 0, lp["dc_z"])
+        out["cbp_luma_bits"][ys, xs] = torch.where(
+            use_i4, lp4["cbp_bits"], torch.where(lp["cbp"], 15, 0).to(I32))
+        out["i4_modes"][ys, xs] = torch.where(sel, lp4["modes"], 2)
+        out["i4_mb"][ys, xs] = use_i4
+        out["mode16"][ys, xs] = lp["mode"]
+
+        cp = []
+        for t_ref, c_t in ((tu, u_t), (tv, v_t)):
+            fencc = c_t[ys, xs]
+            cpreds = opred.predict_8x8c(t_ref[ym, xs, 7, :],
+                                        t_ref[ys, xm, :, 7],
+                                        t_ref[ym, xm, 7, 7],
+                                        has_top, has_left)
+            cp.append((fencc, cpreds, opix.satd(fencc[:, None], cpreds)))
+        cavail = opred.mode_available_8x8c(has_top, has_left)
+        ccost = cp[0][2] + cp[1][2]
+        cmode = torch.where(cavail, ccost, _BIG).argmin(-1).to(I32)
+        out["modec"][ys, xs] = cmode
+        for ch, ((fencc, cpreds, _), t_ref) in enumerate(zip(cp, (tu, tv))):
+            rec, dc, ac = chroma_residual(fencc, _pick(cpreds, cmode), qtab)
+            t_ref[ys, xs] = rec
+            out["chroma_dc"][ys, xs, ch] = dc
+            out["chroma_ac"][ys, xs, ch] = ac
+
+    untile = lambda t: t.transpose(1, 2).reshape(
+        mb_h * t.shape[2], mb_w * t.shape[3])
+    return dict(recon_y=untile(ty), recon_u=untile(tu), recon_v=untile(tv),
+                **out)
+
+
+# ---------------------------------------------------------------- K1
+_P4_TAB = {}
+
+
+def _p4_tab(device):
+    """The 4x4 predictor gather tables (ops/predict.py) on `device`, as
+    the kernel reads them: 9*16*3 indices, then 9*16*3 weights."""
+    if device not in _P4_TAB:
+        tab = np.concatenate([opred.P4_IDX.ravel(), opred.P4_WGT.ravel()])
+        _P4_TAB[device] = torch.as_tensor(tab.astype(np.int32),
+                                          device=device)
+    return _P4_TAB[device]
+
+
+def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
+    """K1 `intra_diag`: the intra encode of one frame.
+
+    Replaces x264_tpu/encoder/intra.py:encode_i16_frame (with i4x4=True,
+    i8x8=False, lossless=False). On a CUDA tensor it launches
+    csrc/intra.cu once per anti-diagonal (mb_h + mb_w - 1 launches, one
+    CTA per MB of the diagonal); on a CPU tensor it runs the plain
+    version. Inputs and outputs as encode_i16_frame_plain."""
+    if y.device.type == "cpu":
+        return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam)
+    dev = y.device
+    H, W = mb_h * 16, mb_w * 16
+    cuda.check(y, (H, W), I32, "y")
+    cuda.check(u, (H // 2, W // 2), I32, "u")
+    cuda.check(v, (H // 2, W // 2), I32, "v")
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
+             recon_v=e(H // 2, W // 2), mode16=e(mb_h, mb_w),
+             modec=e(mb_h, mb_w), luma_dc=e(mb_h, mb_w, 16),
+             luma_ac=e(mb_h, mb_w, 16, 16), chroma_dc=e(mb_h, mb_w, 2, 4),
+             chroma_ac=e(mb_h, mb_w, 2, 4, 16),
+             i4_mb=e(mb_h, mb_w, dt=torch.bool),
+             i4_modes=e(mb_h, mb_w, 4, 4), cbp_luma_bits=e(mb_h, mb_w))
+    ins = (y, u, v, pack_qtab(qtab), _p4_tab(dev))
+    ptrs = [t.data_ptr() for t in ins] + [o[k].data_ptr() for k in o]
+    stream = cuda.stream(dev)
+    for d in range(mb_h + mb_w - 1):
+        cuda.launch("intra", "intra_diag", "p" * 17 + "iiii" + "p",
+                    *ptrs, mb_h, mb_w, d, lam, stream)
+        encode_i16_frame.launches += 1
+    return o
+
+
+encode_i16_frame.launches = 0

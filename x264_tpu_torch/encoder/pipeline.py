@@ -1,0 +1,74 @@
+"""The per-frame device pipeline of an intra CABAC frame.
+
+The PyTorch re-expression of x264_tpu/encoder/pipeline.py's
+encode_i16_idr_cabac: the intra wavefront (K1), the CABAC op stream
+(K3), the in-loop deblocking filter (K2) and the frame metrics (K4) are
+queued on the device's current stream; only the op stream and one small
+int32 vector cross to the host (x264_slice_write,
+encoder/encoder.c:1141, plus x264_frame_deblock_row and the stats of
+encoder/encoder.c:1034-1056).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..entropy import cabac_planes
+from ..ops import deblock as odeblock
+from . import intra
+from . import stats as estats
+
+I32 = torch.int32
+
+_ZERO_MAPS: dict = {}
+
+
+def _zero_maps(mb_h: int, mb_w: int, device):
+    """All-intra deblock inputs: intra flags, zero nnz / ref / mv maps."""
+    key = (mb_h, mb_w, str(device))
+    if key not in _ZERO_MAPS:
+        z4 = torch.zeros((mb_h * 4, mb_w * 4), dtype=I32, device=device)
+        _ZERO_MAPS[key] = (
+            torch.ones((mb_h, mb_w), dtype=torch.bool, device=device), z4,
+            torch.zeros((mb_h * 4, mb_w * 4, 2), dtype=I32, device=device))
+    return _ZERO_MAPS[key]
+
+
+def host32_pack(first, oy, ou, ov, ry, ru, rv, crop_w: int, crop_h: int,
+                with_metrics: bool):
+    """Everything the host needs per frame in one int32 vector:
+    [first..., ssd_y, ssd_u, ssd_v, ssim] with the float32 metrics
+    bit-cast to int32 (x264_tpu pipeline.host32_pack); the metrics come
+    from K4."""
+    dev = oy.device
+    head = torch.stack([torch.as_tensor(x, device=dev).to(I32).reshape(())
+                        for x in first])
+    if with_metrics:
+        m = estats.frame_metrics(oy, ou, ov, ry, ru, rv, crop_w, crop_h)
+    else:
+        m = torch.zeros(4, dtype=torch.float32, device=dev)
+    return torch.cat([head, m.view(I32)])
+
+
+def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
+                         qtab: dict, lam: int, qp: int, alpha_off: int,
+                         beta_off: int, chroma_qp_offset: int,
+                         crop_w: int, crop_h: int,
+                         with_metrics: bool) -> dict:
+    """One IDR frame, CABAC entropy. y / u / v: int32 MB-aligned planes on
+    the device; crop_w x crop_h the output size the metrics cover.
+    Returns dict(recon_y/u/v (deblocked when deblock_on), ops (int32 op
+    stream, the first n_ops live), host32 = [n_ops, nmb, 0, ssd_y, ssd_u,
+    ssd_v, ssim])."""
+    out = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam)
+    ops, n_ops = cabac_planes.i_slice_ops(out, mb_h, mb_w)
+    ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
+    if deblock_on:
+        intra_mb, z4, zmv = _zero_maps(mb_h, mb_w, y.device)
+        qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
+        ry, ru, rv = odeblock.deblock_frame(
+            mb_h, mb_w, ry, ru, rv, qp_mb, intra_mb, z4, z4, zmv, z4, zmv,
+            False, alpha_off, beta_off, chroma_qp_offset)
+    h32 = host32_pack([n_ops, mb_h * mb_w, 0], y, u, v, ry, ru, rv,
+                      crop_w, crop_h, with_metrics)
+    return dict(recon_y=ry, recon_u=ru, recon_v=rv, ops=ops, host32=h32)

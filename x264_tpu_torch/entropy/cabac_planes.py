@@ -1,0 +1,303 @@
+"""CABAC bin-operation stream of an intra slice — plain PyTorch twin of
+x264_tpu/entropy/cabac_planes.py (i16_slice_ops + compact_ops) and the
+wrapper of its CUDA kernels (csrc/cabac_ops.cu, kernel K3).
+
+The MB syntax of a whole slice becomes a stream of packed bin ops in
+syntax order; the serial arithmetic coder (native/cabac.c) consumes it.
+The plain version builds JAX's fixed per-MB slot planes (a pad op where
+a bin is absent) and compacts them; the kernel emits each MB's live ops
+directly. Context indices and binarizations follow spec 9.3.2 / 9.3.3
+as realised in encoder/cabac.c (x264_cabac_mb_type:64,
+cbf_ctxidxinc:508, block_residual_write_cabac:584).
+
+Op packing (uint32, carried as int32 bit patterns): kind << 29 | b << 17
+| a (see entropy/cabac.py). This slice codes I16x16 + I4x4 MBs at one
+QP; the 8x8 transform (cat 5, transform_size_8x8_flag), I8x8 modes and
+mb_qp_delta values from AQ come with later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cuda
+from .. import tables
+
+I32 = torch.int32
+I64 = torch.int64
+
+(KIND_DECISION, KIND_BYPASS, KIND_UE, KIND_TERMINAL, KIND_PAD, KIND_ONES,
+ KIND_SIGMAP, KIND_LEVEL) = range(8)
+PAD_OP = KIND_PAD << 29
+
+# op-stream capacity per MB: an I MB emits at most 537 live ops (header
+# 8, pred modes 64, header2 10, luma DC 18, 16 luma blocks of 18, chroma
+# DC 2 x 6, chroma AC 8 x 17, terminal 1), as x264_tpu sizes it
+OPS_PER_MB = 560
+
+
+def capacity(nmb: int) -> int:
+    return nmb * OPS_PER_MB + 4096
+
+
+def op(kind: int, a, b):
+    """Pack ops elementwise into int64 (the uint32 value)."""
+    return (kind << 29) | (torch.as_tensor(b).to(I64) << 17) \
+        | torch.as_tensor(a).to(I64)
+
+
+def _sel(active, ops):
+    return torch.where(active, ops, torch.full_like(ops, PAD_OP))
+
+
+def residual_block_ops(coeffs, cat: int, cbf_ctx, coded):
+    """Packed ops of N residual blocks (block_residual_write_cabac,
+    encoder/cabac.c:584): coded_block_flag, one KIND_SIGMAP op carrying
+    the significance mask (bits i < C-1) and b = cat | last << 3, then one
+    KIND_LEVEL op per nonzero coefficient in reverse scan order
+    (a = |level| - 1, b = sign). coeffs: (N, C) in scan order; cbf_ctx:
+    (N,) the 2*nzb + nza increment; coded: (N,) bool. Returns (N, 2 + C)
+    int64 slot planes."""
+    N, C = coeffs.shape
+    dev = coeffs.device
+    coeffs = coeffs.to(I64)
+    nz = coeffs != 0
+    total = nz.sum(1)
+    has = total > 0
+    pos = torch.arange(C, device=dev)
+    last = torch.where(nz, pos, -1).max(1).values
+    slots = [_sel(coded, op(KIND_DECISION, 85 + 4 * cat + cbf_ctx, has))]
+    write_res = coded & has
+    mask = (nz[:, :C - 1].to(I64) << pos[:C - 1]).sum(1)
+    slots.append(_sel(write_res, op(KIND_SIGMAP, mask, cat | (last << 3))))
+    order = torch.argsort(-torch.where(nz, pos, -1), dim=1, stable=True)
+    lvl = coeffs.gather(1, order)
+    for j in range(C):
+        l = lvl[:, j]
+        slots.append(_sel(write_res & (j < total),
+                          op(KIND_LEVEL, (l.abs() - 1).clamp(max=0x1FFFF),
+                             l < 0)))
+    return torch.stack(slots, 1)
+
+
+def _nbr_grids(flag_map, unavail: int):
+    """(left, top) neighbour values on a grid; outside the frame =
+    unavail."""
+    a = torch.full_like(flag_map, unavail)
+    a[:, 1:] = flag_map[:, :-1]
+    b = torch.full_like(flag_map, unavail)
+    b[1:, :] = flag_map[:-1, :]
+    return a, b
+
+
+def _z_of(grid, mb_h, mb_w, R):
+    """(mb_h*4, mb_w*4) block grid -> (nmb, 16) in z-scan order."""
+    return grid.reshape(mb_h, 4, mb_w, 4).transpose(1, 2) \
+        .reshape(mb_h * mb_w, 16)[:, R]
+
+
+def i4_pred_mode_ops(i4_mb, i4_modes, mb_h: int, mb_w: int):
+    """Intra 4x4 pred-mode bins in z-scan order, 4 slots per block
+    (x264_cabac_mb_intra4x4_pred_mode, encoder/cabac.c:199): prev flag at
+    ctx 68, then the 3-bit remainder at ctx 69."""
+    nmb = mb_h * mb_w
+    R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z,
+                        device=i4_modes.device).long()
+    grid = i4_modes.transpose(1, 2).reshape(mb_h * 4, mb_w * 4).to(I64)
+    lg, tg = _nbr_grids(grid, 2)
+    mpm = torch.minimum(lg, tg)
+    eq = _z_of(grid == mpm, mb_h, mb_w, R)
+    rem = _z_of(grid - (grid > mpm).to(I64), mb_h, mb_w, R)
+    i4f = i4_mb.reshape(nmb)
+    slots = []
+    for i in range(16):
+        slots.append(_sel(i4f, op(KIND_DECISION, 68, eq[:, i])))
+        for k in range(3):
+            slots.append(_sel(i4f & ~eq[:, i],
+                              op(KIND_DECISION, 69, (rem[:, i] >> k) & 1)))
+    return torch.stack(slots, 1)
+
+
+def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
+    """Packed op planes of a whole intra CABAC slice (I16x16 + I4x4), in
+    syntax order (x264_macroblock_write_cabac intra paths,
+    encoder/cabac.c:781-1025, plus the end_of_slice terminal after every
+    MB but the last). `out` holds the syntax planes of the intra encode.
+    Returns the flat int64 slot stream."""
+    nmb = mb_h * mb_w
+    dev = out["mode16"].device
+    R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    luma_dc = out["luma_dc"].reshape(nmb, 16)
+    luma_ac = out["luma_ac"].reshape(nmb, 16, 16)
+    chroma_dc = out["chroma_dc"].reshape(nmb, 2, 4)
+    chroma_ac = out["chroma_ac"].reshape(nmb, 2, 4, 16)
+    mode16 = out["mode16"].reshape(nmb).to(I64)
+    modec = out["modec"].reshape(mb_h, mb_w).to(I64)
+    i4_mb = out["i4_mb"].reshape(mb_h, mb_w)
+    cbp_l_bits = out["cbp_luma_bits"].reshape(mb_h, mb_w).to(I64)
+    i4f = i4_mb.reshape(nmb)
+    cbp_lf = cbp_l_bits.reshape(nmb)
+    cbp_luma16 = ~i4f & (cbp_lf > 0)
+
+    cnz_ac = (chroma_ac[..., 1:] != 0).reshape(nmb, -1).any(1)
+    cnz_dc = (chroma_dc != 0).reshape(nmb, -1).any(1)
+    cbp_chroma = torch.where(cnz_ac, 2, torch.where(cnz_dc, 1, 0)).to(I64)
+
+    ymb, xmb = torch.meshgrid(torch.arange(mb_h, device=dev),
+                              torch.arange(mb_w, device=dev), indexing="ij")
+    avail_l = (xmb > 0).reshape(nmb)
+    avail_t = (ymb > 0).reshape(nmb)
+
+    # mb_type: ctxInc counts the available non-I4x4 neighbours
+    ni4_l, ni4_t = _nbr_grids((~i4_mb).to(I64), 0)
+    ctx_mbtype = 3 + (avail_l & (ni4_l.reshape(nmb) > 0)).to(I64) \
+        + (avail_t & (ni4_t.reshape(nmb) > 0)).to(I64)
+    term = torch.full((nmb,), KIND_TERMINAL << 29, dtype=I64, device=dev)
+    header1 = torch.stack([
+        op(KIND_DECISION, ctx_mbtype, ~i4f),
+        _sel(~i4f, term),
+        _sel(~i4f, op(KIND_DECISION, 6, cbp_luma16)),
+        _sel(~i4f, op(KIND_DECISION, 7, cbp_chroma > 0)),
+        _sel(~i4f & (cbp_chroma > 0),
+             op(KIND_DECISION, 8, cbp_chroma == 2)),
+        _sel(~i4f, op(KIND_DECISION, 9, mode16 >> 1)),
+        _sel(~i4f, op(KIND_DECISION, 10, mode16 & 1))], 1)
+
+    pm_ops = i4_pred_mode_ops(i4_mb, out["i4_modes"], mb_h, mb_w)
+
+    cm_l, cm_t = _nbr_grids(modec, 0)
+    cctx = (64 + (cm_l != 0).to(I64) + (cm_t != 0).to(I64)).reshape(nmb)
+    cm = modec.reshape(nmb)
+    h2 = [op(KIND_DECISION, cctx, cm > 0),
+          _sel(cm > 0, op(KIND_DECISION, 67, cm > 1)),
+          _sel(cm > 1, op(KIND_DECISION, 67, cm > 2))]
+    # coded_block_pattern for I_4x4 (x264_cabac_mb_cbp_luma / _chroma)
+    cb = cbp_l_bits
+    cbl_l, cbl_t = _nbr_grids(cb, -1)
+    ctxs = (76 - ((cbl_l >> 1) & 1) - ((cbl_t >> 1) & 2),
+            76 - (cb & 1) - ((cbl_t >> 2) & 2),
+            76 - ((cbl_l >> 3) & 1) - ((cb << 1) & 2),
+            76 - ((cb >> 2) & 1) - (cb & 2))
+    for k, cx in enumerate(ctxs):
+        h2.append(_sel(i4f, op(KIND_DECISION, cx.reshape(nmb),
+                               (cbp_lf >> k) & 1)))
+    cbc_l, cbc_t = _nbr_grids(cbp_chroma.reshape(mb_h, mb_w), -1)
+    c0 = 77 + (cbc_l > 0).to(I64) + 2 * (cbc_t > 0).to(I64)
+    c1 = 81 + (cbc_l == 2).to(I64) + 2 * (cbc_t == 2).to(I64)
+    h2.append(_sel(i4f, op(KIND_DECISION, c0.reshape(nmb), cbp_chroma > 0)))
+    h2.append(_sel(i4f & (cbp_chroma > 0),
+                   op(KIND_DECISION, c1.reshape(nmb), cbp_chroma == 2)))
+    # mb_qp_delta = 0 (one QP per slice; x264_cabac_mb_qp_delta,
+    # encoder/cabac.c:271)
+    has_dqp = ~i4f | (cbp_lf > 0) | (cbp_chroma > 0)
+    h2.append(_sel(has_dqp, op(KIND_DECISION, 60, 0)))
+    header2 = torch.stack(h2, 1)
+
+    # coded_block_flag neighbour contexts (cbf_ctxidxinc,
+    # encoder/cabac.c:508); outside the frame counts as coded (I slice)
+    dc_nz = ((luma_dc != 0).any(-1).reshape(mb_h, mb_w) & ~i4_mb).to(I64)
+    a, b = _nbr_grids(dc_nz, 1)
+    ctx_dc = (2 * b + a).reshape(nmb)
+    grp = torch.arange(16, device=dev) // 4
+    blk_coded = ((cbp_lf[:, None] >> grp) & 1) > 0          # (nmb,16) z
+    counts_z = ((luma_ac != 0).any(-1) & blk_coded).to(I64)
+    counts_raster = torch.zeros_like(counts_z)
+    counts_raster[:, R] = counts_z
+    lmap = counts_raster.reshape(mb_h, mb_w, 4, 4).transpose(1, 2) \
+        .reshape(mb_h * 4, mb_w * 4)
+    a, b = _nbr_grids(lmap, 1)
+    ctx_ac = _z_of(2 * b + a, mb_h, mb_w, R)
+    ctx_cdc, ctx_cac = [], []
+    for ch in range(2):
+        dcm = (chroma_dc[:, ch] != 0).any(-1).reshape(mb_h, mb_w).to(I64)
+        a, b = _nbr_grids(dcm, 1)
+        ctx_cdc.append((2 * b + a).reshape(nmb))
+        acm = (chroma_ac[:, ch, :, 1:] != 0).any(-1).to(I64) \
+            .reshape(mb_h, mb_w, 2, 2).transpose(1, 2) \
+            .reshape(mb_h * 2, mb_w * 2)
+        a, b = _nbr_grids(acm, 1)
+        ctx_cac.append((2 * b + a).reshape(mb_h, 2, mb_w, 2).transpose(1, 2)
+                       .reshape(nmb, 4))
+    ctx_cdc = torch.stack(ctx_cdc, 1)
+    ctx_cac = torch.stack(ctx_cac, 1)
+
+    # residual blocks: I16 = DC cat 0 + AC cat 1; I4x4 = cat 2
+    dc_ops = residual_block_ops(luma_dc, 0, ctx_dc, ~i4f)
+    ac15 = residual_block_ops(luma_ac[..., 1:].reshape(nmb * 16, 15), 1,
+                              ctx_ac.reshape(nmb * 16),
+                              (~i4f & (cbp_lf > 0)).repeat_interleave(16))
+    full16 = residual_block_ops(luma_ac.reshape(nmb * 16, 16), 2,
+                                ctx_ac.reshape(nmb * 16),
+                                i4f.repeat_interleave(16)
+                                & blk_coded.reshape(nmb * 16))
+    ac15p = torch.cat([ac15, torch.full((nmb * 16, 1), PAD_OP, dtype=I64,
+                                        device=dev)], 1)
+    blk_ops = torch.where(i4f.repeat_interleave(16)[:, None], full16,
+                          ac15p).reshape(nmb, -1)
+    cdc_ops = residual_block_ops(chroma_dc.reshape(nmb * 2, 4), 3,
+                                 ctx_cdc.reshape(nmb * 2),
+                                 (cbp_chroma > 0).repeat_interleave(2))
+    cac_ops = residual_block_ops(chroma_ac[..., 1:].reshape(nmb * 8, 15), 4,
+                                 ctx_cac.reshape(nmb * 8),
+                                 (cbp_chroma == 2).repeat_interleave(8))
+    is_last = torch.arange(nmb, device=dev) == nmb - 1
+    return torch.cat([header1, pm_ops, header2, dc_ops, blk_ops,
+                      cdc_ops.reshape(nmb, -1), cac_ops.reshape(nmb, -1),
+                      _sel(~is_last, term)[:, None]], 1).reshape(-1)
+
+
+def compact_ops(ops_flat, cap: int):
+    """Drop pad ops, keeping order. Returns (int32 ops of length cap,
+    zero past the count; int32 count)."""
+    live = ops_flat[(ops_flat >> 29) != KIND_PAD]
+    n = live.numel()
+    if n > cap:
+        raise RuntimeError(f"CABAC op stream overflowed ({n} > {cap})")
+    res = torch.zeros(cap, dtype=I32, device=ops_flat.device)
+    res[:n] = torch.where(live >= 1 << 31, live - (1 << 32), live).to(I32)
+    return res, torch.tensor(n, dtype=I32, device=ops_flat.device)
+
+
+def i_slice_ops_plain(out: dict, mb_h: int, mb_w: int):
+    """Plain version of K3: compact_ops(i16_slice_ops(out))."""
+    return compact_ops(i16_slice_ops(out, mb_h, mb_w), capacity(mb_h * mb_w))
+
+
+# ---------------------------------------------------------------- K3
+def i_slice_ops(out: dict, mb_h: int, mb_w: int):
+    """K3 `cabac_i_ops`: the compacted op stream of an intra slice.
+
+    Replaces x264_tpu/entropy/cabac_planes.py:i16_slice_ops followed by
+    compact_ops. On CUDA tensors it runs csrc/cabac_ops.cu's three
+    kernels: one thread per MB emits the MB's live ops and counts them,
+    one CTA scans the counts, and a scatter packs the dense stream.
+    Returns (ops int32 (capacity,), n_ops int32 0-d tensor); entries at
+    and past n_ops are unspecified on the card (zero in the plain
+    version). On CPU tensors it runs the plain version."""
+    if out["mode16"].device.type == "cpu":
+        return i_slice_ops_plain(out, mb_h, mb_w)
+    dev = out["mode16"].device
+    nmb = mb_h * mb_w
+    shapes = dict(mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
+                  i4_mb=((mb_h, mb_w), torch.bool),
+                  i4_modes=((mb_h, mb_w, 4, 4), I32),
+                  cbp_luma_bits=((mb_h, mb_w), I32),
+                  luma_dc=((mb_h, mb_w, 16), I32),
+                  luma_ac=((mb_h, mb_w, 16, 16), I32),
+                  chroma_dc=((mb_h, mb_w, 2, 4), I32),
+                  chroma_ac=((mb_h, mb_w, 2, 4, 16), I32))
+    for k, (shape, dt) in shapes.items():
+        cuda.check(out[k], shape, dt, k)
+    scratch = torch.empty(nmb * OPS_PER_MB, dtype=I32, device=dev)
+    counts = torch.empty(nmb, dtype=I32, device=dev)
+    offsets = torch.empty(nmb + 1, dtype=I32, device=dev)
+    ops = torch.empty(capacity(nmb), dtype=I32, device=dev)
+    cuda.launch("cabac_ops", "cabac_i_ops", "p" * 13 + "ii" + "p",
+                *[out[k].data_ptr() for k in shapes],
+                scratch.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+                ops.data_ptr(), mb_h, mb_w, cuda.stream(dev))
+    i_slice_ops.launches += 3          # emit, scan, scatter
+    return ops, offsets[nmb]
+
+
+i_slice_ops.launches = 0

@@ -1,0 +1,56 @@
+"""Quantization / dequantization, batched, bit-exact (common/quant.c:33-178)
+— plain PyTorch twins of x264_tpu/ops/quant.py.
+
+Every function takes int32 coefficient tensors with arbitrary leading
+dims and per-call tables that broadcast against them. The scalar shift
+parameters (qp // 6) are Python ints or 0-d tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+I32 = torch.int32
+
+
+def quant(coef, mf, bias):
+    """Deadzone quantization (QUANT_ONE, common/quant.c:33):
+    level = sign(c) * ((bias + |c|) * mf >> 16)."""
+    coef = coef.to(I32)
+    mag = ((bias + coef.abs()) * mf) >> 16
+    return torch.where(coef >= 0, mag, -mag)
+
+
+def dequant(level, dmf, qp_div6, shift_base: int):
+    """dequant_4x4 (common/quant.c:76-146): i_qbits = qp/6 - shift_base,
+    left shift when non-negative, rounded right shift otherwise."""
+    qbits = int(qp_div6) - shift_base
+    prod = level.to(I32) * dmf
+    if qbits >= 0:
+        return prod << qbits
+    return (prod + (1 << (-qbits - 1))) >> -qbits
+
+
+def quant_dc(coef, mf0, bias0):
+    """quant_4x4_dc / quant_2x2_dc (common/quant.c:58-74); callers pass
+    mf0 = mf[0] >> 1 and bias0 = bias[0] << 1 (encoder/macroblock.c:282)."""
+    return quant(coef, mf0, bias0)
+
+
+def dequant_4x4_dc(level, dmf0, qp_div6):
+    """dequant_4x4_dc (common/quant.c:148), after the inverse Hadamard:
+    i_qbits = qp/6 - 6."""
+    qbits = int(qp_div6) - 6
+    level = level.to(I32)
+    if qbits >= 0:
+        return level * (dmf0 << qbits)
+    return (level * dmf0 + (1 << (-qbits - 1))) >> -qbits
+
+
+def dequant_2x2_dc(hadamard_out, dmf0, qp_div6):
+    """Chroma DC dequant after the inverse 2x2 Hadamard
+    (idct_dequant_2x2_dc, encoder/macroblock.c:53-60):
+    (x * dmf) >> (5 - qp/6), dmf pre-shifted when qp/6 > 5; no rounding."""
+    qbits = int(qp_div6) - 5
+    dmf_eff = dmf0 << max(qbits, 0)
+    return (hadamard_out.to(I32) * dmf_eff) >> max(-qbits, 0)
