@@ -12,12 +12,21 @@ Phases; any failure exits non-zero before the result line:
      plain PyTorch version on the card (K1-K3 exact, K4 within relative
      1e-6 on the SSDs and 1e-5 on the SSIM sum) and timed beside it;
      then the host time to queue K1's and K2's launches, and one frame's
-     split: kernels, d2h of the op stream, host CABAC;
-  4. main path: x264_tpu_torch.Encoder on eight 1920x1080 frames,
-     all-intra (keyint 1), CQP 26, CABAC, no 8x8 transform, deblocking
-     and PSNR / SSIM on, i_frame_parallel 3. Every kernel's launch count
-     must rise during the run, and frame 0's payload and recon must equal
-     those of Encoder(device="cpu") (the plain versions) on that frame.
+     split: kernels, d2h of the op stream, host CABAC. Then the P-frame
+     kernels K5-K8, and K2 with P maps, exact against their plain
+     versions on frame 1 against frame 0's deblocked recon; K5-K8 once
+     more against that recon with 30% of its 64x64 blocks (seeded)
+     flattened to gray, so that many MBs go intra and intra chains deeper
+     than the three sweeps are demoted; and one P frame's split;
+  4. the all-intra main path: x264_tpu_torch.Encoder on four 1920x1080
+     frames, all-intra (keyint 1), CQP 26, CABAC, no 8x8 transform,
+     deblocking and PSNR / SSIM on, i_frame_parallel 3. K1-K4's launch
+     counts must rise, and frame 0's payload and recon must equal those
+     of Encoder(device="cpu") (the plain versions) on that frame;
+  5. the IPPP main path: Encoder on sixteen 1920x1080 frames, keyint
+     250, subme 1, one reference, scenecut 0, no B frames, otherwise as
+     in 4. Every kernel's launch count (K1-K8) must rise, and frames 0-2
+     (IDR, P, P) must equal the CPU run's payloads and recons.
 The line before the last is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
@@ -35,7 +44,9 @@ import torch
 
 W, H = 1920, 1080
 QP = 26
-N_FRAMES = 8
+N_INTRA = 4                    # frames of the all-intra main path
+N_IPPP = 16                    # frames of the IPPP main path
+N_CHECK = 3                    # IPPP frames held against the CPU run
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
 # sheet gives no int32 rate, so its non-tensor float32 rate stands in
@@ -50,6 +61,15 @@ K1_OPS_PER_MB = 57_000
 K2_OPS_PER_MB = 7_700
 K3_OPS_PER_OP, K3_OPS_PER_MB = 10, 2_000
 K4_OPS_PER_PX = 50
+# K5: |a - b| and the sum, 3 ops per sample of every SAD it takes; K6 per
+# MB: the chroma 1/8-pel filter (128 samples x 12 ops) and 24 blocks of
+# DCT, quant, decimate score, dequant, IDCT and recon (~350 ops each);
+# K7 per MB and sweep: 4 I16 + 2x4x4 chroma SATD blocks, the two
+# predictions and 24 blocks of transforms (sweep 0 runs every MB, sweeps
+# 1 and 2 only the intra ones)
+K5_OPS_PER_SAMPLE = 3
+K6_OPS_PER_MB = 10_000
+K7_OPS_PER_MB_SWEEP = 25_000
 
 
 def fail(msg: str) -> None:
@@ -73,12 +93,19 @@ def make_frames(w: int, h: int, n: int, frame_cls):
     return frames
 
 
-def params(EncoderParams, frame_parallel: int):
-    p = EncoderParams(i_width=W, i_height=H, i_keyint_max=1, i_log_level=0,
-                      i_frame_parallel=frame_parallel)
+def params(EncoderParams, frame_parallel: int, keyint: int = 1):
+    """All-intra at keyint 1; else the IPPP slice: fixed GOP, subme 1,
+    one reference, no B frames."""
+    p = EncoderParams(i_width=W, i_height=H, i_keyint_max=keyint,
+                      i_log_level=0, i_frame_parallel=frame_parallel)
     p.rc.i_rc_method = 0            # CQP
     p.rc.i_qp_constant = QP
     p.analyse.b_transform_8x8 = False
+    if keyint > 1:
+        p.i_scenecut_threshold = 0
+        p.analyse.i_subpel_refine = 1
+        p.i_frame_reference = 1
+        p.i_bframe = 0
     return p
 
 
@@ -129,17 +156,116 @@ def max_err(a: dict, b: dict) -> int:
     return max(int((a[k].long() - b[k].long()).abs().max()) for k in b)
 
 
+def counted(fn, *args):
+    """fn(*args) and the launches its wrapper counted in that call."""
+    n0 = fn.launches
+    out = fn(*args)
+    return out, fn.launches - n0
+
+
+def drive(enc, frames):
+    """Encode frames through enc and flush; returns (encoded frames, wall
+    seconds, per-call encode() ms)."""
+    torch.cuda.synchronize()
+    done, call_ms = [], []
+    t_start = time.perf_counter()
+    for f in frames:
+        t = time.perf_counter()
+        ef = enc.encode(f)
+        call_ms.append((time.perf_counter() - t) * 1e3)
+        if ef is not None:
+            done.append(ef)
+    done += enc.flush()
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t_start, call_ms
+
+
+def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
+                what: str) -> None:
+    """The first n frames of a card run against Encoder(device="cpu")."""
+    cpu = x264_tpu_torch.Encoder(
+        params(x264_tpu_torch.EncoderParams, 1, keyint), device="cpu")
+    if cpu.headers() != header:
+        fail(f"{what}: headers differ between the card and the CPU")
+    for i in range(n):
+        ref = cpu.encode(frames[i])
+        if ref.frame_type != done[i].frame_type:
+            fail(f"{what}: frame {i} is {done[i].frame_type} on the card, "
+                 f"{ref.frame_type} on the CPU")
+        if ref.payload != done[i].payload:
+            fail(f"{what}: frame {i} payload differs from the CPU run")
+        for pl in "yuv":
+            if not torch.equal(getattr(ref.recon, pl),
+                               getattr(done[i].recon, pl).cpu()):
+                fail(f"{what}: frame {i} recon {pl} differs from the CPU run")
+    print(f"{what}: frames 0-{n - 1} payloads and recons equal the CPU run",
+          flush=True)
+
+
+# kernel name fragment -> the port's kernel it belongs to (device time
+# of everything else is PyTorch's own glue: padding, copies, merges)
+KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
+                 ("p_emit_kernel", "K8"), ("p_maps_kernel", "K8"),
+                 ("emit_kernel", "K3"), ("scan_kernel", "K3/K8 scan"),
+                 ("scatter_kernel", "K3/K8 scatter"), ("ssd_kernel", "K4"),
+                 ("ssim_kernel", "K4"), ("reduce_kernel", "K4"),
+                 ("half_kernel", "K5"), ("search_kernel", "K5"),
+                 ("p_inter_mb_kernel", "K6"), ("sweep_kernel", "K7"),
+                 ("decide_kernel", "K7"))
+
+
+def device_split(x264_tpu_torch, frames, n_warm: int, n: int) -> None:
+    """Device time by kernel over n steady IPPP frames, from a
+    torch.profiler trace of the card (CUPTI sees the ctypes launches
+    too): per frame, each kernel's share, PyTorch's glue, the busy sum
+    and the host wall; the idle share is 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    enc = x264_tpu_torch.Encoder(
+        params(x264_tpu_torch.EncoderParams, 3, 250))
+    enc.headers()
+    for f in frames[:n_warm]:
+        enc.encode(f)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for f in frames[n_warm:n_warm + n]:
+            enc.encode(f)
+        enc.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    enc.close()
+    by = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((g for frag, g in KERNEL_GROUPS if frag in e.name),
+                    "torch glue" if "emcpy" not in e.name
+                    else "memcpy")
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by:
+        print("device split: not measured (the trace holds no device "
+              "events)", flush=True)
+        return
+    busy = sum(by.values())
+    parts = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by.items()))
+    print(f"device split over {n} frames (profiled; the {len(frames[:n_warm])}"
+          f" frames before are not in it, the flush is): per frame ms "
+          f"{parts}; busy {busy / n:.3f} ms of {wall / n:.3f} ms wall, "
+          f"idle share {1 - busy / wall:.3f}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     import x264_tpu_torch
     from x264_tpu_torch import cuda, native, tables
-    from x264_tpu_torch.encoder import intra, pipeline, stats
+    from x264_tpu_torch.encoder import inter, intra, pipeline, stats
     from x264_tpu_torch.encoder.core import pad_plane
     from x264_tpu_torch.entropy import cabac as ecabac
     from x264_tpu_torch.entropy import cabac_planes
     from x264_tpu_torch.entropy import cabac_tables as ctab
-    from x264_tpu_torch.ops import deblock
+    from x264_tpu_torch.ops import deblock, mc, me
 
     # ---------------------------------------------------------- 1. card
     smi = subprocess.run(
@@ -162,13 +288,16 @@ def main() -> None:
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ------------------------------------------------------- 3. kernels
-    frames = make_frames(W, H, N_FRAMES, x264_tpu_torch.Frame)
+    frames = make_frames(W, H, N_IPPP, x264_tpu_torch.Frame)
     mb_h, mb_w = (H + 15) // 16, W // 16
     nmb = mb_h * mb_w
-    f0 = frames[0]
-    y, u, v = (torch.as_tensor(pad_plane(a, mb_h * s, mb_w * s),
-                               device=dev).to(torch.int32)
-               for a, s in ((f0.y, 16), (f0.u, 8), (f0.v, 8)))
+
+    def planes(f):
+        return tuple(torch.as_tensor(pad_plane(a, mb_h * s, mb_w * s),
+                                     device=dev).to(torch.int32)
+                     for a, s in ((f.y, 16), (f.u, 8), (f.v, 8)))
+
+    y, u, v = planes(frames[0])
     qtab = intra.make_qtab(QP, tables.chroma_qp(QP, 0), dev)
     lam = int(tables.LAMBDA_TABLE[QP])
     rec = {}
@@ -283,59 +412,228 @@ def main() -> None:
           f"{nbytes(ops_k)} bytes {d2h_ms:.3f} ms, host CABAC of {n_ops} "
           f"ops into {len(payload)} bytes {cabac_ms:.3f} ms", flush=True)
 
-    # ----------------------------------------------------- 4. main path
+    # K5-K8 and K2 with P maps: frame 1 against frame 0's deblocked recon
+    # (p2, the plain deblock of K1's recon: the IDR's DPB entry)
+    qtab_p = inter.make_qtab_p(QP, tables.chroma_qp(QP, 0), dev)
+    y1, u1, v1 = planes(frames[1])
+    mvp0 = torch.zeros((mb_h, mb_w, 2), dtype=torch.int32, device=dev)
+    me_range = 16
+    p_ms = {}
+
+    def p_kernels(ref, tag: str, time_it: bool):
+        """K5 -> K6 -> K7 -> K8 (-> K2) on frame 1 against `ref`, each
+        held against its plain version on the same inputs."""
+        ref_pad = mc.pad_plane(ref[0])
+        refu_pad = mc.pad_plane(ref[1], mc.PAD // 2)
+        refv_pad = mc.pad_plane(ref[2], mc.PAD // 2)
+        # K5 me_hier
+        a5 = (y1, ref_pad, mb_h, mb_w, me_range, lam, mvp0)
+        (mv, sad), n5 = counted(me.hier_search, *a5)
+        pm, ps = me.hier_search_plain(*a5)
+        err5 = max_err({"mv": mv, "sad": sad}, {"mv": pm, "sad": ps})
+        if err5:
+            fail(f"K5 me_hier ({tag}) differs from its plain version")
+        # K6 p_inter_mb
+        a6 = (mb_h, mb_w, y1, u1, v1, ref_pad, refu_pad, refv_pad, mv, sad,
+              mvp0, qtab_p, lam, True)
+        k6, n6 = counted(inter.p_inter_mb, *a6)
+        p6 = inter.p_inter_mb_plain(*a6)
+        err6 = max_err(k6, p6)
+        if err6:
+            bad = [k for k in p6 if not torch.equal(k6[k], p6[k])]
+            fail(f"K6 p_inter_mb ({tag}) differs in {bad}")
+        # K7 intra_in_p
+        a7 = (mb_h, mb_w, y1, u1, v1, k6["recon_y"], k6["recon_u"],
+              k6["recon_v"], k6["cost"], qtab_p, lam, True)
+        k7, n7 = counted(inter.intra_in_p, *a7)
+        # the plain version, with the sweep-0 intra wishes it demotes from
+        chosen, resolve = [], inter.resolve_intra
+        inter.resolve_intra = lambda c: chosen.append(c) or resolve(c)
+        p7 = inter.intra_in_p_plain(*a7)
+        inter.resolve_intra = resolve
+        demoted = int((chosen[0] & ~p7["intra_mb"]).sum())
+        err7 = max_err(k7, p7)
+        if err7:
+            bad = [k for k in p7 if not torch.equal(k7[k], p7[k])]
+            fail(f"K7 intra_in_p ({tag}) differs in {bad}")
+        # K8 cabac_p_ops on the merged planes of stages 1-3
+        front = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, *ref,
+                                     qtab_p, lam, mvp0, True)
+        (maps, ops8, n8k), n8 = counted(cabac_planes.cabac_p_ops, front,
+                                        mb_h, mb_w)
+        pmaps, pops8, pn8 = cabac_planes.cabac_p_ops_plain(front, mb_h, mb_w)
+        n_ops8 = int(pn8)
+        if int(n8k) != n_ops8:
+            fail(f"K8 cabac_p_ops ({tag}) counts {int(n8k)} ops, its plain "
+                 f"version {n_ops8}")
+        err8 = max(max_err(maps, pmaps), int(
+            (ops8[:n_ops8].long() - pops8[:n_ops8].long()).abs().max()))
+        if err8:
+            fail(f"K8 cabac_p_ops ({tag}) differs from its plain version")
+        n_intra = int(front["intra_mb"].sum())
+        print(f"P kernels ({tag}): exact; {n_intra} intra ({demoted} more "
+              f"demoted) and {int(maps['skip'].sum())} skip MBs of {nmb}, "
+              f"{n_ops8} ops; launches per frame K5 {n5}, K6 {n6}, K7 {n7}, "
+              f"K8 {n8}", flush=True)
+        if not time_it:
+            return n_intra, demoted
+        # K2 with the P maps of frame 1
+        qp_mb1 = torch.full((mb_h, mb_w), QP, dtype=torch.int32, device=dev)
+        maps2 = (qp_mb1, front["intra_mb"], maps["nnz4"], maps["ref4"],
+                 maps["mv4"], z4, zmv, False, 0, 0, 0)
+        src2 = (front["recon_y"], front["recon_u"], front["recon_v"])
+        work2 = []
+
+        def fresh2():
+            work2[:] = [t.clone() for t in src2]
+
+        fresh2()
+        p2p = dict(zip("yuv", deblock.deblock_frame_plain(mb_h, mb_w, *work2,
+                                                          *maps2)))
+        k2p = dict(zip("yuv", deblock.deblock_frame(mb_h, mb_w, *work2,
+                                                    *maps2)))
+        if max_err(k2p, p2p):
+            fail("K2 deblock_diag with P maps differs from its plain version")
+        ms2p = event_ms(lambda: deblock.deblock_frame(mb_h, mb_w, *work2,
+                                                      *maps2), 5, setup=fresh2)
+        print(f"kernel deblock_diag with P maps: {ms2p:.3f} ms, exact",
+              flush=True)
+        # times, bounds
+        ms5 = event_ms(lambda: me.hier_search(*a5), 10)
+        pl5 = event_ms(lambda: me.hier_search_plain(*a5), 1)
+        rq = me.coarse_range(me_range)
+        Hq, Wq = mb_h * 8, mb_w * 8
+        ops5 = K5_OPS_PER_SAMPLE * ((2 * rq + 1) ** 2 * Hq * Wq
+                                    + 83 * 256 * nmb) + 8 * Hq * Wq
+        record("me_hier", "cuda", "x264_tpu_torch/csrc/me.cu",
+               "x264_tpu/ops/me.py:127", err5, ms5, pl5,
+               nbytes(y1, ref_pad, mvp0, mv, sad), ops5)
+        ms6 = event_ms(lambda: inter.p_inter_mb(*a6), 10)
+        pl6 = event_ms(lambda: inter.p_inter_mb_plain(*a6), 1)
+        record("p_inter_mb", "cuda", "x264_tpu_torch/csrc/inter.cu",
+               "x264_tpu/encoder/inter.py:81", err6, ms6, pl6,
+               nbytes(y1, u1, v1, ref_pad, refu_pad, refv_pad, mv, sad, mvp0,
+                      *k6.values()), K6_OPS_PER_MB * nmb)
+        ms7 = event_ms(lambda: inter.intra_in_p(*a7), 10)
+        pl7 = event_ms(lambda: inter.intra_in_p_plain(*a7), 1)
+        record("intra_in_p", "cuda", "x264_tpu_torch/csrc/intra_p.cu",
+               "x264_tpu/encoder/inter.py:596", err7, ms7, pl7,
+               nbytes(y1, u1, v1, k6["recon_y"], k6["recon_u"],
+                      k6["recon_v"], k6["cost"], *k7.values()),
+               K7_OPS_PER_MB_SWEEP * (nmb + 2 * n_intra))
+        ms8 = event_ms(lambda: cabac_planes.cabac_p_ops(front, mb_h, mb_w), 20)
+        pl8 = event_ms(lambda: cabac_planes.cabac_p_ops_plain(front, mb_h,
+                                                              mb_w), 1)
+        keys8 = ("intra_mb", "me_mv", "mode16", "modec", "cbp_luma_bits",
+                 "cbp_chroma", "luma_dc", "luma_blocks", "chroma_dc",
+                 "chroma_ac")
+        record("cabac_p_ops", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+               "x264_tpu/entropy/cabac_planes.py:518", err8, ms8, pl8,
+               nbytes(*(front[k] for k in keys8), *maps.values())
+               + 4 * n_ops8 + 4, K3_OPS_PER_OP * n_ops8 + K3_OPS_PER_MB * nmb)
+        p_ms.update(k5=ms5, k6=ms6, k7=ms7, k8=ms8, k2=ms2p, ops=ops8,
+                    n_ops=n_ops8)
+        return n_intra, demoted
+
+    p_kernels((ry, ru, rv), "frame 1 on frame 0", True)
+    # 64x64 gray blocks: the search cannot leave their interior, so those
+    # MBs go intra in clusters whose chains run deeper than three sweeps
+    gray = np.random.default_rng(0).random(((mb_h + 3) // 4,
+                                            (mb_w + 3) // 4)) < 0.3
+    gray = torch.as_tensor(gray.repeat(4, 0).repeat(4, 1)[:mb_h, :mb_w],
+                           device=dev)
+    mixed = tuple(torch.where(gray.repeat_interleave(n, 0)
+                              .repeat_interleave(n, 1), 128, t)
+                  for t, n in ((ry, 16), (ru, 8), (rv, 8)))
+    n_mix, demoted = p_kernels(mixed, "frame 1 on frame 0 with 30% of its "
+                               "64x64 blocks gray", False)
+    if n_mix < nmb // 50 or demoted == 0:
+        fail(f"the gray-masked reference sent {n_mix} MBs intra and "
+             f"demoted {demoted}: the intra-heavy case did not run")
+
+    # one P frame's split: kernels (K4 as on the IDR), d2h, host CABAC
+    ops_p = p_ms["ops"]
+    ops_ph = torch.empty(ops_p.shape, dtype=torch.int32, pin_memory=True)
+    d2h_p = event_ms(lambda: ops_ph.copy_(ops_p, non_blocking=True), 5)
+    live_p = ops_ph.numpy()[:p_ms["n_ops"]].view(np.uint32)
+    t = time.perf_counter()
+    payload_p, _ = ecabac.encode_ops(ctab.init_states(False, QP, 0), live_p, 0)
+    cabac_p = (time.perf_counter() - t) * 1e3
+    dev_p = sum(p_ms[k] for k in ("k5", "k6", "k7", "k8", "k2")) + ms4
+    print(f"P frame split: kernels {dev_p:.3f} ms (K5 {p_ms['k5']:.3f}, K6 "
+          f"{p_ms['k6']:.3f}, K7 {p_ms['k7']:.3f}, K8 {p_ms['k8']:.3f}, K2 "
+          f"{p_ms['k2']:.3f}, K4 {ms4:.3f}), d2h of {nbytes(ops_p)} bytes "
+          f"{d2h_p:.3f} ms, host CABAC of {p_ms['n_ops']} ops into "
+          f"{len(payload_p)} bytes {cabac_p:.3f} ms", flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
-                "frame_metrics": stats.frame_metrics}
-    enc = x264_tpu_torch.Encoder(params(x264_tpu_torch.EncoderParams, 3))
-    header = enc.headers()
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    done, call_ms = [], []
-    t_start = time.perf_counter()
-    for f in frames:
-        t = time.perf_counter()
-        ef = enc.encode(f)
-        call_ms.append((time.perf_counter() - t) * 1e3)
-        if ef is not None:
-            done.append(ef)
-    done += enc.flush()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    launches = {k: w.launches for k, w in wrappers.items()}
-    summary = enc.close()
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched on the main path")
-        rec[k]["launches"] = n
-    if len(done) != N_FRAMES:
-        fail(f"{len(done)} frames came out of {N_FRAMES}")
+                "frame_metrics": stats.frame_metrics,
+                "me_hier": me.hier_search,
+                "p_inter_mb": inter.p_inter_mb,
+                "intra_in_p": inter.intra_in_p,
+                "cabac_p_ops": cabac_planes.cabac_p_ops}
+
+    def main_path(keyint: int, n: int, what: str):
+        """Encoder on the first n frames at 1080p, the launch counts set
+        to 0 just before and read just after; returns (frames, summary,
+        launches, header, fps, median encode() ms)."""
+        enc = x264_tpu_torch.Encoder(
+            params(x264_tpu_torch.EncoderParams, 3, keyint))
+        header = enc.headers()
+        for w in wrappers.values():
+            w.launches = 0
+        done, wall, call_ms = drive(enc, frames[:n])
+        launches = {k: w.launches for k, w in wrappers.items()}
+        summary = enc.close()
+        if len(done) != n:
+            fail(f"{what}: {len(done)} frames came out of {n}")
+        if not all(np.isfinite([summary["psnr"]["avg"], summary["ssim_y"]])):
+            fail(f"{what}: metrics are not finite")
+        print(f"{what} launches: {json.dumps(launches)}", flush=True)
+        return done, summary, launches, header, n / wall, \
+            statistics.median(call_ms[2:]), enc.stats
+
+    # ----------------------------------------------- 4. all-intra path
+    done, summary, launches_i, header, fps, med, _ = main_path(
+        1, N_INTRA, "all-intra")
+    for k in ("intra_diag", "cabac_i_ops", "deblock_diag", "frame_metrics"):
+        if launches_i[k] <= 0:
+            fail(f"kernel {k} was not launched on the all-intra path")
     sizes = [len(e.payload) for e in done]
-    print(f"main path: {N_FRAMES} frames 1920x1080 all-intra CQP {QP} "
-          f"CABAC, {N_FRAMES / wall:.3f} fps, median encode() "
-          f"{statistics.median(call_ms[2:]):.1f} ms, "
+    print(f"all-intra path: {N_INTRA} frames {W}x{H} keyint 1 CQP {QP} "
+          f"CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
           f"{statistics.mean(sizes):.0f} bytes/frame, PSNR Y "
           f"{summary['psnr']['y']:.4f} avg {summary['psnr']['avg']:.4f} dB, "
           f"SSIM {summary['ssim_y']:.6f} [{smi_line}]", flush=True)
-    print(f"launches: {json.dumps(launches)}", flush=True)
-    if not all(np.isfinite([summary["psnr"]["avg"], summary["ssim_y"]])):
-        fail("metrics are not finite")
+    same_as_cpu(x264_tpu_torch, done, frames, header, 1, 1, "all-intra")
 
-    # frame 0 against the plain versions on the CPU
-    cpu = x264_tpu_torch.Encoder(params(x264_tpu_torch.EncoderParams, 1),
-                                 device="cpu")
-    if cpu.headers() != header:
-        fail("headers differ between the card and the CPU")
-    ref = cpu.encode(frames[0])
-    if ref.payload != done[0].payload:
-        fail("frame 0 payload differs from the CPU run")
-    for pl in "yuv":
-        if not torch.equal(getattr(ref.recon, pl),
-                           getattr(done[0].recon, pl).cpu()):
-            fail(f"frame 0 recon {pl} differs from the CPU run")
-    print("frame 0: payload and recon equal the CPU run", flush=True)
+    # ---------------------------------------------------- 5. IPPP path
+    done, summary, launches_p, header, fps, med, st = main_path(
+        250, N_IPPP, "IPPP")
+    for k, n in launches_p.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the IPPP path")
+        rec[k]["launches"] = n
+        rec[k]["launches_all_intra"] = launches_i[k]
+    types = [e.frame_type for e in done]
+    if types != ["IDR"] + ["P"] * (N_IPPP - 1):
+        fail(f"IPPP frame types {types}")
+    p_bytes = [len(e.payload) for e in done[1:]]
+    n_p = N_IPPP - 1                # the IDR's MBs are all intra
+    p_intra, p_skip = (st.mb_intra - nmb) / n_p, st.mb_skip / n_p
+    print(f"IPPP path: {N_IPPP} frames {W}x{H} keyint 250 subme 1 ref 1 "
+          f"CQP {QP} CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
+          f"IDR {len(done[0].payload)} bytes, P {statistics.mean(p_bytes):.0f}"
+          f" bytes/frame (min {min(p_bytes)}, max {max(p_bytes)}), per P "
+          f"frame {p_intra:.1f} intra and {p_skip:.1f} skip MBs of {nmb}, "
+          f"PSNR Y "
+          f"{summary['psnr']['y']:.4f} avg {summary['psnr']['avg']:.4f} dB "
+          f"(P Y {summary['psnr_by_type']['P']['y']:.4f}), SSIM "
+          f"{summary['ssim_y']:.6f} [{smi_line}]", flush=True)
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250, "IPPP")
+    device_split(x264_tpu_torch, frames, 4, 8)
 
     print(json.dumps({"kernels": list(rec.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

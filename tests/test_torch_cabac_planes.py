@@ -1,9 +1,11 @@
 """The port's plain CABAC op stream of an intra slice against x264_tpu's
 compact_ops(i16_slice_ops(...)), both fed the same intra syntax planes
 (the port's plain encode_i16_frame output, which test_torch_intra holds
-equal to x264_tpu's). The live ops and n_ops must be exactly equal, and
-the port's two host coders (native C and its Python twin) must turn the
-stream into the same bytes."""
+equal to x264_tpu's), and that of a P slice against
+compact_ops(p_slice_ops(...)), fed the port's plain encode_p_body output
+(held equal by test_torch_inter). The live ops and n_ops must be exactly
+equal, and the port's two host coders (native C and its Python twin)
+must turn each stream into the same bytes."""
 
 import numpy as np
 import pytest
@@ -12,11 +14,13 @@ import torch
 from x264_tpu.encoder import pipeline as jpipe
 from x264_tpu.entropy import cabac_planes as jcp
 from x264_tpu_torch import native, tables
+from x264_tpu_torch.encoder import inter as tinter
 from x264_tpu_torch.encoder import intra as tintra
 from x264_tpu_torch.entropy import cabac as tcabac
 from x264_tpu_torch.entropy import cabac_planes as tcp
 from x264_tpu_torch.entropy import cabac_tables as tctab
 
+from test_torch_inter import MB_H, MB_W, _p_inputs
 from test_torch_intra import planes
 
 # one intra-op thread: the suite runs several test processes at once
@@ -45,6 +49,42 @@ def test_op_stream_matches_jax(mb_h, mb_w, qp, monkeypatch):
     live = tops.numpy().view(np.uint32)[:n]
     assert native.load() is not None
     code = lambda: tcabac.encode_ops(tctab.init_states(True, qp, 0), live,
+                                     0x5A)
+    c_bytes = code()
+    monkeypatch.setattr(native, "load", lambda: None)
+    assert code() == c_bytes
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_p_op_stream_matches_jax(kind, monkeypatch):
+    """The P slice: both packages' compact_ops(p_slice_ops(...)) on the
+    port's plain encode_p_body output (which test_torch_inter holds equal
+    to x264_tpu's), and the port's K8 wrapper on the CPU."""
+    y, u, v, ry, ru, rv, mvp = (torch.from_numpy(a)
+                                for a in _p_inputs(kind))
+    qp = 26
+    args = (MB_H, MB_W, 16, y, u, v, ry, ru, rv,
+            tinter.make_qtab_p(qp, tables.chroma_qp(qp), "cpu"),
+            int(tables.LAMBDA_TABLE[qp]), mvp, True)
+    out = tinter.encode_p_body(*args)
+    nmb = MB_H * MB_W
+    jops, jn = jcp.compact_ops(
+        jcp.p_slice_ops({k: t.numpy() for k, t in out.items()}, MB_H, MB_W),
+        jpipe.cabac_capacity(nmb))
+    n = int(jn)
+    front = tinter.encode_p_front(*args)
+    maps, tops, tn = tcp.cabac_p_ops(front, MB_H, MB_W)
+    assert int(tn) == n
+    assert tops.shape[0] == jops.shape[0]
+    np.testing.assert_array_equal(np.asarray(jops)[:n],
+                                  tops.numpy().view(np.uint32)[:n])
+    for k, t in maps.items():
+        assert torch.equal(t, out[k]), k
+    with pytest.raises(NotImplementedError):
+        tcp.cabac_p_ops(front, MB_H, MB_W, t8_mode=True)
+
+    live = tops.numpy().view(np.uint32)[:n]
+    code = lambda: tcabac.encode_ops(tctab.init_states(False, qp, 0), live,
                                      0x5A)
     c_bytes = code()
     monkeypatch.setattr(native, "load", lambda: None)

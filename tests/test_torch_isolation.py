@@ -2,13 +2,15 @@
 chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
-non-CPU tensor; parameters outside the slice raise."""
+non-CPU tensor; parameters outside the all-intra and IPPP slices raise
+NotImplementedError."""
 
 import ast
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +33,10 @@ def test_no_jax_or_reference_imports():
     files = sorted((ROOT / "x264_tpu_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"x264_tpu_torch/ops/me.py", "x264_tpu_torch/ops/mc.py",
+            "x264_tpu_torch/encoder/inter.py",
+            "x264_tpu_torch/encoder/mvpred.py"} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
@@ -44,7 +50,8 @@ def test_imports_with_jax_blocked():
             "            raise ImportError('blocked: ' + name)\n"
             "sys.meta_path.insert(0, Block())\n"
             "import x264_tpu_torch, x264_tpu_torch.encoder.core\n"
-            "import x264_tpu_torch.convert\n"
+            "import x264_tpu_torch.convert, x264_tpu_torch.encoder.inter\n"
+            "import x264_tpu_torch.encoder.mvpred, x264_tpu_torch.ops.me\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -82,6 +89,43 @@ def test_encoder_default_device_needs_a_card():
 def test_outside_the_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_params(**{field: value}), device="cpu")
+
+
+def _p_params(**kw):
+    """The IPPP slice (fixed GOP, scenecut 0, subme 1, one reference)
+    with one field changed."""
+    base = dict(i_keyint_max=30, i_scenecut_threshold=0,
+                analyse__i_subpel_refine=1, i_frame_reference=1)
+    return _params(**{**base, **kw})
+
+
+def test_the_ippp_slice_opens():
+    x264_tpu_torch.Encoder(_p_params(), device="cpu").close()
+
+
+@pytest.mark.parametrize("change", [
+    dict(analyse__i_subpel_refine=2), dict(analyse__i_subpel_refine=7),
+    dict(i_scenecut_threshold=40), dict(i_frame_reference=2),
+    dict(i_bframe=2), dict(analyse__b_transform_8x8=True),
+    dict(b_cabac=False), dict(rc__i_rc_method=1),
+    dict(rc__i_rc_method=2, rc__i_bitrate=2000),
+    dict(rc__i_rc_method=1, rc__i_aq_mode=1), dict(analyse__i_trellis=1),
+    dict(analyse__i_noise_reduction=100), dict(i_cqm_preset=1),
+    dict(rc__i_qp_constant=0), dict(rc__i_vbv_max_bitrate=2000),
+    dict(i_mb_row_shards=2)], ids=lambda c: ",".join(c))
+def test_outside_the_ippp_slice_raises(change):
+    with pytest.raises(NotImplementedError):
+        x264_tpu_torch.Encoder(_p_params(**change), device="cpu")
+
+
+def test_reconfig_and_forced_b_raise():
+    enc = x264_tpu_torch.Encoder(_p_params(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        enc.reconfig(_p_params())
+    z = lambda h, w: np.zeros((h, w), np.uint8)
+    with pytest.raises(NotImplementedError):
+        enc.encode(x264_tpu_torch.Frame(z(48, 64), z(24, 32), z(24, 32)),
+                   forced_type="B")
 
 
 def test_wrapper_never_falls_back_off_the_cpu():

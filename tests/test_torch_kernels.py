@@ -13,9 +13,9 @@ import torch
 
 import x264_tpu_torch
 from x264_tpu_torch import tables
-from x264_tpu_torch.encoder import intra, pipeline, stats
+from x264_tpu_torch.encoder import inter, intra, pipeline, stats
 from x264_tpu_torch.entropy import cabac_planes
-from x264_tpu_torch.ops import deblock
+from x264_tpu_torch.ops import deblock, mc, me
 
 MB_H, MB_W = 5, 7
 
@@ -137,5 +137,137 @@ def test_encoder_on_the_card_matches_the_cpu(card):
         assert a.payload == b.payload
         for pl in "yuv":
             assert torch.equal(getattr(a.recon, pl).cpu(), getattr(b.recon, pl))
+    assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
+    assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5
+
+
+def _p_frame(dev, kind, qp=26):
+    """Frame 1 and a reference: the reference moved by a few pixels
+    ("inter"), or with 2x2-MB gray blocks that send MBs intra in chains
+    deeper than the three sweeps ("intra")."""
+    y, u, v = _frame(dev, 3)
+    ref = [torch.roll(t, (2, 3), (0, 1)) for t in (y, u, v)]
+    if kind == "intra":
+        g = torch.as_tensor(np.random.default_rng(2).random(
+            ((MB_H + 1) // 2, (MB_W + 1) // 2)) < 0.5, device=dev)
+        g = g.repeat_interleave(2, 0).repeat_interleave(2, 1)[:MB_H, :MB_W]
+        ref = [torch.where(g.repeat_interleave(n, 0).repeat_interleave(n, 1),
+                           128, t) for t, n in zip(ref, (16, 8, 8))]
+    q = inter.make_qtab_p(qp, tables.chroma_qp(qp), dev)
+    return (y, u, v), ref, q, int(tables.LAMBDA_TABLE[qp])
+
+
+def _mvp(dev, seed=4):
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        -140, 141, (MB_H, MB_W, 2)), dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mvp_kind", ["zero", "wide"])
+def test_me_kernel_matches_plain(card, mvp_kind):
+    (y, _, _), ref, _, lam = _p_frame(card, "inter")
+    mvp = _mvp(card) if mvp_kind == "wide" else \
+        torch.zeros((MB_H, MB_W, 2), dtype=torch.int32, device=card)
+    args = (y, mc.pad_plane(ref[0]), MB_H, MB_W, 16, lam, mvp)
+    kmv, ksad = me.hier_search(*args)
+    pmv, psad = me.hier_search_plain(*args)
+    assert torch.equal(kmv, pmv) and torch.equal(ksad, psad)
+
+
+def _inter_args(dev, kind, decimate, wild_mvs=False):
+    (y, u, v), ref, q, lam = _p_frame(dev, kind)
+    pads = (mc.pad_plane(ref[0]), mc.pad_plane(ref[1], mc.PAD // 2),
+            mc.pad_plane(ref[2], mc.PAD // 2))
+    mvp = torch.zeros((MB_H, MB_W, 2), dtype=torch.int32, device=dev)
+    mv, sad = me.hier_search(y, pads[0], MB_H, MB_W, 16, lam, mvp)
+    if wild_mvs:                 # full-pel, fetch starts wrap and clamp
+        mv = _mvp(dev, 8) * 4
+    return (MB_H, MB_W, y, u, v, *pads, mv, sad, mvp, q, lam, decimate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decimate,wild", [(True, False), (False, False),
+                                           (True, True)])
+def test_inter_kernel_matches_plain(card, decimate, wild):
+    args = _inter_args(card, "inter", decimate, wild)
+    k = inter.p_inter_mb(*args)
+    p = inter.p_inter_mb_plain(*args)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_intra_in_p_kernel_matches_plain(card, kind):
+    a = _inter_args(card, kind, True)
+    (y, u, v), q, lam = a[2:5], a[11], a[12]
+    it = inter.p_inter_mb(*a)
+    args = (MB_H, MB_W, y, u, v, it["recon_y"], it["recon_u"],
+            it["recon_v"], it["cost"], q, lam, True)
+    k = inter.intra_in_p(*args)
+    p = inter.intra_in_p_plain(*args)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    if kind == "intra":
+        assert p["intra_mb"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_cabac_p_ops_and_p_deblock_kernels_match_plain(card, kind):
+    (y, u, v), ref, q, lam = _p_frame(card, kind)
+    front = inter.encode_p_front(MB_H, MB_W, 16, y, u, v, *ref, q, lam,
+                                 _mvp(card), True)
+    kmaps, kops, kn = cabac_planes.cabac_p_ops(front, MB_H, MB_W)
+    pmaps, pops, pn = cabac_planes.cabac_p_ops_plain(front, MB_H, MB_W)
+    n = int(pn)
+    assert int(kn) == n and torch.equal(kops[:n], pops[:n])
+    for key in pmaps:
+        assert torch.equal(kmaps[key], pmaps[key]), key
+    # K2 with the P maps: bS 0 / 1 / 2 from nnz, ref and mv
+    z4 = torch.zeros_like(kmaps["ref4"])
+    qp_mb = torch.full((MB_H, MB_W), 26, dtype=torch.int32, device=card)
+    maps = (qp_mb, front["intra_mb"], kmaps["nnz4"], kmaps["ref4"],
+            kmaps["mv4"], z4, torch.zeros_like(kmaps["mv4"]), False, 0, 0, 0)
+    src = [front[k] for k in ("recon_y", "recon_u", "recon_v")]
+    p = deblock.deblock_frame_plain(MB_H, MB_W, *src, *maps)
+    k = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *maps)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame_parallel", [1, 3])
+def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel):
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
+    frames = [x264_tpu_torch.Frame(
+        base[t:t + h, 2 * t:2 * t + w].copy(),
+        np.full((h // 2, w // 2), 100 + 3 * t, np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+        for t in range(5)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_keyint_max=3, i_log_level=0,
+                                         i_frame_parallel=frame_parallel)
+        p.rc.i_rc_method, p.rc.i_qp_constant = 0, 28
+        p.analyse.b_transform_8x8 = False
+        p.i_scenecut_threshold = 0
+        p.analyse.i_subpel_refine = 1
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs = [enc.encode(f) for f in frames]
+        outs = [o for o in outs if o is not None] + enc.flush()
+        return enc.headers(), outs, enc.close()
+
+    (kh, kout, ksum), (ph, pout, psum) = run(card), run("cpu")
+    assert kh == ph and len(kout) == len(pout) == 5
+    assert [o.frame_type for o in kout] == ["IDR", "P", "P", "IDR", "P"]
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))
     assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
     assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5

@@ -1,4 +1,5 @@
-// K3 cabac_i_ops: the compacted CABAC bin-op stream of an intra slice.
+// K3 cabac_i_ops: the compacted CABAC bin-op stream of an intra slice,
+// and K8 cabac_p_ops, that of a P slice (below the K3 kernels).
 //
 // Replaces x264_tpu/entropy/cabac_planes.py:i16_slice_ops (with
 // residual_block_ops, i4_pred_mode_ops, _dqp_slots, _nbr_grids) followed
@@ -29,7 +30,8 @@ namespace {
 
 constexpr int OPS_PER_MB = 560;
 constexpr int SCAN_NT = 1024;
-enum { K_DEC = 0, K_TERM = 3, K_SIGMAP = 6, K_LEVEL = 7 };
+enum { K_DEC = 0, K_BYPASS = 1, K_UE = 2, K_TERM = 3, K_ONES = 5,
+       K_SIGMAP = 6, K_LEVEL = 7 };
 
 __constant__ int kRasterOfZ[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
 __constant__ int kZOfRaster[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
@@ -236,6 +238,255 @@ __global__ void scatter_kernel(const uint32_t* __restrict__ scratch,
   for (int i = threadIdx.x; i < counts[mb]; i += blockDim.x) dst[i] = src[i];
 }
 
+// ---------------------------------------------------------------- K8
+// K8 cabac_p_ops: stage 4 of the P encode and the op stream of the slice.
+//
+// Replaces x264_tpu/encoder/mvpred.py:predict_16x16 / predict_pskip, the
+// skip / mvd / 4x4-map derivation of encoder/inter.py:encode_p_body
+// (stage 4, inter.py:733-842) and x264_tpu/entropy/cabac_planes.py:
+// p_slice_ops (with _mvd_component_ops and _cbf_ctx_from_grid) followed by
+// compact_ops, for 16x16 inter, P_Skip and I16x16 MBs with one reference
+// and no 8x8 transform. Plain twin: x264_tpu_torch/entropy/
+// cabac_planes.py:cabac_p_ops_plain; wrapper: cabac_p_ops.
+//
+// Design. Four launches.
+//   A. one thread per MB: the MB's final MV (0 if intra) and the exact
+//      16x16 / P_Skip predictors from the left, top, top-right (else
+//      top-left) neighbours, which in this slice are whole MBs (ref 0
+//      with the MB's MV, -1 intra, -2 outside the frame); the skip flag,
+//      the mvd, and the per-4x4 mvd4 / nnz4 / ref4 / mv4 maps;
+//   B. one thread per MB emits its live ops in the slot order of
+//      p_slice_ops (skip flag, mb_type, intra fields, mvd, cbp, dqp,
+//      luma DC, 16 luma blocks, chroma DC, chroma AC, end_of_slice),
+//      reading the neighbours' skip, nnz4 and mvd4 that pass A wrote;
+//   then K3's scan and scatter.
+// What bounds it on the H100: bytes, as K3: the syntax planes and maps
+// (~17 MB at 1080p as int32) are read or written once and the live ops
+// written twice.
+
+__constant__ int kMvdTermOff[9] = {0, 3, 4, 5, 6, 6, 6, 6, 6};
+
+struct PPlanes {
+  const uint8_t* intra;
+  const uint8_t* skip;
+  const int* mode16;
+  const int* modec;
+  const int* cbp;
+  const int* cbpc;
+  const int* luma_dc;
+  const int* luma_blocks;
+  const int* chroma_dc;
+  const int* chroma_ac;
+  const int* mvd4;
+  const int* nnz4;
+  int mb_w;
+
+  // cbf flag of 4x4 block (raster r) of MB n, from the final nnz map
+  __device__ int nnz(int n, int r) const {
+    const int nx = n % mb_w, ny = n / mb_w;
+    return nnz4[(4 * ny + (r >> 2)) * 4 * mb_w + 4 * nx + (r & 3)] > 0;
+  }
+  __device__ int dc_nz(int n) const {
+    if (!intra[n]) return 0;
+    for (int i = 0; i < 16; ++i)
+      if (luma_dc[n * 16 + i]) return 1;
+    return 0;
+  }
+  __device__ int cdc_nz(int n, int ch) const {
+    if (cbpc[n] <= 0) return 0;
+    for (int i = 0; i < 4; ++i)
+      if (chroma_dc[n * 8 + ch * 4 + i]) return 1;
+    return 0;
+  }
+  __device__ int cac_nz(int n, int ch, int blk) const {
+    if (cbpc[n] != 2) return 0;
+    const int* c = chroma_ac + ((n * 2 + ch) * 4 + blk) * 16;
+    for (int i = 1; i < 16; ++i)
+      if (c[i]) return 1;
+    return 0;
+  }
+  // the |mvd| component of the 4x4 block (by4, bx4); 0 outside the frame
+  __device__ int amvd(int by4, int bx4, int comp) const {
+    if (by4 < 0 || bx4 < 0) return 0;
+    return abs(mvd4[(by4 * 4 * mb_w + bx4) * 2 + comp]);
+  }
+};
+
+struct Nbr {
+  int ref, x, y;
+};
+
+__device__ __forceinline__ Nbr nbr_mv(const uint8_t* intra, const int* me_mv,
+                                      int mb_h, int mb_w, int ny, int nx) {
+  if (ny < 0 || nx < 0 || ny >= mb_h || nx >= mb_w) return Nbr{-2, 0, 0};
+  const int n = ny * mb_w + nx;
+  if (intra[n]) return Nbr{-1, 0, 0};
+  return Nbr{0, me_mv[2 * n], me_mv[2 * n + 1]};
+}
+
+__device__ __forceinline__ int median3(int a, int b, int c) {
+  return a + b + c - min(a, min(b, c)) - max(a, max(b, c));
+}
+
+__global__ void p_maps_kernel(const uint8_t* __restrict__ intra,
+                              const int* __restrict__ me_mv,
+                              const int* __restrict__ cbp,
+                              const int* __restrict__ cbpc,
+                              const int* __restrict__ luma_blocks,
+                              uint8_t* __restrict__ skip_o,
+                              int* __restrict__ mv_o, int* __restrict__ mvd_o,
+                              int* __restrict__ mvd4, int* __restrict__ nnz4,
+                              int* __restrict__ ref4, int* __restrict__ mv4,
+                              int mb_h, int mb_w) {
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= mb_h * mb_w) return;
+  const int mx = mb % mb_w, my = mb / mb_w;
+  const bool im = intra[mb];
+  const int mvx = im ? 0 : me_mv[2 * mb], mvy = im ? 0 : me_mv[2 * mb + 1];
+  // predict_16x16 (i_ref 0) and predict_pskip
+  const Nbr A = nbr_mv(intra, me_mv, mb_h, mb_w, my, mx - 1);
+  const Nbr B = nbr_mv(intra, me_mv, mb_h, mb_w, my - 1, mx);
+  Nbr C = nbr_mv(intra, me_mv, mb_h, mb_w, my - 1, mx + 1);
+  if (C.ref == -2) C = nbr_mv(intra, me_mv, mb_h, mb_w, my - 1, mx - 1);
+  const int cnt = (A.ref == 0) + (B.ref == 0) + (C.ref == 0);
+  int px, py;
+  if (cnt > 1) {
+    px = median3(A.x, B.x, C.x); py = median3(A.y, B.y, C.y);
+  } else if (cnt == 1) {
+    const Nbr& o = A.ref == 0 ? A : B.ref == 0 ? B : C;
+    px = o.x; py = o.y;
+  } else if (B.ref == -2 && C.ref == -2 && A.ref != -2) {
+    px = A.x; py = A.y;
+  } else {
+    px = median3(A.x, B.x, C.x); py = median3(A.y, B.y, C.y);
+  }
+  const bool force0 = A.ref == -2 || B.ref == -2
+      || (A.ref == 0 && A.x == 0 && A.y == 0) || (B.ref == 0 && B.x == 0 && B.y == 0);
+  const int sx = force0 ? 0 : px, sy = force0 ? 0 : py;
+  const int dx = im ? 0 : mvx - px, dy = im ? 0 : mvy - py;
+  const bool sk = !im && cbp[mb] == 0 && cbpc[mb] == 0 && mvx == sx && mvy == sy;
+  skip_o[mb] = sk ? 1 : 0;
+  mv_o[2 * mb] = mvx; mv_o[2 * mb + 1] = mvy;
+  mvd_o[2 * mb] = dx; mvd_o[2 * mb + 1] = dy;
+  const int W4 = 4 * mb_w;
+  for (int r = 0; r < 16; ++r) {
+    const int o = (4 * my + (r >> 2)) * W4 + 4 * mx + (r & 3);
+    mvd4[2 * o] = sk ? 0 : dx;
+    mvd4[2 * o + 1] = sk ? 0 : dy;
+    ref4[o] = im ? -1 : 0;
+    mv4[2 * o] = mvx;
+    mv4[2 * o + 1] = mvy;
+  }
+  for (int z = 0; z < 16; ++z) {
+    const int* c = luma_blocks + (mb * 16 + z) * 16;
+    int n = 0;
+    for (int i = 0; i < 16; ++i) n += c[i] != 0;
+    const int r = kRasterOfZ[z];
+    nnz4[(4 * my + (r >> 2)) * W4 + 4 * mx + (r & 3)] = ((cbp[mb] >> (z >> 2)) & 1) ? n : 0;
+  }
+}
+
+__global__ void p_emit_kernel(PPlanes P, const int* __restrict__ mvd, int mb_h,
+                              uint32_t* __restrict__ scratch,
+                              int* __restrict__ counts) {
+  const int mb_w = P.mb_w, nmb = mb_h * mb_w;
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= nmb) return;
+  const int mx = mb % mb_w, my = mb / mb_w;
+  const bool hl = mx > 0, ht = my > 0;
+  const int mbl = mb - 1, mbt = mb - mb_w;
+  const bool im = P.intra[mb], sk = P.skip[mb];
+  const bool coded = !sk, inter = coded && !im;
+  const int cbp = P.cbp[mb], cbpc = P.cbpc[mb];
+  Emitter E{scratch + (size_t)mb * OPS_PER_MB, 0};
+
+  // ---- mb_skip_flag (ctx 11 + non-skip neighbours), mb_type
+  E.dec(11 + (hl && !P.skip[mbl]) + (ht && !P.skip[mbt]), sk);
+  if (coded) E.dec(14, im);
+  if (inter) { E.dec(15, 0); E.dec(16, 0); }
+  if (im) {
+    const int m16 = P.mode16[mb];
+    E.dec(17, 1);
+    E.put(K_TERM, 0, 0);
+    E.dec(18, cbp > 0);
+    E.dec(19, cbpc > 0);
+    if (cbpc > 0) E.dec(19, cbpc == 2);
+    E.dec(20, m16 >> 1);
+    E.dec(20, m16 & 1);
+    // intra chroma pred mode; non-intra neighbours count as mode 0
+    const int cm = P.modec[mb];
+    const int cml = hl && P.intra[mbl] ? P.modec[mbl] : 0;
+    const int cmt = ht && P.intra[mbt] ? P.modec[mbt] : 0;
+    E.dec(64 + (cml != 0) + (cmt != 0), cm > 0);
+    if (cm > 0) E.dec(67, cm > 1);
+    if (cm > 1) E.dec(67, cm > 2);
+  }
+  if (inter) {
+    // ---- mvd, UEG3 per component; ctxInc from the neighbours' |mvd|
+    for (int comp = 0; comp < 2; ++comp) {
+      const int base = comp ? 47 : 40, v = mvd[2 * mb + comp], a = abs(v);
+      const int am = P.amvd(4 * my, 4 * mx - 1, comp) + P.amvd(4 * my - 1, 4 * mx, comp);
+      E.dec(base + (am > 2) + (am > 32), a > 0);
+      if (a >= 2) E.dec(base + 3, 1);
+      if (a >= 3) E.dec(base + 4, 1);
+      if (a >= 4) E.dec(base + 5, 1);
+      const int ones = min(max(min(a - 1, 8) - 3, 0), 5);
+      if (ones > 0) E.put(K_ONES, (uint32_t)(base + 6), (uint32_t)ones);
+      if (a >= 1 && a < 9) E.dec(base + kMvdTermOff[a], 0);
+      if (a >= 9) E.put(K_UE, (uint32_t)(a - 9), 3);
+      if (a >= 1) E.put(K_BYPASS, v < 0, 1);
+    }
+    // ---- coded_block_pattern; skip neighbours count as cbp 0
+    const int cl = hl ? (P.skip[mbl] ? 0 : P.cbp[mbl]) : -1;
+    const int ct = ht ? (P.skip[mbt] ? 0 : P.cbp[mbt]) : -1;
+    const int ctx[4] = {76 - ((cl >> 1) & 1) - ((ct >> 1) & 2),
+                        76 - (cbp & 1) - ((ct >> 2) & 2),
+                        76 - ((cl >> 3) & 1) - ((cbp << 1) & 2),
+                        76 - ((cbp >> 2) & 1) - (cbp & 2)};
+    for (int k = 0; k < 4; ++k) E.dec(ctx[k], (cbp >> k) & 1);
+    const int ccl = hl ? (P.skip[mbl] ? 0 : P.cbpc[mbl]) : -1;
+    const int cct = ht ? (P.skip[mbt] ? 0 : P.cbpc[mbt]) : -1;
+    E.dec(77 + (ccl > 0) + 2 * (cct > 0), cbpc > 0);
+    if (cbpc > 0) E.dec(81 + (ccl == 2) + 2 * (cct == 2), cbpc == 2);
+  }
+  if (coded && (im || cbp > 0 || cbpc > 0)) E.dec(60, 0);   // mb_qp_delta 0
+
+  // ---- residual; outside the frame the cbf context takes the current
+  // MB's intra flag (luma DC: 1)
+  if (im) {
+    const int a = hl ? P.dc_nz(mbl) : 1, b = ht ? P.dc_nz(mbt) : 1;
+    E.residual(P.luma_dc + mb * 16, 16, 0, 2 * b + a);
+  }
+  for (int z = 0; z < 16; ++z) {
+    const bool blk_coded = im ? cbp > 0 : (inter && ((cbp >> (z >> 2)) & 1));
+    if (!blk_coded) continue;
+    const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
+    const int a = bx > 0 ? P.nnz(mb, r - 1) : hl ? P.nnz(mbl, r + 3) : im;
+    const int b = by > 0 ? P.nnz(mb, r - 4) : ht ? P.nnz(mbt, r + 12) : im;
+    const int* c = P.luma_blocks + (mb * 16 + z) * 16;
+    if (im) E.residual(c + 1, 15, 1, 2 * b + a);
+    else E.residual(c, 16, 2, 2 * b + a);
+  }
+  if (coded && cbpc > 0)
+    for (int ch = 0; ch < 2; ++ch) {
+      const int a = hl ? P.cdc_nz(mbl, ch) : im, b = ht ? P.cdc_nz(mbt, ch) : im;
+      E.residual(P.chroma_dc + mb * 8 + ch * 4, 4, 3, 2 * b + a);
+    }
+  if (coded && cbpc == 2)
+    for (int ch = 0; ch < 2; ++ch)
+      for (int blk = 0; blk < 4; ++blk) {
+        const int by = blk >> 1, bx = blk & 1;
+        const int a = bx ? P.cac_nz(mb, ch, blk - 1)
+                    : hl ? P.cac_nz(mbl, ch, blk + 1) : im;
+        const int b = by ? P.cac_nz(mb, ch, blk - 2)
+                    : ht ? P.cac_nz(mbt, ch, blk + 2) : im;
+        E.residual(P.chroma_ac + ((mb * 2 + ch) * 4 + blk) * 16 + 1, 15, 4,
+                   2 * b + a);
+      }
+  if (mb != nmb - 1) E.put(K_TERM, 0, 0);          // end_of_slice_flag 0
+  counts[mb] = E.n;
+}
+
 }  // namespace
 
 extern "C" int cabac_i_ops(const int* mode16, const int* modec,
@@ -251,6 +502,34 @@ extern "C" int cabac_i_ops(const int* mode16, const int* modec,
            chroma_dc, chroma_ac, mb_w};
   emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, scratch, counts);
   cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scatter_kernel<<<nmb, 128, 0, s>>>(scratch, counts, offsets, ops);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cabac_p_ops(const uint8_t* intra_mb, const int* me_mv,
+                           const int* mode16, const int* modec,
+                           const int* cbp_luma_bits, const int* cbp_chroma,
+                           const int* luma_dc, const int* luma_blocks,
+                           const int* chroma_dc, const int* chroma_ac,
+                           uint8_t* skip, int* mv, int* mvd, int* mvd4,
+                           int* nnz4, int* ref4, int* mv4, uint32_t* scratch,
+                           int* counts, int* offsets, uint32_t* ops, int mb_h,
+                           int mb_w, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nmb = mb_h * mb_w;
+  p_maps_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(
+      intra_mb, me_mv, cbp_luma_bits, cbp_chroma, luma_blocks, skip, mv, mvd,
+      mvd4, nnz4, ref4, mv4, mb_h, mb_w);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  PPlanes P{intra_mb, skip, mode16, modec, cbp_luma_bits, cbp_chroma, luma_dc,
+            luma_blocks, chroma_dc, chroma_ac, mvd4, nnz4, mb_w};
+  p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mvd, mb_h, scratch, counts);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);
   e = cudaGetLastError();

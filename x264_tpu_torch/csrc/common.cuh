@@ -106,4 +106,35 @@ __device__ __forceinline__ int dequant_2x2_dc(int x, int dmf0, int qpdiv6) {
   return (x * dmf_eff) >> max(-qbits, 0);
 }
 
+// decimate-score run costs (x264_decimate_table4, common/quant.c:203)
+__constant__ int kDecimateTab4[16] = {3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+
+// x264_decimate_score_internal of n <= 16 levels in scan order
+// (quant.py:decimate_score): 9 if any |level| > 1, else the sum over the
+// nonzero levels of the run cost of the zeros before each
+__device__ __forceinline__ int decimate_score(const int* lv, int n) {
+  int score = 0, run = 0;
+  for (int i = 0; i < n; ++i) {
+    if (lv[i] == 0) { ++run; continue; }
+    if (abs(lv[i]) > 1) return 9;
+    score += kDecimateTab4[run];
+    run = 0;
+  }
+  return score;
+}
+
+// the start jax.lax.dynamic_slice uses for a slice of `size` of an axis
+// of `dim` (ops/mc.py:ds_start): a negative start counts from the end
+// once, then the start is clamped so that the slice fits
+__device__ __forceinline__ int ds_start(int start, int dim, int size) {
+  if (start < 0) start += dim;
+  return min(max(start, 0), dim - size);
+}
+
+// bit length of the signed Exp-Golomb code of v (me.py:se_bits)
+__device__ __forceinline__ int se_bits(int v) {
+  unsigned m = v > 0 ? 2u * (unsigned)v - 1u : 2u * (unsigned)(-v);
+  return 2 * (31 - __clz(m + 1u)) + 1;
+}
+
 }  // namespace x264t

@@ -1,0 +1,185 @@
+// K7 intra_in_p: stage 3 of the P-frame encode, the intra-in-P decision.
+//
+// Replaces the intra-in-P sweeps of x264_tpu/encoder/inter.py:
+// encode_p_body (stage 3: eval_intra with luma_i16_path, predict_8x8c and
+// chroma_residual; the lp.cost + lam * INTRA_PEN_BITS < cost_inter
+// decision and the K_SWEEPS = 3 `resolved` fixpoint). Plain twin:
+// x264_tpu_torch/encoder/inter.py:intra_in_p_plain; wrapper: intra_in_p.
+//
+// Design. Intra prediction reads the left / top / top-left
+// reconstruction, which the reference produces MB by MB. x264_tpu
+// replaces that wavefront by bounded-depth sweeps over the whole frame,
+// and so does this kernel, in four launches of one 64-thread CTA per MB,
+// running the I16x16 + chroma device code K1 runs (intra_mb.cuh):
+//   1. sweep 0: every MB's intra path against the inter reconstruction
+//      (pre-deblock), its cost and modes; the candidate recon goes to A;
+//   2. decide: an MB goes intra where cost + lam * 7 < cost_inter, unless
+//      its intra chain is deeper than 3 (each CTA resolves the fixpoint on
+//      the 4x4 window of MBs above-left of it, which is all the three
+//      iterations can reach); A becomes intra ? candidate : inter;
+//   3. sweep 1 against A with the sweep-0 modes, into B;
+//   4. sweep 2 against B, into A, which is the output. Sweeps 1 and 2
+//      evaluate only the intra MBs (the others keep the inter recon and
+//      zero syntax), as x264_tpu's masked whole-frame sweeps leave them.
+// What bounds it on the H100: bytes. The source, inter and output planes
+// and syntax planes are ~51 MB at 1080p as int32 (~15 us at 3.35 TB/s);
+// each sweep is ~16 SATD and 24 transform blocks per MB it runs (~25 k
+// integer ops, some 0.2 G for sweep 0 over every MB, ~3 us at the ALU
+// rate). One MB per 64-thread CTA leaves lanes idle in the serial DC and
+// decision steps; a later PR can batch MBs per CTA.
+#include "intra_mb.cuh"
+
+using namespace x264t;
+
+namespace {
+
+constexpr int NT = IMB_NT;
+constexpr int INTRA_PEN_BITS = 7;
+
+struct Planes {
+  int* y;
+  int* u;
+  int* v;
+};
+
+// copy MB `mb`'s reconstruction from src to dst (all threads)
+__device__ __forceinline__ void copy_mb(Planes dst, const Planes src, int mb_w,
+                                        int mx, int my) {
+  const int W = mb_w * 16, Wc = mb_w * 8;
+  for (int i = threadIdx.x; i < 256; i += NT) {
+    int o = (my * 16 + (i >> 4)) * W + mx * 16 + (i & 15);
+    dst.y[o] = src.y[o];
+  }
+  for (int i = threadIdx.x; i < 128; i += NT) {
+    int k = i & 63, o = (my * 8 + (k >> 3)) * Wc + mx * 8 + (k & 7);
+    if (i < 64) dst.u[o] = src.u[o];
+    else dst.v[o] = src.v[o];
+  }
+}
+
+struct Syntax {
+  int* mode16;
+  int* modec;
+  int* luma_dc;
+  int* luma_ac;
+  int* chroma_dc;
+  int* chroma_ac;
+};
+
+// one sweep: the intra path of every MB (sweep 0) or of the intra MBs
+// with their sweep-0 modes (sweeps 1, 2), neighbours read from src
+__global__ void __launch_bounds__(NT) sweep_kernel(
+    const int* __restrict__ Y, const int* __restrict__ U,
+    const int* __restrict__ V, Planes src, Planes inter, Planes dst,
+    const int* __restrict__ qtab_g, const uint8_t* __restrict__ intra_mb,
+    Syntax out, int* __restrict__ cost_i, int mb_w, int lam, int decimate) {
+  const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
+  const int tid = threadIdx.x;
+  const bool has_top = my > 0, has_left = mx > 0;
+  const bool fixed = intra_mb != nullptr;
+  __shared__ IntraMB S;
+
+  if (fixed && !intra_mb[mb]) {           // inter MB: inter recon, no syntax
+    copy_mb(dst, inter, mb_w, mx, my);
+    if (tid == 0) { out.mode16[mb] = 0; out.modec[mb] = 0; }
+    if (tid < 16) out.luma_dc[mb * 16 + tid] = 0;
+    if (tid < 8) out.chroma_dc[mb * 8 + tid] = 0;
+    for (int i = tid; i < 256; i += NT) out.luma_ac[mb * 256 + i] = 0;
+    for (int i = tid; i < 128; i += NT) out.chroma_ac[mb * 128 + i] = 0;
+    return;
+  }
+  const int fix16 = fixed ? out.mode16[mb] : -1;
+  const int fixc = fixed ? out.modec[mb] : -1;
+  imb_load(S, qtab_g, Y, U, V, src.y, src.u, src.v, mb_w, mx, my, has_top,
+           has_left);
+  __syncthreads();
+  imb_predict(S, has_top, has_left);
+  imb_i16_decide(S, has_top, has_left, lam, fix16);
+  imb_i16_residual(S, decimate != 0);
+  imb_chroma_decide(S, has_top, has_left, fixc);
+  imb_chroma_residual(S);
+
+  const int W = mb_w * 16, Wc = mb_w * 8;
+  for (int i = tid; i < 256; i += NT) {
+    dst.y[(my * 16 + (i >> 4)) * W + mx * 16 + (i & 15)] = S.rec16[i];
+    int z = i >> 4, j = i & 15;
+    out.luma_ac[mb * 256 + i] = S.lv16[4 * kBlkY[z] + kBlkX[z]][kZig4[j]];
+  }
+  for (int i = tid; i < 128; i += NT) {
+    int ch = i >> 6, k = i & 63;
+    int* P = ch ? dst.v : dst.u;
+    P[(my * 8 + (k >> 3)) * Wc + mx * 8 + (k & 7)] = S.crec[ch][k];
+    int blk = k >> 4, j = k & 15;
+    out.chroma_ac[mb * 128 + i] = S.clv[ch][blk][kZig4[j]];
+  }
+  if (tid < 16) out.luma_dc[mb * 16 + tid] = S.dcl16[kZig4[tid]];
+  if (tid < 8) out.chroma_dc[mb * 8 + tid] = S.cdcl[tid >> 2][tid & 3];
+  if (tid == 0) {
+    out.mode16[mb] = S.mode16;
+    out.modec[mb] = S.cmode;
+    if (!fixed) cost_i[mb] = S.cost16;
+  }
+}
+
+// the intra / inter decision with the demotion of chains deeper than 3
+// sweeps; merges A (the sweep-0 candidates) with the inter recon
+__global__ void __launch_bounds__(NT) decide_kernel(
+    const int* __restrict__ cost_i, const int* __restrict__ cost_inter,
+    Planes inter, Planes a, uint8_t* __restrict__ intra_mb, int mb_w,
+    int lam) {
+  const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
+  __shared__ int keep;
+  if (threadIdx.x == 0) {
+    // resolved_k on the window rows my-3..my, cols mx-3..mx; outside
+    // the frame counts as resolved (the True fill of up / lf)
+    bool choose[4][4], r[4][4];
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j) {
+        int y = my - 3 + i, x = mx - 3 + j;
+        bool in = y >= 0 && x >= 0;
+        int n = y * mb_w + x;
+        choose[i][j] = in && cost_i[n] + lam * INTRA_PEN_BITS < cost_inter[n];
+        r[i][j] = !in || !choose[i][j];
+      }
+    for (int k = 1; k <= 3; ++k)
+      for (int i = 3; i >= k; --i)           // descending: reads k-1 values
+        for (int j = 3; j >= k; --j)
+          r[i][j] = r[i][j] || (choose[i][j] && r[i - 1][j] && r[i][j - 1]
+                                && r[i - 1][j - 1]);
+    keep = choose[3][3] && r[3][3];
+    intra_mb[mb] = keep ? 1 : 0;
+  }
+  __syncthreads();
+  if (!keep) copy_mb(a, inter, mb_w, mx, my);
+}
+
+}  // namespace
+
+extern "C" int intra_in_p(const int* y, const int* u, const int* v,
+                          int* inter_y, int* inter_u, int* inter_v,
+                          const int* cost_inter, const int* qtab, int* ry,
+                          int* ru, int* rv, uint8_t* intra_mb, int* mode16,
+                          int* modec, int* luma_dc, int* luma_ac,
+                          int* chroma_dc, int* chroma_ac, int* sy, int* su,
+                          int* sv, int* cost_i, int mb_h, int mb_w, int lam,
+                          int decimate, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nmb = mb_h * mb_w;
+  const Planes inter{inter_y, inter_u, inter_v}, A{ry, ru, rv}, B{sy, su, sv};
+  const Syntax out{mode16, modec, luma_dc, luma_ac, chroma_dc, chroma_ac};
+  sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, inter, inter, A, qtab, nullptr,
+                                  out, cost_i, mb_w, lam, decimate);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decide_kernel<<<nmb, NT, 0, s>>>(cost_i, cost_inter, inter, A, intra_mb,
+                                   mb_w, lam);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, A, inter, B, qtab, intra_mb, out,
+                                  cost_i, mb_w, lam, decimate);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, B, inter, A, qtab, intra_mb, out,
+                                  cost_i, mb_w, lam, decimate);
+  return (int)cudaGetLastError();
+}

@@ -1,17 +1,23 @@
 """Encoder orchestration — the analogue of encoder/encoder.c, ported from
-x264_tpu/encoder/core.py for the all-intra CABAC slice.
+x264_tpu/encoder/core.py for CABAC IDR and P frames at constant QP.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
-validation, headers, dispatch of each frame's device work to the
-current CUDA stream, and the host tail — CABAC arithmetic coding of the
-device-produced op stream, NAL assembly, rate control and statistics.
+validation, headers, the fixed-GOP frame-type decision (an IDR every
+i_keyint_max frames, P frames between; no scenecut, no B frames),
+dispatch of each frame's device work to the current CUDA stream, and the
+host tail — CABAC arithmetic coding of the device-produced op stream,
+NAL assembly, rate control and statistics. The DPB is the one deblocked
+reconstruction of the last frame, kept on the device with its MV field,
+which seeds the next P frame's motion search.
 
 With i_frame_parallel > 1 the output is delayed (x264_encoder_encode's
 contract: a call may return no frame; flush() drains): frame N's kernels
 are queued, its op stream and metrics vector start a non-blocking copy
 into pinned host memory ordered by a CUDA event, and the host CABAC of
-an earlier frame runs while the card works.
+an earlier frame runs while the card works. P frame N reads frame N-1's
+deblocked reconstruction on the same stream, so the pipe needs no
+further synchronisation.
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ import torch
 from .. import tables
 from ..entropy import cabac as ecabac
 from ..entropy import cabac_tables as ctab
-from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE_IDR
-from ..headers import PPS, SPS, SLICE_I, SliceHeader, sei_version
+from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
+from ..headers import PPS, SPS, SLICE_I, SLICE_P, SliceHeader, sei_version
 from ..params import ANALYSE_I4x4, EncoderParams
+from . import inter
 from . import intra
 from . import pipeline
 from . import ratecontrol as rcmod
@@ -66,16 +73,26 @@ class EncodedFrame:
         self.display_idx = display_idx
 
 
-def _check_slice(p: EncoderParams) -> None:
-    """Raise on every parameter outside this slice of the port."""
+def _check_slice(p: EncoderParams, p_frames: bool) -> None:
+    """Raise on every parameter outside this slice of the port; p_frames:
+    whether the stream will hold P frames (i_keyint_max > 1, or a forced
+    P), which this slice encodes at subme 1 with one reference and a
+    fixed GOP only."""
     a, rc = p.analyse, p.rc
     later = [
-        (p.i_keyint_max != 1, "P frames (i_keyint_max > 1)", "the P slice"),
+        (p_frames and p.i_scenecut_threshold > 0,
+         "scenecut detection (use scenecut=0 with keyint > 1)",
+         "the lookahead slice"),
+        (p_frames and a.i_subpel_refine >= 2,
+         "sub-pel motion estimation (subme >= 2; use subme=1)",
+         "the subme 2-5 slice"),
+        (p_frames and p.i_frame_reference >= 2,
+         "multiple references (ref >= 2)", "a later slice"),
         (p.i_bframe > 0, "B frames", "the B slice"),
         (not p.b_cabac, "CAVLC", "the CAVLC slice"),
         (rc.i_qp_constant == 0, "lossless (qp 0)", "a later slice"),
         (a.b_transform_8x8, "the 8x8 transform / I8x8 (use 8x8dct=0)",
-         "the P slice with I8x8"),
+         "the 8x8dct slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
         (a.i_trellis > 0, "trellis", "the trellis slice"),
         (p.i_mb_row_shards > 1, "MB-row sharding", "the multi-GPU slice"),
@@ -92,7 +109,7 @@ def _check_slice(p: EncoderParams) -> None:
 
 
 class Encoder:
-    """x264_encoder_open / encode / close for all-intra CABAC at
+    """x264_encoder_open / encode / close for CABAC IDR + P frames at
     constant QP. device: "cuda" (the default, which needs a card) or
     "cpu", where every kernel runs its plain PyTorch version."""
 
@@ -106,8 +123,11 @@ class Encoder:
         self.device = torch.device(device)
         self.params = params.validate()
         p = self.params
-        _check_slice(p)
+        _check_slice(p, p.i_keyint_max > 1)
         self.rc = rcmod.RateControl(p)
+        self.qt = tables.QuantTables(
+            luma_deadzone_inter=p.analyse.i_luma_deadzone[0],
+            luma_deadzone_intra=p.analyse.i_luma_deadzone[1])
         self.sps = SPS.from_params(p)
         self.pps = PPS.from_params(p)
         self.frame_num = 0
@@ -116,6 +136,17 @@ class Encoder:
         self.frame_count = 0
         self._disp_abs = 0
         self._qtab_cache: dict = {}
+        self._qtab_p_cache: dict = {}
+        # DPB: the deblocked reconstruction of the last frame and the MV
+        # field that seeds the next P frame's ME (both on the device)
+        self._ref = None
+        self._prev_mv = None
+        self._gop_pos = 0
+        self._disp_since_idr = 0
+        # ME window clamped so every candidate stays inside the PAD=32
+        # frame border, as x264_tpu clamps it
+        self._me_range = min(p.analyse.i_me_range, 24)
+        self._decimate = bool(p.analyse.b_dct_decimate)
         self.stats = estats.Stats(
             p.i_width, p.i_height, p.i_fps_num / max(1, p.i_fps_den),
             b_psnr=p.analyse.b_psnr, b_ssim=p.analyse.b_ssim)
@@ -137,32 +168,71 @@ class Encoder:
     # ------------------------------------------------------------- encode
     def encode(self, frame: Frame, forced_type: str | None = None,
                forced_qp: int | None = None) -> EncodedFrame | None:
-        """x264_encoder_encode: every frame of this slice is an IDR. With
-        i_frame_parallel > 1 this queues the frame and returns an earlier
-        one (or None while the pipe fills); flush() drains."""
-        if forced_type not in (None, "I", "IDR"):
+        """x264_encoder_encode: the frame type of a fixed GOP (an IDR at
+        GOP start, else P; forced_type "I" / "IDR" / "P" overrides it).
+        With i_frame_parallel > 1 this queues the frame and returns an
+        earlier one (or None while the pipe fills); flush() drains."""
+        p = self.params
+        if forced_type not in (None, "I", "IDR", "P"):
             raise NotImplementedError(f"forced {forced_type} frames come "
-                                      "with the P/B slices of the port")
+                                      "with the B slice of the port")
+        if forced_type == "P":
+            _check_slice(p, True)
+        if forced_type in ("I", "IDR"):
+            is_idr = True
+        elif forced_type == "P" and self._ref is not None:
+            is_idr = False
+        else:
+            is_idr = (self._gop_pos == 0 or self._ref is None
+                      or p.i_keyint_max == 1)
+        disp_poc = 2 * self._disp_since_idr
         disp = self._disp_abs
         self._disp_abs += 1
-        qp = self.rc.start("I", frame_idx=self.frame_count)
-        if forced_qp is not None:
-            qp = max(0, min(51, int(forced_qp)))
-            self.rc.last_qp = qp
-        pend = self._submit_idr(frame, qp)
-        pend.update(frame=frame, qp=qp, disp=disp)
-        self.frame_count += 1
-        self._start_fetch(pend)
-        self._pending.append(pend)
+        self._advance_gop(is_idr)
+        self._submit_ip(frame, is_idr, forced_qp, 0 if is_idr else disp_poc,
+                        disp)
         if len(self._pending) > self._delay:
             return self._finalize(self._pending.pop(0))
         return None
 
+    def _advance_gop(self, to_idr: bool) -> None:
+        """Display-order GOP bookkeeping."""
+        if to_idr:
+            self._gop_pos = 0
+            self._disp_since_idr = 0
+        self._gop_pos = (self._gop_pos + 1) % max(1, self.params.i_keyint_max)
+        self._disp_since_idr += 1
+
+    def _submit_ip(self, frame: Frame, is_idr: bool, forced_qp, poc: int,
+                   disp: int) -> None:
+        """Queue one reference frame (IDR or P) in encode order."""
+        qp = self.rc.start("I" if is_idr else "P",
+                           frame_idx=self.frame_count)
+        if forced_qp is not None:
+            qp = max(0, min(51, int(forced_qp)))
+            self.rc.last_qp = qp
+        self.poc = poc
+        pend = self._submit_idr(frame, qp) if is_idr \
+            else self._submit_p(frame, qp)
+        pend.update(frame=frame, qp=qp, disp=disp,
+                    ftype="IDR" if is_idr else "P")
+        self.frame_count += 1
+        self._start_fetch(pend)
+        self._pending.append(pend)
+
     def _qtab(self, qp: int, qp_c: int) -> dict:
         key = (qp, qp_c)
         if key not in self._qtab_cache:
-            self._qtab_cache[key] = intra.make_qtab(qp, qp_c, self.device)
+            self._qtab_cache[key] = intra.make_qtab(qp, qp_c, self.device,
+                                                    self.qt)
         return self._qtab_cache[key]
+
+    def _qtab_p(self, qp: int, qp_c: int) -> dict:
+        key = (qp, qp_c)
+        if key not in self._qtab_p_cache:
+            self._qtab_p_cache[key] = inter.make_qtab_p(qp, qp_c,
+                                                        self.device, self.qt)
+        return self._qtab_p_cache[key]
 
     def _pad_input(self, frame: Frame):
         """MB-aligned int32 planes on the device. On the card the bytes
@@ -181,11 +251,11 @@ class Encoder:
                        .to(torch.int32))
         return out
 
-    def _slice_header(self, qp: int) -> SliceHeader:
+    def _slice_header(self, qp: int, slice_type: int) -> SliceHeader:
         p = self.params
         return SliceHeader(
-            slice_type=SLICE_I, frame_num=self.frame_num,
-            idr_pic_id=self.idr_pic_id,
+            slice_type=slice_type, frame_num=self.frame_num,
+            idr_pic_id=self.idr_pic_id if slice_type == SLICE_I else -1,
             poc_lsb=self.poc % (1 << self.sps.log2_max_poc_lsb),
             qp=qp, pic_init_qp=self.pps.pic_init_qp,
             disable_deblock=0 if p.b_deblocking_filter else 1,
@@ -196,12 +266,14 @@ class Encoder:
             log2_max_frame_num=self.sps.log2_max_frame_num,
             log2_max_poc_lsb=self.sps.log2_max_poc_lsb)
 
-    def _cabac_header(self, qp: int) -> bytearray:
+    def _cabac_header(self, qp: int, slice_type: int,
+                      nal_ref_idc: int) -> bytearray:
         """Slice header bytes + cabac_alignment_one_bit (spec 7.3.4),
         built at submit time while frame_num / POC / idr_pic_id hold this
         frame's values."""
         hdr = BitWriter()
-        self._slice_header(qp).write_rbsp(hdr, nal_ref_idc=3)
+        self._slice_header(qp, slice_type).write_rbsp(
+            hdr, nal_ref_idc=nal_ref_idc)
         pad = (-hdr.bit_pos) % 8
         if pad:
             hdr.put((1 << pad) - 1, pad)
@@ -212,10 +284,11 @@ class Encoder:
         mb_w, mb_h = p.mb_width, p.mb_height
         y, u, v = self._pad_input(frame)
         qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
-        # an IDR resets frame_num and POC (spec 7.4.3)
+        # an IDR resets frame_num, POC (spec 7.4.3) and the ME seed field
         self.frame_num = 0
         self.poc = 0
-        hdr_bytes = self._cabac_header(qp)
+        self._prev_mv = None
+        hdr_bytes = self._cabac_header(qp, SLICE_I, 3)
         out = pipeline.encode_i16_idr_cabac(
             mb_h, mb_w, bool(p.b_deblocking_filter), y, u, v,
             self._qtab(qp, qp_c), int(tables.LAMBDA_TABLE[qp]), qp,
@@ -223,15 +296,45 @@ class Encoder:
             2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
             crop_w=p.i_width, crop_h=p.i_height,
             with_metrics=self._with_metrics)
+        recon = self._finish_frame(out, frame)
+        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        return dict(out=out, hdr_bytes=hdr_bytes, recon=recon,
+                    nmb=mb_h * mb_w, slice_is_i=True,
+                    nal_type=NAL_SLICE_IDR, nal_ref_idc=3)
+
+    def _submit_p(self, frame: Frame, qp: int) -> dict:
+        """One P frame against the DPB (x264_encoder_encode P path):
+        subme 1, one reference, CABAC."""
+        p = self.params
+        mb_w, mb_h = p.mb_width, p.mb_height
+        y, u, v = self._pad_input(frame)
+        qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
+        mvp_seed = self._prev_mv if self._prev_mv is not None \
+            else torch.zeros((mb_h, mb_w, 2), dtype=torch.int32,
+                             device=self.device)
+        hdr_bytes = self._cabac_header(qp, SLICE_P, 2)
+        out = pipeline.encode_p_cabac(
+            mb_h, mb_w, self._me_range, bool(p.b_deblocking_filter), y, u, v,
+            *self._ref, self._qtab_p(qp, qp_c), int(tables.LAMBDA_TABLE[qp]),
+            qp, 2 * p.i_deblocking_filter_alphac0,
+            2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
+            mvp_seed, crop_w=p.i_width, crop_h=p.i_height,
+            with_metrics=self._with_metrics, decimate=self._decimate)
+        self._prev_mv = out["mv"]
+        return dict(out=out, hdr_bytes=hdr_bytes,
+                    recon=self._finish_frame(out, frame), nmb=mb_h * mb_w,
+                    slice_is_i=False, nal_type=NAL_SLICE, nal_ref_idc=2)
+
+    def _finish_frame(self, out: dict, frame: Frame) -> Frame:
+        """Update the DPB and crop the recon view (x264_reference_update,
+        encoder/encoder.c:1059)."""
+        self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
         self.frame_num = (self.frame_num + 1) \
             % (1 << self.sps.log2_max_frame_num)
         crop = lambda t, a: t[:a.shape[0], :a.shape[1]]
-        recon = Frame(crop(out["recon_y"], frame.y),
-                      crop(out["recon_u"], frame.u),
-                      crop(out["recon_v"], frame.v))
-        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
-        return dict(out=out, hdr_bytes=hdr_bytes, recon=recon,
-                    nmb=mb_h * mb_w)
+        return Frame(crop(out["recon_y"], frame.y),
+                     crop(out["recon_u"], frame.u),
+                     crop(out["recon_v"], frame.v))
 
     def _start_fetch(self, pend: dict) -> None:
         """Queue the d2h of this frame's op stream and host32 vector right
@@ -263,11 +366,12 @@ class Encoder:
         """Arithmetic coding of the device-produced op stream
         (x264_slice_write CABAC branch, encoder/encoder.c:1155-1199)."""
         hdr_bytes = pend["hdr_bytes"]
-        states = ctab.init_states(True, pend["qp"],
+        states = ctab.init_states(pend["slice_is_i"], pend["qp"],
                                   self.params.i_cabac_init_idc)
         payload, fixup = ecabac.encode_ops(states, ops, hdr_bytes[-1])
         hdr_bytes[-1] = fixup
-        return nal_unit(NAL_SLICE_IDR, 3, bytes(hdr_bytes) + payload)
+        return nal_unit(pend["nal_type"], pend["nal_ref_idc"],
+                        bytes(hdr_bytes) + payload)
 
     def _finalize(self, pend: dict) -> EncodedFrame:
         """Host tail of one frame: wait for its copies, entropy-code, RC
@@ -281,13 +385,19 @@ class Encoder:
         ops = ops_t.numpy()[:n_ops].view(np.uint32)
         payload = self._cabac_payload(pend, ops)
         bits = len(payload) * 8
-        counts = (pend["nmb"], 0, 0)
-        self.rc.end("I", bits, pend["qp"], counts)
+        ftype, nmb = pend["ftype"], pend["nmb"]
+        if ftype == "P":
+            n_intra, n_skip = int(h32[1]), int(h32[2])
+            counts = (n_intra, nmb - n_intra - n_skip, n_skip)
+        else:
+            counts = (nmb, 0, 0)
+        self.rc.end("I" if ftype == "IDR" else ftype, bits, pend["qp"],
+                    counts)
         metrics = None
         if self._with_metrics:
             metrics = tuple(float(x) for x in h32[3:7].view(np.float32))
-        self.stats.add_frame("IDR", bits, pend["qp"], metrics, counts)
-        return EncodedFrame(payload, "IDR", pend["recon"], bits, pend["disp"])
+        self.stats.add_frame(ftype, bits, pend["qp"], metrics, counts)
+        return EncodedFrame(payload, ftype, pend["recon"], bits, pend["disp"])
 
     def close(self) -> dict:
         """x264_encoder_close: emit the global stats report

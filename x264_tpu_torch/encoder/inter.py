@@ -1,0 +1,448 @@
+"""P-frame encode — plain PyTorch twin of x264_tpu/encoder/inter.py's
+P path at subme 1 (make_qtab_p, inter_luma_residual, encode_p_body) and
+the wrappers of its CUDA kernels K6 (csrc/inter.cu) and K7
+(csrc/intra_p.cu).
+
+The reference's per-MB P path (x264_macroblock_analyse P branch,
+encoder/analyse.c:1077-1519, and x264_macroblock_encode,
+encoder/macroblock.c:475) is staged as x264_tpu stages it:
+
+1. full-pel hierarchical ME of every MB at once, seeded by the previous
+   frame's MV field (ops/me.py, kernel K5);
+2. the inter residual of every MB at once, since inter prediction reads
+   only the reference: full-pel luma fetch, 1/8-pel chroma fetch, 4x4
+   DCT, P-matrix quant, DCT decimation, reconstruction (K6);
+3. intra-in-P by bounded-depth sweeps: the I16 + chroma intra path of
+   every MB against the inter reconstruction, the intra / inter
+   decision, demotion of intra chains deeper than K_SWEEPS, and two
+   re-evaluations that make the kept chains exact (K7);
+4. the syntax maps: exact MV prediction, P_Skip, mvd and the per-4x4
+   nnz / ref / mv maps (kernel K8's first pass, entropy/cabac_planes.py).
+
+This slice is subme 1 with one reference: no sub-pel refinement, no
+partitions, no 8x8 transform, no RD ladder, one QP per frame.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import cuda
+from .. import tables
+from ..ops import dct as odct
+from ..ops import mc as omc
+from ..ops import me as ome
+from ..ops import pixel as opix
+from ..ops import predict as opred
+from ..ops import quant as oquant
+from . import intra
+from . import mvpred
+from .intra import _BIG, _blocks4, _pick, _unblocks4, _zig
+
+I32 = torch.int32
+
+# lambda multiplier penalising the bigger intra mb_type ue() in P slices
+INTRA_PEN_BITS = 7
+# intra-in-P sweeps: intra chains deeper than this demote to inter
+K_SWEEPS = 3
+
+# key order of the packed inter table csrc/inter.cu reads
+QTAB_P_VEC_KEYS = ("py_mf", "py_bias", "py_dmf", "pc_mf", "pc_bias",
+                   "pc_dmf")
+QTAB_P_SCALAR_KEYS = ("py_qpdiv6", "pc_dmf0", "pc_mf_dc", "pc_bias_dc",
+                      "pc_qpdiv6")
+
+
+def make_qtab_p(qp_y: int, qp_c: int, device,
+                qt: tables.QuantTables | None = None) -> dict:
+    """The intra tables (y_ / c_) plus the inter ones (py_ / pc_): CQM_4PY
+    / CQM_4PC with the inter deadzone (x264_cqm_init, common/set.c:68)."""
+    qt = qt or tables.DEFAULT_QUANT
+    out = intra.make_qtab(qp_y, qp_c, device, qt)
+    a = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    py, pc = tables.CQM_4PY, tables.CQM_4PC
+    out.update(
+        py_mf=a(qt.quant4_mf[py, qp_y]),
+        py_bias=a(qt.quant4_bias[py, qp_y]),
+        py_dmf=a(qt.dequant4_mf[py, qp_y % 6]),
+        py_qpdiv6=a(qp_y // 6),
+        pc_mf=a(qt.quant4_mf[pc, qp_c]),
+        pc_bias=a(qt.quant4_bias[pc, qp_c]),
+        pc_dmf=a(qt.dequant4_mf[pc, qp_c % 6]),
+        pc_dmf0=a(qt.dequant4_mf[pc, qp_c % 6][0]),
+        pc_mf_dc=a(qt.quant4_mf[pc, qp_c][0] >> 1),
+        pc_bias_dc=a(qt.quant4_bias[pc, qp_c][0] << 1),
+        pc_qpdiv6=a(qp_c // 6),
+    )
+    return out
+
+
+def pack_qtab_p(qtab: dict) -> torch.Tensor:
+    """The inter tables as the one int32 vector csrc/inter.cu reads."""
+    return torch.cat(
+        [qtab[k].reshape(-1).to(I32) for k in QTAB_P_VEC_KEYS]
+        + [qtab[k].reshape(1).to(I32) for k in QTAB_P_SCALAR_KEYS])
+
+
+def _tiles(plane, n: int):
+    """(mb_h*n, mb_w*n) -> (mb_h*mb_w, n, n) in raster MB order."""
+    h, w = plane.shape
+    return plane.to(I32).reshape(h // n, n, w // n, n).transpose(1, 2) \
+        .reshape(-1, n, n)
+
+
+def _untiles(tiles, mb_h: int, mb_w: int):
+    n = tiles.shape[-1]
+    return tiles.reshape(mb_h, mb_w, n, n).transpose(1, 2) \
+        .reshape(mb_h * n, mb_w * n)
+
+
+def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
+    """Inter 16x16 luma residual of K MBs: 16 4x4 DCT blocks, P-matrix
+    quant (x264_macroblock_encode P path, encoder/macroblock.c:538-616).
+    decimate: an 8x8 group scoring < 4 is zeroed, and the whole MB when
+    the total scores < 6 (encoder/macroblock.c:700-730).
+    fenc / pred: (K, 16, 16). Returns (recon (K,16,16), blocks_z
+    (K,16,16) zig-zag in z-scan block order, cbp_bits (K,))."""
+    K, dev = fenc.shape[0], fenc.device
+    zig = _zig(dev)
+    coef = odct.dct4x4(_blocks4(fenc - pred, 4))       # (K,4,4,4,4)
+    lv = oquant.quant(coef.reshape(K, 16, 16), qtab["py_mf"],
+                      qtab["py_bias"])                 # raster blocks
+    if decimate:
+        s = oquant.decimate_score(lv[..., zig])        # (K,16)
+        # raster block (row, col) -> 8x8 group (row // 2, col // 2)
+        g = s.reshape(K, 2, 2, 2, 2).sum((-3, -1))     # (K,2,2)
+        kill_g = (g < 4) | (g.sum((-2, -1)) < 6)[:, None, None]
+        kill = kill_g.repeat_interleave(2, -2).repeat_interleave(2, -1)
+        lv = torch.where(kill.reshape(K, 16, 1), 0, lv)
+    grp = (lv != 0).any(-1).reshape(K, 2, 2, 2, 2).any(-3).any(-1)
+    w = torch.tensor([[1, 2], [4, 8]], dtype=I32, device=dev)
+    cbp_bits = (grp * w).sum((-2, -1), dtype=I32)
+    deq = oquant.dequant(lv, qtab["py_dmf"], qtab["py_qpdiv6"], 4)
+    res = odct.idct4x4(deq.reshape(K, 4, 4, 4, 4))
+    recon = (pred + _unblocks4(res, 4)).clamp(0, 255)
+    zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    return recon, lv[:, zorder][:, :, zig], cbp_bits
+
+
+# ---------------------------------------------------------------- K6
+def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, ref_pad, refu_pad,
+                     refv_pad, mv, sad, mvp, qtab, lam: int,
+                     decimate: bool):
+    """Plain version of K6: stage 2 of encode_p_body at full-pel MVs.
+
+    y / u / v: the MB-aligned source planes; ref_pad: the reference luma
+    padded by PAD, refu_pad / refv_pad the chroma padded by PAD // 2;
+    mv / sad: the ME result (qpel full-pel MVs); mvp: the ME predictor.
+    Returns dict(recon_y / _u / _v planes, blocks_z (mb_h,mb_w,16,16),
+    cbp (mb_h,mb_w), chroma_dc (mb_h,mb_w,2,4), chroma_ac
+    (mb_h,mb_w,2,4,16), cost = sad + lam * (mv bits + 1))."""
+    dev = y.device
+    nK = mb_h * mb_w
+    ys = (torch.arange(mb_h, dtype=I32, device=dev)[:, None] * 16) \
+        .expand(mb_h, mb_w)
+    xs = (torch.arange(mb_w, dtype=I32, device=dev)[None, :] * 16) \
+        .expand(mb_h, mb_w)
+    pred_y = omc.mc_luma(ref_pad[None], ys, xs, mv, 16, 16).reshape(nK, 16,
+                                                                    16)
+    preds_c = [omc.mc_chroma(p, ys >> 1, xs >> 1, mv, 8, 8).reshape(nK, 8, 8)
+               for p in (refu_pad, refv_pad)]
+    fenc_c = [_tiles(u, 8), _tiles(v, 8)]
+    ry, blocks_z, cbp = inter_luma_residual(_tiles(y, 16), pred_y, qtab,
+                                            decimate)
+    ac_kill = None
+    if decimate:
+        # joint two-channel chroma AC decimation (encoder/macroblock.c:
+        # 320-332): a score < 7 zeroes the AC of both channels
+        csc = sum(oquant.decimate_score(
+            intra.chroma_ac_scan(f, p, qtab, "pc")[..., 1:]).sum(-1)
+            for f, p in zip(fenc_c, preds_c))
+        ac_kill = csc < 7
+    ch = [intra.chroma_residual(f, p, qtab, "pc", ac_kill)
+          for f, p in zip(fenc_c, preds_c)]
+    cost = sad + lam * (ome.mv_cost_bits(mv, mvp) + 1)
+    return dict(
+        recon_y=_untiles(ry, mb_h, mb_w),
+        recon_u=_untiles(ch[0][0], mb_h, mb_w),
+        recon_v=_untiles(ch[1][0], mb_h, mb_w),
+        blocks_z=blocks_z.reshape(mb_h, mb_w, 16, 16),
+        cbp=cbp.reshape(mb_h, mb_w),
+        chroma_dc=torch.stack([ch[0][1], ch[1][1]], 1).reshape(mb_h, mb_w,
+                                                               2, 4),
+        chroma_ac=torch.stack([ch[0][2], ch[1][2]], 1).reshape(mb_h, mb_w,
+                                                               2, 4, 16),
+        cost=cost.to(I32))
+
+
+def p_inter_mb(mb_h: int, mb_w: int, y, u, v, ref_pad, refu_pad, refv_pad,
+               mv, sad, mvp, qtab, lam: int, decimate: bool):
+    """K6 `p_inter_mb`: the inter residual path of every MB.
+
+    Replaces x264_tpu/ops/mc.py:mc_luma (at full-pel) and mc_chroma,
+    x264_tpu/encoder/inter.py:inter_luma_residual (with decimation) and
+    the chroma half of encode_p_body's stage 2. On CUDA tensors it runs
+    csrc/inter.cu, one CTA per MB over the whole frame in one launch; on
+    CPU tensors the plain version. Arguments and results as
+    p_inter_mb_plain."""
+    if y.device.type == "cpu":
+        return p_inter_mb_plain(mb_h, mb_w, y, u, v, ref_pad, refu_pad,
+                                refv_pad, mv, sad, mvp, qtab, lam, decimate)
+    dev = y.device
+    H, W, P = mb_h * 16, mb_w * 16, omc.PAD
+    for t, shape, name in (
+            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+            (v, (H // 2, W // 2), "v"),
+            (ref_pad, (H + 2 * P, W + 2 * P), "ref_pad"),
+            (refu_pad, (H // 2 + P, W // 2 + P), "refu_pad"),
+            (refv_pad, (H // 2 + P, W // 2 + P), "refv_pad"),
+            (mv, (mb_h, mb_w, 2), "mv"), (sad, (mb_h, mb_w), "sad"),
+            (mvp, (mb_h, mb_w, 2), "mvp")):
+        cuda.check(t, shape, I32, name)
+    e = lambda *s: torch.empty(s, dtype=I32, device=dev)
+    o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
+             recon_v=e(H // 2, W // 2), blocks_z=e(mb_h, mb_w, 16, 16),
+             cbp=e(mb_h, mb_w), chroma_dc=e(mb_h, mb_w, 2, 4),
+             chroma_ac=e(mb_h, mb_w, 2, 4, 16), cost=e(mb_h, mb_w))
+    ins = (y, u, v, ref_pad, refu_pad, refv_pad, mv, sad, mvp,
+           pack_qtab_p(qtab))
+    cuda.launch("inter", "p_inter_mb", "p" * 18 + "iiii" + "p",
+                *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
+                mb_h, mb_w, lam, int(decimate), cuda.stream(dev))
+    p_inter_mb.launches += 1
+    return o
+
+
+p_inter_mb.launches = 0
+
+
+# ---------------------------------------------------------------- K7
+def _up(a, fill=0):
+    """Shift an MB grid down one row (row 0 = fill)."""
+    return torch.cat([torch.full_like(a[:1], fill), a[:-1]], 0)
+
+
+def _lf(a, fill=0):
+    """Shift an MB grid right one column (column 0 = fill)."""
+    return torch.cat([torch.full_like(a[:, :1], fill), a[:, :-1]], 1)
+
+
+def resolve_intra(choose):
+    """The decision pass's demotion: an intra MB stays intra only if its
+    left / top / top-left intra dependency chain resolves within
+    K_SWEEPS sweeps (x264_tpu encode_p_body stage 3)."""
+    resolved = ~choose
+    for _ in range(K_SWEEPS):
+        resolved = resolved | (choose & _up(resolved, True)
+                               & _lf(resolved, True)
+                               & _up(_lf(resolved, True), True))
+    return choose & resolved
+
+
+def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
+                     inter_v, cost_inter, qtab, lam: int, decimate: bool):
+    """Plain version of K7: stage 3 of encode_p_body.
+
+    Sweep 0 runs the I16 + chroma intra path of every MB with neighbours
+    from the inter reconstruction (inter_y / _u / _v planes); an MB goes
+    intra where its cost + lam * INTRA_PEN_BITS < cost_inter, unless its
+    intra chain is deeper than K_SWEEPS; sweeps 1 and 2 re-run the path
+    with the sweep-0 modes against the merged reconstruction. Returns
+    dict(recon_y / _u / _v (merged planes), intra_mb (mb_h,mb_w) bool,
+    and the intra syntax planes, zero on inter MBs: mode16, modec,
+    luma_dc (mb_h,mb_w,16), luma_ac (mb_h,mb_w,16,16), chroma_dc
+    (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16))."""
+    dev = y.device
+    nK = mb_h * mb_w
+    grid = lambda t: t.reshape(mb_h, mb_w, *t.shape[1:])
+    fenc, fu, fv = _tiles(y, 16), _tiles(u, 8), _tiles(v, 8)
+    gy = torch.arange(mb_h, device=dev)[:, None].expand(mb_h, mb_w)
+    gx = torch.arange(mb_w, device=dev)[None, :].expand(mb_h, mb_w)
+    ht, hl = (gy > 0).reshape(nK), (gx > 0).reshape(nK)
+    inter_t = [grid(_tiles(p, n)) for p, n in
+               ((inter_y, 16), (inter_u, 8), (inter_v, 8))]
+
+    def nbrs(t):
+        n = t.shape[-1] - 1
+        return (_up(t)[:, :, n, :].reshape(nK, n + 1),
+                _lf(t)[:, :, :, n].reshape(nK, n + 1),
+                _lf(_up(t))[:, :, n, n].reshape(nK))
+
+    def eval_intra(ty, tu, tv, mode_sel, cmode_sel):
+        lp = intra.luma_i16_path(fenc, *nbrs(ty), ht, hl, qtab, lam,
+                                 mode_sel=mode_sel, decimate=decimate)
+        pu = opred.predict_8x8c(*nbrs(tu), ht, hl)
+        pv = opred.predict_8x8c(*nbrs(tv), ht, hl)
+        if cmode_sel is None:
+            ccost = torch.where(opred.mode_available_8x8c(ht, hl),
+                                opix.satd(fu[:, None], pu)
+                                + opix.satd(fv[:, None], pv), _BIG)
+            cmode = ccost.argmin(-1).to(I32)
+        else:
+            cmode = cmode_sel
+        cu = intra.chroma_residual(fu, _pick(pu, cmode), qtab, "c")
+        cv = intra.chroma_residual(fv, _pick(pv, cmode), qtab, "c")
+        return lp, cmode, cu, cv
+
+    state = inter_t
+    intra_mb = mode_fix = cmode_fix = None
+    for _ in range(K_SWEEPS):
+        lp, cmode, cu, cv = eval_intra(*state, mode_fix, cmode_fix)
+        if mode_fix is None:
+            mode_fix, cmode_fix = lp["mode"], cmode
+            choose = (lp["cost"] + lam * INTRA_PEN_BITS
+                      < cost_inter.reshape(nK)).reshape(mb_h, mb_w)
+            intra_mb = resolve_intra(choose)
+        m = intra_mb[..., None, None]
+        state = [torch.where(m, grid(new), old) for new, old in
+                 zip((lp["recon"], cu[0], cv[0]), inter_t)]
+
+    z = lambda t: torch.where(
+        intra_mb.reshape(mb_h, mb_w, *([1] * (t.dim() - 2))), t, 0)
+    return dict(
+        recon_y=_untiles(state[0], mb_h, mb_w),
+        recon_u=_untiles(state[1], mb_h, mb_w),
+        recon_v=_untiles(state[2], mb_h, mb_w),
+        intra_mb=intra_mb,
+        mode16=z(grid(lp["mode"])), modec=z(grid(cmode)),
+        luma_dc=z(grid(lp["dc_z"])), luma_ac=z(grid(lp["ac_z"])),
+        chroma_dc=z(grid(torch.stack([cu[1], cv[1]], 1))),
+        chroma_ac=z(grid(torch.stack([cu[2], cv[2]], 1))))
+
+
+def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
+               cost_inter, qtab, lam: int, decimate: bool):
+    """K7 `intra_in_p`: stage 3 of the P encode.
+
+    Replaces the intra-in-P sweeps of x264_tpu/encoder/inter.py:
+    encode_p_body (eval_intra with luma_i16_path, predict_8x8c and
+    chroma_residual; the decision and the resolved fixpoint). On CUDA
+    tensors it runs csrc/intra_p.cu: sweep 0 over every MB, the decision
+    with the demotion of deep chains, then sweeps 1 and 2 (4 launches, one
+    CTA per MB each); on CPU tensors the plain version. Arguments and
+    results as intra_in_p_plain."""
+    if y.device.type == "cpu":
+        return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
+                                inter_v, cost_inter, qtab, lam, decimate)
+    dev = y.device
+    H, W = mb_h * 16, mb_w * 16
+    for t, shape, name in (
+            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+            (v, (H // 2, W // 2), "v"), (inter_y, (H, W), "inter_y"),
+            (inter_u, (H // 2, W // 2), "inter_u"),
+            (inter_v, (H // 2, W // 2), "inter_v"),
+            (cost_inter, (mb_h, mb_w), "cost_inter")):
+        cuda.check(t, shape, I32, name)
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
+             recon_v=e(H // 2, W // 2),
+             intra_mb=e(mb_h, mb_w, dt=torch.bool),
+             mode16=e(mb_h, mb_w), modec=e(mb_h, mb_w),
+             luma_dc=e(mb_h, mb_w, 16), luma_ac=e(mb_h, mb_w, 16, 16),
+             chroma_dc=e(mb_h, mb_w, 2, 4),
+             chroma_ac=e(mb_h, mb_w, 2, 4, 16))
+    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2), e(mb_h, mb_w))
+    ins = (y, u, v, inter_y, inter_u, inter_v, cost_inter,
+           intra.pack_qtab(qtab))
+    cuda.launch("intra_p", "intra_in_p", "p" * 22 + "iiii" + "p",
+                *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
+                *[t.data_ptr() for t in scratch], mb_h, mb_w, lam,
+                int(decimate), cuda.stream(dev))
+    intra_in_p.launches += 4           # sweep 0, decision, sweeps 1 and 2
+    return o
+
+
+intra_in_p.launches = 0
+
+
+# ------------------------------------------------------------ the body
+def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
+                   ref_u, ref_v, qtab, lam: int, mvp_seed,
+                   decimate: bool) -> dict:
+    """Stages 1-3 of the P encode through kernels K5, K6 and K7, and the
+    merges of stage 4 (plain tensor glue). All planes int32 and
+    MB-aligned; ref_* the deblocked reference reconstruction; mvp_seed
+    (mb_h, mb_w, 2) the qpel ME predictors. Returns the merged syntax
+    planes, the merged pre-deblock reconstruction and the ME's MVs."""
+    ref_pad = omc.pad_plane(ref_y.to(I32))
+    refu_pad = omc.pad_plane(ref_u.to(I32), omc.PAD // 2)
+    refv_pad = omc.pad_plane(ref_v.to(I32), omc.PAD // 2)
+    mv, sad = ome.hier_search(y, ref_pad, mb_h, mb_w, me_range, lam,
+                              mvp_seed)
+    it = p_inter_mb(mb_h, mb_w, y, u, v, ref_pad, refu_pad, refv_pad, mv,
+                    sad, mvp_seed, qtab, lam, decimate)
+    ip = intra_in_p(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
+                    it["recon_v"], it["cost"], qtab, lam, decimate)
+    im = ip["intra_mb"]
+    luma_blocks = torch.where(im[..., None, None], ip["luma_ac"],
+                              it["blocks_z"])
+    chroma_dc = torch.where(im[..., None, None], ip["chroma_dc"],
+                            it["chroma_dc"])
+    chroma_ac = torch.where(im[..., None, None, None], ip["chroma_ac"],
+                            it["chroma_ac"])
+    cbp_i16 = (ip["luma_ac"] != 0).any(-1).any(-1)
+    cbp_luma_bits = torch.where(im, torch.where(cbp_i16, 15, 0),
+                                it["cbp"]).to(I32)
+    cnz_ac = (chroma_ac != 0).reshape(mb_h, mb_w, -1).any(-1)
+    cnz_dc = (chroma_dc != 0).reshape(mb_h, mb_w, -1).any(-1)
+    cbp_chroma = torch.where(cnz_ac, 2, torch.where(cnz_dc, 1, 0)).to(I32)
+    return dict(recon_y=ip["recon_y"], recon_u=ip["recon_u"],
+                recon_v=ip["recon_v"], intra_mb=im, mode16=ip["mode16"],
+                modec=ip["modec"], luma_dc=ip["luma_dc"],
+                luma_blocks=luma_blocks, chroma_dc=chroma_dc,
+                chroma_ac=chroma_ac, cbp_luma_bits=cbp_luma_bits,
+                cbp_chroma=cbp_chroma, me_mv=mv)
+
+
+def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
+    """Stage 4's syntax maps (plain half of kernel K8's first pass): the
+    final per-4x4 ref / mv maps (intra: ref -1, mv 0), exact MV
+    prediction on them (predict_16x16, predict_pskip), P_Skip, the mvd
+    and its per-4x4 map (0 on skip and intra MBs), and the nnz map the
+    deblocker and the cbf contexts read."""
+    dev = front["intra_mb"].device
+    im = front["intra_mb"]
+    mv = torch.where(im[..., None], 0, front["me_mv"]).to(I32)
+    rep = lambda t: t.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    ref4 = rep(torch.where(im, -1, 0).to(I32))
+    mv4 = rep(mv)
+    mvp16 = mvpred.predict_16x16(ref4, mv4)
+    mv_skip = mvpred.predict_pskip(ref4, mv4)
+    mvd = torch.where(im[..., None], 0, mv - mvp16).to(I32)
+    cbp_l = front["cbp_luma_bits"]
+    skip = ~im & (cbp_l == 0) & (front["cbp_chroma"] == 0) \
+        & (mv == mv_skip).all(-1)
+    mvd4 = rep(torch.where(skip[..., None], 0, mvd))
+    nnz_cnt = (front["luma_blocks"] != 0).sum(-1, dtype=I32)   # z-scan
+    grp = torch.arange(16, dtype=I32, device=dev) // 4
+    blk_coded = (cbp_l[..., None] >> grp) & 1
+    nnz_z = nnz_cnt * blk_coded
+    R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    nnz_r = torch.zeros_like(nnz_z)
+    nnz_r[..., R] = nnz_z
+    nnz4 = nnz_r.reshape(mb_h, mb_w, 4, 4).transpose(1, 2) \
+        .reshape(mb_h * 4, mb_w * 4)
+    return dict(mv=mv, mvd=mvd, mvd4=mvd4, skip=skip, nnz4=nnz4, ref4=ref4,
+                mv4=mv4)
+
+
+def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
+                  ref_u, ref_v, qtab, lam: int, mvp_seed,
+                  decimate: bool) -> dict:
+    """One P frame (pre-deblock) with the keys of x264_tpu's
+    encode_p_body(subpel_steps=(), parts=False, n_refs=1, t8=False,
+    rd=False, qp_map=None): stages 1-3 (encode_p_front) and the syntax
+    maps (p_maps_plain). The card's pipeline runs the maps inside kernel
+    K8 instead (entropy/cabac_planes.py:cabac_p_ops)."""
+    front = encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y, ref_u,
+                           ref_v, qtab, lam, mvp_seed, decimate)
+    out = dict(front, **p_maps_plain(front, mb_h, mb_w))
+    del out["me_mv"]
+    # the partition, 8x8-transform and multi-reference fields stay zero
+    z = lambda *s, dt=I32: torch.zeros(s, dtype=dt, device=y.device)
+    out.update(t8_mb=z(mb_h, mb_w, dt=torch.bool),
+               luma8_z=z(mb_h, mb_w, 4, 64), mvd1=z(mb_h, mb_w, 2),
+               ptype=z(mb_h, mb_w), mv_sub=z(mb_h, mb_w, 4, 2),
+               mvd_sub=z(mb_h, mb_w, 4, 2), ref_idx=z(mb_h, mb_w))
+    return out

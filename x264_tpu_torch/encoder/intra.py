@@ -103,19 +103,27 @@ def _zig(device):
     return torch.as_tensor(tables.ZIGZAG4, device=device).long()
 
 
-def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam):
+def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam,
+                  mode_sel=None, decimate: bool = False):
     """I16x16 luma for a batch of MBs: mode decision + residual +
     reconstruction (x264_mb_analyse_intra + x264_mb_encode_i16x16).
+    mode_sel: (K,) fixed modes instead of the SATD decision (cost is then
+    0); decimate: the P-slice AC decimation (a total score15 < 6 zeroes
+    every AC level, encoder/macroblock.c:193-241).
     Returns dict(cost, mode, recon, dc_z (K,16), ac_z (K,16,16), cbp)."""
     K, dev = fenc.shape[0], fenc.device
     zig = _zig(dev)
     preds = opred.predict_16x16(top, left, topleft, has_top, has_left)
-    avail = opred.mode_available_16x16(has_top, has_left)
-    cost = opix.satd(fenc[:, None], preds) \
-        + lam * torch.tensor(_MODE_BITS_16, dtype=I32, device=dev)
-    cost = torch.where(avail, cost, torch.full_like(cost, _BIG))
-    best_cost = cost.min(-1).values
-    mode = cost.argmin(-1).to(I32)
+    if mode_sel is None:
+        avail = opred.mode_available_16x16(has_top, has_left)
+        cost = opix.satd(fenc[:, None], preds) \
+            + lam * torch.tensor(_MODE_BITS_16, dtype=I32, device=dev)
+        cost = torch.where(avail, cost, torch.full_like(cost, _BIG))
+        best_cost = cost.min(-1).values
+        mode = cost.argmin(-1).to(I32)
+    else:
+        mode = mode_sel.to(I32)
+        best_cost = torch.zeros(K, dtype=I32, device=dev)
     pred = _pick(preds, mode)
 
     coef = odct.dct4x4(_blocks4(fenc - pred, 4))       # (K,4,4,4,4)
@@ -124,6 +132,10 @@ def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam):
     ac[..., 0, 0] = 0
     ac_lv = oquant.quant(ac.reshape(K, 16, 16), qtab["y_mf"],
                          qtab["y_bias"]).reshape(K, 4, 4, 4, 4)
+    if decimate:
+        s = oquant.decimate_score(ac_lv.reshape(K, 16, 16)[..., zig][..., 1:])
+        ac_lv = torch.where((s.sum(-1) < 6)[:, None, None, None, None], 0,
+                            ac_lv)
     cbp_luma = (ac_lv != 0).any(-1).any(-1).any(-1).any(-1)   # (K,)
     ac_deq = oquant.dequant(ac_lv.reshape(K, 16, 16), qtab["y_dmf"],
                             qtab["y_qpdiv6"], 4).reshape(K, 4, 4, 4, 4)
@@ -144,24 +156,47 @@ def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam):
                 ac_z=ac_z, cbp=cbp_luma)
 
 
-def chroma_residual(fencc, cpred, qtab):
-    """Chroma 8x8 residual path of one channel for a batch of MBs
-    (x264_mb_encode_8x8_chroma, encoder/macroblock.c:272). Returns
-    (recon, dc (K,4) in [c00,c01,c10,c11] order, ac (K,4,16) zig-zag)."""
-    K, zig = fencc.shape[0], _zig(fencc.device)
+def _chroma_ac_levels(fencc, cpred, qtab, pfx: str):
+    """DCT of the 2x2 chroma 4x4 blocks and the quantised AC levels with
+    the `pfx` ("c" intra, "pc" inter) tables: (coef, ac levels)."""
+    K = fencc.shape[0]
     ccoef = odct.dct4x4(_blocks4(fencc - cpred, 2))    # (K,2,2,4,4)
-    cdc = ccoef[..., 0, 0].clone()
     cac = ccoef.clone()
     cac[..., 0, 0] = 0
-    cac_lv = oquant.quant(cac.reshape(K, 4, 16), qtab["c_mf"],
-                          qtab["c_bias"]).reshape(K, 2, 2, 4, 4)
+    cac_lv = oquant.quant(cac.reshape(K, 4, 16), qtab[f"{pfx}_mf"],
+                          qtab[f"{pfx}_bias"]).reshape(K, 2, 2, 4, 4)
+    return ccoef, cac_lv
+
+
+def chroma_ac_scan(fencc, cpred, qtab, pfx: str = "pc"):
+    """Quantised chroma AC levels in zig-zag scan, (K, 4, 16): the input
+    of the joint two-channel decimation decision
+    (encoder/macroblock.c:320-332)."""
+    K = fencc.shape[0]
+    _, cac_lv = _chroma_ac_levels(fencc, cpred, qtab, pfx)
+    return cac_lv.reshape(K, 4, 16)[..., _zig(fencc.device)]
+
+
+def chroma_residual(fencc, cpred, qtab, pfx: str = "c", ac_kill=None):
+    """Chroma 8x8 residual path of one channel for a batch of MBs
+    (x264_mb_encode_8x8_chroma, encoder/macroblock.c:272), with the
+    `pfx` tables ("c" intra, "pc" inter). ac_kill: optional (K,) bool
+    zeroing the AC levels (the joint chroma decimation of inter MBs).
+    Returns (recon, dc (K,4) in [c00,c01,c10,c11] order, ac (K,4,16)
+    zig-zag)."""
+    K, zig = fencc.shape[0], _zig(fencc.device)
+    ccoef, cac_lv = _chroma_ac_levels(fencc, cpred, qtab, pfx)
+    if ac_kill is not None:
+        cac_lv = torch.where(ac_kill[:, None, None, None, None], 0, cac_lv)
+    cdc = ccoef[..., 0, 0]
     cnz_ac = (cac_lv != 0).reshape(K, -1).any(-1)
-    cac_deq = oquant.dequant(cac_lv.reshape(K, 4, 16), qtab["c_dmf"],
-                             qtab["c_qpdiv6"], 4).reshape(K, 2, 2, 4, 4)
-    cdc_lv = oquant.quant_dc(odct.hadamard2x2(cdc), qtab["c_mf_dc"],
-                             qtab["c_bias_dc"])
+    cac_deq = oquant.dequant(cac_lv.reshape(K, 4, 16), qtab[f"{pfx}_dmf"],
+                             qtab[f"{pfx}_qpdiv6"], 4).reshape(K, 2, 2, 4, 4)
+    cdc_lv = oquant.quant_dc(odct.hadamard2x2(cdc), qtab[f"{pfx}_mf_dc"],
+                             qtab[f"{pfx}_bias_dc"])
     cdc_rec = oquant.dequant_2x2_dc(odct.hadamard2x2(cdc_lv),
-                                    qtab["c_dmf0"], qtab["c_qpdiv6"])
+                                    qtab[f"{pfx}_dmf0"],
+                                    qtab[f"{pfx}_qpdiv6"])
     cac_deq[..., 0, 0] = cdc_rec
     cfull = odct.idct4x4(cac_deq)
     cdconly = ((cdc_rec + 32) >> 6)[..., None, None].expand_as(cfull)

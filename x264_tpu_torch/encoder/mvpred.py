@@ -1,0 +1,100 @@
+"""Exact MV prediction over the final block-level maps — plain PyTorch
+twin of x264_tpu/encoder/mvpred.py (median3, _pad_maps, _gather,
+_predict, _slots_16x16, predict_16x16, predict_pskip).
+
+The reference predicts MVs through its per-MB neighbour cache
+(x264_mb_predict_mv_16x16 / _pskip, common/macroblock.c:28-153). Once a
+frame's MVs are final, prediction becomes gathers on 4x4-granular maps:
+
+  ref4: (4*mb_h, 4*mb_w) int32 reference index per 4x4 block (-1 intra;
+        the pad ring supplies -2, "unavailable")
+  mv4:  (4*mb_h, 4*mb_w, 2) int32 qpel MV per 4x4 block (0 for intra)
+
+A is the left block, B the top, C the top-right (top + partition
+width), D the top-left; C falls back to D where C is unavailable. The
+16x8 / 8x16 / 8x8 predictors belong to the partition slice. In the port
+the same rules run in kernel K8's first pass (csrc/cabac_ops.cu).
+"""
+
+from __future__ import annotations
+
+import torch
+
+I32 = torch.int32
+
+
+def median3(a, b, c):
+    return a + b + c - torch.minimum(a, torch.minimum(b, c)) \
+        - torch.maximum(a, torch.maximum(b, c))
+
+
+def _pad_maps(ref4, mv4):
+    """1-ring pad: outside the frame = ref -2, mv 0."""
+    h, w = ref4.shape
+    refp = torch.full((h + 2, w + 2), -2, dtype=I32, device=ref4.device)
+    refp[1:-1, 1:-1] = ref4
+    mvp = torch.zeros((h + 2, w + 2, 2), dtype=I32, device=mv4.device)
+    mvp[1:-1, 1:-1] = mv4
+    return refp, mvp
+
+
+def _gather(refp, mvp, r, c):
+    """(ref, mv) at block coords (r, c) of the unpadded grid; r / c may
+    be -1 or one past the end (the pad ring)."""
+    return refp[r + 1, c + 1], mvp[r + 1, c + 1]
+
+
+def _predict(ref_a, mv_a, ref_b, mv_b, ref_c, mv_c, i_ref):
+    """The median / count rule (x264_mb_predict_mv_16x16 tail)."""
+    cnt = ((ref_a == i_ref).to(I32) + (ref_b == i_ref).to(I32)
+           + (ref_c == i_ref).to(I32))
+    med = median3(mv_a, mv_b, mv_c)
+    only = torch.where((ref_a == i_ref)[..., None], mv_a,
+                       torch.where((ref_b == i_ref)[..., None], mv_b, mv_c))
+    a_only = (ref_b == -2) & (ref_c == -2) & (ref_a != -2)
+    return torch.where((cnt > 1)[..., None], med,
+                       torch.where((cnt == 1)[..., None], only,
+                                   torch.where(a_only[..., None], mv_a,
+                                               med)))
+
+
+def _grid(mb_h: int, mb_w: int, device):
+    """Top-left 4x4-block coordinates of every MB, (mb_h, mb_w) each."""
+    gy = torch.arange(mb_h, device=device)[:, None] * 4
+    gx = torch.arange(mb_w, device=device)[None, :] * 4
+    return gy.expand(mb_h, mb_w), gx.expand(mb_h, mb_w)
+
+
+def _slots_16x16(refp, mvp, mb_h: int, mb_w: int):
+    gy, gx = _grid(mb_h, mb_w, refp.device)
+    ref_a, mv_a = _gather(refp, mvp, gy, gx - 1)
+    ref_b, mv_b = _gather(refp, mvp, gy - 1, gx)
+    ref_c, mv_c = _gather(refp, mvp, gy - 1, gx + 4)
+    ref_d, mv_d = _gather(refp, mvp, gy - 1, gx - 1)
+    use_d = ref_c == -2
+    ref_c = torch.where(use_d, ref_d, ref_c)
+    mv_c = torch.where(use_d[..., None], mv_d, mv_c)
+    return ref_a, mv_a, ref_b, mv_b, ref_c, mv_c
+
+
+def predict_16x16(ref4, mv4, i_ref=0):
+    """MVP of whole-MB partitions (x264_mb_predict_mv_16x16).
+    Returns (mb_h, mb_w, 2)."""
+    mb_h, mb_w = ref4.shape[0] // 4, ref4.shape[1] // 4
+    refp, mvp = _pad_maps(ref4, mv4)
+    return _predict(*_slots_16x16(refp, mvp, mb_h, mb_w), i_ref)
+
+
+def predict_pskip(ref4, mv4):
+    """P_Skip MV (x264_mb_predict_mv_pskip): zero where A or B is
+    unavailable or is a zero-MV ref-0 block, else the 16x16 prediction."""
+    mb_h, mb_w = ref4.shape[0] // 4, ref4.shape[1] // 4
+    refp, mvp = _pad_maps(ref4, mv4)
+    gy, gx = _grid(mb_h, mb_w, refp.device)
+    ref_a, mv_a = _gather(refp, mvp, gy, gx - 1)
+    ref_b, mv_b = _gather(refp, mvp, gy - 1, gx)
+    a_zero = (ref_a == 0) & (mv_a == 0).all(-1)
+    b_zero = (ref_b == 0) & (mv_b == 0).all(-1)
+    force0 = (ref_a == -2) | (ref_b == -2) | a_zero | b_zero
+    mvp16 = predict_16x16(ref4, mv4)
+    return torch.where(force0[..., None], 0, mvp16)

@@ -1,7 +1,7 @@
 """Rate control, constant-QP subset — the analogue of
 encoder/ratecontrol.c as x264_tpu/encoder/ratecontrol.py implements it.
 
-This slice ports CQP for I frames: the frame QP (x264_ratecontrol_start,
+This slice ports CQP for I and P frames: the frame QP (x264_ratecontrol_start,
 encoder/ratecontrol.c:789, CQP branch), the post-frame accounting
 (x264_ratecontrol_end:1077-1133) and the 2-pass stats file write
 (:1094-1116). CRF / ABR, VBV, scenecut analysis and 2-pass replay come
@@ -50,11 +50,12 @@ class RateControl:
         self.entries: list[RateControlEntry] = []
 
     def start(self, frame_type: str, frame_idx: int | None = None) -> int:
-        """The frame QP: constant for every I frame (the reference's CQP,
-        kept flat for I frames as x264_tpu does)."""
-        if frame_type != "I":
+        """The frame QP: i_qp_constant for every I and P frame (the
+        reference's CQP with the ip offset kept flat, as x264_tpu keeps
+        it, x264_tpu/encoder/ratecontrol.py:252-264)."""
+        if frame_type not in ("I", "P"):
             raise NotImplementedError(f"{frame_type} frames come with the "
-                                      "P/B slices of the port")
+                                      "B slice of the port")
         qp = max(0, min(51, self.p.rc.i_qp_constant))
         self.last_qp = qp
         return int(qp)

@@ -184,6 +184,7 @@ class Stats:
         self.mb_intra = 0
         self.mb_inter = 0
         self.mb_skip = 0
+        self.psnr_type_sum = {}  # frame type -> [Y, avg] sums
 
     def add_frame(self, ftype: str, bits: int, qp: int, metrics=None,
                   mb_counts=None):
@@ -209,6 +210,9 @@ class Stats:
         self.psnr_sum[1] += pu
         self.psnr_sum[2] += pv
         self.psnr_sum[3] += (py + pu + pv) / 3.0
+        by_type = self.psnr_type_sum.setdefault(ftype, [0.0, 0.0])
+        by_type[0] += py
+        by_type[1] += (py + pu + pv) / 3.0
         self.ssim_sum += float(metrics[3]) / max(
             1, ((w - 6) >> 2) * ((h - 6) >> 2))
 
@@ -242,6 +246,9 @@ class Stats:
                 "avg": self.psnr_sum[3] / n,
                 "global": psnr(sum(self.ssd), n * yuv_size),
             }
+            out["psnr_by_type"] = {
+                t: {"y": sy / self.count[t], "avg": sa / self.count[t]}
+                for t, (sy, sa) in self.psnr_type_sum.items()}
         if self.b_ssim:
             out["ssim_y"] = self.ssim_sum / n
         return out

@@ -32,7 +32,9 @@ PAD_OP = KIND_PAD << 29
 
 # op-stream capacity per MB: an I MB emits at most 537 live ops (header
 # 8, pred modes 64, header2 10, luma DC 18, 16 luma blocks of 18, chroma
-# DC 2 x 6, chroma AC 8 x 17, terminal 1), as x264_tpu sizes it
+# DC 2 x 6, chroma AC 8 x 17, terminal 1), as x264_tpu sizes it; a P MB
+# at most 464 (skip, mb_type, mvd, cbp and dqp 27, 16 luma blocks of 18,
+# chroma 148, terminal 1)
 OPS_PER_MB = 560
 
 
@@ -263,6 +265,173 @@ def i_slice_ops_plain(out: dict, mb_h: int, mb_w: int):
     return compact_ops(i16_slice_ops(out, mb_h, mb_w), capacity(mb_h * mb_w))
 
 
+# mvd unary context ladder (x264_cabac_mb_mvd_cpn, encoder/cabac.c):
+# ctx offsets of the unary bins 1..8 past the component base (40 x, 47 y)
+_MVD_TERM_OFF = (0, 3, 4, 5, 6, 6, 6, 6, 6)
+
+
+def _mvd_component_ops(mvd_c, base: int, inc, active):
+    """The 8 slots of one component's UEG3 mvd binarization
+    (x264_cabac_mb_mvd_cpn, encoder/cabac.c:444). mvd_c / inc / active:
+    (N,). Returns a list of 8 int64 op tensors."""
+    a = mvd_c.abs().to(I64)
+    term_off = torch.tensor(_MVD_TERM_OFF, dtype=I64, device=a.device)
+    ones = (torch.minimum(a - 1, torch.full_like(a, 8)) - 3).clamp(0, 5)
+    return [
+        _sel(active, op(KIND_DECISION, base + inc, a > 0)),
+        _sel(active & (a >= 2), op(KIND_DECISION, base + 3, 1)),
+        _sel(active & (a >= 3), op(KIND_DECISION, base + 4, 1)),
+        _sel(active & (a >= 4), op(KIND_DECISION, base + 5, 1)),
+        _sel(active & (ones > 0), op(KIND_ONES, base + 6, ones)),
+        _sel(active & (a >= 1) & (a < 9),
+             op(KIND_DECISION, base + term_off[a.clamp(0, 8)], 0)),
+        _sel(active & (a >= 9), op(KIND_UE, (a - 9).clamp(min=0), 3)),
+        _sel(active & (a >= 1), op(KIND_BYPASS, mvd_c < 0, 1)),
+    ]
+
+
+def _cbf_ctx_from_grid(grid, intra_cur_grid):
+    """coded_block_flag ctxIdxInc on a block grid: the neighbours'
+    nonzero flags, where outside the frame resolves to the current MB's
+    intra flag (the 0x7f / 0x80 masking of cbf_ctxidxinc,
+    encoder/cabac.c:508)."""
+    a, b = _nbr_grids(grid, 2)
+    ia = torch.where(a == 2, intra_cur_grid, a)
+    ib = torch.where(b == 2, intra_cur_grid, b)
+    return 2 * ib + ia
+
+
+def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
+                t8_mode: bool = False):
+    """Packed op planes of a whole P CABAC slice (x264_macroblock_write_
+    cabac P branch + x264_cabac_mb_skip, encoder/cabac.c:300-306,
+    781-1025) for 16x16 inter, P_Skip and I16x16 MBs with one reference,
+    no 8x8 transform and one QP. `out` holds the keys of
+    encoder/inter.py:encode_p_body. Returns the flat int64 slot stream."""
+    if n_refs != 1 or t8_mode:
+        raise NotImplementedError(
+            "multiple references and the 8x8 transform in P slices come "
+            "with later slices of the port")
+    nmb = mb_h * mb_w
+    dev = out["intra_mb"].device
+    R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    intra = out["intra_mb"].reshape(mb_h, mb_w)
+    skip = out["skip"].reshape(mb_h, mb_w)
+    cbp_l = out["cbp_luma_bits"].reshape(mb_h, mb_w).to(I64)
+    cbp_c = out["cbp_chroma"].reshape(mb_h, mb_w).to(I64)
+    luma_blocks = out["luma_blocks"].reshape(nmb, 16, 16)
+    luma_dc = out["luma_dc"].reshape(nmb, 16)
+    chroma_dc = out["chroma_dc"].reshape(nmb, 2, 4)
+    chroma_ac = out["chroma_ac"].reshape(nmb, 2, 4, 16)
+    mvd = out["mvd"].reshape(nmb, 2).to(I64)
+    mode16 = out["mode16"].reshape(nmb).to(I64)
+    modec = torch.where(intra, out["modec"].reshape(mb_h, mb_w), 0).to(I64)
+    mvd4 = out["mvd4"].to(I64)
+    intra_f, skip_f = intra.reshape(nmb), skip.reshape(nmb)
+    coded = ~skip_f
+    inter_f = coded & ~intra_f
+    cbp_lf, cbp_cf = cbp_l.reshape(nmb), cbp_c.reshape(nmb)
+    dec = lambda ctx, b: op(KIND_DECISION, ctx, b)
+
+    # mb_skip_flag (ctx 11 + non-skip neighbours), then mb_type: P_L0
+    # 16x16 = (14,0)(15,0)(16,0); intra prefix (14,1) + I16 suffix
+    a, b = _nbr_grids((~skip).to(I64), 0)
+    slots = [dec((11 + a + b).reshape(nmb), skip_f),
+             _sel(coded, dec(14, intra_f)),
+             _sel(inter_f, dec(15, 0)),
+             _sel(inter_f, dec(16, 0)),
+             _sel(intra_f, dec(17, 1)),
+             _sel(intra_f, torch.full((nmb,), KIND_TERMINAL << 29,
+                                      dtype=I64, device=dev)),
+             _sel(intra_f, dec(18, cbp_lf > 0)),
+             _sel(intra_f, dec(19, cbp_cf > 0)),
+             _sel(intra_f & (cbp_cf > 0), dec(19, cbp_cf == 2)),
+             _sel(intra_f, dec(20, mode16 >> 1)),
+             _sel(intra_f, dec(20, mode16 & 1))]
+    # intra chroma pred mode
+    cm_l, cm_t = _nbr_grids(modec, 0)
+    cctx = (64 + (cm_l != 0).to(I64) + (cm_t != 0).to(I64)).reshape(nmb)
+    cm = modec.reshape(nmb)
+    slots += [_sel(intra_f, dec(cctx, cm > 0)),
+              _sel(intra_f & (cm > 0), dec(67, cm > 1)),
+              _sel(intra_f & (cm > 1), dec(67, cm > 2))]
+    # mvd: ctxInc from the left / top 4x4 neighbours' |mvd|
+    # (x264_cabac_mb_mvd_cpn amvd, encoder/cabac.c:397-401)
+    for comp, base in ((0, 40), (1, 47)):
+        ma, mb_ = _nbr_grids(mvd4[..., comp].abs(), 0)
+        amvd = (ma + mb_)[::4, ::4].reshape(nmb)
+        inc = (amvd > 2).to(I64) + (amvd > 32).to(I64)
+        slots += _mvd_component_ops(mvd[:, comp], base, inc, inter_f)
+    # coded_block_pattern (x264_cabac_mb_cbp_luma / _chroma)
+    cbp_all = torch.where(skip, 0, cbp_l)
+    cbl_l, cbl_t = _nbr_grids(cbp_all, -1)
+    ctxs = (76 - ((cbl_l >> 1) & 1) - ((cbl_t >> 1) & 2),
+            76 - (cbp_all & 1) - ((cbl_t >> 2) & 2),
+            76 - ((cbl_l >> 3) & 1) - ((cbp_all << 1) & 2),
+            76 - ((cbp_all >> 2) & 1) - (cbp_all & 2))
+    for k, cx in enumerate(ctxs):
+        slots.append(_sel(inter_f, dec(cx.reshape(nmb), (cbp_lf >> k) & 1)))
+    cbc_l, cbc_t = _nbr_grids(torch.where(skip, 0, cbp_c), -1)
+    c0 = 77 + (cbc_l > 0).to(I64) + 2 * (cbc_t > 0).to(I64)
+    c1 = 81 + (cbc_l == 2).to(I64) + 2 * (cbc_t == 2).to(I64)
+    slots += [_sel(inter_f, dec(c0.reshape(nmb), cbp_cf > 0)),
+              _sel(inter_f & (cbp_cf > 0), dec(c1.reshape(nmb), cbp_cf == 2))]
+    # mb_qp_delta = 0 (one QP per slice)
+    has_dqp = coded & (intra_f | (cbp_lf > 0) | (cbp_cf > 0))
+    slots.append(_sel(has_dqp, dec(60, 0)))
+    header = torch.stack(slots, 1)
+
+    # residual cbf contexts (cbf_ctxidxinc, encoder/cabac.c:508)
+    intra_i = intra.to(I64)
+    intra4 = intra_i.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    intra2 = intra_i.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    dcflag = (intra & (luma_dc != 0).any(-1).reshape(mb_h, mb_w)).to(I64)
+    a, b = _nbr_grids(dcflag, 1)
+    ctx_dc = (2 * b + a).reshape(nmb)
+    grp_bit = (cbp_lf[:, None] >> (torch.arange(16, device=dev) // 4)) & 1
+    ctx_ac = _cbf_ctx_from_grid((out["nnz4"] > 0).to(I64), intra4) \
+        .reshape(mb_h, 4, mb_w, 4).transpose(1, 2).reshape(nmb, 16)[:, R]
+    ctx_cdc, ctx_cac = [], []
+    for ch in range(2):
+        dcm = ((cbp_c > 0) & (chroma_dc[:, ch] != 0).any(-1)
+               .reshape(mb_h, mb_w)).to(I64)
+        ctx_cdc.append(_cbf_ctx_from_grid(dcm, intra_i).reshape(nmb))
+        acm = ((chroma_ac[:, ch, :, 1:] != 0).any(-1)
+               & (cbp_cf == 2)[:, None]).to(I64) \
+            .reshape(mb_h, mb_w, 2, 2).transpose(1, 2) \
+            .reshape(mb_h * 2, mb_w * 2)
+        ctx_cac.append(_cbf_ctx_from_grid(acm, intra2)
+                       .reshape(mb_h, 2, mb_w, 2).transpose(1, 2)
+                       .reshape(nmb, 4))
+    ctx_cdc = torch.stack(ctx_cdc, 1)
+    ctx_cac = torch.stack(ctx_cac, 1)
+
+    # residual blocks: I16 = DC cat 0 + AC cat 1; inter = cat 2
+    dc_ops = residual_block_ops(luma_dc, 0, ctx_dc, intra_f)
+    ac15 = residual_block_ops(luma_blocks[..., 1:].reshape(nmb * 16, 15), 1,
+                              ctx_ac.reshape(nmb * 16),
+                              (intra_f & (cbp_lf > 0)).repeat_interleave(16))
+    full16 = residual_block_ops(luma_blocks.reshape(nmb * 16, 16), 2,
+                                ctx_ac.reshape(nmb * 16),
+                                inter_f.repeat_interleave(16)
+                                & (grp_bit > 0).reshape(nmb * 16))
+    ac15p = torch.cat([ac15, torch.full((nmb * 16, 1), PAD_OP, dtype=I64,
+                                        device=dev)], 1)
+    blk_ops = torch.where(intra_f.repeat_interleave(16)[:, None], ac15p,
+                          full16).reshape(nmb, -1)
+    cdc_ops = residual_block_ops(chroma_dc.reshape(nmb * 2, 4), 3,
+                                 ctx_cdc.reshape(nmb * 2),
+                                 (coded & (cbp_cf > 0)).repeat_interleave(2))
+    cac_ops = residual_block_ops(chroma_ac[..., 1:].reshape(nmb * 8, 15), 4,
+                                 ctx_cac.reshape(nmb * 8),
+                                 (coded & (cbp_cf == 2)).repeat_interleave(8))
+    is_last = torch.arange(nmb, device=dev) == nmb - 1
+    term = torch.full((nmb,), KIND_TERMINAL << 29, dtype=I64, device=dev)
+    return torch.cat([header, dc_ops, blk_ops, cdc_ops.reshape(nmb, -1),
+                      cac_ops.reshape(nmb, -1), _sel(~is_last, term)[:, None]],
+                     1).reshape(-1)
+
+
 # ---------------------------------------------------------------- K3
 def i_slice_ops(out: dict, mb_h: int, mb_w: int):
     """K3 `cabac_i_ops`: the compacted op stream of an intra slice.
@@ -301,3 +470,70 @@ def i_slice_ops(out: dict, mb_h: int, mb_w: int):
 
 
 i_slice_ops.launches = 0
+
+
+# ---------------------------------------------------------------- K8
+def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int):
+    """Plain version of K8: the syntax maps of encoder/inter.py's
+    p_maps_plain, then compact_ops(p_slice_ops(...)). Returns (maps,
+    ops, n_ops) with maps = dict(mv, mvd, mvd4, skip, nnz4, ref4, mv4)."""
+    from ..encoder.inter import p_maps_plain
+    maps = p_maps_plain(front, mb_h, mb_w)
+    ops, n = compact_ops(p_slice_ops({**front, **maps}, mb_h, mb_w),
+                         capacity(mb_h * mb_w))
+    return maps, ops, n
+
+
+def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
+                t8_mode: bool = False, parts: bool = False):
+    """K8 `cabac_p_ops`: stage 4 of the P encode and the compacted CABAC
+    op stream of the P slice.
+
+    Replaces x264_tpu/encoder/mvpred.py:predict_16x16 / predict_pskip,
+    the skip / mvd / map derivation of encoder/inter.py:encode_p_body
+    (stage 4) and x264_tpu/entropy/cabac_planes.py:p_slice_ops followed
+    by compact_ops. `front` holds the merged planes of
+    encoder/inter.py:encode_p_front. On CUDA tensors it runs
+    csrc/cabac_ops.cu: pass A (one thread per MB: MV prediction, skip,
+    mvd and the 4x4 maps), pass B (one thread per MB emits its live ops),
+    then K3's exclusive scan and scatter; on CPU tensors the plain
+    version. Partitions (ptype != 0), multiple references and the 8x8
+    transform raise. Returns as cabac_p_ops_plain; ops entries at and
+    past n_ops are unspecified on the card."""
+    if n_refs != 1 or t8_mode or parts:
+        raise NotImplementedError(
+            "partitions, multiple references and the 8x8 transform in P "
+            "slices come with later slices of the port")
+    if front["intra_mb"].device.type == "cpu":
+        return cabac_p_ops_plain(front, mb_h, mb_w)
+    dev = front["intra_mb"].device
+    nmb = mb_h * mb_w
+    shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
+                  me_mv=((mb_h, mb_w, 2), I32),
+                  mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
+                  cbp_luma_bits=((mb_h, mb_w), I32),
+                  cbp_chroma=((mb_h, mb_w), I32),
+                  luma_dc=((mb_h, mb_w, 16), I32),
+                  luma_blocks=((mb_h, mb_w, 16, 16), I32),
+                  chroma_dc=((mb_h, mb_w, 2, 4), I32),
+                  chroma_ac=((mb_h, mb_w, 2, 4, 16), I32))
+    for k, (shape, dt) in shapes.items():
+        cuda.check(front[k], shape, dt, k)
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    maps = dict(skip=e(mb_h, mb_w, dt=torch.bool), mv=e(mb_h, mb_w, 2),
+                mvd=e(mb_h, mb_w, 2), mvd4=e(mb_h * 4, mb_w * 4, 2),
+                nnz4=e(mb_h * 4, mb_w * 4), ref4=e(mb_h * 4, mb_w * 4),
+                mv4=e(mb_h * 4, mb_w * 4, 2))
+    scratch = e(nmb * OPS_PER_MB)
+    counts, offsets = e(nmb), e(nmb + 1)
+    ops = e(capacity(nmb))
+    cuda.launch("cabac_ops", "cabac_p_ops", "p" * 21 + "ii" + "p",
+                *[front[k].data_ptr() for k in shapes],
+                *[maps[k].data_ptr() for k in maps], scratch.data_ptr(),
+                counts.data_ptr(), offsets.data_ptr(), ops.data_ptr(),
+                mb_h, mb_w, cuda.stream(dev))
+    cabac_p_ops.launches += 4          # pass A, pass B, scan, scatter
+    return maps, ops, offsets[nmb]
+
+
+cabac_p_ops.launches = 0

@@ -1,0 +1,100 @@
+"""Motion compensation fetches (common/mc.c) — plain PyTorch twins of
+x264_tpu/ops/mc.py's pad_plane, mc_luma and mc_chroma.
+
+The reference serves a quarter-pel luma position as the rounding average
+of two samples of its four half-pel planes [fpel, h, v, c] (mc_luma with
+the hpel_ref0/1 tables, common/mc.c:157-186) and chroma by the 1/8-pel
+bilinear filter (mc_chroma, common/mc.c:205). Planes are edge-padded by
+PAD = 32 luma / 16 chroma samples (common/frame.h:27-31), which equals
+the spec's per-tap coordinate clamping.
+
+This slice encodes full-pel MVs only (subme 1): luma reads plane 0, the
+padded reference itself, and the half-pel planes are not built. The
+fetches run inside kernel K6 (csrc/inter.cu); these functions are its
+plain building blocks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+I32 = torch.int32
+
+PAD = 32          # luma padding; chroma uses PAD // 2
+
+# qpel phase -> source planes (common/mc.c:157-158); plane order
+# 0 = fpel, 1 = h, 2 = v, 3 = c. _HPEL_REF1 is pre-fixed so that phases
+# with no averaging (qpel_idx & 5 == 0) average a sample with itself.
+_HPEL_REF0 = np.array([0, 1, 1, 1, 0, 1, 1, 1, 2, 3, 3, 3, 0, 1, 1, 1],
+                      dtype=np.int32)
+_r1 = np.array([0, 0, 0, 0, 2, 2, 3, 2, 2, 2, 3, 2, 2, 2, 3, 2],
+               dtype=np.int32)
+_HPEL_REF1 = np.where(np.arange(16) & 5, _r1, _HPEL_REF0).astype(np.int32)
+
+
+def pad_plane(plane, pad: int = PAD):
+    """Edge-replicate by `pad` on every side (x264_frame_expand_border,
+    common/frame.c:240)."""
+    h, w = plane.shape
+    rows = torch.arange(-pad, h + pad, device=plane.device).clamp(0, h - 1)
+    cols = torch.arange(-pad, w + pad, device=plane.device).clamp(0, w - 1)
+    return plane[rows][:, cols]
+
+
+def ds_start(start, dim: int, size: int):
+    """The start jax.lax.dynamic_slice uses for a slice of `size` of an
+    axis of `dim`: a negative start counts from the end once, then the
+    start is clamped so that the slice fits."""
+    return torch.where(start < 0, start + dim, start).clamp(0, dim - size)
+
+
+def blocks(stack, p, y0, x0, bh: int, bw: int):
+    """(bh, bw) blocks of a (P, Hp, Wp) stack at per-block (plane, y, x)
+    starts, each start taken as dynamic_slice takes it (ds_start).
+    Returns (*y0.shape, bh, bw)."""
+    P, hp, wp = stack.shape
+    dev = stack.device
+    p = ds_start(p, P, 1).long()
+    y0 = ds_start(y0, hp, bh)
+    x0 = ds_start(x0, wp, bw)
+    rows = (y0[..., None] + torch.arange(bh, device=dev)).long()
+    cols = (x0[..., None] + torch.arange(bw, device=dev)).long()
+    return stack[p[..., None, None], rows[..., :, None], cols[..., None, :]]
+
+
+def mc_luma(planes, ys, xs, mvs, bh: int, bw: int):
+    """Batched quarter-pel luma fetch (mc_luma, common/mc.c:160).
+
+    planes: (P, Hp, Wp) half-pel stack of x264_tpu's hpel_planes (P = 4;
+    a full-pel-only caller may pass P = 1: every full-pel MV reads plane
+    0). ys / xs: (...,) block top-left in unpadded coordinates; mvs:
+    (..., 2) quarter-pel (x, y). Returns (..., bh, bw) int32."""
+    mvx, mvy = mvs[..., 0], mvs[..., 1]
+    fx, fy = mvx & 3, mvy & 3
+    qidx = ((fy << 2) + fx).long()
+    iy = ys + (mvy >> 2) + PAD
+    ix = xs + (mvx >> 2) + PAD
+    dev = planes.device
+    p0 = torch.as_tensor(_HPEL_REF0, device=dev)[qidx]
+    p1 = torch.as_tensor(_HPEL_REF1, device=dev)[qidx]
+    a = blocks(planes, p0, iy + (fy == 3), ix, bh, bw)
+    b = blocks(planes, p1, iy, ix + (fx == 3), bh, bw)
+    return (a + b + 1) >> 1
+
+
+def mc_chroma(padded, ys, xs, mvs, bh: int, bw: int):
+    """Batched 1/8-pel bilinear chroma fetch (mc_chroma, common/mc.c:205).
+    padded: a chroma plane padded by PAD // 2; ys / xs block top-left in
+    unpadded chroma coordinates; mvs: (..., 2) the luma quarter-pel MV
+    read as chroma eighth-pel. Returns (..., bh, bw) int32."""
+    cpad = PAD // 2
+    mvx, mvy = mvs[..., 0], mvs[..., 1]
+    d8x, d8y = (mvx & 7)[..., None, None], (mvy & 7)[..., None, None]
+    iy = ys + (mvy >> 3) + cpad
+    ix = xs + (mvx >> 3) + cpad
+    s = blocks(padded[None], torch.zeros_like(iy), iy, ix, bh + 1, bw + 1)
+    s00, s01 = s[..., :bh, :bw], s[..., :bh, 1:]
+    s10, s11 = s[..., 1:, :bw], s[..., 1:, 1:]
+    return ((8 - d8x) * (8 - d8y) * s00 + d8x * (8 - d8y) * s01
+            + (8 - d8x) * d8y * s10 + d8x * d8y * s11 + 32) >> 6

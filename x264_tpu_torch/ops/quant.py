@@ -54,3 +54,28 @@ def dequant_2x2_dc(hadamard_out, dmf0, qp_div6):
     qbits = int(qp_div6) - 5
     dmf_eff = dmf0 << max(qbits, 0)
     return (hadamard_out.to(I32) * dmf_eff) >> max(-qbits, 0)
+
+
+# decimate-score run-cost tables (x264_decimate_table4,
+# common/quant.c:203-210)
+DECIMATE_TAB4 = (3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+
+
+def decimate_score(levels_scan, table=DECIMATE_TAB4):
+    """Batched x264_decimate_score_internal (common/quant.c:212-241): per
+    block, 9 if any |level| > 1, else the sum over nonzero coefficients
+    of table[zeros since the previous nonzero]. levels_scan: (..., C)
+    int32 in scan order. Returns (...,) int32; a zero block scores 0."""
+    C = levels_scan.shape[-1]
+    dev = levels_scan.device
+    nz = levels_scan != 0
+    pos = torch.arange(C, dtype=I32, device=dev)
+    marks = torch.where(nz, pos, torch.full_like(pos, -1))
+    before = torch.full((*marks.shape[:-1], 1), -1, dtype=I32, device=dev)
+    prev_nz = torch.cat([before, torch.cummax(marks, -1).values[..., :-1]],
+                        -1)
+    run = (pos - prev_nz - 1).clamp(0, C - 1)
+    tab = torch.tensor(table[:C], dtype=I32, device=dev)
+    score = torch.where(nz, tab[run.long()], 0).sum(-1, dtype=I32)
+    big = (levels_scan.abs() > 1).any(-1)
+    return torch.where(big, 9, score).to(I32)
