@@ -23,10 +23,22 @@ Phases; any failure exits non-zero before the result line:
      deblocking and PSNR / SSIM on, i_frame_parallel 3. K1-K4's launch
      counts must rise, and frame 0's payload and recon must equal those
      of Encoder(device="cpu") (the plain versions) on that frame;
-  5. the IPPP main path: Encoder on sixteen 1920x1080 frames, keyint
-     250, subme 1, one reference, scenecut 0, no B frames, otherwise as
-     in 4. Every kernel's launch count (K1-K8) must rise, and frames 0-2
-     (IDR, P, P) must equal the CPU run's payloads and recons.
+     Then the sub-pel kernels K9-K12 and the partitioned K6 / K8 / K2,
+     exact against their plain versions at 1080p: frame 1 against a
+     second reference built from frame 0's recon, in which the 8x8
+     blocks of each MB move by their partition's own small motion and
+     some 64x64 tiles take a half-pel filter, so that every partition
+     type and fractional MVs occur (K10 at steps (2,) and (2, 1)); and
+     the host CABAC of frame 1 at subme 5 on frame 0's recon;
+  5. the IPPP main path at subme 1: Encoder on eight 1920x1080 frames,
+     keyint 250, subme 1, one reference, scenecut 0, no B frames,
+     otherwise as in 4. K1-K8's launch counts must rise, and frames 0-2
+     (IDR, P, P) must equal the CPU run's payloads and recons;
+  6. the slice's main path, IPPP at subme 5: sixteen 1920x1080 frames as
+     in 5 but at subme 5, with the 16x8 / 8x16 / P8x8 partitions and
+     chroma ME. Every kernel's launch count (K1-K12) must rise, frames
+     0-2 must equal the CPU run's, and a torch.profiler trace splits the
+     device time by kernel.
 The line before the last is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
@@ -45,8 +57,10 @@ import torch
 W, H = 1920, 1080
 QP = 26
 N_INTRA = 4                    # frames of the all-intra main path
-N_IPPP = 16                    # frames of the IPPP main path
+N_IPPP = 8                     # frames of the IPPP path at subme 1
+N_SUBPEL = 16                  # frames of the IPPP path at subme 5
 N_CHECK = 3                    # IPPP frames held against the CPU run
+SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
 # sheet gives no int32 rate, so its non-tensor float32 rate stands in
@@ -70,6 +84,18 @@ K4_OPS_PER_PX = 50
 K5_OPS_PER_SAMPLE = 3
 K6_OPS_PER_MB = 10_000
 K7_OPS_PER_MB_SWEEP = 25_000
+# K9 per output sample: the h, v and c 6-tap filters with their rounding
+# and clips, and the vertical taps of the apron (~40 ops); K10 per
+# candidate and 4x4 block: 16 two-plane averages, the difference, the
+# Hadamard and its abs-sum (~190 ops); K11 per MB: 49 offsets x 256
+# samples of |a - b| and the sums; K12 per MB: the four luma and five
+# chroma fetches and 5 x 24 4x4 SATD blocks; K6 at subme >= 2 adds the
+# partition lookup and the two-plane average to each luma sample
+K9_OPS_PER_SAMPLE = 40
+K10_OPS_PER_CAND_4X4 = 190
+K11_OPS_PER_MB = 49 * 256 * 3
+K12_OPS_PER_MB = 4 * 256 * 10 + 5 * 128 * 12 + 5 * 24 * 150
+K6_SUBPEL_OPS_PER_MB = K6_OPS_PER_MB + 256 * 12
 
 
 def fail(msg: str) -> None:
@@ -93,9 +119,11 @@ def make_frames(w: int, h: int, n: int, frame_cls):
     return frames
 
 
-def params(EncoderParams, frame_parallel: int, keyint: int = 1):
-    """All-intra at keyint 1; else the IPPP slice: fixed GOP, subme 1,
-    one reference, no B frames."""
+def params(EncoderParams, frame_parallel: int, keyint: int = 1,
+           subme: int = 1):
+    """All-intra at keyint 1; else the IPPP slice: fixed GOP, one
+    reference, no B frames, at `subme` (the default partitions and
+    chroma ME)."""
     p = EncoderParams(i_width=W, i_height=H, i_keyint_max=keyint,
                       i_log_level=0, i_frame_parallel=frame_parallel)
     p.rc.i_rc_method = 0            # CQP
@@ -103,7 +131,7 @@ def params(EncoderParams, frame_parallel: int, keyint: int = 1):
     p.analyse.b_transform_8x8 = False
     if keyint > 1:
         p.i_scenecut_threshold = 0
-        p.analyse.i_subpel_refine = 1
+        p.analyse.i_subpel_refine = subme
         p.i_frame_reference = 1
         p.i_bframe = 0
     return p
@@ -181,10 +209,10 @@ def drive(enc, frames):
 
 
 def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
-                what: str) -> None:
+                what: str, subme: int = 1) -> None:
     """The first n frames of a card run against Encoder(device="cpu")."""
     cpu = x264_tpu_torch.Encoder(
-        params(x264_tpu_torch.EncoderParams, 1, keyint), device="cpu")
+        params(x264_tpu_torch.EncoderParams, 1, keyint, subme), device="cpu")
     if cpu.headers() != header:
         fail(f"{what}: headers differ between the card and the CPU")
     for i in range(n):
@@ -202,6 +230,37 @@ def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
           flush=True)
 
 
+def partition_warp(ref, mb_h: int, mb_w: int, seed: int = 1):
+    """A second reference built from `ref` (y, u, v tensors): each MB
+    takes a random partition layout (16x16, 16x8, 8x16, 8x8) and each
+    partition its own displacement in -3..3 (chroma half of it); 30% of
+    the 64x64 tiles take a horizontal half-pel average. Returns int32
+    tensors on ref's device."""
+    rng = np.random.default_rng(seed)
+    y, u, v = (t.cpu().numpy().astype(np.int64) for t in ref)
+    kind = rng.integers(0, 4, (mb_h, mb_w))[..., None, None, None]
+    d = rng.integers(-3, 4, (mb_h, mb_w, 2, 2, 2))      # MB, qy, qx, (y, x)
+    d = np.where(kind == 0, d[:, :, :1, :1], np.where(
+        kind == 1, d[:, :, :, :1], np.where(kind == 2, d[:, :, :1, :], d)))
+    d8 = d.transpose(0, 2, 1, 3, 4).reshape(mb_h * 2, mb_w * 2, 2)
+    half = rng.random(((mb_h + 3) // 4, (mb_w + 3) // 4)) < 0.3
+
+    def warp(p, n, dd):
+        h, w = p.shape
+        dp = dd.repeat(n, 0).repeat(n, 1)
+        yy, xx = np.mgrid[0:h, 0:w]
+        ys = np.clip(yy + dp[..., 0], 0, h - 1)
+        xs = np.clip(xx + dp[..., 1], 0, w - 1)
+        hm = half.repeat(8 * n, 0).repeat(8 * n, 1)[:h, :w]
+        return np.where(hm, (p[ys, xs] + p[ys, np.clip(xs + 1, 0, w - 1)]
+                             + 1) >> 1, p[ys, xs])
+
+    dev = ref[0].device
+    out = (warp(y, 8, d8), warp(u, 4, d8 // 2), warp(v, 4, d8 // 2))
+    return tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                 for a in out)
+
+
 # kernel name fragment -> the port's kernel it belongs to (device time
 # of everything else is PyTorch's own glue: padding, copies, merges)
 KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
@@ -211,17 +270,20 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("ssim_kernel", "K4"), ("reduce_kernel", "K4"),
                  ("half_kernel", "K5"), ("search_kernel", "K5"),
                  ("p_inter_mb_kernel", "K6"), ("sweep_kernel", "K7"),
-                 ("decide_kernel", "K7"))
+                 ("decide_kernel", "K7"), ("hpel_kernel", "K9"),
+                 ("subpel_kernel", "K10"), ("part_kernel", "K11"),
+                 ("rerank_kernel", "K12"))
 
 
-def device_split(x264_tpu_torch, frames, n_warm: int, n: int) -> None:
+def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
+                 subme: int) -> None:
     """Device time by kernel over n steady IPPP frames, from a
     torch.profiler trace of the card (CUPTI sees the ctypes launches
     too): per frame, each kernel's share, PyTorch's glue, the busy sum
     and the host wall; the idle share is 1 - busy / wall."""
     from torch.profiler import ProfilerActivity, profile
     enc = x264_tpu_torch.Encoder(
-        params(x264_tpu_torch.EncoderParams, 3, 250))
+        params(x264_tpu_torch.EncoderParams, 3, 250, subme))
     enc.headers()
     for f in frames[:n_warm]:
         enc.encode(f)
@@ -249,10 +311,32 @@ def device_split(x264_tpu_torch, frames, n_warm: int, n: int) -> None:
         return
     busy = sum(by.values())
     parts = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by.items()))
-    print(f"device split over {n} frames (profiled; the {len(frames[:n_warm])}"
-          f" frames before are not in it, the flush is): per frame ms "
+    print(f"device split at subme {subme} over {n} frames (profiled; the "
+          f"{len(frames[:n_warm])} frames before are not in it, the flush "
+          f"is): per frame ms "
           f"{parts}; busy {busy / n:.3f} ms of {wall / n:.3f} ms wall, "
           f"idle share {1 - busy / wall:.3f}", flush=True)
+
+
+def ippp_report(done, summary, st, fps, med, n: int, subme: int,
+                smi_line: str, nmb: int, extra: str = "") -> None:
+    """Check an IPPP run's frame types and print its end-to-end line."""
+    types = [e.frame_type for e in done]
+    if types != ["IDR"] + ["P"] * (n - 1):
+        fail(f"IPPP subme {subme} frame types {types}")
+    p_bytes = [len(e.payload) for e in done[1:]]
+    n_p = n - 1                     # the IDR's MBs are all intra
+    p_intra, p_skip = (st.mb_intra - nmb) / n_p, st.mb_skip / n_p
+    print(f"IPPP path: {n} frames {W}x{H} keyint 250 subme {subme} ref 1 "
+          f"CQP {QP} CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
+          f"IDR {len(done[0].payload)} bytes, P {statistics.mean(p_bytes):.0f}"
+          f" bytes/frame (min {min(p_bytes)}, max {max(p_bytes)}; frames "
+          f"1-7 {statistics.mean(p_bytes[:7]):.0f}), per P "
+          f"frame {p_intra:.1f} intra and {p_skip:.1f} skip MBs of {nmb}, "
+          f"PSNR Y "
+          f"{summary['psnr']['y']:.4f} avg {summary['psnr']['avg']:.4f} dB "
+          f"(P Y {summary['psnr_by_type']['P']['y']:.4f}), SSIM "
+          f"{summary['ssim_y']:.6f}{extra} [{smi_line}]", flush=True)
 
 
 def main() -> None:
@@ -288,7 +372,7 @@ def main() -> None:
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ------------------------------------------------------- 3. kernels
-    frames = make_frames(W, H, N_IPPP, x264_tpu_torch.Frame)
+    frames = make_frames(W, H, max(N_IPPP, N_SUBPEL), x264_tpu_torch.Frame)
     mb_h, mb_w = (H + 15) // 16, W // 16
     nmb = mb_h * mb_w
 
@@ -433,18 +517,21 @@ def main() -> None:
         err5 = max_err({"mv": mv, "sad": sad}, {"mv": pm, "sad": ps})
         if err5:
             fail(f"K5 me_hier ({tag}) differs from its plain version")
-        # K6 p_inter_mb
-        a6 = (mb_h, mb_w, y1, u1, v1, ref_pad, refu_pad, refv_pad, mv, sad,
-              mvp0, qtab_p, lam, True)
+        # K6 p_inter_mb at full-pel MVs: one plane, ptype 0
+        ptype0 = torch.zeros((mb_h, mb_w), dtype=torch.int32, device=dev)
+        mvq = mv[:, :, None].expand(mb_h, mb_w, 4, 2).contiguous()
+        a6 = (mb_h, mb_w, y1, u1, v1, ref_pad[None], refu_pad, refv_pad,
+              ptype0, mvq, qtab_p, True)
         k6, n6 = counted(inter.p_inter_mb, *a6)
         p6 = inter.p_inter_mb_plain(*a6)
         err6 = max_err(k6, p6)
         if err6:
             bad = [k for k in p6 if not torch.equal(k6[k], p6[k])]
             fail(f"K6 p_inter_mb ({tag}) differs in {bad}")
+        cost = sad + lam * (me.mv_cost_bits(mv, mvp0) + 1)
         # K7 intra_in_p
         a7 = (mb_h, mb_w, y1, u1, v1, k6["recon_y"], k6["recon_u"],
-              k6["recon_v"], k6["cost"], qtab_p, lam, True)
+              k6["recon_v"], cost, qtab_p, lam, True)
         k7, n7 = counted(inter.intra_in_p, *a7)
         # the plain version, with the sweep-0 intra wishes it demotes from
         chosen, resolve = [], inter.resolve_intra
@@ -509,28 +596,17 @@ def main() -> None:
                "x264_tpu/ops/me.py:127", err5, ms5, pl5,
                nbytes(y1, ref_pad, mvp0, mv, sad), ops5)
         ms6 = event_ms(lambda: inter.p_inter_mb(*a6), 10)
-        pl6 = event_ms(lambda: inter.p_inter_mb_plain(*a6), 1)
-        record("p_inter_mb", "cuda", "x264_tpu_torch/csrc/inter.cu",
-               "x264_tpu/encoder/inter.py:81", err6, ms6, pl6,
-               nbytes(y1, u1, v1, ref_pad, refu_pad, refv_pad, mv, sad, mvp0,
-                      *k6.values()), K6_OPS_PER_MB * nmb)
         ms7 = event_ms(lambda: inter.intra_in_p(*a7), 10)
         pl7 = event_ms(lambda: inter.intra_in_p_plain(*a7), 1)
         record("intra_in_p", "cuda", "x264_tpu_torch/csrc/intra_p.cu",
                "x264_tpu/encoder/inter.py:596", err7, ms7, pl7,
                nbytes(y1, u1, v1, k6["recon_y"], k6["recon_u"],
-                      k6["recon_v"], k6["cost"], *k7.values()),
+                      k6["recon_v"], cost, *k7.values()),
                K7_OPS_PER_MB_SWEEP * (nmb + 2 * n_intra))
         ms8 = event_ms(lambda: cabac_planes.cabac_p_ops(front, mb_h, mb_w), 20)
-        pl8 = event_ms(lambda: cabac_planes.cabac_p_ops_plain(front, mb_h,
-                                                              mb_w), 1)
-        keys8 = ("intra_mb", "me_mv", "mode16", "modec", "cbp_luma_bits",
-                 "cbp_chroma", "luma_dc", "luma_blocks", "chroma_dc",
-                 "chroma_ac")
-        record("cabac_p_ops", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
-               "x264_tpu/entropy/cabac_planes.py:518", err8, ms8, pl8,
-               nbytes(*(front[k] for k in keys8), *maps.values())
-               + 4 * n_ops8 + 4, K3_OPS_PER_OP * n_ops8 + K3_OPS_PER_MB * nmb)
+        print(f"subme 1 P kernels: K6 p_inter_mb {ms6:.3f} ms, K8 "
+              f"cabac_p_ops {ms8:.3f} ms (their records are taken at "
+              f"subme {SUBME} below)", flush=True)
         p_ms.update(k5=ms5, k6=ms6, k7=ms7, k8=ms8, k2=ms2p, ops=ops8,
                     n_ops=n_ops8)
         return n_intra, demoted
@@ -566,6 +642,172 @@ def main() -> None:
           f"{d2h_p:.3f} ms, host CABAC of {p_ms['n_ops']} ops into "
           f"{len(payload_p)} bytes {cabac_p:.3f} ms", flush=True)
 
+    # K9-K12 and the partitioned K6 / K8 / K2: frame 1 against a second
+    # reference whose partitions move apart (partition_warp)
+    ref2 = partition_warp((ry, ru, rv), mb_h, mb_w)
+    ref_pad2 = mc.pad_plane(ref2[0])
+    refu2, refv2 = (mc.pad_plane(t, mc.PAD // 2) for t in ref2[1:])
+    mv_fp, _ = me.hier_search(y1, ref_pad2, mb_h, mb_w, me_range, lam, mvp0)
+    torch.cuda.synchronize()
+
+    def exact(name, k, p):
+        err = max_err(k, p) if isinstance(p, dict) else max(
+            int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+        if err:
+            fail(f"{name} differs from its plain version")
+        return err
+
+    planes, n9 = counted(mc.hpel_planes, ref_pad2)
+    err9 = exact("K9 hpel_planes", [planes], [mc.hpel_planes_plain(ref_pad2)])
+    ms9 = event_ms(lambda: mc.hpel_planes(ref_pad2), 10)
+    pl9 = event_ms(lambda: mc.hpel_planes_plain(ref_pad2), 1)
+    hp_, wp_ = ref_pad2.shape
+    record("hpel_planes", "cuda", "x264_tpu_torch/csrc/mc.cu",
+           "x264_tpu/ops/mc.py:57", err9, ms9, pl9,
+           nbytes(ref_pad2, planes), K9_OPS_PER_SAMPLE * hp_ * wp_)
+    # K10 on the 16x16 MBs at both ladders, then on each partition layout
+    ys16, xs16 = me.mb_origins(mb_h, mb_w, dev)
+    calls10, err10 = [], 0
+    for steps in ((2,), (2, 1)):
+        a10 = (y1, planes, mv_fp, lam, mvp0, ys16, xs16, 16, 16, steps)
+        k10 = me.subpel_refine_blocks(*a10)
+        err10 = max(err10, exact(f"K10 subpel_refine 16x16 {steps}", k10,
+                                 me.subpel_refine_blocks_plain(*a10)))
+    calls10.append((a10, 49 * 16 * nmb))
+    mv_s, satd_s = k10
+    pf = me.partition_fullpel(y1, ref_pad2, mv_fp, lam, mvp0, me_range, True)
+    for bh, bw, offs, (a, b) in inter.PART_LAYOUTS:
+        ysb, xsb = inter._block_origins(mb_h, mb_w, offs, dev)
+        mvpb = mvp0.expand(len(offs), mb_h, mb_w, 2).contiguous()
+        a10 = (y1, planes, pf[a:b].contiguous(), lam, mvpb, ysb, xsb, bh, bw,
+               (2, 1))
+        err10 = max(err10, exact(f"K10 subpel_refine {bh}x{bw}",
+                                 me.subpel_refine_blocks(*a10),
+                                 me.subpel_refine_blocks_plain(*a10)))
+        calls10.append((a10, 49 * (bh * bw // 16) * len(offs) * nmb))
+    ms10 = [event_ms(lambda a=a: me.subpel_refine_blocks(*a), 10)
+            for a, _ in calls10]
+    pl10 = sum(event_ms(lambda a=a: me.subpel_refine_blocks_plain(*a), 1)
+               for a, _ in calls10)
+    print("kernel subpel_refine per call at (2, 1): " + ", ".join(
+        f"{a[7]}x{a[8]} {t:.3f} ms" for (a, _), t in zip(calls10, ms10)),
+        flush=True)
+    record("subpel_refine", "cuda", "x264_tpu_torch/csrc/subpel.cu",
+           "x264_tpu/ops/me.py:217", err10, sum(ms10), pl10,
+           sum(nbytes(*a[:3], a[4], a[5], a[6]) + 12 * a[2][..., 0].numel()
+               for a, _ in calls10),
+           K10_OPS_PER_CAND_4X4 * sum(n for _, n in calls10))
+    # K11
+    a11 = (y1, ref_pad2, mv_fp, lam, mvp0, me_range, True)
+    err11 = exact("K11 part_fullpel", [pf], [me.partition_fullpel_plain(*a11)])
+    ms11 = event_ms(lambda: me.partition_fullpel(*a11), 10)
+    pl11 = event_ms(lambda: me.partition_fullpel_plain(*a11), 1)
+    record("part_fullpel", "cuda", "x264_tpu_torch/csrc/subpel.cu",
+           "x264_tpu/ops/me.py:304", err11, ms11, pl11,
+           nbytes(y1, ref_pad2, mv_fp, mvp0, pf), K11_OPS_PER_MB * nmb)
+    # K12
+    a12 = (y1, planes, u1, v1, refu2, refv2, mv_s, lam, mvp0, satd_s)
+    k12 = me.chroma_rerank(*a12)
+    err12 = exact("K12 chroma_rerank", k12, me.chroma_rerank_plain(*a12))
+    ms12 = event_ms(lambda: me.chroma_rerank(*a12), 10)
+    pl12 = event_ms(lambda: me.chroma_rerank_plain(*a12), 1)
+    record("chroma_rerank", "cuda", "x264_tpu_torch/csrc/subpel.cu",
+           "x264_tpu/ops/me.py:368", err12, ms12, pl12,
+           nbytes(y1, planes, u1, v1, refu2, refv2, mv_s, mvp0, satd_s,
+                  *k12), K12_OPS_PER_MB * nmb)
+    print(f"chroma_rerank moved {int((k12[0] != mv_s).any(-1).sum())} of "
+          f"{nmb} MVs", flush=True)
+    # the stages 1-3 at subme 5 through the kernels, then K6, K8 and K2
+    # on its partitions against their plain versions
+    front5 = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, *ref2,
+                                  qtab_p, lam, mvp0, True, (2, 1), True,
+                                  True, True)
+    im5 = front5["intra_mb"]
+    hist = torch.bincount(front5["ptype"][~im5], minlength=4).tolist()
+    frac = float(((front5["mv_quad"] & 3) != 0).any(-1)[~im5].float().mean())
+    print(f"partitioned P frame: ptype histogram {hist} of "
+          f"{int((~im5).sum())} inter MBs ({int(im5.sum())} intra); "
+          f"{frac:.3f} of inter quadrants have a fractional MV", flush=True)
+    if min(hist) == 0 or frac == 0:
+        fail(f"the partition reference did not exercise every ptype "
+             f"({hist}) and fractional MVs ({frac})")
+    a6 = (mb_h, mb_w, y1, u1, v1, planes, refu2, refv2, front5["ptype"],
+          front5["mv_quad"], qtab_p, True)
+    k6 = inter.p_inter_mb(*a6)
+    err6 = exact("K6 p_inter_mb with partitions", k6,
+                 inter.p_inter_mb_plain(*a6))
+    ms6 = event_ms(lambda: inter.p_inter_mb(*a6), 10)
+    pl6 = event_ms(lambda: inter.p_inter_mb_plain(*a6), 1)
+    record("p_inter_mb", "cuda", "x264_tpu_torch/csrc/inter.cu",
+           "x264_tpu/encoder/inter.py:81", err6, ms6, pl6,
+           nbytes(y1, u1, v1, planes, refu2, refv2, front5["ptype"],
+                  front5["mv_quad"], *k6.values()),
+           K6_SUBPEL_OPS_PER_MB * nmb)
+    maps5, ops5, n5k = cabac_planes.cabac_p_ops(front5, mb_h, mb_w)
+    pmaps5, pops5, pn5 = cabac_planes.cabac_p_ops_plain(front5, mb_h, mb_w)
+    n_ops5 = int(pn5)
+    if int(n5k) != n_ops5:
+        fail(f"K8 cabac_p_ops with partitions counts {int(n5k)} ops, its "
+             f"plain version {n_ops5}")
+    err8 = max(exact("K8 cabac_p_ops maps with partitions", maps5, pmaps5),
+               exact("K8 cabac_p_ops ops with partitions", [ops5[:n_ops5]],
+                     [pops5[:n_ops5]]))
+    ms8 = event_ms(lambda: cabac_planes.cabac_p_ops(front5, mb_h, mb_w), 20)
+    pl8 = event_ms(lambda: cabac_planes.cabac_p_ops_plain(front5, mb_h,
+                                                          mb_w), 1)
+    keys8 = ("intra_mb", "me_mv", "ptype", "mv_quad", "mode16", "modec",
+             "cbp_luma_bits", "cbp_chroma", "luma_dc", "luma_blocks",
+             "chroma_dc", "chroma_ac")
+    record("cabac_p_ops", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+           "x264_tpu/entropy/cabac_planes.py:518", err8, ms8, pl8,
+           nbytes(*(front5[k] for k in keys8), *maps5.values())
+           + 4 * n_ops5 + 4, K3_OPS_PER_OP * n_ops5 + K3_OPS_PER_MB * nmb)
+    qp_mb5 = torch.full((mb_h, mb_w), QP, dtype=torch.int32, device=dev)
+    maps2 = (qp_mb5, im5, maps5["nnz4"], maps5["ref4"], maps5["mv4"], z4,
+             zmv, False, 0, 0, 0)
+    src5 = (front5["recon_y"], front5["recon_u"], front5["recon_v"])
+    k2p = dict(zip("yuv", deblock.deblock_frame(
+        mb_h, mb_w, *[t.clone() for t in src5], *maps2)))
+    exact("K2 deblock_diag with partition maps", k2p, dict(zip(
+        "yuv", deblock.deblock_frame_plain(
+            mb_h, mb_w, *[t.clone() for t in src5], *maps2))))
+    print(f"partition kernels exact at {W}x{H}: K9-K12, K6, K8 ({n_ops5} "
+          f"ops), K2 with partition maps; launches per call K9 {n9}",
+          flush=True)
+    # that P frame's split: kernels (K5, K7, K2 and K4 as timed above),
+    # d2h, host CABAC of its op stream
+    ops5_h = torch.empty(ops5.shape, dtype=torch.int32, pin_memory=True)
+    d2h5 = event_ms(lambda: ops5_h.copy_(ops5, non_blocking=True), 5)
+    t = time.perf_counter()
+    payload5, _ = ecabac.encode_ops(ctab.init_states(False, QP, 0),
+                                    ops5_h.numpy()[:n_ops5].view(np.uint32),
+                                    0)
+    cabac5 = (time.perf_counter() - t) * 1e3
+    k_ms = dict(K5=p_ms["k5"], K9=ms9, K10=sum(ms10), K11=ms11, K12=ms12,
+                K6=ms6, K7=p_ms["k7"], K8=ms8, K2=p_ms["k2"], K4=ms4)
+    # the cell's own P frame at subme 5 (frame 1 on frame 0's recon): its
+    # op stream and host CABAC, for the split of section 5
+    front_c = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, ry, ru,
+                                   rv, qtab_p, lam, mvp0, True, (2, 1), True,
+                                   True, True)
+    _, ops_c, n_c = cabac_planes.cabac_p_ops(front_c, mb_h, mb_w)
+    n_c = int(n_c)
+    t = time.perf_counter()
+    payload_c, _ = ecabac.encode_ops(ctab.init_states(False, QP, 0),
+                                     ops_c[:n_c].cpu().numpy().view(np.uint32),
+                                     0)
+    cabac_c = (time.perf_counter() - t) * 1e3
+    hist_c = torch.bincount(front_c["ptype"].reshape(-1), minlength=4)
+    print(f"P frame at subme {SUBME} on frame 0's recon: host CABAC of "
+          f"{n_c} ops into {len(payload_c)} bytes {cabac_c:.3f} ms; ptype "
+          f"histogram {hist_c.tolist()}", flush=True)
+    print(f"P frame split at subme {SUBME} (partition reference): kernels "
+          f"{sum(k_ms.values()):.3f} ms ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in k_ms.items())
+          + f"), d2h of {nbytes(ops5)} bytes {d2h5:.3f} ms, host CABAC of "
+          f"{n_ops5} ops into {len(payload5)} bytes {cabac5:.3f} ms",
+          flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -573,14 +815,18 @@ def main() -> None:
                 "me_hier": me.hier_search,
                 "p_inter_mb": inter.p_inter_mb,
                 "intra_in_p": inter.intra_in_p,
-                "cabac_p_ops": cabac_planes.cabac_p_ops}
+                "cabac_p_ops": cabac_planes.cabac_p_ops,
+                "hpel_planes": mc.hpel_planes,
+                "subpel_refine": me.subpel_refine_blocks,
+                "part_fullpel": me.partition_fullpel,
+                "chroma_rerank": me.chroma_rerank}
 
-    def main_path(keyint: int, n: int, what: str):
+    def main_path(keyint: int, n: int, what: str, subme: int = 1):
         """Encoder on the first n frames at 1080p, the launch counts set
         to 0 just before and read just after; returns (frames, summary,
         launches, header, fps, median encode() ms)."""
         enc = x264_tpu_torch.Encoder(
-            params(x264_tpu_torch.EncoderParams, 3, keyint))
+            params(x264_tpu_torch.EncoderParams, 3, keyint, subme))
         header = enc.headers()
         for w in wrappers.values():
             w.launches = 0
@@ -609,31 +855,45 @@ def main() -> None:
           f"SSIM {summary['ssim_y']:.6f} [{smi_line}]", flush=True)
     same_as_cpu(x264_tpu_torch, done, frames, header, 1, 1, "all-intra")
 
-    # ---------------------------------------------------- 5. IPPP path
-    done, summary, launches_p, header, fps, med, st = main_path(
-        250, N_IPPP, "IPPP")
-    for k, n in launches_p.items():
+    # ---------------------------------------- 5. IPPP path at subme 1
+    done, summary, launches_1, header, fps, med, st = main_path(
+        250, N_IPPP, "IPPP subme 1")
+    for k in list(wrappers)[:8]:
+        if launches_1[k] <= 0:
+            fail(f"kernel {k} was not launched on the IPPP subme-1 path")
+    ippp_report(done, summary, st, fps, med, N_IPPP, 1, smi_line, nmb)
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250,
+                "IPPP subme 1")
+    device_split(x264_tpu_torch, frames, 4, 4, 1)
+
+    # --------------------------- 6. the slice's main path: IPPP at subme 5
+    ptypes = []
+    encode_p = pipeline.encode_p_cabac
+
+    def encode_p_seen(*a, **k):
+        out = encode_p(*a, **k)
+        ptypes.append(out["ptype"])
+        return out
+
+    pipeline.encode_p_cabac = encode_p_seen
+    done, summary, launches_5, header, fps, med, st = main_path(
+        250, N_SUBPEL, f"IPPP subme {SUBME}", SUBME)
+    pipeline.encode_p_cabac = encode_p
+    for k, n in launches_5.items():
         if n <= 0:
-            fail(f"kernel {k} was not launched on the IPPP path")
+            fail(f"kernel {k} was not launched on the IPPP subme-{SUBME} "
+                 f"path")
         rec[k]["launches"] = n
+        rec[k]["launches_ippp_subme1"] = launches_1[k]
         rec[k]["launches_all_intra"] = launches_i[k]
-    types = [e.frame_type for e in done]
-    if types != ["IDR"] + ["P"] * (N_IPPP - 1):
-        fail(f"IPPP frame types {types}")
-    p_bytes = [len(e.payload) for e in done[1:]]
-    n_p = N_IPPP - 1                # the IDR's MBs are all intra
-    p_intra, p_skip = (st.mb_intra - nmb) / n_p, st.mb_skip / n_p
-    print(f"IPPP path: {N_IPPP} frames {W}x{H} keyint 250 subme 1 ref 1 "
-          f"CQP {QP} CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
-          f"IDR {len(done[0].payload)} bytes, P {statistics.mean(p_bytes):.0f}"
-          f" bytes/frame (min {min(p_bytes)}, max {max(p_bytes)}), per P "
-          f"frame {p_intra:.1f} intra and {p_skip:.1f} skip MBs of {nmb}, "
-          f"PSNR Y "
-          f"{summary['psnr']['y']:.4f} avg {summary['psnr']['avg']:.4f} dB "
-          f"(P Y {summary['psnr_by_type']['P']['y']:.4f}), SSIM "
-          f"{summary['ssim_y']:.6f} [{smi_line}]", flush=True)
-    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250, "IPPP")
-    device_split(x264_tpu_torch, frames, 4, 8)
+    hist = torch.stack([torch.bincount(p.reshape(-1), minlength=4)
+                        for p in ptypes]).sum(0).tolist()
+    ippp_report(done, summary, st, fps, med, N_SUBPEL, SUBME, smi_line, nmb,
+                f", ptype histogram over the P frames (intra MBs as 0) "
+                f"{hist}")
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250,
+                f"IPPP subme {SUBME}", SUBME)
+    device_split(x264_tpu_torch, frames, 4, 8, SUBME)
 
     print(json.dumps({"kernels": list(rec.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,9 @@ compact_ops(i16_slice_ops(...)), both fed the same intra syntax planes
 (the port's plain encode_i16_frame output, which test_torch_intra holds
 equal to x264_tpu's), and that of a P slice against
 compact_ops(p_slice_ops(...)), fed the port's plain encode_p_body output
-(held equal by test_torch_inter). The live ops and n_ops must be exactly
+(held equal by test_torch_inter and, at subme 5 with the 16x8 / 8x16 /
+P8x8 partitions, by test_torch_encoder_subpel). The live ops and n_ops
+must be exactly
 equal, and the port's two host coders (native C and its Python twin)
 must turn each stream into the same bytes."""
 
@@ -20,6 +22,7 @@ from x264_tpu_torch.entropy import cabac as tcabac
 from x264_tpu_torch.entropy import cabac_planes as tcp
 from x264_tpu_torch.entropy import cabac_tables as tctab
 
+from test_torch_encoder_subpel import _p_inputs as _part_inputs
 from test_torch_inter import MB_H, MB_W, _p_inputs
 from test_torch_intra import planes
 
@@ -55,18 +58,24 @@ def test_op_stream_matches_jax(mb_h, mb_w, qp, monkeypatch):
     assert code() == c_bytes
 
 
-@pytest.mark.parametrize("kind", ["inter", "intra"])
+@pytest.mark.parametrize("kind", ["inter", "intra", "partitions"])
 def test_p_op_stream_matches_jax(kind, monkeypatch):
     """The P slice: both packages' compact_ops(p_slice_ops(...)) on the
-    port's plain encode_p_body output (which test_torch_inter holds equal
-    to x264_tpu's), and the port's K8 wrapper on the CPU."""
-    y, u, v, ry, ru, rv, mvp = (torch.from_numpy(a)
-                                for a in _p_inputs(kind))
+    port's plain encode_p_body output (which test_torch_inter and
+    test_torch_encoder_subpel hold equal to x264_tpu's), and the port's K8
+    wrapper on the CPU. "partitions" is subme 5 with every partition
+    type, so the mb_type, sub_mb_type and per-partition mvd bins run."""
+    inputs = _part_inputs(0) if kind == "partitions" else _p_inputs(kind)
+    y, u, v, ry, ru, rv, mvp = (torch.from_numpy(a) for a in inputs)
     qp = 26
     args = (MB_H, MB_W, 16, y, u, v, ry, ru, rv,
             tinter.make_qtab_p(qp, tables.chroma_qp(qp), "cpu"),
             int(tables.LAMBDA_TABLE[qp]), mvp, True)
+    if kind == "partitions":
+        args += ((2, 1), True, True, True)
     out = tinter.encode_p_body(*args)
+    if kind == "partitions":
+        assert set(out["ptype"][~out["intra_mb"]].tolist()) == {0, 1, 2, 3}
     nmb = MB_H * MB_W
     jops, jn = jcp.compact_ops(
         jcp.p_slice_ops({k: t.numpy() for k, t in out.items()}, MB_H, MB_W),

@@ -2,8 +2,8 @@
 chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
-non-CPU tensor; parameters outside the all-intra and IPPP slices raise
-NotImplementedError."""
+non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-5)
+slices raise NotImplementedError."""
 
 import ast
 import pathlib
@@ -104,7 +104,7 @@ def test_the_ippp_slice_opens():
 
 
 @pytest.mark.parametrize("change", [
-    dict(analyse__i_subpel_refine=2), dict(analyse__i_subpel_refine=7),
+    dict(analyse__i_subpel_refine=6), dict(analyse__i_subpel_refine=7),
     dict(i_scenecut_threshold=40), dict(i_frame_reference=2),
     dict(i_bframe=2), dict(analyse__b_transform_8x8=True),
     dict(b_cabac=False), dict(rc__i_rc_method=1),
@@ -116,6 +116,25 @@ def test_the_ippp_slice_opens():
 def test_outside_the_ippp_slice_raises(change):
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_p_params(**change), device="cpu")
+
+
+@pytest.mark.parametrize("subme,steps,chroma_me", [
+    (2, (2,), False), (3, (2,), False), (4, (2, 1), False),
+    (5, (2, 1), True)])
+def test_the_subpel_slice_opens(subme, steps, chroma_me):
+    """subme 2-5 open with x264_tpu's ladder: half-pel at 2-3, quarter-pel
+    at 4-5, chroma ME at 5, the default partitions (16x8, 8x16, P8x8)."""
+    enc = x264_tpu_torch.Encoder(_p_params(analyse__i_subpel_refine=subme),
+                                 device="cpu")
+    assert (enc._subpel, enc._chroma_me) == (steps, chroma_me)
+    assert enc._parts and enc._p8x8
+    enc.close()
+
+
+def test_subme6_names_its_slice():
+    with pytest.raises(NotImplementedError, match=r"the subme 6 \(RD\) slice"):
+        x264_tpu_torch.Encoder(_p_params(analyse__i_subpel_refine=6),
+                               device="cpu")
 
 
 def test_reconfig_and_forced_b_raise():

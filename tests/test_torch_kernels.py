@@ -1,5 +1,7 @@
 """The port's CUDA / Triton kernels against their plain PyTorch versions
-on the card, at small frames, and the card's Encoder against the CPU's.
+on the card, at small frames (K1-K12, K6 and K8 also with random
+partition layouts and quarter-pel MVs), and the card's Encoder against
+the CPU's at subme 1, 2 and 5.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -174,22 +176,39 @@ def test_me_kernel_matches_plain(card, mvp_kind):
     assert torch.equal(kmv, pmv) and torch.equal(ksad, psad)
 
 
-def _inter_args(dev, kind, decimate, wild_mvs=False):
+def _inter_args(dev, kind, decimate, wild_mvs=False, parts=False):
+    """K6's arguments on frame 1: full-pel ME MVs on one plane, or (wild)
+    MVs whose fetch starts wrap and clamp; with parts, the half-pel stack
+    and random partition types with random quarter-pel quadrant MVs.
+    Also returns the 16x16 cost K7 compares."""
     (y, u, v), ref, q, lam = _p_frame(dev, kind)
     pads = (mc.pad_plane(ref[0]), mc.pad_plane(ref[1], mc.PAD // 2),
             mc.pad_plane(ref[2], mc.PAD // 2))
     mvp = torch.zeros((MB_H, MB_W, 2), dtype=torch.int32, device=dev)
     mv, sad = me.hier_search(y, pads[0], MB_H, MB_W, 16, lam, mvp)
+    cost = sad + lam * (me.mv_cost_bits(mv, mvp) + 1)
     if wild_mvs:                 # full-pel, fetch starts wrap and clamp
         mv = _mvp(dev, 8) * 4
-    return (MB_H, MB_W, y, u, v, *pads, mv, sad, mvp, q, lam, decimate)
+    ptype = torch.zeros((MB_H, MB_W), dtype=torch.int32, device=dev)
+    mv_quad = mv[:, :, None].expand(MB_H, MB_W, 4, 2).contiguous()
+    planes = pads[0][None]
+    if parts:
+        rng = np.random.default_rng(9)
+        ptype = torch.as_tensor(rng.integers(0, 4, (MB_H, MB_W)),
+                                dtype=torch.int32, device=dev)
+        mv_quad = mv_quad + torch.as_tensor(rng.integers(
+            -9, 10, (MB_H, MB_W, 4, 2)), dtype=torch.int32, device=dev)
+        planes = mc.hpel_planes(pads[0])
+    return (MB_H, MB_W, y, u, v, planes, *pads[1:], ptype, mv_quad, q,
+            decimate), cost
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("decimate,wild", [(True, False), (False, False),
-                                           (True, True)])
-def test_inter_kernel_matches_plain(card, decimate, wild):
-    args = _inter_args(card, "inter", decimate, wild)
+@pytest.mark.parametrize("decimate,wild,parts", [
+    (True, False, False), (False, False, False), (True, True, False),
+    (True, False, True), (False, True, True)])
+def test_inter_kernel_matches_plain(card, decimate, wild, parts):
+    args, _ = _inter_args(card, "inter", decimate, wild, parts)
     k = inter.p_inter_mb(*args)
     p = inter.p_inter_mb_plain(*args)
     for key in p:
@@ -199,11 +218,12 @@ def test_inter_kernel_matches_plain(card, decimate, wild):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["inter", "intra"])
 def test_intra_in_p_kernel_matches_plain(card, kind):
-    a = _inter_args(card, kind, True)
-    (y, u, v), q, lam = a[2:5], a[11], a[12]
+    a, cost = _inter_args(card, kind, True)
+    (y, u, v), q = a[2:5], a[10]
+    lam = int(tables.LAMBDA_TABLE[26])
     it = inter.p_inter_mb(*a)
     args = (MB_H, MB_W, y, u, v, it["recon_y"], it["recon_u"],
-            it["recon_v"], it["cost"], q, lam, True)
+            it["recon_v"], cost, q, lam, True)
     k = inter.intra_in_p(*args)
     p = inter.intra_in_p_plain(*args)
     for key in p:
@@ -213,11 +233,80 @@ def test_intra_in_p_kernel_matches_plain(card, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_hpel_kernel_matches_plain(card):
+    rng = np.random.default_rng(3)
+    p = torch.as_tensor(np.where(rng.random((MB_H * 16 + 64, MB_W * 16 + 64))
+                                 < 0.5, 0, 255), dtype=torch.int32,
+                        device=card)
+    assert torch.equal(mc.hpel_planes(p), mc.hpel_planes_plain(p))
+    (_, _, _), ref, _, _ = _p_frame(card, "inter")
+    pad = mc.pad_plane(ref[0])
+    assert torch.equal(mc.hpel_planes(pad), mc.hpel_planes_plain(pad))
+
+
+def _subpel_args(dev):
+    (y, u, v), ref, q, lam = _p_frame(dev, "inter")
+    pad = mc.pad_plane(ref[0])
+    mvp = _mvp(dev, 5) // 8
+    mv, _ = me.hier_search(y, pad, MB_H, MB_W, 16, lam, mvp)
+    return (y, u, v), ref, pad, mc.hpel_planes(pad), mv, mvp, q, lam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [(2,), (2, 1)])
+@pytest.mark.parametrize("layout", range(4))
+def test_subpel_kernel_matches_plain(card, steps, layout):
+    (y, _, _), _, _, planes, mv, mvp, _, lam = _subpel_args(card)
+    bh, bw, offs, _ = (((16, 16, ((0, 0),), None),)
+                       + inter.PART_LAYOUTS)[layout]
+    ys, xs = inter._block_origins(MB_H, MB_W, offs, card)
+    n = len(offs)
+    mvs = mv.expand(n, MB_H, MB_W, 2) + torch.as_tensor(
+        np.random.default_rng(layout).integers(-2, 3, (n, MB_H, MB_W, 2))
+        * 4, dtype=torch.int32, device=card)
+    args = (y, planes, mvs.contiguous(), lam,
+            mvp.expand(n, MB_H, MB_W, 2).contiguous(), ys, xs, bh, bw, steps)
+    k = me.subpel_refine_blocks(*args)
+    p = me.subpel_refine_blocks_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_8x8", [False, True])
+def test_part_fullpel_kernel_matches_plain(card, with_8x8):
+    (y, _, _), _, pad, _, mv, mvp, _, lam = _subpel_args(card)
+    for mv16 in (mv, _mvp(card, 6) * 4 + 1):     # near, and clamped
+        args = (y, pad, mv16, lam, mvp, 16, with_8x8)
+        assert torch.equal(me.partition_fullpel(*args),
+                           me.partition_fullpel_plain(*args))
+
+
+@pytest.mark.cuda
+def test_chroma_rerank_kernel_matches_plain(card):
+    (y, u, v), ref, _, planes, mv, mvp, _, lam = _subpel_args(card)
+    mv_s, satd = me.subpel_refine(y, planes, mv, lam, mvp, (2, 1))
+    args = (y, planes, u, v, mc.pad_plane(ref[1], mc.PAD // 2),
+            mc.pad_plane(ref[2], mc.PAD // 2), mv_s, lam, mvp, satd)
+    k = me.chroma_rerank(*args)
+    p = me.chroma_rerank_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["inter", "intra", "partitions"])
 def test_cabac_p_ops_and_p_deblock_kernels_match_plain(card, kind):
-    (y, u, v), ref, q, lam = _p_frame(card, kind)
+    (y, u, v), ref, q, lam = _p_frame(card, "intra" if kind == "intra"
+                                      else "inter")
+    subpel = ((2, 1), True, True, True) if kind == "partitions" else ()
     front = inter.encode_p_front(MB_H, MB_W, 16, y, u, v, *ref, q, lam,
-                                 _mvp(card), True)
+                                 _mvp(card), True, *subpel)
+    if kind == "partitions":     # every layout, whatever the search chose
+        rng = np.random.default_rng(12)
+        front["ptype"] = torch.as_tensor(rng.integers(0, 4, (MB_H, MB_W)),
+                                         dtype=torch.int32, device=card)
+        front["mv_quad"] = front["mv_quad"] + torch.as_tensor(
+            rng.integers(-9, 10, (MB_H, MB_W, 4, 2)), dtype=torch.int32,
+            device=card)
     kmaps, kops, kn = cabac_planes.cabac_p_ops(front, MB_H, MB_W)
     pmaps, pops, pn = cabac_planes.cabac_p_ops_plain(front, MB_H, MB_W)
     n = int(pn)
@@ -237,8 +326,10 @@ def test_cabac_p_ops_and_p_deblock_kernels_match_plain(card, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frame_parallel", [1, 3])
-def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel):
+@pytest.mark.parametrize("frame_parallel,subme", [(1, 1), (3, 1), (1, 2),
+                                                  (3, 5)])
+def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel,
+                                                  subme):
     w, h = MB_W * 16 - 6, MB_H * 16 - 4
     rng = np.random.default_rng(11)
     base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
@@ -255,7 +346,7 @@ def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel):
         p.rc.i_rc_method, p.rc.i_qp_constant = 0, 28
         p.analyse.b_transform_8x8 = False
         p.i_scenecut_threshold = 0
-        p.analyse.i_subpel_refine = 1
+        p.analyse.i_subpel_refine = subme
         enc = x264_tpu_torch.Encoder(p, device=device)
         outs = [enc.encode(f) for f in frames]
         outs = [o for o in outs if o is not None] + enc.flush()

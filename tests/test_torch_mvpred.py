@@ -1,9 +1,10 @@
-"""The port's exact MV prediction (predict_16x16, predict_pskip, median3)
-against x264_tpu/encoder/mvpred.py on random per-4x4 ref / mv maps: intra
-blocks (ref -1), a second reference, zero MVs that force P_Skip to zero,
-and frames of one MB row or column, where the left, top and top-right
-neighbours fall outside the frame. Every output is an integer and must
-be exactly equal."""
+"""The port's exact MV prediction (predict_16x16, predict_pskip, the
+partition predictors predict_16x8 / predict_8x16 / predict_p8x8, and
+median3) against x264_tpu/encoder/mvpred.py on random per-4x4 ref / mv
+maps: intra blocks (ref -1), a second reference, zero MVs that force
+P_Skip to zero, and frames of one MB row or column, where the left, top
+and top-right neighbours fall outside the frame. Every output is an
+integer and must be exactly equal."""
 
 import numpy as np
 import pytest
@@ -51,6 +52,25 @@ def test_predictors_match_jax(mb_h, mb_w, refs, per_mb):
             np.testing.assert_array_equal(
                 np.asarray(jmv.predict_16x16(ref4, mv4, 1)),
                 tmv.predict_16x16(T(ref4), T(mv4), 1).numpy())
+
+
+@pytest.mark.parametrize("mb_h,mb_w,refs", [
+    (5, 7, (-1, 0)), (4, 6, (-1, 0, 0, 0, 1)), (1, 5, (-1, 0)),
+    (5, 1, (-1, 0)), (1, 1, (0,))],
+    ids=["4x4-maps", "two-refs", "one-row", "one-column", "one-mb"])
+def test_partition_predictors_match_jax(mb_h, mb_w, refs):
+    for seed in range(3):
+        ref4, mv4 = _maps(mb_h, mb_w, seed, refs, False)
+        for i_ref in sorted({0, *refs} - {-1}):
+            for jf, tf in ((jmv.predict_16x8, tmv.predict_16x8),
+                           (jmv.predict_8x16, tmv.predict_8x16),
+                           (jmv.predict_p8x8, tmv.predict_p8x8)):
+                j = jf(ref4, mv4, i_ref)
+                t = tf(T(ref4), T(mv4), i_ref)
+                assert len(j) == len(t)
+                for a, b in zip(j, t):
+                    np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                                  err_msg=jf.__name__)
 
 
 def test_median3_matches_jax():

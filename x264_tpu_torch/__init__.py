@@ -6,7 +6,9 @@ The package mirrors x264_tpu's layout and its public entry points
 Triton kernel, each beside a plain PyTorch version of the same function;
 the serial CABAC arithmetic coder runs in C on the host (native/).
 
-This slice encodes all-intra streams (keyint 1) at constant QP with
+The port encodes all-intra streams (keyint 1) and IPPP streams with a
+fixed GOP (scenecut 0, one reference, no B frames) at subme 1-5, with
+the 16x8 / 8x16 / P8x8 partitions and chroma ME, at constant QP with
 CABAC, deblocking, PSNR/SSIM and frame pipelining, without the 8x8
 transform; parameters outside it raise NotImplementedError.
 """

@@ -241,27 +241,35 @@ __global__ void scatter_kernel(const uint32_t* __restrict__ scratch,
 // ---------------------------------------------------------------- K8
 // K8 cabac_p_ops: stage 4 of the P encode and the op stream of the slice.
 //
-// Replaces x264_tpu/encoder/mvpred.py:predict_16x16 / predict_pskip, the
-// skip / mvd / 4x4-map derivation of encoder/inter.py:encode_p_body
-// (stage 4, inter.py:733-842) and x264_tpu/entropy/cabac_planes.py:
-// p_slice_ops (with _mvd_component_ops and _cbf_ctx_from_grid) followed by
-// compact_ops, for 16x16 inter, P_Skip and I16x16 MBs with one reference
-// and no 8x8 transform. Plain twin: x264_tpu_torch/entropy/
-// cabac_planes.py:cabac_p_ops_plain; wrapper: cabac_p_ops.
+// Replaces x264_tpu/encoder/mvpred.py:77 predict_16x16, :86
+// predict_pskip, :169 predict_16x8, :196 predict_8x16 and :233
+// predict_p8x8, the skip / mvd / 4x4-map derivation of
+// encoder/inter.py:encode_p_body (stage 4, inter.py:733-842) and
+// x264_tpu/entropy/cabac_planes.py:518 p_slice_ops (with
+// _mvd_component_ops and _cbf_ctx_from_grid) followed by :429
+// compact_ops, for P_L0 16x16 / 16x8 / 8x16, P_8x8, P_Skip and I16x16 MBs
+// with one reference and no 8x8 transform. Plain twin: x264_tpu_torch/
+// entropy/cabac_planes.py:cabac_p_ops_plain; wrapper: cabac_p_ops.
 //
 // Design. Four launches.
-//   A. one thread per MB: the MB's final MV (0 if intra) and the exact
-//      16x16 / P_Skip predictors from the left, top, top-right (else
-//      top-left) neighbours, which in this slice are whole MBs (ref 0
-//      with the MB's MV, -1 intra, -2 outside the frame); the skip flag,
-//      the mvd, and the per-4x4 mvd4 / nnz4 / ref4 / mv4 maps;
+//   A. one thread per MB: the MB's final 16x16 MV and quadrant MVs (0 if
+//      intra); the exact predictors from the final 4x4 maps, which a
+//      thread reads straight from its neighbours' ptype / quadrant MVs
+//      (ref 0, -1 intra, -2 outside the frame): 16x16 and P_Skip, and per
+//      partition type 16x8 (B or A outright when ref 0 matches), 8x16 (A
+//      or C), P8x8 (the median of each sub-block, C falling back to D);
+//      the skip flag (ptype 0 only), mvd / mvd1 / mvd_sub, mv_sub, and
+//      the per-4x4 mvd4 / nnz4 / ref4 / mv4 maps;
 //   B. one thread per MB emits its live ops in the slot order of
-//      p_slice_ops (skip flag, mb_type, intra fields, mvd, cbp, dqp,
-//      luma DC, 16 luma blocks, chroma DC, chroma AC, end_of_slice),
-//      reading the neighbours' skip, nnz4 and mvd4 that pass A wrote;
+//      p_slice_ops (skip flag, mb_type, intra fields, sub_mb_types, the
+//      mvds partition by partition, cbp, dqp, luma DC, 16 luma blocks,
+//      chroma DC, chroma AC, end_of_slice), reading the neighbours' skip,
+//      nnz4 and mvd4 that pass A wrote. A P_8x8 MB emits at most 508
+//      live ops, an intra MB 452: OPS_PER_MB = 560 bounds pass B's
+//      scratch;
 //   then K3's scan and scatter.
 // What bounds it on the H100: bytes, as K3: the syntax planes and maps
-// (~17 MB at 1080p as int32) are read or written once and the live ops
+// (~19 MB at 1080p as int32) are read or written once and the live ops
 // written twice.
 
 __constant__ int kMvdTermOff[9] = {0, 3, 4, 5, 6, 6, 6, 6, 6};
@@ -269,6 +277,7 @@ __constant__ int kMvdTermOff[9] = {0, 3, 4, 5, 6, 6, 6, 6, 6};
 struct PPlanes {
   const uint8_t* intra;
   const uint8_t* skip;
+  const int* ptype;
   const int* mode16;
   const int* modec;
   const int* cbp;
@@ -277,6 +286,9 @@ struct PPlanes {
   const int* luma_blocks;
   const int* chroma_dc;
   const int* chroma_ac;
+  const int* mvd;
+  const int* mvd1;
+  const int* mvd_sub;
   const int* mvd4;
   const int* nnz4;
   int mb_w;
@@ -312,82 +324,151 @@ struct PPlanes {
   }
 };
 
-struct Nbr {
+// (ref, mv) of one 4x4 block of the final maps
+struct Cell {
   int ref, x, y;
 };
 
-__device__ __forceinline__ Nbr nbr_mv(const uint8_t* intra, const int* me_mv,
-                                      int mb_h, int mb_w, int ny, int nx) {
-  if (ny < 0 || nx < 0 || ny >= mb_h || nx >= mb_w) return Nbr{-2, 0, 0};
-  const int n = ny * mb_w + nx;
-  if (intra[n]) return Nbr{-1, 0, 0};
-  return Nbr{0, me_mv[2 * n], me_mv[2 * n + 1]};
-}
+struct MvMaps {
+  const uint8_t* intra;
+  const int* ptype;
+  const int* mv_quad;
+  int mb_h, mb_w;
+
+  // the block (by4, bx4): -2 outside the frame, -1 intra, else ref 0
+  // with the MV of its 8x8 quadrant
+  __device__ Cell cell(int by4, int bx4) const {
+    if (by4 < 0 || bx4 < 0 || by4 >= 4 * mb_h || bx4 >= 4 * mb_w) return Cell{-2, 0, 0};
+    const int n = (by4 >> 2) * mb_w + (bx4 >> 2);
+    if (intra[n]) return Cell{-1, 0, 0};
+    const int k = 2 * ((by4 & 3) >> 1) + ((bx4 & 3) >> 1);
+    return Cell{0, mv_quad[(n * 4 + k) * 2], mv_quad[(n * 4 + k) * 2 + 1]};
+  }
+  // the C slot at (r, c), or D at (rd, cd) where C is unavailable
+  __device__ Cell c_or_d(int r, int c, int rd, int cd) const {
+    const Cell C = cell(r, c);
+    return C.ref == -2 ? cell(rd, cd) : C;
+  }
+};
 
 __device__ __forceinline__ int median3(int a, int b, int c) {
   return a + b + c - min(a, min(b, c)) - max(a, max(b, c));
 }
 
-__global__ void p_maps_kernel(const uint8_t* __restrict__ intra,
-                              const int* __restrict__ me_mv,
+// the median / count rule with i_ref 0 (mvpred.py:_predict)
+__device__ __forceinline__ Cell predict(const Cell& A, const Cell& B, const Cell& C) {
+  const int cnt = (A.ref == 0) + (B.ref == 0) + (C.ref == 0);
+  if (cnt == 1) return A.ref == 0 ? A : B.ref == 0 ? B : C;
+  if (cnt == 0 && B.ref == -2 && C.ref == -2 && A.ref != -2) return A;
+  return Cell{0, median3(A.x, B.x, C.x), median3(A.y, B.y, C.y)};
+}
+
+__global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
                               const int* __restrict__ cbp,
                               const int* __restrict__ cbpc,
                               const int* __restrict__ luma_blocks,
                               uint8_t* __restrict__ skip_o,
                               int* __restrict__ mv_o, int* __restrict__ mvd_o,
+                              int* __restrict__ mvd1_o,
+                              int* __restrict__ ptype_o,
+                              int* __restrict__ mv_sub_o,
+                              int* __restrict__ mvd_sub_o,
                               int* __restrict__ mvd4, int* __restrict__ nnz4,
-                              int* __restrict__ ref4, int* __restrict__ mv4,
-                              int mb_h, int mb_w) {
+                              int* __restrict__ ref4, int* __restrict__ mv4) {
+  const int mb_h = M.mb_h, mb_w = M.mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= mb_h * mb_w) return;
-  const int mx = mb % mb_w, my = mb / mb_w;
-  const bool im = intra[mb];
+  const int mx = mb % mb_w, my = mb / mb_w, gy = 4 * my, gx = 4 * mx;
+  const bool im = M.intra[mb];
+  const int pt = im ? 0 : M.ptype[mb];
   const int mvx = im ? 0 : me_mv[2 * mb], mvy = im ? 0 : me_mv[2 * mb + 1];
-  // predict_16x16 (i_ref 0) and predict_pskip
-  const Nbr A = nbr_mv(intra, me_mv, mb_h, mb_w, my, mx - 1);
-  const Nbr B = nbr_mv(intra, me_mv, mb_h, mb_w, my - 1, mx);
-  Nbr C = nbr_mv(intra, me_mv, mb_h, mb_w, my - 1, mx + 1);
-  if (C.ref == -2) C = nbr_mv(intra, me_mv, mb_h, mb_w, my - 1, mx - 1);
-  const int cnt = (A.ref == 0) + (B.ref == 0) + (C.ref == 0);
-  int px, py;
-  if (cnt > 1) {
-    px = median3(A.x, B.x, C.x); py = median3(A.y, B.y, C.y);
-  } else if (cnt == 1) {
-    const Nbr& o = A.ref == 0 ? A : B.ref == 0 ? B : C;
-    px = o.x; py = o.y;
-  } else if (B.ref == -2 && C.ref == -2 && A.ref != -2) {
-    px = A.x; py = A.y;
-  } else {
-    px = median3(A.x, B.x, C.x); py = median3(A.y, B.y, C.y);
+  int qx[4], qy[4];
+  for (int k = 0; k < 4; ++k) {
+    qx[k] = im ? 0 : M.mv_quad[(mb * 4 + k) * 2];
+    qy[k] = im ? 0 : M.mv_quad[(mb * 4 + k) * 2 + 1];
   }
+  // predict_16x16 and predict_pskip
+  const Cell A = M.cell(gy, gx - 1), B = M.cell(gy - 1, gx);
+  const Cell p16 = predict(A, B, M.c_or_d(gy - 1, gx + 4, gy - 1, gx - 1));
   const bool force0 = A.ref == -2 || B.ref == -2
       || (A.ref == 0 && A.x == 0 && A.y == 0) || (B.ref == 0 && B.x == 0 && B.y == 0);
-  const int sx = force0 ? 0 : px, sy = force0 ? 0 : py;
-  const int dx = im ? 0 : mvx - px, dy = im ? 0 : mvy - py;
-  const bool sk = !im && cbp[mb] == 0 && cbpc[mb] == 0 && mvx == sx && mvy == sy;
+  const int sx = force0 ? 0 : p16.x, sy = force0 ? 0 : p16.y;
+  int d0x = 0, d0y = 0, d1x = 0, d1y = 0, dsx[4] = {0, 0, 0, 0}, dsy[4] = {0, 0, 0, 0};
+  if (pt == 1) {             // predict_16x8
+    const Cell t = B.ref == 0 ? B : p16;
+    const Cell A1 = M.cell(gy + 2, gx - 1);
+    const Cell m1 = predict(A1, M.cell(gy + 1, gx), M.cell(gy + 1, gx - 1));
+    const Cell b = A1.ref == 0 ? A1 : m1;
+    d0x = qx[0] - t.x; d0y = qy[0] - t.y;
+    d1x = qx[2] - b.x; d1y = qy[2] - b.y;
+  } else if (pt == 2) {      // predict_8x16
+    const Cell m0 = predict(A, B, M.c_or_d(gy - 1, gx + 2, gy - 1, gx - 1));
+    const Cell l = A.ref == 0 ? A : m0;
+    const Cell C1 = M.c_or_d(gy - 1, gx + 4, gy - 1, gx + 1);
+    const Cell m1 = predict(M.cell(gy, gx + 1), M.cell(gy - 1, gx + 2), C1);
+    const Cell r = C1.ref == 0 ? C1 : m1;
+    d0x = qx[0] - l.x; d0y = qy[0] - l.y;
+    d1x = qx[1] - r.x; d1y = qy[1] - r.y;
+  } else if (pt == 3) {      // predict_p8x8
+    for (int k = 0; k < 4; ++k) {
+      const int by = gy + 2 * (k >> 1), bx = gx + 2 * (k & 1);
+      const Cell C = k == 3 ? M.cell(by - 1, bx - 1) : M.c_or_d(by - 1, bx + 2, by - 1, bx - 1);
+      const Cell p = predict(M.cell(by, bx - 1), M.cell(by - 1, bx), C);
+      dsx[k] = qx[k] - p.x; dsy[k] = qy[k] - p.y;
+    }
+  } else if (!im) {
+    d0x = mvx - p16.x; d0y = mvy - p16.y;
+  }
+  const bool sk = !im && pt == 0 && cbp[mb] == 0 && cbpc[mb] == 0 && mvx == sx && mvy == sy;
   skip_o[mb] = sk ? 1 : 0;
+  ptype_o[mb] = pt;
   mv_o[2 * mb] = mvx; mv_o[2 * mb + 1] = mvy;
-  mvd_o[2 * mb] = dx; mvd_o[2 * mb + 1] = dy;
+  mvd_o[2 * mb] = d0x; mvd_o[2 * mb + 1] = d0y;
+  mvd1_o[2 * mb] = d1x; mvd1_o[2 * mb + 1] = d1y;
+  for (int k = 0; k < 4; ++k) {
+    mv_sub_o[(mb * 4 + k) * 2] = pt == 3 ? qx[k] : 0;
+    mv_sub_o[(mb * 4 + k) * 2 + 1] = pt == 3 ? qy[k] : 0;
+    mvd_sub_o[(mb * 4 + k) * 2] = dsx[k];
+    mvd_sub_o[(mb * 4 + k) * 2 + 1] = dsy[k];
+  }
   const int W4 = 4 * mb_w;
   for (int r = 0; r < 16; ++r) {
-    const int o = (4 * my + (r >> 2)) * W4 + 4 * mx + (r & 3);
-    mvd4[2 * o] = sk ? 0 : dx;
-    mvd4[2 * o + 1] = sk ? 0 : dy;
+    const int by = r >> 2, bx = r & 3, k = 2 * (by >> 1) + (bx >> 1);
+    const int o = (gy + by) * W4 + gx + bx;
+    const bool p1 = (pt == 1 && by >= 2) || (pt == 2 && bx >= 2);
+    int ex = p1 ? d1x : d0x, ey = p1 ? d1y : d0y;
+    if (pt == 3) { ex = dsx[k]; ey = dsy[k]; }
+    mvd4[2 * o] = sk ? 0 : ex;
+    mvd4[2 * o + 1] = sk ? 0 : ey;
     ref4[o] = im ? -1 : 0;
-    mv4[2 * o] = mvx;
-    mv4[2 * o + 1] = mvy;
+    mv4[2 * o] = qx[k];
+    mv4[2 * o + 1] = qy[k];
   }
   for (int z = 0; z < 16; ++z) {
     const int* c = luma_blocks + (mb * 16 + z) * 16;
     int n = 0;
     for (int i = 0; i < 16; ++i) n += c[i] != 0;
     const int r = kRasterOfZ[z];
-    nnz4[(4 * my + (r >> 2)) * W4 + 4 * mx + (r & 3)] = ((cbp[mb] >> (z >> 2)) & 1) ? n : 0;
+    nnz4[(gy + (r >> 2)) * W4 + gx + (r & 3)] = ((cbp[mb] >> (z >> 2)) & 1) ? n : 0;
   }
 }
 
-__global__ void p_emit_kernel(PPlanes P, const int* __restrict__ mvd, int mb_h,
-                              uint32_t* __restrict__ scratch,
+// one mvd component, UEG3 (x264_cabac_mb_mvd_cpn; p_slice_ops'
+// _mvd_component_ops); am: the left + top neighbours' |mvd|
+__device__ void emit_mvd(Emitter& E, int v, int base, int am) {
+  const int a = abs(v);
+  E.dec(base + (am > 2) + (am > 32), a > 0);
+  if (a >= 2) E.dec(base + 3, 1);
+  if (a >= 3) E.dec(base + 4, 1);
+  if (a >= 4) E.dec(base + 5, 1);
+  const int ones = min(max(min(a - 1, 8) - 3, 0), 5);
+  if (ones > 0) E.put(K_ONES, (uint32_t)(base + 6), (uint32_t)ones);
+  if (a >= 1 && a < 9) E.dec(base + kMvdTermOff[a], 0);
+  if (a >= 9) E.put(K_UE, (uint32_t)(a - 9), 3);
+  if (a >= 1) E.put(K_BYPASS, v < 0, 1);
+}
+
+__global__ void p_emit_kernel(PPlanes P, int mb_h, uint32_t* __restrict__ scratch,
                               int* __restrict__ counts) {
   const int mb_w = P.mb_w, nmb = mb_h * mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
@@ -397,13 +478,20 @@ __global__ void p_emit_kernel(PPlanes P, const int* __restrict__ mvd, int mb_h,
   const int mbl = mb - 1, mbt = mb - mb_w;
   const bool im = P.intra[mb], sk = P.skip[mb];
   const bool coded = !sk, inter = coded && !im;
-  const int cbp = P.cbp[mb], cbpc = P.cbpc[mb];
+  const int cbp = P.cbp[mb], cbpc = P.cbpc[mb], pt = P.ptype[mb];
   Emitter E{scratch + (size_t)mb * OPS_PER_MB, 0};
 
-  // ---- mb_skip_flag (ctx 11 + non-skip neighbours), mb_type
+  // ---- mb_skip_flag (ctx 11 + non-skip neighbours), mb_type: P_L0
+  // 16x16 (15,0)(16,0), 16x8 (15,1)(17,1), 8x16 (15,1)(17,0), P_8x8
+  // (15,0)(16,1)
   E.dec(11 + (hl && !P.skip[mbl]) + (ht && !P.skip[mbt]), sk);
   if (coded) E.dec(14, im);
-  if (inter) { E.dec(15, 0); E.dec(16, 0); }
+  if (inter) {
+    const bool split = pt == 1 || pt == 2;
+    E.dec(15, split);
+    if (split) E.dec(17, pt == 1);
+    else E.dec(16, pt == 3);
+  }
   if (im) {
     const int m16 = P.mode16[mb];
     E.dec(17, 1);
@@ -422,19 +510,20 @@ __global__ void p_emit_kernel(PPlanes P, const int* __restrict__ mvd, int mb_h,
     if (cm > 1) E.dec(67, cm > 2);
   }
   if (inter) {
-    // ---- mvd, UEG3 per component; ctxInc from the neighbours' |mvd|
-    for (int comp = 0; comp < 2; ++comp) {
-      const int base = comp ? 47 : 40, v = mvd[2 * mb + comp], a = abs(v);
-      const int am = P.amvd(4 * my, 4 * mx - 1, comp) + P.amvd(4 * my - 1, 4 * mx, comp);
-      E.dec(base + (am > 2) + (am > 32), a > 0);
-      if (a >= 2) E.dec(base + 3, 1);
-      if (a >= 3) E.dec(base + 4, 1);
-      if (a >= 4) E.dec(base + 5, 1);
-      const int ones = min(max(min(a - 1, 8) - 3, 0), 5);
-      if (ones > 0) E.put(K_ONES, (uint32_t)(base + 6), (uint32_t)ones);
-      if (a >= 1 && a < 9) E.dec(base + kMvdTermOff[a], 0);
-      if (a >= 9) E.put(K_UE, (uint32_t)(a - 9), 3);
-      if (a >= 1) E.put(K_BYPASS, v < 0, 1);
+    // ---- sub_mb_type x4: D_L0_8x8 is one '1' bin at ctx 21
+    if (pt == 3)
+      for (int k = 0; k < 4; ++k) E.dec(21, 1);
+    // ---- mvds per partition in syntax order; ctxInc from the left /
+    // top 4x4 neighbours' |mvd| at the partition's first block
+    const int n_parts = pt == 0 ? 1 : pt == 3 ? 4 : 2;
+    for (int k = 0; k < n_parts; ++k) {
+      const int* d = pt == 3 ? P.mvd_sub + (mb * 4 + k) * 2
+                   : k == 0 ? P.mvd + 2 * mb : P.mvd1 + 2 * mb;
+      const int r = 4 * my + (pt == 1 || pt == 3 ? 2 * (k >> (pt == 3)) : 0);
+      const int c = 4 * mx + (pt == 2 ? 2 * k : pt == 3 ? 2 * (k & 1) : 0);
+      for (int comp = 0; comp < 2; ++comp)
+        emit_mvd(E, d[comp], comp ? 47 : 40,
+                 P.amvd(r, c - 1, comp) + P.amvd(r - 1, c, comp));
     }
     // ---- coded_block_pattern; skip neighbours count as cbp 0
     const int cl = hl ? (P.skip[mbl] ? 0 : P.cbp[mbl]) : -1;
@@ -511,24 +600,28 @@ extern "C" int cabac_i_ops(const int* mode16, const int* modec,
 }
 
 extern "C" int cabac_p_ops(const uint8_t* intra_mb, const int* me_mv,
+                           const int* ptype, const int* mv_quad,
                            const int* mode16, const int* modec,
                            const int* cbp_luma_bits, const int* cbp_chroma,
                            const int* luma_dc, const int* luma_blocks,
                            const int* chroma_dc, const int* chroma_ac,
-                           uint8_t* skip, int* mv, int* mvd, int* mvd4,
+                           uint8_t* skip, int* mv, int* mvd, int* mvd1,
+                           int* ptype_o, int* mv_sub, int* mvd_sub, int* mvd4,
                            int* nnz4, int* ref4, int* mv4, uint32_t* scratch,
                            int* counts, int* offsets, uint32_t* ops, int mb_h,
                            int mb_w, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nmb = mb_h * mb_w;
+  MvMaps M{intra_mb, ptype, mv_quad, mb_h, mb_w};
   p_maps_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(
-      intra_mb, me_mv, cbp_luma_bits, cbp_chroma, luma_blocks, skip, mv, mvd,
-      mvd4, nnz4, ref4, mv4, mb_h, mb_w);
+      M, me_mv, cbp_luma_bits, cbp_chroma, luma_blocks, skip, mv, mvd, mvd1,
+      ptype_o, mv_sub, mvd_sub, mvd4, nnz4, ref4, mv4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  PPlanes P{intra_mb, skip, mode16, modec, cbp_luma_bits, cbp_chroma, luma_dc,
-            luma_blocks, chroma_dc, chroma_ac, mvd4, nnz4, mb_w};
-  p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mvd, mb_h, scratch, counts);
+  PPlanes P{intra_mb, skip, ptype_o, mode16, modec, cbp_luma_bits, cbp_chroma,
+            luma_dc, luma_blocks, chroma_dc, chroma_ac, mvd, mvd1, mvd_sub,
+            mvd4, nnz4, mb_w};
+  p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, scratch, counts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);

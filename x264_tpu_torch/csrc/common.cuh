@@ -123,6 +123,13 @@ __device__ __forceinline__ int decimate_score(const int* lv, int n) {
   return score;
 }
 
+// qpel phase (fy << 2 | fx) -> the two half-pel planes (0 fpel, 1 h,
+// 2 v, 3 c) whose rounding average is the prediction (common/mc.c:
+// 157-158; ops/mc.py:_HPEL_REF0 / _HPEL_REF1, the latter pre-fixed so
+// that phases with no averaging average a sample with itself)
+__constant__ int kHpelRef0[16] = {0, 1, 1, 1, 0, 1, 1, 1, 2, 3, 3, 3, 0, 1, 1, 1};
+__constant__ int kHpelRef1[16] = {0, 0, 1, 0, 2, 2, 3, 2, 2, 2, 3, 2, 2, 2, 3, 2};
+
 // the start jax.lax.dynamic_slice uses for a slice of `size` of an axis
 // of `dim` (ops/mc.py:ds_start): a negative start counts from the end
 // once, then the start is clamped so that the slice fits

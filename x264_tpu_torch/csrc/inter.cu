@@ -1,31 +1,36 @@
 // K6 p_inter_mb: the inter residual path of every MB of a P frame.
 //
-// Replaces x264_tpu/ops/mc.py:mc_luma (at full-pel MVs) and mc_chroma,
-// x264_tpu/encoder/inter.py:inter_luma_residual (with DCT decimation)
-// and the chroma half of encode_p_body's stage 2 (the "pc" chroma
-// residual with the joint two-channel AC decimation, inter.py:551-567),
-// plus the MB cost sad + lam * (mv bits + 1) (inter.py:325). Plain twin:
+// Replaces x264_tpu/ops/mc.py:74 mc_luma and :114 mc_chroma as
+// encode_p_body's stage 2 calls them (the partitioned fetch,
+// inter.py:420-494), x264_tpu/encoder/inter.py:81 inter_luma_residual
+// (with DCT decimation) and the chroma half of stage 2 (the "pc" chroma
+// residual with the joint two-channel AC decimation, inter.py:551-567).
+// Plain twin:
 // x264_tpu_torch/encoder/inter.py:p_inter_mb_plain; wrapper: p_inter_mb.
 //
 // Design. Inter prediction reads only the reference, so there is no
 // wavefront: one launch, one 64-thread CTA per MB. The CTA fetches its
-// 16x16 luma prediction from the edge-padded reference at the full-pel
-// MV and its two 8x8 chroma predictions by the 1/8-pel bilinear filter
-// ((ca*s00 + cb*s01 + cc*s10 + cd*s11 + 32) >> 6; chroma MVs are
-// fractional even at subme 1); threads 0-15 then run one luma 4x4 block
-// each (DCT, P-matrix quant, decimate score) and threads 32-39 one
-// chroma block each. The 8x8-group / whole-MB luma kill (score < 4 /
-// total < 6) and the joint chroma AC kill (score < 7) are decided by one
-// thread between the phases, then dequant, IDCT and reconstruction.
-// Fetch starts are taken as jax.lax.dynamic_slice takes them
-// (ds_start: a negative start wraps once, then clamps). The kernel
-// computes full-pel luma only: sub-pel MVs belong to the subme >= 2
-// slice, which Encoder refuses.
-// What bounds it on the H100: bytes. A 1080p frame moves ~52 MB (source,
-// padded reference planes, and the recon, coefficient and cost planes
-// out, as int32: ~15 us at 3.35 TB/s) for ~0.08 G integer ops (~1 us).
-// One MB per 64-thread CTA, with 16 or 8 threads busy in the transform
-// phases, keeps it far from either; a later PR can batch MBs per CTA.
+// luma prediction partition by partition (ptype 0 16x16, 1 16x8, 2
+// 8x16, 3 8x8; each partition takes the MV of its top-left 8x8
+// quadrant): a sample is the rounding average of the two half-pel
+// planes its quarter-pel phase names (kHpelRef0/1), each block start
+// taken as jax.lax.dynamic_slice takes it (ds_start: a negative start
+// wraps once, then clamps, and the plane index clamps into the stack, so
+// a one-plane stack serves full-pel MVs). The chroma predictions (8x8,
+// 8x4, 4x8 or 4x4 blocks) come from the 1/8-pel bilinear filter
+// ((ca*s00 + cb*s01 + cc*s10 + cd*s11 + 32) >> 6). Threads 0-15 then run
+// one luma 4x4 block each (DCT, P-matrix quant, decimate score) and
+// threads 32-39 one chroma block each. The 8x8-group / whole-MB luma
+// kill (score < 4 / total < 6) and the joint chroma AC kill (score < 7)
+// are decided by one thread between the phases, then dequant, IDCT and
+// reconstruction.
+// What bounds it on the H100: bytes. A 1080p frame moves ~116 MB at
+// subme >= 2 (source, the four half-pel planes, the padded chroma, and
+// the recon and coefficient planes out, as int32: ~35 us at 3.35 TB/s;
+// ~52 MB at subme 1, where the stack is one plane) for ~0.08 G integer
+// ops (~1 us). One MB per 64-thread CTA, with 16 or 8 threads busy in
+// the transform phases, keeps it far from either; a later PR can batch
+// MBs per CTA.
 #include "common.cuh"
 
 using namespace x264t;
@@ -46,22 +51,37 @@ struct QTabP {
 };
 constexpr int QTABP_INTS = sizeof(QTabP) / sizeof(int);
 
+// partition of MB sample (r, c) under ptype: its rectangle in the MB
+struct Part {
+  int top, left, bh, bw;
+};
+
+__device__ __forceinline__ Part part_of(int ptype, int r, int c) {
+  switch (ptype) {
+    case 1: return Part{r & 8, 0, 8, 16};
+    case 2: return Part{0, c & 8, 16, 8};
+    case 3: return Part{r & 8, c & 8, 8, 8};
+    default: return Part{0, 0, 16, 16};
+  }
+}
+
 __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     const int* __restrict__ Y, const int* __restrict__ U,
-    const int* __restrict__ V, const int* __restrict__ refp,
+    const int* __restrict__ V, const int* __restrict__ planes,
     const int* __restrict__ refu, const int* __restrict__ refv,
-    const int* __restrict__ mv, const int* __restrict__ sad,
-    const int* __restrict__ mvp, const int* __restrict__ qtab_g,
-    int* __restrict__ RY, int* __restrict__ RU, int* __restrict__ RV,
-    int* __restrict__ blocks_z, int* __restrict__ cbp_o,
-    int* __restrict__ chroma_dc_o, int* __restrict__ chroma_ac_o,
-    int* __restrict__ cost_o, int mb_h, int mb_w, int lam, int decimate) {
+    const int* __restrict__ ptype_g, const int* __restrict__ mv_quad,
+    const int* __restrict__ qtab_g, int* __restrict__ RY,
+    int* __restrict__ RU, int* __restrict__ RV, int* __restrict__ blocks_z,
+    int* __restrict__ cbp_o, int* __restrict__ chroma_dc_o,
+    int* __restrict__ chroma_ac_o, int mb_h, int mb_w, int n_planes,
+    int decimate) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
   const int Wp = W + 2 * PAD, Hp = H + 2 * PAD;
   const int Wcp = Wc + 2 * CPAD, Hcp = Hc + 2 * CPAD;
-  const int mvx = mv[2 * mb], mvy = mv[2 * mb + 1];
+  const size_t plane = (size_t)Hp * Wp;
+  const int pt = ptype_g[mb];
 
   __shared__ QTabP q;
   __shared__ int fenc[256], pred[256], lv[16][16], score[16], nzb[16];
@@ -71,28 +91,39 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
   // ---------------------------------------------------------- fetch
   for (int i = tid; i < QTABP_INTS; i += NT)
     reinterpret_cast<int*>(&q)[i] = qtab_g[i];
-  {
-    const int y0 = ds_start(my * 16 + (mvy >> 2) + PAD, Hp, 16);
-    const int x0 = ds_start(mx * 16 + (mvx >> 2) + PAD, Wp, 16);
-    for (int i = tid; i < 256; i += NT) {
-      int r = i >> 4, c = i & 15;
-      fenc[i] = Y[(my * 16 + r) * W + mx * 16 + c];
-      pred[i] = refp[(y0 + r) * Wp + x0 + c];
-    }
+  for (int i = tid; i < 256; i += NT) {
+    const int r = i >> 4, c = i & 15;
+    const Part p = part_of(pt, r, c);
+    const int k = 2 * (p.top >> 3) + (p.left >> 3);
+    const int mvx = mv_quad[(mb * 4 + k) * 2], mvy = mv_quad[(mb * 4 + k) * 2 + 1];
+    const int fx = mvx & 3, fy = mvy & 3, qi = (fy << 2) | fx;
+    const int p0 = ds_start(kHpelRef0[qi], n_planes, 1);
+    const int p1 = ds_start(kHpelRef1[qi], n_planes, 1);
+    const int iy = my * 16 + p.top + (mvy >> 2) + PAD;
+    const int ix = mx * 16 + p.left + (mvx >> 2) + PAD;
+    const int ya = ds_start(iy + (fy == 3), Hp, p.bh), xa = ds_start(ix, Wp, p.bw);
+    const int yb = ds_start(iy, Hp, p.bh), xb = ds_start(ix + (fx == 3), Wp, p.bw);
+    const int rr = r - p.top, cc = c - p.left;
+    const int a = planes[p0 * plane + (size_t)(ya + rr) * Wp + xa + cc];
+    const int b = planes[p1 * plane + (size_t)(yb + rr) * Wp + xb + cc];
+    pred[i] = (a + b + 1) >> 1;
+    fenc[i] = Y[(my * 16 + r) * W + mx * 16 + c];
   }
-  {
+  for (int i = tid; i < 128; i += NT) {
+    const int ch = i >> 6, k = i & 63, r = k >> 3, c = k & 7;
+    const Part p = part_of(pt, 2 * r, 2 * c);
+    const int kq = 2 * (p.top >> 3) + (p.left >> 3);
+    const int mvx = mv_quad[(mb * 4 + kq) * 2], mvy = mv_quad[(mb * 4 + kq) * 2 + 1];
     const int dx = mvx & 7, dy = mvy & 7;
     const int ca = (8 - dx) * (8 - dy), cb = dx * (8 - dy);
     const int cc = (8 - dx) * dy, cd = dx * dy;
-    const int y0 = ds_start(my * 8 + (mvy >> 3) + CPAD, Hcp, 9);
-    const int x0 = ds_start(mx * 8 + (mvx >> 3) + CPAD, Wcp, 9);
-    for (int i = tid; i < 128; i += NT) {
-      const int ch = i >> 6, k = i & 63, r = k >> 3, c = k & 7;
-      const int* R = ch ? refv : refu;
-      const int* s = R + (y0 + r) * Wcp + x0 + c;
-      pc[ch][k] = (ca * s[0] + cb * s[1] + cc * s[Wcp] + cd * s[Wcp + 1] + 32) >> 6;
-      fc[ch][k] = (ch ? V : U)[(my * 8 + r) * Wc + mx * 8 + c];
-    }
+    const int ctop = p.top >> 1, cleft = p.left >> 1;
+    const int y0 = ds_start(my * 8 + ctop + (mvy >> 3) + CPAD, Hcp, p.bh / 2 + 1);
+    const int x0 = ds_start(mx * 8 + cleft + (mvx >> 3) + CPAD, Wcp, p.bw / 2 + 1);
+    const int* R = ch ? refv : refu;
+    const int* s = R + (y0 + r - ctop) * Wcp + x0 + c - cleft;
+    pc[ch][k] = (ca * s[0] + cb * s[1] + cc * s[Wcp] + cd * s[Wcp + 1] + 32) >> 6;
+    fc[ch][k] = (ch ? V : U)[(my * 8 + r) * Wc + mx * 8 + c];
   }
   __syncthreads();
 
@@ -175,8 +206,6 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
         bits |= 1 << gi;
     }
     cbp_o[mb] = bits;
-    const int mb_bits = se_bits(mvx - mvp[2 * mb]) + se_bits(mvy - mvp[2 * mb + 1]);
-    cost_o[mb] = sad[mb] + lam * (mb_bits + 1);
   } else if (tid >= 32 && tid < 34) {  // chroma DC of channel ch
     const int ch = tid - 32;
     int a = cdc[ch][0], b = cdc[ch][1], c = cdc[ch][2], e = cdc[ch][3];
@@ -219,15 +248,15 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
 }  // namespace
 
 extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
-                          const int* ref_pad, const int* refu_pad,
-                          const int* refv_pad, const int* mv, const int* sad,
-                          const int* mvp, const int* qtab, int* recon_y,
+                          const int* planes, const int* refu_pad,
+                          const int* refv_pad, const int* ptype,
+                          const int* mv_quad, const int* qtab, int* recon_y,
                           int* recon_u, int* recon_v, int* blocks_z, int* cbp,
-                          int* chroma_dc, int* chroma_ac, int* cost, int mb_h,
-                          int mb_w, int lam, int decimate, void* stream) {
+                          int* chroma_dc, int* chroma_ac, int mb_h, int mb_w,
+                          int n_planes, int decimate, void* stream) {
   p_inter_mb_kernel<<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
-      y, u, v, ref_pad, refu_pad, refv_pad, mv, sad, mvp, qtab, recon_y,
-      recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, cost, mb_h, mb_w,
-      lam, decimate);
+      y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
+      recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, mb_h, mb_w,
+      n_planes, decimate);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,7 @@ from ..entropy import cabac as ecabac
 from ..entropy import cabac_tables as ctab
 from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
 from ..headers import PPS, SPS, SLICE_I, SLICE_P, SliceHeader, sei_version
-from ..params import ANALYSE_I4x4, EncoderParams
+from ..params import ANALYSE_I4x4, ANALYSE_PSUB16x16, EncoderParams
 from . import inter
 from . import intra
 from . import pipeline
@@ -76,16 +76,17 @@ class EncodedFrame:
 def _check_slice(p: EncoderParams, p_frames: bool) -> None:
     """Raise on every parameter outside this slice of the port; p_frames:
     whether the stream will hold P frames (i_keyint_max > 1, or a forced
-    P), which this slice encodes at subme 1 with one reference and a
-    fixed GOP only."""
+    P), which this slice encodes at subme 1-5 (with the 16x8 / 8x16 /
+    P8x8 partitions and chroma ME where the parameters ask for them),
+    with one reference and a fixed GOP only."""
     a, rc = p.analyse, p.rc
     later = [
         (p_frames and p.i_scenecut_threshold > 0,
          "scenecut detection (use scenecut=0 with keyint > 1)",
          "the lookahead slice"),
-        (p_frames and a.i_subpel_refine >= 2,
-         "sub-pel motion estimation (subme >= 2; use subme=1)",
-         "the subme 2-5 slice"),
+        (p_frames and a.i_subpel_refine >= 6,
+         "the RD mode decision (subme >= 6; use subme <= 5)",
+         "the subme 6 (RD) slice"),
         (p_frames and p.i_frame_reference >= 2,
          "multiple references (ref >= 2)", "a later slice"),
         (p.i_bframe > 0, "B frames", "the B slice"),
@@ -147,6 +148,14 @@ class Encoder:
         # frame border, as x264_tpu clamps it
         self._me_range = min(p.analyse.i_me_range, 24)
         self._decimate = bool(p.analyse.b_dct_decimate)
+        # the subme ladder, as x264_tpu sets it: 1 full-pel, 2-3 half-pel,
+        # 4-5 half- then quarter-pel; the 16x8 / 8x16 / P8x8 partitions
+        # with PSUB16x16 (they need sub-pel steps); chroma ME at subme 5
+        sp = p.analyse.i_subpel_refine
+        self._subpel = () if sp <= 1 else ((2,) if sp <= 3 else (2, 1))
+        self._parts = bool(p.analyse.inter & ANALYSE_PSUB16x16)
+        self._p8x8 = self._parts
+        self._chroma_me = bool(p.analyse.b_chroma_me and sp >= 5)
         self.stats = estats.Stats(
             p.i_width, p.i_height, p.i_fps_num / max(1, p.i_fps_den),
             b_psnr=p.analyse.b_psnr, b_ssim=p.analyse.b_ssim)
@@ -304,7 +313,7 @@ class Encoder:
 
     def _submit_p(self, frame: Frame, qp: int) -> dict:
         """One P frame against the DPB (x264_encoder_encode P path):
-        subme 1, one reference, CABAC."""
+        subme 1-5, one reference, CABAC."""
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
         y, u, v = self._pad_input(frame)
@@ -319,7 +328,9 @@ class Encoder:
             qp, 2 * p.i_deblocking_filter_alphac0,
             2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
             mvp_seed, crop_w=p.i_width, crop_h=p.i_height,
-            with_metrics=self._with_metrics, decimate=self._decimate)
+            with_metrics=self._with_metrics, decimate=self._decimate,
+            subpel_steps=self._subpel, parts=self._parts, p8x8=self._p8x8,
+            chroma_me=self._chroma_me)
         self._prev_mv = out["mv"]
         return dict(out=out, hdr_bytes=hdr_bytes,
                     recon=self._finish_frame(out, frame), nmb=mb_h * mb_w,

@@ -1,6 +1,6 @@
 """P-frame encode — plain PyTorch twin of x264_tpu/encoder/inter.py's
-P path at subme 1 (make_qtab_p, inter_luma_residual, encode_p_body) and
-the wrappers of its CUDA kernels K6 (csrc/inter.cu) and K7
+P path at subme 1-5 (make_qtab_p, inter_luma_residual, encode_p_body)
+and the wrappers of its CUDA kernels K6 (csrc/inter.cu) and K7
 (csrc/intra_p.cu).
 
 The reference's per-MB P path (x264_macroblock_analyse P branch,
@@ -8,19 +8,26 @@ encoder/analyse.c:1077-1519, and x264_macroblock_encode,
 encoder/macroblock.c:475) is staged as x264_tpu stages it:
 
 1. full-pel hierarchical ME of every MB at once, seeded by the previous
-   frame's MV field (ops/me.py, kernel K5);
+   frame's MV field (ops/me.py, kernel K5); at subme >= 2 the half-pel
+   planes of the reference (K9), the sub-pel refinement of the 16x16 MV
+   (K10) and, at subme 5, the chroma-ME re-rank (K12);
+1b. at subme >= 2 with partitions on: the 16x8 / 8x16 / 8x8 full-pel
+   window search (K11), the sub-pel refinement of every partition (K10),
+   and the partition type of least SATD + lambda * bits cost;
 2. the inter residual of every MB at once, since inter prediction reads
-   only the reference: full-pel luma fetch, 1/8-pel chroma fetch, 4x4
-   DCT, P-matrix quant, DCT decimation, reconstruction (K6);
+   only the reference: the partitioned quarter-pel luma fetch, the
+   1/8-pel chroma fetch, 4x4 DCT, P-matrix quant, DCT decimation,
+   reconstruction (K6);
 3. intra-in-P by bounded-depth sweeps: the I16 + chroma intra path of
    every MB against the inter reconstruction, the intra / inter
    decision, demotion of intra chains deeper than K_SWEEPS, and two
    re-evaluations that make the kept chains exact (K7);
-4. the syntax maps: exact MV prediction, P_Skip, mvd and the per-4x4
-   nnz / ref / mv maps (kernel K8's first pass, entropy/cabac_planes.py).
+4. the syntax maps: exact MV prediction of every partition, P_Skip, the
+   mvds and the per-4x4 nnz / ref / mv / mvd maps (kernel K8's first
+   pass, entropy/cabac_planes.py).
 
-This slice is subme 1 with one reference: no sub-pel refinement, no
-partitions, no 8x8 transform, no RD ladder, one QP per frame.
+This slice has one reference, no 8x8 transform, no RD ladder (subme 6)
+and one QP per frame.
 """
 
 from __future__ import annotations
@@ -128,27 +135,69 @@ def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
 
 
 # ---------------------------------------------------------------- K6
-def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, ref_pad, refu_pad,
-                     refv_pad, mv, sad, mvp, qtab, lam: int,
-                     decimate: bool):
-    """Plain version of K6: stage 2 of encode_p_body at full-pel MVs.
+# 4x4 cell (row, col) -> its 8x8 quadrant (TL, TR, BL, BR)
+QUAD_OF_CELL = ((0, 0, 1, 1), (0, 0, 1, 1), (2, 2, 3, 3), (2, 2, 3, 3))
+# partition type -> its partitions as (top, left, height, width) in the MB
+PART_RECTS = (((0, 0, 16, 16),),
+              ((0, 0, 8, 16), (8, 0, 8, 16)),
+              ((0, 0, 16, 8), (0, 8, 16, 8)),
+              ((0, 0, 8, 8), (0, 8, 8, 8), (8, 0, 8, 8), (8, 8, 8, 8)))
 
-    y / u / v: the MB-aligned source planes; ref_pad: the reference luma
-    padded by PAD, refu_pad / refv_pad the chroma padded by PAD // 2;
-    mv / sad: the ME result (qpel full-pel MVs); mvp: the ME predictor.
-    Returns dict(recon_y / _u / _v planes, blocks_z (mb_h,mb_w,16,16),
-    cbp (mb_h,mb_w), chroma_dc (mb_h,mb_w,2,4), chroma_ac
-    (mb_h,mb_w,2,4,16), cost = sad + lam * (mv bits + 1))."""
-    dev = y.device
+
+def _quad(top: int, left: int) -> int:
+    return 2 * (top >= 8) + (left >= 8)
+
+
+def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad):
+    """The inter predictions of every MB (x264_mb_mc, common/macroblock.c:
+    1122), as x264_tpu's stage 2 builds them: each partition of each
+    layout fetched as one block (mc_luma over the half-pel stack, mc_chroma
+    at half the size), the layout picked by ptype (0 16x16, 1 16x8, 2 8x16,
+    3 8x8). mv_quad: (mb_h, mb_w, 4, 2) the MV of each 8x8 quadrant; a
+    partition takes the MV of its top-left quadrant. Returns (pred_y
+    (mb_h,mb_w,16,16), pred_u, pred_v (mb_h,mb_w,8,8))."""
+    mb_h, mb_w = ptype.shape
+    ys, xs = ome.mb_origins(mb_h, mb_w, planes.device)
+    out = None
+    for pt, rects in enumerate(PART_RECTS):
+        if pt and not (ptype == pt).any():
+            continue
+        py = torch.empty((mb_h, mb_w, 16, 16), dtype=I32, device=ys.device)
+        pu, pv = (torch.empty((mb_h, mb_w, 8, 8), dtype=I32,
+                              device=ys.device) for _ in range(2))
+        for top, left, bh, bw in rects:
+            mv = mv_quad[:, :, _quad(top, left)]
+            py[:, :, top:top + bh, left:left + bw] = omc.mc_luma(
+                planes, ys + top, xs + left, mv, bh, bw)
+            for pc, cpad in ((pu, refu_pad), (pv, refv_pad)):
+                pc[:, :, top // 2:(top + bh) // 2,
+                   left // 2:(left + bw) // 2] = omc.mc_chroma(
+                    cpad, (ys + top) >> 1, (xs + left) >> 1, mv, bh // 2,
+                    bw // 2)
+        if out is None:
+            out = [py, pu, pv]
+        else:
+            m = (ptype == pt)[..., None, None]
+            out = [torch.where(m, new, old) for new, old in
+                   zip((py, pu, pv), out)]
+    return out
+
+
+def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
+                     refv_pad, ptype, mv_quad, qtab, decimate: bool):
+    """Plain version of K6: stage 2 of encode_p_body.
+
+    y / u / v: the MB-aligned source planes; planes: the (P, Hp, Wp)
+    half-pel stack of the reference luma (P = 1, the padded plane alone,
+    where every MV is full-pel); refu_pad / refv_pad the chroma padded by
+    PAD // 2; ptype (mb_h, mb_w) the partition type and mv_quad
+    (mb_h, mb_w, 4, 2) the quadrant MVs (partition_preds). Returns
+    dict(recon_y / _u / _v planes, blocks_z (mb_h,mb_w,16,16), cbp
+    (mb_h,mb_w), chroma_dc (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16))."""
     nK = mb_h * mb_w
-    ys = (torch.arange(mb_h, dtype=I32, device=dev)[:, None] * 16) \
-        .expand(mb_h, mb_w)
-    xs = (torch.arange(mb_w, dtype=I32, device=dev)[None, :] * 16) \
-        .expand(mb_h, mb_w)
-    pred_y = omc.mc_luma(ref_pad[None], ys, xs, mv, 16, 16).reshape(nK, 16,
-                                                                    16)
-    preds_c = [omc.mc_chroma(p, ys >> 1, xs >> 1, mv, 8, 8).reshape(nK, 8, 8)
-               for p in (refu_pad, refv_pad)]
+    preds = [p.reshape(nK, *p.shape[2:]) for p in
+             partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad)]
+    pred_y, preds_c = preds[0], preds[1:]
     fenc_c = [_tiles(u, 8), _tiles(v, 8)]
     ry, blocks_z, cbp = inter_luma_residual(_tiles(y, 16), pred_y, qtab,
                                             decimate)
@@ -162,7 +211,6 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, ref_pad, refu_pad,
         ac_kill = csc < 7
     ch = [intra.chroma_residual(f, p, qtab, "pc", ac_kill)
           for f, p in zip(fenc_c, preds_c)]
-    cost = sad + lam * (ome.mv_cost_bits(mv, mvp) + 1)
     return dict(
         recon_y=_untiles(ry, mb_h, mb_w),
         recon_u=_untiles(ch[0][0], mb_h, mb_w),
@@ -172,44 +220,44 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, ref_pad, refu_pad,
         chroma_dc=torch.stack([ch[0][1], ch[1][1]], 1).reshape(mb_h, mb_w,
                                                                2, 4),
         chroma_ac=torch.stack([ch[0][2], ch[1][2]], 1).reshape(mb_h, mb_w,
-                                                               2, 4, 16),
-        cost=cost.to(I32))
+                                                               2, 4, 16))
 
 
-def p_inter_mb(mb_h: int, mb_w: int, y, u, v, ref_pad, refu_pad, refv_pad,
-               mv, sad, mvp, qtab, lam: int, decimate: bool):
+def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
+               ptype, mv_quad, qtab, decimate: bool):
     """K6 `p_inter_mb`: the inter residual path of every MB.
 
-    Replaces x264_tpu/ops/mc.py:mc_luma (at full-pel) and mc_chroma,
+    Replaces x264_tpu/ops/mc.py:mc_luma and mc_chroma (the partitioned
+    fetch of encode_p_body's stage 2, inter.py:420-494),
     x264_tpu/encoder/inter.py:inter_luma_residual (with decimation) and
-    the chroma half of encode_p_body's stage 2. On CUDA tensors it runs
-    csrc/inter.cu, one CTA per MB over the whole frame in one launch; on
-    CPU tensors the plain version. Arguments and results as
-    p_inter_mb_plain."""
+    the chroma half of stage 2. On CUDA tensors it runs csrc/inter.cu, one
+    CTA per MB over the whole frame in one launch; on CPU tensors the
+    plain version. Arguments and results as p_inter_mb_plain."""
     if y.device.type == "cpu":
-        return p_inter_mb_plain(mb_h, mb_w, y, u, v, ref_pad, refu_pad,
-                                refv_pad, mv, sad, mvp, qtab, lam, decimate)
+        return p_inter_mb_plain(mb_h, mb_w, y, u, v, planes, refu_pad,
+                                refv_pad, ptype, mv_quad, qtab, decimate)
     dev = y.device
     H, W, P = mb_h * 16, mb_w * 16, omc.PAD
+    n_planes = planes.shape[0]
     for t, shape, name in (
             (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
             (v, (H // 2, W // 2), "v"),
-            (ref_pad, (H + 2 * P, W + 2 * P), "ref_pad"),
+            (planes, (n_planes, H + 2 * P, W + 2 * P), "planes"),
             (refu_pad, (H // 2 + P, W // 2 + P), "refu_pad"),
             (refv_pad, (H // 2 + P, W // 2 + P), "refv_pad"),
-            (mv, (mb_h, mb_w, 2), "mv"), (sad, (mb_h, mb_w), "sad"),
-            (mvp, (mb_h, mb_w, 2), "mvp")):
+            (ptype, (mb_h, mb_w), "ptype"),
+            (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad")):
         cuda.check(t, shape, I32, name)
     e = lambda *s: torch.empty(s, dtype=I32, device=dev)
     o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
              recon_v=e(H // 2, W // 2), blocks_z=e(mb_h, mb_w, 16, 16),
              cbp=e(mb_h, mb_w), chroma_dc=e(mb_h, mb_w, 2, 4),
-             chroma_ac=e(mb_h, mb_w, 2, 4, 16), cost=e(mb_h, mb_w))
-    ins = (y, u, v, ref_pad, refu_pad, refv_pad, mv, sad, mvp,
+             chroma_ac=e(mb_h, mb_w, 2, 4, 16))
+    ins = (y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad,
            pack_qtab_p(qtab))
-    cuda.launch("inter", "p_inter_mb", "p" * 18 + "iiii" + "p",
+    cuda.launch("inter", "p_inter_mb", "p" * 16 + "iiii" + "p",
                 *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
-                mb_h, mb_w, lam, int(decimate), cuda.stream(dev))
+                mb_h, mb_w, n_planes, int(decimate), cuda.stream(dev))
     p_inter_mb.launches += 1
     return o
 
@@ -357,23 +405,102 @@ intra_in_p.launches = 0
 
 
 # ------------------------------------------------------------ the body
+def _block_origins(mb_h: int, mb_w: int, offs, device):
+    """Stacked top-left (ys, xs) of one block per (dy, dx) in offs inside
+    every MB: (len(offs), mb_h, mb_w) int32 each."""
+    ys, xs = ome.mb_origins(mb_h, mb_w, device)
+    return (torch.stack([ys + dy for dy, _ in offs]),
+            torch.stack([xs + dx for _, dx in offs]))
+
+
+# the batched partition refinements of stage 1b: (block height, width,
+# the blocks' offsets in the MB, their rows of partition_fullpel's result)
+PART_LAYOUTS = ((8, 16, ((0, 0), (8, 0)), (0, 2)),
+                (16, 8, ((0, 0), (0, 8)), (2, 4)),
+                (8, 8, ((0, 0), (0, 8), (8, 0), (8, 8)), (4, 8)))
+# lambda * bits of each layout's mb_type beyond the 16x16's one bit: ue(1)
+# and ue(2) of 16x8 / 8x16 are 3 bits, P8x8's ue(3) 5 bits plus four
+# one-bit sub_mb_types
+PART_TYPE_BITS = (3, 3, 9)
+
+
+def partition_search(y, ref_pad, planes, mv_fp, mv16, cost16, lam: int,
+                     mvp_seed, me_range: int, steps, p8x8: bool):
+    """Stage 1b (inter_p16x8 / p8x16 / p8x8, encoder/analyse.c:1222-1404):
+    the full-pel window search of the partitions (K11), one batched
+    sub-pel refinement per layout (K10), and each MB's partition type of
+    least cost among [16x16, 16x8, 8x16, 8x8]. Returns (ptype, cost_inter,
+    mv_quad (mb_h, mb_w, 4, 2) the MV of each 8x8 quadrant)."""
+    mb_h, mb_w = mv_fp.shape[:2]
+    pf = ome.partition_fullpel(y, ref_pad, mv_fp, lam, mvp_seed, me_range,
+                               p8x8)
+    costs, mvs = [cost16], []
+    for (bh, bw, offs, (a, b)), extra in zip(
+            PART_LAYOUTS[:3 if p8x8 else 2], PART_TYPE_BITS):
+        ys, xs = _block_origins(mb_h, mb_w, offs, y.device)
+        mvp = mvp_seed.expand(len(offs), mb_h, mb_w, 2).contiguous()
+        mv, satd = ome.subpel_refine_blocks(y, planes, pf[a:b], lam, mvp,
+                                            ys, xs, bh, bw, steps)
+        costs.append(satd.sum(0, dtype=I32) + lam * (
+            ome.mv_cost_bits(mv, mvp).sum(0, dtype=I32) + extra))
+        mvs.append(mv)
+    costs = torch.stack(costs)
+    ptype = costs.argmin(0).to(I32)
+    cost_inter = costs.gather(0, ptype[None].long())[0]
+    # quadrant MVs of each layout: 16x8 [t t b b], 8x16 [l r l r]; no
+    # index tensor, whose copy to the card would block the host
+    layouts = [mv16[:, :, None].expand(mb_h, mb_w, 4, 2),
+               mvs[0].repeat_interleave(2, 0).permute(1, 2, 0, 3),
+               mvs[1].repeat(2, 1, 1, 1).permute(1, 2, 0, 3)]
+    if p8x8:
+        layouts.append(mvs[2].permute(1, 2, 0, 3))
+    mv_quad = layouts[0]
+    for pt in range(1, len(layouts)):
+        mv_quad = torch.where((ptype == pt)[..., None, None], layouts[pt],
+                              mv_quad)
+    return ptype, cost_inter, mv_quad.contiguous()
+
+
 def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
-                   ref_u, ref_v, qtab, lam: int, mvp_seed,
-                   decimate: bool) -> dict:
-    """Stages 1-3 of the P encode through kernels K5, K6 and K7, and the
-    merges of stage 4 (plain tensor glue). All planes int32 and
-    MB-aligned; ref_* the deblocked reference reconstruction; mvp_seed
-    (mb_h, mb_w, 2) the qpel ME predictors. Returns the merged syntax
-    planes, the merged pre-deblock reconstruction and the ME's MVs."""
+                   ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
+                   subpel_steps=(), parts: bool = False, p8x8: bool = False,
+                   chroma_me: bool = False) -> dict:
+    """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6
+    and K7, and the merges of stage 4 (plain tensor glue). All planes
+    int32 and MB-aligned; ref_* the deblocked reference reconstruction;
+    mvp_seed (mb_h, mb_w, 2) the qpel ME predictors. subpel_steps: () at
+    subme 1, (2,) at subme 2-3, (2, 1) at subme >= 4; parts / p8x8: the
+    16x8 / 8x16 and 8x8 partitions (only with sub-pel steps, as in
+    x264_tpu); chroma_me: the chroma re-rank of subme 5. Returns the
+    merged syntax planes, the merged pre-deblock reconstruction, the
+    16x16 MV (me_mv), the partition type and the quadrant MVs."""
     ref_pad = omc.pad_plane(ref_y.to(I32))
     refu_pad = omc.pad_plane(ref_u.to(I32), omc.PAD // 2)
     refv_pad = omc.pad_plane(ref_v.to(I32), omc.PAD // 2)
-    mv, sad = ome.hier_search(y, ref_pad, mb_h, mb_w, me_range, lam,
-                              mvp_seed)
-    it = p_inter_mb(mb_h, mb_w, y, u, v, ref_pad, refu_pad, refv_pad, mv,
-                    sad, mvp_seed, qtab, lam, decimate)
+    mv_fp, sad = ome.hier_search(y, ref_pad, mb_h, mb_w, me_range, lam,
+                                 mvp_seed)
+    if subpel_steps:
+        planes = omc.hpel_planes(ref_pad)
+        mv, satd = ome.subpel_refine(y, planes, mv_fp, lam, mvp_seed,
+                                     subpel_steps)
+        if chroma_me:
+            mv, satd = ome.chroma_rerank(y, planes, u, v, refu_pad,
+                                         refv_pad, mv, lam, mvp_seed, satd)
+    else:          # subme 1: full-pel only, plane 0 alone
+        planes, mv, satd = ref_pad[None], mv_fp, sad
+    cost16 = satd + lam * (ome.mv_cost_bits(mv, mvp_seed) + 1)
+    if parts and subpel_steps:
+        ptype, cost_inter, mv_quad = partition_search(
+            y, ref_pad, planes, mv_fp, mv, cost16, lam, mvp_seed, me_range,
+            subpel_steps, p8x8)
+    else:
+        ptype = torch.zeros((mb_h, mb_w), dtype=I32, device=y.device)
+        cost_inter = cost16
+        mv_quad = mv[:, :, None].expand(mb_h, mb_w, 4, 2).contiguous()
+    it = p_inter_mb(mb_h, mb_w, y, u, v, planes, refu_pad, refv_pad, ptype,
+                    mv_quad, qtab, decimate)
     ip = intra_in_p(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
-                    it["recon_v"], it["cost"], qtab, lam, decimate)
+                    it["recon_v"], cost_inter, qtab, lam, decimate)
     im = ip["intra_mb"]
     luma_blocks = torch.where(im[..., None, None], ip["luma_ac"],
                               it["blocks_z"])
@@ -392,28 +519,57 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                 modec=ip["modec"], luma_dc=ip["luma_dc"],
                 luma_blocks=luma_blocks, chroma_dc=chroma_dc,
                 chroma_ac=chroma_ac, cbp_luma_bits=cbp_luma_bits,
-                cbp_chroma=cbp_chroma, me_mv=mv)
+                cbp_chroma=cbp_chroma, me_mv=mv, ptype=ptype,
+                mv_quad=mv_quad)
 
 
 def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
     """Stage 4's syntax maps (plain half of kernel K8's first pass): the
     final per-4x4 ref / mv maps (intra: ref -1, mv 0), exact MV
-    prediction on them (predict_16x16, predict_pskip), P_Skip, the mvd
-    and its per-4x4 map (0 on skip and intra MBs), and the nnz map the
-    deblocker and the cbf contexts read."""
+    prediction on them (predict_16x16, predict_pskip and, per partition,
+    predict_16x8 / predict_8x16 / predict_p8x8), P_Skip (ptype 0 only),
+    the mvds (mvd, mvd1 of the second 16x8 / 8x16 partition, mvd_sub of
+    the 8x8 sub-blocks) and their per-4x4 map (0 on skip and intra MBs),
+    and the nnz map the deblocker and the cbf contexts read."""
     dev = front["intra_mb"].device
     im = front["intra_mb"]
-    mv = torch.where(im[..., None], 0, front["me_mv"]).to(I32)
+    im1, im2 = im[..., None], im[..., None, None]
+    pt = torch.where(im, 0, front["ptype"]).to(I32)
+    mv = torch.where(im1, 0, front["me_mv"]).to(I32)
+    mvq = torch.where(im2, 0, front["mv_quad"]).to(I32)
     rep = lambda t: t.repeat_interleave(4, 0).repeat_interleave(4, 1)
     ref4 = rep(torch.where(im, -1, 0).to(I32))
-    mv4 = rep(mv)
+    quad = torch.as_tensor(QUAD_OF_CELL, device=dev).long()
+    mv4 = mvq[:, :, quad].transpose(1, 2).reshape(mb_h * 4, mb_w * 4, 2)
     mvp16 = mvpred.predict_16x16(ref4, mv4)
     mv_skip = mvpred.predict_pskip(ref4, mv4)
-    mvd = torch.where(im[..., None], 0, mv - mvp16).to(I32)
+    mvp_t, mvp_b = mvpred.predict_16x8(ref4, mv4)
+    mvp_l, mvp_r = mvpred.predict_8x16(ref4, mv4)
+    mvp_sub = torch.stack(mvpred.predict_p8x8(ref4, mv4), 2)
+    is1, is2, is8 = (pt == 1)[..., None], (pt == 2)[..., None], pt == 3
+    mv_p0 = mvq[:, :, 0]
+    mv_p1 = torch.where(is1, mvq[:, :, 2], mvq[:, :, 1])
+    mvd = torch.where(is1, mv_p0 - mvp_t,
+                      torch.where(is2, mv_p0 - mvp_l, mv - mvp16))
+    mvd1 = torch.where(is1, mv_p1 - mvp_b, torch.where(is2, mv_p1 - mvp_r, 0))
+    mvd = torch.where(im1 | is8[..., None], 0, mvd).to(I32)
+    mvd1 = torch.where(is8[..., None], 0, mvd1).to(I32)
+    mvd_sub = torch.where(is8[..., None, None], mvq - mvp_sub, 0).to(I32)
+    mv_sub = torch.where(is8[..., None, None], mvq, 0).to(I32)
     cbp_l = front["cbp_luma_bits"]
-    skip = ~im & (cbp_l == 0) & (front["cbp_chroma"] == 0) \
+    skip = ~im & (pt == 0) & (cbp_l == 0) & (front["cbp_chroma"] == 0) \
         & (mv == mv_skip).all(-1)
-    mvd4 = rep(torch.where(skip[..., None], 0, mvd))
+    # per-4x4 mvd: the second partition's cells take mvd1, P8x8's cells
+    # their sub-block's mvd_sub; skip and intra MBs cache 0
+    br = torch.arange(4, device=dev)
+    in_p1 = ((pt == 1)[..., None, None] & (br[:, None] >= 2)) \
+        | ((pt == 2)[..., None, None] & (br[None, :] >= 2))
+    mvd_blk = torch.where(in_p1[..., None], mvd1[:, :, None, None],
+                          mvd[:, :, None, None])
+    mvd_blk = torch.where(is8[..., None, None, None], mvd_sub[:, :, quad],
+                          mvd_blk)
+    mvd_blk = torch.where((skip | im)[..., None, None, None], 0, mvd_blk)
+    mvd4 = mvd_blk.transpose(1, 2).reshape(mb_h * 4, mb_w * 4, 2).to(I32)
     nnz_cnt = (front["luma_blocks"] != 0).sum(-1, dtype=I32)   # z-scan
     grp = torch.arange(16, dtype=I32, device=dev) // 4
     blk_coded = (cbp_l[..., None] >> grp) & 1
@@ -423,26 +579,27 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
     nnz_r[..., R] = nnz_z
     nnz4 = nnz_r.reshape(mb_h, mb_w, 4, 4).transpose(1, 2) \
         .reshape(mb_h * 4, mb_w * 4)
-    return dict(mv=mv, mvd=mvd, mvd4=mvd4, skip=skip, nnz4=nnz4, ref4=ref4,
+    return dict(mv=mv, mvd=mvd, mvd1=mvd1, ptype=pt, mv_sub=mv_sub,
+                mvd_sub=mvd_sub, mvd4=mvd4, skip=skip, nnz4=nnz4, ref4=ref4,
                 mv4=mv4)
 
 
 def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
-                  ref_u, ref_v, qtab, lam: int, mvp_seed,
-                  decimate: bool) -> dict:
+                  ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
+                  subpel_steps=(), parts: bool = False, p8x8: bool = False,
+                  chroma_me: bool = False) -> dict:
     """One P frame (pre-deblock) with the keys of x264_tpu's
-    encode_p_body(subpel_steps=(), parts=False, n_refs=1, t8=False,
-    rd=False, qp_map=None): stages 1-3 (encode_p_front) and the syntax
-    maps (p_maps_plain). The card's pipeline runs the maps inside kernel
-    K8 instead (entropy/cabac_planes.py:cabac_p_ops)."""
+    encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs=1,
+    t8=False, rd=False, qp_map=None): stages 1-3 (encode_p_front) and the
+    syntax maps (p_maps_plain). The card's pipeline runs the maps inside
+    kernel K8 instead (entropy/cabac_planes.py:cabac_p_ops)."""
     front = encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y, ref_u,
-                           ref_v, qtab, lam, mvp_seed, decimate)
+                           ref_v, qtab, lam, mvp_seed, decimate,
+                           subpel_steps, parts, p8x8, chroma_me)
     out = dict(front, **p_maps_plain(front, mb_h, mb_w))
-    del out["me_mv"]
-    # the partition, 8x8-transform and multi-reference fields stay zero
+    del out["me_mv"], out["mv_quad"]
+    # the 8x8-transform and multi-reference fields stay zero
     z = lambda *s, dt=I32: torch.zeros(s, dtype=dt, device=y.device)
     out.update(t8_mb=z(mb_h, mb_w, dt=torch.bool),
-               luma8_z=z(mb_h, mb_w, 4, 64), mvd1=z(mb_h, mb_w, 2),
-               ptype=z(mb_h, mb_w), mv_sub=z(mb_h, mb_w, 4, 2),
-               mvd_sub=z(mb_h, mb_w, 4, 2), ref_idx=z(mb_h, mb_w))
+               luma8_z=z(mb_h, mb_w, 4, 64), ref_idx=z(mb_h, mb_w))
     return out

@@ -1,6 +1,7 @@
 """Exact MV prediction over the final block-level maps — plain PyTorch
 twin of x264_tpu/encoder/mvpred.py (median3, _pad_maps, _gather,
-_predict, _slots_16x16, predict_16x16, predict_pskip).
+_predict, _slots_16x16, predict_16x16, predict_pskip, predict_16x8,
+predict_8x16, predict_p8x8).
 
 The reference predicts MVs through its per-MB neighbour cache
 (x264_mb_predict_mv_16x16 / _pskip, common/macroblock.c:28-153). Once a
@@ -11,9 +12,10 @@ frame's MVs are final, prediction becomes gathers on 4x4-granular maps:
   mv4:  (4*mb_h, 4*mb_w, 2) int32 qpel MV per 4x4 block (0 for intra)
 
 A is the left block, B the top, C the top-right (top + partition
-width), D the top-left; C falls back to D where C is unavailable. The
-16x8 / 8x16 / 8x8 predictors belong to the partition slice. In the port
-the same rules run in kernel K8's first pass (csrc/cabac_ops.cu).
+width), D the top-left; C falls back to D where C is unavailable, or
+where the scan8 cache slot is not written yet in raster order (the
+bottom 16x8 partition's C, common/macroblock.c:41-45). In the port the
+same rules run in kernel K8's first pass (csrc/cabac_ops.cu).
 """
 
 from __future__ import annotations
@@ -98,3 +100,78 @@ def predict_pskip(ref4, mv4):
     force0 = (ref_a == -2) | (ref_b == -2) | a_zero | b_zero
     mvp16 = predict_16x16(ref4, mv4)
     return torch.where(force0[..., None], 0, mvp16)
+
+
+def _c_or_d(refp, mvp, r, c, rd, cd):
+    """The C slot at (r, c), or D at (rd, cd) where C is unavailable."""
+    ref_c, mv_c = _gather(refp, mvp, r, c)
+    ref_d, mv_d = _gather(refp, mvp, rd, cd)
+    use_d = ref_c == -2
+    return (torch.where(use_d, ref_d, ref_c),
+            torch.where(use_d[..., None], mv_d, mv_c))
+
+
+def predict_16x8(ref4, mv4, i_ref=0):
+    """MVPs of the two 16x8 partitions (x264_mb_predict_mv D_16x8: part 0
+    takes B outright when its reference matches, part 1 takes A).
+    Returns (mvp0, mvp1), each (mb_h, mb_w, 2)."""
+    mb_h, mb_w = ref4.shape[0] // 4, ref4.shape[1] // 4
+    refp, mvp = _pad_maps(ref4, mv4)
+    gy, gx = _grid(mb_h, mb_w, refp.device)
+    ref_a, mv_a, ref_b, mv_b, ref_c, mv_c = _slots_16x16(refp, mvp, mb_h,
+                                                         mb_w)
+    med0 = _predict(ref_a, mv_a, ref_b, mv_b, ref_c, mv_c, i_ref)
+    mvp0 = torch.where((ref_b == i_ref)[..., None], mv_b, med0)
+    # part 1 (rows 2-3): A = (gy+2, gx-1); B = (gy+1, gx) inside the MB;
+    # its C slot is never written in raster order, so C = D = (gy+1, gx-1)
+    ref_a1, mv_a1 = _gather(refp, mvp, gy + 2, gx - 1)
+    ref_b1, mv_b1 = _gather(refp, mvp, gy + 1, gx)
+    ref_c1, mv_c1 = _gather(refp, mvp, gy + 1, gx - 1)
+    med1 = _predict(ref_a1, mv_a1, ref_b1, mv_b1, ref_c1, mv_c1, i_ref)
+    mvp1 = torch.where((ref_a1 == i_ref)[..., None], mv_a1, med1)
+    return mvp0, mvp1
+
+
+def predict_8x16(ref4, mv4, i_ref=0):
+    """MVPs of the two 8x16 partitions (x264_mb_predict_mv D_8x16: part 0
+    takes A outright when its reference matches, part 1 takes C).
+    Returns (mvp0, mvp1)."""
+    mb_h, mb_w = ref4.shape[0] // 4, ref4.shape[1] // 4
+    refp, mvp = _pad_maps(ref4, mv4)
+    gy, gx = _grid(mb_h, mb_w, refp.device)
+    # part 0 (columns 0-1): C = (gy-1, gx+2) in the MB above
+    ref_a, mv_a = _gather(refp, mvp, gy, gx - 1)
+    ref_b, mv_b = _gather(refp, mvp, gy - 1, gx)
+    ref_c, mv_c = _c_or_d(refp, mvp, gy - 1, gx + 2, gy - 1, gx - 1)
+    med0 = _predict(ref_a, mv_a, ref_b, mv_b, ref_c, mv_c, i_ref)
+    mvp0 = torch.where((ref_a == i_ref)[..., None], mv_a, med0)
+    # part 1 (columns 2-3): A = (gy, gx+1) inside the MB; C the top-right
+    # slot (gy-1, gx+4), D = (gy-1, gx+1)
+    ref_a1, mv_a1 = _gather(refp, mvp, gy, gx + 1)
+    ref_b1, mv_b1 = _gather(refp, mvp, gy - 1, gx + 2)
+    ref_c1, mv_c1 = _c_or_d(refp, mvp, gy - 1, gx + 4, gy - 1, gx + 1)
+    med1 = _predict(ref_a1, mv_a1, ref_b1, mv_b1, ref_c1, mv_c1, i_ref)
+    mvp1 = torch.where((ref_c1 == i_ref)[..., None], mv_c1, med1)
+    return mvp0, mvp1
+
+
+def predict_p8x8(ref4, mv4, i_ref=0):
+    """MVPs of the four 8x8 sub-blocks of a P_8x8 MB (x264_mb_predict_mv
+    with i_width 2 at scan8 0 / 2 / 8 / 10: the median rule, no
+    directional early-outs). In-MB neighbours are earlier sub-blocks
+    only; sub-block 3's C slot is never written, so it takes D. Returns
+    four (mb_h, mb_w, 2) tensors in quadrant order TL, TR, BL, BR."""
+    mb_h, mb_w = ref4.shape[0] // 4, ref4.shape[1] // 4
+    refp, mvp = _pad_maps(ref4, mv4)
+    gy, gx = _grid(mb_h, mb_w, refp.device)
+    out = []
+    for k, (oy, ox) in enumerate(((0, 0), (0, 2), (2, 0), (2, 2))):
+        by, bx = gy + oy, gx + ox
+        ref_a, mv_a = _gather(refp, mvp, by, bx - 1)
+        ref_b, mv_b = _gather(refp, mvp, by - 1, bx)
+        if k == 3:
+            ref_c, mv_c = _gather(refp, mvp, by - 1, bx - 1)
+        else:
+            ref_c, mv_c = _c_or_d(refp, mvp, by - 1, bx + 2, by - 1, bx - 1)
+        out.append(_predict(ref_a, mv_a, ref_b, mv_b, ref_c, mv_c, i_ref))
+    return out

@@ -1,6 +1,7 @@
-"""CABAC bin-operation stream of an intra slice — plain PyTorch twin of
-x264_tpu/entropy/cabac_planes.py (i16_slice_ops + compact_ops) and the
-wrapper of its CUDA kernels (csrc/cabac_ops.cu, kernel K3).
+"""CABAC bin-operation streams of I and P slices — plain PyTorch twin of
+x264_tpu/entropy/cabac_planes.py (i16_slice_ops, p_slice_ops,
+compact_ops) and the wrappers of its CUDA kernels (csrc/cabac_ops.cu,
+kernels K3 and K8).
 
 The MB syntax of a whole slice becomes a stream of packed bin ops in
 syntax order; the serial arithmetic coder (native/cabac.c) consumes it.
@@ -11,9 +12,11 @@ as realised in encoder/cabac.c (x264_cabac_mb_type:64,
 cbf_ctxidxinc:508, block_residual_write_cabac:584).
 
 Op packing (uint32, carried as int32 bit patterns): kind << 29 | b << 17
-| a (see entropy/cabac.py). This slice codes I16x16 + I4x4 MBs at one
-QP; the 8x8 transform (cat 5, transform_size_8x8_flag), I8x8 modes and
-mb_qp_delta values from AQ come with later slices.
+| a (see entropy/cabac.py). The port codes I16x16 + I4x4 MBs, and in P
+slices P_L0 16x16 / 16x8 / 8x16, P_8x8 (L0 8x8 sub-blocks), P_Skip and
+I16x16 MBs with one reference, at one QP; the 8x8 transform (cat 5,
+transform_size_8x8_flag), I8x8 modes, ref_idx and mb_qp_delta values
+from AQ come with later slices.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ PAD_OP = KIND_PAD << 29
 # op-stream capacity per MB: an I MB emits at most 537 live ops (header
 # 8, pred modes 64, header2 10, luma DC 18, 16 luma blocks of 18, chroma
 # DC 2 x 6, chroma AC 8 x 17, terminal 1), as x264_tpu sizes it; a P MB
-# at most 464 (skip, mb_type, mvd, cbp and dqp 27, 16 luma blocks of 18,
-# chroma 148, terminal 1)
+# at most 508, a P_8x8 one (skip 1, mb_type 3, sub_mb_type 4, four mvds
+# of 2 x 7, cbp 6, dqp 1; 16 luma blocks of 18, chroma 148, terminal 1)
 OPS_PER_MB = 560
 
 
@@ -305,9 +308,10 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                 t8_mode: bool = False):
     """Packed op planes of a whole P CABAC slice (x264_macroblock_write_
     cabac P branch + x264_cabac_mb_skip, encoder/cabac.c:300-306,
-    781-1025) for 16x16 inter, P_Skip and I16x16 MBs with one reference,
-    no 8x8 transform and one QP. `out` holds the keys of
-    encoder/inter.py:encode_p_body. Returns the flat int64 slot stream."""
+    781-1025) for P_L0 16x16 / 16x8 / 8x16, P_8x8 (L0 8x8 sub-blocks),
+    P_Skip and I16x16 MBs with one reference, no 8x8 transform and one
+    QP. `out` holds the keys of encoder/inter.py:encode_p_body. Returns
+    the flat int64 slot stream."""
     if n_refs != 1 or t8_mode:
         raise NotImplementedError(
             "multiple references and the 8x8 transform in P slices come "
@@ -324,6 +328,10 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     chroma_dc = out["chroma_dc"].reshape(nmb, 2, 4)
     chroma_ac = out["chroma_ac"].reshape(nmb, 2, 4, 16)
     mvd = out["mvd"].reshape(nmb, 2).to(I64)
+    mvd1 = out["mvd1"].reshape(nmb, 2).to(I64)
+    mvd_sub = out["mvd_sub"].reshape(nmb, 4, 2).to(I64)
+    ptype_g = out["ptype"].reshape(mb_h, mb_w)
+    ptype_f = ptype_g.reshape(nmb)
     mode16 = out["mode16"].reshape(nmb).to(I64)
     modec = torch.where(intra, out["modec"].reshape(mb_h, mb_w), 0).to(I64)
     mvd4 = out["mvd4"].to(I64)
@@ -333,13 +341,19 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     cbp_lf, cbp_cf = cbp_l.reshape(nmb), cbp_c.reshape(nmb)
     dec = lambda ctx, b: op(KIND_DECISION, ctx, b)
 
-    # mb_skip_flag (ctx 11 + non-skip neighbours), then mb_type: P_L0
-    # 16x16 = (14,0)(15,0)(16,0); intra prefix (14,1) + I16 suffix
+    # mb_skip_flag (ctx 11 + non-skip neighbours), then mb_type
+    # (x264_cabac_mb_type P branch, encoder/cabac.c:86-113): P_L0 16x16 =
+    # (14,0)(15,0)(16,0), 16x8 = (14,0)(15,1)(17,1), 8x16 =
+    # (14,0)(15,1)(17,0), P_8x8 = (14,0)(15,0)(16,1); intra prefix (14,1)
+    # + I16 suffix
+    p8_f = ptype_f == 3
+    split = (ptype_f == 1) | (ptype_f == 2)
     a, b = _nbr_grids((~skip).to(I64), 0)
     slots = [dec((11 + a + b).reshape(nmb), skip_f),
              _sel(coded, dec(14, intra_f)),
-             _sel(inter_f, dec(15, 0)),
-             _sel(inter_f, dec(16, 0)),
+             _sel(inter_f, dec(15, split)),
+             _sel(inter_f & ~split, dec(16, p8_f)),
+             _sel(inter_f & split, dec(17, ptype_f == 1)),
              _sel(intra_f, dec(17, 1)),
              _sel(intra_f, torch.full((nmb,), KIND_TERMINAL << 29,
                                       dtype=I64, device=dev)),
@@ -355,13 +369,31 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     slots += [_sel(intra_f, dec(cctx, cm > 0)),
               _sel(intra_f & (cm > 0), dec(67, cm > 1)),
               _sel(intra_f & (cm > 1), dec(67, cm > 2))]
-    # mvd: ctxInc from the left / top 4x4 neighbours' |mvd|
-    # (x264_cabac_mb_mvd_cpn amvd, encoder/cabac.c:397-401)
-    for comp, base in ((0, 40), (1, 47)):
-        ma, mb_ = _nbr_grids(mvd4[..., comp].abs(), 0)
-        amvd = (ma + mb_)[::4, ::4].reshape(nmb)
-        inc = (amvd > 2).to(I64) + (amvd > 32).to(I64)
-        slots += _mvd_component_ops(mvd[:, comp], base, inc, inter_f)
+    # sub_mb_type x4 (x264_cabac_mb_sub_p_partition: D_L0_8x8 is one '1'
+    # bin at ctx 21; encoder/cabac.c:309-312,877-880)
+    slots += [_sel(inter_f & p8_f, dec(21, 1))] * 4
+    # mvd per partition in syntax order; ctxInc from the partition's left
+    # / top 4x4 neighbours' |mvd| (x264_cabac_mb_mvd_cpn amvd,
+    # encoder/cabac.c:397-401). A partition's first 4x4 block: part 0 at
+    # (4Y, 4X); part 1 at (4Y+2, 4X) for 16x8, (4Y, 4X+2) for 8x16 and
+    # P8x8 sub-block 1; sub-blocks 2 / 3 at (4Y+2, 4X) / (4Y+2, 4X+2)
+    amvd = [_nbr_grids(mvd4[..., comp].abs(), 0) for comp in (0, 1)]
+    r1 = torch.where(ptype_g == 1, 2, 0)
+    c1 = torch.where((ptype_g == 2) | (ptype_g == 3), 2, 0)
+    parts = ((torch.where(p8_f[:, None], mvd_sub[:, 0], mvd), inter_f, 0, 0),
+             (torch.where(p8_f[:, None], mvd_sub[:, 1], mvd1),
+              inter_f & (ptype_f != 0), r1, c1),
+             (mvd_sub[:, 2], inter_f & p8_f, 2, 0),
+             (mvd_sub[:, 3], inter_f & p8_f, 2, 2))
+    gy = torch.arange(mb_h, device=dev)[:, None] * 4
+    gx = torch.arange(mb_w, device=dev)[None, :] * 4
+    for mvdp, act, dr, dc in parts:
+        r, c = (gy + dr).expand(mb_h, mb_w), (gx + dc).expand(mb_h, mb_w)
+        for comp, base in ((0, 40), (1, 47)):
+            ma, mb_ = amvd[comp]
+            am = (ma[r, c] + mb_[r, c]).reshape(nmb)
+            inc = (am > 2).to(I64) + (am > 32).to(I64)
+            slots += _mvd_component_ops(mvdp[:, comp], base, inc, act)
     # coded_block_pattern (x264_cabac_mb_cbp_luma / _chroma)
     cbp_all = torch.where(skip, 0, cbp_l)
     cbl_l, cbl_t = _nbr_grids(cbp_all, -1)
@@ -476,7 +508,8 @@ i_slice_ops.launches = 0
 def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int):
     """Plain version of K8: the syntax maps of encoder/inter.py's
     p_maps_plain, then compact_ops(p_slice_ops(...)). Returns (maps,
-    ops, n_ops) with maps = dict(mv, mvd, mvd4, skip, nnz4, ref4, mv4)."""
+    ops, n_ops) with maps = dict(mv, mvd, mvd1, ptype, mv_sub, mvd_sub,
+    mvd4, skip, nnz4, ref4, mv4)."""
     from ..encoder.inter import p_maps_plain
     maps = p_maps_plain(front, mb_h, mb_w)
     ops, n = compact_ops(p_slice_ops({**front, **maps}, mb_h, mb_w),
@@ -485,31 +518,34 @@ def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int):
 
 
 def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
-                t8_mode: bool = False, parts: bool = False):
+                t8_mode: bool = False):
     """K8 `cabac_p_ops`: stage 4 of the P encode and the compacted CABAC
     op stream of the P slice.
 
-    Replaces x264_tpu/encoder/mvpred.py:predict_16x16 / predict_pskip,
-    the skip / mvd / map derivation of encoder/inter.py:encode_p_body
-    (stage 4) and x264_tpu/entropy/cabac_planes.py:p_slice_ops followed
-    by compact_ops. `front` holds the merged planes of
-    encoder/inter.py:encode_p_front. On CUDA tensors it runs
-    csrc/cabac_ops.cu: pass A (one thread per MB: MV prediction, skip,
-    mvd and the 4x4 maps), pass B (one thread per MB emits its live ops),
-    then K3's exclusive scan and scatter; on CPU tensors the plain
-    version. Partitions (ptype != 0), multiple references and the 8x8
-    transform raise. Returns as cabac_p_ops_plain; ops entries at and
-    past n_ops are unspecified on the card."""
-    if n_refs != 1 or t8_mode or parts:
+    Replaces x264_tpu/encoder/mvpred.py:predict_16x16 / predict_pskip /
+    predict_16x8 / predict_8x16 / predict_p8x8, the skip / mvd / map
+    derivation of encoder/inter.py:encode_p_body (stage 4) and
+    x264_tpu/entropy/cabac_planes.py:p_slice_ops followed by compact_ops.
+    `front` holds the merged planes of encoder/inter.py:encode_p_front.
+    On CUDA tensors it runs csrc/cabac_ops.cu: pass A (one thread per MB:
+    the MV prediction of every partition, skip, the mvds and the 4x4
+    maps), pass B (one thread per MB emits its live ops), then K3's
+    exclusive scan and scatter; on CPU tensors the plain version.
+    Multiple references and the 8x8 transform raise. Returns as
+    cabac_p_ops_plain; ops entries at and past n_ops are unspecified on
+    the card."""
+    if n_refs != 1 or t8_mode:
         raise NotImplementedError(
-            "partitions, multiple references and the 8x8 transform in P "
-            "slices come with later slices of the port")
+            "multiple references and the 8x8 transform in P slices come "
+            "with later slices of the port")
     if front["intra_mb"].device.type == "cpu":
         return cabac_p_ops_plain(front, mb_h, mb_w)
     dev = front["intra_mb"].device
     nmb = mb_h * mb_w
     shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
                   me_mv=((mb_h, mb_w, 2), I32),
+                  ptype=((mb_h, mb_w), I32),
+                  mv_quad=((mb_h, mb_w, 4, 2), I32),
                   mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
                   cbp_luma_bits=((mb_h, mb_w), I32),
                   cbp_chroma=((mb_h, mb_w), I32),
@@ -521,13 +557,15 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
         cuda.check(front[k], shape, dt, k)
     e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
     maps = dict(skip=e(mb_h, mb_w, dt=torch.bool), mv=e(mb_h, mb_w, 2),
-                mvd=e(mb_h, mb_w, 2), mvd4=e(mb_h * 4, mb_w * 4, 2),
+                mvd=e(mb_h, mb_w, 2), mvd1=e(mb_h, mb_w, 2),
+                ptype=e(mb_h, mb_w), mv_sub=e(mb_h, mb_w, 4, 2),
+                mvd_sub=e(mb_h, mb_w, 4, 2), mvd4=e(mb_h * 4, mb_w * 4, 2),
                 nnz4=e(mb_h * 4, mb_w * 4), ref4=e(mb_h * 4, mb_w * 4),
                 mv4=e(mb_h * 4, mb_w * 4, 2))
     scratch = e(nmb * OPS_PER_MB)
     counts, offsets = e(nmb), e(nmb + 1)
     ops = e(capacity(nmb))
-    cuda.launch("cabac_ops", "cabac_p_ops", "p" * 21 + "ii" + "p",
+    cuda.launch("cabac_ops", "cabac_p_ops", "p" * 27 + "ii" + "p",
                 *[front[k].data_ptr() for k in shapes],
                 *[maps[k].data_ptr() for k in maps], scratch.data_ptr(),
                 counts.data_ptr(), offsets.data_ptr(), ops.data_ptr(),

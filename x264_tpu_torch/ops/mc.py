@@ -1,5 +1,6 @@
-"""Motion compensation fetches (common/mc.c) — plain PyTorch twins of
-x264_tpu/ops/mc.py's pad_plane, mc_luma and mc_chroma.
+"""Motion compensation (common/mc.c) — plain PyTorch twins of
+x264_tpu/ops/mc.py's pad_plane, hpel_planes, mc_luma and mc_chroma, and
+the wrapper of the half-pel filter's CUDA kernel (csrc/mc.cu, kernel K9).
 
 The reference serves a quarter-pel luma position as the rounding average
 of two samples of its four half-pel planes [fpel, h, v, c] (mc_luma with
@@ -8,9 +9,11 @@ bilinear filter (mc_chroma, common/mc.c:205). Planes are edge-padded by
 PAD = 32 luma / 16 chroma samples (common/frame.h:27-31), which equals
 the spec's per-tap coordinate clamping.
 
-This slice encodes full-pel MVs only (subme 1): luma reads plane 0, the
-padded reference itself, and the half-pel planes are not built. The
-fetches run inside kernel K6 (csrc/inter.cu); these functions are its
+At subme 1 every MV is full-pel and luma reads plane 0, the padded
+reference itself, so the half-pel planes are not built. At subme 2-5
+hpel_planes (K9) builds them once per reference frame, and the sub-pel
+search (ops/me.py) and the partitioned fetch of kernel K6
+(csrc/inter.cu) read them; mc_luma and mc_chroma are K6's and K12's
 plain building blocks.
 """
 
@@ -18,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import cuda
 
 I32 = torch.int32
 
@@ -40,6 +45,51 @@ def pad_plane(plane, pad: int = PAD):
     rows = torch.arange(-pad, h + pad, device=plane.device).clamp(0, h - 1)
     cols = torch.arange(-pad, w + pad, device=plane.device).clamp(0, w - 1)
     return plane[rows][:, cols]
+
+
+def _tap6(a, dim: int):
+    """Unrounded 6-tap (1, -5, 20, 20, -5, 1) at the half positions along
+    `dim`; the length shrinks by 5."""
+    ln = a.shape[dim] - 5
+    s = lambda k: a.narrow(dim, k, ln)
+    return s(0) + s(5) - 5 * (s(1) + s(4)) + 20 * (s(2) + s(3))
+
+
+def hpel_planes_plain(padded):
+    """Plain version of K9: (Hp, Wp) padded plane -> (4, Hp, Wp) int32
+    stack [fpel, h, v, c] (hpel_filter, common/mc.c:133-155; spec
+    8.4.2.2.1). The input is edge-padded by 3 more samples; h and v round
+    their taps by (x + 16) >> 5, and c filters the *unrounded* vertical
+    taps horizontally, (x + 512) >> 10; all three clip to 0..255."""
+    padded = padded.to(I32)
+    p = pad_plane(padded, 3)
+    hp, wp = padded.shape
+    h = ((_tap6(p, 1)[3:3 + hp, 1:1 + wp] + 16) >> 5).clamp(0, 255)
+    v_ext = _tap6(p, 0)[1:1 + hp]                  # (hp, wp + 6)
+    v = ((v_ext[:, 3:3 + wp] + 16) >> 5).clamp(0, 255)
+    c = ((_tap6(v_ext, 1)[:, 1:1 + wp] + 512) >> 10).clamp(0, 255)
+    return torch.stack([padded, h, v, c])
+
+
+def hpel_planes(padded):
+    """K9 `hpel_planes`: the half-pel planes of a padded reference.
+
+    Replaces x264_tpu/ops/mc.py:hpel_planes. On a CUDA tensor it runs
+    csrc/mc.cu (one launch; each CTA stages a 32x32 tile and its 3-sample
+    apron in shared memory); on a CPU tensor the plain version. Arguments
+    and result as hpel_planes_plain."""
+    if padded.device.type == "cpu":
+        return hpel_planes_plain(padded)
+    hp, wp = padded.shape
+    cuda.check(padded, (hp, wp), I32, "padded")
+    out = torch.empty((4, hp, wp), dtype=I32, device=padded.device)
+    cuda.launch("mc", "hpel_planes", "ppiip", padded.data_ptr(),
+                out.data_ptr(), hp, wp, cuda.stream(padded.device))
+    hpel_planes.launches += 1
+    return out
+
+
+hpel_planes.launches = 0
 
 
 def ds_start(start, dim: int, size: int):
@@ -66,8 +116,8 @@ def blocks(stack, p, y0, x0, bh: int, bw: int):
 def mc_luma(planes, ys, xs, mvs, bh: int, bw: int):
     """Batched quarter-pel luma fetch (mc_luma, common/mc.c:160).
 
-    planes: (P, Hp, Wp) half-pel stack of x264_tpu's hpel_planes (P = 4;
-    a full-pel-only caller may pass P = 1: every full-pel MV reads plane
+    planes: (P, Hp, Wp) half-pel stack of hpel_planes (P = 4; a
+    full-pel-only caller may pass P = 1: every full-pel MV reads plane
     0). ys / xs: (...,) block top-left in unpadded coordinates; mvs:
     (..., 2) quarter-pel (x, y). Returns (..., bh, bw) int32."""
     mvx, mvy = mvs[..., 0], mvs[..., 1]

@@ -1,6 +1,7 @@
-"""Full-pel motion estimation — plain PyTorch twin of x264_tpu/ops/me.py
-(se_bits, mv_cost_bits, _half_plane, hier_search) and the wrapper of its
-CUDA kernel (csrc/me.cu, kernel K5).
+"""Motion estimation — plain PyTorch twin of x264_tpu/ops/me.py (se_bits,
+mv_cost_bits, _half_plane, hier_search, subpel_refine_blocks,
+subpel_refine, partition_fullpel, chroma_rerank) and the wrappers of its
+CUDA kernels: K5 (csrc/me.cu) and K10-K12 (csrc/subpel.cu).
 
 The reference walks its DIA / HEX / UMH patterns MB by MB
 (x264_me_search_ref, encoder/me.c:156). x264_tpu re-expresses the UMH
@@ -9,6 +10,14 @@ resolution planes, then three small full-resolution windows around the
 coarse winner, the predictor and the zero vector. The MV cost is lambda
 times the se-Golomb length of the quarter-pel mvd against a per-MB
 predictor (the previous frame's MV field).
+
+At subme >= 2 the full-pel winner is refined over the half-pel stack of
+ops/mc.py:hpel_planes, SATD-scored (refine_subpel, encoder/me.c:680): 9
+half-pel candidates at subme 2-3, all 49 quarter-pel candidates within
++-3 at subme >= 4. The 16x8 / 8x16 / 8x8 partitions search a 7x7
+full-pel window around the 16x16 winner, then refine the same way; at
+subme >= 5 a 5-point quarter-pel diamond re-ranks the 16x16 winner with
+the chroma SATD added (b_chroma_me, encoder/me.c:61-66).
 """
 
 from __future__ import annotations
@@ -16,12 +25,20 @@ from __future__ import annotations
 import torch
 
 from .. import cuda
+from . import mc as omc
+from . import pixel as opix
 from .mc import PAD, blocks, pad_plane
 
 I32 = torch.int32
 
 # the three refinement windows of stage 2: (centre, half-width m)
 WINDOW_M = (3, 2, 1)
+# partition_fullpel's window half-width and the order of its outputs:
+# 16x8 top / bottom, 8x16 left / right, then the P8x8 quadrants
+PART_M = 3
+PART_KEYS = ("t", "b", "l", "r", "q0", "q1", "q2", "q3")
+# chroma_rerank's quarter-pel diamond, in update order
+DIAMOND = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 
 
 def se_bits(v):
@@ -159,3 +176,272 @@ def hier_search(cur, ref_pad, mb_h: int, mb_w: int, me_range: int,
 
 
 hier_search.launches = 0
+
+
+# ---------------------------------------------------------------- K10
+def subpel_offsets(steps):
+    """The candidate offsets (dx, dy) in qpel of a sub-pel refinement, dy
+    outer and dx inner (argmin keeps the first of equal costs): (2,) the
+    9 half-pel ones (subme 2-3), (2, 1) all 49 within +-3 (subme >= 4)."""
+    steps = tuple(steps)
+    if steps == (2,):
+        return [(dx, dy) for dy in (-2, 0, 2) for dx in (-2, 0, 2)]
+    if steps == (2, 1):
+        return [(dx, dy) for dy in range(-3, 4) for dx in range(-3, 4)]
+    raise ValueError(f"sub-pel steps {steps}: expected (2,) or (2, 1)")
+
+
+def subpel_refine_blocks_plain(cur, planes, mv_qpel, lam: int, mvp_qpel,
+                               ys, xs, bh: int, bw: int, steps):
+    """Plain version of K10 (refine_subpel, encoder/me.c:680).
+
+    cur: the (H, W) source plane; the blocks are its (bh, bw) blocks at
+    top-left (ys, xs), any leading shape. planes: the (4, Hp, Wp) half-pel
+    stack; mv_qpel: the blocks' full-pel MVs in qpel units; mvp_qpel their
+    predictors. Every candidate of a block shares one full-pel start, so
+    one (bh + 3, bw + 3) window of each plane (its start taken as
+    dynamic_slice takes it) serves them all; a candidate's prediction is
+    the rounding average of two plane samples (the hpel_ref0/1 scheme of
+    mc_luma). Cost SATD + lam * mv bits; the first minimum wins. Returns
+    (mv, satd) at the refined position, int32."""
+    dev = planes.device
+    cur_blocks = blocks(cur.to(I32)[None], torch.zeros_like(ys), ys, xs,
+                        bh, bw)
+    by = ys + (mv_qpel[..., 1] >> 2) - 1 + PAD
+    bx = xs + (mv_qpel[..., 0] >> 2) - 1 + PAD
+    win = [blocks(planes, torch.full_like(by, k), by, bx, bh + 3, bw + 3)
+           for k in range(4)]
+    satds, mvs = [], []
+    for ox, oy in subpel_offsets(steps):
+        fx, fy = ox & 3, oy & 3
+        q = (fy << 2) | fx
+        p0, p1 = int(omc._HPEL_REF0[q]), int(omc._HPEL_REF1[q])
+        iy, ix = 1 + (oy >> 2), 1 + (ox >> 2)
+        ay = iy + (fy == 3)
+        bx1 = ix + (fx == 3)
+        a = win[p0][..., ay:ay + bh, ix:ix + bw]
+        b = win[p1][..., iy:iy + bh, bx1:bx1 + bw]
+        satds.append(opix.satd(cur_blocks, (a + b + 1) >> 1))
+        mvs.append(mv_qpel + torch.tensor([ox, oy], dtype=I32, device=dev))
+    satd = torch.stack(satds)
+    mvs = torch.stack(mvs)
+    best = (satd + lam * mv_cost_bits(mvs, mvp_qpel[None])).argmin(0)
+    best_mv = mvs.gather(0, best[None, ..., None].expand(
+        1, *best.shape, 2))[0]
+    return best_mv, satd.gather(0, best[None])[0]
+
+
+def subpel_refine_blocks(cur, planes, mv_qpel, lam: int, mvp_qpel, ys, xs,
+                         bh: int, bw: int, steps):
+    """K10 `subpel_refine`: the sub-pel refinement of a batch of blocks.
+
+    Replaces x264_tpu/ops/me.py:subpel_refine_blocks (and subpel_refine,
+    its 16x16 case). On CUDA tensors it runs csrc/subpel.cu, one CTA per
+    block: the block and its four (bh + 3, bw + 3) plane windows sit in
+    shared memory and the 9 or 49 candidates are scored from there; on
+    CPU tensors the plain version. Arguments and results as
+    subpel_refine_blocks_plain."""
+    if cur.device.type == "cpu":
+        return subpel_refine_blocks_plain(cur, planes, mv_qpel, lam,
+                                          mvp_qpel, ys, xs, bh, bw, steps)
+    dev = cur.device
+    n_cand = len(subpel_offsets(steps))
+    if (bh, bw) not in ((16, 16), (8, 16), (16, 8), (8, 8)):
+        raise ValueError(f"subpel_refine: block {bh}x{bw} not supported")
+    H, W = cur.shape
+    lead = tuple(ys.shape)
+    cuda.check(cur, (H, W), I32, "cur")
+    cuda.check(planes, (4, H + 2 * PAD, W + 2 * PAD), I32, "planes")
+    for t, shape, name in ((mv_qpel, lead + (2,), "mv_qpel"),
+                           (mvp_qpel, lead + (2,), "mvp_qpel"),
+                           (ys, lead, "ys"), (xs, lead, "xs")):
+        cuda.check(t, shape, I32, name)
+    n = ys.numel()
+    mv = torch.empty(lead + (2,), dtype=I32, device=dev)
+    satd = torch.empty(lead, dtype=I32, device=dev)
+    cuda.launch("subpel", "subpel_refine", "pppppppp" + "iiiiiii" + "p",
+                cur.data_ptr(), planes.data_ptr(), mv_qpel.data_ptr(),
+                mvp_qpel.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+                mv.data_ptr(), satd.data_ptr(), n, H, W, bh, bw, lam,
+                int(n_cand == 49), cuda.stream(dev))
+    subpel_refine_blocks.launches += 1
+    return mv, satd
+
+
+subpel_refine_blocks.launches = 0
+
+
+def mb_origins(mb_h: int, mb_w: int, device):
+    """Top-left pixel (ys, xs) of every MB, (mb_h, mb_w) int32 each."""
+    ys = torch.arange(mb_h, dtype=I32, device=device)[:, None] * 16
+    xs = torch.arange(mb_w, dtype=I32, device=device)[None, :] * 16
+    return (ys.expand(mb_h, mb_w).contiguous(),
+            xs.expand(mb_h, mb_w).contiguous())
+
+
+def subpel_refine(cur, planes, mv_qpel, lam: int, mvp_qpel, steps):
+    """The 16x16 case of subpel_refine_blocks: every MB of the (H, W)
+    source plane `cur`, MVs and predictors (mb_h, mb_w, 2)."""
+    ys, xs = mb_origins(*mv_qpel.shape[:2], cur.device)
+    return subpel_refine_blocks(cur, planes, mv_qpel, lam, mvp_qpel, ys, xs,
+                                16, 16, steps)
+
+
+# ---------------------------------------------------------------- K11
+def partition_fullpel_plain(cur, ref_pad, mv16_qpel, lam: int, mvp_qpel,
+                            me_range: int, with_8x8: bool):
+    """Plain version of K11: the best full-pel MVs of the 16x8 and 8x16
+    partitions (and, with_8x8, of the four 8x8 quadrants) of every MB,
+    searched in a 7x7 window around the 16x16 full-pel winner (the
+    reference seeds its partition searches from the MB result,
+    encoder/analyse.c:1274-1404). The centre clamps to
+    +-min(R, PAD - 4); each offset's |diff| is reduced into the partition
+    sums, and each sum takes the first minimum of sad + lam * mv bits
+    against mvp_qpel. cur: (H, W); ref_pad the padded reference luma;
+    mv16_qpel / mvp_qpel (mb_h, mb_w, 2). Returns (4 or 8, mb_h, mb_w, 2)
+    qpel MVs in PART_KEYS order."""
+    mb_h, mb_w = mv16_qpel.shape[:2]
+    dev = cur.device
+    m = PART_M
+    ys, xs = mb_origins(mb_h, mb_w, dev)
+    cur_tiles = cur.to(I32).reshape(mb_h, 16, mb_w, 16).transpose(1, 2)
+    lim = min(me_range, PAD - m - 1)
+    c = (mv16_qpel >> 2).clamp(-lim, lim)
+    wn = 16 + 2 * m
+    win = _win_slices(ref_pad.to(I32), ys + c[..., 1] - m + PAD,
+                      xs + c[..., 0] - m + PAD, wn, wn)
+    sums = {k: [] for k in PART_KEYS[:8 if with_8x8 else 4]}
+    for oy in range(2 * m + 1):
+        for ox in range(2 * m + 1):
+            d = (cur_tiles - win[..., oy:oy + 16, ox:ox + 16]).abs()
+            hs = d.reshape(mb_h, mb_w, 2, 8, 2, 8).sum((-3, -1), dtype=I32)
+            sums["t"].append(hs[..., 0, :].sum(-1, dtype=I32))
+            sums["b"].append(hs[..., 1, :].sum(-1, dtype=I32))
+            sums["l"].append(hs[..., :, 0].sum(-1, dtype=I32))
+            sums["r"].append(hs[..., :, 1].sum(-1, dtype=I32))
+            if with_8x8:
+                for k in range(4):
+                    sums[f"q{k}"].append(hs[..., k >> 1, k & 1])
+    offs = torch.tensor([(ox, oy) for oy in range(-m, m + 1)
+                         for ox in range(-m, m + 1)], dtype=I32, device=dev)
+    mvs = (c[None] + offs[:, None, None, :]) * 4
+    bits = lam * mv_cost_bits(mvs, mvp_qpel[None])
+    out = []
+    for k, s in sums.items():
+        best = (torch.stack(s) + bits).argmin(0)
+        out.append(mvs.gather(0, best[None, ..., None].expand(
+            1, mb_h, mb_w, 2))[0])
+    return torch.stack(out)
+
+
+def partition_fullpel(cur, ref_pad, mv16_qpel, lam: int, mvp_qpel,
+                      me_range: int, with_8x8: bool):
+    """K11 `part_fullpel`: the full-pel partition search of every MB.
+
+    Replaces x264_tpu/ops/me.py:partition_fullpel. On CUDA tensors it
+    runs csrc/subpel.cu, one CTA per MB with the 22x22 window and the
+    16x16 source in shared memory; on CPU tensors the plain version.
+    Arguments and result as partition_fullpel_plain."""
+    if cur.device.type == "cpu":
+        return partition_fullpel_plain(cur, ref_pad, mv16_qpel, lam,
+                                       mvp_qpel, me_range, with_8x8)
+    dev = cur.device
+    mb_h, mb_w = mv16_qpel.shape[:2]
+    H, W = mb_h * 16, mb_w * 16
+    cuda.check(cur, (H, W), I32, "cur")
+    cuda.check(ref_pad, (H + 2 * PAD, W + 2 * PAD), I32, "ref_pad")
+    cuda.check(mv16_qpel, (mb_h, mb_w, 2), I32, "mv16_qpel")
+    cuda.check(mvp_qpel, (mb_h, mb_w, 2), I32, "mvp_qpel")
+    nk = 8 if with_8x8 else 4
+    out = torch.empty((nk, mb_h, mb_w, 2), dtype=I32, device=dev)
+    cuda.launch("subpel", "part_fullpel", "ppppp" + "iiiiii" + "p",
+                cur.data_ptr(), ref_pad.data_ptr(), mv16_qpel.data_ptr(),
+                mvp_qpel.data_ptr(), out.data_ptr(), mb_h, mb_w, me_range,
+                PAD, lam, nk, cuda.stream(dev))
+    partition_fullpel.launches += 1
+    return out
+
+
+partition_fullpel.launches = 0
+
+
+# ---------------------------------------------------------------- K12
+def chroma_rerank_plain(cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv_qpel,
+                        lam: int, mvp_qpel, center_satd):
+    """Plain version of K12 (b_chroma_me: the refine_subpel chroma term,
+    encoder/me.c:61-66, which the reference applies in its 4-neighbour
+    qpel diamond at subme >= 5): the five candidates of DIAMOND around
+    the sub-pel winner, each scored luma SATD + U / V SATD (through
+    mc_luma and mc_chroma) + lam * mv bits, in order with a strict <.
+    The centre's luma SATD is center_satd (K10's). Returns (mv, the
+    *luma* SATD at the chosen MV): the kept cost stays in luma units, a
+    deviation x264_tpu documents and the port keeps. cur / cur_u /
+    cur_v: the source planes; cu_pad / cv_pad the chroma references
+    padded by PAD // 2; mv_qpel, mvp_qpel (mb_h, mb_w, 2)."""
+    mb_h, mb_w = mv_qpel.shape[:2]
+    dev = cur.device
+    ys, xs = mb_origins(mb_h, mb_w, dev)
+    tiles = lambda p, n: p.to(I32).reshape(mb_h, n, mb_w, n).transpose(1, 2)
+    ct, cu, cv = tiles(cur, 16), tiles(cur_u, 8), tiles(cur_v, 8)
+    best_cost = best_mv = best_l = None
+    for ox, oy in DIAMOND:
+        mv = mv_qpel + torch.tensor([ox, oy], dtype=I32, device=dev)
+        if ox == 0 and oy == 0:
+            lsatd = center_satd
+        else:
+            lsatd = opix.satd(ct, omc.mc_luma(planes, ys, xs, mv, 16, 16))
+        csatd = (opix.satd(cu, omc.mc_chroma(cu_pad, ys >> 1, xs >> 1, mv,
+                                             8, 8))
+                 + opix.satd(cv, omc.mc_chroma(cv_pad, ys >> 1, xs >> 1, mv,
+                                               8, 8)))
+        cost = lsatd + csatd + lam * mv_cost_bits(mv, mvp_qpel)
+        if best_cost is None:
+            best_cost, best_mv, best_l = cost, mv, lsatd
+        else:
+            upd = cost < best_cost
+            best_cost = torch.where(upd, cost, best_cost)
+            best_mv = torch.where(upd[..., None], mv, best_mv)
+            best_l = torch.where(upd, lsatd, best_l)
+    return best_mv, best_l
+
+
+def chroma_rerank(cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv_qpel,
+                  lam: int, mvp_qpel, center_satd):
+    """K12 `chroma_rerank`: the chroma-ME re-rank of every MB.
+
+    Replaces x264_tpu/ops/me.py:chroma_rerank. The candidates' phases vary
+    per MB, so on CUDA tensors csrc/subpel.cu fetches each MB's five luma
+    and chroma predictions into shared memory (one CTA per MB) and scores
+    them there; on CPU tensors the plain version. Arguments and results
+    as chroma_rerank_plain."""
+    if cur.device.type == "cpu":
+        return chroma_rerank_plain(cur, planes, cur_u, cur_v, cu_pad,
+                                   cv_pad, mv_qpel, lam, mvp_qpel,
+                                   center_satd)
+    dev = cur.device
+    mb_h, mb_w = mv_qpel.shape[:2]
+    H, W = mb_h * 16, mb_w * 16
+    for t, shape, name in (
+            (cur, (H, W), "cur"), (planes, (4, H + 2 * PAD, W + 2 * PAD),
+                                   "planes"),
+            (cur_u, (H // 2, W // 2), "cur_u"),
+            (cur_v, (H // 2, W // 2), "cur_v"),
+            (cu_pad, (H // 2 + PAD, W // 2 + PAD), "cu_pad"),
+            (cv_pad, (H // 2 + PAD, W // 2 + PAD), "cv_pad"),
+            (mv_qpel, (mb_h, mb_w, 2), "mv_qpel"),
+            (mvp_qpel, (mb_h, mb_w, 2), "mvp_qpel"),
+            (center_satd, (mb_h, mb_w), "center_satd")):
+        cuda.check(t, shape, I32, name)
+    mv = torch.empty((mb_h, mb_w, 2), dtype=I32, device=dev)
+    satd = torch.empty((mb_h, mb_w), dtype=I32, device=dev)
+    cuda.launch("subpel", "chroma_rerank", "p" * 11 + "iii" + "p",
+                cur.data_ptr(), planes.data_ptr(), cur_u.data_ptr(),
+                cur_v.data_ptr(), cu_pad.data_ptr(), cv_pad.data_ptr(),
+                mv_qpel.data_ptr(), mvp_qpel.data_ptr(),
+                center_satd.data_ptr(), mv.data_ptr(), satd.data_ptr(),
+                mb_h, mb_w, lam, cuda.stream(dev))
+    chroma_rerank.launches += 1
+    return mv, satd
+
+
+chroma_rerank.launches = 0
