@@ -34,13 +34,27 @@ Phases; any failure exits non-zero before the result line:
      keyint 250, subme 1, one reference, scenecut 0, no B frames,
      otherwise as in 4. K1-K8's launch counts must rise, and frames 0-2
      (IDR, P, P) must equal the CPU run's payloads and recons;
-  6. the slice's main path, IPPP at subme 5: sixteen 1920x1080 frames as
-     in 5 but at subme 5, with the 16x8 / 8x16 / P8x8 partitions and
-     chroma ME. Every kernel's launch count (K1-K12) must rise, frames
-     0-2 must equal the CPU run's, and a torch.profiler trace splits the
-     device time by kernel.
-The line before the last is the JSON `kernels` record; the last line is
-{"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
+  6. IPPP at subme 5: sixteen 1920x1080 frames as in 5 but at subme 5,
+     with the 16x8 / 8x16 / P8x8 partitions and chroma ME. K1-K12's
+     launch counts must rise, frames 0-2 must equal the CPU run's, and a
+     torch.profiler trace splits the device time by kernel;
+  7. the slice's main path, IPPP at subme 6 with the scenecut lookahead:
+     32 1920x1080 frames, subme 6 (the RD ladder, psy-RD 1.0), scenecut
+     40, keyint 250, keyint_min 25, otherwise as in 6; frames 26-31 are a
+     second picture (make_frames' pan over a smooth texture of its own,
+     seed 1: cut_frames), so the lookahead must call an IDR at frame 26
+     and nowhere else but frame 0. Every kernel's launch count (K1-K15)
+     must rise, frames 0-2 must equal the CPU run's, every frame's two
+     lookahead sums must equal their plain versions', and the phase
+     reports fps, the median encode(), a P frame's host CABAC, the
+     profiler's device split and the host's wait on the lookahead per
+     frame.
+Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
+1080p, on frame 1 against frame 0's recon and against the 30%-gray
+reference, and K14 / K15 on a pair of frames of one scene and on a pair
+across the cut. The line before the last is the JSON `kernels` record;
+the last line is {"ok": true, "device": {...}}. Needs one CUDA card,
+nvcc, and triton.
 """
 
 from __future__ import annotations
@@ -59,6 +73,8 @@ QP = 26
 N_INTRA = 4                    # frames of the all-intra main path
 N_IPPP = 8                     # frames of the IPPP path at subme 1
 N_SUBPEL = 16                  # frames of the IPPP path at subme 5
+N_RD = 32                      # frames of the subme-6 + scenecut path
+CUT = 26                       # its first frame of the second picture
 N_CHECK = 3                    # IPPP frames held against the CPU run
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
@@ -96,6 +112,17 @@ K10_OPS_PER_CAND_4X4 = 190
 K11_OPS_PER_MB = 49 * 256 * 3
 K12_OPS_PER_MB = 4 * 256 * 10 + 5 * 128 * 12 + 5 * 24 * 150
 K6_SUBPEL_OPS_PER_MB = K6_OPS_PER_MB + 256 * 12
+# K13 per MB: 26 level walks of up to 16 steps (~12 ops each), the 384
+# samples' SSD terms and pixel sums, 32 4x4 Hadamards for the psy energy;
+# K7 under RD adds 27 walks, the SSDs and 16 Hadamards to sweep 0's MBs;
+# K14 per output sample: four loads, the clamps and the rounded mean;
+# K15 per 8x8 block: (2r+1)^2 candidates of 64 |a - b| sums (3 ops a
+# sample), 9 + 3 8x8 SATDs (~520 ops each) and the staging
+K13_OPS_PER_MB = 26 * 16 * 12 + 384 * 5 + 32 * 130
+K7_RD_OPS_PER_MB = 27 * 16 * 12 + 384 * 5 + 16 * 130
+K14_OPS_PER_SAMPLE = 12
+K15_OPS_PER_CAND_SAMPLE = 3
+K15_OPS_PER_BLOCK = 12 * 520 + 2_000
 
 
 def fail(msg: str) -> None:
@@ -103,11 +130,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def make_frames(w: int, h: int, n: int, frame_cls):
-    """bench.py's synthetic source: static texture + noise, global pan."""
-    rng = np.random.default_rng(0)
+def make_frames(w: int, h: int, n: int, frame_cls, seed: int = 0,
+                base=None):
+    """bench.py's synthetic source: static texture + noise, global pan;
+    base: another static texture than bench.py's."""
+    rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
-    base = ((xx // 3 + yy // 2) % 200).astype(np.int32)
+    if base is None:
+        base = ((xx // 3 + yy // 2) % 200).astype(np.int32)
     noise = rng.integers(0, 24, (h + 32, w + 2 * n + 32))
     frames = []
     for t in range(n):
@@ -119,18 +149,31 @@ def make_frames(w: int, h: int, n: int, frame_cls):
     return frames
 
 
+def cut_frames(w: int, h: int, n: int, frame_cls):
+    """The phase-7 source: make_frames' first CUT frames, then a second
+    picture from seed 1 over a smooth texture of its own (a slow diagonal
+    ramp), cheap to intra-code and far from the first, panning the same
+    way."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    second = make_frames(w, h, n, frame_cls, seed=1,
+                         base=(40 + xx // 12 + yy // 9).astype(np.int32))
+    return make_frames(w, h, n, frame_cls)[:CUT] + second[CUT:]
+
+
 def params(EncoderParams, frame_parallel: int, keyint: int = 1,
-           subme: int = 1):
-    """All-intra at keyint 1; else the IPPP slice: fixed GOP, one
-    reference, no B frames, at `subme` (the default partitions and
-    chroma ME)."""
+           subme: int = 1, scenecut: int = 0):
+    """All-intra at keyint 1; else the IPPP slice: one reference, no B
+    frames, at `subme` (the default partitions, chroma ME and, at subme
+    6, the RD ladder with psy-RD), with a fixed GOP (scenecut 0) or the
+    scenecut lookahead at keyint_min 25."""
     p = EncoderParams(i_width=W, i_height=H, i_keyint_max=keyint,
                       i_log_level=0, i_frame_parallel=frame_parallel)
     p.rc.i_rc_method = 0            # CQP
     p.rc.i_qp_constant = QP
     p.analyse.b_transform_8x8 = False
     if keyint > 1:
-        p.i_scenecut_threshold = 0
+        p.i_scenecut_threshold = scenecut
+        p.i_keyint_min = 25
         p.analyse.i_subpel_refine = subme
         p.i_frame_reference = 1
         p.i_bframe = 0
@@ -209,10 +252,11 @@ def drive(enc, frames):
 
 
 def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
-                what: str, subme: int = 1) -> None:
+                what: str, subme: int = 1, scenecut: int = 0) -> None:
     """The first n frames of a card run against Encoder(device="cpu")."""
     cpu = x264_tpu_torch.Encoder(
-        params(x264_tpu_torch.EncoderParams, 1, keyint, subme), device="cpu")
+        params(x264_tpu_torch.EncoderParams, 1, keyint, subme, scenecut),
+        device="cpu")
     if cpu.headers() != header:
         fail(f"{what}: headers differ between the card and the CPU")
     for i in range(n):
@@ -272,18 +316,19 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("p_inter_mb_kernel", "K6"), ("sweep_kernel", "K7"),
                  ("decide_kernel", "K7"), ("hpel_kernel", "K9"),
                  ("subpel_kernel", "K10"), ("part_kernel", "K11"),
-                 ("rerank_kernel", "K12"))
+                 ("rerank_kernel", "K12"), ("rd_inter_kernel", "K13"),
+                 ("lowres_kernel", "K14"), ("cost_kernel", "K15"))
 
 
 def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
-                 subme: int) -> None:
+                 subme: int, scenecut: int = 0) -> None:
     """Device time by kernel over n steady IPPP frames, from a
     torch.profiler trace of the card (CUPTI sees the ctypes launches
     too): per frame, each kernel's share, PyTorch's glue, the busy sum
     and the host wall; the idle share is 1 - busy / wall."""
     from torch.profiler import ProfilerActivity, profile
     enc = x264_tpu_torch.Encoder(
-        params(x264_tpu_torch.EncoderParams, 3, 250, subme))
+        params(x264_tpu_torch.EncoderParams, 3, 250, subme, scenecut))
     enc.headers()
     for f in frames[:n_warm]:
         enc.encode(f)
@@ -311,7 +356,8 @@ def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
         return
     busy = sum(by.values())
     parts = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by.items()))
-    print(f"device split at subme {subme} over {n} frames (profiled; the "
+    print(f"device split at subme {subme} scenecut {scenecut} over {n} "
+          f"frames (profiled; the "
           f"{len(frames[:n_warm])} frames before are not in it, the flush "
           f"is): per frame ms "
           f"{parts}; busy {busy / n:.3f} ms of {wall / n:.3f} ms wall, "
@@ -319,14 +365,17 @@ def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
 
 
 def ippp_report(done, summary, st, fps, med, n: int, subme: int,
-                smi_line: str, nmb: int, extra: str = "") -> None:
-    """Check an IPPP run's frame types and print its end-to-end line."""
+                smi_line: str, nmb: int, extra: str = "",
+                idrs=(0,)) -> None:
+    """Check an IPPP run's frame types (IDRs at `idrs` only) and print its
+    end-to-end line."""
     types = [e.frame_type for e in done]
-    if types != ["IDR"] + ["P"] * (n - 1):
+    if types != ["IDR" if i in idrs else "P" for i in range(n)]:
         fail(f"IPPP subme {subme} frame types {types}")
-    p_bytes = [len(e.payload) for e in done[1:]]
-    n_p = n - 1                     # the IDR's MBs are all intra
-    p_intra, p_skip = (st.mb_intra - nmb) / n_p, st.mb_skip / n_p
+    p_bytes = [len(e.payload) for i, e in enumerate(done) if i not in idrs]
+    n_p = n - len(idrs)             # the IDRs' MBs are all intra
+    p_intra = (st.mb_intra - len(idrs) * nmb) / n_p
+    p_skip = st.mb_skip / n_p
     print(f"IPPP path: {n} frames {W}x{H} keyint 250 subme {subme} ref 1 "
           f"CQP {QP} CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
           f"IDR {len(done[0].payload)} bytes, P {statistics.mean(p_bytes):.0f}"
@@ -344,7 +393,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a card")
     import x264_tpu_torch
     from x264_tpu_torch import cuda, native, tables
-    from x264_tpu_torch.encoder import inter, intra, pipeline, stats
+    from x264_tpu_torch.encoder import inter, intra, lookahead, pipeline
+    from x264_tpu_torch.encoder import ratecontrol, stats
     from x264_tpu_torch.encoder.core import pad_plane
     from x264_tpu_torch.entropy import cabac as ecabac
     from x264_tpu_torch.entropy import cabac_planes
@@ -808,6 +858,150 @@ def main() -> None:
           f"{n_ops5} ops into {len(payload5)} bytes {cabac5:.3f} ms",
           flush=True)
 
+    # K13 rd_inter and K7 with the RD decision (subme 6, psy-RD 1.0) on
+    # frame 1 against frame 0's recon and against the gray-masked
+    # reference; each kernel's arguments are those of encode_p_front's own
+    # calls at subme 6
+    qtab_rd = inter.make_qtab_p(QP, tables.chroma_qp(QP, 0), dev, rd_idc=0,
+                                f_psy_rd=1.0)
+
+    def rd_front(ref):
+        """encode_p_front at subme 6 on frame 1 against ref, with the
+        arguments of its rd_inter and intra_in_p calls."""
+        seen, kept = {}, {n: getattr(inter, n)
+                          for n in ("rd_inter", "intra_in_p")}
+
+        def spy(name):
+            def call(*a, **k):
+                seen[name] = (a, k)
+                return kept[name](*a, **k)
+            call.launches = kept[name].launches   # the wrapper counts here
+            return call
+
+        for n in kept:
+            setattr(inter, n, spy(n))
+        front = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, *ref,
+                                     qtab_rd, lam, mvp0, True, (2, 1), True,
+                                     True, True, True)
+        for n, f in kept.items():
+            f.launches = getattr(inter, n).launches
+            setattr(inter, n, f)
+        return front, seen
+
+    rd_ms = {}
+    for ref, tag in (((ry, ru, rv), "frame 1 on frame 0"),
+                     (mixed, "frame 1 on the 30%-gray reference")):
+        front6, seen = rd_front(ref)
+        a13, a7 = seen["rd_inter"][0], seen["intra_in_p"][0]
+        if len(a7) != 13 or a7[12] is None:
+            fail("encode_p_front at subme 6 did not pass K7 the RD costs")
+        k13, n13 = counted(inter.rd_inter, *a13)
+        p13 = inter.rd_inter_plain(*a13)
+        if not all(torch.equal(a, b) for a, b in zip(k13, p13)):
+            fail(f"K13 rd_inter ({tag}) differs from its plain version")
+        err13 = 0.0
+        k7r, n7r = counted(inter.intra_in_p, *a7)
+        err7r = exact(f"K7 intra_in_p with RD ({tag})", k7r,
+                      inter.intra_in_p_plain(*a7))
+        satd_im = inter.intra_in_p(*a7[:12])["intra_mb"]
+        rd_im = k7r["intra_mb"]
+        to_i, to_p = int((rd_im & ~satd_im).sum()), int((satd_im & ~rd_im).sum())
+        print(f"RD kernels ({tag}): exact; {int(rd_im.sum())} intra MBs "
+              f"under RD, {int(satd_im.sum())} under the SATD decision "
+              f"({to_i} go intra and {to_p} inter by RD alone); launches "
+              f"per frame K13 {n13}, K7 {n7r}", flush=True)
+        if tag.startswith("frame 1 on frame 0"):
+            rd_ms.update(
+                k13=event_ms(lambda: inter.rd_inter(*a13), 10),
+                pl13=event_ms(lambda: inter.rd_inter_plain(*a13), 1),
+                k7=event_ms(lambda: inter.intra_in_p(*a7), 10),
+                pl7=event_ms(lambda: inter.intra_in_p_plain(*a7), 1),
+                a13=a13, a7=a7, k13_out=k13, k7_out=k7r, err13=err13,
+                err7=err7r, front=front6)
+        elif int(rd_im.sum()) < nmb // 50 or to_i + to_p == 0:
+            fail(f"the gray-masked reference sent {int(rd_im.sum())} MBs "
+                 f"intra under RD, {to_i + to_p} decided otherwise than by "
+                 f"SATD: the RD decision did not run on many MBs")
+    a13, a7 = rd_ms["a13"], rd_ms["a7"]
+    it13 = a13[5]
+    record("rd_inter", "cuda", "x264_tpu_torch/csrc/rdcost.cu",
+           "x264_tpu/encoder/inter.py:498", rd_ms["err13"], rd_ms["k13"],
+           rd_ms["pl13"],
+           nbytes(*a13[2:5], *(it13[k] for k in (
+               "recon_y", "recon_u", "recon_v", "blocks_z", "chroma_dc",
+               "chroma_ac")), *a13[6:9], qtab_rd["rdtab"],
+                  *rd_ms["k13_out"]), K13_OPS_PER_MB * nmb)
+    n_intra_rd = int(rd_ms["k7_out"]["intra_mb"].sum())
+    # K7's record: the RD decision of the main path; the SATD decision's
+    # times (phase 3's subme-1 frame) beside it
+    satd7 = rec["intra_in_p"]
+    record("intra_in_p", "cuda", "x264_tpu_torch/csrc/intra_p.cu",
+           "x264_tpu/encoder/inter.py:596", rd_ms["err7"], rd_ms["k7"],
+           rd_ms["pl7"],
+           nbytes(*a7[2:9], *a7[12], qtab_rd["rdtab"],
+                  *rd_ms["k7_out"].values()),
+           K7_OPS_PER_MB_SWEEP * (nmb + 2 * n_intra_rd)
+           + K7_RD_OPS_PER_MB * nmb)
+    rec["intra_in_p"].update(ms_satd=satd7["ms"],
+                             plain_ms_satd=satd7["plain_ms"],
+                             bound_ms_satd=satd7["bound_ms"])
+    # the host CABAC of that P frame at subme 6 (frame 1 on frame 0)
+    _, ops6, n6 = cabac_planes.cabac_p_ops(rd_ms["front"], mb_h, mb_w)
+    n6 = int(n6)
+    t = time.perf_counter()
+    payload6, _ = ecabac.encode_ops(ctab.init_states(False, QP, 0),
+                                    ops6[:n6].cpu().numpy().view(np.uint32), 0)
+    cabac6 = (time.perf_counter() - t) * 1e3
+    print(f"P frame at subme 6 on frame 0's recon: host CABAC of {n6} ops "
+          f"into {len(payload6)} bytes {cabac6:.3f} ms; K13 "
+          f"{rd_ms['k13']:.3f} ms, K7 with RD {rd_ms['k7']:.3f} ms "
+          f"({n_intra_rd} intra MBs)", flush=True)
+
+    # K14 lowres_planes and K15 lowres_cost: frame 0 -> frame 1 (one scene)
+    # and the last frame of phase 7's first picture -> its second picture
+    cut = cut_frames(W, H, N_RD, x264_tpu_torch.Frame)
+
+    def luma(f):
+        return torch.as_tensor(pad_plane(f.y, mb_h * 16, mb_w * 16),
+                               device=dev).to(torch.int32)
+
+    la_y = [luma(f) for f in (frames[0], frames[1], cut[CUT - 1], cut[CUT])]
+    bh, bw = lookahead.block_grid(H, W)
+    r_la = max(4, min(12, 16 // 2))         # the default i_me_range 16
+    lows = []
+    for yy in la_y:
+        (k14, n14) = counted(lookahead.lowres_planes, yy, H, W)
+        err14 = exact("K14 lowres_planes", [k14],
+                      [lookahead.lowres_planes_plain(yy, H, W)])
+        lows.append(k14)
+    err15 = 0
+    la_pairs = (((None, 0), "the first frame"), ((0, 1), "one scene"),
+                ((2, 3), "across the cut"))
+    for (a, b), tag in la_pairs:
+        prev = None if a is None else lows[a]
+        k15, n15 = counted(lookahead.lowres_cost, lows[b], prev, bh, bw, r_la)
+        p15 = lookahead.lowres_cost_plain(lows[b], prev, bh, bw, r_la)
+        err15 = max(err15, exact(f"K15 lowres_cost ({tag})",
+                                 [t for t in k15 if t is not None],
+                                 [t for t in p15 if t is not None]))
+        isum, psum = k15[0].tolist()
+        print(f"lookahead ({tag}): exact; icost {isum}, pcost {psum} "
+              f"({psum / isum:.4f} of icost)", flush=True)
+    ms14 = event_ms(lambda: lookahead.lowres_planes(la_y[0], H, W), 20)
+    pl14 = event_ms(lambda: lookahead.lowres_planes_plain(la_y[0], H, W), 3)
+    record("lowres_planes", "cuda", "x264_tpu_torch/csrc/lookahead.cu",
+           "x264_tpu/encoder/lookahead.py:58", err14, ms14, pl14,
+           4 * H * W + nbytes(lows[0]), K14_OPS_PER_SAMPLE * lows[0].numel())
+    ms15 = event_ms(lambda: lookahead.lowres_cost(lows[1], lows[0], bh, bw,
+                                                  r_la), 10)
+    pl15 = event_ms(lambda: lookahead.lowres_cost_plain(lows[1], lows[0], bh,
+                                                        bw, r_la), 1)
+    record("lowres_cost", "cuda", "x264_tpu_torch/csrc/lookahead.cu",
+           "x264_tpu/encoder/lookahead.py:216", err15, ms15, pl15,
+           nbytes(lows[1][0], lows[0]) + 2 * 4 * bh * bw + 8,
+           K15_OPS_PER_CAND_SAMPLE * (2 * r_la + 1) ** 2 * 64 * bh * bw
+           + K15_OPS_PER_BLOCK * bh * bw)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -819,18 +1013,23 @@ def main() -> None:
                 "hpel_planes": mc.hpel_planes,
                 "subpel_refine": me.subpel_refine_blocks,
                 "part_fullpel": me.partition_fullpel,
-                "chroma_rerank": me.chroma_rerank}
+                "chroma_rerank": me.chroma_rerank,
+                "rd_inter": inter.rd_inter,
+                "lowres_planes": lookahead.lowres_planes,
+                "lowres_cost": lookahead.lowres_cost}
 
-    def main_path(keyint: int, n: int, what: str, subme: int = 1):
-        """Encoder on the first n frames at 1080p, the launch counts set
-        to 0 just before and read just after; returns (frames, summary,
-        launches, header, fps, median encode() ms)."""
+    def main_path(keyint: int, n: int, what: str, subme: int = 1,
+                  scenecut: int = 0, src=None):
+        """Encoder on the first n frames of src (make_frames' by default)
+        at 1080p, the launch counts set to 0 just before and read just
+        after; returns (frames, summary, launches, header, fps, median
+        encode() ms, the encoder)."""
         enc = x264_tpu_torch.Encoder(
-            params(x264_tpu_torch.EncoderParams, 3, keyint, subme))
+            params(x264_tpu_torch.EncoderParams, 3, keyint, subme, scenecut))
         header = enc.headers()
         for w in wrappers.values():
             w.launches = 0
-        done, wall, call_ms = drive(enc, frames[:n])
+        done, wall, call_ms = drive(enc, (src or frames)[:n])
         launches = {k: w.launches for k, w in wrappers.items()}
         summary = enc.close()
         if len(done) != n:
@@ -839,7 +1038,7 @@ def main() -> None:
             fail(f"{what}: metrics are not finite")
         print(f"{what} launches: {json.dumps(launches)}", flush=True)
         return done, summary, launches, header, n / wall, \
-            statistics.median(call_ms[2:]), enc.stats
+            statistics.median(call_ms[2:]), enc
 
     # ----------------------------------------------- 4. all-intra path
     done, summary, launches_i, header, fps, med, _ = main_path(
@@ -856,17 +1055,17 @@ def main() -> None:
     same_as_cpu(x264_tpu_torch, done, frames, header, 1, 1, "all-intra")
 
     # ---------------------------------------- 5. IPPP path at subme 1
-    done, summary, launches_1, header, fps, med, st = main_path(
+    done, summary, launches_1, header, fps, med, enc = main_path(
         250, N_IPPP, "IPPP subme 1")
     for k in list(wrappers)[:8]:
         if launches_1[k] <= 0:
             fail(f"kernel {k} was not launched on the IPPP subme-1 path")
-    ippp_report(done, summary, st, fps, med, N_IPPP, 1, smi_line, nmb)
+    ippp_report(done, summary, enc.stats, fps, med, N_IPPP, 1, smi_line, nmb)
     same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250,
                 "IPPP subme 1")
     device_split(x264_tpu_torch, frames, 4, 4, 1)
 
-    # --------------------------- 6. the slice's main path: IPPP at subme 5
+    # ------------------------------------------- 6. IPPP at subme 5
     ptypes = []
     encode_p = pipeline.encode_p_cabac
 
@@ -876,24 +1075,65 @@ def main() -> None:
         return out
 
     pipeline.encode_p_cabac = encode_p_seen
-    done, summary, launches_5, header, fps, med, st = main_path(
+    done, summary, launches_5, header, fps, med, enc = main_path(
         250, N_SUBPEL, f"IPPP subme {SUBME}", SUBME)
     pipeline.encode_p_cabac = encode_p
-    for k, n in launches_5.items():
-        if n <= 0:
+    for k in list(wrappers)[:12]:
+        if launches_5[k] <= 0:
             fail(f"kernel {k} was not launched on the IPPP subme-{SUBME} "
                  f"path")
-        rec[k]["launches"] = n
-        rec[k]["launches_ippp_subme1"] = launches_1[k]
-        rec[k]["launches_all_intra"] = launches_i[k]
     hist = torch.stack([torch.bincount(p.reshape(-1), minlength=4)
                         for p in ptypes]).sum(0).tolist()
-    ippp_report(done, summary, st, fps, med, N_SUBPEL, SUBME, smi_line, nmb,
-                f", ptype histogram over the P frames (intra MBs as 0) "
-                f"{hist}")
+    ippp_report(done, summary, enc.stats, fps, med, N_SUBPEL, SUBME,
+                smi_line, nmb, f", ptype histogram over the P frames (intra "
+                f"MBs as 0) {hist}")
     same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250,
                 f"IPPP subme {SUBME}", SUBME)
     device_split(x264_tpu_torch, frames, 4, 8, SUBME)
+
+    # ------ 7. the slice's main path: IPPP at subme 6 with the lookahead
+    la_sums = []
+    analyse = ratecontrol.RateControl.analyse_frame
+
+    def analyse_seen(self, *a, **k):
+        out = analyse(self, *a, **k)
+        la_sums.append([int(out["icost"]), int(out["pcost"])])
+        return out
+
+    ratecontrol.RateControl.analyse_frame = analyse_seen
+    what7 = "IPPP subme 6 scenecut 40"
+    done, summary, launches_6, header, fps, med, enc = main_path(
+        250, N_RD, what7, 6, 40, cut)
+    ratecontrol.RateControl.analyse_frame = analyse
+    for k, n in launches_6.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the {what7} path")
+        rec[k]["launches"] = n
+        rec[k]["launches_ippp_subme5"] = launches_5[k]
+        rec[k]["launches_ippp_subme1"] = launches_1[k]
+        rec[k]["launches_all_intra"] = launches_i[k]
+    # every frame's lookahead sums against the plain versions
+    prev = None
+    for i, f in enumerate(cut):
+        low = lookahead.lowres_planes_plain(luma(f), H, W)
+        want = lookahead.lowres_cost_plain(low, prev, bh, bw, r_la)[0]
+        if la_sums[i] != want.tolist():
+            fail(f"{what7}: frame {i}'s lookahead sums {la_sums[i]} differ "
+                 f"from the plain versions' {want.tolist()}")
+        prev = low
+    print(f"{what7}: every frame's lookahead sums equal the plain "
+          f"versions'; frame {CUT}'s pcost is "
+          f"{la_sums[CUT][1] / la_sums[CUT][0]:.4f} of its icost, frame "
+          f"{CUT - 1}'s {la_sums[CUT - 1][1] / la_sums[CUT - 1][0]:.4f}",
+          flush=True)
+    ippp_report(done, summary, enc.stats, fps, med, N_RD, 6, smi_line, nmb,
+                f", IDRs at frames 0 and {CUT}, host wait on the lookahead "
+                f"{enc.rc.lookahead_wait_s / N_RD * 1e3:.3f} ms a frame, "
+                f"host CABAC of a subme-6 P frame {cabac6:.3f} ms",
+                idrs=(0, CUT))
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK, 250, what7, 6,
+                40)
+    device_split(x264_tpu_torch, cut, 4, 8, 6, 40)
 
     print(json.dumps({"kernels": list(rec.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

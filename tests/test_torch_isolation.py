@@ -2,8 +2,8 @@
 chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
-non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-5)
-slices raise NotImplementedError."""
+non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-9,
+scenecut lookahead) slices raise NotImplementedError."""
 
 import ast
 import pathlib
@@ -36,7 +36,10 @@ def test_no_jax_or_reference_imports():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"x264_tpu_torch/ops/me.py", "x264_tpu_torch/ops/mc.py",
             "x264_tpu_torch/encoder/inter.py",
-            "x264_tpu_torch/encoder/mvpred.py"} <= names
+            "x264_tpu_torch/encoder/mvpred.py",
+            "x264_tpu_torch/encoder/lookahead.py",
+            "x264_tpu_torch/ops/rdcost.py",
+            "x264_tpu_torch/ops/trellis.py"} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
@@ -52,6 +55,8 @@ def test_imports_with_jax_blocked():
             "import x264_tpu_torch, x264_tpu_torch.encoder.core\n"
             "import x264_tpu_torch.convert, x264_tpu_torch.encoder.inter\n"
             "import x264_tpu_torch.encoder.mvpred, x264_tpu_torch.ops.me\n"
+            "import x264_tpu_torch.encoder.lookahead\n"
+            "import x264_tpu_torch.ops.rdcost, x264_tpu_torch.ops.trellis\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -83,7 +88,8 @@ def test_encoder_default_device_needs_a_card():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("i_keyint_max", 30), ("b_cabac", False), ("rc__i_rc_method", 1),
+    ("analyse__i_noise_reduction", 100), ("b_cabac", False),
+    ("rc__i_rc_method", 1),
     ("analyse__b_transform_8x8", True), ("i_bframe", 2),
     ("analyse__i_trellis", 1), ("rc__i_qp_constant", 0)])
 def test_outside_the_slice_raises(field, value):
@@ -104,8 +110,8 @@ def test_the_ippp_slice_opens():
 
 
 @pytest.mark.parametrize("change", [
-    dict(analyse__i_subpel_refine=6), dict(analyse__i_subpel_refine=7),
-    dict(i_scenecut_threshold=40), dict(i_frame_reference=2),
+    dict(i_frame_reference=3), dict(i_bframe=1),
+    dict(analyse__i_trellis=2), dict(i_frame_reference=2),
     dict(i_bframe=2), dict(analyse__b_transform_8x8=True),
     dict(b_cabac=False), dict(rc__i_rc_method=1),
     dict(rc__i_rc_method=2, rc__i_bitrate=2000),
@@ -131,10 +137,34 @@ def test_the_subpel_slice_opens(subme, steps, chroma_me):
     enc.close()
 
 
+@pytest.mark.parametrize("subme", [6, 7, 8, 9])
+def test_the_rd_slice_opens(subme):
+    """subme 6-9 open with x264_tpu's flags (encoder/core.py:138-145):
+    quarter-pel steps, chroma ME, the RD ladder; with the scenecut
+    lookahead at its default."""
+    enc = x264_tpu_torch.Encoder(
+        _p_params(analyse__i_subpel_refine=subme, i_scenecut_threshold=40),
+        device="cpu")
+    assert (enc._subpel, enc._chroma_me, enc._rd) == ((2, 1), True, True)
+    assert enc._parts and enc._p8x8 and enc._analyse_lowres
+    enc.close()
+
+
+def test_the_defaults_without_8x8dct_open():
+    """keyint 30 with every other default but the 8x8 transform (subme 6,
+    psy-RD, scenecut 40) is now inside the slice."""
+    enc = x264_tpu_torch.Encoder(_params(i_keyint_max=30), device="cpu")
+    assert enc._rd and enc._analyse_lowres
+    enc.close()
+
+
 def test_subme6_names_its_slice():
-    with pytest.raises(NotImplementedError, match=r"the subme 6 \(RD\) slice"):
-        x264_tpu_torch.Encoder(_p_params(analyse__i_subpel_refine=6),
-                               device="cpu")
+    """subme 6 with the rest of x264_tpu's defaults (8x8dct on) names the
+    slice that is still to come."""
+    with pytest.raises(NotImplementedError, match=r"the 8x8dct slice"):
+        x264_tpu_torch.Encoder(
+            _p_params(analyse__i_subpel_refine=6, i_scenecut_threshold=40,
+                      analyse__b_transform_8x8=True), device="cpu")
 
 
 def test_reconfig_and_forced_b_raise():

@@ -1,7 +1,8 @@
 """The port's CUDA / Triton kernels against their plain PyTorch versions
-on the card, at small frames (K1-K12, K6 and K8 also with random
-partition layouts and quarter-pel MVs), and the card's Encoder against
-the CPU's at subme 1, 2 and 5.
+on the card, at small frames (K1-K15, K6 and K8 also with random
+partition layouts and quarter-pel MVs, K7 also with the RD decision),
+and the card's Encoder against the CPU's at subme 1, 2, 5 and 6 (the
+last with the scenecut lookahead).
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -15,7 +16,7 @@ import torch
 
 import x264_tpu_torch
 from x264_tpu_torch import tables
-from x264_tpu_torch.encoder import inter, intra, pipeline, stats
+from x264_tpu_torch.encoder import inter, intra, lookahead, pipeline, stats
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.ops import deblock, mc, me
 
@@ -232,6 +233,75 @@ def test_intra_in_p_kernel_matches_plain(card, kind):
         assert p["intra_mb"].any()
 
 
+def _rd_args(dev, kind, psy, big):
+    """K13's arguments on frame 1 with random partitions (K6's real
+    outputs), or with crafted level planes of large levels; the P qtab
+    carries the RD tables, with psy-RD 1.0 or off."""
+    a, cost = _inter_args(dev, kind, True, parts=True)
+    (y, u, v), ptype, mv_quad = a[2:5], a[8], a[9]
+    q = inter.make_qtab_p(26, tables.chroma_qp(26), dev, rd_idc=0,
+                          f_psy_rd=1.0 if psy else 0.0)
+    it = inter.p_inter_mb(*a[:10], q, True)
+    if big:
+        rng = np.random.default_rng(4)
+        t = lambda lo, hi, ref: torch.as_tensor(
+            rng.integers(lo, hi, ref.shape) * (rng.random(ref.shape) < 0.4),
+            dtype=torch.int32, device=dev)
+        it = dict(it, blocks_z=t(-3000, 3000, it["blocks_z"]),
+                  chroma_ac=t(-40, 41, it["chroma_ac"]),
+                  chroma_dc=t(-70000, 70001, it["chroma_dc"]))
+    mvp = _mvp(dev, 8)
+    return (MB_H, MB_W, y, u, v, it, ptype, mv_quad, mvp, q), cost
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("psy,big", [(True, False), (False, False),
+                                     (True, True)])
+def test_rd_inter_kernel_matches_plain(card, psy, big):
+    args, _ = _rd_args(card, "inter", psy, big)
+    k = inter.rd_inter(*args)
+    p = inter.rd_inter_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,psy", [("inter", True), ("intra", True),
+                                      ("intra", False)])
+def test_intra_in_p_rd_kernel_matches_plain(card, kind, psy):
+    args, cost = _rd_args(card, kind, psy, False)
+    it, q = args[5], args[9]
+    rd = inter.rd_inter(*args)
+    a7 = (MB_H, MB_W, *args[2:5], it["recon_y"], it["recon_u"],
+          it["recon_v"], cost, q, int(tables.LAMBDA_TABLE[26]), True)
+    k = inter.intra_in_p(*a7, rd=rd)
+    p = inter.intra_in_p_plain(*a7, rd=rd)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    if kind == "intra":
+        assert p["intra_mb"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(MB_H * 16 - 4, MB_W * 16 - 6), (135, 240)])
+def test_lookahead_kernels_match_plain(card, h, w):
+    rng = np.random.default_rng(h)
+    ys = [torch.as_tensor(np.pad(rng.integers(0, 256, (h, w)) // 2 * 2,
+                                 ((0, -h % 16), (0, -w % 16)), mode="edge"),
+                          dtype=torch.int32, device=card) for _ in range(2)]
+    ys[1][4:, 6:] = ys[0][:-4, :-6].clone()      # mostly a move of frame 0
+    bh, bw = lookahead.block_grid(h, w)
+    prev = None
+    for y in ys:
+        lows = lookahead.lowres_planes(y, h, w)
+        assert torch.equal(lows, lookahead.lowres_planes_plain(y, h, w))
+        for r in (4, 8):
+            k = lookahead.lowres_cost(lows, prev, bh, bw, r)
+            p = lookahead.lowres_cost_plain(lows, prev, bh, bw, r)
+            for a, b in zip(k, p):
+                assert (a is None and b is None) or torch.equal(a, b)
+        prev = lows
+
+
 @pytest.mark.cuda
 def test_hpel_kernel_matches_plain(card):
     rng = np.random.default_rng(3)
@@ -327,9 +397,11 @@ def test_cabac_p_ops_and_p_deblock_kernels_match_plain(card, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("frame_parallel,subme", [(1, 1), (3, 1), (1, 2),
-                                                  (3, 5)])
+                                                  (3, 5), (3, 6)])
 def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel,
                                                   subme):
+    """keyint 3 at scenecut 0, or at subme 6 with scenecut 40 (keyint_min
+    then 2), where the lookahead may call a cut on the noise."""
     w, h = MB_W * 16 - 6, MB_H * 16 - 4
     rng = np.random.default_rng(11)
     base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
@@ -345,7 +417,7 @@ def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel,
                                          i_frame_parallel=frame_parallel)
         p.rc.i_rc_method, p.rc.i_qp_constant = 0, 28
         p.analyse.b_transform_8x8 = False
-        p.i_scenecut_threshold = 0
+        p.i_scenecut_threshold = 40 if subme >= 6 else 0
         p.analyse.i_subpel_refine = subme
         enc = x264_tpu_torch.Encoder(p, device=device)
         outs = [enc.encode(f) for f in frames]
@@ -354,7 +426,8 @@ def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel,
 
     (kh, kout, ksum), (ph, pout, psum) = run(card), run("cpu")
     assert kh == ph and len(kout) == len(pout) == 5
-    assert [o.frame_type for o in kout] == ["IDR", "P", "P", "IDR", "P"]
+    if subme < 6:
+        assert [o.frame_type for o in kout] == ["IDR", "P", "P", "IDR", "P"]
     for a, b in zip(kout, pout):
         assert a.frame_type == b.frame_type and a.payload == b.payload
         for pl in "yuv":

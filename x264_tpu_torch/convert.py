@@ -13,6 +13,7 @@ import torch
 
 from .encoder.inter import QTAB_P_SCALAR_KEYS, QTAB_P_VEC_KEYS
 from .encoder.intra import QTAB_SCALAR_KEYS, QTAB_VEC_KEYS
+from .ops import rdcost as ordc
 
 
 def _tensors(qtab: dict, keys, device) -> dict:
@@ -28,6 +29,20 @@ def qtab_from_numpy(qtab: dict, device) -> dict:
 
 def qtab_p_from_numpy(qtab: dict, device) -> dict:
     """The same for x264_tpu's make_qtab_p: the intra keys plus the inter
-    (py_ / pc_) keys the port's P encode reads."""
-    return _tensors(qtab, QTAB_VEC_KEYS + QTAB_SCALAR_KEYS + QTAB_P_VEC_KEYS
-                    + QTAB_P_SCALAR_KEYS, device)
+    (py_ / pc_) keys the port's P encode reads; and, where x264_tpu's
+    Encoder._qtab_p added the RD ladder's tables, those as the port keeps
+    them (rdbits as int32 tensors and packed into rdtab, rd_lam2 and
+    psy_rd as Python floats holding their float32 values)."""
+    out = _tensors(qtab, QTAB_VEC_KEYS + QTAB_SCALAR_KEYS + QTAB_P_VEC_KEYS
+                   + QTAB_P_SCALAR_KEYS, device)
+    if "rdbits" in qtab:
+        out["rdbits"] = {
+            cat: {n: torch.as_tensor(np.asarray(t[n]).astype(np.int32),
+                                     device=device)
+                  for n in ("sig", "last", "l1", "unary")}
+            for cat, t in qtab["rdbits"].items()}
+        out["rdtab"] = ordc.pack_rdbits(out["rdbits"])
+        out["rd_lam2"] = float(np.float32(qtab["rd_lam2"]))
+        if "psy_rd" in qtab:
+            out["psy_rd"] = float(np.float32(qtab["psy_rd"]))
+    return out

@@ -2,9 +2,13 @@
 //
 // Replaces the intra-in-P sweeps of x264_tpu/encoder/inter.py:
 // encode_p_body (stage 3: eval_intra with luma_i16_path, predict_8x8c and
-// chroma_residual; the lp.cost + lam * INTRA_PEN_BITS < cost_inter
-// decision and the K_SWEEPS = 3 `resolved` fixpoint). Plain twin:
-// x264_tpu_torch/encoder/inter.py:intra_in_p_plain; wrapper: intra_in_p.
+// chroma_residual; the decision, and the K_SWEEPS = 3 `resolved`
+// fixpoint). Below subme 6 the decision is lp.cost + lam * INTRA_PEN_BITS
+// < cost_inter; under the RD ladder (subme >= 6) it is cost_i_rd <
+// rd_cost_inter on true SSD + lambda2 * bits with the psy term
+// (inter.py:671-701), rd_cost_inter and the source's AC energy coming
+// from K13. Plain twin: x264_tpu_torch/encoder/inter.py:intra_in_p_plain
+// (rd_cost_intra under RD); wrapper: intra_in_p.
 //
 // Design. Intra prediction reads the left / top / top-left
 // reconstruction, which the reference produces MB by MB. x264_tpu
@@ -12,22 +16,34 @@
 // and so does this kernel, in four launches of one 64-thread CTA per MB,
 // running the I16x16 + chroma device code K1 runs (intra_mb.cuh):
 //   1. sweep 0: every MB's intra path against the inter reconstruction
-//      (pre-deblock), its cost and modes; the candidate recon goes to A;
-//   2. decide: an MB goes intra where cost + lam * 7 < cost_inter, unless
-//      its intra chain is deeper than 3 (each CTA resolves the fixpoint on
-//      the 4x4 window of MBs above-left of it, which is all the three
-//      iterations can reach); A becomes intra ? candidate : inter;
+//      (pre-deblock), its cost and modes; the candidate recon goes to A.
+//      Under RD the CTA then prices the candidate that is already in
+//      shared memory with the RD device code of rdcost.cuh: threads 0-26
+//      walk the luma DC, 16 luma AC, 8 chroma AC and 2 chroma DC blocks,
+//      threads 32-47 take the recon's 4x4 Hadamards for its AC energy,
+//      all threads the three SSDs; thread 0 evaluates
+//      (((ssd_y + ssd_u) + ssd_v) + psy * |ace - ce_psy|)
+//      + lam2 * (ibits + 256 * 9) in that order, each float step rounded
+//      alone (no FMA), into cost_i_rd;
+//   2. decide: an MB goes intra where cost + lam * 7 < cost_inter (or
+//      cost_i_rd < rd_cost_inter under RD), unless its intra chain is
+//      deeper than 3 (each CTA resolves the fixpoint on the 4x4 window of
+//      MBs above-left of it, which is all the three iterations can
+//      reach); A becomes intra ? candidate : inter;
 //   3. sweep 1 against A with the sweep-0 modes, into B;
 //   4. sweep 2 against B, into A, which is the output. Sweeps 1 and 2
 //      evaluate only the intra MBs (the others keep the inter recon and
 //      zero syntax), as x264_tpu's masked whole-frame sweeps leave them.
+// Without RD the kernels run exactly as before the RD ladder came.
 // What bounds it on the H100: bytes. The source, inter and output planes
 // and syntax planes are ~51 MB at 1080p as int32 (~15 us at 3.35 TB/s);
 // each sweep is ~16 SATD and 24 transform blocks per MB it runs (~25 k
 // integer ops, some 0.2 G for sweep 0 over every MB, ~3 us at the ALU
-// rate). One MB per 64-thread CTA leaves lanes idle in the serial DC and
+// rate; the RD pricing adds ~27 x 16 walk steps and 16 Hadamards per MB).
+// One MB per 64-thread CTA leaves lanes idle in the serial DC, walk and
 // decision steps; a later PR can batch MBs per CTA.
 #include "intra_mb.cuh"
+#include "rdcost.cuh"
 
 using namespace x264t;
 
@@ -66,13 +82,78 @@ struct Syntax {
   int* chroma_ac;
 };
 
+// the RD ladder's inputs and sweep 0's intra RD costs; rd_cost is null
+// below subme 6
+struct RD {
+  const float* rd_cost;
+  const int* ce_psy;
+  const int* rdtab;
+  float* cost_i_rd;
+  float lam2, psy;
+};
+
+// the RD cost of sweep 0's candidate in S (x264_tpu inter.py:677-699)
+__device__ __forceinline__ void intra_rd_cost(const IntraMB& S, const RD rd,
+                                              int mb) {
+  const int tid = threadIdx.x;
+  __shared__ int red[NT];
+  __shared__ int bits[27];
+  __shared__ int had[16];
+  if (tid < 27) {
+    int lv[16], n, cat;
+    if (tid == 0) {                         // luma DC, zig-zag
+      n = 16, cat = 0;
+      for (int i = 0; i < 16; ++i) lv[i] = S.dcl16[kZig4[i]];
+    } else if (tid < 17) {                  // luma AC of block tid - 1
+      n = 15, cat = 1;
+      const int* b = S.lv16[tid - 1];
+      for (int i = 1; i < 16; ++i) lv[i - 1] = b[kZig4[i]];
+    } else if (tid < 25) {                  // chroma AC
+      n = 15, cat = 4;
+      const int* b = S.clv[(tid - 17) >> 2][(tid - 17) & 3];
+      for (int i = 1; i < 16; ++i) lv[i - 1] = b[kZig4[i]];
+    } else {                                // chroma DC of U, V
+      n = 4, cat = 3;
+      for (int i = 0; i < 4; ++i) lv[i] = S.cdcl[tid - 25][i];
+    }
+    bits[tid] = residual_bits(lv, n, rd.rdtab + cat * RD_CAT_STRIDE);
+  } else if (tid >= 32 && tid < 48) {
+    had[tid - 32] = tile_had16(tid - 32, [&](int r, int c) {
+      return S.rec16[16 * r + c];
+    });
+  }
+  int sy = 0, ps = 0;
+  for (int i = tid; i < 256; i += NT) {
+    const int d = S.fenc[i] - S.rec16[i];
+    sy += d * d;
+    ps += S.rec16[i];
+  }
+  const int du = S.fc[0][tid] - S.crec[0][tid];
+  const int dv = S.fc[1][tid] - S.crec[1][tid];
+  sy = cta_sum(red, sy);
+  ps = cta_sum(red, ps);
+  const int su = cta_sum(red, du * du);
+  const int sv = cta_sum(red, dv * dv);
+  if (tid == 0) {
+    int ibits = 0;
+    for (int i = 0; i < 27; ++i) ibits += bits[i];
+    const float ace = (float)ac_energy16(had, ps);
+    float issd = __fadd_rn(__fadd_rn((float)sy, (float)su), (float)sv);
+    issd = __fadd_rn(issd, __fmul_rn(rd.psy, fabsf(__fsub_rn(
+                                                 ace, (float)rd.ce_psy[mb]))));
+    rd.cost_i_rd[mb] = __fadd_rn(
+        issd, __fmul_rn(rd.lam2, __fadd_rn((float)ibits, 256.0f * 9.0f)));
+  }
+}
+
 // one sweep: the intra path of every MB (sweep 0) or of the intra MBs
 // with their sweep-0 modes (sweeps 1, 2), neighbours read from src
 __global__ void __launch_bounds__(NT) sweep_kernel(
     const int* __restrict__ Y, const int* __restrict__ U,
     const int* __restrict__ V, Planes src, Planes inter, Planes dst,
     const int* __restrict__ qtab_g, const uint8_t* __restrict__ intra_mb,
-    Syntax out, int* __restrict__ cost_i, int mb_w, int lam, int decimate) {
+    Syntax out, int* __restrict__ cost_i, const RD rd, int mb_w, int lam,
+    int decimate) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const bool has_top = my > 0, has_left = mx > 0;
@@ -98,6 +179,7 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
   imb_i16_residual(S, decimate != 0);
   imb_chroma_decide(S, has_top, has_left, fixc);
   imb_chroma_residual(S);
+  if (!fixed && rd.rd_cost != nullptr) intra_rd_cost(S, rd, mb);
 
   const int W = mb_w * 16, Wc = mb_w * 8;
   for (int i = tid; i < 256; i += NT) {
@@ -125,8 +207,8 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
 // sweeps; merges A (the sweep-0 candidates) with the inter recon
 __global__ void __launch_bounds__(NT) decide_kernel(
     const int* __restrict__ cost_i, const int* __restrict__ cost_inter,
-    Planes inter, Planes a, uint8_t* __restrict__ intra_mb, int mb_w,
-    int lam) {
+    const RD rd, Planes inter, Planes a, uint8_t* __restrict__ intra_mb,
+    int mb_w, int lam) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   __shared__ int keep;
   if (threadIdx.x == 0) {
@@ -138,7 +220,9 @@ __global__ void __launch_bounds__(NT) decide_kernel(
         int y = my - 3 + i, x = mx - 3 + j;
         bool in = y >= 0 && x >= 0;
         int n = y * mb_w + x;
-        choose[i][j] = in && cost_i[n] + lam * INTRA_PEN_BITS < cost_inter[n];
+        choose[i][j] = in && (rd.rd_cost != nullptr
+                              ? rd.cost_i_rd[n] < rd.rd_cost[n]
+                              : cost_i[n] + lam * INTRA_PEN_BITS < cost_inter[n]);
         r[i][j] = !in || !choose[i][j];
       }
     for (int k = 1; k <= 3; ++k)
@@ -161,25 +245,28 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
                           int* ru, int* rv, uint8_t* intra_mb, int* mode16,
                           int* modec, int* luma_dc, int* luma_ac,
                           int* chroma_dc, int* chroma_ac, int* sy, int* su,
-                          int* sv, int* cost_i, int mb_h, int mb_w, int lam,
-                          int decimate, void* stream) {
+                          int* sv, int* cost_i, const float* rd_cost,
+                          const int* ce_psy, const int* rdtab,
+                          float* cost_i_rd, int mb_h, int mb_w, int lam,
+                          int decimate, float lam2, float psy, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nmb = mb_h * mb_w;
   const Planes inter{inter_y, inter_u, inter_v}, A{ry, ru, rv}, B{sy, su, sv};
   const Syntax out{mode16, modec, luma_dc, luma_ac, chroma_dc, chroma_ac};
+  const RD rd{rd_cost, ce_psy, rdtab, cost_i_rd, lam2, psy};
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, inter, inter, A, qtab, nullptr,
-                                  out, cost_i, mb_w, lam, decimate);
+                                  out, cost_i, rd, mb_w, lam, decimate);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  decide_kernel<<<nmb, NT, 0, s>>>(cost_i, cost_inter, inter, A, intra_mb,
+  decide_kernel<<<nmb, NT, 0, s>>>(cost_i, cost_inter, rd, inter, A, intra_mb,
                                    mb_w, lam);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, A, inter, B, qtab, intra_mb, out,
-                                  cost_i, mb_w, lam, decimate);
+                                  cost_i, rd, mb_w, lam, decimate);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, B, inter, A, qtab, intra_mb, out,
-                                  cost_i, mb_w, lam, decimate);
+                                  cost_i, rd, mb_w, lam, decimate);
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/libx264torch_<name>.so`` at the repository
 root, exposes plain C entry points that return the ``cudaError_t`` of
 their launches, and is loaded with ``ctypes``: pointers travel as
-``c_void_p``, ints as ``c_int``, and every launch goes on PyTorch's
-current stream. A build or launch that fails raises; there is no
-fallback on a CUDA tensor.
+``c_void_p``, ints as ``c_int``, floats as ``c_float``, and every
+launch goes on PyTorch's current stream. A build or launch that fails
+raises; there is no fallback on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 # kernel sources; each builds into its own shared library
 SOURCES = ("intra", "deblock", "cabac_ops", "me", "inter", "intra_p", "mc",
-           "subpel")
+           "subpel", "rdcost", "lookahead")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -96,12 +96,14 @@ def lib(name: str) -> ctypes.CDLL:
 def function(name: str, fn: str, sig: str):
     """C entry point `fn` of csrc/<name>.cu with its argument types set
     from `sig`: one letter per argument, 'p' pointer (and the stream),
-    'i' int. The entry point returns the cudaError_t of its launches."""
+    'i' int, 'f' float. The entry point returns the cudaError_t of its
+    launches."""
     key = (name, fn)
     if key not in _fns:
         f = getattr(lib(name), fn)
-        f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                      for c in sig]
+        types = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "f": ctypes.c_float}
+        f.argtypes = [types[c] for c in sig]
         f.restype = ctypes.c_int
         _fns[key] = f
     return _fns[key]

@@ -3,8 +3,9 @@ x264_tpu/encoder/core.py for CABAC IDR and P frames at constant QP.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
-validation, headers, the fixed-GOP frame-type decision (an IDR every
-i_keyint_max frames, P frames between; no scenecut, no B frames),
+validation, headers, the frame-type decision (an IDR every i_keyint_max
+frames, and at a scene cut found by the lowres lookahead once
+i_keyint_min frames have passed; P frames between; no B frames),
 dispatch of each frame's device work to the current CUDA stream, and the
 host tail — CABAC arithmetic coding of the device-produced op stream,
 NAL assembly, rate control and statistics. The DPB is the one deblocked
@@ -17,10 +18,16 @@ are queued, its op stream and metrics vector start a non-blocking copy
 into pinned host memory ordered by a CUDA event, and the host CABAC of
 an earlier frame runs while the card works. P frame N reads frame N-1's
 deblocked reconstruction on the same stream, so the pipe needs no
-further synchronisation.
+further synchronisation. With the scenecut lookahead on, the frame type
+must be known before the frame is queued: the frame's planes cross to
+the card on a stream of their own, the lookahead kernels run there, and
+the host waits for that stream alone before it reads their two sums; the
+encoder's stream waits on an event after the upload.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -76,17 +83,12 @@ class EncodedFrame:
 def _check_slice(p: EncoderParams, p_frames: bool) -> None:
     """Raise on every parameter outside this slice of the port; p_frames:
     whether the stream will hold P frames (i_keyint_max > 1, or a forced
-    P), which this slice encodes at subme 1-5 (with the 16x8 / 8x16 /
-    P8x8 partitions and chroma ME where the parameters ask for them),
-    with one reference and a fixed GOP only."""
+    P), which this slice encodes at subme 1-9 (with the 16x8 / 8x16 /
+    P8x8 partitions, chroma ME and, at subme >= 6, the RD ladder with
+    psy-RD, where the parameters ask for them), with one reference and
+    the scenecut lookahead or a fixed GOP."""
     a, rc = p.analyse, p.rc
     later = [
-        (p_frames and p.i_scenecut_threshold > 0,
-         "scenecut detection (use scenecut=0 with keyint > 1)",
-         "the lookahead slice"),
-        (p_frames and a.i_subpel_refine >= 6,
-         "the RD mode decision (subme >= 6; use subme <= 5)",
-         "the subme 6 (RD) slice"),
         (p_frames and p.i_frame_reference >= 2,
          "multiple references (ref >= 2)", "a later slice"),
         (p.i_bframe > 0, "B frames", "the B slice"),
@@ -143,19 +145,28 @@ class Encoder:
         self._ref = None
         self._prev_mv = None
         self._gop_pos = 0
+        self._since_idr = 0
         self._disp_since_idr = 0
+        # the lowres lookahead: at CQP only for scenecut detection
+        self._analyse_lowres = (p.i_scenecut_threshold > 0
+                                and p.i_keyint_max > 1)
+        self._la_stream = torch.cuda.Stream(self.device) \
+            if self._analyse_lowres and self.device.type == "cuda" else None
         # ME window clamped so every candidate stays inside the PAD=32
         # frame border, as x264_tpu clamps it
         self._me_range = min(p.analyse.i_me_range, 24)
         self._decimate = bool(p.analyse.b_dct_decimate)
         # the subme ladder, as x264_tpu sets it: 1 full-pel, 2-3 half-pel,
-        # 4-5 half- then quarter-pel; the 16x8 / 8x16 / P8x8 partitions
-        # with PSUB16x16 (they need sub-pel steps); chroma ME at subme 5
+        # 4-9 half- then quarter-pel; the 16x8 / 8x16 / P8x8 partitions
+        # with PSUB16x16 (they need sub-pel steps); chroma ME at subme >= 5;
+        # the RD mode decision at subme >= 6 (lossless, which turns it off
+        # in x264_tpu, is refused)
         sp = p.analyse.i_subpel_refine
         self._subpel = () if sp <= 1 else ((2,) if sp <= 3 else (2, 1))
         self._parts = bool(p.analyse.inter & ANALYSE_PSUB16x16)
         self._p8x8 = self._parts
         self._chroma_me = bool(p.analyse.b_chroma_me and sp >= 5)
+        self._rd = sp >= 6
         self.stats = estats.Stats(
             p.i_width, p.i_height, p.i_fps_num / max(1, p.i_fps_den),
             b_psnr=p.analyse.b_psnr, b_ssim=p.analyse.b_ssim)
@@ -177,52 +188,71 @@ class Encoder:
     # ------------------------------------------------------------- encode
     def encode(self, frame: Frame, forced_type: str | None = None,
                forced_qp: int | None = None) -> EncodedFrame | None:
-        """x264_encoder_encode: the frame type of a fixed GOP (an IDR at
-        GOP start, else P; forced_type "I" / "IDR" / "P" overrides it).
-        With i_frame_parallel > 1 this queues the frame and returns an
-        earlier one (or None while the pipe fills); flush() drains."""
+        """x264_encoder_encode: the frame type (an IDR at GOP start, or at
+        a scene cut the lookahead finds once i_keyint_min frames have
+        passed since the last IDR; else P; forced_type "I" / "IDR" / "P"
+        overrides it). With i_frame_parallel > 1 this queues the frame
+        and returns an earlier one (or None while the pipe fills);
+        flush() drains."""
         p = self.params
         if forced_type not in (None, "I", "IDR", "P"):
             raise NotImplementedError(f"forced {forced_type} frames come "
                                       "with the B slice of the port")
         if forced_type == "P":
             _check_slice(p, True)
+        planes = self._pad_input(frame)
+        scenecut = False
+        if self._analyse_lowres:
+            scenecut = self._scenecut(planes[0], frame)
         if forced_type in ("I", "IDR"):
             is_idr = True
         elif forced_type == "P" and self._ref is not None:
             is_idr = False
         else:
             is_idr = (self._gop_pos == 0 or self._ref is None
-                      or p.i_keyint_max == 1)
+                      or p.i_keyint_max == 1
+                      or (scenecut and self._since_idr >= p.i_keyint_min))
         disp_poc = 2 * self._disp_since_idr
         disp = self._disp_abs
         self._disp_abs += 1
         self._advance_gop(is_idr)
-        self._submit_ip(frame, is_idr, forced_qp, 0 if is_idr else disp_poc,
-                        disp)
+        self._submit_ip(frame, planes, is_idr, forced_qp,
+                        0 if is_idr else disp_poc, disp)
         if len(self._pending) > self._delay:
             return self._finalize(self._pending.pop(0))
         return None
+
+    def _scenecut(self, y, frame: Frame) -> bool:
+        """The lookahead's verdict on this frame (RateControl.analyse_frame)
+        from its luma y on the device; on the card on the lookahead's own
+        stream, which the upload already ran on."""
+        h, w = frame.y.shape
+        with (torch.cuda.stream(self._la_stream) if self._la_stream
+              is not None else contextlib.nullcontext()):
+            return self.rc.analyse_frame(y, h, w, self._since_idr)["scenecut"]
 
     def _advance_gop(self, to_idr: bool) -> None:
         """Display-order GOP bookkeeping."""
         if to_idr:
             self._gop_pos = 0
+            self._since_idr = 0
             self._disp_since_idr = 0
         self._gop_pos = (self._gop_pos + 1) % max(1, self.params.i_keyint_max)
+        self._since_idr += 1
         self._disp_since_idr += 1
 
-    def _submit_ip(self, frame: Frame, is_idr: bool, forced_qp, poc: int,
-                   disp: int) -> None:
-        """Queue one reference frame (IDR or P) in encode order."""
+    def _submit_ip(self, frame: Frame, planes, is_idr: bool, forced_qp,
+                   poc: int, disp: int) -> None:
+        """Queue one reference frame (IDR or P) in encode order; planes:
+        its MB-aligned planes on the device (_pad_input)."""
         qp = self.rc.start("I" if is_idr else "P",
                            frame_idx=self.frame_count)
         if forced_qp is not None:
             qp = max(0, min(51, int(forced_qp)))
             self.rc.last_qp = qp
         self.poc = poc
-        pend = self._submit_idr(frame, qp) if is_idr \
-            else self._submit_p(frame, qp)
+        pend = self._submit_idr(frame, planes, qp) if is_idr \
+            else self._submit_p(frame, planes, qp)
         pend.update(frame=frame, qp=qp, disp=disp,
                     ftype="IDR" if is_idr else "P")
         self.frame_count += 1
@@ -239,25 +269,38 @@ class Encoder:
     def _qtab_p(self, qp: int, qp_c: int) -> dict:
         key = (qp, qp_c)
         if key not in self._qtab_p_cache:
-            self._qtab_p_cache[key] = inter.make_qtab_p(qp, qp_c,
-                                                        self.device, self.qt)
+            a = self.params.analyse
+            self._qtab_p_cache[key] = inter.make_qtab_p(
+                qp, qp_c, self.device, self.qt,
+                rd_idc=self.params.i_cabac_init_idc if self._rd else None,
+                f_psy_rd=a.f_psy_rd if a.b_psy else 0.0)
         return self._qtab_p_cache[key]
 
     def _pad_input(self, frame: Frame):
         """MB-aligned int32 planes on the device. On the card the bytes
-        cross from pinned memory without blocking the host."""
+        cross from pinned memory without blocking the host; with the
+        lookahead on they cross on its stream, which the encoder's stream
+        then waits for (an event, not a host wait)."""
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
         planes = [pad_plane(np.asarray(a, np.uint8), mb_h * s, mb_w * s)
                   for a, s in ((frame.y, 16), (frame.u, 8), (frame.v, 8))]
         if self.device.type == "cpu":
             return [torch.from_numpy(a).to(torch.int32) for a in planes]
+        main = torch.cuda.current_stream(self.device)
+        up = self._la_stream or main
         out = []
-        for a in planes:
-            staged = torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
-            staged.numpy()[:] = a
-            out.append(staged.to(self.device, non_blocking=True)
-                       .to(torch.int32))
+        with torch.cuda.stream(up):
+            for a in planes:
+                staged = torch.empty(a.shape, dtype=torch.uint8,
+                                     pin_memory=True)
+                staged.numpy()[:] = a
+                out.append(staged.to(self.device, non_blocking=True)
+                           .to(torch.int32))
+        if up is not main:
+            main.wait_stream(up)
+            for t in out:
+                t.record_stream(main)
         return out
 
     def _slice_header(self, qp: int, slice_type: int) -> SliceHeader:
@@ -288,10 +331,10 @@ class Encoder:
             hdr.put((1 << pad) - 1, pad)
         return bytearray(hdr.pack())
 
-    def _submit_idr(self, frame: Frame, qp: int) -> dict:
+    def _submit_idr(self, frame: Frame, planes, qp: int) -> dict:
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
-        y, u, v = self._pad_input(frame)
+        y, u, v = planes
         qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
         # an IDR resets frame_num, POC (spec 7.4.3) and the ME seed field
         self.frame_num = 0
@@ -311,12 +354,12 @@ class Encoder:
                     nmb=mb_h * mb_w, slice_is_i=True,
                     nal_type=NAL_SLICE_IDR, nal_ref_idc=3)
 
-    def _submit_p(self, frame: Frame, qp: int) -> dict:
+    def _submit_p(self, frame: Frame, planes, qp: int) -> dict:
         """One P frame against the DPB (x264_encoder_encode P path):
-        subme 1-5, one reference, CABAC."""
+        subme 1-9, one reference, CABAC."""
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
-        y, u, v = self._pad_input(frame)
+        y, u, v = planes
         qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
         mvp_seed = self._prev_mv if self._prev_mv is not None \
             else torch.zeros((mb_h, mb_w, 2), dtype=torch.int32,
@@ -330,7 +373,7 @@ class Encoder:
             mvp_seed, crop_w=p.i_width, crop_h=p.i_height,
             with_metrics=self._with_metrics, decimate=self._decimate,
             subpel_steps=self._subpel, parts=self._parts, p8x8=self._p8x8,
-            chroma_me=self._chroma_me)
+            chroma_me=self._chroma_me, rd=self._rd)
         self._prev_mv = out["mv"]
         return dict(out=out, hdr_bytes=hdr_bytes,
                     recon=self._finish_frame(out, frame), nmb=mb_h * mb_w,

@@ -1,7 +1,7 @@
 """P-frame encode — plain PyTorch twin of x264_tpu/encoder/inter.py's
-P path at subme 1-5 (make_qtab_p, inter_luma_residual, encode_p_body)
-and the wrappers of its CUDA kernels K6 (csrc/inter.cu) and K7
-(csrc/intra_p.cu).
+P path at subme 1-9 (make_qtab_p, inter_luma_residual, encode_p_body)
+and the wrappers of its CUDA kernels K6 (csrc/inter.cu), K13
+(csrc/rdcost.cu) and K7 (csrc/intra_p.cu).
 
 The reference's per-MB P path (x264_macroblock_analyse P branch,
 encoder/analyse.c:1077-1519, and x264_macroblock_encode,
@@ -10,24 +10,26 @@ encoder/macroblock.c:475) is staged as x264_tpu stages it:
 1. full-pel hierarchical ME of every MB at once, seeded by the previous
    frame's MV field (ops/me.py, kernel K5); at subme >= 2 the half-pel
    planes of the reference (K9), the sub-pel refinement of the 16x16 MV
-   (K10) and, at subme 5, the chroma-ME re-rank (K12);
+   (K10) and, at subme >= 5, the chroma-ME re-rank (K12);
 1b. at subme >= 2 with partitions on: the 16x8 / 8x16 / 8x8 full-pel
    window search (K11), the sub-pel refinement of every partition (K10),
    and the partition type of least SATD + lambda * bits cost;
 2. the inter residual of every MB at once, since inter prediction reads
    only the reference: the partitioned quarter-pel luma fetch, the
    1/8-pel chroma fetch, 4x4 DCT, P-matrix quant, DCT decimation,
-   reconstruction (K6);
+   reconstruction (K6); at subme >= 6 (the RD ladder) the whole-MB inter
+   RD cost, true SSD + lambda2 * estimated CABAC bits with the psy-RD
+   term (K13);
 3. intra-in-P by bounded-depth sweeps: the I16 + chroma intra path of
    every MB against the inter reconstruction, the intra / inter
-   decision, demotion of intra chains deeper than K_SWEEPS, and two
-   re-evaluations that make the kept chains exact (K7);
+   decision (SATD + lambda * bits below subme 6, the RD costs of both
+   sides at subme >= 6), demotion of intra chains deeper than K_SWEEPS,
+   and two re-evaluations that make the kept chains exact (K7);
 4. the syntax maps: exact MV prediction of every partition, P_Skip, the
    mvds and the per-4x4 nnz / ref / mv / mvd maps (kernel K8's first
    pass, entropy/cabac_planes.py).
 
-This slice has one reference, no 8x8 transform, no RD ladder (subme 6)
-and one QP per frame.
+This slice has one reference, no 8x8 transform and one QP per frame.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..ops import me as ome
 from ..ops import pixel as opix
 from ..ops import predict as opred
 from ..ops import quant as oquant
+from ..ops import rdcost as ordc
 from . import intra
 from . import mvpred
 from .intra import _BIG, _blocks4, _pick, _unblocks4, _zig
@@ -62,9 +65,18 @@ QTAB_P_SCALAR_KEYS = ("py_qpdiv6", "pc_dmf0", "pc_mf_dc", "pc_bias_dc",
 
 
 def make_qtab_p(qp_y: int, qp_c: int, device,
-                qt: tables.QuantTables | None = None) -> dict:
+                qt: tables.QuantTables | None = None,
+                rd_idc: int | None = None, f_psy_rd: float = 0.0) -> dict:
     """The intra tables (y_ / c_) plus the inter ones (py_ / pc_): CQM_4PY
-    / CQM_4PC with the inter deadzone (x264_cqm_init, common/set.c:68)."""
+    / CQM_4PC with the inter deadzone (x264_cqm_init, common/set.c:68).
+
+    rd_idc: the RD ladder's tables too (subme >= 6), as x264_tpu's
+    Encoder._qtab_p builds them from i_cabac_init_idc = rd_idc: rdbits
+    (the bit costs of every category at qp_y, rdcost.make_rdbits), rdtab
+    (the same packed for the kernels), rd_lam2 = float32(lambda2_f8(qp_y))
+    and, where f_psy_rd > 0 (psy on), psy_rd = float32(f_psy_rd *
+    lambda(qp_y)); the two floats are Python floats holding float32
+    values."""
     qt = qt or tables.DEFAULT_QUANT
     out = intra.make_qtab(qp_y, qp_c, device, qt)
     a = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
@@ -82,6 +94,13 @@ def make_qtab_p(qp_y: int, qp_c: int, device,
         pc_bias_dc=a(qt.quant4_bias[pc, qp_c][0] << 1),
         pc_qpdiv6=a(qp_c // 6),
     )
+    if rd_idc is not None:
+        out["rdbits"] = ordc.make_rdbits(qp_y, rd_idc, device, qt)
+        out["rdtab"] = ordc.pack_rdbits(out["rdbits"])
+        out["rd_lam2"] = float(np.float32(ordc.lambda2_f8(qp_y)))
+        if f_psy_rd > 0:
+            out["psy_rd"] = float(np.float32(
+                f_psy_rd * float(tables.LAMBDA_TABLE[qp_y])))
     return out
 
 
@@ -265,6 +284,105 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
 p_inter_mb.launches = 0
 
 
+# ---------------------------------------------------------------- K13
+def header_bits(ptype, mv_quad, mvp_seed):
+    """The RD ladder's mode / ref / mvd header bits of each MB's inter
+    choice (one reference: no ref_idx bits): the mvd bits of the first
+    partition (quadrant 0's MV) + 4, and for 16x8 / 8x16 those of the
+    second (quadrant 2 / quadrant 1) + 2; P8x8 the four quadrants' + 9."""
+    bits = lambda k: ome.mv_cost_bits(mv_quad[:, :, k], mvp_seed)
+    p1 = torch.where((ptype == 1)[..., None], mv_quad[:, :, 2],
+                     mv_quad[:, :, 1])
+    hdr = bits(0) + 4 + torch.where(
+        ptype != 0, ome.mv_cost_bits(p1, mvp_seed) + 2, 0)
+    return torch.where(ptype == 3, bits(0) + bits(1) + bits(2) + bits(3) + 9,
+                       hdr).to(I32)
+
+
+def rd_inter_plain(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
+                   mvp_seed, qtab):
+    """Plain version of K13: the whole-MB inter RD cost of the RD ladder
+    (x264_rd_cost_mb, encoder/rdo.c:139), as x264_tpu's encode_p_body
+    builds rd_cost_inter (inter.py:498-522, 568-594) with one reference
+    and no 8x8 transform.
+
+    it: K6's outputs (recon_y / _u / _v, blocks_z, chroma_dc, chroma_ac);
+    y / u / v the source planes; ptype, mv_quad, mvp_seed as K6 and the ME
+    take them; qtab with make_qtab_p's RD tables. Returns (rd_cost_inter
+    (mb_h, mb_w) float32, ce_psy (mb_h, mb_w) int32, the source's psy AC
+    energy). The float steps run in x264_tpu's order:
+    ((ssd4 + psy * |ac_energy(recon) - ce_psy|) + (ssd_u + ssd_v))
+    + lam2 * (((bits4 + cbits) + cdcb) + 256 * hdr_bits)."""
+    nK = mb_h * mb_w
+    rb, lam2 = qtab["rdbits"], qtab["rd_lam2"]
+    psy = qtab.get("psy_rd")
+    yt, rt = _tiles(y, 16), _tiles(it["recon_y"], 16)
+    ce_psy = opix.ac_energy(yt)
+    bits4 = ordc.residual_bits_i32(it["blocks_z"].reshape(-1, 16),
+                                   rb["cat2"]).reshape(nK, 16).sum(-1)
+    luma_ssd = ordc.ssd_tiles(yt, rt)
+    if psy is not None:
+        luma_ssd = luma_ssd + psy * (opix.ac_energy(rt).to(torch.float32)
+                                     - ce_psy.to(torch.float32)).abs()
+    cbits = ordc.residual_bits_i32(it["chroma_ac"].reshape(-1, 16)[:, 1:],
+                                   rb["cat4"]).reshape(nK, 8).sum(-1)
+    cdcb = ordc.residual_bits_i32(it["chroma_dc"].reshape(-1, 4),
+                                  rb["cat3"]).reshape(nK, 2).sum(-1)
+    chroma_ssd = (ordc.ssd_tiles(_tiles(u, 8), _tiles(it["recon_u"], 8))
+                  + ordc.ssd_tiles(_tiles(v, 8), _tiles(it["recon_v"], 8)))
+    hdr = header_bits(ptype, mv_quad, mvp_seed).reshape(nK)
+    f = lambda t: t.to(torch.float32)
+    cost = (luma_ssd + chroma_ssd) \
+        + lam2 * (((f(bits4) + f(cbits)) + f(cdcb)) + 256.0 * f(hdr))
+    return cost.reshape(mb_h, mb_w), ce_psy.reshape(mb_h, mb_w)
+
+
+def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
+             mvp_seed, qtab):
+    """K13 `rd_inter`: the inter RD cost of every MB.
+
+    Replaces the RD stages of x264_tpu/encoder/inter.py:encode_p_body
+    that price the inter choice (inter.py:498-522, 568-594:
+    rdcost.residual_bits_f8 of the luma, chroma AC and chroma DC levels,
+    rdcost.ssd_tiles, pixel.ac_energy of the psy term, the header bits).
+    On CUDA tensors it runs csrc/rdcost.cu, one CTA per MB in one launch;
+    on CPU tensors the plain version. Arguments and results as
+    rd_inter_plain."""
+    if y.device.type == "cpu":
+        return rd_inter_plain(mb_h, mb_w, y, u, v, it, ptype, mv_quad,
+                              mvp_seed, qtab)
+    dev = y.device
+    H, W = mb_h * 16, mb_w * 16
+    for t, shape, name in (
+            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+            (v, (H // 2, W // 2), "v"), (it["recon_y"], (H, W), "recon_y"),
+            (it["recon_u"], (H // 2, W // 2), "recon_u"),
+            (it["recon_v"], (H // 2, W // 2), "recon_v"),
+            (it["blocks_z"], (mb_h, mb_w, 16, 16), "blocks_z"),
+            (it["chroma_dc"], (mb_h, mb_w, 2, 4), "chroma_dc"),
+            (it["chroma_ac"], (mb_h, mb_w, 2, 4, 16), "chroma_ac"),
+            (ptype, (mb_h, mb_w), "ptype"),
+            (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad"),
+            (mvp_seed, (mb_h, mb_w, 2), "mvp_seed"),
+            (qtab["rdtab"], (ordc.RD_CATS * ordc.RD_CAT_STRIDE,), "rdtab")):
+        cuda.check(t, shape, I32, name)
+    cost = torch.empty((mb_h, mb_w), dtype=torch.float32, device=dev)
+    ce_psy = torch.empty((mb_h, mb_w), dtype=I32, device=dev)
+    psy = qtab.get("psy_rd")
+    ins = (y, u, v, it["recon_y"], it["recon_u"], it["recon_v"],
+           it["blocks_z"], it["chroma_dc"], it["chroma_ac"], ptype, mv_quad,
+           mvp_seed, qtab["rdtab"], cost, ce_psy)
+    # psy off runs as psy 0: ssd4 + 0 * |...| is ssd4 exactly
+    cuda.launch("rdcost", "rd_inter", "p" * 15 + "iiff" + "p",
+                *[t.data_ptr() for t in ins], mb_h, mb_w, qtab["rd_lam2"],
+                0.0 if psy is None else psy, cuda.stream(dev))
+    rd_inter.launches += 1
+    return cost, ce_psy
+
+
+rd_inter.launches = 0
+
+
 # ---------------------------------------------------------------- K7
 def _up(a, fill=0):
     """Shift an MB grid down one row (row 0 = fill)."""
@@ -288,14 +406,46 @@ def resolve_intra(choose):
     return choose & resolved
 
 
+def rd_cost_intra(fenc, fu, fv, lp: dict, cu, cv, qtab, ce_psy):
+    """The RD cost of sweep 0's intra candidates (x264_tpu encode_p_body,
+    inter.py:677-699): issd + lam2 * (ibits + 256 * 9), where ibits are
+    the CABAC bits of the luma DC (cat 0), luma AC (cat 1), chroma AC (cat
+    4) and chroma DC (cat 3) levels and issd = ((ssd_y + ssd_u) + ssd_v)
+    + psy * |ac_energy(recon) - ce_psy| in float32, in that order. fenc /
+    fu / fv: (K, 16, 16) / (K, 8, 8) source tiles; lp, cu, cv: the
+    luma_i16_path and chroma_residual results; ce_psy (K,) from K13.
+    Returns (K,) float32."""
+    K = fenc.shape[0]
+    rb, lam2 = qtab["rdbits"], qtab["rd_lam2"]
+    psy = qtab.get("psy_rd")
+    bits = ordc.residual_bits_i32
+    ibits = (bits(lp["dc_z"], rb["cat0"])
+             + bits(lp["ac_z"].reshape(-1, 16)[:, 1:], rb["cat1"])
+             .reshape(K, 16).sum(-1)
+             + bits(torch.cat([cu[2], cv[2]], 1).reshape(-1, 16)[:, 1:],
+                    rb["cat4"]).reshape(K, 8).sum(-1)
+             + bits(torch.cat([cu[1], cv[1]], 1).reshape(-1, 4),
+                    rb["cat3"]).reshape(K, 2).sum(-1))
+    issd = (ordc.ssd_tiles(fenc, lp["recon"]) + ordc.ssd_tiles(fu, cu[0])
+            + ordc.ssd_tiles(fv, cv[0]))
+    if psy is not None:
+        issd = issd + psy * (opix.ac_energy(lp["recon"]).to(torch.float32)
+                             - ce_psy.to(torch.float32)).abs()
+    return issd + lam2 * (ibits.to(torch.float32) + 256.0 * 9)
+
+
 def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
-                     inter_v, cost_inter, qtab, lam: int, decimate: bool):
+                     inter_v, cost_inter, qtab, lam: int, decimate: bool,
+                     rd=None):
     """Plain version of K7: stage 3 of encode_p_body.
 
     Sweep 0 runs the I16 + chroma intra path of every MB with neighbours
     from the inter reconstruction (inter_y / _u / _v planes); an MB goes
-    intra where its cost + lam * INTRA_PEN_BITS < cost_inter, unless its
-    intra chain is deeper than K_SWEEPS; sweeps 1 and 2 re-run the path
+    intra where its cost + lam * INTRA_PEN_BITS < cost_inter or, under the
+    RD ladder (rd = (rd_cost_inter, ce_psy) from K13, with qtab's RD
+    tables), where its RD cost cost_i_rd < rd_cost_inter
+    (x264_intra_rd, encoder/analyse.c:845; rd_cost_intra); unless its
+    intra chain is deeper than K_SWEEPS. Sweeps 1 and 2 re-run the path
     with the sweep-0 modes against the merged reconstruction. Returns
     dict(recon_y / _u / _v (merged planes), intra_mb (mb_h,mb_w) bool,
     and the intra syntax planes, zero on inter MBs: mode16, modec,
@@ -339,8 +489,13 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
         lp, cmode, cu, cv = eval_intra(*state, mode_fix, cmode_fix)
         if mode_fix is None:
             mode_fix, cmode_fix = lp["mode"], cmode
-            choose = (lp["cost"] + lam * INTRA_PEN_BITS
-                      < cost_inter.reshape(nK)).reshape(mb_h, mb_w)
+            if rd is None:
+                choose = (lp["cost"] + lam * INTRA_PEN_BITS
+                          < cost_inter.reshape(nK)).reshape(mb_h, mb_w)
+            else:
+                choose = rd_cost_intra(fenc, fu, fv, lp, cu, cv, qtab,
+                                       rd[1].reshape(nK)).reshape(
+                    mb_h, mb_w) < rd[0]
             intra_mb = resolve_intra(choose)
         m = intra_mb[..., None, None]
         state = [torch.where(m, grid(new), old) for new, old in
@@ -360,19 +515,21 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
 
 
 def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
-               cost_inter, qtab, lam: int, decimate: bool):
+               cost_inter, qtab, lam: int, decimate: bool, rd=None):
     """K7 `intra_in_p`: stage 3 of the P encode.
 
     Replaces the intra-in-P sweeps of x264_tpu/encoder/inter.py:
     encode_p_body (eval_intra with luma_i16_path, predict_8x8c and
-    chroma_residual; the decision and the resolved fixpoint). On CUDA
-    tensors it runs csrc/intra_p.cu: sweep 0 over every MB, the decision
-    with the demotion of deep chains, then sweeps 1 and 2 (4 launches, one
-    CTA per MB each); on CPU tensors the plain version. Arguments and
-    results as intra_in_p_plain."""
+    chroma_residual; the decision, SATD-based or, under the RD ladder,
+    on the RD costs of both sides with the psy term, inter.py:671-701;
+    and the resolved fixpoint). On CUDA tensors it runs
+    csrc/intra_p.cu: sweep 0 over every MB (with the intra RD cost under
+    rd), the decision with the demotion of deep chains, then sweeps 1
+    and 2 (4 launches, one CTA per MB each); on CPU tensors the plain
+    version. Arguments and results as intra_in_p_plain."""
     if y.device.type == "cpu":
         return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
-                                inter_v, cost_inter, qtab, lam, decimate)
+                                inter_v, cost_inter, qtab, lam, decimate, rd)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
     for t, shape, name in (
@@ -393,10 +550,22 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
     scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2), e(mb_h, mb_w))
     ins = (y, u, v, inter_y, inter_u, inter_v, cost_inter,
            intra.pack_qtab(qtab))
-    cuda.launch("intra_p", "intra_in_p", "p" * 22 + "iiii" + "p",
+    if rd is None:
+        rd_ptrs, lam2, psy = (0, 0, 0, 0), 0.0, 0.0
+    else:
+        rd_cost, ce_psy = rd
+        cuda.check(rd_cost, (mb_h, mb_w), torch.float32, "rd_cost_inter")
+        cuda.check(ce_psy, (mb_h, mb_w), I32, "ce_psy")
+        cuda.check(qtab["rdtab"], (ordc.RD_CATS * ordc.RD_CAT_STRIDE,), I32,
+                   "rdtab")
+        cost_i_rd = e(mb_h, mb_w, dt=torch.float32)      # sweep 0's
+        rd_ptrs = (rd_cost.data_ptr(), ce_psy.data_ptr(),
+                   qtab["rdtab"].data_ptr(), cost_i_rd.data_ptr())
+        lam2, psy = qtab["rd_lam2"], qtab.get("psy_rd", 0.0)
+    cuda.launch("intra_p", "intra_in_p", "p" * 26 + "iiiiff" + "p",
                 *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
-                *[t.data_ptr() for t in scratch], mb_h, mb_w, lam,
-                int(decimate), cuda.stream(dev))
+                *[t.data_ptr() for t in scratch], *rd_ptrs, mb_h, mb_w, lam,
+                int(decimate), lam2, psy, cuda.stream(dev))
     intra_in_p.launches += 4           # sweep 0, decision, sweeps 1 and 2
     return o
 
@@ -464,14 +633,15 @@ def partition_search(y, ref_pad, planes, mv_fp, mv16, cost16, lam: int,
 def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                    ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
-                   chroma_me: bool = False) -> dict:
-    """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6
-    and K7, and the merges of stage 4 (plain tensor glue). All planes
+                   chroma_me: bool = False, rd: bool = False) -> dict:
+    """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6,
+    K13 (under rd) and K7, and the merges of stage 4 (plain tensor glue). All planes
     int32 and MB-aligned; ref_* the deblocked reference reconstruction;
     mvp_seed (mb_h, mb_w, 2) the qpel ME predictors. subpel_steps: () at
     subme 1, (2,) at subme 2-3, (2, 1) at subme >= 4; parts / p8x8: the
     16x8 / 8x16 and 8x8 partitions (only with sub-pel steps, as in
-    x264_tpu); chroma_me: the chroma re-rank of subme 5. Returns the
+    x264_tpu); chroma_me: the chroma re-rank of subme >= 5; rd: the RD
+    ladder of subme >= 6 (qtab with make_qtab_p's RD tables). Returns the
     merged syntax planes, the merged pre-deblock reconstruction, the
     16x16 MV (me_mv), the partition type and the quadrant MVs."""
     ref_pad = omc.pad_plane(ref_y.to(I32))
@@ -499,8 +669,10 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
         mv_quad = mv[:, :, None].expand(mb_h, mb_w, 4, 2).contiguous()
     it = p_inter_mb(mb_h, mb_w, y, u, v, planes, refu_pad, refv_pad, ptype,
                     mv_quad, qtab, decimate)
+    rd_costs = rd_inter(mb_h, mb_w, y, u, v, it, ptype, mv_quad, mvp_seed,
+                        qtab) if rd else None
     ip = intra_in_p(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
-                    it["recon_v"], cost_inter, qtab, lam, decimate)
+                    it["recon_v"], cost_inter, qtab, lam, decimate, rd_costs)
     im = ip["intra_mb"]
     luma_blocks = torch.where(im[..., None, None], ip["luma_ac"],
                               it["blocks_z"])
@@ -587,15 +759,15 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
 def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                   ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                   subpel_steps=(), parts: bool = False, p8x8: bool = False,
-                  chroma_me: bool = False) -> dict:
+                  chroma_me: bool = False, rd: bool = False) -> dict:
     """One P frame (pre-deblock) with the keys of x264_tpu's
     encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs=1,
-    t8=False, rd=False, qp_map=None): stages 1-3 (encode_p_front) and the
+    t8=False, rd, qp_map=None): stages 1-3 (encode_p_front) and the
     syntax maps (p_maps_plain). The card's pipeline runs the maps inside
     kernel K8 instead (entropy/cabac_planes.py:cabac_p_ops)."""
     front = encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y, ref_u,
                            ref_v, qtab, lam, mvp_seed, decimate,
-                           subpel_steps, parts, p8x8, chroma_me)
+                           subpel_steps, parts, p8x8, chroma_me, rd)
     out = dict(front, **p_maps_plain(front, mb_h, mb_w))
     del out["me_mv"], out["mv_quad"]
     # the 8x8-transform and multi-reference fields stay zero

@@ -5,8 +5,9 @@ encode_i16_idr_cabac and encode_p_cabac. IDR: the intra wavefront (K1),
 the CABAC op stream (K3), the in-loop deblocking filter (K2) and the
 frame metrics (K4). P: full-pel motion estimation (K5); at subme >= 2
 the half-pel planes (K9), the sub-pel refinement (K10), the chroma-ME
-re-rank (K12, subme 5) and the partition search (K11, then K10 per
-layout); the inter residual (K6), intra-in-P (K7), the syntax maps and
+re-rank (K12, subme >= 5) and the partition search (K11, then K10 per
+layout); the inter residual (K6), at subme >= 6 the inter RD cost (K13),
+intra-in-P (K7, with the RD decision at subme >= 6), the syntax maps and
 op stream (K8), then K2 with the P maps and K4. Everything is queued on
 the device's current stream; only the op stream and one small int32
 vector cross to the host
@@ -86,18 +87,18 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                    chroma_qp_offset: int, mvp_seed, crop_w: int,
                    crop_h: int, with_metrics: bool, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
-                   chroma_me: bool = False) -> dict:
-    """One P frame at subme 1-5 with one reference, CABAC entropy. y / u
+                   chroma_me: bool = False, rd: bool = False) -> dict:
+    """One P frame at subme 1-9 with one reference, CABAC entropy. y / u
     / v: int32 MB-aligned source planes; ref_*: the deblocked reference;
     mvp_seed: (mb_h, mb_w, 2) qpel ME predictors (the previous P frame's
-    MV field); subpel_steps / parts / p8x8 / chroma_me as
+    MV field); subpel_steps / parts / p8x8 / chroma_me / rd as
     inter.encode_p_front takes them. Returns dict(recon_y/u/v (deblocked
     when deblock_on), ops, host32 = [n_ops, n_intra, n_skip, ssd_y,
     ssd_u, ssd_v, ssim], mv (the frame's final 16x16 MV field, the next
     frame's seed), ptype (the final partition types))."""
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
-                                 subpel_steps, parts, p8x8, chroma_me)
+                                 subpel_steps, parts, p8x8, chroma_me, rd)
     maps, ops, n_ops = cabac_planes.cabac_p_ops(front, mb_h, mb_w)
     ry, ru, rv = front["recon_y"], front["recon_u"], front["recon_v"]
     if deblock_on:

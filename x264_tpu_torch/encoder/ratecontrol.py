@@ -2,17 +2,22 @@
 encoder/ratecontrol.c as x264_tpu/encoder/ratecontrol.py implements it.
 
 This slice ports CQP for I and P frames: the frame QP (x264_ratecontrol_start,
-encoder/ratecontrol.c:789, CQP branch), the post-frame accounting
-(x264_ratecontrol_end:1077-1133) and the 2-pass stats file write
-(:1094-1116). CRF / ABR, VBV, scenecut analysis and 2-pass replay come
+encoder/ratecontrol.c:789, CQP branch), the lowres lookahead and the
+scenecut decision (analyse_frame, x264_tpu ratecontrol.py:185-229), the
+post-frame accounting (x264_ratecontrol_end:1077-1133) and the 2-pass
+stats file write (:1094-1116). CRF / ABR, VBV and 2-pass replay come
 with later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import os
+import time
+
+import torch
 
 from ..params import EncoderParams, RC_CQP
+from . import lookahead
 
 
 class RateControlEntry:
@@ -48,6 +53,55 @@ class RateControl:
         self.total_bits = 0
         self.frame_count = 0
         self.entries: list[RateControlEntry] = []
+        # lowres state for scenecut (the device lookahead), the range from
+        # the unclamped i_me_range as x264_tpu takes it
+        self._prev_low = None
+        self._lowres_range = max(4, min(12, params.analyse.i_me_range // 2))
+        # host seconds spent waiting for the lookahead's sums
+        self.lookahead_wait_s = 0.0
+
+    def analyse_frame(self, y, h: int, w: int,
+                      gop_size: int | None = None) -> dict:
+        """Lowres costs and the scenecut decision for the incoming frame
+        (x264_tpu RateControl.analyse_frame): the lookahead kernels on the
+        luma y (the first h x w samples of an int32 plane on the device),
+        on the current stream, then the scenecut rule of
+        encoder/slicetype.c:437-474 with its distance-adaptive bias.
+        gop_size: frames since the last IDR (None: the largest bias). On
+        the card the host reads the two sums through a pinned buffer and
+        waits for the current stream only. Returns {'scenecut': bool,
+        'icost': float, 'pcost': float}."""
+        lows, sums_d = lookahead.analyse(y, h, w, self._prev_low,
+                                         self._lowres_range)
+        if sums_d.device.type == "cpu":
+            isum, psum = (int(x) for x in sums_d)
+        else:
+            host = torch.empty(2, dtype=torch.int32, pin_memory=True)
+            host.copy_(sums_d, non_blocking=True)
+            t = time.perf_counter()
+            torch.cuda.current_stream(sums_d.device).synchronize()
+            self.lookahead_wait_s += time.perf_counter() - t
+            isum, psum = (int(x) for x in host.numpy())
+        out = {"scenecut": False, "icost": float(isum), "pcost": float(psum)}
+        if self._prev_low is not None:
+            # bias ramp (scenecut, slicetype.c:445-462)
+            t_max = self.p.i_scenecut_threshold / 100.0
+            kmin = max(1, self.p.i_keyint_min)
+            kmax = max(kmin + 1, self.p.i_keyint_max)
+            t_min = t_max * kmin / (kmax * 4.0)
+            if gop_size is None or gop_size > kmax:
+                bias = t_max
+            elif gop_size < kmin / 4:
+                bias = t_min / 4
+            elif gop_size <= kmin:
+                bias = t_min * gop_size / kmin
+            else:
+                bias = t_min + (t_max - t_min) * (gop_size - kmin) \
+                    / (kmax - kmin)
+            if isum > 0 and psum >= (1.0 - bias) * isum:
+                out["scenecut"] = True
+        self._prev_low = lows
+        return out
 
     def start(self, frame_type: str, frame_idx: int | None = None) -> int:
         """The frame QP: i_qp_constant for every I and P frame (the

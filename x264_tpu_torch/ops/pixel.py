@@ -1,6 +1,6 @@
 """Batched pixel metrics (common/pixel.c) — plain PyTorch twins of
-x264_tpu/ops/pixel.py: SATD, the mode-decision cost, and the SSIM sum of
-the frame metrics.
+x264_tpu/ops/pixel.py: SATD, the mode-decision cost, the psy-RD AC
+energy, and the SSIM sum of the frame metrics.
 
 SATD keeps the reference's summation structure: the 2-D 4x4 Hadamard
 abs-sum per 4x4 block, halved (>>1) per 8x4 unit (x264_pixel_satd_8x4,
@@ -34,6 +34,14 @@ def satd(a, b):
         pair = s44.reshape(*s44.shape[:-1], w4 // 2, 2).sum(-1, dtype=I32)
         return (pair >> 1).sum((-2, -1), dtype=I32)
     return (s44 >> 1).sum((-2, -1), dtype=I32)
+
+
+def ac_energy(tiles):
+    """AC complexity of (..., 16, 16) tiles for the MB-level psy-RD term
+    (the PIXEL_16x16 branch of ssd_plane, encoder/rdo.c:122-125):
+    SATD(pix, 0) - (pixel_sum >> 1), int32."""
+    return satd(tiles, torch.zeros_like(tiles)) \
+        - (tiles.to(I32).sum((-2, -1), dtype=I32) >> 1)
 
 
 # ssim_c1/c2 constants of ssim_end1 (common/pixel.c:464-466)
