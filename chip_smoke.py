@@ -32,29 +32,43 @@ Phases; any failure exits non-zero before the result line:
      the host CABAC of frame 1 at subme 5 on frame 0's recon;
   5. the IPPP main path at subme 1: Encoder on eight 1920x1080 frames,
      keyint 250, subme 1, one reference, scenecut 0, no B frames,
-     otherwise as in 4. K1-K8's launch counts must rise, and frames 0-2
-     (IDR, P, P) must equal the CPU run's payloads and recons;
-  6. IPPP at subme 5: sixteen 1920x1080 frames as in 5 but at subme 5,
+     otherwise as in 4. K1-K8's launch counts must rise, and frames 0-1
+     (IDR, P) must equal the CPU run's payloads and recons;
+  6. IPPP at subme 5: eight 1920x1080 frames as in 5 but at subme 5,
      with the 16x8 / 8x16 / P8x8 partitions and chroma ME. K1-K12's
-     launch counts must rise, frames 0-2 must equal the CPU run's, and a
+     launch counts must rise, frames 0-1 must equal the CPU run's, and a
      torch.profiler trace splits the device time by kernel;
-  7. the slice's main path, IPPP at subme 6 with the scenecut lookahead:
+  7. IPPP at subme 6 with the scenecut lookahead, without the 8x8
+     transform:
      32 1920x1080 frames, subme 6 (the RD ladder, psy-RD 1.0), scenecut
      40, keyint 250, keyint_min 25, otherwise as in 6; frames 26-31 are a
      second picture (make_frames' pan over a smooth texture of its own,
      seed 1: cut_frames), so the lookahead must call an IDR at frame 26
      and nowhere else but frame 0. Every kernel's launch count (K1-K15)
-     must rise, frames 0-2 must equal the CPU run's, every frame's two
+     must rise, frames 0-1 must equal the CPU run's, every frame's two
      lookahead sums must equal their plain versions', and the phase
      reports fps, the median encode(), a P frame's host CABAC, the
      profiler's device split and the host's wait on the lookahead per
      frame.
+  8. bench.py's main path (bench.py:59-91): x264_tpu's defaults at CQP
+     26 with keyint 250 (the 8x8 transform with I8x8 in the IDRs, subme 6
+     with psy-RD 1.0 and the RD transform choice, scenecut 40,
+     keyint_min 25, ref 1, no B frames), nothing else set, on phase 7's
+     32 frames. Every kernel's launch count must rise, frames 0-2 must
+     equal the CPU run's, the IDRs must fall at frames 0 and 26 only, and
+     the IDRs must hold I8x8 MBs and the P frames 8x8-transform MBs; the
+     phase reports fps, the median encode(), a P frame's host CABAC, the
+     profiler's device split and the idle share.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
-reference, and K14 / K15 on a pair of frames of one scene and on a pair
-across the cut. The line before the last is the JSON `kernels` record;
-the last line is {"ok": true, "device": {...}}. Needs one CUDA card,
-nvcc, and triton.
+reference, K14 / K15 on a pair of frames of one scene and on a pair
+across the cut, and the 8x8 transform: K1 with I8x8 and K3 / K2 on its
+output on a frame that I8x8 fits, and K6 (the SA8D and the RD choice),
+K13, K8 and K2 with t8 on frame 1 against frame 0's recon and against
+the 30%-gray reference. The line before the last is the JSON `kernels`
+record (the 8x8 variants as records of their own, each counting the
+launches that took its branch); the last line is
+{"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
 
 from __future__ import annotations
@@ -72,10 +86,12 @@ W, H = 1920, 1080
 QP = 26
 N_INTRA = 4                    # frames of the all-intra main path
 N_IPPP = 8                     # frames of the IPPP path at subme 1
-N_SUBPEL = 16                  # frames of the IPPP path at subme 5
+N_SUBPEL = 8                   # frames of the IPPP path at subme 5
 N_RD = 32                      # frames of the subme-6 + scenecut path
+N_BENCH = 32                   # frames of bench.py's main path (phase 8)
 CUT = 26                       # its first frame of the second picture
-N_CHECK = 3                    # IPPP frames held against the CPU run
+N_CHECK = 3                    # frames of phase 8 held against the CPU
+N_CHECK_EARLY = 2              # and of phases 5-7 (IDR, P)
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
@@ -121,8 +137,25 @@ K6_SUBPEL_OPS_PER_MB = K6_OPS_PER_MB + 256 * 12
 K13_OPS_PER_MB = 26 * 16 * 12 + 384 * 5 + 32 * 130
 K7_RD_OPS_PER_MB = 27 * 16 * 12 + 384 * 5 + 16 * 130
 K14_OPS_PER_SAMPLE = 12
+# the 8x8 transform: K1's I8x8 ladder per MB adds 4 blocks of the edge
+# filter, 9 modes x (64 gathered predictions + an 8x8 Hadamard, ~960
+# ops) and the 8x8 DCT / quant / dequant / IDCT / recon (~2,000 ops); K6
+# per MB adds 4 such 8x8 residuals with decimation (~2,300 ops each) and
+# the SA8D / SATD of the choice; K13 per MB adds 4 walks of 64 steps,
+# the 8x8 recon's SSD and 16 Hadamards
+K1_I8X8_OPS_PER_MB = K1_OPS_PER_MB + 4 * (9 * 960 + 2_000 + 50)
+K6_T8_OPS_PER_MB = K6_SUBPEL_OPS_PER_MB + 4 * 2_300 + 4 * 450 + 16 * 130
+K13_T8_OPS_PER_MB = K13_OPS_PER_MB + 4 * 64 * 12 + 256 * 3 + 16 * 130
 K15_OPS_PER_CAND_SAMPLE = 3
 K15_OPS_PER_BLOCK = 12 * 520 + 2_000
+
+
+T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """One line with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -158,6 +191,33 @@ def cut_frames(w: int, h: int, n: int, frame_cls):
     second = make_frames(w, h, n, frame_cls, seed=1,
                          base=(40 + xx // 12 + yy // 9).astype(np.int32))
     return make_frames(w, h, n, frame_cls)[:CUT] + second[CUT:]
+
+
+def blocky_frame(w: int, h: int, frame_cls, seed: int = 3):
+    """A picture that I8x8 fits (as tests/test_i8x8.py builds them):
+    directional gradients under 8x8-blocky low-frequency noise, detail
+    enough to beat I16, smooth enough that 8x8 beats 4x4."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = ((yy * 2 + xx * 3) // 2) % 256
+    low = rng.integers(-20, 20, (h // 8 + 1, w // 8 + 1))
+    y = (base + np.kron(low, np.ones((8, 8), np.int64))[:h, :w]) \
+        .clip(0, 255).astype(np.uint8)
+    u = (128 + xx[::2, ::2] // 4).clip(0, 255).astype(np.uint8)
+    v = (128 - yy[::2, ::2] // 4).clip(0, 255).astype(np.uint8)
+    return frame_cls(y, u, v)
+
+
+def bench_params(EncoderParams, frame_parallel: int = 3):
+    """bench.py's main path (bench.py:59-91): x264_tpu's defaults with
+    CQP 26 and keyint 250, nothing else set (the 8x8 transform with
+    I8x8, subme 6 with psy-RD 1.0, scenecut 40, keyint_min 25, ref 1, no
+    B frames)."""
+    p = EncoderParams(i_width=W, i_height=H, i_keyint_max=250,
+                      i_log_level=0, i_frame_parallel=frame_parallel)
+    p.rc.i_rc_method = 0            # CQP
+    p.rc.i_qp_constant = QP
+    return p
 
 
 def params(EncoderParams, frame_parallel: int, keyint: int = 1,
@@ -252,11 +312,15 @@ def drive(enc, frames):
 
 
 def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
-                what: str, subme: int = 1, scenecut: int = 0) -> None:
-    """The first n frames of a card run against Encoder(device="cpu")."""
-    cpu = x264_tpu_torch.Encoder(
-        params(x264_tpu_torch.EncoderParams, 1, keyint, subme, scenecut),
-        device="cpu")
+                what: str, subme: int = 1, scenecut: int = 0,
+                make=None) -> None:
+    """The first n frames of a card run against Encoder(device="cpu");
+    make(EncoderParams, frame_parallel) builds other parameters than
+    params()."""
+    stamp(f"{what}: the CPU run")
+    p = make(x264_tpu_torch.EncoderParams, 1) if make else \
+        params(x264_tpu_torch.EncoderParams, 1, keyint, subme, scenecut)
+    cpu = x264_tpu_torch.Encoder(p, device="cpu")
     if cpu.headers() != header:
         fail(f"{what}: headers differ between the card and the CPU")
     for i in range(n):
@@ -321,13 +385,15 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
 
 
 def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
-                 subme: int, scenecut: int = 0) -> None:
+                 subme: int, scenecut: int = 0, make=None) -> None:
     """Device time by kernel over n steady IPPP frames, from a
     torch.profiler trace of the card (CUPTI sees the ctypes launches
     too): per frame, each kernel's share, PyTorch's glue, the busy sum
-    and the host wall; the idle share is 1 - busy / wall."""
+    and the host wall; the idle share is 1 - busy / wall. make: as in
+    same_as_cpu."""
     from torch.profiler import ProfilerActivity, profile
     enc = x264_tpu_torch.Encoder(
+        make(x264_tpu_torch.EncoderParams, 3) if make else
         params(x264_tpu_torch.EncoderParams, 3, 250, subme, scenecut))
     enc.headers()
     for f in frames[:n_warm]:
@@ -356,7 +422,9 @@ def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
         return
     busy = sum(by.values())
     parts = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by.items()))
-    print(f"device split at subme {subme} scenecut {scenecut} over {n} "
+    tag = "bench.py's defaults" if make else \
+        f"subme {subme} scenecut {scenecut}"
+    print(f"device split at {tag} over {n} "
           f"frames (profiled; the "
           f"{len(frames[:n_warm])} frames before are not in it, the flush "
           f"is): per frame ms "
@@ -414,6 +482,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     # ---------------------------------------------------------- 2. build
+    stamp("build")
     t0 = time.perf_counter()
     t_nvcc = cuda.build()
     if native.load() is None:
@@ -422,16 +491,17 @@ def main() -> None:
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ------------------------------------------------------- 3. kernels
+    stamp("phase 3: the kernels")
     frames = make_frames(W, H, max(N_IPPP, N_SUBPEL), x264_tpu_torch.Frame)
     mb_h, mb_w = (H + 15) // 16, W // 16
     nmb = mb_h * mb_w
 
-    def planes(f):
+    def frame_planes(f):
         return tuple(torch.as_tensor(pad_plane(a, mb_h * s, mb_w * s),
                                      device=dev).to(torch.int32)
                      for a, s in ((f.y, 16), (f.u, 8), (f.v, 8)))
 
-    y, u, v = planes(frames[0])
+    y, u, v = frame_planes(frames[0])
     qtab = intra.make_qtab(QP, tables.chroma_qp(QP, 0), dev)
     lam = int(tables.LAMBDA_TABLE[QP])
     rec = {}
@@ -549,7 +619,7 @@ def main() -> None:
     # K5-K8 and K2 with P maps: frame 1 against frame 0's deblocked recon
     # (p2, the plain deblock of K1's recon: the IDR's DPB entry)
     qtab_p = inter.make_qtab_p(QP, tables.chroma_qp(QP, 0), dev)
-    y1, u1, v1 = planes(frames[1])
+    y1, u1, v1 = frame_planes(frames[1])
     mvp0 = torch.zeros((mb_h, mb_w, 2), dtype=torch.int32, device=dev)
     me_range = 16
     p_ms = {}
@@ -865,33 +935,35 @@ def main() -> None:
     qtab_rd = inter.make_qtab_p(QP, tables.chroma_qp(QP, 0), dev, rd_idc=0,
                                 f_psy_rd=1.0)
 
-    def rd_front(ref):
-        """encode_p_front at subme 6 on frame 1 against ref, with the
-        arguments of its rd_inter and intra_in_p calls."""
-        seen, kept = {}, {n: getattr(inter, n)
-                          for n in ("rd_inter", "intra_in_p")}
+    def spied_front(ref, qt, rd: bool, t8: bool, names):
+        """encode_p_front at subme 6 (rd) or 5 on frame 1 against ref, with
+        or without the 8x8 transform, and the arguments of its calls of
+        the wrappers `names`."""
+        seen, kept = {}, {n: getattr(inter, n) for n in names}
 
         def spy(name):
             def call(*a, **k):
                 seen[name] = (a, k)
                 return kept[name](*a, **k)
-            call.launches = kept[name].launches   # the wrapper counts here
+            # the wrapper counts on the name it is called by: the spy's
+            call.__dict__.update(kept[name].__dict__)
             return call
 
         for n in kept:
             setattr(inter, n, spy(n))
         front = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, *ref,
-                                     qtab_rd, lam, mvp0, True, (2, 1), True,
-                                     True, True, True)
+                                     qt, lam, mvp0, True, (2, 1), True,
+                                     True, True, rd, t8)
         for n, f in kept.items():
-            f.launches = getattr(inter, n).launches
+            f.__dict__.update(getattr(inter, n).__dict__)
             setattr(inter, n, f)
         return front, seen
 
     rd_ms = {}
     for ref, tag in (((ry, ru, rv), "frame 1 on frame 0"),
                      (mixed, "frame 1 on the 30%-gray reference")):
-        front6, seen = rd_front(ref)
+        front6, seen = spied_front(ref, qtab_rd, True, False,
+                                   ("rd_inter", "intra_in_p"))
         a13, a7 = seen["rd_inter"][0], seen["intra_in_p"][0]
         if len(a7) != 13 or a7[12] is None:
             fail("encode_p_front at subme 6 did not pass K7 the RD costs")
@@ -1002,6 +1074,177 @@ def main() -> None:
            K15_OPS_PER_CAND_SAMPLE * (2 * r_la + 1) ** 2 * 64 * bh * bw
            + K15_OPS_PER_BLOCK * bh * bw)
 
+    # ------------------------------------------------- the 8x8 transform
+    stamp("phase 3: the 8x8 transform's kernels")
+    # K1 with I8x8, and K3 / K2 on its output, on a frame that I8x8 fits
+    yb, ub, vb = frame_planes(blocky_frame(W, H, x264_tpu_torch.Frame))
+    a1b = (mb_h, mb_w, yb, ub, vb, qtab, lam, True)
+    k1b = intra.encode_i16_frame(*a1b)
+    torch.cuda.synchronize()
+    p1b = {}
+    pl1b = event_ms(lambda: p1b.update(intra.encode_i16_frame_plain(*a1b)), 1)
+    err1b = exact("K1 intra_diag with I8x8", k1b, p1b)
+    n_i8 = int(k1b["t8_mb"].sum())
+    if n_i8 == 0:
+        fail("the I8x8 frame sent no MB to I8x8")
+    ms1b = event_ms(lambda: intra.encode_i16_frame(*a1b), 3)
+    record("intra_diag_i8x8", "cuda", "x264_tpu_torch/csrc/intra.cu",
+           "x264_tpu/encoder/intra.py:647", err1b, ms1b, pl1b,
+           nbytes(yb, ub, vb) + nbytes(*k1b.values()),
+           K1_I8X8_OPS_PER_MB * nmb)
+    ms1_same = event_ms(lambda: intra.encode_i16_frame(*a1b[:-1]), 3)
+    keys3b = ("mode16", "modec", "i4_mb", "i4_modes", "cbp_luma_bits",
+              "luma_dc", "luma_ac", "chroma_dc", "chroma_ac", "t8_mb",
+              "luma8_z")
+    ops_b, nk_b = cabac_planes.i_slice_ops(k1b, mb_h, mb_w, True)
+    pl3b = {}
+    pl3b_ms = event_ms(lambda: pl3b.update(zip(("ops", "n"), (
+        cabac_planes.i_slice_ops_plain(k1b, mb_h, mb_w, True)))), 1)
+    n_ops_b = int(pl3b["n"])
+    if int(nk_b) != n_ops_b:
+        fail(f"K3 cabac_i_ops with I8x8 counts {int(nk_b)} ops, its plain "
+             f"version {n_ops_b}")
+    err3b = exact("K3 cabac_i_ops with I8x8", [ops_b[:n_ops_b]],
+                  [pl3b["ops"][:n_ops_b]])
+    ms3b = event_ms(lambda: cabac_planes.i_slice_ops(k1b, mb_h, mb_w, True),
+                    20)
+    record("cabac_i_ops_t8", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+           "x264_tpu/entropy/cabac_planes.py:104", err3b, ms3b, pl3b_ms,
+           nbytes(*(k1b[k] for k in keys3b)) + 4 * n_ops_b + 4,
+           K3_OPS_PER_OP * n_ops_b + K3_OPS_PER_MB * nmb)
+    maps_b = (qp_mb, intra_mb, z4, z4, zmv, z4, zmv, False, 0, 0, 0,
+              k1b["t8_mb"])
+    src_b = (k1b["recon_y"], k1b["recon_u"], k1b["recon_v"])
+    work_b = []
+
+    def fresh_b():
+        work_b[:] = [t.clone() for t in src_b]
+
+    fresh_b()
+    p2b = {}
+    pl2b = event_ms(lambda: p2b.update(zip("yuv", deblock.deblock_frame_plain(
+        mb_h, mb_w, *work_b, *maps_b))), 1)
+    fresh_b()
+    k2b = dict(zip("yuv", deblock.deblock_frame(mb_h, mb_w, *work_b,
+                                                *maps_b)))
+    err2b = exact("K2 deblock_diag with an I8x8 map", k2b, p2b)
+    ms2b = event_ms(lambda: deblock.deblock_frame(mb_h, mb_w, *work_b,
+                                                  *maps_b), 5, setup=fresh_b)
+    record("deblock_diag_t8", "cuda", "x264_tpu_torch/csrc/deblock.cu",
+           "x264_tpu/ops/deblock.py:203", err2b, ms2b, pl2b,
+           2 * nbytes(*src_b) + nbytes(qp_mb, intra_mb, z4, z4, zmv,
+                                       k1b["t8_mb"]), K2_OPS_PER_MB * nmb)
+    ops_bh = ops_b[:n_ops_b].cpu().numpy().view(np.uint32)
+    t = time.perf_counter()
+    payload_b, _ = ecabac.encode_ops(ctab.init_states(True, QP, 0), ops_bh, 0)
+    cabac_b = (time.perf_counter() - t) * 1e3
+    print(f"I8x8 frame: {n_i8} of {nmb} MBs take I8x8; K1 with I8x8 "
+          f"{ms1b:.3f} ms ({len(intra.diagonals(mb_h, mb_w, True))} "
+          f"launches), without {ms1_same:.3f} ms on the same frame; host "
+          f"CABAC of {n_ops_b} ops into {len(payload_b)} bytes "
+          f"{cabac_b:.3f} ms", flush=True)
+
+    # K6 (the SA8D choice of subme 5, both codings at subme 6), K13 with
+    # the RD choice, K8 and K2 with t8: frame 1 against frame 0's recon and
+    # against the gray-masked reference, with the arguments of
+    # encode_p_front's own calls
+    t8_ms = {}
+    for ref, tag in (((ry, ru, rv), "frame 1 on frame 0"),
+                     (mixed, "frame 1 on the 30%-gray reference")):
+        _, s5 = spied_front(ref, qtab_p, False, True, ("p_inter_mb",))
+        a6s = s5["p_inter_mb"][0]
+        k6s = inter.p_inter_mb(*a6s)
+        err6s = exact(f"K6 p_inter_mb with the SA8D choice ({tag})", k6s,
+                      inter.p_inter_mb_plain(*a6s))
+        front8, s6 = spied_front(ref, qtab_rd, True, True,
+                                 ("p_inter_mb", "rd_inter"))
+        a6r, a13t = s6["p_inter_mb"][0], s6["rd_inter"][0]
+        k6r = inter.p_inter_mb(*a6r)
+        err6r = exact(f"K6 p_inter_mb with both codings ({tag})", k6r,
+                      inter.p_inter_mb_plain(*a6r))
+        k13t = inter.rd_inter(*a13t)
+        p13t = inter.rd_inter_plain(*a13t)
+        if not all(torch.equal(a, b) for a, b in zip(k13t[:2], p13t[:2])):
+            fail(f"K13 rd_inter with t8 ({tag}) differs from its plain "
+                 f"version")
+        err13t = exact(f"K13 rd_inter's t8 choice ({tag})", k13t[2], p13t[2])
+        maps8, ops8t, nk8 = cabac_planes.cabac_p_ops(front8, mb_h, mb_w,
+                                                     t8_mode=True)
+        pmaps8, pops8t, pn8 = cabac_planes.cabac_p_ops_plain(front8, mb_h,
+                                                             mb_w, True)
+        n_ops8t = int(pn8)
+        if int(nk8) != n_ops8t:
+            fail(f"K8 cabac_p_ops with t8 ({tag}) counts {int(nk8)} ops, "
+                 f"its plain version {n_ops8t}")
+        err8t = max(exact(f"K8 cabac_p_ops maps with t8 ({tag})", maps8,
+                          pmaps8),
+                    exact(f"K8 cabac_p_ops ops with t8 ({tag})",
+                          [ops8t[:n_ops8t]], [pops8t[:n_ops8t]]))
+        qp_mb8 = torch.full((mb_h, mb_w), QP, dtype=torch.int32, device=dev)
+        maps2t = (qp_mb8, front8["intra_mb"], maps8["nnz4"], maps8["ref4"],
+                  maps8["mv4"], z4, zmv, False, 0, 0, 0, maps8["t8_mb"])
+        src8 = (front8["recon_y"], front8["recon_u"], front8["recon_v"])
+        exact(f"K2 deblock_diag with t8 P maps ({tag})", dict(zip(
+            "yuv", deblock.deblock_frame(mb_h, mb_w, *[t.clone() for t in src8],
+                                         *maps2t))), dict(zip(
+            "yuv", deblock.deblock_frame_plain(mb_h, mb_w, *src8, *maps2t))))
+        n_sel5 = int(k6s["t8_sel"].sum())
+        n_sel6 = int(k13t[2]["t8_sel"].sum())
+        n_t8 = int(maps8["t8_mb"].sum())
+        print(f"t8 kernels ({tag}): exact; the SA8D choice takes 8x8 in "
+              f"{n_sel5} MBs, the RD choice in {n_sel6}, {n_t8} MBs coded "
+              f"with it (t8_mb), {n_ops8t} ops", flush=True)
+        if n_sel5 == 0 or n_sel6 == 0 or n_t8 == 0:
+            fail(f"the 8x8 transform was not chosen ({tag}): SA8D {n_sel5}, "
+                 f"RD {n_sel6}, coded {n_t8}")
+        if t8_ms:
+            continue
+        t8_ms.update(
+            k6s=event_ms(lambda: inter.p_inter_mb(*a6s), 10),
+            pl6s=event_ms(lambda: inter.p_inter_mb_plain(*a6s), 1),
+            k6r=event_ms(lambda: inter.p_inter_mb(*a6r), 10),
+            pl6r=event_ms(lambda: inter.p_inter_mb_plain(*a6r), 1),
+            k6o=event_ms(lambda: inter.p_inter_mb(*a6r[:-1]), 10),
+            k13=event_ms(lambda: inter.rd_inter(*a13t), 10),
+            pl13=event_ms(lambda: inter.rd_inter_plain(*a13t), 1),
+            k8=event_ms(lambda: cabac_planes.cabac_p_ops(
+                front8, mb_h, mb_w, t8_mode=True), 20),
+            pl8=event_ms(lambda: cabac_planes.cabac_p_ops_plain(
+                front8, mb_h, mb_w, True), 1))
+        it_in = a13t[5]
+        record("p_inter_mb_t8_sa8d", "cuda", "x264_tpu_torch/csrc/inter.cu",
+               "x264_tpu/encoder/inter.py:163", err6s, t8_ms["k6s"],
+               t8_ms["pl6s"], nbytes(*a6s[2:10], *k6s.values()),
+               K6_T8_OPS_PER_MB * nmb)
+        record("p_inter_mb_t8_rd", "cuda", "x264_tpu_torch/csrc/inter.cu",
+               "x264_tpu/encoder/inter.py:163", err6r, t8_ms["k6r"],
+               t8_ms["pl6r"], nbytes(*a6r[2:10], *k6r.values()),
+               K6_T8_OPS_PER_MB * nmb)
+        record("rd_inter_t8", "cuda", "x264_tpu_torch/csrc/rdcost.cu",
+               "x264_tpu/encoder/inter.py:535", err13t, t8_ms["k13"],
+               t8_ms["pl13"],
+               nbytes(*a13t[2:5], *(it_in[k] for k in (
+                   "recon_y", "recon_u", "recon_v", "blocks_z", "cbp",
+                   "chroma_dc", "chroma_ac", "recon8_y", "blocks8_z",
+                   "cbp8")), *a13t[6:9], qtab_rd["rdtab"], *k13t[:2],
+                   *k13t[2].values()), K13_T8_OPS_PER_MB * nmb)
+        record("cabac_p_ops_t8", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+               "x264_tpu/entropy/cabac_planes.py:759", err8t, t8_ms["k8"],
+               t8_ms["pl8"],
+               nbytes(*(front8[k] for k in keys8 + ("t8_sel", "luma8_z")),
+                      *maps8.values()) + 4 * n_ops8t + 4,
+               K3_OPS_PER_OP * n_ops8t + K3_OPS_PER_MB * nmb)
+        live8 = ops8t[:n_ops8t].cpu().numpy().view(np.uint32)
+        t = time.perf_counter()
+        payload8, _ = ecabac.encode_ops(ctab.init_states(False, QP, 0),
+                                        live8, 0)
+        t8_ms["cabac"] = (time.perf_counter() - t) * 1e3
+        print(f"P frame at bench.py's defaults on frame 0's recon: host "
+              f"CABAC of {n_ops8t} ops into {len(payload8)} bytes "
+              f"{t8_ms['cabac']:.3f} ms; K6 with both codings "
+              f"{t8_ms['k6r']:.3f} ms against {t8_ms['k6o']:.3f} ms "
+              f"without the 8x8 transform", flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -1017,20 +1260,38 @@ def main() -> None:
                 "rd_inter": inter.rd_inter,
                 "lowres_planes": lookahead.lowres_planes,
                 "lowres_cost": lookahead.lowres_cost}
+    # the 8x8 variants: the wrapper and its count of the launches that
+    # took the variant's branch
+    variants = {"intra_diag_i8x8": (intra.encode_i16_frame, "launches_i8x8"),
+                "cabac_i_ops_t8": (cabac_planes.i_slice_ops, "launches_t8"),
+                "deblock_diag_t8": (deblock.deblock_frame, "launches_t8"),
+                "p_inter_mb_t8_sa8d": (inter.p_inter_mb, "launches_t8_sa8d"),
+                "p_inter_mb_t8_rd": (inter.p_inter_mb, "launches_t8_rd"),
+                "rd_inter_t8": (inter.rd_inter, "launches_t8"),
+                "cabac_p_ops_t8": (cabac_planes.cabac_p_ops, "launches_t8")}
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
-                  scenecut: int = 0, src=None):
+                  scenecut: int = 0, src=None, make=None):
         """Encoder on the first n frames of src (make_frames' by default)
         at 1080p, the launch counts set to 0 just before and read just
-        after; returns (frames, summary, launches, header, fps, median
-        encode() ms, the encoder)."""
+        after (the 8x8 variants' among them, which must stay 0 without
+        make, whose parameters turn the 8x8 transform off); make: as in
+        same_as_cpu. Returns (frames, summary, launches, header, fps,
+        median encode() ms, the encoder)."""
         enc = x264_tpu_torch.Encoder(
+            make(x264_tpu_torch.EncoderParams, 3) if make else
             params(x264_tpu_torch.EncoderParams, 3, keyint, subme, scenecut))
         header = enc.headers()
         for w in wrappers.values():
             w.launches = 0
+        for w, count in variants.values():
+            setattr(w, count, 0)
         done, wall, call_ms = drive(enc, (src or frames)[:n])
         launches = {k: w.launches for k, w in wrappers.items()}
+        launches.update({k: getattr(w, count)
+                         for k, (w, count) in variants.items()})
+        if make is None and any(launches[k] for k in variants):
+            fail(f"{what}: an 8x8 branch ran without the 8x8 transform")
         summary = enc.close()
         if len(done) != n:
             fail(f"{what}: {len(done)} frames came out of {n}")
@@ -1041,6 +1302,7 @@ def main() -> None:
             statistics.median(call_ms[2:]), enc
 
     # ----------------------------------------------- 4. all-intra path
+    stamp("phase 4")
     done, summary, launches_i, header, fps, med, _ = main_path(
         1, N_INTRA, "all-intra")
     for k in ("intra_diag", "cabac_i_ops", "deblock_diag", "frame_metrics"):
@@ -1055,17 +1317,19 @@ def main() -> None:
     same_as_cpu(x264_tpu_torch, done, frames, header, 1, 1, "all-intra")
 
     # ---------------------------------------- 5. IPPP path at subme 1
+    stamp("phase 5")
     done, summary, launches_1, header, fps, med, enc = main_path(
         250, N_IPPP, "IPPP subme 1")
     for k in list(wrappers)[:8]:
         if launches_1[k] <= 0:
             fail(f"kernel {k} was not launched on the IPPP subme-1 path")
     ippp_report(done, summary, enc.stats, fps, med, N_IPPP, 1, smi_line, nmb)
-    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250,
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK_EARLY, 250,
                 "IPPP subme 1")
     device_split(x264_tpu_torch, frames, 4, 4, 1)
 
     # ------------------------------------------- 6. IPPP at subme 5
+    stamp("phase 6")
     ptypes = []
     encode_p = pipeline.encode_p_cabac
 
@@ -1087,11 +1351,12 @@ def main() -> None:
     ippp_report(done, summary, enc.stats, fps, med, N_SUBPEL, SUBME,
                 smi_line, nmb, f", ptype histogram over the P frames (intra "
                 f"MBs as 0) {hist}")
-    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK, 250,
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK_EARLY, 250,
                 f"IPPP subme {SUBME}", SUBME)
-    device_split(x264_tpu_torch, frames, 4, 8, SUBME)
+    device_split(x264_tpu_torch, frames, 4, 4, SUBME)
 
-    # ------ 7. the slice's main path: IPPP at subme 6 with the lookahead
+    # -------- 7. IPPP at subme 6 with the lookahead, without 8x8dct
+    stamp("phase 7")
     la_sums = []
     analyse = ratecontrol.RateControl.analyse_frame
 
@@ -1105,13 +1370,9 @@ def main() -> None:
     done, summary, launches_6, header, fps, med, enc = main_path(
         250, N_RD, what7, 6, 40, cut)
     ratecontrol.RateControl.analyse_frame = analyse
-    for k, n in launches_6.items():
-        if n <= 0:
+    for k in wrappers:
+        if launches_6[k] <= 0:
             fail(f"kernel {k} was not launched on the {what7} path")
-        rec[k]["launches"] = n
-        rec[k]["launches_ippp_subme5"] = launches_5[k]
-        rec[k]["launches_ippp_subme1"] = launches_1[k]
-        rec[k]["launches_all_intra"] = launches_i[k]
     # every frame's lookahead sums against the plain versions
     prev = None
     for i, f in enumerate(cut):
@@ -1131,9 +1392,62 @@ def main() -> None:
                 f"{enc.rc.lookahead_wait_s / N_RD * 1e3:.3f} ms a frame, "
                 f"host CABAC of a subme-6 P frame {cabac6:.3f} ms",
                 idrs=(0, CUT))
-    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK, 250, what7, 6,
-                40)
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250, what7,
+                6, 40)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40)
+
+    # ------------------------- 8. bench.py's main path: the defaults at CQP
+    stamp("phase 8")
+    t8_seen = {"IDR": [], "P": []}
+    encode_idr, encode_p = pipeline.encode_i16_idr_cabac, \
+        pipeline.encode_p_cabac
+
+    def seen_t8(fn, kind):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            t8_seen[kind].append(out.get("t8_mb"))
+            return out
+        return call
+
+    pipeline.encode_i16_idr_cabac = seen_t8(encode_idr, "IDR")
+    pipeline.encode_p_cabac = seen_t8(encode_p, "P")
+    what8 = "bench.py main path"
+    done, summary, launches_8, header, fps, med, enc = main_path(
+        250, N_BENCH, what8, src=cut, make=bench_params)
+    pipeline.encode_i16_idr_cabac, pipeline.encode_p_cabac = encode_idr, \
+        encode_p
+    if not (enc._t8 and enc._i8x8 and enc._rd and enc._analyse_lowres):
+        fail(f"{what8}: the defaults did not turn on the 8x8 transform, "
+             f"I8x8, the RD ladder and the lookahead")
+    # subme 6 takes the RD transform choice: the SA8D branch stays idle
+    for k, n in launches_8.items():
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d"):
+            fail(f"kernel {k} was launched {n} times on the {what8}")
+    for name, r in rec.items():
+        r.update(launches=launches_8[name],
+                 launches_ippp_subme6=launches_6[name],
+                 launches_ippp_subme5=launches_5[name],
+                 launches_ippp_subme1=launches_1[name],
+                 launches_all_intra=launches_i[name])
+    if any(t is None for v in t8_seen.values() for t in v):
+        fail(f"{what8}: a frame ran without the 8x8 transform")
+    i8_per_idr = [int(t.sum()) for t in t8_seen["IDR"]]
+    t8_per_p = [int(t.sum()) for t in t8_seen["P"]]
+    if len(i8_per_idr) != 2 or min(i8_per_idr) == 0 or sum(t8_per_p) == 0:
+        fail(f"{what8}: I8x8 MBs per IDR {i8_per_idr}, 8x8-transform MBs "
+             f"over the P frames {sum(t8_per_p)}")
+    ippp_report(done, summary, enc.stats, fps, med, N_BENCH, 6, smi_line,
+                nmb, f", defaults (8x8dct, I8x8), IDRs at frames 0 and {CUT} "
+                f"with {i8_per_idr} I8x8 MBs, "
+                f"{statistics.mean(t8_per_p):.1f} 8x8-transform MBs per P "
+                f"frame, host wait on the lookahead "
+                f"{enc.rc.lookahead_wait_s / N_BENCH * 1e3:.3f} ms a frame, "
+                f"host CABAC of a P frame at these settings "
+                f"{t8_ms['cabac']:.3f} ms", idrs=(0, CUT))
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK, 250, what8,
+                make=bench_params)
+    device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=bench_params)
+    stamp("done")
 
     print(json.dumps({"kernels": list(rec.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

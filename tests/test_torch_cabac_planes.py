@@ -89,8 +89,8 @@ def test_p_op_stream_matches_jax(kind, monkeypatch):
                                   tops.numpy().view(np.uint32)[:n])
     for k, t in maps.items():
         assert torch.equal(t, out[k]), k
-    with pytest.raises(NotImplementedError):
-        tcp.cabac_p_ops(front, MB_H, MB_W, t8_mode=True)
+    with pytest.raises(NotImplementedError):        # two references
+        tcp.cabac_p_ops(front, MB_H, MB_W, n_refs=2)
 
     live = tops.numpy().view(np.uint32)[:n]
     code = lambda: tcabac.encode_ops(tctab.init_states(False, qp, 0), live,

@@ -3,7 +3,8 @@ chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
 non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-9,
-scenecut lookahead) slices raise NotImplementedError."""
+scenecut lookahead, the 8x8 transform and I8x8) slices raise
+NotImplementedError."""
 
 import ast
 import pathlib
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 import x264_tpu_torch
-from x264_tpu_torch.encoder import intra
+from x264_tpu_torch.encoder import inter, intra
+from x264_tpu_torch.entropy import cabac_planes
+from x264_tpu_torch.ops import deblock
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "x264_tpu")
@@ -90,7 +93,7 @@ def test_encoder_default_device_needs_a_card():
 @pytest.mark.parametrize("field,value", [
     ("analyse__i_noise_reduction", 100), ("b_cabac", False),
     ("rc__i_rc_method", 1),
-    ("analyse__b_transform_8x8", True), ("i_bframe", 2),
+    ("i_cqm_preset", 1), ("i_bframe", 2),
     ("analyse__i_trellis", 1), ("rc__i_qp_constant", 0)])
 def test_outside_the_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
@@ -112,7 +115,7 @@ def test_the_ippp_slice_opens():
 @pytest.mark.parametrize("change", [
     dict(i_frame_reference=3), dict(i_bframe=1),
     dict(analyse__i_trellis=2), dict(i_frame_reference=2),
-    dict(i_bframe=2), dict(analyse__b_transform_8x8=True),
+    dict(i_bframe=2), dict(analyse__intra=0),
     dict(b_cabac=False), dict(rc__i_rc_method=1),
     dict(rc__i_rc_method=2, rc__i_bitrate=2000),
     dict(rc__i_rc_method=1, rc__i_aq_mode=1), dict(analyse__i_trellis=1),
@@ -159,12 +162,13 @@ def test_the_defaults_without_8x8dct_open():
 
 
 def test_subme6_names_its_slice():
-    """subme 6 with the rest of x264_tpu's defaults (8x8dct on) names the
-    slice that is still to come."""
-    with pytest.raises(NotImplementedError, match=r"the 8x8dct slice"):
-        x264_tpu_torch.Encoder(
-            _p_params(analyse__i_subpel_refine=6, i_scenecut_threshold=40,
-                      analyse__b_transform_8x8=True), device="cpu")
+    """subme 6 with the rest of x264_tpu's defaults (8x8dct and I8x8 on,
+    psy-RD, scenecut 40) at CQP: bench.py's main path, now open."""
+    enc = x264_tpu_torch.Encoder(
+        _p_params(analyse__i_subpel_refine=6, i_scenecut_threshold=40,
+                  analyse__b_transform_8x8=True), device="cpu")
+    assert enc._t8 and enc._i8x8 and enc._rd and enc._analyse_lowres
+    enc.close()
 
 
 def test_reconfig_and_forced_b_raise():
@@ -184,3 +188,63 @@ def test_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         intra.encode_i16_frame(mb_h, mb_w, t(16, 32), t(8, 16), t(8, 16),
                                qtab, 1)
+
+
+def _meta_wrapper_calls():
+    """Each wrapper this slice touched, called at its 8x8 path on tensors
+    that are neither on the CPU nor on a card."""
+    mb_h, mb_w, H, W = 1, 2, 16, 32
+    t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
+    b = lambda *s: t(*s, dt=torch.bool)
+    q = inter.make_qtab_p(26, 26, "cpu", rd_idc=0, f_psy_rd=1.0)
+    q = {k: (v.to("meta") if torch.is_tensor(v) else v)
+         for k, v in q.items()}
+    i_out = dict(mode16=t(mb_h, mb_w), modec=t(mb_h, mb_w), i4_mb=b(mb_h, mb_w),
+                 i4_modes=t(mb_h, mb_w, 4, 4), cbp_luma_bits=t(mb_h, mb_w),
+                 luma_dc=t(mb_h, mb_w, 16), luma_ac=t(mb_h, mb_w, 16, 16),
+                 chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16), t8_mb=b(mb_h, mb_w),
+                 luma8_z=t(mb_h, mb_w, 4, 64))
+    planes = (t(1, H + 64, W + 64), t(H // 2 + 32, W // 2 + 32),
+              t(H // 2 + 32, W // 2 + 32))
+    k6 = (mb_h, mb_w, t(H, W), t(H // 2, W // 2), t(H // 2, W // 2), *planes,
+          t(mb_h, mb_w), t(mb_h, mb_w, 4, 2), q, True)
+    it = dict(recon_y=t(H, W), recon_u=t(H // 2, W // 2),
+              recon_v=t(H // 2, W // 2), blocks_z=t(mb_h, mb_w, 16, 16),
+              cbp=t(mb_h, mb_w), chroma_dc=t(mb_h, mb_w, 2, 4),
+              chroma_ac=t(mb_h, mb_w, 2, 4, 16), recon8_y=t(H, W),
+              blocks8_z=t(mb_h, mb_w, 4, 64), cbp8=t(mb_h, mb_w))
+    front = dict(intra_mb=b(mb_h, mb_w), me_mv=t(mb_h, mb_w, 2),
+                 ptype=t(mb_h, mb_w), mv_quad=t(mb_h, mb_w, 4, 2),
+                 mode16=t(mb_h, mb_w), modec=t(mb_h, mb_w),
+                 cbp_luma_bits=t(mb_h, mb_w), cbp_chroma=t(mb_h, mb_w),
+                 luma_dc=t(mb_h, mb_w, 16), luma_blocks=t(mb_h, mb_w, 16, 16),
+                 chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16), t8_sel=b(mb_h, mb_w),
+                 luma8_z=t(mb_h, mb_w, 4, 64))
+    z4 = t(mb_h * 4, mb_w * 4)
+    return {
+        "K1 i8x8": lambda: intra.encode_i16_frame(
+            mb_h, mb_w, t(H, W), t(H // 2, W // 2), t(H // 2, W // 2), q, 1,
+            True),
+        "K3 t8": lambda: cabac_planes.i_slice_ops(i_out, mb_h, mb_w, True),
+        "K2 t8": lambda: deblock.deblock_frame(
+            mb_h, mb_w, t(H, W), t(H // 2, W // 2), t(H // 2, W // 2),
+            t(mb_h, mb_w), b(mb_h, mb_w), z4, z4, t(mb_h * 4, mb_w * 4, 2),
+            z4, t(mb_h * 4, mb_w * 4, 2), False, 0, 0, 0, b(mb_h, mb_w)),
+        "K6 sa8d": lambda: inter.p_inter_mb(*k6, inter.T8_SA8D),
+        "K6 rd": lambda: inter.p_inter_mb(*k6, inter.T8_RD),
+        "K13 t8": lambda: inter.rd_inter(
+            mb_h, mb_w, t(H, W), t(H // 2, W // 2), t(H // 2, W // 2), it,
+            t(mb_h, mb_w), t(mb_h, mb_w, 4, 2), t(mb_h, mb_w, 2), q),
+        "K8 t8": lambda: cabac_planes.cabac_p_ops(front, mb_h, mb_w,
+                                                  t8_mode=True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_wrapper_calls()))
+def test_t8_wrappers_never_fall_back_off_the_cpu(name):
+    """The wrappers of the 8x8-transform slice launch their kernel (or
+    raise) on any tensor that is not on the CPU, at their 8x8 paths."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_wrapper_calls()[name]()

@@ -1,8 +1,10 @@
 """The port's CUDA / Triton kernels against their plain PyTorch versions
 on the card, at small frames (K1-K15, K6 and K8 also with random
-partition layouts and quarter-pel MVs, K7 also with the RD decision),
-and the card's Encoder against the CPU's at subme 1, 2, 5 and 6 (the
-last with the scenecut lookahead).
+partition layouts and quarter-pel MVs, K7 also with the RD decision; K1
+with I8x8, K3 / K2 on its output, K6 / K13 / K8 / K2 with the 8x8
+transform), and the card's Encoder against the CPU's at subme 1, 2, 5
+and 6 (the last with the scenecut lookahead, and at x264_tpu's defaults
+with the 8x8 transform and I8x8).
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -41,29 +43,45 @@ def _frame(dev, seed=0):
             t(128 + rng.integers(-20, 20, (h // 2, w // 2))))
 
 
-def _intra(dev, qp=26):
-    y, u, v = _frame(dev, qp)
+def _blocky(dev, seed=3):
+    """A directional gradient under 8x8-blocky noise, which I8x8 fits."""
+    rng = np.random.default_rng(seed)
+    h, w = MB_H * 16, MB_W * 16
+    yy, xx = np.mgrid[0:h, 0:w]
+    low = np.kron(rng.integers(-20, 20, (h // 8, w // 8)), np.ones((8, 8)))
+    t = lambda a: torch.as_tensor(np.clip(a, 0, 255), dtype=torch.int32,
+                                  device=dev)
+    return (t((yy * 2 + xx * 3) // 2 % 256 + low),
+            t(128 + xx[::2, ::2] // 4), t(128 - yy[::2, ::2] // 4))
+
+
+def _intra(dev, qp=26, i8x8=False):
+    y, u, v = _blocky(dev) if i8x8 else _frame(dev, qp)
     q = intra.make_qtab(qp, tables.chroma_qp(qp), dev)
     lam = int(tables.LAMBDA_TABLE[qp])
-    return (y, u, v), intra.encode_i16_frame(MB_H, MB_W, y, u, v, q, lam), \
-        (q, lam)
+    return (y, u, v), intra.encode_i16_frame(MB_H, MB_W, y, u, v, q, lam,
+                                             i8x8), (q, lam)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qp", [18, 26, 38])
-def test_intra_kernel_matches_plain(card, qp):
-    (y, u, v), k, (q, lam) = _intra(card, qp)
-    p = intra.encode_i16_frame_plain(MB_H, MB_W, y, u, v, q, lam)
+@pytest.mark.parametrize("qp,i8x8", [(18, False), (26, False), (38, False),
+                                     (26, True), (38, True)])
+def test_intra_kernel_matches_plain(card, qp, i8x8):
+    (y, u, v), k, (q, lam) = _intra(card, qp, i8x8)
+    p = intra.encode_i16_frame_plain(MB_H, MB_W, y, u, v, q, lam, i8x8)
+    assert set(k) == set(p)
     for key in p:
         assert torch.equal(k[key], p[key]), key
+    if i8x8:
+        assert p["t8_mb"].any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qp", [18, 38])
-def test_cabac_ops_kernel_matches_plain(card, qp):
-    _, out, _ = _intra(card, qp)
-    k_ops, k_n = cabac_planes.i_slice_ops(out, MB_H, MB_W)
-    p_ops, p_n = cabac_planes.i_slice_ops_plain(out, MB_H, MB_W)
+@pytest.mark.parametrize("qp,i8x8", [(18, False), (38, False), (26, True)])
+def test_cabac_ops_kernel_matches_plain(card, qp, i8x8):
+    _, out, _ = _intra(card, qp, i8x8)
+    k_ops, k_n = cabac_planes.i_slice_ops(out, MB_H, MB_W, i8x8)
+    p_ops, p_n = cabac_planes.i_slice_ops_plain(out, MB_H, MB_W, i8x8)
     n = int(p_n)
     assert int(k_n) == n and torch.equal(k_ops[:n], p_ops[:n])
 
@@ -89,10 +107,13 @@ def _deblock_maps(kind, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["intra", "random"])
+@pytest.mark.parametrize("kind", ["intra", "random", "i8x8"])
 def test_deblock_kernel_matches_plain(card, kind):
-    _, out, _ = _intra(card)
-    args = _deblock_maps(kind, card)
+    """i8x8: the IDR maps with the t8_mb map of an I8x8 frame."""
+    _, out, _ = _intra(card, 26, kind == "i8x8")
+    args = _deblock_maps("random" if kind == "random" else "intra", card)
+    if kind == "i8x8":
+        args = (*args, out["t8_mb"])
     src = [out[k] for k in ("recon_y", "recon_u", "recon_v")]
     p = deblock.deblock_frame_plain(MB_H, MB_W, *src, *args)
     k = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *args)
@@ -147,7 +168,18 @@ def test_encoder_on_the_card_matches_the_cpu(card):
 def _p_frame(dev, kind, qp=26):
     """Frame 1 and a reference: the reference moved by a few pixels
     ("inter"), or with 2x2-MB gray blocks that send MBs intra in chains
-    deeper than the three sweeps ("intra")."""
+    deeper than the three sweeps ("intra"), or ("t8") a blocky gradient
+    moved, with a different level on each 8x8 block of the reference, a
+    residual that the 8x8 transform codes best."""
+    if kind == "t8":
+        y, u, v = _blocky(dev)
+        ref = [torch.roll(t, (2, 2), (0, 1)) for t in (y, u, v)]
+        off = np.kron(np.random.default_rng(5).integers(
+            -6, 7, (MB_H * 2, MB_W * 2)), np.ones((8, 8), np.int64))
+        ref[0] = (ref[0] + torch.as_tensor(off, dtype=torch.int32,
+                                           device=dev)).clamp(0, 255)
+        q = inter.make_qtab_p(qp, tables.chroma_qp(qp), dev)
+        return (y, u, v), ref, q, int(tables.LAMBDA_TABLE[qp])
     y, u, v = _frame(dev, 3)
     ref = [torch.roll(t, (2, 3), (0, 1)) for t in (y, u, v)]
     if kind == "intra":
@@ -205,15 +237,22 @@ def _inter_args(dev, kind, decimate, wild_mvs=False, parts=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("decimate,wild,parts", [
-    (True, False, False), (False, False, False), (True, True, False),
-    (True, False, True), (False, True, True)])
-def test_inter_kernel_matches_plain(card, decimate, wild, parts):
+@pytest.mark.parametrize("decimate,wild,parts,t8", [
+    (True, False, False, 0), (False, False, False, 0), (True, True, False, 0),
+    (True, False, True, 0), (False, True, True, 0),
+    (True, False, True, inter.T8_SA8D), (False, True, True, inter.T8_SA8D),
+    (True, False, True, inter.T8_RD)])
+def test_inter_kernel_matches_plain(card, decimate, wild, parts, t8):
+    """t8: the 8x8 transform with the SA8D choice (subme 5) or both
+    codings for the RD choice (subme 6)."""
     args, _ = _inter_args(card, "inter", decimate, wild, parts)
-    k = inter.p_inter_mb(*args)
-    p = inter.p_inter_mb_plain(*args)
+    k = inter.p_inter_mb(*args, t8)
+    p = inter.p_inter_mb_plain(*args, t8)
+    assert set(k) == set(p)
     for key in p:
         assert torch.equal(k[key], p[key]), key
+    if t8 == inter.T8_SA8D:
+        assert p["t8_sel"].any()
 
 
 @pytest.mark.cuda
@@ -233,15 +272,17 @@ def test_intra_in_p_kernel_matches_plain(card, kind):
         assert p["intra_mb"].any()
 
 
-def _rd_args(dev, kind, psy, big):
+def _rd_args(dev, kind, psy, big, t8=False):
     """K13's arguments on frame 1 with random partitions (K6's real
-    outputs), or with crafted level planes of large levels; the P qtab
-    carries the RD tables, with psy-RD 1.0 or off."""
+    outputs, with both luma codings where t8), or with crafted level
+    planes of large levels; the P qtab carries the RD tables, with psy-RD
+    1.0 or off."""
     a, cost = _inter_args(dev, kind, True, parts=True)
     (y, u, v), ptype, mv_quad = a[2:5], a[8], a[9]
     q = inter.make_qtab_p(26, tables.chroma_qp(26), dev, rd_idc=0,
                           f_psy_rd=1.0 if psy else 0.0)
-    it = inter.p_inter_mb(*a[:10], q, True)
+    it = inter.p_inter_mb(*a[:10], q, True,
+                          inter.T8_RD if t8 else inter.T8_OFF)
     if big:
         rng = np.random.default_rng(4)
         t = lambda lo, hi, ref: torch.as_tensor(
@@ -250,18 +291,30 @@ def _rd_args(dev, kind, psy, big):
         it = dict(it, blocks_z=t(-3000, 3000, it["blocks_z"]),
                   chroma_ac=t(-40, 41, it["chroma_ac"]),
                   chroma_dc=t(-70000, 70001, it["chroma_dc"]))
+        if t8:
+            it["blocks8_z"] = t(-3000, 3000, it["blocks8_z"])
     mvp = _mvp(dev, 8)
     return (MB_H, MB_W, y, u, v, it, ptype, mv_quad, mvp, q), cost
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("psy,big", [(True, False), (False, False),
-                                     (True, True)])
-def test_rd_inter_kernel_matches_plain(card, psy, big):
-    args, _ = _rd_args(card, "inter", psy, big)
+@pytest.mark.parametrize("psy,big,t8", [(True, False, False),
+                                        (False, False, False),
+                                        (True, True, False),
+                                        (True, False, True),
+                                        (False, False, True),
+                                        (True, True, True)])
+def test_rd_inter_kernel_matches_plain(card, psy, big, t8):
+    """t8: the RD choice between the 4x4 and 8x8 codings too."""
+    args, _ = _rd_args(card, "t8" if t8 else "inter", psy, big, t8)
     k = inter.rd_inter(*args)
     p = inter.rd_inter_plain(*args)
+    assert len(k) == len(p) == (3 if t8 else 2)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if t8:
+        for key in p[2]:
+            assert torch.equal(k[2][key], p[2][key]), key
+        assert p[2]["t8_sel"].any()
 
 
 @pytest.mark.cuda
@@ -270,7 +323,7 @@ def test_rd_inter_kernel_matches_plain(card, psy, big):
 def test_intra_in_p_rd_kernel_matches_plain(card, kind, psy):
     args, cost = _rd_args(card, kind, psy, False)
     it, q = args[5], args[9]
-    rd = inter.rd_inter(*args)
+    rd = inter.rd_inter(*args)[:2]
     a7 = (MB_H, MB_W, *args[2:5], it["recon_y"], it["recon_u"],
           it["recon_v"], cost, q, int(tables.LAMBDA_TABLE[26]), True)
     k = inter.intra_in_p(*a7, rd=rd)
@@ -363,11 +416,20 @@ def test_chroma_rerank_kernel_matches_plain(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["inter", "intra", "partitions"])
+@pytest.mark.parametrize("kind", ["inter", "intra", "partitions", "t8",
+                                  "t8_rd"])
 def test_cabac_p_ops_and_p_deblock_kernels_match_plain(card, kind):
-    (y, u, v), ref, q, lam = _p_frame(card, "intra" if kind == "intra"
-                                      else "inter")
-    subpel = ((2, 1), True, True, True) if kind == "partitions" else ()
+    """t8 / t8_rd: the 8x8 transform at subme 5 (SA8D choice) and at
+    subme 6 (RD choice): t8_mb, the 8x8 nnz cells, the flag, the cat-5
+    blocks, and K2 with the t8_mb map."""
+    t8 = kind.startswith("t8")
+    (y, u, v), ref, q, lam = _p_frame(card, "t8" if t8 else "intra"
+                                      if kind == "intra" else "inter")
+    if kind == "t8_rd":
+        q = inter.make_qtab_p(26, tables.chroma_qp(26), card, rd_idc=0,
+                              f_psy_rd=1.0)
+    subpel = ((2, 1), True, True, True, kind == "t8_rd", t8) \
+        if kind == "partitions" or t8 else ()
     front = inter.encode_p_front(MB_H, MB_W, 16, y, u, v, *ref, q, lam,
                                  _mvp(card), True, *subpel)
     if kind == "partitions":     # every layout, whatever the search chose
@@ -377,17 +439,21 @@ def test_cabac_p_ops_and_p_deblock_kernels_match_plain(card, kind):
         front["mv_quad"] = front["mv_quad"] + torch.as_tensor(
             rng.integers(-9, 10, (MB_H, MB_W, 4, 2)), dtype=torch.int32,
             device=card)
-    kmaps, kops, kn = cabac_planes.cabac_p_ops(front, MB_H, MB_W)
-    pmaps, pops, pn = cabac_planes.cabac_p_ops_plain(front, MB_H, MB_W)
+    kmaps, kops, kn = cabac_planes.cabac_p_ops(front, MB_H, MB_W, t8_mode=t8)
+    pmaps, pops, pn = cabac_planes.cabac_p_ops_plain(front, MB_H, MB_W, t8)
     n = int(pn)
     assert int(kn) == n and torch.equal(kops[:n], pops[:n])
+    assert set(kmaps) == set(pmaps)
     for key in pmaps:
         assert torch.equal(kmaps[key], pmaps[key]), key
+    if t8:
+        assert pmaps["t8_mb"].any()
     # K2 with the P maps: bS 0 / 1 / 2 from nnz, ref and mv
     z4 = torch.zeros_like(kmaps["ref4"])
     qp_mb = torch.full((MB_H, MB_W), 26, dtype=torch.int32, device=card)
     maps = (qp_mb, front["intra_mb"], kmaps["nnz4"], kmaps["ref4"],
-            kmaps["mv4"], z4, torch.zeros_like(kmaps["mv4"]), False, 0, 0, 0)
+            kmaps["mv4"], z4, torch.zeros_like(kmaps["mv4"]), False, 0, 0, 0,
+            kmaps.get("t8_mb"))
     src = [front[k] for k in ("recon_y", "recon_u", "recon_v")]
     p = deblock.deblock_frame_plain(MB_H, MB_W, *src, *maps)
     k = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *maps)
@@ -396,12 +462,14 @@ def test_cabac_p_ops_and_p_deblock_kernels_match_plain(card, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frame_parallel,subme", [(1, 1), (3, 1), (1, 2),
-                                                  (3, 5), (3, 6)])
+@pytest.mark.parametrize("frame_parallel,subme,t8", [
+    (1, 1, False), (3, 1, False), (1, 2, False), (3, 5, False),
+    (3, 6, False), (3, 6, True)])
 def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel,
-                                                  subme):
+                                                  subme, t8):
     """keyint 3 at scenecut 0, or at subme 6 with scenecut 40 (keyint_min
-    then 2), where the lookahead may call a cut on the noise."""
+    then 2), where the lookahead may call a cut on the noise; t8: x264_tpu's
+    defaults at CQP, with the 8x8 transform and I8x8."""
     w, h = MB_W * 16 - 6, MB_H * 16 - 4
     rng = np.random.default_rng(11)
     base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
@@ -416,7 +484,7 @@ def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel,
                                          i_keyint_max=3, i_log_level=0,
                                          i_frame_parallel=frame_parallel)
         p.rc.i_rc_method, p.rc.i_qp_constant = 0, 28
-        p.analyse.b_transform_8x8 = False
+        p.analyse.b_transform_8x8 = t8
         p.i_scenecut_threshold = 40 if subme >= 6 else 0
         p.analyse.i_subpel_refine = subme
         enc = x264_tpu_torch.Encoder(p, device=device)

@@ -6,11 +6,13 @@ The package mirrors x264_tpu's layout and its public entry points
 Triton kernel, each beside a plain PyTorch version of the same function;
 the serial CABAC arithmetic coder runs in C on the host (native/).
 
-The port encodes all-intra streams (keyint 1) and IPPP streams with a
-fixed GOP (scenecut 0, one reference, no B frames) at subme 1-5, with
-the 16x8 / 8x16 / P8x8 partitions and chroma ME, at constant QP with
-CABAC, deblocking, PSNR/SSIM and frame pipelining, without the 8x8
-transform; parameters outside it raise NotImplementedError.
+The port encodes all-intra streams (keyint 1) and IPPP streams (one
+reference, no B frames; a fixed GOP or the scenecut lookahead) at subme
+1-9, with the 16x8 / 8x16 / P8x8 partitions, chroma ME, the RD ladder
+with psy-RD and the adaptive 8x8 transform with I8x8, at constant QP
+with CABAC, deblocking, PSNR/SSIM and frame pipelining: at CQP its
+defaults are bench.py's main path. Parameters outside it raise
+NotImplementedError.
 """
 
 from .version import __version__

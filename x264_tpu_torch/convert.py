@@ -11,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .encoder.inter import QTAB_P_SCALAR_KEYS, QTAB_P_VEC_KEYS
-from .encoder.intra import QTAB_SCALAR_KEYS, QTAB_VEC_KEYS
+from .encoder.inter import (QTAB_P_SCALAR_KEYS, QTAB_P_VEC8_KEYS,
+                            QTAB_P_VEC_KEYS)
+from .encoder.intra import QTAB_SCALAR_KEYS, QTAB_VEC8_KEYS, QTAB_VEC_KEYS
 from .ops import rdcost as ordc
 
 
@@ -23,18 +24,22 @@ def _tensors(qtab: dict, keys, device) -> dict:
 
 def qtab_from_numpy(qtab: dict, device) -> dict:
     """{name: array} -> {name: int32 tensor on `device`} for the keys
-    the port's intra encode reads (the 4x4 luma and chroma tables)."""
-    return _tensors(qtab, QTAB_VEC_KEYS + QTAB_SCALAR_KEYS, device)
+    the port's intra encode reads (the 4x4 luma and chroma tables and the
+    I8x8 ones)."""
+    return _tensors(qtab, QTAB_VEC_KEYS + QTAB_SCALAR_KEYS + QTAB_VEC8_KEYS,
+                    device)
 
 
 def qtab_p_from_numpy(qtab: dict, device) -> dict:
     """The same for x264_tpu's make_qtab_p: the intra keys plus the inter
-    (py_ / pc_) keys the port's P encode reads; and, where x264_tpu's
+    (py_ / pc_, and p8_ of the 8x8 transform) keys the port's P encode
+    reads; and, where x264_tpu's
     Encoder._qtab_p added the RD ladder's tables, those as the port keeps
     them (rdbits as int32 tensors and packed into rdtab, rd_lam2 and
     psy_rd as Python floats holding their float32 values)."""
-    out = _tensors(qtab, QTAB_VEC_KEYS + QTAB_SCALAR_KEYS + QTAB_P_VEC_KEYS
-                   + QTAB_P_SCALAR_KEYS, device)
+    out = _tensors(qtab, QTAB_VEC_KEYS + QTAB_SCALAR_KEYS + QTAB_VEC8_KEYS
+                   + QTAB_P_VEC_KEYS + QTAB_P_SCALAR_KEYS + QTAB_P_VEC8_KEYS,
+                   device)
     if "rdbits" in qtab:
         out["rdbits"] = {
             cat: {n: torch.as_tensor(np.asarray(t[n]).astype(np.int32),

@@ -3,8 +3,10 @@
 //
 // Replaces x264_tpu/entropy/cabac_planes.py:i16_slice_ops (with
 // residual_block_ops, i4_pred_mode_ops, _dqp_slots, _nbr_grids) followed
-// by compact_ops. Plain twin: x264_tpu_torch/entropy/cabac_planes.py
-// i_slice_ops_plain; wrapper: i_slice_ops.
+// by compact_ops, with t8_mode (transform_size_8x8_flag of I_NxN MBs) and
+// the I8x8 MBs' mode bins and cat-5 blocks. Plain twin:
+// x264_tpu_torch/entropy/cabac_planes.py i_slice_ops_plain; wrapper:
+// i_slice_ops.
 //
 // Design. The JAX version fills fixed per-MB slot planes (560 slots, a
 // pad op where a bin is absent) and compacts them with a cumsum and a
@@ -13,8 +15,9 @@
 //      of the slot concatenation (header1, pred modes, header2, luma DC,
 //      luma blocks, chroma DC, chroma AC, terminal), into its own
 //      560-slot row of a scratch buffer and stores its count. It reads
-//      the neighbour flags (coded blocks, cbp, modes) from the intra
-//      kernel's syntax planes of the left and top MBs;
+//      the neighbour flags (coded blocks, cbp, modes, the 8x8 flag) from
+//      the intra kernel's syntax planes of the left and top MBs; an I8x8
+//      MB's 4x4 cells show the coded status of their 8x8 block;
 //   2. scan: one CTA turns the counts into exclusive offsets (and the
 //      total n_ops at offsets[nmb]);
 //   3. scatter: one CTA per MB copies its row to its offset.
@@ -35,6 +38,15 @@ enum { K_DEC = 0, K_BYPASS = 1, K_UE = 2, K_TERM = 3, K_ONES = 5,
 
 __constant__ int kRasterOfZ[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
 __constant__ int kZOfRaster[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
+// the 8x8 block of each raster 4x4 cell (cabac_planes.py:CELL_8X8)
+__constant__ int kCell8[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
+
+// any nonzero level in n levels
+__device__ __forceinline__ int any_nz(const int* c, int n) {
+  for (int i = 0; i < n; ++i)
+    if (c[i]) return 1;
+  return 0;
+}
 
 struct Planes {
   const int* mode16;
@@ -46,10 +58,15 @@ struct Planes {
   const int* luma_ac;
   const int* chroma_dc;
   const int* chroma_ac;
+  const uint8_t* t8_mb;      // null without I8x8
+  const int* luma8;          // (nmb, 4, 64) 8x8 scan order; null without
   int mb_w;
 
-  // 4x4 luma block (raster index r) of `mb` coded with a nonzero level
+  __device__ int t8(int mb) const { return t8_mb ? t8_mb[mb] : 0; }
+  // 4x4 luma block (raster index r) of `mb` coded with a nonzero level;
+  // an I8x8 MB's cell takes its 8x8 block's status
   __device__ int luma_coded(int mb, int r) const {
+    if (t8(mb)) return any_nz(luma8 + (mb * 4 + kCell8[r]) * 64, 64);
     int z = kZOfRaster[r];
     if (!((cbp[mb] >> (z >> 2)) & 1)) return 0;
     const int* c = luma_ac + (mb * 16 + z) * 16;
@@ -104,9 +121,27 @@ struct Emitter {
     for (int i = C - 1; i >= 0; --i)
       if (c[i]) put(K_LEVEL, (uint32_t)min(abs(c[i]) - 1, 0x1FFFF), c[i] < 0);
   }
+  // an 8x8 block (cat 5, residual_block_ops8): no cbf; the significance
+  // mask of positions 0..62 as four 16-bit parts (part in b[10:9]), then
+  // the levels in reverse scan order
+  __device__ void residual8(const int* c) {
+    int last = -1;
+    uint32_t mask[4] = {0, 0, 0, 0};
+    for (int i = 0; i < 64; ++i)
+      if (c[i]) {
+        last = i;
+        if (i < 63) mask[i >> 4] |= 1u << (i & 15);
+      }
+    if (last < 0) return;
+    for (int part = 0; part < 4; ++part)
+      put(K_SIGMAP, mask[part], (uint32_t)(5 | (last << 3) | (part << 9)));
+    for (int i = 63; i >= 0; --i)
+      if (c[i]) put(K_LEVEL, (uint32_t)min(abs(c[i]) - 1, 0x1FFFF), c[i] < 0);
+  }
 };
 
-__global__ void emit_kernel(Planes P, int mb_h, uint32_t* __restrict__ scratch,
+__global__ void emit_kernel(Planes P, int mb_h, int t8_mode,
+                            uint32_t* __restrict__ scratch,
                             int* __restrict__ counts) {
   const int mb_w = P.mb_w, nmb = mb_h * mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
@@ -122,6 +157,8 @@ __global__ void emit_kernel(Planes P, int mb_h, uint32_t* __restrict__ scratch,
   // ---- header1: mb_type (ctxInc counts available non-I4x4 neighbours)
   const int ctx_mbtype = 3 + (hl && !P.i4_mb[mbl]) + (ht && !P.i4_mb[mbt]);
   E.dec(ctx_mbtype, !i4);
+  // transform_size_8x8_flag of I_NxN MBs (x264_cabac_mb_transform_size)
+  if (t8_mode && i4) E.dec(399 + (hl && P.t8(mbl)) + (ht && P.t8(mbt)), P.t8(mb));
   if (!i4) {
     const int m16 = P.mode16[mb];
     E.put(K_TERM, 0, 0);
@@ -131,10 +168,12 @@ __global__ void emit_kernel(Planes P, int mb_h, uint32_t* __restrict__ scratch,
     E.dec(9, m16 >> 1);
     E.dec(10, m16 & 1);
   }
-  // ---- prev_intra4x4_pred_mode / rem_intra4x4_pred_mode
+  // ---- prev / rem_intra4x4_pred_mode (16 blocks), or the I8x8 MB's
+  // four (the top-left cells of its 8x8 blocks, z 0, 4, 8, 12)
+  const bool i8 = P.t8(mb);
   if (i4) {
     const int* md = P.i4_modes + mb * 16;
-    for (int z = 0; z < 16; ++z) {
+    for (int z = 0; z < 16; z += i8 ? 4 : 1) {
       const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
       const int lm = bx > 0 ? md[r - 1] : hl ? P.i4_modes[mbl * 16 + 4 * by + 3] : 2;
       const int tm = by > 0 ? md[r - 4] : ht ? P.i4_modes[mbt * 16 + 12 + bx] : 2;
@@ -169,8 +208,12 @@ __global__ void emit_kernel(Planes P, int mb_h, uint32_t* __restrict__ scratch,
     const int a = hl ? P.luma_dc_nz(mbl) : 1, b = ht ? P.luma_dc_nz(mbt) : 1;
     E.residual(P.luma_dc + mb * 16, 16, 0, 2 * b + a);
   }
+  // ---- luma 8x8 blocks of an I8x8 MB (cat 5, no cbf)
+  if (i8)
+    for (int b = 0; b < 4; ++b)
+      if ((cbp >> b) & 1) E.residual8(P.luma8 + (mb * 4 + b) * 64);
   // ---- luma 4x4 blocks: I16 AC (cat 1) or I4x4 (cat 2)
-  for (int z = 0; z < 16; ++z) {
+  for (int z = 0; z < 16 && !i8; ++z) {
     const bool coded = i4 ? ((cbp >> (z >> 2)) & 1) : cbp > 0;
     if (!coded) continue;
     const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
@@ -248,8 +291,9 @@ __global__ void scatter_kernel(const uint32_t* __restrict__ scratch,
 // x264_tpu/entropy/cabac_planes.py:518 p_slice_ops (with
 // _mvd_component_ops and _cbf_ctx_from_grid) followed by :429
 // compact_ops, for P_L0 16x16 / 16x8 / 8x16, P_8x8, P_Skip and I16x16 MBs
-// with one reference and no 8x8 transform. Plain twin: x264_tpu_torch/
-// entropy/cabac_planes.py:cabac_p_ops_plain; wrapper: cabac_p_ops.
+// with one reference, with or without the 8x8 transform. Plain twin:
+// x264_tpu_torch/entropy/cabac_planes.py:cabac_p_ops_plain; wrapper:
+// cabac_p_ops.
 //
 // Design. Four launches.
 //   A. one thread per MB: the MB's final 16x16 MV and quadrant MVs (0 if
@@ -259,14 +303,19 @@ __global__ void scatter_kernel(const uint32_t* __restrict__ scratch,
 //      partition type 16x8 (B or A outright when ref 0 matches), 8x16 (A
 //      or C), P8x8 (the median of each sub-block, C falling back to D);
 //      the skip flag (ptype 0 only), mvd / mvd1 / mvd_sub, mv_sub, and
-//      the per-4x4 mvd4 / nnz4 / ref4 / mv4 maps;
+//      the per-4x4 mvd4 / nnz4 / ref4 / mv4 maps; with the 8x8 transform
+//      t8_mb (the 8x8 choice of an inter MB that is not skipped and has
+//      coded luma: the skip test uses the cbp after the choice) and, in
+//      nnz4, each cell of a t8 MB holding its 8x8 block's count;
 //   B. one thread per MB emits its live ops in the slot order of
 //      p_slice_ops (skip flag, mb_type, intra fields, sub_mb_types, the
-//      mvds partition by partition, cbp, dqp, luma DC, 16 luma blocks,
-//      chroma DC, chroma AC, end_of_slice), reading the neighbours' skip,
-//      nnz4 and mvd4 that pass A wrote. A P_8x8 MB emits at most 508
-//      live ops, an intra MB 452: OPS_PER_MB = 560 bounds pass B's
-//      scratch;
+//      mvds partition by partition, cbp, transform_size_8x8_flag, dqp,
+//      luma DC, 16 luma blocks or four cat-5 blocks, chroma DC, chroma
+//      AC, end_of_slice), reading the neighbours' skip, t8_mb, nnz4 and
+//      mvd4 that pass A wrote. A P_8x8 MB emits at most 508
+//      live ops (with the 8x8 transform, 493: one flag, and four cat-5
+//      blocks of at most 68 in place of 288), an intra MB 452:
+//      OPS_PER_MB = 560 bounds pass B's scratch;
 //   then K3's scan and scatter.
 // What bounds it on the H100: bytes, as K3: the syntax planes and maps
 // (~19 MB at 1080p as int32) are read or written once and the live ops
@@ -291,7 +340,11 @@ struct PPlanes {
   const int* mvd_sub;
   const int* mvd4;
   const int* nnz4;
+  const uint8_t* t8_mb;      // null without the 8x8 transform
+  const int* luma8;
   int mb_w;
+
+  __device__ int t8(int n) const { return t8_mb ? t8_mb[n] : 0; }
 
   // cbf flag of 4x4 block (raster r) of MB n, from the final nnz map
   __device__ int nnz(int n, int r) const {
@@ -367,6 +420,8 @@ __global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
                               const int* __restrict__ cbp,
                               const int* __restrict__ cbpc,
                               const int* __restrict__ luma_blocks,
+                              const uint8_t* __restrict__ t8_sel,
+                              const int* __restrict__ luma8,
                               uint8_t* __restrict__ skip_o,
                               int* __restrict__ mv_o, int* __restrict__ mvd_o,
                               int* __restrict__ mvd1_o,
@@ -374,7 +429,8 @@ __global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
                               int* __restrict__ mv_sub_o,
                               int* __restrict__ mvd_sub_o,
                               int* __restrict__ mvd4, int* __restrict__ nnz4,
-                              int* __restrict__ ref4, int* __restrict__ mv4) {
+                              int* __restrict__ ref4, int* __restrict__ mv4,
+                              uint8_t* __restrict__ t8_mb) {
   const int mb_h = M.mb_h, mb_w = M.mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= mb_h * mb_w) return;
@@ -444,12 +500,19 @@ __global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
     mv4[2 * o] = qx[k];
     mv4[2 * o + 1] = qy[k];
   }
+  const bool t8 = t8_sel && t8_sel[mb] && !im && !sk && cbp[mb] > 0;
+  if (t8_mb) t8_mb[mb] = t8 ? 1 : 0;
+  int n8[4] = {0, 0, 0, 0};
+  if (t8)
+    for (int b = 0; b < 4; ++b)
+      for (int i = 0; i < 64; ++i) n8[b] += luma8[(mb * 4 + b) * 64 + i] != 0;
   for (int z = 0; z < 16; ++z) {
     const int* c = luma_blocks + (mb * 16 + z) * 16;
     int n = 0;
     for (int i = 0; i < 16; ++i) n += c[i] != 0;
     const int r = kRasterOfZ[z];
-    nnz4[(gy + (r >> 2)) * W4 + gx + (r & 3)] = ((cbp[mb] >> (z >> 2)) & 1) ? n : 0;
+    nnz4[(gy + (r >> 2)) * W4 + gx + (r & 3)] =
+        t8 ? n8[kCell8[r]] : ((cbp[mb] >> (z >> 2)) & 1) ? n : 0;
   }
 }
 
@@ -468,7 +531,8 @@ __device__ void emit_mvd(Emitter& E, int v, int base, int am) {
   if (a >= 1) E.put(K_BYPASS, v < 0, 1);
 }
 
-__global__ void p_emit_kernel(PPlanes P, int mb_h, uint32_t* __restrict__ scratch,
+__global__ void p_emit_kernel(PPlanes P, int mb_h, int t8_mode,
+                              uint32_t* __restrict__ scratch,
                               int* __restrict__ counts) {
   const int mb_w = P.mb_w, nmb = mb_h * mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
@@ -537,6 +601,9 @@ __global__ void p_emit_kernel(PPlanes P, int mb_h, uint32_t* __restrict__ scratc
     const int cct = ht ? (P.skip[mbt] ? 0 : P.cbpc[mbt]) : -1;
     E.dec(77 + (ccl > 0) + 2 * (cct > 0), cbpc > 0);
     if (cbpc > 0) E.dec(81 + (ccl == 2) + 2 * (cct == 2), cbpc == 2);
+    // ---- transform_size_8x8_flag of inter MBs with coded luma
+    if (t8_mode && cbp > 0)
+      E.dec(399 + (hl && P.t8(mbl)) + (ht && P.t8(mbt)), P.t8(mb));
   }
   if (coded && (im || cbp > 0 || cbpc > 0)) E.dec(60, 0);   // mb_qp_delta 0
 
@@ -546,7 +613,11 @@ __global__ void p_emit_kernel(PPlanes P, int mb_h, uint32_t* __restrict__ scratc
     const int a = hl ? P.dc_nz(mbl) : 1, b = ht ? P.dc_nz(mbt) : 1;
     E.residual(P.luma_dc + mb * 16, 16, 0, 2 * b + a);
   }
-  for (int z = 0; z < 16; ++z) {
+  const bool t8 = P.t8(mb);
+  if (t8)                                        // cat 5, no cbf
+    for (int b = 0; b < 4; ++b)
+      if ((cbp >> b) & 1) E.residual8(P.luma8 + (mb * 4 + b) * 64);
+  for (int z = 0; z < 16 && !t8; ++z) {
     const bool blk_coded = im ? cbp > 0 : (inter && ((cbp >> (z >> 2)) & 1));
     if (!blk_coded) continue;
     const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
@@ -582,14 +653,16 @@ extern "C" int cabac_i_ops(const int* mode16, const int* modec,
                            const uint8_t* i4_mb, const int* i4_modes,
                            const int* cbp_luma_bits, const int* luma_dc,
                            const int* luma_ac, const int* chroma_dc,
-                           const int* chroma_ac, uint32_t* scratch,
-                           int* counts, int* offsets, uint32_t* ops, int mb_h,
-                           int mb_w, void* stream) {
+                           const int* chroma_ac, const uint8_t* t8_mb,
+                           const int* luma8, uint32_t* scratch, int* counts,
+                           int* offsets, uint32_t* ops, int mb_h, int mb_w,
+                           int t8_mode, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nmb = mb_h * mb_w;
   Planes P{mode16, modec, i4_mb, i4_modes, cbp_luma_bits, luma_dc, luma_ac,
-           chroma_dc, chroma_ac, mb_w};
-  emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, scratch, counts);
+           chroma_dc, chroma_ac, t8_mb, luma8, mb_w};
+  emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, t8_mode, scratch,
+                                                counts);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);
@@ -605,23 +678,26 @@ extern "C" int cabac_p_ops(const uint8_t* intra_mb, const int* me_mv,
                            const int* cbp_luma_bits, const int* cbp_chroma,
                            const int* luma_dc, const int* luma_blocks,
                            const int* chroma_dc, const int* chroma_ac,
+                           const uint8_t* t8_sel, const int* luma8,
                            uint8_t* skip, int* mv, int* mvd, int* mvd1,
                            int* ptype_o, int* mv_sub, int* mvd_sub, int* mvd4,
-                           int* nnz4, int* ref4, int* mv4, uint32_t* scratch,
-                           int* counts, int* offsets, uint32_t* ops, int mb_h,
-                           int mb_w, void* stream) {
+                           int* nnz4, int* ref4, int* mv4, uint8_t* t8_mb,
+                           uint32_t* scratch, int* counts, int* offsets,
+                           uint32_t* ops, int mb_h, int mb_w, int t8_mode,
+                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nmb = mb_h * mb_w;
   MvMaps M{intra_mb, ptype, mv_quad, mb_h, mb_w};
   p_maps_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(
-      M, me_mv, cbp_luma_bits, cbp_chroma, luma_blocks, skip, mv, mvd, mvd1,
-      ptype_o, mv_sub, mvd_sub, mvd4, nnz4, ref4, mv4);
+      M, me_mv, cbp_luma_bits, cbp_chroma, luma_blocks, t8_sel, luma8, skip,
+      mv, mvd, mvd1, ptype_o, mv_sub, mvd_sub, mvd4, nnz4, ref4, mv4, t8_mb);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   PPlanes P{intra_mb, skip, ptype_o, mode16, modec, cbp_luma_bits, cbp_chroma,
             luma_dc, luma_blocks, chroma_dc, chroma_ac, mvd, mvd1, mvd_sub,
-            mvd4, nnz4, mb_w};
-  p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, scratch, counts);
+            mvd4, nnz4, t8_mb, luma8, mb_w};
+  p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, t8_mode, scratch,
+                                                  counts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);

@@ -17,7 +17,9 @@
 // filters the horizontal edges of one column. The kernel derives bS and
 // alpha / beta / tc0 itself from the per-4x4 qp / intra / nnz / ref / mv
 // maps (DEBLOCK_STRENGTH, common/frame.c:697-742), so the P slice reuses
-// it; the 8x8-transform and B-slice rules are rejected by the wrapper.
+// it. With a t8_mb map the luma edges 1 and 3 inside an MB coded with the
+// 8x8 transform take bS 0 (spec 8.7); the B-slice rules are rejected by
+// the wrapper.
 //
 // What bounds it on the H100: the serial depth of 254 dependent
 // launches of at most 68 one-warp CTAs; the bytes (the three planes read
@@ -111,8 +113,8 @@ __global__ void __launch_bounds__(NT) deblock_diag_kernel(
     int* Y, int* U, int* V, const int* __restrict__ qp_mb,
     const uint8_t* __restrict__ intra_mb, const int* __restrict__ nnz4,
     const int* __restrict__ ref4, const int* __restrict__ mv4,
-    const int* __restrict__ tabs_g, int mb_w, int d, int y0, int alpha_off,
-    int beta_off, int cqp_off) {
+    const int* __restrict__ tabs_g, const uint8_t* __restrict__ t8_mb,
+    int mb_w, int d, int y0, int alpha_off, int beta_off, int cqp_off) {
   const int my = y0 + blockIdx.x;
   const int mx = d - 2 * my;
   const int W = mb_w * 16, Wc = mb_w * 8, W4 = mb_w * 4;
@@ -121,6 +123,8 @@ __global__ void __launch_bounds__(NT) deblock_diag_kernel(
   const int qp_q = qp_mb[my * mb_w + mx];
   const int qp_left = mx > 0 ? qp_mb[my * mb_w + mx - 1] : qp_q;
   const int qp_top = my > 0 ? qp_mb[(my - 1) * mb_w + mx] : qp_q;
+  // the inner luma edges 1 and 3 of an 8x8-transform MB are not filtered
+  const bool t8 = t8_mb != nullptr && t8_mb[my * mb_w + mx];
 
   // alpha / beta / tc0 of an edge with side QPs qp_p, qp_q (_edge_params)
   auto params = [&](int qpp, int qpq, int bs, int& alpha, int& beta, int& tc0) {
@@ -152,8 +156,9 @@ __global__ void __launch_bounds__(NT) deblock_diag_kernel(
           s = Y + (16 * my + 4 * e) * W + 16 * mx + l;
           step = W;
         }
-        int bs = strength(intra_mb, nnz4, ref4, mv4, W4, mb_w, py4, px4, qy4,
-                          qx4, e == 0);
+        int bs = (t8 && (e & 1)) ? 0
+            : strength(intra_mb, nnz4, ref4, mv4, W4, mb_w, py4, px4, qy4, qx4,
+                       e == 0);
         int alpha, beta, tc0;
         params(qpp, qp_q, bs, alpha, beta, tc0);
         luma_line(s, step, bs, tc0, alpha, beta);
@@ -194,13 +199,15 @@ __global__ void __launch_bounds__(NT) deblock_diag_kernel(
 extern "C" int deblock_diag(int* y, int* u, int* v, const int* qp_mb,
                             const uint8_t* intra_mb, const int* nnz4,
                             const int* ref4, const int* mv4, const int* tabs,
-                            int mb_h, int mb_w, int d, int alpha_off,
+                            const uint8_t* t8_mb, int mb_h, int mb_w, int d,
+                            int alpha_off,
                             int beta_off, int chroma_qp_offset, void* stream) {
   // MBs with x = d - 2y in [0, mb_w)
   const int y0 = max(0, (d - (mb_w - 1) + 1) / 2), y1 = min(mb_h - 1, d / 2);
   if (y1 < y0) return 0;
   deblock_diag_kernel<<<y1 - y0 + 1, NT, 0, (cudaStream_t)stream>>>(
-      y, u, v, qp_mb, intra_mb, nnz4, ref4, mv4, tabs, mb_w, d, y0, alpha_off,
+      y, u, v, qp_mb, intra_mb, nnz4, ref4, mv4, tabs, t8_mb, mb_w, d, y0,
+      alpha_off,
       beta_off, chroma_qp_offset);
   return (int)cudaGetLastError();
 }

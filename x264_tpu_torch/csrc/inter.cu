@@ -23,7 +23,15 @@
 // threads 32-39 one chroma block each. The 8x8-group / whole-MB luma
 // kill (score < 4 / total < 6) and the joint chroma AC kill (score < 7)
 // are decided by one thread between the phases, then dequant, IDCT and
-// reconstruction.
+// reconstruction. With the 8x8 transform (t8 = 1 or 2) threads 48-51
+// run one 8x8 block each on the same prediction in shared memory (DCT8,
+// CQM_8PY quant, DECIMATE_TAB8 score; a block scoring < 4, or all four
+// when the total is < 6, is zeroed; dequant, IDCT8, reconstruction:
+// t8.cuh). At t8 = 1 (below subme 6) the MB's transform is chosen here:
+// threads 0-15 and 52-55 take the 4x4 and 8x8 Hadamard abs-sums of the
+// prediction error, and the 8x8 coding is taken where sa8d_16x16 <
+// satd, strictly; its recon, its cbp and zero 4x4 levels are written.
+// At t8 = 2 (the RD ladder) both codings are written for K13.
 // What bounds it on the H100: bytes. A 1080p frame moves ~116 MB at
 // subme >= 2 (source, the four half-pel planes, the padded chroma, and
 // the recon and coefficient planes out, as int32: ~35 us at 3.35 TB/s;
@@ -31,7 +39,7 @@
 // ops (~1 us). One MB per 64-thread CTA, with 16 or 8 threads busy in
 // the transform phases, keeps it far from either; a later PR can batch
 // MBs per CTA.
-#include "common.cuh"
+#include "t8.cuh"
 
 using namespace x264t;
 
@@ -48,6 +56,7 @@ __constant__ int kZOfRaster[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11,
 struct QTabP {
   int py_mf[16], py_bias[16], py_dmf[16], pc_mf[16], pc_bias[16], pc_dmf[16];
   int py_qpdiv6, pc_dmf0, pc_mf_dc, pc_bias_dc, pc_qpdiv6;
+  int p8_mf[64], p8_bias[64], p8_dmf[64];
 };
 constexpr int QTABP_INTS = sizeof(QTabP) / sizeof(int);
 
@@ -73,8 +82,10 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     const int* __restrict__ qtab_g, int* __restrict__ RY,
     int* __restrict__ RU, int* __restrict__ RV, int* __restrict__ blocks_z,
     int* __restrict__ cbp_o, int* __restrict__ chroma_dc_o,
-    int* __restrict__ chroma_ac_o, int mb_h, int mb_w, int n_planes,
-    int decimate) {
+    int* __restrict__ chroma_ac_o, int* __restrict__ blocks8_o,
+    uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y,
+    int* __restrict__ cbp8_o, int mb_h, int mb_w, int n_planes, int decimate,
+    int t8) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
@@ -87,6 +98,8 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
   __shared__ int fenc[256], pred[256], lv[16][16], score[16], nzb[16];
   __shared__ int fc[2][64], pc[2][64], clv[2][4][16], cdc[2][4], cscore[8];
   __shared__ int cdcl[2][4], cdcr[2][4], cnz[2], killg[4], ackill;
+  __shared__ int had4[16], had8[4], lv8[4][64], score8[4], nz8[4], kill8[4];
+  __shared__ int sel8;
 
   // ---------------------------------------------------------- fetch
   for (int i = tid; i < QTABP_INTS; i += NT)
@@ -135,11 +148,28 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
         int o = (4 * by + r) * 16 + 4 * bx + c;
         dd[4 * r + c] = fenc[o] - pred[o];
       }
+    if (t8 == 1) had4[tid] = abs_had4x4(dd);
     dct4x4(dd, co);
     int zz[16];
     for (int i = 0; i < 16; ++i) lv[tid][i] = quant(co[i], q.py_mf[i], q.py_bias[i]);
     for (int j = 0; j < 16; ++j) zz[j] = lv[tid][kZig4P[j]];
     score[tid] = decimate_score(zz, 16);
+  } else if (t8 && tid >= 48 && tid < 56) {  // 8x8 block k: levels, or Hadamard
+    const int k = tid & 3, r0 = 8 * (k >> 1), c0 = 8 * (k & 1);
+    int dd[64];
+    for (int i = 0; i < 64; ++i) {
+      const int o = (r0 + (i >> 3)) * 16 + c0 + (i & 7);
+      dd[i] = fenc[o] - pred[o];
+    }
+    if (tid < 52) {
+      int co[64], zz[64];
+      dct8x8(dd, co);
+      for (int i = 0; i < 64; ++i) lv8[k][i] = quant(co[i], q.p8_mf[i], q.p8_bias[i]);
+      for (int j = 0; j < 64; ++j) zz[j] = lv8[k][kZig8[j]];
+      score8[k] = decimate_score8(zz);
+    } else if (t8 == 1) {
+      had8[k] = abs_had8x8(dd);
+    }
   } else if (tid >= 32 && tid < 40) {  // chroma block (ch, blk)
     int k = tid - 32, ch = k >> 2, blk = k & 3, by = blk >> 1, bx = blk & 1;
     int dd[16], co[16];
@@ -172,6 +202,20 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     int csc = 0;
     for (int k = 0; k < 8; ++k) csc += cscore[k];
     ackill = decimate && csc < 7;
+    int sel = 0;
+    if (t8) {
+      const int tot8 = score8[0] + score8[1] + score8[2] + score8[3];
+      for (int k = 0; k < 4; ++k) kill8[k] = decimate && (score8[k] < 4 || tot8 < 6);
+    }
+    if (t8 == 1) {                     // sa8d_16x16 < satd, strictly
+      int satd = 0;
+      for (int by = 0; by < 4; ++by)
+        for (int p = 0; p < 2; ++p)
+          satd += (had4[4 * by + 2 * p] + had4[4 * by + 2 * p + 1]) >> 1;
+      const int sa8d = (had8[0] + had8[1] + had8[2] + had8[3] + 2) >> 2;
+      sel = sa8d < satd;
+    }
+    sel8 = sel;
   }
   __syncthreads();
 
@@ -186,12 +230,30 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     }
     nzb[tid] = nz;
     idct4x4(dq, res);
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c)
-        RY[(my * 16 + 4 * by + r) * W + mx * 16 + 4 * bx + c] =
-            clip255(pred[(4 * by + r) * 16 + 4 * bx + c] + res[4 * r + c]);
+    if (!sel8)
+      for (int r = 0; r < 4; ++r)
+        for (int c = 0; c < 4; ++c)
+          RY[(my * 16 + 4 * by + r) * W + mx * 16 + 4 * bx + c] =
+              clip255(pred[(4 * by + r) * 16 + 4 * bx + c] + res[4 * r + c]);
     int* bz = blocks_z + (mb * 16 + kZOfRaster[tid]) * 16;
-    for (int j = 0; j < 16; ++j) bz[j] = lv[tid][kZig4P[j]];
+    for (int j = 0; j < 16; ++j) bz[j] = sel8 ? 0 : lv[tid][kZig4P[j]];
+  } else if (t8 && tid >= 48 && tid < 52) {   // 8x8 block: dequant, recon
+    const int k = tid - 48, r0 = 8 * (k >> 1), c0 = 8 * (k & 1);
+    int dq[64], res[64], nz = 0;
+    for (int i = 0; i < 64; ++i) {
+      if (kill8[k]) lv8[k][i] = 0;
+      nz |= lv8[k][i] != 0;
+      dq[i] = dequant8(lv8[k][i], q.p8_dmf[i], q.py_qpdiv6);
+    }
+    nz8[k] = nz;
+    idct8x8(dq, res);
+    int* R = t8 == 2 ? R8Y : sel8 ? RY : nullptr;
+    if (R)
+      for (int i = 0; i < 64; ++i) {
+        const int r = r0 + (i >> 3), c = c0 + (i & 7);
+        R[(my * 16 + r) * W + mx * 16 + c] = clip255(pred[r * 16 + c] + res[i]);
+      }
+    for (int j = 0; j < 64; ++j) blocks8_o[(mb * 4 + k) * 64 + j] = lv8[k][kZig8[j]];
   } else if (tid >= 32 && tid < 40 && ackill) {
     int k = tid - 32;
     for (int i = 0; i < 16; ++i) clv[k >> 2][k & 3][i] = 0;
@@ -205,7 +267,10 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
           | nzb[(2 * gy + 1) * 4 + 2 * gx] | nzb[(2 * gy + 1) * 4 + 2 * gx + 1])
         bits |= 1 << gi;
     }
-    cbp_o[mb] = bits;
+    const int bits8 = t8 ? nz8[0] | nz8[1] << 1 | nz8[2] << 2 | nz8[3] << 3 : 0;
+    cbp_o[mb] = sel8 ? bits8 : bits;
+    if (t8 == 1) t8_sel_o[mb] = sel8 ? 1 : 0;
+    if (t8 == 2) cbp8_o[mb] = bits8;
   } else if (tid >= 32 && tid < 34) {  // chroma DC of channel ch
     const int ch = tid - 32;
     int a = cdc[ch][0], b = cdc[ch][1], c = cdc[ch][2], e = cdc[ch][3];
@@ -252,11 +317,13 @@ extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
                           const int* refv_pad, const int* ptype,
                           const int* mv_quad, const int* qtab, int* recon_y,
                           int* recon_u, int* recon_v, int* blocks_z, int* cbp,
-                          int* chroma_dc, int* chroma_ac, int mb_h, int mb_w,
-                          int n_planes, int decimate, void* stream) {
+                          int* chroma_dc, int* chroma_ac, int* blocks8,
+                          uint8_t* t8_sel, int* recon8_y, int* cbp8, int mb_h,
+                          int mb_w, int n_planes, int decimate, int t8,
+                          void* stream) {
   p_inter_mb_kernel<<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
-      recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, mb_h, mb_w,
-      n_planes, decimate);
+      recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, blocks8, t8_sel,
+      recon8_y, cbp8, mb_h, mb_w, n_planes, decimate, t8);
   return (int)cudaGetLastError();
 }

@@ -27,10 +27,11 @@ __constant__ int kBlkX[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
 __constant__ int kBlkY[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
 __constant__ int kMode16Bits[4] = {1, 3, 3, 5};
 
-// the packed table of intra.py:pack_qtab
+// the packed table of intra.py:pack_qtab (the I8x8 tables last)
 struct QTab {
   int y_mf[16], y_bias[16], y_dmf[16], c_mf[16], c_bias[16], c_dmf[16];
   int y_dmf0, y_mf_dc, y_bias_dc, y_qpdiv6, c_dmf0, c_mf_dc, c_bias_dc, c_qpdiv6;
+  int y8_mf[64], y8_bias[64], y8_dmf[64];
 };
 constexpr int QTAB_INTS = sizeof(QTab) / sizeof(int);
 

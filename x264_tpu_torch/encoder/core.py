@@ -37,7 +37,8 @@ from ..entropy import cabac as ecabac
 from ..entropy import cabac_tables as ctab
 from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
 from ..headers import PPS, SPS, SLICE_I, SLICE_P, SliceHeader, sei_version
-from ..params import ANALYSE_I4x4, ANALYSE_PSUB16x16, EncoderParams
+from ..params import (ANALYSE_I4x4, ANALYSE_I8x8, ANALYSE_PSUB16x16,
+                      EncoderParams)
 from . import inter
 from . import intra
 from . import pipeline
@@ -86,7 +87,8 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
     P), which this slice encodes at subme 1-9 (with the 16x8 / 8x16 /
     P8x8 partitions, chroma ME and, at subme >= 6, the RD ladder with
     psy-RD, where the parameters ask for them), with one reference and
-    the scenecut lookahead or a fixed GOP."""
+    the scenecut lookahead or a fixed GOP, with or without the 8x8
+    transform and I8x8."""
     a, rc = p.analyse, p.rc
     later = [
         (p_frames and p.i_frame_reference >= 2,
@@ -94,8 +96,6 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
         (p.i_bframe > 0, "B frames", "the B slice"),
         (not p.b_cabac, "CAVLC", "the CAVLC slice"),
         (rc.i_qp_constant == 0, "lossless (qp 0)", "a later slice"),
-        (a.b_transform_8x8, "the 8x8 transform / I8x8 (use 8x8dct=0)",
-         "the 8x8dct slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
         (a.i_trellis > 0, "trellis", "the trellis slice"),
         (p.i_mb_row_shards > 1, "MB-row sharding", "the multi-GPU slice"),
@@ -167,6 +167,10 @@ class Encoder:
         self._p8x8 = self._parts
         self._chroma_me = bool(p.analyse.b_chroma_me and sp >= 5)
         self._rd = sp >= 6
+        # the adaptive 8x8 transform (High profile) and, in I slices, the
+        # I8x8 ladder, which validate() keeps only with CABAC + 8x8dct
+        self._t8 = bool(p.analyse.b_transform_8x8)
+        self._i8x8 = bool(p.analyse.intra & ANALYSE_I8x8)
         self.stats = estats.Stats(
             p.i_width, p.i_height, p.i_fps_num / max(1, p.i_fps_den),
             b_psnr=p.analyse.b_psnr, b_ssim=p.analyse.b_ssim)
@@ -347,7 +351,7 @@ class Encoder:
             2 * p.i_deblocking_filter_alphac0,
             2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
             crop_w=p.i_width, crop_h=p.i_height,
-            with_metrics=self._with_metrics)
+            with_metrics=self._with_metrics, t8=self._t8, i8x8=self._i8x8)
         recon = self._finish_frame(out, frame)
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         return dict(out=out, hdr_bytes=hdr_bytes, recon=recon,
@@ -373,7 +377,7 @@ class Encoder:
             mvp_seed, crop_w=p.i_width, crop_h=p.i_height,
             with_metrics=self._with_metrics, decimate=self._decimate,
             subpel_steps=self._subpel, parts=self._parts, p8x8=self._p8x8,
-            chroma_me=self._chroma_me, rd=self._rd)
+            chroma_me=self._chroma_me, rd=self._rd, t8=self._t8)
         self._prev_mv = out["mv"]
         return dict(out=out, hdr_bytes=hdr_bytes,
                     recon=self._finish_frame(out, frame), nmb=mb_h * mb_w,

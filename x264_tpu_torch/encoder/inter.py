@@ -17,9 +17,11 @@ encoder/macroblock.c:475) is staged as x264_tpu stages it:
 2. the inter residual of every MB at once, since inter prediction reads
    only the reference: the partitioned quarter-pel luma fetch, the
    1/8-pel chroma fetch, 4x4 DCT, P-matrix quant, DCT decimation,
-   reconstruction (K6); at subme >= 6 (the RD ladder) the whole-MB inter
-   RD cost, true SSD + lambda2 * estimated CABAC bits with the psy-RD
-   term (K13);
+   reconstruction and, with the 8x8 transform, the 8x8 luma residual and
+   (below subme 6) the SA8D-against-SATD transform choice (K6); at subme
+   >= 6 (the RD ladder) the whole-MB inter RD cost, true SSD + lambda2 *
+   estimated CABAC bits with the psy-RD term, and with the 8x8 transform
+   the RD choice between the two luma codings (K13);
 3. intra-in-P by bounded-depth sweeps: the I16 + chroma intra path of
    every MB against the inter reconstruction, the intra / inter
    decision (SATD + lambda * bits below subme 6, the RD costs of both
@@ -29,7 +31,7 @@ encoder/macroblock.c:475) is staged as x264_tpu stages it:
    mvds and the per-4x4 nnz / ref / mv / mvd maps (kernel K8's first
    pass, entropy/cabac_planes.py).
 
-This slice has one reference, no 8x8 transform and one QP per frame.
+This slice has one reference and one QP per frame.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from .. import cuda
 from .. import tables
+from ..entropy import cabac_planes
 from ..ops import dct as odct
 from ..ops import mc as omc
 from ..ops import me as ome
@@ -62,13 +65,19 @@ QTAB_P_VEC_KEYS = ("py_mf", "py_bias", "py_dmf", "pc_mf", "pc_bias",
                    "pc_dmf")
 QTAB_P_SCALAR_KEYS = ("py_qpdiv6", "pc_dmf0", "pc_mf_dc", "pc_bias_dc",
                       "pc_qpdiv6")
+# the 8x8-transform tables (CQM_8PY, 64 entries each), packed last
+QTAB_P_VEC8_KEYS = ("p8_mf", "p8_bias", "p8_dmf")
+# K6's t8 argument: no 8x8 transform; the SA8D choice made in K6 (below
+# subme 6); both codings written for K13's RD choice (subme >= 6)
+T8_OFF, T8_SA8D, T8_RD = 0, 1, 2
 
 
 def make_qtab_p(qp_y: int, qp_c: int, device,
                 qt: tables.QuantTables | None = None,
                 rd_idc: int | None = None, f_psy_rd: float = 0.0) -> dict:
     """The intra tables (y_ / c_) plus the inter ones (py_ / pc_): CQM_4PY
-    / CQM_4PC with the inter deadzone (x264_cqm_init, common/set.c:68).
+    / CQM_4PC with the inter deadzone (x264_cqm_init, common/set.c:68),
+    and p8_ from CQM_8PY for the 8x8 transform.
 
     rd_idc: the RD ladder's tables too (subme >= 6), as x264_tpu's
     Encoder._qtab_p builds them from i_cabac_init_idc = rd_idc: rdbits
@@ -82,6 +91,9 @@ def make_qtab_p(qp_y: int, qp_c: int, device,
     a = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
     py, pc = tables.CQM_4PY, tables.CQM_4PC
     out.update(
+        p8_mf=a(qt.quant8_mf[tables.CQM_8PY, qp_y]),
+        p8_bias=a(qt.quant8_bias[tables.CQM_8PY, qp_y]),
+        p8_dmf=a(qt.dequant8_mf[tables.CQM_8PY, qp_y % 6]),
         py_mf=a(qt.quant4_mf[py, qp_y]),
         py_bias=a(qt.quant4_bias[py, qp_y]),
         py_dmf=a(qt.dequant4_mf[py, qp_y % 6]),
@@ -108,7 +120,8 @@ def pack_qtab_p(qtab: dict) -> torch.Tensor:
     """The inter tables as the one int32 vector csrc/inter.cu reads."""
     return torch.cat(
         [qtab[k].reshape(-1).to(I32) for k in QTAB_P_VEC_KEYS]
-        + [qtab[k].reshape(1).to(I32) for k in QTAB_P_SCALAR_KEYS])
+        + [qtab[k].reshape(1).to(I32) for k in QTAB_P_SCALAR_KEYS]
+        + [qtab[k].reshape(-1).to(I32) for k in QTAB_P_VEC8_KEYS])
 
 
 def _tiles(plane, n: int):
@@ -151,6 +164,34 @@ def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
     recon = (pred + _unblocks4(res, 4)).clamp(0, 255)
     zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
     return recon, lv[:, zorder][:, :, zig], cbp_bits
+
+
+def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False):
+    """Inter 16x16 luma residual with the 8x8 transform of K MBs
+    (x264_macroblock_encode's b_transform_8x8 branch,
+    encoder/macroblock.c:538-558): four 8x8 DCT blocks, CQM_8PY quant.
+    decimate: an 8x8 block scoring < 4 on DECIMATE_TAB8 is zeroed, and
+    the whole MB when the total scores < 6 (encoder/macroblock.c:
+    643-667). fenc / pred: (K, 16, 16). Returns (recon (K,16,16),
+    blocks8_z (K,4,64) in 8x8 scan order, 2x2 raster block order,
+    cbp_bits (K,))."""
+    K, dev = fenc.shape[0], fenc.device
+    blocks = (fenc - pred).reshape(K, 2, 8, 2, 8).transpose(2, 3)
+    lv = oquant.quant(odct.dct8x8(blocks).reshape(K, 4, 64), qtab["p8_mf"],
+                      qtab["p8_bias"])
+    zig8 = torch.as_tensor(tables.ZIGZAG8, device=dev).long()
+    if decimate:
+        sc = oquant.decimate_score(lv[..., zig8], oquant.DECIMATE_TAB8)
+        kill = (sc < 4) | (sc.sum(-1) < 6)[:, None]
+        lv = torch.where(kill[..., None], 0, lv)
+    nz = (lv != 0).any(-1)
+    cbp_bits = (nz * torch.tensor([1, 2, 4, 8], device=dev)).sum(
+        -1, dtype=I32)
+    deq = oquant.dequant(lv, qtab["p8_dmf"], qtab["py_qpdiv6"], 6)
+    res = odct.idct8x8(deq.reshape(K, 2, 2, 8, 8)).transpose(2, 3) \
+        .reshape(K, 16, 16)
+    recon = (pred + res).clamp(0, 255)
+    return recon, lv[..., zig8], cbp_bits
 
 
 # ---------------------------------------------------------------- K6
@@ -203,23 +244,47 @@ def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad):
 
 
 def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
-                     refv_pad, ptype, mv_quad, qtab, decimate: bool):
+                     refv_pad, ptype, mv_quad, qtab, decimate: bool,
+                     t8: int = T8_OFF):
     """Plain version of K6: stage 2 of encode_p_body.
 
     y / u / v: the MB-aligned source planes; planes: the (P, Hp, Wp)
     half-pel stack of the reference luma (P = 1, the padded plane alone,
     where every MV is full-pel); refu_pad / refv_pad the chroma padded by
     PAD // 2; ptype (mb_h, mb_w) the partition type and mv_quad
-    (mb_h, mb_w, 4, 2) the quadrant MVs (partition_preds). Returns
-    dict(recon_y / _u / _v planes, blocks_z (mb_h,mb_w,16,16), cbp
-    (mb_h,mb_w), chroma_dc (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16))."""
+    (mb_h, mb_w, 4, 2) the quadrant MVs (partition_preds); t8: T8_OFF,
+    T8_SA8D (the 8x8 luma residual too, and the transform of each MB by
+    sa8d_16x16 < satd of its prediction, x264_mb_analyse_transform,
+    encoder/analyse.c:2109) or T8_RD (both luma residuals, for K13).
+    Returns dict(recon_y / _u / _v planes, blocks_z (mb_h,mb_w,16,16), cbp
+    (mb_h,mb_w), chroma_dc (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16));
+    with T8_SA8D also blocks8_z (mb_h,mb_w,4,64) and t8_sel (mb_h,mb_w)
+    bool, recon_y / blocks_z / cbp then being the chosen coding's
+    (blocks_z zero where the 8x8 transform is chosen); with T8_RD also
+    blocks8_z, recon8_y (the 8x8 coding's plane) and cbp8, recon_y /
+    blocks_z / cbp staying the 4x4 coding's."""
     nK = mb_h * mb_w
     preds = [p.reshape(nK, *p.shape[2:]) for p in
              partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad)]
     pred_y, preds_c = preds[0], preds[1:]
     fenc_c = [_tiles(u, 8), _tiles(v, 8)]
-    ry, blocks_z, cbp = inter_luma_residual(_tiles(y, 16), pred_y, qtab,
-                                            decimate)
+    fenc = _tiles(y, 16)
+    ry, blocks_z, cbp = inter_luma_residual(fenc, pred_y, qtab, decimate)
+    extra = {}
+    if t8 != T8_OFF:
+        ry8, blocks8_z, cbp8 = inter_luma_residual8(fenc, pred_y, qtab,
+                                                    decimate)
+        grid = lambda t: t.reshape(mb_h, mb_w, *t.shape[1:])
+        extra["blocks8_z"] = grid(blocks8_z)
+        if t8 == T8_SA8D:
+            sel = opix.sa8d_16x16(fenc, pred_y) < opix.satd(fenc, pred_y)
+            ry = torch.where(sel[:, None, None], ry8, ry)
+            blocks_z = torch.where(sel[:, None, None], 0, blocks_z)
+            cbp = torch.where(sel, cbp8, cbp)
+            extra["t8_sel"] = grid(sel)
+        else:
+            extra.update(recon8_y=_untiles(ry8, mb_h, mb_w),
+                         cbp8=grid(cbp8))
     ac_kill = None
     if decimate:
         # joint two-channel chroma AC decimation (encoder/macroblock.c:
@@ -239,22 +304,24 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
         chroma_dc=torch.stack([ch[0][1], ch[1][1]], 1).reshape(mb_h, mb_w,
                                                                2, 4),
         chroma_ac=torch.stack([ch[0][2], ch[1][2]], 1).reshape(mb_h, mb_w,
-                                                               2, 4, 16))
+                                                               2, 4, 16),
+        **extra)
 
 
 def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
-               ptype, mv_quad, qtab, decimate: bool):
+               ptype, mv_quad, qtab, decimate: bool, t8: int = T8_OFF):
     """K6 `p_inter_mb`: the inter residual path of every MB.
 
     Replaces x264_tpu/ops/mc.py:mc_luma and mc_chroma (the partitioned
     fetch of encode_p_body's stage 2, inter.py:420-494),
-    x264_tpu/encoder/inter.py:inter_luma_residual (with decimation) and
-    the chroma half of stage 2. On CUDA tensors it runs csrc/inter.cu, one
+    x264_tpu/encoder/inter.py:inter_luma_residual (with decimation),
+    inter_luma_residual8 and the SA8D transform choice (t8) and the
+    chroma half of stage 2. On CUDA tensors it runs csrc/inter.cu, one
     CTA per MB over the whole frame in one launch; on CPU tensors the
     plain version. Arguments and results as p_inter_mb_plain."""
     if y.device.type == "cpu":
         return p_inter_mb_plain(mb_h, mb_w, y, u, v, planes, refu_pad,
-                                refv_pad, ptype, mv_quad, qtab, decimate)
+                                refv_pad, ptype, mv_quad, qtab, decimate, t8)
     dev = y.device
     H, W, P = mb_h * 16, mb_w * 16, omc.PAD
     n_planes = planes.shape[0]
@@ -267,21 +334,38 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
             (ptype, (mb_h, mb_w), "ptype"),
             (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad")):
         cuda.check(t, shape, I32, name)
-    e = lambda *s: torch.empty(s, dtype=I32, device=dev)
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
     o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
              recon_v=e(H // 2, W // 2), blocks_z=e(mb_h, mb_w, 16, 16),
              cbp=e(mb_h, mb_w), chroma_dc=e(mb_h, mb_w, 2, 4),
              chroma_ac=e(mb_h, mb_w, 2, 4, 16))
+    # the 8x8 outputs (null pointers where absent)
+    if t8 == T8_SA8D:
+        o.update(blocks8_z=e(mb_h, mb_w, 4, 64),
+                 t8_sel=e(mb_h, mb_w, dt=torch.bool))
+    elif t8 == T8_RD:
+        o.update(blocks8_z=e(mb_h, mb_w, 4, 64), recon8_y=e(H, W),
+                 cbp8=e(mb_h, mb_w))
+    ptr = lambda k: o[k].data_ptr() if k in o else 0
     ins = (y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad,
            pack_qtab_p(qtab))
-    cuda.launch("inter", "p_inter_mb", "p" * 16 + "iiii" + "p",
-                *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
-                mb_h, mb_w, n_planes, int(decimate), cuda.stream(dev))
+    cuda.launch("inter", "p_inter_mb", "p" * 20 + "iiiii" + "p",
+                *[t.data_ptr() for t in ins],
+                *[ptr(k) for k in ("recon_y", "recon_u", "recon_v",
+                                   "blocks_z", "cbp", "chroma_dc",
+                                   "chroma_ac", "blocks8_z", "t8_sel",
+                                   "recon8_y", "cbp8")],
+                mb_h, mb_w, n_planes, int(decimate), int(t8),
+                cuda.stream(dev))
     p_inter_mb.launches += 1
+    p_inter_mb.launches_t8_sa8d += int(t8 == T8_SA8D)
+    p_inter_mb.launches_t8_rd += int(t8 == T8_RD)
     return o
 
 
-p_inter_mb.launches = 0
+# launches, and those of them in each t8 mode
+p_inter_mb.launches = p_inter_mb.launches_t8_sa8d = \
+    p_inter_mb.launches_t8_rd = 0
 
 
 # ---------------------------------------------------------------- K13
@@ -303,27 +387,56 @@ def rd_inter_plain(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
                    mvp_seed, qtab):
     """Plain version of K13: the whole-MB inter RD cost of the RD ladder
     (x264_rd_cost_mb, encoder/rdo.c:139), as x264_tpu's encode_p_body
-    builds rd_cost_inter (inter.py:498-522, 568-594) with one reference
-    and no 8x8 transform.
+    builds rd_cost_inter (inter.py:498-548, 568-594) with one reference.
 
-    it: K6's outputs (recon_y / _u / _v, blocks_z, chroma_dc, chroma_ac);
-    y / u / v the source planes; ptype, mv_quad, mvp_seed as K6 and the ME
-    take them; qtab with make_qtab_p's RD tables. Returns (rd_cost_inter
-    (mb_h, mb_w) float32, ce_psy (mb_h, mb_w) int32, the source's psy AC
-    energy). The float steps run in x264_tpu's order:
-    ((ssd4 + psy * |ac_energy(recon) - ce_psy|) + (ssd_u + ssd_v))
-    + lam2 * (((bits4 + cbits) + cdcb) + 256 * hdr_bits)."""
+    it: K6's outputs (recon_y / _u / _v, blocks_z, cbp, chroma_dc,
+    chroma_ac; with the 8x8 transform, K6 at T8_RD, also recon8_y,
+    blocks8_z and cbp8); y / u / v the source planes; ptype, mv_quad,
+    mvp_seed as K6 and the ME take them; qtab with make_qtab_p's RD
+    tables. Returns (rd_cost_inter (mb_h, mb_w) float32, ce_psy (mb_h,
+    mb_w) int32, the source's psy AC energy) and, with the 8x8 transform,
+    a third item: the chosen luma coding, dict(recon_y, blocks_z (zero
+    where 8x8), cbp, t8_sel (mb_h, mb_w) bool), picked per MB by
+    x264_mb_analyse_transform_rd's ssd8 + lam2 * bits8 < ssd4 + lam2 *
+    bits4 (strictly; encoder/analyse.c:2127), each ssd with its psy term.
+    The float steps run in x264_tpu's order:
+    ((ssd + psy * |ac_energy(recon) - ce_psy|) + (ssd_u + ssd_v))
+    + lam2 * (((bits + cbits) + cdcb) + 256 * hdr_bits)."""
     nK = mb_h * mb_w
     rb, lam2 = qtab["rdbits"], qtab["rd_lam2"]
     psy = qtab.get("psy_rd")
-    yt, rt = _tiles(y, 16), _tiles(it["recon_y"], 16)
+    f = lambda t: t.to(torch.float32)
+    yt = _tiles(y, 16)
     ce_psy = opix.ac_energy(yt)
-    bits4 = ordc.residual_bits_i32(it["blocks_z"].reshape(-1, 16),
-                                   rb["cat2"]).reshape(nK, 16).sum(-1)
-    luma_ssd = ordc.ssd_tiles(yt, rt)
-    if psy is not None:
-        luma_ssd = luma_ssd + psy * (opix.ac_energy(rt).to(torch.float32)
-                                     - ce_psy.to(torch.float32)).abs()
+
+    def luma_ssd(recon):
+        rt = _tiles(recon, 16)
+        ssd = ordc.ssd_tiles(yt, rt)
+        if psy is not None:
+            ssd = ssd + psy * (f(opix.ac_energy(rt)) - f(ce_psy)).abs()
+        return ssd
+
+    bits = ordc.residual_bits_i32(it["blocks_z"].reshape(-1, 16),
+                                  rb["cat2"]).reshape(nK, 16).sum(-1)
+    ssd = luma_ssd(it["recon_y"])
+    t8 = "recon8_y" in it
+    if t8:
+        bits8 = ordc.residual_bits_i32(it["blocks8_z"].reshape(-1, 64),
+                                       rb["cat5"]).reshape(nK, 4).sum(-1)
+        ssd8 = luma_ssd(it["recon8_y"])
+        sel = (ssd8 + lam2 * f(bits8)) < (ssd + lam2 * f(bits))
+        bits = torch.where(sel, bits8, bits)
+        ssd = torch.where(sel, ssd8, ssd)
+        grid = lambda t: t.reshape(mb_h, mb_w, *t.shape[1:])
+        choice = dict(
+            recon_y=_untiles(torch.where(sel[:, None, None],
+                                         _tiles(it["recon8_y"], 16),
+                                         _tiles(it["recon_y"], 16)),
+                             mb_h, mb_w),
+            blocks_z=torch.where(grid(sel)[..., None, None], 0,
+                                 it["blocks_z"]),
+            cbp=torch.where(grid(sel), it["cbp8"], it["cbp"]),
+            t8_sel=grid(sel))
     cbits = ordc.residual_bits_i32(it["chroma_ac"].reshape(-1, 16)[:, 1:],
                                    rb["cat4"]).reshape(nK, 8).sum(-1)
     cdcb = ordc.residual_bits_i32(it["chroma_dc"].reshape(-1, 4),
@@ -331,10 +444,10 @@ def rd_inter_plain(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
     chroma_ssd = (ordc.ssd_tiles(_tiles(u, 8), _tiles(it["recon_u"], 8))
                   + ordc.ssd_tiles(_tiles(v, 8), _tiles(it["recon_v"], 8)))
     hdr = header_bits(ptype, mv_quad, mvp_seed).reshape(nK)
-    f = lambda t: t.to(torch.float32)
-    cost = (luma_ssd + chroma_ssd) \
-        + lam2 * (((f(bits4) + f(cbits)) + f(cdcb)) + 256.0 * f(hdr))
-    return cost.reshape(mb_h, mb_w), ce_psy.reshape(mb_h, mb_w)
+    cost = (ssd + chroma_ssd) \
+        + lam2 * (((f(bits) + f(cbits)) + f(cdcb)) + 256.0 * f(hdr))
+    out = (cost.reshape(mb_h, mb_w), ce_psy.reshape(mb_h, mb_w))
+    return out + (choice,) if t8 else out
 
 
 def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
@@ -342,29 +455,37 @@ def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
     """K13 `rd_inter`: the inter RD cost of every MB.
 
     Replaces the RD stages of x264_tpu/encoder/inter.py:encode_p_body
-    that price the inter choice (inter.py:498-522, 568-594:
-    rdcost.residual_bits_f8 of the luma, chroma AC and chroma DC levels,
-    rdcost.ssd_tiles, pixel.ac_energy of the psy term, the header bits).
-    On CUDA tensors it runs csrc/rdcost.cu, one CTA per MB in one launch;
-    on CPU tensors the plain version. Arguments and results as
-    rd_inter_plain."""
+    that price the inter choice (inter.py:498-548, 568-594:
+    rdcost.residual_bits_f8 of the luma (cat 2, and cat 5 for the 8x8
+    coding), chroma AC and chroma DC levels, rdcost.ssd_tiles,
+    pixel.ac_energy of the psy term, the header bits, and with the 8x8
+    transform the RD choice between the two luma codings). On CUDA
+    tensors it runs csrc/rdcost.cu, one CTA per MB in one launch; on CPU
+    tensors the plain version. Arguments and results as rd_inter_plain."""
     if y.device.type == "cpu":
         return rd_inter_plain(mb_h, mb_w, y, u, v, it, ptype, mv_quad,
                               mvp_seed, qtab)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
-    for t, shape, name in (
-            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
-            (v, (H // 2, W // 2), "v"), (it["recon_y"], (H, W), "recon_y"),
-            (it["recon_u"], (H // 2, W // 2), "recon_u"),
-            (it["recon_v"], (H // 2, W // 2), "recon_v"),
-            (it["blocks_z"], (mb_h, mb_w, 16, 16), "blocks_z"),
-            (it["chroma_dc"], (mb_h, mb_w, 2, 4), "chroma_dc"),
-            (it["chroma_ac"], (mb_h, mb_w, 2, 4, 16), "chroma_ac"),
-            (ptype, (mb_h, mb_w), "ptype"),
-            (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad"),
-            (mvp_seed, (mb_h, mb_w, 2), "mvp_seed"),
-            (qtab["rdtab"], (ordc.RD_CATS * ordc.RD_CAT_STRIDE,), "rdtab")):
+    t8 = "recon8_y" in it
+    checks = [
+        (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+        (v, (H // 2, W // 2), "v"), (it["recon_y"], (H, W), "recon_y"),
+        (it["recon_u"], (H // 2, W // 2), "recon_u"),
+        (it["recon_v"], (H // 2, W // 2), "recon_v"),
+        (it["blocks_z"], (mb_h, mb_w, 16, 16), "blocks_z"),
+        (it["chroma_dc"], (mb_h, mb_w, 2, 4), "chroma_dc"),
+        (it["chroma_ac"], (mb_h, mb_w, 2, 4, 16), "chroma_ac"),
+        (ptype, (mb_h, mb_w), "ptype"),
+        (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad"),
+        (mvp_seed, (mb_h, mb_w, 2), "mvp_seed"),
+        (qtab["rdtab"], (ordc.RD_CATS * ordc.RD_CAT_STRIDE,), "rdtab")]
+    if t8:
+        checks += [(it["recon8_y"], (H, W), "recon8_y"),
+                   (it["blocks8_z"], (mb_h, mb_w, 4, 64), "blocks8_z"),
+                   (it["cbp"], (mb_h, mb_w), "cbp"),
+                   (it["cbp8"], (mb_h, mb_w), "cbp8")]
+    for t, shape, name in checks:
         cuda.check(t, shape, I32, name)
     cost = torch.empty((mb_h, mb_w), dtype=torch.float32, device=dev)
     ce_psy = torch.empty((mb_h, mb_w), dtype=I32, device=dev)
@@ -372,15 +493,30 @@ def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
     ins = (y, u, v, it["recon_y"], it["recon_u"], it["recon_v"],
            it["blocks_z"], it["chroma_dc"], it["chroma_ac"], ptype, mv_quad,
            mvp_seed, qtab["rdtab"], cost, ce_psy)
+    if t8:
+        choice = dict(recon_y=torch.empty((H, W), dtype=I32, device=dev),
+                      blocks_z=torch.empty((mb_h, mb_w, 16, 16), dtype=I32,
+                                           device=dev),
+                      cbp=torch.empty((mb_h, mb_w), dtype=I32, device=dev),
+                      t8_sel=torch.empty((mb_h, mb_w), dtype=torch.bool,
+                                         device=dev))
+        t8_ptrs = [t.data_ptr() for t in (
+            it["recon8_y"], it["blocks8_z"], it["cbp"], it["cbp8"],
+            *choice.values())]
+    else:
+        t8_ptrs = [0] * 8
     # psy off runs as psy 0: ssd4 + 0 * |...| is ssd4 exactly
-    cuda.launch("rdcost", "rd_inter", "p" * 15 + "iiff" + "p",
-                *[t.data_ptr() for t in ins], mb_h, mb_w, qtab["rd_lam2"],
-                0.0 if psy is None else psy, cuda.stream(dev))
+    cuda.launch("rdcost", "rd_inter", "p" * 23 + "iiffi" + "p",
+                *[t.data_ptr() for t in ins], *t8_ptrs, mb_h, mb_w,
+                qtab["rd_lam2"], 0.0 if psy is None else psy, int(t8),
+                cuda.stream(dev))
     rd_inter.launches += 1
-    return cost, ce_psy
+    rd_inter.launches_t8 += int(bool(t8))
+    return (cost, ce_psy, choice) if t8 else (cost, ce_psy)
 
 
-rd_inter.launches = 0
+# launches, and those of them with the transform choice
+rd_inter.launches = rd_inter.launches_t8 = 0
 
 
 # ---------------------------------------------------------------- K7
@@ -633,17 +769,21 @@ def partition_search(y, ref_pad, planes, mv_fp, mv16, cost16, lam: int,
 def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                    ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
-                   chroma_me: bool = False, rd: bool = False) -> dict:
+                   chroma_me: bool = False, rd: bool = False,
+                   t8: bool = False) -> dict:
     """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6,
-    K13 (under rd) and K7, and the merges of stage 4 (plain tensor glue). All planes
-    int32 and MB-aligned; ref_* the deblocked reference reconstruction;
-    mvp_seed (mb_h, mb_w, 2) the qpel ME predictors. subpel_steps: () at
-    subme 1, (2,) at subme 2-3, (2, 1) at subme >= 4; parts / p8x8: the
-    16x8 / 8x16 and 8x8 partitions (only with sub-pel steps, as in
-    x264_tpu); chroma_me: the chroma re-rank of subme >= 5; rd: the RD
-    ladder of subme >= 6 (qtab with make_qtab_p's RD tables). Returns the
-    merged syntax planes, the merged pre-deblock reconstruction, the
-    16x16 MV (me_mv), the partition type and the quadrant MVs."""
+    K13 (under rd) and K7, and the merges of stage 4 (plain tensor glue).
+    All planes int32 and MB-aligned; ref_* the deblocked reference
+    reconstruction; mvp_seed (mb_h, mb_w, 2) the qpel ME predictors.
+    subpel_steps: () at subme 1, (2,) at subme 2-3, (2, 1) at subme >= 4;
+    parts / p8x8: the 16x8 / 8x16 and 8x8 partitions (only with sub-pel
+    steps, as in x264_tpu); chroma_me: the chroma re-rank of subme >= 5;
+    rd: the RD ladder of subme >= 6 (qtab with make_qtab_p's RD tables);
+    t8: the adaptive 8x8 transform (the choice by SA8D in K6, or by RD in
+    K13). Returns the merged syntax planes, the merged pre-deblock
+    reconstruction, the 16x16 MV (me_mv), the partition type and the
+    quadrant MVs; with t8 also t8_sel (each MB's transform choice) and
+    luma8_z (the 8x8 coding's levels of every MB)."""
     ref_pad = omc.pad_plane(ref_y.to(I32))
     refu_pad = omc.pad_plane(ref_u.to(I32), omc.PAD // 2)
     refv_pad = omc.pad_plane(ref_v.to(I32), omc.PAD // 2)
@@ -668,9 +808,15 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
         cost_inter = cost16
         mv_quad = mv[:, :, None].expand(mb_h, mb_w, 4, 2).contiguous()
     it = p_inter_mb(mb_h, mb_w, y, u, v, planes, refu_pad, refv_pad, ptype,
-                    mv_quad, qtab, decimate)
-    rd_costs = rd_inter(mb_h, mb_w, y, u, v, it, ptype, mv_quad, mvp_seed,
-                        qtab) if rd else None
+                    mv_quad, qtab, decimate,
+                    (T8_RD if rd else T8_SA8D) if t8 else T8_OFF)
+    rd_costs = None
+    if rd:
+        rd_costs = rd_inter(mb_h, mb_w, y, u, v, it, ptype, mv_quad,
+                            mvp_seed, qtab)
+        if t8:                 # the RD choice between the two codings
+            it = {**it, **rd_costs[2]}
+            rd_costs = rd_costs[:2]
     ip = intra_in_p(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
                     it["recon_v"], cost_inter, qtab, lam, decimate, rd_costs)
     im = ip["intra_mb"]
@@ -686,13 +832,16 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     cnz_ac = (chroma_ac != 0).reshape(mb_h, mb_w, -1).any(-1)
     cnz_dc = (chroma_dc != 0).reshape(mb_h, mb_w, -1).any(-1)
     cbp_chroma = torch.where(cnz_ac, 2, torch.where(cnz_dc, 1, 0)).to(I32)
-    return dict(recon_y=ip["recon_y"], recon_u=ip["recon_u"],
-                recon_v=ip["recon_v"], intra_mb=im, mode16=ip["mode16"],
-                modec=ip["modec"], luma_dc=ip["luma_dc"],
-                luma_blocks=luma_blocks, chroma_dc=chroma_dc,
-                chroma_ac=chroma_ac, cbp_luma_bits=cbp_luma_bits,
-                cbp_chroma=cbp_chroma, me_mv=mv, ptype=ptype,
-                mv_quad=mv_quad)
+    out = dict(recon_y=ip["recon_y"], recon_u=ip["recon_u"],
+               recon_v=ip["recon_v"], intra_mb=im, mode16=ip["mode16"],
+               modec=ip["modec"], luma_dc=ip["luma_dc"],
+               luma_blocks=luma_blocks, chroma_dc=chroma_dc,
+               chroma_ac=chroma_ac, cbp_luma_bits=cbp_luma_bits,
+               cbp_chroma=cbp_chroma, me_mv=mv, ptype=ptype,
+               mv_quad=mv_quad)
+    if t8:
+        out.update(t8_sel=it["t8_sel"], luma8_z=it["blocks8_z"])
+    return out
 
 
 def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
@@ -702,7 +851,11 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
     predict_16x8 / predict_8x16 / predict_p8x8), P_Skip (ptype 0 only),
     the mvds (mvd, mvd1 of the second 16x8 / 8x16 partition, mvd_sub of
     the 8x8 sub-blocks) and their per-4x4 map (0 on skip and intra MBs),
-    and the nnz map the deblocker and the cbf contexts read."""
+    and the nnz map the deblocker and the cbf contexts read. With the 8x8
+    transform (front holds t8_sel and luma8_z) also t8_mb, the effective
+    map: the 8x8 choice of inter MBs that are not skipped and have coded
+    luma (an MB without coded luma decodes as 4x4); each 4x4 cell of such
+    an MB carries its 8x8 block's count in nnz4."""
     dev = front["intra_mb"].device
     im = front["intra_mb"]
     im1, im2 = im[..., None], im[..., None, None]
@@ -749,29 +902,41 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
     R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
     nnz_r = torch.zeros_like(nnz_z)
     nnz_r[..., R] = nnz_z
+    t8 = {}
+    if "t8_sel" in front:
+        t8_mb = front["t8_sel"] & ~im & ~skip & (cbp_l > 0)
+        cnt8 = (front["luma8_z"] != 0).sum(-1, dtype=I32)      # (h, w, 4)
+        cell = torch.as_tensor(cabac_planes.CELL_8X8, device=dev).long()
+        nnz_r = torch.where(t8_mb[..., None], cnt8[..., cell], nnz_r)
+        t8["t8_mb"] = t8_mb
     nnz4 = nnz_r.reshape(mb_h, mb_w, 4, 4).transpose(1, 2) \
         .reshape(mb_h * 4, mb_w * 4)
     return dict(mv=mv, mvd=mvd, mvd1=mvd1, ptype=pt, mv_sub=mv_sub,
                 mvd_sub=mvd_sub, mvd4=mvd4, skip=skip, nnz4=nnz4, ref4=ref4,
-                mv4=mv4)
+                mv4=mv4, **t8)
 
 
 def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                   ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                   subpel_steps=(), parts: bool = False, p8x8: bool = False,
-                  chroma_me: bool = False, rd: bool = False) -> dict:
+                  chroma_me: bool = False, rd: bool = False,
+                  t8: bool = False) -> dict:
     """One P frame (pre-deblock) with the keys of x264_tpu's
-    encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs=1,
-    t8=False, rd, qp_map=None): stages 1-3 (encode_p_front) and the
-    syntax maps (p_maps_plain). The card's pipeline runs the maps inside
-    kernel K8 instead (entropy/cabac_planes.py:cabac_p_ops)."""
+    encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs=1, t8, rd,
+    qp_map=None): stages 1-3 (encode_p_front) and the syntax maps
+    (p_maps_plain). The card's pipeline runs the maps inside kernel K8
+    instead (entropy/cabac_planes.py:cabac_p_ops)."""
     front = encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y, ref_u,
                            ref_v, qtab, lam, mvp_seed, decimate,
-                           subpel_steps, parts, p8x8, chroma_me, rd)
+                           subpel_steps, parts, p8x8, chroma_me, rd, t8)
     out = dict(front, **p_maps_plain(front, mb_h, mb_w))
-    del out["me_mv"], out["mv_quad"]
-    # the 8x8-transform and multi-reference fields stay zero
+    for k in ("me_mv", "mv_quad", "t8_sel"):
+        out.pop(k, None)
+    # without the 8x8 transform its fields stay zero, as the reference
+    # field does with one reference
     z = lambda *s, dt=I32: torch.zeros(s, dtype=dt, device=y.device)
-    out.update(t8_mb=z(mb_h, mb_w, dt=torch.bool),
-               luma8_z=z(mb_h, mb_w, 4, 64), ref_idx=z(mb_h, mb_w))
+    if not t8:
+        out.update(t8_mb=z(mb_h, mb_w, dt=torch.bool),
+                   luma8_z=z(mb_h, mb_w, 4, 64))
+    out["ref_idx"] = z(mb_h, mb_w)
     return out

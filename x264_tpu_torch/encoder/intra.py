@@ -1,6 +1,6 @@
-"""All-intra (I16x16 + I4x4 + chroma) frame encode — plain PyTorch twin
-of x264_tpu/encoder/intra.py and the wrapper of its CUDA kernel
-(csrc/intra.cu, kernel K1).
+"""All-intra (I16x16 + I4x4 + I8x8 + chroma) frame encode - plain
+PyTorch twin of x264_tpu/encoder/intra.py and the wrapper of its CUDA
+kernel (csrc/intra.cu, kernel K1).
 
 The reference encodes macroblocks in raster order because intra
 prediction reads the reconstruction of the left / top neighbours
@@ -9,12 +9,14 @@ anti-diagonal (x + y = d) have no mutual dependency, so both versions
 walk the 187 diagonals of a 1080p frame in order and encode every MB of
 a diagonal together: predictions, SATD mode decision, DCT, quant,
 dequant, IDCT and reconstruction (x264_mb_analyse_intra,
-encoder/analyse.c:612; x264_mb_encode_i16x16 / _i4x4 / _8x8_chroma,
-encoder/macroblock.c:116-364).
+encoder/analyse.c:612; x264_mb_encode_i16x16 / _i4x4 / _i8x8 /
+_8x8_chroma, encoder/macroblock.c:116-364). The I8x8 ladder's edge
+filter reads the bottom row of the top-right MB, which the x + y
+wavefront has not coded yet, so with I8x8 on both walk the 254 slope-2
+diagonals d = x + 2y instead (the reference's own frame-thread offset).
 
-This slice runs the I16x16 + I4x4 ladder at one frame QP; the I8x8
-ladder (slope-2 wavefront), lossless bypass and per-MB (AQ) tables come
-with later slices.
+This slice runs the I16x16 + I4x4 (+ I8x8) ladder at one frame QP;
+lossless bypass and per-MB (AQ) tables come with later slices.
 """
 
 from __future__ import annotations
@@ -47,13 +49,16 @@ _I4_COST_BITS = 24   # mb-level signalling cost (x264_mb_analyse_intra)
 QTAB_VEC_KEYS = ("y_mf", "y_bias", "y_dmf", "c_mf", "c_bias", "c_dmf")
 QTAB_SCALAR_KEYS = ("y_dmf0", "y_mf_dc", "y_bias_dc", "y_qpdiv6",
                     "c_dmf0", "c_mf_dc", "c_bias_dc", "c_qpdiv6")
+# the I8x8 tables (CQM_8IY, 64 entries each), packed after the scalars
+QTAB_VEC8_KEYS = ("y8_mf", "y8_bias", "y8_dmf")
 
 
 def make_qtab(qp_y: int, qp_c: int, device,
               qt: tables.QuantTables | None = None) -> dict:
     """Per-QP table slices of the intra encode (x264_tpu make_qtab): luma
     from CQM_4IY, chroma from CQM_4IC; DC multipliers mf[0] >> 1 and
-    bias[0] << 1 (encoder/macroblock.c:282)."""
+    bias[0] << 1 (encoder/macroblock.c:282); the I8x8 tables from
+    CQM_8IY."""
     qt = qt or tables.DEFAULT_QUANT
     a = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
     y, c = tables.CQM_4IY, tables.CQM_4IC
@@ -72,14 +77,18 @@ def make_qtab(qp_y: int, qp_c: int, device,
         c_mf_dc=a(qt.quant4_mf[c, qp_c][0] >> 1),
         c_bias_dc=a(qt.quant4_bias[c, qp_c][0] << 1),
         c_qpdiv6=a(qp_c // 6),
+        y8_mf=a(qt.quant8_mf[tables.CQM_8IY, qp_y]),
+        y8_bias=a(qt.quant8_bias[tables.CQM_8IY, qp_y]),
+        y8_dmf=a(qt.dequant8_mf[tables.CQM_8IY, qp_y % 6]),
     )
 
 
 def pack_qtab(qtab: dict) -> torch.Tensor:
-    """The qtab as the one int32 vector csrc/intra.cu reads (6 x 16
-    vectors, then 8 scalars)."""
+    """The qtab as the one int32 vector csrc/intra_mb.cuh's QTab reads (6
+    x 16 vectors, 8 scalars, then 3 x 64 for I8x8)."""
     return torch.cat([qtab[k].reshape(-1).to(I32) for k in QTAB_VEC_KEYS]
-                     + [qtab[k].reshape(1).to(I32) for k in QTAB_SCALAR_KEYS])
+                     + [qtab[k].reshape(1).to(I32) for k in QTAB_SCALAR_KEYS]
+                     + [qtab[k].reshape(-1).to(I32) for k in QTAB_VEC8_KEYS])
 
 
 def _blocks4(block, n):
@@ -275,13 +284,107 @@ def luma_i4_path(fenc, top_row, topleft_px, left_col, nbr_modes_top,
                 cbp_bits=cbp_bits)
 
 
-def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
-    """Plain version of K1: the x+y wavefront over whole diagonals.
+# mb-level signalling cost of I8x8 (mb_type bin + transform flag + the
+# shorter mode list; x264_tpu intra.py _I8_COST_BITS)
+_I8_COST_BITS = 10
+
+
+def luma_i8_path(fenc, top_row, topleft_px, left_col, tr8, nbr_modes_top,
+                 nbr_modes_left, has_top, has_left, has_tr, qtab, lam):
+    """I8x8 luma: four 8x8 blocks in z order, each reading the recon of
+    the blocks before it, batched over MBs (x264_mb_analyse_intra i8x8
+    ladder, encoder/analyse.c:683-706, and x264_mb_encode_i8x8,
+    encoder/macroblock.c:158). Each block filters its edges
+    (predict_8x8_filter), scores the nine modes as SA8D + lam * (1 if
+    most probable else 4), then runs the 8x8 DCT, the CQM_8IY quant,
+    the dequant at shift base 6 and the IDCT.
+
+    fenc: (K,16,16); top_row / left_col: (K,16) neighbour-MB recon;
+    topleft_px: (K,); tr8: (K,8) the top-right MB's bottom row;
+    nbr_modes_top / left: (K,4) the neighbours' 4x4-grid modes.
+    Returns dict(cost (+ lam * 10), modes (K,2,2), blocks8_z (K,4,64) in
+    8x8 scan order, recon (K,16,16), cbp_bits (K,))."""
+    K, dev = fenc.shape[0], fenc.device
+    zig8 = torch.as_tensor(tables.ZIGZAG8, device=dev).long()
+    ext = torch.zeros((K, 17, 25), dtype=I32, device=dev)
+    ext[:, 0, 0] = topleft_px
+    ext[:, 0, 1:17] = top_row
+    ext[:, 0, 17:25] = tr8
+    ext[:, 1:17, 0] = left_col
+    modes8 = torch.full((K, 2, 2), 2, dtype=I32, device=dev)
+    total_cost = torch.zeros(K, dtype=I32, device=dev)
+    blocks8_z = torch.zeros((K, 4, 64), dtype=I32, device=dev)
+    mode_ids = torch.arange(9, dtype=I32, device=dev)
+    # per block (z order) the availability (ht, hl, htl, htr) of its edges:
+    # block 1's top-right is the top-right MB's bottom row, which exists
+    # only under the slope-2 wavefront; block 3's top-right is not decoded
+    # yet on either side, so it is always replaced
+    ones, zeros = torch.ones_like(has_top), torch.zeros_like(has_top)
+    flags = ((has_top, has_left, has_top & has_left, has_top),
+             (has_top, ones, has_top, has_tr),
+             (ones, has_left, has_left, ones),
+             (ones, ones, ones, zeros))
+    for z, (by, bx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        ht, hl, htl, htr = flags[z]
+        r0, c0 = 8 * by, 8 * bx
+        lf, tlf, tf = opred.predict_8x8_filter(
+            ext[:, r0 + 1:r0 + 9, c0], ext[:, r0, c0],
+            ext[:, r0, c0 + 1:c0 + 9], ext[:, r0, c0 + 9:c0 + 17],
+            ht, hl, htl, htr)
+        preds = opred.predict_8x8(lf, tlf, tf, ht, hl)       # (K,9,8,8)
+        avail = opred.mode_available_8x8(ht, hl, htl)
+        lmode = modes8[:, by, bx - 1] if bx else nbr_modes_left[:, 2 * by]
+        tmode = modes8[:, by - 1, bx] if by else nbr_modes_top[:, 2 * bx]
+        mpm = torch.minimum(lmode, tmode)
+        fb = fenc[:, r0:r0 + 8, c0:c0 + 8]
+        bits = torch.where(mode_ids[None, :] == mpm[:, None], 1, 4).to(I32)
+        cost = torch.where(avail, opix.sa8d_8x8(fb[:, None], preds)
+                           + lam * bits, _BIG)
+        mode = cost.argmin(-1).to(I32)
+        total_cost = total_cost + cost.min(-1).values
+        pred = _pick(preds, mode)
+        lv = oquant.quant(odct.dct8x8(fb - pred).reshape(K, 64),
+                          qtab["y8_mf"], qtab["y8_bias"])
+        deq = oquant.dequant(lv, qtab["y8_dmf"], qtab["y_qpdiv6"], 6)
+        rec = (pred + odct.idct8x8(deq.reshape(K, 8, 8))).clamp(0, 255)
+        ext[:, r0 + 1:r0 + 9, c0 + 1:c0 + 9] = rec
+        modes8[:, by, bx] = mode
+        blocks8_z[:, z] = lv[:, zig8]
+    cbp8 = (blocks8_z != 0).any(-1)                         # (K,4)
+    cbp_bits = (cbp8 * torch.tensor([1, 2, 4, 8], device=dev)).sum(
+        -1, dtype=I32)
+    return dict(cost=total_cost + lam * _I8_COST_BITS, modes=modes8,
+                blocks8_z=blocks8_z, recon=ext[:, 1:17, 1:17],
+                cbp_bits=cbp_bits)
+
+
+def diagonals(mb_h: int, mb_w: int, i8x8: bool):
+    """The wavefront: for each diagonal in order, the first MB row on it
+    and how many MBs it holds; x + y = d, or x + 2y = d with I8x8 (the
+    top-right MB is then coded before the MB that reads it)."""
+    out = []
+    if i8x8:
+        for d in range(mb_w + 2 * mb_h - 2):
+            y0, y1 = max(0, (d - (mb_w - 1) + 1) // 2), min(mb_h - 1, d // 2)
+            out.append((d, y0, y1 - y0 + 1))
+    else:
+        for d in range(mb_h + mb_w - 1):
+            y0, y1 = max(0, d - (mb_w - 1)), min(mb_h - 1, d)
+            out.append((d, y0, y1 - y0 + 1))
+    return out
+
+
+def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
+                           i8x8: bool = False):
+    """Plain version of K1: the wavefront over whole diagonals.
 
     y: (mb_h*16, mb_w*16) int32; u, v: (mb_h*8, mb_w*8) int32; qtab from
-    make_qtab on the same device; lam: the frame's lambda. Returns the
-    dict of x264_tpu's encode_i16_frame(..., i4x4=True): recon planes
-    and the per-MB syntax planes."""
+    make_qtab on the same device; lam: the frame's lambda; i8x8: the I8x8
+    ladder too (slope-2 diagonals). Returns the dict of x264_tpu's
+    encode_i16_frame(..., i4x4=True, i8x8=i8x8): recon planes and the
+    per-MB syntax planes, with t8_mb and luma8_z (mb_h,mb_w,4,64) when
+    i8x8 is on (an I8x8 MB keeps i4_mb, I_NxN; its four 8x8 modes fill
+    the 4x4 mode grid)."""
     dev = y.device
     ty = torch.zeros((mb_h, mb_w, 16, 16), dtype=I32, device=dev)
     tu = torch.zeros((mb_h, mb_w, 8, 8), dtype=I32, device=dev)
@@ -298,11 +401,14 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
                i4_modes=torch.full((mb_h, mb_w, 4, 4), 2, dtype=I32,
                                    device=dev),
                cbp_luma_bits=z(mb_h, mb_w))
+    if i8x8:
+        out["t8_mb"] = torch.zeros((mb_h, mb_w), dtype=torch.bool,
+                                   device=dev)
+        out["luma8_z"] = z(mb_h, mb_w, 4, 64)
 
-    for d in range(mb_h + mb_w - 1):
-        y0 = max(0, d - (mb_w - 1))
-        ys = torch.arange(y0, min(mb_h - 1, d) + 1, device=dev)
-        xs = d - ys
+    for d, y0, n in diagonals(mb_h, mb_w, i8x8):
+        ys = torch.arange(y0, y0 + n, device=dev)
+        xs = d - (2 if i8x8 else 1) * ys
         ym, xm = (ys - 1).clamp(min=0), (xs - 1).clamp(min=0)
         has_top, has_left = ys > 0, xs > 0
 
@@ -321,13 +427,38 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
                            has_left, qtab, lam)
         use_i4 = lp4["cost"] < lp["cost"]
         sel = use_i4[:, None, None]
-        ty[ys, xs] = torch.where(sel, lp4["recon"], lp["recon"])
-        out["luma_ac"][ys, xs] = torch.where(sel, lp4["blocks_z"],
-                                             lp["ac_z"])
-        out["luma_dc"][ys, xs] = torch.where(use_i4[:, None], 0, lp["dc_z"])
-        out["cbp_luma_bits"][ys, xs] = torch.where(
-            use_i4, lp4["cbp_bits"], torch.where(lp["cbp"], 15, 0).to(I32))
-        out["i4_modes"][ys, xs] = torch.where(sel, lp4["modes"], 2)
+        recon = torch.where(sel, lp4["recon"], lp["recon"])
+        luma_ac = torch.where(sel, lp4["blocks_z"], lp["ac_z"])
+        luma_dc = torch.where(use_i4[:, None], 0, lp["dc_z"])
+        cbp = torch.where(use_i4, lp4["cbp_bits"],
+                          torch.where(lp["cbp"], 15, 0).to(I32))
+        modes = torch.where(sel, lp4["modes"], 2)
+        if i8x8:
+            # I8x8 takes the MB only when strictly below the best of I16
+            # and I4; block 1 reads the top-right MB's bottom row
+            xp = (xs + 1).clamp(max=mb_w - 1)
+            has_tr = (ys > 0) & (xs < mb_w - 1)
+            lp8 = luma_i8_path(fenc, top, topleft, left, ty[ym, xp, 15, 0:8],
+                               nmt, nml, has_top, has_left, has_tr, qtab,
+                               lam)
+            use_i8 = lp8["cost"] < torch.minimum(lp["cost"], lp4["cost"])
+            sel8 = use_i8[:, None, None]
+            recon = torch.where(sel8, lp8["recon"], recon)
+            luma_ac = torch.where(sel8, 0, luma_ac)
+            luma_dc = torch.where(use_i8[:, None], 0, luma_dc)
+            cbp = torch.where(use_i8, lp8["cbp_bits"], cbp)
+            rep8 = lp8["modes"].repeat_interleave(2, 1) \
+                .repeat_interleave(2, 2)
+            modes = torch.where(sel8, rep8, modes)
+            use_i4 = use_i4 | use_i8          # i4_mb means I_NxN
+            out["t8_mb"][ys, xs] = use_i8
+            out["luma8_z"][ys, xs] = torch.where(use_i8[:, None, None],
+                                                 lp8["blocks8_z"], 0)
+        ty[ys, xs] = recon
+        out["luma_ac"][ys, xs] = luma_ac
+        out["luma_dc"][ys, xs] = luma_dc
+        out["cbp_luma_bits"][ys, xs] = cbp
+        out["i4_modes"][ys, xs] = modes
         out["i4_mb"][ys, xs] = use_i4
         out["mode16"][ys, xs] = lp["mode"]
 
@@ -356,29 +487,34 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
 
 
 # ---------------------------------------------------------------- K1
-_P4_TAB = {}
+_PRED_TAB = {}
 
 
-def _p4_tab(device):
-    """The 4x4 predictor gather tables (ops/predict.py) on `device`, as
-    the kernel reads them: 9*16*3 indices, then 9*16*3 weights."""
-    if device not in _P4_TAB:
-        tab = np.concatenate([opred.P4_IDX.ravel(), opred.P4_WGT.ravel()])
-        _P4_TAB[device] = torch.as_tensor(tab.astype(np.int32),
-                                          device=device)
-    return _P4_TAB[device]
+def _pred_tab(device, size: int):
+    """The 4x4 (size 4) or 8x8 (size 8) predictor gather tables
+    (ops/predict.py) on `device`, as the kernel reads them: 9 * n * 3
+    indices, then 9 * n * 3 weights."""
+    key = (str(device), size)
+    if key not in _PRED_TAB:
+        idx, wgt = (opred.P4_IDX, opred.P4_WGT) if size == 4 \
+            else (opred.P8_IDX, opred.P8_WGT)
+        tab = np.concatenate([idx.ravel(), wgt.ravel()])
+        _PRED_TAB[key] = torch.as_tensor(tab.astype(np.int32), device=device)
+    return _PRED_TAB[key]
 
 
-def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
+def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
+                     i8x8: bool = False):
     """K1 `intra_diag`: the intra encode of one frame.
 
     Replaces x264_tpu/encoder/intra.py:encode_i16_frame (with i4x4=True,
-    i8x8=False, lossless=False). On a CUDA tensor it launches
-    csrc/intra.cu once per anti-diagonal (mb_h + mb_w - 1 launches, one
-    CTA per MB of the diagonal); on a CPU tensor it runs the plain
-    version. Inputs and outputs as encode_i16_frame_plain."""
+    i8x8 as given, lossless=False). On a CUDA tensor it launches
+    csrc/intra.cu once per wavefront diagonal (mb_h + mb_w - 1 launches,
+    or mb_w + 2 * mb_h - 2 with I8x8; one CTA per MB of the diagonal); on
+    a CPU tensor it runs the plain version. Inputs and outputs as
+    encode_i16_frame_plain."""
     if y.device.type == "cpu":
-        return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam)
+        return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam, i8x8)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
     cuda.check(y, (H, W), I32, "y")
@@ -392,14 +528,22 @@ def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int):
              chroma_ac=e(mb_h, mb_w, 2, 4, 16),
              i4_mb=e(mb_h, mb_w, dt=torch.bool),
              i4_modes=e(mb_h, mb_w, 4, 4), cbp_luma_bits=e(mb_h, mb_w))
-    ins = (y, u, v, pack_qtab(qtab), _p4_tab(dev))
-    ptrs = [t.data_ptr() for t in ins] + [o[k].data_ptr() for k in o]
+    if i8x8:
+        o.update(t8_mb=e(mb_h, mb_w, dt=torch.bool),
+                 luma8_z=e(mb_h, mb_w, 4, 64))
+    t8_ptrs = (o["t8_mb"].data_ptr(), o["luma8_z"].data_ptr()) if i8x8 \
+        else (0, 0)
+    ins = (y, u, v, pack_qtab(qtab), _pred_tab(dev, 4), _pred_tab(dev, 8))
+    keys = [k for k in o if k not in ("t8_mb", "luma8_z")]
+    ptrs = [t.data_ptr() for t in ins] + [o[k].data_ptr() for k in keys]
     stream = cuda.stream(dev)
-    for d in range(mb_h + mb_w - 1):
-        cuda.launch("intra", "intra_diag", "p" * 17 + "iiii" + "p",
-                    *ptrs, mb_h, mb_w, d, lam, stream)
+    for d, _, _ in diagonals(mb_h, mb_w, i8x8):
+        cuda.launch("intra", "intra_diag", "p" * 20 + "iiiii" + "p",
+                    *ptrs, *t8_ptrs, mb_h, mb_w, d, lam, int(i8x8), stream)
         encode_i16_frame.launches += 1
+        encode_i16_frame.launches_i8x8 += int(i8x8)
     return o
 
 
-encode_i16_frame.launches = 0
+# launches, and those of them with the I8x8 ladder
+encode_i16_frame.launches = encode_i16_frame.launches_i8x8 = 0

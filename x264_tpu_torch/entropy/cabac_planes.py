@@ -12,11 +12,11 @@ as realised in encoder/cabac.c (x264_cabac_mb_type:64,
 cbf_ctxidxinc:508, block_residual_write_cabac:584).
 
 Op packing (uint32, carried as int32 bit patterns): kind << 29 | b << 17
-| a (see entropy/cabac.py). The port codes I16x16 + I4x4 MBs, and in P
-slices P_L0 16x16 / 16x8 / 8x16, P_8x8 (L0 8x8 sub-blocks), P_Skip and
-I16x16 MBs with one reference, at one QP; the 8x8 transform (cat 5,
-transform_size_8x8_flag), I8x8 modes, ref_idx and mb_qp_delta values
-from AQ come with later slices.
+| a (see entropy/cabac.py). The port codes I16x16 + I4x4 + I8x8 MBs, and
+in P slices P_L0 16x16 / 16x8 / 8x16, P_8x8 (L0 8x8 sub-blocks), P_Skip
+and I16x16 MBs with one reference, at one QP, with or without the 8x8
+transform (transform_size_8x8_flag and the cat-5 luma blocks); ref_idx
+and mb_qp_delta values from AQ come with later slices.
 """
 
 from __future__ import annotations
@@ -37,7 +37,10 @@ PAD_OP = KIND_PAD << 29
 # 8, pred modes 64, header2 10, luma DC 18, 16 luma blocks of 18, chroma
 # DC 2 x 6, chroma AC 8 x 17, terminal 1), as x264_tpu sizes it; a P MB
 # at most 508, a P_8x8 one (skip 1, mb_type 3, sub_mb_type 4, four mvds
-# of 2 x 7, cbp 6, dqp 1; 16 luma blocks of 18, chroma 148, terminal 1)
+# of 2 x 7, cbp 6, dqp 1; 16 luma blocks of 18, chroma 148, terminal 1).
+# With the 8x8 transform the flag adds one op and the four cat-5 blocks
+# (4 x 68, at most 4 sigmap parts and 64 levels each) replace the 288 of
+# the sixteen 4x4 blocks, so the bound holds
 OPS_PER_MB = 560
 
 
@@ -85,6 +88,39 @@ def residual_block_ops(coeffs, cat: int, cbf_ctx, coded):
     return torch.stack(slots, 1)
 
 
+def residual_block_ops8(coeffs, coded):
+    """Packed ops of N luma 8x8 residual blocks (ctxBlockCat 5,
+    block_residual_write_cabac's 8x8 branch, encoder/cabac.c:769): no
+    coded_block_flag (the CBP covers it); the 63-bit significance mask
+    crosses as four KIND_SIGMAP parts of 16 bits (b = 5 | last << 3 |
+    part << 9) that the host coder joins, then one KIND_LEVEL op per
+    nonzero coefficient in reverse scan order. coeffs: (N, 64) in 8x8
+    scan order; coded: (N,) bool. Returns (N, 68) int64 slot planes."""
+    N, C = coeffs.shape
+    dev = coeffs.device
+    coeffs = coeffs.to(I64)
+    nz = coeffs != 0
+    total = nz.sum(1)
+    pos = torch.arange(C, device=dev)
+    last = torch.where(nz, pos, -1).max(1).values
+    write_res = coded & (total > 0)
+    nzb = nz[:, :C - 1].to(I64)
+    slots = []
+    for part in range(4):
+        lo, hi = 16 * part, min(16 * part + 16, C - 1)
+        mask = (nzb[:, lo:hi] << pos[:hi - lo]).sum(1)
+        slots.append(_sel(write_res, op(KIND_SIGMAP, mask,
+                                        5 | (last << 3) | (part << 9))))
+    order = torch.argsort(-torch.where(nz, pos, -1), dim=1, stable=True)
+    lvl = coeffs.gather(1, order)
+    for j in range(C):
+        l = lvl[:, j]
+        slots.append(_sel(write_res & (j < total),
+                          op(KIND_LEVEL, (l.abs() - 1).clamp(max=0x1FFFF),
+                             l < 0)))
+    return torch.stack(slots, 1)
+
+
 def _nbr_grids(flag_map, unavail: int):
     """(left, top) neighbour values on a grid; outside the frame =
     unavail."""
@@ -101,10 +137,13 @@ def _z_of(grid, mb_h, mb_w, R):
         .reshape(mb_h * mb_w, 16)[:, R]
 
 
-def i4_pred_mode_ops(i4_mb, i4_modes, mb_h: int, mb_w: int):
+def i4_pred_mode_ops(i4_mb, i4_modes, mb_h: int, mb_w: int, i8_mb=None):
     """Intra 4x4 pred-mode bins in z-scan order, 4 slots per block
     (x264_cabac_mb_intra4x4_pred_mode, encoder/cabac.c:199): prev flag at
-    ctx 68, then the 3-bit remainder at ctx 69."""
+    ctx 68, then the 3-bit remainder at ctx 69. i8_mb (optional) marks
+    I8x8 MBs: 4 more blocks each, on the same contexts, read at the
+    top-left 4x4 cell of each 8x8 block of the mode grid (which holds the
+    replicated 8x8 modes, spec 8.3.2.1)."""
     nmb = mb_h * mb_w
     R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z,
                         device=i4_modes.device).long()
@@ -120,14 +159,23 @@ def i4_pred_mode_ops(i4_mb, i4_modes, mb_h: int, mb_w: int):
         for k in range(3):
             slots.append(_sel(i4f & ~eq[:, i],
                               op(KIND_DECISION, 69, (rem[:, i] >> k) & 1)))
+    if i8_mb is not None:
+        t8f = i8_mb.reshape(nmb)
+        for z in (0, 4, 8, 12):     # the z index of cells 0, 2, 8, 10
+            slots.append(_sel(t8f, op(KIND_DECISION, 68, eq[:, z])))
+            for k in range(3):
+                slots.append(_sel(t8f & ~eq[:, z],
+                                  op(KIND_DECISION, 69, (rem[:, z] >> k) & 1)))
     return torch.stack(slots, 1)
 
 
-def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
-    """Packed op planes of a whole intra CABAC slice (I16x16 + I4x4), in
-    syntax order (x264_macroblock_write_cabac intra paths,
+def i16_slice_ops(out: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
+    """Packed op planes of a whole intra CABAC slice (I16x16 + I4x4 +
+    I8x8), in syntax order (x264_macroblock_write_cabac intra paths,
     encoder/cabac.c:781-1025, plus the end_of_slice terminal after every
-    MB but the last). `out` holds the syntax planes of the intra encode.
+    MB but the last). `out` holds the syntax planes of the intra encode
+    (t8_mb / luma8_z where I8x8 ran); t8_mode: the PPS enables the 8x8
+    transform, so every I_NxN MB carries transform_size_8x8_flag.
     Returns the flat int64 slot stream."""
     nmb = mb_h * mb_w
     dev = out["mode16"].device
@@ -143,6 +191,12 @@ def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
     i4f = i4_mb.reshape(nmb)
     cbp_lf = cbp_l_bits.reshape(nmb)
     cbp_luma16 = ~i4f & (cbp_lf > 0)
+    # I8x8: i4_mb means I_NxN, t8_mb the 8x8 transform
+    t8_mb = out.get("t8_mb")
+    if t8_mb is None:
+        t8_mb = torch.zeros((mb_h, mb_w), dtype=torch.bool, device=dev)
+    t8_mb = t8_mb.reshape(mb_h, mb_w)
+    t8f = t8_mb.reshape(nmb)
 
     cnz_ac = (chroma_ac[..., 1:] != 0).reshape(nmb, -1).any(1)
     cnz_dc = (chroma_dc != 0).reshape(nmb, -1).any(1)
@@ -158,8 +212,14 @@ def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
     ctx_mbtype = 3 + (avail_l & (ni4_l.reshape(nmb) > 0)).to(I64) \
         + (avail_t & (ni4_t.reshape(nmb) > 0)).to(I64)
     term = torch.full((nmb,), KIND_TERMINAL << 29, dtype=I64, device=dev)
+    # transform_size_8x8_flag of I_NxN MBs, ctx 399 + the left and top
+    # MBs' flags (x264_cabac_mb_transform_size, encoder/cabac.c:369)
+    t8l, t8t = _nbr_grids(t8_mb.to(I64), 0)
+    tflag = _sel(i4f, op(KIND_DECISION, (399 + t8l + t8t).reshape(nmb), t8f)) \
+        if t8_mode else torch.full((nmb,), PAD_OP, dtype=I64, device=dev)
     header1 = torch.stack([
         op(KIND_DECISION, ctx_mbtype, ~i4f),
+        tflag,
         _sel(~i4f, term),
         _sel(~i4f, op(KIND_DECISION, 6, cbp_luma16)),
         _sel(~i4f, op(KIND_DECISION, 7, cbp_chroma > 0)),
@@ -168,7 +228,8 @@ def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
         _sel(~i4f, op(KIND_DECISION, 9, mode16 >> 1)),
         _sel(~i4f, op(KIND_DECISION, 10, mode16 & 1))], 1)
 
-    pm_ops = i4_pred_mode_ops(i4_mb, out["i4_modes"], mb_h, mb_w)
+    pm_ops = i4_pred_mode_ops(i4_mb & ~t8_mb, out["i4_modes"], mb_h, mb_w,
+                              i8_mb=t8_mb)
 
     cm_l, cm_t = _nbr_grids(modec, 0)
     cctx = (64 + (cm_l != 0).to(I64) + (cm_t != 0).to(I64)).reshape(nmb)
@@ -208,6 +269,13 @@ def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
     counts_z = ((luma_ac != 0).any(-1) & blk_coded).to(I64)
     counts_raster = torch.zeros_like(counts_z)
     counts_raster[:, R] = counts_z
+    luma8_z = out.get("luma8_z")
+    if luma8_z is not None:
+        # an I8x8 MB shows each 8x8 block's coded status on its four 4x4
+        # cells
+        c8 = (luma8_z.reshape(nmb, 4, 64) != 0).any(-1).to(I64)
+        cell = torch.as_tensor(CELL_8X8, device=dev).long()
+        counts_raster = torch.where(t8f[:, None], c8[:, cell], counts_raster)
     lmap = counts_raster.reshape(mb_h, mb_w, 4, 4).transpose(1, 2) \
         .reshape(mb_h * 4, mb_w * 4)
     a, b = _nbr_grids(lmap, 1)
@@ -233,12 +301,14 @@ def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
                               (~i4f & (cbp_lf > 0)).repeat_interleave(16))
     full16 = residual_block_ops(luma_ac.reshape(nmb * 16, 16), 2,
                                 ctx_ac.reshape(nmb * 16),
-                                i4f.repeat_interleave(16)
+                                (i4f & ~t8f).repeat_interleave(16)
                                 & blk_coded.reshape(nmb * 16))
     ac15p = torch.cat([ac15, torch.full((nmb * 16, 1), PAD_OP, dtype=I64,
                                         device=dev)], 1)
     blk_ops = torch.where(i4f.repeat_interleave(16)[:, None], full16,
                           ac15p).reshape(nmb, -1)
+    if luma8_z is not None:
+        blk_ops = _with_blocks8(blk_ops, luma8_z, t8f, cbp_lf)
     cdc_ops = residual_block_ops(chroma_dc.reshape(nmb * 2, 4), 3,
                                  ctx_cdc.reshape(nmb * 2),
                                  (cbp_chroma > 0).repeat_interleave(2))
@@ -249,6 +319,24 @@ def i16_slice_ops(out: dict, mb_h: int, mb_w: int):
     return torch.cat([header1, pm_ops, header2, dc_ops, blk_ops,
                       cdc_ops.reshape(nmb, -1), cac_ops.reshape(nmb, -1),
                       _sel(~is_last, term)[:, None]], 1).reshape(-1)
+
+
+# the 8x8 block (z order) of each raster 4x4 cell of an MB
+CELL_8X8 = (0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3)
+
+
+def _with_blocks8(blk_ops, luma8_z, t8f, cbp_lf):
+    """The luma slot region of 8x8-transform MBs: their four cat-5 blocks
+    (those whose CBP bit is set) in place of the sixteen 4x4 blocks, the
+    rest of the region padded."""
+    nmb = t8f.shape[0]
+    cbp8 = ((cbp_lf[:, None] >> torch.arange(4, device=t8f.device)) & 1) > 0
+    ops8 = residual_block_ops8(luma8_z.reshape(nmb * 4, 64),
+                               t8f.repeat_interleave(4)
+                               & cbp8.reshape(nmb * 4)).reshape(nmb, -1)
+    pad8 = torch.full((nmb, blk_ops.shape[1] - ops8.shape[1]), PAD_OP,
+                      dtype=I64, device=t8f.device)
+    return torch.where(t8f[:, None], torch.cat([ops8, pad8], 1), blk_ops)
 
 
 def compact_ops(ops_flat, cap: int):
@@ -263,9 +351,11 @@ def compact_ops(ops_flat, cap: int):
     return res, torch.tensor(n, dtype=I32, device=ops_flat.device)
 
 
-def i_slice_ops_plain(out: dict, mb_h: int, mb_w: int):
-    """Plain version of K3: compact_ops(i16_slice_ops(out))."""
-    return compact_ops(i16_slice_ops(out, mb_h, mb_w), capacity(mb_h * mb_w))
+def i_slice_ops_plain(out: dict, mb_h: int, mb_w: int,
+                      t8_mode: bool = False):
+    """Plain version of K3: compact_ops(i16_slice_ops(out, t8_mode))."""
+    return compact_ops(i16_slice_ops(out, mb_h, mb_w, t8_mode),
+                       capacity(mb_h * mb_w))
 
 
 # mvd unary context ladder (x264_cabac_mb_mvd_cpn, encoder/cabac.c):
@@ -309,13 +399,16 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     """Packed op planes of a whole P CABAC slice (x264_macroblock_write_
     cabac P branch + x264_cabac_mb_skip, encoder/cabac.c:300-306,
     781-1025) for P_L0 16x16 / 16x8 / 8x16, P_8x8 (L0 8x8 sub-blocks),
-    P_Skip and I16x16 MBs with one reference, no 8x8 transform and one
-    QP. `out` holds the keys of encoder/inter.py:encode_p_body. Returns
-    the flat int64 slot stream."""
-    if n_refs != 1 or t8_mode:
+    P_Skip and I16x16 MBs with one reference and one QP; t8_mode: the PPS
+    enables the 8x8 transform (out then holds t8_mb and luma8_z), so
+    inter MBs with coded luma carry transform_size_8x8_flag and the
+    8x8-transform MBs their cat-5 blocks. `out` holds the keys of
+    encoder/inter.py:encode_p_body. Returns the flat int64 slot
+    stream."""
+    if n_refs != 1:
         raise NotImplementedError(
-            "multiple references and the 8x8 transform in P slices come "
-            "with later slices of the port")
+            "multiple references in P slices come with a later slice of "
+            "the port")
     nmb = mb_h * mb_w
     dev = out["intra_mb"].device
     R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
@@ -408,6 +501,15 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     c1 = 81 + (cbc_l == 2).to(I64) + 2 * (cbc_t == 2).to(I64)
     slots += [_sel(inter_f, dec(c0.reshape(nmb), cbp_cf > 0)),
               _sel(inter_f & (cbp_cf > 0), dec(c1.reshape(nmb), cbp_cf == 2))]
+    # transform_size_8x8_flag of inter MBs with coded luma (ctx 399 + the
+    # left and top MBs' flags; encoder/cabac.c:975-977 and :369)
+    t8_f = torch.zeros(nmb, dtype=torch.bool, device=dev)
+    if t8_mode:
+        t8_g = out["t8_mb"].reshape(mb_h, mb_w)
+        t8_f = t8_g.reshape(nmb)
+        t8l, t8t = _nbr_grids(t8_g.to(I64), 0)
+        slots.append(_sel(inter_f & (cbp_lf > 0),
+                          dec((399 + t8l + t8t).reshape(nmb), t8_f)))
     # mb_qp_delta = 0 (one QP per slice)
     has_dqp = coded & (intra_f | (cbp_lf > 0) | (cbp_cf > 0))
     slots.append(_sel(has_dqp, dec(60, 0)))
@@ -445,12 +547,14 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                               (intra_f & (cbp_lf > 0)).repeat_interleave(16))
     full16 = residual_block_ops(luma_blocks.reshape(nmb * 16, 16), 2,
                                 ctx_ac.reshape(nmb * 16),
-                                inter_f.repeat_interleave(16)
+                                (inter_f & ~t8_f).repeat_interleave(16)
                                 & (grp_bit > 0).reshape(nmb * 16))
     ac15p = torch.cat([ac15, torch.full((nmb * 16, 1), PAD_OP, dtype=I64,
                                         device=dev)], 1)
     blk_ops = torch.where(intra_f.repeat_interleave(16)[:, None], ac15p,
                           full16).reshape(nmb, -1)
+    if t8_mode:
+        blk_ops = _with_blocks8(blk_ops, out["luma8_z"], t8_f, cbp_lf)
     cdc_ops = residual_block_ops(chroma_dc.reshape(nmb * 2, 4), 3,
                                  ctx_cdc.reshape(nmb * 2),
                                  (coded & (cbp_cf > 0)).repeat_interleave(2))
@@ -465,18 +569,20 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
 
 
 # ---------------------------------------------------------------- K3
-def i_slice_ops(out: dict, mb_h: int, mb_w: int):
+def i_slice_ops(out: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
     """K3 `cabac_i_ops`: the compacted op stream of an intra slice.
 
     Replaces x264_tpu/entropy/cabac_planes.py:i16_slice_ops followed by
-    compact_ops. On CUDA tensors it runs csrc/cabac_ops.cu's three
-    kernels: one thread per MB emits the MB's live ops and counts them,
-    one CTA scans the counts, and a scatter packs the dense stream.
-    Returns (ops int32 (capacity,), n_ops int32 0-d tensor); entries at
-    and past n_ops are unspecified on the card (zero in the plain
-    version). On CPU tensors it runs the plain version."""
+    compact_ops (t8_mode: the transform flag of I_NxN MBs; `out` holds
+    t8_mb / luma8_z where I8x8 ran). On CUDA tensors it runs
+    csrc/cabac_ops.cu's three kernels: one thread per MB emits the MB's
+    live ops and counts them, one CTA scans the counts, and a scatter
+    packs the dense stream. Returns (ops int32 (capacity,), n_ops int32
+    0-d tensor); entries at and past n_ops are unspecified on the card
+    (zero in the plain version). On CPU tensors it runs the plain
+    version."""
     if out["mode16"].device.type == "cpu":
-        return i_slice_ops_plain(out, mb_h, mb_w)
+        return i_slice_ops_plain(out, mb_h, mb_w, t8_mode)
     dev = out["mode16"].device
     nmb = mb_h * mb_w
     shapes = dict(mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
@@ -487,32 +593,43 @@ def i_slice_ops(out: dict, mb_h: int, mb_w: int):
                   luma_ac=((mb_h, mb_w, 16, 16), I32),
                   chroma_dc=((mb_h, mb_w, 2, 4), I32),
                   chroma_ac=((mb_h, mb_w, 2, 4, 16), I32))
+    i8 = "t8_mb" in out
+    if i8:
+        shapes.update(t8_mb=((mb_h, mb_w), torch.bool),
+                      luma8_z=((mb_h, mb_w, 4, 64), I32))
     for k, (shape, dt) in shapes.items():
         cuda.check(out[k], shape, dt, k)
+    ptrs = [out[k].data_ptr() for k in shapes]
+    if not i8:
+        ptrs += [0, 0]
     scratch = torch.empty(nmb * OPS_PER_MB, dtype=I32, device=dev)
     counts = torch.empty(nmb, dtype=I32, device=dev)
     offsets = torch.empty(nmb + 1, dtype=I32, device=dev)
     ops = torch.empty(capacity(nmb), dtype=I32, device=dev)
-    cuda.launch("cabac_ops", "cabac_i_ops", "p" * 13 + "ii" + "p",
-                *[out[k].data_ptr() for k in shapes],
-                scratch.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-                ops.data_ptr(), mb_h, mb_w, cuda.stream(dev))
+    cuda.launch("cabac_ops", "cabac_i_ops", "p" * 15 + "iii" + "p",
+                *ptrs, scratch.data_ptr(), counts.data_ptr(),
+                offsets.data_ptr(), ops.data_ptr(), mb_h, mb_w, int(t8_mode),
+                cuda.stream(dev))
     i_slice_ops.launches += 3          # emit, scan, scatter
+    i_slice_ops.launches_t8 += 3 * int(t8_mode)
     return ops, offsets[nmb]
 
 
-i_slice_ops.launches = 0
+# launches, and those of them in t8_mode
+i_slice_ops.launches = i_slice_ops.launches_t8 = 0
 
 
 # ---------------------------------------------------------------- K8
-def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int):
+def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int,
+                      t8_mode: bool = False):
     """Plain version of K8: the syntax maps of encoder/inter.py's
     p_maps_plain, then compact_ops(p_slice_ops(...)). Returns (maps,
     ops, n_ops) with maps = dict(mv, mvd, mvd1, ptype, mv_sub, mvd_sub,
-    mvd4, skip, nnz4, ref4, mv4)."""
+    mvd4, skip, nnz4, ref4, mv4, and t8_mb with t8_mode)."""
     from ..encoder.inter import p_maps_plain
     maps = p_maps_plain(front, mb_h, mb_w)
-    ops, n = compact_ops(p_slice_ops({**front, **maps}, mb_h, mb_w),
+    ops, n = compact_ops(p_slice_ops({**front, **maps}, mb_h, mb_w,
+                                     t8_mode=t8_mode),
                          capacity(mb_h * mb_w))
     return maps, ops, n
 
@@ -524,22 +641,22 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
 
     Replaces x264_tpu/encoder/mvpred.py:predict_16x16 / predict_pskip /
     predict_16x8 / predict_8x16 / predict_p8x8, the skip / mvd / map
-    derivation of encoder/inter.py:encode_p_body (stage 4) and
-    x264_tpu/entropy/cabac_planes.py:p_slice_ops followed by compact_ops.
-    `front` holds the merged planes of encoder/inter.py:encode_p_front.
-    On CUDA tensors it runs csrc/cabac_ops.cu: pass A (one thread per MB:
-    the MV prediction of every partition, skip, the mvds and the 4x4
-    maps), pass B (one thread per MB emits its live ops), then K3's
-    exclusive scan and scatter; on CPU tensors the plain version.
-    Multiple references and the 8x8 transform raise. Returns as
-    cabac_p_ops_plain; ops entries at and past n_ops are unspecified on
-    the card."""
-    if n_refs != 1 or t8_mode:
+    derivation of encoder/inter.py:encode_p_body (stage 4, with t8_mb and
+    the 8x8 nnz cells) and x264_tpu/entropy/cabac_planes.py:p_slice_ops
+    followed by compact_ops. `front` holds the merged planes of
+    encoder/inter.py:encode_p_front (with t8_sel and luma8_z where
+    t8_mode). On CUDA tensors it runs csrc/cabac_ops.cu: pass A (one
+    thread per MB: the MV prediction of every partition, skip, the mvds,
+    t8_mb and the 4x4 maps), pass B (one thread per MB emits its live
+    ops), then K3's exclusive scan and scatter; on CPU tensors the plain
+    version. Multiple references raise. Returns as cabac_p_ops_plain;
+    ops entries at and past n_ops are unspecified on the card."""
+    if n_refs != 1:
         raise NotImplementedError(
-            "multiple references and the 8x8 transform in P slices come "
-            "with later slices of the port")
+            "multiple references in P slices come with a later slice of "
+            "the port")
     if front["intra_mb"].device.type == "cpu":
-        return cabac_p_ops_plain(front, mb_h, mb_w)
+        return cabac_p_ops_plain(front, mb_h, mb_w, t8_mode)
     dev = front["intra_mb"].device
     nmb = mb_h * mb_w
     shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
@@ -553,8 +670,14 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                   luma_blocks=((mb_h, mb_w, 16, 16), I32),
                   chroma_dc=((mb_h, mb_w, 2, 4), I32),
                   chroma_ac=((mb_h, mb_w, 2, 4, 16), I32))
+    if t8_mode:
+        shapes.update(t8_sel=((mb_h, mb_w), torch.bool),
+                      luma8_z=((mb_h, mb_w, 4, 64), I32))
     for k, (shape, dt) in shapes.items():
         cuda.check(front[k], shape, dt, k)
+    ins = [front[k].data_ptr() for k in shapes]
+    if not t8_mode:
+        ins += [0, 0]
     e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
     maps = dict(skip=e(mb_h, mb_w, dt=torch.bool), mv=e(mb_h, mb_w, 2),
                 mvd=e(mb_h, mb_w, 2), mvd1=e(mb_h, mb_w, 2),
@@ -562,16 +685,22 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                 mvd_sub=e(mb_h, mb_w, 4, 2), mvd4=e(mb_h * 4, mb_w * 4, 2),
                 nnz4=e(mb_h * 4, mb_w * 4), ref4=e(mb_h * 4, mb_w * 4),
                 mv4=e(mb_h * 4, mb_w * 4, 2))
+    if t8_mode:
+        maps["t8_mb"] = e(mb_h, mb_w, dt=torch.bool)
+    outs = [maps[k].data_ptr() for k in maps]
+    if not t8_mode:
+        outs.append(0)
     scratch = e(nmb * OPS_PER_MB)
     counts, offsets = e(nmb), e(nmb + 1)
     ops = e(capacity(nmb))
-    cuda.launch("cabac_ops", "cabac_p_ops", "p" * 27 + "ii" + "p",
-                *[front[k].data_ptr() for k in shapes],
-                *[maps[k].data_ptr() for k in maps], scratch.data_ptr(),
-                counts.data_ptr(), offsets.data_ptr(), ops.data_ptr(),
-                mb_h, mb_w, cuda.stream(dev))
+    cuda.launch("cabac_ops", "cabac_p_ops", "p" * 30 + "iii" + "p",
+                *ins, *outs, scratch.data_ptr(), counts.data_ptr(),
+                offsets.data_ptr(), ops.data_ptr(), mb_h, mb_w, int(t8_mode),
+                cuda.stream(dev))
     cabac_p_ops.launches += 4          # pass A, pass B, scan, scatter
+    cabac_p_ops.launches_t8 += 4 * int(t8_mode)
     return maps, ops, offsets[nmb]
 
 
-cabac_p_ops.launches = 0
+# launches, and those of them in t8_mode
+cabac_p_ops.launches = cabac_p_ops.launches_t8 = 0

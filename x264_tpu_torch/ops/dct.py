@@ -6,7 +6,9 @@ Forward/inverse 4x4 core transform and the 4x4 / 2x2 DC Hadamards
 orientation: coefficients are indexed [row][col] with Y[0][1] the
 horizontal frequency. The inverse transform runs rows first, then
 columns, as the spec orders the truncating (>>1) passes. The 8x8 pair
-belongs to the I8x8 / P slices and is not ported yet.
+(High profile, common/dct.c:239-345) keeps the reference's pass orders:
+the forward transform truncates its intermediates, so it runs columns
+first, then rows; the inverse runs rows, then columns.
 """
 
 from __future__ import annotations
@@ -75,3 +77,58 @@ def hadamard2x2(dc):
     (dct2x2dc / idct_dequant_2x2_dc, encoder/macroblock.c:30-86)."""
     h = _mat(_H2, dc)
     return _mm(_mm(h, dc.to(I32)), h)
+
+
+# ----------------------------------------------------------------------
+# 8x8 transform (High profile) - common/dct.c:239-345
+# ----------------------------------------------------------------------
+
+def _dct8_1d(s):
+    """1-D 8-point forward transform along the last axis (DCT8_1D,
+    common/dct.c:239)."""
+    x = [s[..., i] for i in range(8)]
+    s07, s16, s25, s34 = x[0] + x[7], x[1] + x[6], x[2] + x[5], x[3] + x[4]
+    a0, a1, a2, a3 = s07 + s34, s16 + s25, s07 - s34, s16 - s25
+    d07, d16, d25, d34 = x[0] - x[7], x[1] - x[6], x[2] - x[5], x[3] - x[4]
+    a4 = d16 + d25 + (d07 + (d07 >> 1))
+    a5 = d07 - d34 - (d25 + (d25 >> 1))
+    a6 = d07 + d34 - (d16 + (d16 >> 1))
+    a7 = d16 - d25 + (d34 + (d34 >> 1))
+    return torch.stack([a0 + a1, a4 + (a7 >> 2), a2 + (a3 >> 1),
+                        a5 + (a6 >> 2), a0 - a1, a6 - (a5 >> 2),
+                        (a2 >> 1) - a3, (a4 >> 2) - a7], dim=-1)
+
+
+def dct8x8(diff):
+    """Forward 8x8 transform of (..., 8, 8) residuals (sub8x8_dct8,
+    common/dct.c:266): columns first, then rows."""
+    t = _dct8_1d(diff.to(I32).transpose(-1, -2)).transpose(-1, -2)
+    return _dct8_1d(t)
+
+
+def _idct8_1d(s):
+    """1-D 8-point inverse butterfly along the last axis (IDCT8_1D,
+    common/dct.c:297; spec 8.5.12.3)."""
+    x = [s[..., i] for i in range(8)]
+    a0, a2 = x[0] + x[4], x[0] - x[4]
+    a4, a6 = (x[2] >> 1) - x[6], (x[6] >> 1) + x[2]
+    b0, b2, b4, b6 = a0 + a6, a2 + a4, a2 - a4, a0 - a6
+    a1 = -x[3] + x[5] - x[7] - (x[7] >> 1)
+    a3 = x[1] + x[7] - x[3] - (x[3] >> 1)
+    a5 = -x[1] + x[7] + x[5] + (x[5] >> 1)
+    a7 = x[3] + x[5] + x[1] + (x[1] >> 1)
+    b1, b3 = (a7 >> 2) + a1, a3 + (a5 >> 2)
+    b5, b7 = (a3 >> 2) - a5, a7 - (a1 >> 2)
+    return torch.stack([b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1,
+                        b4 - b3, b2 - b5, b0 - b7], dim=-1)
+
+
+def idct8x8(coef):
+    """Inverse 8x8 transform -> residual, with the rounding +32 folded
+    into coef[0][0] and the final >> 6 (add8x8_idct8, common/dct.c:324,
+    minus the add and clip): rows first, then columns."""
+    c = coef.to(I32).clone()
+    c[..., 0, 0] += 32
+    t = _idct8_1d(c)                                              # rows
+    t = _idct8_1d(t.transpose(-1, -2)).transpose(-1, -2)          # columns
+    return t >> 6

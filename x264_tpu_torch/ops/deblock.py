@@ -244,19 +244,19 @@ def deblock_frame(mb_h: int, mb_w: int, y, u, v, qp_mb, intra_mb, nnz4,
     Replaces x264_tpu/ops/deblock.py:deblock_frame. On CUDA tensors it
     filters y / u / v IN PLACE (and returns them), one launch of
     csrc/deblock.cu per slope-2 diagonal, one CTA per MB; the kernel
-    derives bS and alpha / beta / tc0 from the maps itself. On CPU
-    tensors it runs the plain version, which returns new planes. The
-    8x8-transform edge rule (t8_mb) and B-slice strengths (is_b) come
-    with the slices that need them: the kernel raises on them."""
+    derives bS and alpha / beta / tc0 from the maps itself, and takes bS
+    0 on the inner luma edges 1 and 3 of the MBs t8_mb marks (the 8x8
+    transform). On CPU tensors it runs the plain version, which returns
+    new planes. B-slice strengths (is_b) come with the B slice: the
+    kernel raises on them."""
     if y.device.type == "cpu":
         return deblock_frame_plain(mb_h, mb_w, y, u, v, qp_mb, intra_mb,
                                    nnz4, ref4, mv4, ref4_l1, mv4_l1, is_b,
                                    alpha_off, beta_off, chroma_qp_offset,
                                    t8_mb)
-    if t8_mb is not None or is_b:
+    if is_b:
         raise NotImplementedError(
-            "deblock kernel: the 8x8-transform and B-slice edge rules come "
-            "with the P/B slices")
+            "deblock kernel: the B-slice edge rules come with the B slice")
     dev = y.device
     H, W, H4, W4 = mb_h * 16, mb_w * 16, mb_h * 4, mb_w * 4
     cuda.check(y, (H, W), I32, "y")
@@ -269,13 +269,20 @@ def deblock_frame(mb_h: int, mb_w: int, y, u, v, qp_mb, intra_mb, nnz4,
     cuda.check(mv4, (H4, W4, 2), I32, "mv4")
     ptrs = [t.data_ptr() for t in (y, u, v, qp_mb, intra_mb, nnz4, ref4,
                                    mv4, _deblock_tab(dev))]
+    if t8_mb is not None:
+        cuda.check(t8_mb, (mb_h, mb_w), torch.bool, "t8_mb")
+        ptrs.append(t8_mb.data_ptr())
+    else:
+        ptrs.append(0)
     stream = cuda.stream(dev)
     for d in range(mb_w + 2 * mb_h - 2):
-        cuda.launch("deblock", "deblock_diag", "p" * 9 + "iiiiii" + "p",
+        cuda.launch("deblock", "deblock_diag", "p" * 10 + "iiiiii" + "p",
                     *ptrs, mb_h, mb_w, d, alpha_off, beta_off,
                     chroma_qp_offset, stream)
         deblock_frame.launches += 1
+        deblock_frame.launches_t8 += int(t8_mb is not None)
     return y, u, v
 
 
-deblock_frame.launches = 0
+# launches, and those of them with a t8_mb map
+deblock_frame.launches = deblock_frame.launches_t8 = 0

@@ -1,6 +1,7 @@
 """Batched pixel metrics (common/pixel.c) — plain PyTorch twins of
-x264_tpu/ops/pixel.py: SATD, the mode-decision cost, the psy-RD AC
-energy, and the SSIM sum of the frame metrics.
+x264_tpu/ops/pixel.py: SATD, SA8D (the I8x8 mode cost and the 8x8
+transform choice), the psy-RD AC energy, and the SSIM sum of the frame
+metrics.
 
 SATD keeps the reference's summation structure: the 2-D 4x4 Hadamard
 abs-sum per 4x4 block, halved (>>1) per 8x4 unit (x264_pixel_satd_8x4,
@@ -10,6 +11,7 @@ common/pixel.c:211) or per 4x4 block for 4-wide shapes
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .dct import _H4, _mat, _mm
@@ -34,6 +36,40 @@ def satd(a, b):
         pair = s44.reshape(*s44.shape[:-1], w4 // 2, 2).sum(-1, dtype=I32)
         return (pair >> 1).sum((-2, -1), dtype=I32)
     return (s44 >> 1).sum((-2, -1), dtype=I32)
+
+
+def _build_h8():
+    """The 8x8 Sylvester Hadamard matrix."""
+    h = np.array([[1]])
+    for _ in range(3):
+        h = np.block([[h, h], [h, -h]])
+    return h.astype(np.int32)
+
+
+H8 = _build_h8()
+
+
+def _abs_had8_sum(d, dims):
+    """sum |H8 d H8| over the last two axes and `dims` more."""
+    h = torch.as_tensor(H8, device=d.device)
+    return _mm(_mm(h, d), h).abs().sum(dims, dtype=I32)
+
+
+def sa8d_8x8(a, b):
+    """8x8 SA8D of (..., 8, 8) blocks: the abs-sum of the 2-D 8x8
+    Hadamard of the difference, (+2) >> 2 (x264_pixel_sa8d_8x8,
+    common/pixel.c:256-295)."""
+    return (_abs_had8_sum(a.to(I32) - b.to(I32), (-2, -1)) + 2) >> 2
+
+
+def sa8d_16x16(a, b):
+    """16x16 SA8D of (..., 16, 16) blocks: the four 8x8 Hadamard abs-sums
+    added first, then one (+2) >> 2 (x264_pixel_sa8d_16x16,
+    common/pixel.c:297)."""
+    d = a.to(I32) - b.to(I32)
+    *lead, _, _ = d.shape
+    t = d.reshape(*lead, 2, 8, 2, 8).transpose(-3, -2)
+    return (_abs_had8_sum(t, (-4, -3, -2, -1)) + 2) >> 2
 
 
 def ac_energy(tiles):

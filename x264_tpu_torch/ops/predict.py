@@ -10,8 +10,7 @@ masks by cost.
 Mode numbering is the bitstream's:
   I16x16: 0=V 1=H 2=DC 3=Plane
   Chroma: 0=DC 1=H 2=V 3=Plane
-  I4x4:   0=V 1=H 2=DC 3=DDL 4=DDR 5=VR 6=HD 7=VL 8=HU
-The 8x8 luma predictors belong to I8x8 and are not ported yet.
+  I4x4 and I8x8: 0=V 1=H 2=DC 3=DDL 4=DDR 5=VR 6=HD 7=VL 8=HU
 """
 
 from __future__ import annotations
@@ -219,4 +218,145 @@ def mode_available_4x4(has_top, has_left):
     ht, hl = has_top, has_left
     both = ht & hl
     return torch.stack([ht, hl, torch.ones_like(ht), ht, both, both, both,
+                        ht, hl], -1)
+
+
+# ---------------------------------------------------------------------------
+# 8x8 luma prediction (High profile; common/predict.c:499-751; spec 8.3.2)
+#
+# The same gather-table scheme as 4x4, over the FILTERED 25-entry edge
+# vector e' = [l7'..l0', lt', t0'..t15'] (spec 8.3.2.2.1 low-pass filters
+# the reference samples first: x264_predict_8x8_filter). The linear layout
+# makes T(-1) and L(-1) both land on lt' (intentional: the VR / HD rows
+# with zVR == 0 / zHD == 0 read it so). The CUDA intra kernel reads the
+# same two tables.
+# ---------------------------------------------------------------------------
+
+def predict_8x8_filter(left, topleft, top, topright, ht, hl, htl, htr):
+    """Reference-sample filtering for Intra_8x8 (spec 8.3.2.2.1).
+
+    left: (..., 8) l0..l7 top to bottom; top: (..., 8); topright: (..., 8)
+    t8..t15; topleft: (...,); ht / hl / htl / htr: (...) bool
+    availability. An unavailable top-right is replaced by t7 before
+    filtering, as the decoder does. Returns (l_f (..., 8), tl_f (...,),
+    t_f (..., 16))."""
+    left, top = left.to(I32), top.to(I32)
+    tl = topleft.to(I32)
+    tr = torch.where(htr[..., None], topright.to(I32), top[..., 7:8])
+    t16 = torch.cat([top, tr.expand(*top.shape[:-1], 8)], -1)
+    prev = torch.cat([torch.where(htl[..., None], tl[..., None],
+                                  t16[..., 0:1]), t16[..., :-1]], -1)
+    nxt = torch.cat([t16[..., 1:], t16[..., 15:16]], -1)
+    t_f = (prev + 2 * t16 + nxt + 2) >> 2
+    lprev = torch.cat([torch.where(htl[..., None], tl[..., None],
+                                   left[..., 0:1]), left[..., :-1]], -1)
+    lnxt = torch.cat([left[..., 1:], left[..., 7:8]], -1)
+    l_f = (lprev + 2 * left + lnxt + 2) >> 2
+    tl_f = torch.where(ht & hl, (top[..., 0] + 2 * tl + left[..., 0] + 2) >> 2,
+                       torch.where(ht, (3 * tl + top[..., 0] + 2) >> 2,
+                                   (3 * tl + left[..., 0] + 2) >> 2))
+    return l_f, tl_f, t_f
+
+
+def _build_8x8_tables():
+    L = lambda i: 7 - i          # i = -1 -> 8 == LT (intentional)
+    LT = 8
+    T = lambda i: 9 + i          # i = -1 -> 8 == LT (intentional)
+    idx = np.zeros((9, 8, 8, 3), np.int32)
+    wgt = np.zeros((9, 8, 8, 3), np.int32)
+
+    def setp(m, x, y, ids, ws):
+        idx[m, y, x] = ids
+        wgt[m, y, x] = ws
+
+    F2, F1, CP = (1, 2, 1), (2, 2, 0), (4, 0, 0)
+    for x in range(8):
+        for y in range(8):
+            setp(0, x, y, (T(x),) * 3, CP)              # V
+            setp(1, x, y, (L(y),) * 3, CP)              # H
+            setp(2, x, y, (T(0),) * 3, CP)              # DC placeholder
+            if x == 7 and y == 7:                       # DDL (8.3.2.2.5)
+                setp(3, x, y, (T(14), T(15), T(15)), F2)
+            else:
+                i = x + y
+                setp(3, x, y, (T(i), T(i + 1), T(i + 2)), F2)
+            if x > y:                                   # DDR (8.3.2.2.6)
+                setp(4, x, y, (T(x - y - 2), T(x - y - 1), T(x - y)), F2)
+            elif x < y:
+                setp(4, x, y, (L(y - x - 2), L(y - x - 1), L(y - x)), F2)
+            else:
+                setp(4, x, y, (T(0), LT, L(0)), F2)
+            zvr = 2 * x - y                             # VR (8.3.2.2.7)
+            if zvr >= 0 and zvr % 2 == 0:
+                setp(5, x, y, (T(x - (y >> 1) - 1), T(x - (y >> 1)),
+                               T(x - (y >> 1) - 1)), F1)
+            elif zvr >= 1:
+                setp(5, x, y, (T(x - (y >> 1) - 2), T(x - (y >> 1) - 1),
+                               T(x - (y >> 1))), F2)
+            elif zvr == -1:
+                setp(5, x, y, (L(0), LT, T(0)), F2)
+            else:
+                setp(5, x, y, (L(y - 2 * x - 1), L(y - 2 * x - 2),
+                               L(y - 2 * x - 3)), F2)
+            zhd = 2 * y - x                             # HD (8.3.2.2.8)
+            if zhd >= 0 and zhd % 2 == 0:
+                setp(6, x, y, (L(y - (x >> 1) - 1), L(y - (x >> 1)),
+                               L(y - (x >> 1) - 1)), F1)
+            elif zhd >= 1:
+                setp(6, x, y, (L(y - (x >> 1) - 2), L(y - (x >> 1) - 1),
+                               L(y - (x >> 1))), F2)
+            elif zhd == -1:
+                setp(6, x, y, (T(0), LT, L(0)), F2)
+            else:
+                setp(6, x, y, (T(x - 2 * y - 1), T(x - 2 * y - 2),
+                               T(x - 2 * y - 3)), F2)
+            if y % 2 == 0:                              # VL (8.3.2.2.9)
+                setp(7, x, y, (T(x + (y >> 1)), T(x + (y >> 1) + 1),
+                               T(x + (y >> 1))), F1)
+            else:
+                setp(7, x, y, (T(x + (y >> 1)), T(x + (y >> 1) + 1),
+                               T(x + (y >> 1) + 2)), F2)
+            zhu = x + 2 * y                             # HU (8.3.2.2.10)
+            if zhu < 13 and zhu % 2 == 0:
+                setp(8, x, y, (L(y + (x >> 1)), L(y + (x >> 1) + 1),
+                               L(y + (x >> 1))), F1)
+            elif zhu < 13:
+                setp(8, x, y, (L(y + (x >> 1)), L(y + (x >> 1) + 1),
+                               L(y + (x >> 1) + 2)), F2)
+            elif zhu == 13:
+                setp(8, x, y, (L(6), L(7), L(7)), F2)
+            else:
+                setp(8, x, y, (L(7),) * 3, CP)
+    return idx, wgt
+
+
+P8_IDX, P8_WGT = _build_8x8_tables()
+
+
+def predict_8x8(l_f, tl_f, t_f, has_top, has_left):
+    """All nine 8x8 predictions from the filtered edges
+    (predict_8x8_filter), (..., 9, 8, 8); unavailable modes are garbage
+    the caller masks (mode_available_8x8)."""
+    e = torch.cat([l_f.to(I32).flip(-1), tl_f.to(I32)[..., None],
+                   t_f.to(I32)], -1)
+    idx = torch.as_tensor(P8_IDX, device=e.device).long()
+    wgt = torch.as_tensor(P8_WGT, device=e.device)
+    p = ((e[..., idx] * wgt).sum(-1, dtype=I32) + 2) >> 2
+    st = t_f[..., :8].to(I32).sum(-1, dtype=I32)
+    sl = l_f.to(I32).sum(-1, dtype=I32)
+    dc = torch.where(has_top & has_left, (st + sl + 8) >> 4,
+                     torch.where(has_left, (sl + 4) >> 3,
+                                 torch.where(has_top, (st + 4) >> 3,
+                                             torch.full_like(st, 128))))
+    p[..., 2, :, :] = dc[..., None, None]
+    return p
+
+
+def mode_available_8x8(has_top, has_left, has_topleft):
+    """(..., 9) mask over [V H DC DDL DDR VR HD VL HU] for Intra_8x8:
+    DDR / VR / HD read the filtered top-left, so they also need the
+    top-left neighbour (x264's MB_TOPLEFT gate)."""
+    ht, hl = has_top, has_left
+    diag = ht & hl & has_topleft
+    return torch.stack([ht, hl, torch.ones_like(ht), ht, diag, diag, diag,
                         ht, hl], -1)

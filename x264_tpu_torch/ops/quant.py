@@ -56,9 +56,11 @@ def dequant_2x2_dc(hadamard_out, dmf0, qp_div6):
     return (hadamard_out.to(I32) * dmf_eff) >> max(-qbits, 0)
 
 
-# decimate-score run-cost tables (x264_decimate_table4,
+# decimate-score run-cost tables (x264_decimate_table4 / 8,
 # common/quant.c:203-210)
 DECIMATE_TAB4 = (3, 2, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+DECIMATE_TAB8 = (3, 3, 3, 3, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1,
+                 1, 1, 1, 1, 1, 1, 1, 1) + (0,) * 40
 
 
 def decimate_score(levels_scan, table=DECIMATE_TAB4):
