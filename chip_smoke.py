@@ -45,7 +45,7 @@ Phases; any failure exits non-zero before the result line:
      second picture (make_frames' pan over a smooth texture of its own,
      seed 1: cut_frames), so the lookahead must call an IDR at frame 26
      and nowhere else but frame 0. Every kernel's launch count (K1-K15)
-     must rise, frames 0-1 must equal the CPU run's, every frame's two
+     must rise, frame 0 must equal the CPU run's, every frame's two
      lookahead sums must equal their plain versions', and the phase
      reports fps, the median encode(), a P frame's host CABAC, the
      profiler's device split and the host's wait on the lookahead per
@@ -54,20 +54,38 @@ Phases; any failure exits non-zero before the result line:
      26 with keyint 250 (the 8x8 transform with I8x8 in the IDRs, subme 6
      with psy-RD 1.0 and the RD transform choice, scenecut 40,
      keyint_min 25, ref 1, no B frames), nothing else set, on phase 7's
-     32 frames. Every kernel's launch count must rise, frames 0-2 must
+     32 frames. Every kernel's launch count must rise, frames 0-1 must
      equal the CPU run's, the IDRs must fall at frames 0 and 26 only, and
      the IDRs must hold I8x8 MBs and the P frames 8x8-transform MBs; the
      phase reports fps, the median encode(), a P frame's host CABAC, the
      profiler's device split and the idle share.
+  9. x264_tpu's own defaults: EncoderParams(1920, 1080) with nothing else
+     set but i_frame_parallel 3 (CRF 23 with variance AQ at strength 1.0,
+     keyint 250, 8x8dct + I8x8, subme 6 with psy-RD, scenecut 40, ref 1,
+     no B frames), on phase 7's 32 frames. Every kernel's launch count
+     must rise (K16 aq_qp_map and K17 dqp_syntax and the AQ branches of
+     K1 / K6 / K7 / K3 / K8 among them), frames 0-1 must equal a CPU run
+     at the same pipe depth, the IDRs must fall at frames 0 and 26 only,
+     and some MBs must code a nonzero mb_qp_delta; the phase reports fps,
+     the median encode(), the bytes of the IDRs and P frames, PSNR /
+     SSIM, the frame QPs, the share of MBs with a nonzero delta, the
+     profiler's device split (K16 and K17 in it) and the idle share.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
 across the cut, and the 8x8 transform: K1 with I8x8 and K3 / K2 on its
 output on a frame that I8x8 fits, and K6 (the SA8D and the RD choice),
 K13, K8 and K2 with t8 on frame 1 against frame 0's recon and against
-the 30%-gray reference. The line before the last is the JSON `kernels`
-record (the 8x8 variants as records of their own, each counting the
-launches that took its branch); the last line is
+the 30%-gray reference; and variance AQ: K16 on frame 0 and on a frame
+that is half flat, half noise, K16's device log against the plain
+version over every float32 in [1, 2^23), K17 on seeded maps, K1 + K17 +
+K3 + K2 with a QP map on frame 0 (with I8x8), and K6 / K7 / K8 (with K17
+between its passes) / K2 with a QP map on frame 1 against frame 0's
+recon and against the 30%-gray reference (subme 6 with the 8x8
+transform). The line before the last is the JSON `kernels` record (the
+8x8 and AQ variants as records of their own, each counting the launches
+that took its branch; `launches` is phase 9's count, the other phases'
+beside it); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
 
@@ -90,8 +108,11 @@ N_SUBPEL = 8                   # frames of the IPPP path at subme 5
 N_RD = 32                      # frames of the subme-6 + scenecut path
 N_BENCH = 32                   # frames of bench.py's main path (phase 8)
 CUT = 26                       # its first frame of the second picture
-N_CHECK = 3                    # frames of phase 8 held against the CPU
-N_CHECK_EARLY = 2              # and of phases 5-7 (IDR, P)
+N_CHECK_EARLY = 2              # frames of phases 5, 6, 8 and 9 held against
+                               # the CPU (IDR, P)
+N_CHECK_RD = 1                 # and of phase 7 (its IDR; phases 8 and 9
+                               # check the subme-6 P frame)
+N_DEFAULTS = 32                # frames of x264_tpu's defaults (phase 9)
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
@@ -148,6 +169,11 @@ K6_T8_OPS_PER_MB = K6_SUBPEL_OPS_PER_MB + 4 * 2_300 + 4 * 450 + 16 * 130
 K13_T8_OPS_PER_MB = K13_OPS_PER_MB + 4 * 64 * 12 + 256 * 3 + 16 * 130
 K15_OPS_PER_CAND_SAMPLE = 3
 K15_OPS_PER_BLOCK = 12 * 520 + 2_000
+# K16 per MB: a load, a square and two adds for each of its 384 samples,
+# eight 5-step warp sums and the float chain with the log (~60 ops); K17
+# per MB: the run's max, the scan's share and the three outputs
+K16_OPS_PER_MB = 384 * 4 + 8 * 5 * 32 + 60
+K17_OPS_PER_MB = 16
 
 
 T0 = time.perf_counter()
@@ -206,6 +232,27 @@ def blocky_frame(w: int, h: int, frame_cls, seed: int = 3):
     u = (128 + xx[::2, ::2] // 4).clip(0, 255).astype(np.uint8)
     v = (128 - yy[::2, ::2] // 4).clip(0, 255).astype(np.uint8)
     return frame_cls(y, u, v)
+
+
+def half_flat_frame(w: int, h: int, frame_cls, seed: int = 13):
+    """A picture whose left half is flat and right half noise (all three
+    planes): variance AQ spreads its MBs' QPs widely."""
+    rng = np.random.default_rng(seed)
+    planes = []
+    for ph, pw, level in ((h, w, 90), (h // 2, w // 2, 128),
+                          (h // 2, w // 2, 120)):
+        a = rng.integers(0, 256, (ph, pw)).astype(np.uint8)
+        a[:, :pw // 2] = level
+        planes.append(a)
+    return frame_cls(*planes)
+
+
+def defaults_params(EncoderParams, frame_parallel: int = 3):
+    """x264_tpu's own defaults at 1080p, nothing else set (CRF 23 with
+    variance AQ at strength 1.0, keyint 250, the 8x8 transform with I8x8,
+    subme 6 with psy-RD 1.0, scenecut 40, ref 1, no B frames)."""
+    return EncoderParams(i_width=W, i_height=H, i_log_level=0,
+                         i_frame_parallel=frame_parallel)
 
 
 def bench_params(EncoderParams, frame_parallel: int = 3):
@@ -313,18 +360,22 @@ def drive(enc, frames):
 
 def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
                 what: str, subme: int = 1, scenecut: int = 0,
-                make=None) -> None:
-    """The first n frames of a card run against Encoder(device="cpu");
-    make(EncoderParams, frame_parallel) builds other parameters than
-    params()."""
+                make=None, frame_parallel: int = 1) -> None:
+    """The first n frames of a card run against Encoder(device="cpu") on
+    those n frames (then flushed); make(EncoderParams, frame_parallel)
+    builds other parameters than params(). Under CRF / ABR a frame's QP
+    depends on the pipe's depth, so the CPU run then takes the card
+    run's frame_parallel."""
     stamp(f"{what}: the CPU run")
-    p = make(x264_tpu_torch.EncoderParams, 1) if make else \
-        params(x264_tpu_torch.EncoderParams, 1, keyint, subme, scenecut)
+    p = make(x264_tpu_torch.EncoderParams, frame_parallel) if make else \
+        params(x264_tpu_torch.EncoderParams, frame_parallel, keyint, subme,
+               scenecut)
     cpu = x264_tpu_torch.Encoder(p, device="cpu")
     if cpu.headers() != header:
         fail(f"{what}: headers differ between the card and the CPU")
-    for i in range(n):
-        ref = cpu.encode(frames[i])
+    refs = [cpu.encode(frames[i]) for i in range(n)]
+    refs = [r for r in refs if r is not None] + cpu.flush()
+    for i, ref in enumerate(refs):
         if ref.frame_type != done[i].frame_type:
             fail(f"{what}: frame {i} is {done[i].frame_type} on the card, "
                  f"{ref.frame_type} on the CPU")
@@ -381,11 +432,13 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("decide_kernel", "K7"), ("hpel_kernel", "K9"),
                  ("subpel_kernel", "K10"), ("part_kernel", "K11"),
                  ("rerank_kernel", "K12"), ("rd_inter_kernel", "K13"),
-                 ("lowres_kernel", "K14"), ("cost_kernel", "K15"))
+                 ("lowres_kernel", "K14"), ("cost_kernel", "K15"),
+                 ("aq_qp_kernel", "K16"), ("dqp_kernel", "K17"))
 
 
 def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
-                 subme: int, scenecut: int = 0, make=None) -> None:
+                 subme: int, scenecut: int = 0, make=None,
+                 tag: str = "bench.py's defaults") -> None:
     """Device time by kernel over n steady IPPP frames, from a
     torch.profiler trace of the card (CUPTI sees the ctypes launches
     too): per frame, each kernel's share, PyTorch's glue, the busy sum
@@ -422,8 +475,8 @@ def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
         return
     busy = sum(by.values())
     parts = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by.items()))
-    tag = "bench.py's defaults" if make else \
-        f"subme {subme} scenecut {scenecut}"
+    if make is None:
+        tag = f"subme {subme} scenecut {scenecut}"
     print(f"device split at {tag} over {n} "
           f"frames (profiled; the "
           f"{len(frames[:n_warm])} frames before are not in it, the flush "
@@ -434,9 +487,9 @@ def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
 
 def ippp_report(done, summary, st, fps, med, n: int, subme: int,
                 smi_line: str, nmb: int, extra: str = "",
-                idrs=(0,)) -> None:
+                idrs=(0,), rc: str = f"CQP {QP}") -> None:
     """Check an IPPP run's frame types (IDRs at `idrs` only) and print its
-    end-to-end line."""
+    end-to-end line; rc: the rate control's name."""
     types = [e.frame_type for e in done]
     if types != ["IDR" if i in idrs else "P" for i in range(n)]:
         fail(f"IPPP subme {subme} frame types {types}")
@@ -445,7 +498,7 @@ def ippp_report(done, summary, st, fps, med, n: int, subme: int,
     p_intra = (st.mb_intra - len(idrs) * nmb) / n_p
     p_skip = st.mb_skip / n_p
     print(f"IPPP path: {n} frames {W}x{H} keyint 250 subme {subme} ref 1 "
-          f"CQP {QP} CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
+          f"{rc} CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
           f"IDR {len(done[0].payload)} bytes, P {statistics.mean(p_bytes):.0f}"
           f" bytes/frame (min {min(p_bytes)}, max {max(p_bytes)}; frames "
           f"1-7 {statistics.mean(p_bytes[:7]):.0f}), per P "
@@ -461,7 +514,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a card")
     import x264_tpu_torch
     from x264_tpu_torch import cuda, native, tables
-    from x264_tpu_torch.encoder import inter, intra, lookahead, pipeline
+    from x264_tpu_torch.encoder import aq, inter, intra, lookahead, pipeline
     from x264_tpu_torch.encoder import ratecontrol, stats
     from x264_tpu_torch.encoder.core import pad_plane
     from x264_tpu_torch.entropy import cabac as ecabac
@@ -935,10 +988,11 @@ def main() -> None:
     qtab_rd = inter.make_qtab_p(QP, tables.chroma_qp(QP, 0), dev, rd_idc=0,
                                 f_psy_rd=1.0)
 
-    def spied_front(ref, qt, rd: bool, t8: bool, names):
+    def spied_front(ref, qt, rd: bool, t8: bool, names, qp_map=None):
         """encode_p_front at subme 6 (rd) or 5 on frame 1 against ref, with
-        or without the 8x8 transform, and the arguments of its calls of
-        the wrappers `names`."""
+        or without the 8x8 transform (and with qp_map, variance AQ's
+        per-MB QPs), and the arguments of its calls of the wrappers
+        `names`."""
         seen, kept = {}, {n: getattr(inter, n) for n in names}
 
         def spy(name):
@@ -953,7 +1007,7 @@ def main() -> None:
             setattr(inter, n, spy(n))
         front = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, *ref,
                                      qt, lam, mvp0, True, (2, 1), True,
-                                     True, True, rd, t8)
+                                     True, True, rd, t8, qp_map)
         for n, f in kept.items():
             f.__dict__.update(getattr(inter, n).__dict__)
             setattr(inter, n, f)
@@ -965,7 +1019,7 @@ def main() -> None:
         front6, seen = spied_front(ref, qtab_rd, True, False,
                                    ("rd_inter", "intra_in_p"))
         a13, a7 = seen["rd_inter"][0], seen["intra_in_p"][0]
-        if len(a7) != 13 or a7[12] is None:
+        if len(a7) != 14 or a7[12] is None:
             fail("encode_p_front at subme 6 did not pass K7 the RD costs")
         k13, n13 = counted(inter.rd_inter, *a13)
         p13 = inter.rd_inter_plain(*a13)
@@ -1204,7 +1258,7 @@ def main() -> None:
             pl6s=event_ms(lambda: inter.p_inter_mb_plain(*a6s), 1),
             k6r=event_ms(lambda: inter.p_inter_mb(*a6r), 10),
             pl6r=event_ms(lambda: inter.p_inter_mb_plain(*a6r), 1),
-            k6o=event_ms(lambda: inter.p_inter_mb(*a6r[:-1]), 10),
+            k6o=event_ms(lambda: inter.p_inter_mb(*a6r[:12]), 10),
             k13=event_ms(lambda: inter.rd_inter(*a13t), 10),
             pl13=event_ms(lambda: inter.rd_inter_plain(*a13t), 1),
             k8=event_ms(lambda: cabac_planes.cabac_p_ops(
@@ -1245,6 +1299,192 @@ def main() -> None:
               f"{t8_ms['k6r']:.3f} ms against {t8_ms['k6o']:.3f} ms "
               f"without the 8x8 transform", flush=True)
 
+    # ------------------------------------------------------ variance AQ
+    stamp("phase 3: variance AQ's kernels")
+    # K16 aq_qp_map on frame 0 and on a frame that is half flat, half noise
+    a16 = (y, u, v, mb_h, mb_w, QP, 1.0, 10, 51, 0)
+    k16 = aq.qp_map_from_planes(*a16)
+    err16 = exact("K16 aq_qp_map (frame 0)", k16,
+                  aq.qp_map_from_planes_plain(*a16))
+    qm0 = k16[0]
+    yh, uh, vh = frame_planes(half_flat_frame(W, H, x264_tpu_torch.Frame))
+    a16h = (yh, uh, vh, mb_h, mb_w, QP, 1.0, 10, 51, 0)
+    k16h = aq.qp_map_from_planes(*a16h)
+    err16 = max(err16, exact("K16 aq_qp_map (half flat)", k16h,
+                             aq.qp_map_from_planes_plain(*a16h)))
+    spread = [int(q.max() - q.min()) for q in (qm0, k16h[0])]
+    if spread[1] < 6:
+        fail(f"K16 spread the half-flat frame's QPs over {spread[1]} only")
+    ms16 = event_ms(lambda: aq.qp_map_from_planes(*a16), 20)
+    pl16 = event_ms(lambda: aq.qp_map_from_planes_plain(*a16), 3)
+    record("aq_qp_map", "cuda", "x264_tpu_torch/csrc/aq.cu",
+           "x264_tpu/encoder/aq.py:43", err16, ms16, pl16,
+           nbytes(y, u, v, *k16), K16_OPS_PER_MB * nmb)
+    # K16's device log against the plain version, every float32 in
+    # [1, 2^23) (the plain version runs on the card's tensors)
+    t = time.perf_counter()
+    log_diffs = 0
+    for e in range(23):
+        xs = (torch.arange(1 << 23, dtype=torch.int32, device=dev)
+              | ((127 + e) << 23)).view(torch.float32)
+        log_diffs += int((aq.xla_log_f32(xs).view(torch.int32)
+                          != aq.xla_log_f32_plain(xs).view(torch.int32))
+                         .sum())
+    if log_diffs:
+        fail(f"K16's device log differs from the plain version on "
+             f"{log_diffs} float32 values in [1, 2^23)")
+    print(f"K16 aq_qp_map: exact on frame 0 (QP spread {spread[0]}) and on "
+          f"the half-flat frame (spread {spread[1]}); its device log equals "
+          f"the plain version on all {23 << 23} float32 values in "
+          f"[1, 2^23) ({time.perf_counter() - t:.2f} s)", flush=True)
+    # K17 dqp_syntax on seeded maps, with an all-false and an all-true row
+    rng17 = np.random.default_rng(17)
+    qm17 = torch.as_tensor(rng17.integers(10, 52, (mb_h, mb_w)),
+                           dtype=torch.int32, device=dev)
+    has17 = torch.as_tensor(rng17.random((mb_h, mb_w)) < 0.6, device=dev)
+    has17[3], has17[4] = False, True
+    has17[0, :5] = False
+    err17 = 0
+    for sq in (23, 51):
+        err17 = max(err17, exact(f"K17 dqp_syntax (slice QP {sq})",
+                                 aq.dqp_syntax(qm17, has17, sq),
+                                 aq.dqp_syntax_plain(qm17, has17, sq)))
+    ms17 = event_ms(lambda: aq.dqp_syntax(qm17, has17, 23), 20)
+    pl17 = event_ms(lambda: aq.dqp_syntax_plain(qm17, has17, 23), 3)
+    record("dqp_syntax", "cuda", "x264_tpu_torch/csrc/aq.cu",
+           "x264_tpu/encoder/aq.py:65", err17, ms17, pl17,
+           nbytes(qm17, has17) + 9 * nmb, K17_OPS_PER_MB * nmb)
+    # K1 + K17 + K3 + K2 with frame 0's QP map (I8x8 on)
+    stacks = aq.qtab_stacks(aq.full_tables(tables.DEFAULT_QUANT, dev), 0)
+    qtab_aq = {**qtab, "aq_stack": stacks["intra"]}
+    a1a = (mb_h, mb_w, y, u, v, qtab_aq, lam, True, qm0)
+    k1a = intra.encode_i16_frame(*a1a)
+    torch.cuda.synchronize()
+    p1a = {}
+    pl1a = event_ms(lambda: p1a.update(intra.encode_i16_frame_plain(*a1a)), 1)
+    err1a = exact("K1 intra_diag with a QP map", k1a, p1a)
+    ms1a = event_ms(lambda: intra.encode_i16_frame(*a1a), 3)
+    record("intra_diag_aq", "cuda", "x264_tpu_torch/csrc/intra.cu",
+           "x264_tpu/encoder/intra.py:335", err1a, ms1a, pl1a,
+           nbytes(y, u, v, qm0, stacks["intra"]) + nbytes(*k1a.values()),
+           K1_I8X8_OPS_PER_MB * nmb)
+    cnz = (k1a["chroma_ac"][..., 1:] != 0).flatten(2).any(-1) \
+        | (k1a["chroma_dc"] != 0).flatten(2).any(-1)
+    has1 = ~k1a["i4_mb"] | (k1a["cbp_luma_bits"] > 0) | cnz
+    k1a["dqp"], qeff1, k1a["dqp_prev_nz"] = aq.dqp_syntax(qm0, has1, QP)
+    exact("K17 dqp_syntax on frame 0", [k1a["dqp"], qeff1,
+                                        k1a["dqp_prev_nz"]],
+          aq.dqp_syntax_plain(qm0, has1, QP))
+    ops_a, nk_a = cabac_planes.i_slice_ops(k1a, mb_h, mb_w, True)
+    pl3a = {}
+    pl3a_ms = event_ms(lambda: pl3a.update(zip(("ops", "n"), (
+        cabac_planes.i_slice_ops_plain(k1a, mb_h, mb_w, True)))), 1)
+    n_ops_a = int(pl3a["n"])
+    if int(nk_a) != n_ops_a:
+        fail(f"K3 cabac_i_ops with dqp counts {int(nk_a)} ops, its plain "
+             f"version {n_ops_a}")
+    err3a = exact("K3 cabac_i_ops with dqp", [ops_a[:n_ops_a]],
+                  [pl3a["ops"][:n_ops_a]])
+    ms3a = event_ms(lambda: cabac_planes.i_slice_ops(k1a, mb_h, mb_w, True),
+                    20)
+    record("cabac_i_ops_aq", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+           "x264_tpu/entropy/cabac_planes.py:148", err3a, ms3a, pl3a_ms,
+           nbytes(*(k1a[k] for k in keys3b + ("dqp", "dqp_prev_nz")))
+           + 4 * n_ops_a + 4, K3_OPS_PER_OP * n_ops_a + K3_OPS_PER_MB * nmb)
+    maps_a = (qeff1, intra_mb, z4, z4, zmv, z4, zmv, False, 0, 0, 0,
+              k1a["t8_mb"])
+    src_a = (k1a["recon_y"], k1a["recon_u"], k1a["recon_v"])
+    exact("K2 deblock_diag on the effective QP map", dict(zip(
+        "yuv", deblock.deblock_frame(mb_h, mb_w, *[t.clone() for t in src_a],
+                                     *maps_a))), dict(zip(
+        "yuv", deblock.deblock_frame_plain(mb_h, mb_w, *[t.clone() for t in
+                                                         src_a], *maps_a))))
+    n_dqp1 = int((k1a["dqp"] != 0).sum())
+    print(f"AQ IDR kernels exact on frame 0: QPs {int(qm0.min())}-"
+          f"{int(qm0.max())}, {n_dqp1} of {nmb} MBs code a nonzero "
+          f"mb_qp_delta, {int(k1a['t8_mb'].sum())} I8x8 MBs; K1 with the QP "
+          f"map {ms1a:.3f} ms, {n_ops_a} ops", flush=True)
+    # K6 / K7 / K8 (K17 between its passes) / K2 with frame 1's QP map,
+    # subme 6 with the 8x8 transform: frame 1 against frame 0's recon and
+    # against the gray-masked reference
+    qm1 = aq.qp_map_from_planes(y1, u1, v1, mb_h, mb_w, QP, 1.0, 10, 51,
+                                0)[0]
+    qtab_rd_aq = {**qtab_rd, "aq_stack": stacks["intra"],
+                  "aq_stack_p": stacks["inter"]}
+    aq_ms = {}
+    for ref, tag in (((ry, ru, rv), "frame 1 on frame 0"),
+                     (mixed, "frame 1 on the 30%-gray reference")):
+        fra, sa = spied_front(ref, qtab_rd_aq, True, True,
+                              ("p_inter_mb", "intra_in_p"), qm1)
+        a6a, a7a = sa["p_inter_mb"][0], sa["intra_in_p"][0]
+        if a6a[-1] is None or a7a[-1] is None:
+            fail("encode_p_front did not pass K6 / K7 the QP map")
+        k6a = inter.p_inter_mb(*a6a)
+        err6a = exact(f"K6 p_inter_mb with a QP map ({tag})", k6a,
+                      inter.p_inter_mb_plain(*a6a))
+        k7a = inter.intra_in_p(*a7a)
+        err7a = exact(f"K7 intra_in_p with a QP map ({tag})", k7a,
+                      inter.intra_in_p_plain(*a7a))
+        kmaps, kops, kn = cabac_planes.cabac_p_ops(fra, mb_h, mb_w,
+                                                   t8_mode=True,
+                                                   aq=(qm1, QP))
+        pmaps, pops, pn = cabac_planes.cabac_p_ops_plain(fra, mb_h, mb_w,
+                                                         True, (qm1, QP))
+        n_opsa = int(pn)
+        if int(kn) != n_opsa:
+            fail(f"K8 cabac_p_ops with dqp ({tag}) counts {int(kn)} ops, "
+                 f"its plain version {n_opsa}")
+        err8a = max(exact(f"K8 cabac_p_ops maps with dqp ({tag})", kmaps,
+                          pmaps),
+                    exact(f"K8 cabac_p_ops ops with dqp ({tag})",
+                          [kops[:n_opsa]], [pops[:n_opsa]]))
+        maps2a = (pmaps["qp_eff"], fra["intra_mb"], kmaps["nnz4"],
+                  kmaps["ref4"], kmaps["mv4"], z4, zmv, False, 0, 0, 0,
+                  kmaps["t8_mb"])
+        srca = (fra["recon_y"], fra["recon_u"], fra["recon_v"])
+        exact(f"K2 deblock_diag on the P effective QP map ({tag})", dict(zip(
+            "yuv", deblock.deblock_frame(mb_h, mb_w,
+                                         *[t.clone() for t in srca],
+                                         *maps2a))), dict(zip(
+            "yuv", deblock.deblock_frame_plain(mb_h, mb_w, *srca, *maps2a))))
+        n_dqp = int((pmaps["dqp"] != 0).sum())
+        print(f"AQ P kernels ({tag}): exact; QPs {int(qm1.min())}-"
+              f"{int(qm1.max())}, {n_dqp} MBs code a nonzero mb_qp_delta, "
+              f"{int(fra['intra_mb'].sum())} intra and "
+              f"{int(pmaps['skip'].sum())} skip MBs, {n_opsa} ops",
+              flush=True)
+        if n_dqp == 0:
+            fail(f"no P MB coded a nonzero mb_qp_delta ({tag})")
+        if aq_ms:
+            continue
+        aq_ms.update(
+            k6=event_ms(lambda: inter.p_inter_mb(*a6a), 10),
+            pl6=event_ms(lambda: inter.p_inter_mb_plain(*a6a), 1),
+            k7=event_ms(lambda: inter.intra_in_p(*a7a), 10),
+            pl7=event_ms(lambda: inter.intra_in_p_plain(*a7a), 1),
+            k8=event_ms(lambda: cabac_planes.cabac_p_ops(
+                fra, mb_h, mb_w, t8_mode=True, aq=(qm1, QP)), 20),
+            pl8=event_ms(lambda: cabac_planes.cabac_p_ops_plain(
+                fra, mb_h, mb_w, True, (qm1, QP)), 1))
+        record("p_inter_mb_aq", "cuda", "x264_tpu_torch/csrc/inter.cu",
+               "x264_tpu/encoder/inter.py:249", err6a, aq_ms["k6"],
+               aq_ms["pl6"], nbytes(*a6a[2:10], stacks["inter"], qm1,
+                                    *k6a.values()), K6_T8_OPS_PER_MB * nmb)
+        n_intra_a = int(k7a["intra_mb"].sum())
+        record("intra_in_p_aq", "cuda", "x264_tpu_torch/csrc/intra_p.cu",
+               "x264_tpu/encoder/inter.py:252", err7a, aq_ms["k7"],
+               aq_ms["pl7"], nbytes(*a7a[2:9], *a7a[12], stacks["intra"],
+                                    qm1, *k7a.values()),
+               K7_OPS_PER_MB_SWEEP * (nmb + 2 * n_intra_a)
+               + K7_RD_OPS_PER_MB * nmb)
+        record("cabac_p_ops_aq", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+               "x264_tpu/entropy/cabac_planes.py:699", err8a, aq_ms["k8"],
+               aq_ms["pl8"],
+               nbytes(*(fra[k] for k in keys8 + ("t8_sel", "luma8_z")),
+                      *kmaps.values()) + 4 * n_opsa + 4,
+               K3_OPS_PER_OP * n_opsa + K3_OPS_PER_MB * nmb
+               + K17_OPS_PER_MB * nmb)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -1259,7 +1499,12 @@ def main() -> None:
                 "chroma_rerank": me.chroma_rerank,
                 "rd_inter": inter.rd_inter,
                 "lowres_planes": lookahead.lowres_planes,
-                "lowres_cost": lookahead.lowres_cost}
+                "lowres_cost": lookahead.lowres_cost,
+                "aq_qp_map": aq.qp_map_from_planes,
+                "dqp_syntax": aq.dqp_syntax}
+    # the kernels and branches of variance AQ, idle at constant QP
+    aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
+               "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
     # the 8x8 variants: the wrapper and its count of the launches that
     # took the variant's branch
     variants = {"intra_diag_i8x8": (intra.encode_i16_frame, "launches_i8x8"),
@@ -1268,16 +1513,21 @@ def main() -> None:
                 "p_inter_mb_t8_sa8d": (inter.p_inter_mb, "launches_t8_sa8d"),
                 "p_inter_mb_t8_rd": (inter.p_inter_mb, "launches_t8_rd"),
                 "rd_inter_t8": (inter.rd_inter, "launches_t8"),
-                "cabac_p_ops_t8": (cabac_planes.cabac_p_ops, "launches_t8")}
+                "cabac_p_ops_t8": (cabac_planes.cabac_p_ops, "launches_t8"),
+                "intra_diag_aq": (intra.encode_i16_frame, "launches_aq"),
+                "cabac_i_ops_aq": (cabac_planes.i_slice_ops, "launches_aq"),
+                "p_inter_mb_aq": (inter.p_inter_mb, "launches_aq"),
+                "intra_in_p_aq": (inter.intra_in_p, "launches_aq"),
+                "cabac_p_ops_aq": (cabac_planes.cabac_p_ops, "launches_aq")}
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
                   scenecut: int = 0, src=None, make=None):
         """Encoder on the first n frames of src (make_frames' by default)
         at 1080p, the launch counts set to 0 just before and read just
-        after (the 8x8 variants' among them, which must stay 0 without
-        make, whose parameters turn the 8x8 transform off); make: as in
-        same_as_cpu. Returns (frames, summary, launches, header, fps,
-        median encode() ms, the encoder)."""
+        after (the 8x8 and AQ variants' among them, which must stay 0
+        without make, whose parameters turn the 8x8 transform off at
+        constant QP); make: as in same_as_cpu. Returns (frames, summary,
+        launches, header, fps, median encode() ms, the encoder)."""
         enc = x264_tpu_torch.Encoder(
             make(x264_tpu_torch.EncoderParams, 3) if make else
             params(x264_tpu_torch.EncoderParams, 3, keyint, subme, scenecut))
@@ -1290,8 +1540,9 @@ def main() -> None:
         launches = {k: w.launches for k, w in wrappers.items()}
         launches.update({k: getattr(w, count)
                          for k, (w, count) in variants.items()})
-        if make is None and any(launches[k] for k in variants):
-            fail(f"{what}: an 8x8 branch ran without the 8x8 transform")
+        if make is None and any(launches[k] for k in (*variants, *aq_only)):
+            fail(f"{what}: an 8x8 or AQ branch ran without the 8x8 "
+                 f"transform or variance AQ")
         summary = enc.close()
         if len(done) != n:
             fail(f"{what}: {len(done)} frames came out of {n}")
@@ -1370,7 +1621,7 @@ def main() -> None:
     done, summary, launches_6, header, fps, med, enc = main_path(
         250, N_RD, what7, 6, 40, cut)
     ratecontrol.RateControl.analyse_frame = analyse
-    for k in wrappers:
+    for k in list(wrappers)[:15]:
         if launches_6[k] <= 0:
             fail(f"kernel {k} was not launched on the {what7} path")
     # every frame's lookahead sums against the plain versions
@@ -1392,7 +1643,7 @@ def main() -> None:
                 f"{enc.rc.lookahead_wait_s / N_RD * 1e3:.3f} ms a frame, "
                 f"host CABAC of a subme-6 P frame {cabac6:.3f} ms",
                 idrs=(0, CUT))
-    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250, what7,
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_RD, 250, what7,
                 6, 40)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40)
 
@@ -1419,16 +1670,11 @@ def main() -> None:
     if not (enc._t8 and enc._i8x8 and enc._rd and enc._analyse_lowres):
         fail(f"{what8}: the defaults did not turn on the 8x8 transform, "
              f"I8x8, the RD ladder and the lookahead")
-    # subme 6 takes the RD transform choice: the SA8D branch stays idle
+    # subme 6 takes the RD transform choice: the SA8D branch stays idle,
+    # and so do variance AQ's kernels and branches at constant QP
     for k, n in launches_8.items():
-        if (n <= 0) != (k == "p_inter_mb_t8_sa8d"):
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in aq_only):
             fail(f"kernel {k} was launched {n} times on the {what8}")
-    for name, r in rec.items():
-        r.update(launches=launches_8[name],
-                 launches_ippp_subme6=launches_6[name],
-                 launches_ippp_subme5=launches_5[name],
-                 launches_ippp_subme1=launches_1[name],
-                 launches_all_intra=launches_i[name])
     if any(t is None for v in t8_seen.values() for t in v):
         fail(f"{what8}: a frame ran without the 8x8 transform")
     i8_per_idr = [int(t.sum()) for t in t8_seen["IDR"]]
@@ -1444,9 +1690,65 @@ def main() -> None:
                 f"{enc.rc.lookahead_wait_s / N_BENCH * 1e3:.3f} ms a frame, "
                 f"host CABAC of a P frame at these settings "
                 f"{t8_ms['cabac']:.3f} ms", idrs=(0, CUT))
-    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK, 250, what8,
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250, what8,
                 make=bench_params)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=bench_params)
+
+    # ----------------- 9. x264_tpu's own defaults: CRF 23 with variance AQ
+    stamp("phase 9")
+    seen9 = {"IDR": [], "P": []}
+    encode_idr, encode_p = pipeline.encode_i16_idr_cabac, \
+        pipeline.encode_p_cabac
+
+    def seen_dqp(fn, kind):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            seen9[kind].append(out.get("dqp"))
+            return out
+        return call
+
+    pipeline.encode_i16_idr_cabac = seen_dqp(encode_idr, "IDR")
+    pipeline.encode_p_cabac = seen_dqp(encode_p, "P")
+    what9 = "x264_tpu's defaults (CRF 23, variance AQ)"
+    done, summary, launches_9, header, fps, med, enc = main_path(
+        250, N_DEFAULTS, what9, src=cut, make=defaults_params)
+    pipeline.encode_i16_idr_cabac, pipeline.encode_p_cabac = encode_idr, \
+        encode_p
+    if not (enc._aq and enc._t8 and enc._i8x8 and enc._rd
+            and enc._analyse_lowres and enc.rc.method == 1):
+        fail(f"{what9}: the defaults did not turn on CRF, variance AQ, the "
+             f"8x8 transform, I8x8, the RD ladder and the lookahead")
+    for k, n in launches_9.items():
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d"):
+            fail(f"kernel {k} was launched {n} times on {what9}")
+    if any(d is None for v in seen9.values() for d in v):
+        fail(f"{what9}: a frame ran without the mb_qp_delta planes")
+    dqp_nz = [int((d != 0).sum()) for v in seen9.values() for d in v]
+    if len(seen9["IDR"]) != 2 or sum(dqp_nz) == 0:
+        fail(f"{what9}: {len(seen9['IDR'])} IDRs, nonzero mb_qp_delta MBs "
+             f"per frame {dqp_nz}")
+    qps = [e.qp for e in enc.rc.entries]
+    ippp_report(done, summary, enc.stats, fps, med, N_DEFAULTS, 6, smi_line,
+                nmb, f", CRF 23 with variance AQ: frame QPs {min(qps)}-"
+                f"{max(qps)} ({qps}), {sum(dqp_nz) / (nmb * N_DEFAULTS):.4f} "
+                f"of MBs code a nonzero mb_qp_delta, IDRs at frames 0 and "
+                f"{CUT} ({len(done[CUT].payload)} bytes at frame {CUT}), host "
+                f"wait on the lookahead "
+                f"{enc.rc.lookahead_wait_s / N_DEFAULTS * 1e3:.3f} ms a frame",
+                idrs=(0, CUT), rc="CRF 23")
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250, what9,
+                make=defaults_params, frame_parallel=3)
+    device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=defaults_params,
+                 tag="x264_tpu's defaults (CRF 23, variance AQ)")
+    for name, r in rec.items():
+        r.update(launches=launches_9[name],
+                 launches_bench_cqp=launches_8[name],
+                 launches_ippp_subme6=launches_6[name],
+                 launches_ippp_subme5=launches_5[name],
+                 launches_ippp_subme1=launches_1[name],
+                 launches_all_intra=launches_i[name])
+    if set(rec) != set(launches_9):
+        fail(f"the kernels line lacks {sorted(set(launches_9) - set(rec))}")
     stamp("done")
 
     print(json.dumps({"kernels": list(rec.values())}), flush=True)

@@ -3,7 +3,8 @@ chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
 non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-9,
-scenecut lookahead, the 8x8 transform and I8x8) slices raise
+scenecut lookahead, the 8x8 transform and I8x8, constant QP, CRF or
+1-pass ABR with or without variance AQ) slices raise
 NotImplementedError."""
 
 import ast
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 import x264_tpu_torch
-from x264_tpu_torch.encoder import inter, intra
+from x264_tpu_torch.encoder import aq, inter, intra
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.ops import deblock
 
@@ -42,7 +43,9 @@ def test_no_jax_or_reference_imports():
             "x264_tpu_torch/encoder/mvpred.py",
             "x264_tpu_torch/encoder/lookahead.py",
             "x264_tpu_torch/ops/rdcost.py",
-            "x264_tpu_torch/ops/trellis.py"} <= names
+            "x264_tpu_torch/ops/trellis.py",
+            "x264_tpu_torch/encoder/aq.py",
+            "x264_tpu_torch/encoder/ratecontrol.py"} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
@@ -60,6 +63,8 @@ def test_imports_with_jax_blocked():
             "import x264_tpu_torch.encoder.mvpred, x264_tpu_torch.ops.me\n"
             "import x264_tpu_torch.encoder.lookahead\n"
             "import x264_tpu_torch.ops.rdcost, x264_tpu_torch.ops.trellis\n"
+            "import x264_tpu_torch.encoder.aq\n"
+            "import x264_tpu_torch.encoder.ratecontrol\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -92,7 +97,7 @@ def test_encoder_default_device_needs_a_card():
 
 @pytest.mark.parametrize("field,value", [
     ("analyse__i_noise_reduction", 100), ("b_cabac", False),
-    ("rc__i_rc_method", 1),
+    ("rc__b_stat_read", True),
     ("i_cqm_preset", 1), ("i_bframe", 2),
     ("analyse__i_trellis", 1), ("rc__i_qp_constant", 0)])
 def test_outside_the_slice_raises(field, value):
@@ -116,9 +121,9 @@ def test_the_ippp_slice_opens():
     dict(i_frame_reference=3), dict(i_bframe=1),
     dict(analyse__i_trellis=2), dict(i_frame_reference=2),
     dict(i_bframe=2), dict(analyse__intra=0),
-    dict(b_cabac=False), dict(rc__i_rc_method=1),
-    dict(rc__i_rc_method=2, rc__i_bitrate=2000),
-    dict(rc__i_rc_method=1, rc__i_aq_mode=1), dict(analyse__i_trellis=1),
+    dict(b_cabac=False), dict(rc__i_vbv_buffer_size=2000),
+    dict(rc__i_rc_method=2, rc__i_bitrate=2000, rc__i_vbv_max_bitrate=2000),
+    dict(rc__i_rc_method=1, rc__b_stat_read=True), dict(analyse__i_trellis=1),
     dict(analyse__i_noise_reduction=100), dict(i_cqm_preset=1),
     dict(rc__i_qp_constant=0), dict(rc__i_vbv_max_bitrate=2000),
     dict(i_mb_row_shards=2)], ids=lambda c: ",".join(c))
@@ -169,6 +174,38 @@ def test_subme6_names_its_slice():
                   analyse__b_transform_8x8=True), device="cpu")
     assert enc._t8 and enc._i8x8 and enc._rd and enc._analyse_lowres
     enc.close()
+
+
+@pytest.mark.parametrize("rc", [
+    {}, dict(rc__i_aq_mode=0), dict(rc__i_rc_method=2, rc__i_bitrate=2000)],
+    ids=["defaults", "crf-no-aq", "abr"])
+def test_the_rate_control_slice_opens(rc):
+    """x264_tpu's own defaults (CRF 23 with variance AQ), CRF without AQ
+    and 1-pass ABR open, with the lowres lookahead on for the frame
+    complexity and, under AQ, the 52-QP table stacks on the device."""
+    p = x264_tpu_torch.EncoderParams(i_width=64, i_height=48, i_log_level=0)
+    for k, v in rc.items():
+        setattr(p.rc, k.split("__")[1], v)
+    enc = x264_tpu_torch.Encoder(p, device="cpu")
+    assert enc._analyse_lowres and enc._t8 and enc._rd
+    assert (enc._aq is not None) == (p.rc.i_aq_mode == 1)
+    if enc._aq is not None:
+        assert enc._aq == (1.0, 10, 51)
+        assert enc._aq_stacks["intra"].shape == (52, intra.QTAB_INTS)
+        assert enc._aq_stacks["inter"].shape == (52, inter.QTABP_INTS)
+    assert enc.pps.pic_init_qp == 26
+    enc.close()
+
+
+@pytest.mark.parametrize("what", ["vbv", "2pass"])
+def test_vbv_and_2pass_name_their_slice(what):
+    kw = (dict(rc__i_vbv_max_bitrate=2000) if what == "vbv"
+          else dict(rc__b_stat_read=True))
+    p = _p_params(rc__i_rc_method=1, **kw)
+    with pytest.raises(NotImplementedError,
+                       match="the VBV slice" if what == "vbv"
+                       else "the 2-pass slice"):
+        x264_tpu_torch.Encoder(p, device="cpu")
 
 
 def test_reconfig_and_forced_b_raise():
@@ -240,6 +277,61 @@ def _meta_wrapper_calls():
         "K8 t8": lambda: cabac_planes.cabac_p_ops(front, mb_h, mb_w,
                                                   t8_mode=True),
     }
+
+
+def _meta_aq_calls():
+    """Each wrapper this slice touched, called at its variance-AQ path on
+    tensors that are neither on the CPU nor on a card."""
+    mb_h, mb_w, H, W = 1, 2, 16, 32
+    t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
+    b = lambda *s: t(*s, dt=torch.bool)
+    qm = t(mb_h, mb_w)
+    q = inter.make_qtab_p(26, 26, "cpu")
+    q.update(aq_stack=t(52, intra.QTAB_INTS),
+             aq_stack_p=t(52, inter.QTABP_INTS))
+    q = {k: (v.to("meta") if torch.is_tensor(v) else v)
+         for k, v in q.items()}
+    i_out = dict(mode16=t(mb_h, mb_w), modec=t(mb_h, mb_w), i4_mb=b(mb_h, mb_w),
+                 i4_modes=t(mb_h, mb_w, 4, 4), cbp_luma_bits=t(mb_h, mb_w),
+                 luma_dc=t(mb_h, mb_w, 16), luma_ac=t(mb_h, mb_w, 16, 16),
+                 chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16), dqp=t(mb_h, mb_w),
+                 dqp_prev_nz=b(mb_h, mb_w))
+    planes = (t(1, H + 64, W + 64), t(H // 2 + 32, W // 2 + 32),
+              t(H // 2 + 32, W // 2 + 32))
+    src = (t(H, W), t(H // 2, W // 2), t(H // 2, W // 2))
+    front = dict(intra_mb=b(mb_h, mb_w), me_mv=t(mb_h, mb_w, 2),
+                 ptype=t(mb_h, mb_w), mv_quad=t(mb_h, mb_w, 4, 2),
+                 mode16=t(mb_h, mb_w), modec=t(mb_h, mb_w),
+                 cbp_luma_bits=t(mb_h, mb_w), cbp_chroma=t(mb_h, mb_w),
+                 luma_dc=t(mb_h, mb_w, 16), luma_blocks=t(mb_h, mb_w, 16, 16),
+                 chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16))
+    return {
+        "K16": lambda: aq.qp_map_from_planes(*src, mb_h, mb_w, 26, 1.0, 10,
+                                             51, 0),
+        "K16 log": lambda: aq.xla_log_f32(torch.ones(4, device="meta")),
+        "K17": lambda: aq.dqp_syntax(qm, b(mb_h, mb_w), 26),
+        "K1 aq": lambda: intra.encode_i16_frame(mb_h, mb_w, *src, q, 1,
+                                                True, qm),
+        "K6 aq": lambda: inter.p_inter_mb(
+            mb_h, mb_w, *src, *planes, t(mb_h, mb_w), t(mb_h, mb_w, 4, 2), q,
+            True, inter.T8_OFF, qm),
+        "K7 aq": lambda: inter.intra_in_p(mb_h, mb_w, *src, *src,
+                                          t(mb_h, mb_w), q, 1, True, None,
+                                          qm),
+        "K3 aq": lambda: cabac_planes.i_slice_ops(i_out, mb_h, mb_w),
+        "K8 aq": lambda: cabac_planes.cabac_p_ops(front, mb_h, mb_w,
+                                                  aq=(qm, 26)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_aq_calls()))
+def test_aq_wrappers_never_fall_back_off_the_cpu(name):
+    """The wrappers of the variance-AQ slice launch their kernel (or
+    raise) on any tensor that is not on the CPU, at their AQ paths."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_aq_calls()[name]()
 
 
 @pytest.mark.parametrize("name", list(_meta_wrapper_calls()))

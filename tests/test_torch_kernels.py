@@ -1,10 +1,11 @@
 """The port's CUDA / Triton kernels against their plain PyTorch versions
-on the card, at small frames (K1-K15, K6 and K8 also with random
+on the card, at small frames (K1-K17, K6 and K8 also with random
 partition layouts and quarter-pel MVs, K7 also with the RD decision; K1
 with I8x8, K3 / K2 on its output, K6 / K13 / K8 / K2 with the 8x8
-transform), and the card's Encoder against the CPU's at subme 1, 2, 5
-and 6 (the last with the scenecut lookahead, and at x264_tpu's defaults
-with the 8x8 transform and I8x8).
+transform; K1 / K3 / K6 / K7 / K8 / K2 with a variance-AQ QP map), and
+the card's Encoder against the CPU's at subme 1, 2, 5 and 6 (the last
+with the scenecut lookahead, and at x264_tpu's defaults with the 8x8
+transform and I8x8, at CQP and at CRF with variance AQ).
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -18,7 +19,8 @@ import torch
 
 import x264_tpu_torch
 from x264_tpu_torch import tables
-from x264_tpu_torch.encoder import inter, intra, lookahead, pipeline, stats
+from x264_tpu_torch.encoder import (aq, inter, intra, lookahead, pipeline,
+                                    stats)
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.ops import deblock, mc, me
 
@@ -496,6 +498,215 @@ def test_ippp_encoder_on_the_card_matches_the_cpu(card, frame_parallel,
     assert kh == ph and len(kout) == len(pout) == 5
     if subme < 6:
         assert [o.frame_type for o in kout] == ["IDR", "P", "P", "IDR", "P"]
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))
+    assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
+    assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5
+
+
+# ------------------------------------------------------------ variance AQ
+def _half_flat(dev, seed=13):
+    """A frame whose left half is flat and right half noise: a QP spread
+    of at least 6 under AQ."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, level in ((16, 90), (8, 128), (8, 120)):
+        p = rng.integers(0, 256, (MB_H * n, MB_W * n))
+        p[:, :MB_W * n // 2] = level
+        out.append(torch.as_tensor(p, dtype=torch.int32, device=dev))
+    return tuple(out)
+
+
+def _qp_map(dev, qp=26, seed=13):
+    y, u, v = _half_flat(dev, seed)
+    return aq.qp_map_from_planes_plain(y, u, v, MB_H, MB_W, qp, 1.0, 10, 51,
+                                       0)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,qp,strength,off", [
+    ("frame", 26, 1.0, 0), ("half_flat", 26, 1.0, 0),
+    ("half_flat", 40, 1.7, -2), ("half_flat", 18, 0.5, 3)])
+def test_aq_qp_map_kernel_matches_plain(card, kind, qp, strength, off):
+    y, u, v = _frame(card) if kind == "frame" else _half_flat(card)
+    args = (y, u, v, MB_H, MB_W, qp, strength, 10, 51, off)
+    k = aq.qp_map_from_planes(*args)
+    p = aq.qp_map_from_planes_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if kind == "half_flat" and strength == 1.0:
+        assert int(p[0].max() - p[0].min()) >= 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exponents", [(0, 1, 2), (11, 12), (21, 22)])
+def test_xla_log_kernel_matches_plain(card, exponents):
+    """Every float32 of the binades [2^e, 2^(e+1)): the device log K16
+    runs against the plain replay (run on the card's tensors)."""
+    for e in exponents:
+        bits = torch.arange(1 << 23, dtype=torch.int32, device=card) \
+            | ((127 + e) << 23)
+        x = bits.view(torch.float32)
+        k = aq.xla_log_f32(x)
+        p = aq.xla_log_f32_plain(x)
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_h,mb_w", [(MB_H, MB_W), (68, 120)])
+def test_dqp_kernel_matches_plain(card, mb_h, mb_w):
+    rng = np.random.default_rng(mb_w)
+    qp_map = torch.as_tensor(rng.integers(10, 52, (mb_h, mb_w)),
+                             dtype=torch.int32, device=card)
+    has = torch.as_tensor(rng.random((mb_h, mb_w)) < 0.5, device=card)
+    has[1], has[2] = False, True           # an all-false and an all-true row
+    has[0, :3] = False
+    for slice_qp in (23, 51):
+        k = aq.dqp_syntax(qp_map, has, slice_qp)
+        p = aq.dqp_syntax_plain(qp_map, has, slice_qp)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+    none = torch.zeros_like(has)
+    for a, b in zip(aq.dqp_syntax(qp_map, none, 30),
+                    aq.dqp_syntax_plain(qp_map, none, 30)):
+        assert torch.equal(a, b)
+
+
+def _with_stacks(q, dev):
+    st = aq.qtab_stacks(aq.full_tables(tables.DEFAULT_QUANT, dev), 0)
+    return {**q, "aq_stack": st["intra"], "aq_stack_p": st["inter"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i8x8", [False, True])
+def test_intra_aq_kernels_match_plain(card, i8x8):
+    """K1 with a QP map, then K17, K3 with the dqp planes and K2 on the
+    effective QP map."""
+    y, u, v = _blocky(card) if i8x8 else _half_flat(card)
+    qp = 26
+    qp_map = aq.qp_map_from_planes_plain(y, u, v, MB_H, MB_W, qp, 1.0, 10,
+                                         51, 0)[0]
+    q = _with_stacks(intra.make_qtab(qp, tables.chroma_qp(qp), card), card)
+    lam = int(tables.LAMBDA_TABLE[qp])
+    k = intra.encode_i16_frame(MB_H, MB_W, y, u, v, q, lam, i8x8, qp_map)
+    p = intra.encode_i16_frame_plain(MB_H, MB_W, y, u, v, q, lam, i8x8,
+                                     qp_map)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    cnz = (p["chroma_ac"][..., 1:] != 0).flatten(2).any(-1) \
+        | (p["chroma_dc"] != 0).flatten(2).any(-1)
+    has = ~p["i4_mb"] | (p["cbp_luma_bits"] > 0) | cnz
+    p["dqp"], qp_eff, p["dqp_prev_nz"] = aq.dqp_syntax(qp_map, has, qp)
+    assert (p["dqp"] != 0).any()
+    k_ops, k_n = cabac_planes.i_slice_ops(p, MB_H, MB_W, i8x8)
+    p_ops, p_n = cabac_planes.i_slice_ops_plain(p, MB_H, MB_W, i8x8)
+    n = int(p_n)
+    assert int(k_n) == n and torch.equal(k_ops[:n], p_ops[:n])
+    intra_mb, z4, zmv = pipeline._zero_maps(MB_H, MB_W, card)
+    args = (qp_eff, intra_mb, z4, z4, zmv, z4, zmv, False, 0, 0, 0,
+            p.get("t8_mb"))
+    src = [p[key] for key in ("recon_y", "recon_u", "recon_v")]
+    pd = deblock.deblock_frame_plain(MB_H, MB_W, *src, *args)
+    kd = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *args)
+    for a, b in zip(kd, pd):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,t8", [("inter", inter.T8_OFF),
+                                     ("intra", inter.T8_OFF),
+                                     ("t8", inter.T8_SA8D),
+                                     ("t8", inter.T8_RD)])
+def test_inter_aq_kernels_match_plain(card, kind, t8):
+    """K6 and K7 (with the RD decision under T8_RD) with a QP map, then
+    K8 with K17 between its passes, and K2 on the effective QP map."""
+    (y, u, v), ref, q, lam = _p_frame(card, kind)
+    rd = t8 == inter.T8_RD
+    if rd:
+        q = inter.make_qtab_p(26, tables.chroma_qp(26), card, rd_idc=0,
+                              f_psy_rd=1.0)
+    q = _with_stacks(q, card)
+    qp_map = aq.qp_map_from_planes_plain(y, u, v, MB_H, MB_W, 26, 1.0, 10,
+                                         51, 0)[0]
+    subpel = ((2, 1), True, True, True, rd, True) if t8 else ()
+    args = (MB_H, MB_W, 16, y, u, v, *ref, q, lam, _mvp(card), True, *subpel)
+    front = inter.encode_p_front(*args, qp_map=qp_map)
+    pads = (mc.pad_plane(ref[0]), mc.pad_plane(ref[1], mc.PAD // 2),
+            mc.pad_plane(ref[2], mc.PAD // 2))
+    planes = mc.hpel_planes(pads[0]) if t8 else pads[0][None]
+    k6 = (MB_H, MB_W, y, u, v, planes, *pads[1:], front["ptype"],
+          front["mv_quad"], q, True, t8)
+    k = inter.p_inter_mb(*k6, qp_map)
+    p = inter.p_inter_mb_plain(*k6, qp_map)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    cost = torch.full((MB_H, MB_W), 1 << 20, dtype=torch.int32, device=card)
+    cost[::2] = 0
+    k7 = (MB_H, MB_W, y, u, v, p["recon_y"], p["recon_u"], p["recon_v"],
+          cost, q, lam, True)
+    rd_costs = inter.rd_inter(MB_H, MB_W, y, u, v, p, front["ptype"],
+                              front["mv_quad"], _mvp(card), q)[:2] \
+        if rd else None
+    k = inter.intra_in_p(*k7, rd_costs, qp_map)
+    pp = inter.intra_in_p_plain(*k7, rd_costs, qp_map)
+    for key in pp:
+        assert torch.equal(k[key], pp[key]), key
+    kmaps, kops, kn = cabac_planes.cabac_p_ops(front, MB_H, MB_W,
+                                               t8_mode=bool(t8),
+                                               aq=(qp_map, 26))
+    pmaps, pops, pn = cabac_planes.cabac_p_ops_plain(front, MB_H, MB_W,
+                                                     bool(t8), (qp_map, 26))
+    n = int(pn)
+    assert int(kn) == n and torch.equal(kops[:n], pops[:n])
+    for key in pmaps:
+        assert torch.equal(kmaps[key], pmaps[key]), key
+    assert (pmaps["dqp"] != 0).any()
+    z4 = torch.zeros_like(kmaps["ref4"])
+    maps = (pmaps["qp_eff"], front["intra_mb"], kmaps["nnz4"],
+            kmaps["ref4"], kmaps["mv4"], z4, torch.zeros_like(kmaps["mv4"]),
+            False, 0, 0, 0, kmaps.get("t8_mb"))
+    src = [front[key] for key in ("recon_y", "recon_u", "recon_v")]
+    pd = deblock.deblock_frame_plain(MB_H, MB_W, *src, *maps)
+    kd = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *maps)
+    for a, b in zip(kd, pd):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,frame_parallel", [("crf", 1), ("crf", 3),
+                                                 ("abr", 3), ("crf-noaq", 3)])
+def test_crf_encoder_on_the_card_matches_the_cpu(card, mode, frame_parallel):
+    """x264_tpu's defaults (CRF 23 with variance AQ), 1-pass ABR and CRF
+    without AQ: the card's payloads, frame QPs and recons equal the
+    CPU's."""
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(17)
+    base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
+    base[:, :w // 2] = 100
+    frames = [x264_tpu_torch.Frame(
+        base[t:t + h, 2 * t:2 * t + w].copy(),
+        np.full((h // 2, w // 2), 100 + 3 * t, np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+        for t in range(5)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_log_level=0, i_keyint_min=2,
+                                         i_frame_parallel=frame_parallel)
+        if mode == "abr":
+            p.rc.i_rc_method, p.rc.i_bitrate = 2, 60
+        if mode == "crf-noaq":
+            p.rc.i_aq_mode = 0
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs = [enc.encode(f) for f in frames]
+        outs = [o for o in outs if o is not None] + enc.flush()
+        return (enc.headers(), outs, enc.close(),
+                [e.qp for e in enc.rc.entries])
+
+    (kh, kout, ksum, kq), (ph, pout, psum, pq) = run(card), run("cpu")
+    assert kh == ph and len(kout) == len(pout) == 5 and kq == pq
     for a, b in zip(kout, pout):
         assert a.frame_type == b.frame_type and a.payload == b.payload
         for pl in "yuv":

@@ -3,7 +3,9 @@
 The encoder's counterpart of loading weights: ``qtab_from_numpy`` and
 ``qtab_p_from_numpy`` turn the per-QP quantisation tables of x264_tpu's
 ``make_qtab`` / ``make_qtab_p`` (given as numpy arrays) into the port's
-int32 tensors on a device, so the same tables drive both packages.
+int32 tensors on a device, and ``aq_stacks_from_numpy`` x264_tpu's full
+52-QP tables (``aq.full_tables``) into the per-MB table stacks that
+variance AQ's kernels read, so the same tables drive both packages.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .encoder import aq
 from .encoder.inter import (QTAB_P_SCALAR_KEYS, QTAB_P_VEC8_KEYS,
                             QTAB_P_VEC_KEYS)
 from .encoder.intra import QTAB_SCALAR_KEYS, QTAB_VEC8_KEYS, QTAB_VEC_KEYS
@@ -51,3 +54,11 @@ def qtab_p_from_numpy(qtab: dict, device) -> dict:
         if "psy_rd" in qtab:
             out["psy_rd"] = float(np.float32(qtab["psy_rd"]))
     return out
+
+
+def aq_stacks_from_numpy(full: dict, chroma_qp_offset: int, device) -> dict:
+    """x264_tpu's aq.full_tables (its arrays as numpy) as the port's
+    52-QP stacks on `device` (encoder/aq.py:qtab_stacks)."""
+    return aq.qtab_stacks({k: torch.as_tensor(np.asarray(v, np.int32),
+                                              device=device)
+                           for k, v in full.items()}, chroma_qp_offset)

@@ -26,6 +26,10 @@
 // written twice (scratch, then the dense stream) and read once; the
 // emit kernel's thread-per-MB loop is serial per MB but 8160 MBs fill
 // the card. Op packing: kind << 29 | b << 17 | a (entropy/cabac.py).
+// Variance AQ: given K17's planes (dqp, dqp_prev_nz) both emitters write
+// each coded MB's mb_qp_delta as _dqp_slots does (at most 3 more ops
+// than the one 0 bin: an I MB then emits at most 540 ops, a P one 511,
+// still within OPS_PER_MB); without them the single 0 bin at ctx 60.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,6 +64,8 @@ struct Planes {
   const int* chroma_ac;
   const uint8_t* t8_mb;      // null without I8x8
   const int* luma8;          // (nmb, 4, 64) 8x8 scan order; null without
+  const int* dqp;            // K17's mb_qp_delta; null at one QP
+  const uint8_t* dqp_pnz;    // the previous MB's delta was nonzero
   int mb_w;
 
   __device__ int t8(int mb) const { return t8_mb ? t8_mb[mb] : 0; }
@@ -138,6 +144,22 @@ struct Emitter {
     for (int i = 63; i >= 0; --i)
       if (c[i]) put(K_LEVEL, (uint32_t)min(abs(c[i]) - 1, 0x1FFFF), c[i] < 0);
   }
+  // mb_qp_delta (x264_cabac_mb_qp_delta, cabac_planes.py:dqp_slots): one
+  // 0 bin without a delta plane; else the mapped-unary value folded mod
+  // 52 at ctxs 60 + c0, 62, then 63
+  __device__ void dqp(const int* dqp_g, const uint8_t* pnz, int mb) {
+    if (!dqp_g) {
+      dec(60, 0);
+      return;
+    }
+    const int d = dqp_g[mb];
+    int val = d > 0 ? 2 * d - 1 : -2 * d;
+    if (val >= 51 && val != 52) val = 103 - val;
+    dec(60 + pnz[mb], val > 0);
+    if (val >= 1) dec(62, val > 1);
+    if (val >= 3) put(K_ONES, 63, (uint32_t)min(val - 2, 4095));
+    if (val >= 2) dec(63, 0);
+  }
 };
 
 __global__ void emit_kernel(Planes P, int mb_h, int t8_mode,
@@ -201,7 +223,7 @@ __global__ void emit_kernel(Planes P, int mb_h, int t8_mode,
     E.dec(77 + (ccl > 0) + 2 * (cct > 0), cbpc > 0);
     if (cbpc > 0) E.dec(81 + (ccl == 2) + 2 * (cct == 2), cbpc == 2);
   }
-  if (!i4 || cbp > 0 || cbpc > 0) E.dec(60, 0);   // mb_qp_delta = 0
+  if (!i4 || cbp > 0 || cbpc > 0) E.dqp(P.dqp, P.dqp_pnz, mb);
 
   // ---- luma DC (I16x16, cat 0); outside the frame counts as coded
   if (!i4) {
@@ -342,6 +364,8 @@ struct PPlanes {
   const int* nnz4;
   const uint8_t* t8_mb;      // null without the 8x8 transform
   const int* luma8;
+  const int* dqp;            // K17's mb_qp_delta; null at one QP
+  const uint8_t* dqp_pnz;
   int mb_w;
 
   __device__ int t8(int n) const { return t8_mb ? t8_mb[n] : 0; }
@@ -605,7 +629,7 @@ __global__ void p_emit_kernel(PPlanes P, int mb_h, int t8_mode,
     if (t8_mode && cbp > 0)
       E.dec(399 + (hl && P.t8(mbl)) + (ht && P.t8(mbt)), P.t8(mb));
   }
-  if (coded && (im || cbp > 0 || cbpc > 0)) E.dec(60, 0);   // mb_qp_delta 0
+  if (coded && (im || cbp > 0 || cbpc > 0)) E.dqp(P.dqp, P.dqp_pnz, mb);
 
   // ---- residual; outside the frame the cbf context takes the current
   // MB's intra flag (luma DC: 1)
@@ -654,13 +678,14 @@ extern "C" int cabac_i_ops(const int* mode16, const int* modec,
                            const int* cbp_luma_bits, const int* luma_dc,
                            const int* luma_ac, const int* chroma_dc,
                            const int* chroma_ac, const uint8_t* t8_mb,
-                           const int* luma8, uint32_t* scratch, int* counts,
-                           int* offsets, uint32_t* ops, int mb_h, int mb_w,
-                           int t8_mode, void* stream) {
+                           const int* luma8, const int* dqp,
+                           const uint8_t* dqp_pnz, uint32_t* scratch,
+                           int* counts, int* offsets, uint32_t* ops, int mb_h,
+                           int mb_w, int t8_mode, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nmb = mb_h * mb_w;
   Planes P{mode16, modec, i4_mb, i4_modes, cbp_luma_bits, luma_dc, luma_ac,
-           chroma_dc, chroma_ac, t8_mb, luma8, mb_w};
+           chroma_dc, chroma_ac, t8_mb, luma8, dqp, dqp_pnz, mb_w};
   emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, t8_mode, scratch,
                                                 counts);
   cudaError_t e = cudaGetLastError();
@@ -672,33 +697,45 @@ extern "C" int cabac_i_ops(const int* mode16, const int* modec,
   return (int)cudaGetLastError();
 }
 
-extern "C" int cabac_p_ops(const uint8_t* intra_mb, const int* me_mv,
-                           const int* ptype, const int* mv_quad,
-                           const int* mode16, const int* modec,
-                           const int* cbp_luma_bits, const int* cbp_chroma,
-                           const int* luma_dc, const int* luma_blocks,
-                           const int* chroma_dc, const int* chroma_ac,
-                           const uint8_t* t8_sel, const int* luma8,
-                           uint8_t* skip, int* mv, int* mvd, int* mvd1,
-                           int* ptype_o, int* mv_sub, int* mvd_sub, int* mvd4,
-                           int* nnz4, int* ref4, int* mv4, uint8_t* t8_mb,
-                           uint32_t* scratch, int* counts, int* offsets,
-                           uint32_t* ops, int mb_h, int mb_w, int t8_mode,
-                           void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// K8 in two calls, so that K17 can run between them under AQ: pass A,
+// then pass B with the scan and scatter
+extern "C" int cabac_p_maps(const uint8_t* intra_mb, const int* me_mv,
+                            const int* ptype, const int* mv_quad,
+                            const int* cbp_luma_bits, const int* cbp_chroma,
+                            const int* luma_blocks, const uint8_t* t8_sel,
+                            const int* luma8, uint8_t* skip, int* mv, int* mvd,
+                            int* mvd1, int* ptype_o, int* mv_sub, int* mvd_sub,
+                            int* mvd4, int* nnz4, int* ref4, int* mv4,
+                            uint8_t* t8_mb, int mb_h, int mb_w, void* stream) {
   const int nmb = mb_h * mb_w;
   MvMaps M{intra_mb, ptype, mv_quad, mb_h, mb_w};
-  p_maps_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(
+  p_maps_kernel<<<(nmb + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       M, me_mv, cbp_luma_bits, cbp_chroma, luma_blocks, t8_sel, luma8, skip,
       mv, mvd, mvd1, ptype_o, mv_sub, mvd_sub, mvd4, nnz4, ref4, mv4, t8_mb);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cabac_p_emit(const uint8_t* intra_mb, const uint8_t* skip,
+                            const int* ptype_o, const int* mode16,
+                            const int* modec, const int* cbp_luma_bits,
+                            const int* cbp_chroma, const int* luma_dc,
+                            const int* luma_blocks, const int* chroma_dc,
+                            const int* chroma_ac, const int* mvd,
+                            const int* mvd1, const int* mvd_sub,
+                            const int* mvd4, const int* nnz4,
+                            const uint8_t* t8_mb, const int* luma8,
+                            const int* dqp, const uint8_t* dqp_pnz,
+                            uint32_t* scratch, int* counts, int* offsets,
+                            uint32_t* ops, int mb_h, int mb_w, int t8_mode,
+                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nmb = mb_h * mb_w;
   PPlanes P{intra_mb, skip, ptype_o, mode16, modec, cbp_luma_bits, cbp_chroma,
             luma_dc, luma_blocks, chroma_dc, chroma_ac, mvd, mvd1, mvd_sub,
-            mvd4, nnz4, t8_mb, luma8, mb_w};
+            mvd4, nnz4, t8_mb, luma8, dqp, dqp_pnz, mb_w};
   p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, t8_mode, scratch,
                                                   counts);
-  e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);
   e = cudaGetLastError();

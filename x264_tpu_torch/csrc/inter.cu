@@ -84,8 +84,8 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     int* __restrict__ cbp_o, int* __restrict__ chroma_dc_o,
     int* __restrict__ chroma_ac_o, int* __restrict__ blocks8_o,
     uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y,
-    int* __restrict__ cbp8_o, int mb_h, int mb_w, int n_planes, int decimate,
-    int t8) {
+    int* __restrict__ cbp8_o, const int* __restrict__ qp_map, int mb_h,
+    int mb_w, int n_planes, int decimate, int t8) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
@@ -102,8 +102,10 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
   __shared__ int sel8;
 
   // ---------------------------------------------------------- fetch
+  // with a QP map (variance AQ) qtab_g is the 52-QP stack: the MB's row
+  const int* qrow = qtab_g + (qp_map ? qp_map[mb] * QTABP_INTS : 0);
   for (int i = tid; i < QTABP_INTS; i += NT)
-    reinterpret_cast<int*>(&q)[i] = qtab_g[i];
+    reinterpret_cast<int*>(&q)[i] = qrow[i];
   for (int i = tid; i < 256; i += NT) {
     const int r = i >> 4, c = i & 15;
     const Part p = part_of(pt, r, c);
@@ -318,12 +320,12 @@ extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
                           const int* mv_quad, const int* qtab, int* recon_y,
                           int* recon_u, int* recon_v, int* blocks_z, int* cbp,
                           int* chroma_dc, int* chroma_ac, int* blocks8,
-                          uint8_t* t8_sel, int* recon8_y, int* cbp8, int mb_h,
-                          int mb_w, int n_planes, int decimate, int t8,
-                          void* stream) {
+                          uint8_t* t8_sel, int* recon8_y, int* cbp8,
+                          const int* qp_map, int mb_h, int mb_w, int n_planes,
+                          int decimate, int t8, void* stream) {
   p_inter_mb_kernel<<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
       recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, blocks8, t8_sel,
-      recon8_y, cbp8, mb_h, mb_w, n_planes, decimate, t8);
+      recon8_y, cbp8, qp_map, mb_h, mb_w, n_planes, decimate, t8);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,9 @@
 // signalling cost, and I8x8 replacing the best of I16 and I4 only when
 // strictly cheaper; an I8x8 MB stays I_NxN (i4_mb) with its four modes
 // copied into the 4x4 mode grid.
+// Variance AQ: given a QP map, the qtab argument is the 52-QP stack
+// (encoder/aq.py:qtab_stacks) and each CTA loads the row of its MB's QP
+// (x264_tpu's per-MB qtab_rows gather); lambda stays the frame's.
 #include "intra_mb.cuh"
 #include "t8.cuh"
 
@@ -71,8 +74,9 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
     int* __restrict__ luma_dc_o, int* __restrict__ luma_ac_o,
     int* __restrict__ chroma_dc_o, int* __restrict__ chroma_ac_o,
     uint8_t* __restrict__ i4_mb_o, int* i4_modes_o, int* __restrict__ cbp_o,
-    uint8_t* __restrict__ t8_mb_o, int* __restrict__ luma8_o, int mb_w,
-    int d, int y0, int lam, int i8x8) {
+    uint8_t* __restrict__ t8_mb_o, int* __restrict__ luma8_o,
+    const int* __restrict__ qp_map, int mb_w, int d, int y0, int lam,
+    int i8x8) {
   // the MB of this CTA: x + y = d, or x + 2y = d with I8x8
   const int my = y0 + blockIdx.x;
   const int mx = d - (i8x8 ? 2 : 1) * my;
@@ -92,7 +96,10 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
   __shared__ int modes8[4], blk8[4][64], total8, cbp8;
 
   // ------------------------------------------------------------ load
-  imb_load(S, qtab_g, Y, U, V, RY, RU, RV, mb_w, mx, my, has_top, has_left);
+  // with a QP map (variance AQ) qtab_g is the 52-QP stack and the MB
+  // reads the row of its QP
+  imb_load(S, qtab_g + (qp_map ? qp_map[mb] * QTAB_INTS : 0), Y, U, V, RY,
+           RU, RV, mb_w, mx, my, has_top, has_left);
   for (int i = tid; i < P4_N; i += NT) {
     p4idx[i] = (short)p4_g[i];
     p4wgt[i] = (short)p4_g[P4_N + i];
@@ -360,8 +367,8 @@ extern "C" int intra_diag(const int* y, const int* u, const int* v,
                           int* mode16, int* modec, int* luma_dc, int* luma_ac,
                           int* chroma_dc, int* chroma_ac, uint8_t* i4_mb,
                           int* i4_modes, int* cbp_luma_bits, uint8_t* t8_mb,
-                          int* luma8, int mb_h, int mb_w, int d, int lam,
-                          int i8x8, void* stream) {
+                          int* luma8, const int* qp_map, int mb_h, int mb_w,
+                          int d, int lam, int i8x8, void* stream) {
   // the MBs of diagonal d: x = d - y, or x = d - 2y with I8x8, in [0, mb_w)
   const int y0 = i8x8 ? max(0, (d - (mb_w - 1) + 1) / 2) : max(0, d - (mb_w - 1));
   const int y1 = min(mb_h - 1, i8x8 ? d / 2 : d);
@@ -369,6 +376,6 @@ extern "C" int intra_diag(const int* y, const int* u, const int* v,
   intra_diag_kernel<<<y1 - y0 + 1, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, qtab, p4tab, p8tab, recon_y, recon_u, recon_v, mode16, modec,
       luma_dc, luma_ac, chroma_dc, chroma_ac, i4_mb, i4_modes, cbp_luma_bits,
-      t8_mb, luma8, mb_w, d, y0, lam, i8x8);
+      t8_mb, luma8, qp_map, mb_w, d, y0, lam, i8x8);
   return (int)cudaGetLastError();
 }

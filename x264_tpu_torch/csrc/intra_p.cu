@@ -152,8 +152,8 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
     const int* __restrict__ Y, const int* __restrict__ U,
     const int* __restrict__ V, Planes src, Planes inter, Planes dst,
     const int* __restrict__ qtab_g, const uint8_t* __restrict__ intra_mb,
-    Syntax out, int* __restrict__ cost_i, const RD rd, int mb_w, int lam,
-    int decimate) {
+    Syntax out, int* __restrict__ cost_i, const RD rd,
+    const int* __restrict__ qp_map, int mb_w, int lam, int decimate) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const bool has_top = my > 0, has_left = mx > 0;
@@ -171,8 +171,9 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
   }
   const int fix16 = fixed ? out.mode16[mb] : -1;
   const int fixc = fixed ? out.modec[mb] : -1;
-  imb_load(S, qtab_g, Y, U, V, src.y, src.u, src.v, mb_w, mx, my, has_top,
-           has_left);
+  // with a QP map (variance AQ) qtab_g is the 52-QP intra stack
+  imb_load(S, qtab_g + (qp_map ? qp_map[mb] * QTAB_INTS : 0), Y, U, V, src.y,
+           src.u, src.v, mb_w, mx, my, has_top, has_left);
   __syncthreads();
   imb_predict(S, has_top, has_left);
   imb_i16_decide(S, has_top, has_left, lam, fix16);
@@ -247,15 +248,16 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
                           int* chroma_dc, int* chroma_ac, int* sy, int* su,
                           int* sv, int* cost_i, const float* rd_cost,
                           const int* ce_psy, const int* rdtab,
-                          float* cost_i_rd, int mb_h, int mb_w, int lam,
-                          int decimate, float lam2, float psy, void* stream) {
+                          float* cost_i_rd, const int* qp_map, int mb_h,
+                          int mb_w, int lam, int decimate, float lam2,
+                          float psy, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nmb = mb_h * mb_w;
   const Planes inter{inter_y, inter_u, inter_v}, A{ry, ru, rv}, B{sy, su, sv};
   const Syntax out{mode16, modec, luma_dc, luma_ac, chroma_dc, chroma_ac};
   const RD rd{rd_cost, ce_psy, rdtab, cost_i_rd, lam2, psy};
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, inter, inter, A, qtab, nullptr,
-                                  out, cost_i, rd, mb_w, lam, decimate);
+                                  out, cost_i, rd, qp_map, mb_w, lam, decimate);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decide_kernel<<<nmb, NT, 0, s>>>(cost_i, cost_inter, rd, inter, A, intra_mb,
@@ -263,10 +265,10 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, A, inter, B, qtab, intra_mb, out,
-                                  cost_i, rd, mb_w, lam, decimate);
+                                  cost_i, rd, qp_map, mb_w, lam, decimate);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, B, inter, A, qtab, intra_mb, out,
-                                  cost_i, rd, mb_w, lam, decimate);
+                                  cost_i, rd, qp_map, mb_w, lam, decimate);
   return (int)cudaGetLastError();
 }

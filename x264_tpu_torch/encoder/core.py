@@ -1,5 +1,6 @@
 """Encoder orchestration — the analogue of encoder/encoder.c, ported from
-x264_tpu/encoder/core.py for CABAC IDR and P frames at constant QP.
+x264_tpu/encoder/core.py for CABAC IDR and P frames at constant QP, CRF
+or 1-pass ABR, with or without variance AQ.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
@@ -18,11 +19,15 @@ are queued, its op stream and metrics vector start a non-blocking copy
 into pinned host memory ordered by a CUDA event, and the host CABAC of
 an earlier frame runs while the card works. P frame N reads frame N-1's
 deblocked reconstruction on the same stream, so the pipe needs no
-further synchronisation. With the scenecut lookahead on, the frame type
-must be known before the frame is queued: the frame's planes cross to
-the card on a stream of their own, the lookahead kernels run there, and
-the host waits for that stream alone before it reads their two sums; the
-encoder's stream waits on an event after the upload.
+further synchronisation. With the lowres lookahead on (scenecut, and
+CRF / ABR, whose frame QP reads the lookahead's P cost), the frame type
+and QP must be known before the frame is queued: the frame's planes
+cross to the card on a stream of their own, the lookahead kernels run
+there, and the host waits for that stream alone before it reads their
+two sums; the encoder's stream waits on an event after the upload. Rate
+control starts each frame when it is queued and ends it when its bits
+are known, at the same points of the pipe as x264_tpu, so the QPs that
+depend on earlier frames' sizes are the same at every i_frame_parallel.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from ..entropy import cabac_tables as ctab
 from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
 from ..headers import PPS, SPS, SLICE_I, SLICE_P, SliceHeader, sei_version
 from ..params import (ANALYSE_I4x4, ANALYSE_I8x8, ANALYSE_PSUB16x16,
-                      EncoderParams)
+                      AQ_NONE, RC_CQP, EncoderParams)
+from . import aq as eaq
 from . import inter
 from . import intra
 from . import pipeline
@@ -88,21 +94,25 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
     P8x8 partitions, chroma ME and, at subme >= 6, the RD ladder with
     psy-RD, where the parameters ask for them), with one reference and
     the scenecut lookahead or a fixed GOP, with or without the 8x8
-    transform and I8x8."""
+    transform and I8x8, at constant QP, CRF or 1-pass ABR, with or
+    without variance AQ (VBV and 2-pass replay are refused here and by
+    RateControl)."""
     a, rc = p.analyse, p.rc
     later = [
         (p_frames and p.i_frame_reference >= 2,
          "multiple references (ref >= 2)", "a later slice"),
         (p.i_bframe > 0, "B frames", "the B slice"),
         (not p.b_cabac, "CAVLC", "the CAVLC slice"),
-        (rc.i_qp_constant == 0, "lossless (qp 0)", "a later slice"),
+        (rc.i_rc_method == RC_CQP and rc.i_qp_constant == 0,
+         "lossless (qp 0)", "a later slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
         (a.i_trellis > 0, "trellis", "the trellis slice"),
         (p.i_mb_row_shards > 1, "MB-row sharding", "the multi-GPU slice"),
         (a.i_noise_reduction > 0, "noise reduction", "a later slice"),
         (p.i_cqm_preset != 0, "custom quant matrices", "a later slice"),
-        (rc.i_vbv_max_bitrate > 0 or rc.i_vbv_buffer_size > 0, "VBV",
-         "the rate-control slice"),
+        (rc.i_vbv_max_bitrate > 0 or rc.i_vbv_buffer_size > 0,
+         "VBV (with its row rate control)", "the VBV slice"),
+        (rc.b_stat_read, "2-pass replay", "the 2-pass slice"),
     ]
     for bad, what, when in later:
         if bad:
@@ -113,8 +123,9 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
 
 class Encoder:
     """x264_encoder_open / encode / close for CABAC IDR + P frames at
-    constant QP. device: "cuda" (the default, which needs a card) or
-    "cpu", where every kernel runs its plain PyTorch version."""
+    constant QP, CRF or 1-pass ABR, with or without variance AQ. device:
+    "cuda" (the default, which needs a card) or "cpu", where every kernel
+    runs its plain PyTorch version."""
 
     def __init__(self, params: EncoderParams, device=None):
         if device is None:
@@ -140,6 +151,15 @@ class Encoder:
         self._disp_abs = 0
         self._qtab_cache: dict = {}
         self._qtab_p_cache: dict = {}
+        # variance AQ: each MB's QP from K16, its tables read from the
+        # 52-QP stacks, built once and kept on the device
+        self._aq = None
+        if p.rc.i_aq_mode != AQ_NONE:
+            self._aq = (float(np.float32(p.rc.f_aq_strength)),
+                        int(p.rc.i_qp_min), int(p.rc.i_qp_max))
+            self._aq_stacks = eaq.qtab_stacks(
+                eaq.full_tables(self.qt, self.device),
+                p.analyse.i_chroma_qp_offset)
         # DPB: the deblocked reconstruction of the last frame and the MV
         # field that seeds the next P frame's ME (both on the device)
         self._ref = None
@@ -147,9 +167,11 @@ class Encoder:
         self._gop_pos = 0
         self._since_idr = 0
         self._disp_since_idr = 0
-        # the lowres lookahead: at CQP only for scenecut detection
-        self._analyse_lowres = (p.i_scenecut_threshold > 0
-                                and p.i_keyint_max > 1)
+        # the lowres lookahead: the frame complexity of CRF / ABR, and the
+        # scenecut detection
+        self._analyse_lowres = (p.rc.i_rc_method != RC_CQP
+                                or (p.i_scenecut_threshold > 0
+                                    and p.i_keyint_max > 1))
         self._la_stream = torch.cuda.Stream(self.device) \
             if self._analyse_lowres and self.device.type == "cuda" else None
         # ME window clamped so every candidate stays inside the PAD=32
@@ -258,7 +280,8 @@ class Encoder:
         pend = self._submit_idr(frame, planes, qp) if is_idr \
             else self._submit_p(frame, planes, qp)
         pend.update(frame=frame, qp=qp, disp=disp,
-                    ftype="IDR" if is_idr else "P")
+                    ftype="IDR" if is_idr else "P",
+                    rc_rceq=self.rc.last_rceq, rc_satd=self.rc.last_satd)
         self.frame_count += 1
         self._start_fetch(pend)
         self._pending.append(pend)
@@ -266,18 +289,24 @@ class Encoder:
     def _qtab(self, qp: int, qp_c: int) -> dict:
         key = (qp, qp_c)
         if key not in self._qtab_cache:
-            self._qtab_cache[key] = intra.make_qtab(qp, qp_c, self.device,
-                                                    self.qt)
+            qt = intra.make_qtab(qp, qp_c, self.device, self.qt)
+            if self._aq is not None:
+                qt["aq_stack"] = self._aq_stacks["intra"]
+            self._qtab_cache[key] = qt
         return self._qtab_cache[key]
 
     def _qtab_p(self, qp: int, qp_c: int) -> dict:
         key = (qp, qp_c)
         if key not in self._qtab_p_cache:
             a = self.params.analyse
-            self._qtab_p_cache[key] = inter.make_qtab_p(
+            qt = inter.make_qtab_p(
                 qp, qp_c, self.device, self.qt,
                 rd_idc=self.params.i_cabac_init_idc if self._rd else None,
                 f_psy_rd=a.f_psy_rd if a.b_psy else 0.0)
+            if self._aq is not None:
+                qt.update(aq_stack=self._aq_stacks["intra"],
+                          aq_stack_p=self._aq_stacks["inter"])
+            self._qtab_p_cache[key] = qt
         return self._qtab_p_cache[key]
 
     def _pad_input(self, frame: Frame):
@@ -351,7 +380,8 @@ class Encoder:
             2 * p.i_deblocking_filter_alphac0,
             2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
             crop_w=p.i_width, crop_h=p.i_height,
-            with_metrics=self._with_metrics, t8=self._t8, i8x8=self._i8x8)
+            with_metrics=self._with_metrics, t8=self._t8, i8x8=self._i8x8,
+            aq=self._aq)
         recon = self._finish_frame(out, frame)
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         return dict(out=out, hdr_bytes=hdr_bytes, recon=recon,
@@ -377,7 +407,7 @@ class Encoder:
             mvp_seed, crop_w=p.i_width, crop_h=p.i_height,
             with_metrics=self._with_metrics, decimate=self._decimate,
             subpel_steps=self._subpel, parts=self._parts, p8x8=self._p8x8,
-            chroma_me=self._chroma_me, rd=self._rd, t8=self._t8)
+            chroma_me=self._chroma_me, rd=self._rd, t8=self._t8, aq=self._aq)
         self._prev_mv = out["mv"]
         return dict(out=out, hdr_bytes=hdr_bytes,
                     recon=self._finish_frame(out, frame), nmb=mb_h * mb_w,
@@ -450,7 +480,7 @@ class Encoder:
         else:
             counts = (nmb, 0, 0)
         self.rc.end("I" if ftype == "IDR" else ftype, bits, pend["qp"],
-                    counts)
+                    counts, rceq=pend["rc_rceq"], satd=pend["rc_satd"])
         metrics = None
         if self._with_metrics:
             metrics = tuple(float(x) for x in h32[3:7].view(np.float32))

@@ -31,7 +31,10 @@ encoder/macroblock.c:475) is staged as x264_tpu stages it:
    mvds and the per-4x4 nnz / ref / mv / mvd maps (kernel K8's first
    pass, entropy/cabac_planes.py).
 
-This slice has one reference and one QP per frame.
+This slice has one reference. The QP is the frame's or, under variance
+AQ, each MB's own (qp_map): K6 and K7 then read the MB's rows of the
+52-QP stacks of encoder/aq.py:qtab_stacks (K6 the inter tables, K7 the
+intra ones), while lambda and the RD tables stay the frame's.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ..ops import quant as oquant
 from ..ops import rdcost as ordc
 from . import intra
 from . import mvpred
-from .intra import _BIG, _blocks4, _pick, _unblocks4, _zig
+from .intra import _BIG, _blocks4, _pick, _q16, _qc, _unblocks4, _zig
 
 I32 = torch.int32
 
@@ -67,6 +70,9 @@ QTAB_P_SCALAR_KEYS = ("py_qpdiv6", "pc_dmf0", "pc_mf_dc", "pc_bias_dc",
                       "pc_qpdiv6")
 # the 8x8-transform tables (CQM_8PY, 64 entries each), packed last
 QTAB_P_VEC8_KEYS = ("p8_mf", "p8_bias", "p8_dmf")
+QTABP_LAYOUT = ((QTAB_P_VEC_KEYS, 16), (QTAB_P_SCALAR_KEYS, 1),
+                (QTAB_P_VEC8_KEYS, 64))
+QTABP_INTS = sum(len(keys) * n for keys, n in QTABP_LAYOUT)
 # K6's t8 argument: no 8x8 transform; the SA8D choice made in K6 (below
 # subme 6); both codings written for K13's RD choice (subme >= 6)
 T8_OFF, T8_SA8D, T8_RD = 0, 1, 2
@@ -118,10 +124,18 @@ def make_qtab_p(qp_y: int, qp_c: int, device,
 
 def pack_qtab_p(qtab: dict) -> torch.Tensor:
     """The inter tables as the one int32 vector csrc/inter.cu reads."""
-    return torch.cat(
-        [qtab[k].reshape(-1).to(I32) for k in QTAB_P_VEC_KEYS]
-        + [qtab[k].reshape(1).to(I32) for k in QTAB_P_SCALAR_KEYS]
-        + [qtab[k].reshape(-1).to(I32) for k in QTAB_P_VEC8_KEYS])
+    return intra.pack_rows(qtab, QTABP_LAYOUT)
+
+
+def mb_rows(qtab: dict, qp_map, inter_tabs: bool) -> dict:
+    """qtab with the per-MB rows of the flat (nK,) MBs of qp_map from its
+    52-QP stack ("aq_stack_p" inter, "aq_stack" intra) in place of the
+    frame's tables."""
+    flat = qp_map.reshape(-1).long()
+    if inter_tabs:
+        return {**qtab, **intra.unpack_rows(qtab["aq_stack_p"][flat],
+                                            QTABP_LAYOUT)}
+    return {**qtab, **intra.unpack_qtab(qtab["aq_stack"][flat])}
 
 
 def _tiles(plane, n: int):
@@ -147,8 +161,8 @@ def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
     K, dev = fenc.shape[0], fenc.device
     zig = _zig(dev)
     coef = odct.dct4x4(_blocks4(fenc - pred, 4))       # (K,4,4,4,4)
-    lv = oquant.quant(coef.reshape(K, 16, 16), qtab["py_mf"],
-                      qtab["py_bias"])                 # raster blocks
+    lv = oquant.quant(coef.reshape(K, 16, 16), _q16(qtab["py_mf"]),
+                      _q16(qtab["py_bias"]))           # raster blocks
     if decimate:
         s = oquant.decimate_score(lv[..., zig])        # (K,16)
         # raster block (row, col) -> 8x8 group (row // 2, col // 2)
@@ -159,7 +173,8 @@ def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
     grp = (lv != 0).any(-1).reshape(K, 2, 2, 2, 2).any(-3).any(-1)
     w = torch.tensor([[1, 2], [4, 8]], dtype=I32, device=dev)
     cbp_bits = (grp * w).sum((-2, -1), dtype=I32)
-    deq = oquant.dequant(lv, qtab["py_dmf"], qtab["py_qpdiv6"], 4)
+    deq = oquant.dequant(lv, _q16(qtab["py_dmf"]), _qc(qtab["py_qpdiv6"], 2),
+                         4)
     res = odct.idct4x4(deq.reshape(K, 4, 4, 4, 4))
     recon = (pred + _unblocks4(res, 4)).clamp(0, 255)
     zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
@@ -177,8 +192,8 @@ def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False):
     cbp_bits (K,))."""
     K, dev = fenc.shape[0], fenc.device
     blocks = (fenc - pred).reshape(K, 2, 8, 2, 8).transpose(2, 3)
-    lv = oquant.quant(odct.dct8x8(blocks).reshape(K, 4, 64), qtab["p8_mf"],
-                      qtab["p8_bias"])
+    lv = oquant.quant(odct.dct8x8(blocks).reshape(K, 4, 64),
+                      _q16(qtab["p8_mf"]), _q16(qtab["p8_bias"]))
     zig8 = torch.as_tensor(tables.ZIGZAG8, device=dev).long()
     if decimate:
         sc = oquant.decimate_score(lv[..., zig8], oquant.DECIMATE_TAB8)
@@ -187,7 +202,8 @@ def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False):
     nz = (lv != 0).any(-1)
     cbp_bits = (nz * torch.tensor([1, 2, 4, 8], device=dev)).sum(
         -1, dtype=I32)
-    deq = oquant.dequant(lv, qtab["p8_dmf"], qtab["py_qpdiv6"], 6)
+    deq = oquant.dequant(lv, _q16(qtab["p8_dmf"]), _qc(qtab["py_qpdiv6"], 2),
+                         6)
     res = odct.idct8x8(deq.reshape(K, 2, 2, 8, 8)).transpose(2, 3) \
         .reshape(K, 16, 16)
     recon = (pred + res).clamp(0, 255)
@@ -245,7 +261,7 @@ def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad):
 
 def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
                      refv_pad, ptype, mv_quad, qtab, decimate: bool,
-                     t8: int = T8_OFF):
+                     t8: int = T8_OFF, qp_map=None):
     """Plain version of K6: stage 2 of encode_p_body.
 
     y / u / v: the MB-aligned source planes; planes: the (P, Hp, Wp)
@@ -262,8 +278,12 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
     bool, recon_y / blocks_z / cbp then being the chosen coding's
     (blocks_z zero where the 8x8 transform is chosen); with T8_RD also
     blocks8_z, recon8_y (the 8x8 coding's plane) and cbp8, recon_y /
-    blocks_z / cbp staying the 4x4 coding's."""
+    blocks_z / cbp staying the 4x4 coding's. qp_map: (mb_h, mb_w) per-MB
+    QPs (variance AQ), each MB's inter tables then the rows of qtab's
+    "aq_stack_p"."""
     nK = mb_h * mb_w
+    if qp_map is not None:
+        qtab = mb_rows(qtab, qp_map, True)
     preds = [p.reshape(nK, *p.shape[2:]) for p in
              partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad)]
     pred_y, preds_c = preds[0], preds[1:]
@@ -309,19 +329,22 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
 
 
 def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
-               ptype, mv_quad, qtab, decimate: bool, t8: int = T8_OFF):
+               ptype, mv_quad, qtab, decimate: bool, t8: int = T8_OFF,
+               qp_map=None):
     """K6 `p_inter_mb`: the inter residual path of every MB.
 
     Replaces x264_tpu/ops/mc.py:mc_luma and mc_chroma (the partitioned
     fetch of encode_p_body's stage 2, inter.py:420-494),
     x264_tpu/encoder/inter.py:inter_luma_residual (with decimation),
     inter_luma_residual8 and the SA8D transform choice (t8) and the
-    chroma half of stage 2. On CUDA tensors it runs csrc/inter.cu, one
-    CTA per MB over the whole frame in one launch; on CPU tensors the
-    plain version. Arguments and results as p_inter_mb_plain."""
+    chroma half of stage 2, with per-MB tables under a QP map. On CUDA
+    tensors it runs csrc/inter.cu, one CTA per MB over the whole frame in
+    one launch; on CPU tensors the plain version. Arguments and results
+    as p_inter_mb_plain."""
     if y.device.type == "cpu":
         return p_inter_mb_plain(mb_h, mb_w, y, u, v, planes, refu_pad,
-                                refv_pad, ptype, mv_quad, qtab, decimate, t8)
+                                refv_pad, ptype, mv_quad, qtab, decimate, t8,
+                                qp_map)
     dev = y.device
     H, W, P = mb_h * 16, mb_w * 16, omc.PAD
     n_planes = planes.shape[0]
@@ -347,25 +370,32 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
         o.update(blocks8_z=e(mb_h, mb_w, 4, 64), recon8_y=e(H, W),
                  cbp8=e(mb_h, mb_w))
     ptr = lambda k: o[k].data_ptr() if k in o else 0
-    ins = (y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad,
-           pack_qtab_p(qtab))
-    cuda.launch("inter", "p_inter_mb", "p" * 20 + "iiiii" + "p",
+    if qp_map is None:
+        tab, qp_ptr = pack_qtab_p(qtab), 0
+    else:
+        tab = qtab["aq_stack_p"]
+        cuda.check(tab, (52, QTABP_INTS), I32, "aq_stack_p")
+        cuda.check(qp_map, (mb_h, mb_w), I32, "qp_map")
+        qp_ptr = qp_map.data_ptr()
+    ins = (y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, tab)
+    cuda.launch("inter", "p_inter_mb", "p" * 21 + "iiiii" + "p",
                 *[t.data_ptr() for t in ins],
                 *[ptr(k) for k in ("recon_y", "recon_u", "recon_v",
                                    "blocks_z", "cbp", "chroma_dc",
                                    "chroma_ac", "blocks8_z", "t8_sel",
                                    "recon8_y", "cbp8")],
-                mb_h, mb_w, n_planes, int(decimate), int(t8),
+                qp_ptr, mb_h, mb_w, n_planes, int(decimate), int(t8),
                 cuda.stream(dev))
     p_inter_mb.launches += 1
     p_inter_mb.launches_t8_sa8d += int(t8 == T8_SA8D)
     p_inter_mb.launches_t8_rd += int(t8 == T8_RD)
+    p_inter_mb.launches_aq += int(qp_map is not None)
     return o
 
 
-# launches, and those of them in each t8 mode
+# launches, and those of them in each t8 mode and with a QP map
 p_inter_mb.launches = p_inter_mb.launches_t8_sa8d = \
-    p_inter_mb.launches_t8_rd = 0
+    p_inter_mb.launches_t8_rd = p_inter_mb.launches_aq = 0
 
 
 # ---------------------------------------------------------------- K13
@@ -572,7 +602,7 @@ def rd_cost_intra(fenc, fu, fv, lp: dict, cu, cv, qtab, ce_psy):
 
 def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
                      inter_v, cost_inter, qtab, lam: int, decimate: bool,
-                     rd=None):
+                     rd=None, qp_map=None):
     """Plain version of K7: stage 3 of encode_p_body.
 
     Sweep 0 runs the I16 + chroma intra path of every MB with neighbours
@@ -586,9 +616,13 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
     dict(recon_y / _u / _v (merged planes), intra_mb (mb_h,mb_w) bool,
     and the intra syntax planes, zero on inter MBs: mode16, modec,
     luma_dc (mb_h,mb_w,16), luma_ac (mb_h,mb_w,16,16), chroma_dc
-    (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16))."""
+    (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16)). qp_map: (mb_h, mb_w)
+    per-MB QPs (variance AQ), each MB's intra tables then the rows of
+    qtab's "aq_stack"."""
     dev = y.device
     nK = mb_h * mb_w
+    if qp_map is not None:
+        qtab = mb_rows(qtab, qp_map, False)
     grid = lambda t: t.reshape(mb_h, mb_w, *t.shape[1:])
     fenc, fu, fv = _tiles(y, 16), _tiles(u, 8), _tiles(v, 8)
     gy = torch.arange(mb_h, device=dev)[:, None].expand(mb_h, mb_w)
@@ -651,7 +685,8 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
 
 
 def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
-               cost_inter, qtab, lam: int, decimate: bool, rd=None):
+               cost_inter, qtab, lam: int, decimate: bool, rd=None,
+               qp_map=None):
     """K7 `intra_in_p`: stage 3 of the P encode.
 
     Replaces the intra-in-P sweeps of x264_tpu/encoder/inter.py:
@@ -661,11 +696,13 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
     and the resolved fixpoint). On CUDA tensors it runs
     csrc/intra_p.cu: sweep 0 over every MB (with the intra RD cost under
     rd), the decision with the demotion of deep chains, then sweeps 1
-    and 2 (4 launches, one CTA per MB each); on CPU tensors the plain
-    version. Arguments and results as intra_in_p_plain."""
+    and 2 (4 launches, one CTA per MB each), with per-MB tables under a
+    QP map; on CPU tensors the plain version. Arguments and results as
+    intra_in_p_plain."""
     if y.device.type == "cpu":
         return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
-                                inter_v, cost_inter, qtab, lam, decimate, rd)
+                                inter_v, cost_inter, qtab, lam, decimate, rd,
+                                qp_map)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
     for t, shape, name in (
@@ -684,8 +721,14 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
              chroma_dc=e(mb_h, mb_w, 2, 4),
              chroma_ac=e(mb_h, mb_w, 2, 4, 16))
     scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2), e(mb_h, mb_w))
-    ins = (y, u, v, inter_y, inter_u, inter_v, cost_inter,
-           intra.pack_qtab(qtab))
+    if qp_map is None:
+        tab, qp_ptr = intra.pack_qtab(qtab), 0
+    else:
+        tab = qtab["aq_stack"]
+        cuda.check(tab, (52, intra.QTAB_INTS), I32, "aq_stack")
+        cuda.check(qp_map, (mb_h, mb_w), I32, "qp_map")
+        qp_ptr = qp_map.data_ptr()
+    ins = (y, u, v, inter_y, inter_u, inter_v, cost_inter, tab)
     if rd is None:
         rd_ptrs, lam2, psy = (0, 0, 0, 0), 0.0, 0.0
     else:
@@ -698,15 +741,17 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
         rd_ptrs = (rd_cost.data_ptr(), ce_psy.data_ptr(),
                    qtab["rdtab"].data_ptr(), cost_i_rd.data_ptr())
         lam2, psy = qtab["rd_lam2"], qtab.get("psy_rd", 0.0)
-    cuda.launch("intra_p", "intra_in_p", "p" * 26 + "iiiiff" + "p",
+    cuda.launch("intra_p", "intra_in_p", "p" * 27 + "iiiiff" + "p",
                 *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
-                *[t.data_ptr() for t in scratch], *rd_ptrs, mb_h, mb_w, lam,
-                int(decimate), lam2, psy, cuda.stream(dev))
+                *[t.data_ptr() for t in scratch], *rd_ptrs, qp_ptr, mb_h,
+                mb_w, lam, int(decimate), lam2, psy, cuda.stream(dev))
     intra_in_p.launches += 4           # sweep 0, decision, sweeps 1 and 2
+    intra_in_p.launches_aq += 4 * int(qp_map is not None)
     return o
 
 
-intra_in_p.launches = 0
+# launches, and those of them with a QP map
+intra_in_p.launches = intra_in_p.launches_aq = 0
 
 
 # ------------------------------------------------------------ the body
@@ -770,7 +815,7 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                    ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
                    chroma_me: bool = False, rd: bool = False,
-                   t8: bool = False) -> dict:
+                   t8: bool = False, qp_map=None) -> dict:
     """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6,
     K13 (under rd) and K7, and the merges of stage 4 (plain tensor glue).
     All planes int32 and MB-aligned; ref_* the deblocked reference
@@ -783,7 +828,9 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     K13). Returns the merged syntax planes, the merged pre-deblock
     reconstruction, the 16x16 MV (me_mv), the partition type and the
     quadrant MVs; with t8 also t8_sel (each MB's transform choice) and
-    luma8_z (the 8x8 coding's levels of every MB)."""
+    luma8_z (the 8x8 coding's levels of every MB). qp_map: per-MB QPs
+    (variance AQ) for K6 and K7, qtab then holding the 52-QP stacks
+    "aq_stack_p" and "aq_stack"."""
     ref_pad = omc.pad_plane(ref_y.to(I32))
     refu_pad = omc.pad_plane(ref_u.to(I32), omc.PAD // 2)
     refv_pad = omc.pad_plane(ref_v.to(I32), omc.PAD // 2)
@@ -809,7 +856,7 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
         mv_quad = mv[:, :, None].expand(mb_h, mb_w, 4, 2).contiguous()
     it = p_inter_mb(mb_h, mb_w, y, u, v, planes, refu_pad, refv_pad, ptype,
                     mv_quad, qtab, decimate,
-                    (T8_RD if rd else T8_SA8D) if t8 else T8_OFF)
+                    (T8_RD if rd else T8_SA8D) if t8 else T8_OFF, qp_map)
     rd_costs = None
     if rd:
         rd_costs = rd_inter(mb_h, mb_w, y, u, v, it, ptype, mv_quad,
@@ -818,7 +865,8 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
             it = {**it, **rd_costs[2]}
             rd_costs = rd_costs[:2]
     ip = intra_in_p(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
-                    it["recon_v"], cost_inter, qtab, lam, decimate, rd_costs)
+                    it["recon_v"], cost_inter, qtab, lam, decimate, rd_costs,
+                    qp_map)
     im = ip["intra_mb"]
     luma_blocks = torch.where(im[..., None, None], ip["luma_ac"],
                               it["blocks_z"])
@@ -920,15 +968,16 @@ def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                   ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                   subpel_steps=(), parts: bool = False, p8x8: bool = False,
                   chroma_me: bool = False, rd: bool = False,
-                  t8: bool = False) -> dict:
+                  t8: bool = False, qp_map=None) -> dict:
     """One P frame (pre-deblock) with the keys of x264_tpu's
     encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs=1, t8, rd,
-    qp_map=None): stages 1-3 (encode_p_front) and the syntax maps
+    qp_map): stages 1-3 (encode_p_front) and the syntax maps
     (p_maps_plain). The card's pipeline runs the maps inside kernel K8
     instead (entropy/cabac_planes.py:cabac_p_ops)."""
     front = encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y, ref_u,
                            ref_v, qtab, lam, mvp_seed, decimate,
-                           subpel_steps, parts, p8x8, chroma_me, rd, t8)
+                           subpel_steps, parts, p8x8, chroma_me, rd, t8,
+                           qp_map)
     out = dict(front, **p_maps_plain(front, mb_h, mb_w))
     for k in ("me_mv", "mv_quad", "t8_sel"):
         out.pop(k, None)

@@ -15,8 +15,10 @@ filter reads the bottom row of the top-right MB, which the x + y
 wavefront has not coded yet, so with I8x8 on both walk the 254 slope-2
 diagonals d = x + 2y instead (the reference's own frame-thread offset).
 
-This slice runs the I16x16 + I4x4 (+ I8x8) ladder at one frame QP;
-lossless bypass and per-MB (AQ) tables come with later slices.
+Both run the I16x16 + I4x4 (+ I8x8) ladder at one frame QP or, under
+variance AQ, with each MB's tables at its own QP (qp_map): the rows of
+the 52-QP stack of encoder/aq.py:qtab_stacks; lambda stays the frame's.
+Lossless bypass comes with a later slice.
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ QTAB_SCALAR_KEYS = ("y_dmf0", "y_mf_dc", "y_bias_dc", "y_qpdiv6",
                     "c_dmf0", "c_mf_dc", "c_bias_dc", "c_qpdiv6")
 # the I8x8 tables (CQM_8IY, 64 entries each), packed after the scalars
 QTAB_VEC8_KEYS = ("y8_mf", "y8_bias", "y8_dmf")
+QTAB_LAYOUT = ((QTAB_VEC_KEYS, 16), (QTAB_SCALAR_KEYS, 1),
+               (QTAB_VEC8_KEYS, 64))
+QTAB_INTS = sum(len(keys) * n for keys, n in QTAB_LAYOUT)
 
 
 def make_qtab(qp_y: int, qp_c: int, device,
@@ -83,12 +88,46 @@ def make_qtab(qp_y: int, qp_c: int, device,
     )
 
 
+def pack_rows(qtab: dict, layout) -> torch.Tensor:
+    """The tables of `layout` ((keys, width), ...) as one int32 vector, in
+    its order: the struct a kernel loads."""
+    return torch.cat([qtab[k].reshape(-1).to(I32) for keys, _ in layout
+                      for k in keys])
+
+
+def unpack_rows(rows, layout) -> dict:
+    """Inverse of pack_rows on (..., n) rows: {key: (..., width) vectors
+    or, at width 1, (...,) scalars}."""
+    out, i = {}, 0
+    for keys, n in layout:
+        for k in keys:
+            out[k] = rows[..., i:i + n] if n > 1 else rows[..., i]
+            i += n
+    return out
+
+
 def pack_qtab(qtab: dict) -> torch.Tensor:
     """The qtab as the one int32 vector csrc/intra_mb.cuh's QTab reads (6
     x 16 vectors, 8 scalars, then 3 x 64 for I8x8)."""
-    return torch.cat([qtab[k].reshape(-1).to(I32) for k in QTAB_VEC_KEYS]
-                     + [qtab[k].reshape(1).to(I32) for k in QTAB_SCALAR_KEYS]
-                     + [qtab[k].reshape(-1).to(I32) for k in QTAB_VEC8_KEYS])
+    return pack_rows(qtab, QTAB_LAYOUT)
+
+
+def unpack_qtab(rows) -> dict:
+    """Inverse of pack_qtab on (..., QTAB_INTS) rows."""
+    return unpack_rows(rows, QTAB_LAYOUT)
+
+
+def _q16(t):
+    """A table vector for coefficients (K, n_blocks, N): one-QP tables
+    (N,) pass through, per-MB ones (K, N) gain the block axis (x264_tpu
+    intra._q16)."""
+    return t if t.dim() <= 1 else t.unsqueeze(-2)
+
+
+def _qc(t, axes: int):
+    """A per-MB scalar: 0-d passes through, (K,) gains `axes` trailing
+    singleton dims (x264_tpu intra._qc)."""
+    return t if t.dim() == 0 else t.reshape(*t.shape, *([1] * axes))
 
 
 def _blocks4(block, n):
@@ -139,19 +178,20 @@ def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam,
     dc_raster = coef[..., 0, 0].clone()                # (K,4,4)
     ac = coef.clone()
     ac[..., 0, 0] = 0
-    ac_lv = oquant.quant(ac.reshape(K, 16, 16), qtab["y_mf"],
-                         qtab["y_bias"]).reshape(K, 4, 4, 4, 4)
+    ac_lv = oquant.quant(ac.reshape(K, 16, 16), _q16(qtab["y_mf"]),
+                         _q16(qtab["y_bias"])).reshape(K, 4, 4, 4, 4)
     if decimate:
         s = oquant.decimate_score(ac_lv.reshape(K, 16, 16)[..., zig][..., 1:])
         ac_lv = torch.where((s.sum(-1) < 6)[:, None, None, None, None], 0,
                             ac_lv)
     cbp_luma = (ac_lv != 0).any(-1).any(-1).any(-1).any(-1)   # (K,)
-    ac_deq = oquant.dequant(ac_lv.reshape(K, 16, 16), qtab["y_dmf"],
-                            qtab["y_qpdiv6"], 4).reshape(K, 4, 4, 4, 4)
+    qpdiv6 = _qc(qtab["y_qpdiv6"], 2)
+    ac_deq = oquant.dequant(ac_lv.reshape(K, 16, 16), _q16(qtab["y_dmf"]),
+                            qpdiv6, 4).reshape(K, 4, 4, 4, 4)
     dc_lv = oquant.quant_dc(odct.hadamard4x4_fwd(dc_raster),
-                            qtab["y_mf_dc"], qtab["y_bias_dc"])
+                            _qc(qtab["y_mf_dc"], 2), _qc(qtab["y_bias_dc"], 2))
     dc_rec = oquant.dequant_4x4_dc(odct.hadamard4x4_inv(dc_lv),
-                                   qtab["y_dmf0"], qtab["y_qpdiv6"])
+                                   _qc(qtab["y_dmf0"], 2), qpdiv6)
     ac_deq[..., 0, 0] = dc_rec
     full = odct.idct4x4(ac_deq)
     dconly = ((dc_rec + 32) >> 6)[..., None, None].expand_as(full)
@@ -172,8 +212,8 @@ def _chroma_ac_levels(fencc, cpred, qtab, pfx: str):
     ccoef = odct.dct4x4(_blocks4(fencc - cpred, 2))    # (K,2,2,4,4)
     cac = ccoef.clone()
     cac[..., 0, 0] = 0
-    cac_lv = oquant.quant(cac.reshape(K, 4, 16), qtab[f"{pfx}_mf"],
-                          qtab[f"{pfx}_bias"]).reshape(K, 2, 2, 4, 4)
+    cac_lv = oquant.quant(cac.reshape(K, 4, 16), _q16(qtab[f"{pfx}_mf"]),
+                          _q16(qtab[f"{pfx}_bias"])).reshape(K, 2, 2, 4, 4)
     return ccoef, cac_lv
 
 
@@ -199,13 +239,15 @@ def chroma_residual(fencc, cpred, qtab, pfx: str = "c", ac_kill=None):
         cac_lv = torch.where(ac_kill[:, None, None, None, None], 0, cac_lv)
     cdc = ccoef[..., 0, 0]
     cnz_ac = (cac_lv != 0).reshape(K, -1).any(-1)
-    cac_deq = oquant.dequant(cac_lv.reshape(K, 4, 16), qtab[f"{pfx}_dmf"],
-                             qtab[f"{pfx}_qpdiv6"], 4).reshape(K, 2, 2, 4, 4)
-    cdc_lv = oquant.quant_dc(odct.hadamard2x2(cdc), qtab[f"{pfx}_mf_dc"],
-                             qtab[f"{pfx}_bias_dc"])
+    qpdiv6 = _qc(qtab[f"{pfx}_qpdiv6"], 2)
+    cac_deq = oquant.dequant(cac_lv.reshape(K, 4, 16),
+                             _q16(qtab[f"{pfx}_dmf"]), qpdiv6,
+                             4).reshape(K, 2, 2, 4, 4)
+    cdc_lv = oquant.quant_dc(odct.hadamard2x2(cdc),
+                             _qc(qtab[f"{pfx}_mf_dc"], 2),
+                             _qc(qtab[f"{pfx}_bias_dc"], 2))
     cdc_rec = oquant.dequant_2x2_dc(odct.hadamard2x2(cdc_lv),
-                                    qtab[f"{pfx}_dmf0"],
-                                    qtab[f"{pfx}_qpdiv6"])
+                                    _qc(qtab[f"{pfx}_dmf0"], 2), qpdiv6)
     cac_deq[..., 0, 0] = cdc_rec
     cfull = odct.idct4x4(cac_deq)
     cdconly = ((cdc_rec + 32) >> 6)[..., None, None].expand_as(cfull)
@@ -266,7 +308,7 @@ def luma_i4_path(fenc, top_row, topleft_px, left_col, nbr_modes_top,
 
         lv = oquant.quant(odct.dct4x4(fb - pred).reshape(K, 16),
                           qtab["y_mf"], qtab["y_bias"])
-        deq = oquant.dequant(lv, qtab["y_dmf"], qtab["y_qpdiv6"], 4)
+        deq = oquant.dequant(lv, qtab["y_dmf"], _qc(qtab["y_qpdiv6"], 1), 4)
         rec = (pred + odct.idct4x4(deq.reshape(K, 4, 4))).clamp(0, 255)
         ext[:, 1 + 4 * by:5 + 4 * by, 1 + 4 * bx:5 + 4 * bx] = rec
         modes_r[:, by, bx] = mode
@@ -345,7 +387,7 @@ def luma_i8_path(fenc, top_row, topleft_px, left_col, tr8, nbr_modes_top,
         pred = _pick(preds, mode)
         lv = oquant.quant(odct.dct8x8(fb - pred).reshape(K, 64),
                           qtab["y8_mf"], qtab["y8_bias"])
-        deq = oquant.dequant(lv, qtab["y8_dmf"], qtab["y_qpdiv6"], 6)
+        deq = oquant.dequant(lv, qtab["y8_dmf"], _qc(qtab["y_qpdiv6"], 1), 6)
         rec = (pred + odct.idct8x8(deq.reshape(K, 8, 8))).clamp(0, 255)
         ext[:, r0 + 1:r0 + 9, c0 + 1:c0 + 9] = rec
         modes8[:, by, bx] = mode
@@ -375,7 +417,7 @@ def diagonals(mb_h: int, mb_w: int, i8x8: bool):
 
 
 def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
-                           i8x8: bool = False):
+                           i8x8: bool = False, qp_map=None):
     """Plain version of K1: the wavefront over whole diagonals.
 
     y: (mb_h*16, mb_w*16) int32; u, v: (mb_h*8, mb_w*8) int32; qtab from
@@ -384,8 +426,12 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
     encode_i16_frame(..., i4x4=True, i8x8=i8x8): recon planes and the
     per-MB syntax planes, with t8_mb and luma8_z (mb_h,mb_w,4,64) when
     i8x8 is on (an I8x8 MB keeps i4_mb, I_NxN; its four 8x8 modes fill
-    the 4x4 mode grid)."""
+    the 4x4 mode grid). qp_map: (mb_h, mb_w) int32 per-MB QPs (variance
+    AQ); qtab then also holds "aq_stack", the (52, QTAB_INTS) intra stack,
+    and each diagonal's MBs take the rows of their QPs."""
     dev = y.device
+    rows = None if qp_map is None \
+        else unpack_qtab(qtab["aq_stack"][qp_map.long()])
     ty = torch.zeros((mb_h, mb_w, 16, 16), dtype=I32, device=dev)
     tu = torch.zeros((mb_h, mb_w, 8, 8), dtype=I32, device=dev)
     tv = torch.zeros_like(tu)
@@ -411,6 +457,8 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
         xs = d - (2 if i8x8 else 1) * ys
         ym, xm = (ys - 1).clamp(min=0), (xs - 1).clamp(min=0)
         has_top, has_left = ys > 0, xs > 0
+        if rows is not None:
+            qtab = {k: t[ys, xs] for k, t in rows.items()}
 
         fenc = y_t[ys, xs]
         top = ty[ym, xs, 15, :]
@@ -504,17 +552,18 @@ def _pred_tab(device, size: int):
 
 
 def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
-                     i8x8: bool = False):
+                     i8x8: bool = False, qp_map=None):
     """K1 `intra_diag`: the intra encode of one frame.
 
     Replaces x264_tpu/encoder/intra.py:encode_i16_frame (with i4x4=True,
-    i8x8 as given, lossless=False). On a CUDA tensor it launches
-    csrc/intra.cu once per wavefront diagonal (mb_h + mb_w - 1 launches,
-    or mb_w + 2 * mb_h - 2 with I8x8; one CTA per MB of the diagonal); on
-    a CPU tensor it runs the plain version. Inputs and outputs as
-    encode_i16_frame_plain."""
+    i8x8 as given, lossless=False, and with a QP map its per-MB qtab
+    rows). On a CUDA tensor it launches csrc/intra.cu once per wavefront
+    diagonal (mb_h + mb_w - 1 launches, or mb_w + 2 * mb_h - 2 with I8x8;
+    one CTA per MB of the diagonal); on a CPU tensor it runs the plain
+    version. Inputs and outputs as encode_i16_frame_plain."""
     if y.device.type == "cpu":
-        return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam, i8x8)
+        return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
+                                      qp_map)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
     cuda.check(y, (H, W), I32, "y")
@@ -533,17 +582,27 @@ def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
                  luma8_z=e(mb_h, mb_w, 4, 64))
     t8_ptrs = (o["t8_mb"].data_ptr(), o["luma8_z"].data_ptr()) if i8x8 \
         else (0, 0)
-    ins = (y, u, v, pack_qtab(qtab), _pred_tab(dev, 4), _pred_tab(dev, 8))
+    if qp_map is None:
+        tab, qp_ptr = pack_qtab(qtab), 0
+    else:
+        tab = qtab["aq_stack"]
+        cuda.check(tab, (52, QTAB_INTS), I32, "aq_stack")
+        cuda.check(qp_map, (mb_h, mb_w), I32, "qp_map")
+        qp_ptr = qp_map.data_ptr()
+    ins = (y, u, v, tab, _pred_tab(dev, 4), _pred_tab(dev, 8))
     keys = [k for k in o if k not in ("t8_mb", "luma8_z")]
     ptrs = [t.data_ptr() for t in ins] + [o[k].data_ptr() for k in keys]
     stream = cuda.stream(dev)
     for d, _, _ in diagonals(mb_h, mb_w, i8x8):
-        cuda.launch("intra", "intra_diag", "p" * 20 + "iiiii" + "p",
-                    *ptrs, *t8_ptrs, mb_h, mb_w, d, lam, int(i8x8), stream)
+        cuda.launch("intra", "intra_diag", "p" * 21 + "iiiii" + "p",
+                    *ptrs, *t8_ptrs, qp_ptr, mb_h, mb_w, d, lam, int(i8x8),
+                    stream)
         encode_i16_frame.launches += 1
         encode_i16_frame.launches_i8x8 += int(i8x8)
+        encode_i16_frame.launches_aq += int(qp_map is not None)
     return o
 
 
-# launches, and those of them with the I8x8 ladder
-encode_i16_frame.launches = encode_i16_frame.launches_i8x8 = 0
+# launches, and those of them with the I8x8 ladder and with a QP map
+encode_i16_frame.launches = encode_i16_frame.launches_i8x8 = \
+    encode_i16_frame.launches_aq = 0

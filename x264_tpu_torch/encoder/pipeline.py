@@ -9,9 +9,13 @@ the half-pel planes (K9), the sub-pel refinement (K10), the chroma-ME
 re-rank (K12, subme >= 5) and the partition search (K11, then K10 per
 layout); the inter residual (K6), at subme >= 6 the inter RD cost (K13),
 intra-in-P (K7, with the RD decision at subme >= 6), the syntax maps and
-op stream (K8), then K2 with the P maps and K4. Everything is queued on
-the device's current stream; only the op stream and one small int32
-vector cross to the host
+op stream (K8), then K2 with the P maps and K4. Under variance AQ both
+start with the per-MB QP map of the source planes (K16); K1, K6 and K7
+read each MB's tables at its QP, K17 derives the mb_qp_delta planes
+that K3 / K8 code and the effective QP map that K2 filters with
+(x264_tpu's _encode_i16_aq, _aq_maps and encode_p_cabac's AQ path).
+Everything is queued on the device's current stream; only the op stream
+and one small int32 vector cross to the host
 (x264_slice_write, encoder/encoder.c:1141, plus x264_frame_deblock_row
 and the stats of encoder/encoder.c:1034-1056).
 """
@@ -22,6 +26,7 @@ import torch
 
 from ..entropy import cabac_planes
 from ..ops import deblock as odeblock
+from . import aq as eaq
 from . import inter
 from . import intra
 from . import stats as estats
@@ -58,24 +63,46 @@ def host32_pack(first, oy, ou, ov, ry, ru, rv, crop_w: int, crop_h: int,
     return torch.cat([head, m.view(I32)])
 
 
+def _aq_map(aq, y, u, v, mb_h: int, mb_w: int, qp: int,
+            chroma_qp_offset: int):
+    """K16's luma QP map under aq = (strength, qp_min, qp_max), or None."""
+    if aq is None:
+        return None
+    return eaq.qp_map_from_planes(y, u, v, mb_h, mb_w, qp, *aq,
+                                  chroma_qp_offset)[0]
+
+
 def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
                          qtab: dict, lam: int, qp: int, alpha_off: int,
                          beta_off: int, chroma_qp_offset: int,
                          crop_w: int, crop_h: int, with_metrics: bool,
-                         t8: bool = False, i8x8: bool = False) -> dict:
+                         t8: bool = False, i8x8: bool = False,
+                         aq=None) -> dict:
     """One IDR frame, CABAC entropy. y / u / v: int32 MB-aligned planes on
     the device; crop_w x crop_h the output size the metrics cover; t8: the
     PPS enables the 8x8 transform (the flag of I_NxN MBs); i8x8: the I8x8
     ladder (slope-2 wavefront; its MBs' inner 8x8 edges stay unfiltered).
     Returns dict(recon_y/u/v (deblocked when deblock_on), ops (int32 op
     stream, the first n_ops live), host32 = [n_ops, nmb, 0, ssd_y, ssd_u,
-    ssd_v, ssim], and with i8x8 t8_mb, the I8x8 MBs)."""
-    out = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam, i8x8)
+    ssd_v, ssim], and with i8x8 t8_mb, the I8x8 MBs). aq: variance AQ
+    as (strength, qp_min, qp_max), qtab then holding the 52-QP stack
+    "aq_stack"; the result then also holds dqp and qp_eff (mb_h, mb_w),
+    the mb_qp_delta values and the QPs the MBs decode with."""
+    qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
+    out = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
+                                 qp_map)
+    qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
+    if qp_map is not None:
+        # an I_NxN MB without coded residual codes no mb_qp_delta
+        cnz = (out["chroma_ac"][..., 1:] != 0).flatten(2).any(-1) \
+            | (out["chroma_dc"] != 0).flatten(2).any(-1)
+        has_dqp = ~out["i4_mb"] | (out["cbp_luma_bits"] > 0) | cnz
+        out["dqp"], qp_mb, out["dqp_prev_nz"] = eaq.dqp_syntax(
+            qp_map, has_dqp, qp)
     ops, n_ops = cabac_planes.i_slice_ops(out, mb_h, mb_w, t8)
     ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
     if deblock_on:
         intra_mb, z4, zmv = _zero_maps(mb_h, mb_w, y.device)
-        qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
         ry, ru, rv = odeblock.deblock_frame(
             mb_h, mb_w, ry, ru, rv, qp_mb, intra_mb, z4, z4, zmv, z4, zmv,
             False, alpha_off, beta_off, chroma_qp_offset,
@@ -85,6 +112,8 @@ def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
     ret = dict(recon_y=ry, recon_u=ru, recon_v=rv, ops=ops, host32=h32)
     if i8x8:
         ret["t8_mb"] = out["t8_mb"]
+    if qp_map is not None:
+        ret.update(dqp=out["dqp"], qp_eff=qp_mb)
     return ret
 
 
@@ -95,7 +124,7 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                    crop_h: int, with_metrics: bool, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
                    chroma_me: bool = False, rd: bool = False,
-                   t8: bool = False) -> dict:
+                   t8: bool = False, aq=None) -> dict:
     """One P frame at subme 1-9 with one reference, CABAC entropy. y / u
     / v: int32 MB-aligned source planes; ref_*: the deblocked reference;
     mvp_seed: (mb_h, mb_w, 2) qpel ME predictors (the previous P frame's
@@ -104,17 +133,22 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     when deblock_on), ops, host32 = [n_ops, n_intra, n_skip, ssd_y,
     ssd_u, ssd_v, ssim], mv (the frame's final 16x16 MV field, the next
     frame's seed), ptype (the final partition types), and with t8 t8_mb,
-    the MBs coded with the 8x8 transform)."""
+    the MBs coded with the 8x8 transform). aq: variance AQ as (strength,
+    qp_min, qp_max), qtab then holding the stacks "aq_stack" and
+    "aq_stack_p"; the result then also holds dqp and qp_eff."""
+    qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
                                  subpel_steps, parts, p8x8, chroma_me, rd,
-                                 t8)
-    maps, ops, n_ops = cabac_planes.cabac_p_ops(front, mb_h, mb_w,
-                                                t8_mode=t8)
+                                 t8, qp_map)
+    maps, ops, n_ops = cabac_planes.cabac_p_ops(
+        front, mb_h, mb_w, t8_mode=t8,
+        aq=None if qp_map is None else (qp_map, qp))
+    qp_mb = maps["qp_eff"] if qp_map is not None else torch.full(
+        (mb_h, mb_w), qp, dtype=I32, device=y.device)
     ry, ru, rv = front["recon_y"], front["recon_u"], front["recon_v"]
     if deblock_on:
         _, z4, zmv = _zero_maps(mb_h, mb_w, y.device)
-        qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
         ry, ru, rv = odeblock.deblock_frame(
             mb_h, mb_w, ry, ru, rv, qp_mb, front["intra_mb"], maps["nnz4"],
             maps["ref4"], maps["mv4"], z4, zmv, False, alpha_off, beta_off,
@@ -125,4 +159,6 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                mv=maps["mv"], ptype=maps["ptype"])
     if t8:
         ret["t8_mb"] = maps["t8_mb"]
+    if qp_map is not None:
+        ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
     return ret

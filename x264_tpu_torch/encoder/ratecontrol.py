@@ -1,23 +1,61 @@
-"""Rate control, constant-QP subset — the analogue of
-encoder/ratecontrol.c as x264_tpu/encoder/ratecontrol.py implements it.
+"""Rate control — the analogue of encoder/ratecontrol.c as
+x264_tpu/encoder/ratecontrol.py implements it, for I and P frames.
 
-This slice ports CQP for I and P frames: the frame QP (x264_ratecontrol_start,
-encoder/ratecontrol.c:789, CQP branch), the lowres lookahead and the
-scenecut decision (analyse_frame, x264_tpu ratecontrol.py:185-229), the
-post-frame accounting (x264_ratecontrol_end:1077-1133) and the 2-pass
-stats file write (:1094-1116). CRF / ABR, VBV and 2-pass replay come
-with later slices and raise NotImplementedError.
+This slice ports constant QP, CRF (constant rate factor) and 1-pass ABR
+with overflow compensation, with zones: the qp <-> qscale mapping
+(encoder/ratecontrol.c:148-166), the frame-size predictors (:1265-1278),
+the rate-factor core of get_qscale / rate_estimate_qscale (:1169-1196,
+:1396-1592), the lowres lookahead and the scenecut decision (analyse_frame,
+x264_tpu ratecontrol.py:185-229, whose P cost is the frame complexity CRF
+and ABR read), the post-frame accounting (x264_ratecontrol_end:1077-1133)
+and the 2-pass stats file write (:1094-1116). Every float step is a
+Python double in x264_tpu's order, so the frame QPs are the same. VBV
+(with its row-RC) and 2-pass replay come with later slices and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 
 import torch
 
-from ..params import EncoderParams, RC_CQP
+from ..params import EncoderParams, RC_CQP, RC_CRF
 from . import lookahead
+
+
+def qp2qscale(qp: float) -> float:
+    """encoder/ratecontrol.c:148-152."""
+    return 0.85 * pow(2.0, (qp - 12.0) / 6.0)
+
+
+def qscale2qp(qscale: float) -> float:
+    """encoder/ratecontrol.c:154-158."""
+    return 12.0 + 6.0 * math.log2(qscale / 0.85)
+
+
+class Predictor:
+    """bits ~= coeff * satd / qscale, an exponentially decayed least-squares
+    fit (encoder/ratecontrol.c:1265-1278)."""
+
+    def __init__(self, coeff: float = 0.75):
+        self.coeff = coeff
+        self.count = 1.0
+        self.decay = 0.5
+
+    def predict(self, qscale: float, satd: float) -> float:
+        return self.coeff / self.count * satd / qscale
+
+    def update(self, bits: float, qscale: float, satd: float):
+        if satd <= 0 or bits <= 0:
+            return
+        new_coeff = bits * qscale / satd
+        self.count *= self.decay
+        self.coeff *= self.decay
+        self.count += 1.0
+        self.coeff += new_coeff
 
 
 class RateControlEntry:
@@ -36,27 +74,64 @@ class RateControlEntry:
 
 
 class RateControl:
-    """x264_ratecontrol_new / start / end, constant QP."""
+    """x264_ratecontrol_new / start / end: constant QP, CRF or 1-pass
+    ABR. One instance per encode."""
 
     def __init__(self, params: EncoderParams):
-        if params.rc.i_rc_method != RC_CQP:
+        p, rc = params, params.rc
+        if rc.i_vbv_max_bitrate > 0 or rc.i_vbv_buffer_size > 0:
             raise NotImplementedError(
-                "CRF/ABR rate control (with AQ) comes with a later slice of "
-                "the port; use constant QP")
-        if params.rc.b_stat_read:
-            raise NotImplementedError("2-pass replay comes with a later "
+                "VBV (with its row rate control) comes with the VBV slice "
+                "of the port")
+        if rc.b_stat_read:
+            raise NotImplementedError("2-pass replay comes with the 2-pass "
                                       "slice of the port")
-        self.p = params
-        self.last_qp = params.rc.i_qp_constant
+        self.p = p
+        self.method = rc.i_rc_method
+        self.fps = p.i_fps_num / max(1, p.i_fps_den)
+        self.nmb = p.mb_width * p.mb_height
+        self.qcomp = rc.f_qcompress
+        self.qp_min, self.qp_max = rc.i_qp_min, rc.i_qp_max
+        self.ip_offset = 6.0 * math.log2(rc.f_ip_factor)
+        self.bitrate = rc.i_bitrate * 1000.0
+        self.last_qp = rc.i_qp_constant
+        # ABR / CRF seeds (x264_ratecontrol_new:350-382; ABR_INIT_QP is
+        # rf_constant under CRF, 24 otherwise)
+        self._abr_init_qp = (rc.f_rf_constant if self.method == RC_CRF
+                             else 24.0)
+        self.accum_p_norm = 0.01
+        self.accum_p_qp = self._abr_init_qp * self.accum_p_norm
+        self.cplxr_sum = 0.01 * pow(7.0e5, self.qcomp) * math.sqrt(self.nmb)
+        self.wanted_bits_window = max(self.bitrate / self.fps, 1.0)
+        self.lstep = pow(2.0, rc.i_qp_step / 6.0)
+        self.last_qscale = qp2qscale(self._abr_init_qp)
+        self.last_qscale_for = {t: qp2qscale(self._abr_init_qp)
+                                for t in ("I", "P", "B")}
+        self.last_non_b_type = "P"
         self.last_rceq = 1.0
-        self.last_satd = 0.0
+        # complexity accumulators (rate_estimate_qscale:1443-1450)
+        self.short_term_cplxsum = 0.0
+        self.short_term_cplxcount = 0.0
         self.total_bits = 0
-        self.frame_count = 0
+        self.frame_count = 0      # frames completed (end() calls)
+        self._started = 0
+        # zones (encoder/ratecontrol.c:601-715): (start, end, kind, value),
+        # kind "q" forces the QP, "b" divides the qscale by a factor
+        self.zones: list[tuple] = []
+        # the CRF rate factor (x264_ratecontrol_new:267, CRF branch)
+        base_cplx = self.nmb * (80 if p.i_bframe == 0 else 120)
+        self.rate_factor_constant = (pow(base_cplx, 1.0 - self.qcomp)
+                                     / qp2qscale(rc.f_rf_constant))
+        # cbr_decay (ratecontrol.c:290, 328-329) is 1.0 without VBV
+        self.cbr_decay = 1.0
+        self.pred = {"I": Predictor(), "P": Predictor(), "B": Predictor()}
+        self.last_satd = 0.0
+        self.frame_cplx = 0.0
         self.entries: list[RateControlEntry] = []
-        # lowres state for scenecut (the device lookahead), the range from
-        # the unclamped i_me_range as x264_tpu takes it
+        # lowres state for complexity and scenecut (the device lookahead),
+        # the range from the unclamped i_me_range as x264_tpu takes it
         self._prev_low = None
-        self._lowres_range = max(4, min(12, params.analyse.i_me_range // 2))
+        self._lowres_range = max(4, min(12, p.analyse.i_me_range // 2))
         # host seconds spent waiting for the lookahead's sums
         self.lookahead_wait_s = 0.0
 
@@ -101,29 +176,139 @@ class RateControl:
             if isum > 0 and psum >= (1.0 - bias) * isum:
                 out["scenecut"] = True
         self._prev_low = lows
+        self.frame_cplx = max(out["pcost"], 1.0)
         return out
 
-    def start(self, frame_type: str, frame_idx: int | None = None) -> int:
-        """The frame QP: i_qp_constant for every I and P frame (the
-        reference's CQP with the ip offset kept flat, as x264_tpu keeps
-        it, x264_tpu/encoder/ratecontrol.py:252-264)."""
+    def _get_zone(self, frame_idx: int):
+        """The last zone that covers frame_idx (get_zone,
+        ratecontrol.c:741-752)."""
+        hit = None
+        for z in self.zones:
+            if z[0] <= frame_idx <= z[1]:
+                hit = z
+        return hit
+
+    def start(self, frame_type: str, satd: float | None = None,
+              frame_idx: int | None = None) -> int:
+        """The frame QP (x264_ratecontrol_start:789 and
+        rate_estimate_qscale:1396). frame_type "I" or "P"; satd: the
+        frame's complexity (default: the lookahead's last P cost)."""
         if frame_type not in ("I", "P"):
             raise NotImplementedError(f"{frame_type} frames come with the "
                                       "B slice of the port")
-        qp = max(0, min(51, self.p.rc.i_qp_constant))
+        if frame_idx is None:
+            frame_idx = self._started
+        self._started += 1
+        if satd is None:
+            satd = self.frame_cplx
+        self.last_satd = max(satd, 1.0)
+        zone = self._get_zone(frame_idx)
+
+        if self.method == RC_CQP:
+            # one QP for I and P (x264_tpu keeps the ip offset flat at CQP)
+            qp = self.p.rc.i_qp_constant
+            if zone is not None and zone[2] == "q":
+                qp = max(0, min(51, int(zone[3])))
+            qp = max(0, min(51, qp))
+            self.last_qp = qp
+            return int(qp)
+
+        # blurred complexity (rate_estimate_qscale:1443-1450)
+        self.short_term_cplxsum *= 0.5
+        self.short_term_cplxcount *= 0.5
+        self.short_term_cplxsum += self.last_satd
+        self.short_term_cplxcount += 1.0
+        blurred = self.short_term_cplxsum / self.short_term_cplxcount
+        self.last_rceq = pow(blurred, 1.0 - self.qcomp)
+
+        overflow = 1.0
+        if self.method == RC_CRF:
+            q = self.last_rceq / self.rate_factor_constant
+        else:  # 1-pass ABR (rate_estimate_qscale:1528-1572)
+            q = self.last_rceq / (self.wanted_bits_window / self.cplxr_sum)
+            wanted = self.frame_count * self.bitrate / self.fps
+            if wanted > 0:
+                abr_buffer = 2.0 * self.p.rc.f_rate_tolerance \
+                    * self.bitrate \
+                    * max(1.0, math.sqrt(self.frame_count / 25.0))
+                overflow = min(2.0, max(0.5, 1.0 + (self.total_bits
+                                                    - wanted) / abr_buffer))
+                q *= overflow
+
+        # bitrate-factor zone (get_qscale, ratecontrol.c:1186-1194)
+        if zone is not None and zone[2] == "b":
+            q /= float(zone[3])
+
+        if frame_type == "I" and self.p.i_keyint_max > 1 \
+                and self.last_non_b_type != "I":
+            # I frames track the decayed average P QP / ip_factor
+            # (rate_estimate_qscale:1574-1578)
+            q = qp2qscale(self.accum_p_qp / self.accum_p_norm)
+            q /= abs(self.p.rc.f_ip_factor)
+        elif self.frame_count > 0:
+            # asymmetric clip against the last qscale of the same type
+            # (:1580-1592)
+            lmin_t = self.last_qscale_for[frame_type] / self.lstep
+            lmax_t = self.last_qscale_for[frame_type] * self.lstep
+            if overflow > 1.1 and self.frame_count > 3:
+                lmax_t *= self.lstep
+            elif overflow < 0.9:
+                lmin_t /= self.lstep
+            q = max(lmin_t, min(lmax_t, q))
+        elif self.method == RC_CRF:
+            q = qp2qscale(self._abr_init_qp) / abs(self.p.rc.f_ip_factor)
+
+        # q= zones force the QP outright (zone->b_force_qp)
+        if zone is not None and zone[2] == "q":
+            q = qp2qscale(float(zone[3]))
+
+        q = max(qp2qscale(self.qp_min), min(qp2qscale(self.qp_max), q))
+        self.last_qscale_for[frame_type] = self.last_qscale = q
+        if self.frame_count == 0:
+            self.last_qscale_for["P"] = q
+        qp = int(round(qscale2qp(q)))
+        qp = max(self.qp_min, min(self.qp_max, qp))
         self.last_qp = qp
-        return int(qp)
+        return qp
+
+    def _accum_p_update(self, qp: float, frame_type: str):
+        """accum_p_qp_update (ratecontrol.c:776-786): the decayed average
+        of P-equivalent QPs, the I-frame quant base."""
+        self.accum_p_qp *= 0.95
+        self.accum_p_norm *= 0.95
+        self.accum_p_norm += 1.0
+        self.accum_p_qp += qp + (self.ip_offset if frame_type == "I"
+                                 else 0.0)
 
     def end(self, frame_type: str, bits: int, qp: int, mb_counts=None,
-            header_bits: int = 0):
-        """Post-frame accounting (x264_ratecontrol_end)."""
+            header_bits: int = 0, rceq: float | None = None,
+            satd: float | None = None):
+        """Post-frame accounting (x264_ratecontrol_end:1077-1133):
+        cplxr_sum accumulates bits * qscale / rceq and wanted_bits_window
+        the per-frame target (cbr_decay 1.0 without VBV). rceq / satd: the
+        values of this frame's start(), which the frame pipeline may have
+        overwritten since."""
         self.total_bits += bits
+        qscale = qp2qscale(qp)
+        if rceq is None:
+            rceq = self.last_rceq
+        if satd is None:
+            satd = self.last_satd
+        if self.method != RC_CQP:
+            div = max(rceq, 1e-9)
+            self.cplxr_sum += bits * qscale / div
+            self.cplxr_sum *= self.cbr_decay
+            self.wanted_bits_window += self.bitrate / self.fps
+            self.wanted_bits_window *= self.cbr_decay
+            self._accum_p_update(qp, frame_type)
+        self.last_non_b_type = frame_type
         self.frame_count += 1
+        self.pred[frame_type if frame_type in self.pred else "P"].update(
+            bits, qscale, satd)
         imb, pmb, smb = (int(x) for x in (mb_counts or (0, 0, 0)))
         self.entries.append(RateControlEntry(
             frame_type, tex_bits=bits - header_bits, misc_bits=header_bits,
-            qp=qp, cplx=max(self.last_satd, 1.0), imb=imb, pmb=pmb,
-            smb=smb))
+            qp=qp, cplx=satd, imb=imb, pmb=pmb, smb=smb))
 
     def write_stats(self):
         """Atomic stats-file write (x264_ratecontrol_end:1094-1116 line

@@ -14,9 +14,11 @@ cbf_ctxidxinc:508, block_residual_write_cabac:584).
 Op packing (uint32, carried as int32 bit patterns): kind << 29 | b << 17
 | a (see entropy/cabac.py). The port codes I16x16 + I4x4 + I8x8 MBs, and
 in P slices P_L0 16x16 / 16x8 / 8x16, P_8x8 (L0 8x8 sub-blocks), P_Skip
-and I16x16 MBs with one reference, at one QP, with or without the 8x8
-transform (transform_size_8x8_flag and the cat-5 luma blocks); ref_idx
-and mb_qp_delta values from AQ come with later slices.
+and I16x16 MBs with one reference, with or without the 8x8 transform
+(transform_size_8x8_flag and the cat-5 luma blocks), at one QP (every
+mb_qp_delta 0) or, under variance AQ, with the mb_qp_delta values of
+encoder/aq.py:dqp_syntax (out["dqp"], out["dqp_prev_nz"]); ref_idx comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -119,6 +121,26 @@ def residual_block_ops8(coeffs, coded):
                           op(KIND_LEVEL, (l.abs() - 1).clamp(max=0x1FFFF),
                              l < 0)))
     return torch.stack(slots, 1)
+
+
+def dqp_slots(out: dict, has_dqp, nmb: int) -> list:
+    """mb_qp_delta bins (x264_cabac_mb_qp_delta, encoder/cabac.c:271;
+    x264_tpu cabac_planes._dqp_slots): without out["dqp"] one 0 bin at
+    ctx 60; with it the mapped-unary value (dqp > 0: 2 dqp - 1, else
+    -2 dqp, folded mod 52) at ctxs [60 + c0, 62, 63, 63 ...], c0 the
+    previous MB's nonzero-delta flag. Returns 1 or 4 (nmb,) slot planes."""
+    dqp = out.get("dqp")
+    if dqp is None:
+        return [_sel(has_dqp, op(KIND_DECISION, 60, 0))]
+    d = dqp.reshape(nmb).to(I64)
+    c0 = out["dqp_prev_nz"].reshape(nmb).to(I64)
+    val = torch.where(d > 0, 2 * d - 1, -2 * d)
+    val = torch.where((val >= 51) & (val != 52), 103 - val, val)
+    return [_sel(has_dqp, op(KIND_DECISION, 60 + c0, val > 0)),
+            _sel(has_dqp & (val >= 1), op(KIND_DECISION, 62, val > 1)),
+            _sel(has_dqp & (val >= 3),
+                 op(KIND_ONES, 63, (val - 2).clamp(0, 4095))),
+            _sel(has_dqp & (val >= 2), op(KIND_DECISION, 63, 0))]
 
 
 def _nbr_grids(flag_map, unavail: int):
@@ -253,10 +275,9 @@ def i16_slice_ops(out: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
     h2.append(_sel(i4f, op(KIND_DECISION, c0.reshape(nmb), cbp_chroma > 0)))
     h2.append(_sel(i4f & (cbp_chroma > 0),
                    op(KIND_DECISION, c1.reshape(nmb), cbp_chroma == 2)))
-    # mb_qp_delta = 0 (one QP per slice; x264_cabac_mb_qp_delta,
-    # encoder/cabac.c:271)
+    # mb_qp_delta (x264_cabac_mb_qp_delta, encoder/cabac.c:271)
     has_dqp = ~i4f | (cbp_lf > 0) | (cbp_chroma > 0)
-    h2.append(_sel(has_dqp, op(KIND_DECISION, 60, 0)))
+    h2.extend(dqp_slots(out, has_dqp, nmb))
     header2 = torch.stack(h2, 1)
 
     # coded_block_flag neighbour contexts (cbf_ctxidxinc,
@@ -510,9 +531,9 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
         t8l, t8t = _nbr_grids(t8_g.to(I64), 0)
         slots.append(_sel(inter_f & (cbp_lf > 0),
                           dec((399 + t8l + t8t).reshape(nmb), t8_f)))
-    # mb_qp_delta = 0 (one QP per slice)
+    # mb_qp_delta
     has_dqp = coded & (intra_f | (cbp_lf > 0) | (cbp_cf > 0))
-    slots.append(_sel(has_dqp, dec(60, 0)))
+    slots.extend(dqp_slots(out, has_dqp, nmb))
     header = torch.stack(slots, 1)
 
     # residual cbf contexts (cbf_ctxidxinc, encoder/cabac.c:508)
@@ -574,7 +595,9 @@ def i_slice_ops(out: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
 
     Replaces x264_tpu/entropy/cabac_planes.py:i16_slice_ops followed by
     compact_ops (t8_mode: the transform flag of I_NxN MBs; `out` holds
-    t8_mb / luma8_z where I8x8 ran). On CUDA tensors it runs
+    t8_mb / luma8_z where I8x8 ran, and under variance AQ K17's dqp and
+    dqp_prev_nz planes, whose mb_qp_delta bins the MBs then carry). On
+    CUDA tensors it runs
     csrc/cabac_ops.cu's three kernels: one thread per MB emits the MB's
     live ops and counts them, one CTA scans the counts, and a scatter
     packs the dense stream. Returns (ops int32 (capacity,), n_ops int32
@@ -597,37 +620,55 @@ def i_slice_ops(out: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
     if i8:
         shapes.update(t8_mb=((mb_h, mb_w), torch.bool),
                       luma8_z=((mb_h, mb_w, 4, 64), I32))
+    aq = "dqp" in out
+    if aq:
+        shapes.update(dqp=((mb_h, mb_w), I32),
+                      dqp_prev_nz=((mb_h, mb_w), torch.bool))
     for k, (shape, dt) in shapes.items():
         cuda.check(out[k], shape, dt, k)
-    ptrs = [out[k].data_ptr() for k in shapes]
-    if not i8:
-        ptrs += [0, 0]
+    ptr = lambda k: out[k].data_ptr() if k in shapes else 0
+    ptrs = [ptr(k) for k in (*list(shapes)[:9], "t8_mb", "luma8_z", "dqp",
+                             "dqp_prev_nz")]
     scratch = torch.empty(nmb * OPS_PER_MB, dtype=I32, device=dev)
     counts = torch.empty(nmb, dtype=I32, device=dev)
     offsets = torch.empty(nmb + 1, dtype=I32, device=dev)
     ops = torch.empty(capacity(nmb), dtype=I32, device=dev)
-    cuda.launch("cabac_ops", "cabac_i_ops", "p" * 15 + "iii" + "p",
+    cuda.launch("cabac_ops", "cabac_i_ops", "p" * 17 + "iii" + "p",
                 *ptrs, scratch.data_ptr(), counts.data_ptr(),
                 offsets.data_ptr(), ops.data_ptr(), mb_h, mb_w, int(t8_mode),
                 cuda.stream(dev))
     i_slice_ops.launches += 3          # emit, scan, scatter
     i_slice_ops.launches_t8 += 3 * int(t8_mode)
+    i_slice_ops.launches_aq += 3 * int(aq)
     return ops, offsets[nmb]
 
 
-# launches, and those of them in t8_mode
-i_slice_ops.launches = i_slice_ops.launches_t8 = 0
+# launches, and those of them in t8_mode and with mb_qp_delta planes
+i_slice_ops.launches = i_slice_ops.launches_t8 = i_slice_ops.launches_aq = 0
 
 
 # ---------------------------------------------------------------- K8
+def has_dqp_p(maps: dict, front: dict):
+    """The P MBs that code mb_qp_delta: not skipped, and intra or with
+    coded luma or chroma (x264_tpu pipeline.encode_p_cabac)."""
+    return ~maps["skip"] & (front["intra_mb"] | (front["cbp_luma_bits"] > 0)
+                            | (front["cbp_chroma"] > 0))
+
+
 def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int,
-                      t8_mode: bool = False):
+                      t8_mode: bool = False, aq=None):
     """Plain version of K8: the syntax maps of encoder/inter.py's
-    p_maps_plain, then compact_ops(p_slice_ops(...)). Returns (maps,
-    ops, n_ops) with maps = dict(mv, mvd, mvd1, ptype, mv_sub, mvd_sub,
-    mvd4, skip, nnz4, ref4, mv4, and t8_mb with t8_mode)."""
+    p_maps_plain, under variance AQ (aq = (qp_map, slice_qp)) the dqp
+    planes of encoder/aq.py:dqp_syntax, then compact_ops(p_slice_ops(...)).
+    Returns (maps, ops, n_ops) with maps = dict(mv, mvd, mvd1, ptype,
+    mv_sub, mvd_sub, mvd4, skip, nnz4, ref4, mv4, t8_mb with t8_mode, and
+    with aq dqp, dqp_prev_nz and qp_eff, the QPs the MBs decode with)."""
     from ..encoder.inter import p_maps_plain
     maps = p_maps_plain(front, mb_h, mb_w)
+    if aq is not None:
+        from ..encoder.aq import dqp_syntax_plain
+        maps["dqp"], maps["qp_eff"], maps["dqp_prev_nz"] = dqp_syntax_plain(
+            aq[0], has_dqp_p(maps, front), aq[1])
     ops, n = compact_ops(p_slice_ops({**front, **maps}, mb_h, mb_w,
                                      t8_mode=t8_mode),
                          capacity(mb_h * mb_w))
@@ -635,7 +676,7 @@ def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int,
 
 
 def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
-                t8_mode: bool = False):
+                t8_mode: bool = False, aq=None):
     """K8 `cabac_p_ops`: stage 4 of the P encode and the compacted CABAC
     op stream of the P slice.
 
@@ -645,7 +686,9 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     the 8x8 nnz cells) and x264_tpu/entropy/cabac_planes.py:p_slice_ops
     followed by compact_ops. `front` holds the merged planes of
     encoder/inter.py:encode_p_front (with t8_sel and luma8_z where
-    t8_mode). On CUDA tensors it runs csrc/cabac_ops.cu: pass A (one
+    t8_mode). aq = (qp_map, slice_qp) under variance AQ: K17 runs between
+    the passes on the skip flags pass A found, and the MBs carry their
+    mb_qp_delta. On CUDA tensors it runs csrc/cabac_ops.cu: pass A (one
     thread per MB: the MV prediction of every partition, skip, the mvds,
     t8_mb and the 4x4 maps), pass B (one thread per MB emits its live
     ops), then K3's exclusive scan and scatter; on CPU tensors the plain
@@ -656,7 +699,7 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
             "multiple references in P slices come with a later slice of "
             "the port")
     if front["intra_mb"].device.type == "cpu":
-        return cabac_p_ops_plain(front, mb_h, mb_w, t8_mode)
+        return cabac_p_ops_plain(front, mb_h, mb_w, t8_mode, aq)
     dev = front["intra_mb"].device
     nmb = mb_h * mb_w
     shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
@@ -675,9 +718,7 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                       luma8_z=((mb_h, mb_w, 4, 64), I32))
     for k, (shape, dt) in shapes.items():
         cuda.check(front[k], shape, dt, k)
-    ins = [front[k].data_ptr() for k in shapes]
-    if not t8_mode:
-        ins += [0, 0]
+    fp = lambda k: front[k].data_ptr() if k in shapes else 0
     e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
     maps = dict(skip=e(mb_h, mb_w, dt=torch.bool), mv=e(mb_h, mb_w, 2),
                 mvd=e(mb_h, mb_w, 2), mvd1=e(mb_h, mb_w, 2),
@@ -687,20 +728,38 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                 mv4=e(mb_h * 4, mb_w * 4, 2))
     if t8_mode:
         maps["t8_mb"] = e(mb_h, mb_w, dt=torch.bool)
-    outs = [maps[k].data_ptr() for k in maps]
-    if not t8_mode:
-        outs.append(0)
+    mp = lambda k: maps[k].data_ptr() if k in maps else 0
+    stream = cuda.stream(dev)
+    cuda.launch("cabac_ops", "cabac_p_maps", "p" * 21 + "ii" + "p",
+                *[fp(k) for k in ("intra_mb", "me_mv", "ptype", "mv_quad",
+                                  "cbp_luma_bits", "cbp_chroma",
+                                  "luma_blocks", "t8_sel", "luma8_z")],
+                *[mp(k) for k in ("skip", "mv", "mvd", "mvd1", "ptype",
+                                  "mv_sub", "mvd_sub", "mvd4", "nnz4",
+                                  "ref4", "mv4", "t8_mb")],
+                mb_h, mb_w, stream)
+    if aq is not None:
+        from ..encoder.aq import dqp_syntax
+        maps["dqp"], maps["qp_eff"], maps["dqp_prev_nz"] = dqp_syntax(
+            aq[0], has_dqp_p(maps, front), aq[1])
     scratch = e(nmb * OPS_PER_MB)
     counts, offsets = e(nmb), e(nmb + 1)
     ops = e(capacity(nmb))
-    cuda.launch("cabac_ops", "cabac_p_ops", "p" * 30 + "iii" + "p",
-                *ins, *outs, scratch.data_ptr(), counts.data_ptr(),
-                offsets.data_ptr(), ops.data_ptr(), mb_h, mb_w, int(t8_mode),
-                cuda.stream(dev))
+    cuda.launch("cabac_ops", "cabac_p_emit", "p" * 24 + "iii" + "p",
+                fp("intra_mb"), mp("skip"), mp("ptype"),
+                *[fp(k) for k in ("mode16", "modec", "cbp_luma_bits",
+                                  "cbp_chroma", "luma_dc", "luma_blocks",
+                                  "chroma_dc", "chroma_ac")],
+                *[mp(k) for k in ("mvd", "mvd1", "mvd_sub", "mvd4", "nnz4",
+                                  "t8_mb")],
+                fp("luma8_z"), mp("dqp"), mp("dqp_prev_nz"),
+                scratch.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+                ops.data_ptr(), mb_h, mb_w, int(t8_mode), stream)
     cabac_p_ops.launches += 4          # pass A, pass B, scan, scatter
     cabac_p_ops.launches_t8 += 4 * int(t8_mode)
+    cabac_p_ops.launches_aq += 4 * int(aq is not None)
     return maps, ops, offsets[nmb]
 
 
-# launches, and those of them in t8_mode
-cabac_p_ops.launches = cabac_p_ops.launches_t8 = 0
+# launches, and those of them in t8_mode and with mb_qp_delta planes
+cabac_p_ops.launches = cabac_p_ops.launches_t8 = cabac_p_ops.launches_aq = 0
