@@ -70,6 +70,20 @@ Phases; any failure exits non-zero before the result line:
      the median encode(), the bytes of the IDRs and P frames, PSNR /
      SSIM, the frame QPs, the share of MBs with a nonzero delta, the
      profiler's device split (K16 and K17 in it) and the idle share.
+ 10. bench.py's all-intra CAVLC line (bench.py:247-252): five 1920x1080
+     frames, keyint 1, CQP 26, b_cabac off, deblocking, i_frame_parallel
+     3, nothing else set. K1, K18, K2 and K4 must launch and no other
+     kernel, frame 0's payload and recon must equal the CPU run's; the
+     phase reports fps, the median encode(), bytes a frame, PSNR / SSIM,
+     the d2h of the word buffer, the profiler's split and the idle share.
+ 11. x264_tpu's defaults with b_cabac off (CRF 23 with variance AQ,
+     subme 6 with psy-RD, scenecut 40, keyint 250, ref 1, no 8x8dct),
+     on phase 7's 32 frames. Every kernel but CABAC's and the 8x8 ones
+     must launch (K16-K19 and K8's pass A alone among them), frames 0-1
+     must equal a CPU run at the same pipe depth, the IDRs must fall at
+     frames 0 and 26 only, and some MBs must code a nonzero
+     mb_qp_delta; the phase reports as phase 9, the K18 / K19 device
+     time in the profiler's split.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
@@ -82,10 +96,18 @@ version over every float32 in [1, 2^23), K17 on seeded maps, K1 + K17 +
 K3 + K2 with a QP map on frame 0 (with I8x8), and K6 / K7 / K8 (with K17
 between its passes) / K2 with a QP map on frame 1 against frame 0's
 recon and against the 30%-gray reference (subme 6 with the 8x8
-transform). The line before the last is the JSON `kernels` record (the
-8x8 and AQ variants as records of their own, each counting the launches
-that took its branch; `launches` is phase 9's count, the other phases'
-beside it); the last line is
+transform); and CAVLC: K18 exact (words and nbits) on frame 0's K1
+planes at QP 26, at QP 4 on the half-flat frame (long level escapes),
+with frame 0's QP map and K17's dqp, and with a capacity that drops
+codes; K8's pass A alone and K19 on frame 1 against frame 0's recon, the
+partition reference, a reference with 30% of its 64x64 tiles gray and
+30% copied from frame 1 (intra MBs, skip runs) and with frame 1's QP
+map, and K19 with a capacity that drops codes. The line before the last
+is the JSON `kernels` record (the 8x8, AQ and CAVLC variants as records
+of their own, each counting the launches that took its branch;
+`launches` is the count of the kernel's own main path, phase 11 for
+K18, K19 and K8's pass A alone, phase 9 for the others, the other
+phases' beside it); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
 
@@ -112,7 +134,11 @@ N_CHECK_EARLY = 2              # frames of phases 5, 6, 8 and 9 held against
                                # the CPU (IDR, P)
 N_CHECK_RD = 1                 # and of phase 7 (its IDR; phases 8 and 9
                                # check the subme-6 P frame)
-N_DEFAULTS = 32                # frames of x264_tpu's defaults (phase 9)
+N_DEFAULTS = 32                # frames of x264_tpu's defaults (phases 9
+                               # and 11)
+N_INTRA_CAVLC = 5              # frames of bench.py's all-intra CAVLC line
+                               # (phase 10)
+N_CHECK_CAVLC = 1              # frames of phase 11 held against the CPU
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
@@ -174,6 +200,10 @@ K15_OPS_PER_BLOCK = 12 * 520 + 2_000
 # per MB: the run's max, the scan's share and the three outputs
 K16_OPS_PER_MB = 384 * 4 + 8 * 5 * 32 + 60
 K17_OPS_PER_MB = 16
+# K18 / K19 per MB: both passes scan the MB's 408 levels (~6 ops each),
+# the count grids another 400, and each live code costs ~20 ops a pass
+K18_OPS_PER_MB = 2 * 408 * 6 + 400
+K18_OPS_PER_BIT = 2 * 20 // 4
 
 
 T0 = time.perf_counter()
@@ -265,6 +295,25 @@ def bench_params(EncoderParams, frame_parallel: int = 3):
     p.rc.i_rc_method = 0            # CQP
     p.rc.i_qp_constant = QP
     return p
+
+
+def cavlc_intra_params(EncoderParams, frame_parallel: int = 3):
+    """bench.py's all-intra CAVLC line (bench.py:247-252, run_encoder):
+    keyint 1, CQP 26, CAVLC, deblocking, nothing else set."""
+    p = EncoderParams(i_width=W, i_height=H, b_cabac=False,
+                      b_deblocking_filter=True, i_log_level=0,
+                      i_keyint_max=1, i_frame_parallel=frame_parallel)
+    p.rc.i_rc_method = 0            # CQP
+    p.rc.i_qp_constant = QP
+    return p
+
+
+def cavlc_defaults_params(EncoderParams, frame_parallel: int = 3):
+    """x264_tpu's own defaults with b_cabac off (CRF 23 with variance AQ,
+    keyint 250, subme 6 with psy-RD, scenecut 40, ref 1, no B frames;
+    validate() turns 8x8dct and I8x8 off without CABAC)."""
+    return EncoderParams(i_width=W, i_height=H, b_cabac=False,
+                         i_log_level=0, i_frame_parallel=frame_parallel)
 
 
 def params(EncoderParams, frame_parallel: int, keyint: int = 1,
@@ -423,8 +472,9 @@ def partition_warp(ref, mb_h: int, mb_w: int, seed: int = 1):
 # kernel name fragment -> the port's kernel it belongs to (device time
 # of everything else is PyTorch's own glue: padding, copies, merges)
 KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
-                 ("p_emit_kernel", "K8"), ("p_maps_kernel", "K8"),
-                 ("emit_kernel", "K3"), ("scan_kernel", "K3/K8 scan"),
+                 ("p_emit_kernel", "K8"), ("p_maps_kernel", "K8 pass A"),
+                 ("emit_kernel", "K3"),
+                 ("scan_kernel", "K3/K8/K18/K19 scan"),
                  ("scatter_kernel", "K3/K8 scatter"), ("ssd_kernel", "K4"),
                  ("ssim_kernel", "K4"), ("reduce_kernel", "K4"),
                  ("half_kernel", "K5"), ("search_kernel", "K5"),
@@ -433,7 +483,10 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("subpel_kernel", "K10"), ("part_kernel", "K11"),
                  ("rerank_kernel", "K12"), ("rd_inter_kernel", "K13"),
                  ("lowres_kernel", "K14"), ("cost_kernel", "K15"),
-                 ("aq_qp_kernel", "K16"), ("dqp_kernel", "K17"))
+                 ("aq_qp_kernel", "K16"), ("dqp_kernel", "K17"),
+                 ("i_counts_kernel", "K18"), ("i_bits_kernel", "K18"),
+                 ("i_write_kernel", "K18"), ("p_counts_kernel", "K19"),
+                 ("p_bits_kernel", "K19"), ("p_write_kernel", "K19"))
 
 
 def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
@@ -487,7 +540,8 @@ def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
 
 def ippp_report(done, summary, st, fps, med, n: int, subme: int,
                 smi_line: str, nmb: int, extra: str = "",
-                idrs=(0,), rc: str = f"CQP {QP}") -> None:
+                idrs=(0,), rc: str = f"CQP {QP}",
+                entropy: str = "CABAC") -> None:
     """Check an IPPP run's frame types (IDRs at `idrs` only) and print its
     end-to-end line; rc: the rate control's name."""
     types = [e.frame_type for e in done]
@@ -498,7 +552,7 @@ def ippp_report(done, summary, st, fps, med, n: int, subme: int,
     p_intra = (st.mb_intra - len(idrs) * nmb) / n_p
     p_skip = st.mb_skip / n_p
     print(f"IPPP path: {n} frames {W}x{H} keyint 250 subme {subme} ref 1 "
-          f"{rc} CABAC, {fps:.3f} fps, median encode() {med:.1f} ms, "
+          f"{rc} {entropy}, {fps:.3f} fps, median encode() {med:.1f} ms, "
           f"IDR {len(done[0].payload)} bytes, P {statistics.mean(p_bytes):.0f}"
           f" bytes/frame (min {min(p_bytes)}, max {max(p_bytes)}; frames "
           f"1-7 {statistics.mean(p_bytes[:7]):.0f}), per P "
@@ -520,6 +574,9 @@ def main() -> None:
     from x264_tpu_torch.entropy import cabac as ecabac
     from x264_tpu_torch.entropy import cabac_planes
     from x264_tpu_torch.entropy import cabac_tables as ctab
+    from x264_tpu_torch.entropy import device as cavlc
+    from x264_tpu_torch.entropy.bitstream import BitWriter
+    from x264_tpu_torch.headers import SLICE_I, SLICE_P, SliceHeader
     from x264_tpu_torch.ops import deblock, mc, me
 
     # ---------------------------------------------------------- 1. card
@@ -1485,6 +1542,182 @@ def main() -> None:
                K3_OPS_PER_OP * n_opsa + K3_OPS_PER_MB * nmb
                + K17_OPS_PER_MB * nmb)
 
+    # ------------------------------------------------------------ CAVLC
+    stamp("phase 3: CAVLC's kernels")
+    cap = pipeline.capacity_words(nmb)
+
+    def slots(slice_type):
+        bw = BitWriter()
+        SliceHeader(slice_type=slice_type, idr_pic_id=0 if slice_type ==
+                    SLICE_I else -1, qp=QP, disable_deblock=0).write_rbsp(
+            bw, 3 if slice_type == SLICE_I else 2)
+        return cavlc.header_slots(bw)
+
+    hdr_i, hdr_p = slots(SLICE_I), slots(SLICE_P)
+    cav_ms = {}
+
+    def same_words(name, k, p, caps=cap):
+        """K18 / K19 against the plain version: nbits and every word."""
+        (kw, kn), (pw, pn) = k, p
+        if int(kn) != int(pn) or not torch.equal(kw, pw):
+            fail(f"{name} differs from its plain version ({int(kn)} bits "
+                 f"against {int(pn)})")
+        print(f"{name}: exact, {int(pn)} bits"
+              + (f" ({int(pn) - 32 * caps} past the capacity, dropped)"
+                 if int(pn) > 32 * caps else ""), flush=True)
+        return int(pn)
+
+    # K18 on frame 0's K1 output at QP 26, then at QP 4 on the half-flat
+    # frame (long level escapes), with an AQ map and K17's dqp, and with
+    # a capacity that drops codes
+    a18 = (k1, mb_h, mb_w, *hdr_i, cap)
+    bits18 = same_words("K18 cavlc_i_slice (frame 0, QP 26)",
+                        cavlc.cavlc_i_slice(*a18),
+                        cavlc.cavlc_i_slice_plain(*a18))
+    cav_ms.update(k18=event_ms(lambda: cavlc.cavlc_i_slice(*a18), 20),
+                  pl18=event_ms(lambda: cavlc.cavlc_i_slice_plain(*a18), 1))
+    keys18 = ("mode16", "modec", "i4_mb", "i4_modes", "cbp_luma_bits",
+              "luma_dc", "luma_ac", "chroma_dc", "chroma_ac")
+    record("cavlc_i_slice", "cuda", "x264_tpu_torch/csrc/cavlc.cu",
+           "x264_tpu/entropy/device.py:246", 0, cav_ms["k18"],
+           cav_ms["pl18"], nbytes(*(k1[k] for k in keys18))
+           + (bits18 + 31) // 32 * 4 + 4,
+           K18_OPS_PER_MB * nmb + K18_OPS_PER_BIT * bits18)
+    qtab4 = intra.make_qtab(4, tables.chroma_qp(4, 0), dev)
+    k1q4 = intra.encode_i16_frame(mb_h, mb_w, yh, uh, vh, qtab4,
+                                  int(tables.LAMBDA_TABLE[4]))
+    same_words("K18 cavlc_i_slice (half-flat frame, QP 4)",
+               cavlc.cavlc_i_slice(k1q4, mb_h, mb_w, *hdr_i, cap),
+               cavlc.cavlc_i_slice_plain(k1q4, mb_h, mb_w, *hdr_i, cap))
+    longest = int(cavlc.i16_code_planes(k1q4, mb_h, mb_w)[1].max())
+    if longest < 28:
+        fail(f"QP 4 on the half-flat frame coded no long level escape "
+             f"(longest code {longest} bits)")
+    print(f"K18 at QP 4: the longest code is {longest} bits", flush=True)
+    k1n = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab_aq, lam, False,
+                                 qm0)
+    cnz = (k1n["chroma_ac"][..., 1:] != 0).flatten(2).any(-1) \
+        | (k1n["chroma_dc"] != 0).flatten(2).any(-1)
+    k1n["dqp"] = aq.dqp_syntax(qm0, ~k1n["i4_mb"]
+                               | (k1n["cbp_luma_bits"] > 0) | cnz, QP)[0]
+    a18a = (k1n, mb_h, mb_w, *hdr_i, cap)
+    bits18a = same_words("K18 cavlc_i_slice with dqp (frame 0's QP map)",
+                         cavlc.cavlc_i_slice(*a18a),
+                         cavlc.cavlc_i_slice_plain(*a18a))
+    cav_ms.update(k18a=event_ms(lambda: cavlc.cavlc_i_slice(*a18a), 20),
+                  pl18a=event_ms(lambda: cavlc.cavlc_i_slice_plain(*a18a),
+                                 1))
+    record("cavlc_i_slice_aq", "cuda", "x264_tpu_torch/csrc/cavlc.cu",
+           "x264_tpu/entropy/device.py:339", 0, cav_ms["k18a"],
+           cav_ms["pl18a"], nbytes(*(k1n[k] for k in keys18 + ("dqp",)))
+           + (bits18a + 31) // 32 * 4 + 4,
+           K18_OPS_PER_MB * nmb + K18_OPS_PER_BIT * bits18a)
+    small = bits18 // 64
+    same_words("K18 cavlc_i_slice (frame 0, half the bits' capacity)",
+               cavlc.cavlc_i_slice(k1, mb_h, mb_w, *hdr_i, small),
+               cavlc.cavlc_i_slice_plain(k1, mb_h, mb_w, *hdr_i, small),
+               small)
+    # the d2h of the whole word buffer into pinned memory, as Encoder
+    # copies it per frame
+    words_k = cavlc.cavlc_i_slice(*a18)[0]
+    words_h = torch.empty(words_k.shape, dtype=torch.int32, pin_memory=True)
+    cav_ms["d2h"] = event_ms(lambda: words_h.copy_(words_k,
+                                                   non_blocking=True), 5)
+    print(f"d2h of the CAVLC word buffer ({nbytes(words_k)} bytes): "
+          f"{cav_ms['d2h']:.3f} ms", flush=True)
+
+    # K8's pass A alone and K19: frame 1 against frame 0's recon (subme 5),
+    # the partition reference (every ptype), a reference with 30% of its
+    # 64x64 tiles gray (intra MBs) and 30% copied from frame 1 itself (runs
+    # of skip MBs), and under AQ (subme 6, frame 1's QP map)
+    copy = np.random.default_rng(19).random(((mb_h + 3) // 4,
+                                             (mb_w + 3) // 4)) < 0.3
+    copy = torch.as_tensor(copy.repeat(4, 0).repeat(4, 1)[:mb_h, :mb_w],
+                           device=dev) & ~gray
+    gray_copy = tuple(torch.where(copy.repeat_interleave(n, 0)
+                                  .repeat_interleave(n, 1), f, t)
+                      for t, f, n in zip(mixed, (y1, u1, v1), (16, 8, 8)))
+    fronts = {"frame 1 on frame 0": front_c,
+              "the partition reference": front5,
+              "the gray / copied reference": inter.encode_p_front(
+                  mb_h, mb_w, me_range, y1, u1, v1, *gray_copy, qtab_p, lam,
+                  mvp0, True, (2, 1), True, True, True),
+              "frame 1's QP map": inter.encode_p_front(
+                  mb_h, mb_w, me_range, y1, u1, v1, ry, ru, rv, qtab_rd_aq,
+                  lam, mvp0, True, (2, 1), True, True, True, True, False,
+                  qm1)}
+    keys19 = ("intra_mb", "mode16", "modec", "cbp_luma_bits", "cbp_chroma",
+              "luma_dc", "luma_blocks", "chroma_dc", "chroma_ac")
+    for tag, fr in fronts.items():
+        pm = cabac_planes.p_maps(fr, mb_h, mb_w)
+        exact(f"K8 pass A alone ({tag})", pm, inter.p_maps_plain(fr, mb_h,
+                                                                 mb_w))
+        if tag == "frame 1's QP map":
+            pm["dqp"] = aq.dqp_syntax(qm1, cabac_planes.has_dqp_p(pm, fr),
+                                      QP)[0]
+        a19 = (fr, pm, mb_h, mb_w, *hdr_p, cap)
+        bits19 = same_words(f"K19 cavlc_p_slice ({tag})",
+                            cavlc.cavlc_p_slice(*a19),
+                            cavlc.cavlc_p_slice_plain(*a19))
+        skip = pm["skip"].reshape(-1).cpu().numpy()
+        runs = np.diff(np.flatnonzero(np.concatenate([[1], ~skip, [1]]))) - 1
+        pt = torch.bincount(pm["ptype"][~fr["intra_mb"] & ~pm["skip"]],
+                            minlength=4).tolist()
+        print(f"K19 ({tag}): {int(fr['intra_mb'].sum())} intra, "
+              f"{int(skip.sum())} skip MBs (longest run {int(runs.max())}), "
+              f"coded ptypes {pt}", flush=True)
+        if tag == "the partition reference" and min(pt) == 0:
+            fail(f"K19 on the partition reference saw ptypes {pt}")
+        if tag.startswith("the gray") and (int(fr["intra_mb"].sum()) == 0
+                                           or int(runs.max()) < 4):
+            fail("the gray / copied reference gave no intra MBs or no skip "
+                 "run of 4")
+        if tag == "frame 1 on frame 0":
+            cav_ms.update(
+                k19=event_ms(lambda: cavlc.cavlc_p_slice(*a19), 20),
+                pl19=event_ms(lambda: cavlc.cavlc_p_slice_plain(*a19), 1),
+                kpa=event_ms(lambda: cabac_planes.p_maps(fr, mb_h, mb_w),
+                             20),
+                plpa=event_ms(lambda: inter.p_maps_plain(fr, mb_h, mb_w),
+                              1))
+            record("cavlc_p_slice", "cuda", "x264_tpu_torch/csrc/cavlc.cu",
+                   "x264_tpu/entropy/device.py:379", 0, cav_ms["k19"],
+                   cav_ms["pl19"], nbytes(*(fr[k] for k in keys19), *(
+                       pm[k] for k in ("skip", "ptype", "mvd", "mvd1",
+                                       "mvd_sub")))
+                   + (bits19 + 31) // 32 * 4 + 4,
+                   K18_OPS_PER_MB * nmb + K18_OPS_PER_BIT * bits19)
+            record("p_maps", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+                   "x264_tpu/encoder/inter.py:733", 0, cav_ms["kpa"],
+                   cav_ms["plpa"], nbytes(*(fr[k] for k in (
+                       "intra_mb", "me_mv", "ptype", "mv_quad",
+                       "cbp_luma_bits", "cbp_chroma", "luma_blocks")),
+                       *pm.values()), K3_OPS_PER_MB * nmb)
+            small19 = bits19 // 64
+            same_words(f"K19 cavlc_p_slice ({tag}, half the bits' capacity)",
+                       cavlc.cavlc_p_slice(fr, pm, mb_h, mb_w, *hdr_p,
+                                           small19),
+                       cavlc.cavlc_p_slice_plain(fr, pm, mb_h, mb_w, *hdr_p,
+                                                 small19), small19)
+        if tag == "frame 1's QP map":
+            if int((pm["dqp"] != 0).sum()) == 0:
+                fail("no P MB coded a nonzero mb_qp_delta under K19")
+            cav_ms.update(
+                k19a=event_ms(lambda: cavlc.cavlc_p_slice(*a19), 20),
+                pl19a=event_ms(lambda: cavlc.cavlc_p_slice_plain(*a19), 1))
+            record("cavlc_p_slice_aq", "cuda", "x264_tpu_torch/csrc/cavlc.cu",
+                   "x264_tpu/entropy/device.py:528", 0, cav_ms["k19a"],
+                   cav_ms["pl19a"], nbytes(*(fr[k] for k in keys19), *(
+                       pm[k] for k in ("skip", "ptype", "mvd", "mvd1",
+                                       "mvd_sub", "dqp")))
+                   + (bits19 + 31) // 32 * 4 + 4,
+                   K18_OPS_PER_MB * nmb + K18_OPS_PER_BIT * bits19)
+    print(f"CAVLC kernels: K18 {cav_ms['k18']:.3f} ms (plain "
+          f"{cav_ms['pl18']:.3f}), with dqp {cav_ms['k18a']:.3f}; K19 "
+          f"{cav_ms['k19']:.3f} ms (plain {cav_ms['pl19']:.3f}), with dqp "
+          f"{cav_ms['k19a']:.3f}; K8 pass A alone {cav_ms['kpa']:.3f} ms "
+          f"[{smi_line}]", flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -1501,10 +1734,18 @@ def main() -> None:
                 "lowres_planes": lookahead.lowres_planes,
                 "lowres_cost": lookahead.lowres_cost,
                 "aq_qp_map": aq.qp_map_from_planes,
-                "dqp_syntax": aq.dqp_syntax}
+                "dqp_syntax": aq.dqp_syntax,
+                "cavlc_i_slice": cavlc.cavlc_i_slice,
+                "cavlc_p_slice": cavlc.cavlc_p_slice,
+                "p_maps": cabac_planes.p_maps}
     # the kernels and branches of variance AQ, idle at constant QP
     aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
                "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
+    # the kernels of CAVLC, idle under CABAC, and those of CABAC, idle
+    # under CAVLC
+    cavlc_only = ("cavlc_i_slice", "cavlc_p_slice", "p_maps",
+                  "cavlc_i_slice_aq", "cavlc_p_slice_aq")
+    cabac_only = tuple(k for k in rec if k.startswith("cabac_"))
     # the 8x8 variants: the wrapper and its count of the launches that
     # took the variant's branch
     variants = {"intra_diag_i8x8": (intra.encode_i16_frame, "launches_i8x8"),
@@ -1518,15 +1759,17 @@ def main() -> None:
                 "cabac_i_ops_aq": (cabac_planes.i_slice_ops, "launches_aq"),
                 "p_inter_mb_aq": (inter.p_inter_mb, "launches_aq"),
                 "intra_in_p_aq": (inter.intra_in_p, "launches_aq"),
-                "cabac_p_ops_aq": (cabac_planes.cabac_p_ops, "launches_aq")}
+                "cabac_p_ops_aq": (cabac_planes.cabac_p_ops, "launches_aq"),
+                "cavlc_i_slice_aq": (cavlc.cavlc_i_slice, "launches_aq"),
+                "cavlc_p_slice_aq": (cavlc.cavlc_p_slice, "launches_aq")}
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
                   scenecut: int = 0, src=None, make=None):
         """Encoder on the first n frames of src (make_frames' by default)
         at 1080p, the launch counts set to 0 just before and read just
-        after (the 8x8 and AQ variants' among them, which must stay 0
-        without make, whose parameters turn the 8x8 transform off at
-        constant QP); make: as in same_as_cpu. Returns (frames, summary,
+        after (the 8x8, AQ and CAVLC variants' among them, which must stay
+        0 without make, whose parameters turn the 8x8 transform off at
+        constant QP under CABAC); make: as in same_as_cpu. Returns (frames, summary,
         launches, header, fps, median encode() ms, the encoder)."""
         enc = x264_tpu_torch.Encoder(
             make(x264_tpu_torch.EncoderParams, 3) if make else
@@ -1540,9 +1783,10 @@ def main() -> None:
         launches = {k: w.launches for k, w in wrappers.items()}
         launches.update({k: getattr(w, count)
                          for k, (w, count) in variants.items()})
-        if make is None and any(launches[k] for k in (*variants, *aq_only)):
-            fail(f"{what}: an 8x8 or AQ branch ran without the 8x8 "
-                 f"transform or variance AQ")
+        if make is None and any(launches[k] for k in (*variants, *aq_only,
+                                                      *cavlc_only)):
+            fail(f"{what}: an 8x8, AQ or CAVLC branch ran without the 8x8 "
+                 f"transform, variance AQ or CAVLC")
         summary = enc.close()
         if len(done) != n:
             fail(f"{what}: {len(done)} frames came out of {n}")
@@ -1673,7 +1917,8 @@ def main() -> None:
     # subme 6 takes the RD transform choice: the SA8D branch stays idle,
     # and so do variance AQ's kernels and branches at constant QP
     for k, n in launches_8.items():
-        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in aq_only):
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in aq_only
+                        or k in cavlc_only):
             fail(f"kernel {k} was launched {n} times on the {what8}")
     if any(t is None for v in t8_seen.values() for t in v):
         fail(f"{what8}: a frame ran without the 8x8 transform")
@@ -1700,15 +1945,15 @@ def main() -> None:
     encode_idr, encode_p = pipeline.encode_i16_idr_cabac, \
         pipeline.encode_p_cabac
 
-    def seen_dqp(fn, kind):
+    def seen_dqp(fn, kind, seen):
         def call(*a, **k):
             out = fn(*a, **k)
-            seen9[kind].append(out.get("dqp"))
+            seen[kind].append(out.get("dqp"))
             return out
         return call
 
-    pipeline.encode_i16_idr_cabac = seen_dqp(encode_idr, "IDR")
-    pipeline.encode_p_cabac = seen_dqp(encode_p, "P")
+    pipeline.encode_i16_idr_cabac = seen_dqp(encode_idr, "IDR", seen9)
+    pipeline.encode_p_cabac = seen_dqp(encode_p, "P", seen9)
     what9 = "x264_tpu's defaults (CRF 23, variance AQ)"
     done, summary, launches_9, header, fps, med, enc = main_path(
         250, N_DEFAULTS, what9, src=cut, make=defaults_params)
@@ -1719,7 +1964,7 @@ def main() -> None:
         fail(f"{what9}: the defaults did not turn on CRF, variance AQ, the "
              f"8x8 transform, I8x8, the RD ladder and the lookahead")
     for k, n in launches_9.items():
-        if (n <= 0) != (k == "p_inter_mb_t8_sa8d"):
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only):
             fail(f"kernel {k} was launched {n} times on {what9}")
     if any(d is None for v in seen9.values() for d in v):
         fail(f"{what9}: a frame ran without the mb_qp_delta planes")
@@ -1740,15 +1985,81 @@ def main() -> None:
                 make=defaults_params, frame_parallel=3)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=defaults_params,
                  tag="x264_tpu's defaults (CRF 23, variance AQ)")
+
+    # -------------------- 10. bench.py's all-intra CAVLC line (CQP 26)
+    stamp("phase 10")
+    what10 = "all-intra CAVLC"
+    done, summary, launches_10, header, fps, med, _ = main_path(
+        1, N_INTRA_CAVLC, what10, make=cavlc_intra_params)
+    for k, n in launches_10.items():
+        if (n > 0) != (k in ("intra_diag", "cavlc_i_slice", "deblock_diag",
+                             "frame_metrics")):
+            fail(f"kernel {k} was launched {n} times on the {what10} path")
+    sizes = [len(e.payload) for e in done]
+    print(f"{what10} path: {N_INTRA_CAVLC} frames {W}x{H} keyint 1 CQP {QP} "
+          f"CAVLC, deblock, {fps:.3f} fps, median encode() {med:.1f} ms, "
+          f"{statistics.mean(sizes):.0f} bytes/frame, PSNR Y "
+          f"{summary['psnr']['y']:.4f} avg {summary['psnr']['avg']:.4f} dB, "
+          f"SSIM {summary['ssim_y']:.6f}, d2h of the word buffer "
+          f"{cav_ms['d2h']:.3f} ms a frame [{smi_line}]", flush=True)
+    same_as_cpu(x264_tpu_torch, done, frames, header, 1, 1, what10,
+                make=cavlc_intra_params)
+    device_split(x264_tpu_torch, frames, 2, N_INTRA_CAVLC - 2, 1,
+                 make=cavlc_intra_params, tag=what10)
+
+    # -------- 11. x264_tpu's defaults with b_cabac off (CRF 23, AQ)
+    stamp("phase 11")
+    seen11 = {"IDR": [], "P": []}
+    encode_idr, encode_p = pipeline.encode_i16_idr, pipeline.encode_p
+    pipeline.encode_i16_idr = seen_dqp(encode_idr, "IDR", seen11)
+    pipeline.encode_p = seen_dqp(encode_p, "P", seen11)
+    what11 = "x264_tpu's defaults with CAVLC (CRF 23, variance AQ)"
+    done, summary, launches_11, header, fps, med, enc = main_path(
+        250, N_DEFAULTS, what11, src=cut, make=cavlc_defaults_params)
+    pipeline.encode_i16_idr, pipeline.encode_p = encode_idr, encode_p
+    if not (enc._aq and enc._rd and enc._analyse_lowres
+            and not (enc._cabac or enc._t8 or enc._i8x8)
+            and enc.rc.method == 1):
+        fail(f"{what11}: the defaults without CABAC did not turn on CRF, "
+             f"variance AQ, the RD ladder and the lookahead, and off the "
+             f"8x8 transform and I8x8")
+    idle11 = set(cabac_only) | {k for k in launches_11 if "t8" in k
+                                or "i8x8" in k}
+    for k, n in launches_11.items():
+        if (n <= 0) != (k in idle11):
+            fail(f"kernel {k} was launched {n} times on {what11}")
+    dqp_nz = [int((d != 0).sum()) for v in seen11.values() for d in v]
+    if len(seen11["IDR"]) != 2 or sum(dqp_nz) == 0:
+        fail(f"{what11}: {len(seen11['IDR'])} IDRs, nonzero mb_qp_delta "
+             f"MBs per frame {dqp_nz}")
+    dqp_max = max(int(d.abs().max()) for v in seen11.values() for d in v)
+    qps = [e.qp for e in enc.rc.entries]
+    ippp_report(done, summary, enc.stats, fps, med, N_DEFAULTS, 6, smi_line,
+                nmb, f", CAVLC, CRF 23 with variance AQ: frame QPs "
+                f"{min(qps)}-{max(qps)} ({qps}), "
+                f"{sum(dqp_nz) / (nmb * N_DEFAULTS):.4f} of MBs code a "
+                f"nonzero mb_qp_delta (largest |mb_qp_delta| {dqp_max}), IDRs "
+                f"at frames 0 and {CUT} ({len(done[CUT].payload)} bytes at "
+                f"frame {CUT}), host wait on the lookahead "
+                f"{enc.rc.lookahead_wait_s / N_DEFAULTS * 1e3:.3f} ms a frame",
+                idrs=(0, CUT), rc="CRF 23", entropy="CAVLC")
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_CAVLC, 250,
+                what11, make=cavlc_defaults_params, frame_parallel=3)
+    device_split(x264_tpu_torch, cut, 4, 8, 6, 40,
+                 make=cavlc_defaults_params, tag=what11)
     for name, r in rec.items():
-        r.update(launches=launches_9[name],
+        main = launches_11 if name in cavlc_only else launches_9
+        r.update(launches=main[name],
+                 launches_cavlc_defaults=launches_11[name],
+                 launches_cavlc_all_intra=launches_10[name],
+                 launches_defaults=launches_9[name],
                  launches_bench_cqp=launches_8[name],
                  launches_ippp_subme6=launches_6[name],
                  launches_ippp_subme5=launches_5[name],
                  launches_ippp_subme1=launches_1[name],
                  launches_all_intra=launches_i[name])
-    if set(rec) != set(launches_9):
-        fail(f"the kernels line lacks {sorted(set(launches_9) - set(rec))}")
+    if set(rec) != set(launches_11):
+        fail(f"the kernels line lacks {sorted(set(launches_11) - set(rec))}")
     stamp("done")
 
     print(json.dumps({"kernels": list(rec.values())}), flush=True)

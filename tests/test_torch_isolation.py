@@ -3,9 +3,9 @@ chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
 non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-9,
-scenecut lookahead, the 8x8 transform and I8x8, constant QP, CRF or
-1-pass ABR with or without variance AQ) slices raise
-NotImplementedError."""
+scenecut lookahead, the 8x8 transform and I8x8, CABAC or CAVLC,
+constant QP, CRF or 1-pass ABR with or without variance AQ) slices
+raise NotImplementedError."""
 
 import ast
 import pathlib
@@ -17,8 +17,9 @@ import pytest
 import torch
 
 import x264_tpu_torch
-from x264_tpu_torch.encoder import aq, inter, intra
+from x264_tpu_torch.encoder import aq, inter, intra, pipeline
 from x264_tpu_torch.entropy import cabac_planes
+from x264_tpu_torch.entropy import device as cavlc_device
 from x264_tpu_torch.ops import deblock
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -45,7 +46,9 @@ def test_no_jax_or_reference_imports():
             "x264_tpu_torch/ops/rdcost.py",
             "x264_tpu_torch/ops/trellis.py",
             "x264_tpu_torch/encoder/aq.py",
-            "x264_tpu_torch/encoder/ratecontrol.py"} <= names
+            "x264_tpu_torch/encoder/ratecontrol.py",
+            "x264_tpu_torch/entropy/device.py",
+            "x264_tpu_torch/entropy/cavlc_tables.py"} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
@@ -65,6 +68,7 @@ def test_imports_with_jax_blocked():
             "import x264_tpu_torch.ops.rdcost, x264_tpu_torch.ops.trellis\n"
             "import x264_tpu_torch.encoder.aq\n"
             "import x264_tpu_torch.encoder.ratecontrol\n"
+            "import x264_tpu_torch.entropy.device\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -96,13 +100,25 @@ def test_encoder_default_device_needs_a_card():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("analyse__i_noise_reduction", 100), ("b_cabac", False),
-    ("rc__b_stat_read", True),
+    ("analyse__i_noise_reduction", 100), ("rc__b_stat_read", True),
     ("i_cqm_preset", 1), ("i_bframe", 2),
     ("analyse__i_trellis", 1), ("rc__i_qp_constant", 0)])
 def test_outside_the_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_params(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("keyint", [1, 250])
+def test_the_cavlc_slice_opens(keyint):
+    """b_cabac off opens, all-intra and IPPP, at x264_tpu's defaults
+    otherwise: validate() turns 8x8dct and I8x8 off, the PPS carries
+    entropy_coding_mode_flag 0."""
+    p = x264_tpu_torch.EncoderParams(i_width=64, i_height=48, i_log_level=0,
+                                     b_cabac=False, i_keyint_max=keyint)
+    enc = x264_tpu_torch.Encoder(p, device="cpu")
+    assert not (enc._cabac or enc._t8 or enc._i8x8 or enc.pps.cabac)
+    assert enc._aq is not None and enc._rd
+    enc.close()
 
 
 def _p_params(**kw):
@@ -121,7 +137,7 @@ def test_the_ippp_slice_opens():
     dict(i_frame_reference=3), dict(i_bframe=1),
     dict(analyse__i_trellis=2), dict(i_frame_reference=2),
     dict(i_bframe=2), dict(analyse__intra=0),
-    dict(b_cabac=False), dict(rc__i_vbv_buffer_size=2000),
+    dict(b_cabac=False, i_bframe=1), dict(rc__i_vbv_buffer_size=2000),
     dict(rc__i_rc_method=2, rc__i_bitrate=2000, rc__i_vbv_max_bitrate=2000),
     dict(rc__i_rc_method=1, rc__b_stat_read=True), dict(analyse__i_trellis=1),
     dict(analyse__i_noise_reduction=100), dict(i_cqm_preset=1),
@@ -340,3 +356,62 @@ def test_t8_wrappers_never_fall_back_off_the_cpu(name):
     raise) on any tensor that is not on the CPU, at their 8x8 paths."""
     with pytest.raises(ValueError, match="CUDA tensor"):
         _meta_wrapper_calls()[name]()
+
+
+def _meta_cavlc_calls():
+    """The CAVLC slice's wrappers (K18, K19, K8's pass A alone), with and
+    without mb_qp_delta planes, on tensors that are neither on the CPU
+    nor on a card."""
+    mb_h, mb_w = 1, 2
+    t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
+    b = lambda *s: t(*s, dt=torch.bool)
+    i_out = dict(mode16=t(mb_h, mb_w), modec=t(mb_h, mb_w), i4_mb=b(mb_h, mb_w),
+                 i4_modes=t(mb_h, mb_w, 4, 4), cbp_luma_bits=t(mb_h, mb_w),
+                 luma_dc=t(mb_h, mb_w, 16), luma_ac=t(mb_h, mb_w, 16, 16),
+                 chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16))
+    front = dict(intra_mb=b(mb_h, mb_w), me_mv=t(mb_h, mb_w, 2),
+                 ptype=t(mb_h, mb_w), mv_quad=t(mb_h, mb_w, 4, 2),
+                 mode16=t(mb_h, mb_w), modec=t(mb_h, mb_w),
+                 cbp_luma_bits=t(mb_h, mb_w), cbp_chroma=t(mb_h, mb_w),
+                 luma_dc=t(mb_h, mb_w, 16), luma_blocks=t(mb_h, mb_w, 16, 16),
+                 chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16))
+    maps = dict(skip=b(mb_h, mb_w), ptype=t(mb_h, mb_w),
+                mvd=t(mb_h, mb_w, 2), mvd1=t(mb_h, mb_w, 2),
+                mvd_sub=t(mb_h, mb_w, 4, 2))
+    hdr = np.zeros(cavlc_device.HDR_SLOTS, np.int32)
+    slots = (hdr, hdr, 4096)
+    return {
+        "K18": lambda: cavlc_device.cavlc_i_slice(i_out, mb_h, mb_w, *slots),
+        "K18 aq": lambda: cavlc_device.cavlc_i_slice(
+            {**i_out, "dqp": t(mb_h, mb_w)}, mb_h, mb_w, *slots),
+        "K19": lambda: cavlc_device.cavlc_p_slice(front, maps, mb_h, mb_w,
+                                                  *slots),
+        "K19 aq": lambda: cavlc_device.cavlc_p_slice(
+            front, {**maps, "dqp": t(mb_h, mb_w)}, mb_h, mb_w, *slots),
+        "K8 pass A": lambda: cabac_planes.p_maps(front, mb_h, mb_w),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_cavlc_calls()))
+def test_cavlc_wrappers_never_fall_back_off_the_cpu(name):
+    """The wrappers of the CAVLC slice launch their kernel (or raise) on
+    any tensor that is not on the CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_cavlc_calls()[name]()
+
+
+def test_cavlc_overflow_raises():
+    """A CAVLC slice past the device word buffer raises and names the
+    later slice (x264_tpu's synchronous retry without I4x4 and its host
+    coder are not ported)."""
+    enc = x264_tpu_torch.Encoder(_params(b_cabac=False), device="cpu")
+    nmb = enc.params.mb_width * enc.params.mb_height
+    cap = pipeline.capacity_words(nmb)
+    pend = dict(nmb=nmb, nal_type=5, nal_ref_idc=3)
+    words = np.zeros(cap, np.int32)
+    assert enc._cavlc_payload(pend, words, 9) == b"\x00\x00\x00\x01\x65\x00\x00"
+    with pytest.raises(RuntimeError, match="later slice"):
+        enc._cavlc_payload(pend, words, 32 * cap + 1)
+    enc.close()

@@ -1,11 +1,13 @@
 """The port's CUDA / Triton kernels against their plain PyTorch versions
-on the card, at small frames (K1-K17, K6 and K8 also with random
-partition layouts and quarter-pel MVs, K7 also with the RD decision; K1
-with I8x8, K3 / K2 on its output, K6 / K13 / K8 / K2 with the 8x8
-transform; K1 / K3 / K6 / K7 / K8 / K2 with a variance-AQ QP map), and
-the card's Encoder against the CPU's at subme 1, 2, 5 and 6 (the last
-with the scenecut lookahead, and at x264_tpu's defaults with the 8x8
-transform and I8x8, at CQP and at CRF with variance AQ).
+on the card, at small frames (K1-K19 and K8's pass A alone, K6 and K8
+also with random partition layouts and quarter-pel MVs, K7 also with
+the RD decision; K1 with I8x8, K3 / K2 on its output, K6 / K13 / K8 / K2
+with the 8x8 transform; K1 / K3 / K6 / K7 / K8 / K2 / K18 / K19 with a
+variance-AQ QP map; K18 / K19 with codes dropped past a small
+capacity), and the card's Encoder against the CPU's at subme 1, 2, 5
+and 6 (the last with the scenecut lookahead, and at x264_tpu's defaults
+with the 8x8 transform and I8x8, at CQP and at CRF with variance AQ),
+and with CAVLC at the defaults and all-intra at CQP.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -22,6 +24,7 @@ from x264_tpu_torch import tables
 from x264_tpu_torch.encoder import (aq, inter, intra, lookahead, pipeline,
                                     stats)
 from x264_tpu_torch.entropy import cabac_planes
+from x264_tpu_torch.entropy import device as cavlc_device
 from x264_tpu_torch.ops import deblock, mc, me
 
 MB_H, MB_W = 5, 7
@@ -707,6 +710,122 @@ def test_crf_encoder_on_the_card_matches_the_cpu(card, mode, frame_parallel):
 
     (kh, kout, ksum, kq), (ph, pout, psum, pq) = run(card), run("cpu")
     assert kh == ph and len(kout) == len(pout) == 5 and kq == pq
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))
+    assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
+    assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5
+
+
+def _slice_header(slice_type):
+    from x264_tpu_torch.entropy.bitstream import BitWriter
+    from x264_tpu_torch.headers import SliceHeader
+    bw = BitWriter()
+    SliceHeader(slice_type=slice_type, idr_pic_id=0 if slice_type == 2
+                else -1, qp=26, disable_deblock=0).write_rbsp(bw, 3)
+    return cavlc_device.header_slots(bw)
+
+
+def _same_words(k, p):
+    (kw, kn), (pw, pn) = k, p
+    assert int(kn) == int(pn) and torch.equal(kw, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp,aq_map,cap", [(26, False, None), (4, False, None),
+                                          (26, True, None), (4, False, 300)])
+def test_cavlc_i_slice_kernel_matches_plain(card, qp, aq_map, cap):
+    """K18 on K1's planes (at QP 4 long level escapes occur), with K17's
+    dqp planes, and with a capacity small enough that codes are
+    dropped: the words in range and nbits equal the plain version's."""
+    (y, u, v), out, (q, lam) = _intra(card, qp)
+    if aq_map:
+        qm = _qp_map(card, qp)
+        cnz = (out["chroma_ac"][..., 1:] != 0).flatten(2).any(-1) \
+            | (out["chroma_dc"] != 0).flatten(2).any(-1)
+        out["dqp"] = aq.dqp_syntax(qm, ~out["i4_mb"]
+                                   | (out["cbp_luma_bits"] > 0) | cnz, qp)[0]
+    hv, hl = _slice_header(2)
+    cap = cap or pipeline.capacity_words(MB_H * MB_W)
+    k = cavlc_device.cavlc_i_slice(out, MB_H, MB_W, hv, hl, cap)
+    p = cavlc_device.cavlc_i_slice_plain(out, MB_H, MB_W, hv, hl, cap)
+    _same_words(k, p)
+    assert (int(p[1]) > 32 * cap) == (cap == 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,aq_map,cap", [
+    ("inter", False, None), ("intra", False, None), ("partitions", False, None),
+    ("intra", True, None), ("inter", False, 60)])
+def test_cavlc_p_slice_and_p_maps_kernels_match_plain(card, kind, aq_map,
+                                                      cap):
+    """K8's pass A alone against p_maps_plain, then K19 on its maps (with
+    K17's dqp planes under aq_map, and with codes dropped past a small
+    capacity), at subme 5 with the partitions."""
+    (y, u, v), ref, q, lam = _p_frame(card, "intra" if kind == "intra"
+                                      else "inter")
+    front = inter.encode_p_front(MB_H, MB_W, 16, y, u, v, *ref, q, lam,
+                                 _mvp(card), True, (2, 1), True, True, True)
+    if kind == "partitions":     # every layout, whatever the search chose
+        rng = np.random.default_rng(12)
+        front["ptype"] = torch.as_tensor(rng.integers(0, 4, (MB_H, MB_W)),
+                                         dtype=torch.int32, device=card)
+    kmaps = cabac_planes.p_maps(front, MB_H, MB_W)
+    pmaps = inter.p_maps_plain(front, MB_H, MB_W)
+    assert set(kmaps) == set(pmaps)
+    for key in pmaps:
+        assert torch.equal(kmaps[key], pmaps[key]), key
+    if aq_map:
+        kmaps["dqp"] = aq.dqp_syntax(_qp_map(card), cabac_planes.has_dqp_p(
+            kmaps, front), 26)[0]
+    hv, hl = _slice_header(0)
+    cap = cap or pipeline.capacity_words(MB_H * MB_W)
+    k = cavlc_device.cavlc_p_slice(front, kmaps, MB_H, MB_W, hv, hl, cap)
+    p = cavlc_device.cavlc_p_slice_plain(front, kmaps, MB_H, MB_W, hv, hl,
+                                         cap)
+    _same_words(k, p)
+    assert (int(p[1]) > 32 * cap) == (cap == 60)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,frame_parallel", [("defaults", 1),
+                                                 ("defaults", 3),
+                                                 ("intra-cqp", 3)])
+def test_cavlc_encoder_on_the_card_matches_the_cpu(card, mode,
+                                                   frame_parallel):
+    """b_cabac off at x264_tpu's defaults (CRF 23 with variance AQ, IPPP)
+    and all-intra at CQP 26: the card's payloads, frame QPs and recons
+    equal the CPU's."""
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(23)
+    base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
+    base[:, :w // 2] = 100
+    frames = [x264_tpu_torch.Frame(
+        base[t:t + h, 2 * t:2 * t + w].copy(),
+        np.full((h // 2, w // 2), 100 + 3 * t, np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+        for t in range(5)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_log_level=0, i_keyint_min=2,
+                                         b_cabac=False,
+                                         i_frame_parallel=frame_parallel)
+        if mode == "intra-cqp":
+            p.i_keyint_max = 1
+            p.rc.i_rc_method, p.rc.i_qp_constant = 0, 26
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs = [enc.encode(f) for f in frames]
+        outs = [o for o in outs if o is not None] + enc.flush()
+        return (enc.headers(), outs, enc.close(),
+                [e.qp for e in enc.rc.entries])
+
+    (kh, kout, ksum, kq), (ph, pout, psum, pq) = run(card), run("cpu")
+    assert kh == ph and len(kout) == len(pout) == 5 and kq == pq
+    if mode == "defaults":
+        assert {o.frame_type for o in kout} == {"IDR", "P"}
     for a, b in zip(kout, pout):
         assert a.frame_type == b.frame_type and a.payload == b.payload
         for pl in "yuv":

@@ -33,10 +33,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan.cuh"
+
 namespace {
 
 constexpr int OPS_PER_MB = 560;
-constexpr int SCAN_NT = 1024;
 enum { K_DEC = 0, K_BYPASS = 1, K_UE = 2, K_TERM = 3, K_ONES = 5,
        K_SIGMAP = 6, K_LEVEL = 7 };
 
@@ -266,31 +267,6 @@ __global__ void emit_kernel(Planes P, int mb_h, int t8_mode,
   // ---- end_of_slice_flag = 0 after every MB but the last
   if (mb != nmb - 1) E.put(K_TERM, 0, 0);
   counts[mb] = E.n;
-}
-
-// exclusive scan of counts[0..n) into offsets[0..n], offsets[n] = total
-__global__ void __launch_bounds__(SCAN_NT) scan_kernel(
-    const int* __restrict__ counts, int* __restrict__ offsets, int n) {
-  __shared__ int part[SCAN_NT];
-  const int t = threadIdx.x;
-  const int per = (n + SCAN_NT - 1) / SCAN_NT;
-  const int lo = min(n, t * per), hi = min(n, lo + per);
-  int s = 0;
-  for (int i = lo; i < hi; ++i) s += counts[i];
-  part[t] = s;
-  __syncthreads();
-  for (int off = 1; off < SCAN_NT; off <<= 1) {     // Hillis-Steele inclusive
-    int v = t >= off ? part[t - off] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  int run = part[t] - s;
-  for (int i = lo; i < hi; ++i) {
-    offsets[i] = run;
-    run += counts[i];
-  }
-  if (t == SCAN_NT - 1) offsets[n] = part[t];
 }
 
 __global__ void scatter_kernel(const uint32_t* __restrict__ scratch,

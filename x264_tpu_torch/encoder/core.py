@@ -1,6 +1,6 @@
 """Encoder orchestration — the analogue of encoder/encoder.c, ported from
-x264_tpu/encoder/core.py for CABAC IDR and P frames at constant QP, CRF
-or 1-pass ABR, with or without variance AQ.
+x264_tpu/encoder/core.py for IDR and P frames, CABAC or CAVLC, at
+constant QP, CRF or 1-pass ABR, with or without variance AQ.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
@@ -8,26 +8,28 @@ validation, headers, the frame-type decision (an IDR every i_keyint_max
 frames, and at a scene cut found by the lowres lookahead once
 i_keyint_min frames have passed; P frames between; no B frames),
 dispatch of each frame's device work to the current CUDA stream, and the
-host tail — CABAC arithmetic coding of the device-produced op stream,
-NAL assembly, rate control and statistics. The DPB is the one deblocked
+host tail — CABAC arithmetic coding of the device-produced op stream (or,
+under CAVLC, the device-packed slice words taken as they are), NAL
+assembly, rate control and statistics. The DPB is the one deblocked
 reconstruction of the last frame, kept on the device with its MV field,
 which seeds the next P frame's motion search.
 
 With i_frame_parallel > 1 the output is delayed (x264_encoder_encode's
 contract: a call may return no frame; flush() drains): frame N's kernels
-are queued, its op stream and metrics vector start a non-blocking copy
-into pinned host memory ordered by a CUDA event, and the host CABAC of
-an earlier frame runs while the card works. P frame N reads frame N-1's
-deblocked reconstruction on the same stream, so the pipe needs no
-further synchronisation. With the lowres lookahead on (scenecut, and
-CRF / ABR, whose frame QP reads the lookahead's P cost), the frame type
-and QP must be known before the frame is queued: the frame's planes
-cross to the card on a stream of their own, the lookahead kernels run
-there, and the host waits for that stream alone before it reads their
-two sums; the encoder's stream waits on an event after the upload. Rate
-control starts each frame when it is queued and ends it when its bits
-are known, at the same points of the pipe as x264_tpu, so the QPs that
-depend on earlier frames' sizes are the same at every i_frame_parallel.
+are queued, its op stream (or slice words) and metrics vector start a
+non-blocking copy into pinned host memory ordered by a CUDA event, and
+the host tail of an earlier frame runs while the card works. P frame N
+reads frame N-1's deblocked reconstruction on the same stream, so the
+pipe needs no further synchronisation. With the lowres lookahead on
+(scenecut, and CRF / ABR, whose frame QP reads the lookahead's P cost),
+the frame type and QP must be known before the frame is queued: the
+frame's planes cross to the card on a stream of their own, the lookahead
+kernels run there, and the host waits for that stream alone before it
+reads their two sums; the encoder's stream waits on an event after the
+upload. Rate control starts each frame when it is queued and ends it
+when its bits are known, at the same points of the pipe as x264_tpu, so
+the QPs that depend on earlier frames' sizes are the same at every
+i_frame_parallel.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 from .. import tables
 from ..entropy import cabac as ecabac
 from ..entropy import cabac_tables as ctab
+from ..entropy import device as edev
 from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
 from ..headers import PPS, SPS, SLICE_I, SLICE_P, SliceHeader, sei_version
 from ..params import (ANALYSE_I4x4, ANALYSE_I8x8, ANALYSE_PSUB16x16,
@@ -94,15 +97,15 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
     P8x8 partitions, chroma ME and, at subme >= 6, the RD ladder with
     psy-RD, where the parameters ask for them), with one reference and
     the scenecut lookahead or a fixed GOP, with or without the 8x8
-    transform and I8x8, at constant QP, CRF or 1-pass ABR, with or
-    without variance AQ (VBV and 2-pass replay are refused here and by
+    transform and I8x8 (which validate() turns off without CABAC), CABAC
+    or CAVLC, at constant QP, CRF or 1-pass ABR, with or without
+    variance AQ (VBV and 2-pass replay are refused here and by
     RateControl)."""
     a, rc = p.analyse, p.rc
     later = [
         (p_frames and p.i_frame_reference >= 2,
          "multiple references (ref >= 2)", "a later slice"),
         (p.i_bframe > 0, "B frames", "the B slice"),
-        (not p.b_cabac, "CAVLC", "the CAVLC slice"),
         (rc.i_rc_method == RC_CQP and rc.i_qp_constant == 0,
          "lossless (qp 0)", "a later slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
@@ -122,8 +125,9 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
 
 
 class Encoder:
-    """x264_encoder_open / encode / close for CABAC IDR + P frames at
-    constant QP, CRF or 1-pass ABR, with or without variance AQ. device:
+    """x264_encoder_open / encode / close for IDR + P frames, CABAC or
+    CAVLC, at constant QP, CRF or 1-pass ABR, with or without variance
+    AQ. device:
     "cuda" (the default, which needs a card) or "cpu", where every kernel
     runs its plain PyTorch version."""
 
@@ -189,6 +193,9 @@ class Encoder:
         self._p8x8 = self._parts
         self._chroma_me = bool(p.analyse.b_chroma_me and sp >= 5)
         self._rd = sp >= 6
+        # CABAC (the host codes the device's op stream) or CAVLC (K18 /
+        # K19 pack the slice words on the device)
+        self._cabac = bool(p.b_cabac)
         # the adaptive 8x8 transform (High profile) and, in I slices, the
         # I8x8 ladder, which validate() keeps only with CABAC + 8x8dct
         self._t8 = bool(p.analyse.b_transform_8x8)
@@ -364,6 +371,15 @@ class Encoder:
             hdr.put((1 << pad) - 1, pad)
         return bytearray(hdr.pack())
 
+    def _cavlc_header(self, qp: int, slice_type: int,
+                      nal_ref_idc: int):
+        """The slice header as the (value, length) slots K18 / K19 write
+        first (entropy/device.py:header_slots), built at submit time."""
+        hdr = BitWriter()
+        self._slice_header(qp, slice_type).write_rbsp(
+            hdr, nal_ref_idc=nal_ref_idc)
+        return edev.header_slots(hdr)
+
     def _submit_idr(self, frame: Frame, planes, qp: int) -> dict:
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
@@ -373,24 +389,28 @@ class Encoder:
         self.frame_num = 0
         self.poc = 0
         self._prev_mv = None
-        hdr_bytes = self._cabac_header(qp, SLICE_I, 3)
-        out = pipeline.encode_i16_idr_cabac(
-            mb_h, mb_w, bool(p.b_deblocking_filter), y, u, v,
-            self._qtab(qp, qp_c), int(tables.LAMBDA_TABLE[qp]), qp,
-            2 * p.i_deblocking_filter_alphac0,
-            2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
-            crop_w=p.i_width, crop_h=p.i_height,
-            with_metrics=self._with_metrics, t8=self._t8, i8x8=self._i8x8,
-            aq=self._aq)
-        recon = self._finish_frame(out, frame)
-        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
-        return dict(out=out, hdr_bytes=hdr_bytes, recon=recon,
-                    nmb=mb_h * mb_w, slice_is_i=True,
+        args = (mb_h, mb_w, bool(p.b_deblocking_filter), y, u, v,
+                self._qtab(qp, qp_c), int(tables.LAMBDA_TABLE[qp]), qp)
+        tail = (2 * p.i_deblocking_filter_alphac0,
+                2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset)
+        kw = dict(crop_w=p.i_width, crop_h=p.i_height,
+                  with_metrics=self._with_metrics, aq=self._aq)
+        pend = dict(nmb=mb_h * mb_w, slice_is_i=True,
                     nal_type=NAL_SLICE_IDR, nal_ref_idc=3)
+        if self._cabac:
+            pend["hdr_bytes"] = self._cabac_header(qp, SLICE_I, 3)
+            out = pipeline.encode_i16_idr_cabac(
+                *args, *tail, t8=self._t8, i8x8=self._i8x8, **kw)
+        else:
+            out = pipeline.encode_i16_idr(
+                *args, *self._cavlc_header(qp, SLICE_I, 3), *tail, **kw)
+        pend.update(out=out, recon=self._finish_frame(out, frame))
+        self.idr_pic_id = (self.idr_pic_id + 1) % 65536
+        return pend
 
     def _submit_p(self, frame: Frame, planes, qp: int) -> dict:
         """One P frame against the DPB (x264_encoder_encode P path):
-        subme 1-9, one reference, CABAC."""
+        subme 1-9, one reference, CABAC or CAVLC."""
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
         y, u, v = planes
@@ -398,20 +418,28 @@ class Encoder:
         mvp_seed = self._prev_mv if self._prev_mv is not None \
             else torch.zeros((mb_h, mb_w, 2), dtype=torch.int32,
                              device=self.device)
-        hdr_bytes = self._cabac_header(qp, SLICE_P, 2)
-        out = pipeline.encode_p_cabac(
-            mb_h, mb_w, self._me_range, bool(p.b_deblocking_filter), y, u, v,
-            *self._ref, self._qtab_p(qp, qp_c), int(tables.LAMBDA_TABLE[qp]),
-            qp, 2 * p.i_deblocking_filter_alphac0,
-            2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
-            mvp_seed, crop_w=p.i_width, crop_h=p.i_height,
-            with_metrics=self._with_metrics, decimate=self._decimate,
-            subpel_steps=self._subpel, parts=self._parts, p8x8=self._p8x8,
-            chroma_me=self._chroma_me, rd=self._rd, t8=self._t8, aq=self._aq)
+        args = (mb_h, mb_w, self._me_range, bool(p.b_deblocking_filter), y,
+                u, v, *self._ref, self._qtab_p(qp, qp_c),
+                int(tables.LAMBDA_TABLE[qp]), qp)
+        tail = (2 * p.i_deblocking_filter_alphac0,
+                2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
+                mvp_seed)
+        kw = dict(crop_w=p.i_width, crop_h=p.i_height,
+                  with_metrics=self._with_metrics, decimate=self._decimate,
+                  subpel_steps=self._subpel, parts=self._parts,
+                  p8x8=self._p8x8, chroma_me=self._chroma_me, rd=self._rd,
+                  aq=self._aq)
+        pend = dict(nmb=mb_h * mb_w, slice_is_i=False, nal_type=NAL_SLICE,
+                    nal_ref_idc=2)
+        if self._cabac:
+            pend["hdr_bytes"] = self._cabac_header(qp, SLICE_P, 2)
+            out = pipeline.encode_p_cabac(*args, *tail, t8=self._t8, **kw)
+        else:
+            out = pipeline.encode_p(
+                *args, *self._cavlc_header(qp, SLICE_P, 2), *tail, **kw)
         self._prev_mv = out["mv"]
-        return dict(out=out, hdr_bytes=hdr_bytes,
-                    recon=self._finish_frame(out, frame), nmb=mb_h * mb_w,
-                    slice_is_i=False, nal_type=NAL_SLICE, nal_ref_idc=2)
+        pend.update(out=out, recon=self._finish_frame(out, frame))
+        return pend
 
     def _finish_frame(self, out: dict, frame: Frame) -> Frame:
         """Update the DPB and crop the recon view (x264_reference_update,
@@ -425,18 +453,19 @@ class Encoder:
                      crop(out["recon_v"], frame.v))
 
     def _start_fetch(self, pend: dict) -> None:
-        """Queue the d2h of this frame's op stream and host32 vector right
-        behind its kernels: non-blocking copies into pinned memory and a
-        CUDA event that _finalize waits on."""
+        """Queue the d2h of this frame's op stream (CAVLC: its slice
+        words, the whole buffer, since nbits is not known on the host yet)
+        and host32 vector right behind its kernels: non-blocking copies
+        into pinned memory and a CUDA event that _finalize waits on."""
         out = pend["out"]
+        body = out["ops"] if self._cabac else out["words"]
         if self.device.type == "cpu":
-            pend["fetch"] = (None, out["ops"], out["host32"])
+            pend["fetch"] = (None, body, out["host32"])
             return
-        ops_h = torch.empty(out["ops"].shape, dtype=torch.int32,
-                            pin_memory=True)
+        ops_h = torch.empty(body.shape, dtype=torch.int32, pin_memory=True)
         h32_h = torch.empty(out["host32"].shape, dtype=torch.int32,
                             pin_memory=True)
-        ops_h.copy_(out["ops"], non_blocking=True)
+        ops_h.copy_(body, non_blocking=True)
         h32_h.copy_(out["host32"], non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
@@ -461,17 +490,36 @@ class Encoder:
         return nal_unit(pend["nal_type"], pend["nal_ref_idc"],
                         bytes(hdr_bytes) + payload)
 
+    def _cavlc_payload(self, pend: dict, words: np.ndarray,
+                       nbits: int) -> bytes:
+        """The NAL of a device-packed CAVLC slice (x264_slice_write CAVLC
+        branch, encoder/encoder.c:1141-1199): the first ceil(nbits / 8)
+        bytes of its words. A slice past the word buffer raises, as
+        x264_tpu's pipelined path does; its synchronous retry without
+        I4x4 and its host coder come with a later slice of the port."""
+        cap_words = pipeline.capacity_words(pend["nmb"])
+        if nbits > cap_words * 32:
+            raise RuntimeError(
+                f"slice overflowed the device pack buffer ({nbits} bits); "
+                f"the retry without I4x4 and the host coder (cavlc_vec) "
+                f"come with a later slice of the port")
+        return nal_unit(pend["nal_type"], pend["nal_ref_idc"],
+                        edev.words_to_bytes(words[:(nbits + 31) // 32],
+                                            nbits))
+
     def _finalize(self, pend: dict) -> EncodedFrame:
-        """Host tail of one frame: wait for its copies, entropy-code, RC
-        accounting and stats (x264_encoder_frame_end,
-        encoder/encoder.c:1705)."""
-        done, ops_t, h32_t = pend["fetch"]
+        """Host tail of one frame: wait for its copies, entropy-code (CABAC)
+        or take the packed words (CAVLC), RC accounting and stats
+        (x264_encoder_frame_end, encoder/encoder.c:1705)."""
+        done, body_t, h32_t = pend["fetch"]
         if done is not None:
             done.synchronize()
         h32 = h32_t.numpy()
-        n_ops = int(h32[0])
-        ops = ops_t.numpy()[:n_ops].view(np.uint32)
-        payload = self._cabac_payload(pend, ops)
+        if self._cabac:
+            ops = body_t.numpy()[:int(h32[0])].view(np.uint32)
+            payload = self._cabac_payload(pend, ops)
+        else:
+            payload = self._cavlc_payload(pend, body_t.numpy(), int(h32[0]))
         bits = len(payload) * 8
         ftype, nmb = pend["ftype"], pend["nmb"]
         if ftype == "P":

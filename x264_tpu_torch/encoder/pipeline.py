@@ -1,8 +1,11 @@
-"""The per-frame device pipelines of CABAC IDR and P frames.
+"""The per-frame device pipelines of IDR and P frames, CABAC or CAVLC.
 
 The PyTorch re-expression of x264_tpu/encoder/pipeline.py's
 encode_i16_idr_cabac and encode_p_cabac, with or without the 8x8
-transform and I8x8. IDR: the intra wavefront (K1),
+transform and I8x8, and of its CAVLC encode_i16_idr and encode_p, where
+K18 / K19 code the packed slice words in place of the op streams of K3 /
+K8 (a P frame runs K8's pass A alone for its maps). IDR: the intra
+wavefront (K1),
 the CABAC op stream (K3), the in-loop deblocking filter (K2) and the
 frame metrics (K4). P: full-pel motion estimation (K5); at subme >= 2
 the half-pel planes (K9), the sub-pel refinement (K10), the chroma-ME
@@ -15,7 +18,7 @@ read each MB's tables at its QP, K17 derives the mb_qp_delta planes
 that K3 / K8 code and the effective QP map that K2 filters with
 (x264_tpu's _encode_i16_aq, _aq_maps and encode_p_cabac's AQ path).
 Everything is queued on the device's current stream; only the op stream
-and one small int32 vector cross to the host
+(or the slice words) and one small int32 vector cross to the host
 (x264_slice_write, encoder/encoder.c:1141, plus x264_frame_deblock_row
 and the stats of encoder/encoder.c:1034-1056).
 """
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..entropy import cabac_planes
+from ..entropy import device as edev
 from ..ops import deblock as odeblock
 from . import aq as eaq
 from . import inter
@@ -32,6 +36,15 @@ from . import intra
 from . import stats as estats
 
 I32 = torch.int32
+
+# bitstream capacity per MB, in bits, of the CAVLC word buffer (as
+# x264_tpu sizes it; the host raises if a slice exceeds it)
+CAP_BITS_PER_MB = 4800
+
+
+def capacity_words(nmb: int) -> int:
+    return (nmb * CAP_BITS_PER_MB + edev.HDR_SLOTS * 32 + 4096) // 32
+
 
 _ZERO_MAPS: dict = {}
 
@@ -72,6 +85,39 @@ def _aq_map(aq, y, u, v, mb_h: int, mb_w: int, qp: int,
                                   chroma_qp_offset)[0]
 
 
+def _intra_front(mb_h: int, mb_w: int, y, u, v, qtab: dict, lam: int,
+                 qp: int, chroma_qp_offset: int, i8x8: bool, aq):
+    """K16 under AQ, K1, then K17 under AQ (x264_tpu's _encode_i16_aq):
+    returns (K1's planes, with dqp / dqp_prev_nz under AQ, and the QP map
+    the MBs decode with)."""
+    qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
+    out = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
+                                 qp_map)
+    qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
+    if qp_map is not None:
+        # an I_NxN MB without coded residual codes no mb_qp_delta
+        cnz = (out["chroma_ac"][..., 1:] != 0).flatten(2).any(-1) \
+            | (out["chroma_dc"] != 0).flatten(2).any(-1)
+        has_dqp = ~out["i4_mb"] | (out["cbp_luma_bits"] > 0) | cnz
+        out["dqp"], qp_mb, out["dqp_prev_nz"] = eaq.dqp_syntax(
+            qp_map, has_dqp, qp)
+    return out, qp_mb
+
+
+def _intra_tail(mb_h: int, mb_w: int, out: dict, qp_mb, deblock_on: bool,
+                alpha_off: int, beta_off: int, chroma_qp_offset: int,
+                i8x8: bool):
+    """K2 on the IDR's recon (when deblock_on) -> (ry, ru, rv)."""
+    ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
+    if deblock_on:
+        intra_mb, z4, zmv = _zero_maps(mb_h, mb_w, ry.device)
+        ry, ru, rv = odeblock.deblock_frame(
+            mb_h, mb_w, ry, ru, rv, qp_mb, intra_mb, z4, z4, zmv, z4, zmv,
+            False, alpha_off, beta_off, chroma_qp_offset,
+            out["t8_mb"] if i8x8 else None)
+    return ry, ru, rv
+
+
 def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
                          qtab: dict, lam: int, qp: int, alpha_off: int,
                          beta_off: int, chroma_qp_offset: int,
@@ -88,31 +134,44 @@ def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
     as (strength, qp_min, qp_max), qtab then holding the 52-QP stack
     "aq_stack"; the result then also holds dqp and qp_eff (mb_h, mb_w),
     the mb_qp_delta values and the QPs the MBs decode with."""
-    qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
-    out = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
-                                 qp_map)
-    qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
-    if qp_map is not None:
-        # an I_NxN MB without coded residual codes no mb_qp_delta
-        cnz = (out["chroma_ac"][..., 1:] != 0).flatten(2).any(-1) \
-            | (out["chroma_dc"] != 0).flatten(2).any(-1)
-        has_dqp = ~out["i4_mb"] | (out["cbp_luma_bits"] > 0) | cnz
-        out["dqp"], qp_mb, out["dqp_prev_nz"] = eaq.dqp_syntax(
-            qp_map, has_dqp, qp)
+    out, qp_mb = _intra_front(mb_h, mb_w, y, u, v, qtab, lam, qp,
+                              chroma_qp_offset, i8x8, aq)
     ops, n_ops = cabac_planes.i_slice_ops(out, mb_h, mb_w, t8)
-    ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
-    if deblock_on:
-        intra_mb, z4, zmv = _zero_maps(mb_h, mb_w, y.device)
-        ry, ru, rv = odeblock.deblock_frame(
-            mb_h, mb_w, ry, ru, rv, qp_mb, intra_mb, z4, z4, zmv, z4, zmv,
-            False, alpha_off, beta_off, chroma_qp_offset,
-            out["t8_mb"] if i8x8 else None)
+    ry, ru, rv = _intra_tail(mb_h, mb_w, out, qp_mb, deblock_on, alpha_off,
+                             beta_off, chroma_qp_offset, i8x8)
     h32 = host32_pack([n_ops, mb_h * mb_w, 0], y, u, v, ry, ru, rv,
                       crop_w, crop_h, with_metrics)
     ret = dict(recon_y=ry, recon_u=ru, recon_v=rv, ops=ops, host32=h32)
     if i8x8:
         ret["t8_mb"] = out["t8_mb"]
-    if qp_map is not None:
+    if aq is not None:
+        ret.update(dqp=out["dqp"], qp_eff=qp_mb)
+    return ret
+
+
+def encode_i16_idr(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
+                   qtab: dict, lam: int, qp: int, hdr_vals, hdr_lens,
+                   alpha_off: int, beta_off: int, chroma_qp_offset: int,
+                   crop_w: int, crop_h: int, with_metrics: bool,
+                   aq=None) -> dict:
+    """One IDR frame, CAVLC entropy (x264_tpu's encode_i16_idr): K16 under
+    AQ, K1 (I16x16 and I4x4), K17 under AQ, K18 (the slice header's slots
+    hdr_vals / hdr_lens, from entropy/device.py:header_slots, the MBs'
+    codes and the stop bit), K2 and K4. Returns dict(recon_y/u/v, words
+    (int32 bit patterns, capacity_words(nmb) of them, the first
+    ceil(nbits / 32) live), host32 = [nbits, nmb, 0, ssd_y, ssd_u, ssd_v,
+    ssim], mode16, modec, and under aq dqp and qp_eff)."""
+    out, qp_mb = _intra_front(mb_h, mb_w, y, u, v, qtab, lam, qp,
+                              chroma_qp_offset, False, aq)
+    words, nbits = edev.cavlc_i_slice(out, mb_h, mb_w, hdr_vals, hdr_lens,
+                                      capacity_words(mb_h * mb_w))
+    ry, ru, rv = _intra_tail(mb_h, mb_w, out, qp_mb, deblock_on, alpha_off,
+                             beta_off, chroma_qp_offset, False)
+    h32 = host32_pack([nbits, mb_h * mb_w, 0], y, u, v, ry, ru, rv,
+                      crop_w, crop_h, with_metrics)
+    ret = dict(recon_y=ry, recon_u=ru, recon_v=rv, words=words, host32=h32,
+               mode16=out["mode16"], modec=out["modec"])
+    if aq is not None:
         ret.update(dqp=out["dqp"], qp_eff=qp_mb)
     return ret
 
@@ -160,5 +219,48 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     if t8:
         ret["t8_mb"] = maps["t8_mb"]
     if qp_map is not None:
+        ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
+    return ret
+
+
+def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
+             ref_y, ref_u, ref_v, qtab: dict, lam: int, qp: int, hdr_vals,
+             hdr_lens, alpha_off: int, beta_off: int, chroma_qp_offset: int,
+             mvp_seed, crop_w: int, crop_h: int, with_metrics: bool,
+             decimate: bool, subpel_steps=(), parts: bool = False,
+             p8x8: bool = False, chroma_me: bool = False, rd: bool = False,
+             aq=None) -> dict:
+    """One P frame at subme 1-9 with one reference, CAVLC entropy
+    (x264_tpu's encode_p): K16 under AQ, encode_p_front as encode_p_cabac
+    runs it without the 8x8 transform, K8's pass A alone
+    (cabac_planes.p_maps), K17 under AQ, K19 (header slots, the MBs'
+    codes, the trailing skip run, the stop bit), K2 with pass A's maps and
+    K4. Returns dict(recon_y/u/v, words, host32 = [nbits, n_intra,
+    n_skip, ssd_y, ssd_u, ssd_v, ssim], mv, ptype, and under aq dqp and
+    qp_eff)."""
+    qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
+    front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
+                                 ref_u, ref_v, qtab, lam, mvp_seed, decimate,
+                                 subpel_steps, parts, p8x8, chroma_me, rd,
+                                 False, qp_map)
+    maps = cabac_planes.p_maps(front, mb_h, mb_w)
+    qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
+    if qp_map is not None:
+        maps["dqp"], qp_mb, _ = eaq.dqp_syntax(
+            qp_map, cabac_planes.has_dqp_p(maps, front), qp)
+    words, nbits = edev.cavlc_p_slice(front, maps, mb_h, mb_w, hdr_vals,
+                                      hdr_lens, capacity_words(mb_h * mb_w))
+    ry, ru, rv = front["recon_y"], front["recon_u"], front["recon_v"]
+    if deblock_on:
+        _, z4, zmv = _zero_maps(mb_h, mb_w, y.device)
+        ry, ru, rv = odeblock.deblock_frame(
+            mb_h, mb_w, ry, ru, rv, qp_mb, front["intra_mb"], maps["nnz4"],
+            maps["ref4"], maps["mv4"], z4, zmv, False, alpha_off, beta_off,
+            chroma_qp_offset)
+    h32 = host32_pack([nbits, front["intra_mb"].sum(), maps["skip"].sum()],
+                      y, u, v, ry, ru, rv, crop_w, crop_h, with_metrics)
+    ret = dict(recon_y=ry, recon_u=ru, recon_v=rv, words=words, host32=h32,
+               mv=maps["mv"], ptype=maps["ptype"])
+    if aq is not None:
         ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
     return ret

@@ -675,6 +675,63 @@ def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int,
     return maps, ops, n
 
 
+def _launch_p_maps(front: dict, mb_h: int, mb_w: int, t8_mode: bool):
+    """Launch K8's pass A (csrc/cabac_ops.cu cabac_p_maps) on CUDA tensors;
+    returns its maps as p_maps_plain does."""
+    dev = front["intra_mb"].device
+    shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
+                  me_mv=((mb_h, mb_w, 2), I32),
+                  ptype=((mb_h, mb_w), I32),
+                  mv_quad=((mb_h, mb_w, 4, 2), I32),
+                  cbp_luma_bits=((mb_h, mb_w), I32),
+                  cbp_chroma=((mb_h, mb_w), I32),
+                  luma_blocks=((mb_h, mb_w, 16, 16), I32))
+    if t8_mode:
+        shapes.update(t8_sel=((mb_h, mb_w), torch.bool),
+                      luma8_z=((mb_h, mb_w, 4, 64), I32))
+    for k, (shape, dt) in shapes.items():
+        cuda.check(front[k], shape, dt, k)
+    fp = lambda k: front[k].data_ptr() if k in shapes else 0
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    maps = dict(skip=e(mb_h, mb_w, dt=torch.bool), mv=e(mb_h, mb_w, 2),
+                mvd=e(mb_h, mb_w, 2), mvd1=e(mb_h, mb_w, 2),
+                ptype=e(mb_h, mb_w), mv_sub=e(mb_h, mb_w, 4, 2),
+                mvd_sub=e(mb_h, mb_w, 4, 2), mvd4=e(mb_h * 4, mb_w * 4, 2),
+                nnz4=e(mb_h * 4, mb_w * 4), ref4=e(mb_h * 4, mb_w * 4),
+                mv4=e(mb_h * 4, mb_w * 4, 2))
+    if t8_mode:
+        maps["t8_mb"] = e(mb_h, mb_w, dt=torch.bool)
+    mp = lambda k: maps[k].data_ptr() if k in maps else 0
+    cuda.launch("cabac_ops", "cabac_p_maps", "p" * 21 + "ii" + "p",
+                *[fp(k) for k in ("intra_mb", "me_mv", "ptype", "mv_quad",
+                                  "cbp_luma_bits", "cbp_chroma",
+                                  "luma_blocks", "t8_sel", "luma8_z")],
+                *[mp(k) for k in ("skip", "mv", "mvd", "mvd1", "ptype",
+                                  "mv_sub", "mvd_sub", "mvd4", "nnz4",
+                                  "ref4", "mv4", "t8_mb")],
+                mb_h, mb_w, cuda.stream(dev))
+    return maps
+
+
+def p_maps(front: dict, mb_h: int, mb_w: int) -> dict:
+    """K8's pass A alone (`cabac_p_maps`), for the CAVLC P slice: the MV
+    prediction of every partition, P_Skip, the mvds and the 4x4 maps of
+    encoder/inter.py:p_maps_plain, its plain version, which runs on CPU
+    tensors. Replaces the stage-4 map derivation of
+    x264_tpu/encoder/inter.py:encode_p_body (inter.py:733-842) with
+    encoder/mvpred.py's predictors. One launch, counted here; the CABAC
+    path's pass A counts under cabac_p_ops."""
+    if front["intra_mb"].device.type == "cpu":
+        from ..encoder.inter import p_maps_plain
+        return p_maps_plain(front, mb_h, mb_w)
+    maps = _launch_p_maps(front, mb_h, mb_w, False)
+    p_maps.launches += 1
+    return maps
+
+
+p_maps.launches = 0
+
+
 def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                 t8_mode: bool = False, aq=None):
     """K8 `cabac_p_ops`: stage 4 of the P encode and the compacted CABAC
@@ -702,42 +759,17 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
         return cabac_p_ops_plain(front, mb_h, mb_w, t8_mode, aq)
     dev = front["intra_mb"].device
     nmb = mb_h * mb_w
-    shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
-                  me_mv=((mb_h, mb_w, 2), I32),
-                  ptype=((mb_h, mb_w), I32),
-                  mv_quad=((mb_h, mb_w, 4, 2), I32),
-                  mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
-                  cbp_luma_bits=((mb_h, mb_w), I32),
-                  cbp_chroma=((mb_h, mb_w), I32),
+    shapes = dict(mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
                   luma_dc=((mb_h, mb_w, 16), I32),
-                  luma_blocks=((mb_h, mb_w, 16, 16), I32),
                   chroma_dc=((mb_h, mb_w, 2, 4), I32),
                   chroma_ac=((mb_h, mb_w, 2, 4, 16), I32))
-    if t8_mode:
-        shapes.update(t8_sel=((mb_h, mb_w), torch.bool),
-                      luma8_z=((mb_h, mb_w, 4, 64), I32))
     for k, (shape, dt) in shapes.items():
         cuda.check(front[k], shape, dt, k)
-    fp = lambda k: front[k].data_ptr() if k in shapes else 0
+    maps = _launch_p_maps(front, mb_h, mb_w, t8_mode)
+    fp = lambda k: front[k].data_ptr() if t8_mode or k != "luma8_z" else 0
     e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
-    maps = dict(skip=e(mb_h, mb_w, dt=torch.bool), mv=e(mb_h, mb_w, 2),
-                mvd=e(mb_h, mb_w, 2), mvd1=e(mb_h, mb_w, 2),
-                ptype=e(mb_h, mb_w), mv_sub=e(mb_h, mb_w, 4, 2),
-                mvd_sub=e(mb_h, mb_w, 4, 2), mvd4=e(mb_h * 4, mb_w * 4, 2),
-                nnz4=e(mb_h * 4, mb_w * 4), ref4=e(mb_h * 4, mb_w * 4),
-                mv4=e(mb_h * 4, mb_w * 4, 2))
-    if t8_mode:
-        maps["t8_mb"] = e(mb_h, mb_w, dt=torch.bool)
     mp = lambda k: maps[k].data_ptr() if k in maps else 0
     stream = cuda.stream(dev)
-    cuda.launch("cabac_ops", "cabac_p_maps", "p" * 21 + "ii" + "p",
-                *[fp(k) for k in ("intra_mb", "me_mv", "ptype", "mv_quad",
-                                  "cbp_luma_bits", "cbp_chroma",
-                                  "luma_blocks", "t8_sel", "luma8_z")],
-                *[mp(k) for k in ("skip", "mv", "mvd", "mvd1", "ptype",
-                                  "mv_sub", "mvd_sub", "mvd4", "nnz4",
-                                  "ref4", "mv4", "t8_mb")],
-                mb_h, mb_w, stream)
     if aq is not None:
         from ..encoder.aq import dqp_syntax
         maps["dqp"], maps["qp_eff"], maps["dqp_prev_nz"] = dqp_syntax(
