@@ -84,6 +84,14 @@ Phases; any failure exits non-zero before the result line:
      frames 0 and 26 only, and some MBs must code a nonzero
      mb_qp_delta; the phase reports as phase 9, the K18 / K19 device
      time in the profiler's split.
+ 12. x264_tpu's defaults with the CABAC trellis (--trellis 1, as real
+     x264's defaults have it with CABAC), on phase 7's 32 frames. Every
+     kernel of phase 9 must launch and K6 must take its trellis branch
+     on every P frame (K20's device code runs inside K6; K20 itself
+     runs in phase 3 alone), frames 0-1 must equal a CPU run at the
+     same pipe depth and the IDRs must fall at frames 0 and 26 only;
+     the phase reports as phase 9, against phase 9's fps, bytes,
+     PSNR / SSIM and frame QPs, and the profiler's split with K6.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
@@ -102,12 +110,18 @@ with frame 0's QP map and K17's dqp, and with a capacity that drops
 codes; K8's pass A alone and K19 on frame 1 against frame 0's recon, the
 partition reference, a reference with 30% of its 64x64 tiles gray and
 30% copied from frame 1 (intra MBs, skip runs) and with frame 1's QP
-map, and K19 with a capacity that drops codes. The line before the last
-is the JSON `kernels` record (the 8x8, AQ and CAVLC variants as records
-of their own, each counting the launches that took its branch;
-`launches` is the count of the kernel's own main path, phase 11 for
-K18, K19 and K8's pass A alone, phase 9 for the others, the other
-phases' beside it); the last line is
+map, and K19 with a capacity that drops codes; and the trellis: K20
+exact at each category on frame 1's coefficients against frame 0's
+recon at QP 26, at cat 2 and 5 with the 52-QP stacks and a seeded row
+per block, at QP 4 on the half-flat frame (levels past the ue escape),
+and K6 with the trellis at t8 0, 1 and 2, at QP 26 and with frame 1's QP
+map. The line before the last is the JSON `kernels` record (the 8x8,
+AQ, CAVLC and trellis variants as records of their own, each counting
+the launches that took its branch; `launches` is the count of the
+kernel's own main path, phase 11 for K18, K19 and K8's pass A alone,
+phase 12 for K6's trellis branch and K20 (0: its device code runs
+inside K6), phase 9 for the others, the other phases' beside it); the
+last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
 
@@ -139,6 +153,7 @@ N_DEFAULTS = 32                # frames of x264_tpu's defaults (phases 9
 N_INTRA_CAVLC = 5              # frames of bench.py's all-intra CAVLC line
                                # (phase 10)
 N_CHECK_CAVLC = 1              # frames of phase 11 held against the CPU
+N_TRELLIS = 32                 # frames of the defaults with the trellis
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
@@ -204,6 +219,14 @@ K17_OPS_PER_MB = 16
 # the count grids another 400, and each live code costs ~20 ops a pass
 K18_OPS_PER_MB = 2 * 408 * 6 + 400
 K18_OPS_PER_BIT = 2 * 20 // 4
+# K20 (and K6's trellis branch), counted from the data: per candidate
+# level it scores (q at every position, q - 1 where q > 0), from each of
+# the 8 nodes the base add, up to four bit-cost adds, the multiply-add and
+# the compare-select (~9 ops), plus the level's unquant, distortion and
+# prefix (~12); per position the quant, the history word and the
+# backtrack step
+K20_OPS_PER_CAND = 8 * 9 + 12
+K20_OPS_PER_POS = 28
 
 
 T0 = time.perf_counter()
@@ -314,6 +337,14 @@ def cavlc_defaults_params(EncoderParams, frame_parallel: int = 3):
     validate() turns 8x8dct and I8x8 off without CABAC)."""
     return EncoderParams(i_width=W, i_height=H, b_cabac=False,
                          i_log_level=0, i_frame_parallel=frame_parallel)
+
+
+def trellis_params(EncoderParams, frame_parallel: int = 3):
+    """x264_tpu's own defaults with the CABAC trellis on (--trellis 1, as
+    real x264's own defaults have it with CABAC), nothing else set."""
+    p = defaults_params(EncoderParams, frame_parallel)
+    p.analyse.i_trellis = 1
+    return p
 
 
 def params(EncoderParams, frame_parallel: int, keyint: int = 1,
@@ -486,7 +517,8 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("aq_qp_kernel", "K16"), ("dqp_kernel", "K17"),
                  ("i_counts_kernel", "K18"), ("i_bits_kernel", "K18"),
                  ("i_write_kernel", "K18"), ("p_counts_kernel", "K19"),
-                 ("p_bits_kernel", "K19"), ("p_write_kernel", "K19"))
+                 ("p_bits_kernel", "K19"), ("p_write_kernel", "K19"),
+                 ("trellis_kernel", "K20"))
 
 
 def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
@@ -577,7 +609,9 @@ def main() -> None:
     from x264_tpu_torch.entropy import device as cavlc
     from x264_tpu_torch.entropy.bitstream import BitWriter
     from x264_tpu_torch.headers import SLICE_I, SLICE_P, SliceHeader
+    from x264_tpu_torch.ops import dct as odct
     from x264_tpu_torch.ops import deblock, mc, me
+    from x264_tpu_torch.ops import trellis as otrellis
 
     # ---------------------------------------------------------- 1. card
     smi = subprocess.run(
@@ -1542,6 +1576,140 @@ def main() -> None:
                K3_OPS_PER_OP * n_opsa + K3_OPS_PER_MB * nmb
                + K17_OPS_PER_MB * nmb)
 
+    # ---------------------------------------------------------- trellis
+    stamp("phase 3: the trellis's kernels")
+    zig4 = torch.as_tensor(tables.ZIGZAG4, device=dev).long()
+    zig8 = torch.as_tensor(tables.ZIGZAG8, device=dev).long()
+    cqm = {2: tables.CQM_4PY, 3: tables.CQM_4PC, 4: tables.CQM_4PC,
+           5: tables.CQM_8PY}
+
+    def trellis_coefs(src, pred):
+        """The forward-transform coefficients, in scan order, of each
+        trellis category of the residual src - pred (planes): cat 2 the
+        luma 4x4 blocks, cat 5 the luma 8x8 blocks, cat 4 the chroma AC
+        (zig-zag positions 1..15) and cat 3 the chroma DC Hadamard, both
+        channels."""
+        d = inter._tiles(src[0], 16) - inter._tiles(pred[0], 16)
+        c2 = odct.dct4x4(intra._blocks4(d, 4)).reshape(-1, 16)[:, zig4]
+        c5 = odct.dct8x8(d.reshape(-1, 2, 8, 2, 8).transpose(2, 3)) \
+            .reshape(-1, 64)[:, zig8]
+        cc = [odct.dct4x4(intra._blocks4(inter._tiles(a, 8)
+                                         - inter._tiles(b, 8), 2))
+              for a, b in zip(src[1:], pred[1:])]
+        c4 = torch.cat([c.reshape(-1, 16)[:, zig4][:, 1:] for c in cc])
+        c3 = torch.cat([odct.hadamard2x2(c[..., 0, 0]).reshape(-1, 4)
+                        for c in cc])
+        return {c: t.to(torch.int32).contiguous()
+                for c, t in ((2, c2), (3, c3), (4, c4), (5, c5))}
+
+    def trellis_ops(cats, qmfs):
+        """The trellis's operations on this data: K20_OPS_PER_CAND for each
+        candidate level scored (q at every position, q - 1 only where q >
+        0), K20_OPS_PER_POS for each position's quant and backtrack. qmfs:
+        each category's qmf, (C,) shared or (N, C) a row per block."""
+        n = 0
+        for c, cf in cats.items():
+            q = (cf.abs() * qmfs[c] + (1 << 15)) >> 16
+            n += K20_OPS_PER_CAND * (cf.numel() + int((q > 0).sum())) \
+                + K20_OPS_PER_POS * cf.numel()
+        return n
+
+    # K20 on frame 1's coefficients against frame 0's recon, at QP 26 with
+    # shared consts: the four categories of one P frame
+    cats = trellis_coefs((y1, u1, v1), (ry, ru, rv))
+    tabs = {c: otrellis.pack_trellis(otrellis.make_consts(
+        QP, c, cqm[c], False, 0, state_qp=QP), dev) for c in cats}
+    err20, ms20, pl20 = 0, 0.0, 0.0
+    for c, cf in cats.items():
+        k20 = otrellis.trellis_scan(cf, tabs[c])
+        p20 = {}
+        pl20 += event_ms(lambda: p20.update(o=otrellis.trellis_scan_plain(
+            cf, tabs[c])), 1)
+        err20 = max(err20, exact(f"K20 trellis_scan (cat {c}, QP {QP})",
+                                 [k20], [p20["o"]]))
+        ms20 += event_ms(lambda: otrellis.trellis_scan(cf, tabs[c]), 5)
+    record("trellis_scan", "cuda", "x264_tpu_torch/csrc/trellis.cu",
+           "x264_tpu/ops/trellis.py:236", err20, ms20, pl20,
+           2 * nbytes(*cats.values()) + nbytes(*tabs.values()),
+           trellis_ops(cats, {c: otrellis.unpack_trellis(
+               tabs[c], cats[c].shape[1])["qmf"] for c in cats}))
+    print(f"K20 trellis_scan: exact on frame 1's {', '.join(f'cat {c} '
+          f'{tuple(cf.shape)}' for c, cf in cats.items())} at QP {QP} "
+          f"(shared consts), {ms20:.3f} ms for the four", flush=True)
+    # K20 with the 52-QP stacks and a seeded row per block (QP 1-51)
+    rng20 = np.random.default_rng(20)
+    for c in (2, 5):
+        cf = cats[c]
+        st = otrellis.pack_trellis(otrellis.make_consts_all_qp(
+            c, cqm[c], False, 0), dev)
+        qi = torch.as_tensor(rng20.integers(1, 52, cf.shape[0]),
+                             dtype=torch.int32, device=dev)
+        exact(f"K20 trellis_scan (cat {c}, 52-QP stack)",
+              [otrellis.trellis_scan(cf, st, qi)],
+              [otrellis.trellis_scan_plain(cf, st, qi)])
+        ms = event_ms(lambda: otrellis.trellis_scan(cf, st, qi), 5)
+        print(f"K20 trellis_scan (cat {c}, 52-QP stack, rows over QP "
+              f"1-51): exact, {ms:.3f} ms", flush=True)
+    # K20 at QP 4 on the half-flat frame against a gray prediction, where
+    # levels reach the ue escape (>= 15)
+    flat = tuple(torch.full_like(a, 128) for a in (yh, uh, vh))
+    cf = trellis_coefs((yh, uh, vh), flat)[2]
+    tab4 = otrellis.pack_trellis(otrellis.make_consts(
+        4, 2, tables.CQM_4PY, False, 0, state_qp=4), dev)
+    k20 = otrellis.trellis_scan(cf, tab4)
+    exact("K20 trellis_scan (cat 2, QP 4, half-flat)", [k20],
+          [otrellis.trellis_scan_plain(cf, tab4)])
+    n_esc = int((k20.abs() >= 15).sum())
+    if n_esc == 0:
+        fail("K20 at QP 4 on the half-flat frame made no level >= 15")
+    print(f"K20 trellis_scan (cat 2, QP 4, half-flat frame): exact, {n_esc} "
+          f"levels >= 15 (largest {int(k20.abs().max())})", flush=True)
+    # K6 with the trellis at t8 0, 1 and 2: at QP 26 with the frame's
+    # consts, and with frame 1's QP map and the 52-QP stacks
+    _, s6 = spied_front((ry, ru, rv), qtab_rd, True, True, ("p_inter_mb",))
+    a6t = s6["p_inter_mb"][0][:10]
+    tr_frame = {**qtab_rd, **inter.trellis_consts(
+        QP, tables.chroma_qp(QP, 0), 0, dev)}
+    tr_stack = {**qtab_rd_aq, **inter.trellis_stacks(0, 0, dev)}
+    k6t_ms = {}
+    for qtab_t, qm, tag in ((tr_frame, None, f"QP {QP}"),
+                            (tr_stack, qm1, "QP map")):
+        for t8m in (inter.T8_OFF, inter.T8_SA8D, inter.T8_RD):
+            a6x = (*a6t, qtab_t, True, t8m, qm)
+            n0 = inter.p_inter_mb.launches_trellis
+            k6x = inter.p_inter_mb(*a6x)
+            if inter.p_inter_mb.launches_trellis != n0 + 1:
+                fail("K6 did not count its trellis launch")
+            err6t = exact(f"K6 p_inter_mb with the trellis ({tag}, t8 "
+                          f"{t8m})", k6x, inter.p_inter_mb_plain(*a6x))
+        k6t_ms[tag] = (event_ms(lambda: inter.p_inter_mb(*a6x), 10),
+                       event_ms(lambda: inter.p_inter_mb_plain(*a6x), 1),
+                       event_ms(lambda: inter.p_inter_mb(
+                           *a6x[:10], qtab_rd_aq if qm is not None
+                           else qtab_rd, True, t8m, qm), 10))
+    preds = [inter._untiles(p.reshape(nmb, *p.shape[2:]), mb_h, mb_w)
+             for p in inter.partition_preds(*a6t[5:10])]
+    cats6 = trellis_coefs(a6t[2:5], preds)
+    # each block's qmf row: luma by its MB's QP, chroma by its chroma QP
+    rows = qm1.flatten().long()
+    rows_c = tr_stack["trellis_qpc_of"][rows]
+    qmfs6 = {c: tr_stack[key]["qmf"][r.repeat_interleave(n).repeat(k)]
+             for key, c, r, n, k in (("trellis", 2, rows, 16, 1),
+                                     ("trellis8", 5, rows, 4, 1),
+                                     ("trellis_pc", 4, rows_c, 4, 2),
+                                     ("trellis_pc_dc", 3, rows_c, 1, 2))}
+    ms6t, pl6t, ms6n = k6t_ms["QP map"]
+    record("p_inter_mb_trellis", "cuda", "x264_tpu_torch/csrc/inter.cu",
+           "x264_tpu/encoder/inter.py:123", err6t, ms6t, pl6t,
+           nbytes(*a6t[2:10], tr_stack["trellis_tab"], stacks["inter"], qm1,
+                  *k6x.values()),
+           K6_T8_OPS_PER_MB * nmb + trellis_ops(cats6, qmfs6))
+    print(f"K6 p_inter_mb with the trellis: exact at t8 0 / 1 / 2 at QP {QP}"
+          f" and with frame 1's QP map; at t8 2 {k6t_ms[f'QP {QP}'][0]:.3f} ms"
+          f" (without the trellis {k6t_ms[f'QP {QP}'][2]:.3f}) at QP {QP}, "
+          f"{ms6t:.3f} ms (without {ms6n:.3f}) with the map [{smi_line}]",
+          flush=True)
+
     # ------------------------------------------------------------ CAVLC
     stamp("phase 3: CAVLC's kernels")
     cap = pipeline.capacity_words(nmb)
@@ -1737,7 +1905,8 @@ def main() -> None:
                 "dqp_syntax": aq.dqp_syntax,
                 "cavlc_i_slice": cavlc.cavlc_i_slice,
                 "cavlc_p_slice": cavlc.cavlc_p_slice,
-                "p_maps": cabac_planes.p_maps}
+                "p_maps": cabac_planes.p_maps,
+                "trellis_scan": otrellis.trellis_scan}
     # the kernels and branches of variance AQ, idle at constant QP
     aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
                "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
@@ -1761,7 +1930,14 @@ def main() -> None:
                 "intra_in_p_aq": (inter.intra_in_p, "launches_aq"),
                 "cabac_p_ops_aq": (cabac_planes.cabac_p_ops, "launches_aq"),
                 "cavlc_i_slice_aq": (cavlc.cavlc_i_slice, "launches_aq"),
-                "cavlc_p_slice_aq": (cavlc.cavlc_p_slice, "launches_aq")}
+                "cavlc_p_slice_aq": (cavlc.cavlc_p_slice, "launches_aq"),
+                "p_inter_mb_trellis": (inter.p_inter_mb,
+                                       "launches_trellis")}
+    # K6's trellis branch, idle without --trellis, and K20, whose device
+    # code runs inside K6 on every path (held against its plain version
+    # in phase 3 alone)
+    trellis_only = ("p_inter_mb_trellis",)
+    standalone = ("trellis_scan",)
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
                   scenecut: int = 0, src=None, make=None):
@@ -1918,7 +2094,8 @@ def main() -> None:
     # and so do variance AQ's kernels and branches at constant QP
     for k, n in launches_8.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in aq_only
-                        or k in cavlc_only):
+                        or k in cavlc_only or k in trellis_only
+                        or k in standalone):
             fail(f"kernel {k} was launched {n} times on the {what8}")
     if any(t is None for v in t8_seen.values() for t in v):
         fail(f"{what8}: a frame ran without the 8x8 transform")
@@ -1964,7 +2141,8 @@ def main() -> None:
         fail(f"{what9}: the defaults did not turn on CRF, variance AQ, the "
              f"8x8 transform, I8x8, the RD ladder and the lookahead")
     for k, n in launches_9.items():
-        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only):
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
+                        or k in trellis_only or k in standalone):
             fail(f"kernel {k} was launched {n} times on {what9}")
     if any(d is None for v in seen9.values() for d in v):
         fail(f"{what9}: a frame ran without the mb_qp_delta planes")
@@ -1981,6 +2159,10 @@ def main() -> None:
                 f"wait on the lookahead "
                 f"{enc.rc.lookahead_wait_s / N_DEFAULTS * 1e3:.3f} ms a frame",
                 idrs=(0, CUT), rc="CRF 23")
+    ph9 = dict(fps=fps, qps=qps, idr=len(done[0].payload),
+               p=statistics.mean(len(e.payload) for i, e in enumerate(done)
+                                 if i not in (0, CUT)),
+               psnr=summary["psnr"]["avg"], ssim=summary["ssim_y"])
     same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250, what9,
                 make=defaults_params, frame_parallel=3)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=defaults_params,
@@ -2024,7 +2206,8 @@ def main() -> None:
              f"variance AQ, the RD ladder and the lookahead, and off the "
              f"8x8 transform and I8x8")
     idle11 = set(cabac_only) | {k for k in launches_11 if "t8" in k
-                                or "i8x8" in k}
+                                or "i8x8" in k} | set(trellis_only) \
+        | set(standalone)
     for k, n in launches_11.items():
         if (n <= 0) != (k in idle11):
             fail(f"kernel {k} was launched {n} times on {what11}")
@@ -2047,9 +2230,52 @@ def main() -> None:
                 what11, make=cavlc_defaults_params, frame_parallel=3)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40,
                  make=cavlc_defaults_params, tag=what11)
+    # ------ 12. x264_tpu's defaults with the CABAC trellis (--trellis 1)
+    stamp("phase 12")
+    seen12 = {"IDR": [], "P": []}
+    encode_idr, encode_p = pipeline.encode_i16_idr_cabac, \
+        pipeline.encode_p_cabac
+    pipeline.encode_i16_idr_cabac = seen_dqp(encode_idr, "IDR", seen12)
+    pipeline.encode_p_cabac = seen_dqp(encode_p, "P", seen12)
+    what12 = "x264_tpu's defaults with --trellis 1 (CRF 23, variance AQ)"
+    done, summary, launches_12, header, fps, med, enc = main_path(
+        250, N_TRELLIS, what12, src=cut, make=trellis_params)
+    pipeline.encode_i16_idr_cabac, pipeline.encode_p_cabac = encode_idr, \
+        encode_p
+    if not (enc._trellis and enc._aq and enc._t8 and enc._i8x8 and enc._rd
+            and enc._analyse_lowres and enc.rc.method == 1):
+        fail(f"{what12}: the trellis did not open at the defaults")
+    for k, n in launches_12.items():
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
+                        or k in standalone):
+            fail(f"kernel {k} was launched {n} times on {what12}")
+    if launches_12["p_inter_mb_trellis"] != launches_12["p_inter_mb"]:
+        fail(f"{what12}: K6 ran {launches_12['p_inter_mb']} times, "
+             f"{launches_12['p_inter_mb_trellis']} of them with the trellis")
+    if len(seen12["IDR"]) != 2:
+        fail(f"{what12}: {len(seen12['IDR'])} IDRs")
+    qps = [e.qp for e in enc.rc.entries]
+    p12 = statistics.mean(len(e.payload) for i, e in enumerate(done)
+                          if i not in (0, CUT))
+    ippp_report(done, summary, enc.stats, fps, med, N_TRELLIS, 6, smi_line,
+                nmb, f", CRF 23 with variance AQ and trellis 1: frame QPs "
+                f"{min(qps)}-{max(qps)} ({qps}), IDRs at frames 0 and {CUT}; "
+                f"against phase 9 (the same without the trellis): {fps:.3f} "
+                f"fps vs {ph9['fps']:.3f}, IDR {len(done[0].payload)} vs "
+                f"{ph9['idr']} bytes, P {p12:.0f} vs {ph9['p']:.0f} bytes/"
+                f"frame, PSNR avg {summary['psnr']['avg']:.4f} vs "
+                f"{ph9['psnr']:.4f} dB, SSIM {summary['ssim_y']:.6f} vs "
+                f"{ph9['ssim']:.6f}, frame QPs equal to phase 9's: "
+                f"{qps == ph9['qps']}", idrs=(0, CUT), rc="CRF 23")
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250,
+                what12, make=trellis_params, frame_parallel=3)
+    device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=trellis_params,
+                 tag=what12)
     for name, r in rec.items():
-        main = launches_11 if name in cavlc_only else launches_9
+        main = launches_11 if name in cavlc_only else launches_12 \
+            if name in trellis_only + standalone else launches_9
         r.update(launches=main[name],
+                 launches_trellis_defaults=launches_12[name],
                  launches_cavlc_defaults=launches_11[name],
                  launches_cavlc_all_intra=launches_10[name],
                  launches_defaults=launches_9[name],

@@ -4,8 +4,8 @@ blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
 non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-9,
 scenecut lookahead, the 8x8 transform and I8x8, CABAC or CAVLC,
-constant QP, CRF or 1-pass ABR with or without variance AQ) slices
-raise NotImplementedError."""
+constant QP, CRF or 1-pass ABR with or without variance AQ, the CABAC
+trellis) slices raise NotImplementedError."""
 
 import ast
 import pathlib
@@ -21,6 +21,7 @@ from x264_tpu_torch.encoder import aq, inter, intra, pipeline
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.entropy import device as cavlc_device
 from x264_tpu_torch.ops import deblock
+from x264_tpu_torch.ops import trellis
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "x264_tpu")
@@ -45,6 +46,7 @@ def test_no_jax_or_reference_imports():
             "x264_tpu_torch/encoder/lookahead.py",
             "x264_tpu_torch/ops/rdcost.py",
             "x264_tpu_torch/ops/trellis.py",
+            "x264_tpu_torch/ops/fma.py",
             "x264_tpu_torch/encoder/aq.py",
             "x264_tpu_torch/encoder/ratecontrol.py",
             "x264_tpu_torch/entropy/device.py",
@@ -66,6 +68,7 @@ def test_imports_with_jax_blocked():
             "import x264_tpu_torch.encoder.mvpred, x264_tpu_torch.ops.me\n"
             "import x264_tpu_torch.encoder.lookahead\n"
             "import x264_tpu_torch.ops.rdcost, x264_tpu_torch.ops.trellis\n"
+            "import x264_tpu_torch.ops.fma\n"
             "import x264_tpu_torch.encoder.aq\n"
             "import x264_tpu_torch.encoder.ratecontrol\n"
             "import x264_tpu_torch.entropy.device\n"
@@ -101,8 +104,7 @@ def test_encoder_default_device_needs_a_card():
 
 @pytest.mark.parametrize("field,value", [
     ("analyse__i_noise_reduction", 100), ("rc__b_stat_read", True),
-    ("i_cqm_preset", 1), ("i_bframe", 2),
-    ("analyse__i_trellis", 1), ("rc__i_qp_constant", 0)])
+    ("i_cqm_preset", 1), ("i_bframe", 2), ("rc__i_qp_constant", 0)])
 def test_outside_the_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_params(**{field: value}), device="cpu")
@@ -133,13 +135,38 @@ def test_the_ippp_slice_opens():
     x264_tpu_torch.Encoder(_p_params(), device="cpu").close()
 
 
+@pytest.mark.parametrize("trellis_mode", [1, 2])
+@pytest.mark.parametrize("rc", ["cqp", "crf", "cavlc"])
+def test_the_trellis_slice_opens(trellis_mode, rc):
+    """--trellis 1 and 2 open, at constant QP (the frame QP's consts in
+    each P qtab) and at x264_tpu's defaults (CRF + AQ: the 52-QP stacks,
+    built once); both encode alike, as in x264_tpu. Without CABAC
+    validate() turns the trellis off."""
+    if rc == "cqp":
+        p = _p_params(analyse__i_trellis=trellis_mode)
+    else:
+        p = x264_tpu_torch.EncoderParams(i_width=64, i_height=48,
+                                         i_log_level=0,
+                                         b_cabac=rc == "crf")
+        p.analyse.i_trellis = trellis_mode
+    enc = x264_tpu_torch.Encoder(p, device="cpu")
+    assert enc._trellis == (rc != "cavlc")
+    q = enc._qtab_p(26, 26)
+    assert ("trellis_tab" in q) == (rc != "cavlc")
+    if rc == "cqp":
+        assert q["trellis_tab"].shape == (inter.K6_TRELLIS_INTS,)
+    if rc == "crf":
+        assert q["trellis_tab"].shape == (52, inter.K6_TRELLIS_INTS)
+        assert enc._qtab_p(30, 30)["trellis_tab"] is q["trellis_tab"]
+    enc.close()
+
+
 @pytest.mark.parametrize("change", [
-    dict(i_frame_reference=3), dict(i_bframe=1),
-    dict(analyse__i_trellis=2), dict(i_frame_reference=2),
+    dict(i_frame_reference=3), dict(i_bframe=1), dict(i_frame_reference=2),
     dict(i_bframe=2), dict(analyse__intra=0),
     dict(b_cabac=False, i_bframe=1), dict(rc__i_vbv_buffer_size=2000),
     dict(rc__i_rc_method=2, rc__i_bitrate=2000, rc__i_vbv_max_bitrate=2000),
-    dict(rc__i_rc_method=1, rc__b_stat_read=True), dict(analyse__i_trellis=1),
+    dict(rc__i_rc_method=1, rc__b_stat_read=True),
     dict(analyse__i_noise_reduction=100), dict(i_cqm_preset=1),
     dict(rc__i_qp_constant=0), dict(rc__i_vbv_max_bitrate=2000),
     dict(i_mb_row_shards=2)], ids=lambda c: ",".join(c))
@@ -392,6 +419,41 @@ def _meta_cavlc_calls():
             front, {**maps, "dqp": t(mb_h, mb_w)}, mb_h, mb_w, *slots),
         "K8 pass A": lambda: cabac_planes.p_maps(front, mb_h, mb_w),
     }
+
+
+def _meta_trellis_calls():
+    """The trellis slice's wrappers (K20 with shared consts and with the
+    52-QP stack; K6 with the trellis, at the frame QP and with a QP map)
+    on tensors that are neither on the CPU nor on a card."""
+    mb_h, mb_w, H, W = 1, 2, 16, 32
+    t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
+    tab = lambda *s: t(*s, trellis.trellis_ints(16))
+    q = inter.make_qtab_p(26, 26, "cpu")
+    q.update(inter.trellis_consts(26, 26, 0, "cpu"))
+    qa = dict(q, aq_stack_p=t(52, inter.QTABP_INTS),
+              trellis_tab=t(52, inter.K6_TRELLIS_INTS))
+    q = {k: (v.to("meta") if torch.is_tensor(v) else v)
+         for k, v in q.items()}
+    src = (t(H, W), t(H // 2, W // 2), t(H // 2, W // 2))
+    k6 = (t(1, H + 64, W + 64), t(H // 2 + 32, W // 2 + 32),
+          t(H // 2 + 32, W // 2 + 32), t(mb_h, mb_w), t(mb_h, mb_w, 4, 2))
+    return {
+        "K20": lambda: trellis.trellis_scan(t(8, 16), tab()),
+        "K20 stacked": lambda: trellis.trellis_scan(t(8, 16), tab(52),
+                                                    t(8)),
+        "K6 trellis": lambda: inter.p_inter_mb(mb_h, mb_w, *src, *k6, q,
+                                               True, inter.T8_RD),
+        "K6 trellis aq": lambda: inter.p_inter_mb(
+            mb_h, mb_w, *src, *k6, qa, True, inter.T8_RD, t(mb_h, mb_w)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_trellis_calls()))
+def test_trellis_wrappers_never_fall_back_off_the_cpu(name):
+    """The trellis slice's wrappers launch their kernel (or raise) on any
+    tensor that is not on the CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_trellis_calls()[name]()
 
 
 @pytest.mark.parametrize("name", list(_meta_cavlc_calls()))

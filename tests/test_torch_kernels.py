@@ -1,5 +1,5 @@
 """The port's CUDA / Triton kernels against their plain PyTorch versions
-on the card, at small frames (K1-K19 and K8's pass A alone, K6 and K8
+on the card, at small frames (K1-K20 and K8's pass A alone, K6 and K8
 also with random partition layouts and quarter-pel MVs, K7 also with
 the RD decision; K1 with I8x8, K3 / K2 on its output, K6 / K13 / K8 / K2
 with the 8x8 transform; K1 / K3 / K6 / K7 / K8 / K2 / K18 / K19 with a
@@ -7,7 +7,10 @@ variance-AQ QP map; K18 / K19 with codes dropped past a small
 capacity), and the card's Encoder against the CPU's at subme 1, 2, 5
 and 6 (the last with the scenecut lookahead, and at x264_tpu's defaults
 with the 8x8 transform and I8x8, at CQP and at CRF with variance AQ),
-and with CAVLC at the defaults and all-intra at CQP.
+and with CAVLC at the defaults and all-intra at CQP; K20 at every
+trellis category, shared and stacked, K6's trellis branch at t8 0 / 1 / 2
+with and without a QP map, and the card's Encoder with --trellis 1 and 2
+against the CPU's.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -826,6 +829,112 @@ def test_cavlc_encoder_on_the_card_matches_the_cpu(card, mode,
     assert kh == ph and len(kout) == len(pout) == 5 and kq == pq
     if mode == "defaults":
         assert {o.frame_type for o in kout} == {"IDR", "P"}
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))
+    assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
+    assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5
+
+
+# ------------------------------------------------------------- trellis
+_TR_CQM = {2: tables.CQM_4PY, 3: tables.CQM_4PC, 4: tables.CQM_4PC,
+           5: tables.CQM_8PY}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cat", [2, 3, 4, 5])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_trellis_kernel_matches_plain(card, cat, stacked):
+    """K20 at each category: with one QP's consts at QP 26 and QP 4 (levels
+    past the ue escape), or with the 52-QP stack and a seeded row per
+    block; Laplacian coefficients at four scales and all-zero blocks."""
+    from x264_tpu_torch.ops import trellis
+    C = int(trellis.CAT_C[cat])
+    rng = np.random.default_rng(cat)
+    scale = rng.choice([8, 40, 200, 1500], size=(3000, 1))
+    cf = (rng.laplace(0, 1, (3000, C)) * scale).astype(np.int32)
+    cf[:64] = 0
+    cf = torch.as_tensor(cf, device=card)
+    if stacked:
+        tab = trellis.pack_trellis(trellis.make_consts_all_qp(
+            cat, _TR_CQM[cat], False, 0), card)
+        qi = torch.as_tensor(rng.integers(0, 52, 3000), dtype=torch.int32,
+                             device=card)
+        runs = [(tab, qi)]
+    else:
+        runs = [(trellis.pack_trellis(trellis.make_consts(
+            qp, cat, _TR_CQM[cat], False, 0, state_qp=26), card), None)
+            for qp in (26, 4)]
+    for tab, qi in runs:
+        n0 = trellis.trellis_scan.launches
+        k = trellis.trellis_scan(cf, tab, qi)
+        assert trellis.trellis_scan.launches == n0 + 1
+        assert torch.equal(k, trellis.trellis_scan_plain(cf, tab, qi))
+        assert not k[:64].any()
+    if not stacked:
+        assert (k.abs() >= 15).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t8", [inter.T8_OFF, inter.T8_SA8D, inter.T8_RD])
+@pytest.mark.parametrize("aq_map", [False, True])
+def test_inter_kernel_with_trellis_matches_plain(card, t8, aq_map):
+    """K6's trellis branch at t8 0 / 1 / 2, with the frame's consts at QP
+    26 or with a QP map and the 52-QP stacks, on random partitions."""
+    args, _ = _inter_args(card, "inter", True, parts=True)
+    q, qm = args[10], None
+    if aq_map:
+        y, u, v = args[2:5]
+        qm = aq.qp_map_from_planes_plain(y, u, v, MB_H, MB_W, 26, 1.0, 10,
+                                         51, 0)[0]
+        q = {**_with_stacks(q, card), **inter.trellis_stacks(0, 0, card)}
+    else:
+        q = {**q, **inter.trellis_consts(26, tables.chroma_qp(26), 0, card)}
+    a = (*args[:10], q, True, t8, qm)
+    n0 = inter.p_inter_mb.launches_trellis
+    k = inter.p_inter_mb(*a)
+    assert inter.p_inter_mb.launches_trellis == n0 + 1
+    p = inter.p_inter_mb_plain(*a)
+    assert set(k) == set(p)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    plain = inter.p_inter_mb_plain(*args[:10], _with_stacks(args[10], card)
+                                   if aq_map else args[10], True, t8, qm)
+    assert not torch.equal(plain["blocks_z"], p["blocks_z"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trellis_mode", [1, 2])
+def test_trellis_encoder_on_the_card_matches_the_cpu(card, trellis_mode):
+    """x264_tpu's defaults with the trellis (CRF 23 + AQ, 8x8dct, subme 6)
+    at 5x7 MBs: an IDR and two P frames on the card equal the CPU's."""
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(29)
+    base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
+    base[:, :w // 3] = 90
+    frames = [x264_tpu_torch.Frame(
+        base[t:t + h, 2 * t:2 * t + w].copy(),
+        np.full((h // 2, w // 2), 110 + 4 * t, np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+        for t in range(3)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_log_level=0)
+        p.analyse.i_trellis = trellis_mode
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs = [enc.encode(f) for f in frames]
+        outs = [o for o in outs if o is not None] + enc.flush()
+        return (enc.headers(), outs, enc.close(),
+                [e.qp for e in enc.rc.entries])
+
+    n0 = inter.p_inter_mb.launches_trellis
+    (kh, kout, ksum, kq), (ph, pout, psum, pq) = run(card), run("cpu")
+    assert inter.p_inter_mb.launches_trellis == n0 + 2
+    assert kh == ph and len(kout) == len(pout) == 3 and kq == pq
+    assert [o.frame_type for o in kout] == ["IDR", "P", "P"]
     for a, b in zip(kout, pout):
         assert a.frame_type == b.frame_type and a.payload == b.payload
         for pl in "yuv":

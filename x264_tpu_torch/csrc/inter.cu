@@ -32,6 +32,15 @@
 // prediction error, and the 8x8 coding is taken where sa8d_16x16 <
 // satd, strictly; its recon, its cbp and zero 4x4 levels are written.
 // At t8 = 2 (the RD ladder) both codings are written for K13.
+// With a trellis table (analyse.i_trellis under CABAC; x264_tpu
+// inter.py:123-133, :182-192 and intra.py:185-221, each calling
+// ops/trellis.py:236 trellis_scan) the four quant steps run trellis.cuh's
+// trellis_block in place of the deadzone quant, each in its own thread:
+// cat 2 on the luma 4x4 blocks in zig-zag, cat 5 on the 8x8 blocks (which
+// then skip decimation), cat 4 on the chroma AC zig-zag positions 1..15
+// and cat 3 on the chroma DC Hadamard; the table is the frame's four
+// categories or, with a QP map, the MB's row of the 52-QP stack.
+// Everything after the quant stays as it is.
 // What bounds it on the H100: bytes. A 1080p frame moves ~116 MB at
 // subme >= 2 (source, the four half-pel planes, the padded chroma, and
 // the recon and coefficient planes out, as int32: ~35 us at 3.35 TB/s;
@@ -40,6 +49,7 @@
 // the transform phases, keeps it far from either; a later PR can batch
 // MBs per CTA.
 #include "t8.cuh"
+#include "trellis.cuh"
 
 using namespace x264t;
 
@@ -84,7 +94,8 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     int* __restrict__ cbp_o, int* __restrict__ chroma_dc_o,
     int* __restrict__ chroma_ac_o, int* __restrict__ blocks8_o,
     uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y,
-    int* __restrict__ cbp8_o, const int* __restrict__ qp_map, int mb_h,
+    int* __restrict__ cbp8_o, const int* __restrict__ qp_map,
+    const int* __restrict__ trellis_g, int mb_h,
     int mb_w, int n_planes, int decimate, int t8) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
@@ -104,6 +115,9 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
   // ---------------------------------------------------------- fetch
   // with a QP map (variance AQ) qtab_g is the 52-QP stack: the MB's row
   const int* qrow = qtab_g + (qp_map ? qp_map[mb] * QTABP_INTS : 0);
+  // the trellis table (trellis.cuh's TR_ layout), the MB's row with a map
+  const int* tr = trellis_g ? trellis_g + (qp_map ? qp_map[mb] * TR_K6_INTS : 0)
+                            : nullptr;
   for (int i = tid; i < QTABP_INTS; i += NT)
     reinterpret_cast<int*>(&q)[i] = qrow[i];
   for (int i = tid; i < 256; i += NT) {
@@ -153,7 +167,14 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     if (t8 == 1) had4[tid] = abs_had4x4(dd);
     dct4x4(dd, co);
     int zz[16];
-    for (int i = 0; i < 16; ++i) lv[tid][i] = quant(co[i], q.py_mf[i], q.py_bias[i]);
+    if (tr) {                          // cat-2 trellis in zig-zag
+      int cz[16];
+      for (int j = 0; j < 16; ++j) cz[j] = co[kZig4P[j]];
+      trellis_block<16>(cz, trellis_tab(tr + TR_CAT2, 16), zz);
+      for (int j = 0; j < 16; ++j) lv[tid][kZig4P[j]] = zz[j];
+    } else {
+      for (int i = 0; i < 16; ++i) lv[tid][i] = quant(co[i], q.py_mf[i], q.py_bias[i]);
+    }
     for (int j = 0; j < 16; ++j) zz[j] = lv[tid][kZig4P[j]];
     score[tid] = decimate_score(zz, 16);
   } else if (t8 && tid >= 48 && tid < 56) {  // 8x8 block k: levels, or Hadamard
@@ -166,7 +187,14 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     if (tid < 52) {
       int co[64], zz[64];
       dct8x8(dd, co);
-      for (int i = 0; i < 64; ++i) lv8[k][i] = quant(co[i], q.p8_mf[i], q.p8_bias[i]);
+      if (tr) {                        // cat-5 trellis in ZIGZAG8
+        int cz[64];
+        for (int j = 0; j < 64; ++j) cz[j] = co[kZig8[j]];
+        trellis_block<64>(cz, trellis_tab(tr + TR_CAT5, 64), zz);
+        for (int j = 0; j < 64; ++j) lv8[k][kZig8[j]] = zz[j];
+      } else {
+        for (int i = 0; i < 64; ++i) lv8[k][i] = quant(co[i], q.p8_mf[i], q.p8_bias[i]);
+      }
       for (int j = 0; j < 64; ++j) zz[j] = lv8[k][kZig8[j]];
       score8[k] = decimate_score8(zz);
     } else if (t8 == 1) {
@@ -184,7 +212,15 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     cdc[ch][blk] = co[0];
     co[0] = 0;
     int zz[15];
-    for (int i = 0; i < 16; ++i) clv[ch][blk][i] = quant(co[i], q.pc_mf[i], q.pc_bias[i]);
+    if (tr) {                          // cat-4 trellis on zig-zag 1..15
+      int cz[15];
+      for (int j = 1; j < 16; ++j) cz[j - 1] = co[kZig4P[j]];
+      trellis_block<15>(cz, trellis_tab(tr + TR_CAT4, 15), zz);
+      clv[ch][blk][0] = 0;
+      for (int j = 1; j < 16; ++j) clv[ch][blk][kZig4P[j]] = zz[j - 1];
+    } else {
+      for (int i = 0; i < 16; ++i) clv[ch][blk][i] = quant(co[i], q.pc_mf[i], q.pc_bias[i]);
+    }
     for (int j = 1; j < 16; ++j) zz[j - 1] = clv[ch][blk][kZig4P[j]];
     cscore[k] = decimate_score(zz, 15);
   }
@@ -207,7 +243,9 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     int sel = 0;
     if (t8) {
       const int tot8 = score8[0] + score8[1] + score8[2] + score8[3];
-      for (int k = 0; k < 4; ++k) kill8[k] = decimate && (score8[k] < 4 || tot8 < 6);
+      // the 8x8 trellis is its own decimation (encoder/macroblock.c:630)
+      for (int k = 0; k < 4; ++k)
+        kill8[k] = decimate && !tr && (score8[k] < 4 || tot8 < 6);
     }
     if (t8 == 1) {                     // sa8d_16x16 < satd, strictly
       int satd = 0;
@@ -278,7 +316,10 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     int a = cdc[ch][0], b = cdc[ch][1], c = cdc[ch][2], e = cdc[ch][3];
     int h[4] = {a + b + c + e, a - b + c - e, a + b - c - e, a - b - c + e};
     int l[4];
-    for (int i = 0; i < 4; ++i) l[i] = quant(h[i], q.pc_mf_dc, q.pc_bias_dc);
+    if (tr)                            // cat-3 trellis, raster order
+      trellis_block<4>(h, trellis_tab(tr + TR_CAT3, 4), l);
+    else
+      for (int i = 0; i < 4; ++i) l[i] = quant(h[i], q.pc_mf_dc, q.pc_bias_dc);
     int gg[4] = {l[0] + l[1] + l[2] + l[3], l[0] - l[1] + l[2] - l[3],
                  l[0] + l[1] - l[2] - l[3], l[0] - l[1] - l[2] + l[3]};
     int nz = 0;
@@ -321,11 +362,12 @@ extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
                           int* recon_u, int* recon_v, int* blocks_z, int* cbp,
                           int* chroma_dc, int* chroma_ac, int* blocks8,
                           uint8_t* t8_sel, int* recon8_y, int* cbp8,
-                          const int* qp_map, int mb_h, int mb_w, int n_planes,
-                          int decimate, int t8, void* stream) {
+                          const int* qp_map, const int* trellis, int mb_h,
+                          int mb_w, int n_planes, int decimate, int t8,
+                          void* stream) {
   p_inter_mb_kernel<<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
       recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, blocks8, t8_sel,
-      recon8_y, cbp8, qp_map, mb_h, mb_w, n_planes, decimate, t8);
+      recon8_y, cbp8, qp_map, trellis, mb_h, mb_w, n_planes, decimate, t8);
   return (int)cudaGetLastError();
 }

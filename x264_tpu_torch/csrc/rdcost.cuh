@@ -22,7 +22,7 @@ constexpr int RD_CAT_STRIDE = 392;
 __constant__ int kNodeTrans[2][8] = {{1, 2, 3, 3, 4, 5, 6, 7},
                                      {4, 4, 4, 4, 5, 6, 7, 7}};
 
-// bs_size_ue_big(v) << 8 (rdcost.py:_ue_big_f8)
+// bs_size_ue_big(v) << 8 (trellis.py:_ue_big_f8)
 __device__ __forceinline__ int ue_big_f8(int v) {
   unsigned n = (unsigned)v + 1u;
   return (2 * (31 - __clz(n)) + 1) << 8;

@@ -31,12 +31,12 @@ import torch
 
 from .. import cuda
 from .. import tables
+from ..ops.fma import fma_f32
 from . import inter as einter
 from . import intra as eintra
 
 I32 = torch.int32
 F32 = torch.float32
-F64 = torch.float64
 
 
 def _f32(bits: int) -> float:
@@ -53,27 +53,6 @@ SQRT_HALF = _f32(0x3f3504f3)
 INV_LN2 = _f32(0x3fb8aa3b)          # float32(1 / ln 2), XLA's log2 scale
 AQ_OFFSET = _f32(0xc166d4fe)        # float32(-14.427)
 AQ_SCALE = float(np.float32(1.0397))
-
-
-def fma_f32(a, b, c):
-    """float32 fused multiply-add, correctly rounded: a * b is exact in
-    float64, the float64 sum's rounding error is recovered exactly
-    (TwoSum), and a float32 tie of the float64 sum is broken by that
-    error's sign, so the result is round(a * b + c) once. a / b / c:
-    float32 tensors or Python floats holding float32 values."""
-    ref = next(t for t in (a, b, c) if isinstance(t, torch.Tensor))
-    a64, b64, c64 = (torch.as_tensor(t, dtype=F32, device=ref.device)
-                     .to(F64) for t in (a, b, c))
-    p = a64 * b64
-    s = p + c64
-    bb = s - p
-    err = (p - (s - bb)) + (c64 - bb)
-    r = s.to(F32)
-    d = s - r.to(F64)
-    nxt = torch.nextafter(r, torch.where(d > 0, torch.inf, -torch.inf)
-                          .to(F32))
-    tie = (d != 0) & (d.abs() * 2 == (nxt.to(F64) - r.to(F64)).abs())
-    return torch.where(tie & (err != 0) & ((err > 0) == (d > 0)), nxt, r)
 
 
 def xla_log_f32_plain(x):

@@ -1,6 +1,8 @@
 """Encoder orchestration — the analogue of encoder/encoder.c, ported from
 x264_tpu/encoder/core.py for IDR and P frames, CABAC or CAVLC, at
-constant QP, CRF or 1-pass ABR, with or without variance AQ.
+constant QP, CRF or 1-pass ABR, with or without variance AQ, and with or
+without the CABAC trellis (--trellis 1 / 2) in the P frames' inter
+residual.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
@@ -100,7 +102,7 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
     transform and I8x8 (which validate() turns off without CABAC), CABAC
     or CAVLC, at constant QP, CRF or 1-pass ABR, with or without
     variance AQ (VBV and 2-pass replay are refused here and by
-    RateControl)."""
+    RateControl), with or without the CABAC trellis."""
     a, rc = p.analyse, p.rc
     later = [
         (p_frames and p.i_frame_reference >= 2,
@@ -109,7 +111,6 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
         (rc.i_rc_method == RC_CQP and rc.i_qp_constant == 0,
          "lossless (qp 0)", "a later slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
-        (a.i_trellis > 0, "trellis", "the trellis slice"),
         (p.i_mb_row_shards > 1, "MB-row sharding", "the multi-GPU slice"),
         (a.i_noise_reduction > 0, "noise reduction", "a later slice"),
         (p.i_cqm_preset != 0, "custom quant matrices", "a later slice"),
@@ -127,7 +128,7 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
 class Encoder:
     """x264_encoder_open / encode / close for IDR + P frames, CABAC or
     CAVLC, at constant QP, CRF or 1-pass ABR, with or without variance
-    AQ. device:
+    AQ and the CABAC trellis. device:
     "cuda" (the default, which needs a card) or "cpu", where every kernel
     runs its plain PyTorch version."""
 
@@ -199,6 +200,11 @@ class Encoder:
         # the adaptive 8x8 transform (High profile) and, in I slices, the
         # I8x8 ladder, which validate() keeps only with CABAC + 8x8dct
         self._t8 = bool(p.analyse.b_transform_8x8)
+        # the CABAC trellis of the P frames' inter residual; x264_tpu reads
+        # only whether i_trellis is set, so 1 and 2 encode alike (validate()
+        # turns it off without CABAC); its 52-QP stacks are built once
+        self._trellis = bool(p.analyse.i_trellis and p.b_cabac)
+        self._trellis_full = None
         self._i8x8 = bool(p.analyse.intra & ANALYSE_I8x8)
         self.stats = estats.Stats(
             p.i_width, p.i_height, p.i_fps_num / max(1, p.i_fps_den),
@@ -305,14 +311,28 @@ class Encoder:
     def _qtab_p(self, qp: int, qp_c: int) -> dict:
         key = (qp, qp_c)
         if key not in self._qtab_p_cache:
-            a = self.params.analyse
+            p = self.params
+            a = p.analyse
             qt = inter.make_qtab_p(
                 qp, qp_c, self.device, self.qt,
-                rd_idc=self.params.i_cabac_init_idc if self._rd else None,
+                rd_idc=p.i_cabac_init_idc if self._rd else None,
                 f_psy_rd=a.f_psy_rd if a.b_psy else 0.0)
             if self._aq is not None:
                 qt.update(aq_stack=self._aq_stacks["intra"],
                           aq_stack_p=self._aq_stacks["inter"])
+            if self._trellis:
+                # the trellis consts of the inter residual (x264_tpu's
+                # _qtab_p, core.py:783-816): under AQ the 52-QP stacks,
+                # built once, else the frame QP's
+                if self._aq is not None:
+                    if self._trellis_full is None:
+                        self._trellis_full = inter.trellis_stacks(
+                            p.i_cabac_init_idc, a.i_chroma_qp_offset,
+                            self.device, self.qt)
+                    qt.update(self._trellis_full)
+                else:
+                    qt.update(inter.trellis_consts(
+                        qp, qp_c, p.i_cabac_init_idc, self.device, self.qt))
             self._qtab_p_cache[key] = qt
         return self._qtab_p_cache[key]
 

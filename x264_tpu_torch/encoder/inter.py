@@ -34,7 +34,11 @@ encoder/macroblock.c:475) is staged as x264_tpu stages it:
 This slice has one reference. The QP is the frame's or, under variance
 AQ, each MB's own (qp_map): K6 and K7 then read the MB's rows of the
 52-QP stacks of encoder/aq.py:qtab_stacks (K6 the inter tables, K7 the
-intra ones), while lambda and the RD tables stay the frame's.
+intra ones), while lambda and the RD tables stay the frame's. With the
+CABAC trellis (analyse.i_trellis) the inter residual's quant is the
+trellis (ops/trellis.py; in K6 csrc/trellis.cuh), with the frame QP's
+consts (trellis_consts) or the MB's rows of the 52-QP stacks
+(trellis_stacks); the intra-in-P sweeps keep the deadzone quant.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from ..ops import pixel as opix
 from ..ops import predict as opred
 from ..ops import quant as oquant
 from ..ops import rdcost as ordc
+from ..ops import trellis as otrellis
 from . import intra
 from . import mvpred
 from .intra import _BIG, _blocks4, _pick, _q16, _qc, _unblocks4, _zig
@@ -76,6 +81,56 @@ QTABP_INTS = sum(len(keys) * n for keys, n in QTABP_LAYOUT)
 # K6's t8 argument: no 8x8 transform; the SA8D choice made in K6 (below
 # subme 6); both codings written for K13's RD choice (subme >= 6)
 T8_OFF, T8_SA8D, T8_RD = 0, 1, 2
+
+
+# the trellis consts of the inter residual in qtab (key, category, CQM
+# list), in the order K6's table packs them (csrc/trellis.cuh's TR_CAT*):
+# luma 4x4, chroma AC, chroma DC, luma 8x8
+TRELLIS_QTAB = (("trellis", 2, tables.CQM_4PY),
+                ("trellis_pc", 4, tables.CQM_4PC),
+                ("trellis_pc_dc", 3, tables.CQM_4PC),
+                ("trellis8", 5, tables.CQM_8PY))
+K6_TRELLIS_INTS = sum(otrellis.trellis_ints(int(otrellis.CAT_C[c]))
+                      for _, c, _ in TRELLIS_QTAB)
+
+
+def trellis_consts(qp_y: int, qp_c: int, cabac_init_idc: int, device,
+                   qt: tables.QuantTables | None = None) -> dict:
+    """The trellis consts of a P frame at one QP (x264_tpu's
+    Encoder._qtab_p, core.py:808-816): the luma categories at qp_y, the
+    chroma ones with qp_c's quant tables and lambda2, every category's
+    CABAC states at the slice QP qp_y; and trellis_tab, the four packed
+    as K6 reads them."""
+    out = {}
+    for key, cat, lst in TRELLIS_QTAB:
+        q = qp_y if cat in (2, 5) else qp_c
+        out[key] = otrellis._as_torch(otrellis.make_consts(
+            q, cat, lst, False, cabac_init_idc, qt=qt, state_qp=qp_y), device)
+    out["trellis_tab"] = torch.cat([otrellis.pack_trellis(out[k], device)
+                                    for k, _, _ in TRELLIS_QTAB])
+    return out
+
+
+def trellis_stacks(cabac_init_idc: int, chroma_qp_offset: int, device,
+                   qt: tables.QuantTables | None = None) -> dict:
+    """The trellis consts under a QP map (x264_tpu's _trellis_full,
+    core.py:791-807): each category's make_consts_all_qp stack (each row
+    with its own QP's states and lambda2), trellis_qpc_of (52,) the
+    chroma QP row of each luma QP, CHROMA_QP_TABLE[clip(q +
+    chroma_qp_offset, 0, 51)], and trellis_tab (52, K6_TRELLIS_INTS): row
+    q packs the luma categories at q and the chroma ones at q's chroma
+    QP, so that K6 reads an MB's row by its luma QP."""
+    qc = torch.as_tensor(np.asarray(tables.CHROMA_QP_TABLE, np.int64)[
+        np.clip(np.arange(52) + chroma_qp_offset, 0, 51)], device=device)
+    out = dict(trellis_qpc_of=qc)
+    packs = []
+    for key, cat, lst in TRELLIS_QTAB:
+        out[key] = otrellis._as_torch(otrellis.make_consts_all_qp(
+            cat, lst, False, cabac_init_idc, qt=qt), device)
+        pk = otrellis.pack_trellis(out[key], device)
+        packs.append(pk if cat in (2, 5) else pk[qc])
+    out["trellis_tab"] = torch.cat(packs, 1).contiguous()
+    return out
 
 
 def make_qtab_p(qp_y: int, qp_c: int, device,
@@ -161,8 +216,17 @@ def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
     K, dev = fenc.shape[0], fenc.device
     zig = _zig(dev)
     coef = odct.dct4x4(_blocks4(fenc - pred, 4))       # (K,4,4,4,4)
-    lv = oquant.quant(coef.reshape(K, 16, 16), _q16(qtab["py_mf"]),
-                      _q16(qtab["py_bias"]))           # raster blocks
+    if qtab.get("trellis") is not None:
+        # the CABAC trellis in place of the deadzone quant (x264_tpu
+        # inter.py:123-133; x264_quant_4x4's b_trellis switch,
+        # encoder/macroblock.c:87-95): cat 2 in zig-zag, then decimation
+        lv = otrellis.trellis_scan_plain(
+            coef.reshape(K * 16, 16)[:, zig], qtab["trellis"],
+            intra._trellis_rows(qtab, "trellis_qp", 16))
+        lv = lv[:, torch.argsort(zig)].reshape(K, 16, 16)
+    else:
+        lv = oquant.quant(coef.reshape(K, 16, 16), _q16(qtab["py_mf"]),
+                          _q16(qtab["py_bias"]))       # raster blocks
     if decimate:
         s = oquant.decimate_score(lv[..., zig])        # (K,16)
         # raster block (row, col) -> 8x8 group (row // 2, col // 2)
@@ -192,9 +256,19 @@ def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False):
     cbp_bits (K,))."""
     K, dev = fenc.shape[0], fenc.device
     blocks = (fenc - pred).reshape(K, 2, 8, 2, 8).transpose(2, 3)
-    lv = oquant.quant(odct.dct8x8(blocks).reshape(K, 4, 64),
-                      _q16(qtab["p8_mf"]), _q16(qtab["p8_bias"]))
+    coef = odct.dct8x8(blocks).reshape(K, 4, 64)
     zig8 = torch.as_tensor(tables.ZIGZAG8, device=dev).long()
+    if qtab.get("trellis8") is not None:
+        # the 8x8 trellis (x264_tpu inter.py:182-192): cat 5 in ZIGZAG8;
+        # it is the decimation itself, so none follows
+        # (encoder/macroblock.c:630)
+        lv = otrellis.trellis_scan_plain(
+            coef.reshape(K * 4, 64)[:, zig8], qtab["trellis8"],
+            intra._trellis_rows(qtab, "trellis_qp", 4))
+        lv = lv[:, torch.argsort(zig8)].reshape(K, 4, 64)
+        decimate = False
+    else:
+        lv = oquant.quant(coef, _q16(qtab["p8_mf"]), _q16(qtab["p8_bias"]))
     if decimate:
         sc = oquant.decimate_score(lv[..., zig8], oquant.DECIMATE_TAB8)
         kill = (sc < 4) | (sc.sum(-1) < 6)[:, None]
@@ -284,6 +358,12 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
     nK = mb_h * mb_w
     if qp_map is not None:
         qtab = mb_rows(qtab, qp_map, True)
+        if "trellis_qpc_of" in qtab:
+            # each MB's rows of the 52-QP trellis stacks (x264_tpu
+            # inter.py:258-261): luma by qp_map, chroma by its chroma QP
+            rows = qp_map.reshape(-1).long()
+            qtab.update(trellis_qp=rows,
+                        trellis_qpc=qtab["trellis_qpc_of"][rows])
     preds = [p.reshape(nK, *p.shape[2:]) for p in
              partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad)]
     pred_y, preds_c = preds[0], preds[1:]
@@ -377,25 +457,33 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
         cuda.check(tab, (52, QTABP_INTS), I32, "aq_stack_p")
         cuda.check(qp_map, (mb_h, mb_w), I32, "qp_map")
         qp_ptr = qp_map.data_ptr()
+    # the trellis's table: the frame's, or under a QP map the 52-QP stack
+    trellis = qtab.get("trellis_tab")
+    if trellis is not None:
+        cuda.check(trellis, (K6_TRELLIS_INTS,) if qp_map is None
+                   else (52, K6_TRELLIS_INTS), I32, "trellis_tab")
     ins = (y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, tab)
-    cuda.launch("inter", "p_inter_mb", "p" * 21 + "iiiii" + "p",
+    cuda.launch("inter", "p_inter_mb", "p" * 22 + "iiiii" + "p",
                 *[t.data_ptr() for t in ins],
                 *[ptr(k) for k in ("recon_y", "recon_u", "recon_v",
                                    "blocks_z", "cbp", "chroma_dc",
                                    "chroma_ac", "blocks8_z", "t8_sel",
                                    "recon8_y", "cbp8")],
-                qp_ptr, mb_h, mb_w, n_planes, int(decimate), int(t8),
-                cuda.stream(dev))
+                qp_ptr, 0 if trellis is None else trellis.data_ptr(), mb_h,
+                mb_w, n_planes, int(decimate), int(t8), cuda.stream(dev))
     p_inter_mb.launches += 1
+    p_inter_mb.launches_trellis += int(trellis is not None)
     p_inter_mb.launches_t8_sa8d += int(t8 == T8_SA8D)
     p_inter_mb.launches_t8_rd += int(t8 == T8_RD)
     p_inter_mb.launches_aq += int(qp_map is not None)
     return o
 
 
-# launches, and those of them in each t8 mode and with a QP map
+# launches, and those of them in each t8 mode, with a QP map and with the
+# trellis
 p_inter_mb.launches = p_inter_mb.launches_t8_sa8d = \
-    p_inter_mb.launches_t8_rd = p_inter_mb.launches_aq = 0
+    p_inter_mb.launches_t8_rd = p_inter_mb.launches_aq = \
+    p_inter_mb.launches_trellis = 0
 
 
 # ---------------------------------------------------------------- K13

@@ -32,6 +32,7 @@ from ..ops import dct as odct
 from ..ops import pixel as opix
 from ..ops import predict as opred
 from ..ops import quant as oquant
+from ..ops import trellis as otrellis
 
 I32 = torch.int32
 
@@ -205,15 +206,37 @@ def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam,
                 ac_z=ac_z, cbp=cbp_luma)
 
 
+def _trellis_rows(qtab, key: str, per_block: int):
+    """The per-block 52-QP row indices of a trellis under a QP map: qtab's
+    per-MB rows `key` ("trellis_qp" luma, "trellis_qpc" chroma), each
+    repeated for the MB's per_block blocks; None at one frame QP."""
+    rows = qtab.get(key)
+    return None if rows is None else rows.repeat_interleave(per_block)
+
+
 def _chroma_ac_levels(fencc, cpred, qtab, pfx: str):
     """DCT of the 2x2 chroma 4x4 blocks and the quantised AC levels with
-    the `pfx` ("c" intra, "pc" inter) tables: (coef, ac levels)."""
+    the `pfx` ("c" intra, "pc" inter) tables: (coef, ac levels). Where
+    qtab carries the inter chroma AC trellis ("trellis_pc"), the levels
+    are the trellis's (cat 4 on zig-zag positions 1..15; x264_tpu
+    intra.py:185-199, x264_quant_4x4_trellis DCT_CHROMA_AC,
+    encoder/macroblock.c:310-311) in place of the deadzone quant's."""
     K = fencc.shape[0]
     ccoef = odct.dct4x4(_blocks4(fencc - cpred, 2))    # (K,2,2,4,4)
     cac = ccoef.clone()
     cac[..., 0, 0] = 0
-    cac_lv = oquant.quant(cac.reshape(K, 4, 16), _q16(qtab[f"{pfx}_mf"]),
-                          _q16(qtab[f"{pfx}_bias"])).reshape(K, 2, 2, 4, 4)
+    tc = qtab.get(f"trellis_{pfx}")
+    if tc is not None:
+        zig = _zig(fencc.device)
+        sc = cac.reshape(K * 4, 16)[:, zig]
+        lv15 = otrellis.trellis_scan_plain(
+            sc[:, 1:], tc, _trellis_rows(qtab, "trellis_qpc", 4))
+        lv = torch.cat([torch.zeros_like(lv15[:, :1]), lv15], 1)
+        cac_lv = lv[:, torch.argsort(zig)].reshape(K, 2, 2, 4, 4)
+    else:
+        cac_lv = oquant.quant(cac.reshape(K, 4, 16), _q16(qtab[f"{pfx}_mf"]),
+                              _q16(qtab[f"{pfx}_bias"])).reshape(K, 2, 2, 4,
+                                                                 4)
     return ccoef, cac_lv
 
 
@@ -243,9 +266,18 @@ def chroma_residual(fencc, cpred, qtab, pfx: str = "c", ac_kill=None):
     cac_deq = oquant.dequant(cac_lv.reshape(K, 4, 16),
                              _q16(qtab[f"{pfx}_dmf"]), qpdiv6,
                              4).reshape(K, 2, 2, 4, 4)
-    cdc_lv = oquant.quant_dc(odct.hadamard2x2(cdc),
-                             _qc(qtab[f"{pfx}_mf_dc"], 2),
-                             _qc(qtab[f"{pfx}_bias_dc"], 2))
+    tc_dc = qtab.get(f"trellis_{pfx}_dc")
+    if tc_dc is not None:
+        # the inter chroma DC trellis (cat 3 on the 2x2 Hadamard output in
+        # raster order; x264_tpu intra.py:212-221, x264_quant_dc_trellis
+        # DCT_CHROMA_DC, encoder/macroblock.c:325-326)
+        cdc_lv = otrellis.trellis_scan_plain(
+            odct.hadamard2x2(cdc).reshape(K, 4), tc_dc,
+            _trellis_rows(qtab, "trellis_qpc", 1)).reshape(K, 2, 2)
+    else:
+        cdc_lv = oquant.quant_dc(odct.hadamard2x2(cdc),
+                                 _qc(qtab[f"{pfx}_mf_dc"], 2),
+                                 _qc(qtab[f"{pfx}_bias_dc"], 2))
     cdc_rec = oquant.dequant_2x2_dc(odct.hadamard2x2(cdc_lv),
                                     _qc(qtab[f"{pfx}_dmf0"], 2), qpdiv6)
     cac_deq[..., 0, 0] = cdc_rec

@@ -5,7 +5,7 @@ A candidate mode is priced as ssd + lambda2 * bits, where the bits of its
 residual levels come from the slice-initial CABAC states
 (``trellis.make_consts``): the significance and last flags in scan order,
 then the levels in reverse scan order through the 8-node context machine.
-Every table entry and every ``_ue_big_f8`` is an integer in 1/256-bit
+Every table entry and every ``trellis._ue_big_f8`` is an integer in 1/256-bit
 units, so the sums here run in int32 and turn into float32 once; that
 equals x264_tpu's float32 sums while a block's total stays below 2^24.
 The CUDA kernels K13 (csrc/rdcost.cu) and K7 (csrc/intra_p.cu) run the
@@ -59,18 +59,6 @@ def pack_rdbits(rdbits: dict) -> torch.Tensor:
     return out
 
 
-def _ue_big_f8(v):
-    """bs_size_ue_big(v) << 8: the exp-Golomb bit length of large level
-    suffixes, in 1/256 bits."""
-    n = v + 1
-    bl = torch.zeros_like(n)
-    for shift in (16, 8, 4, 2, 1):
-        ge = n >= (1 << shift)
-        bl = bl + torch.where(ge, shift, 0)
-        n = torch.where(ge, n >> shift, n)
-    return (2 * bl + 1) << otrellis.CABAC_SIZE_BITS
-
-
 def residual_bits_i32(lv_scan, tc):
     """Estimated CABAC bits (1/256 units, int32) to code each block's
     levels. lv_scan: (N, C) signed levels in scan order; tc: one category
@@ -101,7 +89,8 @@ def residual_bits_i32(lv_scan, tc):
         nz_i = lv > 0
         prefix = (lv - 1).clamp(0, 14)
         gt1 = (prefix > 0).long()
-        big = torch.where(lv >= 15, _ue_big_f8((lv - 15).clamp(min=0)), 0)
+        big = torch.where(lv >= 15,
+                          otrellis._ue_big_f8((lv - 15).clamp(min=0)), 0)
         step = l1[node, gt1] + torch.where(
             gt1 == 1, unary[node, prefix.long()] + big, sign_f8)
         bits = bits + torch.where(nz_i, step, 0)
