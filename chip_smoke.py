@@ -92,6 +92,21 @@ Phases; any failure exits non-zero before the result line:
      same pipe depth and the IDRs must fall at frames 0 and 26 only;
      the phase reports as phase 9, against phase 9's fps, bytes,
      PSNR / SSIM and frame QPs, and the profiler's split with K6.
+ 13. x264_tpu's defaults with B frames: i_bframe 3 (b-adapt 1, the fast
+     greedy; spatial direct; CRF 23 with variance AQ in the I / P frames,
+     the B frames at the frame QP), i_frame_parallel 3, on phase 7's 32
+     frames. Every kernel of phase 9 must launch and K21-K24, K7's B
+     decision and sweeps and K2's B branch too; every b-adapt decision
+     and seed must equal the plain K21's on the same lowres planes; B
+     frames must occur and the IDRs fall at display frames 0 and 26 only;
+     its first two frames in encode order (IDR, P: on the noisy first
+     picture b-adapt 1 keeps no B) must equal a CPU run at the same pipe
+     depth, and so must the three frames (IDR, P, B) of a run of the
+     defaults with i_bframe 1 on the first frames of the second picture;
+     the phase reports fps (against phase 9's), the median encode(), the
+     bytes of the IDR, P and B frames, PSNR / SSIM, the frame types and
+     QPs, and the profiler's split and idle share over frames 24-31 (the
+     cut and the B run after it).
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
@@ -115,12 +130,19 @@ exact at each category on frame 1's coefficients against frame 0's
 recon at QP 26, at cat 2 and 5 with the 52-QP stacks and a seeded row
 per block, at QP 4 on the half-flat frame (levels past the ue escape),
 and K6 with the trellis at t8 0, 1 and 2, at QP 26 and with frame 1's QP
-map. The line before the last is the JSON `kernels` record (the 8x8,
+map; and B frames: K21 in each of the four b-adapt programs on the
+lowres planes of frames 0-2, and K22 (both passes, with and without the
+trellis), K7's B decision and sweeps, K23, K24 and K2 with B maps on
+frame 1 as a B frame between frame 0's recon and frame 2, with 30% of the
+64x64 blocks gray in all three (direct, skip) and 15% flat in the B
+frame alone (intra), all exact. The line before the last is the JSON
+`kernels` record (the 8x8,
 AQ, CAVLC and trellis variants as records of their own, each counting
 the launches that took its branch; `launches` is the count of the
 kernel's own main path, phase 11 for K18, K19 and K8's pass A alone,
 phase 12 for K6's trellis branch and K20 (0: its device code runs
-inside K6), phase 9 for the others, the other phases' beside it); the
+inside K6), phase 13 for the B kernels and branches, phase 9 for the
+others, the other phases' beside it); the
 last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
@@ -154,6 +176,7 @@ N_INTRA_CAVLC = 5              # frames of bench.py's all-intra CAVLC line
                                # (phase 10)
 N_CHECK_CAVLC = 1              # frames of phase 11 held against the CPU
 N_TRELLIS = 32                 # frames of the defaults with the trellis
+N_BFRAMES = 32                 # frames of the defaults with B frames
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
@@ -227,6 +250,16 @@ K18_OPS_PER_BIT = 2 * 20 // 4
 # backtrack step
 K20_OPS_PER_CAND = 8 * 9 + 12
 K20_OPS_PER_POS = 28
+# the B frame: K21 per block adds to K15's work the bi candidate's two
+# fetches, the average and four 4x4 Hadamards (~600 ops); K22 per MB in
+# pass 1 two lists' luma and chroma fetches (~16 ops a sample), the BI
+# average's 16 Hadamards and K6's residual, in pass 2 the fetches and the
+# residual; K23 per MB two spatial-direct derivations (~300 ops each),
+# the two-list fetch of the direct prediction and its 16 Hadamards
+K21_BI_OPS_PER_BLOCK = 600
+K22_PASS1_OPS_PER_MB = K6_OPS_PER_MB + 2 * 384 * 16 + 16 * 130
+K22_PASS2_OPS_PER_MB = K6_OPS_PER_MB + 2 * 384 * 16
+K23_OPS_PER_MB = 2 * 300 + 2 * 256 * 16 + 16 * 130
 
 
 T0 = time.perf_counter()
@@ -306,6 +339,13 @@ def defaults_params(EncoderParams, frame_parallel: int = 3):
     subme 6 with psy-RD 1.0, scenecut 40, ref 1, no B frames)."""
     return EncoderParams(i_width=W, i_height=H, i_log_level=0,
                          i_frame_parallel=frame_parallel)
+
+
+def bframes_params(EncoderParams, frame_parallel: int = 3):
+    """x264_tpu's own defaults at 1080p with i_bframe 3 (b-adapt 1, the
+    fast greedy, i_bframe_adaptive's default; spatial direct)."""
+    return EncoderParams(i_width=W, i_height=H, i_log_level=0,
+                         i_frame_parallel=frame_parallel, i_bframe=3)
 
 
 def bench_params(EncoderParams, frame_parallel: int = 3):
@@ -469,6 +509,45 @@ def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
           flush=True)
 
 
+def same_as_cpu_b(x264_tpu_torch, done, frames, header, n: int, what: str,
+                  make) -> None:
+    """The first n frames in encode order of a card run with B frames
+    against Encoder(device="cpu") at the card run's pipe depth, fed the
+    same frames until it has queued n of them; the rest of its pipe is
+    finished without flush(), which would turn a queued B candidate into
+    a P and queue more frames."""
+    stamp(f"{what}: the CPU run")
+    cpu = x264_tpu_torch.Encoder(make(x264_tpu_torch.EncoderParams, 3),
+                                 device="cpu")
+    if cpu.headers() != header:
+        fail(f"{what}: headers differ between the card and the CPU")
+    refs = []
+    for f in frames:
+        if cpu.frame_count >= n:
+            break
+        ef = cpu.encode(f)
+        if ef is not None:
+            refs.append(ef)
+    while len(refs) < n:
+        refs.append(cpu._finalize(cpu._pending.pop(0)))
+    for i, ref in enumerate(refs[:n]):
+        k = done[i]
+        if (ref.frame_type, ref.display_idx) != (k.frame_type, k.display_idx):
+            fail(f"{what}: frame {i} in encode order is {k.frame_type} "
+                 f"{k.display_idx} on the card, {ref.frame_type} "
+                 f"{ref.display_idx} on the CPU")
+        if ref.payload != k.payload:
+            fail(f"{what}: frame {i} payload differs from the CPU run")
+        for pl in "yuv":
+            if not torch.equal(getattr(ref.recon, pl),
+                               getattr(k.recon, pl).cpu()):
+                fail(f"{what}: frame {i} recon {pl} differs from the CPU run")
+    print(f"{what}: frames 0-{n - 1} in encode order "
+          f"({[r.frame_type for r in refs[:n]]}, display "
+          f"{[r.display_idx for r in refs[:n]]}) equal the CPU run",
+          flush=True)
+
+
 def partition_warp(ref, mb_h: int, mb_w: int, seed: int = 1):
     """A second reference built from `ref` (y, u, v tensors): each MB
     takes a random partition layout (16x16, 16x8, 8x16, 8x8) and each
@@ -504,12 +583,17 @@ def partition_warp(ref, mb_h: int, mb_w: int, seed: int = 1):
 # of everything else is PyTorch's own glue: padding, copies, merges)
 KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("p_emit_kernel", "K8"), ("p_maps_kernel", "K8 pass A"),
+                 ("b_emit_kernel", "K24"), ("b_maps_kernel", "K24 pass A"),
+                 ("bcost_kernel", "K21"), ("provisional_kernel", "K23"),
+                 ("wave_kernel", "K23"), ("inter_mb_kernel<0>", "K6"),
+                 ("inter_mb_kernel<1>", "K22"),
+                 ("inter_mb_kernel<2>", "K22"),
                  ("emit_kernel", "K3"),
                  ("scan_kernel", "K3/K8/K18/K19 scan"),
                  ("scatter_kernel", "K3/K8 scatter"), ("ssd_kernel", "K4"),
                  ("ssim_kernel", "K4"), ("reduce_kernel", "K4"),
                  ("half_kernel", "K5"), ("search_kernel", "K5"),
-                 ("p_inter_mb_kernel", "K6"), ("sweep_kernel", "K7"),
+                 ("sweep_kernel", "K7"),
                  ("decide_kernel", "K7"), ("hpel_kernel", "K9"),
                  ("subpel_kernel", "K10"), ("part_kernel", "K11"),
                  ("rerank_kernel", "K12"), ("rd_inter_kernel", "K13"),
@@ -1886,6 +1970,221 @@ def main() -> None:
           f"{cav_ms['k19a']:.3f}; K8 pass A alone {cav_ms['kpa']:.3f} ms "
           f"[{smi_line}]", flush=True)
 
+    # ------------------------------------------------------- B frames
+    stamp("phase 3: the B frame's kernels")
+    # K21 on the lowres planes of frames 0, 1 and 2: the four b-adapt
+    # programs, each against its composition of plain K21 versions
+    lows2 = lookahead.lowres_planes(luma(frames[2]), H, W)
+    programs = (("badapt_first", (lows[1], lows2, lows[0])),
+                ("badapt_ext", (lows2, lows[0])),
+                ("b_seed_mvs", (lows[1], lows[0], lows2)),
+                ("b_cost", (lows[1], lows[0], lows2)))
+    kernel21 = lookahead.lowres_bcost
+
+    def plain21(*a, want_mv=False):
+        sums, m0, m1 = lookahead.lowres_bcost_plain(*a)
+        return (sums, m0, m1) if want_mv else (sums, None, None)
+
+    err21, calls21 = 0, {}
+    for name, args in programs:
+        n0 = kernel21.launches
+        k21 = getattr(lookahead, name)(*args, bh, bw, r_la)
+        calls21[name] = kernel21.launches - n0
+        lookahead.lowres_bcost = plain21
+        try:
+            p21 = getattr(lookahead, name)(*args, bh, bw, r_la)
+        finally:
+            lookahead.lowres_bcost = kernel21
+        k21, p21 = (k21, p21) if isinstance(k21, tuple) else ((k21,), (p21,))
+        err21 = max(err21, exact(f"K21 lowres_bcost ({name})", k21, p21))
+        print(f"K21 {name}: exact, {calls21[name]} launches: "
+              f"{[t.tolist() for t in k21] if name != 'b_seed_mvs' else ''}",
+              flush=True)
+    a21 = (lows[1], lows[0], lows2, bh, bw, r_la, True)
+    ms21 = event_ms(lambda: lookahead.lowres_bcost(*a21), 10)
+    pl21 = event_ms(lambda: lookahead.lowres_bcost_plain(*a21), 1)
+    record("lowres_bcost", "cuda", "x264_tpu_torch/csrc/badapt.cu",
+           "x264_tpu/encoder/lookahead.py:272", err21, ms21, pl21,
+           nbytes(lows[1][0], lows[0], lows2) + 24,
+           (2 * (K15_OPS_PER_CAND_SAMPLE * (2 * r_la + 1) ** 2 * 64
+                 + K15_OPS_PER_BLOCK) + K21_BI_OPS_PER_BLOCK) * bh * bw)
+    # K22 / K7 / K23 / K24 / K2 on frame 1 as a B frame between frame 0's
+    # recon (L0) and frame 2 (L1): 30% of its 64x64 blocks gray in all
+    # three (still, so direct and skip), 15% of others flat in the B frame
+    # alone (intra), colocated maps of ref 0 with small and large MVs
+    rng_b = np.random.default_rng(9)
+    tiles = rng_b.random(((mb_h + 3) // 4, (mb_w + 3) // 4))
+    grid = lambda m: torch.as_tensor(m.repeat(4, 0).repeat(4, 1)[:mb_h,
+                                                                 :mb_w],
+                                     device=dev)
+    still, flat = grid(tiles < 0.3), grid((tiles >= 0.3) & (tiles < 0.45))
+    px = lambda m, n: m.repeat_interleave(n, 0).repeat_interleave(n, 1)
+    grayed = lambda planes, m, val: tuple(
+        torch.where(px(m, n), val, t) for t, n in zip(planes, (16, 8, 8)))
+    yb, ub, vb = grayed(grayed((y1, u1, v1), still, 128), flat, 60)
+    l0 = grayed((ry, ru, rv), still, 128)
+    l1 = grayed(frame_planes(frames[2]), still, 128)
+    col_ref4 = torch.where(torch.as_tensor(
+        rng_b.random((4 * mb_h, 4 * mb_w)) < 0.1, device=dev), -1, 0) \
+        .to(torch.int32)
+    col_mv4 = torch.as_tensor(np.where(
+        rng_b.random((4 * mb_h, 4 * mb_w, 1)) < 0.3,
+        rng_b.integers(-24, 25, (4 * mb_h, 4 * mb_w, 2)),
+        rng_b.integers(-1, 2, (4 * mb_h, 4 * mb_w, 2))), dtype=torch.int32,
+        device=dev) * (col_ref4 == 0)[..., None]
+    seeds = (mvp0, mvp0)
+    fetch_b, mvs_b, satds_b = [], [], []
+    for ref in (l0, l1):
+        f, ref_pad = inter.b_list_fetch(*ref)
+        mv_fp, _ = me.hier_search(yb, ref_pad, mb_h, mb_w, me_range, lam,
+                                  mvp0)
+        mv, satd = me.subpel_refine(yb, f[0], mv_fp, lam, mvp0, (2, 1))
+        fetch_b.append(f)
+        mvs_b.append(mv)
+        satds_b.append(satd)
+    qtab_b = inter.make_qtab_p(QP, tables.chroma_qp(QP, 0), dev)
+    qtab_bt = {**qtab_b, **inter.trellis_consts(QP, tables.chroma_qp(QP, 0),
+                                                0, dev)}
+    b_ms = {}
+
+    def timed(key, fn, plain, reps=10):
+        b_ms[key] = (event_ms(fn, reps), event_ms(plain, 1))
+
+    a22 = (mb_h, mb_w, yb, ub, vb, *fetch_b)
+    kw1 = dict(satd=satds_b, seeds=seeds, lam=lam)
+    err22 = 0
+    for qt, tag in ((qtab_b, ""), (qtab_bt, " with the trellis")):
+        k22 = inter.b_inter_mb(*a22, qt, *mvs_b, **kw1)
+        err22 = max(err22, exact(f"K22 b_inter_mb pass 1{tag}", k22,
+                                 inter.b_inter_mb_plain(*a22, qt, *mvs_b,
+                                                        **kw1)))
+        timed("k22a" + tag, lambda: inter.b_inter_mb(*a22, qt, *mvs_b, **kw1),
+              lambda: inter.b_inter_mb_plain(*a22, qt, *mvs_b, **kw1))
+    k22 = inter.b_inter_mb(*a22, qtab_b, *mvs_b, **kw1)
+    modes = k22["bmode"].flatten().bincount(minlength=3).tolist()
+    a7d = (mb_h, mb_w, yb, ub, vb, k22["recon_y"], k22["recon_u"],
+           k22["recon_v"], k22["cost_inter"], qtab_b, lam)
+    im_b = inter.intra_in_b_decide(*a7d)
+    err7b = exact("K7 intra_in_b_decide", [im_b], [inter.intra_in_p_plain(
+        *a7d, True, decide_only=True)])
+    timed("k7d", lambda: inter.intra_in_b_decide(*a7d),
+          lambda: inter.intra_in_p_plain(*a7d, True, decide_only=True))
+    a23 = (mb_h, mb_w, yb, *fetch_b, im_b, k22["bmode"], *mvs_b,
+           k22["cost_inter"], col_ref4, col_mv4, lam)
+    k23 = inter.b_direct(*a23)
+    err23 = exact("K23 b_direct", k23, inter.b_direct_plain(*a23))
+    timed("k23", lambda: inter.b_direct(*a23),
+          lambda: inter.b_direct_plain(*a23))
+    r0, r1, m0, m1, direct_b = k23
+    refs_b = (r0, r1)
+    for qt, tag in ((qtab_b, ""), (qtab_bt, " with the trellis")):
+        n0 = inter.b_inter_mb.launches_trellis
+        k22b = inter.b_inter_mb(*a22, qt, m0, m1, refs=refs_b)
+        if inter.b_inter_mb.launches_trellis != n0 + int(bool(tag)):
+            fail("K22 did not count its trellis launch")
+        err22 = max(err22, exact(f"K22 b_inter_mb pass 2{tag}", k22b,
+                                 inter.b_inter_mb_plain(*a22, qt, m0, m1,
+                                                        refs=refs_b)))
+        timed("k22b" + tag, lambda: inter.b_inter_mb(*a22, qt, m0, m1,
+                                                     refs=refs_b),
+              lambda: inter.b_inter_mb_plain(*a22, qt, m0, m1, refs=refs_b))
+    it_b = inter.b_inter_mb(*a22, qtab_b, m0, m1, refs=refs_b)
+    a7s = (mb_h, mb_w, yb, ub, vb, it_b["recon_y"], it_b["recon_u"],
+           it_b["recon_v"])
+    ip_b = inter.intra_in_b_sweeps(*a7s, im_b, qtab_b, lam)
+    err7s = exact("K7 intra_in_b_sweeps", ip_b, inter.intra_in_p_plain(
+        *a7s, None, qtab_b, lam, True, intra_mb=im_b))
+    timed("k7s", lambda: inter.intra_in_b_sweeps(*a7s, im_b, qtab_b, lam),
+          lambda: inter.intra_in_p_plain(*a7s, None, qtab_b, lam, True,
+                                         intra_mb=im_b))
+    front_b = dict(inter.merge_intra(ip_b, it_b, mb_h, mb_w),
+                   bmode=k22["bmode"], direct_mb=direct_b, r0=r0, r1=r1,
+                   m0=m0, m1=m1)
+    maps_b, ops_b, n_b = cabac_planes.cabac_b_ops(front_b, mb_h, mb_w, True)
+    pmaps_b, pops_b, pn_b = cabac_planes.cabac_b_ops_plain(front_b, mb_h,
+                                                           mb_w, True)
+    n_ops_bf = int(pn_b)
+    if int(n_b) != n_ops_bf:
+        fail(f"K24 cabac_b_ops counts {int(n_b)} ops, its plain version "
+             f"{n_ops_bf}")
+    err24 = max(exact("K24 cabac_b_ops (maps)", maps_b, pmaps_b),
+                exact("K24 cabac_b_ops (ops)", [ops_b[:n_ops_bf]],
+                      [pops_b[:n_ops_bf]]))
+    timed("k24", lambda: cabac_planes.cabac_b_ops(front_b, mb_h, mb_w, True),
+          lambda: cabac_planes.cabac_b_ops_plain(front_b, mb_h, mb_w, True),
+          20)
+    n_intra_b, n_direct_b = int(im_b.sum()), int(direct_b.sum())
+    n_skip_b = int(maps_b["skip"].sum())
+    if not (n_intra_b and n_direct_b and n_skip_b and n_direct_b > n_skip_b
+            and min(modes) > 0):
+        fail(f"the B frame's modes did not all occur: L0 / L1 / BI {modes}, "
+             f"{n_intra_b} intra, {n_direct_b} direct, {n_skip_b} skip")
+    # K2 with the B maps (both lists' refs and MVs)
+    qp_b = torch.full((mb_h, mb_w), QP, dtype=torch.int32, device=dev)
+    maps2b = (qp_b, im_b, maps_b["nnz4"], maps_b["ref4"], maps_b["mv4"],
+              maps_b["ref4_l1"], maps_b["mv4_l1"], True, 0, 0, 0)
+    src2b = (front_b["recon_y"], front_b["recon_u"], front_b["recon_v"])
+    work2b = []
+
+    def fresh2b():
+        work2b[:] = [t.clone() for t in src2b]
+
+    fresh2b()
+    p2b = dict(zip("yuv", deblock.deblock_frame_plain(mb_h, mb_w, *work2b,
+                                                      *maps2b)))
+    pl2b = event_ms(lambda: deblock.deblock_frame_plain(mb_h, mb_w, *work2b,
+                                                        *maps2b), 1)
+    n0 = deblock.deblock_frame.launches_b
+    k2b = dict(zip("yuv", deblock.deblock_frame(mb_h, mb_w, *work2b,
+                                                *maps2b)))
+    if deblock.deblock_frame.launches_b == n0:
+        fail("K2 did not count its B-slice launches")
+    err2b = exact("K2 deblock_diag with B maps", k2b, p2b)
+    ms2b = event_ms(lambda: deblock.deblock_frame(mb_h, mb_w, *work2b,
+                                                  *maps2b), 5, setup=fresh2b)
+    record("deblock_diag_b", "cuda", "x264_tpu_torch/csrc/deblock.cu",
+           "x264_tpu/ops/deblock.py:166", err2b, ms2b, pl2b,
+           2 * nbytes(*src2b) + nbytes(*maps2b[:7]), K2_OPS_PER_MB * nmb)
+    ms22 = b_ms["k22a"][0] + b_ms["k22b"][0]
+    pl22 = b_ms["k22a"][1] + b_ms["k22b"][1]
+    record("b_inter_mb", "cuda", "x264_tpu_torch/csrc/inter.cu",
+           "x264_tpu/encoder/inter.py:866", err22, ms22, pl22,
+           2 * nbytes(yb, ub, vb, *fetch_b[0], *fetch_b[1])
+           + nbytes(*mvs_b, *satds_b, *seeds, *k22.values(), r0, r1, m0, m1,
+                    *it_b.values()),
+           (K22_PASS1_OPS_PER_MB + K22_PASS2_OPS_PER_MB) * nmb)
+    record("intra_in_b_decide", "cuda", "x264_tpu_torch/csrc/intra_p.cu",
+           "x264_tpu/encoder/inter.py:965", err7b, *b_ms["k7d"],
+           nbytes(*a7d[2:9], im_b), K7_OPS_PER_MB_SWEEP * nmb)
+    record("intra_in_b_sweeps", "cuda", "x264_tpu_torch/csrc/intra_p.cu",
+           "x264_tpu/encoder/inter.py:1137", err7s, *b_ms["k7s"],
+           nbytes(*a7s[2:], im_b, *ip_b.values()),
+           K7_OPS_PER_MB_SWEEP * (nmb + 2 * n_intra_b))
+    record("b_direct", "cuda", "x264_tpu_torch/csrc/direct.cu",
+           "x264_tpu/encoder/inter.py:1028", err23, *b_ms["k23"],
+           nbytes(yb, fetch_b[0][0], fetch_b[1][0], im_b, k22["bmode"],
+                  *mvs_b, k22["cost_inter"], col_ref4, col_mv4, *k23),
+           K23_OPS_PER_MB * nmb)
+    record("cabac_b_ops", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+           "x264_tpu/entropy/cabac_planes.py:791", err24, *b_ms["k24"],
+           nbytes(*(front_b[k] for k in ("intra_mb", "direct_mb", "bmode",
+                                         "r0", "r1", "m0", "m1",
+                                         "cbp_luma_bits", "cbp_chroma",
+                                         "luma_blocks", "mode16", "modec",
+                                         "luma_dc", "chroma_dc",
+                                         "chroma_ac")), *maps_b.values())
+           + 4 * n_ops_bf + 4, K3_OPS_PER_OP * n_ops_bf + K3_OPS_PER_MB * nmb)
+    print(f"B kernels: exact; L0 / L1 / BI {modes}, {n_intra_b} intra, "
+          f"{n_direct_b} direct ({n_skip_b} skip) MBs of {nmb}, {n_ops_bf} "
+          f"ops; K22 pass 1 {b_ms['k22a'][0]:.3f} ms (trellis "
+          f"{b_ms['k22a with the trellis'][0]:.3f}), pass 2 "
+          f"{b_ms['k22b'][0]:.3f} ms (trellis "
+          f"{b_ms['k22b with the trellis'][0]:.3f}), K7 decision "
+          f"{b_ms['k7d'][0]:.3f} ms, sweeps {b_ms['k7s'][0]:.3f} ms, K23 "
+          f"{b_ms['k23'][0]:.3f} ms, K24 {b_ms['k24'][0]:.3f} ms, K2 with B "
+          f"maps {ms2b:.3f} ms, K21 {ms21:.3f} ms a launch [{smi_line}]",
+          flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -1906,7 +2205,13 @@ def main() -> None:
                 "cavlc_i_slice": cavlc.cavlc_i_slice,
                 "cavlc_p_slice": cavlc.cavlc_p_slice,
                 "p_maps": cabac_planes.p_maps,
-                "trellis_scan": otrellis.trellis_scan}
+                "trellis_scan": otrellis.trellis_scan,
+                "lowres_bcost": lookahead.lowres_bcost,
+                "b_inter_mb": inter.b_inter_mb,
+                "intra_in_b_decide": inter.intra_in_b_decide,
+                "intra_in_b_sweeps": inter.intra_in_b_sweeps,
+                "b_direct": inter.b_direct,
+                "cabac_b_ops": cabac_planes.cabac_b_ops}
     # the kernels and branches of variance AQ, idle at constant QP
     aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
                "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
@@ -1932,7 +2237,12 @@ def main() -> None:
                 "cavlc_i_slice_aq": (cavlc.cavlc_i_slice, "launches_aq"),
                 "cavlc_p_slice_aq": (cavlc.cavlc_p_slice, "launches_aq"),
                 "p_inter_mb_trellis": (inter.p_inter_mb,
-                                       "launches_trellis")}
+                                       "launches_trellis"),
+                "deblock_diag_b": (deblock.deblock_frame, "launches_b")}
+    # the kernels and branches of B frames, idle without them
+    b_only = ("lowres_bcost", "b_inter_mb", "intra_in_b_decide",
+              "intra_in_b_sweeps", "b_direct", "cabac_b_ops",
+              "deblock_diag_b")
     # K6's trellis branch, idle without --trellis, and K20, whose device
     # code runs inside K6 on every path (held against its plain version
     # in phase 3 alone)
@@ -2095,7 +2405,7 @@ def main() -> None:
     for k, n in launches_8.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in aq_only
                         or k in cavlc_only or k in trellis_only
-                        or k in standalone):
+                        or k in standalone or k in b_only):
             fail(f"kernel {k} was launched {n} times on the {what8}")
     if any(t is None for v in t8_seen.values() for t in v):
         fail(f"{what8}: a frame ran without the 8x8 transform")
@@ -2142,7 +2452,8 @@ def main() -> None:
              f"8x8 transform, I8x8, the RD ladder and the lookahead")
     for k, n in launches_9.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
-                        or k in trellis_only or k in standalone):
+                        or k in trellis_only or k in standalone
+                        or k in b_only):
             fail(f"kernel {k} was launched {n} times on {what9}")
     if any(d is None for v in seen9.values() for d in v):
         fail(f"{what9}: a frame ran without the mb_qp_delta planes")
@@ -2207,7 +2518,7 @@ def main() -> None:
              f"8x8 transform and I8x8")
     idle11 = set(cabac_only) | {k for k in launches_11 if "t8" in k
                                 or "i8x8" in k} | set(trellis_only) \
-        | set(standalone)
+        | set(standalone) | set(b_only)
     for k, n in launches_11.items():
         if (n <= 0) != (k in idle11):
             fail(f"kernel {k} was launched {n} times on {what11}")
@@ -2247,7 +2558,7 @@ def main() -> None:
         fail(f"{what12}: the trellis did not open at the defaults")
     for k, n in launches_12.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
-                        or k in standalone):
+                        or k in standalone or k in b_only):
             fail(f"kernel {k} was launched {n} times on {what12}")
     if launches_12["p_inter_mb_trellis"] != launches_12["p_inter_mb"]:
         fail(f"{what12}: K6 ran {launches_12['p_inter_mb']} times, "
@@ -2271,10 +2582,103 @@ def main() -> None:
                 what12, make=trellis_params, frame_parallel=3)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=trellis_params,
                  tag=what12)
+
+    # ------ 13. x264_tpu's defaults with B frames (i_bframe 3, b-adapt 1)
+    stamp("phase 13")
+    progs = {n: getattr(lookahead, n) for n in ("badapt_first", "badapt_ext",
+                                                "b_seed_mvs", "b_cost")}
+    seen13 = []
+
+    def seen_prog(name, fn):
+        def call(*a):
+            out = fn(*a)
+            seen13.append((name, a, out))
+            return out
+        return call
+
+    for name, fn in progs.items():
+        setattr(lookahead, name, seen_prog(name, fn))
+    what13 = "x264_tpu's defaults with B frames (i_bframe 3, b-adapt 1)"
+    try:
+        done, summary, launches_13, header, fps, med, enc = main_path(
+            250, N_BFRAMES, what13, src=cut, make=bframes_params)
+    finally:
+        for name, fn in progs.items():
+            setattr(lookahead, name, fn)
+    if not (enc._bframes == 3 and enc._badapt and not enc._badapt2
+            and enc._aq and enc._t8 and enc._rd and enc.rc.method == 1):
+        fail(f"{what13}: the defaults with i_bframe 3 did not turn on "
+             f"b-adapt 1, CRF with variance AQ, the 8x8 transform and RD")
+    for k, n in launches_13.items():
+        if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
+                        or k in trellis_only or k in standalone):
+            fail(f"kernel {k} was launched {n} times on {what13}")
+    # every b-adapt decision and seed against the plain K21's on the same
+    # lowres planes
+    for name, args, out in seen13:
+        lookahead.lowres_bcost = plain21
+        try:
+            want = progs[name](*args)
+        finally:
+            lookahead.lowres_bcost = kernel21
+        got = out if isinstance(out, tuple) else (out,)
+        exact(f"{what13}: {name}", got,
+              want if isinstance(want, tuple) else (want,))
+    n_calls = {n: sum(c[0] == n for c in seen13) for n in progs}
+    types = [e.frame_type for e in done]
+    idrs = sorted(e.display_idx for e in done if e.frame_type == "IDR")
+    if "B" not in types or idrs != [0, CUT]:
+        fail(f"{what13}: frame types {types}, IDRs at display {idrs}")
+    by_type = {t: [len(e.payload) for e in done if e.frame_type == t]
+               for t in ("IDR", "P", "B")}
+    qps = [e.qp for e in enc.rc.entries]
+    st13 = enc.stats
+    print(f"{what13}: {N_BFRAMES} frames {W}x{H} CRF 23 with variance AQ, "
+          f"{fps:.3f} fps (phase 9: {ph9['fps']:.3f}), median encode() "
+          f"{med:.1f} ms, encode order {''.join(t[0] for t in types)} "
+          f"(display {[e.display_idx for e in done]}), bytes IDR "
+          f"{statistics.mean(by_type['IDR']):.0f}, P "
+          f"{statistics.mean(by_type['P']):.0f} ({len(by_type['P'])} "
+          f"frames), B {statistics.mean(by_type['B']):.0f} "
+          f"({len(by_type['B'])} frames; phase 9's P {ph9['p']:.0f}), PSNR "
+          f"Y {summary['psnr']['y']:.4f} avg {summary['psnr']['avg']:.4f} "
+          f"dB (phase 9 {ph9['psnr']:.4f}), SSIM {summary['ssim_y']:.6f} "
+          f"(phase 9 {ph9['ssim']:.6f}), frame QPs {qps}, b-adapt "
+          f"decisions and seeds equal to the plain K21's: {n_calls}, "
+          f"{st13.mb_intra} intra and {st13.mb_skip} skip MBs in all "
+          f"[{smi_line}]", flush=True)
+    # the first frames in encode order: on this noisy pan b-adapt 1 keeps
+    # no B before the cut, so a CPU run up to the first B would encode 29
+    # frames; phase 13's own IDR and P, then a run that starts on the
+    # second picture, where B pays, with i_bframe 1 (its first frames in
+    # encode order are IDR, P, B whatever b-adapt says)
+    same_as_cpu_b(x264_tpu_torch, done, cut, header, 2, what13,
+                  bframes_params)
+    what13b = "the defaults with i_bframe 1 on the second picture"
+
+    def bframes1_params(EncoderParams, frame_parallel: int = 3):
+        p = bframes_params(EncoderParams, frame_parallel)
+        p.i_bframe = 1
+        return p
+
+    enc13b = x264_tpu_torch.Encoder(bframes1_params(
+        x264_tpu_torch.EncoderParams))
+    header13b = enc13b.headers()
+    done13b, _, _ = drive(enc13b, cut[CUT:CUT + 3])
+    enc13b.close()
+    if [e.frame_type for e in done13b] != ["IDR", "P", "B"]:
+        fail(f"{what13b}: frame types {[e.frame_type for e in done13b]}")
+    same_as_cpu_b(x264_tpu_torch, done13b, cut[CUT:CUT + 3], header13b, 3,
+                  what13b, bframes1_params)
+    # the profiled window holds the cut and the B run after it
+    device_split(x264_tpu_torch, cut, 24, 8, 6, 40, make=bframes_params,
+                 tag=what13)
     for name, r in rec.items():
         main = launches_11 if name in cavlc_only else launches_12 \
-            if name in trellis_only + standalone else launches_9
+            if name in trellis_only + standalone else launches_13 \
+            if name in b_only else launches_9
         r.update(launches=main[name],
+                 launches_b_defaults=launches_13[name],
                  launches_trellis_defaults=launches_12[name],
                  launches_cavlc_defaults=launches_11[name],
                  launches_cavlc_all_intra=launches_10[name],

@@ -2,10 +2,12 @@
 chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
-non-CPU tensor; parameters outside the all-intra and IPPP (subme 1-9,
+non-CPU tensor; parameters outside the all-intra, IPPP (subme 1-9,
 scenecut lookahead, the 8x8 transform and I8x8, CABAC or CAVLC,
 constant QP, CRF or 1-pass ABR with or without variance AQ, the CABAC
-trellis) slices raise NotImplementedError."""
+trellis) and CABAC B-frame (i_bframe 1-3, b-adapt 0 / 1 / 2) slices
+raise NotImplementedError, B frames with CAVLC naming the CAVLC B
+slice."""
 
 import ast
 import pathlib
@@ -106,8 +108,12 @@ def test_encoder_default_device_needs_a_card():
     ("analyse__i_noise_reduction", 100), ("rc__b_stat_read", True),
     ("i_cqm_preset", 1), ("i_bframe", 2), ("rc__i_qp_constant", 0)])
 def test_outside_the_slice_raises(field, value):
+    kw = {field: value}
+    if field == "i_bframe":
+        # B frames are in the port with CABAC; CAVLC's B slice is not yet
+        kw["b_cabac"] = False
     with pytest.raises(NotImplementedError):
-        x264_tpu_torch.Encoder(_params(**{field: value}), device="cpu")
+        x264_tpu_torch.Encoder(_params(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("keyint", [1, 250])
@@ -171,8 +177,31 @@ def test_the_trellis_slice_opens(trellis_mode, rc):
     dict(rc__i_qp_constant=0), dict(rc__i_vbv_max_bitrate=2000),
     dict(i_mb_row_shards=2)], ids=lambda c: ",".join(c))
 def test_outside_the_ippp_slice_raises(change):
+    if "i_bframe" in change:
+        # B frames are in the port with CABAC; CAVLC's B slice is not yet
+        change = {"b_cabac": False, **change}
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_p_params(**change), device="cpu")
+
+
+@pytest.mark.parametrize("bframes,adapt", [(1, 0), (2, 1), (3, 2), (5, 1)])
+def test_the_b_slice_opens(bframes, adapt):
+    """i_bframe 1-3 (validate() clamps more to 3 without a pyramid) with
+    b-adapt 0, 1 or 2 open under CABAC, with the flags x264_tpu sets and
+    the lookahead's stream-free CPU path."""
+    p = _p_params(i_bframe=bframes, i_bframe_adaptive=adapt)
+    enc = x264_tpu_torch.Encoder(p, device="cpu")
+    assert enc._bframes == min(bframes, 3)
+    assert (enc._badapt, enc._badapt2) == (adapt > 0, adapt == 2)
+    assert enc.sps.num_reorder_frames == 1
+    enc.close()
+
+
+@pytest.mark.parametrize("keyint", [1, 30])
+def test_cavlc_b_frames_name_their_slice(keyint):
+    p = _p_params(i_bframe=2, b_cabac=False, i_keyint_max=keyint)
+    with pytest.raises(NotImplementedError, match="the CAVLC B slice"):
+        x264_tpu_torch.Encoder(p, device="cpu")
 
 
 @pytest.mark.parametrize("subme,steps,chroma_me", [
@@ -252,13 +281,18 @@ def test_vbv_and_2pass_name_their_slice(what):
 
 
 def test_reconfig_and_forced_b_raise():
+    """reconfig raises; a forced "B" is a request x264_tpu leaves to the
+    encoder (without B frames the frame is typed as unforced: an IDR
+    first, then P), and an unknown type raises."""
     enc = x264_tpu_torch.Encoder(_p_params(), device="cpu")
     with pytest.raises(NotImplementedError):
         enc.reconfig(_p_params())
     z = lambda h, w: np.zeros((h, w), np.uint8)
-    with pytest.raises(NotImplementedError):
-        enc.encode(x264_tpu_torch.Frame(z(48, 64), z(24, 32), z(24, 32)),
-                   forced_type="B")
+    f = x264_tpu_torch.Frame(z(48, 64), z(24, 32), z(24, 32))
+    assert enc.encode(f, forced_type="B").frame_type == "IDR"
+    assert enc.encode(f, forced_type="B").frame_type == "P"
+    with pytest.raises(ValueError, match="unknown frame type"):
+        enc.encode(f, forced_type="S")
 
 
 def test_wrapper_never_falls_back_off_the_cpu():
@@ -367,6 +401,57 @@ def _meta_aq_calls():
         "K8 aq": lambda: cabac_planes.cabac_p_ops(front, mb_h, mb_w,
                                                   aq=(qm, 26)),
     }
+
+
+def _meta_b_calls():
+    """The B slice's wrappers (K21-K24, K7's B passes, K2's B rule) on
+    tensors that are neither on the CPU nor on a card."""
+    mb_h, mb_w, H, W = 1, 2, 16, 32
+    t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
+    b = lambda *s: t(*s, dt=torch.bool)
+    q = inter.make_qtab_p(26, 26, "cpu")
+    q = {k: (v.to("meta") if torch.is_tensor(v) else v)
+         for k, v in q.items()}
+    src = (t(H, W), t(H // 2, W // 2), t(H // 2, W // 2))
+    fetch = (t(4, H + 64, W + 64), t(H // 2 + 32, W // 2 + 32),
+             t(H // 2 + 32, W // 2 + 32))
+    mv, g = t(mb_h, mb_w, 2), t(mb_h, mb_w)
+    lows = t(4, 8, 16)
+    front = dict(intra_mb=b(mb_h, mb_w), direct_mb=b(mb_h, mb_w), bmode=g,
+                 r0=g, r1=g, m0=mv, m1=mv, cbp_luma_bits=g, cbp_chroma=g,
+                 luma_blocks=t(mb_h, mb_w, 16, 16), mode16=g, modec=g,
+                 luma_dc=t(mb_h, mb_w, 16), chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16))
+    z4, zmv = t(mb_h * 4, mb_w * 4), t(mb_h * 4, mb_w * 4, 2)
+    from x264_tpu_torch.encoder import lookahead
+    return {
+        "K21": lambda: lookahead.lowres_bcost(lows, lows, lows, 1, 1, 4,
+                                              True),
+        "K22 pass 1": lambda: inter.b_inter_mb(
+            mb_h, mb_w, *src, fetch, fetch, q, mv, mv, satd=(g, g),
+            seeds=(mv, mv), lam=4),
+        "K22 pass 2": lambda: inter.b_inter_mb(
+            mb_h, mb_w, *src, fetch, fetch, q, mv, mv, refs=(g, g)),
+        "K7 B decision": lambda: inter.intra_in_b_decide(
+            mb_h, mb_w, *src, *src, g, q, 4),
+        "K7 B sweeps": lambda: inter.intra_in_b_sweeps(
+            mb_h, mb_w, *src, *src, b(mb_h, mb_w), q, 4),
+        "K23": lambda: inter.b_direct(mb_h, mb_w, src[0], fetch, fetch,
+                                      b(mb_h, mb_w), g, mv, mv, g, z4, zmv,
+                                      4),
+        "K24": lambda: cabac_planes.cabac_b_ops(front, mb_h, mb_w, True),
+        "K2 B": lambda: deblock.deblock_frame(
+            mb_h, mb_w, *src, g, b(mb_h, mb_w), z4, z4, zmv, z4, zmv, True,
+            0, 0, 0),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_b_calls()))
+def test_b_wrappers_never_fall_back_off_the_cpu(name):
+    """The wrappers of the B slice launch their kernel (or raise) on any
+    tensor that is not on the CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_b_calls()[name]()
 
 
 @pytest.mark.parametrize("name", list(_meta_aq_calls()))

@@ -1,5 +1,5 @@
 """The port's CUDA / Triton kernels against their plain PyTorch versions
-on the card, at small frames (K1-K20 and K8's pass A alone, K6 and K8
+on the card, at small frames (K1-K24 and K8's pass A alone, K6 and K8
 also with random partition layouts and quarter-pel MVs, K7 also with
 the RD decision; K1 with I8x8, K3 / K2 on its output, K6 / K13 / K8 / K2
 with the 8x8 transform; K1 / K3 / K6 / K7 / K8 / K2 / K18 / K19 with a
@@ -10,7 +10,10 @@ with the 8x8 transform and I8x8, at CQP and at CRF with variance AQ),
 and with CAVLC at the defaults and all-intra at CQP; K20 at every
 trellis category, shared and stacked, K6's trellis branch at t8 0 / 1 / 2
 with and without a QP map, and the card's Encoder with --trellis 1 and 2
-against the CPU's.
+against the CPU's; K21 with one and two references and the bi candidate,
+K22's two passes, K7's B decision and sweeps, K23, K24 and K2's B rule
+(with and without the trellis), and the card's Encoder with i_bframe 3 at
+b-adapt 0, 1 and 2 against the CPU's.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -937,6 +940,204 @@ def test_trellis_encoder_on_the_card_matches_the_cpu(card, trellis_mode):
     assert [o.frame_type for o in kout] == ["IDR", "P", "P"]
     for a, b in zip(kout, pout):
         assert a.frame_type == b.frame_type and a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))
+    assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
+    assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5
+
+
+# ------------------------------------------------------------ B frames
+def _b_refs(dev):
+    """A B frame between two references a pan apart, with independent
+    noise on the references (BI pays), flat MBs (intra) and a still
+    corner (direct, skip)."""
+    rng = np.random.default_rng(41)
+    h, w = MB_H * 16, MB_W * 16
+    yy, xx = np.mgrid[0:h + 32, 0:w + 32]
+    tex = 128 + 60 * np.sin(yy / 5.0) * np.cos(xx / 7.0) \
+        + rng.integers(0, 30, yy.shape)
+
+    def at(t, noise):
+        f = tex[8 + t:8 + t + h, 8 + 2 * t:8 + 2 * t + w] \
+            + rng.integers(-noise, noise + 1, (h, w))
+        f[:32, :32] = tex[:32, :32]
+        return f
+
+    cur, l0, l1 = at(2, 2), at(0, 12), at(4, 12)
+    cur[32:48, 16:64] = 200
+    cy, cx = np.mgrid[0:h // 2, 0:w // 2]
+    t = lambda a: torch.as_tensor(np.clip(a, 0, 255), dtype=torch.int32,
+                                  device=dev)
+    planes = [(t(y), t(110 + (cx + k) % 17), t(140 - (cy + k) % 13))
+              for y, k in ((cur, 2), (l0, 0), (l1, 4))]
+    ref4 = np.zeros((MB_H * 4, MB_W * 4), np.int32)
+    ref4[4:8, 8:12] = -1
+    mv4 = np.where(rng.random((MB_H * 4, MB_W * 4, 1)) < 0.3,
+                   rng.integers(-12, 13, (MB_H * 4, MB_W * 4, 2)),
+                   rng.integers(-1, 2, (MB_H * 4, MB_W * 4, 2)))
+    mv4[ref4 < 0] = 0
+    return planes, (t(ref4), t(mv4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trellis,t8_mode", [(False, False), (True, True)])
+def test_b_kernels_match_plain(card, trellis, t8_mode):
+    """K22 (both passes), K7's B decision and sweeps, K23, K24 and K2's B
+    rule, each on the card's outputs of the stage before it, against
+    their plain versions; every B mode occurs."""
+    ((y, u, v), l0, l1), col = _b_refs(card)
+    qp = 26
+    q = inter.make_qtab_p(qp, tables.chroma_qp(qp), card)
+    if trellis:
+        q.update(inter.trellis_consts(qp, tables.chroma_qp(qp), 0, card))
+    lam = int(tables.LAMBDA_TABLE[qp])
+    rng = np.random.default_rng(2)
+    seeds = [torch.as_tensor(rng.integers(-8, 9, (MB_H, MB_W, 2)),
+                             dtype=torch.int32, device=card)]
+    seeds.append(-seeds[0])
+    fetch, mvs, satds = [], [], []
+    for ref, seed in zip((l0, l1), seeds):
+        f, ref_pad = inter.b_list_fetch(*ref)
+        mv_fp, _ = me.hier_search(y, ref_pad, MB_H, MB_W, 16, lam, seed)
+        mv, satd = me.subpel_refine(y, f[0], mv_fp, lam, seed, (2, 1))
+        fetch.append(f)
+        mvs.append(mv)
+        satds.append(satd)
+
+    def same(k, p, keys=None):
+        for key in keys or p:
+            assert torch.equal(k[key], p[key]), key
+
+    n22 = inter.b_inter_mb.launches
+    k1 = inter.b_inter_mb(MB_H, MB_W, y, u, v, *fetch, q, *mvs, satd=satds,
+                          seeds=seeds, lam=lam)
+    same(k1, inter.b_inter_mb_plain(MB_H, MB_W, y, u, v, *fetch, q, *mvs,
+                                    satd=satds, seeds=seeds, lam=lam))
+    assert set(k1["bmode"].unique().tolist()) == {0, 1, 2}
+    im = inter.intra_in_b_decide(MB_H, MB_W, y, u, v, k1["recon_y"],
+                                 k1["recon_u"], k1["recon_v"],
+                                 k1["cost_inter"], q, lam)
+    assert torch.equal(im, inter.intra_in_p_plain(
+        MB_H, MB_W, y, u, v, k1["recon_y"], k1["recon_u"], k1["recon_v"],
+        k1["cost_inter"], q, lam, True, decide_only=True))
+    assert im.any()
+    args = (MB_H, MB_W, y, *fetch, im, k1["bmode"], *mvs, k1["cost_inter"],
+            *col, lam)
+    kd = inter.b_direct(*args)
+    for a, b in zip(kd, inter.b_direct_plain(*args)):
+        assert torch.equal(a, b)
+    r0, r1, m0, m1, direct = kd
+    assert direct.any()
+    k2 = inter.b_inter_mb(MB_H, MB_W, y, u, v, *fetch, q, m0, m1,
+                          refs=(r0, r1))
+    same(k2, inter.b_inter_mb_plain(MB_H, MB_W, y, u, v, *fetch, q, m0, m1,
+                                    refs=(r0, r1)))
+    assert inter.b_inter_mb.launches == n22 + 2
+    ks = inter.intra_in_b_sweeps(MB_H, MB_W, y, u, v, k2["recon_y"],
+                                 k2["recon_u"], k2["recon_v"], im, q, lam)
+    same(ks, inter.intra_in_p_plain(MB_H, MB_W, y, u, v, k2["recon_y"],
+                                    k2["recon_u"], k2["recon_v"], None, q,
+                                    lam, True, intra_mb=im))
+    front = dict(inter.merge_intra(ks, k2, MB_H, MB_W), bmode=k1["bmode"],
+                 direct_mb=direct, r0=r0, r1=r1, m0=m0, m1=m1)
+    kmaps, kops, kn = cabac_planes.cabac_b_ops(front, MB_H, MB_W, t8_mode)
+    pmaps, pops, pn = cabac_planes.cabac_b_ops_plain(front, MB_H, MB_W,
+                                                     t8_mode)
+    same(kmaps, pmaps)
+    n = int(pn)
+    assert int(kn) == n and torch.equal(kops[:n], pops[:n])
+    assert pmaps["skip"].any() and (direct & ~pmaps["skip"]).any()
+    qp_mb = torch.full((MB_H, MB_W), qp + 6, dtype=torch.int32, device=card)
+    dargs = (qp_mb, im, pmaps["nnz4"], pmaps["ref4"], pmaps["mv4"],
+             pmaps["ref4_l1"], pmaps["mv4_l1"], True, 0, 0, 0)
+    planes = [t.clone() for t in (ks["recon_y"], ks["recon_u"],
+                                  ks["recon_v"])]
+    nb = deblock.deblock_frame.launches_b
+    kdb = deblock.deblock_frame(MB_H, MB_W, *planes, *dargs)
+    assert deblock.deblock_frame.launches_b > nb
+    pdb = deblock.deblock_frame_plain(MB_H, MB_W, ks["recon_y"],
+                                      ks["recon_u"], ks["recon_v"], *dargs)
+    for a, b in zip(kdb, pdb):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [4, 8])
+def test_lowres_bcost_kernel_matches_plain(card, r):
+    """K21 with one and two references, with and without the bi
+    candidate, on lowres planes that pan and jump by 2r (border blocks
+    reach the clip and the window wrap)."""
+    h, w = 96, 128
+    rng = np.random.default_rng(r)
+    big = rng.integers(0, 256, (h + 96, w + 96))
+    big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) // 3
+    lows = []
+    for dy, dx in ((0, 0), (3, 5), (6 + 4 * r, 10 - 4 * r)):
+        f = torch.as_tensor(big[48 - dy:48 - dy + h, 48 - dx:48 - dx + w],
+                            dtype=torch.int32, device=card)
+        lows.append(lookahead.lowres_planes(f, h, w))
+    bh, bw = h // 16, w // 16
+    for ref1, bi in ((None, False), (lows[2], False), (lows[2], True)):
+        n = lookahead.lowres_bcost.launches
+        k = lookahead.lowres_bcost(lows[1], lows[0], ref1, bh, bw, r, bi,
+                                   want_mv=True)
+        assert lookahead.lowres_bcost.launches == n + 1
+        p = lookahead.lowres_bcost_plain(lows[1].cpu(), lows[0].cpu(),
+                                         None if ref1 is None else
+                                         ref1.cpu(), bh, bw, r, bi)
+        for a, b in zip(k, p):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adapt,depth,cqp,trellis", [(1, 3, None, 0),
+                                                     (0, 1, 26, 0),
+                                                     (2, 1, None, 1)])
+def test_b_encoder_on_the_card_matches_the_cpu(card, adapt, depth, cqp,
+                                               trellis):
+    """i_bframe 3 at 5x7 MBs, seven frames of a noisy pan: b-adapt 1 at
+    x264_tpu's defaults (CRF + AQ) at depth 3, fixed runs at CQP, and
+    b-adapt 2 with the trellis; the card's frames equal the CPU's."""
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, 256, (h + 16, w + 24), dtype=np.uint8)
+    base = ((base.astype(int) + np.roll(base, 1, 1)) // 2).astype(np.uint8)
+    frames = [x264_tpu_torch.Frame(
+        base[t:t + h, 2 * t:2 * t + w].copy(),
+        np.full((h // 2, w // 2), 110 + 2 * t, np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+        for t in range(7)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h, i_bframe=3,
+                                         i_log_level=0,
+                                         i_frame_parallel=depth)
+        p.i_bframe_adaptive = adapt
+        p.analyse.i_trellis = trellis
+        if cqp is not None:
+            p.rc.i_rc_method, p.rc.i_qp_constant = 0, cqp
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs = [enc.encode(f) for f in frames]
+        outs = [o for o in outs if o is not None] + enc.flush()
+        return (enc.headers(), outs, enc.close(),
+                [e.qp for e in enc.rc.entries])
+
+    n = (inter.b_inter_mb.launches, inter.b_direct.launches,
+         cabac_planes.cabac_b_ops.launches, lookahead.lowres_bcost.launches)
+    (kh, kout, ksum, kq), (ph, pout, psum, pq) = run(card), run("cpu")
+    assert inter.b_inter_mb.launches > n[0]
+    assert inter.b_direct.launches > n[1]
+    assert cabac_planes.cabac_b_ops.launches > n[2]
+    if adapt:
+        assert lookahead.lowres_bcost.launches > n[3]
+    assert kh == ph and len(kout) == len(pout) == 7 and kq == pq
+    assert "B" in [o.frame_type for o in pout]
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        assert a.display_idx == b.display_idx
         for pl in "yuv":
             assert torch.equal(getattr(a.recon, pl).cpu(),
                                getattr(b.recon, pl))

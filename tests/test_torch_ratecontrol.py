@@ -86,3 +86,53 @@ def test_vbv_and_2pass_name_their_slice(what, tmp_path):
         match = "2-pass slice"
     with pytest.raises(NotImplementedError, match=match):
         trc.RateControl(p.validate())
+
+
+def _b_sequence(bframes: int):
+    """(type, satd) in encode order with B runs: an I, then each P followed
+    by the Bs of the run it closes (the B frames' complexity the P's)."""
+    out = []
+    for i, (t, satd) in enumerate(_sequence()):
+        out.append((t, satd))
+        if t == "P" and i % (bframes + 1) == 0:
+            out += [("B", satd * 0.8)] * bframes
+    return out
+
+
+@pytest.mark.parametrize("mode,depth,bframes", [
+    ("cqp", 0, 2), ("crf", 0, 1), ("crf", 2, 3), ("abr", 2, 2)],
+    ids=["cqp", "crf", "crf-pipe", "abr-pipe"])
+def test_b_frames_match_jax(mode, depth, bframes):
+    """The B branches: the CQP pb offset (round(6 log2 1.3) = 2), the B
+    qscale from the last P's times pb_factor under CRF / ABR, and end()'s
+    B accounting (the rceq divided by pb_factor, no accum_p update, the
+    last non-B type kept), with end() lagging by the pipe's depth."""
+    seq = _b_sequence(bframes)
+
+    def drive(rc):
+        qps, pending = [], []
+        for i, (t, satd) in enumerate(seq):
+            qp = rc.start(t, satd=satd, frame_idx=i)
+            qps.append(qp)
+            pending.append((t, qp, satd, rc.last_rceq, rc.last_satd))
+            if len(pending) > depth:
+                ft, fq, fs, rceq, ls = pending.pop(0)
+                rc.end(ft, _bits(fq, fs, ft), fq, rceq=rceq, satd=ls)
+        for ft, fq, fs, rceq, ls in pending:
+            rc.end(ft, _bits(fq, fs, ft), fq, rceq=rceq, satd=ls)
+        return qps, rc.cplxr_sum, rc.accum_p_qp, rc.last_non_b_type
+
+    def params(cls):
+        p = _params(cls, "abr" if mode == "abr" else "crf")
+        if mode == "cqp":
+            p.rc.i_rc_method, p.rc.i_qp_constant = 0, 26
+        return p
+
+    j = drive(jrc.RateControl(params(JParams)))
+    t = drive(trc.RateControl(params(TParams)))
+    assert t == j
+    qps = dict(zip(range(len(seq)), t[0]))
+    b_qps = [qps[i] for i, (ft, _) in enumerate(seq) if ft == "B"]
+    assert b_qps
+    if mode == "cqp":
+        assert set(b_qps) == {28}

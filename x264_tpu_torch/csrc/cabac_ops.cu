@@ -531,6 +531,50 @@ __device__ void emit_mvd(Emitter& E, int v, int base, int am) {
   if (a >= 1) E.put(K_BYPASS, v < 0, 1);
 }
 
+// the residual of a P or B MB (p_slice_ops / b_slice_ops): luma DC of
+// an intra MB, the 16 luma 4x4 blocks (I16 AC or inter cat 2) or the four
+// cat-5 blocks, chroma DC and AC; outside the frame a cbf context takes
+// the current MB's intra flag (luma DC: 1)
+__device__ void emit_residual(Emitter& E, const PPlanes& P, int mb, bool hl,
+                              bool ht, bool im, bool coded, bool inter,
+                              int cbp, int cbpc) {
+  const int mbl = mb - 1, mbt = mb - P.mb_w;
+  if (im) {
+    const int a = hl ? P.dc_nz(mbl) : 1, b = ht ? P.dc_nz(mbt) : 1;
+    E.residual(P.luma_dc + mb * 16, 16, 0, 2 * b + a);
+  }
+  const bool t8 = P.t8(mb);
+  if (t8)                                        // cat 5, no cbf
+    for (int b = 0; b < 4; ++b)
+      if ((cbp >> b) & 1) E.residual8(P.luma8 + (mb * 4 + b) * 64);
+  for (int z = 0; z < 16 && !t8; ++z) {
+    const bool blk_coded = im ? cbp > 0 : (inter && ((cbp >> (z >> 2)) & 1));
+    if (!blk_coded) continue;
+    const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
+    const int a = bx > 0 ? P.nnz(mb, r - 1) : hl ? P.nnz(mbl, r + 3) : im;
+    const int b = by > 0 ? P.nnz(mb, r - 4) : ht ? P.nnz(mbt, r + 12) : im;
+    const int* c = P.luma_blocks + (mb * 16 + z) * 16;
+    if (im) E.residual(c + 1, 15, 1, 2 * b + a);
+    else E.residual(c, 16, 2, 2 * b + a);
+  }
+  if (coded && cbpc > 0)
+    for (int ch = 0; ch < 2; ++ch) {
+      const int a = hl ? P.cdc_nz(mbl, ch) : im, b = ht ? P.cdc_nz(mbt, ch) : im;
+      E.residual(P.chroma_dc + mb * 8 + ch * 4, 4, 3, 2 * b + a);
+    }
+  if (coded && cbpc == 2)
+    for (int ch = 0; ch < 2; ++ch)
+      for (int blk = 0; blk < 4; ++blk) {
+        const int by = blk >> 1, bx = blk & 1;
+        const int a = bx ? P.cac_nz(mb, ch, blk - 1)
+                    : hl ? P.cac_nz(mbl, ch, blk + 1) : im;
+        const int b = by ? P.cac_nz(mb, ch, blk - 2)
+                    : ht ? P.cac_nz(mbt, ch, blk + 2) : im;
+        E.residual(P.chroma_ac + ((mb * 2 + ch) * 4 + blk) * 16 + 1, 15, 4,
+                   2 * b + a);
+      }
+}
+
 __global__ void p_emit_kernel(PPlanes P, int mb_h, int t8_mode,
                               uint32_t* __restrict__ scratch,
                               int* __restrict__ counts) {
@@ -607,42 +651,189 @@ __global__ void p_emit_kernel(PPlanes P, int mb_h, int t8_mode,
   }
   if (coded && (im || cbp > 0 || cbpc > 0)) E.dqp(P.dqp, P.dqp_pnz, mb);
 
-  // ---- residual; outside the frame the cbf context takes the current
-  // MB's intra flag (luma DC: 1)
-  if (im) {
-    const int a = hl ? P.dc_nz(mbl) : 1, b = ht ? P.dc_nz(mbt) : 1;
-    E.residual(P.luma_dc + mb * 16, 16, 0, 2 * b + a);
+  emit_residual(E, P, mb, hl, ht, im, coded, inter, cbp, cbpc);
+  if (mb != nmb - 1) E.put(K_TERM, 0, 0);          // end_of_slice_flag 0
+  counts[mb] = E.n;
+}
+
+// ---------------------------------------------------------------- K24
+// K24 cabac_b_ops: stage 4 of the B encode and the op stream of the slice.
+//
+// Replaces the map derivation of x264_tpu/encoder/inter.py:866
+// encode_b_body's stage 4 (inter.py:1174-1224: the per-list 4x4 ref / mv
+// maps, mvpred.py:77 predict_16x16 per list, the mvds and their maps,
+// B_SKIP, nnz4) and x264_tpu/entropy/cabac_planes.py:791 b_slice_ops
+// followed by compact_ops. Plain twin:
+// x264_tpu_torch/entropy/cabac_planes.py:cabac_b_ops_plain; wrapper:
+// cabac_b_ops.
+//
+// Design. Four launches, as K8's:
+//   A. one thread per MB: use_l0 / use_l1 (explicit L0 / L1 / BI modes;
+//      direct and skip code no mvd), each list's 4x4 ref / mv maps (ref
+//      -1 and MV 0 on intra MBs, -1 on an unused list), each list's 16x16
+//      predictor from the neighbours' final per-MB configs (ref 0, -1, or
+//      -2 outside the frame; C falling back to D), the mvds and their 4x4
+//      maps, B_SKIP (direct without coded luma or chroma) and nnz4;
+//   B. one thread per MB emits its live ops in b_slice_ops' slot order:
+//      the skip flag (ctx 24 + non-skip neighbours), mb_type (bin 0 at ctx
+//      27 + the neighbours that are neither skip nor direct: 0 for
+//      B_Direct_16x16; L0 1 0 0, L1 1 0 1, Bi 1 1 0 0 0 0, intra
+//      1 1 1 1 0 1 and the I16 suffix at ctxs 32-35), the intra chroma
+//      mode, the mvds of L0 then L1 (ctxInc from the same list's left /
+//      top |mvd|), cbp, transform_size_8x8_flag 0 under t8_mode, the
+//      mb_qp_delta 0 bin, then K8's residual; an MB emits at most the
+//      P_8x8 bound (two mvds of 2 x 7 in place of four);
+//   then K3's scan and scatter.
+// What bounds it on the H100: bytes, as K8.
+
+// the final per-MB config of one list as a 4x4 block (by4, bx4) of its
+// maps: -2 outside the frame, -1 intra or unused, else ref 0 and its MV
+struct BCfg {
+  const uint8_t* intra;
+  const int *r, *m;
+  int mb_h, mb_w;
+  __device__ Cell cell(int by4, int bx4) const {
+    if (by4 < 0 || bx4 < 0 || by4 >= 4 * mb_h || bx4 >= 4 * mb_w) return Cell{-2, 0, 0};
+    const int n = (by4 >> 2) * mb_w + (bx4 >> 2);
+    if (intra[n] || r[n] < 0) return Cell{-1, 0, 0};
+    return Cell{r[n], m[2 * n], m[2 * n + 1]};
   }
-  const bool t8 = P.t8(mb);
-  if (t8)                                        // cat 5, no cbf
-    for (int b = 0; b < 4; ++b)
-      if ((cbp >> b) & 1) E.residual8(P.luma8 + (mb * 4 + b) * 64);
-  for (int z = 0; z < 16 && !t8; ++z) {
-    const bool blk_coded = im ? cbp > 0 : (inter && ((cbp >> (z >> 2)) & 1));
-    if (!blk_coded) continue;
-    const int r = kRasterOfZ[z], by = r >> 2, bx = r & 3;
-    const int a = bx > 0 ? P.nnz(mb, r - 1) : hl ? P.nnz(mbl, r + 3) : im;
-    const int b = by > 0 ? P.nnz(mb, r - 4) : ht ? P.nnz(mbt, r + 12) : im;
-    const int* c = P.luma_blocks + (mb * 16 + z) * 16;
-    if (im) E.residual(c + 1, 15, 1, 2 * b + a);
-    else E.residual(c, 16, 2, 2 * b + a);
-  }
-  if (coded && cbpc > 0)
-    for (int ch = 0; ch < 2; ++ch) {
-      const int a = hl ? P.cdc_nz(mbl, ch) : im, b = ht ? P.cdc_nz(mbt, ch) : im;
-      E.residual(P.chroma_dc + mb * 8 + ch * 4, 4, 3, 2 * b + a);
+};
+
+__global__ void b_maps_kernel(
+    const uint8_t* __restrict__ intra, const uint8_t* __restrict__ direct,
+    const int* __restrict__ bmode, const int* __restrict__ r0,
+    const int* __restrict__ r1, const int* __restrict__ m0,
+    const int* __restrict__ m1, const int* __restrict__ cbp,
+    const int* __restrict__ cbpc, const int* __restrict__ luma_blocks,
+    uint8_t* __restrict__ use0_o, uint8_t* __restrict__ use1_o,
+    int* __restrict__ mvd0_o, int* __restrict__ mvd1_o,
+    int* __restrict__ mvd4_0, int* __restrict__ mvd4_1,
+    uint8_t* __restrict__ skip_o, int* __restrict__ nnz4,
+    int* __restrict__ ref4_0, int* __restrict__ mv4_0,
+    int* __restrict__ ref4_1, int* __restrict__ mv4_1, int mb_h, int mb_w) {
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= mb_h * mb_w) return;
+  const int mx = mb % mb_w, my = mb / mb_w, gy = 4 * my, gx = 4 * mx;
+  const int W4 = 4 * mb_w;
+  const bool im = intra[mb], dm = direct[mb];
+  const int bm = bmode[mb];
+  const bool use[2] = {!im && !dm && bm != 1, !im && !dm && bm != 0};
+  int* mvd_o[2] = {mvd0_o, mvd1_o};
+  int* mvd4[2] = {mvd4_0, mvd4_1};
+  int* ref4[2] = {ref4_0, ref4_1};
+  int* mv4[2] = {mv4_0, mv4_1};
+  for (int k = 0; k < 2; ++k) {
+    const BCfg M{intra, k ? r1 : r0, k ? m1 : m0, mb_h, mb_w};
+    Cell C = M.cell(gy - 1, gx + 4);
+    if (C.ref == -2) C = M.cell(gy - 1, gx - 1);
+    const Cell p = predict(M.cell(gy, gx - 1), M.cell(gy - 1, gx), C);
+    const int mvx = (k ? m1 : m0)[2 * mb], mvy = (k ? m1 : m0)[2 * mb + 1];
+    const int dx = use[k] ? mvx - p.x : 0, dy = use[k] ? mvy - p.y : 0;
+    mvd_o[k][2 * mb] = dx;
+    mvd_o[k][2 * mb + 1] = dy;
+    for (int r = 0; r < 16; ++r) {
+      const int o = (gy + (r >> 2)) * W4 + gx + (r & 3);
+      mvd4[k][2 * o] = dx;
+      mvd4[k][2 * o + 1] = dy;
+      ref4[k][o] = im ? -1 : (k ? r1 : r0)[mb];
+      mv4[k][2 * o] = mvx;
+      mv4[k][2 * o + 1] = mvy;
     }
-  if (coded && cbpc == 2)
-    for (int ch = 0; ch < 2; ++ch)
-      for (int blk = 0; blk < 4; ++blk) {
-        const int by = blk >> 1, bx = blk & 1;
-        const int a = bx ? P.cac_nz(mb, ch, blk - 1)
-                    : hl ? P.cac_nz(mbl, ch, blk + 1) : im;
-        const int b = by ? P.cac_nz(mb, ch, blk - 2)
-                    : ht ? P.cac_nz(mbt, ch, blk + 2) : im;
-        E.residual(P.chroma_ac + ((mb * 2 + ch) * 4 + blk) * 16 + 1, 15, 4,
-                   2 * b + a);
-      }
+  }
+  use0_o[mb] = use[0];
+  use1_o[mb] = use[1];
+  skip_o[mb] = dm && cbp[mb] == 0 && cbpc[mb] == 0;
+  for (int z = 0; z < 16; ++z) {
+    const int* c = luma_blocks + (mb * 16 + z) * 16;
+    int n = 0;
+    for (int i = 0; i < 16; ++i) n += c[i] != 0;
+    const int r = kRasterOfZ[z];
+    nnz4[(gy + (r >> 2)) * W4 + gx + (r & 3)] = ((cbp[mb] >> (z >> 2)) & 1) ? n : 0;
+  }
+}
+
+__global__ void b_emit_kernel(PPlanes P, const uint8_t* __restrict__ direct,
+                              const int* __restrict__ bmode,
+                              const uint8_t* __restrict__ use0,
+                              const uint8_t* __restrict__ use1,
+                              const int* __restrict__ mvd0,
+                              const int* __restrict__ mvd1,
+                              const int* __restrict__ mvd4_0,
+                              const int* __restrict__ mvd4_1, int mb_h,
+                              int t8_mode, uint32_t* __restrict__ scratch,
+                              int* __restrict__ counts) {
+  const int mb_w = P.mb_w, nmb = mb_h * mb_w;
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= nmb) return;
+  const int mx = mb % mb_w, my = mb / mb_w;
+  const bool hl = mx > 0, ht = my > 0;
+  const int mbl = mb - 1, mbt = mb - mb_w;
+  const bool im = P.intra[mb], sk = P.skip[mb], dm = direct[mb];
+  const bool coded = !sk, inter = coded && !im, expl = inter && !dm;
+  const int cbp = P.cbp[mb], cbpc = P.cbpc[mb], bm = bmode[mb];
+  const bool bi = expl && bm == 2;
+  Emitter E{scratch + (size_t)mb * OPS_PER_MB, 0};
+
+  E.dec(24 + (hl && !P.skip[mbl]) + (ht && !P.skip[mbt]), sk);
+  if (coded) {
+    E.dec(27 + (hl && !P.skip[mbl] && !direct[mbl])
+          + (ht && !P.skip[mbt] && !direct[mbt]), !dm);
+    if (!dm) E.dec(30, im || bi);
+  }
+  if (expl && !bi) E.dec(32, bm == 1);
+  if (bi) {
+    E.dec(31, 0);
+    for (int k = 0; k < 3; ++k) E.dec(32, 0);
+  }
+  if (im) {
+    const int m16 = P.mode16[mb];
+    E.dec(31, 1);
+    E.dec(32, 1);
+    E.dec(32, 0);
+    E.dec(32, 1);
+    E.dec(32, 1);
+    E.put(K_TERM, 0, 0);
+    E.dec(33, cbp > 0);
+    E.dec(34, cbpc > 0);
+    if (cbpc > 0) E.dec(34, cbpc == 2);
+    E.dec(35, m16 >> 1);
+    E.dec(35, m16 & 1);
+    // intra chroma pred mode; non-intra neighbours count as mode 0
+    const int cm = P.modec[mb];
+    const int cml = hl && P.intra[mbl] ? P.modec[mbl] : 0;
+    const int cmt = ht && P.intra[mbt] ? P.modec[mbt] : 0;
+    E.dec(64 + (cml != 0) + (cmt != 0), cm > 0);
+    if (cm > 0) E.dec(67, cm > 1);
+    if (cm > 1) E.dec(67, cm > 2);
+  }
+  // the mvds of L0 then L1; ctxInc from the same list's left / top |mvd|
+  for (int k = 0; k < 2; ++k) {
+    if (!(k ? use1 : use0)[mb]) continue;
+    const int* d = (k ? mvd1 : mvd0) + 2 * mb;
+    const int* m4 = k ? mvd4_1 : mvd4_0;
+    auto am = [&](int by4, int bx4, int comp) {
+      return by4 < 0 || bx4 < 0 ? 0 : abs(m4[(by4 * 4 * mb_w + bx4) * 2 + comp]);
+    };
+    for (int comp = 0; comp < 2; ++comp)
+      emit_mvd(E, d[comp], comp ? 47 : 40,
+               am(4 * my, 4 * mx - 1, comp) + am(4 * my - 1, 4 * mx, comp));
+  }
+  if (inter) {
+    const int cl = hl ? P.cbp[mbl] : -1, ct = ht ? P.cbp[mbt] : -1;
+    const int ctx[4] = {76 - ((cl >> 1) & 1) - ((ct >> 1) & 2),
+                        76 - (cbp & 1) - ((ct >> 2) & 2),
+                        76 - ((cl >> 3) & 1) - ((cbp << 1) & 2),
+                        76 - ((cbp >> 2) & 1) - (cbp & 2)};
+    for (int k = 0; k < 4; ++k) E.dec(ctx[k], (cbp >> k) & 1);
+    const int ccl = hl ? P.cbpc[mbl] : -1, cct = ht ? P.cbpc[mbt] : -1;
+    E.dec(77 + (ccl > 0) + 2 * (cct > 0), cbpc > 0);
+    if (cbpc > 0) E.dec(81 + (ccl == 2) + 2 * (cct == 2), cbpc == 2);
+    // B MBs keep the 4x4 transform
+    if (t8_mode && cbp > 0) E.dec(399, 0);
+  }
+  if (coded && (im || cbp > 0 || cbpc > 0)) E.dec(60, 0);
+  emit_residual(E, P, mb, hl, ht, im, coded, inter, cbp, cbpc);
   if (mb != nmb - 1) E.put(K_TERM, 0, 0);          // end_of_slice_flag 0
   counts[mb] = E.n;
 }
@@ -712,6 +903,43 @@ extern "C" int cabac_p_emit(const uint8_t* intra_mb, const uint8_t* skip,
   p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, t8_mode, scratch,
                                                   counts);
   cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scatter_kernel<<<nmb, 128, 0, s>>>(scratch, counts, offsets, ops);
+  return (int)cudaGetLastError();
+}
+
+// K24: pass A, pass B, scan, scatter
+extern "C" int cabac_b_ops(const uint8_t* intra_mb, const uint8_t* direct_mb,
+                           const int* bmode, const int* r0, const int* r1,
+                           const int* m0, const int* m1,
+                           const int* cbp_luma_bits, const int* cbp_chroma,
+                           const int* luma_blocks, const int* mode16,
+                           const int* modec, const int* luma_dc,
+                           const int* chroma_dc, const int* chroma_ac,
+                           uint8_t* use_l0, uint8_t* use_l1, int* mvd_l0,
+                           int* mvd_l1, int* mvd4_l0, int* mvd4_l1,
+                           uint8_t* skip, int* nnz4, int* ref4, int* mv4,
+                           int* ref4_l1, int* mv4_l1, uint32_t* scratch,
+                           int* counts, int* offsets, uint32_t* ops, int mb_h,
+                           int mb_w, int t8_mode, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nmb = mb_h * mb_w, grid = (nmb + 127) / 128;
+  b_maps_kernel<<<grid, 128, 0, s>>>(
+      intra_mb, direct_mb, bmode, r0, r1, m0, m1, cbp_luma_bits, cbp_chroma,
+      luma_blocks, use_l0, use_l1, mvd_l0, mvd_l1, mvd4_l0, mvd4_l1, skip,
+      nnz4, ref4, mv4, ref4_l1, mv4_l1, mb_h, mb_w);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  PPlanes P{intra_mb, skip, nullptr, mode16, modec, cbp_luma_bits, cbp_chroma,
+            luma_dc, luma_blocks, chroma_dc, chroma_ac, nullptr, nullptr,
+            nullptr, nullptr, nnz4, nullptr, nullptr, nullptr, nullptr, mb_w};
+  b_emit_kernel<<<grid, 128, 0, s>>>(P, direct_mb, bmode, use_l0, use_l1,
+                                     mvd_l0, mvd_l1, mvd4_l0, mvd4_l1, mb_h,
+                                     t8_mode, scratch, counts);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_kernel<<<1, SCAN_NT, 0, s>>>(counts, offsets, nmb);
   e = cudaGetLastError();

@@ -138,6 +138,24 @@ __device__ __forceinline__ int ds_start(int start, int dim, int size) {
   return min(max(start, 0), dim - size);
 }
 
+// sample (r, c) of an MB's 16x16 luma prediction at the qpel MV (mvx,
+// mvy) from a half-pel stack of planes `plane` samples apart, each padded
+// by pad (ops/mc.py:mc_luma for one 16x16 block): the rounding average of
+// the two half-pel planes the quarter-pel phase names, each block start
+// taken as dynamic_slice takes it
+__device__ __forceinline__ int mc_luma16(const int* planes, size_t plane,
+                                         int Hp, int Wp, int pad, int mx,
+                                         int my, int mvx, int mvy, int r,
+                                         int c) {
+  const int fx = mvx & 3, fy = mvy & 3, qi = (fy << 2) | fx;
+  const int iy = my * 16 + (mvy >> 2) + pad, ix = mx * 16 + (mvx >> 2) + pad;
+  const int ya = ds_start(iy + (fy == 3), Hp, 16), xa = ds_start(ix, Wp, 16);
+  const int yb = ds_start(iy, Hp, 16), xb = ds_start(ix + (fx == 3), Wp, 16);
+  const int a = planes[kHpelRef0[qi] * plane + (size_t)(ya + r) * Wp + xa + c];
+  const int b = planes[kHpelRef1[qi] * plane + (size_t)(yb + r) * Wp + xb + c];
+  return (a + b + 1) >> 1;
+}
+
 // bit length of the signed Exp-Golomb code of v (me.py:se_bits)
 __device__ __forceinline__ int se_bits(int v) {
   unsigned m = v > 0 ? 2u * (unsigned)v - 1u : 2u * (unsigned)(-v);

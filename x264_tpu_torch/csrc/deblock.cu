@@ -18,8 +18,9 @@
 // alpha / beta / tc0 itself from the per-4x4 qp / intra / nnz / ref / mv
 // maps (DEBLOCK_STRENGTH, common/frame.c:697-742), so the P slice reuses
 // it. With a t8_mb map the luma edges 1 and 3 inside an MB coded with the
-// 8x8 transform take bS 0 (spec 8.7); the B-slice rules are rejected by
-// the wrapper.
+// 8x8 transform take bS 0 (spec 8.7). In a B slice (the L1 maps given)
+// an edge also takes bS 1 where the two sides' L1 references or L1 MVs
+// differ (deblock.py:_strengths with is_b).
 //
 // What bounds it on the H100: the serial depth of 254 dependent
 // launches of at most 68 one-warp CTAs; the bytes (the three planes read
@@ -40,18 +41,29 @@ __device__ __forceinline__ int clip3(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
+// one list's refs or MVs differ across the edge p | q
+__device__ __forceinline__ bool mv_differ(const int* ref4, const int* mv4,
+                                          int p, int q) {
+  return ref4[p] != ref4[q] || abs(mv4[2 * p] - mv4[2 * q]) >= 4 ||
+         abs(mv4[2 * p + 1] - mv4[2 * q + 1]) >= 4;
+}
+
+// the per-4x4 maps bS reads; ref4_l1 / mv4_l1 null outside B slices
+struct Maps {
+  const uint8_t* intra_mb;
+  const int *nnz4, *ref4, *mv4, *ref4_l1, *mv4_l1;
+};
+
 // bS of the edge between 4x4 blocks p (left / above) and q
-__device__ int strength(const uint8_t* intra_mb, const int* nnz4,
-                        const int* ref4, const int* mv4, int W4, int mb_w,
-                        int py, int px, int qy, int qx, bool mb_edge) {
-  bool intra = intra_mb[(py >> 2) * mb_w + (px >> 2)] ||
-               intra_mb[(qy >> 2) * mb_w + (qx >> 2)];
+__device__ int strength(const Maps& M, int W4, int mb_w, int py, int px,
+                        int qy, int qx, bool mb_edge) {
+  bool intra = M.intra_mb[(py >> 2) * mb_w + (px >> 2)] ||
+               M.intra_mb[(qy >> 2) * mb_w + (qx >> 2)];
   if (intra) return mb_edge ? 4 : 3;
   int p = py * W4 + px, q = qy * W4 + qx;
-  if (nnz4[p] != 0 || nnz4[q] != 0) return 2;
-  if (ref4[p] != ref4[q] || abs(mv4[2 * p] - mv4[2 * q]) >= 4 ||
-      abs(mv4[2 * p + 1] - mv4[2 * q + 1]) >= 4)
-    return 1;
+  if (M.nnz4[p] != 0 || M.nnz4[q] != 0) return 2;
+  if (mv_differ(M.ref4, M.mv4, p, q)) return 1;
+  if (M.ref4_l1 != nullptr && mv_differ(M.ref4_l1, M.mv4_l1, p, q)) return 1;
   return 0;
 }
 
@@ -110,9 +122,7 @@ __device__ void chroma_line(int* s, int step, int bs, int tc, int alpha,
 }
 
 __global__ void __launch_bounds__(NT) deblock_diag_kernel(
-    int* Y, int* U, int* V, const int* __restrict__ qp_mb,
-    const uint8_t* __restrict__ intra_mb, const int* __restrict__ nnz4,
-    const int* __restrict__ ref4, const int* __restrict__ mv4,
+    int* Y, int* U, int* V, const int* __restrict__ qp_mb, const Maps M,
     const int* __restrict__ tabs_g, const uint8_t* __restrict__ t8_mb,
     int mb_w, int d, int y0, int alpha_off, int beta_off, int cqp_off) {
   const int my = y0 + blockIdx.x;
@@ -157,8 +167,7 @@ __global__ void __launch_bounds__(NT) deblock_diag_kernel(
           step = W;
         }
         int bs = (t8 && (e & 1)) ? 0
-            : strength(intra_mb, nnz4, ref4, mv4, W4, mb_w, py4, px4, qy4, qx4,
-                       e == 0);
+            : strength(M, W4, mb_w, py4, px4, qy4, qx4, e == 0);
         int alpha, beta, tc0;
         params(qpp, qp_q, bs, alpha, beta, tc0);
         luma_line(s, step, bs, tc0, alpha, beta);
@@ -183,8 +192,7 @@ __global__ void __launch_bounds__(NT) deblock_diag_kernel(
           s = P + (8 * my + 4 * e) * Wc + 8 * mx + l;
           step = Wc;
         }
-        int bs = strength(intra_mb, nnz4, ref4, mv4, W4, mb_w, py4, px4, qy4,
-                          qx4, e == 0);
+        int bs = strength(M, W4, mb_w, py4, px4, qy4, qx4, e == 0);
         int alpha, beta, tc0;
         params(cqp(qpp), cqp(qp_q), bs, alpha, beta, tc0);
         chroma_line(s, step, bs, tc0 + 1, alpha, beta);
@@ -198,15 +206,18 @@ __global__ void __launch_bounds__(NT) deblock_diag_kernel(
 
 extern "C" int deblock_diag(int* y, int* u, int* v, const int* qp_mb,
                             const uint8_t* intra_mb, const int* nnz4,
-                            const int* ref4, const int* mv4, const int* tabs,
-                            const uint8_t* t8_mb, int mb_h, int mb_w, int d,
+                            const int* ref4, const int* mv4,
+                            const int* ref4_l1, const int* mv4_l1,
+                            const int* tabs, const uint8_t* t8_mb, int mb_h,
+                            int mb_w, int d,
                             int alpha_off,
                             int beta_off, int chroma_qp_offset, void* stream) {
   // MBs with x = d - 2y in [0, mb_w)
   const int y0 = max(0, (d - (mb_w - 1) + 1) / 2), y1 = min(mb_h - 1, d / 2);
   if (y1 < y0) return 0;
   deblock_diag_kernel<<<y1 - y0 + 1, NT, 0, (cudaStream_t)stream>>>(
-      y, u, v, qp_mb, intra_mb, nnz4, ref4, mv4, tabs, t8_mb, mb_w, d, y0,
+      y, u, v, qp_mb, Maps{intra_mb, nnz4, ref4, mv4, ref4_l1, mv4_l1}, tabs,
+      t8_mb, mb_w, d, y0,
       alpha_off,
       beta_off, chroma_qp_offset);
   return (int)cudaGetLastError();

@@ -41,6 +41,24 @@
 // and cat 3 on the chroma DC Hadamard; the table is the frame's four
 // categories or, with a QP map, the MB's row of the 52-QP stack.
 // Everything after the quant stays as it is.
+//
+// K22 b_inter_mb, the inter residual of a B frame's MBs, is the same
+// kernel instantiated for a B pass (BP 1, 2). It replaces
+// x264_tpu/ops/mc.py:155 avg and mc_luma / mc_chroma as
+// x264_tpu/encoder/inter.py:866 encode_b_body calls them, the BI SATD and
+// the B mode decision (inter.py:923-951), and the residual of its passes
+// 1 (inter.py:958-963) and 2 (:1103-1135). Plain twin:
+// x264_tpu_torch/encoder/inter.py:b_inter_mb_plain; wrapper: b_inter_mb.
+// The CTA fetches both lists' 16x16 luma (through each list's half-pel
+// stack) and 8x8 chroma predictions. Pass 1: threads 0-15 take the 4x4
+// Hadamards of the source minus the rounding average, thread 0 forms the
+// BI SATD and picks argmin(satd + lam * (mv bits + 3 | 3 | 5)) over L0,
+// L1, BI (first on ties), every thread then keeps the chosen prediction
+// (the average for BI); pass 2 keeps the average where both of the MB's
+// final references are used, else the one list's. The residual follows
+// as K6's, decimated, with the trellis where given, and with the joint
+// chroma AC decimation in pass 2 only (pass 1 has none). Bounded as K6
+// by bytes: pass 1 reads two half-pel stacks (~0.15 GB at 1080p).
 // What bounds it on the H100: bytes. A 1080p frame moves ~116 MB at
 // subme >= 2 (source, the four half-pel planes, the padded chroma, and
 // the recon and coefficient planes out, as int32: ~35 us at 3.35 TB/s;
@@ -84,7 +102,29 @@ __device__ __forceinline__ Part part_of(int ptype, int r, int c) {
   }
 }
 
-__global__ void __launch_bounds__(NT) p_inter_mb_kernel(
+// the B passes' inputs (K22); unused by K6 (BP 0)
+struct BArgs {
+  const int *planes1, *refu1, *refv1;    // the L1 list's fetch
+  const int *mv0, *mv1;                  // per-MB MVs of each list
+  const int *satd0, *satd1, *seed0, *seed1;  // pass 1: ME costs, seeds
+  const int *r0, *r1;                    // pass 2: per-MB final refs
+  int *bmode, *cost;                     // pass 1's outputs
+  int lam;
+};
+
+// one list's 8x8 chroma prediction sample (r, c) (1/8-pel bilinear)
+__device__ __forceinline__ int fetch8c(const int* R, int Hcp, int Wcp, int mx,
+                                       int my, int mvx, int mvy, int r, int c) {
+  const int dx = mvx & 7, dy = mvy & 7;
+  const int y0 = ds_start(my * 8 + (mvy >> 3) + CPAD, Hcp, 9);
+  const int x0 = ds_start(mx * 8 + (mvx >> 3) + CPAD, Wcp, 9);
+  const int* s = R + (y0 + r) * Wcp + x0 + c;
+  return ((8 - dx) * (8 - dy) * s[0] + dx * (8 - dy) * s[1]
+          + (8 - dx) * dy * s[Wcp] + dx * dy * s[Wcp + 1] + 32) >> 6;
+}
+
+template <int BP>
+__global__ void __launch_bounds__(NT) inter_mb_kernel(
     const int* __restrict__ Y, const int* __restrict__ U,
     const int* __restrict__ V, const int* __restrict__ planes,
     const int* __restrict__ refu, const int* __restrict__ refv,
@@ -96,14 +136,14 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y,
     int* __restrict__ cbp8_o, const int* __restrict__ qp_map,
     const int* __restrict__ trellis_g, int mb_h,
-    int mb_w, int n_planes, int decimate, int t8) {
+    int mb_w, int n_planes, int decimate, int t8, const BArgs B) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
   const int Wp = W + 2 * PAD, Hp = H + 2 * PAD;
   const int Wcp = Wc + 2 * CPAD, Hcp = Hc + 2 * CPAD;
   const size_t plane = (size_t)Hp * Wp;
-  const int pt = ptype_g[mb];
+  const int pt = BP == 0 ? ptype_g[mb] : 0;
 
   __shared__ QTabP q;
   __shared__ int fenc[256], pred[256], lv[16][16], score[16], nzb[16];
@@ -111,6 +151,9 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
   __shared__ int cdcl[2][4], cdcr[2][4], cnz[2], killg[4], ackill;
   __shared__ int had4[16], had8[4], lv8[4][64], score8[4], nz8[4], kill8[4];
   __shared__ int sel8;
+  __shared__ int pred1[BP == 1 ? 256 : 1], pc1[BP == 1 ? 2 : 1][64], bsel;
+  // the joint chroma AC decimation: K6's, off in B pass 1
+  const int cdecim = BP == 1 ? 0 : decimate;
 
   // ---------------------------------------------------------- fetch
   // with a QP map (variance AQ) qtab_g is the 52-QP stack: the MB's row
@@ -120,6 +163,81 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
                             : nullptr;
   for (int i = tid; i < QTABP_INTS; i += NT)
     reinterpret_cast<int*>(&q)[i] = qrow[i];
+  if (BP > 0) {
+    // both lists' predictions: pass 2 keeps the MB's final one, pass 1
+    // both until the decision below
+    const int m0x = B.mv0[2 * mb], m0y = B.mv0[2 * mb + 1];
+    const int m1x = B.mv1[2 * mb], m1y = B.mv1[2 * mb + 1];
+    // pass 2: the average where both lists are used, else L0 where it is,
+    // else L1 (at MV 0 on intra MBs, as encode_b_body's where() takes it)
+    const bool u0 = BP == 1 || B.r0[mb] >= 0;
+    const bool u1 = BP == 1 || B.r1[mb] >= 0 || !u0;
+    for (int i = tid; i < 256; i += NT) {
+      const int r = i >> 4, c = i & 15;
+      const int a = u0 ? mc_luma16(planes, plane, Hp, Wp, PAD, mx, my, m0x, m0y, r, c) : 0;
+      const int b = u1 ? mc_luma16(B.planes1, plane, Hp, Wp, PAD, mx, my, m1x, m1y, r,
+                                     c) : 0;
+      if (BP == 1) {
+        pred[i] = a;
+        pred1[i] = b;
+      } else {
+        pred[i] = u0 && u1 ? (a + b + 1) >> 1 : u0 ? a : b;
+      }
+      fenc[i] = Y[(my * 16 + r) * W + mx * 16 + c];
+    }
+    for (int i = tid; i < 128; i += NT) {
+      const int ch = i >> 6, k = i & 63, r = k >> 3, c = k & 7;
+      const int a = u0 ? fetch8c(ch ? refv : refu, Hcp, Wcp, mx, my, m0x, m0y, r, c) : 0;
+      const int b = u1 ? fetch8c(ch ? B.refv1 : B.refu1, Hcp, Wcp, mx, my, m1x, m1y, r, c)
+                       : 0;
+      if (BP == 1) {
+        pc[ch][k] = a;
+        pc1[ch][k] = b;
+      } else {
+        pc[ch][k] = u0 && u1 ? (a + b + 1) >> 1 : u0 ? a : b;
+      }
+      fc[ch][k] = (ch ? V : U)[(my * 8 + r) * Wc + mx * 8 + c];
+    }
+    if (BP == 1) {
+      __syncthreads();
+      if (tid < 16) {                  // the BI average's 4x4 Hadamards
+        const int by = tid >> 2, bx = tid & 3;
+        int dd[16];
+        for (int r = 0; r < 4; ++r)
+          for (int c = 0; c < 4; ++c) {
+            const int o = (4 * by + r) * 16 + 4 * bx + c;
+            dd[4 * r + c] = fenc[o] - ((pred[o] + pred1[o] + 1) >> 1);
+          }
+        had4[tid] = abs_had4x4(dd);
+      }
+      __syncthreads();
+      if (tid == 0) {                  // argmin over L0, L1, BI
+        int satd = 0;
+        for (int by = 0; by < 4; ++by)
+          for (int p = 0; p < 2; ++p)
+            satd += (had4[4 * by + 2 * p] + had4[4 * by + 2 * p + 1]) >> 1;
+        const int b0 = se_bits(m0x - B.seed0[2 * mb]) + se_bits(m0y - B.seed0[2 * mb + 1]);
+        const int b1 = se_bits(m1x - B.seed1[2 * mb]) + se_bits(m1y - B.seed1[2 * mb + 1]);
+        const int c0 = B.satd0[mb] + B.lam * (b0 + 3);
+        const int c1 = B.satd1[mb] + B.lam * (b1 + 3);
+        const int c2 = satd + B.lam * (b0 + b1 + 5);
+        int m = 0, best = c0;
+        if (c1 < best) { m = 1; best = c1; }
+        if (c2 < best) { m = 2; best = c2; }
+        bsel = m;
+        B.bmode[mb] = m;
+        B.cost[mb] = best;
+      }
+      __syncthreads();
+      for (int i = tid; i < 256; i += NT)
+        pred[i] = bsel == 2 ? (pred[i] + pred1[i] + 1) >> 1 : bsel == 1 ? pred1[i] : pred[i];
+      for (int i = tid; i < 128; i += NT) {
+        const int ch = i >> 6, k = i & 63;
+        const int a = pc[ch][k], b = pc1[ch][k];
+        pc[ch][k] = bsel == 2 ? (a + b + 1) >> 1 : bsel == 1 ? b : a;
+      }
+    }
+  } else {
   for (int i = tid; i < 256; i += NT) {
     const int r = i >> 4, c = i & 15;
     const Part p = part_of(pt, r, c);
@@ -153,6 +271,7 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     const int* s = R + (y0 + r - ctop) * Wcp + x0 + c - cleft;
     pc[ch][k] = (ca * s[0] + cb * s[1] + cc * s[Wcp] + cd * s[Wcp + 1] + 32) >> 6;
     fc[ch][k] = (ch ? V : U)[(my * 8 + r) * Wc + mx * 8 + c];
+  }
   }
   __syncthreads();
 
@@ -239,7 +358,7 @@ __global__ void __launch_bounds__(NT) p_inter_mb_kernel(
     for (int gi = 0; gi < 4; ++gi) killg[gi] = decimate && (g[gi] < 4 || tot < 6);
     int csc = 0;
     for (int k = 0; k < 8; ++k) csc += cscore[k];
-    ackill = decimate && csc < 7;
+    ackill = cdecim && csc < 7;
     int sel = 0;
     if (t8) {
       const int tot8 = score8[0] + score8[1] + score8[2] + score8[3];
@@ -365,9 +484,39 @@ extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
                           const int* qp_map, const int* trellis, int mb_h,
                           int mb_w, int n_planes, int decimate, int t8,
                           void* stream) {
-  p_inter_mb_kernel<<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
+  inter_mb_kernel<0><<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
       recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, blocks8, t8_sel,
-      recon8_y, cbp8, qp_map, trellis, mb_h, mb_w, n_planes, decimate, t8);
+      recon8_y, cbp8, qp_map, trellis, mb_h, mb_w, n_planes, decimate, t8,
+      BArgs{});
+  return (int)cudaGetLastError();
+}
+
+// K22: pass 1 where satd0 is given (then bmode / cost_inter are written;
+// blocks_z .. chroma_ac are scratch), else pass 2 (r0 / r1 given)
+extern "C" int b_inter_mb(const int* y, const int* u, const int* v,
+                          const int* planes0, const int* cu0, const int* cv0,
+                          const int* planes1, const int* cu1, const int* cv1,
+                          const int* mv0, const int* mv1, const int* r0,
+                          const int* r1, const int* satd0, const int* satd1,
+                          const int* seed0, const int* seed1, const int* qtab,
+                          const int* trellis, int* recon_y, int* recon_u,
+                          int* recon_v, int* blocks_z, int* cbp,
+                          int* chroma_dc, int* chroma_ac, int* bmode,
+                          int* cost_inter, int mb_h, int mb_w, int lam,
+                          void* stream) {
+  const BArgs B{planes1, cu1, cv1, mv0, mv1, satd0, satd1, seed0, seed1, r0,
+                r1, bmode, cost_inter, lam};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (satd0 != nullptr)
+    inter_mb_kernel<1><<<mb_h * mb_w, NT, 0, s>>>(
+        y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
+        recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
+        nullptr, nullptr, nullptr, trellis, mb_h, mb_w, 4, 1, 0, B);
+  else
+    inter_mb_kernel<2><<<mb_h * mb_w, NT, 0, s>>>(
+        y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
+        recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
+        nullptr, nullptr, nullptr, trellis, mb_h, mb_w, 4, 1, 0, B);
   return (int)cudaGetLastError();
 }

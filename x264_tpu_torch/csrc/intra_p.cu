@@ -35,6 +35,13 @@
 //      evaluate only the intra MBs (the others keep the inter recon and
 //      zero syntax), as x264_tpu's masked whole-frame sweeps leave them.
 // Without RD the kernels run exactly as before the RD ladder came.
+// B frames (x264_tpu encode_b_body) use the same kernels in two other
+// sequences: intra_in_b_decide runs sweep 0 against residual pass 1's
+// reconstruction and the decision (stage 3, inter.py:965-1026), and
+// intra_in_b_sweeps three sweeps with that decision fixed against pass
+// 2's reconstruction, the first choosing the modes of the intra MBs
+// afresh (free_modes) and the next two keeping them (stage 3.7,
+// :1137-1160). Both decimate (B slices always do) and decide on SATD.
 // What bounds it on the H100: bytes. The source, inter and output planes
 // and syntax planes are ~51 MB at 1080p as int32 (~15 us at 3.35 TB/s);
 // each sweep is ~16 SATD and 24 transform blocks per MB it runs (~25 k
@@ -153,7 +160,8 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
     const int* __restrict__ V, Planes src, Planes inter, Planes dst,
     const int* __restrict__ qtab_g, const uint8_t* __restrict__ intra_mb,
     Syntax out, int* __restrict__ cost_i, const RD rd,
-    const int* __restrict__ qp_map, int mb_w, int lam, int decimate) {
+    const int* __restrict__ qp_map, int mb_w, int lam, int decimate,
+    int free_modes) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const bool has_top = my > 0, has_left = mx > 0;
@@ -169,8 +177,9 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
     for (int i = tid; i < 128; i += NT) out.chroma_ac[mb * 128 + i] = 0;
     return;
   }
-  const int fix16 = fixed ? out.mode16[mb] : -1;
-  const int fixc = fixed ? out.modec[mb] : -1;
+  // with intra_mb given, the sweep-0 modes unless the modes are free
+  const int fix16 = fixed && !free_modes ? out.mode16[mb] : -1;
+  const int fixc = fixed && !free_modes ? out.modec[mb] : -1;
   // with a QP map (variance AQ) qtab_g is the 52-QP intra stack
   imb_load(S, qtab_g + (qp_map ? qp_map[mb] * QTAB_INTS : 0), Y, U, V, src.y,
            src.u, src.v, mb_w, mx, my, has_top, has_left);
@@ -257,7 +266,8 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
   const Syntax out{mode16, modec, luma_dc, luma_ac, chroma_dc, chroma_ac};
   const RD rd{rd_cost, ce_psy, rdtab, cost_i_rd, lam2, psy};
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, inter, inter, A, qtab, nullptr,
-                                  out, cost_i, rd, qp_map, mb_w, lam, decimate);
+                                  out, cost_i, rd, qp_map, mb_w, lam, decimate,
+                                  0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decide_kernel<<<nmb, NT, 0, s>>>(cost_i, cost_inter, rd, inter, A, intra_mb,
@@ -265,10 +275,64 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, A, inter, B, qtab, intra_mb, out,
-                                  cost_i, rd, qp_map, mb_w, lam, decimate);
+                                  cost_i, rd, qp_map, mb_w, lam, decimate, 0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, B, inter, A, qtab, intra_mb, out,
-                                  cost_i, rd, qp_map, mb_w, lam, decimate);
+                                  cost_i, rd, qp_map, mb_w, lam, decimate, 0);
+  return (int)cudaGetLastError();
+}
+
+// the B frame's decision (inter.py:encode_b_body stage 3): sweep 0
+// against pass 1's reconstruction into the scratch planes A, then the
+// decision (SATD, decimated) into intra_mb
+extern "C" int intra_in_b_decide(const int* y, const int* u, const int* v,
+                                 int* inter_y, int* inter_u, int* inter_v,
+                                 const int* cost_inter, const int* qtab,
+                                 uint8_t* intra_mb, int* ay, int* au, int* av,
+                                 int* cost_i, int* mode16, int* modec,
+                                 int* luma_dc, int* luma_ac, int* chroma_dc,
+                                 int* chroma_ac, int mb_h, int mb_w, int lam,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nmb = mb_h * mb_w;
+  const Planes inter{inter_y, inter_u, inter_v}, A{ay, au, av};
+  const Syntax out{mode16, modec, luma_dc, luma_ac, chroma_dc, chroma_ac};
+  const RD rd{nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f};
+  sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, inter, inter, A, qtab, nullptr,
+                                  out, cost_i, rd, nullptr, mb_w, lam, 1, 0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decide_kernel<<<nmb, NT, 0, s>>>(cost_i, cost_inter, rd, inter, A, intra_mb,
+                                   mb_w, lam);
+  return (int)cudaGetLastError();
+}
+
+// the B frame's sweeps (stage 3.7) with intra_mb fixed: sweep 0 against
+// pass 2's reconstruction with free modes into A, sweep 1 into B, sweep 2
+// into A, which is the output
+extern "C" int intra_in_b_sweeps(const int* y, const int* u, const int* v,
+                                 int* inter_y, int* inter_u, int* inter_v,
+                                 const int* qtab, int* ry, int* ru, int* rv,
+                                 const uint8_t* intra_mb, int* mode16,
+                                 int* modec, int* luma_dc, int* luma_ac,
+                                 int* chroma_dc, int* chroma_ac, int* sy,
+                                 int* su, int* sv, int mb_h, int mb_w,
+                                 int lam, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nmb = mb_h * mb_w;
+  const Planes inter{inter_y, inter_u, inter_v}, A{ry, ru, rv}, B{sy, su, sv};
+  const Syntax out{mode16, modec, luma_dc, luma_ac, chroma_dc, chroma_ac};
+  const RD rd{nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f};
+  sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, inter, inter, A, qtab, intra_mb,
+                                  out, nullptr, rd, nullptr, mb_w, lam, 1, 1);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, A, inter, B, qtab, intra_mb, out,
+                                  nullptr, rd, nullptr, mb_w, lam, 1, 0);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, B, inter, A, qtab, intra_mb, out,
+                                  nullptr, rd, nullptr, mb_w, lam, 1, 0);
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,24 @@
 """Encoder orchestration — the analogue of encoder/encoder.c, ported from
-x264_tpu/encoder/core.py for IDR and P frames, CABAC or CAVLC, at
-constant QP, CRF or 1-pass ABR, with or without variance AQ, and with or
-without the CABAC trellis (--trellis 1 / 2) in the P frames' inter
-residual.
+x264_tpu/encoder/core.py for IDR and P frames, CABAC or CAVLC, and B
+frames with CABAC, at constant QP, CRF or 1-pass ABR, with or without
+variance AQ, and with or without the CABAC trellis (--trellis 1 / 2) in
+the inter residual.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
 validation, headers, the frame-type decision (an IDR every i_keyint_max
 frames, and at a scene cut found by the lowres lookahead once
-i_keyint_min frames have passed; P frames between; no B frames),
+i_keyint_min frames have passed; P frames between, or with i_bframe > 0
+runs of up to i_bframe B frames, each run encoded after the P that
+closes it, typed by b-adapt 0 / 1 / 2 on the lowres costs of K21),
 dispatch of each frame's device work to the current CUDA stream, and the
 host tail — CABAC arithmetic coding of the device-produced op stream (or,
 under CAVLC, the device-packed slice words taken as they are), NAL
-assembly, rate control and statistics. The DPB is the one deblocked
-reconstruction of the last frame, kept on the device with its MV field,
-which seeds the next P frame's motion search.
+assembly, rate control and statistics. The DPB is the deblocked
+reconstructions of the last two references (a B frame's L0 and L1), kept
+on the device with the last P's MV field, which seeds the next P frame's
+motion search, and the last reference's 4x4 L0 maps, the colocated maps
+of spatial direct.
 
 With i_frame_parallel > 1 the output is delayed (x264_encoder_encode's
 contract: a call may return no frame; flush() drains): frame N's kernels
@@ -37,6 +41,7 @@ i_frame_parallel.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,12 +51,15 @@ from ..entropy import cabac as ecabac
 from ..entropy import cabac_tables as ctab
 from ..entropy import device as edev
 from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
-from ..headers import PPS, SPS, SLICE_I, SLICE_P, SliceHeader, sei_version
+from ..headers import (PPS, SPS, SLICE_B, SLICE_I, SLICE_P, SliceHeader,
+                       sei_version)
 from ..params import (ANALYSE_I4x4, ANALYSE_I8x8, ANALYSE_PSUB16x16,
-                      AQ_NONE, RC_CQP, EncoderParams)
+                      AQ_NONE, B_ADAPT_NONE, B_ADAPT_TRELLIS, RC_CQP,
+                      EncoderParams)
 from . import aq as eaq
 from . import inter
 from . import intra
+from . import lookahead
 from . import pipeline
 from . import ratecontrol as rcmod
 from . import stats as estats
@@ -82,6 +90,17 @@ class Frame:
         return self.y.shape
 
 
+class Queued(NamedTuple):
+    """A frame waiting in the B queue: its MB-aligned planes on the device,
+    forced QP, display POC and index, and lowres planes (b-adapt)."""
+    frame: Frame
+    planes: list
+    forced_qp: int | None
+    poc: int
+    disp: int
+    lows: object = None
+
+
 class EncodedFrame:
     def __init__(self, payload: bytes, frame_type: str, recon: Frame,
                  bits: int, display_idx: int = -1):
@@ -102,12 +121,14 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
     transform and I8x8 (which validate() turns off without CABAC), CABAC
     or CAVLC, at constant QP, CRF or 1-pass ABR, with or without
     variance AQ (VBV and 2-pass replay are refused here and by
-    RateControl), with or without the CABAC trellis."""
+    RateControl), with or without the CABAC trellis; and B frames
+    (i_bframe 1-3, b-adapt 0 / 1 / 2) with CABAC."""
     a, rc = p.analyse, p.rc
     later = [
         (p_frames and p.i_frame_reference >= 2,
          "multiple references (ref >= 2)", "a later slice"),
-        (p.i_bframe > 0, "B frames", "the B slice"),
+        (p.i_bframe > 0 and not p.b_cabac, "B frames with CAVLC",
+         "the CAVLC B slice"),
         (rc.i_rc_method == RC_CQP and rc.i_qp_constant == 0,
          "lossless (qp 0)", "a later slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
@@ -127,8 +148,8 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
 
 class Encoder:
     """x264_encoder_open / encode / close for IDR + P frames, CABAC or
-    CAVLC, at constant QP, CRF or 1-pass ABR, with or without variance
-    AQ and the CABAC trellis. device:
+    CAVLC, and B frames with CABAC, at constant QP, CRF or 1-pass ABR,
+    with or without variance AQ and the CABAC trellis. device:
     "cuda" (the default, which needs a card) or "cpu", where every kernel
     runs its plain PyTorch version."""
 
@@ -165,10 +186,27 @@ class Encoder:
             self._aq_stacks = eaq.qtab_stacks(
                 eaq.full_tables(self.qt, self.device),
                 p.analyse.i_chroma_qp_offset)
-        # DPB: the deblocked reconstruction of the last frame and the MV
-        # field that seeds the next P frame's ME (both on the device)
+        # DPB: the deblocked reconstruction of the last reference and the
+        # one before it (a B frame's L1 and L0), the MV field that seeds
+        # the next P frame's ME and the last reference's 4x4 L0 maps (the
+        # colocated maps of spatial direct), all on the device
         self._ref = None
+        self._prev_ref = None
+        self._ref_maps = None
         self._prev_mv = None
+        # B frames: up to i_bframe non-reference frames wait in _bqueue
+        # (Queued) until their L1 reference is queued; with b-adapt the
+        # lowres planes of the last two references (_la_ref_lows,
+        # _la_prev_lows) type and seed them
+        self._bframes = p.i_bframe
+        self._bqueue: list = []
+        self._badapt = (self._bframes > 0
+                        and p.i_bframe_adaptive != B_ADAPT_NONE)
+        self._badapt2 = (self._bframes > 0
+                         and p.i_bframe_adaptive == B_ADAPT_TRELLIS)
+        self._la_ref_lows = self._la_prev_lows = None
+        self._la_bh, self._la_bw = p.mb_height, p.mb_width
+        self._la_r = max(4, min(12, p.analyse.i_me_range // 2))
         self._gop_pos = 0
         self._since_idr = 0
         self._disp_since_idr = 0
@@ -178,7 +216,8 @@ class Encoder:
                                 or (p.i_scenecut_threshold > 0
                                     and p.i_keyint_max > 1))
         self._la_stream = torch.cuda.Stream(self.device) \
-            if self._analyse_lowres and self.device.type == "cuda" else None
+            if ((self._analyse_lowres or self._badapt)
+                and self.device.type == "cuda") else None
         # ME window clamped so every candidate stays inside the PAD=32
         # frame border, as x264_tpu clamps it
         self._me_range = min(p.analyse.i_me_range, 24)
@@ -229,14 +268,15 @@ class Encoder:
                forced_qp: int | None = None) -> EncodedFrame | None:
         """x264_encoder_encode: the frame type (an IDR at GOP start, or at
         a scene cut the lookahead finds once i_keyint_min frames have
-        passed since the last IDR; else P; forced_type "I" / "IDR" / "P"
-        overrides it). With i_frame_parallel > 1 this queues the frame
-        and returns an earlier one (or None while the pipe fills);
-        flush() drains."""
+        passed since the last IDR; else P, or with i_bframe > 0 a B
+        candidate that waits for its L1 reference; forced_type "I" /
+        "IDR" / "P" overrides it, "B" leaves the choice to the encoder as
+        x264_tpu does). With i_frame_parallel > 1, or with B frames, this
+        queues the frame and returns an earlier one (or None while the
+        pipe fills); flush() drains."""
         p = self.params
-        if forced_type not in (None, "I", "IDR", "P"):
-            raise NotImplementedError(f"forced {forced_type} frames come "
-                                      "with the B slice of the port")
+        if forced_type not in (None, "I", "IDR", "P", "B"):
+            raise ValueError(f"unknown frame type {forced_type!r}")
         if forced_type == "P":
             _check_slice(p, True)
         planes = self._pad_input(frame)
@@ -254,12 +294,193 @@ class Encoder:
         disp_poc = 2 * self._disp_since_idr
         disp = self._disp_abs
         self._disp_abs += 1
-        self._advance_gop(is_idr)
-        self._submit_ip(frame, planes, is_idr, forced_qp,
-                        0 if is_idr else disp_poc, disp)
+        item = Queued(frame, planes, forced_qp, disp_poc, disp)
+        if self._bframes == 0:
+            self._advance_gop(is_idr)
+            self._submit_ip(frame, planes, is_idr, forced_qp,
+                            0 if is_idr else disp_poc, disp)
+        elif is_idr:
+            # an IDR closes the GOP: the newest queued candidate becomes a
+            # P and the rest its B run (slicetype.c:597-635)
+            self._flush_bqueue()
+            self._advance_gop(True)
+            self._submit_ip(frame, planes, True, forced_qp, 0, disp)
+        elif forced_type == "P" or (not self._badapt2
+                                    and len(self._bqueue) >= self._bframes):
+            self._submit_ip(frame, planes, False, forced_qp, disp_poc, disp)
+            self._advance_gop(False)
+            self._submit_bqueue()
+        elif self._badapt2 and self._ref is not None:
+            self._badapt2_step(item)
+            self._advance_gop(False)
+        elif self._badapt and self._ref is not None:
+            self._badapt_step(item)
+            self._advance_gop(False)
+        else:
+            self._bqueue.append(item)
+            self._advance_gop(False)
         if len(self._pending) > self._delay:
             return self._finalize(self._pending.pop(0))
         return None
+
+    def _la_ctx(self):
+        """The lookahead's stream (on the card), where the lowres kernels
+        run and whose sums the host waits for alone."""
+        return (torch.cuda.stream(self._la_stream)
+                if self._la_stream is not None else contextlib.nullcontext())
+
+    def _host_ints(self, t) -> list:
+        """A small int32 tensor's values on the host; on the card through
+        a pinned buffer, waiting for the lookahead's stream alone."""
+        if t.device.type == "cpu":
+            return [int(x) for x in t]
+        host = torch.empty(t.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return [int(x) for x in host.numpy()]
+
+    def _lowres(self, y, frame: Frame):
+        """The lowres planes of a frame for b-adapt (x264_tpu's _lowres):
+        K14 on its luma plane already on the device."""
+        h, w = frame.y.shape
+        with self._la_ctx():
+            return lookahead.lowres_planes(y, h, w)
+
+    def _badapt_step(self, item) -> None:
+        """One b-adapt 1 greedy step (slicetype.c:545-573, x264_tpu's
+        _badapt_step) on K21's lowres costs: this frame extends the B run,
+        closes it as a P, or, at the first test, the queued candidate
+        becomes a P."""
+        lows = self._lowres(item.planes[0], item.frame)
+        item = item._replace(lows=lows)
+        q = self._bqueue
+        if not q or self._la_ref_lows is None:
+            q.append(item)
+            return
+        bh, bw, r = self._la_bh, self._la_bw, self._la_r
+        if len(q) == 1:
+            with self._la_ctx():
+                cost1p0, cost2p0, cost1b1, cost2p1, n_intra2 = \
+                    self._host_ints(lookahead.badapt_first(
+                        q[0].lows, lows, self._la_ref_lows, bh, bw, r))
+            nblk = (bh - 2) * (bw - 2) if min(bh, bw) > 2 else bh * bw
+            if (n_intra2 > nblk // 2
+                    or cost1p0 + cost2p0 < cost1b1 + cost2p1):
+                # the candidate becomes a P; this frame starts the next
+                # run's queue (slicetype.c no_b_frames)
+                self._submit_queued(q.pop(0))
+                q.append(item)
+                return
+        j = len(q) + 1
+        with self._la_ctx():
+            pcost, n_intra, nblk = self._host_ints(lookahead.badapt_ext(
+                lows, self._la_ref_lows, bh, bw, r))
+        pthresh = max(lookahead.INTER_THRESH
+                      - (50 - self.params.i_bframe_bias) * (j - 1),
+                      lookahead.INTER_THRESH // 10)
+        if pcost > pthresh * nblk or n_intra > nblk // 3:
+            self._submit_queued(item)
+            self._submit_bqueue()
+        else:
+            q.append(item)
+
+    def _badapt2_step(self, item) -> None:
+        """b-adapt 2 (x264_tpu's _badapt2_step): queue up to i_bframe + 1
+        undecided frames, then search the window's paths and commit the
+        first segment."""
+        q = self._bqueue
+        q.append(item._replace(lows=self._lowres(item.planes[0], item.frame)))
+        if self._la_ref_lows is None:
+            self._submit_queued(q.pop(0))
+            return
+        if len(q) <= self._bframes:
+            return
+        self._badapt2_decide()
+
+    def _badapt2_decide(self) -> None:
+        """The cheapest segmentation of the queued window into B runs each
+        closed by a P, by summed lowres costs (x264_slicetype_path,
+        slicetype.c:395-434, as x264_tpu's _badapt2_decide: the paths in
+        its order, the first of the least cost); the first segment is
+        encoded."""
+        q = self._bqueue
+        bh, bw, r = self._la_bh, self._la_bw, self._la_r
+        memo: dict = {}
+
+        def est(m: int, a: int, j: int):
+            """[B cost of q[m] between the anchors, P cost from a]; a = -1
+            is the last reference."""
+            if (m, a, j) not in memo:
+                al = self._la_ref_lows if a < 0 else q[a].lows
+                with self._la_ctx():
+                    memo[(m, a, j)] = self._host_ints(lookahead.b_cost(
+                        q[m].lows, al, q[j].lows, bh, bw, r))
+            return memo[(m, a, j)]
+
+        def paths(n: int):
+            """Segment lengths: k Bs then a P, k <= i_bframe."""
+            if n == 0:
+                yield []
+                return
+            for k in range(min(n, self._bframes + 1)):
+                for rest in paths(n - k - 1):
+                    yield [k] + rest
+
+        best_cost = best_path = None
+        for path in paths(len(q)):
+            cost, anchor, idx = 0, -1, 0
+            for k in path:
+                jp = idx + k
+                for m in range(idx, jp):
+                    cost += est(m, anchor, jp)[0]
+                cost += est(jp, anchor, jp)[1]
+                anchor, idx = jp, jp + 1
+            if best_cost is None or cost < best_cost:
+                best_cost, best_path = cost, path
+        k = best_path[0]
+        seg, rest = q[:k + 1], q[k + 1:]
+        self._bqueue = seg[:-1]
+        self._submit_queued(seg[-1])
+        self._submit_bqueue()
+        self._bqueue = rest
+
+    def _submit_bqueue(self) -> None:
+        """Encode the queued candidates as the B run between the two
+        references just queued, in display order (x264_tpu's
+        _submit_bqueue): the ME seeds are the candidates' lowres MV fields
+        against both references (K21, slicetype.c:153-166) where b-adapt
+        has them, else the P's MV field scaled by the distance."""
+        q, self._bqueue = self._bqueue, []
+        span = len(q) + 1
+        main = torch.cuda.current_stream(self.device) \
+            if self._la_stream is not None else None
+        for i, g in enumerate(q):
+            seeds = None
+            if (g.lows is not None and self._la_prev_lows is not None
+                    and self._la_ref_lows is not None):
+                with self._la_ctx():
+                    seeds = lookahead.b_seed_mvs(
+                        g.lows, self._la_prev_lows, self._la_ref_lows,
+                        self._la_bh, self._la_bw, self._la_r)
+                if main is not None:
+                    main.wait_stream(self._la_stream)
+                    for t in seeds:
+                        t.record_stream(main)
+            self._submit_b(g, i + 1, span, seeds)
+
+    def _flush_bqueue(self) -> None:
+        """Close the GOP: the newest queued candidate becomes the P (an
+        IDR when there is no reference yet), the earlier ones its B run."""
+        if not self._bqueue:
+            return
+        self._submit_queued(self._bqueue.pop(), is_idr=self._ref is None)
+        self._submit_bqueue()
+
+    def _submit_queued(self, q: Queued, is_idr: bool = False) -> None:
+        """Queue a waiting frame as a reference (a P, or an IDR, whose POC
+        is 0)."""
+        self._submit_ip(q.frame, q.planes, is_idr, q.forced_qp,
+                        0 if is_idr else q.poc, q.disp, lows=q.lows)
 
     def _scenecut(self, y, frame: Frame) -> bool:
         """The lookahead's verdict on this frame (RateControl.analyse_frame)
@@ -281,19 +502,39 @@ class Encoder:
         self._disp_since_idr += 1
 
     def _submit_ip(self, frame: Frame, planes, is_idr: bool, forced_qp,
-                   poc: int, disp: int) -> None:
+                   poc: int, disp: int, lows=None) -> None:
         """Queue one reference frame (IDR or P) in encode order; planes:
-        its MB-aligned planes on the device (_pad_input)."""
-        qp = self.rc.start("I" if is_idr else "P",
+        its MB-aligned planes on the device (_pad_input); lows: its lowres
+        planes where b-adapt made them, which then become the L1 side of
+        the next B run."""
+        if self._badapt:
+            self._la_prev_lows = self._la_ref_lows
+            self._la_ref_lows = lows if lows is not None \
+                else self._lowres(planes[0], frame)
+        self._submit("IDR" if is_idr else "P", frame, forced_qp, poc, disp,
+                     lambda qp: self._submit_idr(frame, planes, qp) if is_idr
+                     else self._submit_p(frame, planes, qp))
+
+    def _submit_b(self, q: Queued, d0: int, span: int, seeds) -> None:
+        """Queue one B frame in encode order, d0 frames after its L0
+        reference in a run spanning span frames (x264_tpu's
+        _submit_b_disp)."""
+        self._submit("B", q.frame, q.forced_qp, q.poc, q.disp,
+                     lambda qp: self._encode_b(q.frame, q.planes, qp, d0,
+                                               span, seeds))
+
+    def _submit(self, ftype: str, frame: Frame, forced_qp, poc: int,
+                disp: int, encode) -> None:
+        """The frame's QP from rate control (or forced_qp), its device
+        work through encode(qp), and its copies to the host queued."""
+        qp = self.rc.start("I" if ftype == "IDR" else ftype,
                            frame_idx=self.frame_count)
         if forced_qp is not None:
             qp = max(0, min(51, int(forced_qp)))
             self.rc.last_qp = qp
         self.poc = poc
-        pend = self._submit_idr(frame, planes, qp) if is_idr \
-            else self._submit_p(frame, planes, qp)
-        pend.update(frame=frame, qp=qp, disp=disp,
-                    ftype="IDR" if is_idr else "P",
+        pend = encode(qp)
+        pend.update(frame=frame, qp=qp, disp=disp, ftype=ftype,
                     rc_rceq=self.rc.last_rceq, rc_satd=self.rc.last_satd)
         self.frame_count += 1
         self._start_fetch(pend)
@@ -334,6 +575,23 @@ class Encoder:
                     qt.update(inter.trellis_consts(
                         qp, qp_c, p.i_cabac_init_idc, self.device, self.qt))
             self._qtab_p_cache[key] = qt
+        return self._qtab_p_cache[key]
+
+    def _qtab_b(self, qp: int, qp_c: int) -> dict:
+        """A B frame's tables: the P tables at its QP; under AQ with the
+        trellis the 52-QP trellis stacks read at the frame QP for every MB
+        (x264_tpu's constant row maps, core.py:1303-1310; B frames run
+        without AQ)."""
+        qt = self._qtab_p(qp, qp_c)
+        if self._aq is None or not self._trellis:
+            return qt
+        key = ("B", qp, qp_c)
+        if key not in self._qtab_p_cache:
+            rows = torch.full((self.params.mb_height * self.params.mb_width,),
+                              qp, dtype=torch.int64, device=self.device)
+            self._qtab_p_cache[key] = dict(
+                qt, trellis_qp=rows, trellis_qpc=qt["trellis_qpc_of"][rows],
+                trellis_tab_b=qt["trellis_tab"][qp].contiguous())
         return self._qtab_p_cache[key]
 
     def _pad_input(self, frame: Frame):
@@ -425,6 +683,9 @@ class Encoder:
             out = pipeline.encode_i16_idr(
                 *args, *self._cavlc_header(qp, SLICE_I, 3), *tail, **kw)
         pend.update(out=out, recon=self._finish_frame(out, frame))
+        # an IDR empties the DPB (spec 8.2.5.1): the reference before it
+        # is never a B frame's L0
+        self._prev_ref = None
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         return pend
 
@@ -461,12 +722,59 @@ class Encoder:
         pend.update(out=out, recon=self._finish_frame(out, frame))
         return pend
 
-    def _finish_frame(self, out: dict, frame: Frame) -> Frame:
+    def _encode_b(self, frame: Frame, planes, qp: int, d0: int, span: int,
+                  seeds) -> dict:
+        """One non-reference B frame between _prev_ref (L0) and _ref (L1),
+        CABAC (x264_tpu's _submit_b): seeds = (L0, L1) lowres MV fields,
+        or None for the last P's MV field scaled by d0 / span (floor
+        division, as x264_tpu's); the colocated maps are _ref's L0 maps,
+        all intra after an IDR."""
+        p = self.params
+        mb_w, mb_h = p.mb_width, p.mb_height
+        y, u, v = planes
+        qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
+        if seeds is not None:
+            mvp_seed, mvp_seed_l1 = seeds
+        else:
+            pmv = self._prev_mv if self._prev_mv is not None \
+                else torch.zeros((mb_h, mb_w, 2), dtype=torch.int32,
+                                 device=self.device)
+            mvp_seed = torch.div(pmv * d0, span, rounding_mode="floor")
+            mvp_seed_l1 = torch.div(-(pmv * (span - d0)), span,
+                                    rounding_mode="floor")
+        if self._ref_maps is not None:
+            col_ref4, col_mv4 = self._ref_maps
+        else:
+            col_ref4 = torch.full((mb_h * 4, mb_w * 4), -1, dtype=torch.int32,
+                                  device=self.device)
+            col_mv4 = torch.zeros((mb_h * 4, mb_w * 4, 2), dtype=torch.int32,
+                                  device=self.device)
+        pend = dict(nmb=mb_h * mb_w, slice_is_i=False, nal_type=NAL_SLICE,
+                    nal_ref_idc=0,
+                    hdr_bytes=self._cabac_header(qp, SLICE_B, 0))
+        out = pipeline.encode_b_cabac(
+            mb_h, mb_w, self._me_range, bool(p.b_deblocking_filter), y, u, v,
+            self._prev_ref, self._ref, self._qtab_b(qp, qp_c),
+            int(tables.LAMBDA_TABLE[qp]), qp,
+            2 * p.i_deblocking_filter_alphac0, 2 * p.i_deblocking_filter_beta,
+            p.analyse.i_chroma_qp_offset, mvp_seed, mvp_seed_l1, col_ref4,
+            col_mv4, p.i_width, p.i_height, self._with_metrics,
+            subpel_steps=self._subpel, t8=self._t8)
+        pend.update(out=out, recon=self._finish_frame(out, frame, False))
+        return pend
+
+    def _finish_frame(self, out: dict, frame: Frame,
+                      is_ref: bool = True) -> Frame:
         """Update the DPB and crop the recon view (x264_reference_update,
-        encoder/encoder.c:1059)."""
-        self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
-        self.frame_num = (self.frame_num + 1) \
-            % (1 << self.sps.log2_max_frame_num)
+        encoder/encoder.c:1059). A B frame (not a reference) leaves the
+        DPB and frame_num alone."""
+        if is_ref:
+            self._prev_ref = self._ref
+            self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+            self._ref_maps = (out["ref4"], out["mv4"]) if "ref4" in out \
+                else None
+            self.frame_num = (self.frame_num + 1) \
+                % (1 << self.sps.log2_max_frame_num)
         crop = lambda t, a: t[:a.shape[0], :a.shape[1]]
         return Frame(crop(out["recon_y"], frame.y),
                      crop(out["recon_u"], frame.u),
@@ -493,7 +801,8 @@ class Encoder:
 
     def flush(self) -> list:
         """Drain delayed frames (the pic_in=NULL flush loop contract,
-        x264.c:870-873)."""
+        x264.c:870-873); the newest queued B candidate becomes a P."""
+        self._flush_bqueue()
         out = []
         while self._pending:
             out.append(self._finalize(self._pending.pop(0)))
@@ -542,7 +851,7 @@ class Encoder:
             payload = self._cavlc_payload(pend, body_t.numpy(), int(h32[0]))
         bits = len(payload) * 8
         ftype, nmb = pend["ftype"], pend["nmb"]
-        if ftype == "P":
+        if ftype in ("P", "B"):
             n_intra, n_skip = int(h32[1]), int(h32[2])
             counts = (n_intra, nmb - n_intra - n_skip, n_skip)
         else:

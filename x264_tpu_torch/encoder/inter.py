@@ -690,7 +690,8 @@ def rd_cost_intra(fenc, fu, fv, lp: dict, cu, cv, qtab, ce_psy):
 
 def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
                      inter_v, cost_inter, qtab, lam: int, decimate: bool,
-                     rd=None, qp_map=None):
+                     rd=None, qp_map=None, intra_mb=None,
+                     decide_only: bool = False):
     """Plain version of K7: stage 3 of encode_p_body.
 
     Sweep 0 runs the I16 + chroma intra path of every MB with neighbours
@@ -706,7 +707,12 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
     luma_dc (mb_h,mb_w,16), luma_ac (mb_h,mb_w,16,16), chroma_dc
     (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16)). qp_map: (mb_h, mb_w)
     per-MB QPs (variance AQ), each MB's intra tables then the rows of
-    qtab's "aq_stack"."""
+    qtab's "aq_stack".
+
+    The B frame's two uses (x264_tpu encode_b_body): decide_only returns
+    sweep 0's decision alone, the intra_mb (mb_h, mb_w) bool plane (stage
+    3); intra_mb given fixes the decision, and the three sweeps run with
+    sweep 0 choosing the modes (stage 3.7, cost_inter unused)."""
     dev = y.device
     nK = mb_h * mb_w
     if qp_map is not None:
@@ -742,19 +748,22 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
         return lp, cmode, cu, cv
 
     state = inter_t
-    intra_mb = mode_fix = cmode_fix = None
+    mode_fix = cmode_fix = None
     for _ in range(K_SWEEPS):
         lp, cmode, cu, cv = eval_intra(*state, mode_fix, cmode_fix)
         if mode_fix is None:
             mode_fix, cmode_fix = lp["mode"], cmode
-            if rd is None:
-                choose = (lp["cost"] + lam * INTRA_PEN_BITS
-                          < cost_inter.reshape(nK)).reshape(mb_h, mb_w)
-            else:
-                choose = rd_cost_intra(fenc, fu, fv, lp, cu, cv, qtab,
-                                       rd[1].reshape(nK)).reshape(
-                    mb_h, mb_w) < rd[0]
-            intra_mb = resolve_intra(choose)
+            if intra_mb is None:
+                if rd is None:
+                    choose = (lp["cost"] + lam * INTRA_PEN_BITS
+                              < cost_inter.reshape(nK)).reshape(mb_h, mb_w)
+                else:
+                    choose = rd_cost_intra(fenc, fu, fv, lp, cu, cv, qtab,
+                                           rd[1].reshape(nK)).reshape(
+                        mb_h, mb_w) < rd[0]
+                intra_mb = resolve_intra(choose)
+                if decide_only:
+                    return intra_mb
         m = intra_mb[..., None, None]
         state = [torch.where(m, grid(new), old) for new, old in
                  zip((lp["recon"], cu[0], cv[0]), inter_t)]
@@ -899,6 +908,31 @@ def partition_search(y, ref_pad, planes, mv_fp, mv16, cost16, lam: int,
     return ptype, cost_inter, mv_quad.contiguous()
 
 
+def merge_intra(ip: dict, it: dict, mb_h: int, mb_w: int) -> dict:
+    """The merged syntax planes of a P or B frame (x264_tpu stage 3's
+    tail): the intra sweeps' planes ip where intra_mb, the inter
+    residual's it elsewhere, and the coded block patterns of both."""
+    im = ip["intra_mb"]
+    luma_blocks = torch.where(im[..., None, None], ip["luma_ac"],
+                              it["blocks_z"])
+    chroma_dc = torch.where(im[..., None, None], ip["chroma_dc"],
+                            it["chroma_dc"])
+    chroma_ac = torch.where(im[..., None, None, None], ip["chroma_ac"],
+                            it["chroma_ac"])
+    cbp_i16 = (ip["luma_ac"] != 0).any(-1).any(-1)
+    cbp_luma_bits = torch.where(im, torch.where(cbp_i16, 15, 0),
+                                it["cbp"]).to(I32)
+    cnz_ac = (chroma_ac != 0).reshape(mb_h, mb_w, -1).any(-1)
+    cnz_dc = (chroma_dc != 0).reshape(mb_h, mb_w, -1).any(-1)
+    cbp_chroma = torch.where(cnz_ac, 2, torch.where(cnz_dc, 1, 0)).to(I32)
+    return dict(recon_y=ip["recon_y"], recon_u=ip["recon_u"],
+                recon_v=ip["recon_v"], intra_mb=im, mode16=ip["mode16"],
+                modec=ip["modec"], luma_dc=ip["luma_dc"],
+                luma_blocks=luma_blocks, chroma_dc=chroma_dc,
+                chroma_ac=chroma_ac, cbp_luma_bits=cbp_luma_bits,
+                cbp_chroma=cbp_chroma)
+
+
 def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                    ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
@@ -955,25 +989,7 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     ip = intra_in_p(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
                     it["recon_v"], cost_inter, qtab, lam, decimate, rd_costs,
                     qp_map)
-    im = ip["intra_mb"]
-    luma_blocks = torch.where(im[..., None, None], ip["luma_ac"],
-                              it["blocks_z"])
-    chroma_dc = torch.where(im[..., None, None], ip["chroma_dc"],
-                            it["chroma_dc"])
-    chroma_ac = torch.where(im[..., None, None, None], ip["chroma_ac"],
-                            it["chroma_ac"])
-    cbp_i16 = (ip["luma_ac"] != 0).any(-1).any(-1)
-    cbp_luma_bits = torch.where(im, torch.where(cbp_i16, 15, 0),
-                                it["cbp"]).to(I32)
-    cnz_ac = (chroma_ac != 0).reshape(mb_h, mb_w, -1).any(-1)
-    cnz_dc = (chroma_dc != 0).reshape(mb_h, mb_w, -1).any(-1)
-    cbp_chroma = torch.where(cnz_ac, 2, torch.where(cnz_dc, 1, 0)).to(I32)
-    out = dict(recon_y=ip["recon_y"], recon_u=ip["recon_u"],
-               recon_v=ip["recon_v"], intra_mb=im, mode16=ip["mode16"],
-               modec=ip["modec"], luma_dc=ip["luma_dc"],
-               luma_blocks=luma_blocks, chroma_dc=chroma_dc,
-               chroma_ac=chroma_ac, cbp_luma_bits=cbp_luma_bits,
-               cbp_chroma=cbp_chroma, me_mv=mv, ptype=ptype,
+    out = dict(merge_intra(ip, it, mb_h, mb_w), me_mv=mv, ptype=ptype,
                mv_quad=mv_quad)
     if t8:
         out.update(t8_sel=it["t8_sel"], luma8_z=it["blocks8_z"])
@@ -1076,4 +1092,471 @@ def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
         out.update(t8_mb=z(mb_h, mb_w, dt=torch.bool),
                    luma8_z=z(mb_h, mb_w, 4, 64))
     out["ref_idx"] = z(mb_h, mb_w)
+    return out
+
+
+# ------------------------------------------------------------ B frames
+# The B frame of x264_tpu's encode_b_body (inter.py:866-1224), the B
+# ladder of x264_mb_analyse_b (encoder/analyse.c b16x16:1549,
+# direct:1515): 16x16 L0 / L1 / BI, B_Direct_16x16 / B_SKIP by spatial
+# direct, and I16x16, one reference per list, at the frame's QP (x264_tpu
+# runs B frames without AQ). Staged as x264_tpu stages it:
+# 1. ME on each list with its own seed (K5, K9, K10);
+# 1'-2. the L0 / L1 / BI predictions, the mode decision and residual pass 1
+#    (K22 pass 1);
+# 3. the intra decision against pass 1's reconstruction (K7, two launches);
+# 3.5. spatial direct: the provisional derivation, its cost, and the exact
+#    slope-2 wavefront that commits it (K23);
+# 3.6. residual pass 2 on the final prediction (K22 pass 2);
+# 3.7. the three intra sweeps against pass 2's reconstruction (K7, three
+#    launches);
+# 4. the per-list maps, MV prediction, skip and the op stream (K24).
+# B slices always decimate (b_decimate, encoder/macroblock.c:479).
+
+# lambda * bits of the B mb_types beyond the MV bits: L0 / L1 ue(1) and
+# ue(2) are 3 bits, BI ue(3) 5
+B_TYPE_BITS = (3, 3, 5)
+
+
+def _exp4(a):
+    """MB grid -> 4x4-block grid."""
+    return a.repeat_interleave(4, 0).repeat_interleave(4, 1)
+
+
+def b_list_fetch(ref_y, ref_u, ref_v):
+    """One list's reference as the B stages read it: (the half-pel stack of
+    the luma padded by PAD (K9), the chroma padded by PAD // 2)."""
+    ref_pad = omc.pad_plane(ref_y.to(I32))
+    return (omc.hpel_planes(ref_pad), omc.pad_plane(ref_u.to(I32),
+                                                    omc.PAD // 2),
+            omc.pad_plane(ref_v.to(I32), omc.PAD // 2)), ref_pad
+
+
+def _b_preds(fetch, mv, mb_h: int, mb_w: int):
+    """One list's 16x16 luma and 8x8 chroma predictions of every MB at the
+    per-MB MVs mv (mb_h, mb_w, 2)."""
+    planes, cu, cv = fetch
+    ys, xs = ome.mb_origins(mb_h, mb_w, planes.device)
+    return (omc.mc_luma(planes, ys, xs, mv, 16, 16),
+            omc.mc_chroma(cu, ys >> 1, xs >> 1, mv, 8, 8),
+            omc.mc_chroma(cv, ys >> 1, xs >> 1, mv, 8, 8))
+
+
+def _b_residual(mb_h: int, mb_w: int, y, u, v, preds, qtab, ac_decim: bool):
+    """The inter residual of the B predictions preds = (luma (mb_h, mb_w,
+    16, 16), u, v (mb_h, mb_w, 8, 8)): luma with decimation, chroma with
+    the joint AC decimation where ac_decim (pass 2; pass 1 has none)."""
+    nK = mb_h * mb_w
+    py, pu, pv = (p.reshape(nK, *p.shape[2:]) for p in preds)
+    fenc_c = [_tiles(u, 8), _tiles(v, 8)]
+    ry, blocks_z, cbp = inter_luma_residual(_tiles(y, 16), py, qtab, True)
+    ac_kill = None
+    if ac_decim:
+        ac_kill = sum(oquant.decimate_score(
+            intra.chroma_ac_scan(f, p, qtab, "pc")[..., 1:]).sum(-1)
+            for f, p in zip(fenc_c, (pu, pv))) < 7
+    ch = [intra.chroma_residual(f, p, qtab, "pc", ac_kill)
+          for f, p in zip(fenc_c, (pu, pv))]
+    return dict(
+        recon_y=_untiles(ry, mb_h, mb_w),
+        recon_u=_untiles(ch[0][0], mb_h, mb_w),
+        recon_v=_untiles(ch[1][0], mb_h, mb_w),
+        blocks_z=blocks_z.reshape(mb_h, mb_w, 16, 16),
+        cbp=cbp.reshape(mb_h, mb_w),
+        chroma_dc=torch.stack([ch[0][1], ch[1][1]], 1).reshape(mb_h, mb_w,
+                                                               2, 4),
+        chroma_ac=torch.stack([ch[0][2], ch[1][2]], 1).reshape(mb_h, mb_w,
+                                                               2, 4, 16))
+
+
+def _pick_pred(p0, p1, use0, use1):
+    """The B prediction: the rounding average where both lists are used,
+    else the one list's (use0 / use1 (mb_h, mb_w) bool)."""
+    bi = (use0 & use1)[..., None, None]
+    return torch.where(bi, omc.avg(p0, p1),
+                       torch.where(use0[..., None, None], p0, p1))
+
+
+def b_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, fetch0, fetch1, qtab,
+                     mv0, mv1, satd=None, seeds=None, lam: int = 0,
+                     refs=None) -> dict:
+    """Plain version of K22, the inter residual of a B frame, in its two
+    passes (x264_tpu encode_b_body).
+
+    Pass 1 (satd = (satd0, satd1) and seeds = (seed0, seed1) given; mv0 /
+    mv1 each list's ME result): the L0 / L1 / BI predictions, the decision
+    argmin(satd + lam * (mv bits + 3 | 3 | 5)) (ties to L0, then L1, BI
+    the rounding average's SATD with both lists' MV bits) and the
+    residual of the chosen prediction, decimated, chroma without the AC
+    decimation (stages 1-2, inter.py:935-963). Returns dict(bmode,
+    cost_inter (mb_h, mb_w), recon_y / _u / _v).
+    Pass 2 (refs = (r0, r1), the final per-MB references, -1 where a list
+    is unused; mv0 / mv1 the final per-MB MVs): the final prediction and
+    its residual with the joint chroma AC decimation (stage 3.6,
+    inter.py:1103-1135). Returns the keys of p_inter_mb_plain without the
+    8x8 transform.
+    fetch0 / fetch1: each list's (half-pel stack, padded u, padded v)."""
+    a, b = _b_preds(fetch0, mv0, mb_h, mb_w), _b_preds(fetch1, mv1, mb_h,
+                                                        mb_w)
+    if refs is not None:
+        use0, use1 = refs[0] >= 0, refs[1] >= 0
+        preds = [_pick_pred(p, q, use0, use1) for p, q in zip(a, b)]
+        return _b_residual(mb_h, mb_w, y, u, v, preds, qtab, True)
+    nK = mb_h * mb_w
+    satd_bi = opix.satd(_tiles(y, 16), omc.avg(a[0], b[0]).reshape(
+        nK, 16, 16)).reshape(mb_h, mb_w)
+    bits0 = ome.mv_cost_bits(mv0, seeds[0])
+    bits1 = ome.mv_cost_bits(mv1, seeds[1])
+    costs = torch.stack([satd[0] + lam * (bits0 + B_TYPE_BITS[0]),
+                         satd[1] + lam * (bits1 + B_TYPE_BITS[1]),
+                         satd_bi + lam * (bits0 + bits1 + B_TYPE_BITS[2])])
+    bmode = costs.argmin(0).to(I32)
+    use0, use1 = bmode != 1, bmode != 0
+    preds = [_pick_pred(p, q, use0, use1) for p, q in zip(a, b)]
+    out = _b_residual(mb_h, mb_w, y, u, v, preds, qtab, False)
+    return dict(bmode=bmode, cost_inter=costs.amin(0).to(I32),
+                recon_y=out["recon_y"], recon_u=out["recon_u"],
+                recon_v=out["recon_v"])
+
+
+def b_inter_mb(mb_h: int, mb_w: int, y, u, v, fetch0, fetch1, qtab, mv0,
+               mv1, satd=None, seeds=None, lam: int = 0, refs=None) -> dict:
+    """K22 `b_inter_mb`: the inter residual of every MB of a B frame, pass
+    1 or pass 2 (see b_inter_mb_plain).
+
+    Replaces x264_tpu/ops/mc.py:mc_luma / mc_chroma / avg as
+    encode_b_body calls them, the BI SATD and the B mode decision
+    (inter.py:923-951), and inter_luma_residual and chroma_residual on the
+    chosen (pass 1, inter.py:958-963) or final (pass 2, :1103-1135)
+    prediction, with the trellis where qtab has it. On CUDA tensors it
+    runs csrc/inter.cu's B kernel, one CTA per MB in one launch; on CPU
+    tensors the plain version. Arguments and results as
+    b_inter_mb_plain."""
+    if y.device.type == "cpu":
+        return b_inter_mb_plain(mb_h, mb_w, y, u, v, fetch0, fetch1, qtab,
+                                mv0, mv1, satd, seeds, lam, refs)
+    dev = y.device
+    H, W, P = mb_h * 16, mb_w * 16, omc.PAD
+    pass2 = refs is not None
+    checks = [(y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+              (v, (H // 2, W // 2), "v"), (mv0, (mb_h, mb_w, 2), "mv0"),
+              (mv1, (mb_h, mb_w, 2), "mv1")]
+    for k, f in enumerate((fetch0, fetch1)):
+        checks += [(f[0], (4, H + 2 * P, W + 2 * P), f"planes{k}"),
+                   (f[1], (H // 2 + P, W // 2 + P), f"cu{k}"),
+                   (f[2], (H // 2 + P, W // 2 + P), f"cv{k}")]
+    if pass2:
+        checks += [(refs[k], (mb_h, mb_w), f"r{k}") for k in (0, 1)]
+    else:
+        checks += [(satd[k], (mb_h, mb_w), f"satd{k}") for k in (0, 1)]
+        checks += [(seeds[k], (mb_h, mb_w, 2), f"seed{k}") for k in (0, 1)]
+    for t, shape, name in checks:
+        cuda.check(t, shape, I32, name)
+    e = lambda *s: torch.empty(s, dtype=I32, device=dev)
+    # pass 1 writes the residual planes too, into scratch
+    o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
+             recon_v=e(H // 2, W // 2), blocks_z=e(mb_h, mb_w, 16, 16),
+             cbp=e(mb_h, mb_w), chroma_dc=e(mb_h, mb_w, 2, 4),
+             chroma_ac=e(mb_h, mb_w, 2, 4, 16))
+    if not pass2:
+        o.update(bmode=e(mb_h, mb_w), cost_inter=e(mb_h, mb_w))
+    ptr = lambda k: o[k].data_ptr() if k in o else 0
+    # the frame QP's trellis table, or under AQ the 52-QP stack's row of
+    # the frame QP (x264_tpu's constant row maps; Encoder._qtab_b)
+    trellis = qtab.get("trellis_tab_b", qtab.get("trellis_tab"))
+    if trellis is not None:
+        cuda.check(trellis, (K6_TRELLIS_INTS,), I32, "trellis_tab")
+    ins = [y, u, v, *fetch0, *fetch1, mv0, mv1]
+    ins += list(refs) + [None] * 4 if pass2 else [None, None] + list(
+        satd) + list(seeds)
+    cuda.launch("inter", "b_inter_mb", "p" * 28 + "iii" + "p",
+                *[0 if t is None else t.data_ptr() for t in ins],
+                pack_qtab_p(qtab).data_ptr(),
+                0 if trellis is None else trellis.data_ptr(),
+                *[ptr(k) for k in ("recon_y", "recon_u", "recon_v",
+                                   "blocks_z", "cbp", "chroma_dc",
+                                   "chroma_ac", "bmode", "cost_inter")],
+                mb_h, mb_w, lam, cuda.stream(dev))
+    b_inter_mb.launches += 1
+    b_inter_mb.launches_trellis += int(trellis is not None)
+    if not pass2:
+        o = {k: o[k] for k in ("bmode", "cost_inter", "recon_y", "recon_u",
+                               "recon_v")}
+    return o
+
+
+# launches, and those of them with the trellis
+b_inter_mb.launches = b_inter_mb.launches_trellis = 0
+
+
+def intra_in_b_decide(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
+                      inter_v, cost_inter, qtab, lam: int):
+    """K7's B decision (x264_tpu encode_b_body stage 3, inter.py:965-1026):
+    sweep 0's I16 + chroma path of every MB against residual pass 1's
+    reconstruction, an MB going intra where its cost + lam *
+    INTRA_PEN_BITS < cost_inter unless its chain is deeper than K_SWEEPS.
+    On CUDA tensors csrc/intra_p.cu's sweep and decision kernels (2
+    launches); on CPU tensors intra_in_p_plain(decide_only=True). Returns
+    intra_mb (mb_h, mb_w) bool."""
+    if y.device.type == "cpu":
+        return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
+                                inter_v, cost_inter, qtab, lam, True,
+                                decide_only=True)
+    dev = y.device
+    H, W = mb_h * 16, mb_w * 16
+    for t, shape, name in (
+            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+            (v, (H // 2, W // 2), "v"), (inter_y, (H, W), "inter_y"),
+            (inter_u, (H // 2, W // 2), "inter_u"),
+            (inter_v, (H // 2, W // 2), "inter_v"),
+            (cost_inter, (mb_h, mb_w), "cost_inter")):
+        cuda.check(t, shape, I32, name)
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    intra_mb = e(mb_h, mb_w, dt=torch.bool)
+    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2), e(mb_h, mb_w),
+               e(mb_h, mb_w), e(mb_h, mb_w), e(mb_h, mb_w, 16),
+               e(mb_h, mb_w, 16, 16), e(mb_h, mb_w, 2, 4),
+               e(mb_h, mb_w, 2, 4, 16))
+    cuda.launch("intra_p", "intra_in_b_decide", "p" * 19 + "iii" + "p",
+                *[t.data_ptr() for t in (y, u, v, inter_y, inter_u, inter_v,
+                                         cost_inter)],
+                intra.pack_qtab(qtab).data_ptr(), intra_mb.data_ptr(),
+                *[t.data_ptr() for t in scratch], mb_h, mb_w, lam,
+                cuda.stream(dev))
+    intra_in_b_decide.launches += 2     # sweep 0, decision
+    return intra_mb
+
+
+intra_in_b_decide.launches = 0
+
+
+def intra_in_b_sweeps(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
+                      inter_v, intra_mb, qtab, lam: int) -> dict:
+    """K7's B sweeps (x264_tpu encode_b_body stage 3.7, inter.py:
+    1137-1160): with the decision intra_mb fixed, three sweeps of the
+    intra MBs against residual pass 2's reconstruction, the first choosing
+    the I16 and chroma modes, the next two keeping them. On CUDA tensors
+    csrc/intra_p.cu's sweep kernel (3 launches); on CPU tensors
+    intra_in_p_plain(intra_mb=...). Returns as intra_in_p_plain."""
+    if y.device.type == "cpu":
+        return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
+                                inter_v, None, qtab, lam, True,
+                                intra_mb=intra_mb)
+    dev = y.device
+    H, W = mb_h * 16, mb_w * 16
+    for t, shape, name in (
+            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+            (v, (H // 2, W // 2), "v"), (inter_y, (H, W), "inter_y"),
+            (inter_u, (H // 2, W // 2), "inter_u"),
+            (inter_v, (H // 2, W // 2), "inter_v")):
+        cuda.check(t, shape, I32, name)
+    cuda.check(intra_mb, (mb_h, mb_w), torch.bool, "intra_mb")
+    e = lambda *s: torch.empty(s, dtype=I32, device=dev)
+    o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
+             recon_v=e(H // 2, W // 2), intra_mb=intra_mb,
+             mode16=e(mb_h, mb_w), modec=e(mb_h, mb_w),
+             luma_dc=e(mb_h, mb_w, 16), luma_ac=e(mb_h, mb_w, 16, 16),
+             chroma_dc=e(mb_h, mb_w, 2, 4),
+             chroma_ac=e(mb_h, mb_w, 2, 4, 16))
+    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2))
+    cuda.launch("intra_p", "intra_in_b_sweeps", "p" * 20 + "iii" + "p",
+                *[t.data_ptr() for t in (y, u, v, inter_y, inter_u,
+                                         inter_v)],
+                intra.pack_qtab(qtab).data_ptr(),
+                *[o[k].data_ptr() for k in o],
+                *[t.data_ptr() for t in scratch], mb_h, mb_w, lam,
+                cuda.stream(dev))
+    intra_in_b_sweeps.launches += 3
+    return o
+
+
+intra_in_b_sweeps.launches = 0
+
+
+def b_direct_plain(mb_h: int, mb_w: int, y, fetch0, fetch1, intra_mb,
+                   bmode, mv0, mv1, cost_inter, col_ref4, col_mv4, lam: int):
+    """Plain version of K23, stage 3.5 of the B frame (x264_tpu
+    encode_b_body, inter.py:1028-1101): the chosen-mode per-MB config
+    (each list's reference 0 where the mode uses it, else -1 and MV 0;
+    intra MBs use neither), spatial direct derived from it (provisional),
+    its prediction's SATD + lam, want = inter MBs where that is below
+    cost_inter; then the exact slope-2 wavefront: diagonal d = 2y + x in
+    order re-derives spatial direct from the current maps and commits it
+    on its MBs that want it and derive a quadrant-uniform config. Returns
+    (r0, r1 (mb_h, mb_w), m0, m1 (mb_h, mb_w, 2), direct_mb (mb_h, mb_w)
+    bool)."""
+    dev = y.device
+    use0 = ~intra_mb & (bmode != 1)
+    use1 = ~intra_mb & (bmode != 0)
+    r0 = torch.where(use0, 0, -1).to(I32)
+    r1 = torch.where(use1, 0, -1).to(I32)
+    m0 = torch.where(use0[..., None], mv0, 0).to(I32)
+    m1 = torch.where(use1[..., None], mv1, 0).to(I32)
+    derive = lambda a, b, c, d: mvpred.spatial_direct(
+        _exp4(a), _exp4(c), _exp4(b), _exp4(d), col_ref4, col_mv4)
+    d0, d1, dm0, dm1, _ = derive(r0, r1, m0, m1)
+    p0 = _b_preds(fetch0, dm0, mb_h, mb_w)[0]
+    p1 = _b_preds(fetch1, dm1, mb_h, mb_w)[0]
+    nK = mb_h * mb_w
+    dcost = opix.satd(_tiles(y, 16), _pick_pred(p0, p1, d0 >= 0, d1 >= 0)
+                      .reshape(nK, 16, 16)).reshape(mb_h, mb_w) + lam
+    want = ~intra_mb & (dcost < cost_inter)
+    gy = torch.arange(mb_h, device=dev)[:, None]
+    gx = torch.arange(mb_w, device=dev)[None, :]
+    diag = 2 * gy + gx
+    direct = torch.zeros((mb_h, mb_w), dtype=torch.bool, device=dev)
+    for d in range(2 * mb_h + mb_w - 1):
+        e0, e1, em0, em1, uni = derive(r0, r1, m0, m1)
+        m = want & uni & (diag == d)
+        r0 = torch.where(m, e0, r0)
+        r1 = torch.where(m, e1, r1)
+        m0 = torch.where(m[..., None], em0, m0)
+        m1 = torch.where(m[..., None], em1, m1)
+        direct = direct | m
+    return r0, r1, m0, m1, direct
+
+
+def b_direct(mb_h: int, mb_w: int, y, fetch0, fetch1, intra_mb, bmode, mv0,
+             mv1, cost_inter, col_ref4, col_mv4, lam: int):
+    """K23 `b_direct`: B_SKIP / B_Direct_16x16 selection of a B frame.
+
+    Replaces x264_tpu/encoder/mvpred.py:spatial_direct as
+    encode_b_body's stage 3.5 calls it, the direct prediction's SATD and
+    `want`, and the lax.scan over the slope-2 diagonals that commits the
+    exact derivation (inter.py:1028-1101). On CUDA tensors it runs
+    csrc/direct.cu: one launch of one CTA per MB for the provisional
+    derivation and its cost, then one persistent CTA that walks the
+    diagonals in order, re-deriving only the committing diagonal (each MB
+    reads only lower diagonals, so the result is the scan's). On CPU
+    tensors the plain version. Arguments and results as
+    b_direct_plain."""
+    if y.device.type == "cpu":
+        return b_direct_plain(mb_h, mb_w, y, fetch0, fetch1, intra_mb,
+                              bmode, mv0, mv1, cost_inter, col_ref4,
+                              col_mv4, lam)
+    dev = y.device
+    H, W, P = mb_h * 16, mb_w * 16, omc.PAD
+    for t, shape, name in (
+            (y, (H, W), "y"), (fetch0[0], (4, H + 2 * P, W + 2 * P),
+                               "planes0"),
+            (fetch1[0], (4, H + 2 * P, W + 2 * P), "planes1"),
+            (bmode, (mb_h, mb_w), "bmode"), (mv0, (mb_h, mb_w, 2), "mv0"),
+            (mv1, (mb_h, mb_w, 2), "mv1"),
+            (cost_inter, (mb_h, mb_w), "cost_inter"),
+            (col_ref4, (mb_h * 4, mb_w * 4), "col_ref4"),
+            (col_mv4, (mb_h * 4, mb_w * 4, 2), "col_mv4")):
+        cuda.check(t, shape, I32, name)
+    cuda.check(intra_mb, (mb_h, mb_w), torch.bool, "intra_mb")
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    r0, r1, m0, m1 = e(mb_h, mb_w), e(mb_h, mb_w), e(mb_h, mb_w, 2), \
+        e(mb_h, mb_w, 2)
+    direct = e(mb_h, mb_w, dt=torch.bool)
+    want = e(mb_h, mb_w, dt=torch.bool)
+    cuda.launch("direct", "b_direct", "p" * 16 + "iii" + "p",
+                *[t.data_ptr() for t in (y, fetch0[0], fetch1[0], intra_mb,
+                                         bmode, mv0, mv1, cost_inter,
+                                         col_ref4, col_mv4, r0, r1, m0, m1,
+                                         direct, want)],
+                mb_h, mb_w, lam, cuda.stream(dev))
+    b_direct.launches += 2
+    return r0, r1, m0, m1, direct
+
+
+b_direct.launches = 0
+
+
+def encode_b_front(mb_h: int, mb_w: int, me_range: int, y, u, v, l0, l1,
+                   qtab, lam: int, mvp_seed, mvp_seed_l1, col_ref4, col_mv4,
+                   subpel_steps=(2, 1)) -> dict:
+    """Stages 1-3.7 of a B frame through K5, K9, K10 (per list), K22, K7,
+    K23, K22 and K7 again, and the merge (plain tensor glue). y / u / v
+    the MB-aligned source planes, l0 / l1 each list's deblocked
+    reconstruction (y, u, v); mvp_seed / mvp_seed_l1 each list's qpel ME
+    predictors; col_ref4 / col_mv4 the colocated L0 maps of the L1
+    reference. Returns the merged planes of merge_intra and bmode (the
+    pre-intra mode), direct_mb and the final per-MB config r0, r1, m0,
+    m1."""
+    seeds = (mvp_seed, mvp_seed_l1)
+    fetch, mvs, satds = [], [], []
+    for ref, seed in zip((l0, l1), seeds):
+        f, ref_pad = b_list_fetch(*ref)
+        mv_fp, sad = ome.hier_search(y, ref_pad, mb_h, mb_w, me_range, lam,
+                                     seed)
+        if subpel_steps:
+            mv, satd = ome.subpel_refine(y, f[0], mv_fp, lam, seed,
+                                         subpel_steps)
+        else:
+            mv, satd = mv_fp, sad
+        fetch.append(f)
+        mvs.append(mv)
+        satds.append(satd)
+    p1 = b_inter_mb(mb_h, mb_w, y, u, v, *fetch, qtab, *mvs, satd=satds,
+                    seeds=seeds, lam=lam)
+    intra_mb = intra_in_b_decide(mb_h, mb_w, y, u, v, p1["recon_y"],
+                                 p1["recon_u"], p1["recon_v"],
+                                 p1["cost_inter"], qtab, lam)
+    r0, r1, m0, m1, direct = b_direct(mb_h, mb_w, y, *fetch, intra_mb,
+                                      p1["bmode"], *mvs, p1["cost_inter"],
+                                      col_ref4, col_mv4, lam)
+    it = b_inter_mb(mb_h, mb_w, y, u, v, *fetch, qtab, m0, m1,
+                    refs=(r0, r1))
+    ip = intra_in_b_sweeps(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
+                           it["recon_v"], intra_mb, qtab, lam)
+    return dict(merge_intra(ip, it, mb_h, mb_w), bmode=p1["bmode"],
+                direct_mb=direct, r0=r0, r1=r1, m0=m0, m1=m1)
+
+
+def b_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
+    """Stage 4's maps of a B frame (plain half of K24's pass A; x264_tpu
+    encode_b_body, inter.py:1174-1224): the syntax flags use_l0 / use_l1
+    (explicit modes only: direct and skip code no mvd), the per-list 4x4
+    ref / mv maps (intra: ref -1, MV 0), each list's 16x16 MV prediction
+    and mvd and their 4x4 maps, B_SKIP (direct without coded residual),
+    and the nnz map. Returns dict(use_l0, use_l1, mvd_l0, mvd_l1, mvd4_l0,
+    mvd4_l1, skip, nnz4, ref4, mv4, ref4_l1, mv4_l1)."""
+    im, dm, bm = front["intra_mb"], front["direct_mb"], front["bmode"]
+    use_l0 = ~im & ~dm & (bm != 1)
+    use_l1 = ~im & ~dm & (bm != 0)
+    out = dict(use_l0=use_l0, use_l1=use_l1)
+    for k, (r, m, use) in enumerate(((front["r0"], front["m0"], use_l0),
+                                     (front["r1"], front["m1"], use_l1))):
+        ref4 = _exp4(torch.where(im, -1, r).to(I32))
+        mv4 = _exp4(m).to(I32)
+        mvd = torch.where(use[..., None],
+                          m - mvpred.predict_16x16(ref4, mv4), 0).to(I32)
+        sfx = "_l1" if k else ""
+        out.update({f"ref4{sfx}": ref4, f"mv4{sfx}": mv4,
+                    f"mvd_l{k}": mvd, f"mvd4_l{k}": _exp4(mvd)})
+    cbp_l = front["cbp_luma_bits"]
+    out["skip"] = dm & (cbp_l == 0) & (front["cbp_chroma"] == 0)
+    dev = im.device
+    nnz_cnt = (front["luma_blocks"] != 0).sum(-1, dtype=I32)
+    nnz_z = nnz_cnt * ((cbp_l[..., None]
+                        >> (torch.arange(16, dtype=I32, device=dev) // 4))
+                       & 1)
+    R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    nnz_r = torch.zeros_like(nnz_z)
+    nnz_r[..., R] = nnz_z
+    out["nnz4"] = nnz_r.reshape(mb_h, mb_w, 4, 4).transpose(1, 2) \
+        .reshape(mb_h * 4, mb_w * 4)
+    return out
+
+
+def encode_b_body_plain(mb_h: int, mb_w: int, me_range: int, y, u, v, l0,
+                        l1, qtab, lam: int, mvp_seed, mvp_seed_l1, col_ref4,
+                        col_mv4, subpel_steps=(2, 1)) -> dict:
+    """One B frame (pre-deblock) on CPU tensors, with the keys of
+    x264_tpu's encode_b_body: stages 1-3.7 (encode_b_front, whose
+    wrappers run their plain versions on the CPU) and stage 4's maps
+    (b_maps_plain). The card's pipeline runs the maps inside K24
+    (entropy/cabac_planes.py:cabac_b_ops)."""
+    front = encode_b_front(mb_h, mb_w, me_range, y, u, v, l0, l1, qtab, lam,
+                           mvp_seed, mvp_seed_l1, col_ref4, col_mv4,
+                           subpel_steps)
+    maps = b_maps_plain(front, mb_h, mb_w)
+    im = front["intra_mb"]
+    out = {k: v for k, v in front.items()
+           if k not in ("r0", "r1", "m0", "m1")}
+    out.update(maps, bmode=torch.where(im, -1, front["bmode"]).to(I32),
+               mv=front["m0"])
     return out

@@ -1,7 +1,9 @@
-"""Lowres lookahead costs for scenecut — plain PyTorch twin of
+"""Lowres lookahead costs for scenecut and b-adapt — plain PyTorch twin of
 x264_tpu/encoder/lookahead.py (lowres_planes, intra_cost_plane,
-inter_cost_plane, frame_costs_fused, analyse_fused) and the wrappers of
-its CUDA kernels K14 and K15 (csrc/lookahead.cu).
+inter_cost_plane, frame_costs_fused, analyse_fused, _fetch_blocks,
+badapt_first_fused, badapt_ext_fused, b_seed_mvs_fused, b_cost_fused)
+and the wrappers of its CUDA kernels K14, K15 (csrc/lookahead.cu) and
+K21 (csrc/badapt.cu).
 
 The reference estimates frame coding costs on half-resolution planes
 (x264_slicetype_mb_cost, encoder/slicetype.c:43-256): per 8x8 lowres
@@ -241,3 +243,146 @@ def analyse(y, h: int, w: int, prev, r: int):
     bh, bw = block_grid(h, w)
     sums, _, _ = lowres_cost(lows, prev, bh, bw, r)
     return lows, sums
+
+
+# ---------------------------------------------------------------- b-adapt
+# x264_slicetype_analyse B_ADAPT_FAST greedy (slicetype.c:545-573): the
+# reference's untuned threshold
+INTER_THRESH = 300
+# the sums of lowres_bcost, in order
+(BC_P0, BC_P1, BC_B, BC_INTRA0, BC_INTRA1, BC_NBLK) = range(6)
+
+
+def fetch_blocks(planes, mv_hp, bh: int, bw: int, r: int):
+    """(bh, bw, 8, 8) predictions at half-pel lowres MVs through the exact
+    phase planes (x264_tpu lookahead._fetch_blocks): the full-pel part
+    mv >> 1 (floored) clipped to [-r, r], the plane (mvy & 1) * 2 +
+    (mvx & 1), samples clamped into the plane (what _pad8 and the edge pad
+    of r + 1 make of it)."""
+    h, w = planes.shape[1:]
+    dev = planes.device
+    mvx, mvy = mv_hp[..., 0], mv_hp[..., 1]
+    ph = ((mvy & 1) * 2 + (mvx & 1)).long()
+    by = torch.arange(bh, device=dev)[:, None] * 8 + (mvy >> 1).clamp(-r, r)
+    bx = torch.arange(bw, device=dev)[None, :] * 8 + (mvx >> 1).clamp(-r, r)
+    i8 = torch.arange(8, device=dev)
+    rows = (by[..., None] + i8).clamp(0, h - 1).long()
+    cols = (bx[..., None] + i8).clamp(0, w - 1).long()
+    return planes[ph[..., None, None], rows[..., :, None], cols[..., None, :]]
+
+
+def lowres_bcost_plain(lows, ref0, ref1, bh: int, bw: int, r: int,
+                       bi: bool):
+    """Plain version of K21: the lowres costs of one frame (its planes
+    lows) against one or two references (the (4, h, w) planes ref0, and
+    ref1 or None), as x264_tpu's b-adapt programs take them
+    (lookahead.py:272-371): per 8x8 block the intra cost i, the inter
+    costs c0 / c1 and MVs mv0 / mv1 (inter_cost_plane), and with bi the
+    bi-average candidate: the SATD of the rounding average of the two
+    fetched predictions plus the four se_bits of the MVs. Returns (sums
+    (6,) int32 over the interior blocks: [sum min(c0, i), sum min(c1, i),
+    sum min(c0, c1, bi, i), count(i < c0), count(i < c1), the block
+    count], mv0, mv1 or None), entries without ref1 or bi 0."""
+    low = lows[0]
+    inner = _inner(bh, bw)
+    i_ = intra_cost_plane(low, bh, bw)
+    c0, mv0 = inter_cost_plane(low, ref0, bh, bw, r)
+    z = torch.zeros((), dtype=I32, device=low.device)
+    s1 = s2 = n1 = z
+    mv1 = None
+    if ref1 is not None:
+        c1, mv1 = inter_cost_plane(low, ref1, bh, bw, r)
+        s1 = torch.minimum(c1, i_)[inner].sum(dtype=I32)
+        n1 = (i_ < c1)[inner].sum(dtype=I32)
+        if bi:
+            pa = fetch_blocks(ref0, mv0, bh, bw, r)
+            pb = fetch_blocks(ref1, mv1, bh, bw, r)
+            cur = _pad8(low, bh, bw).reshape(bh, 8, bw, 8).transpose(1, 2)
+            pen = (ome.se_bits(mv0[..., 0]) + ome.se_bits(mv0[..., 1])
+                   + ome.se_bits(mv1[..., 0]) + ome.se_bits(mv1[..., 1]))
+            bic = opix.satd(cur, (pa + pb + 1) >> 1) + pen
+            s2 = torch.minimum(torch.minimum(c0, c1),
+                               torch.minimum(bic, i_))[inner].sum(dtype=I32)
+    pc = torch.minimum(c0, i_)[inner]
+    sums = torch.stack([pc.sum(dtype=I32), s1, s2,
+                        (i_ < c0)[inner].sum(dtype=I32), n1,
+                        torch.tensor(pc.numel(), dtype=I32,
+                                     device=low.device)]).to(I32)
+    return sums, mv0, mv1
+
+
+def lowres_bcost(lows, ref0, ref1, bh: int, bw: int, r: int, bi: bool,
+                 want_mv: bool = False):
+    """K21 `lowres_bcost`. Replaces x264_tpu/encoder/lookahead.py:
+    _fetch_blocks and the block costs and sums of badapt_first_fused,
+    badapt_ext_fused, b_seed_mvs_fused and b_cost_fused. On CUDA tensors
+    it runs csrc/badapt.cu, one CTA per 8x8 lowres block in one launch
+    (K15's device code: lowres.cuh), the interior sums by integer atomics;
+    on CPU tensors the plain version. want_mv: write the MV fields (else
+    the kernel leaves them out and mv0 / mv1 are None). Returns as
+    lowres_bcost_plain."""
+    if lows.device.type == "cpu":
+        sums, mv0, mv1 = lowres_bcost_plain(lows, ref0, ref1, bh, bw, r, bi)
+        return (sums, mv0, mv1) if want_mv else (sums, None, None)
+    dev = lows.device
+    cuda.check(lows, lows.shape, I32, "lows")
+    if lows.dim() != 3 or lows.shape[0] != 4:
+        raise ValueError(f"lowres_bcost: (4, h, w) planes expected, got "
+                         f"{tuple(lows.shape)}")
+    cuda.check(ref0, lows.shape, I32, "ref0")
+    if ref1 is not None:
+        cuda.check(ref1, lows.shape, I32, "ref1")
+    elif bi:
+        raise ValueError("lowres_bcost: the bi candidate needs ref1")
+    _, h2, w2 = lows.shape
+    sums = torch.empty(6, dtype=I32, device=dev)
+    mv0 = mv1 = None
+    if want_mv:
+        mv0 = torch.empty((bh, bw, 2), dtype=I32, device=dev)
+        if ref1 is not None:
+            mv1 = torch.empty((bh, bw, 2), dtype=I32, device=dev)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    cuda.launch("badapt", "lowres_bcost", "pppiiiiiiippp" + "p",
+                lows.data_ptr(), ref0.data_ptr(), ptr(ref1), h2, w2, bh, bw,
+                r, int(min(bh, bw) <= 2), int(bi), sums.data_ptr(),
+                ptr(mv0), ptr(mv1), cuda.stream(dev))
+    lowres_bcost.launches += 1
+    return sums, mv0, mv1
+
+
+lowres_bcost.launches = 0
+
+
+def badapt_first(lows1, lows2, planes0, bh: int, bw: int, r: int):
+    """x264_tpu's badapt_first_fused (the first-B test, slicetype.c:
+    546-556) through two K21 launches: the first queued candidate against
+    the last reference and the new frame (with the bi candidate), and the
+    new frame against the candidate and the reference. Returns (5,) int32
+    [cost1p0, cost2p0, cost1b1, cost2p1, n_intra2]."""
+    a, _, _ = lowres_bcost(lows1, planes0, lows2, bh, bw, r, True)
+    b, _, _ = lowres_bcost(lows2, lows1, planes0, bh, bw, r, False)
+    return torch.stack([a[BC_P0], b[BC_P0], a[BC_B], b[BC_P1],
+                        b[BC_INTRA1]])
+
+
+def badapt_ext(lows_f, planes0, bh: int, bw: int, r: int):
+    """x264_tpu's badapt_ext_fused (the run-extension test,
+    slicetype.c:563-572): (3,) int32 [pcost, n_intra, n_blocks]."""
+    s, _, _ = lowres_bcost(lows_f, planes0, None, bh, bw, r, False)
+    return torch.stack([s[BC_P0], s[BC_INTRA0], s[BC_NBLK]])
+
+
+def b_seed_mvs(lows_b, planes_l0, planes_l1, bh: int, bw: int, r: int):
+    """x264_tpu's b_seed_mvs_fused: a B candidate's lowres MV fields
+    against both lists, times 4 (a lowres half-pel is a full-res pel):
+    (mv_l0, mv_l1), each (bh, bw, 2) int32 quarter-pel seeds."""
+    _, mv0, mv1 = lowres_bcost(lows_b, planes_l0, planes_l1, bh, bw, r,
+                               False, want_mv=True)
+    return mv0 * 4, mv1 * 4
+
+
+def b_cost(lows_b, planes_l0, planes_l1, bh: int, bw: int, r: int):
+    """x264_tpu's b_cost_fused (the b-adapt 2 path search's cost pair):
+    (2,) int32 [cost as a B between the lists, cost as a P from l0]."""
+    s, _, _ = lowres_bcost(lows_b, planes_l0, planes_l1, bh, bw, r, True)
+    return torch.stack([s[BC_B], s[BC_P0]])

@@ -1,7 +1,7 @@
 """Exact MV prediction over the final block-level maps — plain PyTorch
 twin of x264_tpu/encoder/mvpred.py (median3, _pad_maps, _gather,
 _predict, _slots_16x16, predict_16x16, predict_pskip, predict_16x8,
-predict_8x16, predict_p8x8).
+predict_8x16, predict_p8x8, spatial_direct).
 
 The reference predicts MVs through its per-MB neighbour cache
 (x264_mb_predict_mv_16x16 / _pskip, common/macroblock.c:28-153). Once a
@@ -175,3 +175,55 @@ def predict_p8x8(ref4, mv4, i_ref=0):
             ref_c, mv_c = _c_or_d(refp, mvp, by - 1, bx + 2, by - 1, bx - 1)
         out.append(_predict(ref_a, mv_a, ref_b, mv_b, ref_c, mv_c, i_ref))
     return out
+
+
+def spatial_direct(ref4_l0, mv4_l0, ref4_l1, mv4_l1, col_ref4, col_mv4):
+    """Spatial-direct derivation of B_Direct_16x16 / B_SKIP
+    (x264_mb_predict_mv_direct16x16_spatial, common/mb.c; spec 8.4.1.2.2
+    with direct_8x8_inference_flag 1) on the B frame's per-list 4x4 maps,
+    with col_ref4 / col_mv4 the colocated (L0) maps of RefPicList1[0].
+
+    Each list's reference is the unsigned MIN3 of the A / B / C slots'
+    (a negative one sorts last; -1 where none is usable) and its MV the
+    16x16 median rule at that reference; where neither list has one, both
+    take reference 0 and the zero MV. The colocated low-motion override
+    tests the corner 4x4 block of each 8x8 quadrant (refCol 0 and |mvCol|
+    <= 1 qpel). Returns per-MB (dref0, dref1, dmv0, dmv1, uniform):
+    uniform where all four quadrants derive the same MV pair, the only
+    form the encoder codes as direct."""
+    mb_h, mb_w = ref4_l0.shape[0] // 4, ref4_l0.shape[1] // 4
+    big = 1 << 20
+
+    def list_ref_mv(ref4, mv4):
+        refp, mvp = _pad_maps(ref4, mv4)
+        ra, mva, rb, mvb, rc, mvc = _slots_16x16(refp, mvp, mb_h, mb_w)
+        un = lambda r: torch.where(r < 0, big, r)
+        r = torch.minimum(torch.minimum(un(ra), un(rb)), un(rc))
+        ref = torch.where(r >= big, -1, r).to(I32)
+        mv = _predict(ra, mva, rb, mvb, rc, mvc, ref)
+        return ref, torch.where((ref >= 0)[..., None], mv, 0)
+
+    dref0, dmv0 = list_ref_mv(ref4_l0, mv4_l0)
+    dref1, dmv1 = list_ref_mv(ref4_l1, mv4_l1)
+    both_neg = (dref0 < 0) & (dref1 < 0)
+    dref0 = torch.where(both_neg, 0, dref0).to(I32)
+    dref1 = torch.where(both_neg, 0, dref1).to(I32)
+    dmv0 = torch.where(both_neg[..., None], 0, dmv0)
+    dmv1 = torch.where(both_neg[..., None], 0, dmv1)
+    gy, gx = _grid(mb_h, mb_w, ref4_l0.device)
+    zs = []
+    for dy, dx in ((0, 0), (0, 3), (3, 0), (3, 3)):
+        cr = col_ref4[gy + dy, gx + dx]
+        cmv = col_mv4[gy + dy, gx + dx]
+        zs.append((cr == 0) & (cmv[..., 0].abs() <= 1)
+                  & (cmv[..., 1].abs() <= 1))
+    z = torch.stack(zs)
+    # the both-unavailable branch returns before the colocated test
+    z_all = z.all(0) & ~both_neg
+    z_any = z.any(0) & ~both_neg
+    would_change = ((dref0 == 0) & (dmv0 != 0).any(-1)) \
+        | ((dref1 == 0) & (dmv1 != 0).any(-1))
+    uniform = ~would_change | z_all | ~z_any
+    dmv0 = torch.where((z_all & (dref0 == 0))[..., None], 0, dmv0).to(I32)
+    dmv1 = torch.where((z_all & (dref1 == 0))[..., None], 0, dmv1).to(I32)
+    return dref0, dref1, dmv0, dmv1, uniform

@@ -1,21 +1,24 @@
-"""The per-frame device pipelines of IDR and P frames, CABAC or CAVLC.
+"""The per-frame device pipelines of IDR, P and B frames, CABAC or CAVLC
+(B: CABAC only).
 
 The PyTorch re-expression of x264_tpu/encoder/pipeline.py's
-encode_i16_idr_cabac and encode_p_cabac, with or without the 8x8
-transform and I8x8, and of its CAVLC encode_i16_idr and encode_p, where
-K18 / K19 code the packed slice words in place of the op streams of K3 /
-K8 (a P frame runs K8's pass A alone for its maps). IDR: the intra
-wavefront (K1),
-the CABAC op stream (K3), the in-loop deblocking filter (K2) and the
-frame metrics (K4). P: full-pel motion estimation (K5); at subme >= 2
-the half-pel planes (K9), the sub-pel refinement (K10), the chroma-ME
-re-rank (K12, subme >= 5) and the partition search (K11, then K10 per
-layout); the inter residual (K6), at subme >= 6 the inter RD cost (K13),
-intra-in-P (K7, with the RD decision at subme >= 6), the syntax maps and
-op stream (K8), then K2 with the P maps and K4. Under variance AQ both
-start with the per-MB QP map of the source planes (K16); K1, K6 and K7
-read each MB's tables at its QP, K17 derives the mb_qp_delta planes
-that K3 / K8 code and the effective QP map that K2 filters with
+encode_i16_idr_cabac, encode_p_cabac and encode_b_cabac, with or without
+the 8x8 transform and I8x8, and of its CAVLC encode_i16_idr and
+encode_p, where K18 / K19 code the packed slice words in place of the op
+streams of K3 / K8 (a P frame runs K8's pass A alone for its maps). IDR:
+the intra wavefront (K1), the CABAC op stream (K3), the in-loop
+deblocking filter (K2) and the frame metrics (K4). P: full-pel motion
+estimation (K5); at subme >= 2 the half-pel planes (K9), the sub-pel
+refinement (K10), the chroma-ME re-rank (K12, subme >= 5) and the
+partition search (K11, then K10 per layout); the inter residual (K6), at
+subme >= 6 the inter RD cost (K13), intra-in-P (K7, with the RD decision
+at subme >= 6), the syntax maps and op stream (K8), then K2 with the P
+maps and K4. B (CABAC): ME per list (K5, K9, K10), K22's two passes,
+K7's B decision and sweeps, K23's spatial direct, K24, K2 with both
+lists' maps and K4, at the frame QP. Under variance AQ the IDR and P
+pipelines start with the per-MB QP map of the source planes (K16); K1,
+K6 and K7 read each MB's tables at its QP, K17 derives the mb_qp_delta
+planes that K3 / K8 code and the effective QP map that K2 filters with
 (x264_tpu's _encode_i16_aq, _aq_maps and encode_p_cabac's AQ path).
 Everything is queued on the device's current stream; only the op stream
 (or the slice words) and one small int32 vector cross to the host
@@ -191,7 +194,9 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     inter.encode_p_front takes them. Returns dict(recon_y/u/v (deblocked
     when deblock_on), ops, host32 = [n_ops, n_intra, n_skip, ssd_y,
     ssd_u, ssd_v, ssim], mv (the frame's final 16x16 MV field, the next
-    frame's seed), ptype (the final partition types), and with t8 t8_mb,
+    frame's seed), ptype (the final partition types), ref4 / mv4 (the
+    final 4x4 L0 maps, the colocated maps of the B frames that take this
+    frame as their L1 reference), and with t8 t8_mb,
     the MBs coded with the 8x8 transform). aq: variance AQ as (strength,
     qp_min, qp_max), qtab then holding the stacks "aq_stack" and
     "aq_stack_p"; the result then also holds dqp and qp_eff."""
@@ -215,12 +220,45 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     h32 = host32_pack([n_ops, front["intra_mb"].sum(), maps["skip"].sum()],
                       y, u, v, ry, ru, rv, crop_w, crop_h, with_metrics)
     ret = dict(recon_y=ry, recon_u=ru, recon_v=rv, ops=ops, host32=h32,
-               mv=maps["mv"], ptype=maps["ptype"])
+               mv=maps["mv"], ptype=maps["ptype"], ref4=maps["ref4"],
+               mv4=maps["mv4"])
     if t8:
         ret["t8_mb"] = maps["t8_mb"]
     if qp_map is not None:
         ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
     return ret
+
+
+def encode_b_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
+                   y, u, v, l0, l1, qtab: dict, lam: int, qp: int,
+                   alpha_off: int, beta_off: int, chroma_qp_offset: int,
+                   mvp_seed, mvp_seed_l1, col_ref4, col_mv4, crop_w: int,
+                   crop_h: int, with_metrics: bool, subpel_steps=(2, 1),
+                   t8: bool = False) -> dict:
+    """One B frame with CABAC entropy (x264_tpu's encode_b_cabac): the B
+    body through inter.encode_b_front (K5, K9, K10 per list, K22, K7,
+    K23, K22, K7), K24's maps and op stream, K2 with both lists' maps and
+    K4, at the frame QP. l0 / l1: each list's deblocked reconstruction
+    (y, u, v); mvp_seed / mvp_seed_l1 each list's qpel ME predictors;
+    col_ref4 / col_mv4 the colocated L0 maps of the L1 reference; t8: the
+    PPS enables the 8x8 transform (B MBs code the flag 0). Returns
+    dict(recon_y/u/v, ops, host32 = [n_ops, n_intra, n_skip, ssd_y,
+    ssd_u, ssd_v, ssim], intra_mb, bmode)."""
+    front = inter.encode_b_front(mb_h, mb_w, me_range, y, u, v, l0, l1, qtab,
+                                 lam, mvp_seed, mvp_seed_l1, col_ref4,
+                                 col_mv4, subpel_steps)
+    maps, ops, n_ops = cabac_planes.cabac_b_ops(front, mb_h, mb_w, t8)
+    ry, ru, rv = front["recon_y"], front["recon_u"], front["recon_v"]
+    if deblock_on:
+        qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
+        ry, ru, rv = odeblock.deblock_frame(
+            mb_h, mb_w, ry, ru, rv, qp_mb, front["intra_mb"], maps["nnz4"],
+            maps["ref4"], maps["mv4"], maps["ref4_l1"], maps["mv4_l1"], True,
+            alpha_off, beta_off, chroma_qp_offset)
+    h32 = host32_pack([n_ops, front["intra_mb"].sum(), maps["skip"].sum()],
+                      y, u, v, ry, ru, rv, crop_w, crop_h, with_metrics)
+    return dict(recon_y=ry, recon_u=ru, recon_v=rv, ops=ops, host32=h32,
+                intra_mb=front["intra_mb"], bmode=front["bmode"])
 
 
 def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,

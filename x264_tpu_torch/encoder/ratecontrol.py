@@ -1,5 +1,6 @@
 """Rate control — the analogue of encoder/ratecontrol.c as
-x264_tpu/encoder/ratecontrol.py implements it, for I and P frames.
+x264_tpu/encoder/ratecontrol.py implements it, for I, P and B frames
+(B: the CQP pb offset, the last P qscale times pb_factor under CRF / ABR).
 
 This slice ports constant QP, CRF (constant rate factor) and 1-pass ABR
 with overflow compensation, with zones: the qp <-> qscale mapping
@@ -191,11 +192,8 @@ class RateControl:
     def start(self, frame_type: str, satd: float | None = None,
               frame_idx: int | None = None) -> int:
         """The frame QP (x264_ratecontrol_start:789 and
-        rate_estimate_qscale:1396). frame_type "I" or "P"; satd: the
+        rate_estimate_qscale:1396). frame_type "I", "P" or "B"; satd: the
         frame's complexity (default: the lookahead's last P cost)."""
-        if frame_type not in ("I", "P"):
-            raise NotImplementedError(f"{frame_type} frames come with the "
-                                      "B slice of the port")
         if frame_idx is None:
             frame_idx = self._started
         self._started += 1
@@ -205,13 +203,28 @@ class RateControl:
         zone = self._get_zone(frame_idx)
 
         if self.method == RC_CQP:
-            # one QP for I and P (x264_tpu keeps the ip offset flat at CQP)
+            # one QP for I and P (x264_tpu keeps the ip offset flat at CQP);
+            # B frames take the pb_factor offset (qp_constant[SLICE_TYPE_B],
+            # ratecontrol.c:357-360)
             qp = self.p.rc.i_qp_constant
+            if frame_type == "B":
+                qp += round(6.0 * math.log2(abs(self.p.rc.f_pb_factor)))
             if zone is not None and zone[2] == "q":
                 qp = max(0, min(51, int(zone[3])))
             qp = max(0, min(51, qp))
             self.last_qp = qp
             return int(qp)
+
+        if frame_type == "B":
+            # B frames ride the last P qscale times pb_factor
+            # (rate_estimate_qscale B branch, ratecontrol.c:1419-1452)
+            q = self.last_qscale_for["P"] * abs(self.p.rc.f_pb_factor)
+            q = max(qp2qscale(self.qp_min), min(qp2qscale(self.qp_max), q))
+            self.last_qscale_for["B"] = q
+            qp = int(round(qscale2qp(q)))
+            qp = max(self.qp_min, min(self.qp_max, qp))
+            self.last_qp = qp
+            return qp
 
         # blurred complexity (rate_estimate_qscale:1443-1450)
         self.short_term_cplxsum *= 0.5
@@ -296,12 +309,16 @@ class RateControl:
             satd = self.last_satd
         if self.method != RC_CQP:
             div = max(rceq, 1e-9)
+            if frame_type == "B":
+                div *= abs(self.p.rc.f_pb_factor)
             self.cplxr_sum += bits * qscale / div
             self.cplxr_sum *= self.cbr_decay
             self.wanted_bits_window += self.bitrate / self.fps
             self.wanted_bits_window *= self.cbr_decay
-            self._accum_p_update(qp, frame_type)
-        self.last_non_b_type = frame_type
+            if frame_type != "B":
+                self._accum_p_update(qp, frame_type)
+        if frame_type != "B":
+            self.last_non_b_type = frame_type
         self.frame_count += 1
         self.pred[frame_type if frame_type in self.pred else "P"].update(
             bits, qscale, satd)

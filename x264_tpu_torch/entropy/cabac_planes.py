@@ -795,3 +795,215 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
 
 # launches, and those of them in t8_mode and with mb_qp_delta planes
 cabac_p_ops.launches = cabac_p_ops.launches_t8 = cabac_p_ops.launches_aq = 0
+
+
+# ---------------------------------------------------------------- K24
+def b_slice_ops(out: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
+    """Packed op planes of a whole B CABAC slice (x264_macroblock_write_
+    cabac B branch, x264_cabac_mb_type's B table and x264_cabac_mb_skip,
+    encoder/cabac.c:123-190, 300-306): B_SKIP by the skip flag (ctx 24 +
+    the non-skip neighbours), B_Direct_16x16 as the single mb_type bin 0,
+    then B_L0 / B_L1 / B_Bi_16x16 with their mvds per list and I16x16;
+    t8_mode: the PPS enables the 8x8 transform, and inter MBs with coded
+    luma code transform_size_8x8_flag 0 (B MBs keep the 4x4 transform);
+    mb_qp_delta is 0 (x264_tpu's B frames run at the frame QP). `out`
+    holds the keys of encoder/inter.py:encode_b_body_plain. Returns the
+    flat int64 slot stream."""
+    nmb = mb_h * mb_w
+    dev = out["intra_mb"].device
+    R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    intra = out["intra_mb"].reshape(mb_h, mb_w)
+    skip = out["skip"].reshape(mb_h, mb_w)
+    direct = out["direct_mb"].reshape(mb_h, mb_w)
+    cbp_l = out["cbp_luma_bits"].reshape(mb_h, mb_w).to(I64)
+    cbp_c = out["cbp_chroma"].reshape(mb_h, mb_w).to(I64)
+    luma_blocks = out["luma_blocks"].reshape(nmb, 16, 16)
+    luma_dc = out["luma_dc"].reshape(nmb, 16)
+    chroma_dc = out["chroma_dc"].reshape(nmb, 2, 4)
+    chroma_ac = out["chroma_ac"].reshape(nmb, 2, 4, 16)
+    mode16 = out["mode16"].reshape(nmb).to(I64)
+    modec = torch.where(intra, out["modec"].reshape(mb_h, mb_w), 0).to(I64)
+    bmode = out["bmode"].reshape(nmb)
+    intra_f, skip_f = intra.reshape(nmb), skip.reshape(nmb)
+    direct_f = direct.reshape(nmb)
+    coded = ~skip_f
+    interc_f = coded & ~intra_f            # codes cbp / residual
+    expl_f = interc_f & ~direct_f          # codes mb_type bins 1+ / mvds
+    cbp_lf, cbp_cf = cbp_l.reshape(nmb), cbp_c.reshape(nmb)
+    dec = lambda ctx, b: op(KIND_DECISION, ctx, b)
+
+    a, b = _nbr_grids((~skip).to(I64), 0)
+    slots = [dec((24 + a + b).reshape(nmb), skip_f)]
+    # mb_type, the D_16x16 rows of the B table: B_Direct_16x16 {0}; L0
+    # {1,0,0}, L1 {1,0,1}, Bi {1,1,0,0,0,0}; the intra prefix
+    # {1,1,1,1,0,1} and the I16 suffix at ctxs 32-35. Bin 0's ctx counts
+    # the available neighbours that are neither B_SKIP nor direct
+    a, b = _nbr_grids((~(skip | direct)).to(I64), 0)
+    is_bi = expl_f & (bmode == 2)
+    slots += [_sel(coded, dec((27 + a + b).reshape(nmb), ~direct_f)),
+              _sel(coded & ~direct_f, dec(30, intra_f | is_bi)),
+              _sel(expl_f & ~is_bi, dec(32, bmode == 1)),
+              _sel(is_bi, dec(31, 0)), _sel(is_bi, dec(32, 0)),
+              _sel(is_bi, dec(32, 0)), _sel(is_bi, dec(32, 0)),
+              _sel(intra_f, dec(31, 1)), _sel(intra_f, dec(32, 1)),
+              _sel(intra_f, dec(32, 0)), _sel(intra_f, dec(32, 1)),
+              _sel(intra_f, dec(32, 1)),
+              _sel(intra_f, torch.full((nmb,), KIND_TERMINAL << 29,
+                                       dtype=I64, device=dev)),
+              _sel(intra_f, dec(33, cbp_lf > 0)),
+              _sel(intra_f, dec(34, cbp_cf > 0)),
+              _sel(intra_f & (cbp_cf > 0), dec(34, cbp_cf == 2)),
+              _sel(intra_f, dec(35, mode16 >> 1)),
+              _sel(intra_f, dec(35, mode16 & 1))]
+    cm_l, cm_t = _nbr_grids(modec, 0)
+    cctx = (64 + (cm_l != 0).to(I64) + (cm_t != 0).to(I64)).reshape(nmb)
+    cm = modec.reshape(nmb)
+    slots += [_sel(intra_f, dec(cctx, cm > 0)),
+              _sel(intra_f & (cm > 0), dec(67, cm > 1)),
+              _sel(intra_f & (cm > 1), dec(67, cm > 2))]
+    # the mvds of L0 then L1; ctxInc from the same list's |mvd| of the
+    # left and top 4x4 neighbours
+    for k in (0, 1):
+        mvdp = out[f"mvd_l{k}"].reshape(nmb, 2).to(I64)
+        act = out[f"use_l{k}"].reshape(nmb)
+        mvd4 = out[f"mvd4_l{k}"].to(I64)
+        for comp, base in ((0, 40), (1, 47)):
+            ma, mb_ = _nbr_grids(mvd4[..., comp].abs(), 0)
+            am = (ma[0::4, 0::4] + mb_[0::4, 0::4]).reshape(nmb)
+            inc = (am > 2).to(I64) + (am > 32).to(I64)
+            slots += _mvd_component_ops(mvdp[:, comp], base, inc, act)
+    # coded_block_pattern of the inter MBs
+    cbl_l, cbl_t = _nbr_grids(cbp_l, -1)
+    ctxs = (76 - ((cbl_l >> 1) & 1) - ((cbl_t >> 1) & 2),
+            76 - (cbp_l & 1) - ((cbl_t >> 2) & 2),
+            76 - ((cbl_l >> 3) & 1) - ((cbp_l << 1) & 2),
+            76 - ((cbp_l >> 2) & 1) - (cbp_l & 2))
+    for k, cx in enumerate(ctxs):
+        slots.append(_sel(interc_f, dec(cx.reshape(nmb), (cbp_lf >> k) & 1)))
+    cbc_l, cbc_t = _nbr_grids(cbp_c, -1)
+    c0 = 77 + (cbc_l > 0).to(I64) + 2 * (cbc_t > 0).to(I64)
+    c1 = 81 + (cbc_l == 2).to(I64) + 2 * (cbc_t == 2).to(I64)
+    slots += [_sel(interc_f, dec(c0.reshape(nmb), cbp_cf > 0)),
+              _sel(interc_f & (cbp_cf > 0), dec(c1.reshape(nmb),
+                                                 cbp_cf == 2))]
+    if t8_mode:
+        slots.append(_sel(interc_f & (cbp_lf > 0), dec(399, 0)))
+    has_dqp = coded & (intra_f | (cbp_lf > 0) | (cbp_cf > 0))
+    slots.append(_sel(has_dqp, dec(60, 0)))
+    header = torch.stack(slots, 1)
+
+    # residual cbf contexts and blocks, as p_slice_ops without t8
+    intra_i = intra.to(I64)
+    intra4 = intra_i.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    intra2 = intra_i.repeat_interleave(2, 0).repeat_interleave(2, 1)
+    dcflag = (intra & (luma_dc != 0).any(-1).reshape(mb_h, mb_w)).to(I64)
+    a, b = _nbr_grids(dcflag, 1)
+    ctx_dc = (2 * b + a).reshape(nmb)
+    grp_bit = (cbp_lf[:, None] >> (torch.arange(16, device=dev) // 4)) & 1
+    ctx_ac = _cbf_ctx_from_grid((out["nnz4"] > 0).to(I64), intra4) \
+        .reshape(mb_h, 4, mb_w, 4).transpose(1, 2).reshape(nmb, 16)[:, R]
+    ctx_cdc, ctx_cac = [], []
+    for ch in range(2):
+        dcm = ((cbp_c > 0) & (chroma_dc[:, ch] != 0).any(-1)
+               .reshape(mb_h, mb_w)).to(I64)
+        ctx_cdc.append(_cbf_ctx_from_grid(dcm, intra_i).reshape(nmb))
+        acm = ((chroma_ac[:, ch, :, 1:] != 0).any(-1)
+               & (cbp_cf == 2)[:, None]).to(I64) \
+            .reshape(mb_h, mb_w, 2, 2).transpose(1, 2) \
+            .reshape(mb_h * 2, mb_w * 2)
+        ctx_cac.append(_cbf_ctx_from_grid(acm, intra2)
+                       .reshape(mb_h, 2, mb_w, 2).transpose(1, 2)
+                       .reshape(nmb, 4))
+    ctx_cdc = torch.stack(ctx_cdc, 1)
+    ctx_cac = torch.stack(ctx_cac, 1)
+    dc_ops = residual_block_ops(luma_dc, 0, ctx_dc, intra_f)
+    ac15 = residual_block_ops(luma_blocks[..., 1:].reshape(nmb * 16, 15), 1,
+                              ctx_ac.reshape(nmb * 16),
+                              (intra_f & (cbp_lf > 0)).repeat_interleave(16))
+    full16 = residual_block_ops(luma_blocks.reshape(nmb * 16, 16), 2,
+                                ctx_ac.reshape(nmb * 16),
+                                interc_f.repeat_interleave(16)
+                                & (grp_bit > 0).reshape(nmb * 16))
+    ac15p = torch.cat([ac15, torch.full((nmb * 16, 1), PAD_OP, dtype=I64,
+                                        device=dev)], 1)
+    blk_ops = torch.where(intra_f.repeat_interleave(16)[:, None], ac15p,
+                          full16).reshape(nmb, -1)
+    cdc_ops = residual_block_ops(chroma_dc.reshape(nmb * 2, 4), 3,
+                                 ctx_cdc.reshape(nmb * 2),
+                                 (cbp_cf > 0).repeat_interleave(2))
+    cac_ops = residual_block_ops(chroma_ac[..., 1:].reshape(nmb * 8, 15), 4,
+                                 ctx_cac.reshape(nmb * 8),
+                                 (cbp_cf == 2).repeat_interleave(8))
+    is_last = torch.arange(nmb, device=dev) == nmb - 1
+    term = torch.full((nmb,), KIND_TERMINAL << 29, dtype=I64, device=dev)
+    return torch.cat([header, dc_ops, blk_ops, cdc_ops.reshape(nmb, -1),
+                      cac_ops.reshape(nmb, -1), _sel(~is_last, term)[:, None]],
+                     1).reshape(-1)
+
+
+def cabac_b_ops_plain(front: dict, mb_h: int, mb_w: int,
+                      t8_mode: bool = False):
+    """Plain version of K24: the maps of encoder/inter.py's b_maps_plain,
+    then compact_ops(b_slice_ops(...)). Returns (maps, ops, n_ops)."""
+    from ..encoder.inter import b_maps_plain
+    maps = b_maps_plain(front, mb_h, mb_w)
+    ops, n = compact_ops(b_slice_ops({**front, **maps}, mb_h, mb_w, t8_mode),
+                         capacity(mb_h * mb_w))
+    return maps, ops, n
+
+
+def cabac_b_ops(front: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
+    """K24 `cabac_b_ops`: stage 4 of the B encode and the compacted CABAC
+    op stream of the B slice.
+
+    Replaces the map derivation of x264_tpu/encoder/inter.py:
+    encode_b_body's stage 4 (inter.py:1174-1224, with mvpred.py's
+    predict_16x16 per list) and x264_tpu/entropy/cabac_planes.py:
+    b_slice_ops followed by compact_ops. `front` holds the planes of
+    encoder/inter.py:encode_b_front. On CUDA tensors it runs
+    csrc/cabac_ops.cu: pass A (one thread per MB: each list's maps, MV
+    prediction and mvd, the skip flag and nnz4), pass B (one thread per
+    MB emits its live ops), then K3's scan and scatter; on CPU tensors the
+    plain version. Returns as cabac_b_ops_plain; ops entries at and past
+    n_ops are unspecified on the card."""
+    if front["intra_mb"].device.type == "cpu":
+        return cabac_b_ops_plain(front, mb_h, mb_w, t8_mode)
+    dev = front["intra_mb"].device
+    nmb = mb_h * mb_w
+    shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
+                  direct_mb=((mb_h, mb_w), torch.bool),
+                  bmode=((mb_h, mb_w), I32), r0=((mb_h, mb_w), I32),
+                  r1=((mb_h, mb_w), I32), m0=((mb_h, mb_w, 2), I32),
+                  m1=((mb_h, mb_w, 2), I32),
+                  cbp_luma_bits=((mb_h, mb_w), I32),
+                  cbp_chroma=((mb_h, mb_w), I32),
+                  luma_blocks=((mb_h, mb_w, 16, 16), I32),
+                  mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
+                  luma_dc=((mb_h, mb_w, 16), I32),
+                  chroma_dc=((mb_h, mb_w, 2, 4), I32),
+                  chroma_ac=((mb_h, mb_w, 2, 4, 16), I32))
+    for k, (shape, dt) in shapes.items():
+        cuda.check(front[k], shape, dt, k)
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    maps = dict(use_l0=e(mb_h, mb_w, dt=torch.bool),
+                use_l1=e(mb_h, mb_w, dt=torch.bool),
+                mvd_l0=e(mb_h, mb_w, 2), mvd_l1=e(mb_h, mb_w, 2),
+                mvd4_l0=e(mb_h * 4, mb_w * 4, 2),
+                mvd4_l1=e(mb_h * 4, mb_w * 4, 2),
+                skip=e(mb_h, mb_w, dt=torch.bool), nnz4=e(mb_h * 4, mb_w * 4),
+                ref4=e(mb_h * 4, mb_w * 4), mv4=e(mb_h * 4, mb_w * 4, 2),
+                ref4_l1=e(mb_h * 4, mb_w * 4),
+                mv4_l1=e(mb_h * 4, mb_w * 4, 2))
+    scratch = e(nmb * OPS_PER_MB)
+    counts, offsets = e(nmb), e(nmb + 1)
+    ops = e(capacity(nmb))
+    cuda.launch("cabac_ops", "cabac_b_ops", "p" * 31 + "iii" + "p",
+                *[front[k].data_ptr() for k in shapes],
+                *[maps[k].data_ptr() for k in maps],
+                scratch.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+                ops.data_ptr(), mb_h, mb_w, int(t8_mode), cuda.stream(dev))
+    cabac_b_ops.launches += 4          # pass A, pass B, scan, scatter
+    return maps, ops, offsets[nmb]
+
+
+cabac_b_ops.launches = 0

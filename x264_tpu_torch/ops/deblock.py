@@ -244,19 +244,16 @@ def deblock_frame(mb_h: int, mb_w: int, y, u, v, qp_mb, intra_mb, nnz4,
     Replaces x264_tpu/ops/deblock.py:deblock_frame. On CUDA tensors it
     filters y / u / v IN PLACE (and returns them), one launch of
     csrc/deblock.cu per slope-2 diagonal, one CTA per MB; the kernel
-    derives bS and alpha / beta / tc0 from the maps itself, and takes bS
-    0 on the inner luma edges 1 and 3 of the MBs t8_mb marks (the 8x8
-    transform). On CPU tensors it runs the plain version, which returns
-    new planes. B-slice strengths (is_b) come with the B slice: the
-    kernel raises on them."""
+    derives bS and alpha / beta / tc0 from the maps itself, takes bS 0 on
+    the inner luma edges 1 and 3 of the MBs t8_mb marks (the 8x8
+    transform) and, in a B slice (is_b), compares the L1 refs and MVs too.
+    On CPU tensors it runs the plain version, which returns new
+    planes."""
     if y.device.type == "cpu":
         return deblock_frame_plain(mb_h, mb_w, y, u, v, qp_mb, intra_mb,
                                    nnz4, ref4, mv4, ref4_l1, mv4_l1, is_b,
                                    alpha_off, beta_off, chroma_qp_offset,
                                    t8_mb)
-    if is_b:
-        raise NotImplementedError(
-            "deblock kernel: the B-slice edge rules come with the B slice")
     dev = y.device
     H, W, H4, W4 = mb_h * 16, mb_w * 16, mb_h * 4, mb_w * 4
     cuda.check(y, (H, W), I32, "y")
@@ -268,7 +265,14 @@ def deblock_frame(mb_h: int, mb_w: int, y, u, v, qp_mb, intra_mb, nnz4,
     cuda.check(ref4, (H4, W4), I32, "ref4")
     cuda.check(mv4, (H4, W4, 2), I32, "mv4")
     ptrs = [t.data_ptr() for t in (y, u, v, qp_mb, intra_mb, nnz4, ref4,
-                                   mv4, _deblock_tab(dev))]
+                                   mv4)]
+    if is_b:
+        cuda.check(ref4_l1, (H4, W4), I32, "ref4_l1")
+        cuda.check(mv4_l1, (H4, W4, 2), I32, "mv4_l1")
+        ptrs += [ref4_l1.data_ptr(), mv4_l1.data_ptr()]
+    else:
+        ptrs += [0, 0]
+    ptrs.append(_deblock_tab(dev).data_ptr())
     if t8_mb is not None:
         cuda.check(t8_mb, (mb_h, mb_w), torch.bool, "t8_mb")
         ptrs.append(t8_mb.data_ptr())
@@ -276,13 +280,15 @@ def deblock_frame(mb_h: int, mb_w: int, y, u, v, qp_mb, intra_mb, nnz4,
         ptrs.append(0)
     stream = cuda.stream(dev)
     for d in range(mb_w + 2 * mb_h - 2):
-        cuda.launch("deblock", "deblock_diag", "p" * 10 + "iiiiii" + "p",
+        cuda.launch("deblock", "deblock_diag", "p" * 12 + "iiiiii" + "p",
                     *ptrs, mb_h, mb_w, d, alpha_off, beta_off,
                     chroma_qp_offset, stream)
         deblock_frame.launches += 1
         deblock_frame.launches_t8 += int(t8_mb is not None)
+        deblock_frame.launches_b += int(is_b)
     return y, u, v
 
 
-# launches, and those of them with a t8_mb map
-deblock_frame.launches = deblock_frame.launches_t8 = 0
+# launches, and those of them with a t8_mb map and with B-slice maps
+deblock_frame.launches = deblock_frame.launches_t8 = \
+    deblock_frame.launches_b = 0

@@ -133,6 +133,12 @@ def mc_luma(planes, ys, xs, mvs, bh: int, bw: int):
     return (a + b + 1) >> 1
 
 
+def avg(a, b):
+    """Rounding average of two predictions (pixel_avg, common/mc.c:34; the
+    bipred weight 32 of weighted_bipred_idc 0)."""
+    return (a + b + 1) >> 1
+
+
 def mc_chroma(padded, ys, xs, mvs, bh: int, bw: int):
     """Batched 1/8-pel bilinear chroma fetch (mc_chroma, common/mc.c:205).
     padded: a chroma plane padded by PAD // 2; ys / xs block top-left in
