@@ -107,6 +107,25 @@ Phases; any failure exits non-zero before the result line:
      bytes of the IDR, P and B frames, PSNR / SSIM, the frame types and
      QPs, and the profiler's split and idle share over frames 24-31 (the
      cut and the B run after it).
+ 14. x264's default preset as far as x264_tpu encodes it: its defaults
+     with --ref 3 (which validate() clamps to 2), --bframes 3 (b-adapt 1)
+     and --trellis 1, CABAC, i_frame_parallel 3, on phase 7's 32 frames.
+     Every kernel of phase 13 must launch, the two-reference branches of
+     K10-K13, K6 and K8 too; the IDRs fall at display frames 0 and 26
+     only; the first three frames in encode order (IDR, the P with one
+     reference, the first P with two) must equal a CPU run, and so must
+     three 1080p flash frames at i_bframe 0 (a band that alternates
+     between two noise patterns: the third frame takes MBs from L0[1]);
+     the phase reports fps beside phases 12 and 13, the median
+     encode(), the IDR / P / B bytes, PSNR / SSIM, the share of the
+     two-reference P frames' MBs on L0[1], and the profiler's split and
+     idle share.
+ 15. the same preset with b_cabac off (ref 2, i_bframe 3; no trellis,
+     no 8x8 transform): K25, K24's pass A alone, K19's ref_idx bit and
+     K8's pass A with two references must launch, and every other kernel
+     of phase 11 and of the B frames but CABAC's; frames 0-2 must equal
+     a CPU run, and so must an IDR, P, B run of the second picture at
+     i_bframe 1; the phase reports as phase 14, beside phase 11.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
@@ -135,14 +154,23 @@ lowres planes of frames 0-2, and K22 (both passes, with and without the
 trellis), K7's B decision and sweeps, K23, K24 and K2 with B maps on
 frame 1 as a B frame between frame 0's recon and frame 2, with 30% of the
 64x64 blocks gray in all three (direct, skip) and 15% flat in the B
-frame alone (intra), all exact. The line before the last is the JSON
-`kernels` record (the 8x8,
-AQ, CAVLC and trellis variants as records of their own, each counting
-the launches that took its branch; `launches` is the count of the
-kernel's own main path, phase 11 for K18, K19 and K8's pass A alone,
+frame alone (intra), all exact; and two references: frame 1 against the
+partition reference as L0[0] and frame 0's recon as L0[1] at subme 6
+with the 8x8 transform, the trellis and frame 1's QP map, K10 (every
+block shape), K11, K12, K6 and K13 on the arguments encode_p_front gave
+them and again with a seeded reference index, K8 with the ref_idx bins
+and K2 on a ref4 holding 0, 1 and -1, K8's pass A alone and K19 with the
+ref_idx bit (and with a dropping capacity), and K24's pass A alone and
+K25 on the B frame above (and with a dropping capacity), all exact. The
+line before the last is the JSON `kernels` record (the 8x8, AQ, CAVLC,
+trellis and two-reference variants as records of their own, each
+counting the launches that took its branch; `launches` is the count of
+the kernel's own main path, phase 11 for K18, K19 and K8's pass A alone,
 phase 12 for K6's trellis branch and K20 (0: its device code runs
-inside K6), phase 13 for the B kernels and branches, phase 9 for the
-others, the other phases' beside it); the
+inside K6), phase 13 for the B kernels and branches, phase 14 for the
+two-reference branches, phase 15 for K25, K24's pass A alone and the
+CAVLC two-reference branches, phase 9 for the others, the other phases'
+beside it); the
 last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
@@ -177,6 +205,8 @@ N_INTRA_CAVLC = 5              # frames of bench.py's all-intra CAVLC line
 N_CHECK_CAVLC = 1              # frames of phase 11 held against the CPU
 N_TRELLIS = 32                 # frames of the defaults with the trellis
 N_BFRAMES = 32                 # frames of the defaults with B frames
+N_PRESET = 32                  # frames of x264's default preset (phases
+                               # 14 and 15)
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
@@ -387,6 +417,85 @@ def trellis_params(EncoderParams, frame_parallel: int = 3):
     return p
 
 
+def preset_params(EncoderParams, frame_parallel: int = 3):
+    """x264's default preset (medium: --ref 3 --bframes 3 --trellis 1 at
+    CRF 23 with AQ) as x264_tpu encodes it: its own defaults with
+    i_frame_reference 3 (validate() clamps it to 2 and logs it),
+    i_bframe 3 (b-adapt 1) and analyse.i_trellis 1, CABAC."""
+    p = defaults_params(EncoderParams, frame_parallel)
+    p.i_frame_reference = 3
+    p.i_bframe = 3
+    p.analyse.i_trellis = 1
+    return p
+
+
+def preset_cavlc_params(EncoderParams, frame_parallel: int = 3):
+    """The preset with b_cabac off: ref 2, i_bframe 3, and (validate())
+    neither the trellis nor the 8x8 transform."""
+    p = preset_params(EncoderParams, frame_parallel)
+    p.b_cabac = False
+    return p
+
+
+def preset_flash_params(EncoderParams, frame_parallel: int = 3):
+    """The preset at i_bframe 0, for the flash frames' IDR, P, P."""
+    p = preset_params(EncoderParams, frame_parallel)
+    p.i_bframe = 0
+    return p
+
+
+def flash_frames(w: int, h: int, n: int, frame_cls):
+    """make_frames' pan with its middle third replaced by one of two
+    noise patterns, pattern t % 2 at frame t (tests/test_multiref.py's
+    flash sequence at 1080p): the band of frame 2 is in frame 0, L0[1]
+    of the third frame's P, and not in frame 1."""
+    rng = np.random.default_rng(5)
+    band = slice(h // 3 // 16 * 16, 2 * h // 3 // 16 * 16)
+    pats = [rng.integers(0, 256, (band.stop - band.start, w), dtype=np.uint8)
+            for _ in range(2)]
+    out = []
+    for t, f in enumerate(make_frames(w, h, n, frame_cls)):
+        y = f.y.copy()
+        y[band] = pats[t % 2]
+        out.append(frame_cls(y, f.u, f.v))
+    return out
+
+
+def preset_report(what: str, done, summary, enc, fps: float, med: float,
+                  seen, beside: str) -> dict:
+    """Check a preset run's frame types (B frames; IDRs at display 0 and
+    CUT only) and print its end-to-end line: fps beside `beside`, the
+    median encode(), IDR / P / B bytes, PSNR / SSIM, the share of the
+    two-reference P frames' MBs on L0[1]. Returns fps and the P / B
+    bytes."""
+    types = [e.frame_type for e in done]
+    idrs = sorted(e.display_idx for e in done if e.frame_type == "IDR")
+    if "B" not in types or idrs != [0, CUT]:
+        fail(f"{what}: frame types {types}, IDRs at display {idrs}")
+    by_type = {t: [len(e.payload) for e in done if e.frame_type == t]
+               for t in ("IDR", "P", "B")}
+    two = [r for two_refs, r, _ in seen if two_refs]
+    nmb2 = sum(r.numel() for r in two)
+    on1 = sum(int((r == 1).sum()) for r in two)
+    if not two or on1 == 0:
+        fail(f"{what}: {len(two)} P frames with two references, {on1} MBs "
+             f"on L0[1]")
+    qps = [e.qp for e in enc.rc.entries]
+    print(f"{what}: {len(done)} frames {W}x{H}, {fps:.3f} fps ({beside}), "
+          f"median encode() {med:.1f} ms, encode order "
+          f"{''.join(t[0] for t in types)}, bytes IDR "
+          f"{statistics.mean(by_type['IDR']):.0f}, P "
+          f"{statistics.mean(by_type['P']):.0f} ({len(by_type['P'])} "
+          f"frames), B {statistics.mean(by_type['B']):.0f} "
+          f"({len(by_type['B'])} frames), PSNR Y {summary['psnr']['y']:.4f} "
+          f"avg {summary['psnr']['avg']:.4f} dB, SSIM "
+          f"{summary['ssim_y']:.6f}, frame QPs {qps}, {on1 / nmb2:.4f} of "
+          f"the MBs of the {len(two)} two-reference P frames on L0[1] "
+          f"({len(seen) - len(two)} P frames with one)", flush=True)
+    return dict(fps=fps, p=statistics.mean(by_type["P"]),
+                b=statistics.mean(by_type["B"]))
+
+
 def params(EncoderParams, frame_parallel: int, keyint: int = 1,
            subme: int = 1, scenecut: int = 0):
     """All-intra at keyint 1; else the IPPP slice: one reference, no B
@@ -589,7 +698,7 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("inter_mb_kernel<1>", "K22"),
                  ("inter_mb_kernel<2>", "K22"),
                  ("emit_kernel", "K3"),
-                 ("scan_kernel", "K3/K8/K18/K19 scan"),
+                 ("scan_kernel", "K3/K8/K18/K19/K25 scan"),
                  ("scatter_kernel", "K3/K8 scatter"), ("ssd_kernel", "K4"),
                  ("ssim_kernel", "K4"), ("reduce_kernel", "K4"),
                  ("half_kernel", "K5"), ("search_kernel", "K5"),
@@ -600,8 +709,10 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("lowres_kernel", "K14"), ("cost_kernel", "K15"),
                  ("aq_qp_kernel", "K16"), ("dqp_kernel", "K17"),
                  ("i_counts_kernel", "K18"), ("i_bits_kernel", "K18"),
-                 ("i_write_kernel", "K18"), ("p_counts_kernel", "K19"),
-                 ("p_bits_kernel", "K19"), ("p_write_kernel", "K19"),
+                 ("i_write_kernel", "K18"),
+                 # K19's and K25's passes: one template, instantiated on
+                 # each slice's planes
+                 ("PPlanes>(", "K19"), ("BPlanes>(", "K25"),
                  ("trellis_kernel", "K20"))
 
 
@@ -692,7 +803,7 @@ def main() -> None:
     from x264_tpu_torch.entropy import cabac_tables as ctab
     from x264_tpu_torch.entropy import device as cavlc
     from x264_tpu_torch.entropy.bitstream import BitWriter
-    from x264_tpu_torch.headers import SLICE_I, SLICE_P, SliceHeader
+    from x264_tpu_torch.headers import SLICE_B, SLICE_I, SLICE_P, SliceHeader
     from x264_tpu_torch.ops import dct as odct
     from x264_tpu_torch.ops import deblock, mc, me
     from x264_tpu_torch.ops import trellis as otrellis
@@ -2185,6 +2296,253 @@ def main() -> None:
           f"maps {ms2b:.3f} ms, K21 {ms21:.3f} ms a launch [{smi_line}]",
           flush=True)
 
+    # ------------------------------------------------- two references
+    stamp("phase 3: two references' kernels")
+    # frame 1 against two references (--ref 2): L0[0] the partition
+    # reference (ref2, whose partitions move apart), L0[1] frame 0's recon,
+    # each with its own 30% of the 64x64 tiles gray: frame 1 matches the
+    # recon best where it is left, the partition reference where the recon
+    # is gray, and neither where both are (intra), so the real per-MB
+    # choice takes both. Subme 6 with the partitions, chroma ME, the 8x8
+    # transform, the trellis and frame 1's QP map: the main path's K10,
+    # K11, K12, K6 and K13 calls, spied, each held against its plain
+    # version on the arguments encode_p_front gave it and again with a
+    # seeded reference index in place of the real one
+    rng_r = np.random.default_rng(101)
+    tiles_r = rng_r.random((2, (mb_h + 3) // 4, (mb_w + 3) // 4)) < 0.3
+    ref_newer = grayed(ref2, grid(tiles_r[0]), 128)
+    ref_older = grayed((ry, ru, rv), grid(tiles_r[1]), 128)
+    spied_fns = {"subpel_refine_blocks": me, "partition_fullpel": me,
+                 "chroma_rerank": me, "p_inter_mb": inter, "rd_inter": inter}
+    calls = {n: [] for n in spied_fns}
+    kept = {n: getattr(m, n) for n, m in spied_fns.items()}
+
+    def spy2(name):
+        def call(*a, **k):
+            calls[name].append((a, k))
+            return kept[name](*a, **k)
+        call.__dict__.update(kept[name].__dict__)
+        return call
+
+    for n, m in spied_fns.items():
+        setattr(m, n, spy2(n))
+    try:
+        front_r = inter.encode_p_front(
+            mb_h, mb_w, me_range, y1, u1, v1, *ref_newer, tr_stack, lam,
+            mvp0, True, (2, 1), True, True, True, True, True, qm1, ref_older)
+    finally:
+        for n, m in spied_fns.items():
+            kept[n].__dict__.update(getattr(m, n).__dict__)
+            setattr(m, n, kept[n])
+    sel_r, im_r = front_r["ref_sel"], front_r["intra_mb"]
+    n_on1 = int(((sel_r == 1) & ~im_r).sum())
+    n_on0 = int(((sel_r == 0) & ~im_r).sum())
+    if n_on1 == 0 or n_on0 == 0:
+        fail(f"two references: {n_on1} MBs on L0[1], {n_on0} on L0[0]")
+
+    def seeded(s):
+        return torch.as_tensor(rng_r.integers(0, 2, tuple(s.shape)),
+                               dtype=torch.int32, device=dev)
+
+    r2_ms = {}
+
+    def flat(x):
+        """A wrapper's result as a list of tensors (dicts and tuples
+        opened)."""
+        if torch.is_tensor(x):
+            return [x]
+        items = x.values() if isinstance(x, dict) else x
+        return [t for v in items for t in flat(v)]
+
+    def check_ref2(name, fn, plain, a, k, sel_at):
+        """fn against plain on the spied arguments, then with a seeded
+        reference index at position (or keyword) sel_at: every output
+        equal (the float RD costs too); returns the max error, 0."""
+        a2, k2 = list(a), dict(k)
+        if isinstance(sel_at, str):
+            k2[sel_at] = seeded(k[sel_at])
+        else:
+            a2[sel_at] = seeded(a[sel_at])
+        for args, kw, tag in ((a, k, "two references"),
+                              (a2, k2, "a seeded reference index")):
+            got, want = flat(fn(*args, **kw)), flat(plain(*args, **kw))
+            if len(got) != len(want) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"{name} with {tag} differs from its plain version")
+        return 0
+
+    # K10: the 16x16 refinement and each partition layout's
+    err10r, ops10r, bytes10r, ms10r, pl10r = 0, 0, 0, 0.0, 0.0
+    for a, k in calls["subpel_refine_blocks"]:
+        err10r = max(err10r, check_ref2(
+            f"K10 subpel_refine {a[7]}x{a[8]}", me.subpel_refine_blocks,
+            me.subpel_refine_blocks_plain, a, k, 10))
+        ms10r += event_ms(lambda a=a: me.subpel_refine_blocks(*a), 10)
+        pl10r += event_ms(lambda a=a: me.subpel_refine_blocks_plain(*a), 1)
+        ops10r += 49 * (a[7] * a[8] // 16) * a[5].numel()
+        bytes10r += nbytes(a[0], a[1], a[2], a[4], a[5], a[6], a[10]) \
+            + 12 * a[5].numel()
+    record("subpel_refine_ref2", "cuda", "x264_tpu_torch/csrc/subpel.cu",
+           "x264_tpu/ops/me.py:245", err10r, ms10r, pl10r, bytes10r,
+           K10_OPS_PER_CAND_4X4 * ops10r)
+    (a11, k11), = calls["partition_fullpel"]
+    err11r = check_ref2("K11 part_fullpel", me.partition_fullpel,
+                        me.partition_fullpel_plain, a11, k11, 7)
+    record("part_fullpel_ref2", "cuda", "x264_tpu_torch/csrc/subpel.cu",
+           "x264_tpu/ops/me.py:328", err11r,
+           event_ms(lambda: me.partition_fullpel(*a11), 10),
+           event_ms(lambda: me.partition_fullpel_plain(*a11), 1),
+           nbytes(a11[0], a11[1], a11[2], a11[4], a11[7]) + 8 * 8 * nmb,
+           K11_OPS_PER_MB * nmb)
+    (a12, k12r), = calls["chroma_rerank"]
+    err12r = check_ref2("K12 chroma_rerank", me.chroma_rerank,
+                        me.chroma_rerank_plain, a12, k12r, 10)
+    record("chroma_rerank_ref2", "cuda", "x264_tpu_torch/csrc/subpel.cu",
+           "x264_tpu/ops/me.py:403", err12r,
+           event_ms(lambda: me.chroma_rerank(*a12), 10),
+           event_ms(lambda: me.chroma_rerank_plain(*a12), 1),
+           nbytes(*a12[:7], a12[8], a12[9], a12[10]) + 12 * nmb,
+           K12_OPS_PER_MB * nmb)
+    (a6r, k6r), = calls["p_inter_mb"]
+    if a6r[12] != inter.T8_RD or a6r[13] is None or "trellis_tab" not in \
+            a6r[10]:
+        fail("K6 with two references ran without the 8x8 transform, the "
+             "QP map or the trellis")
+    err6r = check_ref2("K6 p_inter_mb", inter.p_inter_mb,
+                       inter.p_inter_mb_plain, a6r, k6r, "ref_sel")
+    out6r = inter.p_inter_mb(*a6r, **k6r)
+    preds_r = [inter._untiles(p.reshape(nmb, *p.shape[2:]), mb_h, mb_w)
+               for p in inter.partition_preds(*a6r[5:10], k6r["ref_sel"])]
+    record("p_inter_mb_ref2", "cuda", "x264_tpu_torch/csrc/inter.cu",
+           "x264_tpu/encoder/inter.py:425", err6r,
+           event_ms(lambda: inter.p_inter_mb(*a6r, **k6r), 10),
+           event_ms(lambda: inter.p_inter_mb_plain(*a6r, **k6r), 1),
+           nbytes(*a6r[2:10], a6r[10]["trellis_tab"], stacks["inter"], qm1,
+                  k6r["ref_sel"], *out6r.values()),
+           K6_T8_OPS_PER_MB * nmb + trellis_ops(
+               trellis_coefs(a6r[2:5], preds_r), qmfs6))
+    (a13r, k13r), = calls["rd_inter"]
+    err13r = check_ref2("K13 rd_inter", inter.rd_inter, inter.rd_inter_plain,
+                        a13r, k13r, "ref_sel")
+    it13r = a13r[5]
+    record("rd_inter_ref2", "cuda", "x264_tpu_torch/csrc/rdcost.cu",
+           "x264_tpu/encoder/inter.py:583", err13r,
+           event_ms(lambda: inter.rd_inter(*a13r, **k13r), 10),
+           event_ms(lambda: inter.rd_inter_plain(*a13r, **k13r), 1),
+           nbytes(*a13r[2:5], *it13r.values(), *a13r[6:9], k13r["ref_sel"],
+                  a13r[9]["rdtab"]) + 4 * nmb * 2
+           + nbytes(it13r["recon_y"]), K13_T8_OPS_PER_MB * nmb)
+    # K8 with the ref_idx bins and i_ref, on that front, and K2 on its
+    # ref4 (0, 1 and -1)
+    a8r = (front_r, mb_h, mb_w, 2, True, (qm1, QP))
+    a8rp = (front_r, mb_h, mb_w, True, (qm1, QP), 2)
+    maps_r, ops_r, n_r = cabac_planes.cabac_p_ops(*a8r)
+    pmaps_r, pops_r, pn_r = cabac_planes.cabac_p_ops_plain(*a8rp)
+    n_ops_r = int(pn_r)
+    if int(n_r) != n_ops_r:
+        fail(f"K8 cabac_p_ops with two references counts {int(n_r)} ops, "
+             f"its plain version {n_ops_r}")
+    err8r = max(exact("K8 cabac_p_ops maps with two references", maps_r,
+                      pmaps_r),
+                exact("K8 cabac_p_ops ops with two references",
+                      [ops_r[:n_ops_r]], [pops_r[:n_ops_r]]))
+    refs_seen = sorted(maps_r["ref4"].unique().tolist())
+    if refs_seen != [-1, 0, 1]:
+        fail(f"the two-reference ref4 holds {refs_seen}, not -1, 0 and 1")
+    record("cabac_p_ops_ref2", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+           "x264_tpu/entropy/cabac_planes.py:625", err8r,
+           event_ms(lambda: cabac_planes.cabac_p_ops(*a8r), 20),
+           event_ms(lambda: cabac_planes.cabac_p_ops_plain(*a8rp), 1),
+           nbytes(*(front_r[k] for k in keys8), front_r["ref_sel"],
+                  *maps_r.values()) + 4 * n_ops_r + 4,
+           K3_OPS_PER_OP * n_ops_r + K3_OPS_PER_MB * nmb)
+    maps2r = (maps_r["qp_eff"], im_r, maps_r["nnz4"], maps_r["ref4"],
+              maps_r["mv4"], z4, zmv, False, 0, 0, 0, maps_r["t8_mb"])
+    src_r = (front_r["recon_y"], front_r["recon_u"], front_r["recon_v"])
+    exact("K2 deblock_diag on a ref4 with 0, 1 and -1", dict(zip(
+        "yuv", deblock.deblock_frame(mb_h, mb_w, *[t.clone() for t in src_r],
+                                     *maps2r))), dict(zip(
+        "yuv", deblock.deblock_frame_plain(
+            mb_h, mb_w, *[t.clone() for t in src_r], *maps2r))))
+    # K8's pass A alone and K19 with the ref_idx bit, on the CAVLC front
+    # (no 8x8 transform, no trellis)
+    front_rc = inter.encode_p_front(
+        mb_h, mb_w, me_range, y1, u1, v1, *ref_newer, qtab_rd_aq, lam, mvp0,
+        True, (2, 1), True, True, True, True, False, qm1, ref_older)
+    pm_r = cabac_planes.p_maps(front_rc, mb_h, mb_w)
+    errpa = exact("K8 pass A alone with two references", pm_r,
+                  inter.p_maps_plain(front_rc, mb_h, mb_w))
+    pm_r["dqp"] = aq.dqp_syntax(qm1, cabac_planes.has_dqp_p(pm_r, front_rc),
+                                QP)[0]
+    a19r = (front_rc, pm_r, mb_h, mb_w, *hdr_p, cap, 2)
+    bits19r = same_words("K19 cavlc_p_slice with the ref_idx bit",
+                         cavlc.cavlc_p_slice(*a19r),
+                         cavlc.cavlc_p_slice_plain(*a19r))
+    small19r = bits19r // 64
+    same_words("K19 cavlc_p_slice with the ref_idx bit (half the bits' "
+               "capacity)",
+               cavlc.cavlc_p_slice(*a19r[:6], small19r, 2),
+               cavlc.cavlc_p_slice_plain(*a19r[:6], small19r, 2), small19r)
+    record("p_maps_ref2", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+           "x264_tpu/encoder/inter.py:754", errpa,
+           event_ms(lambda: cabac_planes.p_maps(front_rc, mb_h, mb_w), 20),
+           event_ms(lambda: inter.p_maps_plain(front_rc, mb_h, mb_w), 1),
+           nbytes(*(front_rc[k] for k in (
+               "intra_mb", "me_mv", "ptype", "mv_quad", "cbp_luma_bits",
+               "cbp_chroma", "luma_blocks", "ref_sel")), *pm_r.values()),
+           K3_OPS_PER_MB * nmb)
+    record("cavlc_p_slice_ref2", "cuda", "x264_tpu_torch/csrc/cavlc.cu",
+           "x264_tpu/entropy/device.py:505", 0,
+           event_ms(lambda: cavlc.cavlc_p_slice(*a19r), 20),
+           event_ms(lambda: cavlc.cavlc_p_slice_plain(*a19r), 1),
+           nbytes(*(front_rc[k] for k in keys19), *(
+               pm_r[k] for k in ("skip", "ptype", "mvd", "mvd1", "mvd_sub",
+                                 "dqp", "ref_idx")))
+           + (bits19r + 31) // 32 * 4 + 4,
+           K18_OPS_PER_MB * nmb + K18_OPS_PER_BIT * bits19r)
+    # K24's pass A alone and K25 on the B frame above (front_b)
+    bm_b = cabac_planes.b_maps(front_b, mb_h, mb_w)
+    errbm = exact("K24 pass A alone", bm_b,
+                  inter.b_maps_plain(front_b, mb_h, mb_w))
+    hdr_b = slots(SLICE_B)
+    a25 = (front_b, bm_b, mb_h, mb_w, *hdr_b, cap)
+    bits25 = same_words("K25 cavlc_b_slice", cavlc.cavlc_b_slice(*a25),
+                        cavlc.cavlc_b_slice_plain(*a25))
+    small25 = bits25 // 64
+    same_words("K25 cavlc_b_slice (half the bits' capacity)",
+               cavlc.cavlc_b_slice(*a25[:6], small25),
+               cavlc.cavlc_b_slice_plain(*a25[:6], small25), small25)
+    record("b_maps", "cuda", "x264_tpu_torch/csrc/cabac_ops.cu",
+           "x264_tpu/encoder/inter.py:1174", errbm,
+           event_ms(lambda: cabac_planes.b_maps(front_b, mb_h, mb_w), 20),
+           event_ms(lambda: inter.b_maps_plain(front_b, mb_h, mb_w), 1),
+           nbytes(*(front_b[k] for k in cabac_planes.B_MAPS_IN),
+                  *bm_b.values()), K3_OPS_PER_MB * nmb)
+    keys25 = ("intra_mb", "mode16", "modec", "cbp_luma_bits", "cbp_chroma",
+              "luma_dc", "luma_blocks", "chroma_dc", "chroma_ac",
+              "direct_mb", "bmode")
+    record("cavlc_b_slice", "cuda", "x264_tpu_torch/csrc/cavlc.cu",
+           "x264_tpu/entropy/device.py:631", 0,
+           event_ms(lambda: cavlc.cavlc_b_slice(*a25), 20),
+           event_ms(lambda: cavlc.cavlc_b_slice_plain(*a25), 1),
+           nbytes(*(front_b[k] for k in keys25), *(
+               bm_b[k] for k in ("skip", "use_l0", "use_l1", "mvd_l0",
+                                 "mvd_l1"))) + (bits25 + 31) // 32 * 4 + 4,
+           K18_OPS_PER_MB * nmb + K18_OPS_PER_BIT * bits25)
+    print(f"two-reference kernels: exact; {n_on1} inter MBs on L0[1], "
+          f"{n_on0} on L0[0], {int(im_r.sum())} intra; K10 "
+          f"{rec['subpel_refine_ref2']['ms']:.3f} ms over "
+          f"{len(calls['subpel_refine_blocks'])} calls, K11 "
+          f"{rec['part_fullpel_ref2']['ms']:.3f}, K12 "
+          f"{rec['chroma_rerank_ref2']['ms']:.3f}, K6 "
+          f"{rec['p_inter_mb_ref2']['ms']:.3f}, K13 "
+          f"{rec['rd_inter_ref2']['ms']:.3f}, K8 "
+          f"{rec['cabac_p_ops_ref2']['ms']:.3f} ({n_ops_r} ops), K8 pass A "
+          f"{rec['p_maps_ref2']['ms']:.3f}, K19 "
+          f"{rec['cavlc_p_slice_ref2']['ms']:.3f}; CAVLC B: K24 pass A "
+          f"{rec['b_maps']['ms']:.3f} ms, K25 {rec['cavlc_b_slice']['ms']:.3f}"
+          f" ms ({bits25} bits) [{smi_line}]", flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -2211,7 +2569,9 @@ def main() -> None:
                 "intra_in_b_decide": inter.intra_in_b_decide,
                 "intra_in_b_sweeps": inter.intra_in_b_sweeps,
                 "b_direct": inter.b_direct,
-                "cabac_b_ops": cabac_planes.cabac_b_ops}
+                "cabac_b_ops": cabac_planes.cabac_b_ops,
+                "b_maps": cabac_planes.b_maps,
+                "cavlc_b_slice": cavlc.cavlc_b_slice}
     # the kernels and branches of variance AQ, idle at constant QP
     aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
                "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
@@ -2238,7 +2598,18 @@ def main() -> None:
                 "cavlc_p_slice_aq": (cavlc.cavlc_p_slice, "launches_aq"),
                 "p_inter_mb_trellis": (inter.p_inter_mb,
                                        "launches_trellis"),
-                "deblock_diag_b": (deblock.deblock_frame, "launches_b")}
+                "deblock_diag_b": (deblock.deblock_frame, "launches_b"),
+                "subpel_refine_ref2": (me.subpel_refine_blocks,
+                                       "launches_ref2"),
+                "part_fullpel_ref2": (me.partition_fullpel, "launches_ref2"),
+                "chroma_rerank_ref2": (me.chroma_rerank, "launches_ref2"),
+                "p_inter_mb_ref2": (inter.p_inter_mb, "launches_ref2"),
+                "rd_inter_ref2": (inter.rd_inter, "launches_ref2"),
+                "cabac_p_ops_ref2": (cabac_planes.cabac_p_ops,
+                                     "launches_ref2"),
+                "p_maps_ref2": (cabac_planes.p_maps, "launches_ref2"),
+                "cavlc_p_slice_ref2": (cavlc.cavlc_p_slice,
+                                       "launches_ref2")}
     # the kernels and branches of B frames, idle without them
     b_only = ("lowres_bcost", "b_inter_mb", "intra_in_b_decide",
               "intra_in_b_sweeps", "b_direct", "cabac_b_ops",
@@ -2248,6 +2619,12 @@ def main() -> None:
     # in phase 3 alone)
     trellis_only = ("p_inter_mb_trellis",)
     standalone = ("trellis_scan",)
+    # the two-reference branches, idle with one reference, and the kernels
+    # of the CAVLC B slice, idle without B frames under CAVLC (phases
+    # 14 and 15 run them)
+    ref2_only = tuple(k for k in variants if k.endswith("_ref2"))
+    cavlc_b_only = ("b_maps", "cavlc_b_slice")
+    later = ref2_only + cavlc_b_only
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
                   scenecut: int = 0, src=None, make=None):
@@ -2269,8 +2646,8 @@ def main() -> None:
         launches = {k: w.launches for k, w in wrappers.items()}
         launches.update({k: getattr(w, count)
                          for k, (w, count) in variants.items()})
-        if make is None and any(launches[k] for k in (*variants, *aq_only,
-                                                      *cavlc_only)):
+        if make is None and any(launches[k] for k in (
+                *variants, *aq_only, *cavlc_only, *cavlc_b_only)):
             fail(f"{what}: an 8x8, AQ or CAVLC branch ran without the 8x8 "
                  f"transform, variance AQ or CAVLC")
         summary = enc.close()
@@ -2405,7 +2782,7 @@ def main() -> None:
     for k, n in launches_8.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in aq_only
                         or k in cavlc_only or k in trellis_only
-                        or k in standalone or k in b_only):
+                        or k in standalone or k in b_only or k in later):
             fail(f"kernel {k} was launched {n} times on the {what8}")
     if any(t is None for v in t8_seen.values() for t in v):
         fail(f"{what8}: a frame ran without the 8x8 transform")
@@ -2453,7 +2830,7 @@ def main() -> None:
     for k, n in launches_9.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
                         or k in trellis_only or k in standalone
-                        or k in b_only):
+                        or k in b_only or k in later):
             fail(f"kernel {k} was launched {n} times on {what9}")
     if any(d is None for v in seen9.values() for d in v):
         fail(f"{what9}: a frame ran without the mb_qp_delta planes")
@@ -2518,7 +2895,7 @@ def main() -> None:
              f"8x8 transform and I8x8")
     idle11 = set(cabac_only) | {k for k in launches_11 if "t8" in k
                                 or "i8x8" in k} | set(trellis_only) \
-        | set(standalone) | set(b_only)
+        | set(standalone) | set(b_only) | set(later)
     for k, n in launches_11.items():
         if (n <= 0) != (k in idle11):
             fail(f"kernel {k} was launched {n} times on {what11}")
@@ -2537,6 +2914,7 @@ def main() -> None:
                 f"frame {CUT}), host wait on the lookahead "
                 f"{enc.rc.lookahead_wait_s / N_DEFAULTS * 1e3:.3f} ms a frame",
                 idrs=(0, CUT), rc="CRF 23", entropy="CAVLC")
+    ph11 = dict(fps=fps, summary=summary, med=med, done=done)
     same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_CAVLC, 250,
                 what11, make=cavlc_defaults_params, frame_parallel=3)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40,
@@ -2558,7 +2936,7 @@ def main() -> None:
         fail(f"{what12}: the trellis did not open at the defaults")
     for k, n in launches_12.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
-                        or k in standalone or k in b_only):
+                        or k in standalone or k in b_only or k in later):
             fail(f"kernel {k} was launched {n} times on {what12}")
     if launches_12["p_inter_mb_trellis"] != launches_12["p_inter_mb"]:
         fail(f"{what12}: K6 ran {launches_12['p_inter_mb']} times, "
@@ -2578,6 +2956,7 @@ def main() -> None:
                 f"{ph9['psnr']:.4f} dB, SSIM {summary['ssim_y']:.6f} vs "
                 f"{ph9['ssim']:.6f}, frame QPs equal to phase 9's: "
                 f"{qps == ph9['qps']}", idrs=(0, CUT), rc="CRF 23")
+    ph12 = dict(fps=fps)
     same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250,
                 what12, make=trellis_params, frame_parallel=3)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=trellis_params,
@@ -2611,8 +2990,10 @@ def main() -> None:
              f"b-adapt 1, CRF with variance AQ, the 8x8 transform and RD")
     for k, n in launches_13.items():
         if (n <= 0) != (k == "p_inter_mb_t8_sa8d" or k in cavlc_only
-                        or k in trellis_only or k in standalone):
+                        or k in trellis_only or k in standalone
+                        or k in later):
             fail(f"kernel {k} was launched {n} times on {what13}")
+    ph13 = dict(fps=fps)
     # every b-adapt decision and seed against the plain K21's on the same
     # lowres planes
     for name, args, out in seen13:
@@ -2673,11 +3054,138 @@ def main() -> None:
     # the profiled window holds the cut and the B run after it
     device_split(x264_tpu_torch, cut, 24, 8, 6, 40, make=bframes_params,
                  tag=what13)
+    # ---- 14. x264's default preset as far as x264_tpu encodes it:
+    # --ref 3 (clamped to 2), --bframes 3 (b-adapt 1), --trellis 1, at
+    # CRF 23 with variance AQ, CABAC
+    stamp("phase 14")
+    what14 = ("x264's default preset (--ref 3 as ref 2, --bframes 3, "
+              "--trellis 1, CRF 23, variance AQ)")
+    seen14 = []
+    encode_p = pipeline.encode_p_cabac
+
+    def seen_refs(fn, seen):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            seen.append((k.get("ref2") is not None, out["ref_idx"],
+                         out.get("dqp")))
+            return out
+        return call
+
+    pipeline.encode_p_cabac = seen_refs(encode_p, seen14)
+    try:
+        done, summary, launches_14, header, fps, med, enc = main_path(
+            250, N_PRESET, what14, src=cut, make=preset_params)
+    finally:
+        pipeline.encode_p_cabac = encode_p
+    if not (enc.params.i_frame_reference == 2 and enc._bframes == 3
+            and enc._badapt and enc._trellis and enc._aq and enc._t8
+            and enc._rd and enc.pps.num_ref_idx_l0 == 2):
+        fail(f"{what14}: the preset did not open ref 2, i_bframe 3, b-adapt "
+             f"1, the trellis, AQ, the 8x8 transform and RD")
+    idle14 = set(cavlc_only) | set(cavlc_b_only) | set(standalone) | {
+        "p_inter_mb_t8_sa8d", "p_maps_ref2", "cavlc_p_slice_ref2"}
+    for k, n in launches_14.items():
+        if (n <= 0) != (k in idle14):
+            fail(f"kernel {k} was launched {n} times on {what14}")
+    ph14 = preset_report(what14, done, summary, enc, fps, med, seen14,
+                         f"phase 12 {ph12['fps']:.3f}, phase 13 "
+                         f"{ph13['fps']:.3f}")
+    # the first three frames in encode order: the IDR, the P with one
+    # reference (its header overrides the PPS's two) and the first P
+    # with two (b-adapt 1 keeps no B in the noisy first picture)
+    if [e.frame_type for e in done[:3]] != ["IDR", "P", "P"] or \
+            [r for r, _, _ in seen14[:2]] != [False, True]:
+        fail(f"{what14}: the first frames in encode order are "
+             f"{[e.frame_type for e in done[:3]]}, two references "
+             f"{[r for r, _, _ in seen14[:2]]}")
+    same_as_cpu_b(x264_tpu_torch, done, cut, header, 3, what14,
+                  preset_params)
+    # three 1080p flash frames at i_bframe 0: the third P finds the band
+    # in L0[1]
+    flash = flash_frames(W, H, 3, x264_tpu_torch.Frame)
+    seen14f = []
+    pipeline.encode_p_cabac = seen_refs(encode_p, seen14f)
+    try:
+        enc14f = x264_tpu_torch.Encoder(preset_flash_params(
+            x264_tpu_torch.EncoderParams))
+        header14f = enc14f.headers()
+        done14f, _, _ = drive(enc14f, flash)
+        enc14f.close()
+    finally:
+        pipeline.encode_p_cabac = encode_p
+    on1 = int((seen14f[-1][1] == 1).sum()) if seen14f else 0
+    if [e.frame_type for e in done14f] != ["IDR", "P", "P"] or on1 == 0:
+        fail(f"{what14} on flash frames: types "
+             f"{[e.frame_type for e in done14f]}, {on1} MBs on L0[1]")
+    same_as_cpu(x264_tpu_torch, done14f, flash, header14f, 3, 250,
+                f"{what14} at i_bframe 0 on flash frames",
+                make=preset_flash_params, frame_parallel=3)
+    print(f"{what14} at i_bframe 0 on three flash frames: {on1} of {nmb} "
+          f"MBs of the third frame on L0[1], bytes "
+          f"{[len(e.payload) for e in done14f]}", flush=True)
+    device_split(x264_tpu_torch, cut, 24, 8, 6, 40, make=preset_params,
+                 tag=what14)
+
+    # ---- 15. the same with b_cabac off: ref 2, --bframes 3 through the
+    # CAVLC B slice, no trellis, no 8x8 transform
+    stamp("phase 15")
+    what15 = ("x264's default preset with CAVLC (ref 2, --bframes 3, CRF "
+              "23, variance AQ)")
+    seen15 = []
+    encode_p = pipeline.encode_p
+    pipeline.encode_p = seen_refs(encode_p, seen15)
+    try:
+        done, summary, launches_15, header, fps, med, enc = main_path(
+            250, N_PRESET, what15, src=cut, make=preset_cavlc_params)
+    finally:
+        pipeline.encode_p = encode_p
+    if not (enc.params.i_frame_reference == 2 and enc._bframes == 3
+            and not (enc._cabac or enc._trellis or enc._t8)
+            and enc._aq and enc._rd):
+        fail(f"{what15}: the preset without CABAC did not open ref 2 and "
+             f"B frames without the trellis and the 8x8 transform")
+    idle15 = set(cabac_only) | {k for k in launches_15 if "t8" in k
+                                or "i8x8" in k} | set(trellis_only) \
+        | set(standalone)
+    for k, n in launches_15.items():
+        if (n <= 0) != (k in idle15):
+            fail(f"kernel {k} was launched {n} times on {what15}")
+    preset_report(what15, done, summary, enc, fps, med, seen15,
+                  f"phase 11 {ph11['fps']:.3f}; phase 14 "
+                  f"{ph14['fps']:.3f}, P {ph14['p']:.0f} bytes, B "
+                  f"{ph14['b']:.0f} bytes")
+    same_as_cpu_b(x264_tpu_torch, done, cut, header, 3, what15,
+                  preset_cavlc_params)
+    # an IDR, P, B run of the second picture at i_bframe 1 (as phase 13's)
+    what15b = "the CAVLC preset with i_bframe 1 on the second picture"
+
+    def preset_cavlc_b1_params(EncoderParams, frame_parallel: int = 3):
+        p = preset_cavlc_params(EncoderParams, frame_parallel)
+        p.i_bframe = 1
+        return p
+
+    enc15b = x264_tpu_torch.Encoder(preset_cavlc_b1_params(
+        x264_tpu_torch.EncoderParams))
+    header15b = enc15b.headers()
+    n25 = cavlc.cavlc_b_slice.launches
+    done15b, _, _ = drive(enc15b, cut[CUT:CUT + 3])
+    enc15b.close()
+    if [e.frame_type for e in done15b] != ["IDR", "P", "B"] or \
+            cavlc.cavlc_b_slice.launches == n25:
+        fail(f"{what15b}: frame types {[e.frame_type for e in done15b]}")
+    same_as_cpu_b(x264_tpu_torch, done15b, cut[CUT:CUT + 3], header15b, 3,
+                  what15b, preset_cavlc_b1_params)
+    device_split(x264_tpu_torch, cut, 24, 8, 6, 40,
+                 make=preset_cavlc_params, tag=what15)
     for name, r in rec.items():
         main = launches_11 if name in cavlc_only else launches_12 \
             if name in trellis_only + standalone else launches_13 \
-            if name in b_only else launches_9
+            if name in b_only else launches_15 \
+            if name in cavlc_b_only + ("p_maps_ref2", "cavlc_p_slice_ref2") \
+            else launches_14 if name in ref2_only else launches_9
         r.update(launches=main[name],
+                 launches_preset_cavlc=launches_15[name],
+                 launches_preset=launches_14[name],
                  launches_b_defaults=launches_13[name],
                  launches_trellis_defaults=launches_12[name],
                  launches_cavlc_defaults=launches_11[name],

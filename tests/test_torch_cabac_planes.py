@@ -89,8 +89,16 @@ def test_p_op_stream_matches_jax(kind, monkeypatch):
                                   tops.numpy().view(np.uint32)[:n])
     for k, t in maps.items():
         assert torch.equal(t, out[k]), k
-    with pytest.raises(NotImplementedError):        # two references
-        tcp.cabac_p_ops(front, MB_H, MB_W, n_refs=2)
+    # two active references (once refused, now open): every partition
+    # codes its ref_idx, here 0, before its mvds
+    j2, jn2 = jcp.compact_ops(
+        jcp.p_slice_ops({k: t.numpy() for k, t in out.items()}, MB_H, MB_W,
+                        2), jpipe.cabac_capacity(nmb))
+    _, t2, tn2 = tcp.cabac_p_ops(front, MB_H, MB_W, n_refs=2)
+    n2 = int(jn2)
+    assert int(tn2) == n2 > n
+    np.testing.assert_array_equal(np.asarray(j2)[:n2],
+                                  t2.numpy().view(np.uint32)[:n2])
 
     live = tops.numpy().view(np.uint32)[:n]
     code = lambda: tcabac.encode_ops(tctab.init_states(False, qp, 0), live,

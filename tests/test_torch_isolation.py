@@ -3,11 +3,11 @@ chip_smoke.py, imports jax or x264_tpu; the package imports with jax
 blocked; Encoder runs on the card by default and raises where there is
 none; wrappers never fall back from a kernel to its plain version on a
 non-CPU tensor; parameters outside the all-intra, IPPP (subme 1-9,
-scenecut lookahead, the 8x8 transform and I8x8, CABAC or CAVLC,
-constant QP, CRF or 1-pass ABR with or without variance AQ, the CABAC
-trellis) and CABAC B-frame (i_bframe 1-3, b-adapt 0 / 1 / 2) slices
-raise NotImplementedError, B frames with CAVLC naming the CAVLC B
-slice."""
+scenecut lookahead, the 8x8 transform and I8x8, one or two references,
+--ref 3 and more clamped to 2, CABAC or CAVLC, constant QP, CRF or
+1-pass ABR with or without variance AQ, the CABAC trellis) and B-frame
+(i_bframe 1-3, b-adapt 0 / 1 / 2, CABAC or CAVLC) slices raise
+NotImplementedError."""
 
 import ast
 import pathlib
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import x264_tpu_torch
+from x264_tpu_torch import log as xlog
 from x264_tpu_torch.encoder import aq, inter, intra, pipeline
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.entropy import device as cavlc_device
@@ -110,10 +111,37 @@ def test_encoder_default_device_needs_a_card():
 def test_outside_the_slice_raises(field, value):
     kw = {field: value}
     if field == "i_bframe":
-        # B frames are in the port with CABAC; CAVLC's B slice is not yet
+        # B frames with CAVLC: once outside the port, now open
         kw["b_cabac"] = False
+        _cavlc_b_opens(_params(**kw), value)
+        return
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_params(**kw), device="cpu")
+
+
+def _cavlc_b_opens(p, bframes: int) -> None:
+    """The CAVLC B slice opens: B frames queue, K25 codes them (no CABAC)."""
+    enc = x264_tpu_torch.Encoder(p, device="cpu")
+    assert enc._bframes == bframes and not enc._cabac
+    assert not enc.pps.cabac and enc.sps.num_reorder_frames == 1
+    enc.close()
+
+
+def _two_refs_open(change) -> None:
+    """--ref 2 opens, and --ref 3 clamps to 2 with x264_tpu's log line
+    (params.py:274-282); the PPS and SPS then carry two references."""
+    p = _p_params(**change, i_log_level=2)
+    lines = []
+    xlog.set_log_callback(lambda level, msg: lines.append(msg))
+    try:
+        enc = x264_tpu_torch.Encoder(p, device="cpu")
+    finally:
+        xlog.set_log_callback(None)
+    clamp = "using --ref 2 (deeper reference lists not yet implemented)"
+    assert (clamp in lines) == (change["i_frame_reference"] > 2), lines
+    assert enc.params.i_frame_reference == 2
+    assert enc.pps.num_ref_idx_l0 == 2 and enc.sps.num_ref_frames >= 2
+    enc.close()
 
 
 @pytest.mark.parametrize("keyint", [1, 250])
@@ -177,9 +205,15 @@ def test_the_trellis_slice_opens(trellis_mode, rc):
     dict(rc__i_qp_constant=0), dict(rc__i_vbv_max_bitrate=2000),
     dict(i_mb_row_shards=2)], ids=lambda c: ",".join(c))
 def test_outside_the_ippp_slice_raises(change):
+    """Outside the port's slices: raises. Two references and B frames with
+    CAVLC, once outside, now open (the cases that named them)."""
+    if "i_frame_reference" in change:
+        _two_refs_open(change)
+        return
     if "i_bframe" in change:
-        # B frames are in the port with CABAC; CAVLC's B slice is not yet
-        change = {"b_cabac": False, **change}
+        _cavlc_b_opens(_p_params(**{"b_cabac": False, **change}),
+                       change["i_bframe"])
+        return
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_p_params(**change), device="cpu")
 
@@ -199,9 +233,15 @@ def test_the_b_slice_opens(bframes, adapt):
 
 @pytest.mark.parametrize("keyint", [1, 30])
 def test_cavlc_b_frames_name_their_slice(keyint):
-    p = _p_params(i_bframe=2, b_cabac=False, i_keyint_max=keyint)
-    with pytest.raises(NotImplementedError, match="the CAVLC B slice"):
-        x264_tpu_torch.Encoder(p, device="cpu")
+    """B frames with CAVLC, once refused naming the CAVLC B slice, open;
+    _check_slice names neither that slice nor multiple references any
+    more."""
+    _cavlc_b_opens(_p_params(i_bframe=2, b_cabac=False, i_keyint_max=keyint),
+                   2)
+    import inspect
+    from x264_tpu_torch.encoder import core
+    src = inspect.getsource(core._check_slice)
+    assert "CAVLC B slice" not in src and "multiple references" not in src
 
 
 @pytest.mark.parametrize("subme,steps,chroma_me", [
@@ -547,6 +587,69 @@ def test_cavlc_wrappers_never_fall_back_off_the_cpu(name):
     any tensor that is not on the CPU."""
     with pytest.raises(ValueError, match="CUDA tensor"):
         _meta_cavlc_calls()[name]()
+
+
+def _meta_ref2_calls():
+    """The two-reference branches (K10, K11, K12, K6, K13, K8, K8's pass A
+    alone, K19's ref_idx bit), the CAVLC B slice's K25 and K24's pass A
+    alone, on tensors that are neither on the CPU nor on a card."""
+    mb_h, mb_w, H, W = 1, 2, 16, 32
+    t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
+    b = lambda *s: t(*s, dt=torch.bool)
+    g, mv = t(mb_h, mb_w), t(mb_h, mb_w, 2)
+    q = inter.make_qtab_p(26, 26, "cpu", rd_idc=0, f_psy_rd=1.0)
+    q = {k: (v.to("meta") if torch.is_tensor(v) else v)
+         for k, v in q.items()}
+    src = (t(H, W), t(H // 2, W // 2), t(H // 2, W // 2))
+    planes = t(8, H + 64, W + 64)
+    cpads = (t(2, H // 2 + 32, W // 2 + 32), t(2, H // 2 + 32, W // 2 + 32))
+    it = dict(recon_y=t(H, W), recon_u=t(H // 2, W // 2),
+              recon_v=t(H // 2, W // 2), blocks_z=t(mb_h, mb_w, 16, 16),
+              cbp=g, chroma_dc=t(mb_h, mb_w, 2, 4),
+              chroma_ac=t(mb_h, mb_w, 2, 4, 16))
+    front = dict(intra_mb=b(mb_h, mb_w), me_mv=mv, ptype=g,
+                 mv_quad=t(mb_h, mb_w, 4, 2), mode16=g, modec=g,
+                 cbp_luma_bits=g, cbp_chroma=g, luma_dc=t(mb_h, mb_w, 16),
+                 luma_blocks=t(mb_h, mb_w, 16, 16),
+                 chroma_dc=t(mb_h, mb_w, 2, 4),
+                 chroma_ac=t(mb_h, mb_w, 2, 4, 16), ref_sel=g)
+    maps = dict(skip=b(mb_h, mb_w), ptype=g, mvd=mv, mvd1=mv,
+                mvd_sub=t(mb_h, mb_w, 4, 2), ref_idx=g)
+    bfront = dict(front, direct_mb=b(mb_h, mb_w), bmode=g, r0=g, r1=g,
+                  m0=mv, m1=mv)
+    bmaps = dict(skip=b(mb_h, mb_w), use_l0=b(mb_h, mb_w),
+                 use_l1=b(mb_h, mb_w), mvd_l0=mv, mvd_l1=mv)
+    hdr = np.zeros(cavlc_device.HDR_SLOTS, np.int32)
+    from x264_tpu_torch.ops import me
+    return {
+        "K10 ref2": lambda: me.subpel_refine(src[0], planes, mv, 4, mv,
+                                             (2, 1), g),
+        "K11 ref2": lambda: me.partition_fullpel(
+            src[0], t(2, H + 64, W + 64), mv, 4, mv, 16, True, g),
+        "K12 ref2": lambda: me.chroma_rerank(src[0], planes, *src[1:],
+                                             *cpads, mv, 4, mv, g, g),
+        "K6 ref2": lambda: inter.p_inter_mb(
+            mb_h, mb_w, *src, planes, *cpads, g, t(mb_h, mb_w, 4, 2), q,
+            True, inter.T8_OFF, None, g),
+        "K13 ref2": lambda: inter.rd_inter(mb_h, mb_w, *src, it, g,
+                                           t(mb_h, mb_w, 4, 2), mv, q, g),
+        "K8 ref2": lambda: cabac_planes.cabac_p_ops(front, mb_h, mb_w, 2),
+        "K8 pass A ref2": lambda: cabac_planes.p_maps(front, mb_h, mb_w),
+        "K19 ref2": lambda: cavlc_device.cavlc_p_slice(
+            front, maps, mb_h, mb_w, hdr, hdr, 4096, 2),
+        "K24 pass A": lambda: cabac_planes.b_maps(bfront, mb_h, mb_w),
+        "K25": lambda: cavlc_device.cavlc_b_slice(bfront, bmaps, mb_h, mb_w,
+                                                  hdr, hdr, 4096),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_ref2_calls()))
+def test_ref2_and_cavlc_b_wrappers_never_fall_back_off_the_cpu(name):
+    """The wrappers' two-reference branches, K25 and K24's pass A alone
+    launch their kernel (or raise) on any tensor that is not on the
+    CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_ref2_calls()[name]()
 
 
 def test_cavlc_overflow_raises():

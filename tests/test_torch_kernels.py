@@ -13,7 +13,10 @@ with and without a QP map, and the card's Encoder with --trellis 1 and 2
 against the CPU's; K21 with one and two references and the bi candidate,
 K22's two passes, K7's B decision and sweeps, K23, K24 and K2's B rule
 (with and without the trellis), and the card's Encoder with i_bframe 3 at
-b-adapt 0, 1 and 2 against the CPU's.
+b-adapt 0, 1 and 2 against the CPU's; the two-reference branches of K10,
+K11, K12, K6, K13, K8, K8's pass A and K19, K2 on a ref4 with reference
+1, K24's pass A alone and K25, and the card's Encoder with --ref 3 / 2 and
+B frames under CABAC and CAVLC against the CPU's.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -1133,6 +1136,238 @@ def test_b_encoder_on_the_card_matches_the_cpu(card, adapt, depth, cqp,
     assert cabac_planes.cabac_b_ops.launches > n[2]
     if adapt:
         assert lookahead.lowres_bcost.launches > n[3]
+    assert kh == ph and len(kout) == len(pout) == 7 and kq == pq
+    assert "B" in [o.frame_type for o in pout]
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        assert a.display_idx == b.display_idx
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))
+    assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
+    assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5
+
+
+def _two_refs(dev, seed=9):
+    """Frame 1, its reference moved a few pixels (L0[0]) and an older one
+    (L0[1]) that holds the source's middle rows exactly, so that the real
+    per-MB choice takes both references."""
+    (y, u, v), ref, q, lam = _p_frame(dev, "inter")
+    old = [torch.roll(t, (1, -2), (0, 1)) for t in (y, u, v)]
+    rows = slice(2 * 16, 4 * 16)
+    old[0][rows] = y[rows]
+    old[1][rows.start // 2:rows.stop // 2] = u[rows.start // 2:rows.stop // 2]
+    old[2][rows.start // 2:rows.stop // 2] = v[rows.start // 2:rows.stop // 2]
+    sel = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 2, (MB_H, MB_W)), dtype=torch.int32, device=dev)
+    return (y, u, v), ref, old, sel, q, lam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t8,trellis,aq_map", [
+    (inter.T8_OFF, False, False), (inter.T8_SA8D, False, True),
+    (inter.T8_RD, True, False), (inter.T8_RD, True, True)])
+def test_ref2_kernels_match_plain(card, t8, trellis, aq_map):
+    """The two-reference branches of K10 (every block shape), K11, K12, K6
+    (with the 8x8 transform, the trellis and a QP map) and K13, on a seeded
+    reference index holding both values."""
+    (y, u, v), ref, old, sel, q, lam = _two_refs(card)
+    pads = torch.stack([mc.pad_plane(r[0]) for r in (ref, old)])
+    planes = torch.cat([mc.hpel_planes(p) for p in pads])
+    cpads = [torch.stack([mc.pad_plane(r[k], mc.PAD // 2) for r in (ref,
+                                                                     old)])
+             for k in (1, 2)]
+    mvp = _mvp(card, 5) // 8
+    mv = me.hier_search(y, pads[0], MB_H, MB_W, 16, lam, mvp)[0]
+    n10 = me.subpel_refine_blocks.launches_ref2
+    for bh, bw, offs, _ in (((16, 16, ((0, 0),), None),)
+                            + inter.PART_LAYOUTS):
+        n = len(offs)
+        ys, xs = inter._block_origins(MB_H, MB_W, offs, card)
+        s = torch.as_tensor(np.random.default_rng(bh + bw).integers(
+            0, 2, (n, MB_H, MB_W)), dtype=torch.int32, device=card)
+        args = (y, planes, mv.expand(n, MB_H, MB_W, 2).contiguous(), lam,
+                mvp.expand(n, MB_H, MB_W, 2).contiguous(), ys, xs, bh, bw,
+                (2, 1), s)
+        k, p = me.subpel_refine_blocks(*args), \
+            me.subpel_refine_blocks_plain(*args)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert me.subpel_refine_blocks.launches_ref2 == n10 + 4
+    args = (y, pads, mv, lam, mvp, 16, True, sel)
+    assert torch.equal(me.partition_fullpel(*args),
+                       me.partition_fullpel_plain(*args))
+    mv_s, satd = me.subpel_refine(y, planes, mv, lam, mvp, (2, 1), sel)
+    args = (y, planes, u, v, *cpads, mv_s, lam, mvp, satd, sel)
+    k, p = me.chroma_rerank(*args), me.chroma_rerank_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    rng = np.random.default_rng(12)
+    ptype = torch.as_tensor(rng.integers(0, 4, (MB_H, MB_W)),
+                            dtype=torch.int32, device=card)
+    mv_quad = (mv_s[:, :, None] + torch.as_tensor(
+        rng.integers(-9, 10, (MB_H, MB_W, 4, 2)), dtype=torch.int32,
+        device=card)).contiguous()
+    q = inter.make_qtab_p(26, tables.chroma_qp(26), card, rd_idc=0,
+                          f_psy_rd=1.0)
+    qp_map = None
+    if trellis:
+        q.update(inter.trellis_consts(26, tables.chroma_qp(26), 0, card))
+    if aq_map:
+        st = aq.qtab_stacks(aq.full_tables(tables.DEFAULT_QUANT, card), 0)
+        q["aq_stack_p"] = st["inter"]
+        if trellis:
+            q.update(inter.trellis_stacks(0, 0, card))
+        qp_map = torch.as_tensor(rng.integers(18, 36, (MB_H, MB_W)),
+                                 dtype=torch.int32, device=card)
+    args = (MB_H, MB_W, y, u, v, planes, *cpads, ptype, mv_quad, q, True,
+            t8, qp_map, sel)
+    n6 = inter.p_inter_mb.launches_ref2
+    k6, p6 = inter.p_inter_mb(*args), inter.p_inter_mb_plain(*args)
+    assert inter.p_inter_mb.launches_ref2 == n6 + 1
+    for key in p6:
+        assert torch.equal(k6[key], p6[key]), key
+    if t8 != inter.T8_SA8D:
+        args = (MB_H, MB_W, y, u, v, k6, ptype, mv_quad, mvp, q, sel)
+        k13, p13 = inter.rd_inter(*args), inter.rd_inter_plain(*args)
+        assert torch.equal(k13[0], p13[0]) and torch.equal(k13[1], p13[1])
+        if t8:
+            for key in p13[2]:
+                assert torch.equal(k13[2][key], p13[2][key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t8", [False, True])
+def test_ref2_maps_ops_and_words_match_plain(card, t8):
+    """encode_p_front with two references on the card against the CPU's
+    (every kernel's ref_sel branch), then K8 with its ref_idx bins, K8's
+    pass A alone and K19 with the ref_idx bit, and K2 on a ref4 that holds
+    0, 1 and -1, against their plain versions."""
+    (y, u, v), ref, old, _, q, lam = _two_refs(card)
+    q = inter.make_qtab_p(26, tables.chroma_qp(26), card, rd_idc=0,
+                          f_psy_rd=1.0)
+    mvp = _mvp(card, 5) // 8
+    kw = dict(subpel_steps=(2, 1), parts=True, p8x8=True, chroma_me=True,
+              rd=True, t8=t8, ref2=old)
+    front = inter.encode_p_front(MB_H, MB_W, 16, y, u, v, *ref, q, lam, mvp,
+                                 True, **kw)
+    cpu = lambda x: {k: t.cpu() for k, t in x.items()} if isinstance(
+        x, dict) else tuple(t.cpu() for t in x)
+    qc = {k: (t.cpu() if torch.is_tensor(t) else t) for k, t in q.items()}
+    qc["rdbits"] = {c: {n: t.cpu() for n, t in d.items()}
+                    for c, d in q["rdbits"].items()}
+    pfront = inter.encode_p_front(MB_H, MB_W, 16, *cpu((y, u, v)),
+                                  *cpu(ref), qc, lam, mvp.cpu(), True,
+                                  **dict(kw, ref2=cpu(old)))
+    assert front.keys() == pfront.keys()
+    for key in pfront:
+        assert torch.equal(front[key].cpu(), pfront[key]), key
+    sel, im = front["ref_sel"], front["intra_mb"]
+    assert bool(((sel == 1) & ~im).any()) and bool(((sel == 0) & ~im).any())
+    kmaps, kops, kn = cabac_planes.cabac_p_ops(front, MB_H, MB_W, 2, t8)
+    pmaps, pops, pn = cabac_planes.cabac_p_ops_plain(front, MB_H, MB_W, t8,
+                                                     n_refs=2)
+    n = int(pn)
+    assert int(kn) == n and torch.equal(kops[:n], pops[:n])
+    for key in pmaps:
+        assert torch.equal(kmaps[key], pmaps[key]), key
+    assert set(pmaps["ref4"].unique().tolist()) <= {-1, 0, 1}
+    assert bool((pmaps["ref4"] == 1).any())
+    z4 = torch.zeros_like(kmaps["ref4"])
+    qp_mb = torch.full((MB_H, MB_W), 30, dtype=torch.int32, device=card)
+    dargs = (qp_mb, im, kmaps["nnz4"], kmaps["ref4"], kmaps["mv4"], z4,
+             torch.zeros_like(kmaps["mv4"]), False, 0, 0, 0,
+             kmaps.get("t8_mb"))
+    src = [front[k] for k in ("recon_y", "recon_u", "recon_v")]
+    p = deblock.deblock_frame_plain(MB_H, MB_W, *src, *dargs)
+    k = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *dargs)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    if t8:
+        return
+    maps = cabac_planes.p_maps(front, MB_H, MB_W)
+    pm = inter.p_maps_plain(front, MB_H, MB_W)
+    for key in pm:
+        assert torch.equal(maps[key], pm[key]), key
+    hdr = np.zeros(cavlc_device.HDR_SLOTS, np.int32)
+    cap = pipeline.capacity_words(MB_H * MB_W)
+    for c in (cap, 40):                   # 40 words drop codes
+        kw_, kb = cavlc_device.cavlc_p_slice(front, maps, MB_H, MB_W, hdr,
+                                             hdr, c, 2)
+        pw, pb = cavlc_device.cavlc_p_slice_plain(front, maps, MB_H, MB_W,
+                                                  hdr, hdr, c, 2)
+        assert int(kb) == int(pb) and torch.equal(kw_, pw)
+    assert int(pb) > 40 * 32
+
+
+@pytest.mark.cuda
+def test_cavlc_b_kernels_match_plain(card):
+    """K24's pass A alone and K25 on the card's B front (the chain of
+    test_b_kernels_match_plain), at the full capacity and at one that
+    drops codes."""
+    ((y, u, v), l0, l1), col = _b_refs(card)
+    q = inter.make_qtab_p(26, tables.chroma_qp(26), card)
+    lam = int(tables.LAMBDA_TABLE[26])
+    seed = torch.as_tensor(np.random.default_rng(2).integers(
+        -8, 9, (MB_H, MB_W, 2)), dtype=torch.int32, device=card)
+    front = inter.encode_b_front(MB_H, MB_W, 16, y, u, v, l0, l1, q, lam,
+                                 seed, -seed, *col)
+    n0 = cabac_planes.b_maps.launches
+    maps = cabac_planes.b_maps(front, MB_H, MB_W)
+    assert cabac_planes.b_maps.launches == n0 + 1
+    pm = inter.b_maps_plain(front, MB_H, MB_W)
+    for key in pm:
+        assert torch.equal(maps[key], pm[key]), key
+    assert front["intra_mb"].any() and maps["skip"].any()
+    hdr = np.zeros(cavlc_device.HDR_SLOTS, np.int32)
+    cap = pipeline.capacity_words(MB_H * MB_W)
+    n25 = cavlc_device.cavlc_b_slice.launches
+    for c in (cap, 40):
+        kw_, kb = cavlc_device.cavlc_b_slice(front, maps, MB_H, MB_W, hdr,
+                                             hdr, c)
+        pw, pb = cavlc_device.cavlc_b_slice_plain(front, maps, MB_H, MB_W,
+                                                  hdr, hdr, c)
+        assert int(kb) == int(pb) and torch.equal(kw_, pw)
+    assert int(pb) > 40 * 32
+    assert cavlc_device.cavlc_b_slice.launches == n25 + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cabac,ref", [(True, 3), (False, 2)])
+def test_ref2_and_cavlc_b_encoder_on_the_card_matches_the_cpu(card, cabac,
+                                                              ref):
+    """--ref 3 (clamped to 2) with CABAC and the trellis, and --ref 2 with
+    CAVLC, each with one B frame (b-adapt 0) at x264_tpu's defaults, on
+    a flash sequence at 5x7 MBs; the card's frames equal the CPU's and
+    the two-reference branches and (CAVLC) K25 ran."""
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(17)
+    base = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    pat = [rng.integers(0, 256, (24, w), dtype=np.uint8) for _ in range(2)]
+    frames = []
+    for t in range(7):
+        yy = base.copy()
+        yy[16:40] = pat[(t // 2) % 2]
+        frames.append(x264_tpu_torch.Frame(
+            yy, np.full((h // 2, w // 2), 110 + t, np.uint8),
+            rng.integers(100, 140, (h // 2, w // 2), dtype=np.uint8)))
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h, i_bframe=1,
+                                         i_log_level=0, b_cabac=cabac,
+                                         i_frame_reference=ref)
+        p.i_bframe_adaptive = 0
+        p.analyse.i_trellis = int(cabac)
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs = [enc.encode(f) for f in frames]
+        outs = [o for o in outs if o is not None] + enc.flush()
+        return (enc.headers(), outs, enc.close(),
+                [e.qp for e in enc.rc.entries])
+
+    n = (inter.p_inter_mb.launches_ref2, me.subpel_refine_blocks.launches_ref2,
+         cavlc_device.cavlc_b_slice.launches)
+    (kh, kout, ksum, kq), (ph, pout, psum, pq) = run(card), run("cpu")
+    assert inter.p_inter_mb.launches_ref2 > n[0]
+    assert me.subpel_refine_blocks.launches_ref2 > n[1]
+    assert (cavlc_device.cavlc_b_slice.launches > n[2]) == (not cabac)
     assert kh == ph and len(kout) == len(pout) == 7 and kq == pq
     assert "B" in [o.frame_type for o in pout]
     for a, b in zip(kout, pout):

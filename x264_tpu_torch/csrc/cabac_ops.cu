@@ -343,6 +343,8 @@ struct PPlanes {
   const int* dqp;            // K17's mb_qp_delta; null at one QP
   const uint8_t* dqp_pnz;
   int mb_w;
+  const int* ref4;           // pass A's 4x4 L0 refs; null: one reference
+  const int* ref_idx;        // each MB's ref_idx_l0 (with ref4)
 
   __device__ int t8(int n) const { return t8_mb ? t8_mb[n] : 0; }
 
@@ -387,15 +389,17 @@ struct MvMaps {
   const int* ptype;
   const int* mv_quad;
   int mb_h, mb_w;
+  const int* ref_sel;        // each MB's reference; null: all ref 0
 
-  // the block (by4, bx4): -2 outside the frame, -1 intra, else ref 0
-  // with the MV of its 8x8 quadrant
+  // the block (by4, bx4): -2 outside the frame, -1 intra, else the MB's
+  // reference with the MV of its 8x8 quadrant
   __device__ Cell cell(int by4, int bx4) const {
     if (by4 < 0 || bx4 < 0 || by4 >= 4 * mb_h || bx4 >= 4 * mb_w) return Cell{-2, 0, 0};
     const int n = (by4 >> 2) * mb_w + (bx4 >> 2);
     if (intra[n]) return Cell{-1, 0, 0};
     const int k = 2 * ((by4 & 3) >> 1) + ((bx4 & 3) >> 1);
-    return Cell{0, mv_quad[(n * 4 + k) * 2], mv_quad[(n * 4 + k) * 2 + 1]};
+    return Cell{ref_sel ? ref_sel[n] : 0, mv_quad[(n * 4 + k) * 2],
+                mv_quad[(n * 4 + k) * 2 + 1]};
   }
   // the C slot at (r, c), or D at (rd, cd) where C is unavailable
   __device__ Cell c_or_d(int r, int c, int rd, int cd) const {
@@ -408,12 +412,13 @@ __device__ __forceinline__ int median3(int a, int b, int c) {
   return a + b + c - min(a, min(b, c)) - max(a, max(b, c));
 }
 
-// the median / count rule with i_ref 0 (mvpred.py:_predict)
-__device__ __forceinline__ Cell predict(const Cell& A, const Cell& B, const Cell& C) {
-  const int cnt = (A.ref == 0) + (B.ref == 0) + (C.ref == 0);
-  if (cnt == 1) return A.ref == 0 ? A : B.ref == 0 ? B : C;
+// the median / count rule (mvpred.py:_predict) for reference i_ref
+__device__ __forceinline__ Cell predict(const Cell& A, const Cell& B, const Cell& C,
+                                        int i_ref = 0) {
+  const int cnt = (A.ref == i_ref) + (B.ref == i_ref) + (C.ref == i_ref);
+  if (cnt == 1) return A.ref == i_ref ? A : B.ref == i_ref ? B : C;
   if (cnt == 0 && B.ref == -2 && C.ref == -2 && A.ref != -2) return A;
-  return Cell{0, median3(A.x, B.x, C.x), median3(A.y, B.y, C.y)};
+  return Cell{i_ref, median3(A.x, B.x, C.x), median3(A.y, B.y, C.y)};
 }
 
 __global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
@@ -430,7 +435,8 @@ __global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
                               int* __restrict__ mvd_sub_o,
                               int* __restrict__ mvd4, int* __restrict__ nnz4,
                               int* __restrict__ ref4, int* __restrict__ mv4,
-                              uint8_t* __restrict__ t8_mb) {
+                              uint8_t* __restrict__ t8_mb,
+                              int* __restrict__ ref_idx_o) {
   const int mb_h = M.mb_h, mb_w = M.mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= mb_h * mb_w) return;
@@ -443,39 +449,45 @@ __global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
     qx[k] = im ? 0 : M.mv_quad[(mb * 4 + k) * 2];
     qy[k] = im ? 0 : M.mv_quad[(mb * 4 + k) * 2 + 1];
   }
-  // predict_16x16 and predict_pskip
+  // the MB's reference, the i_ref of its predictions (0 on intra MBs)
+  const int ir = im || !M.ref_sel ? 0 : M.ref_sel[mb];
+  // predict_16x16 and predict_pskip (whose median is ref 0's)
   const Cell A = M.cell(gy, gx - 1), B = M.cell(gy - 1, gx);
-  const Cell p16 = predict(A, B, M.c_or_d(gy - 1, gx + 4, gy - 1, gx - 1));
+  const Cell C16 = M.c_or_d(gy - 1, gx + 4, gy - 1, gx - 1);
+  const Cell p16 = predict(A, B, C16, ir);
+  const Cell s16 = ir == 0 ? p16 : predict(A, B, C16, 0);
   const bool force0 = A.ref == -2 || B.ref == -2
       || (A.ref == 0 && A.x == 0 && A.y == 0) || (B.ref == 0 && B.x == 0 && B.y == 0);
-  const int sx = force0 ? 0 : p16.x, sy = force0 ? 0 : p16.y;
+  const int sx = force0 ? 0 : s16.x, sy = force0 ? 0 : s16.y;
   int d0x = 0, d0y = 0, d1x = 0, d1y = 0, dsx[4] = {0, 0, 0, 0}, dsy[4] = {0, 0, 0, 0};
   if (pt == 1) {             // predict_16x8
-    const Cell t = B.ref == 0 ? B : p16;
+    const Cell t = B.ref == ir ? B : p16;
     const Cell A1 = M.cell(gy + 2, gx - 1);
-    const Cell m1 = predict(A1, M.cell(gy + 1, gx), M.cell(gy + 1, gx - 1));
-    const Cell b = A1.ref == 0 ? A1 : m1;
+    const Cell m1 = predict(A1, M.cell(gy + 1, gx), M.cell(gy + 1, gx - 1), ir);
+    const Cell b = A1.ref == ir ? A1 : m1;
     d0x = qx[0] - t.x; d0y = qy[0] - t.y;
     d1x = qx[2] - b.x; d1y = qy[2] - b.y;
   } else if (pt == 2) {      // predict_8x16
-    const Cell m0 = predict(A, B, M.c_or_d(gy - 1, gx + 2, gy - 1, gx - 1));
-    const Cell l = A.ref == 0 ? A : m0;
+    const Cell m0 = predict(A, B, M.c_or_d(gy - 1, gx + 2, gy - 1, gx - 1), ir);
+    const Cell l = A.ref == ir ? A : m0;
     const Cell C1 = M.c_or_d(gy - 1, gx + 4, gy - 1, gx + 1);
-    const Cell m1 = predict(M.cell(gy, gx + 1), M.cell(gy - 1, gx + 2), C1);
-    const Cell r = C1.ref == 0 ? C1 : m1;
+    const Cell m1 = predict(M.cell(gy, gx + 1), M.cell(gy - 1, gx + 2), C1, ir);
+    const Cell r = C1.ref == ir ? C1 : m1;
     d0x = qx[0] - l.x; d0y = qy[0] - l.y;
     d1x = qx[1] - r.x; d1y = qy[1] - r.y;
   } else if (pt == 3) {      // predict_p8x8
     for (int k = 0; k < 4; ++k) {
       const int by = gy + 2 * (k >> 1), bx = gx + 2 * (k & 1);
       const Cell C = k == 3 ? M.cell(by - 1, bx - 1) : M.c_or_d(by - 1, bx + 2, by - 1, bx - 1);
-      const Cell p = predict(M.cell(by, bx - 1), M.cell(by - 1, bx), C);
+      const Cell p = predict(M.cell(by, bx - 1), M.cell(by - 1, bx), C, ir);
       dsx[k] = qx[k] - p.x; dsy[k] = qy[k] - p.y;
     }
   } else if (!im) {
     d0x = mvx - p16.x; d0y = mvy - p16.y;
   }
-  const bool sk = !im && pt == 0 && cbp[mb] == 0 && cbpc[mb] == 0 && mvx == sx && mvy == sy;
+  // P_Skip implies ref_idx 0: a ref-1 MB never skips
+  const bool sk = !im && pt == 0 && ir == 0 && cbp[mb] == 0 && cbpc[mb] == 0
+      && mvx == sx && mvy == sy;
   skip_o[mb] = sk ? 1 : 0;
   ptype_o[mb] = pt;
   mv_o[2 * mb] = mvx; mv_o[2 * mb + 1] = mvy;
@@ -496,10 +508,11 @@ __global__ void p_maps_kernel(MvMaps M, const int* __restrict__ me_mv,
     if (pt == 3) { ex = dsx[k]; ey = dsy[k]; }
     mvd4[2 * o] = sk ? 0 : ex;
     mvd4[2 * o + 1] = sk ? 0 : ey;
-    ref4[o] = im ? -1 : 0;
+    ref4[o] = im ? -1 : ir;
     mv4[2 * o] = qx[k];
     mv4[2 * o + 1] = qy[k];
   }
+  if (ref_idx_o) ref_idx_o[mb] = ir;
   const bool t8 = t8_sel && t8_sel[mb] && !im && !sk && cbp[mb] > 0;
   if (t8_mb) t8_mb[mb] = t8 ? 1 : 0;
   int n8[4] = {0, 0, 0, 0};
@@ -621,14 +634,33 @@ __global__ void p_emit_kernel(PPlanes P, int mb_h, int t8_mode,
     // ---- sub_mb_type x4: D_L0_8x8 is one '1' bin at ctx 21
     if (pt == 3)
       for (int k = 0; k < 4; ++k) E.dec(21, 1);
+    // a partition's first 4x4 block
+    const int n_parts = pt == 0 ? 1 : pt == 3 ? 4 : 2;
+    auto part_r = [&](int k) {
+      return 4 * my + (pt == 1 || pt == 3 ? 2 * (k >> (pt == 3)) : 0);
+    };
+    auto part_c = [&](int k) {
+      return 4 * mx + (pt == 2 ? 2 * k : pt == 3 ? 2 * (k & 1) : 0);
+    };
+    // ---- ref_idx_l0 per partition under two references: ctx 54 +
+    // (refA > 0) + 2 * (refB > 0) from the left / top 4x4 slots of ref4
+    // (the MB's own cells included), then a 0 at ctx 58 after a 1
+    if (P.ref4) {
+      const int W4 = 4 * mb_w, ri = P.ref_idx[mb];
+      for (int k = 0; k < n_parts; ++k) {
+        const int r = part_r(k), c = part_c(k);
+        const int ra = c > 0 && P.ref4[r * W4 + c - 1] > 0;
+        const int rb = r > 0 && P.ref4[(r - 1) * W4 + c] > 0;
+        E.dec(54 + ra + 2 * rb, ri > 0);
+        if (ri > 0) E.dec(58, 0);
+      }
+    }
     // ---- mvds per partition in syntax order; ctxInc from the left /
     // top 4x4 neighbours' |mvd| at the partition's first block
-    const int n_parts = pt == 0 ? 1 : pt == 3 ? 4 : 2;
     for (int k = 0; k < n_parts; ++k) {
       const int* d = pt == 3 ? P.mvd_sub + (mb * 4 + k) * 2
                    : k == 0 ? P.mvd + 2 * mb : P.mvd1 + 2 * mb;
-      const int r = 4 * my + (pt == 1 || pt == 3 ? 2 * (k >> (pt == 3)) : 0);
-      const int c = 4 * mx + (pt == 2 ? 2 * k : pt == 3 ? 2 * (k & 1) : 0);
+      const int r = part_r(k), c = part_c(k);
       for (int comp = 0; comp < 2; ++comp)
         emit_mvd(E, d[comp], comp ? 47 : 40,
                  P.amvd(r, c - 1, comp) + P.amvd(r - 1, c, comp));
@@ -866,19 +898,23 @@ extern "C" int cabac_i_ops(const int* mode16, const int* modec,
 
 // K8 in two calls, so that K17 can run between them under AQ: pass A,
 // then pass B with the scan and scatter
+// ref_sel: each MB's reference under two references, else null
 extern "C" int cabac_p_maps(const uint8_t* intra_mb, const int* me_mv,
                             const int* ptype, const int* mv_quad,
                             const int* cbp_luma_bits, const int* cbp_chroma,
                             const int* luma_blocks, const uint8_t* t8_sel,
-                            const int* luma8, uint8_t* skip, int* mv, int* mvd,
-                            int* mvd1, int* ptype_o, int* mv_sub, int* mvd_sub,
+                            const int* luma8, const int* ref_sel,
+                            uint8_t* skip, int* mv, int* mvd, int* mvd1,
+                            int* ptype_o, int* mv_sub, int* mvd_sub,
                             int* mvd4, int* nnz4, int* ref4, int* mv4,
-                            uint8_t* t8_mb, int mb_h, int mb_w, void* stream) {
+                            uint8_t* t8_mb, int* ref_idx, int mb_h, int mb_w,
+                            void* stream) {
   const int nmb = mb_h * mb_w;
-  MvMaps M{intra_mb, ptype, mv_quad, mb_h, mb_w};
+  MvMaps M{intra_mb, ptype, mv_quad, mb_h, mb_w, ref_sel};
   p_maps_kernel<<<(nmb + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       M, me_mv, cbp_luma_bits, cbp_chroma, luma_blocks, t8_sel, luma8, skip,
-      mv, mvd, mvd1, ptype_o, mv_sub, mvd_sub, mvd4, nnz4, ref4, mv4, t8_mb);
+      mv, mvd, mvd1, ptype_o, mv_sub, mvd_sub, mvd4, nnz4, ref4, mv4, t8_mb,
+      ref_idx);
   return (int)cudaGetLastError();
 }
 
@@ -892,6 +928,7 @@ extern "C" int cabac_p_emit(const uint8_t* intra_mb, const uint8_t* skip,
                             const int* mvd4, const int* nnz4,
                             const uint8_t* t8_mb, const int* luma8,
                             const int* dqp, const uint8_t* dqp_pnz,
+                            const int* ref4, const int* ref_idx,
                             uint32_t* scratch, int* counts, int* offsets,
                             uint32_t* ops, int mb_h, int mb_w, int t8_mode,
                             void* stream) {
@@ -899,7 +936,7 @@ extern "C" int cabac_p_emit(const uint8_t* intra_mb, const uint8_t* skip,
   const int nmb = mb_h * mb_w;
   PPlanes P{intra_mb, skip, ptype_o, mode16, modec, cbp_luma_bits, cbp_chroma,
             luma_dc, luma_blocks, chroma_dc, chroma_ac, mvd, mvd1, mvd_sub,
-            mvd4, nnz4, t8_mb, luma8, dqp, dqp_pnz, mb_w};
+            mvd4, nnz4, t8_mb, luma8, dqp, dqp_pnz, mb_w, ref4, ref_idx};
   p_emit_kernel<<<(nmb + 127) / 128, 128, 0, s>>>(P, mb_h, t8_mode, scratch,
                                                   counts);
   cudaError_t e = cudaGetLastError();
@@ -908,6 +945,24 @@ extern "C" int cabac_p_emit(const uint8_t* intra_mb, const uint8_t* skip,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scatter_kernel<<<nmb, 128, 0, s>>>(scratch, counts, offsets, ops);
+  return (int)cudaGetLastError();
+}
+
+// K24's pass A alone (the CAVLC B slice's maps)
+extern "C" int cabac_b_maps(const uint8_t* intra_mb, const uint8_t* direct_mb,
+                            const int* bmode, const int* r0, const int* r1,
+                            const int* m0, const int* m1,
+                            const int* cbp_luma_bits, const int* cbp_chroma,
+                            const int* luma_blocks, uint8_t* use_l0,
+                            uint8_t* use_l1, int* mvd_l0, int* mvd_l1,
+                            int* mvd4_l0, int* mvd4_l1, uint8_t* skip,
+                            int* nnz4, int* ref4, int* mv4, int* ref4_l1,
+                            int* mv4_l1, int mb_h, int mb_w, void* stream) {
+  const int nmb = mb_h * mb_w;
+  b_maps_kernel<<<(nmb + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      intra_mb, direct_mb, bmode, r0, r1, m0, m1, cbp_luma_bits, cbp_chroma,
+      luma_blocks, use_l0, use_l1, mvd_l0, mvd_l1, mvd4_l0, mvd4_l1, skip,
+      nnz4, ref4, mv4, ref4_l1, mv4_l1, mb_h, mb_w);
   return (int)cudaGetLastError();
 }
 

@@ -1,20 +1,24 @@
-// K18 cavlc_i_slice and K19 cavlc_p_slice: the packed CAVLC bitstream of
-// an intra slice and of a P slice (one reference), header slots, MB codes
+// K18 cavlc_i_slice, K19 cavlc_p_slice and K25 cavlc_b_slice: the packed
+// CAVLC bitstream of an intra, a P and a B slice, header slots, MB codes
 // and the rbsp stop bit, as big-endian 32-bit words.
 //
-// Replace x264_tpu/entropy/device.py:246 i16_code_planes and :379
-// p_code_planes (with :100 residual_codes, :70 _level_codes, :208
-// nc_map, :220 i4_pred_mode_codes, :57-68 ue/se_codes), each followed
-// by :565 pack_codes, as x264_tpu/encoder/pipeline.py's encode_i16_idr
-// and encode_p run them. Plain twins: x264_tpu_torch/entropy/device.py
-// cavlc_i_slice_plain / cavlc_p_slice_plain; wrappers: cavlc_i_slice /
-// cavlc_p_slice.
+// Replace x264_tpu/entropy/device.py:246 i16_code_planes, :379
+// p_code_planes (with its ref_idx bits, :505-511) and :631 b_code_planes
+// (with :100 residual_codes, :70 _level_codes, :208 nc_map, :220
+// i4_pred_mode_codes, :57-68 ue/se_codes), each followed by :565
+// pack_codes, as x264_tpu/encoder/pipeline.py's encode_i16_idr,
+// encode_p and encode_b run them. Plain twins:
+// x264_tpu_torch/entropy/device.py cavlc_i_slice_plain /
+// cavlc_p_slice_plain / cavlc_b_slice_plain; wrappers: cavlc_i_slice /
+// cavlc_p_slice / cavlc_b_slice.
 //
 // Design. The JAX version fills fixed per-MB (value, length) slot planes
 // (938 slots an MB, most of them empty) and packs them with a cumsum and
 // a scatter-add. Here each MB's live codes are produced twice by the
 // same device functions (code_i_mb / code_p_mb over a BitSink), once
-// counting and once writing, so the two passes cannot disagree:
+// counting and once writing, so the two passes cannot disagree (K25's
+// code_mb for B differs from K19's only in its header; the residual, the
+// count grids, the skip runs and the three passes are the same code):
 //   a. counts: one thread per MB writes the total_coeff of its coded luma
 //      4x4 and chroma AC blocks into frame-wide count grids (0 outside
 //      the coded cbp groups), from which every MB reads its nC;
@@ -361,7 +365,7 @@ __global__ void i_write_kernel(IPlanes P, Header H, const int* offsets,
   end(s, mb, nmb, nbits);
 }
 
-// ------------------------------------------------------------------ K19
+// ------------------------------------------------------------- K19, K25
 struct PPlanes {
   Residual R;
   const uint8_t* intra_mb;
@@ -371,29 +375,57 @@ struct PPlanes {
   const int* mvd;        // (nmb, 2)
   const int* mvd1;       // (nmb, 2)
   const int* mvd_sub;    // (nmb, 4, 2)
+  const int* ref_idx;    // each MB's ref_idx_l0; null with one reference
+};
+
+struct BPlanes {
+  Residual R;
+  const uint8_t* intra_mb;
+  const uint8_t* skip;
+  const int* cbp_c;
+  const uint8_t* direct;
+  const int* bmode;      // 0 L0, 1 L1, 2 BI (before intra and direct)
+  const uint8_t* use0;
+  const uint8_t* use1;
+  const int* mvd0;       // (nmb, 2) each list's
+  const int* mvd1;
 };
 
 // the skip MBs right before mb (the mb_skip_run a coded mb carries)
-__device__ __forceinline__ int skips_before(const PPlanes& P, int mb) {
+__device__ __forceinline__ int skips_before(const uint8_t* skip, int mb) {
   int run = 0;
-  while (mb - 1 - run >= 0 && P.skip[mb - 1 - run]) ++run;
+  while (mb - 1 - run >= 0 && skip[mb - 1 - run]) ++run;
   return run;
 }
 
+// the trailing skip run, after the last MB
 template <class S>
-__device__ void code_p_mb(S& s, const PPlanes& P, int mb, int nmb) {
+__device__ void skip_tail(S& s, const uint8_t* skip, int mb, int nmb) {
+  if (mb == nmb - 1) {
+    const int tail = skip[mb] ? 1 + skips_before(skip, mb) : 0;
+    if (tail > 0) s.ue(tail);
+  }
+}
+
+template <class S>
+__device__ void code_mb(S& s, const PPlanes& P, int mb, int nmb) {
   const Residual& R = P.R;
   if (!P.skip[mb]) {
     const int intra = P.intra_mb[mb];
     const int cbp_l = R.cbp[mb], cbp_c = P.cbp_c[mb];
     const int pt = P.ptype[mb];
     const int p8 = pt == 3;
-    s.ue(skips_before(P, mb));
+    s.ue(skips_before(P.skip, mb));
     s.ue(intra ? 6 + R.mode16[mb] + 4 * cbp_c + 12 * (cbp_l > 0) : pt);
     if (intra) s.ue(R.modec[mb]);
     if (!intra) {
       if (p8)
         for (int k = 0; k < 4; ++k) s.put(1, 1);    // sub_mb_type P_L0_8x8
+      // ref_idx_l0 te(v) of each partition, with two active references
+      // the single bit !ref, all of them before the mvds
+      if (P.ref_idx)
+        for (int k = 0; k < (p8 ? 4 : pt > 0 ? 2 : 1); ++k)
+          s.put(1 - P.ref_idx[mb], 1);
       const int* sub = P.mvd_sub + mb * 8;
       const int* m0 = p8 ? sub : P.mvd + mb * 2;
       s.se(m0[0]);
@@ -410,30 +442,59 @@ __device__ void code_p_mb(S& s, const PPlanes& P, int mb, int nmb) {
     if (intra || cbp_l > 0 || cbp_c > 0) s.se(dqp_of(R, mb));
     mb_residual(s, R, mb, cbp_l, cbp_c, intra, intra);
   }
-  if (mb == nmb - 1) {                  // the trailing skip run
-    const int tail = P.skip[mb] ? 1 + skips_before(P, mb) : 0;
-    if (tail > 0) s.ue(tail);
-  }
+  skip_tail(s, P.skip, mb, nmb);
 }
 
-__global__ void p_counts_kernel(PPlanes P, int* lcount, int* ccount) {
+// a B MB (b_code_planes): mb_type B_Direct_16x16 0, B_L0 / L1 / Bi_16x16
+// 1 / 2 / 3, I16x16 23 + its I type; the mvds of each used list;
+// mb_qp_delta 0 (B frames keep the frame QP)
+template <class S>
+__device__ void code_mb(S& s, const BPlanes& P, int mb, int nmb) {
+  const Residual& R = P.R;
+  if (!P.skip[mb]) {
+    const int intra = P.intra_mb[mb];
+    const int cbp_l = R.cbp[mb], cbp_c = P.cbp_c[mb];
+    s.ue(skips_before(P.skip, mb));
+    s.ue(intra ? 24 + R.mode16[mb] + 4 * cbp_c + 12 * (cbp_l > 0)
+         : P.direct[mb] ? 0 : min(max(P.bmode[mb], 0), 2) + 1);
+    if (intra) s.ue(R.modec[mb]);
+    if (P.use0[mb]) {
+      s.se(P.mvd0[2 * mb]);
+      s.se(P.mvd0[2 * mb + 1]);
+    }
+    if (P.use1[mb]) {
+      s.se(P.mvd1[2 * mb]);
+      s.se(P.mvd1[2 * mb + 1]);
+    }
+    if (!intra) s.ue(R.T[T_CBP_P + cbp_c * 16 + cbp_l]);
+    if (intra || cbp_l > 0 || cbp_c > 0) s.se(0);
+    mb_residual(s, R, mb, cbp_l, cbp_c, intra, intra);
+  }
+  skip_tail(s, P.skip, mb, nmb);
+}
+
+// the three passes of an inter slice (P or B), over code_mb
+template <class Planes>
+__global__ void inter_counts_kernel(Planes P, int* lcount, int* ccount) {
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= P.R.mb_h * P.R.mb_w) return;
   write_counts(P.R, lcount, ccount, mb, P.R.cbp[mb], P.cbp_c[mb],
                P.intra_mb[mb], 0);
 }
 
-__global__ void p_bits_kernel(PPlanes P, int* mb_bits) {
+template <class Planes>
+__global__ void inter_bits_kernel(Planes P, int* mb_bits) {
   const int nmb = P.R.mb_h * P.R.mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= nmb) return;
   BitSink<false> s;
-  code_p_mb(s, P, mb, nmb);
+  code_mb(s, P, mb, nmb);
   mb_bits[mb] = (int)s.pos;
 }
 
-__global__ void p_write_kernel(PPlanes P, Header H, const int* offsets,
-                               uint32_t* words, int cap, int* nbits) {
+template <class Planes>
+__global__ void inter_write_kernel(Planes P, Header H, const int* offsets,
+                                   uint32_t* words, int cap, int* nbits) {
   const int nmb = P.R.mb_h * P.R.mb_w;
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= nmb) return;
@@ -441,7 +502,7 @@ __global__ void p_write_kernel(PPlanes P, Header H, const int* offsets,
   s.words = words;
   s.cap = cap;
   begin(s, H, offsets, mb);
-  code_p_mb(s, P, mb, nmb);
+  code_mb(s, P, mb, nmb);
   end(s, mb, nmb, nbits);
 }
 
@@ -505,15 +566,40 @@ extern "C" int cavlc_p_slice(const uint8_t* intra_mb, const int* mode16,
                              const int* chroma_ac, const uint8_t* skip,
                              const int* ptype, const int* mvd,
                              const int* mvd1, const int* mvd_sub,
-                             const int* dqp, const int* tables,
-                             const int* hdr_v, const int* hdr_l, int* lcount,
-                             int* ccount, int* mb_bits, int* offsets,
-                             uint32_t* words, int* nbits, int mb_h, int mb_w,
-                             int cap, void* stream) {
+                             const int* dqp, const int* ref_idx,
+                             const int* tables, const int* hdr_v,
+                             const int* hdr_l, int* lcount, int* ccount,
+                             int* mb_bits, int* offsets, uint32_t* words,
+                             int* nbits, int mb_h, int mb_w, int cap,
+                             void* stream) {
   PPlanes P{{mode16, modec, cbp_luma_bits, luma_dc, luma_blocks, chroma_dc,
              chroma_ac, dqp, lcount, ccount, tables, mb_h, mb_w},
-            intra_mb, skip, cbp_chroma, ptype, mvd, mvd1, mvd_sub};
-  return run_slice(p_counts_kernel, p_bits_kernel, p_write_kernel, P, hdr_v,
-                   hdr_l, lcount, ccount, mb_bits, offsets, words, nbits,
-                   mb_h * mb_w, cap, (cudaStream_t)stream);
+            intra_mb, skip, cbp_chroma, ptype, mvd, mvd1, mvd_sub, ref_idx};
+  return run_slice(inter_counts_kernel<PPlanes>, inter_bits_kernel<PPlanes>,
+                   inter_write_kernel<PPlanes>, P, hdr_v, hdr_l, lcount,
+                   ccount, mb_bits, offsets, words, nbits, mb_h * mb_w, cap,
+                   (cudaStream_t)stream);
+}
+
+extern "C" int cavlc_b_slice(const uint8_t* intra_mb, const int* mode16,
+                             const int* modec, const int* cbp_luma_bits,
+                             const int* cbp_chroma, const int* luma_dc,
+                             const int* luma_blocks, const int* chroma_dc,
+                             const int* chroma_ac, const uint8_t* direct_mb,
+                             const int* bmode, const uint8_t* skip,
+                             const uint8_t* use_l0, const uint8_t* use_l1,
+                             const int* mvd_l0, const int* mvd_l1,
+                             const int* tables, const int* hdr_v,
+                             const int* hdr_l, int* lcount, int* ccount,
+                             int* mb_bits, int* offsets, uint32_t* words,
+                             int* nbits, int mb_h, int mb_w, int cap,
+                             void* stream) {
+  BPlanes P{{mode16, modec, cbp_luma_bits, luma_dc, luma_blocks, chroma_dc,
+             chroma_ac, nullptr, lcount, ccount, tables, mb_h, mb_w},
+            intra_mb, skip, cbp_chroma, direct_mb, bmode, use_l0, use_l1,
+            mvd_l0, mvd_l1};
+  return run_slice(inter_counts_kernel<BPlanes>, inter_bits_kernel<BPlanes>,
+                   inter_write_kernel<BPlanes>, P, hdr_v, hdr_l, lcount,
+                   ccount, mb_bits, offsets, words, nbits, mb_h * mb_w, cap,
+                   (cudaStream_t)stream);
 }

@@ -41,6 +41,11 @@
 // and cat 3 on the chroma DC Hadamard; the table is the frame's four
 // categories or, with a QP map, the MB's row of the 52-QP stack.
 // Everything after the quant stays as it is.
+// Two references (--ref 2; x264_tpu inter.py:425-437, mc.py:91-93 and
+// :134-145): given a per-MB reference index, the CTA's fetch reads its
+// MB's reference, the base of the half-pel stack moved by 4 planes and
+// that of the padded chroma by one plane per reference; every partition
+// carries the MB's reference, so nothing else in the kernel changes.
 //
 // K22 b_inter_mb, the inter residual of a B frame's MBs, is the same
 // kernel instantiated for a B pass (BP 1, 2). It replaces
@@ -135,8 +140,8 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     int* __restrict__ chroma_ac_o, int* __restrict__ blocks8_o,
     uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y,
     int* __restrict__ cbp8_o, const int* __restrict__ qp_map,
-    const int* __restrict__ trellis_g, int mb_h,
-    int mb_w, int n_planes, int decimate, int t8, const BArgs B) {
+    const int* __restrict__ trellis_g, const int* __restrict__ ref_sel,
+    int mb_h, int mb_w, int n_planes, int decimate, int t8, const BArgs B) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
@@ -238,6 +243,12 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
       }
     }
   } else {
+  // the MB's reference: n_planes half-pel planes and one padded chroma
+  // plane of each channel per reference
+  const int rs = ref_sel ? ref_sel[mb] : 0;
+  const int* PL = planes + (size_t)rs * n_planes * plane;
+  const int* RU = refu + (size_t)rs * Hcp * Wcp;
+  const int* RV = refv + (size_t)rs * Hcp * Wcp;
   for (int i = tid; i < 256; i += NT) {
     const int r = i >> 4, c = i & 15;
     const Part p = part_of(pt, r, c);
@@ -251,8 +262,8 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     const int ya = ds_start(iy + (fy == 3), Hp, p.bh), xa = ds_start(ix, Wp, p.bw);
     const int yb = ds_start(iy, Hp, p.bh), xb = ds_start(ix + (fx == 3), Wp, p.bw);
     const int rr = r - p.top, cc = c - p.left;
-    const int a = planes[p0 * plane + (size_t)(ya + rr) * Wp + xa + cc];
-    const int b = planes[p1 * plane + (size_t)(yb + rr) * Wp + xb + cc];
+    const int a = PL[p0 * plane + (size_t)(ya + rr) * Wp + xa + cc];
+    const int b = PL[p1 * plane + (size_t)(yb + rr) * Wp + xb + cc];
     pred[i] = (a + b + 1) >> 1;
     fenc[i] = Y[(my * 16 + r) * W + mx * 16 + c];
   }
@@ -267,7 +278,7 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     const int ctop = p.top >> 1, cleft = p.left >> 1;
     const int y0 = ds_start(my * 8 + ctop + (mvy >> 3) + CPAD, Hcp, p.bh / 2 + 1);
     const int x0 = ds_start(mx * 8 + cleft + (mvx >> 3) + CPAD, Wcp, p.bw / 2 + 1);
-    const int* R = ch ? refv : refu;
+    const int* R = ch ? RV : RU;
     const int* s = R + (y0 + r - ctop) * Wcp + x0 + c - cleft;
     pc[ch][k] = (ca * s[0] + cb * s[1] + cc * s[Wcp] + cd * s[Wcp + 1] + 32) >> 6;
     fc[ch][k] = (ch ? V : U)[(my * 8 + r) * Wc + mx * 8 + c];
@@ -481,14 +492,16 @@ extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
                           int* recon_u, int* recon_v, int* blocks_z, int* cbp,
                           int* chroma_dc, int* chroma_ac, int* blocks8,
                           uint8_t* t8_sel, int* recon8_y, int* cbp8,
-                          const int* qp_map, const int* trellis, int mb_h,
-                          int mb_w, int n_planes, int decimate, int t8,
-                          void* stream) {
+                          const int* qp_map, const int* trellis,
+                          const int* ref_sel, int mb_h, int mb_w,
+                          int n_planes, int decimate, int t8, void* stream) {
+  // ref_sel: null with one reference; else each MB's, and n_planes the
+  // half-pel planes of each reference in the stack
   inter_mb_kernel<0><<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
       recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, blocks8, t8_sel,
-      recon8_y, cbp8, qp_map, trellis, mb_h, mb_w, n_planes, decimate, t8,
-      BArgs{});
+      recon8_y, cbp8, qp_map, trellis, ref_sel, mb_h, mb_w, n_planes,
+      decimate, t8, BArgs{});
   return (int)cudaGetLastError();
 }
 
@@ -512,11 +525,11 @@ extern "C" int b_inter_mb(const int* y, const int* u, const int* v,
     inter_mb_kernel<1><<<mb_h * mb_w, NT, 0, s>>>(
         y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
         recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
-        nullptr, nullptr, nullptr, trellis, mb_h, mb_w, 4, 1, 0, B);
+        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B);
   else
     inter_mb_kernel<2><<<mb_h * mb_w, NT, 0, s>>>(
         y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
         recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
-        nullptr, nullptr, nullptr, trellis, mb_h, mb_w, 4, 1, 0, B);
+        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B);
   return (int)cudaGetLastError();
 }

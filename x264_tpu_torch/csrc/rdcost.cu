@@ -4,7 +4,9 @@
 // price the inter choice (inter.py:498-548, 568-594: rd_cost_inter from
 // rdcost.residual_bits_f8 of the luma 4x4 levels (cat 2), the chroma AC
 // (cat 4) and DC (cat 3) levels, rdcost.ssd_tiles, the psy term of
-// pixel.ac_energy, and the mode / mvd header bits), with one reference;
+// pixel.ac_energy, and the mode / ref / mvd header bits: under two
+// references a per-MB index adds one ref_idx bit a partition on
+// reference 1, inter.py:583-590);
 // with the 8x8 transform also the RD transform choice (x264_mb_analyse_
 // transform_rd: the 8x8 coding's cat-5 bits and SSD against the 4x4
 // one's). Plain twin: x264_tpu_torch/encoder/inter.py:rd_inter_plain;
@@ -56,7 +58,8 @@ __global__ void __launch_bounds__(NT) rd_inter_kernel(
     const int* __restrict__ blocks8, const int* __restrict__ cbp4,
     const int* __restrict__ cbp8, int* __restrict__ RY_o,
     int* __restrict__ blocks_z_o, int* __restrict__ cbp_o,
-    uint8_t* __restrict__ t8_sel_o, int mb_w, float lam2, float psy, int t8) {
+    uint8_t* __restrict__ t8_sel_o, const int* __restrict__ ref_sel, int mb_w,
+    float lam2, float psy, int t8) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x, W = mb_w * 16, Wc = mb_w * 8;
   __shared__ int red[NT];
@@ -128,13 +131,15 @@ __global__ void __launch_bounds__(NT) rd_inter_kernel(
     const int* q = mv_quad + mb * 8;
     const int* pv = mvp + mb * 2;
     const int pt = ptype[mb];
+    // ref_idx bits under two references: one a partition on reference 1
+    const int rb = ref_sel ? ref_sel[mb] : 0;
     int hdr;
     if (pt == 3) {
       hdr = mv_bits(q, pv) + mv_bits(q + 2, pv) + mv_bits(q + 4, pv)
-          + mv_bits(q + 6, pv) + 9;
+          + mv_bits(q + 6, pv) + 9 + 4 * rb;
     } else {
-      hdr = mv_bits(q, pv) + 4;
-      if (pt != 0) hdr += mv_bits(pt == 1 ? q + 4 : q + 2, pv) + 2;
+      hdr = mv_bits(q, pv) + 4 + rb;
+      if (pt != 0) hdr += mv_bits(pt == 1 ? q + 4 : q + 2, pv) + 2 + rb;
     }
     float luma = __fadd_rn(
         (float)sy, __fmul_rn(psy, fabsf(__fsub_rn((float)ace, (float)ce))));
@@ -177,11 +182,12 @@ extern "C" int rd_inter(const int* y, const int* u, const int* v,
                         float* cost, int* ce_psy, const int* recon8_y,
                         const int* blocks8, const int* cbp4, const int* cbp8,
                         int* recon_y_o, int* blocks_z_o, int* cbp_o,
-                        uint8_t* t8_sel_o, int mb_h, int mb_w, float lam2,
-                        float psy, int t8, void* stream) {
+                        uint8_t* t8_sel_o, const int* ref_sel, int mb_h,
+                        int mb_w, float lam2, float psy, int t8,
+                        void* stream) {
   rd_inter_kernel<<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, ry, ru, rv, blocks_z, chroma_dc, chroma_ac, ptype, mv_quad,
       mvp, rdtab, cost, ce_psy, recon8_y, blocks8, cbp4, cbp8, recon_y_o,
-      blocks_z_o, cbp_o, t8_sel_o, mb_w, lam2, psy, t8);
+      blocks_z_o, cbp_o, t8_sel_o, ref_sel, mb_w, lam2, psy, t8);
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,13 @@
 //   4x4 SATD block each (16 luma and 8 chroma per candidate; the centre's
 //   luma SATD is K10's); one thread ranks the five in order with a
 //   strict <. The returned cost is the luma SATD, as in x264_tpu.
+//   Two references (--ref 2; x264_tpu's ref_sel, me.py:245-257, :328-331,
+//   :403-408): each kernel takes a per-block (K10) or per-MB (K11, K12)
+//   reference index and the stack of both references' planes (K10 / K12
+//   the 8 half-pel planes, plane 4 * ref + p, and K12 the two padded
+//   chroma planes of each channel; K11 the two padded luma planes). The
+//   index only moves the base pointer a block reads from, so one launch
+//   serves both references; a null index reads reference 0.
 // What bounds them on the H100, at 1080p (8160 MBs): operations.
 //   K10 at (2, 1) on 16x16 blocks: 49 x 16 4x4 blocks of ~180 integer
 //   ops per MB, 1.15 G ops (~17 us at the ALU rate) against ~13 MB of
@@ -62,11 +69,13 @@ __global__ void __launch_bounds__(SP_NT) subpel_kernel(
     const int* __restrict__ cur, const int* __restrict__ planes,
     const int* __restrict__ mv, const int* __restrict__ mvp,
     const int* __restrict__ ys, const int* __restrict__ xs,
-    int* __restrict__ mv_o, int* __restrict__ satd_o, int H, int W, int bh,
-    int bw, int lam, int qpel) {
+    const int* __restrict__ ref_sel, int* __restrict__ mv_o,
+    int* __restrict__ satd_o, int H, int W, int bh, int bw, int lam,
+    int qpel) {
   const int n = blockIdx.x, tid = threadIdx.x;
   const int Hp = H + 2 * PAD, Wp = W + 2 * PAD;
   const size_t plane = (size_t)Hp * Wp;
+  const int* P = planes + (ref_sel ? 4 * ref_sel[n] * plane : 0);
   const int wy = bh + 3, wx = bw + 3;
   const int by0 = ys[n], bx0 = xs[n];
   const int mvx = mv[2 * n], mvy = mv[2 * n + 1];
@@ -84,7 +93,7 @@ __global__ void __launch_bounds__(SP_NT) subpel_kernel(
   const int x0 = ds_start(bx0 + (mvx >> 2) - 1 + PAD, Wp, wx);
   for (int i = tid; i < 4 * wy * wx; i += SP_NT) {
     const int p = i / (wy * wx), k = i % (wy * wx), r = k / wx, c = k % wx;
-    win[p][k] = planes[p * plane + (size_t)(y0 + r) * Wp + x0 + c];
+    win[p][k] = P[p * plane + (size_t)(y0 + r) * Wp + x0 + c];
   }
   for (int i = tid; i < bh * bw; i += SP_NT)
     cb[i] = cur[(size_t)(by0 + i / bw) * W + bx0 + i % bw];
@@ -145,11 +154,12 @@ constexpr int PF_M = 3, PF_N = 2 * PF_M + 1, PF_W = 16 + 2 * PF_M;
 __global__ void __launch_bounds__(PF_NT) part_kernel(
     const int* __restrict__ cur, const int* __restrict__ ref_pad,
     const int* __restrict__ mv16, const int* __restrict__ mvp,
-    int* __restrict__ out, int mb_h, int mb_w, int R, int pad, int lam,
-    int nk) {
+    const int* __restrict__ ref_sel, int* __restrict__ out, int mb_h,
+    int mb_w, int R, int pad, int lam, int nk) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w, tid = threadIdx.x;
   const int nmb = mb_h * mb_w;
   const int W = mb_w * 16, Hp = mb_h * 16 + 2 * pad, Wp = W + 2 * pad;
+  const int* ref = ref_pad + (ref_sel ? (size_t)ref_sel[mb] * Hp * Wp : 0);
   const int lim = min(R, pad - PF_M - 1);
   const int cx = min(max(mv16[2 * mb] >> 2, -lim), lim);
   const int cy = min(max(mv16[2 * mb + 1] >> 2, -lim), lim);
@@ -162,7 +172,7 @@ __global__ void __launch_bounds__(PF_NT) part_kernel(
   const int y0 = ds_start(my * 16 + cy - PF_M + pad, Hp, PF_W);
   const int x0 = ds_start(mx * 16 + cx - PF_M + pad, Wp, PF_W);
   for (int i = tid; i < PF_W * PF_W; i += PF_NT)
-    win[i] = ref_pad[(size_t)(y0 + i / PF_W) * Wp + x0 + i % PF_W];
+    win[i] = ref[(size_t)(y0 + i / PF_W) * Wp + x0 + i % PF_W];
   for (int i = tid; i < 256; i += PF_NT)
     cb[i] = cur[(size_t)(my * 16 + (i >> 4)) * W + mx * 16 + (i & 15)];
   __syncthreads();
@@ -200,13 +210,18 @@ __global__ void __launch_bounds__(CR_NT) rerank_kernel(
     const int* __restrict__ cur_u, const int* __restrict__ cur_v,
     const int* __restrict__ cu_pad, const int* __restrict__ cv_pad,
     const int* __restrict__ mv, const int* __restrict__ mvp,
-    const int* __restrict__ center_satd, int* __restrict__ mv_o,
-    int* __restrict__ satd_o, int mb_h, int mb_w, int lam) {
+    const int* __restrict__ center_satd, const int* __restrict__ ref_sel,
+    int* __restrict__ mv_o, int* __restrict__ satd_o, int mb_h, int mb_w,
+    int lam) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w, tid = threadIdx.x;
   const int W = mb_w * 16, Wc = mb_w * 8;
   const int Hp = mb_h * 16 + 2 * PAD, Wp = W + 2 * PAD;
   const int Hcp = mb_h * 8 + 2 * CPAD, Wcp = Wc + 2 * CPAD;
   const size_t plane = (size_t)Hp * Wp;
+  const int rs = ref_sel ? ref_sel[mb] : 0;
+  const int* P = planes + 4 * rs * plane;
+  const int* CU = cu_pad + (size_t)rs * Hcp * Wcp;
+  const int* CV = cv_pad + (size_t)rs * Hcp * Wcp;
   const int mvx0 = mv[2 * mb], mvy0 = mv[2 * mb + 1];
 
   __shared__ int pl[5][256];       // luma predictions (0: unused)
@@ -221,8 +236,8 @@ __global__ void __launch_bounds__(CR_NT) rerank_kernel(
     const int iy = my * 16 + (mvy >> 2) + PAD, ix = mx * 16 + (mvx >> 2) + PAD;
     const int ya = ds_start(iy + (fy == 3), Hp, 16), xa = ds_start(ix, Wp, 16);
     const int yb = ds_start(iy, Hp, 16), xb = ds_start(ix + (fx == 3), Wp, 16);
-    const int a = planes[kHpelRef0[q] * plane + (size_t)(ya + r) * Wp + xa + c];
-    const int b = planes[kHpelRef1[q] * plane + (size_t)(yb + r) * Wp + xb + c];
+    const int a = P[kHpelRef0[q] * plane + (size_t)(ya + r) * Wp + xa + c];
+    const int b = P[kHpelRef1[q] * plane + (size_t)(yb + r) * Wp + xb + c];
     pl[cand][k] = (a + b + 1) >> 1;
   }
   for (int i = tid; i < 5 * 128; i += CR_NT) {
@@ -231,7 +246,7 @@ __global__ void __launch_bounds__(CR_NT) rerank_kernel(
     const int dx = mvx & 7, dy = mvy & 7;
     const int y0 = ds_start(my * 8 + (mvy >> 3) + CPAD, Hcp, 9);
     const int x0 = ds_start(mx * 8 + (mvx >> 3) + CPAD, Wcp, 9);
-    const int* s = (ch ? cv_pad : cu_pad) + (size_t)(y0 + r) * Wcp + x0 + c;
+    const int* s = (ch ? CV : CU) + (size_t)(y0 + r) * Wcp + x0 + c;
     pc[cand][ch][k] = ((8 - dx) * (8 - dy) * s[0] + dx * (8 - dy) * s[1]
                        + (8 - dx) * dy * s[Wcp] + dx * dy * s[Wcp + 1] + 32) >> 6;
   }
@@ -291,25 +306,31 @@ __global__ void __launch_bounds__(CR_NT) rerank_kernel(
 
 }  // namespace
 
+// ref_sel (K10: one per block; K11, K12: one per MB) may be null: one
+// reference
 extern "C" int subpel_refine(const int* cur, const int* planes, const int* mv,
                              const int* mvp, const int* ys, const int* xs,
-                             int* mv_o, int* satd_o, int n, int H, int W,
-                             int bh, int bw, int lam, int qpel, void* stream) {
+                             const int* ref_sel, int* mv_o, int* satd_o,
+                             int n, int H, int W, int bh, int bw, int lam,
+                             int qpel, void* stream) {
   if (bh + 3 > SP_MAXW || bw + 3 > SP_MAXW || bh * bw > 256)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   subpel_kernel<<<n, SP_NT, 0, (cudaStream_t)stream>>>(
-      cur, planes, mv, mvp, ys, xs, mv_o, satd_o, H, W, bh, bw, lam, qpel);
+      cur, planes, mv, mvp, ys, xs, ref_sel, mv_o, satd_o, H, W, bh, bw, lam,
+      qpel);
   return (int)cudaGetLastError();
 }
 
 extern "C" int part_fullpel(const int* cur, const int* ref_pad,
-                            const int* mv16, const int* mvp, int* out,
-                            int mb_h, int mb_w, int me_range, int pad,
-                            int lam, int nk, void* stream) {
+                            const int* mv16, const int* mvp,
+                            const int* ref_sel, int* out, int mb_h, int mb_w,
+                            int me_range, int pad, int lam, int nk,
+                            void* stream) {
   if (nk != 4 && nk != 8) return (int)cudaErrorInvalidValue;
   part_kernel<<<mb_h * mb_w, PF_NT, 0, (cudaStream_t)stream>>>(
-      cur, ref_pad, mv16, mvp, out, mb_h, mb_w, me_range, pad, lam, nk);
+      cur, ref_pad, mv16, mvp, ref_sel, out, mb_h, mb_w, me_range, pad, lam,
+      nk);
   return (int)cudaGetLastError();
 }
 
@@ -317,10 +338,11 @@ extern "C" int chroma_rerank(const int* cur, const int* planes,
                              const int* cur_u, const int* cur_v,
                              const int* cu_pad, const int* cv_pad,
                              const int* mv, const int* mvp,
-                             const int* center_satd, int* mv_o, int* satd_o,
-                             int mb_h, int mb_w, int lam, void* stream) {
+                             const int* center_satd, const int* ref_sel,
+                             int* mv_o, int* satd_o, int mb_h, int mb_w,
+                             int lam, void* stream) {
   rerank_kernel<<<mb_h * mb_w, CR_NT, 0, (cudaStream_t)stream>>>(
-      cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv, mvp, center_satd, mv_o,
-      satd_o, mb_h, mb_w, lam);
+      cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv, mvp, center_satd,
+      ref_sel, mv_o, satd_o, mb_h, mb_w, lam);
   return (int)cudaGetLastError();
 }

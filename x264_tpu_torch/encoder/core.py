@@ -1,8 +1,9 @@
 """Encoder orchestration — the analogue of encoder/encoder.c, ported from
-x264_tpu/encoder/core.py for IDR and P frames, CABAC or CAVLC, and B
-frames with CABAC, at constant QP, CRF or 1-pass ABR, with or without
-variance AQ, and with or without the CABAC trellis (--trellis 1 / 2) in
-the inter residual.
+x264_tpu/encoder/core.py for IDR, P and B frames, CABAC or CAVLC, with
+one or two L0 references in the P frames (--ref 2; deeper lists clamp to
+2, as x264_tpu's validate() does), at constant QP, CRF or 1-pass ABR,
+with or without variance AQ, and with or without the CABAC trellis
+(--trellis 1 / 2) in the inter residual.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
@@ -15,7 +16,8 @@ dispatch of each frame's device work to the current CUDA stream, and the
 host tail — CABAC arithmetic coding of the device-produced op stream (or,
 under CAVLC, the device-packed slice words taken as they are), NAL
 assembly, rate control and statistics. The DPB is the deblocked
-reconstructions of the last two references (a B frame's L0 and L1), kept
+reconstructions of the last two references (a B frame's L0 and L1; with
+--ref 2 a P frame's L0[0] and L0[1], PicNum-descending), kept
 on the device with the last P's MV field, which seeds the next P frame's
 motion search, and the last reference's 4x4 L0 maps, the colocated maps
 of spatial direct.
@@ -111,24 +113,19 @@ class EncodedFrame:
         self.display_idx = display_idx
 
 
-def _check_slice(p: EncoderParams, p_frames: bool) -> None:
-    """Raise on every parameter outside this slice of the port; p_frames:
-    whether the stream will hold P frames (i_keyint_max > 1, or a forced
-    P), which this slice encodes at subme 1-9 (with the 16x8 / 8x16 /
-    P8x8 partitions, chroma ME and, at subme >= 6, the RD ladder with
-    psy-RD, where the parameters ask for them), with one reference and
+def _check_slice(p: EncoderParams) -> None:
+    """Raise on every parameter outside this slice of the port, which
+    encodes P frames at subme 1-9 (with the 16x8 / 8x16 / P8x8
+    partitions, chroma ME and, at subme >= 6, the RD ladder with psy-RD,
+    where the parameters ask for them), with one or two references and
     the scenecut lookahead or a fixed GOP, with or without the 8x8
     transform and I8x8 (which validate() turns off without CABAC), CABAC
     or CAVLC, at constant QP, CRF or 1-pass ABR, with or without
     variance AQ (VBV and 2-pass replay are refused here and by
     RateControl), with or without the CABAC trellis; and B frames
-    (i_bframe 1-3, b-adapt 0 / 1 / 2) with CABAC."""
+    (i_bframe 1-3, b-adapt 0 / 1 / 2) with CABAC or CAVLC."""
     a, rc = p.analyse, p.rc
     later = [
-        (p_frames and p.i_frame_reference >= 2,
-         "multiple references (ref >= 2)", "a later slice"),
-        (p.i_bframe > 0 and not p.b_cabac, "B frames with CAVLC",
-         "the CAVLC B slice"),
         (rc.i_rc_method == RC_CQP and rc.i_qp_constant == 0,
          "lossless (qp 0)", "a later slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
@@ -147,9 +144,9 @@ def _check_slice(p: EncoderParams, p_frames: bool) -> None:
 
 
 class Encoder:
-    """x264_encoder_open / encode / close for IDR + P frames, CABAC or
-    CAVLC, and B frames with CABAC, at constant QP, CRF or 1-pass ABR,
-    with or without variance AQ and the CABAC trellis. device:
+    """x264_encoder_open / encode / close for IDR, P (one or two
+    references) and B frames, CABAC or CAVLC, at constant QP, CRF or
+    1-pass ABR, with or without variance AQ and the CABAC trellis. device:
     "cuda" (the default, which needs a card) or "cpu", where every kernel
     runs its plain PyTorch version."""
 
@@ -163,7 +160,7 @@ class Encoder:
         self.device = torch.device(device)
         self.params = params.validate()
         p = self.params
-        _check_slice(p, p.i_keyint_max > 1)
+        _check_slice(p)
         self.rc = rcmod.RateControl(p)
         self.qt = tables.QuantTables(
             luma_deadzone_inter=p.analyse.i_luma_deadzone[0],
@@ -277,8 +274,6 @@ class Encoder:
         p = self.params
         if forced_type not in (None, "I", "IDR", "P", "B"):
             raise ValueError(f"unknown frame type {forced_type!r}")
-        if forced_type == "P":
-            _check_slice(p, True)
         planes = self._pad_input(frame)
         scenecut = False
         if self._analyse_lowres:
@@ -621,7 +616,12 @@ class Encoder:
                 t.record_stream(main)
         return out
 
-    def _slice_header(self, qp: int, slice_type: int) -> SliceHeader:
+    def _slice_header(self, qp: int, slice_type: int,
+                      n_ref_l0: int = 1) -> SliceHeader:
+        """n_ref_l0: the L0 references this slice uses; where it differs
+        from the PPS's count (the first P after an IDR, and every B slice,
+        under --ref 2) num_ref_idx_active_override says so
+        (x264_slice_header_init, encoder/encoder.c:721-727)."""
         p = self.params
         return SliceHeader(
             slice_type=slice_type, frame_num=self.frame_num,
@@ -631,30 +631,32 @@ class Encoder:
             disable_deblock=0 if p.b_deblocking_filter else 1,
             alpha_c0_offset=p.i_deblocking_filter_alphac0,
             beta_offset=p.i_deblocking_filter_beta,
-            cabac=p.b_cabac, num_ref_idx_l0=1, num_ref_idx_l1=1,
-            num_ref_idx_override=False,
+            cabac=p.b_cabac, num_ref_idx_l0=n_ref_l0, num_ref_idx_l1=1,
+            num_ref_idx_override=(slice_type != SLICE_I
+                                  and n_ref_l0 != self.pps.num_ref_idx_l0),
             log2_max_frame_num=self.sps.log2_max_frame_num,
             log2_max_poc_lsb=self.sps.log2_max_poc_lsb)
 
-    def _cabac_header(self, qp: int, slice_type: int,
-                      nal_ref_idc: int) -> bytearray:
+    def _cabac_header(self, qp: int, slice_type: int, nal_ref_idc: int,
+                      n_ref_l0: int = 1) -> bytearray:
         """Slice header bytes + cabac_alignment_one_bit (spec 7.3.4),
         built at submit time while frame_num / POC / idr_pic_id hold this
         frame's values."""
         hdr = BitWriter()
-        self._slice_header(qp, slice_type).write_rbsp(
+        self._slice_header(qp, slice_type, n_ref_l0).write_rbsp(
             hdr, nal_ref_idc=nal_ref_idc)
         pad = (-hdr.bit_pos) % 8
         if pad:
             hdr.put((1 << pad) - 1, pad)
         return bytearray(hdr.pack())
 
-    def _cavlc_header(self, qp: int, slice_type: int,
-                      nal_ref_idc: int):
-        """The slice header as the (value, length) slots K18 / K19 write
-        first (entropy/device.py:header_slots), built at submit time."""
+    def _cavlc_header(self, qp: int, slice_type: int, nal_ref_idc: int,
+                      n_ref_l0: int = 1):
+        """The slice header as the (value, length) slots K18 / K19 / K25
+        write first (entropy/device.py:header_slots), built at submit
+        time."""
         hdr = BitWriter()
-        self._slice_header(qp, slice_type).write_rbsp(
+        self._slice_header(qp, slice_type, n_ref_l0).write_rbsp(
             hdr, nal_ref_idc=nal_ref_idc)
         return edev.header_slots(hdr)
 
@@ -691,7 +693,9 @@ class Encoder:
 
     def _submit_p(self, frame: Frame, planes, qp: int) -> dict:
         """One P frame against the DPB (x264_encoder_encode P path):
-        subme 1-9, one reference, CABAC or CAVLC."""
+        subme 1-9, CABAC or CAVLC. With --ref 2, L0 = [_ref, _prev_ref]
+        (PicNum-descending) once two references exist; the first P after
+        an IDR runs with one, through the slice header's override."""
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
         y, u, v = planes
@@ -705,19 +709,22 @@ class Encoder:
         tail = (2 * p.i_deblocking_filter_alphac0,
                 2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
                 mvp_seed)
+        n_refs = 2 if (p.i_frame_reference >= 2
+                       and self._prev_ref is not None) else 1
         kw = dict(crop_w=p.i_width, crop_h=p.i_height,
                   with_metrics=self._with_metrics, decimate=self._decimate,
                   subpel_steps=self._subpel, parts=self._parts,
                   p8x8=self._p8x8, chroma_me=self._chroma_me, rd=self._rd,
-                  aq=self._aq)
+                  aq=self._aq, ref2=self._prev_ref if n_refs == 2 else None)
         pend = dict(nmb=mb_h * mb_w, slice_is_i=False, nal_type=NAL_SLICE,
                     nal_ref_idc=2)
         if self._cabac:
-            pend["hdr_bytes"] = self._cabac_header(qp, SLICE_P, 2)
+            pend["hdr_bytes"] = self._cabac_header(qp, SLICE_P, 2, n_refs)
             out = pipeline.encode_p_cabac(*args, *tail, t8=self._t8, **kw)
         else:
             out = pipeline.encode_p(
-                *args, *self._cavlc_header(qp, SLICE_P, 2), *tail, **kw)
+                *args, *self._cavlc_header(qp, SLICE_P, 2, n_refs), *tail,
+                **kw)
         self._prev_mv = out["mv"]
         pend.update(out=out, recon=self._finish_frame(out, frame))
         return pend
@@ -725,7 +732,9 @@ class Encoder:
     def _encode_b(self, frame: Frame, planes, qp: int, d0: int, span: int,
                   seeds) -> dict:
         """One non-reference B frame between _prev_ref (L0) and _ref (L1),
-        CABAC (x264_tpu's _submit_b): seeds = (L0, L1) lowres MV fields,
+        CABAC or CAVLC, one reference a list (x264_tpu's _submit_b; under
+        --ref 2 its header overrides the PPS's L0 count to one): seeds =
+        (L0, L1) lowres MV fields,
         or None for the last P's MV field scaled by d0 / span (floor
         division, as x264_tpu's); the colocated maps are _ref's L0 maps,
         all intra after an IDR."""
@@ -750,16 +759,22 @@ class Encoder:
             col_mv4 = torch.zeros((mb_h * 4, mb_w * 4, 2), dtype=torch.int32,
                                   device=self.device)
         pend = dict(nmb=mb_h * mb_w, slice_is_i=False, nal_type=NAL_SLICE,
-                    nal_ref_idc=0,
-                    hdr_bytes=self._cabac_header(qp, SLICE_B, 0))
-        out = pipeline.encode_b_cabac(
-            mb_h, mb_w, self._me_range, bool(p.b_deblocking_filter), y, u, v,
-            self._prev_ref, self._ref, self._qtab_b(qp, qp_c),
-            int(tables.LAMBDA_TABLE[qp]), qp,
-            2 * p.i_deblocking_filter_alphac0, 2 * p.i_deblocking_filter_beta,
-            p.analyse.i_chroma_qp_offset, mvp_seed, mvp_seed_l1, col_ref4,
-            col_mv4, p.i_width, p.i_height, self._with_metrics,
-            subpel_steps=self._subpel, t8=self._t8)
+                    nal_ref_idc=0)
+        args = (mb_h, mb_w, self._me_range, bool(p.b_deblocking_filter), y, u,
+                v, self._prev_ref, self._ref, self._qtab_b(qp, qp_c),
+                int(tables.LAMBDA_TABLE[qp]), qp)
+        tail = (2 * p.i_deblocking_filter_alphac0,
+                2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset,
+                mvp_seed, mvp_seed_l1, col_ref4, col_mv4, p.i_width,
+                p.i_height, self._with_metrics)
+        if self._cabac:
+            pend["hdr_bytes"] = self._cabac_header(qp, SLICE_B, 0)
+            out = pipeline.encode_b_cabac(*args, *tail,
+                                          subpel_steps=self._subpel,
+                                          t8=self._t8)
+        else:
+            out = pipeline.encode_b(*args, *self._cavlc_header(qp, SLICE_B, 0),
+                                    *tail, subpel_steps=self._subpel)
         pend.update(out=out, recon=self._finish_frame(out, frame, False))
         return pend
 

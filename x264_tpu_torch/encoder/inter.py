@@ -31,7 +31,10 @@ encoder/macroblock.c:475) is staged as x264_tpu stages it:
    mvds and the per-4x4 nnz / ref / mv / mvd maps (kernel K8's first
    pass, entropy/cabac_planes.py).
 
-This slice has one reference. The QP is the frame's or, under variance
+With --ref 2 (L0[1], the reference before the last) stage 1 runs K5
+against both references, picks each MB's reference at full-pel, and
+every later kernel fetches from it (x264_tpu's ref_sel); every partition
+of an MB carries its reference. The QP is the frame's or, under variance
 AQ, each MB's own (qp_map): K6 and K7 then read the MB's rows of the
 52-QP stacks of encoder/aq.py:qtab_stacks (K6 the inter tables, K7 the
 intra ones), while lambda and the RD tables stay the frame's. With the
@@ -298,13 +301,16 @@ def _quad(top: int, left: int) -> int:
     return 2 * (top >= 8) + (left >= 8)
 
 
-def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad):
+def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad,
+                    ref_sel=None):
     """The inter predictions of every MB (x264_mb_mc, common/macroblock.c:
     1122), as x264_tpu's stage 2 builds them: each partition of each
     layout fetched as one block (mc_luma over the half-pel stack, mc_chroma
     at half the size), the layout picked by ptype (0 16x16, 1 16x8, 2 8x16,
     3 8x8). mv_quad: (mb_h, mb_w, 4, 2) the MV of each 8x8 quadrant; a
-    partition takes the MV of its top-left quadrant. Returns (pred_y
+    partition takes the MV of its top-left quadrant. ref_sel: (mb_h, mb_w)
+    each MB's reference (every partition carries it), the planes then the
+    multi-reference stacks of mc_luma / mc_chroma. Returns (pred_y
     (mb_h,mb_w,16,16), pred_u, pred_v (mb_h,mb_w,8,8))."""
     mb_h, mb_w = ptype.shape
     ys, xs = ome.mb_origins(mb_h, mb_w, planes.device)
@@ -318,12 +324,12 @@ def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad):
         for top, left, bh, bw in rects:
             mv = mv_quad[:, :, _quad(top, left)]
             py[:, :, top:top + bh, left:left + bw] = omc.mc_luma(
-                planes, ys + top, xs + left, mv, bh, bw)
+                planes, ys + top, xs + left, mv, bh, bw, ref_sel)
             for pc, cpad in ((pu, refu_pad), (pv, refv_pad)):
                 pc[:, :, top // 2:(top + bh) // 2,
                    left // 2:(left + bw) // 2] = omc.mc_chroma(
                     cpad, (ys + top) >> 1, (xs + left) >> 1, mv, bh // 2,
-                    bw // 2)
+                    bw // 2, ref_sel)
         if out is None:
             out = [py, pu, pv]
         else:
@@ -335,7 +341,7 @@ def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad):
 
 def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
                      refv_pad, ptype, mv_quad, qtab, decimate: bool,
-                     t8: int = T8_OFF, qp_map=None):
+                     t8: int = T8_OFF, qp_map=None, ref_sel=None):
     """Plain version of K6: stage 2 of encode_p_body.
 
     y / u / v: the MB-aligned source planes; planes: the (P, Hp, Wp)
@@ -354,7 +360,9 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
     blocks8_z, recon8_y (the 8x8 coding's plane) and cbp8, recon_y /
     blocks_z / cbp staying the 4x4 coding's. qp_map: (mb_h, mb_w) per-MB
     QPs (variance AQ), each MB's inter tables then the rows of qtab's
-    "aq_stack_p"."""
+    "aq_stack_p". ref_sel: (mb_h, mb_w) each MB's reference under two
+    references, planes / refu_pad / refv_pad then partition_preds'
+    stacks."""
     nK = mb_h * mb_w
     if qp_map is not None:
         qtab = mb_rows(qtab, qp_map, True)
@@ -365,7 +373,8 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
             qtab.update(trellis_qp=rows,
                         trellis_qpc=qtab["trellis_qpc_of"][rows])
     preds = [p.reshape(nK, *p.shape[2:]) for p in
-             partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad)]
+             partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad,
+                             ref_sel)]
     pred_y, preds_c = preds[0], preds[1:]
     fenc_c = [_tiles(u, 8), _tiles(v, 8)]
     fenc = _tiles(y, 16)
@@ -410,7 +419,7 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
 
 def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
                ptype, mv_quad, qtab, decimate: bool, t8: int = T8_OFF,
-               qp_map=None):
+               qp_map=None, ref_sel=None):
     """K6 `p_inter_mb`: the inter residual path of every MB.
 
     Replaces x264_tpu/ops/mc.py:mc_luma and mc_chroma (the partitioned
@@ -419,23 +428,31 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
     inter_luma_residual8 and the SA8D transform choice (t8) and the
     chroma half of stage 2, with per-MB tables under a QP map. On CUDA
     tensors it runs csrc/inter.cu, one CTA per MB over the whole frame in
-    one launch; on CPU tensors the plain version. Arguments and results
+    one launch (under two references each CTA fetches from its MB's
+    reference); on CPU tensors the plain version. Arguments and results
     as p_inter_mb_plain."""
     if y.device.type == "cpu":
         return p_inter_mb_plain(mb_h, mb_w, y, u, v, planes, refu_pad,
                                 refv_pad, ptype, mv_quad, qtab, decimate, t8,
-                                qp_map)
+                                qp_map, ref_sel)
     dev = y.device
     H, W, P = mb_h * 16, mb_w * 16, omc.PAD
     n_planes = planes.shape[0]
-    for t, shape, name in (
-            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
-            (v, (H // 2, W // 2), "v"),
-            (planes, (n_planes, H + 2 * P, W + 2 * P), "planes"),
-            (refu_pad, (H // 2 + P, W // 2 + P), "refu_pad"),
-            (refv_pad, (H // 2 + P, W // 2 + P), "refv_pad"),
-            (ptype, (mb_h, mb_w), "ptype"),
-            (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad")):
+    cshape = (H // 2 + P, W // 2 + P)
+    checks = [(y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+              (v, (H // 2, W // 2), "v"),
+              (planes, (n_planes, H + 2 * P, W + 2 * P), "planes"),
+              (ptype, (mb_h, mb_w), "ptype"),
+              (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad")]
+    if ref_sel is not None:
+        # the stacks of both references: 4 half-pel planes each
+        if n_planes != 8:
+            raise ValueError("p_inter_mb: two references take the 8 "
+                             "half-pel planes of both")
+        n_planes, cshape = 4, (2,) + cshape
+        checks.append((ref_sel, (mb_h, mb_w), "ref_sel"))
+    checks += [(refu_pad, cshape, "refu_pad"), (refv_pad, cshape, "refv_pad")]
+    for t, shape, name in checks:
         cuda.check(t, shape, I32, name)
     e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
     o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
@@ -463,15 +480,17 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
         cuda.check(trellis, (K6_TRELLIS_INTS,) if qp_map is None
                    else (52, K6_TRELLIS_INTS), I32, "trellis_tab")
     ins = (y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, tab)
-    cuda.launch("inter", "p_inter_mb", "p" * 22 + "iiiii" + "p",
+    cuda.launch("inter", "p_inter_mb", "p" * 23 + "iiiii" + "p",
                 *[t.data_ptr() for t in ins],
                 *[ptr(k) for k in ("recon_y", "recon_u", "recon_v",
                                    "blocks_z", "cbp", "chroma_dc",
                                    "chroma_ac", "blocks8_z", "t8_sel",
                                    "recon8_y", "cbp8")],
-                qp_ptr, 0 if trellis is None else trellis.data_ptr(), mb_h,
+                qp_ptr, 0 if trellis is None else trellis.data_ptr(),
+                0 if ref_sel is None else ref_sel.data_ptr(), mb_h,
                 mb_w, n_planes, int(decimate), int(t8), cuda.stream(dev))
     p_inter_mb.launches += 1
+    p_inter_mb.launches_ref2 += int(ref_sel is not None)
     p_inter_mb.launches_trellis += int(trellis is not None)
     p_inter_mb.launches_t8_sa8d += int(t8 == T8_SA8D)
     p_inter_mb.launches_t8_rd += int(t8 == T8_RD)
@@ -479,33 +498,37 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
     return o
 
 
-# launches, and those of them in each t8 mode, with a QP map and with the
-# trellis
+# launches, and those of them in each t8 mode, with a QP map, with the
+# trellis and with two references
 p_inter_mb.launches = p_inter_mb.launches_t8_sa8d = \
     p_inter_mb.launches_t8_rd = p_inter_mb.launches_aq = \
-    p_inter_mb.launches_trellis = 0
+    p_inter_mb.launches_trellis = p_inter_mb.launches_ref2 = 0
 
 
 # ---------------------------------------------------------------- K13
-def header_bits(ptype, mv_quad, mvp_seed):
+def header_bits(ptype, mv_quad, mvp_seed, ref_sel=None):
     """The RD ladder's mode / ref / mvd header bits of each MB's inter
-    choice (one reference: no ref_idx bits): the mvd bits of the first
+    choice (x264_tpu inter.py:583-590): the mvd bits of the first
     partition (quadrant 0's MV) + 4, and for 16x8 / 8x16 those of the
-    second (quadrant 2 / quadrant 1) + 2; P8x8 the four quadrants' + 9."""
+    second (quadrant 2 / quadrant 1) + 2; P8x8 the four quadrants' + 9.
+    ref_sel: each MB's reference under two references, whose ref_idx
+    costs one bit a partition on reference 1 (ref_bits)."""
+    rb = 0 if ref_sel is None else ref_sel
     bits = lambda k: ome.mv_cost_bits(mv_quad[:, :, k], mvp_seed)
     p1 = torch.where((ptype == 1)[..., None], mv_quad[:, :, 2],
                      mv_quad[:, :, 1])
-    hdr = bits(0) + 4 + torch.where(
-        ptype != 0, ome.mv_cost_bits(p1, mvp_seed) + 2, 0)
-    return torch.where(ptype == 3, bits(0) + bits(1) + bits(2) + bits(3) + 9,
-                       hdr).to(I32)
+    hdr = bits(0) + 4 + rb + torch.where(
+        ptype != 0, ome.mv_cost_bits(p1, mvp_seed) + 2 + rb, 0)
+    return torch.where(ptype == 3, bits(0) + bits(1) + bits(2) + bits(3) + 9
+                       + 4 * rb, hdr).to(I32)
 
 
 def rd_inter_plain(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
-                   mvp_seed, qtab):
+                   mvp_seed, qtab, ref_sel=None):
     """Plain version of K13: the whole-MB inter RD cost of the RD ladder
     (x264_rd_cost_mb, encoder/rdo.c:139), as x264_tpu's encode_p_body
-    builds rd_cost_inter (inter.py:498-548, 568-594) with one reference.
+    builds rd_cost_inter (inter.py:498-548, 568-594); ref_sel, each MB's
+    reference under two references, adds its ref_idx bits to the header.
 
     it: K6's outputs (recon_y / _u / _v, blocks_z, cbp, chroma_dc,
     chroma_ac; with the 8x8 transform, K6 at T8_RD, also recon8_y,
@@ -561,7 +584,7 @@ def rd_inter_plain(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
                                   rb["cat3"]).reshape(nK, 2).sum(-1)
     chroma_ssd = (ordc.ssd_tiles(_tiles(u, 8), _tiles(it["recon_u"], 8))
                   + ordc.ssd_tiles(_tiles(v, 8), _tiles(it["recon_v"], 8)))
-    hdr = header_bits(ptype, mv_quad, mvp_seed).reshape(nK)
+    hdr = header_bits(ptype, mv_quad, mvp_seed, ref_sel).reshape(nK)
     cost = (ssd + chroma_ssd) \
         + lam2 * (((f(bits) + f(cbits)) + f(cdcb)) + 256.0 * f(hdr))
     out = (cost.reshape(mb_h, mb_w), ce_psy.reshape(mb_h, mb_w))
@@ -569,7 +592,7 @@ def rd_inter_plain(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
 
 
 def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
-             mvp_seed, qtab):
+             mvp_seed, qtab, ref_sel=None):
     """K13 `rd_inter`: the inter RD cost of every MB.
 
     Replaces the RD stages of x264_tpu/encoder/inter.py:encode_p_body
@@ -582,7 +605,7 @@ def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
     tensors the plain version. Arguments and results as rd_inter_plain."""
     if y.device.type == "cpu":
         return rd_inter_plain(mb_h, mb_w, y, u, v, it, ptype, mv_quad,
-                              mvp_seed, qtab)
+                              mvp_seed, qtab, ref_sel)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
     t8 = "recon8_y" in it
@@ -598,6 +621,8 @@ def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
         (mv_quad, (mb_h, mb_w, 4, 2), "mv_quad"),
         (mvp_seed, (mb_h, mb_w, 2), "mvp_seed"),
         (qtab["rdtab"], (ordc.RD_CATS * ordc.RD_CAT_STRIDE,), "rdtab")]
+    if ref_sel is not None:
+        checks.append((ref_sel, (mb_h, mb_w), "ref_sel"))
     if t8:
         checks += [(it["recon8_y"], (H, W), "recon8_y"),
                    (it["blocks8_z"], (mb_h, mb_w, 4, 64), "blocks8_z"),
@@ -624,17 +649,20 @@ def rd_inter(mb_h: int, mb_w: int, y, u, v, it: dict, ptype, mv_quad,
     else:
         t8_ptrs = [0] * 8
     # psy off runs as psy 0: ssd4 + 0 * |...| is ssd4 exactly
-    cuda.launch("rdcost", "rd_inter", "p" * 23 + "iiffi" + "p",
-                *[t.data_ptr() for t in ins], *t8_ptrs, mb_h, mb_w,
+    cuda.launch("rdcost", "rd_inter", "p" * 24 + "iiffi" + "p",
+                *[t.data_ptr() for t in ins], *t8_ptrs,
+                0 if ref_sel is None else ref_sel.data_ptr(), mb_h, mb_w,
                 qtab["rd_lam2"], 0.0 if psy is None else psy, int(t8),
                 cuda.stream(dev))
     rd_inter.launches += 1
     rd_inter.launches_t8 += int(bool(t8))
+    rd_inter.launches_ref2 += int(ref_sel is not None)
     return (cost, ce_psy, choice) if t8 else (cost, ce_psy)
 
 
-# launches, and those of them with the transform choice
-rd_inter.launches = rd_inter.launches_t8 = 0
+# launches, and those of them with the transform choice and with two
+# references
+rd_inter.launches = rd_inter.launches_t8 = rd_inter.launches_ref2 = 0
 
 
 # ---------------------------------------------------------------- K7
@@ -872,24 +900,33 @@ PART_TYPE_BITS = (3, 3, 9)
 
 
 def partition_search(y, ref_pad, planes, mv_fp, mv16, cost16, lam: int,
-                     mvp_seed, me_range: int, steps, p8x8: bool):
+                     mvp_seed, me_range: int, steps, p8x8: bool,
+                     ref_sel=None):
     """Stage 1b (inter_p16x8 / p8x16 / p8x8, encoder/analyse.c:1222-1404):
     the full-pel window search of the partitions (K11), one batched
     sub-pel refinement per layout (K10), and each MB's partition type of
-    least cost among [16x16, 16x8, 8x16, 8x8]. Returns (ptype, cost_inter,
-    mv_quad (mb_h, mb_w, 4, 2) the MV of each 8x8 quadrant)."""
+    least cost among [16x16, 16x8, 8x16, 8x8]. ref_sel: each MB's
+    reference under two references (ref_pad / planes then the stacks of
+    both), which every partition of the MB carries and pays one ref_idx
+    bit for on reference 1. Returns (ptype, cost_inter, mv_quad (mb_h,
+    mb_w, 4, 2) the MV of each 8x8 quadrant)."""
     mb_h, mb_w = mv_fp.shape[:2]
     pf = ome.partition_fullpel(y, ref_pad, mv_fp, lam, mvp_seed, me_range,
-                               p8x8)
+                               p8x8, ref_sel)
     costs, mvs = [cost16], []
     for (bh, bw, offs, (a, b)), extra in zip(
             PART_LAYOUTS[:3 if p8x8 else 2], PART_TYPE_BITS):
+        n = len(offs)
         ys, xs = _block_origins(mb_h, mb_w, offs, y.device)
-        mvp = mvp_seed.expand(len(offs), mb_h, mb_w, 2).contiguous()
+        mvp = mvp_seed.expand(n, mb_h, mb_w, 2).contiguous()
+        sel = None if ref_sel is None \
+            else ref_sel.expand(n, mb_h, mb_w).contiguous()
         mv, satd = ome.subpel_refine_blocks(y, planes, pf[a:b], lam, mvp,
-                                            ys, xs, bh, bw, steps)
-        costs.append(satd.sum(0, dtype=I32) + lam * (
-            ome.mv_cost_bits(mv, mvp).sum(0, dtype=I32) + extra))
+                                            ys, xs, bh, bw, steps, sel)
+        bits = ome.mv_cost_bits(mv, mvp).sum(0, dtype=I32) + extra
+        if ref_sel is not None:
+            bits = bits + n * ref_sel
+        costs.append(satd.sum(0, dtype=I32) + lam * bits)
         mvs.append(mv)
     costs = torch.stack(costs)
     ptype = costs.argmin(0).to(I32)
@@ -937,7 +974,7 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                    ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
                    chroma_me: bool = False, rd: bool = False,
-                   t8: bool = False, qp_map=None) -> dict:
+                   t8: bool = False, qp_map=None, ref2=None) -> dict:
     """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6,
     K13 (under rd) and K7, and the merges of stage 4 (plain tensor glue).
     All planes int32 and MB-aligned; ref_* the deblocked reference
@@ -952,37 +989,63 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     quadrant MVs; with t8 also t8_sel (each MB's transform choice) and
     luma8_z (the 8x8 coding's levels of every MB). qp_map: per-MB QPs
     (variance AQ) for K6 and K7, qtab then holding the 52-QP stacks
-    "aq_stack_p" and "aq_stack"."""
+    "aq_stack_p" and "aq_stack". ref2: the older reference L0[1] as (y,
+    u, v) for two references (x264_tpu's n_refs=2, inter.py:275-292): K5
+    runs against each, each MB takes the reference of least SAD + lambda *
+    (MV bits + its ref_idx bit) at full-pel (ties stay on reference 0),
+    and every later kernel fetches from the MB's reference (the result's
+    ref_sel, (mb_h, mb_w) int32)."""
     ref_pad = omc.pad_plane(ref_y.to(I32))
     refu_pad = omc.pad_plane(ref_u.to(I32), omc.PAD // 2)
     refv_pad = omc.pad_plane(ref_v.to(I32), omc.PAD // 2)
     mv_fp, sad = ome.hier_search(y, ref_pad, mb_h, mb_w, me_range, lam,
                                  mvp_seed)
+    sel, ref_bits = None, 0
+    if ref2 is not None:
+        ref2_pad = omc.pad_plane(ref2[0].to(I32))
+        mv_fp2, sad2 = ome.hier_search(y, ref2_pad, mb_h, mb_w, me_range,
+                                       lam, mvp_seed)
+        c_r0 = sad + lam * ome.mv_cost_bits(mv_fp, mvp_seed)
+        c_r1 = sad2 + lam * (ome.mv_cost_bits(mv_fp2, mvp_seed) + 1)
+        sel = ref_bits = (c_r1 < c_r0).to(I32)
+        mv_fp = torch.where((sel == 1)[..., None], mv_fp2, mv_fp)
+        sad = torch.where(sel == 1, sad2, sad)
+        # the stacks both references are read through
+        refu_pad, refv_pad = (
+            torch.stack([c, omc.pad_plane(r.to(I32), omc.PAD // 2)])
+            for c, r in ((refu_pad, ref2[1]), (refv_pad, ref2[2])))
+        ref_pad = torch.stack([ref_pad, ref2_pad])
+    if subpel_steps or sel is not None:
+        planes = omc.hpel_planes(ref_pad) if sel is None else torch.cat(
+            [omc.hpel_planes(ref_pad[0]), omc.hpel_planes(ref_pad[1])])
+    else:          # subme 1, one reference: full-pel only, plane 0 alone
+        planes = ref_pad[None]
     if subpel_steps:
-        planes = omc.hpel_planes(ref_pad)
         mv, satd = ome.subpel_refine(y, planes, mv_fp, lam, mvp_seed,
-                                     subpel_steps)
+                                     subpel_steps, sel)
         if chroma_me:
             mv, satd = ome.chroma_rerank(y, planes, u, v, refu_pad,
-                                         refv_pad, mv, lam, mvp_seed, satd)
-    else:          # subme 1: full-pel only, plane 0 alone
-        planes, mv, satd = ref_pad[None], mv_fp, sad
-    cost16 = satd + lam * (ome.mv_cost_bits(mv, mvp_seed) + 1)
+                                         refv_pad, mv, lam, mvp_seed, satd,
+                                         sel)
+    else:
+        mv, satd = mv_fp, sad
+    cost16 = satd + lam * (ome.mv_cost_bits(mv, mvp_seed) + 1 + ref_bits)
     if parts and subpel_steps:
         ptype, cost_inter, mv_quad = partition_search(
             y, ref_pad, planes, mv_fp, mv, cost16, lam, mvp_seed, me_range,
-            subpel_steps, p8x8)
+            subpel_steps, p8x8, sel)
     else:
         ptype = torch.zeros((mb_h, mb_w), dtype=I32, device=y.device)
         cost_inter = cost16
         mv_quad = mv[:, :, None].expand(mb_h, mb_w, 4, 2).contiguous()
     it = p_inter_mb(mb_h, mb_w, y, u, v, planes, refu_pad, refv_pad, ptype,
                     mv_quad, qtab, decimate,
-                    (T8_RD if rd else T8_SA8D) if t8 else T8_OFF, qp_map)
+                    (T8_RD if rd else T8_SA8D) if t8 else T8_OFF, qp_map,
+                    ref_sel=sel)
     rd_costs = None
     if rd:
         rd_costs = rd_inter(mb_h, mb_w, y, u, v, it, ptype, mv_quad,
-                            mvp_seed, qtab)
+                            mvp_seed, qtab, ref_sel=sel)
         if t8:                 # the RD choice between the two codings
             it = {**it, **rd_costs[2]}
             rd_costs = rd_costs[:2]
@@ -993,6 +1056,8 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                mv_quad=mv_quad)
     if t8:
         out.update(t8_sel=it["t8_sel"], luma8_z=it["blocks8_z"])
+    if sel is not None:
+        out["ref_sel"] = sel
     return out
 
 
@@ -1000,14 +1065,17 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
     """Stage 4's syntax maps (plain half of kernel K8's first pass): the
     final per-4x4 ref / mv maps (intra: ref -1, mv 0), exact MV
     prediction on them (predict_16x16, predict_pskip and, per partition,
-    predict_16x8 / predict_8x16 / predict_p8x8), P_Skip (ptype 0 only),
+    predict_16x8 / predict_8x16 / predict_p8x8, each with the MB's own
+    reference as i_ref), P_Skip (ptype 0 on reference 0 only),
     the mvds (mvd, mvd1 of the second 16x8 / 8x16 partition, mvd_sub of
     the 8x8 sub-blocks) and their per-4x4 map (0 on skip and intra MBs),
     and the nnz map the deblocker and the cbf contexts read. With the 8x8
     transform (front holds t8_sel and luma8_z) also t8_mb, the effective
     map: the 8x8 choice of inter MBs that are not skipped and have coded
     luma (an MB without coded luma decodes as 4x4); each 4x4 cell of such
-    an MB carries its 8x8 block's count in nnz4."""
+    an MB carries its 8x8 block's count in nnz4. Under two references
+    (front holds ref_sel) ref_idx is each MB's reference (0 on intra MBs)
+    and ref4 carries it."""
     dev = front["intra_mb"].device
     im = front["intra_mb"]
     im1, im2 = im[..., None], im[..., None, None]
@@ -1015,14 +1083,17 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
     mv = torch.where(im1, 0, front["me_mv"]).to(I32)
     mvq = torch.where(im2, 0, front["mv_quad"]).to(I32)
     rep = lambda t: t.repeat_interleave(4, 0).repeat_interleave(4, 1)
-    ref4 = rep(torch.where(im, -1, 0).to(I32))
+    ref_idx = torch.zeros((mb_h, mb_w), dtype=I32, device=dev)
+    if "ref_sel" in front:
+        ref_idx = torch.where(im, 0, front["ref_sel"]).to(I32)
+    ref4 = rep(torch.where(im, -1, ref_idx).to(I32))
     quad = torch.as_tensor(QUAD_OF_CELL, device=dev).long()
     mv4 = mvq[:, :, quad].transpose(1, 2).reshape(mb_h * 4, mb_w * 4, 2)
-    mvp16 = mvpred.predict_16x16(ref4, mv4)
+    mvp16 = mvpred.predict_16x16(ref4, mv4, ref_idx)
     mv_skip = mvpred.predict_pskip(ref4, mv4)
-    mvp_t, mvp_b = mvpred.predict_16x8(ref4, mv4)
-    mvp_l, mvp_r = mvpred.predict_8x16(ref4, mv4)
-    mvp_sub = torch.stack(mvpred.predict_p8x8(ref4, mv4), 2)
+    mvp_t, mvp_b = mvpred.predict_16x8(ref4, mv4, ref_idx)
+    mvp_l, mvp_r = mvpred.predict_8x16(ref4, mv4, ref_idx)
+    mvp_sub = torch.stack(mvpred.predict_p8x8(ref4, mv4, ref_idx), 2)
     is1, is2, is8 = (pt == 1)[..., None], (pt == 2)[..., None], pt == 3
     mv_p0 = mvq[:, :, 0]
     mv_p1 = torch.where(is1, mvq[:, :, 2], mvq[:, :, 1])
@@ -1034,8 +1105,9 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
     mvd_sub = torch.where(is8[..., None, None], mvq - mvp_sub, 0).to(I32)
     mv_sub = torch.where(is8[..., None, None], mvq, 0).to(I32)
     cbp_l = front["cbp_luma_bits"]
+    # P_Skip implies ref_idx 0 (spec 8.4.1.1): a ref-1 MB never skips
     skip = ~im & (pt == 0) & (cbp_l == 0) & (front["cbp_chroma"] == 0) \
-        & (mv == mv_skip).all(-1)
+        & (ref_idx == 0) & (mv == mv_skip).all(-1)
     # per-4x4 mvd: the second partition's cells take mvd1, P8x8's cells
     # their sub-block's mvd_sub; skip and intra MBs cache 0
     br = torch.arange(4, device=dev)
@@ -1065,25 +1137,26 @@ def p_maps_plain(front: dict, mb_h: int, mb_w: int) -> dict:
         .reshape(mb_h * 4, mb_w * 4)
     return dict(mv=mv, mvd=mvd, mvd1=mvd1, ptype=pt, mv_sub=mv_sub,
                 mvd_sub=mvd_sub, mvd4=mvd4, skip=skip, nnz4=nnz4, ref4=ref4,
-                mv4=mv4, **t8)
+                mv4=mv4, ref_idx=ref_idx, **t8)
 
 
 def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                   ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                   subpel_steps=(), parts: bool = False, p8x8: bool = False,
                   chroma_me: bool = False, rd: bool = False,
-                  t8: bool = False, qp_map=None) -> dict:
+                  t8: bool = False, qp_map=None, ref2=None) -> dict:
     """One P frame (pre-deblock) with the keys of x264_tpu's
-    encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs=1, t8, rd,
-    qp_map): stages 1-3 (encode_p_front) and the syntax maps
-    (p_maps_plain). The card's pipeline runs the maps inside kernel K8
-    instead (entropy/cabac_planes.py:cabac_p_ops)."""
+    encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs, t8, rd,
+    qp_map), n_refs 2 where ref2 (L0[1] as (y, u, v)) is given: stages
+    1-3 (encode_p_front) and the syntax maps (p_maps_plain). The card's
+    pipeline runs the maps inside kernel K8 instead
+    (entropy/cabac_planes.py:cabac_p_ops)."""
     front = encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y, ref_u,
                            ref_v, qtab, lam, mvp_seed, decimate,
                            subpel_steps, parts, p8x8, chroma_me, rd, t8,
-                           qp_map)
+                           qp_map, ref2)
     out = dict(front, **p_maps_plain(front, mb_h, mb_w))
-    for k in ("me_mv", "mv_quad", "t8_sel"):
+    for k in ("me_mv", "mv_quad", "t8_sel", "ref_sel"):
         out.pop(k, None)
     # without the 8x8 transform its fields stay zero, as the reference
     # field does with one reference
@@ -1091,7 +1164,6 @@ def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     if not t8:
         out.update(t8_mb=z(mb_h, mb_w, dt=torch.bool),
                    luma8_z=z(mb_h, mb_w, 4, 64))
-    out["ref_idx"] = z(mb_h, mb_w)
     return out
 
 

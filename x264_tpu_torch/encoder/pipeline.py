@@ -1,11 +1,12 @@
-"""The per-frame device pipelines of IDR, P and B frames, CABAC or CAVLC
-(B: CABAC only).
+"""The per-frame device pipelines of IDR, P and B frames, CABAC or CAVLC.
 
 The PyTorch re-expression of x264_tpu/encoder/pipeline.py's
 encode_i16_idr_cabac, encode_p_cabac and encode_b_cabac, with or without
-the 8x8 transform and I8x8, and of its CAVLC encode_i16_idr and
-encode_p, where K18 / K19 code the packed slice words in place of the op
-streams of K3 / K8 (a P frame runs K8's pass A alone for its maps). IDR:
+the 8x8 transform and I8x8, and of its CAVLC encode_i16_idr, encode_p
+and encode_b, where K18 / K19 / K25 code the packed slice words in place
+of the op streams of K3 / K8 / K24 (a P frame runs K8's pass A alone for
+its maps, a B frame K24's). P frames take one reference or two (L0[1],
+the reference before the last, where ref2 is given). IDR:
 the intra wavefront (K1), the CABAC op stream (K3), the in-loop
 deblocking filter (K2) and the frame metrics (K4). P: full-pel motion
 estimation (K5); at subme >= 2 the half-pel planes (K9), the sub-pel
@@ -186,9 +187,10 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                    crop_h: int, with_metrics: bool, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
                    chroma_me: bool = False, rd: bool = False,
-                   t8: bool = False, aq=None) -> dict:
-    """One P frame at subme 1-9 with one reference, CABAC entropy. y / u
-    / v: int32 MB-aligned source planes; ref_*: the deblocked reference;
+                   t8: bool = False, aq=None, ref2=None) -> dict:
+    """One P frame at subme 1-9, CABAC entropy. y / u / v: int32
+    MB-aligned source planes; ref_*: the deblocked reference (L0[0]);
+    ref2: L0[1] as (y, u, v) for two references, or None;
     mvp_seed: (mb_h, mb_w, 2) qpel ME predictors (the previous P frame's
     MV field); subpel_steps / parts / p8x8 / chroma_me / rd / t8 as
     inter.encode_p_front takes them. Returns dict(recon_y/u/v (deblocked
@@ -204,9 +206,9 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
                                  subpel_steps, parts, p8x8, chroma_me, rd,
-                                 t8, qp_map)
+                                 t8, qp_map, ref2)
     maps, ops, n_ops = cabac_planes.cabac_p_ops(
-        front, mb_h, mb_w, t8_mode=t8,
+        front, mb_h, mb_w, 1 if ref2 is None else 2, t8_mode=t8,
         aq=None if qp_map is None else (qp_map, qp))
     qp_mb = maps["qp_eff"] if qp_map is not None else torch.full(
         (mb_h, mb_w), qp, dtype=I32, device=y.device)
@@ -221,12 +223,27 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                       y, u, v, ry, ru, rv, crop_w, crop_h, with_metrics)
     ret = dict(recon_y=ry, recon_u=ru, recon_v=rv, ops=ops, host32=h32,
                mv=maps["mv"], ptype=maps["ptype"], ref4=maps["ref4"],
-               mv4=maps["mv4"])
+               mv4=maps["mv4"], ref_idx=maps["ref_idx"])
     if t8:
         ret["t8_mb"] = maps["t8_mb"]
     if qp_map is not None:
         ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
     return ret
+
+
+def _b_deblock(mb_h: int, mb_w: int, front: dict, maps: dict, qp: int,
+               deblock_on: bool, alpha_off: int, beta_off: int,
+               chroma_qp_offset: int):
+    """K2 with both lists' maps on a B frame's recon at the frame QP (when
+    deblock_on) -> (ry, ru, rv)."""
+    ry, ru, rv = front["recon_y"], front["recon_u"], front["recon_v"]
+    if deblock_on:
+        qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=ry.device)
+        ry, ru, rv = odeblock.deblock_frame(
+            mb_h, mb_w, ry, ru, rv, qp_mb, front["intra_mb"], maps["nnz4"],
+            maps["ref4"], maps["mv4"], maps["ref4_l1"], maps["mv4_l1"], True,
+            alpha_off, beta_off, chroma_qp_offset)
+    return ry, ru, rv
 
 
 def encode_b_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
@@ -248,13 +265,8 @@ def encode_b_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                                  lam, mvp_seed, mvp_seed_l1, col_ref4,
                                  col_mv4, subpel_steps)
     maps, ops, n_ops = cabac_planes.cabac_b_ops(front, mb_h, mb_w, t8)
-    ry, ru, rv = front["recon_y"], front["recon_u"], front["recon_v"]
-    if deblock_on:
-        qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
-        ry, ru, rv = odeblock.deblock_frame(
-            mb_h, mb_w, ry, ru, rv, qp_mb, front["intra_mb"], maps["nnz4"],
-            maps["ref4"], maps["mv4"], maps["ref4_l1"], maps["mv4_l1"], True,
-            alpha_off, beta_off, chroma_qp_offset)
+    ry, ru, rv = _b_deblock(mb_h, mb_w, front, maps, qp, deblock_on,
+                            alpha_off, beta_off, chroma_qp_offset)
     h32 = host32_pack([n_ops, front["intra_mb"].sum(), maps["skip"].sum()],
                       y, u, v, ry, ru, rv, crop_w, crop_h, with_metrics)
     return dict(recon_y=ry, recon_u=ru, recon_v=rv, ops=ops, host32=h32,
@@ -267,27 +279,28 @@ def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
              mvp_seed, crop_w: int, crop_h: int, with_metrics: bool,
              decimate: bool, subpel_steps=(), parts: bool = False,
              p8x8: bool = False, chroma_me: bool = False, rd: bool = False,
-             aq=None) -> dict:
-    """One P frame at subme 1-9 with one reference, CAVLC entropy
-    (x264_tpu's encode_p): K16 under AQ, encode_p_front as encode_p_cabac
-    runs it without the 8x8 transform, K8's pass A alone
+             aq=None, ref2=None) -> dict:
+    """One P frame at subme 1-9, CAVLC entropy (x264_tpu's encode_p): K16
+    under AQ, encode_p_front as encode_p_cabac runs it without the 8x8
+    transform (ref2: L0[1] for two references), K8's pass A alone
     (cabac_planes.p_maps), K17 under AQ, K19 (header slots, the MBs'
     codes, the trailing skip run, the stop bit), K2 with pass A's maps and
     K4. Returns dict(recon_y/u/v, words, host32 = [nbits, n_intra,
-    n_skip, ssd_y, ssd_u, ssd_v, ssim], mv, ptype, and under aq dqp and
-    qp_eff)."""
+    n_skip, ssd_y, ssd_u, ssd_v, ssim], mv, ptype, ref4 / mv4 / ref_idx,
+    and under aq dqp and qp_eff)."""
     qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
                                  subpel_steps, parts, p8x8, chroma_me, rd,
-                                 False, qp_map)
+                                 False, qp_map, ref2)
     maps = cabac_planes.p_maps(front, mb_h, mb_w)
     qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
     if qp_map is not None:
         maps["dqp"], qp_mb, _ = eaq.dqp_syntax(
             qp_map, cabac_planes.has_dqp_p(maps, front), qp)
     words, nbits = edev.cavlc_p_slice(front, maps, mb_h, mb_w, hdr_vals,
-                                      hdr_lens, capacity_words(mb_h * mb_w))
+                                      hdr_lens, capacity_words(mb_h * mb_w),
+                                      1 if ref2 is None else 2)
     ry, ru, rv = front["recon_y"], front["recon_u"], front["recon_v"]
     if deblock_on:
         _, z4, zmv = _zero_maps(mb_h, mb_w, y.device)
@@ -298,7 +311,34 @@ def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
     h32 = host32_pack([nbits, front["intra_mb"].sum(), maps["skip"].sum()],
                       y, u, v, ry, ru, rv, crop_w, crop_h, with_metrics)
     ret = dict(recon_y=ry, recon_u=ru, recon_v=rv, words=words, host32=h32,
-               mv=maps["mv"], ptype=maps["ptype"])
+               mv=maps["mv"], ptype=maps["ptype"], ref4=maps["ref4"],
+               mv4=maps["mv4"], ref_idx=maps["ref_idx"])
     if aq is not None:
         ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
     return ret
+
+
+def encode_b(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
+             l0, l1, qtab: dict, lam: int, qp: int, hdr_vals, hdr_lens,
+             alpha_off: int, beta_off: int, chroma_qp_offset: int, mvp_seed,
+             mvp_seed_l1, col_ref4, col_mv4, crop_w: int, crop_h: int,
+             with_metrics: bool, subpel_steps=(2, 1)) -> dict:
+    """One B frame with CAVLC entropy (x264_tpu's encode_b): the B body
+    through inter.encode_b_front as encode_b_cabac runs it, K24's pass A
+    alone (cabac_planes.b_maps), K25 (header slots, the MBs' codes, the
+    trailing skip run, the stop bit), K2 with both lists' maps and K4, at
+    the frame QP. Arguments as encode_b_cabac's, with the header slots of
+    encode_p. Returns dict(recon_y/u/v, words, host32 = [nbits, n_intra,
+    n_skip, ssd_y, ssd_u, ssd_v, ssim], intra_mb, bmode)."""
+    front = inter.encode_b_front(mb_h, mb_w, me_range, y, u, v, l0, l1, qtab,
+                                 lam, mvp_seed, mvp_seed_l1, col_ref4,
+                                 col_mv4, subpel_steps)
+    maps = cabac_planes.b_maps(front, mb_h, mb_w)
+    words, nbits = edev.cavlc_b_slice(front, maps, mb_h, mb_w, hdr_vals,
+                                      hdr_lens, capacity_words(mb_h * mb_w))
+    ry, ru, rv = _b_deblock(mb_h, mb_w, front, maps, qp, deblock_on,
+                            alpha_off, beta_off, chroma_qp_offset)
+    h32 = host32_pack([nbits, front["intra_mb"].sum(), maps["skip"].sum()],
+                      y, u, v, ry, ru, rv, crop_w, crop_h, with_metrics)
+    return dict(recon_y=ry, recon_u=ru, recon_v=rv, words=words, host32=h32,
+                intra_mb=front["intra_mb"], bmode=front["bmode"])

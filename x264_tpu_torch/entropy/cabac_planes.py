@@ -42,7 +42,8 @@ PAD_OP = KIND_PAD << 29
 # of 2 x 7, cbp 6, dqp 1; 16 luma blocks of 18, chroma 148, terminal 1).
 # With the 8x8 transform the flag adds one op and the four cat-5 blocks
 # (4 x 68, at most 4 sigmap parts and 64 levels each) replace the 288 of
-# the sixteen 4x4 blocks, so the bound holds
+# the sixteen 4x4 blocks, so the bound holds; two references add at most
+# two ref_idx bins a partition (8 for P_8x8)
 OPS_PER_MB = 560
 
 
@@ -420,16 +421,13 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     """Packed op planes of a whole P CABAC slice (x264_macroblock_write_
     cabac P branch + x264_cabac_mb_skip, encoder/cabac.c:300-306,
     781-1025) for P_L0 16x16 / 16x8 / 8x16, P_8x8 (L0 8x8 sub-blocks),
-    P_Skip and I16x16 MBs with one reference and one QP; t8_mode: the PPS
-    enables the 8x8 transform (out then holds t8_mb and luma8_z), so
-    inter MBs with coded luma carry transform_size_8x8_flag and the
-    8x8-transform MBs their cat-5 blocks. `out` holds the keys of
+    P_Skip and I16x16 MBs; n_refs: the active L0 references, with 2 each
+    partition codes its ref_idx (out then holds ref_idx and ref4);
+    t8_mode: the PPS enables the 8x8 transform (out then holds t8_mb and
+    luma8_z), so inter MBs with coded luma carry transform_size_8x8_flag
+    and the 8x8-transform MBs their cat-5 blocks. `out` holds the keys of
     encoder/inter.py:encode_p_body. Returns the flat int64 slot
     stream."""
-    if n_refs != 1:
-        raise NotImplementedError(
-            "multiple references in P slices come with a later slice of "
-            "the port")
     nmb = mb_h * mb_w
     dev = out["intra_mb"].device
     R = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
@@ -486,12 +484,9 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     # sub_mb_type x4 (x264_cabac_mb_sub_p_partition: D_L0_8x8 is one '1'
     # bin at ctx 21; encoder/cabac.c:309-312,877-880)
     slots += [_sel(inter_f & p8_f, dec(21, 1))] * 4
-    # mvd per partition in syntax order; ctxInc from the partition's left
-    # / top 4x4 neighbours' |mvd| (x264_cabac_mb_mvd_cpn amvd,
-    # encoder/cabac.c:397-401). A partition's first 4x4 block: part 0 at
-    # (4Y, 4X); part 1 at (4Y+2, 4X) for 16x8, (4Y, 4X+2) for 8x16 and
-    # P8x8 sub-block 1; sub-blocks 2 / 3 at (4Y+2, 4X) / (4Y+2, 4X+2)
-    amvd = [_nbr_grids(mvd4[..., comp].abs(), 0) for comp in (0, 1)]
+    # A partition's first 4x4 block: part 0 at (4Y, 4X); part 1 at (4Y+2,
+    # 4X) for 16x8, (4Y, 4X+2) for 8x16 and P8x8 sub-block 1; sub-blocks 2
+    # / 3 at (4Y+2, 4X) / (4Y+2, 4X+2)
     r1 = torch.where(ptype_g == 1, 2, 0)
     c1 = torch.where((ptype_g == 2) | (ptype_g == 3), 2, 0)
     parts = ((torch.where(p8_f[:, None], mvd_sub[:, 0], mvd), inter_f, 0, 0),
@@ -501,8 +496,27 @@ def p_slice_ops(out: dict, mb_h: int, mb_w: int, n_refs: int = 1,
              (mvd_sub[:, 3], inter_f & p8_f, 2, 2))
     gy = torch.arange(mb_h, device=dev)[:, None] * 4
     gx = torch.arange(mb_w, device=dev)[None, :] * 4
-    for mvdp, act, dr, dc in parts:
-        r, c = (gy + dr).expand(mb_h, mb_w), (gx + dc).expand(mb_h, mb_w)
+    pos = [((gy + dr).expand(mb_h, mb_w), (gx + dc).expand(mb_h, mb_w))
+           for _, _, dr, dc in parts]
+    if n_refs > 1:
+        # ref_idx_l0 per partition (x264_cabac_mb_ref, encoder/cabac.c:
+        # 228-246): ctx 54 + (refA > 0) + 2 * (refB > 0) from the
+        # partition's left / top 4x4 slots of ref4 (the current MB's
+        # own cells included; -1 outside the frame), then a 0 at ctx 58
+        # after a 1. Every partition carries the MB's reference
+        ref_idx = out["ref_idx"].reshape(nmb)
+        ref4p = torch.nn.functional.pad(out["ref4"], (1, 1, 1, 1),
+                                        value=-1)
+        for (_, act, _, _), (r, c) in zip(parts, pos):
+            rctx = 54 + (ref4p[r + 1, c] > 0).to(I64) \
+                + 2 * (ref4p[r, c + 1] > 0).to(I64)
+            slots += [_sel(act, dec(rctx.reshape(nmb), ref_idx > 0)),
+                      _sel(act & (ref_idx > 0), dec(58, 0))]
+    # mvd per partition in syntax order; ctxInc from the partition's left
+    # / top 4x4 neighbours' |mvd| (x264_cabac_mb_mvd_cpn amvd,
+    # encoder/cabac.c:397-401)
+    amvd = [_nbr_grids(mvd4[..., comp].abs(), 0) for comp in (0, 1)]
+    for (mvdp, act, _, _), (r, c) in zip(parts, pos):
         for comp, base in ((0, 40), (1, 47)):
             ma, mb_ = amvd[comp]
             am = (ma[r, c] + mb_[r, c]).reshape(nmb)
@@ -656,20 +670,21 @@ def has_dqp_p(maps: dict, front: dict):
 
 
 def cabac_p_ops_plain(front: dict, mb_h: int, mb_w: int,
-                      t8_mode: bool = False, aq=None):
+                      t8_mode: bool = False, aq=None, n_refs: int = 1):
     """Plain version of K8: the syntax maps of encoder/inter.py's
     p_maps_plain, under variance AQ (aq = (qp_map, slice_qp)) the dqp
     planes of encoder/aq.py:dqp_syntax, then compact_ops(p_slice_ops(...)).
     Returns (maps, ops, n_ops) with maps = dict(mv, mvd, mvd1, ptype,
-    mv_sub, mvd_sub, mvd4, skip, nnz4, ref4, mv4, t8_mb with t8_mode, and
-    with aq dqp, dqp_prev_nz and qp_eff, the QPs the MBs decode with)."""
+    mv_sub, mvd_sub, mvd4, skip, nnz4, ref4, mv4, ref_idx, t8_mb with
+    t8_mode, and with aq dqp, dqp_prev_nz and qp_eff, the QPs the MBs
+    decode with)."""
     from ..encoder.inter import p_maps_plain
     maps = p_maps_plain(front, mb_h, mb_w)
     if aq is not None:
         from ..encoder.aq import dqp_syntax_plain
         maps["dqp"], maps["qp_eff"], maps["dqp_prev_nz"] = dqp_syntax_plain(
             aq[0], has_dqp_p(maps, front), aq[1])
-    ops, n = compact_ops(p_slice_ops({**front, **maps}, mb_h, mb_w,
+    ops, n = compact_ops(p_slice_ops({**front, **maps}, mb_h, mb_w, n_refs,
                                      t8_mode=t8_mode),
                          capacity(mb_h * mb_w))
     return maps, ops, n
@@ -689,6 +704,8 @@ def _launch_p_maps(front: dict, mb_h: int, mb_w: int, t8_mode: bool):
     if t8_mode:
         shapes.update(t8_sel=((mb_h, mb_w), torch.bool),
                       luma8_z=((mb_h, mb_w, 4, 64), I32))
+    if "ref_sel" in front:
+        shapes["ref_sel"] = ((mb_h, mb_w), I32)
     for k, (shape, dt) in shapes.items():
         cuda.check(front[k], shape, dt, k)
     fp = lambda k: front[k].data_ptr() if k in shapes else 0
@@ -698,17 +715,18 @@ def _launch_p_maps(front: dict, mb_h: int, mb_w: int, t8_mode: bool):
                 ptype=e(mb_h, mb_w), mv_sub=e(mb_h, mb_w, 4, 2),
                 mvd_sub=e(mb_h, mb_w, 4, 2), mvd4=e(mb_h * 4, mb_w * 4, 2),
                 nnz4=e(mb_h * 4, mb_w * 4), ref4=e(mb_h * 4, mb_w * 4),
-                mv4=e(mb_h * 4, mb_w * 4, 2))
+                mv4=e(mb_h * 4, mb_w * 4, 2), ref_idx=e(mb_h, mb_w))
     if t8_mode:
         maps["t8_mb"] = e(mb_h, mb_w, dt=torch.bool)
     mp = lambda k: maps[k].data_ptr() if k in maps else 0
-    cuda.launch("cabac_ops", "cabac_p_maps", "p" * 21 + "ii" + "p",
+    cuda.launch("cabac_ops", "cabac_p_maps", "p" * 23 + "ii" + "p",
                 *[fp(k) for k in ("intra_mb", "me_mv", "ptype", "mv_quad",
                                   "cbp_luma_bits", "cbp_chroma",
-                                  "luma_blocks", "t8_sel", "luma8_z")],
+                                  "luma_blocks", "t8_sel", "luma8_z",
+                                  "ref_sel")],
                 *[mp(k) for k in ("skip", "mv", "mvd", "mvd1", "ptype",
                                   "mv_sub", "mvd_sub", "mvd4", "nnz4",
-                                  "ref4", "mv4", "t8_mb")],
+                                  "ref4", "mv4", "t8_mb", "ref_idx")],
                 mb_h, mb_w, cuda.stream(dev))
     return maps
 
@@ -719,17 +737,21 @@ def p_maps(front: dict, mb_h: int, mb_w: int) -> dict:
     encoder/inter.py:p_maps_plain, its plain version, which runs on CPU
     tensors. Replaces the stage-4 map derivation of
     x264_tpu/encoder/inter.py:encode_p_body (inter.py:733-842) with
-    encoder/mvpred.py's predictors. One launch, counted here; the CABAC
-    path's pass A counts under cabac_p_ops."""
+    encoder/mvpred.py's predictors; under two references (front holds
+    ref_sel) each MB predicts with its own reference as i_ref. One
+    launch, counted here; the CABAC path's pass A counts under
+    cabac_p_ops."""
     if front["intra_mb"].device.type == "cpu":
         from ..encoder.inter import p_maps_plain
         return p_maps_plain(front, mb_h, mb_w)
     maps = _launch_p_maps(front, mb_h, mb_w, False)
     p_maps.launches += 1
+    p_maps.launches_ref2 += int("ref_sel" in front)
     return maps
 
 
-p_maps.launches = 0
+# launches, and those of them with two references
+p_maps.launches = p_maps.launches_ref2 = 0
 
 
 def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
@@ -749,14 +771,13 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     thread per MB: the MV prediction of every partition, skip, the mvds,
     t8_mb and the 4x4 maps), pass B (one thread per MB emits its live
     ops), then K3's exclusive scan and scatter; on CPU tensors the plain
-    version. Multiple references raise. Returns as cabac_p_ops_plain;
-    ops entries at and past n_ops are unspecified on the card."""
-    if n_refs != 1:
-        raise NotImplementedError(
-            "multiple references in P slices come with a later slice of "
-            "the port")
+    version. n_refs 2 (front then holds ref_sel): pass A predicts each MB
+    with its own reference and keeps reference-1 MBs from P_Skip, pass B
+    codes each partition's ref_idx bins before its mvds. Returns as
+    cabac_p_ops_plain; ops entries at and past n_ops are unspecified on
+    the card."""
     if front["intra_mb"].device.type == "cpu":
-        return cabac_p_ops_plain(front, mb_h, mb_w, t8_mode, aq)
+        return cabac_p_ops_plain(front, mb_h, mb_w, t8_mode, aq, n_refs)
     dev = front["intra_mb"].device
     nmb = mb_h * mb_w
     shapes = dict(mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
@@ -777,7 +798,8 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
     scratch = e(nmb * OPS_PER_MB)
     counts, offsets = e(nmb), e(nmb + 1)
     ops = e(capacity(nmb))
-    cuda.launch("cabac_ops", "cabac_p_emit", "p" * 24 + "iii" + "p",
+    refs = n_refs > 1
+    cuda.launch("cabac_ops", "cabac_p_emit", "p" * 26 + "iii" + "p",
                 fp("intra_mb"), mp("skip"), mp("ptype"),
                 *[fp(k) for k in ("mode16", "modec", "cbp_luma_bits",
                                   "cbp_chroma", "luma_dc", "luma_blocks",
@@ -785,16 +807,20 @@ def cabac_p_ops(front: dict, mb_h: int, mb_w: int, n_refs: int = 1,
                 *[mp(k) for k in ("mvd", "mvd1", "mvd_sub", "mvd4", "nnz4",
                                   "t8_mb")],
                 fp("luma8_z"), mp("dqp"), mp("dqp_prev_nz"),
+                mp("ref4") if refs else 0, mp("ref_idx") if refs else 0,
                 scratch.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
                 ops.data_ptr(), mb_h, mb_w, int(t8_mode), stream)
     cabac_p_ops.launches += 4          # pass A, pass B, scan, scatter
     cabac_p_ops.launches_t8 += 4 * int(t8_mode)
     cabac_p_ops.launches_aq += 4 * int(aq is not None)
+    cabac_p_ops.launches_ref2 += 4 * int(refs)
     return maps, ops, offsets[nmb]
 
 
-# launches, and those of them in t8_mode and with mb_qp_delta planes
-cabac_p_ops.launches = cabac_p_ops.launches_t8 = cabac_p_ops.launches_aq = 0
+# launches, and those of them in t8_mode, with mb_qp_delta planes and
+# with two references
+cabac_p_ops.launches = cabac_p_ops.launches_t8 = cabac_p_ops.launches_aq = \
+    cabac_p_ops.launches_ref2 = 0
 
 
 # ---------------------------------------------------------------- K24
@@ -1007,3 +1033,48 @@ def cabac_b_ops(front: dict, mb_h: int, mb_w: int, t8_mode: bool = False):
 
 
 cabac_b_ops.launches = 0
+
+# front planes K24's pass A reads, in its entry points' order
+B_MAPS_IN = ("intra_mb", "direct_mb", "bmode", "r0", "r1", "m0", "m1",
+             "cbp_luma_bits", "cbp_chroma", "luma_blocks")
+
+
+def b_maps(front: dict, mb_h: int, mb_w: int) -> dict:
+    """K24's pass A alone (`cabac_b_maps`), for the CAVLC B slice: each
+    list's 4x4 ref / mv maps, 16x16 MV prediction and mvd, use_l0 /
+    use_l1, B_SKIP and nnz4 of encoder/inter.py:b_maps_plain, its plain
+    version, which runs on CPU tensors. Replaces the stage-4 map
+    derivation of x264_tpu/encoder/inter.py:encode_b_body (inter.py:
+    1174-1224) as x264_tpu/encoder/pipeline.py:encode_b runs it. One
+    launch, counted here; the CABAC path's pass A counts under
+    cabac_b_ops."""
+    if front["intra_mb"].device.type == "cpu":
+        from ..encoder.inter import b_maps_plain
+        return b_maps_plain(front, mb_h, mb_w)
+    dev = front["intra_mb"].device
+    g, g2 = (mb_h, mb_w), (mb_h, mb_w, 2)
+    shapes = dict(intra_mb=(g, torch.bool), direct_mb=(g, torch.bool),
+                  bmode=(g, I32), r0=(g, I32), r1=(g, I32), m0=(g2, I32),
+                  m1=(g2, I32), cbp_luma_bits=(g, I32),
+                  cbp_chroma=(g, I32),
+                  luma_blocks=((mb_h, mb_w, 16, 16), I32))
+    for k, (shape, dt) in shapes.items():
+        cuda.check(front[k], shape, dt, k)
+    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    maps = dict(use_l0=e(*g, dt=torch.bool), use_l1=e(*g, dt=torch.bool),
+                mvd_l0=e(*g2), mvd_l1=e(*g2),
+                mvd4_l0=e(mb_h * 4, mb_w * 4, 2),
+                mvd4_l1=e(mb_h * 4, mb_w * 4, 2),
+                skip=e(*g, dt=torch.bool), nnz4=e(mb_h * 4, mb_w * 4),
+                ref4=e(mb_h * 4, mb_w * 4), mv4=e(mb_h * 4, mb_w * 4, 2),
+                ref4_l1=e(mb_h * 4, mb_w * 4),
+                mv4_l1=e(mb_h * 4, mb_w * 4, 2))
+    cuda.launch("cabac_ops", "cabac_b_maps", "p" * 22 + "ii" + "p",
+                *[front[k].data_ptr() for k in B_MAPS_IN],
+                *[maps[k].data_ptr() for k in maps], mb_h, mb_w,
+                cuda.stream(dev))
+    b_maps.launches += 1
+    return maps
+
+
+b_maps.launches = 0

@@ -1,6 +1,6 @@
-"""CAVLC code planes and bit packing of I and P slices — plain PyTorch twin
-of x264_tpu/entropy/device.py and the wrappers of its CUDA kernels
-(csrc/cavlc.cu, kernels K18 and K19).
+"""CAVLC code planes and bit packing of I, P and B slices — plain PyTorch
+twin of x264_tpu/entropy/device.py and the wrappers of its CUDA kernels
+(csrc/cavlc.cu, kernels K18, K19 and K25).
 
 The plain version codes a whole slice into fixed per-MB (value, length)
 slot planes (a zero length where a syntax element is absent) and packs
@@ -36,6 +36,7 @@ BLOCK_SLOTS = 1 + 1 + N_LEVEL_SLOTS + 1 + N_RUN_SLOTS  # 34
 _CT_INDEX = np.array([0, 0, 1, 1, 2, 2, 2, 2] + [3] * 9, dtype=np.int32)
 _NEXT_SUFFIX = np.array([0, 3, 6, 12, 24, 48, 0x7FFFFFF], dtype=np.int32)
 P_HDR_SLOTS = 21
+B_HDR_SLOTS = 9
 
 
 def _t(x, dev):
@@ -316,33 +317,20 @@ def i16_code_planes(out: dict, mb_h: int, mb_w: int):
     return vals.reshape(-1), lens.reshape(-1)
 
 
-def p_code_planes(out: dict, mb_h: int, mb_w: int):
-    """Code planes of a whole P slice (CAVLC, one reference) from the
-    P encode's outputs (x264_macroblock_write_cavlc P branch,
-    encoder/cavlc.c:288-430, and the skip-run ue of x264_slice_write,
-    encoder/encoder.c:1184-1192). `out` keys, all (mb_h, mb_w, ...):
-    intra_mb, skip, mode16, modec, luma_dc (16), luma_blocks (16, 16),
-    chroma_dc (2, 4), chroma_ac (2, 4, 16), cbp_luma_bits, cbp_chroma,
-    ptype, mvd, mvd1 (2), mvd_sub (4, 2) and, under AQ, dqp. Returns
-    flat (vals, lens) int64, the trailing skip run last."""
+def _residual_planes(out: dict, mb_h: int, mb_w: int):
+    """The residual code slots of every MB of a P or B slice: luma DC of
+    I16 MBs, the 16 luma blocks (I16 AC or inter 4x4, coded per the cbp),
+    chroma DC and AC, each block's nC from the count maps. Returns (vals,
+    lens), each (nmb, 27 * BLOCK_SLOTS) int64."""
     dev = out["intra_mb"].device
     nmb = mb_h * mb_w
     intra = out["intra_mb"].reshape(nmb)
-    skip = out["skip"].reshape(nmb)
-    coded = ~skip
     cbp_l = out["cbp_luma_bits"].reshape(nmb).to(I64)
     cbp_c = out["cbp_chroma"].reshape(nmb).to(I64)
     luma_blocks = out["luma_blocks"].reshape(nmb, 16, 16).to(I64)
     luma_dc = out["luma_dc"].reshape(nmb, 16).to(I64)
     chroma_dc = out["chroma_dc"].reshape(nmb, 2, 4).to(I64)
     chroma_ac = out["chroma_ac"].reshape(nmb, 2, 4, 16).to(I64)
-    mvd = out["mvd"].reshape(nmb, 2).to(I64)
-    mvd1 = out["mvd1"].reshape(nmb, 2).to(I64)
-    mvd_sub = out["mvd_sub"].reshape(nmb, 4, 2).to(I64)
-    mode16 = out["mode16"].reshape(nmb).to(I64)
-    modec = out["modec"].reshape(nmb).to(I64)
-    ptype = out["ptype"].reshape(nmb).to(I64)
-
     # per-4x4 coded-block flags (z-scan): intra AC all-or-nothing, inter
     # per 8x8 group
     grp = torch.arange(16, device=dev) // 4
@@ -369,17 +357,66 @@ def p_code_planes(out: dict, mb_h: int, mb_w: int):
     cac_v, cac_l = residual_codes(chroma_ac[..., 1:].reshape(nmb * 8, 15),
                                   nc_c.reshape(nmb * 8))
     cac_l = cac_l.reshape(nmb, 8, BLOCK_SLOTS) * (cbp_c == 2)[:, None, None]
+    vals = torch.cat([dc_v, blk_v.reshape(nmb, -1), cdc_v.reshape(nmb, -1),
+                      cac_v.reshape(nmb, -1)], 1)
+    lens = torch.cat([dc_l, blk_l.reshape(nmb, -1), cdc_l.reshape(nmb, -1),
+                      cac_l.reshape(nmb, -1)], 1)
+    return vals, lens
+
+
+def _skip_runs(coded):
+    """The skipped MBs right before each MB (the mb_skip_run a coded MB
+    carries)."""
+    idx = torch.arange(coded.numel(), device=coded.device)
+    coded_idx = torch.where(coded, idx, -1)
+    prev_coded = torch.cat([torch.full((1,), -1, device=coded.device),
+                            torch.cummax(coded_idx, 0).values[:-1]])
+    return idx - prev_coded - 1
+
+
+def _with_tail(h_v, h_l, res_v, res_l, coded):
+    """The header and residual slots of each MB (none for skipped MBs) and
+    the trailing skip run after the last coded MB, flat."""
+    nmb = coded.numel()
+    vals = torch.cat([h_v, res_v], 1).reshape(-1)
+    lens = (torch.cat([h_l, res_l], 1) * coded[:, None].to(I64)).reshape(-1)
+    idx = torch.arange(nmb, device=coded.device)
+    tail = nmb - 1 - torch.where(coded, idx, -1).max()
+    tv, tl = ue_codes(tail.reshape(1))
+    return torch.cat([vals, tv]), torch.cat([lens, torch.where(tail > 0, tl,
+                                                               0)])
+
+
+def p_code_planes(out: dict, mb_h: int, mb_w: int, n_refs: int = 1):
+    """Code planes of a whole P slice (CAVLC) from the P encode's outputs
+    (x264_macroblock_write_cavlc P branch, encoder/cavlc.c:288-430, and
+    the skip-run ue of x264_slice_write, encoder/encoder.c:1184-1192).
+    `out` keys, all (mb_h, mb_w, ...): intra_mb, skip, mode16, modec,
+    luma_dc (16), luma_blocks (16, 16), chroma_dc (2, 4), chroma_ac (2, 4,
+    16), cbp_luma_bits, cbp_chroma, ptype, mvd, mvd1 (2), mvd_sub (4, 2),
+    under AQ dqp, and with n_refs 2 ref_idx: each partition then codes
+    ref_idx_l0 te(v), with two active references the single bit !ref
+    (spec 7.3.5.1, all ref_idx before all mvd; encoder/cavlc.c:330).
+    Returns flat (vals, lens) int64, the trailing skip run last."""
+    dev = out["intra_mb"].device
+    nmb = mb_h * mb_w
+    intra = out["intra_mb"].reshape(nmb)
+    coded = ~out["skip"].reshape(nmb)
+    cbp_l = out["cbp_luma_bits"].reshape(nmb).to(I64)
+    cbp_c = out["cbp_chroma"].reshape(nmb).to(I64)
+    mvd = out["mvd"].reshape(nmb, 2).to(I64)
+    mvd1 = out["mvd1"].reshape(nmb, 2).to(I64)
+    mvd_sub = out["mvd_sub"].reshape(nmb, 4, 2).to(I64)
+    mode16 = out["mode16"].reshape(nmb).to(I64)
+    modec = out["modec"].reshape(nmb).to(I64)
+    ptype = out["ptype"].reshape(nmb).to(I64)
+    res_v, res_l = _residual_planes(out, mb_h, mb_w)
 
     # ------------------------------------------------ MB header slots
-    idx = torch.arange(nmb, device=dev)
-    coded_idx = torch.where(coded, idx, -1)
-    prev_coded = torch.cat([torch.full((1,), -1, device=dev),
-                            torch.cummax(coded_idx, 0).values[:-1]])
-    run = idx - prev_coded - 1
     p8 = ptype == 3
     h_v = torch.zeros((nmb, P_HDR_SLOTS), dtype=I64, device=dev)
     h_l = torch.zeros_like(h_v)
-    h_v[:, 0], h_l[:, 0] = ue_codes(run)
+    h_v[:, 0], h_l[:, 0] = ue_codes(_skip_runs(coded))
     # mb_type: P_L0 ue(partition 0/1/2), P_8x8 ue(3); intra I16 offset 5
     i16_type = 5 + 1 + mode16 + 4 * cbp_c + 12 * (cbp_l > 0).to(I64)
     h_v[:, 1], h_l[:, 1] = ue_codes(torch.where(intra, i16_type, ptype))
@@ -388,9 +425,14 @@ def p_code_planes(out: dict, mb_h: int, mb_w: int):
     # sub_mb_type x4 (P_L0_8x8 only: ue(0), one '1' bit each)
     h_v[:, 3:7] = 1
     h_l[:, 3:7] = (~intra & p8).to(I64)[:, None]
-    # slots 7-10 (ref_idx) stay empty with one reference; the mvds of
-    # the first partition, the second (16x8 / 8x16) or sub 1, subs 2-3
+    # slots 7-10: ref_idx of the first partition, the second (16x8 /
+    # 8x16) or sub 1, subs 2-3 (empty with one reference); then their mvds
     act = [~intra, ~intra & (ptype > 0), ~intra & p8, ~intra & p8]
+    if n_refs > 1:
+        ref_idx = out["ref_idx"].reshape(nmb).to(I64)
+        for k in range(4):
+            h_v[:, 7 + k] = 1 - ref_idx
+            h_l[:, 7 + k] = act[k].to(I64)
     mvd_k = [torch.where(p8[:, None], mvd_sub[:, 0], mvd),
              torch.where(p8[:, None], mvd_sub[:, 1], mvd1),
              mvd_sub[:, 2], mvd_sub[:, 3]]
@@ -404,19 +446,7 @@ def p_code_planes(out: dict, mb_h: int, mb_w: int):
     has_dqp = intra | (cbp_l > 0) | (cbp_c > 0)
     qv, ql = se_codes(_dqp(out, nmb, dev))
     h_v[:, 20], h_l[:, 20] = qv, torch.where(has_dqp, ql, 0)
-
-    cm = coded[:, None].to(I64)
-    vals = torch.cat([h_v, dc_v, blk_v.reshape(nmb, -1),
-                      cdc_v.reshape(nmb, -1), cac_v.reshape(nmb, -1)],
-                     1).reshape(-1)
-    lens = torch.cat([h_l, dc_l, blk_l.reshape(nmb, -1),
-                      cdc_l.reshape(nmb, -1), cac_l.reshape(nmb, -1)],
-                     1) * cm
-    # the trailing skip run after the last coded MB
-    tail = nmb - 1 - coded_idx.max()
-    tv, tl = ue_codes(tail.reshape(1))
-    return torch.cat([vals, tv]), torch.cat([lens.reshape(-1),
-                                             torch.where(tail > 0, tl, 0)])
+    return _with_tail(h_v, h_l, res_v, res_l, coded)
 
 
 # ---------------------------------------------------------------------------
@@ -509,11 +539,65 @@ def cavlc_i_slice_plain(out: dict, mb_h: int, mb_w: int, hdr_vals,
 
 
 def cavlc_p_slice_plain(front: dict, maps: dict, mb_h: int, mb_w: int,
-                        hdr_vals, hdr_lens, cap_words: int):
+                        hdr_vals, hdr_lens, cap_words: int, n_refs: int = 1):
     """Plain version of K19: p_code_planes of the merged front and pass-A
     maps (with K17's dqp under AQ) between the header slots and the stop
     bit, then pack_codes."""
-    return _slice_words(*p_code_planes({**front, **maps}, mb_h, mb_w),
+    return _slice_words(*p_code_planes({**front, **maps}, mb_h, mb_w,
+                                       n_refs),
+                        hdr_vals, hdr_lens, cap_words)
+
+
+def b_code_planes(out: dict, mb_h: int, mb_w: int):
+    """Code planes of a whole B slice (CAVLC) from the B encode's outputs
+    (x264_macroblock_write_cavlc B branch, encoder/cavlc.c:485-560, and
+    the B_SKIP run ue of x264_slice_write): per coded MB the skip run,
+    mb_type ue (B_Direct_16x16 0, B_L0 / L1 / Bi_16x16 1 / 2 / 3, I16x16
+    23 + its I type), the intra chroma mode, the mvds of L0 then L1 (se,
+    each where its list is used), the inter cbp, mb_qp_delta se(0) and
+    the residual; the trailing skip run last. `out` keys as p_code_planes'
+    but ptype / mvd*, plus direct_mb, bmode, use_l0, use_l1, mvd_l0 and
+    mvd_l1. Returns flat (vals, lens) int64."""
+    dev = out["intra_mb"].device
+    nmb = mb_h * mb_w
+    intra = out["intra_mb"].reshape(nmb)
+    coded = ~out["skip"].reshape(nmb)
+    direct = out["direct_mb"].reshape(nmb)
+    cbp_l = out["cbp_luma_bits"].reshape(nmb).to(I64)
+    cbp_c = out["cbp_chroma"].reshape(nmb).to(I64)
+    mode16 = out["mode16"].reshape(nmb).to(I64)
+    modec = out["modec"].reshape(nmb).to(I64)
+    bmode = out["bmode"].reshape(nmb).to(I64)
+    use = (out["use_l0"].reshape(nmb), out["use_l1"].reshape(nmb))
+    mvds = (out["mvd_l0"].reshape(nmb, 2).to(I64),
+            out["mvd_l1"].reshape(nmb, 2).to(I64))
+    res_v, res_l = _residual_planes(out, mb_h, mb_w)
+    h_v = torch.zeros((nmb, B_HDR_SLOTS), dtype=I64, device=dev)
+    h_l = torch.zeros_like(h_v)
+    h_v[:, 0], h_l[:, 0] = ue_codes(_skip_runs(coded))
+    i16_type = 23 + 1 + mode16 + 4 * cbp_c + 12 * (cbp_l > 0).to(I64)
+    b_type = torch.where(direct, 0, bmode.clamp(0, 2) + 1)
+    h_v[:, 1], h_l[:, 1] = ue_codes(torch.where(intra, i16_type, b_type))
+    cv, cl = ue_codes(modec)
+    h_v[:, 2], h_l[:, 2] = cv, torch.where(intra, cl, 0)
+    for k in range(2):
+        for comp in range(2):
+            mv_, ml_ = se_codes(mvds[k][:, comp])
+            h_v[:, 3 + 2 * k + comp] = mv_
+            h_l[:, 3 + 2 * k + comp] = torch.where(use[k], ml_, 0)
+    bv, bl = ue_codes(_t(T.CBP_TO_GOLOMB_INTER, dev)[cbp_c * 16 + cbp_l])
+    h_v[:, 7], h_l[:, 7] = bv, torch.where(intra, 0, bl)
+    has_dqp = intra | (cbp_l > 0) | (cbp_c > 0)
+    qv, ql = se_codes(torch.zeros(nmb, dtype=I64, device=dev))
+    h_v[:, 8], h_l[:, 8] = qv, torch.where(has_dqp, ql, 0)
+    return _with_tail(h_v, h_l, res_v, res_l, coded)
+
+
+def cavlc_b_slice_plain(front: dict, maps: dict, mb_h: int, mb_w: int,
+                        hdr_vals, hdr_lens, cap_words: int):
+    """Plain version of K25: b_code_planes of the merged front and pass-A
+    maps between the header slots and the stop bit, then pack_codes."""
+    return _slice_words(*b_code_planes({**front, **maps}, mb_h, mb_w),
                         hdr_vals, hdr_lens, cap_words)
 
 
@@ -622,21 +706,21 @@ cavlc_i_slice.launches = cavlc_i_slice.launches_aq = 0
 
 
 def cavlc_p_slice(front: dict, maps: dict, mb_h: int, mb_w: int, hdr_vals,
-                  hdr_lens, cap_words: int):
+                  hdr_lens, cap_words: int, n_refs: int = 1):
     """K19 `cavlc_p_slice`: the packed CAVLC words of a P slice.
 
-    Replaces x264_tpu/entropy/device.py:p_code_planes (one reference)
-    and pack_codes, as x264_tpu/encoder/pipeline.py:encode_p calls them:
-    the header slots, each coded MB's mb_skip_run, mb_type, chroma pred
-    mode, sub_mb_types, mvds, inter cbp, mb_qp_delta and residual, the
-    trailing skip run and the stop bit. `front` holds
-    encoder/inter.py:encode_p_front's planes, `maps` pass A's
-    (cabac_planes.p_maps: skip, ptype, mvd, mvd1, mvd_sub; dqp under
-    AQ). On CUDA tensors it runs csrc/cavlc.cu as K18 does; on CPU
-    tensors the plain version. Returns as cavlc_i_slice."""
+    Replaces x264_tpu/entropy/device.py:p_code_planes and pack_codes, as
+    x264_tpu/encoder/pipeline.py:encode_p calls them: the header slots,
+    each coded MB's mb_skip_run, mb_type, chroma pred mode, sub_mb_types,
+    with n_refs 2 each partition's ref_idx bit, mvds, inter cbp,
+    mb_qp_delta and residual, the trailing skip run and the stop bit.
+    `front` holds encoder/inter.py:encode_p_front's planes, `maps` pass
+    A's (cabac_planes.p_maps: skip, ptype, mvd, mvd1, mvd_sub, ref_idx;
+    dqp under AQ). On CUDA tensors it runs csrc/cavlc.cu as K18 does; on
+    CPU tensors the plain version. Returns as cavlc_i_slice."""
     if front["intra_mb"].device.type == "cpu":
         return cavlc_p_slice_plain(front, maps, mb_h, mb_w, hdr_vals,
-                                   hdr_lens, cap_words)
+                                   hdr_lens, cap_words, n_refs)
     f_shapes = dict(intra_mb=((mb_h, mb_w), torch.bool),
                     mode16=((mb_h, mb_w), I32), modec=((mb_h, mb_w), I32),
                     cbp_luma_bits=((mb_h, mb_w), I32),
@@ -649,21 +733,66 @@ def cavlc_p_slice(front: dict, maps: dict, mb_h: int, mb_w: int, hdr_vals,
                     ptype=((mb_h, mb_w), I32), mvd=((mb_h, mb_w, 2), I32),
                     mvd1=((mb_h, mb_w, 2), I32),
                     mvd_sub=((mb_h, mb_w, 4, 2), I32))
-    aq = "dqp" in maps
+    aq, refs = "dqp" in maps, n_refs > 1
     if aq:
         m_shapes["dqp"] = ((mb_h, mb_w), I32)
+    if refs:
+        m_shapes["ref_idx"] = ((mb_h, mb_w), I32)
     for src, shapes in ((front, f_shapes), (maps, m_shapes)):
         for k, (shape, dt) in shapes.items():
             cuda.check(src[k], shape, dt, k)
     planes = [front[k] for k in f_shapes] \
         + [maps[k] for k in ("skip", "ptype", "mvd", "mvd1", "mvd_sub")] \
-        + [maps["dqp"] if aq else 0]
+        + [maps["dqp"] if aq else 0, maps["ref_idx"] if refs else 0]
     ret = _launch_slice("cavlc_p_slice", planes, mb_h, mb_w, hdr_vals,
                         hdr_lens, cap_words)
     cavlc_p_slice.launches += 4        # counts, bit counts, scan, write
     cavlc_p_slice.launches_aq += 4 * int(aq)
+    cavlc_p_slice.launches_ref2 += 4 * int(refs)
     return ret
 
 
-# launches, and those of them with mb_qp_delta planes
-cavlc_p_slice.launches = cavlc_p_slice.launches_aq = 0
+# launches, and those of them with mb_qp_delta planes and with the
+# ref_idx bit of two references
+cavlc_p_slice.launches = cavlc_p_slice.launches_aq = \
+    cavlc_p_slice.launches_ref2 = 0
+
+
+def cavlc_b_slice(front: dict, maps: dict, mb_h: int, mb_w: int, hdr_vals,
+                  hdr_lens, cap_words: int):
+    """K25 `cavlc_b_slice`: the packed CAVLC words of a B slice.
+
+    Replaces x264_tpu/entropy/device.py:b_code_planes and pack_codes, as
+    x264_tpu/encoder/pipeline.py:encode_b calls them: the header slots,
+    each coded MB's B_SKIP run, mb_type, chroma pred mode, the mvds of L0
+    and L1, inter cbp, mb_qp_delta 0 and residual, the trailing skip run
+    and the stop bit. `front` holds encoder/inter.py:encode_b_front's
+    planes, `maps` K24's pass A's (cabac_planes.b_maps: skip, use_l0,
+    use_l1, mvd_l0, mvd_l1). On CUDA tensors it runs csrc/cavlc.cu as
+    K19 does, on the same device functions; on CPU tensors the plain
+    version. Returns as cavlc_i_slice."""
+    if front["intra_mb"].device.type == "cpu":
+        return cavlc_b_slice_plain(front, maps, mb_h, mb_w, hdr_vals,
+                                   hdr_lens, cap_words)
+    g, g2 = (mb_h, mb_w), (mb_h, mb_w, 2)
+    f_shapes = dict(intra_mb=(g, torch.bool), mode16=(g, I32),
+                    modec=(g, I32), cbp_luma_bits=(g, I32),
+                    cbp_chroma=(g, I32), luma_dc=((mb_h, mb_w, 16), I32),
+                    luma_blocks=((mb_h, mb_w, 16, 16), I32),
+                    chroma_dc=((mb_h, mb_w, 2, 4), I32),
+                    chroma_ac=((mb_h, mb_w, 2, 4, 16), I32),
+                    direct_mb=(g, torch.bool), bmode=(g, I32))
+    m_shapes = dict(skip=(g, torch.bool), use_l0=(g, torch.bool),
+                    use_l1=(g, torch.bool), mvd_l0=(g2, I32),
+                    mvd_l1=(g2, I32))
+    for src, shapes in ((front, f_shapes), (maps, m_shapes)):
+        for k, (shape, dt) in shapes.items():
+            cuda.check(src[k], shape, dt, k)
+    planes = [front[k] for k in f_shapes] + [maps[k] for k in m_shapes]
+    ret = _launch_slice("cavlc_b_slice", planes, mb_h, mb_w, hdr_vals,
+                        hdr_lens, cap_words)
+    cavlc_b_slice.launches += 4        # counts, bit counts, scan, write
+    return ret
+
+
+cavlc_b_slice.launches = 0

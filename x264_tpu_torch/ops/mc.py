@@ -113,13 +113,16 @@ def blocks(stack, p, y0, x0, bh: int, bw: int):
     return stack[p[..., None, None], rows[..., :, None], cols[..., None, :]]
 
 
-def mc_luma(planes, ys, xs, mvs, bh: int, bw: int):
+def mc_luma(planes, ys, xs, mvs, bh: int, bw: int, ref_sel=None):
     """Batched quarter-pel luma fetch (mc_luma, common/mc.c:160).
 
     planes: (P, Hp, Wp) half-pel stack of hpel_planes (P = 4; a
     full-pel-only caller may pass P = 1: every full-pel MV reads plane
-    0). ys / xs: (...,) block top-left in unpadded coordinates; mvs:
-    (..., 2) quarter-pel (x, y). Returns (..., bh, bw) int32."""
+    0) or, with ref_sel, the (4 * n_refs, Hp, Wp) concatenation of each
+    reference's stack, ref_sel (...,) then each block's reference (the
+    multi-reference fetch of x264_mb_mc, common/macroblock.c:1122).
+    ys / xs: (...,) block top-left in unpadded coordinates; mvs: (..., 2)
+    quarter-pel (x, y). Returns (..., bh, bw) int32."""
     mvx, mvy = mvs[..., 0], mvs[..., 1]
     fx, fy = mvx & 3, mvy & 3
     qidx = ((fy << 2) + fx).long()
@@ -128,6 +131,9 @@ def mc_luma(planes, ys, xs, mvs, bh: int, bw: int):
     dev = planes.device
     p0 = torch.as_tensor(_HPEL_REF0, device=dev)[qidx]
     p1 = torch.as_tensor(_HPEL_REF1, device=dev)[qidx]
+    if ref_sel is not None:
+        p0 = p0 + 4 * ref_sel
+        p1 = p1 + 4 * ref_sel
     a = blocks(planes, p0, iy + (fy == 3), ix, bh, bw)
     b = blocks(planes, p1, iy, ix + (fx == 3), bh, bw)
     return (a + b + 1) >> 1
@@ -139,17 +145,21 @@ def avg(a, b):
     return (a + b + 1) >> 1
 
 
-def mc_chroma(padded, ys, xs, mvs, bh: int, bw: int):
+def mc_chroma(padded, ys, xs, mvs, bh: int, bw: int, ref_sel=None):
     """Batched 1/8-pel bilinear chroma fetch (mc_chroma, common/mc.c:205).
-    padded: a chroma plane padded by PAD // 2; ys / xs block top-left in
-    unpadded chroma coordinates; mvs: (..., 2) the luma quarter-pel MV
-    read as chroma eighth-pel. Returns (..., bh, bw) int32."""
+    padded: a chroma plane padded by PAD // 2 or, with ref_sel (...,),
+    the (n_refs, Hc, Wc) stack of each reference's; ys / xs block
+    top-left in unpadded chroma coordinates; mvs: (..., 2) the luma
+    quarter-pel MV read as chroma eighth-pel. Returns (..., bh, bw)
+    int32."""
     cpad = PAD // 2
     mvx, mvy = mvs[..., 0], mvs[..., 1]
     d8x, d8y = (mvx & 7)[..., None, None], (mvy & 7)[..., None, None]
     iy = ys + (mvy >> 3) + cpad
     ix = xs + (mvx >> 3) + cpad
-    s = blocks(padded[None], torch.zeros_like(iy), iy, ix, bh + 1, bw + 1)
+    if ref_sel is None:
+        padded, ref_sel = padded[None], torch.zeros_like(iy)
+    s = blocks(padded, ref_sel, iy, ix, bh + 1, bw + 1)
     s00, s01 = s[..., :bh, :bw], s[..., :bh, 1:]
     s10, s11 = s[..., 1:, :bw], s[..., 1:, 1:]
     return ((8 - d8x) * (8 - d8y) * s00 + d8x * (8 - d8y) * s01

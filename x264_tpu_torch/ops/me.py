@@ -41,6 +41,11 @@ PART_KEYS = ("t", "b", "l", "r", "q0", "q1", "q2", "q3")
 DIAMOND = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 
 
+def _ptr(t) -> int:
+    """A tensor's device pointer, or 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 def se_bits(v):
     """Bit length of the signed Exp-Golomb code of v (bs_size_se)."""
     m = torch.where(v > 0, 2 * v - 1, -2 * v).to(I32)
@@ -192,7 +197,8 @@ def subpel_offsets(steps):
 
 
 def subpel_refine_blocks_plain(cur, planes, mv_qpel, lam: int, mvp_qpel,
-                               ys, xs, bh: int, bw: int, steps):
+                               ys, xs, bh: int, bw: int, steps,
+                               ref_sel=None):
     """Plain version of K10 (refine_subpel, encoder/me.c:680).
 
     cur: the (H, W) source plane; the blocks are its (bh, bw) blocks at
@@ -202,14 +208,18 @@ def subpel_refine_blocks_plain(cur, planes, mv_qpel, lam: int, mvp_qpel,
     one (bh + 3, bw + 3) window of each plane (its start taken as
     dynamic_slice takes it) serves them all; a candidate's prediction is
     the rounding average of two plane samples (the hpel_ref0/1 scheme of
-    mc_luma). Cost SATD + lam * mv bits; the first minimum wins. Returns
-    (mv, satd) at the refined position, int32."""
+    mc_luma). Cost SATD + lam * mv bits; the first minimum wins. With
+    ref_sel (the blocks' shape: each block's reference) planes is the
+    (4 * n_refs, Hp, Wp) concatenation of each reference's stack and a
+    block reads the four planes of its own. Returns (mv, satd) at the
+    refined position, int32."""
     dev = planes.device
     cur_blocks = blocks(cur.to(I32)[None], torch.zeros_like(ys), ys, xs,
                         bh, bw)
     by = ys + (mv_qpel[..., 1] >> 2) - 1 + PAD
     bx = xs + (mv_qpel[..., 0] >> 2) - 1 + PAD
-    win = [blocks(planes, torch.full_like(by, k), by, bx, bh + 3, bw + 3)
+    base = torch.zeros_like(by) if ref_sel is None else 4 * ref_sel
+    win = [blocks(planes, base + k, by, bx, bh + 3, bw + 3)
            for k in range(4)]
     satds, mvs = [], []
     for ox, oy in subpel_offsets(steps):
@@ -232,18 +242,19 @@ def subpel_refine_blocks_plain(cur, planes, mv_qpel, lam: int, mvp_qpel,
 
 
 def subpel_refine_blocks(cur, planes, mv_qpel, lam: int, mvp_qpel, ys, xs,
-                         bh: int, bw: int, steps):
+                         bh: int, bw: int, steps, ref_sel=None):
     """K10 `subpel_refine`: the sub-pel refinement of a batch of blocks.
 
     Replaces x264_tpu/ops/me.py:subpel_refine_blocks (and subpel_refine,
     its 16x16 case). On CUDA tensors it runs csrc/subpel.cu, one CTA per
     block: the block and its four (bh + 3, bw + 3) plane windows sit in
-    shared memory and the 9 or 49 candidates are scored from there; on
-    CPU tensors the plain version. Arguments and results as
-    subpel_refine_blocks_plain."""
+    shared memory and the 9 or 49 candidates are scored from there (with
+    ref_sel from its block's reference's four planes); on CPU tensors the
+    plain version. Arguments and results as subpel_refine_blocks_plain."""
     if cur.device.type == "cpu":
         return subpel_refine_blocks_plain(cur, planes, mv_qpel, lam,
-                                          mvp_qpel, ys, xs, bh, bw, steps)
+                                          mvp_qpel, ys, xs, bh, bw, steps,
+                                          ref_sel)
     dev = cur.device
     n_cand = len(subpel_offsets(steps))
     if (bh, bw) not in ((16, 16), (8, 16), (16, 8), (8, 8)):
@@ -251,24 +262,31 @@ def subpel_refine_blocks(cur, planes, mv_qpel, lam: int, mvp_qpel, ys, xs,
     H, W = cur.shape
     lead = tuple(ys.shape)
     cuda.check(cur, (H, W), I32, "cur")
-    cuda.check(planes, (4, H + 2 * PAD, W + 2 * PAD), I32, "planes")
-    for t, shape, name in ((mv_qpel, lead + (2,), "mv_qpel"),
-                           (mvp_qpel, lead + (2,), "mvp_qpel"),
-                           (ys, lead, "ys"), (xs, lead, "xs")):
+    n_refs = 1 if ref_sel is None else planes.shape[0] // 4
+    cuda.check(planes, (4 * n_refs, H + 2 * PAD, W + 2 * PAD), I32,
+               "planes")
+    checks = [(mv_qpel, lead + (2,), "mv_qpel"),
+              (mvp_qpel, lead + (2,), "mvp_qpel"), (ys, lead, "ys"),
+              (xs, lead, "xs")]
+    if ref_sel is not None:
+        checks.append((ref_sel, lead, "ref_sel"))
+    for t, shape, name in checks:
         cuda.check(t, shape, I32, name)
     n = ys.numel()
     mv = torch.empty(lead + (2,), dtype=I32, device=dev)
     satd = torch.empty(lead, dtype=I32, device=dev)
-    cuda.launch("subpel", "subpel_refine", "pppppppp" + "iiiiiii" + "p",
+    cuda.launch("subpel", "subpel_refine", "ppppppppp" + "iiiiiii" + "p",
                 cur.data_ptr(), planes.data_ptr(), mv_qpel.data_ptr(),
                 mvp_qpel.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-                mv.data_ptr(), satd.data_ptr(), n, H, W, bh, bw, lam,
-                int(n_cand == 49), cuda.stream(dev))
+                _ptr(ref_sel), mv.data_ptr(), satd.data_ptr(), n, H, W, bh,
+                bw, lam, int(n_cand == 49), cuda.stream(dev))
     subpel_refine_blocks.launches += 1
+    subpel_refine_blocks.launches_ref2 += int(ref_sel is not None)
     return mv, satd
 
 
-subpel_refine_blocks.launches = 0
+# launches, and those of them with a reference per block
+subpel_refine_blocks.launches = subpel_refine_blocks.launches_ref2 = 0
 
 
 def mb_origins(mb_h: int, mb_w: int, device):
@@ -279,17 +297,19 @@ def mb_origins(mb_h: int, mb_w: int, device):
             xs.expand(mb_h, mb_w).contiguous())
 
 
-def subpel_refine(cur, planes, mv_qpel, lam: int, mvp_qpel, steps):
+def subpel_refine(cur, planes, mv_qpel, lam: int, mvp_qpel, steps,
+                  ref_sel=None):
     """The 16x16 case of subpel_refine_blocks: every MB of the (H, W)
-    source plane `cur`, MVs and predictors (mb_h, mb_w, 2)."""
+    source plane `cur`, MVs and predictors (mb_h, mb_w, 2), ref_sel
+    (mb_h, mb_w) each MB's reference or None."""
     ys, xs = mb_origins(*mv_qpel.shape[:2], cur.device)
     return subpel_refine_blocks(cur, planes, mv_qpel, lam, mvp_qpel, ys, xs,
-                                16, 16, steps)
+                                16, 16, steps, ref_sel)
 
 
 # ---------------------------------------------------------------- K11
 def partition_fullpel_plain(cur, ref_pad, mv16_qpel, lam: int, mvp_qpel,
-                            me_range: int, with_8x8: bool):
+                            me_range: int, with_8x8: bool, ref_sel=None):
     """Plain version of K11: the best full-pel MVs of the 16x8 and 8x16
     partitions (and, with_8x8, of the four 8x8 quadrants) of every MB,
     searched in a 7x7 window around the 16x16 full-pel winner (the
@@ -297,9 +317,10 @@ def partition_fullpel_plain(cur, ref_pad, mv16_qpel, lam: int, mvp_qpel,
     encoder/analyse.c:1274-1404). The centre clamps to
     +-min(R, PAD - 4); each offset's |diff| is reduced into the partition
     sums, and each sum takes the first minimum of sad + lam * mv bits
-    against mvp_qpel. cur: (H, W); ref_pad the padded reference luma;
-    mv16_qpel / mvp_qpel (mb_h, mb_w, 2). Returns (4 or 8, mb_h, mb_w, 2)
-    qpel MVs in PART_KEYS order."""
+    against mvp_qpel. cur: (H, W); ref_pad the padded reference luma or,
+    with ref_sel (mb_h, mb_w) each MB's reference, the (n_refs, Hp, Wp)
+    stack of the padded references; mv16_qpel / mvp_qpel (mb_h, mb_w, 2).
+    Returns (4 or 8, mb_h, mb_w, 2) qpel MVs in PART_KEYS order."""
     mb_h, mb_w = mv16_qpel.shape[:2]
     dev = cur.device
     m = PART_M
@@ -308,8 +329,10 @@ def partition_fullpel_plain(cur, ref_pad, mv16_qpel, lam: int, mvp_qpel,
     lim = min(me_range, PAD - m - 1)
     c = (mv16_qpel >> 2).clamp(-lim, lim)
     wn = 16 + 2 * m
-    win = _win_slices(ref_pad.to(I32), ys + c[..., 1] - m + PAD,
-                      xs + c[..., 0] - m + PAD, wn, wn)
+    if ref_sel is None:
+        ref_pad, ref_sel = ref_pad[None], torch.zeros_like(ys)
+    win = blocks(ref_pad.to(I32), ref_sel, ys + c[..., 1] - m + PAD,
+                 xs + c[..., 0] - m + PAD, wn, wn)
     sums = {k: [] for k in PART_KEYS[:8 if with_8x8 else 4]}
     for oy in range(2 * m + 1):
         for ox in range(2 * m + 1):
@@ -335,39 +358,46 @@ def partition_fullpel_plain(cur, ref_pad, mv16_qpel, lam: int, mvp_qpel,
 
 
 def partition_fullpel(cur, ref_pad, mv16_qpel, lam: int, mvp_qpel,
-                      me_range: int, with_8x8: bool):
+                      me_range: int, with_8x8: bool, ref_sel=None):
     """K11 `part_fullpel`: the full-pel partition search of every MB.
 
     Replaces x264_tpu/ops/me.py:partition_fullpel. On CUDA tensors it
     runs csrc/subpel.cu, one CTA per MB with the 22x22 window and the
-    16x16 source in shared memory; on CPU tensors the plain version.
-    Arguments and result as partition_fullpel_plain."""
+    16x16 source in shared memory (with ref_sel the window of the MB's
+    reference in the stack); on CPU tensors the plain version. Arguments
+    and result as partition_fullpel_plain."""
     if cur.device.type == "cpu":
         return partition_fullpel_plain(cur, ref_pad, mv16_qpel, lam,
-                                       mvp_qpel, me_range, with_8x8)
+                                       mvp_qpel, me_range, with_8x8, ref_sel)
     dev = cur.device
     mb_h, mb_w = mv16_qpel.shape[:2]
     H, W = mb_h * 16, mb_w * 16
     cuda.check(cur, (H, W), I32, "cur")
-    cuda.check(ref_pad, (H + 2 * PAD, W + 2 * PAD), I32, "ref_pad")
+    pad_shape = (H + 2 * PAD, W + 2 * PAD)
+    if ref_sel is not None:
+        pad_shape = (ref_pad.shape[0],) + pad_shape
+        cuda.check(ref_sel, (mb_h, mb_w), I32, "ref_sel")
+    cuda.check(ref_pad, pad_shape, I32, "ref_pad")
     cuda.check(mv16_qpel, (mb_h, mb_w, 2), I32, "mv16_qpel")
     cuda.check(mvp_qpel, (mb_h, mb_w, 2), I32, "mvp_qpel")
     nk = 8 if with_8x8 else 4
     out = torch.empty((nk, mb_h, mb_w, 2), dtype=I32, device=dev)
-    cuda.launch("subpel", "part_fullpel", "ppppp" + "iiiiii" + "p",
+    cuda.launch("subpel", "part_fullpel", "pppppp" + "iiiiii" + "p",
                 cur.data_ptr(), ref_pad.data_ptr(), mv16_qpel.data_ptr(),
-                mvp_qpel.data_ptr(), out.data_ptr(), mb_h, mb_w, me_range,
-                PAD, lam, nk, cuda.stream(dev))
+                mvp_qpel.data_ptr(), _ptr(ref_sel), out.data_ptr(), mb_h,
+                mb_w, me_range, PAD, lam, nk, cuda.stream(dev))
     partition_fullpel.launches += 1
+    partition_fullpel.launches_ref2 += int(ref_sel is not None)
     return out
 
 
-partition_fullpel.launches = 0
+# launches, and those of them with a reference per MB
+partition_fullpel.launches = partition_fullpel.launches_ref2 = 0
 
 
 # ---------------------------------------------------------------- K12
 def chroma_rerank_plain(cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv_qpel,
-                        lam: int, mvp_qpel, center_satd):
+                        lam: int, mvp_qpel, center_satd, ref_sel=None):
     """Plain version of K12 (b_chroma_me: the refine_subpel chroma term,
     encoder/me.c:61-66, which the reference applies in its 4-neighbour
     qpel diamond at subme >= 5): the five candidates of DIAMOND around
@@ -377,7 +407,9 @@ def chroma_rerank_plain(cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv_qpel,
     *luma* SATD at the chosen MV): the kept cost stays in luma units, a
     deviation x264_tpu documents and the port keeps. cur / cur_u /
     cur_v: the source planes; cu_pad / cv_pad the chroma references
-    padded by PAD // 2; mv_qpel, mvp_qpel (mb_h, mb_w, 2)."""
+    padded by PAD // 2; mv_qpel, mvp_qpel (mb_h, mb_w, 2). With ref_sel
+    (mb_h, mb_w) each MB's reference, planes / cu_pad / cv_pad are the
+    stacks of mc_luma / mc_chroma's multi-reference fetch."""
     mb_h, mb_w = mv_qpel.shape[:2]
     dev = cur.device
     ys, xs = mb_origins(mb_h, mb_w, dev)
@@ -389,11 +421,12 @@ def chroma_rerank_plain(cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv_qpel,
         if ox == 0 and oy == 0:
             lsatd = center_satd
         else:
-            lsatd = opix.satd(ct, omc.mc_luma(planes, ys, xs, mv, 16, 16))
+            lsatd = opix.satd(ct, omc.mc_luma(planes, ys, xs, mv, 16, 16,
+                                              ref_sel))
         csatd = (opix.satd(cu, omc.mc_chroma(cu_pad, ys >> 1, xs >> 1, mv,
-                                             8, 8))
+                                             8, 8, ref_sel))
                  + opix.satd(cv, omc.mc_chroma(cv_pad, ys >> 1, xs >> 1, mv,
-                                               8, 8)))
+                                               8, 8, ref_sel)))
         cost = lsatd + csatd + lam * mv_cost_bits(mv, mvp_qpel)
         if best_cost is None:
             best_cost, best_mv, best_l = cost, mv, lsatd
@@ -406,42 +439,50 @@ def chroma_rerank_plain(cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv_qpel,
 
 
 def chroma_rerank(cur, planes, cur_u, cur_v, cu_pad, cv_pad, mv_qpel,
-                  lam: int, mvp_qpel, center_satd):
+                  lam: int, mvp_qpel, center_satd, ref_sel=None):
     """K12 `chroma_rerank`: the chroma-ME re-rank of every MB.
 
     Replaces x264_tpu/ops/me.py:chroma_rerank. The candidates' phases vary
     per MB, so on CUDA tensors csrc/subpel.cu fetches each MB's five luma
     and chroma predictions into shared memory (one CTA per MB) and scores
-    them there; on CPU tensors the plain version. Arguments and results
-    as chroma_rerank_plain."""
+    them there (with ref_sel from the MB's reference's planes); on CPU
+    tensors the plain version. Arguments and results as
+    chroma_rerank_plain."""
     if cur.device.type == "cpu":
         return chroma_rerank_plain(cur, planes, cur_u, cur_v, cu_pad,
                                    cv_pad, mv_qpel, lam, mvp_qpel,
-                                   center_satd)
+                                   center_satd, ref_sel)
     dev = cur.device
     mb_h, mb_w = mv_qpel.shape[:2]
     H, W = mb_h * 16, mb_w * 16
-    for t, shape, name in (
-            (cur, (H, W), "cur"), (planes, (4, H + 2 * PAD, W + 2 * PAD),
-                                   "planes"),
-            (cur_u, (H // 2, W // 2), "cur_u"),
-            (cur_v, (H // 2, W // 2), "cur_v"),
-            (cu_pad, (H // 2 + PAD, W // 2 + PAD), "cu_pad"),
-            (cv_pad, (H // 2 + PAD, W // 2 + PAD), "cv_pad"),
-            (mv_qpel, (mb_h, mb_w, 2), "mv_qpel"),
-            (mvp_qpel, (mb_h, mb_w, 2), "mvp_qpel"),
-            (center_satd, (mb_h, mb_w), "center_satd")):
+    n_refs = 1 if ref_sel is None else planes.shape[0] // 4
+    cshape = (H // 2 + PAD, W // 2 + PAD)
+    if ref_sel is not None:
+        cshape = (n_refs,) + cshape
+    checks = [(cur, (H, W), "cur"),
+              (planes, (4 * n_refs, H + 2 * PAD, W + 2 * PAD), "planes"),
+              (cur_u, (H // 2, W // 2), "cur_u"),
+              (cur_v, (H // 2, W // 2), "cur_v"),
+              (cu_pad, cshape, "cu_pad"), (cv_pad, cshape, "cv_pad"),
+              (mv_qpel, (mb_h, mb_w, 2), "mv_qpel"),
+              (mvp_qpel, (mb_h, mb_w, 2), "mvp_qpel"),
+              (center_satd, (mb_h, mb_w), "center_satd")]
+    if ref_sel is not None:
+        checks.append((ref_sel, (mb_h, mb_w), "ref_sel"))
+    for t, shape, name in checks:
         cuda.check(t, shape, I32, name)
     mv = torch.empty((mb_h, mb_w, 2), dtype=I32, device=dev)
     satd = torch.empty((mb_h, mb_w), dtype=I32, device=dev)
-    cuda.launch("subpel", "chroma_rerank", "p" * 11 + "iii" + "p",
+    cuda.launch("subpel", "chroma_rerank", "p" * 12 + "iii" + "p",
                 cur.data_ptr(), planes.data_ptr(), cur_u.data_ptr(),
                 cur_v.data_ptr(), cu_pad.data_ptr(), cv_pad.data_ptr(),
                 mv_qpel.data_ptr(), mvp_qpel.data_ptr(),
-                center_satd.data_ptr(), mv.data_ptr(), satd.data_ptr(),
-                mb_h, mb_w, lam, cuda.stream(dev))
+                center_satd.data_ptr(), _ptr(ref_sel), mv.data_ptr(),
+                satd.data_ptr(), mb_h, mb_w, lam, cuda.stream(dev))
     chroma_rerank.launches += 1
+    chroma_rerank.launches_ref2 += int(ref_sel is not None)
     return mv, satd
 
 
-chroma_rerank.launches = 0
+# launches, and those of them with a reference per MB
+chroma_rerank.launches = chroma_rerank.launches_ref2 = 0
