@@ -126,6 +126,21 @@ Phases; any failure exits non-zero before the result line:
      of phase 11 and of the B frames but CABAC's; frames 0-2 must equal
      a CPU run, and so must an IDR, P, B run of the second picture at
      i_bframe 1; the phase reports as phase 14, beside phase 11.
+ 16. phase 12's settings with --nr 250 and --cqm jvt, on phase 7's 32
+     frames: every kernel of phase 12 must launch, K6's NR branch on
+     every P frame and K26 twice on each (the 4x4 and the 8x8 sums),
+     with the offsets passed; IDRs at 0 and 26 only; frames 0-2 must
+     equal a CPU run; the phase reports fps, bytes, PSNR / SSIM beside
+     phase 12's and the final NR offsets. Then 3 frames at
+     i_mb_row_shards 2 on the one card: x264_tpu's fallback line must be
+     logged and the bytes must equal i_mb_row_shards 1's at the
+     parameters validate() leaves (I8x8 off, as x264_tpu turns it off).
+ 17. lossless (CQP 0, subme 6: the bypass, the RD ladder off) on 8
+     frames of make_frames with CABAC, then 3 with CAVLC: K1, K6 and K7
+     must take their lossless branches, every frame's reconstruction on
+     the card must equal its source, frames 0-1 of each must equal a CPU
+     run; the phase reports bytes per frame and the fullest CAVLC
+     frame's bits per MB against the word buffer's 4800.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
@@ -161,16 +176,23 @@ block shape), K11, K12, K6 and K13 on the arguments encode_p_front gave
 them and again with a seeded reference index, K8 with the ref_idx bins
 and K2 on a ref4 holding 0, 1 and -1, K8's pass A alone and K19 with the
 ref_idx bit (and with a dropping capacity), and K24's pass A alone and
-K25 on the B frame above (and with a dropping capacity), all exact. The
+K25 on the B frame above (and with a dropping capacity), all exact; and
+the noise reduction and lossless: K6's NR branch at t8 0, 1 and 2 with
+the deadzone quant, the trellis, and the trellis with frame 1's QP map,
+K26 on that frame's 4x4 and 8x8 |coef|, on the 30%-gray reference's and
+on 1080p |coef| whose sums pass 2^24, and the lossless branches of K1
+(frame 0), K6 and K7 (frame 1 against frame 0's recon), each recon the
+source, all exact. The
 line before the last is the JSON `kernels` record (the 8x8, AQ, CAVLC,
-trellis and two-reference variants as records of their own, each
+trellis, two-reference, NR and lossless variants as records of their own, each
 counting the launches that took its branch; `launches` is the count of
 the kernel's own main path, phase 11 for K18, K19 and K8's pass A alone,
 phase 12 for K6's trellis branch and K20 (0: its device code runs
 inside K6), phase 13 for the B kernels and branches, phase 14 for the
 two-reference branches, phase 15 for K25, K24's pass A alone and the
-CAVLC two-reference branches, phase 9 for the others, the other phases'
-beside it); the
+CAVLC two-reference branches, phase 16 for K26 and K6's NR branch,
+phase 17's CABAC run for the lossless branches, phase 9 for the others,
+the other phases' beside it); the
 last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
@@ -205,6 +227,12 @@ N_INTRA_CAVLC = 5              # frames of bench.py's all-intra CAVLC line
 N_CHECK_CAVLC = 1              # frames of phase 11 held against the CPU
 N_TRELLIS = 32                 # frames of the defaults with the trellis
 N_BFRAMES = 32                 # frames of the defaults with B frames
+N_NR = 32                      # frames of the defaults with NR + JVT
+                               # matrices (phase 16)
+N_CHECK_NR = 3                 # of them held against the CPU
+N_LOSSLESS = 8                 # frames of the lossless CABAC run (phase 17)
+N_LOSSLESS_CAVLC = 3           # and of its CAVLC run
+N_CHECK_LOSSLESS = 2           # frames of each held against the CPU
 N_PRESET = 32                  # frames of x264's default preset (phases
                                # 14 and 15)
 SUBME = 5
@@ -290,6 +318,12 @@ K21_BI_OPS_PER_BLOCK = 600
 K22_PASS1_OPS_PER_MB = K6_OPS_PER_MB + 2 * 384 * 16 + 16 * 130
 K22_PASS2_OPS_PER_MB = K6_OPS_PER_MB + 2 * 384 * 16
 K23_OPS_PER_MB = 2 * 300 + 2 * 256 * 16 + 16 * 130
+# the noise reduction: K6 per MB adds, for each of the 256 4x4 and 256
+# 8x8 coefficients, the |c| store, the shrink and the sign (~4 ops); K26
+# one float addition per |coef| (counted from the tensors). Lossless: K1
+# per MB skips the 40 blocks' transform / quant / recon (~350 ops each)
+K6_NR_OPS_PER_MB = 512 * 4
+K1_LOSSLESS_OPS_PER_MB = K1_OPS_PER_MB - 40 * 350
 
 
 T0 = time.perf_counter()
@@ -442,6 +476,47 @@ def preset_flash_params(EncoderParams, frame_parallel: int = 3):
     p = preset_params(EncoderParams, frame_parallel)
     p.i_bframe = 0
     return p
+
+
+def nr_cqm_params(EncoderParams, frame_parallel: int = 3, shards: int = 1):
+    """Phase 12's settings (x264_tpu's defaults with --trellis 1) with
+    --nr 250 and the JVT quant matrices (--cqm jvt); shards: the
+    i_mb_row_shards the one card falls back from."""
+    p = trellis_params(EncoderParams, frame_parallel)
+    p.analyse.i_noise_reduction = 250
+    p.i_cqm_preset = 1
+    p.i_mb_row_shards = shards
+    return p
+
+
+def lossless_params(EncoderParams, frame_parallel: int = 3,
+                    cabac: bool = True):
+    """Lossless: CQP 0 at subme 6, keyint 250, x264_tpu's defaults
+    otherwise (validate() turns the 8x8 transform, the trellis and B
+    frames off; the encoder the RD ladder), CABAC or CAVLC."""
+    p = EncoderParams(i_width=W, i_height=H, i_keyint_max=250,
+                      i_log_level=0, i_frame_parallel=frame_parallel,
+                      b_cabac=cabac)
+    p.rc.i_rc_method = 0            # CQP
+    p.rc.i_qp_constant = 0
+    p.analyse.i_subpel_refine = 6
+    return p
+
+
+def lossless_cavlc_params(EncoderParams, frame_parallel: int = 3):
+    return lossless_params(EncoderParams, frame_parallel, cabac=False)
+
+
+def lossless_check(done, frames, what: str) -> None:
+    """Every frame's reconstruction on the card equals its source: the
+    bypass's own proof."""
+    for i, e in enumerate(done):
+        for pl in "yuv":
+            got = getattr(e.recon, pl).cpu().numpy()
+            if not np.array_equal(got, getattr(frames[i], pl)):
+                fail(f"{what}: frame {i} recon {pl} is not its source")
+    print(f"{what}: the recons of frames 0-{len(done) - 1} equal their "
+          f"sources", flush=True)
 
 
 def flash_frames(w: int, h: int, n: int, frame_cls):
@@ -806,7 +881,9 @@ def main() -> None:
     from x264_tpu_torch.headers import SLICE_B, SLICE_I, SLICE_P, SliceHeader
     from x264_tpu_torch.ops import dct as odct
     from x264_tpu_torch.ops import deblock, mc, me
+    from x264_tpu_torch.ops import quant as oquant
     from x264_tpu_torch.ops import trellis as otrellis
+    from x264_tpu_torch import log as xlog
 
     # ---------------------------------------------------------- 1. card
     smi = subprocess.run(
@@ -2543,6 +2620,131 @@ def main() -> None:
           f"{rec['b_maps']['ms']:.3f} ms, K25 {rec['cavlc_b_slice']['ms']:.3f}"
           f" ms ({bits25} bits) [{smi_line}]", flush=True)
 
+    # ------------------------------ the noise reduction and lossless
+    stamp("phase 3: the noise reduction's and the lossless kernels")
+    rng26 = np.random.default_rng(26)
+    off4 = torch.as_tensor(rng26.integers(0, 300, 16), dtype=torch.int32,
+                           device=dev)
+    off8 = torch.as_tensor(rng26.integers(0, 300, 64), dtype=torch.int32,
+                           device=dev)
+    nr_kw = dict(nr_offset4=off4, nr_offset8=off8)
+    # K6's NR branch at t8 0, 1 and 2 on the subme-6 arguments of frame 1
+    # against frame 0's recon: the deadzone quant at QP 26, the trellis at
+    # QP 26, and the trellis with frame 1's QP map and the 52-QP stacks
+    qtab_rd_st = {**qtab_rd_aq, **inter.trellis_stacks(0, 0, dev)}
+    for qtab_n, qm, tag in ((qtab_rd, None, f"QP {QP}"),
+                            (tr_frame, None, f"QP {QP}, trellis"),
+                            (qtab_rd_st, qm1, "QP map, trellis")):
+        for t8m in (inter.T8_OFF, inter.T8_SA8D, inter.T8_RD):
+            a6n = (*a6t, qtab_n, True, t8m, qm)
+            n0 = inter.p_inter_mb.launches_nr
+            k6n = inter.p_inter_mb(*a6n, **nr_kw)
+            if inter.p_inter_mb.launches_nr != n0 + 1:
+                fail("K6 did not count its NR launch")
+            err6n = exact(f"K6 p_inter_mb with NR ({tag}, t8 {t8m})", k6n,
+                          inter.p_inter_mb_plain(*a6n, **nr_kw))
+            if "nr_sum8" in k6n and not (k6n["nr_sum8"] > 0).any():
+                fail(f"K6 with NR ({tag}, t8 {t8m}) summed no 8x8 |coef|")
+    ms6n = event_ms(lambda: inter.p_inter_mb(*a6n, **nr_kw), 10)
+    ms6o = event_ms(lambda: inter.p_inter_mb(*a6n), 10)
+    pl6n = event_ms(lambda: inter.p_inter_mb_plain(*a6n, **nr_kw), 1)
+    record("p_inter_mb_nr", "cuda", "x264_tpu_torch/csrc/inter.cu",
+           "x264_tpu/encoder/inter.py:119", err6n, ms6n, pl6n,
+           nbytes(*a6t[2:10], qtab_rd_st["trellis_tab"], stacks["inter"],
+                  qm1, off4, off8, *k6n.values()),
+           (K6_T8_OPS_PER_MB + K6_NR_OPS_PER_MB) * nmb
+           + trellis_ops(cats6, qmfs6))
+    # K26 on that frame's |coef| (the plain residual functions give them),
+    # on the 30%-gray reference's, and on 1080p-shaped |coef| past 2^24
+    fenc6 = inter._tiles(y1, 16)
+    err26, sums = 0, []
+    for ref, tag in (((ry, ru, rv), "frame 1 on frame 0"),
+                     (mixed, "frame 1 on the 30%-gray reference")):
+        pred = inter._tiles(ref[0], 16)
+        abs4 = inter.inter_luma_residual(fenc6, pred, qtab_rd,
+                                         nr_offset=off4)[3] \
+            .reshape(mb_h, mb_w, 16, 16)
+        abs8 = inter.inter_luma_residual8(fenc6, pred, qtab_rd,
+                                          nr_offset=off8)[3] \
+            .reshape(mb_h, mb_w, 4, 64)
+        for a in (abs4, abs8):
+            err26 = max(err26, exact(f"K26 nr_sums ({tag}, {a.shape[-1]})",
+                                     [oquant.nr_sums(a)],
+                                     [oquant.nr_sums_plain(a)]))
+        sums.append(float(oquant.nr_sums(abs4).max()) / 2 ** 24)
+    big = torch.as_tensor(rng26.integers(0, 20000, (mb_h, mb_w, 16, 16)),
+                          dtype=torch.int32, device=dev)
+    kb, pb = oquant.nr_sums(big), oquant.nr_sums_plain(big)
+    err26 = max(err26, exact("K26 nr_sums (|coef| up to 20000)", [kb], [pb]))
+    if float(pb.max()) <= 2 ** 24:
+        fail("K26's large case did not pass 2^24")
+    a26 = (abs4, abs8)
+    ms26 = sum(event_ms(lambda: oquant.nr_sums(a), 10) for a in a26)
+    pl26 = sum(event_ms(lambda: oquant.nr_sums_plain(a), 1) for a in a26)
+    lib26 = sum(event_ms(lambda: torch.sum(a, dim=(0, 1, 2),
+                                           dtype=torch.float32), 10)
+                for a in a26)
+    record("nr_sums", "cuda", "x264_tpu_torch/csrc/nr.cu",
+           "x264_tpu/ops/quant.py:120", err26, ms26, pl26,
+           nbytes(*a26) + 4 * (16 + 64),
+           sum(a.numel() for a in a26), lib26)
+    print(f"noise reduction: K6's NR branch exact at t8 0 / 1 / 2 (deadzone,"
+          f" trellis, trellis with a QP map); {ms6n:.3f} ms with NR (its two"
+          f" K26 launches included) against {ms6o:.3f} without, same inputs;"
+          f" K26 exact on frame 1's |coef| (largest 4x4 sum "
+          f"{sums[0]:.4f} x 2^24; on the gray reference {sums[1]:.4f} x "
+          f"2^24) and on 1080p |coef| up to 20000 (largest sum "
+          f"{float(pb.max()) / 2 ** 24:.2f} x 2^24), {ms26:.3f} ms for a P "
+          f"frame's 4x4 + 8x8 sums [{smi_line}]", flush=True)
+    # the lossless bypass: K1 on frame 0, K6 and K7 on frame 1 against
+    # frame 0's recon (the subme-6 partitions), CQP 0
+    qtab0 = inter.make_qtab_p(0, tables.chroma_qp(0, 0), dev)
+    lam0 = int(tables.LAMBDA_TABLE[0])
+    a1l = (mb_h, mb_w, y, u, v, qtab0, lam0)
+    k1l, n1l = counted(intra.encode_i16_frame, *a1l, False, None, True)
+    torch.cuda.synchronize()
+    p1l = {}
+    pl1l = event_ms(lambda: p1l.update(intra.encode_i16_frame_plain(
+        *a1l, lossless=True)), 1)
+    err1l = exact("K1 intra_diag lossless", k1l, p1l)
+    for src, key in ((y, "recon_y"), (u, "recon_u"), (v, "recon_v")):
+        if not torch.equal(k1l[key], src):
+            fail(f"K1 lossless: {key} is not the source")
+    ms1l = event_ms(lambda: intra.encode_i16_frame(*a1l, lossless=True), 3)
+    record("intra_diag_lossless", "cuda", "x264_tpu_torch/csrc/intra.cu",
+           "x264_tpu/encoder/intra.py:97", err1l, ms1l, pl1l,
+           nbytes(y, u, v) + nbytes(*k1l.values()),
+           K1_LOSSLESS_OPS_PER_MB * nmb)
+    a6l = (*a6t[:10], qtab0, False)
+    k6l = inter.p_inter_mb(*a6l, lossless=True)
+    err6l = exact("K6 p_inter_mb lossless", k6l,
+                  inter.p_inter_mb_plain(*a6l, lossless=True))
+    for src, key in ((y1, "recon_y"), (u1, "recon_u"), (v1, "recon_v")):
+        if not torch.equal(k6l[key], src):
+            fail(f"K6 lossless: {key} is not the source")
+    ms6l = event_ms(lambda: inter.p_inter_mb(*a6l, lossless=True), 10)
+    pl6l = event_ms(lambda: inter.p_inter_mb_plain(*a6l, lossless=True), 1)
+    record("p_inter_mb_lossless", "cuda", "x264_tpu_torch/csrc/inter.cu",
+           "x264_tpu/encoder/inter.py:106", err6l, ms6l, pl6l,
+           nbytes(*a6t[2:10], *k6l.values()), K6_SUBPEL_OPS_PER_MB * nmb)
+    a7l = (mb_h, mb_w, y1, u1, v1, k6l["recon_y"], k6l["recon_u"],
+           k6l["recon_v"], rd_ms["a7"][8], qtab0, lam0, False)
+    k7l = inter.intra_in_p(*a7l, lossless=True)
+    err7l = exact("K7 intra_in_p lossless", k7l,
+                  inter.intra_in_p_plain(*a7l, lossless=True))
+    if not torch.equal(k7l["recon_y"], y1):
+        fail("K7 lossless: recon_y is not the source")
+    n_intra_l = int(k7l["intra_mb"].sum())
+    ms7l = event_ms(lambda: inter.intra_in_p(*a7l, lossless=True), 10)
+    pl7l = event_ms(lambda: inter.intra_in_p_plain(*a7l, lossless=True), 1)
+    record("intra_in_p_lossless", "cuda", "x264_tpu_torch/csrc/intra_p.cu",
+           "x264_tpu/encoder/inter.py:634", err7l, ms7l, pl7l,
+           nbytes(*a7l[2:9], *k7l.values()),
+           K7_OPS_PER_MB_SWEEP * (nmb + 2 * n_intra_l))
+    print(f"lossless: K1 ({n1l} launches), K6 and K7 exact, every recon the"
+          f" source; K1 {ms1l:.3f} ms, K6 {ms6l:.3f} ms, K7 {ms7l:.3f} ms "
+          f"({n_intra_l} intra MBs) [{smi_line}]", flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -2571,7 +2773,8 @@ def main() -> None:
                 "b_direct": inter.b_direct,
                 "cabac_b_ops": cabac_planes.cabac_b_ops,
                 "b_maps": cabac_planes.b_maps,
-                "cavlc_b_slice": cavlc.cavlc_b_slice}
+                "cavlc_b_slice": cavlc.cavlc_b_slice,
+                "nr_sums": oquant.nr_sums}
     # the kernels and branches of variance AQ, idle at constant QP
     aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
                "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
@@ -2609,7 +2812,14 @@ def main() -> None:
                                      "launches_ref2"),
                 "p_maps_ref2": (cabac_planes.p_maps, "launches_ref2"),
                 "cavlc_p_slice_ref2": (cavlc.cavlc_p_slice,
-                                       "launches_ref2")}
+                                       "launches_ref2"),
+                "p_inter_mb_nr": (inter.p_inter_mb, "launches_nr"),
+                "intra_diag_lossless": (intra.encode_i16_frame,
+                                        "launches_lossless"),
+                "p_inter_mb_lossless": (inter.p_inter_mb,
+                                        "launches_lossless"),
+                "intra_in_p_lossless": (inter.intra_in_p,
+                                        "launches_lossless")}
     # the kernels and branches of B frames, idle without them
     b_only = ("lowres_bcost", "b_inter_mb", "intra_in_b_decide",
               "intra_in_b_sweeps", "b_direct", "cabac_b_ops",
@@ -2624,7 +2834,12 @@ def main() -> None:
     # 14 and 15 run them)
     ref2_only = tuple(k for k in variants if k.endswith("_ref2"))
     cavlc_b_only = ("b_maps", "cavlc_b_slice")
-    later = ref2_only + cavlc_b_only
+    # the noise reduction's kernel and branch, and the lossless branches,
+    # idle without --nr and above CQP 0 (phases 16 and 17 run them)
+    nr_only = ("nr_sums", "p_inter_mb_nr")
+    lossless_only = ("intra_diag_lossless", "p_inter_mb_lossless",
+                     "intra_in_p_lossless")
+    later = ref2_only + cavlc_b_only + nr_only + lossless_only
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
                   scenecut: int = 0, src=None, make=None):
@@ -2956,7 +3171,8 @@ def main() -> None:
                 f"{ph9['psnr']:.4f} dB, SSIM {summary['ssim_y']:.6f} vs "
                 f"{ph9['ssim']:.6f}, frame QPs equal to phase 9's: "
                 f"{qps == ph9['qps']}", idrs=(0, CUT), rc="CRF 23")
-    ph12 = dict(fps=fps)
+    ph12 = dict(fps=fps, idr=len(done[0].payload), p=p12,
+                psnr=summary["psnr"]["avg"], ssim=summary["ssim_y"])
     same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250,
                 what12, make=trellis_params, frame_parallel=3)
     device_split(x264_tpu_torch, cut, 4, 8, 6, 40, make=trellis_params,
@@ -3083,7 +3299,8 @@ def main() -> None:
         fail(f"{what14}: the preset did not open ref 2, i_bframe 3, b-adapt "
              f"1, the trellis, AQ, the 8x8 transform and RD")
     idle14 = set(cavlc_only) | set(cavlc_b_only) | set(standalone) | {
-        "p_inter_mb_t8_sa8d", "p_maps_ref2", "cavlc_p_slice_ref2"}
+        "p_inter_mb_t8_sa8d", "p_maps_ref2", "cavlc_p_slice_ref2"} \
+        | set(nr_only) | set(lossless_only)
     for k, n in launches_14.items():
         if (n <= 0) != (k in idle14):
             fail(f"kernel {k} was launched {n} times on {what14}")
@@ -3146,7 +3363,7 @@ def main() -> None:
              f"B frames without the trellis and the 8x8 transform")
     idle15 = set(cabac_only) | {k for k in launches_15 if "t8" in k
                                 or "i8x8" in k} | set(trellis_only) \
-        | set(standalone)
+        | set(standalone) | set(nr_only) | set(lossless_only)
     for k, n in launches_15.items():
         if (n <= 0) != (k in idle15):
             fail(f"kernel {k} was launched {n} times on {what15}")
@@ -3177,13 +3394,138 @@ def main() -> None:
                   what15b, preset_cavlc_b1_params)
     device_split(x264_tpu_torch, cut, 24, 8, 6, 40,
                  make=preset_cavlc_params, tag=what15)
+    # ---- 16. the defaults with the trellis, --nr 250 and --cqm jvt
+    stamp("phase 16")
+    seen16 = []
+    encode_p = pipeline.encode_p_cabac
+
+    def seen_nr(*a, **k):
+        seen16.append(("nr_offset4" in k, "nr_offset8" in k))
+        return encode_p(*a, **k)
+
+    pipeline.encode_p_cabac = seen_nr
+    what16 = ("x264_tpu's defaults with --trellis 1, --nr 250 and --cqm jvt "
+              "(CRF 23, variance AQ)")
+    try:
+        done, summary, launches_16, header, fps, med, enc = main_path(
+            250, N_NR, what16, src=cut, make=nr_cqm_params)
+    finally:
+        pipeline.encode_p_cabac = encode_p
+    if not (enc._nr == 250 and enc.params.i_cqm_preset == 1
+            and (enc.qt.scaling_list4 != 16).any() and enc._trellis
+            and enc._aq and enc._t8 and enc._rd):
+        fail(f"{what16}: the parameters did not open the noise reduction, "
+             f"the JVT matrices, the trellis, AQ and the 8x8 transform")
+    idle16 = {"p_inter_mb_t8_sa8d", *cavlc_only, *standalone, *b_only,
+              *ref2_only, *cavlc_b_only, *lossless_only}
+    for k, n in launches_16.items():
+        if (n <= 0) != (k in idle16):
+            fail(f"kernel {k} was launched {n} times on {what16}")
+    n_p16 = sum(e.frame_type == "P" for e in done)
+    if (launches_16["p_inter_mb_nr"], launches_16["nr_sums"],
+            len(seen16)) != (n_p16, 2 * n_p16, n_p16) or \
+            not all(a and b for a, b in seen16):
+        fail(f"{what16}: {n_p16} P frames, K6's NR branch "
+             f"{launches_16['p_inter_mb_nr']}, K26 {launches_16['nr_sums']} "
+             f"launches, offsets passed {seen16}")
+    qps = [e.qp for e in enc.rc.entries]
+    p16 = statistics.mean(len(e.payload) for i, e in enumerate(done)
+                          if i not in (0, CUT))
+    ippp_report(done, summary, enc.stats, fps, med, N_NR, 6, smi_line,
+                nmb, f", CRF 23 with variance AQ, trellis 1, NR 250, JVT "
+                f"matrices: frame QPs {min(qps)}-{max(qps)} ({qps}), IDRs at "
+                f"frames 0 and {CUT}; against phase 12 (the same without NR "
+                f"and CQM): {fps:.3f} fps vs {ph12['fps']:.3f}, IDR "
+                f"{len(done[0].payload)} vs {ph12['idr']} bytes, P {p16:.0f} "
+                f"vs {ph12['p']:.0f} bytes/frame, PSNR avg "
+                f"{summary['psnr']['avg']:.4f} vs {ph12['psnr']:.4f} dB, SSIM "
+                f"{summary['ssim_y']:.6f} vs {ph12['ssim']:.6f}; the final "
+                f"NR offsets 4x4 {enc._nr_off[0].tolist()}, 8x8 "
+                f"{enc._nr_off[1].tolist()}", idrs=(0, CUT), rc="CRF 23")
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_NR, 250, what16,
+                make=nr_cqm_params, frame_parallel=3)
+    # i_mb_row_shards 2 on the one card: x264_tpu's fallback line, and the
+    # bytes of i_mb_row_shards 1 at the parameters validate() leaves
+    # (with shards it turns I8x8 off, as x264_tpu's does)
+    what16s = f"{what16} at i_mb_row_shards 2"
+    lines = []
+    xlog.set_log_callback(lambda level, msg: lines.append(msg))
+    try:
+        p2 = nr_cqm_params(x264_tpu_torch.EncoderParams, 3, shards=2)
+        p2.i_log_level = 2
+        enc2 = x264_tpu_torch.Encoder(p2)
+    finally:
+        xlog.set_log_callback(None)
+    enc2.params.i_log_level = 0      # no stats report at close()
+    want = (f"mb-row sharding unavailable (shards=2, mb_h={mb_h}); "
+            f"encoding unsharded")
+    if want not in lines:
+        fail(f"{what16s}: the fallback line is missing from {lines}")
+    done2, _, _ = drive(enc2, cut[:3])
+    enc2.close()
+    p1 = nr_cqm_params(x264_tpu_torch.EncoderParams, 3)
+    p1.analyse.intra = enc2.params.analyse.intra
+    enc1 = x264_tpu_torch.Encoder(p1)
+    done1, _, _ = drive(enc1, cut[:3])
+    enc1.close()
+    if [e.payload for e in done2] != [e.payload for e in done1]:
+        fail(f"{what16s}: the bytes differ from i_mb_row_shards 1's")
+    print(f"{what16s}: logs '{want}', and frames 0-2 "
+          f"({[len(e.payload) for e in done2]} bytes) equal "
+          f"i_mb_row_shards 1's", flush=True)
+
+    # ---- 17. lossless (CQP 0): CABAC, then CAVLC
+    stamp("phase 17")
+    what17 = "lossless (CQP 0, subme 6) CABAC"
+    done, summary, launches_17, header, fps, med, enc = main_path(
+        250, N_LOSSLESS, what17, make=lossless_params)
+    if not (enc._lossless and not enc._rd and enc.sps.profile_idc == 144
+            and enc.sps.qpprime_y_zero_transform_bypass):
+        fail(f"{what17}: not the bypass (profile {enc.sps.profile_idc})")
+    must17 = ("intra_diag", "intra_diag_lossless", "p_inter_mb",
+              "p_inter_mb_lossless", "intra_in_p", "intra_in_p_lossless",
+              "cabac_i_ops", "cabac_p_ops", "deblock_diag", "frame_metrics")
+    idle17 = {*aq_only, *cavlc_only, *trellis_only, *standalone, *b_only,
+              *ref2_only, *cavlc_b_only, *nr_only, "rd_inter"} | {
+        k for k in launches_17 if "t8" in k or "i8x8" in k}
+    for k, n in launches_17.items():
+        if (k in must17 and n <= 0) or (k in idle17 and n > 0):
+            fail(f"kernel {k} was launched {n} times on {what17}")
+    lossless_check(done, frames, what17)
+    ph17 = dict(fps=fps, sizes=[len(e.payload) for e in done])
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK_LOSSLESS, 250,
+                what17, make=lossless_params, frame_parallel=3)
+    what17c = "lossless (CQP 0, subme 6) CAVLC"
+    done, _, launches_17c, header, fps_c, med_c, enc = main_path(
+        250, N_LOSSLESS_CAVLC, what17c, make=lossless_cavlc_params)
+    for k in ("intra_diag_lossless", "p_inter_mb_lossless",
+              "intra_in_p_lossless", "cavlc_i_slice", "cavlc_p_slice"):
+        if launches_17c[k] <= 0:
+            fail(f"kernel {k} was not launched on {what17c}")
+    lossless_check(done, frames, what17c)
+    bits_mb = max(8 * len(e.payload) for e in done) / nmb
+    print(f"lossless: {N_LOSSLESS} frames {W}x{H} CABAC {ph17['fps']:.3f} "
+          f"fps, median encode() {med:.1f} ms, bytes per frame "
+          f"{ph17['sizes']}; {N_LOSSLESS_CAVLC} frames CAVLC {fps_c:.3f} fps,"
+          f" median encode() {med_c:.1f} ms, bytes per frame "
+          f"{[len(e.payload) for e in done]}, the fullest frame "
+          f"{bits_mb:.1f} bits per MB against the word buffer's "
+          f"{pipeline.CAP_BITS_PER_MB}; every recon equals its source on "
+          f"the card [{smi_line}]", flush=True)
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK_LOSSLESS, 250,
+                what17c, make=lossless_cavlc_params, frame_parallel=3)
     for name, r in rec.items():
-        main = launches_11 if name in cavlc_only else launches_12 \
+        main = launches_11 if name in cavlc_only else launches_16 \
+            if name in nr_only else launches_17 \
+            if name in lossless_only else launches_12 \
             if name in trellis_only + standalone else launches_13 \
             if name in b_only else launches_15 \
             if name in cavlc_b_only + ("p_maps_ref2", "cavlc_p_slice_ref2") \
             else launches_14 if name in ref2_only else launches_9
         r.update(launches=main[name],
+                 launches_lossless_cavlc=launches_17c[name],
+                 launches_lossless=launches_17[name],
+                 launches_nr_cqm=launches_16[name],
                  launches_preset_cavlc=launches_15[name],
                  launches_preset=launches_14[name],
                  launches_b_defaults=launches_13[name],

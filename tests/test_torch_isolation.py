@@ -5,9 +5,10 @@ none; wrappers never fall back from a kernel to its plain version on a
 non-CPU tensor; parameters outside the all-intra, IPPP (subme 1-9,
 scenecut lookahead, the 8x8 transform and I8x8, one or two references,
 --ref 3 and more clamped to 2, CABAC or CAVLC, constant QP, CRF or
-1-pass ABR with or without variance AQ, the CABAC trellis) and B-frame
-(i_bframe 1-3, b-adapt 0 / 1 / 2, CABAC or CAVLC) slices raise
-NotImplementedError."""
+1-pass ABR with or without variance AQ, the CABAC trellis, the noise
+reduction, custom quant matrices, lossless at CQP 0, MB-row sharding on
+one device) and B-frame (i_bframe 1-3, b-adapt 0 / 1 / 2, CABAC or
+CAVLC) slices raise NotImplementedError."""
 
 import ast
 import pathlib
@@ -24,6 +25,7 @@ from x264_tpu_torch.encoder import aq, inter, intra, pipeline
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.entropy import device as cavlc_device
 from x264_tpu_torch.ops import deblock
+from x264_tpu_torch.ops import quant
 from x264_tpu_torch.ops import trellis
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -71,7 +73,7 @@ def test_imports_with_jax_blocked():
             "import x264_tpu_torch.encoder.mvpred, x264_tpu_torch.ops.me\n"
             "import x264_tpu_torch.encoder.lookahead\n"
             "import x264_tpu_torch.ops.rdcost, x264_tpu_torch.ops.trellis\n"
-            "import x264_tpu_torch.ops.fma\n"
+            "import x264_tpu_torch.ops.fma, x264_tpu_torch.ops.quant\n"
             "import x264_tpu_torch.encoder.aq\n"
             "import x264_tpu_torch.encoder.ratecontrol\n"
             "import x264_tpu_torch.entropy.device\n"
@@ -115,8 +117,41 @@ def test_outside_the_slice_raises(field, value):
         kw["b_cabac"] = False
         _cavlc_b_opens(_params(**kw), value)
         return
+    if field != "rc__b_stat_read":
+        # the noise reduction, the JVT matrices and lossless: now open
+        _quant_side_opens(_params(**kw))
+        return
     with pytest.raises(NotImplementedError):
         x264_tpu_torch.Encoder(_params(**kw), device="cpu")
+
+
+def _quant_side_opens(p) -> None:
+    """The noise reduction, the JVT or custom quant matrices, lossless
+    (CQP 0) and MB-row sharding on one device, once refused, open with
+    x264_tpu's flags: the NR state, the scaling lists in the tables, the
+    bypass with profile 144 and the RD ladder off, and the unsharded
+    encode with the fallback line."""
+    shards = p.i_mb_row_shards
+    lines = []
+    xlog.set_log_callback(lambda level, msg: lines.append(msg))
+    try:
+        enc = x264_tpu_torch.Encoder(p, device="cpu")
+    finally:
+        xlog.set_log_callback(None)
+    a, rc = enc.params.analyse, enc.params.rc
+    if a.i_noise_reduction:
+        assert enc._nr == a.i_noise_reduction
+        assert [o.shape for o in enc._nr_off] == [(16,), (64,)]
+    if enc.params.i_cqm_preset:
+        assert (enc.qt.scaling_list4 != 16).any()
+        assert enc.sps.profile_idc >= 100
+    if rc.i_qp_constant == 0:
+        assert enc._lossless and not enc._rd
+        assert enc.sps.profile_idc == 144
+    if shards > 1:
+        assert any(m.startswith("mb-row sharding unavailable")
+                   for m in lines) == (enc.params.i_log_level >= 2)
+    enc.close()
 
 
 def _cavlc_b_opens(p, bframes: int) -> None:
@@ -205,10 +240,16 @@ def test_the_trellis_slice_opens(trellis_mode, rc):
     dict(rc__i_qp_constant=0), dict(rc__i_vbv_max_bitrate=2000),
     dict(i_mb_row_shards=2)], ids=lambda c: ",".join(c))
 def test_outside_the_ippp_slice_raises(change):
-    """Outside the port's slices: raises. Two references and B frames with
-    CAVLC, once outside, now open (the cases that named them)."""
+    """Outside the port's slices: raises. Two references, B frames with
+    CAVLC, the noise reduction, the JVT matrices, lossless and MB-row
+    sharding on one device, once outside, now open (the cases that named
+    them)."""
     if "i_frame_reference" in change:
         _two_refs_open(change)
+        return
+    if set(change) & {"analyse__i_noise_reduction", "i_cqm_preset",
+                      "rc__i_qp_constant", "i_mb_row_shards"}:
+        _quant_side_opens(_p_params(**change, i_log_level=2))
         return
     if "i_bframe" in change:
         _cavlc_b_opens(_p_params(**{"b_cabac": False, **change}),
@@ -665,3 +706,57 @@ def test_cavlc_overflow_raises():
     with pytest.raises(RuntimeError, match="later slice"):
         enc._cavlc_payload(pend, words, 32 * cap + 1)
     enc.close()
+
+
+def _meta_quant_side_calls():
+    """The noise reduction's and the lossless bypass's wrapper branches
+    (K1, K6 and K7 lossless, K6's NR branch, K26) on tensors that are
+    neither on the CPU nor on a card."""
+    mb_h, mb_w, H, W = 1, 2, 16, 32
+    t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
+    q = inter.make_qtab_p(0, 0, "cpu")
+    q = {k: (v.to("meta") if torch.is_tensor(v) else v)
+         for k, v in q.items()}
+    src = (t(H, W), t(H // 2, W // 2), t(H // 2, W // 2))
+    k6 = (mb_h, mb_w, *src, t(1, H + 64, W + 64), t(H // 2 + 32, W // 2 + 32),
+          t(H // 2 + 32, W // 2 + 32), t(mb_h, mb_w), t(mb_h, mb_w, 4, 2), q,
+          False)
+    return {
+        "K1 lossless": lambda: intra.encode_i16_frame(
+            mb_h, mb_w, *src, q, 1, lossless=True),
+        "K6 lossless": lambda: inter.p_inter_mb(*k6, lossless=True),
+        "K6 nr": lambda: inter.p_inter_mb(*k6, inter.T8_SA8D,
+                                          nr_offset4=t(16), nr_offset8=t(64)),
+        "K7 lossless": lambda: inter.intra_in_p(
+            mb_h, mb_w, *src, *src, t(mb_h, mb_w), q, 1, False,
+            lossless=True),
+        "K26": lambda: quant.nr_sums(t(mb_h, mb_w, 16, 16)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_quant_side_calls()))
+def test_nr_and_lossless_wrappers_never_fall_back_off_the_cpu(name):
+    """The noise reduction's and the lossless bypass's wrapper branches
+    launch their kernel (or raise) on any tensor that is not on the
+    CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_quant_side_calls()[name]()
+
+
+def test_one_card_shards_fall_back_and_more_refuse(monkeypatch):
+    """i_mb_row_shards > 1: on one device the port encodes unsharded
+    with x264_tpu's log line (x264_tpu core.py:149-175); where there
+    would be two bands on two cards it refuses, naming the multi-GPU
+    slice; bands under 2 MB rows shrink to one."""
+    p = _p_params(i_mb_row_shards=4, i_log_level=2)
+    _quant_side_opens(p)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    enc = x264_tpu_torch.Encoder.__new__(x264_tpu_torch.Encoder)
+    enc.device = torch.device("cuda")
+    tall = x264_tpu_torch.EncoderParams(i_width=64, i_height=64,
+                                        i_mb_row_shards=2, i_log_level=0)
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        enc._check_shards(tall)
+    short = x264_tpu_torch.EncoderParams(i_width=64, i_height=32,
+                                         i_mb_row_shards=2, i_log_level=0)
+    enc._check_shards(short)       # 2 MB rows: bands of 1 row -> one band

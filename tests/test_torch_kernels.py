@@ -16,7 +16,11 @@ K22's two passes, K7's B decision and sweeps, K23, K24 and K2's B rule
 b-adapt 0, 1 and 2 against the CPU's; the two-reference branches of K10,
 K11, K12, K6, K13, K8, K8's pass A and K19, K2 on a ref4 with reference
 1, K24's pass A alone and K25, and the card's Encoder with --ref 3 / 2 and
-B frames under CABAC and CAVLC against the CPU's.
+B frames under CABAC and CAVLC against the CPU's; K26 on |coef| grids
+whose window trees XLA combines in each of its orders, K6's NR branch at
+t8 0 / 1 / 2 with the trellis and a QP map, the lossless branches of K1,
+K6 and K7, and the card's Encoder with --nr + the JVT matrices and at
+CQP 0 (CABAC and CAVLC) against the CPU's.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -35,6 +39,7 @@ from x264_tpu_torch.encoder import (aq, inter, intra, lookahead, pipeline,
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.entropy import device as cavlc_device
 from x264_tpu_torch.ops import deblock, mc, me
+from x264_tpu_torch.ops import quant as oquant
 
 MB_H, MB_W = 5, 7
 
@@ -1378,3 +1383,162 @@ def test_ref2_and_cavlc_b_encoder_on_the_card_matches_the_cpu(card, cabac,
                                getattr(b.recon, pl))
     assert abs(ksum["psnr"]["avg"] - psum["psnr"]["avg"]) <= 1e-3
     assert abs(ksum["ssim_y"] - psum["ssim_y"]) <= 1e-5
+
+
+# ------------------------------------------- noise reduction, lossless
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,nblk,n", [((5, 7), 16, 16), ((40, 40), 4, 64),
+                                         ((100, 40), 16, 16),
+                                         ((68, 120), 16, 16),
+                                         ((68, 120), 4, 64)])
+def test_nr_sums_kernel_matches_plain(card, grid, nblk, n):
+    """K26 on |coef| grids of one window, of 2 x 2 and 4 x 2 windows (the
+    vectorised last reduce) and of 1080p's 3 x 4, with values large
+    enough that the sums pass 2^24: bit-equal to the plain version."""
+    rng = np.random.default_rng(sum(grid) + n)
+    a = torch.as_tensor(rng.integers(0, 20000, (*grid, nblk, n)),
+                        dtype=torch.int32, device=card)
+    n0 = oquant.nr_sums.launches
+    k = oquant.nr_sums(a)
+    assert oquant.nr_sums.launches == n0 + 1
+    p = oquant.nr_sums_plain(a)
+    assert k.dtype == torch.float32 and torch.equal(k, p)
+    if grid[0] * grid[1] > 1000:
+        assert float(p.max()) > 2 ** 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t8", [inter.T8_OFF, inter.T8_SA8D, inter.T8_RD])
+@pytest.mark.parametrize("trellis,aq_map", [(False, False), (True, True)])
+def test_inter_kernel_with_nr_matches_plain(card, t8, trellis, aq_map):
+    """K6's NR branch (the shrink before the deadzone quant or the
+    trellis, the |coef| out to K26) on random partitions, with the 8x8
+    offsets where the 8x8 transform runs."""
+    args, _ = _inter_args(card, "inter", True, parts=True)
+    q, qm = args[10], None
+    if aq_map:
+        y, u, v = args[2:5]
+        qm = aq.qp_map_from_planes_plain(y, u, v, MB_H, MB_W, 26, 1.0, 10,
+                                         51, 0)[0]
+        q = _with_stacks(q, card)
+    if trellis:
+        q = {**q, **(inter.trellis_stacks(0, 0, card) if aq_map else
+                     inter.trellis_consts(26, tables.chroma_qp(26), 0,
+                                          card))}
+    rng = np.random.default_rng(t8)
+    off4 = torch.as_tensor(rng.integers(0, 300, 16), dtype=torch.int32,
+                           device=card)
+    off8 = torch.as_tensor(rng.integers(0, 300, 64), dtype=torch.int32,
+                           device=card)
+    a = (*args[:10], q, True, t8, qm)
+    n0 = inter.p_inter_mb.launches_nr
+    k = inter.p_inter_mb(*a, nr_offset4=off4, nr_offset8=off8)
+    assert inter.p_inter_mb.launches_nr == n0 + 1
+    p = inter.p_inter_mb_plain(*a, nr_offset4=off4,
+                               nr_offset8=off8 if t8 else None)
+    assert set(k) == set(p) and ("nr_sum8" in p) == (t8 != inter.T8_OFF)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    assert not torch.equal(inter.p_inter_mb_plain(*a)["blocks_z"],
+                           p["blocks_z"])
+
+
+@pytest.mark.cuda
+def test_lossless_kernels_match_plain(card):
+    """K1, K6 and K7 at CQP 0 with the bypass: every output equal to the
+    plain version's, and every recon equal to its source."""
+    y, u, v = _frame(card, 7)
+    qp = 0
+    q = inter.make_qtab_p(qp, tables.chroma_qp(qp), card)
+    lam = int(tables.LAMBDA_TABLE[qp])
+    n0 = intra.encode_i16_frame.launches_lossless
+    k1 = intra.encode_i16_frame(MB_H, MB_W, y, u, v, q, lam, lossless=True)
+    assert intra.encode_i16_frame.launches_lossless == n0 + MB_H + MB_W - 1
+    p1 = intra.encode_i16_frame_plain(MB_H, MB_W, y, u, v, q, lam,
+                                      lossless=True)
+    for key in p1:
+        assert torch.equal(k1[key], p1[key]), key
+    for src, key in ((y, "recon_y"), (u, "recon_u"), (v, "recon_v")):
+        assert torch.equal(k1[key], src), key
+    assert k1["i4_mb"].any()
+    args, cost = _inter_args(card, "intra", False, parts=True)
+    yy, uu, vv = args[2:5]
+    a6 = (*args[:10], q, False)
+    k6 = inter.p_inter_mb(*a6, lossless=True)
+    p6 = inter.p_inter_mb_plain(*a6, lossless=True)
+    for key in p6:
+        assert torch.equal(k6[key], p6[key]), key
+    assert torch.equal(k6["recon_y"], yy) and torch.equal(k6["recon_u"], uu)
+    a7 = (MB_H, MB_W, yy, uu, vv, k6["recon_y"], k6["recon_u"],
+          k6["recon_v"], cost, q, lam, False)
+    n7 = inter.intra_in_p.launches_lossless
+    k7 = inter.intra_in_p(*a7, lossless=True)
+    assert inter.intra_in_p.launches_lossless == n7 + 4
+    p7 = inter.intra_in_p_plain(*a7, lossless=True)
+    for key in p7:
+        assert torch.equal(k7[key], p7[key]), key
+    assert torch.equal(k7["recon_y"], yy) and k7["intra_mb"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nr_jvt", "lossless_cabac",
+                                  "lossless_cavlc"])
+def test_nr_and_lossless_encoder_on_the_card_matches_the_cpu(card, mode):
+    """The card's Encoder against the CPU's at 5x7 MBs: the defaults with
+    --nr 250, --cqm jvt and --trellis 1 at i_frame_parallel 2 (the NR
+    offsets after every frame too), and CQP 0 under CABAC and CAVLC
+    (every recon equal to its source)."""
+    w, h = MB_W * 16 - 6, MB_H * 16 - 4
+    rng = np.random.default_rng(31)
+    base = rng.integers(0, 256, (h + 8, w + 16), dtype=np.uint8)
+    base[:, :w // 3] = 90
+    frames = [x264_tpu_torch.Frame(
+        base[t:t + h, 2 * t:2 * t + w].copy(),
+        np.full((h // 2, w // 2), 110 + 4 * t, np.uint8),
+        rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+        for t in range(4)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_log_level=0, i_frame_parallel=2)
+        if mode == "nr_jvt":
+            p.analyse.i_noise_reduction = 250
+            p.analyse.i_trellis = 1
+            p.i_cqm_preset = 1
+        else:
+            p.rc.i_rc_method = 0
+            p.rc.i_qp_constant = 0
+            p.b_cabac = mode == "lossless_cabac"
+        enc = x264_tpu_torch.Encoder(p, device=device)
+        outs, offs = [], []
+        for f in frames:
+            o = enc.encode(f)
+            if o is not None:
+                outs.append(o)
+                offs.append([a.copy() for a in getattr(enc, "_nr_off", [])])
+        for o in enc.flush():
+            outs.append(o)
+            offs.append([a.copy() for a in getattr(enc, "_nr_off", [])])
+        return enc.headers(), outs, offs
+
+    n0 = (inter.p_inter_mb.launches_nr, oquant.nr_sums.launches,
+          inter.p_inter_mb.launches_lossless)
+    (kh, kout, koffs), (ph, pout, poffs) = run(card), run("cpu")
+    n1 = (inter.p_inter_mb.launches_nr, oquant.nr_sums.launches,
+          inter.p_inter_mb.launches_lossless)
+    if mode == "nr_jvt":
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == (3, 6)
+    else:
+        assert n1[2] - n0[2] == 3
+    assert kh == ph and len(kout) == len(pout) == 4
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))
+    for a, b in zip(koffs, poffs):
+        for x, z in zip(a, b):
+            assert np.array_equal(x, z)
+    if mode != "nr_jvt":
+        for a, f in zip(kout, frames):
+            assert np.array_equal(a.recon.y.cpu().numpy(), f.y)

@@ -5,7 +5,8 @@ The encoder's counterpart of loading weights: ``qtab_from_numpy`` and
 ``make_qtab`` / ``make_qtab_p`` (given as numpy arrays) into the port's
 int32 tensors on a device, and ``aq_stacks_from_numpy`` x264_tpu's full
 52-QP tables (``aq.full_tables``) into the per-MB table stacks that
-variance AQ's kernels read, so the same tables drive both packages.
+variance AQ's kernels read, so the same tables drive both packages;
+``nr_state_from_numpy`` carries the noise reduction's running state.
 """
 
 from __future__ import annotations
@@ -62,3 +63,14 @@ def aq_stacks_from_numpy(full: dict, chroma_qp_offset: int, device) -> dict:
     return aq.qtab_stacks({k: torch.as_tensor(np.asarray(v, np.int32),
                                               device=device)
                            for k, v in full.items()}, chroma_qp_offset)
+
+
+def nr_state_from_numpy(nr_sum, nr_cnt, nr_off) -> dict:
+    """x264_tpu's noise-reduction state (Encoder._nr_sum: the float64
+    (16,) and (64,) running sums, _nr_cnt: the two counts, _nr_off: the
+    int32 offsets) as the port's Encoder attributes of the same names, so
+    that both encoders can run on from one state (encoder/core.py
+    _nr_update)."""
+    return dict(_nr_sum=[np.array(a, np.float64) for a in nr_sum],
+                _nr_cnt=[float(c) for c in nr_cnt],
+                _nr_off=[np.array(a, np.int32) for a in nr_off])

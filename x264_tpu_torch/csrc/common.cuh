@@ -78,32 +78,41 @@ __device__ __forceinline__ int abs_had4x4(const int* d) {
   return s;
 }
 
-// deadzone quantisation (quant.py:quant)
+// a * b wrapped to 32 bits, as XLA's int32 multiply wraps: custom quant
+// matrices with small entries push quant4_mf / quant8_mf to ~2.1e5 (4.2e5
+// below QP 6), and (bias + |c|) * mf then passes 2^31; signed overflow
+// is undefined in C++, so the product is taken in uint32
+__device__ __forceinline__ int wmul(int a, int b) {
+  return (int)((unsigned)a * (unsigned)b);
+}
+
+// deadzone quantisation (quant.py:quant); the product wraps (wmul) and
+// the shift is arithmetic, as in the JAX function
 __device__ __forceinline__ int quant(int c, int mf, int bias) {
-  int mag = ((bias + abs(c)) * mf) >> 16;
+  int mag = wmul(bias + abs(c), mf) >> 16;
   return c >= 0 ? mag : -mag;
 }
 
 // dequant_4x4 with i_qbits = qp/6 - 4 (quant.py:dequant)
 __device__ __forceinline__ int dequant(int lv, int dmf, int qpdiv6) {
   int qbits = qpdiv6 - 4;
-  int prod = lv * dmf;
-  if (qbits >= 0) return prod * (1 << qbits);
-  return (prod + (1 << (-qbits - 1))) >> -qbits;
+  int prod = wmul(lv, dmf);
+  if (qbits >= 0) return wmul(prod, 1 << qbits);
+  return (int)((unsigned)prod + (1u << (-qbits - 1))) >> -qbits;
 }
 
 // dequant_4x4_dc after the inverse Hadamard (quant.py:dequant_4x4_dc)
 __device__ __forceinline__ int dequant_4x4_dc(int lv, int dmf0, int qpdiv6) {
   int qbits = qpdiv6 - 6;
-  if (qbits >= 0) return lv * (dmf0 * (1 << qbits));
-  return (lv * dmf0 + (1 << (-qbits - 1))) >> -qbits;
+  if (qbits >= 0) return wmul(lv, wmul(dmf0, 1 << qbits));
+  return (int)((unsigned)wmul(lv, dmf0) + (1u << (-qbits - 1))) >> -qbits;
 }
 
 // chroma DC dequant after the inverse 2x2 Hadamard (quant.py:dequant_2x2_dc)
 __device__ __forceinline__ int dequant_2x2_dc(int x, int dmf0, int qpdiv6) {
   int qbits = qpdiv6 - 5;
-  int dmf_eff = dmf0 * (1 << max(qbits, 0));
-  return (x * dmf_eff) >> max(-qbits, 0);
+  int dmf_eff = wmul(dmf0, 1 << max(qbits, 0));
+  return wmul(x, dmf_eff) >> max(-qbits, 0);
 }
 
 // decimate-score run costs (x264_decimate_table4, common/quant.c:203)

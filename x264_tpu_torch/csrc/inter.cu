@@ -41,6 +41,15 @@
 // and cat 3 on the chroma DC Hadamard; the table is the frame's four
 // categories or, with a QP map, the MB's row of the 52-QP stack.
 // Everything after the quant stays as it is.
+// The noise reduction (--nr; x264_tpu inter.py:119-121 and :178-180,
+// ops/quant.py:120 denoise): given the offsets, the 4x4 threads, and the
+// 8x8 ones with the 8x8 transform, write each block's pre-shrink |coef|
+// for K26 (csrc/nr.cu, the float32 sums in XLA's order) and shrink every
+// AC coefficient by its position's offset before the quant or the
+// trellis. Lossless (CQP 0; x264_tpu inter.py:106-117, intra.py:172-181):
+// the luma and chroma threads take the residual samples as the levels
+// (sample 0 of each chroma 4x4 as its DC, untransformed), nothing is
+// decimated, and the recon is the source.
 // Two references (--ref 2; x264_tpu inter.py:425-437, mc.py:91-93 and
 // :134-145): given a per-MB reference index, the CTA's fetch reads its
 // MB's reference, the base of the half-pel stack moved by 4 planes and
@@ -128,6 +137,18 @@ __device__ __forceinline__ int fetch8c(const int* R, int Hcp, int Wcp, int mx,
           + (8 - dx) * dy * s[Wcp] + dx * dy * s[Wcp + 1] + 32) >> 6;
 }
 
+// x264_denoise_dct (common/quant.c:180) on one block's n coefficients:
+// the pre-shrink |c| of every position to abs_out (for K26), then every
+// AC |c| less its position's offset, floored at 0, the sign kept
+__device__ __forceinline__ void nr_block(int* co, const int* off,
+                                         int* abs_out, int n) {
+  for (int i = 0; i < n; ++i) {
+    const int a = abs(co[i]);
+    abs_out[i] = a;
+    if (i > 0) co[i] = co[i] < 0 ? -max(a - off[i], 0) : max(a - off[i], 0);
+  }
+}
+
 template <int BP>
 __global__ void __launch_bounds__(NT) inter_mb_kernel(
     const int* __restrict__ Y, const int* __restrict__ U,
@@ -141,7 +162,9 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y,
     int* __restrict__ cbp8_o, const int* __restrict__ qp_map,
     const int* __restrict__ trellis_g, const int* __restrict__ ref_sel,
-    int mb_h, int mb_w, int n_planes, int decimate, int t8, const BArgs B) {
+    int mb_h, int mb_w, int n_planes, int decimate, int t8, const BArgs B,
+    const int* __restrict__ nr_off4, const int* __restrict__ nr_off8,
+    int* __restrict__ nr_abs4, int* __restrict__ nr_abs8, int lossless) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
@@ -155,7 +178,7 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
   __shared__ int fc[2][64], pc[2][64], clv[2][4][16], cdc[2][4], cscore[8];
   __shared__ int cdcl[2][4], cdcr[2][4], cnz[2], killg[4], ackill;
   __shared__ int had4[16], had8[4], lv8[4][64], score8[4], nz8[4], kill8[4];
-  __shared__ int sel8;
+  __shared__ int sel8, off4[16], off8[64];
   __shared__ int pred1[BP == 1 ? 256 : 1], pc1[BP == 1 ? 2 : 1][64], bsel;
   // the joint chroma AC decimation: K6's, off in B pass 1
   const int cdecim = BP == 1 ? 0 : decimate;
@@ -168,6 +191,9 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
                             : nullptr;
   for (int i = tid; i < QTABP_INTS; i += NT)
     reinterpret_cast<int*>(&q)[i] = qrow[i];
+  // the noise reduction's offsets (null: NR off)
+  if (nr_off4 && tid < 16) off4[tid] = nr_off4[tid];
+  if (nr_off8) off8[tid] = nr_off8[tid];
   if (BP > 0) {
     // both lists' predictions: pass 2 keeps the MB's final one, pass 1
     // both until the decision below
@@ -295,8 +321,12 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
         dd[4 * r + c] = fenc[o] - pred[o];
       }
     if (t8 == 1) had4[tid] = abs_had4x4(dd);
-    dct4x4(dd, co);
     int zz[16];
+    if (lossless) {                    // the bypass: the samples are the levels
+      for (int i = 0; i < 16; ++i) lv[tid][i] = dd[i];
+    } else {
+    dct4x4(dd, co);
+    if (nr_off4) nr_block(co, off4, nr_abs4 + (mb * 16 + tid) * 16, 16);
     if (tr) {                          // cat-2 trellis in zig-zag
       int cz[16];
       for (int j = 0; j < 16; ++j) cz[j] = co[kZig4P[j]];
@@ -304,6 +334,7 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
       for (int j = 0; j < 16; ++j) lv[tid][kZig4P[j]] = zz[j];
     } else {
       for (int i = 0; i < 16; ++i) lv[tid][i] = quant(co[i], q.py_mf[i], q.py_bias[i]);
+    }
     }
     for (int j = 0; j < 16; ++j) zz[j] = lv[tid][kZig4P[j]];
     score[tid] = decimate_score(zz, 16);
@@ -317,6 +348,7 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     if (tid < 52) {
       int co[64], zz[64];
       dct8x8(dd, co);
+      if (nr_off8) nr_block(co, off8, nr_abs8 + (mb * 4 + k) * 64, 64);
       if (tr) {                        // cat-5 trellis in ZIGZAG8
         int cz[64];
         for (int j = 0; j < 64; ++j) cz[j] = co[kZig8[j]];
@@ -338,10 +370,15 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
         int o = (4 * by + r) * 8 + 4 * bx + c;
         dd[4 * r + c] = fc[ch][o] - pc[ch][o];
       }
+    int zz[15];
+    if (lossless) {                    // the bypass: sample 0 rides the DC
+      cdc[ch][blk] = dd[0];
+      clv[ch][blk][0] = 0;
+      for (int i = 1; i < 16; ++i) clv[ch][blk][i] = dd[i];
+    } else {
     dct4x4(dd, co);
     cdc[ch][blk] = co[0];
     co[0] = 0;
-    int zz[15];
     if (tr) {                          // cat-4 trellis on zig-zag 1..15
       int cz[15];
       for (int j = 1; j < 16; ++j) cz[j - 1] = co[kZig4P[j]];
@@ -350,6 +387,7 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
       for (int j = 1; j < 16; ++j) clv[ch][blk][kZig4P[j]] = zz[j - 1];
     } else {
       for (int i = 0; i < 16; ++i) clv[ch][blk][i] = quant(co[i], q.pc_mf[i], q.pc_bias[i]);
+    }
     }
     for (int j = 1; j < 16; ++j) zz[j - 1] = clv[ch][blk][kZig4P[j]];
     cscore[k] = decimate_score(zz, 15);
@@ -366,10 +404,13 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
       g[gi] = s;
       tot += s;
     }
-    for (int gi = 0; gi < 4; ++gi) killg[gi] = decimate && (g[gi] < 4 || tot < 6);
+    // the bypass codes every sample: no decimation (x264_tpu
+    // inter.py:497)
+    for (int gi = 0; gi < 4; ++gi)
+      killg[gi] = decimate && !lossless && (g[gi] < 4 || tot < 6);
     int csc = 0;
     for (int k = 0; k < 8; ++k) csc += cscore[k];
-    ackill = cdecim && csc < 7;
+    ackill = cdecim && !lossless && csc < 7;
     int sel = 0;
     if (t8) {
       const int tot8 = score8[0] + score8[1] + score8[2] + score8[3];
@@ -399,7 +440,10 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
       dq[i] = dequant(lv[tid][i], q.py_dmf[i], q.py_qpdiv6);
     }
     nzb[tid] = nz;
-    idct4x4(dq, res);
+    if (lossless)                      // the recon is the source
+      for (int i = 0; i < 16; ++i) res[i] = lv[tid][i];
+    else
+      idct4x4(dq, res);
     if (!sel8)
       for (int r = 0; r < 4; ++r)
         for (int c = 0; c < 4; ++c)
@@ -446,7 +490,9 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     int a = cdc[ch][0], b = cdc[ch][1], c = cdc[ch][2], e = cdc[ch][3];
     int h[4] = {a + b + c + e, a - b + c - e, a + b - c - e, a - b - c + e};
     int l[4];
-    if (tr)                            // cat-3 trellis, raster order
+    if (lossless)                      // the samples, untransformed
+      for (int i = 0; i < 4; ++i) l[i] = cdc[ch][i];
+    else if (tr)                       // cat-3 trellis, raster order
       trellis_block<4>(h, trellis_tab(tr + TR_CAT3, 4), l);
     else
       for (int i = 0; i < 4; ++i) l[i] = quant(h[i], q.pc_mf_dc, q.pc_bias_dc);
@@ -464,7 +510,10 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
   if (tid >= 32 && tid < 40) {
     int k = tid - 32, ch = k >> 2, blk = k & 3, by = blk >> 1, bx = blk & 1;
     int dq[16], res[16];
-    if (cnz[ch]) {
+    if (lossless) {                    // the recon is the source
+      for (int i = 0; i < 16; ++i) res[i] = clv[ch][blk][i];
+      res[0] = cdc[ch][blk];
+    } else if (cnz[ch]) {
       for (int i = 0; i < 16; ++i) dq[i] = dequant(clv[ch][blk][i], q.pc_dmf[i], q.pc_qpdiv6);
       dq[0] = cdcr[ch][blk];
       idct4x4(dq, res);
@@ -493,15 +542,17 @@ extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
                           int* chroma_dc, int* chroma_ac, int* blocks8,
                           uint8_t* t8_sel, int* recon8_y, int* cbp8,
                           const int* qp_map, const int* trellis,
-                          const int* ref_sel, int mb_h, int mb_w,
-                          int n_planes, int decimate, int t8, void* stream) {
+                          const int* ref_sel, const int* nr_off4,
+                          const int* nr_off8, int* nr_abs4, int* nr_abs8,
+                          int mb_h, int mb_w, int n_planes, int decimate,
+                          int t8, int lossless, void* stream) {
   // ref_sel: null with one reference; else each MB's, and n_planes the
   // half-pel planes of each reference in the stack
   inter_mb_kernel<0><<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
       recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, blocks8, t8_sel,
       recon8_y, cbp8, qp_map, trellis, ref_sel, mb_h, mb_w, n_planes,
-      decimate, t8, BArgs{});
+      decimate, t8, BArgs{}, nr_off4, nr_off8, nr_abs4, nr_abs8, lossless);
   return (int)cudaGetLastError();
 }
 
@@ -525,11 +576,13 @@ extern "C" int b_inter_mb(const int* y, const int* u, const int* v,
     inter_mb_kernel<1><<<mb_h * mb_w, NT, 0, s>>>(
         y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
         recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
-        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B);
+        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B,
+        nullptr, nullptr, nullptr, nullptr, 0);
   else
     inter_mb_kernel<2><<<mb_h * mb_w, NT, 0, s>>>(
         y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
         recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
-        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B);
+        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B,
+        nullptr, nullptr, nullptr, nullptr, 0);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 //
 // Replaces x264_tpu/encoder/intra.py:encode_i16_frame (diag_step with
 // luma_i16_path, luma_i4_path, luma_i8_path and chroma_residual; i4x4
-// on, i8x8 on or off, lossless off). Plain twin:
+// on, i8x8 on or off, and the lossless transform bypass of intra.py:97,
+// :172 and :603). Plain twin:
 // x264_tpu_torch/encoder/intra.py encode_i16_frame_plain; wrapper:
 // encode_i16_frame.
 //
@@ -48,6 +49,10 @@
 // signalling cost, and I8x8 replacing the best of I16 and I4 only when
 // strictly cheaper; an I8x8 MB stays I_NxN (i4_mb) with its four modes
 // copied into the 4x4 mode grid.
+// Lossless (CQP 0): the I16x16 and chroma residuals take intra_mb.cuh's
+// bypass, and the I4x4 ladder's chosen block keeps its residual samples
+// as its levels and the source as its recon (intra.py:603-606); the mode
+// decisions keep their SATD costs.
 // Variance AQ: given a QP map, the qtab argument is the 52-QP stack
 // (encoder/aq.py:qtab_stacks) and each CTA loads the row of its MB's QP
 // (x264_tpu's per-MB qtab_rows gather); lambda stays the frame's.
@@ -76,7 +81,7 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
     uint8_t* __restrict__ i4_mb_o, int* i4_modes_o, int* __restrict__ cbp_o,
     uint8_t* __restrict__ t8_mb_o, int* __restrict__ luma8_o,
     const int* __restrict__ qp_map, int mb_w, int d, int y0, int lam,
-    int i8x8) {
+    int i8x8, int lossless) {
   // the MB of this CTA: x + y = d, or x + 2y = d with I8x8
   const int my = y0 + blockIdx.x;
   const int mx = d - (i8x8 ? 2 : 1) * my;
@@ -119,7 +124,7 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
   // ------------------------------------------------ I16x16
   imb_predict(S, has_top, has_left);
   imb_i16_decide(S, has_top, has_left, lam, -1);
-  imb_i16_residual(S, false);
+  imb_i16_residual(S, false, lossless);
 
   // ------------------------------------------------ I4x4 ladder
   for (int i = tid; i < 17 * 21; i += NT) {
@@ -181,13 +186,20 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
       for (int r = 0; r < 4; ++r)
         for (int c = 0; c < 4; ++c)
           dd[4 * r + c] = S.fenc[(4 * by + r) * 16 + 4 * bx + c] - pred4c[best][4 * r + c];
-      dct4x4(dd, co);
-      for (int i = 0; i < 16; ++i) {
-        lv[i] = quant(co[i], S.q.y_mf[i], S.q.y_bias[i]);
-        nz += lv[i] != 0;
-        dq[i] = dequant(lv[i], S.q.y_dmf[i], S.q.y_qpdiv6);
+      if (lossless) {                  // the bypass: the samples are the levels
+        for (int i = 0; i < 16; ++i) {
+          lv[i] = res[i] = dd[i];
+          nz += lv[i] != 0;
+        }
+      } else {
+        dct4x4(dd, co);
+        for (int i = 0; i < 16; ++i) {
+          lv[i] = quant(co[i], S.q.y_mf[i], S.q.y_bias[i]);
+          nz += lv[i] != 0;
+          dq[i] = dequant(lv[i], S.q.y_dmf[i], S.q.y_qpdiv6);
+        }
+        idct4x4(dq, res);
       }
-      idct4x4(dq, res);
       for (int r = 0; r < 4; ++r)
         for (int c = 0; c < 4; ++c)
           ext[1 + 4 * by + r][1 + 4 * bx + c] = clip255(pred4c[best][4 * r + c] + res[4 * r + c]);
@@ -345,7 +357,7 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
   }
 
   // ------------------------------------------------ chroma residual
-  imb_chroma_residual(S);
+  imb_chroma_residual(S, lossless);
   if (tid < 8) {
     int ch = tid >> 2, blk = tid & 3, by = blk >> 1, bx = blk & 1;
     int* R = ch ? RV : RU;
@@ -368,7 +380,8 @@ extern "C" int intra_diag(const int* y, const int* u, const int* v,
                           int* chroma_dc, int* chroma_ac, uint8_t* i4_mb,
                           int* i4_modes, int* cbp_luma_bits, uint8_t* t8_mb,
                           int* luma8, const int* qp_map, int mb_h, int mb_w,
-                          int d, int lam, int i8x8, void* stream) {
+                          int d, int lam, int i8x8, int lossless,
+                          void* stream) {
   // the MBs of diagonal d: x = d - y, or x = d - 2y with I8x8, in [0, mb_w)
   const int y0 = i8x8 ? max(0, (d - (mb_w - 1) + 1) / 2) : max(0, d - (mb_w - 1));
   const int y1 = min(mb_h - 1, i8x8 ? d / 2 : d);
@@ -376,6 +389,6 @@ extern "C" int intra_diag(const int* y, const int* u, const int* v,
   intra_diag_kernel<<<y1 - y0 + 1, NT, 0, (cudaStream_t)stream>>>(
       y, u, v, qtab, p4tab, p8tab, recon_y, recon_u, recon_v, mode16, modec,
       luma_dc, luma_ac, chroma_dc, chroma_ac, i4_mb, i4_modes, cbp_luma_bits,
-      t8_mb, luma8, qp_map, mb_w, d, y0, lam, i8x8);
+      t8_mb, luma8, qp_map, mb_w, d, y0, lam, i8x8, lossless);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,10 @@
 //                     Hadamard, dequant, IDCT, reconstruction in rec16
 //   imb_chroma_decide argmin of the U + V SATD, or a fixed mode
 //   imb_chroma_residual  DCT, quant, 2x2 DC, dequant, IDCT, crec
+// Both residual functions take the lossless transform bypass
+// (qpprime_y_zero_transform_bypass, x264_tpu intra.py:97-113 and
+// :172-181): the residual samples are the levels, sample 0 of each 4x4
+// rides the DC list untransformed, and the reconstruction is the source.
 #pragma once
 #include "common.cuh"
 
@@ -199,9 +203,33 @@ __device__ __forceinline__ void imb_i16_decide(IntraMB& S, bool has_top,
 
 // I16x16 residual of mode16: AC levels lv16 (raster blocks, raster
 // coefficients), DC levels dcl16, cbp16, reconstruction rec16. decimate:
-// a total AC score (zig-zag positions 1..15) < 6 zeroes every AC level
-__device__ __forceinline__ void imb_i16_residual(IntraMB& S, bool decimate) {
+// a total AC score (zig-zag positions 1..15) < 6 zeroes every AC level.
+// lossless: the bypass (levels = samples, dcl16 = sample 0 of each block)
+__device__ __forceinline__ void imb_i16_residual(IntraMB& S, bool decimate,
+                                                 bool lossless = false) {
   const int tid = threadIdx.x;
+  if (lossless) {
+    if (tid < 16) {
+      const int by = tid >> 2, bx = tid & 3;
+      for (int r = 0; r < 4; ++r)
+        for (int c = 0; c < 4; ++c) {
+          const int o = (4 * by + r) * 16 + 4 * bx + c;
+          S.lv16[tid][4 * r + c] = S.fenc[o] - S.pred16[S.mode16][o];
+          S.rec16[o] = S.fenc[o];
+        }
+      S.dcl16[tid] = S.lv16[tid][0];
+      S.lv16[tid][0] = 0;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int nz = 0;
+      for (int b = 0; b < 16; ++b)
+        for (int i = 0; i < 16; ++i) nz |= S.lv16[b][i] != 0;
+      S.cbp16 = nz;
+    }
+    __syncthreads();
+    return;
+  }
   if (tid < 16) {
     int by = tid >> 2, bx = tid & 3, dd[16], co[16];
     for (int r = 0; r < 4; ++r)
@@ -305,9 +333,26 @@ __device__ __forceinline__ void imb_chroma_decide(IntraMB& S, bool has_top,
 }
 
 // chroma residual of cmode with the intra ("c") tables: AC levels clv
-// (raster coefficients), DC levels cdcl, reconstruction crec
-__device__ __forceinline__ void imb_chroma_residual(IntraMB& S) {
+// (raster coefficients), DC levels cdcl, reconstruction crec; lossless:
+// the bypass (levels = samples, cdcl = sample 0 of each block)
+__device__ __forceinline__ void imb_chroma_residual(IntraMB& S,
+                                                   bool lossless = false) {
   const int tid = threadIdx.x;
+  if (lossless) {
+    if (tid < 8) {
+      const int ch = tid >> 2, blk = tid & 3, by = blk >> 1, bx = blk & 1;
+      for (int r = 0; r < 4; ++r)
+        for (int c = 0; c < 4; ++c) {
+          const int o = (4 * by + r) * 8 + 4 * bx + c;
+          S.clv[ch][blk][4 * r + c] = S.fc[ch][o] - S.pred8[ch][S.cmode][o];
+          S.crec[ch][o] = S.fc[ch][o];
+        }
+      S.cdcl[ch][blk] = S.clv[ch][blk][0];
+      S.clv[ch][blk][0] = 0;
+    }
+    __syncthreads();
+    return;
+  }
   if (tid < 8) {
     int ch = tid >> 2, blk = tid & 3, by = blk >> 1, bx = blk & 1, dd[16], co[16];
     for (int r = 0; r < 4; ++r)

@@ -35,6 +35,8 @@
 //      evaluate only the intra MBs (the others keep the inter recon and
 //      zero syntax), as x264_tpu's masked whole-frame sweeps leave them.
 // Without RD the kernels run exactly as before the RD ladder came.
+// Lossless (CQP 0; x264_tpu inter.py:634, :654): the sweeps take
+// intra_mb.cuh's bypass, the decision keeps its SATD costs.
 // B frames (x264_tpu encode_b_body) use the same kernels in two other
 // sequences: intra_in_b_decide runs sweep 0 against residual pass 1's
 // reconstruction and the decision (stage 3, inter.py:965-1026), and
@@ -161,7 +163,7 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
     const int* __restrict__ qtab_g, const uint8_t* __restrict__ intra_mb,
     Syntax out, int* __restrict__ cost_i, const RD rd,
     const int* __restrict__ qp_map, int mb_w, int lam, int decimate,
-    int free_modes) {
+    int free_modes, int lossless = 0) {
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const bool has_top = my > 0, has_left = mx > 0;
@@ -186,9 +188,9 @@ __global__ void __launch_bounds__(NT) sweep_kernel(
   __syncthreads();
   imb_predict(S, has_top, has_left);
   imb_i16_decide(S, has_top, has_left, lam, fix16);
-  imb_i16_residual(S, decimate != 0);
+  imb_i16_residual(S, decimate != 0, lossless != 0);
   imb_chroma_decide(S, has_top, has_left, fixc);
-  imb_chroma_residual(S);
+  imb_chroma_residual(S, lossless != 0);
   if (!fixed && rd.rd_cost != nullptr) intra_rd_cost(S, rd, mb);
 
   const int W = mb_w * 16, Wc = mb_w * 8;
@@ -259,7 +261,7 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
                           const int* ce_psy, const int* rdtab,
                           float* cost_i_rd, const int* qp_map, int mb_h,
                           int mb_w, int lam, int decimate, float lam2,
-                          float psy, void* stream) {
+                          float psy, int lossless, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nmb = mb_h * mb_w;
   const Planes inter{inter_y, inter_u, inter_v}, A{ry, ru, rv}, B{sy, su, sv};
@@ -267,7 +269,7 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
   const RD rd{rd_cost, ce_psy, rdtab, cost_i_rd, lam2, psy};
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, inter, inter, A, qtab, nullptr,
                                   out, cost_i, rd, qp_map, mb_w, lam, decimate,
-                                  0);
+                                  0, lossless);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decide_kernel<<<nmb, NT, 0, s>>>(cost_i, cost_inter, rd, inter, A, intra_mb,
@@ -275,11 +277,13 @@ extern "C" int intra_in_p(const int* y, const int* u, const int* v,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, A, inter, B, qtab, intra_mb, out,
-                                  cost_i, rd, qp_map, mb_w, lam, decimate, 0);
+                                  cost_i, rd, qp_map, mb_w, lam, decimate, 0,
+                                  lossless);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<nmb, NT, 0, s>>>(y, u, v, B, inter, A, qtab, intra_mb, out,
-                                  cost_i, rd, qp_map, mb_w, lam, decimate, 0);
+                                  cost_i, rd, qp_map, mb_w, lam, decimate, 0,
+                                  lossless);
   return (int)cudaGetLastError();
 }
 

@@ -99,9 +99,9 @@ __device__ __forceinline__ void idct8x8(const int* c, int* out) {
 // (quant.py:dequant with shift_base 6)
 __device__ __forceinline__ int dequant8(int lv, int dmf, int qpdiv6) {
   const int qbits = qpdiv6 - 6;
-  const int prod = lv * dmf;
-  if (qbits >= 0) return prod * (1 << qbits);
-  return (prod + (1 << (-qbits - 1))) >> -qbits;
+  const int prod = wmul(lv, dmf);
+  if (qbits >= 0) return wmul(prod, 1 << qbits);
+  return (int)((unsigned)prod + (1u << (-qbits - 1))) >> -qbits;
 }
 
 // sum |H8 d H8| of one raster 8x8 difference block (pixel.py:sa8d_8x8

@@ -72,7 +72,7 @@ __device__ __forceinline__ float tr_contrib(int kind, float bits, float lam2,
 
 // the level of a stored choice: 0 q, 1 max(q - 1, 0), 2 zero
 __device__ __forceinline__ int tr_level(int choice, int q) {
-  return choice == 0 ? q : (choice == 1 ? max(q - 1, 0) : 0);
+  return choice == 0 ? max(q, 0) : (choice == 1 ? max(q - 1, 0) : 0);
 }
 
 // The trellis of one block: coef (C) forward-transform coefficients in
@@ -87,7 +87,7 @@ __device__ void trellis_block(const int* coef, const TrellisTab& t, int* out) {
   for (int j = 0; j < 8; ++j) score[j] = j ? TR_BIG : 0.f;
   for (int i = C - 1; i >= 0; --i) {
     const int a = abs(coef[i]);
-    const int q = (a * t.qmf[i] + (1 << 15)) >> 16;
+    const int q = (int)((unsigned)wmul(a, t.qmf[i]) + (1u << 15)) >> 16;
     float sig0 = 0.f, sig1 = 0.f, last0 = 0.f, last1 = 0.f;
     if (i < C - 1) {
       sig0 = t.sig[2 * i];
@@ -103,9 +103,9 @@ __device__ void trellis_block(const int* coef, const TrellisTab& t, int* out) {
       nh[d] = 2;                                // level 0, parent 0
     }
     for (int cand = 0; cand < 2; ++cand) {
-      if (cand == 1 && q == 0) break;           // q - 1 duplicates q
+      if (cand == 1 && q <= 0) break;           // q - 1 duplicates q
       const int lvl = max(q - cand, 0);
-      const int unq = (t.uqmf[i] * lvl + 128) >> 8;
+      const int unq = (int)((unsigned)wmul(t.uqmf[i], lvl) + 128u) >> 8;
       const float d = __int2float_rn(a - unq);
       const float ssd = __fmul_rn(__fmul_rn(d, d), t.w2[i]);
       const int kind = lvl == 0 ? 0 : (lvl == 1 ? 1 : 2);
@@ -153,7 +153,7 @@ __device__ void trellis_block(const int* coef, const TrellisTab& t, int* out) {
   for (int i = 0; i < C; ++i) {
     const unsigned h = (unsigned)(hist[i] >> (8 * node)) & 255u;
     const int a = abs(coef[i]);
-    const int q = (a * t.qmf[i] + (1 << 15)) >> 16;
+    const int q = (int)((unsigned)wmul(a, t.qmf[i]) + (1u << 15)) >> 16;
     const int lvl = tr_level((int)(h & 3u), q);
     out[i] = coef[i] < 0 ? -lvl : lvl;
     node = (int)(h >> 2);

@@ -3,7 +3,10 @@ x264_tpu/encoder/core.py for IDR, P and B frames, CABAC or CAVLC, with
 one or two L0 references in the P frames (--ref 2; deeper lists clamp to
 2, as x264_tpu's validate() does), at constant QP, CRF or 1-pass ABR,
 with or without variance AQ, and with or without the CABAC trellis
-(--trellis 1 / 2) in the inter residual.
+(--trellis 1 / 2) in the inter residual; with flat, JVT or custom quant
+matrices (--cqm), the noise reduction (--nr) and the lossless transform
+bypass (CQP 0). MB-row sharding (i_mb_row_shards > 1) encodes unsharded
+where the host has one device, as x264_tpu does.
 
 Open / encode / close lifecycle (x264_encoder_open:623,
 x264_encoder_encode:1362, x264_encoder_close:1878): parameter
@@ -48,6 +51,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import cqm as xcqm
+from .. import log as xlog
 from .. import tables
 from ..entropy import cabac as ecabac
 from ..entropy import cabac_tables as ctab
@@ -55,6 +60,7 @@ from ..entropy import device as edev
 from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
 from ..headers import (PPS, SPS, SLICE_B, SLICE_I, SLICE_P, SliceHeader,
                        sei_version)
+from ..ops import quant as oquant
 from ..params import (ANALYSE_I4x4, ANALYSE_I8x8, ANALYSE_PSUB16x16,
                       AQ_NONE, B_ADAPT_NONE, B_ADAPT_TRELLIS, RC_CQP,
                       EncoderParams)
@@ -120,18 +126,15 @@ def _check_slice(p: EncoderParams) -> None:
     where the parameters ask for them), with one or two references and
     the scenecut lookahead or a fixed GOP, with or without the 8x8
     transform and I8x8 (which validate() turns off without CABAC), CABAC
-    or CAVLC, at constant QP, CRF or 1-pass ABR, with or without
-    variance AQ (VBV and 2-pass replay are refused here and by
-    RateControl), with or without the CABAC trellis; and B frames
-    (i_bframe 1-3, b-adapt 0 / 1 / 2) with CABAC or CAVLC."""
+    or CAVLC, at constant QP (lossless at QP 0), CRF or 1-pass ABR, with
+    or without variance AQ (VBV and 2-pass replay are refused here and by
+    RateControl), with or without the CABAC trellis, the noise reduction
+    and custom quant matrices; and B frames (i_bframe 1-3, b-adapt 0 / 1
+    / 2) with CABAC or CAVLC. MB-row sharding is checked by the Encoder,
+    which knows its devices."""
     a, rc = p.analyse, p.rc
     later = [
-        (rc.i_rc_method == RC_CQP and rc.i_qp_constant == 0,
-         "lossless (qp 0)", "a later slice"),
         (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
-        (p.i_mb_row_shards > 1, "MB-row sharding", "the multi-GPU slice"),
-        (a.i_noise_reduction > 0, "noise reduction", "a later slice"),
-        (p.i_cqm_preset != 0, "custom quant matrices", "a later slice"),
         (rc.i_vbv_max_bitrate > 0 or rc.i_vbv_buffer_size > 0,
          "VBV (with its row rate control)", "the VBV slice"),
         (rc.b_stat_read, "2-pass replay", "the 2-pass slice"),
@@ -146,7 +149,8 @@ def _check_slice(p: EncoderParams) -> None:
 class Encoder:
     """x264_encoder_open / encode / close for IDR, P (one or two
     references) and B frames, CABAC or CAVLC, at constant QP, CRF or
-    1-pass ABR, with or without variance AQ and the CABAC trellis. device:
+    1-pass ABR, with or without variance AQ, the CABAC trellis, the noise
+    reduction and custom quant matrices, and lossless at CQP 0. device:
     "cuda" (the default, which needs a card) or "cpu", where every kernel
     runs its plain PyTorch version."""
 
@@ -161,10 +165,19 @@ class Encoder:
         self.params = params.validate()
         p = self.params
         _check_slice(p)
+        self._check_shards(p)
         self.rc = rcmod.RateControl(p)
+        # the quant tables of the CQM preset (flat, JVT, or the custom
+        # lists of p.cqm / psz_cqm_file), read by every table builder
+        sl4, sl8 = xcqm.scaling_lists(p.i_cqm_preset, p.cqm)
         self.qt = tables.QuantTables(
             luma_deadzone_inter=p.analyse.i_luma_deadzone[0],
-            luma_deadzone_intra=p.analyse.i_luma_deadzone[1])
+            luma_deadzone_intra=p.analyse.i_luma_deadzone[1],
+            scaling_list4=sl4, scaling_list8=sl8)
+        # lossless: the transform bypass (qpprime_y_zero_transform_bypass,
+        # encoder/macroblock.c:415-474) in K1, K6 and K7
+        self._lossless = (p.rc.i_rc_method == RC_CQP
+                          and p.rc.i_qp_constant == 0)
         self.sps = SPS.from_params(p)
         self.pps = PPS.from_params(p)
         self.frame_num = 0
@@ -222,14 +235,13 @@ class Encoder:
         # the subme ladder, as x264_tpu sets it: 1 full-pel, 2-3 half-pel,
         # 4-9 half- then quarter-pel; the 16x8 / 8x16 / P8x8 partitions
         # with PSUB16x16 (they need sub-pel steps); chroma ME at subme >= 5;
-        # the RD mode decision at subme >= 6 (lossless, which turns it off
-        # in x264_tpu, is refused)
+        # the RD mode decision at subme >= 6, off when lossless
         sp = p.analyse.i_subpel_refine
         self._subpel = () if sp <= 1 else ((2,) if sp <= 3 else (2, 1))
         self._parts = bool(p.analyse.inter & ANALYSE_PSUB16x16)
         self._p8x8 = self._parts
         self._chroma_me = bool(p.analyse.b_chroma_me and sp >= 5)
-        self._rd = sp >= 6
+        self._rd = sp >= 6 and not self._lossless
         # CABAC (the host codes the device's op stream) or CAVLC (K18 /
         # K19 pack the slice words on the device)
         self._cabac = bool(p.b_cabac)
@@ -242,12 +254,48 @@ class Encoder:
         self._trellis = bool(p.analyse.i_trellis and p.b_cabac)
         self._trellis_full = None
         self._i8x8 = bool(p.analyse.intra & ANALYSE_I8x8)
+        # the noise reduction (x264_denoise_dct, common/quant.c:180, and
+        # x264_noise_reduction_update, encoder/macroblock.c:890): per
+        # position offsets shrink the P frames' inter luma coefficients;
+        # the host updates them from each P frame's |coef| sums
+        self._nr = int(p.analyse.i_noise_reduction)
+        if self._nr and self._lossless:
+            xlog.log(xlog.LOG_INFO, "noise reduction is off in the "
+                     "sharded/lossless paths")
+            self._nr = 0
+        if self._nr:
+            self._nr_w = oquant.nr_weight2()
+            self._nr_sum = [np.zeros(16, np.float64), np.zeros(64, np.float64)]
+            self._nr_cnt = [0.0, 0.0]
+            self._nr_off = [np.zeros(16, np.int32), np.zeros(64, np.int32)]
         self.stats = estats.Stats(
             p.i_width, p.i_height, p.i_fps_num / max(1, p.i_fps_den),
             b_psnr=p.analyse.b_psnr, b_ssim=p.analyse.b_ssim)
         self._with_metrics = bool(p.analyse.b_psnr or p.analyse.b_ssim)
         self._pending: list = []
         self._delay = max(0, p.i_frame_parallel - 1)
+
+    def _check_shards(self, p: EncoderParams) -> None:
+        """MB-row sharding (x264_tpu core.py:149-175): min(shards, the
+        devices) bands, fewer while a band would hold under 2 MB rows; on
+        one band the encode runs unsharded, with x264_tpu's log line. The
+        sharded encode itself comes with the multi-GPU slice."""
+        if p.i_mb_row_shards <= 1:
+            return
+        devices = torch.cuda.device_count() if self.device.type == "cuda" \
+            else 1
+        n = min(p.i_mb_row_shards, devices)
+        mb_h0 = (p.i_height + 15) // 16
+        while n > 1 and ((mb_h0 + (-mb_h0 % n)) // n) * 16 < 32:
+            n -= 1
+        if n > 1:
+            raise NotImplementedError(
+                f"MB-row sharding over {n} devices is not in this slice of "
+                f"the port; it comes with the multi-GPU slice")
+        if p.i_log_level >= 2:
+            xlog.log(xlog.LOG_INFO, "mb-row sharding unavailable "
+                     f"(shards={p.i_mb_row_shards}, "
+                     f"mb_h={mb_h0}); encoding unsharded")
 
     def reconfig(self, new_params: EncoderParams) -> None:
         raise NotImplementedError("reconfig comes with a later slice of "
@@ -677,6 +725,7 @@ class Encoder:
                   with_metrics=self._with_metrics, aq=self._aq)
         pend = dict(nmb=mb_h * mb_w, slice_is_i=True,
                     nal_type=NAL_SLICE_IDR, nal_ref_idc=3)
+        kw["lossless"] = self._lossless
         if self._cabac:
             pend["hdr_bytes"] = self._cabac_header(qp, SLICE_I, 3)
             out = pipeline.encode_i16_idr_cabac(
@@ -715,7 +764,8 @@ class Encoder:
                   with_metrics=self._with_metrics, decimate=self._decimate,
                   subpel_steps=self._subpel, parts=self._parts,
                   p8x8=self._p8x8, chroma_me=self._chroma_me, rd=self._rd,
-                  aq=self._aq, ref2=self._prev_ref if n_refs == 2 else None)
+                  aq=self._aq, ref2=self._prev_ref if n_refs == 2 else None,
+                  lossless=self._lossless, **self._nr_kw())
         pend = dict(nmb=mb_h * mb_w, slice_is_i=False, nal_type=NAL_SLICE,
                     nal_ref_idc=2)
         if self._cabac:
@@ -795,24 +845,74 @@ class Encoder:
                      crop(out["recon_u"], frame.u),
                      crop(out["recon_v"], frame.v))
 
+    def _nr_kw(self) -> dict:
+        """The noise reduction's offsets for this P frame, on the device
+        (x264_tpu's _nr_kw, core.py:733-742): the 8x8's with the 8x8
+        transform; on the card they cross from pinned memory without
+        blocking the host."""
+        if not self._nr:
+            return {}
+        offs = self._nr_off if self._t8 else self._nr_off[:1]
+        return {f"nr_offset{n}": self._to_device(o)
+                for n, o in zip((4, 8), offs)}
+
+    def _to_device(self, a: np.ndarray):
+        """A small int32 array on the device, queued on the current stream
+        from pinned memory on the card."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.array(a, np.int32))
+        staged = torch.empty(a.shape, dtype=torch.int32, pin_memory=True)
+        staged.numpy()[:] = a
+        return staged.to(self.device, non_blocking=True)
+
+    def _nr_update(self, s4, s8, nmb: int) -> None:
+        """x264_noise_reduction_update (encoder/macroblock.c:890-911), as
+        x264_tpu's _nr_update (core.py:744-762) replays it in float64: add
+        the frame's float32 |coef| sums, count nmb * blocks per MB, halve
+        both past the cap (2^18 for 4x4, 2^16 for 8x8), and set each
+        offset to (nr * count + sum / 2) // (sum * weight2 / 256 + 1),
+        clipped to [0, 65535]."""
+        for cat, (s, blocks, cap) in enumerate(
+                ((s4, 16, 1 << 18), (s8, 4, 1 << 16))):
+            if s is None:
+                continue
+            self._nr_sum[cat] += np.asarray(s, np.float64)
+            self._nr_cnt[cat] += nmb * blocks
+            if self._nr_cnt[cat] > cap:
+                self._nr_sum[cat] *= 0.5
+                self._nr_cnt[cat] *= 0.5
+            w = self._nr_w[cat]
+            off = ((self._nr * self._nr_cnt[cat] + self._nr_sum[cat] / 2)
+                   // (self._nr_sum[cat] * w / 256 + 1))
+            self._nr_off[cat] = np.clip(off, 0, 65535).astype(np.int32)
+
     def _start_fetch(self, pend: dict) -> None:
         """Queue the d2h of this frame's op stream (CAVLC: its slice
-        words, the whole buffer, since nbits is not known on the host yet)
-        and host32 vector right behind its kernels: non-blocking copies
-        into pinned memory and a CUDA event that _finalize waits on."""
+        words, the whole buffer, since nbits is not known on the host yet),
+        host32 vector and, with the noise reduction, its |coef| sums right
+        behind its kernels: non-blocking copies into pinned memory and a
+        CUDA event that _finalize waits on."""
         out = pend["out"]
         body = out["ops"] if self._cabac else out["words"]
+        nr = [out.get(k) for k in ("nr_sum4", "nr_sum8")]
         if self.device.type == "cpu":
-            pend["fetch"] = (None, body, out["host32"])
+            pend["fetch"] = (None, body, out["host32"], nr)
             return
         ops_h = torch.empty(body.shape, dtype=torch.int32, pin_memory=True)
         h32_h = torch.empty(out["host32"].shape, dtype=torch.int32,
                             pin_memory=True)
         ops_h.copy_(body, non_blocking=True)
         h32_h.copy_(out["host32"], non_blocking=True)
+        nr_h = []
+        for t in nr:
+            if t is not None:
+                h = torch.empty(t.shape, dtype=torch.float32, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t = h
+            nr_h.append(t)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
-        pend["fetch"] = (done, ops_h, h32_h)
+        pend["fetch"] = (done, ops_h, h32_h, nr_h)
 
     def flush(self) -> list:
         """Drain delayed frames (the pic_in=NULL flush loop contract,
@@ -855,17 +955,22 @@ class Encoder:
         """Host tail of one frame: wait for its copies, entropy-code (CABAC)
         or take the packed words (CAVLC), RC accounting and stats
         (x264_encoder_frame_end, encoder/encoder.c:1705)."""
-        done, body_t, h32_t = pend["fetch"]
+        done, body_t, h32_t, nr = pend["fetch"]
         if done is not None:
             done.synchronize()
         h32 = h32_t.numpy()
+        ftype, nmb = pend["ftype"], pend["nmb"]
+        if self._nr and ftype == "P":
+            # the offsets of the P frames submitted after this point
+            # (x264_tpu's _finalize, core.py:677-684)
+            self._nr_update(*[None if t is None else t.numpy() for t in nr],
+                            nmb)
         if self._cabac:
             ops = body_t.numpy()[:int(h32[0])].view(np.uint32)
             payload = self._cabac_payload(pend, ops)
         else:
             payload = self._cavlc_payload(pend, body_t.numpy(), int(h32[0]))
         bits = len(payload) * 8
-        ftype, nmb = pend["ftype"], pend["nmb"]
         if ftype in ("P", "B"):
             n_intra, n_skip = int(h32[1]), int(h32[2])
             counts = (n_intra, nmb - n_intra - n_skip, n_skip)

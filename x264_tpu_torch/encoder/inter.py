@@ -209,16 +209,35 @@ def _untiles(tiles, mb_h: int, mb_w: int):
         .reshape(mb_h * n, mb_w * n)
 
 
-def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
+def inter_luma_residual(fenc, pred, qtab, decimate: bool = False,
+                        lossless: bool = False, nr_offset=None):
     """Inter 16x16 luma residual of K MBs: 16 4x4 DCT blocks, P-matrix
     quant (x264_macroblock_encode P path, encoder/macroblock.c:538-616).
     decimate: an 8x8 group scoring < 4 is zeroed, and the whole MB when
     the total scores < 6 (encoder/macroblock.c:700-730).
     fenc / pred: (K, 16, 16). Returns (recon (K,16,16), blocks_z
-    (K,16,16) zig-zag in z-scan block order, cbp_bits (K,))."""
+    (K,16,16) zig-zag in z-scan block order, cbp_bits (K,)). lossless:
+    the transform bypass (x264_tpu inter.py:106-117), the residual
+    samples as levels, the recon the source. nr_offset: (16,) the noise
+    reduction's offsets (x264_tpu inter.py:119-121), which shrink every
+    AC coefficient before the quant; the result then also holds the
+    pre-shrink |coef| (K, 16, 16), raster blocks, raster positions: K26's
+    input (ops/quant.py:nr_sums)."""
     K, dev = fenc.shape[0], fenc.device
     zig = _zig(dev)
+    zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    w = torch.tensor([[1, 2], [4, 8]], dtype=I32, device=dev)
+    if lossless:
+        lv = _blocks4(fenc - pred, 4).reshape(K, 16, 16)
+        grp = (lv != 0).any(-1).reshape(K, 2, 2, 2, 2).any(-3).any(-1)
+        return (fenc.clamp(0, 255), lv[:, zorder][:, :, zig],
+                (grp * w).sum((-2, -1), dtype=I32))
     coef = odct.dct4x4(_blocks4(fenc - pred, 4))       # (K,4,4,4,4)
+    nr_abs = None
+    if nr_offset is not None:
+        nr_abs = coef.reshape(K, 16, 16).abs()
+        coef = oquant.nr_shrink(coef.reshape(K, 16, 16), nr_offset) \
+            .reshape(coef.shape)
     if qtab.get("trellis") is not None:
         # the CABAC trellis in place of the deadzone quant (x264_tpu
         # inter.py:123-133; x264_quant_4x4's b_trellis switch,
@@ -238,17 +257,17 @@ def inter_luma_residual(fenc, pred, qtab, decimate: bool = False):
         kill = kill_g.repeat_interleave(2, -2).repeat_interleave(2, -1)
         lv = torch.where(kill.reshape(K, 16, 1), 0, lv)
     grp = (lv != 0).any(-1).reshape(K, 2, 2, 2, 2).any(-3).any(-1)
-    w = torch.tensor([[1, 2], [4, 8]], dtype=I32, device=dev)
     cbp_bits = (grp * w).sum((-2, -1), dtype=I32)
     deq = oquant.dequant(lv, _q16(qtab["py_dmf"]), _qc(qtab["py_qpdiv6"], 2),
                          4)
     res = odct.idct4x4(deq.reshape(K, 4, 4, 4, 4))
     recon = (pred + _unblocks4(res, 4)).clamp(0, 255)
-    zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
-    return recon, lv[:, zorder][:, :, zig], cbp_bits
+    out = (recon, lv[:, zorder][:, :, zig], cbp_bits)
+    return out if nr_abs is None else out + (nr_abs,)
 
 
-def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False):
+def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False,
+                         nr_offset=None):
     """Inter 16x16 luma residual with the 8x8 transform of K MBs
     (x264_macroblock_encode's b_transform_8x8 branch,
     encoder/macroblock.c:538-558): four 8x8 DCT blocks, CQM_8PY quant.
@@ -256,10 +275,16 @@ def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False):
     the whole MB when the total scores < 6 (encoder/macroblock.c:
     643-667). fenc / pred: (K, 16, 16). Returns (recon (K,16,16),
     blocks8_z (K,4,64) in 8x8 scan order, 2x2 raster block order,
-    cbp_bits (K,))."""
+    cbp_bits (K,)); with nr_offset (64,) (x264_tpu inter.py:178-180) the
+    coefficients are shrunk first and the result also holds their
+    pre-shrink |coef| (K, 4, 64)."""
     K, dev = fenc.shape[0], fenc.device
     blocks = (fenc - pred).reshape(K, 2, 8, 2, 8).transpose(2, 3)
     coef = odct.dct8x8(blocks).reshape(K, 4, 64)
+    nr_abs = None
+    if nr_offset is not None:
+        nr_abs = coef.abs()
+        coef = oquant.nr_shrink(coef, nr_offset)
     zig8 = torch.as_tensor(tables.ZIGZAG8, device=dev).long()
     if qtab.get("trellis8") is not None:
         # the 8x8 trellis (x264_tpu inter.py:182-192): cat 5 in ZIGZAG8;
@@ -284,7 +309,8 @@ def inter_luma_residual8(fenc, pred, qtab, decimate: bool = False):
     res = odct.idct8x8(deq.reshape(K, 2, 2, 8, 8)).transpose(2, 3) \
         .reshape(K, 16, 16)
     recon = (pred + res).clamp(0, 255)
-    return recon, lv[..., zig8], cbp_bits
+    out = (recon, lv[..., zig8], cbp_bits)
+    return out if nr_abs is None else out + (nr_abs,)
 
 
 # ---------------------------------------------------------------- K6
@@ -341,7 +367,9 @@ def partition_preds(planes, refu_pad, refv_pad, ptype, mv_quad,
 
 def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
                      refv_pad, ptype, mv_quad, qtab, decimate: bool,
-                     t8: int = T8_OFF, qp_map=None, ref_sel=None):
+                     t8: int = T8_OFF, qp_map=None, ref_sel=None,
+                     lossless: bool = False, nr_offset4=None,
+                     nr_offset8=None):
     """Plain version of K6: stage 2 of encode_p_body.
 
     y / u / v: the MB-aligned source planes; planes: the (P, Hp, Wp)
@@ -362,7 +390,12 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
     QPs (variance AQ), each MB's inter tables then the rows of qtab's
     "aq_stack_p". ref_sel: (mb_h, mb_w) each MB's reference under two
     references, planes / refu_pad / refv_pad then partition_preds'
-    stacks."""
+    stacks. lossless: the transform bypass of the luma and chroma
+    residuals (the caller turns decimation off). nr_offset4 / nr_offset8:
+    (16,) / (64,) int32 offsets of the noise reduction (x264_denoise_dct)
+    on the 4x4 / 8x8 luma coefficients of every MB; the result then also
+    holds nr_sum4 / nr_sum8, the (16,) / (64,) float32 sums of their
+    pre-shrink |coef| in x264_tpu's order (ops/quant.py:nr_sums_plain)."""
     nK = mb_h * mb_w
     if qp_map is not None:
         qtab = mb_rows(qtab, qp_map, True)
@@ -378,12 +411,18 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
     pred_y, preds_c = preds[0], preds[1:]
     fenc_c = [_tiles(u, 8), _tiles(v, 8)]
     fenc = _tiles(y, 16)
-    ry, blocks_z, cbp = inter_luma_residual(fenc, pred_y, qtab, decimate)
+    grid = lambda t: t.reshape(mb_h, mb_w, *t.shape[1:])
+    r4 = inter_luma_residual(fenc, pred_y, qtab, decimate, lossless,
+                             nr_offset4)
+    ry, blocks_z, cbp = r4[:3]
     extra = {}
+    if nr_offset4 is not None:
+        extra["nr_sum4"] = oquant.nr_sums_plain(grid(r4[3]))
     if t8 != T8_OFF:
-        ry8, blocks8_z, cbp8 = inter_luma_residual8(fenc, pred_y, qtab,
-                                                    decimate)
-        grid = lambda t: t.reshape(mb_h, mb_w, *t.shape[1:])
+        r8 = inter_luma_residual8(fenc, pred_y, qtab, decimate, nr_offset8)
+        ry8, blocks8_z, cbp8 = r8[:3]
+        if nr_offset8 is not None:
+            extra["nr_sum8"] = oquant.nr_sums_plain(grid(r8[3]))
         extra["blocks8_z"] = grid(blocks8_z)
         if t8 == T8_SA8D:
             sel = opix.sa8d_16x16(fenc, pred_y) < opix.satd(fenc, pred_y)
@@ -402,7 +441,7 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
             intra.chroma_ac_scan(f, p, qtab, "pc")[..., 1:]).sum(-1)
             for f, p in zip(fenc_c, preds_c))
         ac_kill = csc < 7
-    ch = [intra.chroma_residual(f, p, qtab, "pc", ac_kill)
+    ch = [intra.chroma_residual(f, p, qtab, "pc", ac_kill, lossless)
           for f, p in zip(fenc_c, preds_c)]
     return dict(
         recon_y=_untiles(ry, mb_h, mb_w),
@@ -419,22 +458,27 @@ def p_inter_mb_plain(mb_h: int, mb_w: int, y, u, v, planes, refu_pad,
 
 def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
                ptype, mv_quad, qtab, decimate: bool, t8: int = T8_OFF,
-               qp_map=None, ref_sel=None):
+               qp_map=None, ref_sel=None, lossless: bool = False,
+               nr_offset4=None, nr_offset8=None):
     """K6 `p_inter_mb`: the inter residual path of every MB.
 
     Replaces x264_tpu/ops/mc.py:mc_luma and mc_chroma (the partitioned
     fetch of encode_p_body's stage 2, inter.py:420-494),
     x264_tpu/encoder/inter.py:inter_luma_residual (with decimation),
     inter_luma_residual8 and the SA8D transform choice (t8) and the
-    chroma half of stage 2, with per-MB tables under a QP map. On CUDA
-    tensors it runs csrc/inter.cu, one CTA per MB over the whole frame in
-    one launch (under two references each CTA fetches from its MB's
-    reference); on CPU tensors the plain version. Arguments and results
-    as p_inter_mb_plain."""
+    chroma half of stage 2, with per-MB tables under a QP map, the
+    lossless bypass (inter.py:106-117, chroma intra.py:172-181) and the
+    noise reduction's shrink (inter.py:119-121, :178-180; its sums then
+    come from K26, ops/quant.py:nr_sums). On CUDA tensors it runs
+    csrc/inter.cu, one CTA per MB over the whole frame in one launch
+    (under two references each CTA fetches from its MB's reference); on
+    CPU tensors the plain version. Arguments and results as
+    p_inter_mb_plain."""
     if y.device.type == "cpu":
         return p_inter_mb_plain(mb_h, mb_w, y, u, v, planes, refu_pad,
                                 refv_pad, ptype, mv_quad, qtab, decimate, t8,
-                                qp_map, ref_sel)
+                                qp_map, ref_sel, lossless, nr_offset4,
+                                nr_offset8)
     dev = y.device
     H, W, P = mb_h * 16, mb_w * 16, omc.PAD
     n_planes = planes.shape[0]
@@ -479,17 +523,34 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
     if trellis is not None:
         cuda.check(trellis, (K6_TRELLIS_INTS,) if qp_map is None
                    else (52, K6_TRELLIS_INTS), I32, "trellis_tab")
+    # the noise reduction: the offsets in, each block's pre-shrink |coef|
+    # out for K26 (the 8x8 ones only with the 8x8 transform)
+    nr = {}
+    for key, off, shape in (("nr_sum4", nr_offset4, (16, 16)),
+                            ("nr_sum8", nr_offset8 if t8 != T8_OFF else None,
+                             (4, 64))):
+        if off is not None:
+            cuda.check(off, shape[-1:], I32, key)
+            nr[key] = (off, e(mb_h, mb_w, *shape))
+    nr_ptr = lambda key, i: nr[key][i].data_ptr() if key in nr else 0
     ins = (y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, tab)
-    cuda.launch("inter", "p_inter_mb", "p" * 23 + "iiiii" + "p",
+    cuda.launch("inter", "p_inter_mb", "p" * 27 + "i" * 6 + "p",
                 *[t.data_ptr() for t in ins],
                 *[ptr(k) for k in ("recon_y", "recon_u", "recon_v",
                                    "blocks_z", "cbp", "chroma_dc",
                                    "chroma_ac", "blocks8_z", "t8_sel",
                                    "recon8_y", "cbp8")],
                 qp_ptr, 0 if trellis is None else trellis.data_ptr(),
-                0 if ref_sel is None else ref_sel.data_ptr(), mb_h,
-                mb_w, n_planes, int(decimate), int(t8), cuda.stream(dev))
+                0 if ref_sel is None else ref_sel.data_ptr(),
+                nr_ptr("nr_sum4", 0), nr_ptr("nr_sum8", 0),
+                nr_ptr("nr_sum4", 1), nr_ptr("nr_sum8", 1), mb_h, mb_w,
+                n_planes, int(decimate), int(t8), int(lossless),
+                cuda.stream(dev))
+    for key, (_, coef_abs) in nr.items():
+        o[key] = oquant.nr_sums(coef_abs)
     p_inter_mb.launches += 1
+    p_inter_mb.launches_nr += int(nr_offset4 is not None)
+    p_inter_mb.launches_lossless += int(lossless)
     p_inter_mb.launches_ref2 += int(ref_sel is not None)
     p_inter_mb.launches_trellis += int(trellis is not None)
     p_inter_mb.launches_t8_sa8d += int(t8 == T8_SA8D)
@@ -499,10 +560,12 @@ def p_inter_mb(mb_h: int, mb_w: int, y, u, v, planes, refu_pad, refv_pad,
 
 
 # launches, and those of them in each t8 mode, with a QP map, with the
-# trellis and with two references
+# trellis, with two references, with the noise reduction and with the
+# lossless bypass
 p_inter_mb.launches = p_inter_mb.launches_t8_sa8d = \
     p_inter_mb.launches_t8_rd = p_inter_mb.launches_aq = \
-    p_inter_mb.launches_trellis = p_inter_mb.launches_ref2 = 0
+    p_inter_mb.launches_trellis = p_inter_mb.launches_ref2 = \
+    p_inter_mb.launches_nr = p_inter_mb.launches_lossless = 0
 
 
 # ---------------------------------------------------------------- K13
@@ -719,7 +782,7 @@ def rd_cost_intra(fenc, fu, fv, lp: dict, cu, cv, qtab, ce_psy):
 def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
                      inter_v, cost_inter, qtab, lam: int, decimate: bool,
                      rd=None, qp_map=None, intra_mb=None,
-                     decide_only: bool = False):
+                     decide_only: bool = False, lossless: bool = False):
     """Plain version of K7: stage 3 of encode_p_body.
 
     Sweep 0 runs the I16 + chroma intra path of every MB with neighbours
@@ -735,7 +798,9 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
     luma_dc (mb_h,mb_w,16), luma_ac (mb_h,mb_w,16,16), chroma_dc
     (mb_h,mb_w,2,4), chroma_ac (mb_h,mb_w,2,4,16)). qp_map: (mb_h, mb_w)
     per-MB QPs (variance AQ), each MB's intra tables then the rows of
-    qtab's "aq_stack".
+    qtab's "aq_stack". lossless: the I16 and chroma paths take the
+    transform bypass (x264_tpu inter.py:634, :654); the decision keeps its
+    SATD costs.
 
     The B frame's two uses (x264_tpu encode_b_body): decide_only returns
     sweep 0's decision alone, the intra_mb (mb_h, mb_w) bool plane (stage
@@ -761,7 +826,8 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
 
     def eval_intra(ty, tu, tv, mode_sel, cmode_sel):
         lp = intra.luma_i16_path(fenc, *nbrs(ty), ht, hl, qtab, lam,
-                                 mode_sel=mode_sel, decimate=decimate)
+                                 mode_sel=mode_sel, decimate=decimate,
+                                 lossless=lossless)
         pu = opred.predict_8x8c(*nbrs(tu), ht, hl)
         pv = opred.predict_8x8c(*nbrs(tv), ht, hl)
         if cmode_sel is None:
@@ -771,8 +837,10 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
             cmode = ccost.argmin(-1).to(I32)
         else:
             cmode = cmode_sel
-        cu = intra.chroma_residual(fu, _pick(pu, cmode), qtab, "c")
-        cv = intra.chroma_residual(fv, _pick(pv, cmode), qtab, "c")
+        cu = intra.chroma_residual(fu, _pick(pu, cmode), qtab, "c",
+                                   lossless=lossless)
+        cv = intra.chroma_residual(fv, _pick(pv, cmode), qtab, "c",
+                                   lossless=lossless)
         return lp, cmode, cu, cv
 
     state = inter_t
@@ -811,14 +879,15 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
 
 def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
                cost_inter, qtab, lam: int, decimate: bool, rd=None,
-               qp_map=None):
+               qp_map=None, lossless: bool = False):
     """K7 `intra_in_p`: stage 3 of the P encode.
 
     Replaces the intra-in-P sweeps of x264_tpu/encoder/inter.py:
     encode_p_body (eval_intra with luma_i16_path, predict_8x8c and
     chroma_residual; the decision, SATD-based or, under the RD ladder,
     on the RD costs of both sides with the psy term, inter.py:671-701;
-    and the resolved fixpoint). On CUDA tensors it runs
+    and the resolved fixpoint; the lossless bypass of the I16 and chroma
+    paths, inter.py:634, :654). On CUDA tensors it runs
     csrc/intra_p.cu: sweep 0 over every MB (with the intra RD cost under
     rd), the decision with the demotion of deep chains, then sweeps 1
     and 2 (4 launches, one CTA per MB each), with per-MB tables under a
@@ -827,7 +896,7 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
     if y.device.type == "cpu":
         return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
                                 inter_v, cost_inter, qtab, lam, decimate, rd,
-                                qp_map)
+                                qp_map, lossless=lossless)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
     for t, shape, name in (
@@ -866,17 +935,20 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
         rd_ptrs = (rd_cost.data_ptr(), ce_psy.data_ptr(),
                    qtab["rdtab"].data_ptr(), cost_i_rd.data_ptr())
         lam2, psy = qtab["rd_lam2"], qtab.get("psy_rd", 0.0)
-    cuda.launch("intra_p", "intra_in_p", "p" * 27 + "iiiiff" + "p",
+    cuda.launch("intra_p", "intra_in_p", "p" * 27 + "iiiiffi" + "p",
                 *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
                 *[t.data_ptr() for t in scratch], *rd_ptrs, qp_ptr, mb_h,
-                mb_w, lam, int(decimate), lam2, psy, cuda.stream(dev))
+                mb_w, lam, int(decimate), lam2, psy, int(lossless),
+                cuda.stream(dev))
     intra_in_p.launches += 4           # sweep 0, decision, sweeps 1 and 2
     intra_in_p.launches_aq += 4 * int(qp_map is not None)
+    intra_in_p.launches_lossless += 4 * int(lossless)
     return o
 
 
-# launches, and those of them with a QP map
-intra_in_p.launches = intra_in_p.launches_aq = 0
+# launches, and those of them with a QP map and with the lossless bypass
+intra_in_p.launches = intra_in_p.launches_aq = \
+    intra_in_p.launches_lossless = 0
 
 
 # ------------------------------------------------------------ the body
@@ -974,7 +1046,9 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                    ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
                    chroma_me: bool = False, rd: bool = False,
-                   t8: bool = False, qp_map=None, ref2=None) -> dict:
+                   t8: bool = False, qp_map=None, ref2=None,
+                   lossless: bool = False, nr_offset4=None,
+                   nr_offset8=None) -> dict:
     """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6,
     K13 (under rd) and K7, and the merges of stage 4 (plain tensor glue).
     All planes int32 and MB-aligned; ref_* the deblocked reference
@@ -994,7 +1068,12 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     runs against each, each MB takes the reference of least SAD + lambda *
     (MV bits + its ref_idx bit) at full-pel (ties stay on reference 0),
     and every later kernel fetches from the MB's reference (the result's
-    ref_sel, (mb_h, mb_w) int32)."""
+    ref_sel, (mb_h, mb_w) int32). lossless: the transform bypass of K6 and
+    K7, with decimation and the RD ladder off (x264_tpu inter.py:497-498).
+    nr_offset4 / nr_offset8: the noise reduction's offsets for K6 (the
+    8x8's with t8); the result then holds nr_sum4 / nr_sum8 (K26)."""
+    decimate = decimate and not lossless
+    rd = rd and not lossless
     ref_pad = omc.pad_plane(ref_y.to(I32))
     refu_pad = omc.pad_plane(ref_u.to(I32), omc.PAD // 2)
     refv_pad = omc.pad_plane(ref_v.to(I32), omc.PAD // 2)
@@ -1041,7 +1120,8 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     it = p_inter_mb(mb_h, mb_w, y, u, v, planes, refu_pad, refv_pad, ptype,
                     mv_quad, qtab, decimate,
                     (T8_RD if rd else T8_SA8D) if t8 else T8_OFF, qp_map,
-                    ref_sel=sel)
+                    ref_sel=sel, lossless=lossless, nr_offset4=nr_offset4,
+                    nr_offset8=nr_offset8 if t8 else None)
     rd_costs = None
     if rd:
         rd_costs = rd_inter(mb_h, mb_w, y, u, v, it, ptype, mv_quad,
@@ -1051,9 +1131,12 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
             rd_costs = rd_costs[:2]
     ip = intra_in_p(mb_h, mb_w, y, u, v, it["recon_y"], it["recon_u"],
                     it["recon_v"], cost_inter, qtab, lam, decimate, rd_costs,
-                    qp_map)
+                    qp_map, lossless=lossless)
     out = dict(merge_intra(ip, it, mb_h, mb_w), me_mv=mv, ptype=ptype,
                mv_quad=mv_quad)
+    for k in ("nr_sum4", "nr_sum8"):
+        if k in it:
+            out[k] = it[k]
     if t8:
         out.update(t8_sel=it["t8_sel"], luma8_z=it["blocks8_z"])
     if sel is not None:
@@ -1144,17 +1227,21 @@ def encode_p_body(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                   ref_u, ref_v, qtab, lam: int, mvp_seed, decimate: bool,
                   subpel_steps=(), parts: bool = False, p8x8: bool = False,
                   chroma_me: bool = False, rd: bool = False,
-                  t8: bool = False, qp_map=None, ref2=None) -> dict:
+                  t8: bool = False, qp_map=None, ref2=None,
+                  lossless: bool = False, nr_offset4=None,
+                  nr_offset8=None) -> dict:
     """One P frame (pre-deblock) with the keys of x264_tpu's
-    encode_p_body(subpel_steps, parts, p8x8, chroma_me, n_refs, t8, rd,
-    qp_map), n_refs 2 where ref2 (L0[1] as (y, u, v)) is given: stages
+    encode_p_body(subpel_steps, parts, lossless, p8x8, chroma_me, n_refs,
+    t8, rd, qp_map), n_refs 2 where ref2 (L0[1] as (y, u, v)) is given,
+    lossless gating decimation and RD off, and with nr_offset4 / 8 the
+    noise reduction (qtab's nr_offset4 / 8, and nr_sum4 / 8 out): stages
     1-3 (encode_p_front) and the syntax maps (p_maps_plain). The card's
     pipeline runs the maps inside kernel K8 instead
     (entropy/cabac_planes.py:cabac_p_ops)."""
     front = encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y, ref_u,
                            ref_v, qtab, lam, mvp_seed, decimate,
                            subpel_steps, parts, p8x8, chroma_me, rd, t8,
-                           qp_map, ref2)
+                           qp_map, ref2, lossless, nr_offset4, nr_offset8)
     out = dict(front, **p_maps_plain(front, mb_h, mb_w))
     for k in ("me_mv", "mv_quad", "t8_sel", "ref_sel"):
         out.pop(k, None)

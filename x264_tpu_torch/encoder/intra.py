@@ -18,7 +18,11 @@ diagonals d = x + 2y instead (the reference's own frame-thread offset).
 Both run the I16x16 + I4x4 (+ I8x8) ladder at one frame QP or, under
 variance AQ, with each MB's tables at its own QP (qp_map): the rows of
 the 52-QP stack of encoder/aq.py:qtab_stacks; lambda stays the frame's.
-Lossless bypass comes with a later slice.
+At QP 0 under CQP (lossless) every residual path takes the transform
+bypass (qpprime_y_zero_transform_bypass; x264_mb_encode_i16x16 /
+_i4x4 / _8x8_chroma lossless branches, encoder/macroblock.c:116-364):
+the residual samples are the levels and the reconstruction is the
+source; the mode decisions keep their SATD costs.
 """
 
 from __future__ import annotations
@@ -153,12 +157,15 @@ def _zig(device):
 
 
 def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam,
-                  mode_sel=None, decimate: bool = False):
+                  mode_sel=None, decimate: bool = False,
+                  lossless: bool = False):
     """I16x16 luma for a batch of MBs: mode decision + residual +
     reconstruction (x264_mb_analyse_intra + x264_mb_encode_i16x16).
     mode_sel: (K,) fixed modes instead of the SATD decision (cost is then
     0); decimate: the P-slice AC decimation (a total score15 < 6 zeroes
-    every AC level, encoder/macroblock.c:193-241).
+    every AC level, encoder/macroblock.c:193-241); lossless: the bypass
+    (x264_tpu intra.py:97-113), the residual samples as levels with
+    sample 0 of each 4x4 on the DC list and cbp "any AC sample nonzero".
     Returns dict(cost, mode, recon, dc_z (K,16), ac_z (K,16,16), cbp)."""
     K, dev = fenc.shape[0], fenc.device
     zig = _zig(dev)
@@ -174,6 +181,16 @@ def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam,
         mode = mode_sel.to(I32)
         best_cost = torch.zeros(K, dtype=I32, device=dev)
     pred = _pick(preds, mode)
+    zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
+    if lossless:
+        blocks = _blocks4(fenc - pred, 4)              # (K,4,4,4,4)
+        ac = blocks.clone()
+        ac[..., 0, 0] = 0
+        return dict(cost=best_cost, mode=mode,
+                    recon=(pred + _unblocks4(blocks, 4)).clamp(0, 255),
+                    dc_z=blocks[..., 0, 0].reshape(K, 16)[:, zig],
+                    ac_z=ac.reshape(K, 16, 16)[:, zorder][:, :, zig],
+                    cbp=(ac != 0).reshape(K, -1).any(-1))
 
     coef = odct.dct4x4(_blocks4(fenc - pred, 4))       # (K,4,4,4,4)
     dc_raster = coef[..., 0, 0].clone()                # (K,4,4)
@@ -198,8 +215,6 @@ def luma_i16_path(fenc, top, left, topleft, has_top, has_left, qtab, lam,
     dconly = ((dc_rec + 32) >> 6)[..., None, None].expand_as(full)
     res = torch.where(cbp_luma[:, None, None, None, None], full, dconly)
     recon = (pred + _unblocks4(res, 4)).clamp(0, 255)
-
-    zorder = torch.as_tensor(tables.LUMA4x4_RASTER_OF_Z, device=dev).long()
     ac_z = ac_lv.reshape(K, 16, 16)[:, zorder][:, :, zig]
     dc_z = dc_lv.reshape(K, 16)[:, zig]
     return dict(cost=best_cost, mode=mode, recon=recon, dc_z=dc_z,
@@ -249,14 +264,23 @@ def chroma_ac_scan(fencc, cpred, qtab, pfx: str = "pc"):
     return cac_lv.reshape(K, 4, 16)[..., _zig(fencc.device)]
 
 
-def chroma_residual(fencc, cpred, qtab, pfx: str = "c", ac_kill=None):
+def chroma_residual(fencc, cpred, qtab, pfx: str = "c", ac_kill=None,
+                    lossless: bool = False):
     """Chroma 8x8 residual path of one channel for a batch of MBs
     (x264_mb_encode_8x8_chroma, encoder/macroblock.c:272), with the
     `pfx` tables ("c" intra, "pc" inter). ac_kill: optional (K,) bool
-    zeroing the AC levels (the joint chroma decimation of inter MBs).
+    zeroing the AC levels (the joint chroma decimation of inter MBs);
+    lossless: the bypass (x264_tpu intra.py:172-181), sample 0 of each
+    4x4 as its DC and the rest as AC levels, the recon the source.
     Returns (recon, dc (K,4) in [c00,c01,c10,c11] order, ac (K,4,16)
     zig-zag)."""
     K, zig = fencc.shape[0], _zig(fencc.device)
+    if lossless:
+        cb = _blocks4(fencc - cpred, 2)                # (K,2,2,4,4)
+        cac = cb.clone()
+        cac[..., 0, 0] = 0
+        return ((cpred + _unblocks4(cb, 2)).clamp(0, 255),
+                cb[..., 0, 0].reshape(K, 4), cac.reshape(K, 4, 16)[..., zig])
     ccoef, cac_lv = _chroma_ac_levels(fencc, cpred, qtab, pfx)
     if ac_kill is not None:
         cac_lv = torch.where(ac_kill[:, None, None, None, None], 0, cac_lv)
@@ -289,10 +313,13 @@ def chroma_residual(fencc, cpred, qtab, pfx: str = "c", ac_kill=None):
 
 
 def luma_i4_path(fenc, top_row, topleft_px, left_col, nbr_modes_top,
-                 nbr_modes_left, has_top, has_left, qtab, lam):
+                 nbr_modes_left, has_top, has_left, qtab, lam,
+                 lossless: bool = False):
     """I4x4 luma: 16 blocks in z-scan order, each reading the recon of
     the blocks before it, batched over MBs (x264_mb_analyse_intra i4x4
-    ladder, encoder/analyse.c:707-843 + x264_mb_encode_i4x4).
+    ladder, encoder/analyse.c:707-843 + x264_mb_encode_i4x4). lossless:
+    the bypass (x264_tpu intra.py:603-606), each block's levels its
+    samples, its recon the source.
     Returns dict(cost, modes (K,4,4) raster, blocks_z (K,16,16),
     recon (K,16,16), cbp_bits (K,))."""
     K, dev = fenc.shape[0], fenc.device
@@ -338,10 +365,15 @@ def luma_i4_path(fenc, top_row, topleft_px, left_col, nbr_modes_top,
         total_cost = total_cost + cost.min(-1).values
         pred = _pick(preds, mode)
 
-        lv = oquant.quant(odct.dct4x4(fb - pred).reshape(K, 16),
-                          qtab["y_mf"], qtab["y_bias"])
-        deq = oquant.dequant(lv, qtab["y_dmf"], _qc(qtab["y_qpdiv6"], 1), 4)
-        rec = (pred + odct.idct4x4(deq.reshape(K, 4, 4))).clamp(0, 255)
+        if lossless:
+            lv = (fb - pred).reshape(K, 16)
+            rec = fb.clamp(0, 255)
+        else:
+            lv = oquant.quant(odct.dct4x4(fb - pred).reshape(K, 16),
+                              qtab["y_mf"], qtab["y_bias"])
+            deq = oquant.dequant(lv, qtab["y_dmf"], _qc(qtab["y_qpdiv6"], 1),
+                                 4)
+            rec = (pred + odct.idct4x4(deq.reshape(K, 4, 4))).clamp(0, 255)
         ext[:, 1 + 4 * by:5 + 4 * by, 1 + 4 * bx:5 + 4 * bx] = rec
         modes_r[:, by, bx] = mode
         blocks_z[:, z] = lv[:, zig]
@@ -449,7 +481,8 @@ def diagonals(mb_h: int, mb_w: int, i8x8: bool):
 
 
 def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
-                           i8x8: bool = False, qp_map=None):
+                           i8x8: bool = False, qp_map=None,
+                           lossless: bool = False):
     """Plain version of K1: the wavefront over whole diagonals.
 
     y: (mb_h*16, mb_w*16) int32; u, v: (mb_h*8, mb_w*8) int32; qtab from
@@ -460,7 +493,8 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
     i8x8 is on (an I8x8 MB keeps i4_mb, I_NxN; its four 8x8 modes fill
     the 4x4 mode grid). qp_map: (mb_h, mb_w) int32 per-MB QPs (variance
     AQ); qtab then also holds "aq_stack", the (52, QTAB_INTS) intra stack,
-    and each diagonal's MBs take the rows of their QPs."""
+    and each diagonal's MBs take the rows of their QPs. lossless: the
+    transform bypass of every residual path (QP 0 under CQP)."""
     dev = y.device
     rows = None if qp_map is None \
         else unpack_qtab(qtab["aq_stack"][qp_map.long()])
@@ -497,14 +531,14 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
         left = ty[ys, xm, :, 15]
         topleft = ty[ym, xm, 15, 15]
         lp = luma_i16_path(fenc, top, left, topleft, has_top, has_left,
-                           qtab, lam)
+                           qtab, lam, lossless=lossless)
         two = torch.full((ys.shape[0], 4), 2, dtype=I32, device=dev)
         nmt = torch.where(has_top[:, None], out["i4_modes"][ym, xs, 3, :],
                           two)
         nml = torch.where(has_left[:, None], out["i4_modes"][ys, xm, :, 3],
                           two)
         lp4 = luma_i4_path(fenc, top, topleft, left, nmt, nml, has_top,
-                           has_left, qtab, lam)
+                           has_left, qtab, lam, lossless)
         use_i4 = lp4["cost"] < lp["cost"]
         sel = use_i4[:, None, None]
         recon = torch.where(sel, lp4["recon"], lp["recon"])
@@ -555,7 +589,8 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
         cmode = torch.where(cavail, ccost, _BIG).argmin(-1).to(I32)
         out["modec"][ys, xs] = cmode
         for ch, ((fencc, cpreds, _), t_ref) in enumerate(zip(cp, (tu, tv))):
-            rec, dc, ac = chroma_residual(fencc, _pick(cpreds, cmode), qtab)
+            rec, dc, ac = chroma_residual(fencc, _pick(cpreds, cmode), qtab,
+                                          lossless=lossless)
             t_ref[ys, xs] = rec
             out["chroma_dc"][ys, xs, ch] = dc
             out["chroma_ac"][ys, xs, ch] = ac
@@ -584,18 +619,18 @@ def _pred_tab(device, size: int):
 
 
 def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
-                     i8x8: bool = False, qp_map=None):
+                     i8x8: bool = False, qp_map=None, lossless: bool = False):
     """K1 `intra_diag`: the intra encode of one frame.
 
     Replaces x264_tpu/encoder/intra.py:encode_i16_frame (with i4x4=True,
-    i8x8 as given, lossless=False, and with a QP map its per-MB qtab
+    i8x8 and lossless as given, and with a QP map its per-MB qtab
     rows). On a CUDA tensor it launches csrc/intra.cu once per wavefront
     diagonal (mb_h + mb_w - 1 launches, or mb_w + 2 * mb_h - 2 with I8x8;
     one CTA per MB of the diagonal); on a CPU tensor it runs the plain
     version. Inputs and outputs as encode_i16_frame_plain."""
     if y.device.type == "cpu":
         return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
-                                      qp_map)
+                                      qp_map, lossless)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
     cuda.check(y, (H, W), I32, "y")
@@ -626,15 +661,17 @@ def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
     ptrs = [t.data_ptr() for t in ins] + [o[k].data_ptr() for k in keys]
     stream = cuda.stream(dev)
     for d, _, _ in diagonals(mb_h, mb_w, i8x8):
-        cuda.launch("intra", "intra_diag", "p" * 21 + "iiiii" + "p",
+        cuda.launch("intra", "intra_diag", "p" * 21 + "iiiiii" + "p",
                     *ptrs, *t8_ptrs, qp_ptr, mb_h, mb_w, d, lam, int(i8x8),
-                    stream)
+                    int(lossless), stream)
         encode_i16_frame.launches += 1
         encode_i16_frame.launches_i8x8 += int(i8x8)
         encode_i16_frame.launches_aq += int(qp_map is not None)
+        encode_i16_frame.launches_lossless += int(lossless)
     return o
 
 
-# launches, and those of them with the I8x8 ladder and with a QP map
+# launches, and those of them with the I8x8 ladder, with a QP map and
+# with the lossless bypass
 encode_i16_frame.launches = encode_i16_frame.launches_i8x8 = \
-    encode_i16_frame.launches_aq = 0
+    encode_i16_frame.launches_aq = encode_i16_frame.launches_lossless = 0

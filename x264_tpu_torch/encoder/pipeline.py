@@ -21,6 +21,9 @@ pipelines start with the per-MB QP map of the source planes (K16); K1,
 K6 and K7 read each MB's tables at its QP, K17 derives the mb_qp_delta
 planes that K3 / K8 code and the effective QP map that K2 filters with
 (x264_tpu's _encode_i16_aq, _aq_maps and encode_p_cabac's AQ path).
+At CQP 0 (lossless) K1, K6 and K7 take the transform bypass; with the
+noise reduction a P frame's K6 shrinks its inter luma coefficients by
+the host's offsets and K26 sums their |coef| for the host's next update.
 Everything is queued on the device's current stream; only the op stream
 (or the slice words) and one small int32 vector cross to the host
 (x264_slice_write, encoder/encoder.c:1141, plus x264_frame_deblock_row
@@ -90,13 +93,14 @@ def _aq_map(aq, y, u, v, mb_h: int, mb_w: int, qp: int,
 
 
 def _intra_front(mb_h: int, mb_w: int, y, u, v, qtab: dict, lam: int,
-                 qp: int, chroma_qp_offset: int, i8x8: bool, aq):
+                 qp: int, chroma_qp_offset: int, i8x8: bool, aq,
+                 lossless: bool = False):
     """K16 under AQ, K1, then K17 under AQ (x264_tpu's _encode_i16_aq):
     returns (K1's planes, with dqp / dqp_prev_nz under AQ, and the QP map
     the MBs decode with)."""
     qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     out = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
-                                 qp_map)
+                                 qp_map, lossless)
     qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
     if qp_map is not None:
         # an I_NxN MB without coded residual codes no mb_qp_delta
@@ -127,7 +131,7 @@ def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
                          beta_off: int, chroma_qp_offset: int,
                          crop_w: int, crop_h: int, with_metrics: bool,
                          t8: bool = False, i8x8: bool = False,
-                         aq=None) -> dict:
+                         aq=None, lossless: bool = False) -> dict:
     """One IDR frame, CABAC entropy. y / u / v: int32 MB-aligned planes on
     the device; crop_w x crop_h the output size the metrics cover; t8: the
     PPS enables the 8x8 transform (the flag of I_NxN MBs); i8x8: the I8x8
@@ -137,9 +141,10 @@ def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
     ssd_v, ssim], and with i8x8 t8_mb, the I8x8 MBs). aq: variance AQ
     as (strength, qp_min, qp_max), qtab then holding the 52-QP stack
     "aq_stack"; the result then also holds dqp and qp_eff (mb_h, mb_w),
-    the mb_qp_delta values and the QPs the MBs decode with."""
+    the mb_qp_delta values and the QPs the MBs decode with. lossless: the
+    transform bypass (QP 0 under CQP)."""
     out, qp_mb = _intra_front(mb_h, mb_w, y, u, v, qtab, lam, qp,
-                              chroma_qp_offset, i8x8, aq)
+                              chroma_qp_offset, i8x8, aq, lossless)
     ops, n_ops = cabac_planes.i_slice_ops(out, mb_h, mb_w, t8)
     ry, ru, rv = _intra_tail(mb_h, mb_w, out, qp_mb, deblock_on, alpha_off,
                              beta_off, chroma_qp_offset, i8x8)
@@ -157,16 +162,17 @@ def encode_i16_idr(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
                    qtab: dict, lam: int, qp: int, hdr_vals, hdr_lens,
                    alpha_off: int, beta_off: int, chroma_qp_offset: int,
                    crop_w: int, crop_h: int, with_metrics: bool,
-                   aq=None) -> dict:
+                   aq=None, lossless: bool = False) -> dict:
     """One IDR frame, CAVLC entropy (x264_tpu's encode_i16_idr): K16 under
     AQ, K1 (I16x16 and I4x4), K17 under AQ, K18 (the slice header's slots
     hdr_vals / hdr_lens, from entropy/device.py:header_slots, the MBs'
     codes and the stop bit), K2 and K4. Returns dict(recon_y/u/v, words
     (int32 bit patterns, capacity_words(nmb) of them, the first
     ceil(nbits / 32) live), host32 = [nbits, nmb, 0, ssd_y, ssd_u, ssd_v,
-    ssim], mode16, modec, and under aq dqp and qp_eff)."""
+    ssim], mode16, modec, and under aq dqp and qp_eff); lossless as
+    encode_i16_idr_cabac's."""
     out, qp_mb = _intra_front(mb_h, mb_w, y, u, v, qtab, lam, qp,
-                              chroma_qp_offset, False, aq)
+                              chroma_qp_offset, False, aq, lossless)
     words, nbits = edev.cavlc_i_slice(out, mb_h, mb_w, hdr_vals, hdr_lens,
                                       capacity_words(mb_h * mb_w))
     ry, ru, rv = _intra_tail(mb_h, mb_w, out, qp_mb, deblock_on, alpha_off,
@@ -187,7 +193,9 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                    crop_h: int, with_metrics: bool, decimate: bool,
                    subpel_steps=(), parts: bool = False, p8x8: bool = False,
                    chroma_me: bool = False, rd: bool = False,
-                   t8: bool = False, aq=None, ref2=None) -> dict:
+                   t8: bool = False, aq=None, ref2=None,
+                   lossless: bool = False, nr_offset4=None,
+                   nr_offset8=None) -> dict:
     """One P frame at subme 1-9, CABAC entropy. y / u / v: int32
     MB-aligned source planes; ref_*: the deblocked reference (L0[0]);
     ref2: L0[1] as (y, u, v) for two references, or None;
@@ -201,12 +209,17 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     frame as their L1 reference), and with t8 t8_mb,
     the MBs coded with the 8x8 transform). aq: variance AQ as (strength,
     qp_min, qp_max), qtab then holding the stacks "aq_stack" and
-    "aq_stack_p"; the result then also holds dqp and qp_eff."""
+    "aq_stack_p"; the result then also holds dqp and qp_eff. lossless:
+    the transform bypass (decimation and RD off). nr_offset4 / nr_offset8:
+    the noise reduction's (16,) / (64,) int32 offsets on the device (the
+    8x8's with t8); the result then also holds nr_sum4 / nr_sum8, the
+    float32 |coef| sums of x264_tpu's encode_p_cabac."""
     qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
                                  subpel_steps, parts, p8x8, chroma_me, rd,
-                                 t8, qp_map, ref2)
+                                 t8, qp_map, ref2, lossless, nr_offset4,
+                                 nr_offset8)
     maps, ops, n_ops = cabac_planes.cabac_p_ops(
         front, mb_h, mb_w, 1 if ref2 is None else 2, t8_mode=t8,
         aq=None if qp_map is None else (qp_map, qp))
@@ -228,6 +241,12 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
         ret["t8_mb"] = maps["t8_mb"]
     if qp_map is not None:
         ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
+    return _with_nr(ret, front)
+
+
+def _with_nr(ret: dict, front: dict) -> dict:
+    """ret with the noise reduction's sums of front, where it has them."""
+    ret.update({k: front[k] for k in ("nr_sum4", "nr_sum8") if k in front})
     return ret
 
 
@@ -279,7 +298,8 @@ def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
              mvp_seed, crop_w: int, crop_h: int, with_metrics: bool,
              decimate: bool, subpel_steps=(), parts: bool = False,
              p8x8: bool = False, chroma_me: bool = False, rd: bool = False,
-             aq=None, ref2=None) -> dict:
+             aq=None, ref2=None, lossless: bool = False,
+             nr_offset4=None) -> dict:
     """One P frame at subme 1-9, CAVLC entropy (x264_tpu's encode_p): K16
     under AQ, encode_p_front as encode_p_cabac runs it without the 8x8
     transform (ref2: L0[1] for two references), K8's pass A alone
@@ -287,12 +307,13 @@ def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
     codes, the trailing skip run, the stop bit), K2 with pass A's maps and
     K4. Returns dict(recon_y/u/v, words, host32 = [nbits, n_intra,
     n_skip, ssd_y, ssd_u, ssd_v, ssim], mv, ptype, ref4 / mv4 / ref_idx,
-    and under aq dqp and qp_eff)."""
+    and under aq dqp and qp_eff, with nr_offset4 nr_sum4); lossless and
+    nr_offset4 as encode_p_cabac takes them."""
     qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
                                  subpel_steps, parts, p8x8, chroma_me, rd,
-                                 False, qp_map, ref2)
+                                 False, qp_map, ref2, lossless, nr_offset4)
     maps = cabac_planes.p_maps(front, mb_h, mb_w)
     qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
     if qp_map is not None:
@@ -315,7 +336,7 @@ def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
                mv4=maps["mv4"], ref_idx=maps["ref_idx"])
     if aq is not None:
         ret.update(dqp=maps["dqp"], qp_eff=qp_mb)
-    return ret
+    return _with_nr(ret, front)
 
 
 def encode_b(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,

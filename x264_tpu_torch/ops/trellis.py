@@ -318,7 +318,7 @@ def trellis_scan_plain(coefs_scan, tc: dict, qp_idx=None):
 
     The reference's order of operations is kept: the scan runs from the
     last position down; at each, candidate q then q - 1 (dropped where q
-    is 0), from node j 0..7, each scoring the one kind of transition its
+    is 0 or below), from node j 0..7, each scoring the one kind of transition its
     level takes (zero j -> j, level 1 NODE_TRANS[0][j], level > 1
     NODE_TRANS[1][j]); a destination keeps the first contribution that is
     strictly below its score, which starts at BIG (so one that nothing
@@ -326,12 +326,16 @@ def trellis_scan_plain(coefs_scan, tc: dict, qp_idx=None):
     argmin. Scores are float32, rounded as _score says.
 
     The integer steps run in int32, as x264_tpu's do (its int64 casts are
-    int32 without jax_enable_x64). Both products stay far below 2^31 for
-    every coefficient the transforms of 8-bit residuals make: |coef| is
-    at most 9180 (4x4), 16320 (8x8) and 16320 (the chroma DC Hadamard),
-    so |coef| * qmf + 2^15 < 2.2e8 with qmf <= 26214 (13107 for the DC,
-    20972 for the 8x8) at any QP, and uqmf * level + 128 < 4.4e6; the
-    tests hold both bounds and the levels at those extremes."""
+    int32 without jax_enable_x64). With the flat lists both products stay
+    far below 2^31 for every coefficient the transforms of 8-bit
+    residuals make: |coef| is at most 9180 (4x4), 16320 (8x8) and 16320
+    (the chroma DC Hadamard), so |coef| * qmf + 2^15 < 2.2e8 with qmf <=
+    26214 (13107 for the DC, 20972 for the 8x8) at any QP, and uqmf *
+    level + 128 < 4.4e6; the tests hold both bounds and the levels at
+    those extremes. A custom list with small entries (--cqm) raises qmf
+    to ~4.2e5, and the product then wraps as x264_tpu's does; q may come
+    out negative, and its level is then 0 (max(q - cand, 0), the second
+    candidate dropped)."""
     dev = coefs_scan.device
     N, C = coefs_scan.shape
     t = _as_torch(tc, dev, C)
@@ -382,7 +386,7 @@ def trellis_scan_plain(coefs_scan, tc: dict, qp_idx=None):
             # 0 zero, 1 level 1, 2 level > 1, 3 none (q - 1 where q is 0)
             kind = torch.where(lvl == 0, 0, torch.where(lvl == 1, 1, 2))
             if cand == 1:
-                kind = torch.where(qi == 0, 3, kind)
+                kind = torch.where(qi <= 0, 3, kind)
             bits = torch.where((kind == 0)[:, None], bZ,
                                torch.where((kind == 1)[:, None], bA, b1))
             s = _score(kind[:, None], bits, lam2, base)   # (N, 8)
@@ -403,7 +407,7 @@ def trellis_scan_plain(coefs_scan, tc: dict, qp_idx=None):
     for i in range(C):
         h = hist[i][ar, node].long()
         ch = h & 3
-        out[:, i] = torch.where(ch == 0, q[:, i], torch.where(
+        out[:, i] = torch.where(ch == 0, q[:, i].clamp(min=0), torch.where(
             ch == 1, (q[:, i] - 1).clamp(min=0), 0))
         node = h >> 2
     return out * sign
