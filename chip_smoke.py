@@ -141,6 +141,23 @@ Phases; any failure exits non-zero before the result line:
      the card must equal its source, frames 0-1 of each must equal a CPU
      run; the phase reports bytes per frame and the fullest CAVLC
      frame's bits per MB against the word buffer's 4800.
+ 18. MB-row sharding on the one card: (a) x264_tpu's defaults (CRF 23
+     with variance AQ, subme 6, the 8x8 transform; I8x8 off with shards)
+     with --ref 2 and --bframes 2 at b-adapt 0, i_mb_row_shards 4 on
+     device=[cuda:0] * 4 (4 bands of 17 MB rows), 8 frames of
+     make_frames: every CABAC band program's kernels must launch, K27 on
+     every band of every frame and K28 once a band and reference, none
+     of chroma ME, I8x8 or the I bands' AQ; the first three frames in
+     encode order (IDR, P, B) must equal a CPU run on device=["cpu"] * 4;
+     (b) CAVLC at CQP 26 over 2 bands, 5 frames: K18, K8's pass A, K19
+     and K28 launch, K27 does not, frames 0-2 equal the CPU's on
+     ["cpu"] * 2. It reports fps, the median encode(), bytes by frame
+     type, each band's host CABAC time, K28's time a frame derived from
+     phase 3's per launch, the d2h bytes of the packed op streams against
+     32-bit ops, and the profiler's split (K27 and K28 in it) and idle
+     share over frames 1-6. One card cannot
+     show the peer copies between cards or the bands' overlap across
+     cards: the bands share cuda:0 and their strips stay in place.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
@@ -182,7 +199,10 @@ the deadzone quant, the trellis, and the trellis with frame 1's QP map,
 K26 on that frame's 4x4 and 8x8 |coef|, on the 30%-gray reference's and
 on 1080p |coef| whose sums pass 2^24, and the lossless branches of K1
 (frame 0), K6 and K7 (frame 1 against frame 0's recon), each recon the
-source, all exact. The
+source, all exact; and MB-row sharding: K27 on frame 0's IDR and frame 1's
+P op streams and on a seeded stream past a small capacity, K28 on frame
+0's recon cut into 4 bands at each position, both exact, and the d2h of
+frame 1's live P stream packed against unpacked. The
 line before the last is the JSON `kernels` record (the 8x8, AQ, CAVLC,
 trellis, two-reference, NR and lossless variants as records of their own, each
 counting the launches that took its branch; `launches` is the count of
@@ -191,8 +211,10 @@ phase 12 for K6's trellis branch and K20 (0: its device code runs
 inside K6), phase 13 for the B kernels and branches, phase 14 for the
 two-reference branches, phase 15 for K25, K24's pass A alone and the
 CAVLC two-reference branches, phase 16 for K26 and K6's NR branch,
-phase 17's CABAC run for the lossless branches, phase 9 for the others,
-the other phases' beside it); the
+phase 17's CABAC run for the lossless branches, phase 18's CABAC run
+for K27 and K28 (`launches_rows`, and `launches_rows_cavlc`, phase 18's
+band launches of every kernel), phase 9 for the others, the other
+phases' beside it); the
 last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
 """
@@ -235,6 +257,11 @@ N_LOSSLESS_CAVLC = 3           # and of its CAVLC run
 N_CHECK_LOSSLESS = 2           # frames of each held against the CPU
 N_PRESET = 32                  # frames of x264's default preset (phases
                                # 14 and 15)
+N_ROWS = 8                     # frames of the sharded CABAC run (phase 18)
+N_ROWS_CAVLC = 5               # and of its CAVLC run
+N_BANDS = 4                    # bands of MB rows of the CABAC run
+N_BANDS_CAVLC = 2              # and of the CAVLC run
+N_CHECK_ROWS = 3               # frames of each held against the CPU
 SUBME = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA's data sheet)
 # the kernels' work is int32 arithmetic off the tensor cores; the data
@@ -507,6 +534,31 @@ def lossless_cavlc_params(EncoderParams, frame_parallel: int = 3):
     return lossless_params(EncoderParams, frame_parallel, cabac=False)
 
 
+def rows_params(EncoderParams, frame_parallel: int = 3):
+    """Phase 18a: x264_tpu's defaults (CRF 23 with variance AQ, subme 6
+    with psy-RD, the 8x8 transform; validate() turns I8x8 off with
+    shards) with --ref 2 and --bframes 2, over 4 bands of MB rows. The B
+    runs are fixed (b-adapt 0): on make_frames' noisy pan b-adapt 1
+    places no B, and the B band program must run."""
+    p = EncoderParams(i_width=W, i_height=H, i_log_level=0,
+                      i_frame_parallel=frame_parallel, i_frame_reference=2,
+                      i_bframe=2, i_mb_row_shards=N_BANDS)
+    p.i_bframe_adaptive = 0
+    return p
+
+
+def rows_cavlc_params(EncoderParams, frame_parallel: int = 3):
+    """Phase 18b: CAVLC at CQP 26 over 2 bands of MB rows, keyint 250,
+    x264_tpu's defaults otherwise (validate() turns the 8x8 transform,
+    I8x8 and, with shards, AQ off)."""
+    p = EncoderParams(i_width=W, i_height=H, i_log_level=0, b_cabac=False,
+                      i_frame_parallel=frame_parallel, i_keyint_max=250,
+                      i_mb_row_shards=N_BANDS_CAVLC)
+    p.rc.i_rc_method = 0            # CQP
+    p.rc.i_qp_constant = QP
+    return p
+
+
 def lossless_check(done, frames, what: str) -> None:
     """Every frame's reconstruction on the card equals its source: the
     bypass's own proof."""
@@ -664,17 +716,17 @@ def drive(enc, frames):
 
 def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
                 what: str, subme: int = 1, scenecut: int = 0,
-                make=None, frame_parallel: int = 1) -> None:
+                make=None, frame_parallel: int = 1, device="cpu") -> None:
     """The first n frames of a card run against Encoder(device="cpu") on
     those n frames (then flushed); make(EncoderParams, frame_parallel)
     builds other parameters than params(). Under CRF / ABR a frame's QP
     depends on the pipe's depth, so the CPU run then takes the card
-    run's frame_parallel."""
+    run's frame_parallel. device: the CPU run's (a list: its bands')."""
     stamp(f"{what}: the CPU run")
     p = make(x264_tpu_torch.EncoderParams, frame_parallel) if make else \
         params(x264_tpu_torch.EncoderParams, frame_parallel, keyint, subme,
                scenecut)
-    cpu = x264_tpu_torch.Encoder(p, device="cpu")
+    cpu = x264_tpu_torch.Encoder(p, device=device)
     if cpu.headers() != header:
         fail(f"{what}: headers differ between the card and the CPU")
     refs = [cpu.encode(frames[i]) for i in range(n)]
@@ -694,15 +746,15 @@ def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
 
 
 def same_as_cpu_b(x264_tpu_torch, done, frames, header, n: int, what: str,
-                  make) -> None:
+                  make, device="cpu") -> None:
     """The first n frames in encode order of a card run with B frames
     against Encoder(device="cpu") at the card run's pipe depth, fed the
     same frames until it has queued n of them; the rest of its pipe is
     finished without flush(), which would turn a queued B candidate into
-    a P and queue more frames."""
+    a P and queue more frames. device: as same_as_cpu's."""
     stamp(f"{what}: the CPU run")
     cpu = x264_tpu_torch.Encoder(make(x264_tpu_torch.EncoderParams, 3),
-                                 device="cpu")
+                                 device=device)
     if cpu.headers() != header:
         fail(f"{what}: headers differ between the card and the CPU")
     refs = []
@@ -765,7 +817,8 @@ def partition_warp(ref, mb_h: int, mb_w: int, seed: int = 1):
 
 # kernel name fragment -> the port's kernel it belongs to (device time
 # of everything else is PyTorch's own glue: padding, copies, merges)
-KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
+KERNEL_GROUPS = (("hwpack_", "K27"), ("halo_kernel", "K28"),
+                 ("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
                  ("p_emit_kernel", "K8"), ("p_maps_kernel", "K8 pass A"),
                  ("b_emit_kernel", "K24"), ("b_maps_kernel", "K24 pass A"),
                  ("bcost_kernel", "K21"), ("provisional_kernel", "K23"),
@@ -793,16 +846,17 @@ KERNEL_GROUPS = (("intra_diag_kernel", "K1"), ("deblock_diag_kernel", "K2"),
 
 def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
                  subme: int, scenecut: int = 0, make=None,
-                 tag: str = "bench.py's defaults") -> None:
+                 tag: str = "bench.py's defaults", device=None) -> None:
     """Device time by kernel over n steady IPPP frames, from a
     torch.profiler trace of the card (CUPTI sees the ctypes launches
     too): per frame, each kernel's share, PyTorch's glue, the busy sum
     and the host wall; the idle share is 1 - busy / wall. make: as in
-    same_as_cpu."""
+    same_as_cpu; device: the Encoder's."""
     from torch.profiler import ProfilerActivity, profile
     enc = x264_tpu_torch.Encoder(
         make(x264_tpu_torch.EncoderParams, 3) if make else
-        params(x264_tpu_torch.EncoderParams, 3, 250, subme, scenecut))
+        params(x264_tpu_torch.EncoderParams, 3, 250, subme, scenecut),
+        device=device)
     enc.headers()
     for f in frames[:n_warm]:
         enc.encode(f)
@@ -884,6 +938,7 @@ def main() -> None:
     from x264_tpu_torch.ops import quant as oquant
     from x264_tpu_torch.ops import trellis as otrellis
     from x264_tpu_torch import log as xlog
+    from x264_tpu_torch.parallel import rows as prows
 
     # ---------------------------------------------------------- 1. card
     smi = subprocess.run(
@@ -2745,6 +2800,110 @@ def main() -> None:
           f" source; K1 {ms1l:.3f} ms, K6 {ms6l:.3f} ms, K7 {ms7l:.3f} ms "
           f"({n_intra_l} intra MBs) [{smi_line}]", flush=True)
 
+    # ---- K27 hw_pack and K28 halo_extend, the MB-row sharded path's
+    stamp("phase 3: the MB-row sharded path's kernels")
+    y0, u0, v0 = frame_planes(frames[0])
+    qt26 = intra.make_qtab(QP, tables.chroma_qp(QP, 0), dev)
+    k1r = intra.encode_i16_frame(mb_h, mb_w, y0, u0, v0, qt26,
+                                 int(tables.LAMBDA_TABLE[QP]))
+    ops_i, n_i = cabac_planes.i_slice_ops(k1r, mb_h, mb_w)
+    # a seeded stream, a third of it extended ops, whose halfwords pass a
+    # small capacity
+    rng27 = np.random.default_rng(27)
+    n_x, cap_x = 100000, 3001
+    kind_x = rng27.choice([0, 1, 2, 3, 5, 6, 7], n_x).astype(np.int64)
+    ab_x = np.asarray(cabac_planes.HW_A_BITS)[kind_x]
+    wide = rng27.random(n_x) < 0.33
+    a_x = rng27.integers(0, 1 << 17, n_x) % np.where(wide, 1 << 17,
+                                                     1 << ab_x)
+    b_x = rng27.integers(0, 1 << 12, n_x) % np.where(wide, 1 << 12,
+                                                     1 << (12 - ab_x))
+    ops_x = torch.as_tensor(((kind_x << 29) | (b_x << 17) | a_x)
+                            .astype(np.uint32).view(np.int32), device=dev)
+    streams27 = (("frame 0's IDR", ops_i, n_i, 3 * ops_i.shape[0]),
+                 ("frame 1's P", p_ms["ops"],
+                  torch.tensor(p_ms["n_ops"], dtype=torch.int32, device=dev),
+                  3 * p_ms["ops"].shape[0]),
+                 ("a seeded stream past a small capacity", ops_x,
+                  torch.tensor(n_x, dtype=torch.int32, device=dev), cap_x))
+    for tag, ops_s, n_s, cap_s in streams27:
+        (kw27, kn27), l27 = counted(cabac_planes.hw_pack, ops_s, n_s, cap_s)
+        pw27, pn27 = cabac_planes.hw_pack_plain(ops_s, n_s, cap_s)
+        live27 = min((int(pn27) + 1) // 2, pw27.shape[0])
+        if l27 != 3 or int(kn27) != int(pn27) or not torch.equal(
+                kw27[:live27], pw27[:live27]):
+            fail(f"K27 hw_pack differs from its plain version on {tag} "
+                 f"({l27} launches, {int(kn27)} against {int(pn27)} "
+                 f"halfwords)")
+        if tag.startswith("a seeded") and int(kn27) <= cap_s:
+            fail("K27's seeded stream did not pass its capacity")
+        print(f"K27 hw_pack on {tag}: {int(kn27)} halfwords for "
+              f"{int(n_s)} ops, exact", flush=True)
+    ops_pp, n_pp = streams27[1][1], streams27[1][2]
+    n_ops_p = int(n_pp)
+    ms27 = event_ms(lambda: cabac_planes.hw_pack(ops_pp, n_pp,
+                                                 3 * ops_pp.shape[0]), 20)
+    pl27 = event_ms(lambda: cabac_planes.hw_pack_plain(
+        ops_pp, n_pp, 3 * ops_pp.shape[0]), 1)
+    words_p, n_hw_p = cabac_planes.hw_pack(ops_pp, n_pp, 3 * ops_pp.shape[0])
+    n_hw_p = int(n_hw_p)
+    record("hw_pack", "cuda", "x264_tpu_torch/csrc/hwpack.cu",
+           "x264_tpu/entropy/cabac_planes.py:455", 0, ms27, pl27,
+           4 * n_ops_p + 2 * n_hw_p + 8, 0)
+    # what packing would save on the unsharded path: the live prefix of
+    # frame 1's P stream, packed and not, into pinned memory
+    live_w = (n_hw_p + 1) // 2
+    pin_o = torch.empty(n_ops_p, dtype=torch.int32, pin_memory=True)
+    pin_w = torch.empty(live_w, dtype=torch.int32, pin_memory=True)
+    d2h_o = event_ms(lambda: pin_o.copy_(ops_pp[:n_ops_p],
+                                         non_blocking=True), 10)
+    d2h_w = event_ms(lambda: pin_w.copy_(words_p[:live_w],
+                                         non_blocking=True), 10)
+    if not np.array_equal(ecabac.unpack_hw(pin_w.numpy(), n_hw_p),
+                          pin_o.numpy().view(np.uint32)):
+        fail("K27: frame 1's packed P stream does not unpack to its ops")
+    print(f"K27 on frame 1's P stream: {n_ops_p} ops ({4 * n_ops_p} bytes) "
+          f"as {n_hw_p} halfwords ({4 * live_w} bytes, "
+          f"{4 * live_w / (4 * n_ops_p):.3f} of them); d2h of the live "
+          f"prefix {d2h_o:.3f} ms unpacked, {d2h_w:.3f} ms packed, K27 "
+          f"{ms27:.3f} ms [{smi_line}]", flush=True)
+    # K28 on frame 0's recon cut into 4 bands of 17 MB rows, each position
+    nb28 = 4
+    band28 = mb_h // nb28
+    rec0 = (k1r["recon_y"], k1r["recon_u"], k1r["recon_v"])
+    bands28 = [tuple(t[k * band28 * s:(k + 1) * band28 * s].contiguous()
+                     for t, s in zip(rec0, (16, 8, 8))) for k in range(nb28)]
+    for k in range(nb28):
+        n0 = prows.halo_extend.launches
+        got = prows.ext_refs(bands28, k, dev)
+        l28 = prows.halo_extend.launches - n0
+        above = None if k == 0 else tuple(
+            p[-h:] for p, h in zip(bands28[k - 1], (32, 16, 16)))
+        below = None if k == nb28 - 1 else tuple(
+            p[:h] for p, h in zip(bands28[k + 1], (32, 16, 16)))
+        want = prows.halo_extend_plain(bands28[k], above, below)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)) or \
+                l28 != 1:
+            fail(f"K28 halo_extend differs from its plain version at band "
+                 f"{k} of {nb28}")
+    strips = tuple(tuple(p[-h:].contiguous() for p, h in
+                         zip(bands28[0], (32, 16, 16))) for _ in range(2))
+    ms28 = event_ms(lambda: prows.halo_extend(bands28[1], strips[0],
+                                              strips[1]), 20)
+    pl28 = event_ms(lambda: prows.halo_extend_plain(bands28[1], strips[0],
+                                                    strips[1]), 3)
+    out28 = prows.halo_extend(bands28[1], strips[0], strips[1])
+    copy_dst = tuple(torch.empty_like(t) for t in strips[0])
+    strip_ms = event_ms(lambda: [d.copy_(t, non_blocking=True)
+                                 for d, t in zip(copy_dst, strips[0])], 20)
+    record("halo_extend", "cuda", "x264_tpu_torch/csrc/halo.cu",
+           "x264_tpu/parallel/rows.py:57", 0, ms28, pl28,
+           nbytes(*bands28[1], *strips[0], *strips[1], *out28), 0)
+    print(f"K28 halo_extend: 4 bands of {band28} MB rows, exact at each "
+          f"position; {ms28:.3f} ms a band and reference (plain "
+          f"{pl28:.3f} ms); one band's strips copied on the card "
+          f"{strip_ms:.3f} ms [{smi_line}]", flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -2774,7 +2933,9 @@ def main() -> None:
                 "cabac_b_ops": cabac_planes.cabac_b_ops,
                 "b_maps": cabac_planes.b_maps,
                 "cavlc_b_slice": cavlc.cavlc_b_slice,
-                "nr_sums": oquant.nr_sums}
+                "nr_sums": oquant.nr_sums,
+                "hw_pack": cabac_planes.hw_pack,
+                "halo_extend": prows.halo_extend}
     # the kernels and branches of variance AQ, idle at constant QP
     aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
                "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
@@ -2839,19 +3000,24 @@ def main() -> None:
     nr_only = ("nr_sums", "p_inter_mb_nr")
     lossless_only = ("intra_diag_lossless", "p_inter_mb_lossless",
                      "intra_in_p_lossless")
-    later = ref2_only + cavlc_b_only + nr_only + lossless_only
+    # the MB-row sharded path's kernels, idle unsharded (phase 18 runs
+    # them)
+    rows_only = ("hw_pack", "halo_extend")
+    later = ref2_only + cavlc_b_only + nr_only + lossless_only + rows_only
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
-                  scenecut: int = 0, src=None, make=None):
+                  scenecut: int = 0, src=None, make=None, device=None):
         """Encoder on the first n frames of src (make_frames' by default)
         at 1080p, the launch counts set to 0 just before and read just
         after (the 8x8, AQ and CAVLC variants' among them, which must stay
         0 without make, whose parameters turn the 8x8 transform off at
-        constant QP under CABAC); make: as in same_as_cpu. Returns (frames, summary,
+        constant QP under CABAC); make: as in same_as_cpu; device: the
+        Encoder's (a list: its bands'). Returns (frames, summary,
         launches, header, fps, median encode() ms, the encoder)."""
         enc = x264_tpu_torch.Encoder(
             make(x264_tpu_torch.EncoderParams, 3) if make else
-            params(x264_tpu_torch.EncoderParams, 3, keyint, subme, scenecut))
+            params(x264_tpu_torch.EncoderParams, 3, keyint, subme, scenecut),
+            device=device)
         header = enc.headers()
         for w in wrappers.values():
             w.launches = 0
@@ -3300,7 +3466,7 @@ def main() -> None:
              f"1, the trellis, AQ, the 8x8 transform and RD")
     idle14 = set(cavlc_only) | set(cavlc_b_only) | set(standalone) | {
         "p_inter_mb_t8_sa8d", "p_maps_ref2", "cavlc_p_slice_ref2"} \
-        | set(nr_only) | set(lossless_only)
+        | set(nr_only) | set(lossless_only) | set(rows_only)
     for k, n in launches_14.items():
         if (n <= 0) != (k in idle14):
             fail(f"kernel {k} was launched {n} times on {what14}")
@@ -3363,7 +3529,8 @@ def main() -> None:
              f"B frames without the trellis and the 8x8 transform")
     idle15 = set(cabac_only) | {k for k in launches_15 if "t8" in k
                                 or "i8x8" in k} | set(trellis_only) \
-        | set(standalone) | set(nr_only) | set(lossless_only)
+        | set(standalone) | set(nr_only) | set(lossless_only) \
+        | set(rows_only)
     for k, n in launches_15.items():
         if (n <= 0) != (k in idle15):
             fail(f"kernel {k} was launched {n} times on {what15}")
@@ -3417,6 +3584,7 @@ def main() -> None:
         fail(f"{what16}: the parameters did not open the noise reduction, "
              f"the JVT matrices, the trellis, AQ and the 8x8 transform")
     idle16 = {"p_inter_mb_t8_sa8d", *cavlc_only, *standalone, *b_only,
+              *rows_only,
               *ref2_only, *cavlc_b_only, *lossless_only}
     for k, n in launches_16.items():
         if (n <= 0) != (k in idle16):
@@ -3486,6 +3654,7 @@ def main() -> None:
               "p_inter_mb_lossless", "intra_in_p", "intra_in_p_lossless",
               "cabac_i_ops", "cabac_p_ops", "deblock_diag", "frame_metrics")
     idle17 = {*aq_only, *cavlc_only, *trellis_only, *standalone, *b_only,
+              *rows_only,
               *ref2_only, *cavlc_b_only, *nr_only, "rd_inter"} | {
         k for k in launches_17 if "t8" in k or "i8x8" in k}
     for k, n in launches_17.items():
@@ -3514,6 +3683,119 @@ def main() -> None:
           f"the card [{smi_line}]", flush=True)
     same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK_LOSSLESS, 250,
                 what17c, make=lossless_cavlc_params, frame_parallel=3)
+    # ---- 18. MB-row sharding on the one card: 4 bands CABAC, 2 CAVLC
+    stamp("phase 18")
+    what18 = (f"x264_tpu's defaults with --ref 2 --bframes 2 (b-adapt 0) "
+              f"over {N_BANDS} bands of MB rows on [cuda:0] x {N_BANDS}")
+    band_cabac_ms, crossed = [], []
+    encode_ops, unpack_hw = ecabac.encode_ops, ecabac.unpack_hw
+
+    def timed_ops(*a):
+        t = time.perf_counter()
+        r = encode_ops(*a)
+        band_cabac_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    def seen_hw(words, n_hw):
+        r = unpack_hw(words, n_hw)
+        crossed.append((4 * len(words), 4 * len(r)))
+        return r
+
+    ecabac.encode_ops, ecabac.unpack_hw = timed_ops, seen_hw
+    try:
+        done, summary, launches_18, header, fps, med, enc = main_path(
+            250, N_ROWS, what18, make=rows_params, device=[dev] * N_BANDS)
+    finally:
+        ecabac.encode_ops, ecabac.unpack_hw = encode_ops, unpack_hw
+    if not (enc._n_shards == N_BANDS and enc._aq and enc._t8 and enc._rd
+            and not enc._i8x8 and enc._bframes == 2
+            and enc.params.i_frame_reference == 2):
+        fail(f"{what18}: the parameters did not open {N_BANDS} bands, AQ, "
+             f"the 8x8 transform, RD, two references and B frames")
+    must18 = ("intra_diag", "cabac_i_ops", "cabac_i_ops_t8", "deblock_diag",
+              "deblock_diag_t8", "deblock_diag_b", "frame_metrics",
+              "me_hier", "hpel_planes", "subpel_refine", "part_fullpel",
+              "p_inter_mb", "p_inter_mb_t8_rd", "p_inter_mb_aq",
+              "p_inter_mb_ref2", "rd_inter", "rd_inter_t8", "rd_inter_ref2",
+              "intra_in_p", "intra_in_p_aq", "cabac_p_ops", "cabac_p_ops_t8",
+              "cabac_p_ops_aq", "cabac_p_ops_ref2", "subpel_refine_ref2",
+              "part_fullpel_ref2", "aq_qp_map", "dqp_syntax",
+              "lowres_planes", "lowres_cost", "b_inter_mb",
+              "intra_in_b_decide", "intra_in_b_sweeps", "b_direct",
+              "cabac_b_ops", "hw_pack", "halo_extend")
+    # no chroma ME, I8x8 or QP map in the I bands (x264_tpu's band
+    # programs pass none), b-adapt 0
+    idle18 = {"chroma_rerank", "chroma_rerank_ref2", "intra_diag_i8x8",
+              "intra_diag_aq", "cabac_i_ops_aq", "lowres_bcost",
+              "p_inter_mb_t8_sa8d", *cavlc_only, *cavlc_b_only,
+              *trellis_only, *standalone, *nr_only, *lossless_only,
+              "p_maps_ref2", "cavlc_p_slice_ref2"}
+    for k, n in launches_18.items():
+        if (k in must18 and n <= 0) or (k in idle18 and n > 0):
+            fail(f"kernel {k} was launched {n} times on {what18}")
+    types18 = [e.frame_type for e in done]
+    n_refs18 = sum(2 if t == "B" else 1 for t in types18[1:]) \
+        + types18[2:].count("P")            # the P frames after the first
+    if launches_18["hw_pack"] != 3 * N_BANDS * N_ROWS or \
+            launches_18["halo_extend"] != N_BANDS * n_refs18:
+        fail(f"{what18}: K27 {launches_18['hw_pack']} launches, K28 "
+             f"{launches_18['halo_extend']} for {types18}")
+    if len(band_cabac_ms) != N_BANDS * N_ROWS:
+        fail(f"{what18}: {len(band_cabac_ms)} band CABAC runs")
+    by18 = {t: [len(e.payload) for e in done if e.frame_type == t]
+            for t in ("IDR", "P", "B")}
+    packed = sum(c[0] for c in crossed) / N_ROWS
+    unpacked = sum(c[1] for c in crossed) / N_ROWS
+    k28_frame = ms28 * launches_18["halo_extend"] / N_ROWS
+    order18 = "".join(t[0] for t in types18)
+    print(f"{what18}: {N_ROWS} frames {W}x{H}, {fps:.3f} fps, median "
+          f"encode() {med:.1f} ms, encode order {order18}"
+          f" (display {[e.display_idx for e in done]}), bytes "
+          + ", ".join(f"{t} {statistics.mean(v):.0f} ({len(v)})"
+                      for t, v in by18.items() if v)
+          + f", PSNR Y {summary['psnr']['y']:.4f} avg "
+          f"{summary['psnr']['avg']:.4f} dB, SSIM {summary['ssim_y']:.6f}; "
+          f"host CABAC per band median "
+          f"{statistics.median(band_cabac_ms):.3f} ms (max "
+          f"{max(band_cabac_ms):.3f}); K28 {launches_18['halo_extend']} "
+          f"launches, {k28_frame:.3f} ms a frame derived from phase 3's "
+          f"{ms28:.3f} ms a launch (the device split below measures it); "
+          f"peer copies: none (the bands share "
+          f"cuda:0, the strips stay in place; a same-card copy of one "
+          f"band's strips takes {strip_ms:.3f} ms); d2h per frame "
+          f"{packed:.0f} bytes packed (K27's live prefix) against "
+          f"{unpacked:.0f} of 32-bit ops [{smi_line}]", flush=True)
+    same_as_cpu_b(x264_tpu_torch, done, frames, header, N_CHECK_ROWS, what18,
+                  rows_params, device=["cpu"] * N_BANDS)
+    # K28's (and every band kernel's) device time inside this path: frames
+    # 1-6 (two P, four B) in the profiler
+    device_split(x264_tpu_torch, frames, 1, 6, 6, make=rows_params,
+                 tag=what18, device=[dev] * N_BANDS)
+    what18c = (f"CAVLC at CQP {QP} over {N_BANDS_CAVLC} bands of MB rows "
+               f"on [cuda:0] x {N_BANDS_CAVLC}")
+    done, _, launches_18c, header, fps_c, med_c, enc = main_path(
+        250, N_ROWS_CAVLC, what18c, make=rows_cavlc_params,
+        device=[dev] * N_BANDS_CAVLC)
+    if enc._n_shards != N_BANDS_CAVLC or enc._cabac or enc._delay:
+        fail(f"{what18c}: not {N_BANDS_CAVLC} synchronous CAVLC bands")
+    for k in ("intra_diag", "cavlc_i_slice", "me_hier", "p_inter_mb",
+              "intra_in_p", "p_maps", "cavlc_p_slice", "deblock_diag",
+              "frame_metrics", "halo_extend"):
+        if launches_18c[k] <= 0:
+            fail(f"kernel {k} was not launched on {what18c}")
+    for k in ("hw_pack", *cabac_only, "aq_qp_map", "chroma_rerank"):
+        if launches_18c[k] > 0:
+            fail(f"kernel {k} was launched on {what18c}")
+    if [e.frame_type for e in done] != ["IDR"] + ["P"] * (N_ROWS_CAVLC - 1):
+        fail(f"{what18c}: frame types {[e.frame_type for e in done]}")
+    print(f"{what18c}: {N_ROWS_CAVLC} frames {W}x{H}, {fps_c:.3f} fps, "
+          f"median encode() {med_c:.1f} ms, bytes IDR "
+          f"{len(done[0].payload)}, P "
+          f"{statistics.mean(len(e.payload) for e in done[1:]):.0f}, K28 "
+          f"{launches_18c['halo_extend']} launches [{smi_line}]", flush=True)
+    same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK_ROWS, 250,
+                what18c, make=rows_cavlc_params, frame_parallel=3,
+                device=["cpu"] * N_BANDS_CAVLC)
     for name, r in rec.items():
         main = launches_11 if name in cavlc_only else launches_16 \
             if name in nr_only else launches_17 \
@@ -3521,8 +3803,11 @@ def main() -> None:
             if name in trellis_only + standalone else launches_13 \
             if name in b_only else launches_15 \
             if name in cavlc_b_only + ("p_maps_ref2", "cavlc_p_slice_ref2") \
-            else launches_14 if name in ref2_only else launches_9
+            else launches_14 if name in ref2_only else launches_18 \
+            if name in rows_only else launches_9
         r.update(launches=main[name],
+                 launches_rows=launches_18[name],
+                 launches_rows_cavlc=launches_18c[name],
                  launches_lossless_cavlc=launches_17c[name],
                  launches_lossless=launches_17[name],
                  launches_nr_cqm=launches_16[name],

@@ -27,6 +27,7 @@ from x264_tpu_torch.entropy import device as cavlc_device
 from x264_tpu_torch.ops import deblock
 from x264_tpu_torch.ops import quant
 from x264_tpu_torch.ops import trellis
+from x264_tpu_torch.parallel import rows as prows
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "x264_tpu")
@@ -55,7 +56,9 @@ def test_no_jax_or_reference_imports():
             "x264_tpu_torch/encoder/aq.py",
             "x264_tpu_torch/encoder/ratecontrol.py",
             "x264_tpu_torch/entropy/device.py",
-            "x264_tpu_torch/entropy/cavlc_tables.py"} <= names
+            "x264_tpu_torch/entropy/cavlc_tables.py",
+            "x264_tpu_torch/parallel/__init__.py",
+            "x264_tpu_torch/parallel/rows.py"} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
@@ -77,6 +80,7 @@ def test_imports_with_jax_blocked():
             "import x264_tpu_torch.encoder.aq\n"
             "import x264_tpu_torch.encoder.ratecontrol\n"
             "import x264_tpu_torch.entropy.device\n"
+            "import x264_tpu_torch.parallel.rows\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -743,20 +747,60 @@ def test_nr_and_lossless_wrappers_never_fall_back_off_the_cpu(name):
         _meta_quant_side_calls()[name]()
 
 
-def test_one_card_shards_fall_back_and_more_refuse(monkeypatch):
-    """i_mb_row_shards > 1: on one device the port encodes unsharded
-    with x264_tpu's log line (x264_tpu core.py:149-175); where there
-    would be two bands on two cards it refuses, naming the multi-GPU
-    slice; bands under 2 MB rows shrink to one."""
+def _meta_rows_calls():
+    """The MB-row path's wrappers (K27, K28) on tensors that are neither
+    on the CPU nor on a card."""
+    t = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")
+    planes = (t(32, 32), t(16, 16), t(16, 16))
+    return {"K27": lambda: cabac_planes.hw_pack(t(4096), t(), 3 * 4096),
+            "K28": lambda: prows.halo_extend(planes, None, None)}
+
+
+@pytest.mark.parametrize("name", list(_meta_rows_calls()))
+def test_row_wrappers_never_fall_back_off_the_cpu(name):
+    """K27 and K28 launch their kernel (or raise) on any tensor that is
+    not on the CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_rows_calls()[name]()
+
+
+def test_one_card_shards_fall_back_and_more_refuse():
+    """i_mb_row_shards > 1 (x264_tpu core.py:149-175): on one device the
+    port encodes unsharded with x264_tpu's log line; on a list of devices
+    it takes min(shards, devices) bands, fewer while a band would hold
+    under 2 MB rows, and pads the coded height to a multiple of the
+    bands, with x264_tpu's line, before the SPS is built. (Where there are
+    two bands the port no longer refuses: it runs them.)"""
     p = _p_params(i_mb_row_shards=4, i_log_level=2)
     _quant_side_opens(p)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     enc = x264_tpu_torch.Encoder.__new__(x264_tpu_torch.Encoder)
-    enc.device = torch.device("cuda")
-    tall = x264_tpu_torch.EncoderParams(i_width=64, i_height=64,
-                                        i_mb_row_shards=2, i_log_level=0)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        enc._check_shards(tall)
-    short = x264_tpu_torch.EncoderParams(i_width=64, i_height=32,
-                                         i_mb_row_shards=2, i_log_level=0)
-    enc._check_shards(short)       # 2 MB rows: bands of 1 row -> one band
+
+    def bands(w, h, shards, devices):
+        enc.devices = [torch.device("cpu")] * devices
+        q = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_mb_row_shards=shards,
+                                         i_log_level=0).validate()
+        enc._check_shards(q)
+        return enc._n_shards, q.i_mb_height_pad, enc._bands
+
+    assert bands(64, 64, 2, 2)[:2] == (2, 0)
+    assert bands(64, 64, 4, 2)[:2] == (2, 0)        # min(shards, devices)
+    assert bands(64, 138, 4, 4)[:2] == (4, 3)       # 9 MB rows -> 4 x 3
+    assert bands(64, 138, 4, 3)[:2] == (3, 0)
+    assert bands(64, 48, 4, 4)[:2] == (2, 1)        # 3 rows: 4 -> 2 bands
+    assert bands(64, 32, 2, 2) == (1, 0, None)      # bands of 1 row: one
+    assert bands(64, 64, 2, 1) == (1, 0, None)      # one device: unsharded
+    lines = []
+    xlog.set_log_callback(lambda level, msg: lines.append(msg))
+    try:
+        full = x264_tpu_torch.Encoder(
+            x264_tpu_torch.EncoderParams(i_width=64, i_height=138,
+                                         i_mb_row_shards=4, i_log_level=2),
+            device=["cpu"] * 4)
+    finally:
+        xlog.set_log_callback(None)
+    assert full._n_shards == 4 and full.sps.mb_height == 12
+    assert full.sps.crop_bottom == 12 * 16 - 138 and full._nr == 0
+    assert "padding coded height by 3 MB rows so 9 rows split across 4 " \
+        "bands (cropped by the SPS window)" in lines
+    full.close()

@@ -1542,3 +1542,105 @@ def test_nr_and_lossless_encoder_on_the_card_matches_the_cpu(card, mode):
     if mode != "nr_jvt":
         for a, f in zip(kout, frames):
             assert np.array_equal(a.recon.y.cpu().numpy(), f.y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext_share,cap_hw", [(0.0, 3 * 4096), (0.3, 3 * 4096),
+                                              (1.0, 3 * 4096), (0.4, 3001)])
+def test_hw_pack_kernel_matches_plain(card, ext_share, cap_hw):
+    """K27 against its plain version on a seeded op stream of compact and
+    extended ops (the live prefix of the words, and the count, exact;
+    with a capacity that drops halfwords), and on K3's op stream."""
+    rng = np.random.default_rng(int(10 * ext_share))
+    n, cap = 2900, 4096
+    kind = rng.choice([0, 1, 2, 3, 5, 6, 7], n).astype(np.int64)
+    abits = np.asarray(cabac_planes.HW_A_BITS)[kind]
+    a = rng.integers(0, 1 << 17, n) % np.where(
+        rng.random(n) < ext_share, 1 << 17, 1 << abits)
+    b = rng.integers(0, 1 << 12, n) % np.where(
+        rng.random(n) < ext_share, 1 << 12, 1 << (12 - abits))
+    ops = np.zeros(cap, np.int64)
+    ops[:n] = (kind << 29) | (b << 17) | a
+    ops = torch.from_numpy(ops.astype(np.uint32).view(np.int32))
+    pw, pn = cabac_planes.hw_pack_plain(ops, n, cap_hw)
+    n0 = cabac_planes.hw_pack.launches
+    kw, kn = cabac_planes.hw_pack(ops.to(card),
+                                  torch.tensor(n, dtype=torch.int32,
+                                               device=card), cap_hw)
+    torch.cuda.synchronize()
+    assert cabac_planes.hw_pack.launches == n0 + 3
+    assert int(kn) == int(pn)
+    live = min((int(pn) + 1) // 2, pw.shape[0])
+    assert torch.equal(kw[:live].cpu(), pw[:live])
+    _, out, _ = _intra(card)
+    k3, k3n = cabac_planes.i_slice_ops(out, MB_H, MB_W)
+    pw, pn = cabac_planes.hw_pack_plain(k3.cpu(), k3n.cpu(), 3 * k3.shape[0])
+    kw, kn = cabac_planes.hw_pack(k3, k3n, 3 * k3.shape[0])
+    assert int(kn) == int(pn)
+    assert torch.equal(kw[:(int(pn) + 1) // 2].cpu(), pw[:(int(pn) + 1) // 2])
+
+
+@pytest.mark.cuda
+def test_halo_extend_kernel_matches_plain(card):
+    """K28 against its plain version on 4 bands of a 5x7-MB frame cut into
+    bands of 2 MB rows (band 0, the inner bands and the last), exact, with
+    one launch a band."""
+    from x264_tpu_torch.parallel import rows
+    rng = np.random.default_rng(4)
+    n, band, w = 4, 2, MB_W * 16
+    planes = [rng.integers(0, 256, (n * band * s, w * s // 16))
+              for s in (16, 8, 8)]
+    bands = [tuple(torch.as_tensor(p[k * band * s:(k + 1) * band * s],
+                                   dtype=torch.int32)
+                   for p, s in zip(planes, (16, 8, 8))) for k in range(n)]
+    on_card = [tuple(t.to(card) for t in b) for b in bands]
+    for k in range(n):
+        n0 = rows.halo_extend.launches
+        got = rows.ext_refs(on_card, k, card)
+        assert rows.halo_extend.launches == n0 + 1
+        want = rows.ext_refs(bands, k, torch.device("cpu"))
+        for g, e in zip(got, want):
+            assert torch.equal(g.cpu(), e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cabac", [True, False])
+def test_sharded_encoder_on_the_card_matches_the_cpu(card, cabac):
+    """The card's Encoder with i_mb_row_shards 4 on [card] * 4 against the
+    CPU's on ["cpu"] * 4, at 128x128 (bands of 2 MB rows): CABAC with two
+    references, B runs of 2 (b-adapt 0), variance AQ and the 8x8
+    transform, and CAVLC at CQP 26; K27 (CABAC) and K28 must launch."""
+    from x264_tpu_torch.parallel import rows
+    w = h = 128
+    rng = np.random.default_rng(3)
+    tex = rng.integers(0, 256, (h + 32, w + 32), dtype=np.uint8)
+    frames = [x264_tpu_torch.Frame(
+        tex[2 * t:2 * t + h, 3 * t:3 * t + w].copy(),
+        np.full((h // 2, w // 2), 100 + 5 * t, np.uint8),
+        tex[:h // 2, t:t + w // 2].copy()) for t in range(5)]
+
+    def run(device):
+        p = x264_tpu_torch.EncoderParams(i_width=w, i_height=h,
+                                         i_log_level=0, b_cabac=cabac,
+                                         i_mb_row_shards=4, i_keyint_max=8)
+        if cabac:
+            p.i_frame_reference, p.i_bframe = 2, 2
+            p.i_bframe_adaptive, p.i_scenecut_threshold = 0, 0
+            p.analyse.i_subpel_refine = 5
+        else:
+            p.rc.i_rc_method, p.rc.i_qp_constant = 0, 26
+        enc = x264_tpu_torch.Encoder(p, device=[device] * 4)
+        assert enc._n_shards == 4
+        outs = [o for o in (enc.encode(f) for f in frames) if o is not None]
+        return enc.headers(), outs + enc.flush()
+
+    n0 = (cabac_planes.hw_pack.launches, rows.halo_extend.launches)
+    (kh, kout), (ph, pout) = run(card), run(torch.device("cpu"))
+    n1 = (cabac_planes.hw_pack.launches, rows.halo_extend.launches)
+    assert n1[1] > n0[1] and (n1[0] > n0[0]) == cabac
+    assert kh == ph and len(kout) == len(pout) == 5
+    for a, b in zip(kout, pout):
+        assert a.frame_type == b.frame_type and a.payload == b.payload
+        for pl in "yuv":
+            assert torch.equal(getattr(a.recon, pl).cpu(),
+                               getattr(b.recon, pl))

@@ -61,6 +61,7 @@ from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
 from ..headers import (PPS, SPS, SLICE_B, SLICE_I, SLICE_P, SliceHeader,
                        sei_version)
 from ..ops import quant as oquant
+from ..parallel import rows as prows
 from ..params import (ANALYSE_I4x4, ANALYSE_I8x8, ANALYSE_PSUB16x16,
                       AQ_NONE, B_ADAPT_NONE, B_ADAPT_TRELLIS, RC_CQP,
                       EncoderParams)
@@ -146,13 +147,32 @@ def _check_slice(p: EncoderParams) -> None:
                 f"{when}")
 
 
+def _host_prefix(t, n: int) -> np.ndarray:
+    """The first n entries of a 1-D int32 tensor on the host (from a card,
+    a blocking copy of those alone)."""
+    return t[:n].cpu().numpy()
+
+
+def _aligned(hdr: BitWriter) -> bytearray:
+    """A CABAC slice header's bytes: its bits and the
+    cabac_alignment_one_bits up to the byte (spec 7.3.4)."""
+    pad = (-hdr.bit_pos) % 8
+    if pad:
+        hdr.put((1 << pad) - 1, pad)
+    return bytearray(hdr.pack())
+
+
 class Encoder:
     """x264_encoder_open / encode / close for IDR, P (one or two
     references) and B frames, CABAC or CAVLC, at constant QP, CRF or
     1-pass ABR, with or without variance AQ, the CABAC trellis, the noise
-    reduction and custom quant matrices, and lossless at CQP 0. device:
-    "cuda" (the default, which needs a card) or "cpu", where every kernel
-    runs its plain PyTorch version."""
+    reduction and custom quant matrices, and lossless at CQP 0. device: a
+    device ("cuda", "cuda:1", or "cpu", where every kernel runs its plain
+    PyTorch version) or a sequence of them, one for each band of MB rows
+    (i_mb_row_shards > 1; a device may repeat); the first is the main
+    device, where the lookahead, rate control's inputs, the recon of each
+    EncodedFrame and the metrics live. The default, None, is every
+    visible card (it needs one)."""
 
     def __init__(self, params: EncoderParams, device=None):
         if device is None:
@@ -160,11 +180,19 @@ class Encoder:
                 raise RuntimeError(
                     "no CUDA device: Encoder runs on the card by default; "
                     "pass device='cpu' for the plain PyTorch versions")
-            device = "cuda"
-        self.device = torch.device(device)
+            device = [torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())]
+        elif isinstance(device, (str, torch.device)):
+            device = [device]
+        self.devices = [torch.device(d) for d in device]
+        if not self.devices:
+            raise ValueError("Encoder: an empty device list")
+        self.device = self.devices[0]
         self.params = params.validate()
         p = self.params
         _check_slice(p)
+        # before the SPS: a band split that does not divide the MB rows
+        # pads the coded height, which the SPS must give
         self._check_shards(p)
         self.rc = rcmod.RateControl(p)
         # the quant tables of the CQM preset (flat, JVT, or the custom
@@ -259,7 +287,7 @@ class Encoder:
         # position offsets shrink the P frames' inter luma coefficients;
         # the host updates them from each P frame's |coef| sums
         self._nr = int(p.analyse.i_noise_reduction)
-        if self._nr and self._lossless:
+        if self._nr and (self._bands is not None or self._lossless):
             xlog.log(xlog.LOG_INFO, "noise reduction is off in the "
                      "sharded/lossless paths")
             self._nr = 0
@@ -274,25 +302,36 @@ class Encoder:
         self._with_metrics = bool(p.analyse.b_psnr or p.analyse.b_ssim)
         self._pending: list = []
         self._delay = max(0, p.i_frame_parallel - 1)
+        if self._bands is not None and not self._cabac:
+            self._delay = 0      # sharded CAVLC finalizes synchronously
+        self._dev_tabs: dict = {}
+        self._col_intra: dict = {}
 
     def _check_shards(self, p: EncoderParams) -> None:
         """MB-row sharding (x264_tpu core.py:149-175): min(shards, the
-        devices) bands, fewer while a band would hold under 2 MB rows; on
-        one band the encode runs unsharded, with x264_tpu's log line. The
-        sharded encode itself comes with the multi-GPU slice."""
+        devices) bands, fewer while a band would hold under 2 MB rows (the
+        32-row halo must come from one neighbour); the coded height is
+        padded to a multiple of the bands (rows hidden by the SPS crop),
+        with x264_tpu's log line. On one band the encode runs unsharded,
+        with x264_tpu's line. Sets _bands (the bands' devices, or None)
+        and _n_shards."""
+        self._bands, self._n_shards = None, 1
         if p.i_mb_row_shards <= 1:
             return
-        devices = torch.cuda.device_count() if self.device.type == "cuda" \
-            else 1
-        n = min(p.i_mb_row_shards, devices)
+        n = min(p.i_mb_row_shards, len(self.devices))
         mb_h0 = (p.i_height + 15) // 16
         while n > 1 and ((mb_h0 + (-mb_h0 % n)) // n) * 16 < 32:
             n -= 1
         if n > 1:
-            raise NotImplementedError(
-                f"MB-row sharding over {n} devices is not in this slice of "
-                f"the port; it comes with the multi-GPU slice")
-        if p.i_log_level >= 2:
+            p.i_mb_height_pad = -mb_h0 % n
+            if p.i_mb_height_pad and p.i_log_level >= 2:
+                xlog.log(xlog.LOG_INFO,
+                         f"padding coded height by {p.i_mb_height_pad} MB "
+                         f"rows so {mb_h0} rows split across {n} bands "
+                         "(cropped by the SPS window)")
+            self._bands = prows.band_devices(self.devices, n)
+            self._n_shards = n
+        elif p.i_log_level >= 2:
             xlog.log(xlog.LOG_INFO, "mb-row sharding unavailable "
                      f"(shards={p.i_mb_row_shards}, "
                      f"mb_h={mb_h0}); encoding unsharded")
@@ -693,10 +732,27 @@ class Encoder:
         hdr = BitWriter()
         self._slice_header(qp, slice_type, n_ref_l0).write_rbsp(
             hdr, nal_ref_idc=nal_ref_idc)
-        pad = (-hdr.bit_pos) % 8
-        if pad:
-            hdr.put((1 << pad) - 1, pad)
-        return bytearray(hdr.pack())
+        return _aligned(hdr)
+
+    def _band_headers(self, qp: int, slice_type: int, nal_ref_idc: int,
+                      n_ref_l0: int = 1) -> list:
+        """Each band's slice header (x264_tpu's _band_headers and
+        _band_cabac_headers, core.py:905-952): the frame's, but for
+        first_mb_in_slice and disable_deblocking_filter_idc 2 (the bands
+        filter alone); CABAC: the bytes with the alignment bits, CAVLC:
+        the slots of K18 / K19."""
+        p = self.params
+        band = p.mb_height // self._n_shards
+        out = []
+        for k in range(self._n_shards):
+            sh = self._slice_header(qp, slice_type, n_ref_l0)
+            sh.first_mb = k * band * p.mb_width
+            sh.disable_deblock = 2 if p.b_deblocking_filter else 1
+            hdr = BitWriter()
+            sh.write_rbsp(hdr, nal_ref_idc=nal_ref_idc)
+            out.append(_aligned(hdr) if self._cabac
+                       else edev.header_slots(hdr))
+        return out
 
     def _cavlc_header(self, qp: int, slice_type: int, nal_ref_idc: int,
                       n_ref_l0: int = 1):
@@ -717,14 +773,17 @@ class Encoder:
         self.frame_num = 0
         self.poc = 0
         self._prev_mv = None
+        pend = dict(nmb=mb_h * mb_w, slice_is_i=True,
+                    nal_type=NAL_SLICE_IDR, nal_ref_idc=3)
+        if self._bands is not None:
+            return self._idr_done(self._submit_idr_rows(frame, planes, qp,
+                                                        pend))
         args = (mb_h, mb_w, bool(p.b_deblocking_filter), y, u, v,
                 self._qtab(qp, qp_c), int(tables.LAMBDA_TABLE[qp]), qp)
         tail = (2 * p.i_deblocking_filter_alphac0,
                 2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset)
         kw = dict(crop_w=p.i_width, crop_h=p.i_height,
                   with_metrics=self._with_metrics, aq=self._aq)
-        pend = dict(nmb=mb_h * mb_w, slice_is_i=True,
-                    nal_type=NAL_SLICE_IDR, nal_ref_idc=3)
         kw["lossless"] = self._lossless
         if self._cabac:
             pend["hdr_bytes"] = self._cabac_header(qp, SLICE_I, 3)
@@ -734,8 +793,11 @@ class Encoder:
             out = pipeline.encode_i16_idr(
                 *args, *self._cavlc_header(qp, SLICE_I, 3), *tail, **kw)
         pend.update(out=out, recon=self._finish_frame(out, frame))
-        # an IDR empties the DPB (spec 8.2.5.1): the reference before it
-        # is never a B frame's L0
+        return self._idr_done(pend)
+
+    def _idr_done(self, pend: dict) -> dict:
+        """An IDR empties the DPB (spec 8.2.5.1): the reference before it
+        is never a B frame's L0; the next IDR takes the next id."""
         self._prev_ref = None
         self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         return pend
@@ -747,6 +809,8 @@ class Encoder:
         an IDR runs with one, through the slice header's override."""
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
+        if self._bands is not None:
+            return self._submit_p_rows(frame, planes, qp)
         y, u, v = planes
         qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
         mvp_seed = self._prev_mv if self._prev_mv is not None \
@@ -790,6 +854,8 @@ class Encoder:
         all intra after an IDR."""
         p = self.params
         mb_w, mb_h = p.mb_width, p.mb_height
+        if self._bands is not None:
+            return self._submit_b_rows(frame, planes, qp, d0, span, seeds)
         y, u, v = planes
         qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
         if seeds is not None:
@@ -845,6 +911,198 @@ class Encoder:
                      crop(out["recon_u"], frame.u),
                      crop(out["recon_v"], frame.v))
 
+    # ------------------------------------------------------- the band path
+    # MB-row sharding (x264_tpu core.py:905-1121): each band of
+    # mb_height / n rows one slice, run by parallel/rows.py on its device;
+    # the DPB keeps each reference's recon as per-band planes, and the last
+    # P's MV field and 4x4 L0 maps (the B frames' colocated maps) as
+    # per-band grids, each on its band's device. x264_tpu's band programs
+    # return no maps, so its sharded B frames read all-intra ones where a
+    # decoder reads the P frame's (colZeroFlag) and its stream can decode
+    # to other pictures than its recons (ROADMAP §3); the port keeps them.
+    def _tabs_on(self, qt: dict, dev) -> dict:
+        """qt (built on the main device) with its tensors on dev, kept."""
+        if dev == self.device:
+            return qt
+        key = (id(qt), str(dev))
+        if key not in self._dev_tabs:
+            self._dev_tabs[key] = (qt, {
+                k: v.to(dev) if torch.is_tensor(v) else v
+                for k, v in qt.items()})
+        return self._dev_tabs[key][1]
+
+    def _band_rows(self) -> int:
+        return self.params.mb_height // self._n_shards
+
+    def _band_split(self, t, scale: int) -> list:
+        """A main-device tensor of the MB grid (scale 1), the 4x4 grid (4)
+        or a plane (16 / 8 rows an MB) cut into its bands, each on its
+        band's device."""
+        return prows.split_rows(t, self._bands, self._band_rows() * scale)
+
+    def _band_src(self, planes) -> list:
+        """Each band's (y, u, v) source on its device."""
+        return list(zip(*(self._band_split(t, s)
+                          for t, s in zip(planes, (16, 8, 8)))))
+
+    def _band_args(self, qt: dict, planes, qp: int) -> tuple:
+        """The arguments every band program takes first (parallel/rows.py):
+        the bands, their geometry, the deblock switch, each band's source
+        and tables (qt's) on its device, lambda, QP and the offsets."""
+        p = self.params
+        return (self._bands, self._band_rows(), p.mb_width,
+                bool(p.b_deblocking_filter), self._band_src(planes),
+                [self._tabs_on(qt, d) for d in self._bands],
+                int(tables.LAMBDA_TABLE[qp]), qp,
+                2 * p.i_deblocking_filter_alphac0,
+                2 * p.i_deblocking_filter_beta, p.analyse.i_chroma_qp_offset)
+
+    def _submit_idr_rows(self, frame: Frame, planes, qp: int,
+                         pend: dict) -> dict:
+        """An IDR frame's bands (x264_tpu's _encode_idr_rows,
+        core.py:954): CABAC or CAVLC."""
+        p = self.params
+        args = self._band_args(self._qtab(qp, tables.chroma_qp(
+            qp, p.analyse.i_chroma_qp_offset)), planes, qp)
+        hdrs = self._band_headers(qp, SLICE_I, 3)
+        if self._cabac:
+            res = prows.encode_i_rows_cabac(*args, t8_mode=self._t8)
+        else:
+            res = prows.encode_i_rows(*args, hdrs)
+        return self._rows_pend(pend, res, hdrs, frame, planes, True)
+
+    def _submit_p_rows(self, frame: Frame, planes, qp: int) -> dict:
+        """A P frame's bands (x264_tpu's _encode_p_rows, core.py:1016):
+        CABAC with one or two references, the 8x8 transform, the RD
+        ladder, P8x8 and AQ as the encoder has them; CAVLC (one
+        reference, validate() keeps it so) with the partitions alone."""
+        p = self.params
+        qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
+        qt = self._qtab_p(qp, qp_c)
+        n_refs = 2 if (p.i_frame_reference >= 2 and self._cabac
+                       and self._prev_ref is not None) else 1
+        args = (*self._band_args(qt, planes, qp), self._me_range,
+                self._subpel, self._ref, self._prev_mv or self._zero_mvs())
+        pend = dict(nmb=p.mb_height * p.mb_width, slice_is_i=False,
+                    nal_type=NAL_SLICE, nal_ref_idc=2)
+        hdrs = self._band_headers(qp, SLICE_P, 2, n_refs)
+        if self._cabac:
+            res = prows.encode_p_rows_cabac(
+                *args, ref2=self._prev_ref if n_refs == 2 else None,
+                t8=self._t8, decimate=self._decimate, rd=self._rd,
+                p8x8=self._p8x8, aq=self._aq)
+        else:
+            res = prows.encode_p_rows(*args, hdrs)
+        self._prev_mv = [r["mv"] for r in res]
+        return self._rows_pend(pend, res, hdrs, frame, planes, True)
+
+    def _submit_b_rows(self, frame: Frame, planes, qp: int, d0: int,
+                       span: int, seeds) -> dict:
+        """A B frame's bands (x264_tpu's _encode_b_rows, core.py:1072):
+        the seeds as _encode_b takes them, per band; each band's colocated
+        maps from the L1 P frame's band (all intra after an IDR); under AQ
+        the P tables without the trellis (x264_tpu's band B stays on the
+        deadzone quant there, core.py:1093-1097)."""
+        p = self.params
+        qp_c = tables.chroma_qp(qp, p.analyse.i_chroma_qp_offset)
+        qt = self._qtab_p(qp, qp_c)
+        if self._aq is not None and "trellis_tab" in qt:
+            key = ("B rows", qp, qp_c)
+            if key not in self._qtab_p_cache:
+                self._qtab_p_cache[key] = {
+                    k: v for k, v in qt.items() if not k.startswith("trellis")}
+            qt = self._qtab_p_cache[key]
+        if seeds is not None:
+            s0, s1 = (self._band_split(t, 1) for t in seeds)
+        else:
+            pmv = self._prev_mv or self._zero_mvs()
+            s0 = [torch.div(m * d0, span, rounding_mode="floor") for m in pmv]
+            s1 = [torch.div(-(m * (span - d0)), span, rounding_mode="floor")
+                  for m in pmv]
+        col = self._ref_maps or [self._col_maps(d) for d in self._bands]
+        res = prows.encode_b_rows_cabac(
+            *self._band_args(qt, planes, qp), self._me_range, self._subpel,
+            self._prev_ref, self._ref, s0, s1, [c[0] for c in col],
+            [c[1] for c in col], t8=self._t8)
+        pend = dict(nmb=p.mb_height * p.mb_width, slice_is_i=False,
+                    nal_type=NAL_SLICE, nal_ref_idc=0)
+        return self._rows_pend(pend, res, self._band_headers(qp, SLICE_B, 0),
+                               frame, planes, False)
+
+    def _zero_mvs(self) -> list:
+        """Each band's zero MV field (the ME seeds after an IDR)."""
+        return [torch.zeros((self._band_rows(), self.params.mb_width, 2),
+                            dtype=torch.int32, device=d) for d in self._bands]
+
+    def _col_maps(self, dev):
+        """A band's all-intra colocated maps (ref -1, MV 0) on dev."""
+        key = str(dev)
+        if key not in self._col_intra:
+            g = (self._band_rows() * 4, self.params.mb_width * 4)
+            self._col_intra[key] = (
+                torch.full(g, -1, dtype=torch.int32, device=dev),
+                torch.zeros((*g, 2), dtype=torch.int32, device=dev))
+        return self._col_intra[key]
+
+    def _rows_pend(self, pend: dict, res: list, hdrs: list, frame: Frame,
+                   planes, is_ref: bool) -> dict:
+        """The bands' results as one frame: the recon gathered on the main
+        device (the EncodedFrame's, and K4's input: row 24), and one int32
+        vector for the host, [each band's count (CABAC halfwords or CAVLC
+        bits), n_intra, n_skip, ssd_y, ssd_u, ssd_v, ssim]; the DPB keeps
+        the per-band recon and L0 maps."""
+        p = self.params
+        main = self.device
+        with prows.on_device(main):
+            full = [torch.cat([r["recon"][i].to(main, non_blocking=True)
+                               for r in res]) for i in range(3)]
+            head = [torch.stack([r["count"].to(main, non_blocking=True)
+                                 for r in res]),
+                    torch.stack([r["mbs"].to(main, non_blocking=True)
+                                 for r in res]).sum(0).to(torch.int32)]
+            if self._with_metrics:
+                head.append(estats.frame_metrics(
+                    *planes, *full, p.i_width, p.i_height).view(torch.int32))
+        if is_ref:
+            self._prev_ref = self._ref
+            self._ref = [r["recon"] for r in res]
+            self._ref_maps = [(r["ref4"], r["mv4"]) for r in res] \
+                if "ref4" in res[0] else None
+            self.frame_num = (self.frame_num + 1) \
+                % (1 << self.sps.log2_max_frame_num)
+        crop = lambda t, a: t[:a.shape[0], :a.shape[1]]
+        pend.update(bands=res, hdrs=hdrs, out=dict(host32=torch.cat(head)),
+                    recon=Frame(*(crop(t, a) for t, a in
+                                  zip(full, (frame.y, frame.u, frame.v)))))
+        return pend
+
+    def _rows_payload(self, pend: dict, h32) -> bytes:
+        """The bands' NALs (x264_tpu's _rows_cabac_payload and
+        _assemble_band_nals, core.py:1412-1440, 923-935): each band's live
+        prefix crosses to the host behind its count; CABAC: the halfwords
+        unpacked and coded with fresh contexts, CAVLC: the words taken as
+        they are. A band past its buffer raises."""
+        nmb = pend["nmb"] // self._n_shards
+        nals = []
+        for k, (r, hdr) in enumerate(zip(pend["bands"], pend["hdrs"])):
+            n = int(h32[k])
+            if self._cabac:
+                if n > pipeline.cabac_capacity_hw(nmb):
+                    raise RuntimeError(
+                        f"band {k} CABAC ops overflowed ({n} halfwords)")
+                ops = ecabac.unpack_hw(_host_prefix(r["words"], (n + 1) // 2),
+                                       n)
+                nals.append(self._cabac_payload(dict(pend, hdr_bytes=hdr),
+                                                ops))
+            else:
+                if n > pipeline.capacity_words(nmb) * 32:
+                    raise RuntimeError(f"slice {k} overflowed the device "
+                                       f"pack buffer ({n})")
+                nals.append(nal_unit(pend["nal_type"], pend["nal_ref_idc"],
+                                     edev.words_to_bytes(_host_prefix(
+                                         r["words"], (n + 31) // 32), n)))
+        return b"".join(nals)
+
     def _nr_kw(self) -> dict:
         """The noise reduction's offsets for this P frame, on the device
         (x264_tpu's _nr_kw, core.py:733-742): the 8x8's with the 8x8
@@ -893,15 +1151,20 @@ class Encoder:
         behind its kernels: non-blocking copies into pinned memory and a
         CUDA event that _finalize waits on."""
         out = pend["out"]
-        body = out["ops"] if self._cabac else out["words"]
+        # a band frame's words cross later, each band's live prefix alone
+        body = None if "bands" in pend \
+            else out["ops"] if self._cabac else out["words"]
         nr = [out.get(k) for k in ("nr_sum4", "nr_sum8")]
         if self.device.type == "cpu":
             pend["fetch"] = (None, body, out["host32"], nr)
             return
-        ops_h = torch.empty(body.shape, dtype=torch.int32, pin_memory=True)
+        ops_h = None
+        if body is not None:
+            ops_h = torch.empty(body.shape, dtype=torch.int32,
+                                pin_memory=True)
+            ops_h.copy_(body, non_blocking=True)
         h32_h = torch.empty(out["host32"].shape, dtype=torch.int32,
                             pin_memory=True)
-        ops_h.copy_(body, non_blocking=True)
         h32_h.copy_(out["host32"], non_blocking=True)
         nr_h = []
         for t in nr:
@@ -965,14 +1228,18 @@ class Encoder:
             # (x264_tpu's _finalize, core.py:677-684)
             self._nr_update(*[None if t is None else t.numpy() for t in nr],
                             nmb)
-        if self._cabac:
+        # h32: the count(s) (one a band), n_intra, n_skip, the metrics
+        o = self._n_shards if "bands" in pend else 1
+        if "bands" in pend:
+            payload = self._rows_payload(pend, h32)
+        elif self._cabac:
             ops = body_t.numpy()[:int(h32[0])].view(np.uint32)
             payload = self._cabac_payload(pend, ops)
         else:
             payload = self._cavlc_payload(pend, body_t.numpy(), int(h32[0]))
         bits = len(payload) * 8
         if ftype in ("P", "B"):
-            n_intra, n_skip = int(h32[1]), int(h32[2])
+            n_intra, n_skip = int(h32[o]), int(h32[o + 1])
             counts = (n_intra, nmb - n_intra - n_skip, n_skip)
         else:
             counts = (nmb, 0, 0)
@@ -980,7 +1247,8 @@ class Encoder:
                     counts, rceq=pend["rc_rceq"], satd=pend["rc_satd"])
         metrics = None
         if self._with_metrics:
-            metrics = tuple(float(x) for x in h32[3:7].view(np.float32))
+            metrics = tuple(float(x)
+                            for x in h32[o + 2:o + 6].view(np.float32))
         self.stats.add_frame(ftype, bits, pend["qp"], metrics, counts)
         return EncodedFrame(payload, ftype, pend["recon"], bits, pend["disp"])
 

@@ -1048,7 +1048,7 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
                    chroma_me: bool = False, rd: bool = False,
                    t8: bool = False, qp_map=None, ref2=None,
                    lossless: bool = False, nr_offset4=None,
-                   nr_offset8=None) -> dict:
+                   nr_offset8=None, ref_prepadded: bool = False) -> dict:
     """Stages 1-3 of the P encode through kernels K5 and K9-K12 (ME), K6,
     K13 (under rd) and K7, and the merges of stage 4 (plain tensor glue).
     All planes int32 and MB-aligned; ref_* the deblocked reference
@@ -1071,17 +1071,25 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
     ref_sel, (mb_h, mb_w) int32). lossless: the transform bypass of K6 and
     K7, with decimation and the RD ladder off (x264_tpu inter.py:497-498).
     nr_offset4 / nr_offset8: the noise reduction's offsets for K6 (the
-    8x8's with t8); the result then holds nr_sum4 / nr_sum8 (K26)."""
+    8x8's with t8); the result then holds nr_sum4 / nr_sum8 (K26).
+    ref_prepadded: the reference planes (and ref2's) already carry their
+    PAD (luma) / PAD // 2 (chroma) border, whose top and bottom rows are
+    a neighbour band's real rows in the MB-row sharded path (K28,
+    parallel/rows.py; x264_tpu inter.py:270-316), so no pad is added."""
     decimate = decimate and not lossless
     rd = rd and not lossless
-    ref_pad = omc.pad_plane(ref_y.to(I32))
-    refu_pad = omc.pad_plane(ref_u.to(I32), omc.PAD // 2)
-    refv_pad = omc.pad_plane(ref_v.to(I32), omc.PAD // 2)
+
+    def pad(t, n=omc.PAD):
+        return t.to(I32) if ref_prepadded else omc.pad_plane(t.to(I32), n)
+
+    ref_pad = pad(ref_y)
+    refu_pad = pad(ref_u, omc.PAD // 2)
+    refv_pad = pad(ref_v, omc.PAD // 2)
     mv_fp, sad = ome.hier_search(y, ref_pad, mb_h, mb_w, me_range, lam,
                                  mvp_seed)
     sel, ref_bits = None, 0
     if ref2 is not None:
-        ref2_pad = omc.pad_plane(ref2[0].to(I32))
+        ref2_pad = pad(ref2[0])
         mv_fp2, sad2 = ome.hier_search(y, ref2_pad, mb_h, mb_w, me_range,
                                        lam, mvp_seed)
         c_r0 = sad + lam * ome.mv_cost_bits(mv_fp, mvp_seed)
@@ -1091,7 +1099,7 @@ def encode_p_front(mb_h: int, mb_w: int, me_range: int, y, u, v, ref_y,
         sad = torch.where(sel == 1, sad2, sad)
         # the stacks both references are read through
         refu_pad, refv_pad = (
-            torch.stack([c, omc.pad_plane(r.to(I32), omc.PAD // 2)])
+            torch.stack([c, pad(r, omc.PAD // 2)])
             for c, r in ((refu_pad, ref2[1]), (refv_pad, ref2[2])))
         ref_pad = torch.stack([ref_pad, ref2_pad])
     if subpel_steps or sel is not None:
@@ -1282,13 +1290,17 @@ def _exp4(a):
     return a.repeat_interleave(4, 0).repeat_interleave(4, 1)
 
 
-def b_list_fetch(ref_y, ref_u, ref_v):
+def b_list_fetch(ref_y, ref_u, ref_v, ref_prepadded: bool = False):
     """One list's reference as the B stages read it: (the half-pel stack of
-    the luma padded by PAD (K9), the chroma padded by PAD // 2)."""
-    ref_pad = omc.pad_plane(ref_y.to(I32))
-    return (omc.hpel_planes(ref_pad), omc.pad_plane(ref_u.to(I32),
-                                                    omc.PAD // 2),
-            omc.pad_plane(ref_v.to(I32), omc.PAD // 2)), ref_pad
+    the luma padded by PAD (K9), the chroma padded by PAD // 2); with
+    ref_prepadded the planes carry their border already (K28)."""
+    if ref_prepadded:
+        ref_pad, cu, cv = (t.to(I32) for t in (ref_y, ref_u, ref_v))
+    else:
+        ref_pad = omc.pad_plane(ref_y.to(I32))
+        cu, cv = (omc.pad_plane(t.to(I32), omc.PAD // 2)
+                  for t in (ref_u, ref_v))
+    return (omc.hpel_planes(ref_pad), cu, cv), ref_pad
 
 
 def _b_preds(fetch, mv, mb_h: int, mb_w: int):
@@ -1626,7 +1638,7 @@ b_direct.launches = 0
 
 def encode_b_front(mb_h: int, mb_w: int, me_range: int, y, u, v, l0, l1,
                    qtab, lam: int, mvp_seed, mvp_seed_l1, col_ref4, col_mv4,
-                   subpel_steps=(2, 1)) -> dict:
+                   subpel_steps=(2, 1), ref_prepadded: bool = False) -> dict:
     """Stages 1-3.7 of a B frame through K5, K9, K10 (per list), K22, K7,
     K23, K22 and K7 again, and the merge (plain tensor glue). y / u / v
     the MB-aligned source planes, l0 / l1 each list's deblocked
@@ -1634,11 +1646,12 @@ def encode_b_front(mb_h: int, mb_w: int, me_range: int, y, u, v, l0, l1,
     predictors; col_ref4 / col_mv4 the colocated L0 maps of the L1
     reference. Returns the merged planes of merge_intra and bmode (the
     pre-intra mode), direct_mb and the final per-MB config r0, r1, m0,
-    m1."""
+    m1. ref_prepadded: l0 / l1 carry their border already, as
+    encode_p_front takes it (x264_tpu inter.py:909-922)."""
     seeds = (mvp_seed, mvp_seed_l1)
     fetch, mvs, satds = [], [], []
     for ref, seed in zip((l0, l1), seeds):
-        f, ref_pad = b_list_fetch(*ref)
+        f, ref_pad = b_list_fetch(*ref, ref_prepadded=ref_prepadded)
         mv_fp, sad = ome.hier_search(y, ref_pad, mb_h, mb_w, me_range, lam,
                                      seed)
         if subpel_steps:

@@ -53,6 +53,13 @@ def capacity_words(nmb: int) -> int:
     return (nmb * CAP_BITS_PER_MB + edev.HDR_SLOTS * 32 + 4096) // 32
 
 
+def cabac_capacity_hw(nmb: int) -> int:
+    """Halfword capacity of a packed op stream (K27, x264_tpu's
+    cabac_capacity_hw): 3 halfwords for each op of the op buffer, the worst
+    case, so the packed words stay 1.5x the op buffer."""
+    return 3 * cabac_planes.capacity(nmb)
+
+
 _ZERO_MAPS: dict = {}
 
 
@@ -195,7 +202,7 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                    chroma_me: bool = False, rd: bool = False,
                    t8: bool = False, aq=None, ref2=None,
                    lossless: bool = False, nr_offset4=None,
-                   nr_offset8=None) -> dict:
+                   nr_offset8=None, ref_prepadded: bool = False) -> dict:
     """One P frame at subme 1-9, CABAC entropy. y / u / v: int32
     MB-aligned source planes; ref_*: the deblocked reference (L0[0]);
     ref2: L0[1] as (y, u, v) for two references, or None;
@@ -213,13 +220,15 @@ def encode_p_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     the transform bypass (decimation and RD off). nr_offset4 / nr_offset8:
     the noise reduction's (16,) / (64,) int32 offsets on the device (the
     8x8's with t8); the result then also holds nr_sum4 / nr_sum8, the
-    float32 |coef| sums of x264_tpu's encode_p_cabac."""
+    float32 |coef| sums of x264_tpu's encode_p_cabac. ref_prepadded: the
+    references carry their border (an MB-row band's, K28), as
+    inter.encode_p_front takes it."""
     qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
                                  subpel_steps, parts, p8x8, chroma_me, rd,
                                  t8, qp_map, ref2, lossless, nr_offset4,
-                                 nr_offset8)
+                                 nr_offset8, ref_prepadded)
     maps, ops, n_ops = cabac_planes.cabac_p_ops(
         front, mb_h, mb_w, 1 if ref2 is None else 2, t8_mode=t8,
         aq=None if qp_map is None else (qp_map, qp))
@@ -270,7 +279,7 @@ def encode_b_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
                    alpha_off: int, beta_off: int, chroma_qp_offset: int,
                    mvp_seed, mvp_seed_l1, col_ref4, col_mv4, crop_w: int,
                    crop_h: int, with_metrics: bool, subpel_steps=(2, 1),
-                   t8: bool = False) -> dict:
+                   t8: bool = False, ref_prepadded: bool = False) -> dict:
     """One B frame with CABAC entropy (x264_tpu's encode_b_cabac): the B
     body through inter.encode_b_front (K5, K9, K10 per list, K22, K7,
     K23, K22, K7), K24's maps and op stream, K2 with both lists' maps and
@@ -279,10 +288,11 @@ def encode_b_cabac(mb_h: int, mb_w: int, me_range: int, deblock_on: bool,
     col_ref4 / col_mv4 the colocated L0 maps of the L1 reference; t8: the
     PPS enables the 8x8 transform (B MBs code the flag 0). Returns
     dict(recon_y/u/v, ops, host32 = [n_ops, n_intra, n_skip, ssd_y,
-    ssd_u, ssd_v, ssim], intra_mb, bmode)."""
+    ssd_u, ssd_v, ssim], intra_mb, bmode). ref_prepadded: l0 / l1 carry
+    their border (an MB-row band's, K28)."""
     front = inter.encode_b_front(mb_h, mb_w, me_range, y, u, v, l0, l1, qtab,
                                  lam, mvp_seed, mvp_seed_l1, col_ref4,
-                                 col_mv4, subpel_steps)
+                                 col_mv4, subpel_steps, ref_prepadded)
     maps, ops, n_ops = cabac_planes.cabac_b_ops(front, mb_h, mb_w, t8)
     ry, ru, rv = _b_deblock(mb_h, mb_w, front, maps, qp, deblock_on,
                             alpha_off, beta_off, chroma_qp_offset)
@@ -299,7 +309,7 @@ def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
              decimate: bool, subpel_steps=(), parts: bool = False,
              p8x8: bool = False, chroma_me: bool = False, rd: bool = False,
              aq=None, ref2=None, lossless: bool = False,
-             nr_offset4=None) -> dict:
+             nr_offset4=None, ref_prepadded: bool = False) -> dict:
     """One P frame at subme 1-9, CAVLC entropy (x264_tpu's encode_p): K16
     under AQ, encode_p_front as encode_p_cabac runs it without the 8x8
     transform (ref2: L0[1] for two references), K8's pass A alone
@@ -308,12 +318,13 @@ def encode_p(mb_h: int, mb_w: int, me_range: int, deblock_on: bool, y, u, v,
     K4. Returns dict(recon_y/u/v, words, host32 = [nbits, n_intra,
     n_skip, ssd_y, ssd_u, ssd_v, ssim], mv, ptype, ref4 / mv4 / ref_idx,
     and under aq dqp and qp_eff, with nr_offset4 nr_sum4); lossless and
-    nr_offset4 as encode_p_cabac takes them."""
+    nr_offset4 and ref_prepadded as encode_p_cabac takes them."""
     qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     front = inter.encode_p_front(mb_h, mb_w, me_range, y, u, v, ref_y,
                                  ref_u, ref_v, qtab, lam, mvp_seed, decimate,
                                  subpel_steps, parts, p8x8, chroma_me, rd,
-                                 False, qp_map, ref2, lossless, nr_offset4)
+                                 False, qp_map, ref2, lossless, nr_offset4,
+                                 ref_prepadded=ref_prepadded)
     maps = cabac_planes.p_maps(front, mb_h, mb_w)
     qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
     if qp_map is not None:

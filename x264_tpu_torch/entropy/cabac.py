@@ -60,6 +60,46 @@ GT1_CTX = (5, 5, 5, 5, 6, 7, 8, 9)
 NODE_TRANS = ((1, 2, 3, 3, 4, 5, 6, 7), (4, 4, 4, 4, 5, 6, 7, 7))
 
 
+# The halfword transfer format of K27 (cabac_planes.hw_pack; x264_tpu
+# cabac_planes.py:440-452): an op crosses to the host as one 16-bit
+# halfword, 0 | kind << 12 | payload12 with payload12 = (b <<
+# HW_A_BITS[kind]) | a where a and b fit, else as three, (0x8000 | kind <<
+# 12 | b), a & 0x7FFF, a >> 15, whose continuations always carry bit 15 =
+# 0; halfwords pair into uint32 words low first. The one definition of
+# the format: cabac_planes.py imports it, csrc/hwpack.cu's kAbits copies it.
+HW_A_BITS = (11, 8, 9, 11, 0, 9, 0, 11)
+
+
+def unpack_hw(words: np.ndarray, n_hw: int) -> np.ndarray:
+    """Expand a packed halfword stream (uint32 words, two halfwords a
+    word, low first; the first n_hw halfwords live) back to the 32-bit op
+    stream (x264_tpu entropy/cabac.py:unpack_hw), vectorised on the host
+    right after the copy from the device."""
+    if n_hw == 0:
+        return np.zeros(0, np.uint32)
+    w = np.ascontiguousarray(words).view(np.uint32)
+    hws = np.empty(w.shape[0] * 2, np.uint32)
+    hws[0::2] = w & 0xFFFF
+    hws[1::2] = w >> 16
+    hws = hws[:n_hw]
+    e = (hws >> 15) != 0                    # extended-op start halfwords
+    cont = np.zeros(n_hw, bool)
+    cont[1:] = e[:-1]
+    if n_hw > 2:
+        cont[2:] |= e[:-2]
+    sidx = np.nonzero(~cont)[0]             # op start positions
+    kind = (hws[sidx] >> 12) & 7
+    is_e = e[sidx]
+    i1 = np.minimum(sidx + 1, n_hw - 1)
+    i2 = np.minimum(sidx + 2, n_hw - 1)
+    abits = np.asarray(HW_A_BITS, np.uint32)[kind]
+    p = hws[sidx] & 0xFFF
+    a = np.where(is_e, hws[i1] | (hws[i2] << 15),
+                 p & ((np.uint32(1) << abits) - 1))
+    b = np.where(is_e, p, p >> abits)
+    return ((kind << 29) | (b << 17) | a).astype(np.uint32)
+
+
 def encode_ops(states: np.ndarray, ops: np.ndarray,
                prev_byte: int) -> tuple[bytes, int]:
     """Run the arithmetic coder over the packed op stream.

@@ -27,6 +27,7 @@ import torch
 
 from .. import cuda
 from .. import tables
+from .cabac import HW_A_BITS
 
 I32 = torch.int32
 I64 = torch.int64
@@ -371,6 +372,85 @@ def compact_ops(ops_flat, cap: int):
     res = torch.zeros(cap, dtype=I32, device=ops_flat.device)
     res[:n] = torch.where(live >= 1 << 31, live - (1 << 32), live).to(I32)
     return res, torch.tensor(n, dtype=I32, device=ops_flat.device)
+
+
+# ---------------------------------------------------------------- K27
+# The halfword transfer format: entropy/cabac.py's HW_A_BITS, whose
+# unpack_hw inverts it.
+
+
+def hw_cap(cap_hw: int) -> int:
+    """The halfword capacity as x264_tpu keeps it: even, for the pairs."""
+    return cap_hw + (cap_hw & 1)
+
+
+def hw_pack_plain(ops, n_ops, cap_hw: int):
+    """Plain version of K27, x264_tpu's hw_pack bit for bit: the first
+    n_ops of the compacted op stream ops (int32 bit patterns of uint32)
+    as halfwords at the exclusive scan of their counts (1, or 3 for an
+    extended op), those at or past hw_cap(cap_hw) dropped, the rest zero.
+    Returns (int32 words (hw_cap(cap_hw) // 2,), two halfwords a word,
+    low first; int32 0-d n_hw, the full count even past capacity)."""
+    cap_hw = hw_cap(cap_hw)
+    dev = ops.device
+    o = ops.to(I64) & 0xFFFFFFFF
+    kind = o >> 29
+    a = o & 0x1FFFF
+    b = (o >> 17) & 0xFFF
+    valid = torch.arange(o.shape[0], device=dev) < torch.as_tensor(
+        n_ops, device=dev)
+    abits = torch.tensor(HW_A_BITS, dtype=I64, device=dev)[kind]
+    small = (a < (1 << abits)) & (b < (1 << (12 - abits)))
+    hw0 = torch.where(small, (kind << 12) | (b << abits) | a,
+                      0x8000 | (kind << 12) | b)
+    nhw = torch.where(valid, torch.where(small, 1, 3), 0)
+    off = torch.cumsum(nhw, 0) - nhw
+    ext = valid & ~small
+    buf = torch.zeros(cap_hw + 1, dtype=I64, device=dev)
+    for mask, pos, val in ((valid, off, hw0), (ext, off + 1, a & 0x7FFF),
+                           (ext, off + 2, a >> 15)):
+        # x264_tpu's .at[].set(mode="drop"): an index at or past cap_hw
+        # goes to the spare slot, which is cut
+        buf[torch.where(mask & (pos < cap_hw), pos, cap_hw)] = val
+    pairs = buf[:cap_hw].reshape(-1, 2)
+    words = pairs[:, 0] | (pairs[:, 1] << 16)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(I32)
+    return words, nhw.sum().to(I32)
+
+
+def hw_pack(ops, n_ops, cap_hw: int):
+    """K27 `hw_pack`: the halfword packing of a compacted op stream.
+
+    Replaces x264_tpu/entropy/cabac_planes.py:hw_pack (cabac_planes.py:455),
+    which every CABAC band program of x264_tpu/parallel/rows.py runs on
+    its compact_ops output. ops: int32 (N,) from K3 / K8 / K24, n_ops
+    their int32 0-d live count on the device. On CUDA tensors it runs
+    csrc/hwpack.cu (pass one sums each CTA's halfwords, one CTA scans the
+    sums, pass two writes each op's halfwords at its offset), reading
+    n_ops on the device, so the host never waits; on CPU tensors the
+    plain version. Returns as hw_pack_plain, except that on the card the
+    words past the live prefix ((n_hw + 1) // 2 of them; an odd count's
+    spare high halfword is written 0) are unspecified."""
+    if ops.device.type == "cpu":
+        return hw_pack_plain(ops, n_ops, cap_hw)
+    cap_hw = hw_cap(cap_hw)
+    n = ops.shape[0]
+    cuda.check(ops, (n,), I32, "ops")
+    n_ops = torch.as_tensor(n_ops, device=ops.device)
+    cuda.check(n_ops, (), I32, "n_ops")
+    nblk = (n + HW_OPS_PER_CTA - 1) // HW_OPS_PER_CTA
+    sums = torch.empty(nblk + 1, dtype=I32, device=ops.device)
+    words = torch.empty(cap_hw // 2, dtype=I32, device=ops.device)
+    cuda.launch("hwpack", "hw_pack", "ppppiii" + "p", ops.data_ptr(),
+                n_ops.data_ptr(), sums.data_ptr(), words.data_ptr(), n,
+                nblk, cap_hw, cuda.stream(ops.device))
+    hw_pack.launches += 1 + 2 * (nblk > 0)   # count, scan, write; no ops: scan
+    return words, sums[nblk]           # the scan leaves the total last
+
+
+hw_pack.launches = 0
+# ops a CTA of csrc/hwpack.cu takes (256 threads of 8)
+HW_OPS_PER_CTA = 2048
 
 
 def i_slice_ops_plain(out: dict, mb_h: int, mb_w: int,
