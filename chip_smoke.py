@@ -158,6 +158,24 @@ Phases; any failure exits non-zero before the result line:
      share over frames 1-6. One card cannot
      show the peer copies between cards or the bands' overlap across
      cards: the bands share cuda:0 and their strips stay in place.
+ 19. intra without I4x4, the overflow path, the GOP batch, the profilers:
+     (a) x264's ultrafast as x264_tpu takes it (CAVLC, no deblocking,
+     --partitions none, subme 1, no 8x8dct, scenecut 0, ref 1, no B
+     frames, CRF 23 without AQ) on phase 7's 32 frames: K1's
+     I16x16-only branch and the CAVLC kernels launch, K2 and the sub-pel
+     kernels do not, frames 0-2 equal a CPU run; (b) --partitions i8x8 on
+     phase 9's defaults, 8 frames: K1 with I8x8 without I4x4 (some I8x8
+     MBs), no partition search, frames 0-1 equal a CPU run; (c) a
+     lossless CAVLC IDR of binary noise at i_frame_parallel 1: past the
+     word buffer with and without I4x4, so the host coder codes it; its
+     branch, the host coder's ms, the recon the source and the payload
+     equal to a CPU run's; (d) encode_gop_intra of 8 frames over
+     [cuda:0] x 2 (K1's frame axis, one launch a diagonal a chunk) and
+     hadamard_ac (K30) on their MBs: every output equal to K1 alone frame
+     by frame, frame 0 and K30 to the CPU's plain versions, frames/s
+     batched against one frame a call; (e) both profilers
+     (x264_tpu_torch/tools) at 1920x1080, their lines printed, K29
+     launched by profile_stages.
 Phase 3 also holds K13 (rd_inter) and K7 with the RD decision exact at
 1080p, on frame 1 against frame 0's recon and against the 30%-gray
 reference, K14 / K15 on a pair of frames of one scene and on a pair
@@ -202,7 +220,12 @@ on 1080p |coef| whose sums pass 2^24, and the lossless branches of K1
 source, all exact; and MB-row sharding: K27 on frame 0's IDR and frame 1's
 P op streams and on a seeded stream past a small capacity, K28 on frame
 0's recon cut into 4 bands at each position, both exact, and the d2h of
-frame 1's live P stream packed against unpacked. The
+frame 1's live P stream packed against unpacked; and intra without I4x4:
+K1's I16x16-only branch on frame 0 (alone, with I8x8, lossless) and its
+frame axis on 8 frames, K29 fullpel_search on frame 1 against frame 0's
+recon at R = 16 and R = 40 (past the pad; also with a far predictor), K30
+hadamard_ac on frame 0's 16x16 and 8x8 tiles, all exact, and
+lowres_plane against K14's plain phase-00 plane. The
 line before the last is the JSON `kernels` record (the 8x8, AQ, CAVLC,
 trellis, two-reference, NR and lossless variants as records of their own, each
 counting the launches that took its branch; `launches` is the count of
@@ -213,7 +236,9 @@ two-reference branches, phase 15 for K25, K24's pass A alone and the
 CAVLC two-reference branches, phase 16 for K26 and K6's NR branch,
 phase 17's CABAC run for the lossless branches, phase 18's CABAC run
 for K27 and K28 (`launches_rows`, and `launches_rows_cavlc`, phase 18's
-band launches of every kernel), phase 9 for the others, the other
+band launches of every kernel), phase 19a for K1's I16x16-only branch
+(`launches_i16`), 19d for its frame axis (`launches_batch`) and K30,
+19e for K29, phase 9 for the others, the other
 phases' beside it); the
 last line is
 {"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
@@ -351,6 +376,18 @@ K23_OPS_PER_MB = 2 * 300 + 2 * 256 * 16 + 16 * 130
 # per MB skips the 40 blocks' transform / quant / recon (~350 ops each)
 K6_NR_OPS_PER_MB = 512 * 4
 K1_LOSSLESS_OPS_PER_MB = K1_OPS_PER_MB - 40 * 350
+# intra without I4x4: K1 per MB drops the 9 x 16 I4 SATD blocks and the
+# 16 I4 transforms (~130 + 350 ops each); K29 per candidate of an MB: a
+# subtract, an abs and an add for each of its 256 samples (at 1080p and
+# R = 16, 8160 x 1089 x 256 = 2.3e9 terms); K30 per sample: its share of
+# a 4x4 and an 8x8 butterfly (2 + 3 adds), the two abs-sums and the DC
+K1_I16_OPS_PER_MB = K1_OPS_PER_MB - 9 * 16 * 130 - 16 * 350
+K29_OPS_PER_CAND = 3 * 256
+K30_OPS_PER_SAMPLE = 12
+N_ULTRAFAST = 32               # frames of x264's ultrafast (phase 19a)
+N_CHECK_ULTRAFAST = 3          # of them held against the CPU
+N_PART_I8X8 = 8                # frames of --partitions i8x8 (phase 19b)
+N_GOP = 8                      # frames of the GOP batch (phase 19d)
 
 
 T0 = time.perf_counter()
@@ -498,6 +535,20 @@ def preset_cavlc_params(EncoderParams, frame_parallel: int = 3):
     return p
 
 
+def bframes1_params(EncoderParams, frame_parallel: int = 3):
+    """Phase 13's CPU check of a B frame: its defaults at i_bframe 1."""
+    p = bframes_params(EncoderParams, frame_parallel)
+    p.i_bframe = 1
+    return p
+
+
+def preset_cavlc_b1_params(EncoderParams, frame_parallel: int = 3):
+    """Phase 15's CPU check of a B frame: its settings at i_bframe 1."""
+    p = preset_cavlc_params(EncoderParams, frame_parallel)
+    p.i_bframe = 1
+    return p
+
+
 def preset_flash_params(EncoderParams, frame_parallel: int = 3):
     """The preset at i_bframe 0, for the flash frames' IDR, P, P."""
     p = preset_params(EncoderParams, frame_parallel)
@@ -556,6 +607,45 @@ def rows_cavlc_params(EncoderParams, frame_parallel: int = 3):
                       i_mb_row_shards=N_BANDS_CAVLC)
     p.rc.i_rc_method = 0            # CQP
     p.rc.i_qp_constant = QP
+    return p
+
+
+def ultrafast_params(EncoderParams, frame_parallel: int = 3):
+    """Phase 19a: x264's ultrafast preset as x264_tpu takes it: CAVLC, no
+    deblocking, --partitions none (no I4x4, I8x8 or P partitions), subme
+    1 (x264's 0 clamps to 1), no 8x8dct, scenecut 0, ref 1, no B frames,
+    no trellis, CRF 23 without AQ, keyint 250."""
+    p = EncoderParams(i_width=W, i_height=H, i_log_level=0, b_cabac=False,
+                      b_deblocking_filter=False,
+                      i_frame_parallel=frame_parallel,
+                      i_scenecut_threshold=0, i_frame_reference=1,
+                      i_bframe=0)
+    p.analyse.intra = p.analyse.inter = 0
+    p.analyse.i_subpel_refine = 1
+    p.analyse.b_transform_8x8 = False
+    p.analyse.i_trellis = 0
+    p.rc.i_aq_mode = 0
+    return p
+
+
+def part_i8x8_params(EncoderParams, frame_parallel: int = 3):
+    """Phase 19b: x264_tpu's defaults (phase 9: CABAC, CRF 23 with
+    variance AQ, the 8x8 transform, subme 6) with --partitions i8x8: I8x8
+    without I4x4 in the I slices, no P partitions."""
+    from x264_tpu_torch.params import ANALYSE_I8x8
+    p = defaults_params(EncoderParams, frame_parallel)
+    p.analyse.intra = p.analyse.inter = ANALYSE_I8x8
+    return p
+
+
+def overflow_params(EncoderParams, frame_parallel: int = 1):
+    """Phase 19c: a lossless (CQP 0) CAVLC IDR at i_frame_parallel 1,
+    the synchronous path that retries without I4x4 and then codes the
+    slice on the host."""
+    p = EncoderParams(i_width=W, i_height=H, i_log_level=0, b_cabac=False,
+                      i_frame_parallel=frame_parallel, i_keyint_max=1)
+    p.rc.i_rc_method = 0            # CQP
+    p.rc.i_qp_constant = 0
     return p
 
 
@@ -714,74 +804,111 @@ def drive(enc, frames):
     return done, time.perf_counter() - t_start, call_ms
 
 
+# The CPU reference runs of every phase: each phase queues its run here,
+# with what the card gave, and the runs go at the end of the script to a
+# pool of worker processes (the plain versions are bound by Python's
+# serial work, not by torch's threads), after every card measurement.
+CPU_CHECKS = []
+CPU_WORKERS = 6
+
+
+def _card_frames(done, n: int) -> list:
+    """The first n encoded frames as (type, display index, payload, recon
+    planes on the host)."""
+    return [(e.frame_type, e.display_idx, e.payload,
+             [getattr(e.recon, pl).cpu().numpy() for pl in "yuv"])
+            for e in done[:n]]
+
+
+def _cpu_run(job):
+    """One CPU reference run, in a worker: Encoder(device=...) on the
+    frames; "ip" encodes n frames and flushes, "b" feeds frames until n
+    are queued in encode order and finishes its pipe without flush()
+    (which would turn a queued B candidate into a P and queue more).
+    Returns (headers, the frames as _card_frames gives them, the last
+    IDR's branch)."""
+    import x264_tpu_torch
+    torch.set_num_threads(1)
+    kind, make, margs, frames, n, frame_parallel, device = job
+    cpu = x264_tpu_torch.Encoder(
+        make(x264_tpu_torch.EncoderParams, frame_parallel, *margs),
+        device=device)
+    header = cpu.headers()
+    refs = []
+    if kind == "ip":
+        refs = [cpu.encode(f) for f in frames[:n]]
+        refs = [r for r in refs if r is not None] + cpu.flush()
+    else:
+        for f in frames:
+            if cpu.frame_count >= n:
+                break
+            ef = cpu.encode(f)
+            if ef is not None:
+                refs.append(ef)
+        while len(refs) < n:
+            refs.append(cpu._finalize(cpu._pending.pop(0)))
+    return header, _card_frames(refs, n), cpu.last_idr_branch
+
+
 def same_as_cpu(x264_tpu_torch, done, frames, header, n: int, keyint: int,
                 what: str, subme: int = 1, scenecut: int = 0,
-                make=None, frame_parallel: int = 1, device="cpu") -> None:
-    """The first n frames of a card run against Encoder(device="cpu") on
-    those n frames (then flushed); make(EncoderParams, frame_parallel)
-    builds other parameters than params(). Under CRF / ABR a frame's QP
-    depends on the pipe's depth, so the CPU run then takes the card
-    run's frame_parallel. device: the CPU run's (a list: its bands')."""
-    stamp(f"{what}: the CPU run")
-    p = make(x264_tpu_torch.EncoderParams, frame_parallel) if make else \
-        params(x264_tpu_torch.EncoderParams, frame_parallel, keyint, subme,
-               scenecut)
-    cpu = x264_tpu_torch.Encoder(p, device=device)
-    if cpu.headers() != header:
-        fail(f"{what}: headers differ between the card and the CPU")
-    refs = [cpu.encode(frames[i]) for i in range(n)]
-    refs = [r for r in refs if r is not None] + cpu.flush()
-    for i, ref in enumerate(refs):
-        if ref.frame_type != done[i].frame_type:
-            fail(f"{what}: frame {i} is {done[i].frame_type} on the card, "
-                 f"{ref.frame_type} on the CPU")
-        if ref.payload != done[i].payload:
-            fail(f"{what}: frame {i} payload differs from the CPU run")
-        for pl in "yuv":
-            if not torch.equal(getattr(ref.recon, pl),
-                               getattr(done[i].recon, pl).cpu()):
-                fail(f"{what}: frame {i} recon {pl} differs from the CPU run")
-    print(f"{what}: frames 0-{n - 1} payloads and recons equal the CPU run",
-          flush=True)
+                make=None, frame_parallel: int = 1, device="cpu",
+                branch=None) -> None:
+    """Queue the check of the first n frames of a card run against
+    Encoder(device="cpu") on those n frames (then flushed);
+    make(EncoderParams, frame_parallel) builds other parameters than
+    params(). Under CRF / ABR a frame's QP depends on the pipe's depth,
+    so the CPU run then takes the card run's frame_parallel. device: the
+    CPU run's (a list: its bands'); branch: the synchronous CAVLC IDR's
+    branch the CPU run must also take."""
+    job = ("ip", make or params, () if make else (keyint, subme, scenecut),
+           list(frames[:n]), n, frame_parallel, device)
+    CPU_CHECKS.append((what, job, header, _card_frames(done, n), branch))
 
 
 def same_as_cpu_b(x264_tpu_torch, done, frames, header, n: int, what: str,
                   make, device="cpu") -> None:
-    """The first n frames in encode order of a card run with B frames
-    against Encoder(device="cpu") at the card run's pipe depth, fed the
-    same frames until it has queued n of them; the rest of its pipe is
-    finished without flush(), which would turn a queued B candidate into
-    a P and queue more frames. device: as same_as_cpu's."""
-    stamp(f"{what}: the CPU run")
-    cpu = x264_tpu_torch.Encoder(make(x264_tpu_torch.EncoderParams, 3),
-                                 device=device)
-    if cpu.headers() != header:
-        fail(f"{what}: headers differ between the card and the CPU")
-    refs = []
-    for f in frames:
-        if cpu.frame_count >= n:
-            break
-        ef = cpu.encode(f)
-        if ef is not None:
-            refs.append(ef)
-    while len(refs) < n:
-        refs.append(cpu._finalize(cpu._pending.pop(0)))
-    for i, ref in enumerate(refs[:n]):
-        k = done[i]
-        if (ref.frame_type, ref.display_idx) != (k.frame_type, k.display_idx):
-            fail(f"{what}: frame {i} in encode order is {k.frame_type} "
-                 f"{k.display_idx} on the card, {ref.frame_type} "
-                 f"{ref.display_idx} on the CPU")
-        if ref.payload != k.payload:
-            fail(f"{what}: frame {i} payload differs from the CPU run")
-        for pl in "yuv":
-            if not torch.equal(getattr(ref.recon, pl),
-                               getattr(k.recon, pl).cpu()):
-                fail(f"{what}: frame {i} recon {pl} differs from the CPU run")
-    print(f"{what}: frames 0-{n - 1} in encode order "
-          f"({[r.frame_type for r in refs[:n]]}, display "
-          f"{[r.display_idx for r in refs[:n]]}) equal the CPU run",
-          flush=True)
+    """Queue the check of the first n frames in encode order of a card run
+    with B frames against Encoder(device="cpu") at the card run's pipe
+    depth, fed the same frames until it has queued n of them (_cpu_run's
+    "b"). device: as same_as_cpu's."""
+    job = ("b", make, (), list(frames[:n + 4]), n, 3, device)
+    CPU_CHECKS.append((what, job, header, _card_frames(done, n), None))
+
+
+def run_cpu_checks() -> None:
+    """Every queued CPU reference run, CPU_WORKERS at a time in spawned
+    worker processes (no CUDA in them), each held against its card run:
+    headers, frame types and display order, payloads, recons."""
+    import multiprocessing
+    stamp(f"the CPU runs: {len(CPU_CHECKS)} on {CPU_WORKERS} workers")
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(CPU_WORKERS, len(CPU_CHECKS))) as pool:
+        results = pool.imap(_cpu_run, [c[1] for c in CPU_CHECKS])
+        for (what, _, header, card, branch), (cpu_header, refs, cpu_branch) \
+                in zip(CPU_CHECKS, results):
+            if cpu_header != header:
+                fail(f"{what}: headers differ between the card and the CPU")
+            if branch is not None and cpu_branch != branch:
+                fail(f"{what}: the CPU run took the {cpu_branch} branch, the "
+                     f"card the {branch}")
+            for i, (ref, k) in enumerate(zip(refs, card)):
+                if ref[:2] != k[:2]:
+                    fail(f"{what}: frame {i} in encode order is {k[:2]} on "
+                         f"the card, {ref[:2]} on the CPU")
+                if ref[2] != k[2]:
+                    fail(f"{what}: frame {i} payload differs from the CPU "
+                         f"run")
+                for pl, a, b in zip("yuv", ref[3], k[3]):
+                    if not np.array_equal(a, b):
+                        fail(f"{what}: frame {i} recon {pl} differs from the "
+                             f"CPU run")
+            if len(refs) != len(card):
+                fail(f"{what}: {len(refs)} CPU frames for {len(card)}")
+            print(f"{what}: frames 0-{len(card) - 1} in encode order "
+                  f"({[r[0] for r in refs]}, display {[r[1] for r in refs]})"
+                  f" equal the CPU run", flush=True)
+    stamp("the CPU runs: done")
 
 
 def partition_warp(ref, mb_h: int, mb_w: int, seed: int = 1):
@@ -841,7 +968,8 @@ KERNEL_GROUPS = (("hwpack_", "K27"), ("halo_kernel", "K28"),
                  # K19's and K25's passes: one template, instantiated on
                  # each slice's planes
                  ("PPlanes>(", "K19"), ("BPlanes>(", "K25"),
-                 ("trellis_kernel", "K20"))
+                 ("trellis_kernel", "K20"), ("fullpel_kernel", "K29"),
+                 ("hadamard_ac_kernel", "K30"))
 
 
 def device_split(x264_tpu_torch, frames, n_warm: int, n: int,
@@ -935,6 +1063,7 @@ def main() -> None:
     from x264_tpu_torch.headers import SLICE_B, SLICE_I, SLICE_P, SliceHeader
     from x264_tpu_torch.ops import dct as odct
     from x264_tpu_torch.ops import deblock, mc, me
+    from x264_tpu_torch.ops import pixel as opixel
     from x264_tpu_torch.ops import quant as oquant
     from x264_tpu_torch.ops import trellis as otrellis
     from x264_tpu_torch import log as xlog
@@ -2904,6 +3033,111 @@ def main() -> None:
           f"{pl28:.3f} ms); one band's strips copied on the card "
           f"{strip_ms:.3f} ms [{smi_line}]", flush=True)
 
+    # ---- K1 without I4x4 and over a frame axis, K29, K30, lowres_plane
+    stamp("phase 3: intra without I4x4, the GOP batch, K29 and K30")
+    lam26 = int(tables.LAMBDA_TABLE[QP])
+    a1i = (mb_h, mb_w, y0, u0, v0, qt26, lam26)
+    # K1's I16x16-only branch on frame 0: alone, with I8x8, lossless
+    k1i, n1i = counted(intra.encode_i16_frame, *a1i, False, None, False,
+                       False)
+    torch.cuda.synchronize()
+    p1i = {}
+    pl1i = event_ms(lambda: p1i.update(intra.encode_i16_frame_plain(
+        *a1i, i4x4=False)), 1)
+    err1i = exact("K1 intra_diag without I4x4", k1i, p1i)
+    if k1i["i4_mb"].any() or n1i != mb_h + mb_w - 1:
+        fail(f"K1 without I4x4: I4x4 MBs or {n1i} launches")
+    ms1i = event_ms(lambda: intra.encode_i16_frame(*a1i, i4x4=False), 5)
+    ms1_i4 = event_ms(lambda: intra.encode_i16_frame(*a1i), 5)
+    record("intra_diag_i16", "cuda", "x264_tpu_torch/csrc/intra.cu",
+           "x264_tpu/encoder/intra.py:366", err1i, ms1i, pl1i,
+           nbytes(y0, u0, v0) + nbytes(*k1i.values()),
+           K1_I16_OPS_PER_MB * nmb)
+    k1i8 = intra.encode_i16_frame(*a1i, True, None, False, False)
+    exact("K1 intra_diag with I8x8 without I4x4", k1i8,
+          intra.encode_i16_frame_plain(*a1i, True, i4x4=False))
+    qt0 = intra.make_qtab(0, tables.chroma_qp(0, 0), dev)
+    a1i0 = (mb_h, mb_w, y0, u0, v0, qt0, int(tables.LAMBDA_TABLE[0]))
+    k1i0 = intra.encode_i16_frame(*a1i0, False, None, True, False)
+    exact("K1 intra_diag lossless without I4x4", k1i0,
+          intra.encode_i16_frame_plain(*a1i0, lossless=True, i4x4=False))
+    if not torch.equal(k1i0["recon_y"], y0):
+        fail("K1 lossless without I4x4: recon_y is not the source")
+    print(f"K1 without I4x4: exact alone, with I8x8 "
+          f"({int(k1i8['t8_mb'].sum())} I8x8 MBs) and lossless; "
+          f"{ms1i:.3f} ms a frame against {ms1_i4:.3f} ms with I4x4, same "
+          f"frame [{smi_line}]", flush=True)
+    # K1's frame axis: N_GOP frames of make_frames in one launch a diagonal
+    gop = [frame_planes(f) for f in frames[:N_GOP]]
+    ysb, usb, vsb = (torch.stack([g[i] for g in gop]) for i in range(3))
+    n0 = intra.encode_i16_frame.launches_batch     # K1's counts
+    kb1 = intra.encode_i16_frames(mb_h, mb_w, ysb, usb, vsb, qt26, lam26)
+    nb1 = intra.encode_i16_frame.launches_batch - n0
+    torch.cuda.synchronize()
+    pb1 = {}
+    plb1 = event_ms(lambda: pb1.update(intra.encode_i16_frames_plain(
+        mb_h, mb_w, ysb, usb, vsb, qt26, lam26)), 1)
+    errb1 = exact("K1 intra_diag over a frame axis", kb1, pb1)
+    if nb1 != mb_h + mb_w - 1:
+        fail(f"K1's frame axis took {nb1} launches")
+    msb1 = event_ms(lambda: intra.encode_i16_frames(mb_h, mb_w, ysb, usb,
+                                                    vsb, qt26, lam26), 3)
+    record("intra_diag_batch", "cuda", "x264_tpu_torch/csrc/intra.cu",
+           "x264_tpu/parallel/mesh.py:36", errb1, msb1, plb1,
+           nbytes(ysb, usb, vsb) + nbytes(*kb1.values()),
+           K1_I16_OPS_PER_MB * nmb * N_GOP)
+    print(f"K1 over {N_GOP} frames: exact, {msb1:.3f} ms a batch, "
+          f"{msb1 / N_GOP:.3f} ms a frame against {ms1i:.3f} one frame a "
+          f"call [{smi_line}]", flush=True)
+    # K29 on frame 1 against frame 0's deblocked recon, R = 16 and R = 40
+    # (past the pad: the clamped windows), with the ME seed of phase 3's
+    # P frame and with a far predictor
+    ref29 = mc.pad_plane(ry)
+    y29, _, _ = frame_planes(frames[1])
+    mvp29 = torch.as_tensor(np.random.default_rng(29).integers(
+        -64, 64, (mb_h, mb_w, 2)), dtype=torch.int32, device=dev)
+    err29 = 0
+    for r29, mvp_t, lam_t, tag in ((16, mvp29, lam26, "R 16"),
+                                   (40, mvp29, lam26, "R 40"),
+                                   (40, torch.full_like(mvp29, -160), 3000,
+                                    "R 40, a far predictor")):
+        k29 = me.fullpel_search(y29, ref29, mb_h, mb_w, r29, lam_t, mvp_t)
+        p29 = me.fullpel_search_plain(y29, ref29, mb_h, mb_w, r29, lam_t,
+                                      mvp_t)
+        err29 = max(err29, exact(f"K29 fullpel_search ({tag})", k29, p29))
+    a29 = (y29, ref29, mb_h, mb_w, 16, lam26, mvp29)
+    ms29 = event_ms(lambda: me.fullpel_search(*a29), 10)
+    ms29_40 = event_ms(lambda: me.fullpel_search(*a29[:4], 40, *a29[5:]), 5)
+    pl29 = event_ms(lambda: me.fullpel_search_plain(*a29), 1)
+    record("fullpel_search", "cuda", "x264_tpu_torch/csrc/me.cu",
+           "x264_tpu/ops/me.py:50", err29, ms29, pl29,
+           nbytes(y29, ref29, mvp29) + 12 * nmb,
+           K29_OPS_PER_CAND * 33 * 33 * nmb)
+    print(f"K29 fullpel_search: exact at R 16, R 40 and R 40 with a far "
+          f"predictor; {ms29:.3f} ms at R 16, {ms29_40:.3f} ms at R 40 "
+          f"[{smi_line}]", flush=True)
+    # K30 on frame 0's 16x16 MB tiles and its 8x8 tiles
+    t16 = y0.reshape(mb_h, 16, mb_w, 16).transpose(1, 2).contiguous()
+    t8_ = y0.reshape(mb_h * 2, 8, mb_w * 2, 8).transpose(1, 2).contiguous()
+    err30 = 0
+    for tiles, tag in ((t16, "16x16"), (t8_, "8x8")):
+        err30 = max(err30, exact(f"K30 hadamard_ac ({tag} tiles)",
+                                 opixel.hadamard_ac(tiles),
+                                 opixel.hadamard_ac_plain(tiles)))
+    ms30 = event_ms(lambda: opixel.hadamard_ac(t16), 20)
+    ms30_8 = event_ms(lambda: opixel.hadamard_ac(t8_), 20)
+    pl30 = event_ms(lambda: opixel.hadamard_ac_plain(t16), 3)
+    record("hadamard_ac", "cuda", "x264_tpu_torch/csrc/pixel.cu",
+           "x264_tpu/ops/pixel.py:151", err30, ms30, pl30,
+           nbytes(t16) + 8 * nmb, K30_OPS_PER_SAMPLE * t16.numel())
+    # lowres_plane: K14's phase-00 plane
+    if not torch.equal(lookahead.lowres_plane(y0[:H]),
+                       lookahead.lowres_planes_plain(y0, H, W)[0]):
+        fail("lowres_plane differs from K14's plain phase-00 plane")
+    print(f"K30 hadamard_ac: exact on 16x16 and 8x8 tiles, {ms30:.3f} ms "
+          f"on frame 0's MBs, {ms30_8:.3f} ms on its 8x8 blocks; "
+          f"lowres_plane exact [{smi_line}]", flush=True)
+
     wrappers = {"intra_diag": intra.encode_i16_frame,
                 "cabac_i_ops": cabac_planes.i_slice_ops,
                 "deblock_diag": deblock.deblock_frame,
@@ -2935,7 +3169,9 @@ def main() -> None:
                 "cavlc_b_slice": cavlc.cavlc_b_slice,
                 "nr_sums": oquant.nr_sums,
                 "hw_pack": cabac_planes.hw_pack,
-                "halo_extend": prows.halo_extend}
+                "halo_extend": prows.halo_extend,
+                "fullpel_search": me.fullpel_search,
+                "hadamard_ac": opixel.hadamard_ac}
     # the kernels and branches of variance AQ, idle at constant QP
     aq_only = ("aq_qp_map", "dqp_syntax", "intra_diag_aq", "cabac_i_ops_aq",
                "p_inter_mb_aq", "intra_in_p_aq", "cabac_p_ops_aq")
@@ -2980,7 +3216,10 @@ def main() -> None:
                 "p_inter_mb_lossless": (inter.p_inter_mb,
                                         "launches_lossless"),
                 "intra_in_p_lossless": (inter.intra_in_p,
-                                        "launches_lossless")}
+                                        "launches_lossless"),
+                "intra_diag_i16": (intra.encode_i16_frame, "launches_i16"),
+                "intra_diag_batch": (intra.encode_i16_frame,
+                                     "launches_batch")}
     # the kernels and branches of B frames, idle without them
     b_only = ("lowres_bcost", "b_inter_mb", "intra_in_b_decide",
               "intra_in_b_sweeps", "b_direct", "cabac_b_ops",
@@ -3003,7 +3242,26 @@ def main() -> None:
     # the MB-row sharded path's kernels, idle unsharded (phase 18 runs
     # them)
     rows_only = ("hw_pack", "halo_extend")
-    later = ref2_only + cavlc_b_only + nr_only + lossless_only + rows_only
+    # intra without I4x4, the GOP batch, K29 and K30, idle on every
+    # earlier path (phase 19 runs them)
+    slice13_only = ("intra_diag_i16", "intra_diag_batch", "fullpel_search",
+                    "hadamard_ac")
+    later = ref2_only + cavlc_b_only + nr_only + lossless_only + rows_only \
+        + slice13_only
+
+    def reset_counts():
+        """Every wrapper's and variant's launch count set to 0."""
+        for w in wrappers.values():
+            w.launches = 0
+        for w, count in variants.values():
+            setattr(w, count, 0)
+
+    def read_counts() -> dict:
+        """Every wrapper's and variant's launch count, by record name."""
+        launches = {k: w.launches for k, w in wrappers.items()}
+        launches.update({k: getattr(w, count)
+                         for k, (w, count) in variants.items()})
+        return launches
 
     def main_path(keyint: int, n: int, what: str, subme: int = 1,
                   scenecut: int = 0, src=None, make=None, device=None):
@@ -3019,14 +3277,9 @@ def main() -> None:
             params(x264_tpu_torch.EncoderParams, 3, keyint, subme, scenecut),
             device=device)
         header = enc.headers()
-        for w in wrappers.values():
-            w.launches = 0
-        for w, count in variants.values():
-            setattr(w, count, 0)
+        reset_counts()
         done, wall, call_ms = drive(enc, (src or frames)[:n])
-        launches = {k: w.launches for k, w in wrappers.items()}
-        launches.update({k: getattr(w, count)
-                         for k, (w, count) in variants.items()})
+        launches = read_counts()
         if make is None and any(launches[k] for k in (
                 *variants, *aq_only, *cavlc_only, *cavlc_b_only)):
             fail(f"{what}: an 8x8, AQ or CAVLC branch ran without the 8x8 "
@@ -3419,11 +3672,6 @@ def main() -> None:
                   bframes_params)
     what13b = "the defaults with i_bframe 1 on the second picture"
 
-    def bframes1_params(EncoderParams, frame_parallel: int = 3):
-        p = bframes_params(EncoderParams, frame_parallel)
-        p.i_bframe = 1
-        return p
-
     enc13b = x264_tpu_torch.Encoder(bframes1_params(
         x264_tpu_torch.EncoderParams))
     header13b = enc13b.headers()
@@ -3466,7 +3714,8 @@ def main() -> None:
              f"1, the trellis, AQ, the 8x8 transform and RD")
     idle14 = set(cavlc_only) | set(cavlc_b_only) | set(standalone) | {
         "p_inter_mb_t8_sa8d", "p_maps_ref2", "cavlc_p_slice_ref2"} \
-        | set(nr_only) | set(lossless_only) | set(rows_only)
+        | set(nr_only) | set(lossless_only) | set(rows_only) \
+        | set(slice13_only)
     for k, n in launches_14.items():
         if (n <= 0) != (k in idle14):
             fail(f"kernel {k} was launched {n} times on {what14}")
@@ -3530,7 +3779,7 @@ def main() -> None:
     idle15 = set(cabac_only) | {k for k in launches_15 if "t8" in k
                                 or "i8x8" in k} | set(trellis_only) \
         | set(standalone) | set(nr_only) | set(lossless_only) \
-        | set(rows_only)
+        | set(rows_only) | set(slice13_only)
     for k, n in launches_15.items():
         if (n <= 0) != (k in idle15):
             fail(f"kernel {k} was launched {n} times on {what15}")
@@ -3542,11 +3791,6 @@ def main() -> None:
                   preset_cavlc_params)
     # an IDR, P, B run of the second picture at i_bframe 1 (as phase 13's)
     what15b = "the CAVLC preset with i_bframe 1 on the second picture"
-
-    def preset_cavlc_b1_params(EncoderParams, frame_parallel: int = 3):
-        p = preset_cavlc_params(EncoderParams, frame_parallel)
-        p.i_bframe = 1
-        return p
 
     enc15b = x264_tpu_torch.Encoder(preset_cavlc_b1_params(
         x264_tpu_torch.EncoderParams))
@@ -3584,7 +3828,7 @@ def main() -> None:
         fail(f"{what16}: the parameters did not open the noise reduction, "
              f"the JVT matrices, the trellis, AQ and the 8x8 transform")
     idle16 = {"p_inter_mb_t8_sa8d", *cavlc_only, *standalone, *b_only,
-              *rows_only,
+              *rows_only, *slice13_only,
               *ref2_only, *cavlc_b_only, *lossless_only}
     for k, n in launches_16.items():
         if (n <= 0) != (k in idle16):
@@ -3654,7 +3898,7 @@ def main() -> None:
               "p_inter_mb_lossless", "intra_in_p", "intra_in_p_lossless",
               "cabac_i_ops", "cabac_p_ops", "deblock_diag", "frame_metrics")
     idle17 = {*aq_only, *cavlc_only, *trellis_only, *standalone, *b_only,
-              *rows_only,
+              *rows_only, *slice13_only,
               *ref2_only, *cavlc_b_only, *nr_only, "rd_inter"} | {
         k for k in launches_17 if "t8" in k or "i8x8" in k}
     for k, n in launches_17.items():
@@ -3729,6 +3973,7 @@ def main() -> None:
               "intra_diag_aq", "cabac_i_ops_aq", "lowres_bcost",
               "p_inter_mb_t8_sa8d", *cavlc_only, *cavlc_b_only,
               *trellis_only, *standalone, *nr_only, *lossless_only,
+              *slice13_only,
               "p_maps_ref2", "cavlc_p_slice_ref2"}
     for k, n in launches_18.items():
         if (k in must18 and n <= 0) or (k in idle18 and n > 0):
@@ -3796,6 +4041,178 @@ def main() -> None:
     same_as_cpu(x264_tpu_torch, done, frames, header, N_CHECK_ROWS, 250,
                 what18c, make=rows_cavlc_params, frame_parallel=3,
                 device=["cpu"] * N_BANDS_CAVLC)
+    # ---- 19. intra without I4x4, the overflow path, the GOP batch and
+    # the profilers
+    stamp("phase 19")
+
+    # (a) x264's ultrafast as x264_tpu takes it
+    what19a = ("x264's ultrafast (CAVLC, no deblocking, --partitions none, "
+               "subme 1, no 8x8dct, CRF 23 without AQ)")
+    done, summary, launches_19a, header, fps, med, enc = main_path(
+        250, N_ULTRAFAST, what19a, src=cut, make=ultrafast_params)
+    if enc._i4x4 or enc._i8x8 or enc._parts or enc._cabac or enc._aq \
+            or enc._subpel or enc._t8 or enc.rc.method != 1:
+        fail(f"{what19a}: not the ultrafast settings")
+    must19a = ("intra_diag", "intra_diag_i16", "cavlc_i_slice", "me_hier",
+               "p_inter_mb", "intra_in_p", "p_maps", "cavlc_p_slice",
+               "frame_metrics", "lowres_planes", "lowres_cost")
+    idle19a = {"deblock_diag", "hpel_planes", "subpel_refine",
+               "part_fullpel", "chroma_rerank", "rd_inter", "aq_qp_map",
+               "intra_diag_i8x8", "intra_diag_batch", "fullpel_search",
+               "hadamard_ac", *cabac_only}
+    for k, n in launches_19a.items():
+        if (k in must19a and n <= 0) or (k in idle19a and n > 0):
+            fail(f"kernel {k} was launched {n} times on {what19a}")
+    print(f"{what19a}: {N_ULTRAFAST} frames {W}x{H}, {fps:.3f} fps, median "
+          f"encode() {med:.1f} ms, bytes IDR {len(done[0].payload)}, P "
+          f"{statistics.mean(len(e.payload) for e in done[1:]):.0f}, PSNR Y "
+          f"{summary['psnr']['y']:.4f} avg {summary['psnr']['avg']:.4f} dB, "
+          f"SSIM {summary['ssim_y']:.6f}; K1 without I4x4 "
+          f"{launches_19a['intra_diag_i16']} launches [{smi_line}]",
+          flush=True)
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_ULTRAFAST, 250,
+                what19a, make=ultrafast_params, frame_parallel=3)
+
+    # (b) --partitions i8x8 on x264_tpu's defaults
+    what19b = "x264_tpu's defaults with --partitions i8x8 (CRF 23, AQ)"
+    i8_seen = []
+    encode_idr = pipeline.encode_i16_idr_cabac
+
+    def idr_seen(*a, **k):
+        out = encode_idr(*a, **k)
+        i8_seen.append(int(out["t8_mb"].sum()))
+        return out
+
+    pipeline.encode_i16_idr_cabac = idr_seen
+    try:
+        done, summary, launches_19b, header, fps_b, med_b, enc = main_path(
+            250, N_PART_I8X8, what19b, src=cut, make=part_i8x8_params)
+    finally:
+        pipeline.encode_i16_idr_cabac = encode_idr
+    if enc._i4x4 or not (enc._i8x8 and enc._aq and enc._t8) or enc._parts:
+        fail(f"{what19b}: not I8x8 without I4x4 and partitions under AQ")
+    for k in ("intra_diag_i16", "intra_diag_i8x8", "intra_diag_aq",
+              "cabac_i_ops_t8", "p_inter_mb_t8_rd", "cabac_p_ops"):
+        if launches_19b[k] <= 0:
+            fail(f"kernel {k} was not launched on {what19b}")
+    for k in ("part_fullpel", "intra_diag_batch", "fullpel_search",
+              "hadamard_ac"):
+        if launches_19b[k] > 0:
+            fail(f"kernel {k} was launched on {what19b}")
+    if not i8_seen or i8_seen[0] <= 0:
+        fail(f"{what19b}: I8x8 MBs per IDR {i8_seen}")
+    print(f"{what19b}: {N_PART_I8X8} frames {W}x{H}, {fps_b:.3f} fps, "
+          f"median encode() {med_b:.1f} ms, IDR {len(done[0].payload)} "
+          f"bytes with {i8_seen[0]} I8x8 MBs, P "
+          f"{statistics.mean(len(e.payload) for e in done[1:]):.0f} bytes, "
+          f"PSNR Y {summary['psnr']['y']:.4f} dB [{smi_line}]", flush=True)
+    same_as_cpu(x264_tpu_torch, done, cut, header, N_CHECK_EARLY, 250,
+                what19b, make=part_i8x8_params, frame_parallel=3)
+
+    # (c) the synchronous CAVLC overflow path: a lossless IDR of binary
+    # noise passes the word buffer with and without I4x4
+    what19c = ("a lossless CAVLC IDR of binary noise at i_frame_parallel 1 "
+               "(the overflow path)")
+    rng19 = np.random.default_rng(19)
+    noise = x264_tpu_torch.Frame(*[(rng19.integers(0, 2, sh) * 255).astype(
+        np.uint8) for sh in ((H, W), (H // 2, W // 2), (H // 2, W // 2))])
+    enc = x264_tpu_torch.Encoder(
+        overflow_params(x264_tpu_torch.EncoderParams), device=dev)
+    header = enc.headers()
+    host_ms = []
+    write_i = enc._write_i_slice
+
+    def timed_write(*a):
+        t = time.perf_counter()
+        r = write_i(*a)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    enc._write_i_slice = timed_write
+    reset_counts()
+    torch.cuda.synchronize()
+    t19 = time.perf_counter()
+    ef = enc.encode(noise)
+    wall19 = (time.perf_counter() - t19) * 1e3
+    launches_19c = read_counts()
+    branch = enc.last_idr_branch
+    if ef is None or branch != "host" or len(host_ms) != 1:
+        fail(f"{what19c}: branch {branch}, {len(host_ms)} host slices")
+    if launches_19c["intra_diag_i16"] != 2 * (mb_h + mb_w - 1) or \
+            launches_19c["cavlc_i_slice"] != 2 * 4:
+        fail(f"{what19c}: K1 without I4x4 {launches_19c['intra_diag_i16']} "
+             f"launches, K18 {launches_19c['cavlc_i_slice']}")
+    lossless_check([ef], [noise], what19c)
+    enc.close()
+    print(f"{what19c}: branch {branch}, {8 * len(ef.payload) / nmb:.1f} bits "
+          f"an MB against the buffer's {pipeline.CAP_BITS_PER_MB}, host coder "
+          f"(cavlc_vec and the NAL) {host_ms[0]:.3f} ms, encode() "
+          f"{wall19:.1f} ms, the recon the source, payload "
+          f"{len(ef.payload)} bytes (its equality to the CPU run's, and the "
+          f"CPU run's branch, are checked with the CPU runs) [{smi_line}]",
+          flush=True)
+    same_as_cpu(x264_tpu_torch, [ef], [noise], header, 1, 1, what19c,
+                make=overflow_params, frame_parallel=1, branch=branch)
+
+    # (d) the GOP batch over [cuda:0] x 2, and hadamard_ac on its MBs
+    from x264_tpu_torch.parallel import mesh as pmesh
+    what19d = f"encode_gop_intra of {N_GOP} frames over [cuda:0] x 2"
+    reset_counts()
+    out_g = pmesh.encode_gop_intra([dev] * 2, mb_h, mb_w, ysb, usb, vsb,
+                                   qt26, lam26)
+    tiles_g = ysb.reshape(N_GOP, mb_h, 16, mb_w, 16).transpose(2, 3) \
+        .contiguous()
+    ac_g = opixel.hadamard_ac(tiles_g)
+    torch.cuda.synchronize()
+    launches_19d = read_counts()
+    if launches_19d["intra_diag_batch"] != 2 * (mb_h + mb_w - 1) or \
+            launches_19d["hadamard_ac"] != 1:
+        fail(f"{what19d}: {launches_19d['intra_diag_batch']} batch launches, "
+             f"{launches_19d['hadamard_ac']} of K30")
+    for i in range(N_GOP):
+        one = intra.encode_i16_frame(mb_h, mb_w, ysb[i], usb[i], vsb[i],
+                                     qt26, lam26, i4x4=False)
+        for k, t in one.items():
+            if not torch.equal(out_g[k][i], t):
+                fail(f"{what19d}: frame {i} {k} differs from K1 alone")
+    stamp(f"{what19d}: frame 0 on the CPU")
+    cpu0 = intra.encode_i16_frame_plain(
+        mb_h, mb_w, ysb[0].cpu(), usb[0].cpu(), vsb[0].cpu(),
+        {k: t.cpu() for k, t in qt26.items()}, lam26, i4x4=False)
+    for k, t in cpu0.items():
+        if not torch.equal(out_g[k][0].cpu(), t):
+            fail(f"{what19d}: frame 0 {k} differs from the CPU's plain K1")
+    if not all(torch.equal(a[0].cpu(), b) for a, b in zip(
+            ac_g, opixel.hadamard_ac_plain(tiles_g[0].cpu()))):
+        fail(f"{what19d}: K30 on frame 0's MBs differs from the CPU's")
+    ms_gop = event_ms(lambda: pmesh.encode_gop_intra(
+        [dev] * 2, mb_h, mb_w, ysb, usb, vsb, qt26, lam26), 3)
+    ms_one = event_ms(lambda: [intra.encode_i16_frame(
+        mb_h, mb_w, ysb[i], usb[i], vsb[i], qt26, lam26, i4x4=False)
+        for i in range(N_GOP)], 3)
+    print(f"{what19d}: every output equal to K1 alone frame by frame, frame "
+          f"0 to the CPU's plain K1; {N_GOP / ms_gop * 1e3:.1f} frames/s "
+          f"batched ({ms_gop:.3f} ms) against "
+          f"{N_GOP / ms_one * 1e3:.1f} one frame a call ({ms_one:.3f} ms); "
+          f"K30 on the batch's MBs equal to the CPU's [{smi_line}]",
+          flush=True)
+
+    # (e) the profilers at 1080p
+    from x264_tpu_torch.tools import profile_encode, profile_stages
+    stamp("phase 19e: profile_stages")
+    reset_counts()
+    stages19 = profile_stages.main([f"{W}x{H}"])
+    launches_19e = read_counts()
+    if launches_19e["fullpel_search"] <= 0:
+        fail("profile_stages did not launch K29")
+    stamp("phase 19e: profile_encode")
+    rows19 = profile_encode.main([f"{W}x{H}"])
+    if len(rows19) != 4 or not all(np.isfinite(list(r.values())).all()
+                                   for r in rows19):
+        fail("profile_encode gave no finite breakdown")
+    print(f"profilers at {W}x{H}: {len(stages19)} stages, "
+          f"{len(rows19)} frames [{smi_line}]", flush=True)
+
     for name, r in rec.items():
         main = launches_11 if name in cavlc_only else launches_16 \
             if name in nr_only else launches_17 \
@@ -3804,8 +4221,16 @@ def main() -> None:
             if name in b_only else launches_15 \
             if name in cavlc_b_only + ("p_maps_ref2", "cavlc_p_slice_ref2") \
             else launches_14 if name in ref2_only else launches_18 \
-            if name in rows_only else launches_9
+            if name in rows_only else launches_19a \
+            if name == "intra_diag_i16" else launches_19e \
+            if name == "fullpel_search" else launches_19d \
+            if name in slice13_only else launches_9
         r.update(launches=main[name],
+                 launches_ultrafast=launches_19a[name],
+                 launches_partitions_i8x8=launches_19b[name],
+                 launches_overflow=launches_19c[name],
+                 launches_gop_batch=launches_19d[name],
+                 launches_profilers=launches_19e[name],
                  launches_rows=launches_18[name],
                  launches_rows_cavlc=launches_18c[name],
                  launches_lossless_cavlc=launches_17c[name],
@@ -3825,6 +4250,7 @@ def main() -> None:
                  launches_all_intra=launches_i[name])
     if set(rec) != set(launches_11):
         fail(f"the kernels line lacks {sorted(set(launches_11) - set(rec))}")
+    run_cpu_checks()
     stamp("done")
 
     print(json.dumps({"kernels": list(rec.values())}), flush=True)

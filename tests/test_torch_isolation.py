@@ -30,7 +30,7 @@ from x264_tpu_torch.ops import trellis
 from x264_tpu_torch.parallel import rows as prows
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "x264_tpu")
+FORBIDDEN = ("jax", "jaxlib", "x264_tpu", "bench", "chip_smoke")
 
 
 def _imports(path):
@@ -58,7 +58,13 @@ def test_no_jax_or_reference_imports():
             "x264_tpu_torch/entropy/device.py",
             "x264_tpu_torch/entropy/cavlc_tables.py",
             "x264_tpu_torch/parallel/__init__.py",
-            "x264_tpu_torch/parallel/rows.py"} <= names
+            "x264_tpu_torch/parallel/rows.py",
+            "x264_tpu_torch/parallel/mesh.py",
+            "x264_tpu_torch/entropy/cavlc.py",
+            "x264_tpu_torch/entropy/cavlc_vec.py",
+            "x264_tpu_torch/tools/__init__.py",
+            "x264_tpu_torch/tools/profile_stages.py",
+            "x264_tpu_torch/tools/profile_encode.py"} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
@@ -81,6 +87,11 @@ def test_imports_with_jax_blocked():
             "import x264_tpu_torch.encoder.ratecontrol\n"
             "import x264_tpu_torch.entropy.device\n"
             "import x264_tpu_torch.parallel.rows\n"
+            "import x264_tpu_torch.parallel.mesh\n"
+            "import x264_tpu_torch.entropy.cavlc\n"
+            "import x264_tpu_torch.entropy.cavlc_vec\n"
+            "import x264_tpu_torch.tools.profile_stages\n"
+            "import x264_tpu_torch.tools.profile_encode\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -245,11 +256,17 @@ def test_the_trellis_slice_opens(trellis_mode, rc):
     dict(i_mb_row_shards=2)], ids=lambda c: ",".join(c))
 def test_outside_the_ippp_slice_raises(change):
     """Outside the port's slices: raises. Two references, B frames with
-    CAVLC, the noise reduction, the JVT matrices, lossless and MB-row
-    sharding on one device, once outside, now open (the cases that named
-    them)."""
+    CAVLC, the noise reduction, the JVT matrices, lossless, MB-row
+    sharding on one device and intra without I4x4, once outside, now
+    open (the cases that named them)."""
     if "i_frame_reference" in change:
         _two_refs_open(change)
+        return
+    if "analyse__intra" in change:
+        # intra without I4x4 (--partitions none): now open
+        enc = x264_tpu_torch.Encoder(_p_params(**change), device="cpu")
+        assert not enc._i4x4 and not enc._i8x8
+        enc.close()
         return
     if set(change) & {"analyse__i_noise_reduction", "i_cqm_preset",
                       "rc__i_qp_constant", "i_mb_row_shards"}:
@@ -698,16 +715,19 @@ def test_ref2_and_cavlc_b_wrappers_never_fall_back_off_the_cpu(name):
 
 
 def test_cavlc_overflow_raises():
-    """A CAVLC slice past the device word buffer raises and names the
-    later slice (x264_tpu's synchronous retry without I4x4 and its host
-    coder are not ported)."""
-    enc = x264_tpu_torch.Encoder(_params(b_cabac=False), device="cpu")
+    """On the pipelined path (i_frame_parallel > 1) a CAVLC slice past the
+    device word buffer raises, as x264_tpu's does: only an IDR at
+    i_frame_parallel 1 retries without I4x4 and then takes the host coder
+    (tests/test_torch_encoder_overflow.py)."""
+    enc = x264_tpu_torch.Encoder(_params(b_cabac=False, i_frame_parallel=3),
+                                 device="cpu")
+    assert enc._delay == 2
     nmb = enc.params.mb_width * enc.params.mb_height
     cap = pipeline.capacity_words(nmb)
     pend = dict(nmb=nmb, nal_type=5, nal_ref_idc=3)
     words = np.zeros(cap, np.int32)
     assert enc._cavlc_payload(pend, words, 9) == b"\x00\x00\x00\x01\x65\x00\x00"
-    with pytest.raises(RuntimeError, match="later slice"):
+    with pytest.raises(RuntimeError, match="only an IDR at i_frame_parallel"):
         enc._cavlc_payload(pend, words, 32 * cap + 1)
     enc.close()
 
@@ -804,3 +824,37 @@ def test_one_card_shards_fall_back_and_more_refuse():
     assert "padding coded height by 3 MB rows so 9 rows split across 4 " \
         "bands (cropped by the SPS window)" in lines
     full.close()
+
+
+def _meta_slice13_calls():
+    """K1 without I4x4 and over a frame axis, K29, K30, K14 through
+    lowres_plane and the GOP batch on tensors and devices that are
+    neither the CPU nor a card."""
+    from x264_tpu_torch.encoder import lookahead
+    from x264_tpu_torch.ops import me, pixel
+    from x264_tpu_torch.parallel import mesh
+    mb_h, mb_w, H, W = 1, 2, 16, 32
+    t = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")
+    q = {k: v.to("meta") for k, v in intra.make_qtab(26, 26, "cpu").items()}
+    return {
+        "K1 i16": lambda: intra.encode_i16_frame(
+            mb_h, mb_w, t(H, W), t(8, 16), t(8, 16), q, 1, i4x4=False),
+        "K1 batch": lambda: intra.encode_i16_frames(
+            mb_h, mb_w, t(2, H, W), t(2, 8, 16), t(2, 8, 16), q, 1),
+        "K29": lambda: me.fullpel_search(t(H, W), t(H + 64, W + 64), mb_h,
+                                         mb_w, 16, 4, t(mb_h, mb_w, 2)),
+        "K30": lambda: pixel.hadamard_ac(t(3, 16, 16)),
+        "K14 lowres_plane": lambda: lookahead.lowres_plane(t(H, W)),
+        "GOP batch": lambda: mesh.encode_gop_intra(
+            ["meta"] * 2, mb_h, mb_w, t(2, H, W), t(2, 8, 16), t(2, 8, 16),
+            q, 1),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_slice13_calls()))
+def test_slice13_wrappers_never_fall_back_off_the_cpu(name):
+    """K1's I16x16-only and frame-axis branches, K29, K30, lowres_plane and
+    encode_gop_intra launch their kernel (or raise) on any tensor that is
+    not on the CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _meta_slice13_calls()[name]()

@@ -20,7 +20,10 @@ B frames under CABAC and CAVLC against the CPU's; K26 on |coef| grids
 whose window trees XLA combines in each of its orders, K6's NR branch at
 t8 0 / 1 / 2 with the trellis and a QP map, the lossless branches of K1,
 K6 and K7, and the card's Encoder with --nr + the JVT matrices and at
-CQP 0 (CABAC and CAVLC) against the CPU's.
+CQP 0 (CABAC and CAVLC) against the CPU's; K1's I16x16-only branch (alone,
+with I8x8, lossless, with a QP map) and its frame axis, K29
+fullpel_search (R = 4, 16 and 40, flat references, a far predictor), K30
+hadamard_ac, encode_gop_intra over [card] * 2 and lowres_plane.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -39,6 +42,7 @@ from x264_tpu_torch.encoder import (aq, inter, intra, lookahead, pipeline,
 from x264_tpu_torch.entropy import cabac_planes
 from x264_tpu_torch.entropy import device as cavlc_device
 from x264_tpu_torch.ops import deblock, mc, me
+from x264_tpu_torch.ops import pixel as opixel
 from x264_tpu_torch.ops import quant as oquant
 
 MB_H, MB_W = 5, 7
@@ -1644,3 +1648,117 @@ def test_sharded_encoder_on_the_card_matches_the_cpu(card, cabac):
         for pl in "yuv":
             assert torch.equal(getattr(a.recon, pl).cpu(),
                                getattr(b.recon, pl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i8x8,lossless,aq_map", [
+    (False, False, False), (True, False, False), (False, True, False),
+    (False, False, True)])
+def test_intra_i16only_kernel_matches_plain(card, i8x8, lossless, aq_map):
+    """K1 without the I4x4 ladder (--partitions none), with and without
+    I8x8, lossless and with a QP map: every output equal to the plain
+    version's, no MB I4x4, each launch counted in launches_i16."""
+    y, u, v = _blocky(card) if i8x8 else _frame(card, 9)
+    qp = 0 if lossless else 26
+    q = _with_stacks(intra.make_qtab(qp, tables.chroma_qp(qp), card), card)
+    lam = int(tables.LAMBDA_TABLE[qp])
+    qp_map = aq.qp_map_from_planes_plain(y, u, v, MB_H, MB_W, qp, 1.0, 10,
+                                         51, 0)[0] if aq_map else None
+    n0 = intra.encode_i16_frame.launches_i16
+    k = intra.encode_i16_frame(MB_H, MB_W, y, u, v, q, lam, i8x8, qp_map,
+                               lossless, i4x4=False)
+    n_diag = len(intra.diagonals(MB_H, MB_W, i8x8))
+    assert intra.encode_i16_frame.launches_i16 == n0 + n_diag
+    p = intra.encode_i16_frame_plain(MB_H, MB_W, y, u, v, q, lam, i8x8,
+                                     qp_map, lossless, i4x4=False)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    assert torch.equal(p["i4_mb"], p["t8_mb"]) if i8x8 \
+        else not p["i4_mb"].any()
+    if i8x8:
+        assert p["t8_mb"].any()
+
+
+@pytest.mark.cuda
+def test_intra_batch_kernel_matches_plain(card):
+    """K1's frame axis: three frames in one launch a diagonal, equal to
+    the plain version and to K1 frame by frame without I4x4."""
+    fr = [_frame(card, s) for s in (1, 2, 3)]
+    ys, us, vs = (torch.stack([f[i] for f in fr]) for i in range(3))
+    q = intra.make_qtab(26, tables.chroma_qp(26), card)
+    lam = int(tables.LAMBDA_TABLE[26])
+    n0 = intra.encode_i16_frame.launches_batch
+    k = intra.encode_i16_frames(MB_H, MB_W, ys, us, vs, q, lam)
+    assert intra.encode_i16_frame.launches_batch == n0 + MB_H + MB_W - 1
+    p = intra.encode_i16_frames_plain(MB_H, MB_W, ys, us, vs, q, lam)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    for i, f in enumerate(fr):
+        one = intra.encode_i16_frame(MB_H, MB_W, *f, q, lam, i4x4=False)
+        for key in one:
+            assert torch.equal(k[key][i], one[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,flat,far", [(4, False, 0), (16, False, 0),
+                                        (16, True, 0), (40, False, 0),
+                                        (40, False, -160), (40, False, 160)])
+def test_fullpel_search_kernel_matches_plain(card, r, flat, far):
+    """K29 at R = 4 and 16 and at R = 40 past the pad (the clamped
+    windows), on noise and on a flat reference (every candidate ties on
+    its SAD), with a nonzero MV predictor, and with one far predictor
+    that a large lambda makes win (its SAD read at the clamped window)."""
+    y, _, _ = _frame(card, 5)
+    rng = np.random.default_rng(r)
+    ref = torch.full_like(y, 100) if flat else torch.roll(y, (3, -5), (0, 1))
+    ref_pad = mc.pad_plane(ref)
+    mvp = torch.as_tensor(rng.integers(-40, 40, (MB_H, MB_W, 2)),
+                          dtype=torch.int32, device=card)
+    lam = 4
+    if far:
+        mvp, lam = torch.full_like(mvp, far), 3000
+    n0 = me.fullpel_search.launches
+    k = me.fullpel_search(y, ref_pad, MB_H, MB_W, r, lam, mvp)
+    assert me.fullpel_search.launches == n0 + 1
+    p = me.fullpel_search_plain(y, ref_pad, MB_H, MB_W, r, lam, mvp)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if far:
+        assert (k[0] == far).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 8, 8), (2, 5, 16, 16), (7, 8, 16),
+                                   (4, 16, 8)])
+def test_hadamard_ac_kernel_matches_plain(card, shape):
+    """K30 at 8x8, 16x16, 8x16 and 16x8 tiles with leading shapes, on
+    pixels, on signed residuals and on values whose sums wrap int32."""
+    rng = np.random.default_rng(len(shape))
+    for lo, hi in ((0, 256), (-255, 256), (-(1 << 28), 1 << 28)):
+        pix = torch.as_tensor(rng.integers(lo, hi, shape), dtype=torch.int32,
+                              device=card)
+        n0 = opixel.hadamard_ac.launches
+        k = opixel.hadamard_ac(pix)
+        assert opixel.hadamard_ac.launches == n0 + 1
+        p = opixel.hadamard_ac_plain(pix)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+def test_gop_batch_and_lowres_plane_on_the_card(card):
+    """encode_gop_intra over [card] * 2 against the plain version on the
+    CPU, and lowres_plane (K14's phase-00 plane) against its plain
+    version."""
+    from x264_tpu_torch.parallel import mesh
+    fr = [_frame("cpu", s) for s in (1, 2, 3, 4)]
+    ys, us, vs = (torch.stack([f[i] for f in fr]) for i in range(3))
+    qc = intra.make_qtab(26, tables.chroma_qp(26), "cpu")
+    lam = int(tables.LAMBDA_TABLE[26])
+    k = mesh.encode_gop_intra([card] * 2, MB_H, MB_W, ys, us, vs, qc, lam)
+    p = mesh.encode_gop_intra(["cpu"] * 2, MB_H, MB_W, ys, us, vs, qc, lam)
+    for key in p:
+        assert k[key].device.type == "cuda"
+        assert torch.equal(k[key].cpu(), p[key]), key
+    y = fr[0][0].to(card)
+    got = lookahead.lowres_plane(y)
+    want = lookahead.lowres_planes_plain(y, *y.shape)[0]
+    assert torch.equal(got, want)

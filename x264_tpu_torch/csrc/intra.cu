@@ -3,8 +3,8 @@
 //
 // Replaces x264_tpu/encoder/intra.py:encode_i16_frame (diag_step with
 // luma_i16_path, luma_i4_path, luma_i8_path and chroma_residual; i4x4
-// on, i8x8 on or off, and the lossless transform bypass of intra.py:97,
-// :172 and :603). Plain twin:
+// and i8x8 on or off, and the lossless transform bypass of intra.py:97,
+// :172 and :603), and parallel/mesh.py's vmap of it over a frame axis. Plain twin:
 // x264_tpu_torch/encoder/intra.py encode_i16_frame_plain; wrapper:
 // encode_i16_frame.
 //
@@ -56,6 +56,15 @@
 // Variance AQ: given a QP map, the qtab argument is the 52-QP stack
 // (encoder/aq.py:qtab_stacks) and each CTA loads the row of its MB's QP
 // (x264_tpu's per-MB qtab_rows gather); lambda stays the frame's.
+// Without I4x4 (i4x4 = 0, --partitions none, x264_tpu intra.py:366-376)
+// the CTA skips the I4x4 ladder: no MB takes I4x4, and I8x8 (where on)
+// replaces I16x16 only when strictly cheaper than it alone (:383); the
+// neighbours' 4x4 modes are still read for I8x8's MPM.
+// The frame axis: nf frames of one size, one QP table and one lambda run
+// in one launch a diagonal, blockIdx.y the frame (x264_tpu's
+// parallel/mesh.py vmap of encode_i16_frame); every plane and output is
+// nf stacked frames. At 1080p a diagonal holds at most 68 MBs, so the
+// frames are what fills the 132 SMs.
 #include "intra_mb.cuh"
 #include "t8.cuh"
 
@@ -80,13 +89,25 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
     int* __restrict__ chroma_dc_o, int* __restrict__ chroma_ac_o,
     uint8_t* __restrict__ i4_mb_o, int* i4_modes_o, int* __restrict__ cbp_o,
     uint8_t* __restrict__ t8_mb_o, int* __restrict__ luma8_o,
-    const int* __restrict__ qp_map, int mb_w, int d, int y0, int lam,
-    int i8x8, int lossless) {
+    const int* __restrict__ qp_map, int mb_h, int mb_w, int d, int y0,
+    int lam, int i8x8, int lossless, int i4x4) {
   // the MB of this CTA: x + y = d, or x + 2y = d with I8x8
   const int my = y0 + blockIdx.x;
   const int mx = d - (i8x8 ? 2 : 1) * my;
   const int W = mb_w * 16, Wc = mb_w * 8;
   const int mb = my * mb_w + mx;
+  // this CTA's frame of the stack: every plane and output moves to it
+  {
+    const size_t nmb = (size_t)mb_h * mb_w, f = blockIdx.y;
+    Y += f * nmb * 256; U += f * nmb * 64; V += f * nmb * 64;
+    RY += f * nmb * 256; RU += f * nmb * 64; RV += f * nmb * 64;
+    mode16_o += f * nmb; modec_o += f * nmb; cbp_o += f * nmb;
+    i4_mb_o += f * nmb; luma_dc_o += f * nmb * 16; i4_modes_o += f * nmb * 16;
+    luma_ac_o += f * nmb * 256; chroma_dc_o += f * nmb * 8;
+    chroma_ac_o += f * nmb * 128;
+    if (t8_mb_o) { t8_mb_o += f * nmb; luma8_o += f * nmb * 256; }
+    if (qp_map) qp_map += f * nmb;
+  }
   const int tid = threadIdx.x;
   const bool has_top = my > 0, has_left = mx > 0;
 
@@ -127,6 +148,7 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
   imb_i16_residual(S, false, lossless);
 
   // ------------------------------------------------ I4x4 ladder
+  if (i4x4) {
   for (int i = tid; i < 17 * 21; i += NT) {
     int r = i / 21, c = i % 21, v = 0;
     if (r == 0 && c == 0) v = S.topleft;
@@ -218,6 +240,7 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
     total4 += lam * 24;
   }
   __syncthreads();
+  }  // i4x4
 
   // ------------------------------------------------ I8x8 ladder
   if (i8x8) {
@@ -331,8 +354,10 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
 
   // ------------------------------------------------ chroma decision
   imb_chroma_decide(S, has_top, has_left, -1);
-  const bool use_i4 = total4 < S.cost16;
-  const bool use_i8 = i8x8 && total8 < min(S.cost16, total4);
+  // I4x4 replaces I16x16, and I8x8 the best of them, only when strictly
+  // cheaper; without I4x4 I8x8 is held against I16x16 alone
+  const bool use_i4 = i4x4 && total4 < S.cost16;
+  const bool use_i8 = i8x8 && total8 < (i4x4 ? min(S.cost16, total4) : S.cost16);
 
   // ------------------------------------------------ luma outputs
   for (int i = tid; i < 256; i += NT) {
@@ -380,15 +405,16 @@ extern "C" int intra_diag(const int* y, const int* u, const int* v,
                           int* chroma_dc, int* chroma_ac, uint8_t* i4_mb,
                           int* i4_modes, int* cbp_luma_bits, uint8_t* t8_mb,
                           int* luma8, const int* qp_map, int mb_h, int mb_w,
-                          int d, int lam, int i8x8, int lossless,
-                          void* stream) {
-  // the MBs of diagonal d: x = d - y, or x = d - 2y with I8x8, in [0, mb_w)
+                          int d, int lam, int i8x8, int lossless, int i4x4,
+                          int nf, void* stream) {
+  // the MBs of diagonal d: x = d - y, or x = d - 2y with I8x8, in [0, mb_w);
+  // one row of CTAs a frame of the nf stacked frames
   const int y0 = i8x8 ? max(0, (d - (mb_w - 1) + 1) / 2) : max(0, d - (mb_w - 1));
   const int y1 = min(mb_h - 1, i8x8 ? d / 2 : d);
-  if (y1 < y0) return 0;
-  intra_diag_kernel<<<y1 - y0 + 1, NT, 0, (cudaStream_t)stream>>>(
+  if (y1 < y0 || nf < 1) return 0;
+  intra_diag_kernel<<<dim3(y1 - y0 + 1, nf), NT, 0, (cudaStream_t)stream>>>(
       y, u, v, qtab, p4tab, p8tab, recon_y, recon_u, recon_v, mode16, modec,
       luma_dc, luma_ac, chroma_dc, chroma_ac, i4_mb, i4_modes, cbp_luma_bits,
-      t8_mb, luma8, qp_map, mb_w, d, y0, lam, i8x8, lossless);
+      t8_mb, luma8, qp_map, mb_h, mb_w, d, y0, lam, i8x8, lossless, i4x4);
   return (int)cudaGetLastError();
 }

@@ -28,6 +28,33 @@
 // ~1.1 G integer ops (361 coarse candidates over 960x544, 83 x 256 per
 // MB; ~16 us at the ALU rate). Stage 2 keeps at most 49 of 128 threads
 // busy; a later PR can give each thread a slice of a candidate.
+//
+// K29 fullpel_search: the exhaustive full-pel search of every MB.
+//
+// Replaces x264_tpu/ops/me.py:fullpel_search (the (2R+1)^2 displacements
+// of each 16x16 MB; cost = SAD + lam * bits(4 cand - mvp); argmin's first
+// index in dy-major, dx-minor order). Plain twin:
+// x264_tpu_torch/ops/me.py:fullpel_search_plain; wrapper: fullpel_search.
+//
+// Design. One 256-thread CTA per MB. The candidate at (dy, dx) reads the
+// reference rows from ds_start(pad + dy, H + 2 pad, H) and the columns
+// from ds_start(pad + dx, W + 2 pad, W): dynamic_slice's start, counted
+// once from the end where negative and then clamped, so for R > pad the
+// SAD is taken at the clamped window while the MV stays the candidate's.
+// The host takes the least and greatest of those starts; the window
+// between them ((rs_hi - rs_lo + 16) x (cs_hi - cs_lo + 16), at most
+// (2 pad + 16)^2: 80 x 80 at pad 32, 48 x 48 at R = 16) and the MB's
+// 16 x 16 block sit in shared memory. Threads walk the candidates in
+// index order (consecutive threads, consecutive dx: conflict-free window
+// reads, the block read as a broadcast), each keeping the first of its
+// least (cost, index); the CTA's minimum of (cost << 32 | index) is then
+// argmin's first index, and the thread that holds it writes the MV and
+// its SAD (not its cost). Sums and lam * bits wrap as int32.
+// What bounds it on the H100: operations. At 1080p and R = 16 it does
+// 8160 x 1089 x 256 = 2.3 G |diff| terms (each two shared loads, a
+// subtract, an abs and an add) against ~17.6 MB of reads.
+#include <climits>
+
 #include "common.cuh"
 
 using namespace x264t;
@@ -136,7 +163,90 @@ __global__ void __launch_bounds__(NT) search_kernel(
   }
 }
 
+constexpr int FP_NT = 256;
+
+__global__ void __launch_bounds__(FP_NT) fullpel_kernel(
+    const int* __restrict__ cur, const int* __restrict__ ref_pad,
+    const int* __restrict__ mvp, int* __restrict__ mv_o,
+    int* __restrict__ sad_o, int mb_w, int H, int W, int R, int pad, int lam,
+    int rs_lo, int cs_lo, int win_h, int win_w) {
+  extern __shared__ int win[];
+  __shared__ int blk[256];
+  __shared__ long long best;
+  const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
+  const int tid = threadIdx.x, Hp = H + 2 * pad, Wp = W + 2 * pad;
+  blk[tid] = cur[(my * 16 + tid / 16) * W + mx * 16 + tid % 16];
+  for (int i = tid; i < win_h * win_w; i += FP_NT) {
+    const int r = i / win_w, c = i % win_w;
+    win[i] = ref_pad[(size_t)(my * 16 + rs_lo + r) * Wp + mx * 16 + cs_lo + c];
+  }
+  if (tid == 0) best = LLONG_MAX;
+  __syncthreads();
+  const int n = 2 * R + 1, nc = n * n;
+  const int px = mvp[2 * mb], py = mvp[2 * mb + 1];
+  long long mine = LLONG_MAX;
+  int mine_sad = 0;
+  for (int c = tid; c < nc; c += FP_NT) {
+    const int dy = c / n - R, dx = c % n - R;
+    const int ro = ds_start(pad + dy, Hp, H) - rs_lo;
+    const int co = ds_start(pad + dx, Wp, W) - cs_lo;
+    unsigned sad = 0;
+    for (int r = 0; r < 16; ++r) {
+      const int* w = win + (ro + r) * win_w + co;
+      #pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int d = blk[r * 16 + k] - w[k];
+        sad += (unsigned)(d < 0 ? -d : d);
+      }
+    }
+    const unsigned bits = (unsigned)(se_bits(4 * dx - px) + se_bits(4 * dy - py));
+    const int cost = (int)(sad + (unsigned)lam * bits);
+    const long long key = (long long)cost * 4294967296LL + c;
+    if (key < mine) {
+      mine = key;
+      mine_sad = (int)sad;
+    }
+  }
+  atomicMin(&best, mine);
+  __syncthreads();
+  if (mine == best) {
+    const int c = (int)(best & 0xffffffffLL);
+    mv_o[2 * mb] = 4 * (c % n - R);
+    mv_o[2 * mb + 1] = 4 * (c / n - R);
+    sad_o[mb] = mine_sad;
+  }
+}
+
 }  // namespace
+
+extern "C" int fullpel_search(const int* cur, const int* ref_pad,
+                              const int* mvp, int* mv, int* sad, int mb_h,
+                              int mb_w, int me_range, int pad, int lam,
+                              void* stream) {
+  const int H = mb_h * 16, W = mb_w * 16, R = me_range;
+  if (R < 0 || pad < 0) return (int)cudaErrorInvalidValue;
+  // the least and greatest row / column starts of the candidates
+  int rs_lo = INT_MAX, rs_hi = INT_MIN, cs_lo = INT_MAX, cs_hi = INT_MIN;
+  for (int d = -R; d <= R; ++d) {
+    const int sr = pad + d < 0 ? pad + d + H + 2 * pad : pad + d;
+    const int sc = pad + d < 0 ? pad + d + W + 2 * pad : pad + d;
+    const int r = min(max(sr, 0), 2 * pad), c = min(max(sc, 0), 2 * pad);
+    rs_lo = min(rs_lo, r); rs_hi = max(rs_hi, r);
+    cs_lo = min(cs_lo, c); cs_hi = max(cs_hi, c);
+  }
+  const int win_h = rs_hi - rs_lo + 16, win_w = cs_hi - cs_lo + 16;
+  const size_t smem = (size_t)win_h * win_w * sizeof(int);
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fullpel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fullpel_kernel<<<mb_h * mb_w, FP_NT, smem, (cudaStream_t)stream>>>(
+      cur, ref_pad, mvp, mv, sad, mb_w, H, W, R, pad, lam, rs_lo, cs_lo,
+      win_h, win_w);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int me_hier(const int* cur, const int* ref_pad, const int* mvp,
                        int* half, int* mv, int* sad, int mb_h, int mb_w,

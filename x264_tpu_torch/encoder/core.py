@@ -56,6 +56,7 @@ from .. import log as xlog
 from .. import tables
 from ..entropy import cabac as ecabac
 from ..entropy import cabac_tables as ctab
+from ..entropy import cavlc_vec
 from ..entropy import device as edev
 from ..entropy.bitstream import BitWriter, nal_unit, NAL_SLICE, NAL_SLICE_IDR
 from ..headers import (PPS, SPS, SLICE_B, SLICE_I, SLICE_P, SliceHeader,
@@ -126,16 +127,16 @@ def _check_slice(p: EncoderParams) -> None:
     partitions, chroma ME and, at subme >= 6, the RD ladder with psy-RD,
     where the parameters ask for them), with one or two references and
     the scenecut lookahead or a fixed GOP, with or without the 8x8
-    transform and I8x8 (which validate() turns off without CABAC), CABAC
-    or CAVLC, at constant QP (lossless at QP 0), CRF or 1-pass ABR, with
-    or without variance AQ (VBV and 2-pass replay are refused here and by
+    transform and I8x8 (which validate() turns off without CABAC), with
+    or without I4x4 in the I slices, CABAC or CAVLC, at constant QP
+    (lossless at QP 0), CRF or 1-pass ABR, with or without variance AQ
+    (VBV and 2-pass replay are refused here and by
     RateControl), with or without the CABAC trellis, the noise reduction
     and custom quant matrices; and B frames (i_bframe 1-3, b-adapt 0 / 1
     / 2) with CABAC or CAVLC. MB-row sharding is checked by the Encoder,
     which knows its devices."""
-    a, rc = p.analyse, p.rc
+    rc = p.rc
     later = [
-        (not a.intra & ANALYSE_I4x4, "intra without I4x4", "a later slice"),
         (rc.i_vbv_max_bitrate > 0 or rc.i_vbv_buffer_size > 0,
          "VBV (with its row rate control)", "the VBV slice"),
         (rc.b_stat_read, "2-pass replay", "the 2-pass slice"),
@@ -282,6 +283,9 @@ class Encoder:
         self._trellis = bool(p.analyse.i_trellis and p.b_cabac)
         self._trellis_full = None
         self._i8x8 = bool(p.analyse.intra & ANALYSE_I8x8)
+        # the I4x4 ladder of the I slices (x264_tpu's _i4x4, core.py:93-94;
+        # off under --partitions none, x264's ultrafast)
+        self._i4x4 = bool(p.analyse.intra & ANALYSE_I4x4)
         # the noise reduction (x264_denoise_dct, common/quant.c:180, and
         # x264_noise_reduction_update, encoder/macroblock.c:890): per
         # position offsets shrink the P frames' inter luma coefficients;
@@ -306,6 +310,14 @@ class Encoder:
             self._delay = 0      # sharded CAVLC finalizes synchronously
         self._dev_tabs: dict = {}
         self._col_intra: dict = {}
+        # the synchronous CAVLC IDR's branch ("fits", "retry" without
+        # I4x4, or "host", the host coder) at i_frame_parallel 1; and
+        # whether the host coder codes a lossless frame's bypass levels.
+        # x264_tpu codes its transformed levels under the bypass SPS, which
+        # decode to other pictures than its recon (ROADMAP §3); the port
+        # codes the levels its recon was made from
+        self.last_idr_branch = None
+        self._host_bypass = self._lossless
 
     def _check_shards(self, p: EncoderParams) -> None:
         """MB-row sharding (x264_tpu core.py:149-175): min(shards, the
@@ -788,12 +800,62 @@ class Encoder:
         if self._cabac:
             pend["hdr_bytes"] = self._cabac_header(qp, SLICE_I, 3)
             out = pipeline.encode_i16_idr_cabac(
-                *args, *tail, t8=self._t8, i8x8=self._i8x8, **kw)
+                *args, *tail, t8=self._t8, i8x8=self._i8x8, **kw,
+                i4x4=self._i4x4)
         else:
-            out = pipeline.encode_i16_idr(
-                *args, *self._cavlc_header(qp, SLICE_I, 3), *tail, **kw)
+            hdr = self._cavlc_header(qp, SLICE_I, 3)
+            out = pipeline.encode_i16_idr(*args, *hdr, *tail, **kw,
+                                          i4x4=self._i4x4)
+            if self._delay == 0:
+                out = self._cavlc_idr_sync(out, args, hdr, tail, pend)
         pend.update(out=out, recon=self._finish_frame(out, frame))
         return self._idr_done(pend)
+
+    def _cavlc_idr_sync(self, out: dict, args: tuple, hdr: tuple,
+                        tail: tuple, pend: dict) -> dict:
+        """x264_tpu's synchronous CAVLC IDR at i_frame_parallel 1
+        (core.py:1170-1194): where the slice passes the device word
+        buffer, re-run the I pipeline without I4x4 and, as x264_tpu calls
+        it, without the crop, the metrics and the QP map; where that still
+        passes it, code the slice on the host (_write_i_slice) from K1's
+        planes without I4x4 at the frame QP, and keep the retry's recon
+        and counts. Returns the pipeline output the frame keeps; the host
+        coder's NAL goes to pend["payload"]. (x264 instead grows its
+        buffer, x264_bitstream_check_buffer.)"""
+        cap_bits = pipeline.capacity_words(pend["nmb"]) * 32
+        nbits = int(out["host32"][0])
+        self.last_idr_branch = "fits"
+        if nbits > cap_bits and self._i4x4:
+            out = pipeline.encode_i16_idr(*args, *hdr, *tail, 0, 0, False,
+                                          lossless=self._lossless,
+                                          i4x4=False)
+            nbits = int(out["host32"][0])
+            self.last_idr_branch = "retry"
+        if nbits > cap_bits:
+            mb_h, mb_w, _, y, u, v, qtab, lam, qp = args
+            planes = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam,
+                                            lossless=self._host_bypass,
+                                            i4x4=False)
+            pend["payload"] = self._write_i_slice(planes, qp)
+            self.last_idr_branch = "host"
+        return out
+
+    def _write_i_slice(self, planes: dict, qp: int) -> bytes:
+        """Entropy-code one I16x16 slice on the host (x264_tpu's
+        _write_i_slice, core.py:1469, CAVLC path): the slice header, then
+        entropy/cavlc_vec.py's codes of K1's planes (I16x16 MBs, no
+        mb_qp_delta), the stop bit."""
+        p = self.params
+        bs = BitWriter()
+        self._slice_header(qp, SLICE_I).write_rbsp(bs, nal_ref_idc=3)
+        keys = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac", "mode16",
+                "modec")
+        vals, lens = cavlc_vec.i16_slice_codes(
+            {k: planes[k].cpu().numpy() for k in keys}, p.mb_width,
+            p.mb_height)
+        bs.put_codes(vals, lens)
+        bs.rbsp_trailing()
+        return nal_unit(NAL_SLICE_IDR, 3, bs.pack())
 
     def _idr_done(self, pend: dict) -> dict:
         """An IDR empties the DPB (spec 8.2.5.1): the reference before it
@@ -966,9 +1028,10 @@ class Encoder:
             qp, p.analyse.i_chroma_qp_offset)), planes, qp)
         hdrs = self._band_headers(qp, SLICE_I, 3)
         if self._cabac:
-            res = prows.encode_i_rows_cabac(*args, t8_mode=self._t8)
+            res = prows.encode_i_rows_cabac(*args, self._i4x4,
+                                            t8_mode=self._t8)
         else:
-            res = prows.encode_i_rows(*args, hdrs)
+            res = prows.encode_i_rows(*args, self._i4x4, hdrs)
         return self._rows_pend(pend, res, hdrs, frame, planes, True)
 
     def _submit_p_rows(self, frame: Frame, planes, qp: int) -> dict:
@@ -1151,8 +1214,9 @@ class Encoder:
         behind its kernels: non-blocking copies into pinned memory and a
         CUDA event that _finalize waits on."""
         out = pend["out"]
-        # a band frame's words cross later, each band's live prefix alone
-        body = None if "bands" in pend \
+        # a band frame's words cross later, each band's live prefix alone;
+        # a host-coded IDR's payload is ready
+        body = None if "bands" in pend or "payload" in pend \
             else out["ops"] if self._cabac else out["words"]
         nr = [out.get(k) for k in ("nr_sum4", "nr_sum8")]
         if self.device.type == "cpu":
@@ -1202,14 +1266,15 @@ class Encoder:
         """The NAL of a device-packed CAVLC slice (x264_slice_write CAVLC
         branch, encoder/encoder.c:1141-1199): the first ceil(nbits / 8)
         bytes of its words. A slice past the word buffer raises, as
-        x264_tpu's pipelined path does; its synchronous retry without
-        I4x4 and its host coder come with a later slice of the port."""
+        x264_tpu's pipelined path and its P and B slices do; only an IDR
+        at i_frame_parallel 1 retries without I4x4 and then takes the host
+        coder (_cavlc_idr_sync)."""
         cap_words = pipeline.capacity_words(pend["nmb"])
         if nbits > cap_words * 32:
             raise RuntimeError(
                 f"slice overflowed the device pack buffer ({nbits} bits); "
-                f"the retry without I4x4 and the host coder (cavlc_vec) "
-                f"come with a later slice of the port")
+                f"as in x264_tpu, only an IDR at i_frame_parallel 1 retries "
+                f"without I4x4 and falls back to the host coder")
         return nal_unit(pend["nal_type"], pend["nal_ref_idc"],
                         edev.words_to_bytes(words[:(nbits + 31) // 32],
                                             nbits))
@@ -1232,6 +1297,8 @@ class Encoder:
         o = self._n_shards if "bands" in pend else 1
         if "bands" in pend:
             payload = self._rows_payload(pend, h32)
+        elif "payload" in pend:
+            payload = pend["payload"]
         elif self._cabac:
             ops = body_t.numpy()[:int(h32[0])].view(np.uint32)
             payload = self._cabac_payload(pend, ops)

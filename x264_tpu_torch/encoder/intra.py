@@ -482,13 +482,15 @@ def diagonals(mb_h: int, mb_w: int, i8x8: bool):
 
 def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
                            i8x8: bool = False, qp_map=None,
-                           lossless: bool = False):
+                           lossless: bool = False, i4x4: bool = True):
     """Plain version of K1: the wavefront over whole diagonals.
 
     y: (mb_h*16, mb_w*16) int32; u, v: (mb_h*8, mb_w*8) int32; qtab from
     make_qtab on the same device; lam: the frame's lambda; i8x8: the I8x8
-    ladder too (slope-2 diagonals). Returns the dict of x264_tpu's
-    encode_i16_frame(..., i4x4=True, i8x8=i8x8): recon planes and the
+    ladder too (slope-2 diagonals); i4x4: the I4x4 ladder (off: the
+    I16x16-only intra of --partitions none, where I8x8 is held against
+    I16x16 alone). Returns the dict of x264_tpu's
+    encode_i16_frame(..., i4x4, i8x8=i8x8): recon planes and the
     per-MB syntax planes, with t8_mb and luma8_z (mb_h,mb_w,4,64) when
     i8x8 is on (an I8x8 MB keeps i4_mb, I_NxN; its four 8x8 modes fill
     the 4x4 mode grid). qp_map: (mb_h, mb_w) int32 per-MB QPs (variance
@@ -537,25 +539,32 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
                           two)
         nml = torch.where(has_left[:, None], out["i4_modes"][ys, xm, :, 3],
                           two)
-        lp4 = luma_i4_path(fenc, top, topleft, left, nmt, nml, has_top,
-                           has_left, qtab, lam, lossless)
-        use_i4 = lp4["cost"] < lp["cost"]
-        sel = use_i4[:, None, None]
-        recon = torch.where(sel, lp4["recon"], lp["recon"])
-        luma_ac = torch.where(sel, lp4["blocks_z"], lp["ac_z"])
-        luma_dc = torch.where(use_i4[:, None], 0, lp["dc_z"])
-        cbp = torch.where(use_i4, lp4["cbp_bits"],
-                          torch.where(lp["cbp"], 15, 0).to(I32))
-        modes = torch.where(sel, lp4["modes"], 2)
+        recon, luma_ac, luma_dc = lp["recon"], lp["ac_z"], lp["dc_z"]
+        cbp = torch.where(lp["cbp"], 15, 0).to(I32)
+        modes = torch.full((ys.shape[0], 4, 4), 2, dtype=I32, device=dev)
+        use_i4 = torch.zeros_like(has_top)
+        best = lp["cost"]
+        if i4x4:
+            lp4 = luma_i4_path(fenc, top, topleft, left, nmt, nml, has_top,
+                               has_left, qtab, lam, lossless)
+            use_i4 = lp4["cost"] < lp["cost"]
+            sel = use_i4[:, None, None]
+            recon = torch.where(sel, lp4["recon"], recon)
+            luma_ac = torch.where(sel, lp4["blocks_z"], luma_ac)
+            luma_dc = torch.where(use_i4[:, None], 0, luma_dc)
+            cbp = torch.where(use_i4, lp4["cbp_bits"], cbp)
+            modes = torch.where(sel, lp4["modes"], modes)
+            best = torch.minimum(best, lp4["cost"])
         if i8x8:
             # I8x8 takes the MB only when strictly below the best of I16
-            # and I4; block 1 reads the top-right MB's bottom row
+            # and I4 (I16 alone without I4x4); block 1 reads the top-right
+            # MB's bottom row
             xp = (xs + 1).clamp(max=mb_w - 1)
             has_tr = (ys > 0) & (xs < mb_w - 1)
             lp8 = luma_i8_path(fenc, top, topleft, left, ty[ym, xp, 15, 0:8],
                                nmt, nml, has_top, has_left, has_tr, qtab,
                                lam)
-            use_i8 = lp8["cost"] < torch.minimum(lp["cost"], lp4["cost"])
+            use_i8 = lp8["cost"] < best
             sel8 = use_i8[:, None, None]
             recon = torch.where(sel8, lp8["recon"], recon)
             luma_ac = torch.where(sel8, 0, luma_ac)
@@ -618,25 +627,18 @@ def _pred_tab(device, size: int):
     return _PRED_TAB[key]
 
 
-def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
-                     i8x8: bool = False, qp_map=None, lossless: bool = False):
-    """K1 `intra_diag`: the intra encode of one frame.
-
-    Replaces x264_tpu/encoder/intra.py:encode_i16_frame (with i4x4=True,
-    i8x8 and lossless as given, and with a QP map its per-MB qtab
-    rows). On a CUDA tensor it launches csrc/intra.cu once per wavefront
-    diagonal (mb_h + mb_w - 1 launches, or mb_w + 2 * mb_h - 2 with I8x8;
-    one CTA per MB of the diagonal); on a CPU tensor it runs the plain
-    version. Inputs and outputs as encode_i16_frame_plain."""
-    if y.device.type == "cpu":
-        return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
-                                      qp_map, lossless)
+def _launch_k1(mb_h: int, mb_w: int, lead: tuple, y, u, v, qtab, lam: int,
+               i8x8: bool, qp_map, lossless: bool, i4x4: bool):
+    """Queue K1 on one frame (lead = ()) or on lead = (nf,) stacked
+    frames: one launch per wavefront diagonal, a CTA per MB of the
+    diagonal and frame. Returns (outputs, launches)."""
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
-    cuda.check(y, (H, W), I32, "y")
-    cuda.check(u, (H // 2, W // 2), I32, "u")
-    cuda.check(v, (H // 2, W // 2), I32, "v")
-    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
+    nf = lead[0] if lead else 1
+    cuda.check(y, (*lead, H, W), I32, "y")
+    cuda.check(u, (*lead, H // 2, W // 2), I32, "u")
+    cuda.check(v, (*lead, H // 2, W // 2), I32, "v")
+    e = lambda *s, dt=I32: torch.empty((*lead, *s), dtype=dt, device=dev)
     o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
              recon_v=e(H // 2, W // 2), mode16=e(mb_h, mb_w),
              modec=e(mb_h, mb_w), luma_dc=e(mb_h, mb_w, 16),
@@ -654,24 +656,83 @@ def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
     else:
         tab = qtab["aq_stack"]
         cuda.check(tab, (52, QTAB_INTS), I32, "aq_stack")
-        cuda.check(qp_map, (mb_h, mb_w), I32, "qp_map")
+        cuda.check(qp_map, (*lead, mb_h, mb_w), I32, "qp_map")
         qp_ptr = qp_map.data_ptr()
     ins = (y, u, v, tab, _pred_tab(dev, 4), _pred_tab(dev, 8))
     keys = [k for k in o if k not in ("t8_mb", "luma8_z")]
     ptrs = [t.data_ptr() for t in ins] + [o[k].data_ptr() for k in keys]
     stream = cuda.stream(dev)
-    for d, _, _ in diagonals(mb_h, mb_w, i8x8):
-        cuda.launch("intra", "intra_diag", "p" * 21 + "iiiiii" + "p",
+    diags = diagonals(mb_h, mb_w, i8x8)
+    for d, _, _ in diags:
+        cuda.launch("intra", "intra_diag", "p" * 21 + "iiiiiiii" + "p",
                     *ptrs, *t8_ptrs, qp_ptr, mb_h, mb_w, d, lam, int(i8x8),
-                    int(lossless), stream)
-        encode_i16_frame.launches += 1
-        encode_i16_frame.launches_i8x8 += int(i8x8)
-        encode_i16_frame.launches_aq += int(qp_map is not None)
-        encode_i16_frame.launches_lossless += int(lossless)
+                    int(lossless), int(i4x4), nf, stream)
+    return o, len(diags)
+
+
+def encode_i16_frame(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
+                     i8x8: bool = False, qp_map=None, lossless: bool = False,
+                     i4x4: bool = True):
+    """K1 `intra_diag`: the intra encode of one frame.
+
+    Replaces x264_tpu/encoder/intra.py:encode_i16_frame (with i4x4, i8x8
+    and lossless as given, and with a QP map its per-MB qtab rows). On a
+    CUDA tensor it launches csrc/intra.cu once per wavefront diagonal
+    (mb_h + mb_w - 1 launches, or mb_w + 2 * mb_h - 2 with I8x8; one CTA
+    per MB of the diagonal); on a CPU tensor it runs the plain version.
+    Inputs and outputs as encode_i16_frame_plain."""
+    if y.device.type == "cpu":
+        return encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
+                                      qp_map, lossless, i4x4)
+    o, n = _launch_k1(mb_h, mb_w, (), y, u, v, qtab, lam, i8x8, qp_map,
+                      lossless, i4x4)
+    f = encode_i16_frame
+    f.launches += n
+    f.launches_i8x8 += n * int(i8x8)
+    f.launches_aq += n * int(qp_map is not None)
+    f.launches_lossless += n * int(lossless)
+    f.launches_i16 += n * int(not i4x4)
     return o
 
 
-# launches, and those of them with the I8x8 ladder, with a QP map and
-# with the lossless bypass
+# launches (encode_i16_frames' too), and those of them with the I8x8
+# ladder, with a QP map, with the lossless bypass, without the I4x4
+# ladder (I16x16 only) and over a frame axis (encode_i16_frames)
 encode_i16_frame.launches = encode_i16_frame.launches_i8x8 = \
-    encode_i16_frame.launches_aq = encode_i16_frame.launches_lossless = 0
+    encode_i16_frame.launches_aq = encode_i16_frame.launches_lossless = \
+    encode_i16_frame.launches_i16 = encode_i16_frame.launches_batch = 0
+
+
+def encode_i16_frames_plain(mb_h: int, mb_w: int, ys, us, vs, qtab,
+                            lam: int) -> dict:
+    """Plain version of K1's frame axis: encode_i16_frame_plain without
+    I4x4 (x264_tpu's encode_i16_frame at its defaults: no I4x4, no I8x8,
+    not lossless) on each of the N frames of ys (N, 16 mb_h, 16 mb_w),
+    us / vs (N, 8 mb_h, 8 mb_w), one qtab and lambda. Returns the dict of
+    (N, ...) stacks."""
+    outs = [encode_i16_frame_plain(mb_h, mb_w, y, u, v, qtab, lam,
+                                   i4x4=False) for y, u, v in zip(ys, us, vs)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def encode_i16_frames(mb_h: int, mb_w: int, ys, us, vs, qtab,
+                      lam: int) -> dict:
+    """K1 `intra_diag` over a frame axis: x264_tpu's vmap of
+    encode_i16_frame at its defaults (I16x16 only, no I8x8, not lossless;
+    parallel/mesh.py:_encode_gop_jit) on N frames of one size with one
+    qtab and lambda. On CUDA tensors it launches csrc/intra.cu once per
+    wavefront diagonal for all N frames (a CTA per MB of the diagonal and
+    frame); on CPU tensors the plain version. Inputs and outputs as
+    encode_i16_frames_plain."""
+    if ys.device.type == "cpu":
+        return encode_i16_frames_plain(mb_h, mb_w, ys, us, vs, qtab, lam)
+    if ys.dim() != 3:
+        raise ValueError(f"encode_i16_frames: (N, H, W) planes expected, "
+                         f"got {tuple(ys.shape)}")
+    o, n = _launch_k1(mb_h, mb_w, (ys.shape[0],), ys, us, vs, qtab, lam,
+                      False, None, False, False)
+    f = encode_i16_frame                  # K1's counts
+    f.launches += n
+    f.launches_i16 += n
+    f.launches_batch += n
+    return o

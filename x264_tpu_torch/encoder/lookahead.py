@@ -1,5 +1,6 @@
 """Lowres lookahead costs for scenecut and b-adapt — plain PyTorch twin of
-x264_tpu/encoder/lookahead.py (lowres_planes, intra_cost_plane,
+x264_tpu/encoder/lookahead.py (lowres_plane, lowres_planes,
+frame_cost_sums, intra_cost_plane,
 inter_cost_plane, frame_costs_fused, analyse_fused, _fetch_blocks,
 badapt_first_fused, badapt_ext_fused, b_seed_mvs_fused, b_cost_fused)
 and the wrappers of its CUDA kernels K14, K15 (csrc/lookahead.cu) and
@@ -79,6 +80,30 @@ def lowres_planes(y, h: int, w: int):
 
 
 lowres_planes.launches = 0
+
+
+def lowres_plane(y):
+    """The half-resolution plane alone (x264_tpu's jitted lowres_plane,
+    lookahead.py:41): the 2x2 rounded mean of the (H & ~1, W & ~1) luma
+    y (uint8 or int32, (H, W)), which is K14's phase-00 plane; on a CUDA
+    tensor it runs K14 (lowres_planes) and keeps that plane. Returns
+    (H // 2, W // 2) int32."""
+    h, w = y.shape
+    return lowres_planes(y.to(I32).contiguous(), h, w)[0]
+
+
+def frame_cost_sums(icost, pcost=None):
+    """The interior-block sums of lowres cost planes (x264_tpu's
+    frame_cost_sums, lookahead.py:231; slicetype.c:243-247 leaves the
+    border ring out of i_cost_est where both sides exceed 2 blocks):
+    (icost sum, the sum of min(pcost, icost), or the icost sum again
+    without pcost), as Python ints of the int32 sums."""
+    inner = _inner(*icost.shape)
+    ic = icost[inner]
+    isum = int(ic.sum(dtype=I32))
+    if pcost is None:
+        return isum, isum
+    return isum, int(torch.minimum(pcost[inner], ic).sum(dtype=I32))
 
 
 # --------------------------------------------------------------- K15

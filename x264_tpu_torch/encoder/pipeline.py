@@ -101,13 +101,13 @@ def _aq_map(aq, y, u, v, mb_h: int, mb_w: int, qp: int,
 
 def _intra_front(mb_h: int, mb_w: int, y, u, v, qtab: dict, lam: int,
                  qp: int, chroma_qp_offset: int, i8x8: bool, aq,
-                 lossless: bool = False):
-    """K16 under AQ, K1, then K17 under AQ (x264_tpu's _encode_i16_aq):
-    returns (K1's planes, with dqp / dqp_prev_nz under AQ, and the QP map
-    the MBs decode with)."""
+                 lossless: bool, i4x4: bool):
+    """K16 under AQ, K1 (with or without the I4x4 ladder), then K17 under
+    AQ (x264_tpu's _encode_i16_aq): returns (K1's planes, with dqp /
+    dqp_prev_nz under AQ, and the QP map the MBs decode with)."""
     qp_map = _aq_map(aq, y, u, v, mb_h, mb_w, qp, chroma_qp_offset)
     out = intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab, lam, i8x8,
-                                 qp_map, lossless)
+                                 qp_map, lossless, i4x4)
     qp_mb = torch.full((mb_h, mb_w), qp, dtype=I32, device=y.device)
     if qp_map is not None:
         # an I_NxN MB without coded residual codes no mb_qp_delta
@@ -138,11 +138,14 @@ def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
                          beta_off: int, chroma_qp_offset: int,
                          crop_w: int, crop_h: int, with_metrics: bool,
                          t8: bool = False, i8x8: bool = False,
-                         aq=None, lossless: bool = False) -> dict:
+                         aq=None, lossless: bool = False, *,
+                         i4x4: bool) -> dict:
     """One IDR frame, CABAC entropy. y / u / v: int32 MB-aligned planes on
     the device; crop_w x crop_h the output size the metrics cover; t8: the
     PPS enables the 8x8 transform (the flag of I_NxN MBs); i8x8: the I8x8
-    ladder (slope-2 wavefront; its MBs' inner 8x8 edges stay unfiltered).
+    ladder (slope-2 wavefront; its MBs' inner 8x8 edges stay unfiltered);
+    i4x4: the I4x4 ladder (analyse.intra & ANALYSE_I4x4; off under
+    --partitions none).
     Returns dict(recon_y/u/v (deblocked when deblock_on), ops (int32 op
     stream, the first n_ops live), host32 = [n_ops, nmb, 0, ssd_y, ssd_u,
     ssd_v, ssim], and with i8x8 t8_mb, the I8x8 MBs). aq: variance AQ
@@ -151,7 +154,7 @@ def encode_i16_idr_cabac(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
     the mb_qp_delta values and the QPs the MBs decode with. lossless: the
     transform bypass (QP 0 under CQP)."""
     out, qp_mb = _intra_front(mb_h, mb_w, y, u, v, qtab, lam, qp,
-                              chroma_qp_offset, i8x8, aq, lossless)
+                              chroma_qp_offset, i8x8, aq, lossless, i4x4)
     ops, n_ops = cabac_planes.i_slice_ops(out, mb_h, mb_w, t8)
     ry, ru, rv = _intra_tail(mb_h, mb_w, out, qp_mb, deblock_on, alpha_off,
                              beta_off, chroma_qp_offset, i8x8)
@@ -169,17 +172,19 @@ def encode_i16_idr(mb_h: int, mb_w: int, deblock_on: bool, y, u, v,
                    qtab: dict, lam: int, qp: int, hdr_vals, hdr_lens,
                    alpha_off: int, beta_off: int, chroma_qp_offset: int,
                    crop_w: int, crop_h: int, with_metrics: bool,
-                   aq=None, lossless: bool = False) -> dict:
+                   aq=None, lossless: bool = False, *,
+                   i4x4: bool) -> dict:
     """One IDR frame, CAVLC entropy (x264_tpu's encode_i16_idr): K16 under
-    AQ, K1 (I16x16 and I4x4), K17 under AQ, K18 (the slice header's slots
-    hdr_vals / hdr_lens, from entropy/device.py:header_slots, the MBs'
-    codes and the stop bit), K2 and K4. Returns dict(recon_y/u/v, words
+    AQ, K1 (I16x16, and I4x4 where i4x4), K17 under AQ, K18 (the slice
+    header's slots hdr_vals / hdr_lens, from
+    entropy/device.py:header_slots, the MBs' codes and the stop bit), K2
+    and K4. Returns dict(recon_y/u/v, words
     (int32 bit patterns, capacity_words(nmb) of them, the first
     ceil(nbits / 32) live), host32 = [nbits, nmb, 0, ssd_y, ssd_u, ssd_v,
     ssim], mode16, modec, and under aq dqp and qp_eff); lossless as
     encode_i16_idr_cabac's."""
     out, qp_mb = _intra_front(mb_h, mb_w, y, u, v, qtab, lam, qp,
-                              chroma_qp_offset, False, aq, lossless)
+                              chroma_qp_offset, False, aq, lossless, i4x4)
     words, nbits = edev.cavlc_i_slice(out, mb_h, mb_w, hdr_vals, hdr_lens,
                                       capacity_words(mb_h * mb_w))
     ry, ru, rv = _intra_tail(mb_h, mb_w, out, qp_mb, deblock_on, alpha_off,

@@ -1,7 +1,8 @@
 """Motion estimation — plain PyTorch twin of x264_tpu/ops/me.py (se_bits,
-mv_cost_bits, _half_plane, hier_search, subpel_refine_blocks,
-subpel_refine, partition_fullpel, chroma_rerank) and the wrappers of its
-CUDA kernels: K5 (csrc/me.cu) and K10-K12 (csrc/subpel.cu).
+mv_cost_bits, _half_plane, fullpel_search, hier_search,
+subpel_refine_blocks, subpel_refine, partition_fullpel, chroma_rerank)
+and the wrappers of its CUDA kernels: K5 and K29 (csrc/me.cu) and
+K10-K12 (csrc/subpel.cu).
 
 The reference walks its DIA / HEX / UMH patterns MB by MB
 (x264_me_search_ref, encoder/me.c:156). x264_tpu re-expresses the UMH
@@ -78,6 +79,71 @@ def _win_slices(arr2d, by, bx, wy: int, wx: int):
     taken as jax.lax.dynamic_slice takes it (mc.ds_start).
     Returns (*by.shape, wy, wx)."""
     return blocks(arr2d[None], torch.zeros_like(by), by, bx, wy, wx)
+
+
+# ---------------------------------------------------------------- K29
+def fullpel_search_plain(cur, ref_pad, mb_h: int, mb_w: int, me_range: int,
+                         lam: int, mvp_qpel, pad: int = PAD):
+    """Plain version of K29: the exhaustive full-pel search over the
+    (2R+1)^2 displacements of every 16x16 MB (x264_tpu's fullpel_search).
+
+    cur: (16 mb_h, 16 mb_w) int32; ref_pad: the edge-padded reference
+    (16 mb_h + 2 pad, 16 mb_w + 2 pad); mvp_qpel: (mb_h, mb_w, 2) quarter-
+    pel predictors (x, y) of the lam * bits MV cost. Each candidate's rows
+    and columns start where dynamic_slice puts them (mc.ds_start of
+    pad + dy and pad + dx), so beyond the pad the SAD is the clamped
+    window's. Returns (mv_qpel (mb_h, mb_w, 2) int32 as (x, y), the
+    winner's SAD (mb_h, mb_w) int32); the first candidate in dy-major,
+    dx-minor order wins ties."""
+    H, W = mb_h * 16, mb_w * 16
+    dev = cur.device
+    cur = cur.to(I32)
+    ref = ref_pad.to(I32)
+    d = torch.arange(-me_range, me_range + 1, dtype=I32, device=dev)
+    n = d.shape[0]
+    rs = omc.ds_start(pad + d, ref.shape[0], H).tolist()
+    cols = (omc.ds_start(pad + d, ref.shape[1], W)[:, None]
+            + torch.arange(W, device=dev)).long()            # (n, W)
+    sads = []
+    for r0 in rs:
+        s = ref[r0:r0 + H][:, cols]                          # (H, n, W)
+        diff = (cur[:, None, :] - s).abs()
+        sads.append(diff.reshape(mb_h, 16, n, mb_w, 16)
+                    .sum((1, 4), dtype=I32).permute(1, 0, 2))
+    sads = torch.stack(sads).reshape(n * n, mb_h, mb_w)      # dy major
+    cand = torch.stack([d.repeat(n), d.repeat_interleave(n)], -1) * 4
+    bits = mv_cost_bits(cand[:, None, None, :], mvp_qpel.to(I32)[None])
+    best = (sads + lam * bits).argmin(0)
+    return cand[best], sads.gather(0, best[None])[0]
+
+
+def fullpel_search(cur, ref_pad, mb_h: int, mb_w: int, me_range: int,
+                   lam: int, mvp_qpel, pad: int = PAD):
+    """K29 `fullpel_search`: the exhaustive full-pel search of every MB.
+
+    Replaces x264_tpu/ops/me.py:fullpel_search (reached through
+    tools/profile_stages.py). On CUDA tensors it runs csrc/me.cu, one
+    launch with a 256-thread CTA per MB; on CPU tensors the plain
+    version. Arguments and results as fullpel_search_plain."""
+    if cur.device.type == "cpu":
+        return fullpel_search_plain(cur, ref_pad, mb_h, mb_w, me_range, lam,
+                                    mvp_qpel, pad)
+    dev = cur.device
+    H, W = mb_h * 16, mb_w * 16
+    cuda.check(cur, (H, W), I32, "cur")
+    cuda.check(ref_pad, (H + 2 * pad, W + 2 * pad), I32, "ref_pad")
+    cuda.check(mvp_qpel, (mb_h, mb_w, 2), I32, "mvp_qpel")
+    mv = torch.empty((mb_h, mb_w, 2), dtype=I32, device=dev)
+    sad = torch.empty((mb_h, mb_w), dtype=I32, device=dev)
+    cuda.launch("me", "fullpel_search", "pppppiiiiip", cur.data_ptr(),
+                ref_pad.data_ptr(), mvp_qpel.data_ptr(), mv.data_ptr(),
+                sad.data_ptr(), mb_h, mb_w, me_range, pad, lam,
+                cuda.stream(dev))
+    fullpel_search.launches += 1
+    return mv, sad
+
+
+fullpel_search.launches = 0
 
 
 def coarse_range(me_range: int) -> int:

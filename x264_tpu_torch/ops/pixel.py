@@ -1,7 +1,8 @@
 """Batched pixel metrics (common/pixel.c) — plain PyTorch twins of
 x264_tpu/ops/pixel.py: SATD, SA8D (the I8x8 mode cost and the 8x8
-transform choice), the psy-RD AC energy, and the SSIM sum of the frame
-metrics.
+transform choice), the psy-RD AC energy, the SSIM sum of the frame
+metrics, and the AC Hadamard pair of hadamard_ac with its kernel K30
+(csrc/pixel.cu).
 
 SATD keeps the reference's summation structure: the 2-D 4x4 Hadamard
 abs-sum per 4x4 block, halved (>>1) per 8x4 unit (x264_pixel_satd_8x4,
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import cuda
 from .dct import _H4, _mat, _mm
 
 I32 = torch.int32
@@ -70,6 +72,52 @@ def sa8d_16x16(a, b):
     *lead, _, _ = d.shape
     t = d.reshape(*lead, 2, 8, 2, 8).transpose(-3, -2)
     return (_abs_had8_sum(t, (-4, -3, -2, -1)) + 2) >> 2
+
+
+# ---------------------------------------------------------------- K30
+def hadamard_ac_plain(pix):
+    """Plain version of K30 (x264_tpu's hadamard_ac, x264_pixel_hadamard_ac
+    of common/pixel.c:306-358) on (..., H, W) tiles, H and W in {8, 16}:
+    per 8x8 quadrant the abs-sum of its four 4x4 Hadamards and of its 8x8
+    Hadamard, each minus the quadrant's sample sum (both DCs); the
+    quadrants added, then >> 1 and >> 2. Returns (satd_ac, sa8d_ac), each
+    (...,) int32; every product and sum wraps as int32, as x264_tpu's."""
+    p = pix.to(I32)
+    *lead, hh, ww = p.shape
+    t8 = p.reshape(*lead, hh // 8, 8, ww // 8, 8).transpose(-3, -2)
+    h8 = torch.as_tensor(H8, device=p.device)
+    sum8 = _mm(_mm(h8, t8), h8).abs().sum((-2, -1), dtype=I32)
+    h4 = _mat(_H4, p)
+    sum4 = _mm(_mm(h4, _tile44(t8)), h4).abs().sum((-4, -3, -2, -1),
+                                                   dtype=I32)
+    dc = t8.sum((-2, -1), dtype=I32)
+    return ((sum4 - dc).sum((-2, -1), dtype=I32) >> 1,
+            (sum8 - dc).sum((-2, -1), dtype=I32) >> 2)
+
+
+def hadamard_ac(pix):
+    """K30 `hadamard_ac`. Replaces x264_tpu/ops/pixel.py:hadamard_ac. On
+    a CUDA tensor it runs csrc/pixel.cu (one thread per 8x8 quadrant, the
+    tile's quadrants added across lanes); on a CPU tensor the plain
+    version. pix: (..., H, W) int32 tiles, H and W in {8, 16}. Returns
+    (satd_ac, sa8d_ac), each (...,) int32."""
+    if pix.device.type == "cpu":
+        return hadamard_ac_plain(pix)
+    *lead, hh, ww = pix.shape
+    if hh not in (8, 16) or ww not in (8, 16):
+        raise ValueError(f"hadamard_ac: (..., H, W) tiles with H, W in "
+                         f"(8, 16) expected, got {tuple(pix.shape)}")
+    cuda.check(pix, pix.shape, I32, "pix")
+    satd_ac = torch.empty(lead, dtype=I32, device=pix.device)
+    sa8d_ac = torch.empty(lead, dtype=I32, device=pix.device)
+    cuda.launch("pixel", "hadamard_ac", "pppiiip", pix.data_ptr(),
+                satd_ac.data_ptr(), sa8d_ac.data_ptr(), satd_ac.numel(), hh,
+                ww, cuda.stream(pix.device))
+    hadamard_ac.launches += 1
+    return satd_ac, sa8d_ac
+
+
+hadamard_ac.launches = 0
 
 
 def ac_energy(tiles):

@@ -172,36 +172,38 @@ def _words(out: dict) -> dict:
 # device, lambda, the QP and the deblock offsets (alpha, beta, chroma QP).
 def encode_i_rows_cabac(devs, band: int, mb_w: int, deblock_on: bool, src,
                         qtabs, lam: int, qp: int, alpha_off: int,
-                        beta_off: int, chroma_qp_offset: int,
+                        beta_off: int, chroma_qp_offset: int, i4x4: bool,
                         t8_mode: bool = False) -> list:
     """An IDR frame as len(devs) band CABAC slices (x264_tpu's
     encode_i_rows_cabac, rows.py:319): each band on its device runs K1
-    (I16x16 and I4x4; no I8x8, no QP map), K3 (t8_mode: the PPS's
-    transform flag of I_NxN MBs), K2 and K27. Returns a dict per band:
-    recon, words, count (n_hw), mbs."""
+    (I16x16, and I4x4 where i4x4; no I8x8, no QP map), K3 (t8_mode: the
+    PPS's transform flag of I_NxN MBs), K2 and K27. Returns a dict per
+    band: recon, words, count (n_hw), mbs."""
     res = []
     for k, d in enumerate(devs):
         with on_device(d):
             out = pipeline.encode_i16_idr_cabac(
                 band, mb_w, deblock_on, *src[k], qtabs[k], lam, qp,
                 alpha_off, beta_off, chroma_qp_offset, 0, 0, False,
-                t8=t8_mode)
+                t8=t8_mode, i4x4=i4x4)
             res.append(_packed(out, band, mb_w))
     return res
 
 
 def encode_i_rows(devs, band: int, mb_w: int, deblock_on: bool, src, qtabs,
                   lam: int, qp: int, alpha_off: int, beta_off: int,
-                  chroma_qp_offset: int, hdrs) -> list:
+                  chroma_qp_offset: int, i4x4: bool, hdrs) -> list:
     """An IDR frame as band CAVLC slices (x264_tpu's encode_i_rows,
-    rows.py:374): K1, K18 (hdrs: each band's header slots), K2. Returns a
-    dict per band: recon, words, count (nbits), mbs."""
+    rows.py:374): K1 (I4x4 where i4x4), K18 (hdrs: each band's header
+    slots), K2. Returns a dict per band: recon, words, count (nbits),
+    mbs."""
     res = []
     for k, d in enumerate(devs):
         with on_device(d):
             out = pipeline.encode_i16_idr(
                 band, mb_w, deblock_on, *src[k], qtabs[k], lam, qp,
-                *hdrs[k], alpha_off, beta_off, chroma_qp_offset, 0, 0, False)
+                *hdrs[k], alpha_off, beta_off, chroma_qp_offset, 0, 0, False,
+                i4x4=i4x4)
             res.append(_words(out))
     return res
 
