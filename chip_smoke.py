@@ -11,10 +11,12 @@ Phases; any failure exits non-zero before the result line:
   3. kernels: K1-K4 at 1080p on seeded frames, each held against its
      plain PyTorch version on the card (K1-K3 exact, K4 within relative
      1e-6 on the SSDs and 1e-5 on the SSIM sum) and timed beside it;
-     then the host time to queue K1's and K2's launches, and one frame's
-     split: kernels, d2h of the op stream, host CABAC. Then the P-frame
-     kernels K5-K8, and K2 with P maps, exact against their plain
-     versions on frame 1 against frame 0's deblocked recon; K5-K8 once
+     then the host time to queue K1's and K2's launches (and their
+     launches a frame), and one frame's split: kernels, d2h of the op
+     stream, host CABAC. Then the P-frame kernels K5-K8, and K2 with P
+     maps, exact against their plain versions on frame 1 against frame
+     0's deblocked recon (K2 also in 20 more runs on fresh copies, its
+     row wavefront's memory ordering, and on a band's 17 MB rows); K5-K8 once
      more against that recon with 30% of its 64x64 blocks (seeded)
      flattened to gray, so that many MBs go intra and intra chains deeper
      than the three sweeps are demoted; and one P frame's split;
@@ -1200,8 +1202,12 @@ def main() -> None:
                                                    lam), 5)
     q2 = enqueue_ms(lambda: deblock.deblock_frame(mb_h, mb_w, *work, *maps), 5,
                     setup=fresh)
-    print(f"host enqueue of one frame's launches: intra_diag {q1:.3f} ms, "
-          f"deblock_diag {q2:.3f} ms", flush=True)
+    _, n1 = counted(intra.encode_i16_frame, mb_h, mb_w, y, u, v, qtab, lam)
+    fresh()
+    _, n2 = counted(deblock.deblock_frame, mb_h, mb_w, *work, *maps)
+    print(f"host enqueue of one frame's launches: intra_diag {q1:.3f} ms "
+          f"({n1} launches), deblock_diag {q2:.3f} ms ({n2} launch); "
+          f"{smi_line}", flush=True)
 
     # the host tail of one frame, as Encoder runs it: the d2h copy of the
     # whole op buffer into pinned memory, then the C arithmetic coder
@@ -1303,7 +1309,42 @@ def main() -> None:
             fail("K2 deblock_diag with P maps differs from its plain version")
         ms2p = event_ms(lambda: deblock.deblock_frame(mb_h, mb_w, *work2,
                                                       *maps2), 5, setup=fresh2)
-        print(f"kernel deblock_diag with P maps: {ms2p:.3f} ms, exact",
+        # the row wavefront's memory ordering: a fault shows only now and
+        # then, so 20 more runs on fresh copies, each exact
+        bad = 0
+        for _ in range(20):
+            fresh2()
+            bad += max_err(dict(zip("yuv", deblock.deblock_frame(
+                mb_h, mb_w, *work2, *maps2))), p2p) != 0
+        if bad:
+            fail(f"K2 deblock_diag with P maps differs from its plain "
+                 f"version in {bad} of 20 runs")
+        q2p = enqueue_ms(lambda: deblock.deblock_frame(mb_h, mb_w, *work2,
+                                                       *maps2), 5,
+                         setup=fresh2)
+        # a band's size: the first 17 MB rows of the same inputs
+        bh = min(17, mb_h)
+        rows = lambda t, mbs: t[:mbs].contiguous()
+        src_band = [rows(t, bh * n) for t, n in zip(src2, (16, 8, 8))]
+        maps_band = (rows(qp_mb1, bh), rows(front["intra_mb"], bh),
+                     *(rows(t, 4 * bh) for t in (maps["nnz4"], maps["ref4"],
+                                                 maps["mv4"], z4, zmv)),
+                     False, 0, 0, 0)
+        p_band = dict(zip("yuv", deblock.deblock_frame_plain(
+            bh, mb_w, *src_band, *maps_band)))
+        k_band, n_band = counted(deblock.deblock_frame, bh, mb_w,
+                                 *[t.clone() for t in src_band], *maps_band)
+        if max_err(dict(zip("yuv", k_band)), p_band):
+            fail(f"K2 deblock_diag at {bh} MB rows differs from its plain "
+                 f"version")
+        work_band = []
+        ms2band = event_ms(
+            lambda: deblock.deblock_frame(bh, mb_w, *work_band, *maps_band),
+            5, setup=lambda: work_band.__setitem__(
+                slice(None), [t.clone() for t in src_band]))
+        print(f"kernel deblock_diag with P maps: {ms2p:.3f} ms, exact in 21 "
+              f"runs, host enqueue {q2p:.3f} ms; at {bh} MB rows (a band) "
+              f"{ms2band:.3f} ms, exact, {n_band} launch; {smi_line}",
               flush=True)
         # times, bounds
         ms5 = event_ms(lambda: me.hier_search(*a5), 10)
@@ -1743,7 +1784,7 @@ def main() -> None:
           f"{ms1b:.3f} ms ({len(intra.diagonals(mb_h, mb_w, True))} "
           f"launches), without {ms1_same:.3f} ms on the same frame; host "
           f"CABAC of {n_ops_b} ops into {len(payload_b)} bytes "
-          f"{cabac_b:.3f} ms", flush=True)
+          f"{cabac_b:.3f} ms; {smi_line}", flush=True)
 
     # K6 (the SA8D choice of subme 5, both codings at subme 6), K13 with
     # the RD choice, K8 and K2 with t8: frame 1 against frame 0's recon and

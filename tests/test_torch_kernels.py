@@ -23,7 +23,11 @@ K6 and K7, and the card's Encoder with --nr + the JVT matrices and at
 CQP 0 (CABAC and CAVLC) against the CPU's; K1's I16x16-only branch (alone,
 with I8x8, lossless, with a QP map) and its frame axis, K29
 fullpel_search (R = 4, 16 and 40, flat references, a far predictor), K30
-hadamard_ac, encode_gop_intra over [card] * 2 and lowres_plane.
+hadamard_ac, encode_gop_intra over [card] * 2 and lowres_plane; K2's row
+wavefront at one MB row, one MB column, 3 x 2 and 40 x 2 MBs with
+intra, P, B and t8 maps, 10 runs each, and two calls back to back; K1
+one and two MBs wide with I8x8, under a QP map, without I4x4 and
+lossless.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -66,10 +70,10 @@ def _frame(dev, seed=0):
             t(128 + rng.integers(-20, 20, (h // 2, w // 2))))
 
 
-def _blocky(dev, seed=3):
+def _blocky(dev, seed=3, mb_h=MB_H, mb_w=MB_W):
     """A directional gradient under 8x8-blocky noise, which I8x8 fits."""
     rng = np.random.default_rng(seed)
-    h, w = MB_H * 16, MB_W * 16
+    h, w = mb_h * 16, mb_w * 16
     yy, xx = np.mgrid[0:h, 0:w]
     low = np.kron(rng.integers(-20, 20, (h // 8, w // 8)), np.ones((8, 8)))
     t = lambda a: torch.as_tensor(np.clip(a, 0, 255), dtype=torch.int32,
@@ -87,15 +91,41 @@ def _intra(dev, qp=26, i8x8=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qp,i8x8", [(18, False), (26, False), (38, False),
-                                     (26, True), (38, True)])
-def test_intra_kernel_matches_plain(card, qp, i8x8):
-    (y, u, v), k, (q, lam) = _intra(card, qp, i8x8)
-    p = intra.encode_i16_frame_plain(MB_H, MB_W, y, u, v, q, lam, i8x8)
+@pytest.mark.parametrize("qp,i8x8,mb_h,mb_w,opt", [
+    *(pytest.param(qp, i8x8, MB_H, MB_W, "", id=f"{qp}-{i8x8}")
+      for qp, i8x8 in [(18, False), (26, False), (38, False), (26, True),
+                       (38, True)]),
+    *(pytest.param(qp, True, 4, w, "", id=f"i8x8-{qp}-{w}wide")
+      for w in (1, 2) for qp in (12, 26, 45)),
+    pytest.param(26, True, 4, 2, "aq", id="i8x8-aq-2wide"),
+    pytest.param(26, True, 4, 1, "no_i4", id="i8x8-no-i4-1wide"),
+    pytest.param(0, False, 3, 2, "lossless", id="lossless-2wide"),
+    pytest.param(0, False, MB_H, MB_W, "lossless", id="lossless")])
+def test_intra_kernel_matches_plain(card, qp, i8x8, mb_h, mb_w, opt):
+    """K1 against its plain version: every output equal. At one and two
+    MBs wide, I8x8's block 1 never, or only sometimes, has a top-right;
+    opt "aq" adds a seeded QP map (the 52-QP stack rows), "no_i4" drops
+    the I4x4 ladder, "lossless" takes the bypass with I4x4 on."""
+    if (mb_h, mb_w) == (MB_H, MB_W):
+        y, u, v = _blocky(card) if i8x8 else _frame(card, qp)
+    else:
+        y, u, v = _blocky(card, qp + mb_w, mb_h, mb_w)
+    q = intra.make_qtab(qp, tables.chroma_qp(qp), card)
+    lam = int(tables.LAMBDA_TABLE[qp])
+    qp_map = None
+    if opt == "aq":
+        q = _with_stacks(q, card)
+        rng = np.random.default_rng(qp)
+        qp_map = torch.as_tensor(rng.integers(qp - 8, qp + 9, (mb_h, mb_w))
+                                 .astype(np.int32), device=card)
+    args = (mb_h, mb_w, y, u, v, q, lam, i8x8, qp_map, opt == "lossless",
+            opt != "no_i4")
+    k = intra.encode_i16_frame(*args)
+    p = intra.encode_i16_frame_plain(*args)
     assert set(k) == set(p)
     for key in p:
         assert torch.equal(k[key], p[key]), key
-    if i8x8:
+    if i8x8 and (mb_h, mb_w) == (MB_H, MB_W):
         assert p["t8_mb"].any()
 
 
@@ -109,40 +139,97 @@ def test_cabac_ops_kernel_matches_plain(card, qp, i8x8):
     assert int(k_n) == n and torch.equal(k_ops[:n], p_ops[:n])
 
 
-def _deblock_maps(kind, dev):
+def _deblock_maps(kind, dev, mb_h=MB_H, mb_w=MB_W, seed=1):
     """The slice's all-intra maps, or random qp / intra / nnz / ref / mv
-    maps of the kind a P slice gives, with nonzero filter offsets."""
+    maps of the kind a P slice gives, with nonzero filter offsets; "b"
+    adds random L1 refs and MVs (a B slice), "t8" a random t8_mb map."""
     if kind == "intra":
-        intra_mb, z4, zmv = pipeline._zero_maps(MB_H, MB_W, dev)
-        qp_mb = torch.full((MB_H, MB_W), 26, dtype=torch.int32, device=dev)
+        intra_mb, z4, zmv = pipeline._zero_maps(mb_h, mb_w, dev)
+        qp_mb = torch.full((mb_h, mb_w), 26, dtype=torch.int32, device=dev)
         return (qp_mb, intra_mb, z4, z4, zmv, z4, zmv, False, 0, 0, 0)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, device=dev)
-    h4, w4 = MB_H * 4, MB_W * 4
+    h4, w4 = mb_h * 4, mb_w * 4
     i32 = lambda a: t(a.astype(np.int32))
-    return (i32(rng.integers(20, 46, (MB_H, MB_W))),
-            t(rng.random((MB_H, MB_W)) < 0.3),
+    b = kind == "b"
+    args = (i32(rng.integers(20, 46, (mb_h, mb_w))),
+            t(rng.random((mb_h, mb_w)) < 0.3),
             i32(rng.integers(0, 2, (h4, w4))),
-            i32(rng.integers(0, 2, (h4, w4))),
+            i32(rng.integers(-1 if b else 0, 2, (h4, w4))),
             i32(rng.integers(-8, 8, (h4, w4, 2))),
-            i32(np.zeros((h4, w4))), i32(np.zeros((h4, w4, 2))),
-            False, -2, 2, 1)
+            i32(rng.integers(-1, 1, (h4, w4)) if b else np.zeros((h4, w4))),
+            i32(rng.integers(-8, 8, (h4, w4, 2)) if b
+                else np.zeros((h4, w4, 2))),
+            b, -2, 2, 1)
+    if kind == "t8":
+        args = (*args, t(rng.random((mb_h, mb_w)) < 0.5))
+    return args
+
+
+def _deblock_src(dev, mb_h, mb_w, seed=0):
+    """Seeded planes of mb_h x mb_w MBs: a gradient under noise that the
+    filter smooths."""
+    rng = np.random.default_rng(seed)
+    h, w = mb_h * 16, mb_w * 16
+    t = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    return (t(rng.integers(0, 256, (h, w)) // 8 + 100
+              + np.arange(w)[None, :] // 3),
+            t(rng.integers(0, 256, (h // 2, w // 2)) // 10 + 120),
+            t(rng.integers(0, 256, (h // 2, w // 2)) // 10 + 100))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["intra", "random", "i8x8"])
-def test_deblock_kernel_matches_plain(card, kind):
-    """i8x8: the IDR maps with the t8_mb map of an I8x8 frame."""
-    _, out, _ = _intra(card, 26, kind == "i8x8")
-    args = _deblock_maps("random" if kind == "random" else "intra", card)
-    if kind == "i8x8":
-        args = (*args, out["t8_mb"])
-    src = [out[k] for k in ("recon_y", "recon_u", "recon_v")]
-    p = deblock.deblock_frame_plain(MB_H, MB_W, *src, *args)
-    k = deblock.deblock_frame(MB_H, MB_W, *[t.clone() for t in src], *args)
-    for a, b in zip(k, p):
-        assert torch.equal(a, b)
+@pytest.mark.parametrize("kind,mb_h,mb_w", [
+    *(pytest.param(k, MB_H, MB_W, id=k) for k in ("intra", "random", "i8x8")),
+    *(pytest.param(k, h, w, id=f"{k}-{h}x{w}")
+      for h, w in ((1, 7), (6, 1), (3, 2), (40, 2))
+      for k in ("intra", "random", "b", "t8"))])
+def test_deblock_kernel_matches_plain(card, kind, mb_h, mb_w):
+    """i8x8: the IDR maps with the t8_mb map of an I8x8 frame. At the
+    edge shapes (one MB row, one MB column, 3 x 2 and a tall 40 x 2),
+    seeded planes with intra, random P, B and t8 maps, each run 10 times
+    on fresh copies: a fault in the row wavefront's memory ordering
+    shows only now and then."""
+    if (mb_h, mb_w) == (MB_H, MB_W):
+        _, out, _ = _intra(card, 26, kind == "i8x8")
+        args = _deblock_maps("random" if kind == "random" else "intra", card)
+        if kind == "i8x8":
+            args = (*args, out["t8_mb"])
+        src = [out[k] for k in ("recon_y", "recon_u", "recon_v")]
+        runs = 1
+    else:
+        src = _deblock_src(card, mb_h, mb_w)
+        args = _deblock_maps(kind, card, mb_h, mb_w)
+        runs = 10
+    p = deblock.deblock_frame_plain(mb_h, mb_w, *src, *args)
+    for _ in range(runs):
+        n0 = deblock.deblock_frame.launches
+        k = deblock.deblock_frame(mb_h, mb_w, *[t.clone() for t in src],
+                                  *args)
+        assert deblock.deblock_frame.launches == n0 + 1
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
     assert not torch.equal(p[0], src[0])        # the filter acted
+
+
+@pytest.mark.cuda
+def test_deblock_kernel_back_to_back(card):
+    """K2 calls queued on one stream with no sync between them: each
+    clears the row counters and the ticket the one before left (the
+    same frame twice), and the scratch grows for a taller frame."""
+    calls = [(3, 2, "random", 0), (3, 2, "b", 1), (9, 3, "t8", 2)]
+    work, plain = [], []
+    for mb_h, mb_w, kind, seed in calls:
+        src = _deblock_src(card, mb_h, mb_w, seed)
+        args = _deblock_maps(kind, card, mb_h, mb_w, seed)
+        plain.append(deblock.deblock_frame_plain(mb_h, mb_w, *src, *args))
+        work.append(([t.clone() for t in src], args))
+    torch.cuda.synchronize()
+    outs = [deblock.deblock_frame(h, w, *src, *args)
+            for (h, w, _, _), (src, args) in zip(calls, work)]
+    for k, p in zip(outs, plain):
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 seeded numpy inputs, with exact equality: dct8x8 / idct8x8 on residuals
 of +-255, sa8d_8x8 / sa8d_16x16, predict_8x8_filter / predict_8x8 /
 mode_available_8x8 under every availability set, the I8x8 ladder
-luma_i8_path, inter_luma_residual8 with and without decimation, the
+luma_i8_path, the whole I8x8 frame one MB wide, inter_luma_residual8
+with and without decimation, the
 cat-5 op slots residual_block_ops8 (with a block whose last coefficient
 is at 63), the 8x8 decimation score and the deblocking filter with the
 t8_mb map of an I8x8 frame."""
@@ -121,6 +122,30 @@ def test_luma_i8_path_matches_jax(qp):
     for key in j:
         _eq(j[key], t[key])
     assert (np.asarray(j["cbp_bits"]) > 0).any()
+
+
+def test_i8x8_frame_one_mb_wide_matches_jax():
+    """The whole I8x8 frame (I4x4 and I8x8 ladders) one MB wide: block 1
+    never has a top-right, and every other slope-2 diagonal is empty."""
+    mb_h, mb_w, qp = 4, 1, 38
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:mb_h * 16, 0:mb_w * 16]
+    y = ((yy * 2 + xx * 3) // 2 % 256
+         + np.kron(rng.integers(-20, 20, (mb_h * 2, mb_w * 2)),
+                   np.ones((8, 8), np.int64))).clip(0, 255).astype(np.int32)
+    u = (128 + xx[::2, ::2] // 4).astype(np.int32)
+    v = (128 - yy[::2, ::2] // 4).astype(np.int32)
+    lam = int(jtables.LAMBDA_TABLE[qp])
+    j = jintra.encode_i16_frame(mb_h, mb_w, y, u, v,
+                                jintra.make_qtab(qp, jtables.chroma_qp(qp)),
+                                lam, True, False, True)
+    t = intra.encode_i16_frame(mb_h, mb_w, *map(torch.from_numpy, (y, u, v)),
+                               intra.make_qtab(qp, tables.chroma_qp(qp),
+                                               "cpu"), lam, True)
+    assert set(t) == set(j)
+    for key in j:
+        _eq(j[key], t[key])
+    assert t["t8_mb"].any()
 
 
 @pytest.mark.parametrize("decimate", [False, True])

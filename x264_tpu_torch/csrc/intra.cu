@@ -9,32 +9,47 @@
 // encode_i16_frame.
 //
 // Design. The I16x16 and chroma paths are the shared device code of
-// intra_mb.cuh (K7 runs the same code); the I4x4 ladder is K1's own.
-// The host launches this kernel once per anti-diagonal
+// intra_mb.cuh (K7 runs the same code); the I4x4 and I8x8 ladders are
+// K1's own. The host launches this kernel once per anti-diagonal
 // d = x + y (187 launches at 1080p), one CTA of 64 threads per MB on the
 // diagonal; the MBs of one diagonal are independent, and every launch
 // reads the top / left / top-left reconstruction that earlier launches
 // wrote into the recon planes. Inside the CTA the MB's source pixels,
 // the four I16x16 predictions, the 17x21 I4x4 neighbour buffer `ext`
-// and the chroma predictions live in shared memory. Mode scoring runs
-// one thread per (mode, 4x4 block) Hadamard; the I4x4 chain of 16
+// and the chroma predictions live in shared memory. The I4x4 chain of 16
 // blocks is sequential by nature (each block predicts from the recon of
-// the blocks before it): 9 threads score the 9 modes of a block, then
-// one thread transforms, quantises and reconstructs it.
+// the blocks before it), so each block spreads over the CTA in three
+// steps between barriers: 36 threads (mode, row) build the nine modes'
+// predictions (each thread's gather taps held in registers for the whole
+// chain) and the row pass of their residuals' Hadamard; 36 threads
+// (mode, column) the column pass, a mode's |sums| added over its four
+// lanes by shuffles, and the costs; then warp 0, one coefficient a lane,
+// takes the cheapest mode through dct4x4, quant, dequant and idct4x4 by
+// shuffles, reconstructs, zig-zags, votes the block's nonzero flag, and
+// gathers the next block's edge vector, DC (warp reductions), most
+// probable mode and mode availability.
 // With I8x8 on, the host walks the slope-2 diagonals d = x + 2y instead
 // (254 launches at 1080p, at most 61 CTAs each): the I8x8 edge filter of
 // block 1 reads the bottom row of the top-right MB, which this order has
 // coded. After I4x4 the CTA runs the I8x8 ladder of four 8x8 blocks in z
-// order (t8.cuh): 25 threads filter the block's edges (spec 8.3.2.2.1),
-// 9 threads predict and score the nine modes (SA8D + lam * mode bits),
-// one thread runs the 8x8 DCT, quant, dequant, IDCT and reconstruction.
+// order (t8.cuh), each over the CTA too: 25 lanes of warp 0 filter the
+// block's edges (spec 8.3.2.2.1) and the warp reduces the DC sums; 72
+// (mode, row) lines build the predictions (taps in registers) and the
+// Hadamard's row pass, 72 (mode, column) lines its column pass (SA8D +
+// lam * mode bits, a mode's |sums| added over eight lanes); the chosen
+// block's dct8x8 runs as 8 column then 8 row butterflies, its row's
+// thread quantises, dequantises and runs idct8x8's row butterfly, 8
+// column butterflies follow, and the reconstruction, the zig-zag and
+// the nonzero flag (a __syncthreads_or) take a sample a thread.
 //
 // What bounds it on the H100: neither bytes (~40 MB a 1080p frame, some
-// 12 us at 3.35 TB/s) nor integer throughput, but the serial depth: 187
-// dependent launches (254 with I8x8), each running a 16-step I4x4 chain
-// (and a 4-step I8x8 one) on at most 68 (61) CTAs, leave most of the 132
-// SMs idle. A persistent kernel over the
-// whole frame, and warp-parallel I4x4 transforms, are the later work.
+// 12 us at 3.35 TB/s) nor integer throughput, but latency: a frame is 187
+// dependent launches (254 with I8x8) on at most 68 (61) CTAs, and each
+// MB's time is a chain of dependent shared-memory, shuffle and barrier
+// steps, most of them the 16 blocks of the I4x4 chain (three steps a
+// block) and the four of the I8x8 ladder. A persistent kernel on K2's row
+// wavefront would keep the depth and save only the launch gaps; what
+// remains is to shorten each MB's chain.
 //
 // Traps kept bit-exact with the JAX function: mode bits [1,3,3,5];
 // unavailable modes cost 1<<28 and argmin takes the first index on ties;
@@ -80,6 +95,37 @@ __device__ __forceinline__ bool tr_subst(int z) {
   return z == 3 || z == 7 || z == 11 || z == 13 || z == 15 || z == 5;
 }
 
+// output k of the 1-D pass of dct4x4, and of idct4x4 before its rounding,
+// on x[0..3] (common.cuh)
+__device__ __forceinline__ int dct4_at(const int* x, int k) {
+  return k == 0 ? x[0] + x[1] + x[2] + x[3]
+       : k == 1 ? 2 * x[0] + x[1] - x[2] - 2 * x[3]
+       : k == 2 ? x[0] - x[1] - x[2] + x[3]
+                : x[0] - 2 * x[1] + 2 * x[2] - x[3];
+}
+
+__device__ __forceinline__ int idct4_at(const int* x, int k) {
+  const int e0 = x[0] + x[2], e1 = x[0] - x[2];
+  const int e2 = (x[1] >> 1) - x[3], e3 = x[1] + (x[3] >> 1);
+  return k == 0 ? e0 + e3 : k == 1 ? e1 + e2 : k == 2 ? e1 - e2 : e0 - e3;
+}
+
+// the 4-point Hadamard of had4x4 on x[0..3], in place
+__device__ __forceinline__ void had4_1d(int* x) {
+  const int s01 = x[0] + x[1], d01 = x[0] - x[1];
+  const int s23 = x[2] + x[3], d23 = x[2] - x[3];
+  x[0] = s01 + s23; x[1] = s01 - s23; x[2] = d01 - d23; x[3] = d01 + d23;
+}
+
+// x[i] = v of warp lane (lane & 16) + base + step * i: one 4-point line
+// of the 4x4 block that lanes 0-15 (and again 16-31) hold a coefficient
+// each
+__device__ __forceinline__ void lanes4(int v, int base, int step, int* x) {
+  const int half = threadIdx.x & 16;
+  for (int i = 0; i < 4; ++i)
+    x[i] = __shfl_sync(0xffffffffu, v, half + base + step * i);
+}
+
 __global__ void __launch_bounds__(NT) intra_diag_kernel(
     const int* __restrict__ Y, const int* __restrict__ U,
     const int* __restrict__ V, const int* __restrict__ qtab_g,
@@ -112,29 +158,38 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
   const bool has_top = my > 0, has_left = mx > 0;
 
   __shared__ IntraMB S;
-  __shared__ short p4idx[P4_N], p4wgt[P4_N];
   __shared__ int ext[17][21];
-  __shared__ int nmt[4], nml[4], modes_r[16], blk4[16][16], nnz4[16];
-  __shared__ int cost4c[9], pred4c[9][16];
+  __shared__ int nmt[4], nml[4], modes_r[16], blk4[16][16];
+  __shared__ int pred4c[9][16], e4[13], dc4, mpm4, avail4, cost4_hu;
+  __shared__ int had4[9][16];
   __shared__ int total4, cbp4;
-  __shared__ short p8idx[P8_N], p8wgt[P8_N];
   __shared__ int ext8[17][25], e8[25], cost8c[9], pred8c[9][64];
+  __shared__ int had8[9][64], d8[64], tb8[64], lv8[64], dc8, mpm8, avail8;
   __shared__ int modes8[4], blk8[4][64], total8, cbp8;
+
+  // the predictors' gather taps, the same for every block, in registers:
+  // a (mode, row) line's 12 I4x4 taps (threads 0-35), and its 24 I8x8
+  // taps as index | weight << 16 (line tid, and line 64 + tid for
+  // threads 0-7)
+  int tap[12], wt[12], tw0[24], tw1[24];
+  if (i4x4 && tid < 36)
+    for (int k = 0; k < 12; ++k) {
+      tap[k] = __ldg(p4_g + tid * 12 + k);
+      wt[k] = __ldg(p4_g + P4_N + tid * 12 + k);
+    }
+  if (i8x8)
+    for (int k = 0; k < 24; ++k) {
+      tw0[k] = __ldg(p8_g + tid * 24 + k) | __ldg(p8_g + P8_N + tid * 24 + k) << 16;
+      tw1[k] = tid < 8 ? __ldg(p8_g + (NT + tid) * 24 + k)
+                             | __ldg(p8_g + P8_N + (NT + tid) * 24 + k) << 16
+                       : 0;
+    }
 
   // ------------------------------------------------------------ load
   // with a QP map (variance AQ) qtab_g is the 52-QP stack and the MB
   // reads the row of its QP
   imb_load(S, qtab_g + (qp_map ? qp_map[mb] * QTAB_INTS : 0), Y, U, V, RY,
            RU, RV, mb_w, mx, my, has_top, has_left);
-  for (int i = tid; i < P4_N; i += NT) {
-    p4idx[i] = (short)p4_g[i];
-    p4wgt[i] = (short)p4_g[P4_N + i];
-  }
-  if (i8x8)
-    for (int i = tid; i < P8_N; i += NT) {
-      p8idx[i] = (short)p8_g[i];
-      p8wgt[i] = (short)p8_g[P8_N + i];
-    }
   if (tid >= 40 && tid < 44) {
     int k = tid - 40;
     nmt[k] = has_top ? i4_modes_o[((my - 1) * mb_w + mx) * 16 + 12 + k] : 2;
@@ -156,88 +211,128 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
     else if (c == 0) v = S.left[r - 1];
     ext[r][c] = v;
   }
-  if (tid == 0) total4 = 0;
+  // warp 0: a block's edge vector [l3 l2 l1 l0 lt t0..t3 t4..t7] (lanes
+  // 0-12) from the recon of the blocks before it, its DC prediction (the
+  // sums by warp reductions), most probable mode and mode availability
+  auto gather_edges = [&](int z) {
+    const int bx = kBlkX[z], by = kBlkY[z];
+    const bool ht = by == 0 ? has_top : true, hl = bx == 0 ? has_left : true;
+    int v = 0;
+    if (tid < 4) v = ext[4 + 4 * by - tid][4 * bx];
+    else if (tid == 4) v = ext[4 * by][4 * bx];
+    else if (tid < 9) v = ext[4 * by][4 * bx + tid - 4];
+    else if (tid < 13) v = ext[4 * by][tr_subst(z) ? 4 + 4 * bx : 4 * bx + tid - 4];
+    if (tid < 13) e4[tid] = v;
+    const int sl = __reduce_add_sync(0xffffffffu, tid < 4 ? v : 0);
+    const int st = __reduce_add_sync(0xffffffffu, tid >= 5 && tid < 9 ? v : 0);
+    if (tid == 0) {
+      dc4 = (ht && hl) ? (st + sl + 4) >> 3 : hl ? (sl + 2) >> 2
+          : ht ? (st + 2) >> 2 : 128;
+    } else if (tid == 1) {
+      const int lmode = bx > 0 ? modes_r[4 * by + bx - 1] : nml[by];
+      const int tmode = by > 0 ? modes_r[4 * (by - 1) + bx] : nmt[bx];
+      mpm4 = min(lmode, tmode);
+      // modes V, H, DC, DDL, DDR, VR, HD, VL, HU; no DDL / VL on z 5
+      const int dl = ht && z != 5;
+      avail4 = ht | hl << 1 | 1 << 2 | dl << 3 | (ht && hl) * (7 << 4) | dl << 7
+             | hl << 8;
+    }
+  };
+  int sum4 = 0, cbp_bits = 0;   // warp 0: the chain's cost and cbp bits
+  __syncthreads();
+  if (tid < 32) gather_edges(0);
+  // the lane whose level is this lane's zig-zag position
+  const int zig_lane = (tid & 16) + kZig4[tid & 15];
   __syncthreads();
   for (int z = 0; z < 16; ++z) {
     const int bx = kBlkX[z], by = kBlkY[z];
-    if (tid < 9) {
-      const int m = tid;
-      int e[13];
-      for (int i = 0; i < 4; ++i) {
-        e[3 - i] = ext[1 + 4 * by + i][4 * bx];                 // l0..l3 reversed
-        e[5 + i] = ext[4 * by][1 + 4 * bx + i];                 // t0..t3
+    // the nine predictions and the Hadamard's row pass of their
+    // residuals: a (mode, row) a thread
+    if (tid < 36) {
+      const int m = tid >> 2, r = tid & 3;
+      int d[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int p = m == 2 ? dc4
+            : (e4[tap[3 * c]] * wt[3 * c] + e4[tap[3 * c + 1]] * wt[3 * c + 1]
+               + e4[tap[3 * c + 2]] * wt[3 * c + 2] + 2) >> 2;
+        pred4c[m][4 * r + c] = p;
+        d[c] = S.fenc[(4 * by + r) * 16 + 4 * bx + c] - p;
       }
-      e[4] = ext[4 * by][4 * bx];                               // lt
-      for (int i = 0; i < 4; ++i)
-        e[9 + i] = tr_subst(z) ? e[8] : ext[4 * by][5 + 4 * bx + i];
-      const bool ht = by == 0 ? has_top : true;
-      const bool hl = bx == 0 ? has_left : true;
-      bool avail = m == 0 ? ht : m == 1 ? hl : m == 2 ? true
-                 : m == 3 ? ht : m == 7 ? ht : m == 8 ? hl : (ht && hl);
-      if (z == 5 && (m == 3 || m == 7)) avail = false;
-      int p[16];
-      if (m == 2) {
-        int st = e[5] + e[6] + e[7] + e[8], sl = e[0] + e[1] + e[2] + e[3];
-        int dc = (ht && hl) ? (st + sl + 4) >> 3 : hl ? (sl + 2) >> 2
-               : ht ? (st + 2) >> 2 : 128;
-        for (int i = 0; i < 16; ++i) p[i] = dc;
-      } else {
-        for (int i = 0; i < 16; ++i) {
-          int o = (m * 16 + i) * 3;
-          p[i] = (e[p4idx[o]] * p4wgt[o] + e[p4idx[o + 1]] * p4wgt[o + 1]
-                  + e[p4idx[o + 2]] * p4wgt[o + 2] + 2) >> 2;
-        }
-      }
-      int dd[16];
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c)
-          dd[4 * r + c] = S.fenc[(4 * by + r) * 16 + 4 * bx + c] - p[4 * r + c];
-      const int lmode = bx > 0 ? modes_r[4 * by + bx - 1] : nml[by];
-      const int tmode = by > 0 ? modes_r[4 * (by - 1) + bx] : nmt[bx];
-      const int mpm = min(lmode, tmode);
-      cost4c[m] = avail ? (abs_had4x4(dd) >> 1) + lam * (m == mpm ? 1 : 4) : IMB_BIG;
-      for (int i = 0; i < 16; ++i) pred4c[m][i] = p[i];
+      had4_1d(d);
+      for (int c = 0; c < 4; ++c) had4[m][4 * r + c] = d[c];
     }
     __syncthreads();
-    if (tid == 0) {
-      int best = 0;
-      for (int m = 1; m < 9; ++m)
-        if (cost4c[m] < cost4c[best]) best = m;
-      total4 += cost4c[best];
-      int dd[16], co[16], lv[16], dq[16], res[16], nz = 0;
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c)
-          dd[4 * r + c] = S.fenc[(4 * by + r) * 16 + 4 * bx + c] - pred4c[best][4 * r + c];
-      if (lossless) {                  // the bypass: the samples are the levels
-        for (int i = 0; i < 16; ++i) {
-          lv[i] = res[i] = dd[i];
-          nz += lv[i] != 0;
-        }
-      } else {
-        dct4x4(dd, co);
-        for (int i = 0; i < 16; ++i) {
-          lv[i] = quant(co[i], S.q.y_mf[i], S.q.y_bias[i]);
-          nz += lv[i] != 0;
-          dq[i] = dequant(lv[i], S.q.y_dmf[i], S.q.y_qpdiv6);
-        }
-        idct4x4(dq, res);
+    // the column pass: a (mode, column) a thread, the |sums| of a mode's
+    // four lanes added by shuffles; the mode's cost, and each warp's
+    // cheapest mode (the lower on ties) by shuffles: warp 0 holds modes
+    // 0-7, warp 1 mode 8
+    int best, best_cost;
+    {
+      const int m = tid >> 2, c = tid & 3;
+      int s = 0;
+      if (tid < 36) {
+        int x[4] = {had4[m][c], had4[m][4 + c], had4[m][8 + c], had4[m][12 + c]};
+        had4_1d(x);
+        s = abs(x[0]) + abs(x[1]) + abs(x[2]) + abs(x[3]);
       }
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c)
-          ext[1 + 4 * by + r][1 + 4 * bx + c] = clip255(pred4c[best][4 * r + c] + res[4 * r + c]);
-      modes_r[4 * by + bx] = best;
-      for (int j = 0; j < 16; ++j) blk4[z][j] = lv[kZig4[j]];
-      nnz4[z] = nz;
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      best = m;
+      best_cost = tid >= 36 ? 0x7fffffff
+          : avail4 >> m & 1 ? (s >> 1) + lam * (m == mpm4 ? 1 : 4) : IMB_BIG;
+      for (int o = 4; o < 32; o <<= 1) {
+        const int oc = __shfl_xor_sync(0xffffffffu, best_cost, o);
+        const int om = __shfl_xor_sync(0xffffffffu, best, o);
+        if (oc < best_cost || (oc == best_cost && om < best)) {
+          best_cost = oc;
+          best = om;
+        }
+      }
+      if (tid == 32) cost4_hu = best_cost;
+    }
+    __syncthreads();
+    // the cheapest mode: HU (8) only when strictly cheaper. Warp 0, lane
+    // 4r + c holding coefficient (r, c), runs dct4x4 (columns, then rows),
+    // quant, dequant and idct4x4 (rows, then columns) through shuffles, or
+    // keeps the residual (lossless); then the reconstruction, the zig-zag
+    // and a vote for the nonzero flag, and the next block's edges
+    if (tid < 32) {
+      if (cost4_hu < best_cost) {
+        best = 8;
+        best_cost = cost4_hu;
+      }
+      const int k = tid & 15, r = k >> 2, c = k & 3;
+      const int pred = pred4c[best][k];
+      const int dd = S.fenc[(4 * by + r) * 16 + 4 * bx + c] - pred;
+      int lv = dd, res = dd, x[4];
+      if (!lossless) {
+        lanes4(dd, c, 4, x);
+        lanes4(dct4_at(x, r), 4 * r, 1, x);
+        lv = quant(dct4_at(x, c), S.q.y_mf[k], S.q.y_bias[k]);
+        lanes4(dequant(lv, S.q.y_dmf[k], S.q.y_qpdiv6), 4 * r, 1, x);
+        lanes4(idct4_at(x, c), c, 4, x);
+        res = (idct4_at(x, r) + 32) >> 6;
+      }
+      const int zz = __shfl_sync(0xffffffffu, lv, zig_lane);
+      const int nz = __any_sync(0xffffffffu, lv != 0);
+      if (tid < 16) {
+        ext[1 + 4 * by + r][1 + 4 * bx + c] = clip255(pred + res);
+        blk4[z][k] = zz;
+      }
+      if (tid == 0) modes_r[4 * by + bx] = best;
+      sum4 += best_cost;
+      cbp_bits |= nz << (z >> 2);
+      if (z < 15) {
+        __syncwarp();
+        gather_edges(z + 1);
+      }
     }
     __syncthreads();
   }
   if (tid == 0) {
-    int bits = 0;
-    for (int g = 0; g < 4; ++g)
-      if (nnz4[4 * g] + nnz4[4 * g + 1] + nnz4[4 * g + 2] + nnz4[4 * g + 3] > 0)
-        bits |= 1 << g;
-    cbp4 = bits;
-    total4 += lam * 24;
+    cbp4 = cbp_bits;
+    total4 = sum4 + lam * 24;
   }
   __syncthreads();
   }  // i4x4
@@ -254,8 +349,9 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
       else if (c == 0) v = S.left[r - 1];
       ext8[r][c] = v;
     }
-    if (tid == 0) total8 = 0;
+    if (tid == 0) total8 = cbp8 = 0;
     __syncthreads();
+    const int zig8 = kZig8[tid];
     for (int z = 0; z < 4; ++z) {
       const int by = z >> 1, bx = z & 1, r0 = 8 * by, c0 = 8 * bx;
       // availability (ht, hl, htl, htr) of this block's edges
@@ -263,92 +359,125 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
       const bool htl = z == 0 ? (has_top && has_left) : z == 1 ? has_top
                      : z == 2 ? has_left : true;
       const bool htr = z == 0 ? has_top : z == 1 ? has_tr : z == 2;
-      // the filtered edge vector e8 = [l7'..l0', lt', t0'..t15']
-      if (tid < 25) {
-        const int tl = ext8[r0][c0];
-        auto lft = [&](int i) { return ext8[r0 + 1 + i][c0]; };
-        auto t16 = [&](int j) {
-          return (j < 8 || htr) ? ext8[r0][c0 + 1 + j] : ext8[r0][c0 + 8];
-        };
-        int v;
-        if (tid < 8) {
-          const int i = 7 - tid;
-          const int prv = i == 0 ? (htl ? tl : lft(0)) : lft(i - 1);
-          const int nxt = i == 7 ? lft(7) : lft(i + 1);
-          v = (prv + 2 * lft(i) + nxt + 2) >> 2;
-        } else if (tid == 8) {
-          v = (ht && hl) ? (t16(0) + 2 * tl + lft(0) + 2) >> 2
-            : ht ? (3 * tl + t16(0) + 2) >> 2 : (3 * tl + lft(0) + 2) >> 2;
-        } else {
-          const int j = tid - 9;
-          const int prv = j == 0 ? (htl ? tl : t16(0)) : t16(j - 1);
-          const int nxt = j == 15 ? t16(15) : t16(j + 1);
-          v = (prv + 2 * t16(j) + nxt + 2) >> 2;
-        }
-        e8[tid] = v;
-      }
-      __syncthreads();
-      if (tid < 9) {
-        const int m = tid;
-        const bool diag = ht && hl && htl;
-        const bool avail = m == 0 ? ht : m == 1 ? hl : m == 2 ? true
-                         : m == 3 ? ht : m == 7 ? ht : m == 8 ? hl : diag;
-        int dd[64];
-        int dc = 0;
-        if (m == 2) {
-          int st = 0, sl = 0;
-          for (int i = 0; i < 8; ++i) { st += e8[9 + i]; sl += e8[i]; }
-          dc = (ht && hl) ? (st + sl + 8) >> 4 : hl ? (sl + 4) >> 3
-             : ht ? (st + 4) >> 3 : 128;
-        }
-        for (int i = 0; i < 64; ++i) {
-          int p = dc;
-          if (m != 2) {
-            const int o = (m * 64 + i) * 3;
-            p = (e8[p8idx[o]] * p8wgt[o] + e8[p8idx[o + 1]] * p8wgt[o + 1]
-                 + e8[p8idx[o + 2]] * p8wgt[o + 2] + 2) >> 2;
+      // the filtered edge vector e8 = [l7'..l0', lt', t0'..t15'] (lanes
+      // 0-24 of warp 0), its DC prediction (the sums by warp reductions),
+      // the most probable mode and the modes' availability
+      if (tid < 32) {
+        int v = 0;
+        if (tid < 25) {
+          const int tl = ext8[r0][c0];
+          auto lft = [&](int i) { return ext8[r0 + 1 + i][c0]; };
+          auto t16 = [&](int j) {
+            return (j < 8 || htr) ? ext8[r0][c0 + 1 + j] : ext8[r0][c0 + 8];
+          };
+          if (tid < 8) {
+            const int i = 7 - tid;
+            const int prv = i == 0 ? (htl ? tl : lft(0)) : lft(i - 1);
+            const int nxt = i == 7 ? lft(7) : lft(i + 1);
+            v = (prv + 2 * lft(i) + nxt + 2) >> 2;
+          } else if (tid == 8) {
+            v = (ht && hl) ? (t16(0) + 2 * tl + lft(0) + 2) >> 2
+              : ht ? (3 * tl + t16(0) + 2) >> 2 : (3 * tl + lft(0) + 2) >> 2;
+          } else {
+            const int j = tid - 9;
+            const int prv = j == 0 ? (htl ? tl : t16(0)) : t16(j - 1);
+            const int nxt = j == 15 ? t16(15) : t16(j + 1);
+            v = (prv + 2 * t16(j) + nxt + 2) >> 2;
           }
-          pred8c[m][i] = p;
-          dd[i] = S.fenc[(r0 + (i >> 3)) * 16 + c0 + (i & 7)] - p;
+          e8[tid] = v;
         }
-        const int lmode = bx ? modes8[2 * by] : nml[2 * by];
-        const int tmode = by ? modes8[bx] : nmt[2 * bx];
-        const int mpm = min(lmode, tmode);
-        cost8c[m] = avail ? ((abs_had8x8(dd) + 2) >> 2) + lam * (m == mpm ? 1 : 4)
-                          : IMB_BIG;
+        const int sl = __reduce_add_sync(0xffffffffu, tid < 8 ? v : 0);
+        const int st = __reduce_add_sync(0xffffffffu, tid >= 9 && tid < 17 ? v : 0);
+        if (tid == 0) {
+          dc8 = (ht && hl) ? (st + sl + 8) >> 4 : hl ? (sl + 4) >> 3
+              : ht ? (st + 4) >> 3 : 128;
+        } else if (tid == 1) {
+          const int lmode = bx ? modes8[2 * by] : nml[2 * by];
+          const int tmode = by ? modes8[bx] : nmt[2 * bx];
+          mpm8 = min(lmode, tmode);
+          // modes V, H, DC, DDL, DDR, VR, HD, VL, HU
+          avail8 = ht | hl << 1 | 1 << 2 | ht << 3 | (ht && hl && htl) * (7 << 4)
+                 | ht << 7 | hl << 8;
+        }
       }
       __syncthreads();
+      // the nine predictions and the Hadamard's row pass of their
+      // residuals: a (mode, row) a thread, 72 over two rounds, each
+      // thread's taps in registers
+      auto pred_row = [&](int i, const int (&tw)[24]) {
+        const int m = i >> 3, r = i & 7;
+        int d[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int* t = tw + 3 * c;
+          const int p = m == 2 ? dc8
+              : (e8[t[0] & 0xffff] * (t[0] >> 16) + e8[t[1] & 0xffff] * (t[1] >> 16)
+                 + e8[t[2] & 0xffff] * (t[2] >> 16) + 2) >> 2;
+          pred8c[m][8 * r + c] = p;
+          d[c] = S.fenc[(r0 + r) * 16 + c0 + c] - p;
+        }
+        had8_1d(d);
+        for (int c = 0; c < 8; ++c) had8[m][8 * r + c] = d[c];
+      };
+      pred_row(tid, tw0);
+      if (tid < 8) pred_row(NT + tid, tw1);
+      __syncthreads();
+      // the column pass: a (mode, column) a thread, the |sums| of a
+      // mode's eight lanes added by shuffles; the mode's cost
+      for (int i0 = 0; i0 < 72; i0 += NT) {
+        const int i = i0 + tid, m = i >> 3, c = i & 7;
+        int s = 0;
+        if (i < 72) {
+          int a[8];
+          for (int j = 0; j < 8; ++j) a[j] = had8[m][8 * j + c];
+          had8_1d(a);
+          for (int j = 0; j < 8; ++j) s += abs(a[j]);
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        if (i < 72 && c == 0)
+          cost8c[m] = avail8 >> m & 1 ? ((s + 2) >> 2) + lam * (m == mpm8 ? 1 : 4)
+                                      : IMB_BIG;
+      }
+      __syncthreads();
+      // the cheapest mode (first on ties): its residual a sample a thread;
+      // dct8x8 as 8 column then 8 row butterflies, the row's thread
+      // quantising, dequantising and running idct8x8's row butterfly
+      // (rows first), then its 8 column butterflies; the reconstruction
+      // and the zig-zag a sample a thread, the nonzero flag by a vote
+      int best = 0;
+      for (int m = 1; m < 9; ++m)
+        if (cost8c[m] < cost8c[best]) best = m;
+      const int ri = tid >> 3, ci = tid & 7;
+      d8[tid] = S.fenc[(r0 + ri) * 16 + c0 + ci] - pred8c[best][tid];
+      __syncthreads();
+      if (tid < 8) dct8_1d(d8 + tid, 8, tb8 + tid, 8);
+      __syncthreads();
+      if (tid < 8) {
+        int co[8], dq[8];
+        dct8_1d(tb8 + 8 * tid, 1, co, 1);
+        for (int k = 0; k < 8; ++k) {
+          const int i = 8 * tid + k;
+          lv8[i] = quant(co[k], S.q.y8_mf[i], S.q.y8_bias[i]);
+          dq[k] = dequant8(lv8[i], S.q.y8_dmf[i], S.q.y_qpdiv6);
+        }
+        if (tid == 0) dq[0] += 32;
+        idct8_1d(dq, 1, tb8 + 8 * tid, 1);
+      }
+      __syncthreads();
+      if (tid < 8) idct8_1d(tb8 + tid, 8, d8 + tid, 8);
+      __syncthreads();
+      ext8[r0 + 1 + ri][c0 + 1 + ci] = clip255(pred8c[best][tid] + (d8[tid] >> 6));
+      blk8[z][tid] = lv8[zig8];
+      const int nz = __syncthreads_or(lv8[tid] != 0);
       if (tid == 0) {
-        int best = 0;
-        for (int m = 1; m < 9; ++m)
-          if (cost8c[m] < cost8c[best]) best = m;
         total8 += cost8c[best];
-        int dd[64], co[64], dq[64], res[64];
-        for (int i = 0; i < 64; ++i)
-          dd[i] = S.fenc[(r0 + (i >> 3)) * 16 + c0 + (i & 7)] - pred8c[best][i];
-        dct8x8(dd, co);
-        for (int i = 0; i < 64; ++i) {
-          co[i] = quant(co[i], S.q.y8_mf[i], S.q.y8_bias[i]);
-          dq[i] = dequant8(co[i], S.q.y8_dmf[i], S.q.y_qpdiv6);
-        }
-        idct8x8(dq, res);
-        for (int i = 0; i < 64; ++i)
-          ext8[r0 + 1 + (i >> 3)][c0 + 1 + (i & 7)] = clip255(pred8c[best][i] + res[i]);
         modes8[z] = best;
-        for (int j = 0; j < 64; ++j) blk8[z][j] = co[kZig8[j]];
+        cbp8 |= nz << z;
       }
-      __syncthreads();
     }
-    if (tid == 0) {
-      int bits = 0;
-      for (int z = 0; z < 4; ++z) {
-        int nz = 0;
-        for (int j = 0; j < 64; ++j) nz |= blk8[z][j] != 0;
-        bits |= nz << z;
-      }
-      cbp8 = bits;
-      total8 += lam * 10;
-    }
+    if (tid == 0) total8 += lam * 10;
     __syncthreads();
   }
 

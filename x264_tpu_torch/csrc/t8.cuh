@@ -104,6 +104,17 @@ __device__ __forceinline__ int dequant8(int lv, int dmf, int qpdiv6) {
   return (int)((unsigned)prod + (1u << (-qbits - 1))) >> -qbits;
 }
 
+// the 8-point Hadamard butterfly of abs_had8x8, in place
+__device__ __forceinline__ void had8_1d(int* a) {
+  for (int h = 1; h < 8; h <<= 1)
+    for (int i = 0; i < 8; ++i)
+      if (!(i & h)) {
+        const int p = a[i], q = a[i + h];
+        a[i] = p + q;
+        a[i + h] = p - q;
+      }
+}
+
 // sum |H8 d H8| of one raster 8x8 difference block (pixel.py:sa8d_8x8
 // before its (+2) >> 2)
 __device__ __forceinline__ int abs_had8x8(const int* d) {
@@ -111,27 +122,13 @@ __device__ __forceinline__ int abs_had8x8(const int* d) {
   for (int c = 0; c < 8; ++c) {          // columns: H8 d
     int a[8];
     for (int i = 0; i < 8; ++i) a[i] = d[8 * i + c];
-    for (int h = 1; h < 8; h <<= 1)
-      for (int i = 0; i < 8; ++i)
-        if (!(i & h)) {
-          const int p = a[i], q = a[i + h];
-          a[i] = p + q;
-          a[i + h] = p - q;
-        }
+    had8_1d(a);
     for (int i = 0; i < 8; ++i) t[8 * i + c] = a[i];
   }
   int s = 0;
   for (int r = 0; r < 8; ++r) {          // rows: (H8 d) H8
-    int a[8];
-    for (int i = 0; i < 8; ++i) a[i] = t[8 * r + i];
-    for (int h = 1; h < 8; h <<= 1)
-      for (int i = 0; i < 8; ++i)
-        if (!(i & h)) {
-          const int p = a[i], q = a[i + h];
-          a[i] = p + q;
-          a[i + h] = p - q;
-        }
-    for (int i = 0; i < 8; ++i) s += abs(a[i]);
+    had8_1d(t + 8 * r);
+    for (int i = 0; i < 8; ++i) s += abs(t[8 * r + i]);
   }
   return s;
 }

@@ -521,6 +521,8 @@ def encode_i16_frame_plain(mb_h: int, mb_w: int, y, u, v, qtab, lam: int,
         out["luma8_z"] = z(mb_h, mb_w, 4, 64)
 
     for d, y0, n in diagonals(mb_h, mb_w, i8x8):
+        if n == 0:                 # one MB wide: odd slope-2 diagonals
+            continue
         ys = torch.arange(y0, y0 + n, device=dev)
         xs = d - (2 if i8x8 else 1) * ys
         ym, xm = (ys - 1).clamp(min=0), (xs - 1).clamp(min=0)

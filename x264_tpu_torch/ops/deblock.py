@@ -9,9 +9,11 @@ filters already changed. MB (x, y) depends on {(x-1, y), (x, y-1),
 (x+1, y-1)}, so the slope-2 diagonals d = x + 2y (254 at 1080p) are the
 widest order that keeps the result: MB (x, y)'s top-edge filter reads
 the columns that MB (x+1, y-1)'s left-edge filter wrote on diagonal
-d - 1. Both versions walk these diagonals; the boundary strengths (bS)
-and alpha / beta / tc0 depend only on the per-4x4 qp / intra / nnz /
-ref / mv maps (DEBLOCK_STRENGTH, common/frame.c:697-742).
+d - 1. The plain version walks these diagonals; the kernel walks MB rows,
+each MB waiting for the row above to pass its top-right neighbour, which
+is the same partial order. The boundary strengths (bS) and alpha / beta
+/ tc0 depend only on the per-4x4 qp / intra / nnz / ref / mv maps
+(DEBLOCK_STRENGTH, common/frame.c:697-742).
 """
 
 from __future__ import annotations
@@ -236,19 +238,34 @@ def _deblock_tab(device):
     return _DEBLOCK_TAB[device]
 
 
+_WAVEFRONT = {}
+
+
+def _wavefront(device, stream: int, mb_h: int):
+    """The kernel's int32 scratch on `device` for launches on `stream`:
+    mb_h row counters, then the row ticket (the entry point clears them
+    on the stream before its launch, so calls on one stream may share
+    it)."""
+    key = (str(device), stream)
+    t = _WAVEFRONT.get(key)
+    if t is None or t.numel() < mb_h + 1:
+        t = _WAVEFRONT[key] = torch.empty(mb_h + 1, dtype=I32, device=device)
+    return t
+
+
 def deblock_frame(mb_h: int, mb_w: int, y, u, v, qp_mb, intra_mb, nnz4,
                   ref4, mv4, ref4_l1, mv4_l1, is_b: bool, alpha_off: int,
                   beta_off: int, chroma_qp_offset: int, t8_mb=None):
     """K2 `deblock_diag`: deblock a frame.
 
     Replaces x264_tpu/ops/deblock.py:deblock_frame. On CUDA tensors it
-    filters y / u / v IN PLACE (and returns them), one launch of
-    csrc/deblock.cu per slope-2 diagonal, one CTA per MB; the kernel
-    derives bS and alpha / beta / tc0 from the maps itself, takes bS 0 on
-    the inner luma edges 1 and 3 of the MBs t8_mb marks (the 8x8
-    transform) and, in a B slice (is_b), compares the L1 refs and MVs too.
-    On CPU tensors it runs the plain version, which returns new
-    planes."""
+    filters y / u / v IN PLACE (and returns them) in one launch of
+    csrc/deblock.cu: a CTA an MB row, each MB after the row above has
+    passed its top-right neighbour. The kernel derives bS and alpha /
+    beta / tc0 from the maps itself, takes bS 0 on the inner luma edges 1
+    and 3 of the MBs t8_mb marks (the 8x8 transform) and, in a B slice
+    (is_b), compares the L1 refs and MVs too. On CPU tensors it runs the
+    plain version, which returns new planes."""
     if y.device.type == "cpu":
         return deblock_frame_plain(mb_h, mb_w, y, u, v, qp_mb, intra_mb,
                                    nnz4, ref4, mv4, ref4_l1, mv4_l1, is_b,
@@ -278,14 +295,20 @@ def deblock_frame(mb_h: int, mb_w: int, y, u, v, qp_mb, intra_mb, nnz4,
         ptrs.append(t8_mb.data_ptr())
     else:
         ptrs.append(0)
+    # the kernel moves the planes in 16-byte vectors and reads each MV as
+    # one 8-byte pair
+    for t, what, align in ((y, "y", 16), (u, "u", 16), (v, "v", 16),
+                           (mv4, "mv4", 8), (mv4_l1, "mv4_l1", 8)):
+        if (is_b or what != "mv4_l1") and t.data_ptr() % align:
+            raise ValueError(f"{what}: must start {align}-byte aligned")
     stream = cuda.stream(dev)
-    for d in range(mb_w + 2 * mb_h - 2):
-        cuda.launch("deblock", "deblock_diag", "p" * 12 + "iiiiii" + "p",
-                    *ptrs, mb_h, mb_w, d, alpha_off, beta_off,
-                    chroma_qp_offset, stream)
-        deblock_frame.launches += 1
-        deblock_frame.launches_t8 += int(t8_mb is not None)
-        deblock_frame.launches_b += int(is_b)
+    ptrs.append(_wavefront(dev, stream, mb_h).data_ptr())
+    cuda.launch("deblock", "deblock_frame", "p" * 13 + "iiiii" + "p",
+                *ptrs, mb_h, mb_w, alpha_off, beta_off, chroma_qp_offset,
+                stream)
+    deblock_frame.launches += 1
+    deblock_frame.launches_t8 += int(t8_mb is not None)
+    deblock_frame.launches_b += int(is_b)
     return y, u, v
 
 
