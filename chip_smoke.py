@@ -7,7 +7,10 @@ the PyTorch / CUDA port still starts and is right on the card).
 Phases; any failure exits non-zero before the result line:
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build: the CUDA kernels of x264_tpu_torch/csrc (one nvcc per source,
-     started together) and the host CABAC engine, with the seconds;
+     started together) and the host CABAC engine, with the seconds; then
+     the registers and local bytes a thread and the resident CTAs an SM
+     of the kernels of inter.cu (K6, K22), trellis.cu (K20) and
+     subpel.cu (K10-K12), as libcuda reports them;
   3. kernels: K1-K4 at 1080p on seeded frames, each held against its
      plain PyTorch version on the card (K1-K3 exact, K4 within relative
      1e-6 on the SSDs and 1e-5 on the SSIM sum) and timed beside it;
@@ -30,8 +33,12 @@ Phases; any failure exits non-zero before the result line:
      second reference built from frame 0's recon, in which the 8x8
      blocks of each MB move by their partition's own small motion and
      some 64x64 tiles take a half-pel filter, so that every partition
-     type and fractional MVs occur (K10 at steps (2,) and (2, 1)); and
-     the host CABAC of frame 1 at subme 5 on frame 0's recon;
+     type and fractional MVs occur (K10 at steps (2,) and (2, 1), on
+     each layout alone and on the three in the one launch a P frame
+     runs; and on its edge inputs: flat content at lam 0, where
+     candidate 0 must win, MVs into the pad from a crop's corners and a
+     mixed reference, on every shape and both layout sets); and the host
+     CABAC of frame 1 at subme 5 on frame 0's recon;
   5. the IPPP main path at subme 1: Encoder on eight 1920x1080 frames,
      keyint 250, subme 1, one reference, scenecut 0, no B frames,
      otherwise as in 4. K1-K8's launch counts must rise, and frames 0-1
@@ -199,11 +206,16 @@ partition reference, a reference with 30% of its 64x64 tiles gray and
 map, and K19 with a capacity that drops codes; and the trellis: K20
 exact at each category on frame 1's coefficients against frame 0's
 recon at QP 26, at cat 2 and 5 with the 52-QP stacks and a seeded row
-per block, at QP 4 on the half-flat frame (levels past the ue escape),
+per block, on trellis.tie_coefs' rows of each category (zero blocks,
+magnitudes on q's rounding edge, lone coefficients, levels past the ue
+escape) at lam2 the table's, 0 and 1e7 and with the stack's rows at QP
+0, 1 and 51, at QP 4 on the half-flat frame (levels past the ue escape),
 and K6 with the trellis at t8 0, 1 and 2, at QP 26 and with frame 1's QP
-map; and B frames: K21 in each of the four b-adapt programs on the
+map (each t8 timed with and without it), and at the edges: an MB row
+whose residual is zero, QP 1's consts, a QP map of rows 0, 1 and 51;
+and B frames: K21 in each of the four b-adapt programs on the
 lowres planes of frames 0-2, and K22 (both passes, with and without the
-trellis), K7's B decision and sweeps, K23, K24 and K2 with B maps on
+trellis, and with it at QP 4 and 51), K7's B decision and sweeps, K23, K24 and K2 with B maps on
 frame 1 as a B frame between frame 0's recon and frame 2, with 30% of the
 64x64 blocks gray in all three (direct, skip) and 15% flat in the B
 frame alone (intra), all exact; and two references: frame 1 against the
@@ -944,6 +956,80 @@ def partition_warp(ref, mb_h: int, mb_w: int, seed: int = 1):
                  for a in out)
 
 
+def k10_edges(y, ref_y, exact) -> int:
+    """K10 exact against its plain version on its edge inputs, on the
+    7 x 5 MBs at the top left of y over those of ref_y (block counts that
+    do not fill the last CTA): a flat source over a flat reference at lam
+    0 (every cost equal: candidate 0 must win), MVs into the pad from the
+    crop's corners (fetch starts that wrap and clamp), and a reference
+    per block (per MB for the layouts) mixing two references' planes; at
+    steps (2,) and (2, 1), subpel_refine_blocks on every shape and
+    subpel_refine_parts on the layouts with and without P8x8. Returns
+    the max error, 0."""
+    from x264_tpu_torch.encoder import inter
+    from x264_tpu_torch.ops import mc, me
+    hh, ww, dev = 5, 7, y.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(10)
+    yc = y[:hh * 16, :ww * 16].contiguous()
+    rc = ref_y[:hh * 16, :ww * 16].contiguous()
+    hp = lambda p: mc.hpel_planes(mc.pad_plane(p))
+    flat = torch.full_like(yc, 77)
+    two = torch.cat([hp(rc), hp(torch.flip(rc, (0, 1)).contiguous())])
+    mvp = torch.as_tensor(rng.integers(-12, 13, (hh, ww, 2)), **i32)
+
+    def mvs(n, corners):
+        mv = rng.integers(-3, 4, (n, hh, ww, 2)) * 4
+        if corners:
+            mv = rng.integers(-44, 45, (n, hh, ww, 2)) * 4 \
+                + rng.integers(0, 4, (n, hh, ww, 2))
+            far = 4 * (36 + 4 * np.arange(n))
+            for r, c in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
+                mv[:, r, c, 0] = far if c else -far
+                mv[:, r, c, 1] = far if r else -far
+        return torch.as_tensor(mv, **i32)
+
+    shapes = ((16, 16, ((0, 0),), None),) + inter.PART_LAYOUTS
+    for steps in ((2,), (2, 1)):
+        for case in ("flat", "corners", "ref2"):
+            src, pl, lam = (flat, hp(flat), 0) if case == "flat" else \
+                (yc, two if case == "ref2" else hp(rc), 4)
+            for bh, bw, offs, _ in shapes:
+                n = len(offs)
+                ys, xs = me.block_origins(hh, ww, offs, dev)
+                sel = torch.as_tensor(rng.integers(0, 2, (n, hh, ww)), **i32) \
+                    if case == "ref2" else None
+                mv = mvs(n, case == "corners")
+                a = (src, pl, mv, lam, mvp.expand(n, hh, ww, 2).contiguous(),
+                     ys, xs, bh, bw, steps, sel)
+                k = me.subpel_refine_blocks(*a)
+                exact(f"K10 subpel_refine {bh}x{bw} {steps} ({case})", k,
+                      me.subpel_refine_blocks_plain(*a))
+                first = torch.as_tensor(me.subpel_offsets(steps)[0], **i32)
+                if case == "flat" and not torch.equal(k[0], mv + first):
+                    fail("K10 on flat content: candidate 0 did not win")
+            for nk in (4, 8):
+                pf = mvs(nk, case == "corners")
+                sel = torch.as_tensor(rng.integers(0, 2, (hh, ww)), **i32) \
+                    if case == "ref2" else None
+                got = me.subpel_refine_parts(src, pl, pf, lam, mvp, steps,
+                                             sel)
+                for (bh, bw, offs, (a, b)), g in zip(inter.PART_LAYOUTS, got):
+                    n = len(offs)
+                    ys, xs = me.block_origins(hh, ww, offs, dev)
+                    exact(f"K10 subpel_refine_parts {bh}x{bw} {steps} "
+                          f"({case}, {nk} rows)", g,
+                          me.subpel_refine_blocks_plain(
+                              src, pl, pf[a:b], lam,
+                              mvp.expand(n, hh, ww, 2), ys, xs, bh, bw,
+                              steps, None if sel is None
+                              else sel.expand(n, hh, ww)))
+    print("K10 exact on flat content at lam 0, MVs into the pad from the "
+          "corners and a mixed reference, at steps (2,) and (2, 1), "
+          "every shape and both layout sets", flush=True)
+    return 0
+
+
 # kernel name fragment -> the port's kernel it belongs to (device time
 # of everything else is PyTorch's own glue: padding, copies, merges)
 KERNEL_GROUPS = (("hwpack_", "K27"), ("halo_kernel", "K28"),
@@ -954,6 +1040,9 @@ KERNEL_GROUPS = (("hwpack_", "K27"), ("halo_kernel", "K28"),
                  ("wave_kernel", "K23"), ("inter_mb_kernel<0>", "K6"),
                  ("inter_mb_kernel<1>", "K22"),
                  ("inter_mb_kernel<2>", "K22"),
+                 ("inter_mb_trellis_kernel<0>", "K6"),
+                 ("inter_mb_trellis_kernel<1>", "K22"),
+                 ("inter_mb_trellis_kernel<2>", "K22"),
                  ("emit_kernel", "K3"),
                  ("scan_kernel", "K3/K8/K18/K19/K25 scan"),
                  ("scatter_kernel", "K3/K8 scatter"), ("ssd_kernel", "K4"),
@@ -961,7 +1050,8 @@ KERNEL_GROUPS = (("hwpack_", "K27"), ("halo_kernel", "K28"),
                  ("half_kernel", "K5"), ("search_kernel", "K5"),
                  ("sweep_kernel", "K7"),
                  ("decide_kernel", "K7"), ("hpel_kernel", "K9"),
-                 ("subpel_kernel", "K10"), ("part_kernel", "K11"),
+                 ("subpel_kernel", "K10"), ("subpel_parts_kernel", "K10"),
+                 ("part_kernel", "K11"),
                  ("rerank_kernel", "K12"), ("rd_inter_kernel", "K13"),
                  ("lowres_kernel", "K14"), ("cost_kernel", "K15"),
                  ("aq_qp_kernel", "K16"), ("dqp_kernel", "K17"),
@@ -1091,6 +1181,12 @@ def main() -> None:
         fail("the host CABAC engine (native/cabac.c) did not build")
     print(f"build: nvcc {t_nvcc:.2f} s for {len(cuda.SOURCES)} sources, "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
+    # the registers, local memory and resident CTAs of K6 / K22, K20 and
+    # K10-K12 as the card holds them
+    from x264_tpu_torch.tools import kernel_resources
+    for line in kernel_resources.report(("inter", "trellis", "subpel"),
+                                        (cuda.BUILD_DIR,)):
+        print(f"resources: {line}", flush=True)
 
     # ------------------------------------------------------- 3. kernels
     stamp("phase 3: the kernels")
@@ -1427,37 +1523,56 @@ def main() -> None:
            "x264_tpu/ops/mc.py:57", err9, ms9, pl9,
            nbytes(ref_pad2, planes), K9_OPS_PER_SAMPLE * hp_ * wp_)
     # K10 on the 16x16 MBs at both ladders, then on each partition layout
+    # (a launch each through subpel_refine_blocks) and on the three in the
+    # one launch of subpel_refine_parts that a P frame runs
     ys16, xs16 = me.mb_origins(mb_h, mb_w, dev)
-    calls10, err10 = [], 0
+    err10 = 0
     for steps in ((2,), (2, 1)):
-        a10 = (y1, planes, mv_fp, lam, mvp0, ys16, xs16, 16, 16, steps)
-        k10 = me.subpel_refine_blocks(*a10)
+        a16 = (y1, planes, mv_fp, lam, mvp0, ys16, xs16, 16, 16, steps)
+        k10 = me.subpel_refine_blocks(*a16)
         err10 = max(err10, exact(f"K10 subpel_refine 16x16 {steps}", k10,
-                                 me.subpel_refine_blocks_plain(*a10)))
-    calls10.append((a10, 49 * 16 * nmb))
+                                 me.subpel_refine_blocks_plain(*a16)))
     mv_s, satd_s = k10
     pf = me.partition_fullpel(y1, ref_pad2, mv_fp, lam, mvp0, me_range, True)
+    lay10 = []
     for bh, bw, offs, (a, b) in inter.PART_LAYOUTS:
-        ysb, xsb = inter._block_origins(mb_h, mb_w, offs, dev)
+        ysb, xsb = me.block_origins(mb_h, mb_w, offs, dev)
         mvpb = mvp0.expand(len(offs), mb_h, mb_w, 2).contiguous()
         a10 = (y1, planes, pf[a:b].contiguous(), lam, mvpb, ysb, xsb, bh, bw,
                (2, 1))
         err10 = max(err10, exact(f"K10 subpel_refine {bh}x{bw}",
                                  me.subpel_refine_blocks(*a10),
                                  me.subpel_refine_blocks_plain(*a10)))
-        calls10.append((a10, 49 * (bh * bw // 16) * len(offs) * nmb))
-    ms10 = [event_ms(lambda a=a: me.subpel_refine_blocks(*a), 10)
-            for a, _ in calls10]
+        lay10.append(a10)
+    parts10 = (y1, planes, pf, lam, mvp0, (2, 1))
+    n0 = me.subpel_refine_parts.launches
+    kp10 = me.subpel_refine_parts(*parts10)
+    if me.subpel_refine_parts.launches != n0 + 1:
+        fail("K10's partition layouts did not count their one launch")
+    for a10, got in zip(lay10, kp10):
+        err10 = max(err10, exact(
+            f"K10 subpel_refine_parts {a10[7]}x{a10[8]}", got,
+            me.subpel_refine_blocks_plain(*a10)))
+    err10 = max(err10, k10_edges(y1, ry, exact))
+    ms16 = event_ms(lambda: me.subpel_refine_blocks(*a16), 10)
+    ms_lay = [event_ms(lambda a=a: me.subpel_refine_blocks(*a), 10)
+              for a in lay10]
+    ms_parts = event_ms(lambda: me.subpel_refine_parts(*parts10), 10)
     pl10 = sum(event_ms(lambda a=a: me.subpel_refine_blocks_plain(*a), 1)
-               for a, _ in calls10)
-    print("kernel subpel_refine per call at (2, 1): " + ", ".join(
-        f"{a[7]}x{a[8]} {t:.3f} ms" for (a, _), t in zip(calls10, ms10)),
-        flush=True)
+               for a in (a16, *lay10))
+    print("kernel subpel_refine per call at (2, 1): 16x16 "
+          f"{ms16:.3f} ms, " + ", ".join(
+              f"{a[7]}x{a[8]} (bh x bw) {t:.3f} ms"
+              for a, t in zip(lay10, ms_lay))
+          + f"; the three layouts in one launch {ms_parts:.3f} ms (their "
+          f"three launches {sum(ms_lay):.3f}); a P frame's K10 "
+          f"{ms16 + ms_parts:.3f} ms in 2 launches [{smi_line}]", flush=True)
     record("subpel_refine", "cuda", "x264_tpu_torch/csrc/subpel.cu",
-           "x264_tpu/ops/me.py:217", err10, sum(ms10), pl10,
-           sum(nbytes(*a[:3], a[4], a[5], a[6]) + 12 * a[2][..., 0].numel()
-               for a, _ in calls10),
-           K10_OPS_PER_CAND_4X4 * sum(n for _, n in calls10))
+           "x264_tpu/ops/me.py:217", err10, ms16 + ms_parts, pl10,
+           nbytes(y1, planes, mv_fp, mvp0, ys16, xs16) + 12 * nmb
+           + nbytes(y1, planes, pf, mvp0) + 12 * pf[..., 0].numel(),
+           K10_OPS_PER_CAND_4X4 * 49 * nmb
+           * (16 + sum(a[7] * a[8] // 16 * a[5].shape[0] for a in lay10)))
     # K11
     a11 = (y1, ref_pad2, mv_fp, lam, mvp0, me_range, True)
     err11 = exact("K11 part_fullpel", [pf], [me.partition_fullpel_plain(*a11)])
@@ -1544,8 +1659,8 @@ def main() -> None:
                                     ops5_h.numpy()[:n_ops5].view(np.uint32),
                                     0)
     cabac5 = (time.perf_counter() - t) * 1e3
-    k_ms = dict(K5=p_ms["k5"], K9=ms9, K10=sum(ms10), K11=ms11, K12=ms12,
-                K6=ms6, K7=p_ms["k7"], K8=ms8, K2=p_ms["k2"], K4=ms4)
+    k_ms = dict(K5=p_ms["k5"], K9=ms9, K10=ms16 + ms_parts, K11=ms11,
+                K12=ms12, K6=ms6, K7=p_ms["k7"], K8=ms8, K2=p_ms["k2"], K4=ms4)
     # the cell's own P frame at subme 5 (frame 1 on frame 0's recon): its
     # op stream and host CABAC, for the split of section 5
     front_c = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, ry, ru,
@@ -2147,6 +2262,33 @@ def main() -> None:
         ms = event_ms(lambda: otrellis.trellis_scan(cf, st, qi), 5)
         print(f"K20 trellis_scan (cat {c}, 52-QP stack, rows over QP "
               f"1-51): exact, {ms:.3f} ms", flush=True)
+    # K20 on tie_coefs' rows (zero blocks, magnitudes on q's rounding
+    # edge, lone coefficients, levels past the ue escape) of each
+    # category: at QP 26 with lam2 the table's, 0 and 1e7, and with the
+    # stack's rows at QP 0, 1 and 51; 20,001 blocks (the last CTA part
+    # full)
+    for c in cats:
+        tc = otrellis.make_consts(QP, c, cqm[c], False, 0, state_qp=QP)
+        cf = torch.as_tensor(otrellis.tie_coefs(tc["qmf"], 20_001, c),
+                             device=dev)
+        for lam2 in (None, 0.0, 1e7):
+            tab = otrellis.pack_trellis(
+                tc if lam2 is None else dict(tc, lam2=np.float32(lam2)), dev)
+            exact(f"K20 trellis_scan (cat {c}, ties, lam2 {lam2})",
+                  [otrellis.trellis_scan(cf, tab)],
+                  [otrellis.trellis_scan_plain(cf, tab)])
+        st = otrellis.pack_trellis(otrellis.make_consts_all_qp(
+            c, cqm[c], False, 0), dev)
+        cf = torch.as_tensor(otrellis.tie_coefs(otrellis.make_consts(
+            1, c, cqm[c], False, 0)["qmf"], 20_001, c + 10), device=dev)
+        qi = torch.as_tensor(rng20.choice([0, 1, 51], 20_001),
+                             dtype=torch.int32, device=dev)
+        exact(f"K20 trellis_scan (cat {c}, ties, stack rows 0 / 1 / 51)",
+              [otrellis.trellis_scan(cf, st, qi)],
+              [otrellis.trellis_scan_plain(cf, st, qi)])
+    print("K20 trellis_scan: exact on tie_coefs' rows of each category at "
+          "lam2 the table's, 0 and 1e7 and on stack rows 0 / 1 / 51",
+          flush=True)
     # K20 at QP 4 on the half-flat frame against a gray prediction, where
     # levels reach the ue escape (>= 15)
     flat = tuple(torch.full_like(a, 128) for a in (yh, uh, vh))
@@ -2184,6 +2326,40 @@ def main() -> None:
                        event_ms(lambda: inter.p_inter_mb(
                            *a6x[:10], qtab_rd_aq if qm is not None
                            else qtab_rd, True, t8m, qm), 10))
+    for qtab_t, qtab_n, qm, tag in ((tr_frame, qtab_rd, None, f"QP {QP}"),
+                                    (tr_stack, qtab_rd_aq, qm1, "QP map")):
+        t6 = [event_ms(lambda: inter.p_inter_mb(*a6t, qt, True, t8m, qm),
+                       10)
+              for t8m in (inter.T8_OFF, inter.T8_SA8D, inter.T8_RD)
+              for qt in (qtab_t, qtab_n)]
+        print(f"K6 p_inter_mb ({tag}) at t8 0 / 1 / 2: "
+              + ", ".join(f"{t:.3f}" for t in t6) + " ms (each t8 with the "
+              f"trellis, then without) [{smi_line}]", flush=True)
+    # K6 with the trellis at the edges: MB row 0 at ptype 0 and MV 0 over
+    # a source that is its reference there (every block zero), at QP 1's
+    # consts (levels past the ue escape) and with a QP map of rows 0, 1
+    # and 51, at t8 0, 1 and 2
+    e6 = list(a6t)
+    e6[8], e6[9] = e6[8].clone(), e6[9].clone()
+    e6[8][0], e6[9][0] = 0, 0
+    for k, (r, n) in enumerate(zip((ry, ru, rv), (16, 8, 8))):
+        e6[2 + k] = e6[2 + k].clone()
+        e6[2 + k][:n] = r[:n]
+    qm_e = torch.as_tensor(np.random.default_rng(61).choice(
+        [0, 1, 51], (mb_h, mb_w)), dtype=torch.int32, device=dev)
+    tr_qp1 = {**qtab_rd, **inter.trellis_consts(1, tables.chroma_qp(1, 0),
+                                                0, dev)}
+    for qtab_t, qm, tag in ((tr_qp1, None, "QP 1"),
+                            (tr_stack, qm_e, "QP map rows 0 / 1 / 51")):
+        for t8m in (inter.T8_OFF, inter.T8_SA8D, inter.T8_RD):
+            a6e = (*e6, qtab_t, True, t8m, qm)
+            k6e = inter.p_inter_mb(*a6e)
+            exact(f"K6 p_inter_mb with the trellis at the edges ({tag}, "
+                  f"t8 {t8m})", k6e, inter.p_inter_mb_plain(*a6e))
+            if k6e["blocks_z"][0].any():
+                fail("K6's zero-residual MB row coded a level")
+    print("K6 p_inter_mb with the trellis: exact at the edges (a zero MB "
+          "row, QP 1, QP-map rows 0 / 1 / 51) at t8 0 / 1 / 2", flush=True)
     preds = [inter._untiles(p.reshape(nmb, *p.shape[2:]), mb_h, mb_w)
              for p in inter.partition_preds(*a6t[5:10])]
     cats6 = trellis_coefs(a6t[2:5], preds)
@@ -2501,6 +2677,17 @@ def main() -> None:
         timed("k22b" + tag, lambda: inter.b_inter_mb(*a22, qt, m0, m1,
                                                      refs=refs_b),
               lambda: inter.b_inter_mb_plain(*a22, qt, m0, m1, refs=refs_b))
+    # both passes with the trellis at QP 4's consts (levels past the ue
+    # escape) and QP 51's (most levels zero)
+    for tqp in (4, 51):
+        qt = {**qtab_b, **inter.trellis_consts(
+            tqp, tables.chroma_qp(tqp, 0), 0, dev)}
+        exact(f"K22 b_inter_mb pass 1 with the trellis at QP {tqp}",
+              inter.b_inter_mb(*a22, qt, *mvs_b, **kw1),
+              inter.b_inter_mb_plain(*a22, qt, *mvs_b, **kw1))
+        exact(f"K22 b_inter_mb pass 2 with the trellis at QP {tqp}",
+              inter.b_inter_mb(*a22, qt, m0, m1, refs=refs_b),
+              inter.b_inter_mb_plain(*a22, qt, m0, m1, refs=refs_b))
     it_b = inter.b_inter_mb(*a22, qtab_b, m0, m1, refs=refs_b)
     a7s = (mb_h, mb_w, yb, ub, vb, it_b["recon_y"], it_b["recon_u"],
            it_b["recon_v"])
@@ -2614,8 +2801,9 @@ def main() -> None:
     tiles_r = rng_r.random((2, (mb_h + 3) // 4, (mb_w + 3) // 4)) < 0.3
     ref_newer = grayed(ref2, grid(tiles_r[0]), 128)
     ref_older = grayed((ry, ru, rv), grid(tiles_r[1]), 128)
-    spied_fns = {"subpel_refine_blocks": me, "partition_fullpel": me,
-                 "chroma_rerank": me, "p_inter_mb": inter, "rd_inter": inter}
+    spied_fns = {"subpel_refine_blocks": me, "subpel_refine_parts": me,
+                 "partition_fullpel": me, "chroma_rerank": me,
+                 "p_inter_mb": inter, "rd_inter": inter}
     calls = {n: [] for n in spied_fns}
     kept = {n: getattr(m, n) for n, m in spied_fns.items()}
 
@@ -2684,9 +2872,22 @@ def main() -> None:
         ops10r += 49 * (a[7] * a[8] // 16) * a[5].numel()
         bytes10r += nbytes(a[0], a[1], a[2], a[4], a[5], a[6], a[10]) \
             + 12 * a[5].numel()
+    # the partition layouts' one launch (ref_sel: argument 6)
+    for a, k in calls["subpel_refine_parts"]:
+        err10r = max(err10r, check_ref2(
+            "K10 subpel_refine_parts", me.subpel_refine_parts,
+            me.subpel_refine_parts_plain, a, k, 6))
+        ms10r += event_ms(lambda a=a: me.subpel_refine_parts(*a), 10)
+        pl10r += event_ms(lambda a=a: me.subpel_refine_parts_plain(*a), 1)
+        ops10r += 49 * 16 * nmb * (3 if a[2].shape[0] == 8 else 2)
+        bytes10r += nbytes(a[0], a[1], a[2], a[4], a[6]) \
+            + 12 * a[2][..., 0].numel()
     record("subpel_refine_ref2", "cuda", "x264_tpu_torch/csrc/subpel.cu",
            "x264_tpu/ops/me.py:245", err10r, ms10r, pl10r, bytes10r,
            K10_OPS_PER_CAND_4X4 * ops10r)
+    if len(calls["subpel_refine_parts"]) != 1:
+        fail("the two-reference P frame did not refine its partition "
+             "layouts in one K10 launch")
     (a11, k11), = calls["partition_fullpel"]
     err11r = check_ref2("K11 part_fullpel", me.partition_fullpel,
                         me.partition_fullpel_plain, a11, k11, 7)
@@ -2834,7 +3035,8 @@ def main() -> None:
     print(f"two-reference kernels: exact; {n_on1} inter MBs on L0[1], "
           f"{n_on0} on L0[0], {int(im_r.sum())} intra; K10 "
           f"{rec['subpel_refine_ref2']['ms']:.3f} ms over "
-          f"{len(calls['subpel_refine_blocks'])} calls, K11 "
+          f"{len(calls['subpel_refine_blocks'])} + "
+          f"{len(calls['subpel_refine_parts'])} calls, K11 "
           f"{rec['part_fullpel_ref2']['ms']:.3f}, K12 "
           f"{rec['chroma_rerank_ref2']['ms']:.3f}, K6 "
           f"{rec['p_inter_mb_ref2']['ms']:.3f}, K13 "
@@ -3188,7 +3390,9 @@ def main() -> None:
                 "intra_in_p": inter.intra_in_p,
                 "cabac_p_ops": cabac_planes.cabac_p_ops,
                 "hpel_planes": mc.hpel_planes,
-                "subpel_refine": me.subpel_refine_blocks,
+                # K10: the 16x16 call and the partition layouts' one
+                "subpel_refine": (me.subpel_refine_blocks,
+                                  me.subpel_refine_parts),
                 "part_fullpel": me.partition_fullpel,
                 "chroma_rerank": me.chroma_rerank,
                 "rd_inter": inter.rd_inter,
@@ -3240,7 +3444,8 @@ def main() -> None:
                 "p_inter_mb_trellis": (inter.p_inter_mb,
                                        "launches_trellis"),
                 "deblock_diag_b": (deblock.deblock_frame, "launches_b"),
-                "subpel_refine_ref2": (me.subpel_refine_blocks,
+                "subpel_refine_ref2": ((me.subpel_refine_blocks,
+                                        me.subpel_refine_parts),
                                        "launches_ref2"),
                 "part_fullpel_ref2": (me.partition_fullpel, "launches_ref2"),
                 "chroma_rerank_ref2": (me.chroma_rerank, "launches_ref2"),
@@ -3290,17 +3495,25 @@ def main() -> None:
     later = ref2_only + cavlc_b_only + nr_only + lossless_only + rows_only \
         + slice13_only
 
+    def fns(w) -> tuple:
+        """A record's wrappers: one, or a tuple of those that launch its
+        kernel."""
+        return w if isinstance(w, tuple) else (w,)
+
     def reset_counts():
         """Every wrapper's and variant's launch count set to 0."""
         for w in wrappers.values():
-            w.launches = 0
+            for f in fns(w):
+                f.launches = 0
         for w, count in variants.values():
-            setattr(w, count, 0)
+            for f in fns(w):
+                setattr(f, count, 0)
 
     def read_counts() -> dict:
         """Every wrapper's and variant's launch count, by record name."""
-        launches = {k: w.launches for k, w in wrappers.items()}
-        launches.update({k: getattr(w, count)
+        launches = {k: sum(f.launches for f in fns(w))
+                    for k, w in wrappers.items()}
+        launches.update({k: sum(getattr(f, count) for f in fns(w))
                          for k, (w, count) in variants.items()})
         return launches
 

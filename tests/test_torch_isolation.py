@@ -653,8 +653,10 @@ def test_cavlc_wrappers_never_fall_back_off_the_cpu(name):
 
 def _meta_ref2_calls():
     """The two-reference branches (K10, K11, K12, K6, K13, K8, K8's pass A
-    alone, K19's ref_idx bit), the CAVLC B slice's K25 and K24's pass A
-    alone, on tensors that are neither on the CPU nor on a card."""
+    alone, K19's ref_idx bit), K10's one launch for the partition layouts
+    (with one reference and with two), the CAVLC B slice's K25 and K24's
+    pass A alone, on tensors that are neither on the CPU nor on a
+    card."""
     mb_h, mb_w, H, W = 1, 2, 16, 32
     t = lambda *s, dt=torch.int32: torch.zeros(s, dtype=dt, device="meta")
     b = lambda *s: t(*s, dt=torch.bool)
@@ -686,6 +688,10 @@ def _meta_ref2_calls():
     return {
         "K10 ref2": lambda: me.subpel_refine(src[0], planes, mv, 4, mv,
                                              (2, 1), g),
+        "K10 parts": lambda: me.subpel_refine_parts(
+            src[0], planes[:4], t(4, mb_h, mb_w, 2), 4, mv, (2,)),
+        "K10 parts ref2": lambda: me.subpel_refine_parts(
+            src[0], planes, t(8, mb_h, mb_w, 2), 4, mv, (2, 1), g),
         "K11 ref2": lambda: me.partition_fullpel(
             src[0], t(2, H + 64, W + 64), mv, 4, mv, 16, True, g),
         "K12 ref2": lambda: me.chroma_rerank(src[0], planes, *src[1:],

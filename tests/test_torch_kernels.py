@@ -27,7 +27,11 @@ hadamard_ac, encode_gop_intra over [card] * 2 and lowres_plane; K2's row
 wavefront at one MB row, one MB column, 3 x 2 and 40 x 2 MBs with
 intra, P, B and t8 maps, 10 runs each, and two calls back to back; K1
 one and two MBs wide with I8x8, under a QP map, without I4x4 and
-lossless.
+lossless; K20 on tie-heavy rows (trellis.tie_coefs, lam2 0 and 1e7,
+stack rows at QP 0 / 1 / 51), K6's trellis kernel at the edges (a
+zero-residual MB row, QP 1, QP-map rows 0 / 1 / 51), K22 with the
+trellis at QP 4 and 51, K10 on flat content at lam 0, from the corners
+into the pad, and its one launch for the partition layouts.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -485,23 +489,89 @@ def _subpel_args(dev):
     return (y, u, v), ref, pad, mc.hpel_planes(pad), mv, mvp, q, lam
 
 
+def _corner_mvs(dev, n, seed):
+    """(n, MB_H, MB_W, 2) qpel MVs into the pad and past it (fetch starts
+    that wrap and clamp), the four corner MBs pointing out of the frame."""
+    rng = np.random.default_rng(seed)
+    mv = rng.integers(-44, 45, (n, MB_H, MB_W, 2)) * 4 \
+        + rng.integers(0, 4, (n, MB_H, MB_W, 2))
+    far = 4 * (36 + 4 * np.arange(n))
+    for r, c in ((0, 0), (0, -1), (-1, 0), (-1, -1)):
+        mv[:, r, c, 0] = far if c else -far
+        mv[:, r, c, 1] = far if r else -far
+    return torch.as_tensor(mv, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("steps", [(2,), (2, 1)])
 @pytest.mark.parametrize("layout", range(4))
-def test_subpel_kernel_matches_plain(card, steps, layout):
+@pytest.mark.parametrize("case", ["near", "flat", "corners"])
+def test_subpel_kernel_matches_plain(card, steps, layout, case):
+    """K10 on each block shape: near the ME's MVs; on a flat source over a
+    flat reference at lam 0 (every cost equal: candidate 0 wins); and
+    with MVs into the pad from the frame's corners. 35 MBs: no shape's
+    block count fills the last CTA but the 8x8 one's."""
     (y, _, _), _, _, planes, mv, mvp, _, lam = _subpel_args(card)
     bh, bw, offs, _ = (((16, 16, ((0, 0),), None),)
                        + inter.PART_LAYOUTS)[layout]
-    ys, xs = inter._block_origins(MB_H, MB_W, offs, card)
+    ys, xs = me.block_origins(MB_H, MB_W, offs, card)
     n = len(offs)
     mvs = mv.expand(n, MB_H, MB_W, 2) + torch.as_tensor(
         np.random.default_rng(layout).integers(-2, 3, (n, MB_H, MB_W, 2))
         * 4, dtype=torch.int32, device=card)
+    if case == "flat":
+        y = torch.full_like(y, 77)
+        planes = mc.hpel_planes(mc.pad_plane(torch.full_like(y, 77)))
+        lam = 0
+    elif case == "corners":
+        mvs = _corner_mvs(card, n, layout)
     args = (y, planes, mvs.contiguous(), lam,
             mvp.expand(n, MB_H, MB_W, 2).contiguous(), ys, xs, bh, bw, steps)
     k = me.subpel_refine_blocks(*args)
     p = me.subpel_refine_blocks_plain(*args)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if case == "flat":
+        first = me.subpel_offsets(steps)[0]
+        assert torch.equal(k[0], mvs + torch.as_tensor(first, device=card,
+                                                       dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [(2,), (2, 1)])
+@pytest.mark.parametrize("p8x8", [False, True])
+@pytest.mark.parametrize("case", ["near", "flat", "corners", "ref2"])
+def test_subpel_parts_kernel_matches_plain(card, steps, p8x8, case):
+    """K10's one launch for the partition layouts against three calls of
+    subpel_refine_blocks_plain: partition_fullpel's rows, flat content at
+    lam 0, MVs into the pad from the corners, and a mixed reference per
+    MB over both references' planes."""
+    (y, _, _), _, pad, planes, mv, mvp, _, lam = _subpel_args(card)
+    nk = 8 if p8x8 else 4
+    pf = me.partition_fullpel(y, pad, mv, lam, mvp, 16, p8x8)
+    sel = None
+    if case == "flat":
+        y = torch.full_like(y, 77)
+        planes = mc.hpel_planes(mc.pad_plane(torch.full_like(y, 77)))
+        lam = 0
+    elif case == "corners":
+        pf = _corner_mvs(card, nk, 7)
+    elif case == "ref2":
+        planes = torch.cat([planes, mc.hpel_planes(mc.pad_plane(
+            torch.flip(y, (0, 1)).contiguous()))])
+        sel = torch.as_tensor(np.random.default_rng(3).integers(
+            0, 2, (MB_H, MB_W)), dtype=torch.int32, device=card)
+    n0 = me.subpel_refine_parts.launches
+    got = me.subpel_refine_parts(y, planes, pf, lam, mvp, steps, sel)
+    assert me.subpel_refine_parts.launches == n0 + 1
+    assert len(got) == (3 if p8x8 else 2)
+    for (bh, bw, offs, (a, b)), (kmv, ksatd) in zip(inter.PART_LAYOUTS, got):
+        n = len(offs)
+        ys, xs = me.block_origins(MB_H, MB_W, offs, card)
+        pmv, psatd = me.subpel_refine_blocks_plain(
+            y, planes, pf[a:b], lam, mvp.expand(n, MB_H, MB_W, 2), ys, xs,
+            bh, bw, steps,
+            None if sel is None else sel.expand(n, MB_H, MB_W))
+        assert torch.equal(kmv, pmv) and torch.equal(ksatd, psatd)
 
 
 @pytest.mark.cuda
@@ -948,52 +1018,93 @@ _TR_CQM = {2: tables.CQM_4PY, 3: tables.CQM_4PC, 4: tables.CQM_4PC,
 @pytest.mark.cuda
 @pytest.mark.parametrize("cat", [2, 3, 4, 5])
 @pytest.mark.parametrize("stacked", [False, True])
-def test_trellis_kernel_matches_plain(card, cat, stacked):
+@pytest.mark.parametrize("rows", ["laplace", "ties"])
+def test_trellis_kernel_matches_plain(card, cat, stacked, rows):
     """K20 at each category: with one QP's consts at QP 26 and QP 4 (levels
     past the ue escape), or with the 52-QP stack and a seeded row per
-    block; Laplacian coefficients at four scales and all-zero blocks."""
+    block; Laplacian coefficients at four scales and all-zero blocks, or
+    (ties) trellis.tie_coefs' rows (zero blocks, magnitudes on q's
+    rounding edge, lone coefficients, levels >= 15) with lam2 at the
+    table's, 0 and 1e7, or with stack rows at QP 0, 1 and 51; 3001 blocks,
+    which do not fill the last CTA."""
     from x264_tpu_torch.ops import trellis
     C = int(trellis.CAT_C[cat])
     rng = np.random.default_rng(cat)
-    scale = rng.choice([8, 40, 200, 1500], size=(3000, 1))
-    cf = (rng.laplace(0, 1, (3000, C)) * scale).astype(np.int32)
+    n = 3001
+    if rows == "laplace":
+        scale = rng.choice([8, 40, 200, 1500], size=(n, 1))
+        cf = (rng.laplace(0, 1, (n, C)) * scale).astype(np.int32)
+    else:
+        cf = trellis.tie_coefs(trellis.make_consts(
+            1 if stacked else 26, cat, _TR_CQM[cat], False, 0)["qmf"], n,
+            cat)
     cf[:64] = 0
     cf = torch.as_tensor(cf, device=card)
     if stacked:
         tab = trellis.pack_trellis(trellis.make_consts_all_qp(
             cat, _TR_CQM[cat], False, 0), card)
-        qi = torch.as_tensor(rng.integers(0, 52, 3000), dtype=torch.int32,
-                             device=card)
+        qi = torch.as_tensor(rng.integers(0, 52, n) if rows == "laplace"
+                             else rng.choice([0, 1, 51], n),
+                             dtype=torch.int32, device=card)
         runs = [(tab, qi)]
     else:
-        runs = [(trellis.pack_trellis(trellis.make_consts(
-            qp, cat, _TR_CQM[cat], False, 0, state_qp=26), card), None)
-            for qp in (26, 4)]
+        consts = [trellis.make_consts(qp, cat, _TR_CQM[cat], False, 0,
+                                      state_qp=26) for qp in (26, 4)]
+        if rows == "ties":
+            consts += [dict(consts[0], lam2=np.float32(lam))
+                       for lam in (0.0, 1e7)]
+        runs = [(trellis.pack_trellis(c, card), None) for c in consts]
+    outs = []
     for tab, qi in runs:
         n0 = trellis.trellis_scan.launches
         k = trellis.trellis_scan(cf, tab, qi)
         assert trellis.trellis_scan.launches == n0 + 1
         assert torch.equal(k, trellis.trellis_scan_plain(cf, tab, qi))
         assert not k[:64].any()
-    if not stacked:
-        assert (k.abs() >= 15).any()
+        outs.append(k)
+    if not stacked:                    # QP 4's run
+        assert (outs[1].abs() >= 15).any()
+    elif rows == "ties":
+        assert (outs[0].abs() >= 15).any()
+
+
+def _zero_residual_row(args, dev):
+    """K6's arguments with MB row 0 at ptype 0 and MV 0 over a source that
+    is its reference there: every block of the row quantises to zero."""
+    args = list(args)
+    _, ref, _, _ = _p_frame(dev, "inter")
+    args[8], args[9] = args[8].clone(), args[9].clone()
+    args[8][0], args[9][0] = 0, 0
+    for k, (r, n) in enumerate(zip(ref, (16, 8, 8))):
+        args[2 + k] = args[2 + k].clone()
+        args[2 + k][:n] = r[:n]
+    return tuple(args)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t8", [inter.T8_OFF, inter.T8_SA8D, inter.T8_RD])
 @pytest.mark.parametrize("aq_map", [False, True])
-def test_inter_kernel_with_trellis_matches_plain(card, t8, aq_map):
+@pytest.mark.parametrize("edge", [False, True])
+def test_inter_kernel_with_trellis_matches_plain(card, t8, aq_map, edge):
     """K6's trellis branch at t8 0 / 1 / 2, with the frame's consts at QP
-    26 or with a QP map and the 52-QP stacks, on random partitions."""
+    26 or with a QP map and the 52-QP stacks, on random partitions; at
+    the edges, MB row 0 codes a zero residual and the QP is 1 (levels past
+    the ue escape), or the map's rows are QP 0, 1 and 51."""
     args, _ = _inter_args(card, "inter", True, parts=True)
+    if edge:
+        args = _zero_residual_row(args, card)
     q, qm = args[10], None
     if aq_map:
         y, u, v = args[2:5]
         qm = aq.qp_map_from_planes_plain(y, u, v, MB_H, MB_W, 26, 1.0, 10,
                                          51, 0)[0]
+        if edge:
+            qm = torch.as_tensor(np.random.default_rng(6).choice(
+                [0, 1, 51], (MB_H, MB_W)), dtype=torch.int32, device=card)
         q = {**_with_stacks(q, card), **inter.trellis_stacks(0, 0, card)}
     else:
-        q = {**q, **inter.trellis_consts(26, tables.chroma_qp(26), 0, card)}
+        qp = 1 if edge else 26
+        q = {**q, **inter.trellis_consts(qp, tables.chroma_qp(qp), 0, card)}
     a = (*args[:10], q, True, t8, qm)
     n0 = inter.p_inter_mb.launches_trellis
     k = inter.p_inter_mb(*a)
@@ -1080,16 +1191,19 @@ def _b_refs(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("trellis,t8_mode", [(False, False), (True, True)])
-def test_b_kernels_match_plain(card, trellis, t8_mode):
+@pytest.mark.parametrize("trellis,t8_mode,tqp", [
+    (False, False, 26), (True, True, 26), (True, False, 4), (True, True, 51)])
+def test_b_kernels_match_plain(card, trellis, t8_mode, tqp):
     """K22 (both passes), K7's B decision and sweeps, K23, K24 and K2's B
     rule, each on the card's outputs of the stage before it, against
-    their plain versions; every B mode occurs."""
+    their plain versions; every B mode occurs. With the trellis its
+    consts are at tqp (QP 4: levels past the ue escape; 51: most levels
+    zero)."""
     ((y, u, v), l0, l1), col = _b_refs(card)
     qp = 26
     q = inter.make_qtab_p(qp, tables.chroma_qp(qp), card)
     if trellis:
-        q.update(inter.trellis_consts(qp, tables.chroma_qp(qp), 0, card))
+        q.update(inter.trellis_consts(tqp, tables.chroma_qp(tqp), 0, card))
     lam = int(tables.LAMBDA_TABLE[qp])
     rng = np.random.default_rng(2)
     seeds = [torch.as_tensor(rng.integers(-8, 9, (MB_H, MB_W, 2)),
@@ -1146,7 +1260,9 @@ def test_b_kernels_match_plain(card, trellis, t8_mode):
     same(kmaps, pmaps)
     n = int(pn)
     assert int(kn) == n and torch.equal(kops[:n], pops[:n])
-    assert pmaps["skip"].any() and (direct & ~pmaps["skip"]).any()
+    assert pmaps["skip"].any()
+    if tqp != 51:                      # at 51 every direct MB codes nothing
+        assert (direct & ~pmaps["skip"]).any()
     qp_mb = torch.full((MB_H, MB_W), qp + 6, dtype=torch.int32, device=card)
     dargs = (qp_mb, im, pmaps["nnz4"], pmaps["ref4"], pmaps["mv4"],
              pmaps["ref4_l1"], pmaps["mv4_l1"], True, 0, 0, 0)
@@ -1279,7 +1395,7 @@ def test_ref2_kernels_match_plain(card, t8, trellis, aq_map):
     for bh, bw, offs, _ in (((16, 16, ((0, 0),), None),)
                             + inter.PART_LAYOUTS):
         n = len(offs)
-        ys, xs = inter._block_origins(MB_H, MB_W, offs, card)
+        ys, xs = me.block_origins(MB_H, MB_W, offs, card)
         s = torch.as_tensor(np.random.default_rng(bh + bw).integers(
             0, 2, (n, MB_H, MB_W)), dtype=torch.int32, device=card)
         args = (y, planes, mv.expand(n, MB_H, MB_W, 2).contiguous(), lam,

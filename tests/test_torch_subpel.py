@@ -2,7 +2,8 @@
 padded plane whose taps overshoot both ends of 0..255, the batched
 sub-pel refinement at the half-pel (2,) and quarter-pel (2, 1) ladders
 for 16x16, 16x8, 8x16 and 8x8 blocks (on content with flat blocks, where
-many candidates tie and the candidate order decides), the full-pel
+many candidates tie and the candidate order decides) and on the
+partition layouts of a P frame at once (subpel_refine_parts), the full-pel
 partition search with and without the 8x8 quadrants, and the chroma-ME
 re-rank. Inputs are made with numpy from a seed and fed to both
 packages; every output is an integer and must be exactly equal."""
@@ -68,6 +69,8 @@ def test_hpel_planes_matches_jax_and_clips():
 LAYOUTS = {(16, 16): [(0, 0)], (8, 16): [(0, 0), (8, 0)],
            (16, 8): [(0, 0), (0, 8)],
            (8, 8): [(0, 0), (0, 8), (8, 0), (8, 8)]}
+# the partition layouts in the order of partition_fullpel's rows
+LAYOUTS_PARTS = ((8, 16), (16, 8), (8, 8))
 
 
 @pytest.mark.parametrize("steps", [(2,), (2, 1)], ids=["hpel", "qpel"])
@@ -103,6 +106,39 @@ def test_subpel_refine_blocks_matches_jax(steps, bh, bw, flat):
         # ties: the flat blocks' candidates share one SATD, so the order
         # and the mv bits decide
         assert (tsatd.numpy() == 0).any()
+
+
+@pytest.mark.parametrize("p8x8", [False, True], ids=["parts4", "parts8"])
+def test_subpel_refine_parts_matches_jax(p8x8):
+    """The one-launch partition refinement's CPU path (the plain version
+    once per layout) against x264_tpu's subpel_refine_blocks on each
+    layout's rows, every block of an MB with the MB's predictor."""
+    cur, ref = _content(5, False)
+    _, planes = _planes(ref)
+    rng = np.random.default_rng(5)
+    nk = 8 if p8x8 else 4
+    mv = (rng.integers(-3, 4, (nk, MB_H, MB_W, 2)) * 4).astype(np.int32)
+    mvp = rng.integers(-12, 13, (MB_H, MB_W, 2)).astype(np.int32)
+    got = tme.subpel_refine_parts(T(cur), T(planes), T(mv), LAM, T(mvp),
+                                  (2, 1))
+    assert len(got) == nk // 4 + 1
+    row = 0
+    for (bh, bw), (tmv, tsatd) in zip(LAYOUTS_PARTS, got):
+        offs = LAYOUTS[(bh, bw)]
+        n = len(offs)
+        gy = np.arange(MB_H)[:, None] * 16 + np.zeros((1, MB_W), int)
+        gx = np.arange(MB_W)[None, :] * 16 + np.zeros((MB_H, 1), int)
+        ys = np.stack([gy + oy for oy, _ in offs]).astype(np.int32)
+        xs = np.stack([gx + ox for _, ox in offs]).astype(np.int32)
+        cur_blocks = np.stack([cur[y:y + bh, x:x + bw] for y, x in
+                               zip(ys.reshape(-1), xs.reshape(-1))]) \
+            .reshape(n, MB_H, MB_W, bh, bw)
+        jmv, jsatd = jme.subpel_refine_blocks(
+            cur_blocks, planes, mv[row:row + n], LAM,
+            np.broadcast_to(mvp, (n, MB_H, MB_W, 2)), ys, xs, bh, bw, (2, 1))
+        np.testing.assert_array_equal(np.asarray(jmv), tmv.numpy())
+        np.testing.assert_array_equal(np.asarray(jsatd), tsatd.numpy())
+        row += n
 
 
 def test_subpel_refine_16x16_matches_jax():

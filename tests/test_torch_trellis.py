@@ -176,6 +176,27 @@ def test_trellis_matches_jax(cat, qp):
     assert not want[len(_extremes(cat)):len(_extremes(cat)) + 64].any()
 
 
+@pytest.mark.parametrize("cat,qp,lam2", [
+    (2, 26, None), (2, 26, 0.0), (2, 1, 1e7), (3, 1, None), (3, 51, 0.0),
+    (4, 26, 1e7), (4, 51, None)])
+def test_trellis_ties_match_jax(cat, qp, lam2):
+    """tie_coefs' rows (zero blocks, magnitudes on either side of q's
+    rounding edge, lone coefficients, levels past the ue escape) at the
+    shapes of test_trellis_matches_jax, with lam2 the table's, 0 (every
+    path of equal distortion ties) or 1e7."""
+    n = 16_384 if cat == 2 else 4096
+    jc = jtr.make_consts(qp, cat, CQM[cat], False, 0, state_qp=26)
+    tc = tr.make_consts(qp, cat, CQM[cat], False, 0, state_qp=26)
+    if lam2 is not None:
+        jc = dict(jc, lam2=np.float32(lam2))
+        tc = dict(tc, lam2=np.float32(lam2))
+    cf = tr.tie_coefs(tc["qmf"], n, cat + qp)
+    want = np.asarray(_scan(jnp.asarray(cf), jc))
+    np.testing.assert_array_equal(tr.trellis_scan_plain(T(cf), tc).numpy(),
+                                  want)
+    assert not want[:n // 8].any() and (np.abs(want) >= 15).any()
+
+
 # ----------------------------------------------- the residual functions
 MB_H, MB_W, QP = 4, 6, 30
 K = MB_H * MB_W

@@ -9,7 +9,8 @@
 // x264_tpu_torch/encoder/inter.py:p_inter_mb_plain; wrapper: p_inter_mb.
 //
 // Design. Inter prediction reads only the reference, so there is no
-// wavefront: one launch, one 64-thread CTA per MB. The CTA fetches its
+// wavefront: one launch, one CTA per MB (64 threads; 256 with the
+// trellis, a template instantiation of its own). The CTA fetches its
 // luma prediction partition by partition (ptype 0 16x16, 1 16x8, 2
 // 8x16, 3 8x8; each partition takes the MV of its top-left 8x8
 // quadrant): a sample is the rounding average of the two half-pel
@@ -34,13 +35,17 @@
 // At t8 = 2 (the RD ladder) both codings are written for K13.
 // With a trellis table (analyse.i_trellis under CABAC; x264_tpu
 // inter.py:123-133, :182-192 and intra.py:185-221, each calling
-// ops/trellis.py:236 trellis_scan) the four quant steps run trellis.cuh's
-// trellis_block in place of the deadzone quant, each in its own thread:
-// cat 2 on the luma 4x4 blocks in zig-zag, cat 5 on the 8x8 blocks (which
-// then skip decimation), cat 4 on the chroma AC zig-zag positions 1..15
-// and cat 3 on the chroma DC Hadamard; the table is the frame's four
-// categories or, with a QP map, the MB's row of the 52-QP stack.
-// Everything after the quant stays as it is.
+// ops/trellis.py:236 trellis_scan) the transform threads leave their
+// coefficients in scan order in shared memory instead of quantising
+// them, and a trellis phase of its own, between two barriers, runs every
+// block of the MB at once on trellis.cuh's lane-parallel Viterbi (8
+// lanes a block, one category a warp: warps 0-3 the 16 cat-2 luma 4x4
+// blocks in zig-zag, warp 4 the four cat-5 8x8 blocks, which then skip
+// decimation, warps 5-6 the eight cat-4 chroma AC blocks on zig-zag
+// positions 1..15, warp 7 the two cat-3 chroma DC Hadamards); the table,
+// the frame's four categories or with a QP map the MB's row of the
+// 52-QP stack, is staged in shared memory once. Everything after the
+// quant stays as it is.
 // The noise reduction (--nr; x264_tpu inter.py:119-121 and :178-180,
 // ops/quant.py:120 denoise): given the offsets, the 4x4 threads, and the
 // 8x8 ones with the 8x8 transform, write each block's pre-shrink |coef|
@@ -70,16 +75,17 @@
 // L1, BI (first on ties), every thread then keeps the chosen prediction
 // (the average for BI); pass 2 keeps the average where both of the MB's
 // final references are used, else the one list's. The residual follows
-// as K6's, decimated, with the trellis where given, and with the joint
-// chroma AC decimation in pass 2 only (pass 1 has none). Bounded as K6
-// by bytes: pass 1 reads two half-pel stacks (~0.15 GB at 1080p).
-// What bounds it on the H100: bytes. A 1080p frame moves ~116 MB at
-// subme >= 2 (source, the four half-pel planes, the padded chroma, and
-// the recon and coefficient planes out, as int32: ~35 us at 3.35 TB/s;
-// ~52 MB at subme 1, where the stack is one plane) for ~0.08 G integer
-// ops (~1 us). One MB per 64-thread CTA, with 16 or 8 threads busy in
-// the transform phases, keeps it far from either; a later PR can batch
-// MBs per CTA.
+// as K6's, decimated, with the trellis phase where given (warp 4 idle:
+// no 8x8 transform), and with the joint chroma AC decimation in pass 2
+// only (pass 1 has none). Bounded as K6 by bytes, by the count: pass 1
+// reads two half-pel stacks.
+// What bounds it on the H100: bytes, by the count (the source, the
+// half-pel planes, the padded chroma, and the recon and coefficient
+// planes out, as int32), with few operations an MB. In practice an MB's
+// chain of dependent phases (fetch, transform, decimation, recon; with
+// the trellis its 64-position cat-5 Viterbi and backtrack) and the CTAs
+// an SM holds set the time: one MB a CTA with most threads idle outside
+// the transform phases keeps it well above the bound.
 #include "t8.cuh"
 #include "trellis.cuh"
 
@@ -87,7 +93,6 @@ using namespace x264t;
 
 namespace {
 
-constexpr int NT = 64;
 constexpr int PAD = 32, CPAD = 16;
 
 __constant__ int kZig4P[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
@@ -149,22 +154,91 @@ __device__ __forceinline__ void nr_block(int* co, const int* off,
   }
 }
 
-template <int BP>
-__global__ void __launch_bounds__(NT) inter_mb_kernel(
-    const int* __restrict__ Y, const int* __restrict__ U,
-    const int* __restrict__ V, const int* __restrict__ planes,
-    const int* __restrict__ refu, const int* __restrict__ refv,
-    const int* __restrict__ ptype_g, const int* __restrict__ mv_quad,
-    const int* __restrict__ qtab_g, int* __restrict__ RY,
-    int* __restrict__ RU, int* __restrict__ RV, int* __restrict__ blocks_z,
-    int* __restrict__ cbp_o, int* __restrict__ chroma_dc_o,
-    int* __restrict__ chroma_ac_o, int* __restrict__ blocks8_o,
-    uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y,
-    int* __restrict__ cbp8_o, const int* __restrict__ qp_map,
-    const int* __restrict__ trellis_g, const int* __restrict__ ref_sel,
-    int mb_h, int mb_w, int n_planes, int decimate, int t8, const BArgs B,
-    const int* __restrict__ nr_off4, const int* __restrict__ nr_off8,
-    int* __restrict__ nr_abs4, int* __restrict__ nr_abs8, int lossless) {
+// the trellis phase's scratch a block, in words: its 8 * C history bytes
+// or its 2 * C float distortions, tr_pad(2 * C) apart (40 words for cat 2,
+// 4 and 3, 136 for cat 5), 4 blocks a warp; the offset of warp w's share
+// (0-3 cat 2, 4 cat 5, 5-6 cat 4, 7 cat 3)
+constexpr int TR_WORDS = 7 * 4 * 40 + 4 * 136;
+__device__ __forceinline__ int tr_scratch_at(int w) {
+  return 160 * w + (w > 4 ? 544 - 160 : 0);
+}
+
+// The trellis phase (TR): every block of the MB at once, 8 lanes a block
+// (trellis.cuh's trellis_lanes), one category a warp: warps 0-3 the 16
+// luma 4x4 blocks (cat 2), warp 4 the four 8x8 blocks (cat 5, with the
+// 8x8 transform), warps 5-6 the eight chroma AC blocks (cat 4) and warp 7
+// the two chroma DC blocks (cat 3; its other 16 lanes run channel 0 and 1
+// again, on copies, and write nothing). tab: the MB's table (TR_ layout)
+// in shared memory; the coefficients in scan order in c2 / c5 / c4, and
+// the chroma DC of each channel's four blocks in cdc, whose Hadamard
+// warp 7 puts in c3; hist and ssd: the trellis's shared scratch; the
+// levels go to lv / lv8 (raster) and clv (raster, position 0 kept) / l3
+// (the DC, raster).
+__device__ __forceinline__ void trellis_phase(
+    const int* tab, int (*c2)[24], int (*c5)[72], int (*c4)[24],
+    int (*cdc)[4], int (*c3)[4], unsigned char* hist, float* ssd,
+    int (*lv)[16], int (*lv8)[64], int (*clv)[4][16], int (*l3)[4], int t8) {
+  const int w = threadIdx.x >> 5, g = (threadIdx.x >> 3) & 3;
+  // each block's history bytes and distortions (tr_scratch_at)
+  const int at = tr_scratch_at(w) + g * (w == 4 ? 136 : 40);
+  unsigned char* h = hist + 4 * at;
+  float* sd = ssd + at;
+  if (w < 4) {
+    const int blk = 4 * w + g;
+    trellis_lanes<16>(c2[blk], trellis_tab(tab + TR_CAT2, 16), sd, h,
+                      [&](int i, int v) { lv[blk][kZig4P[i]] = v; });
+  } else if (w == 4) {
+    if (t8)
+      trellis_lanes<64>(c5[g], trellis_tab(tab + TR_CAT5, 64), sd, h,
+                        [&](int i, int v) { lv8[g][kZig8[i]] = v; });
+  } else if (w < 7) {
+    const int k = 4 * (w - 5) + g, ch = k >> 2, blk = k & 3;
+    trellis_lanes<15>(c4[k], trellis_tab(tab + TR_CAT4, 15), sd, h,
+                      [&](int i, int v) { clv[ch][blk][kZig4P[i + 1]] = v; });
+  } else {
+    const int lane = threadIdx.x & 31;
+    if (lane < 4) {                    // the 2x2 Hadamard of channel lane & 1
+      const int* d = cdc[lane & 1];
+      c3[lane][0] = d[0] + d[1] + d[2] + d[3];
+      c3[lane][1] = d[0] - d[1] + d[2] - d[3];
+      c3[lane][2] = d[0] + d[1] - d[2] - d[3];
+      c3[lane][3] = d[0] - d[1] - d[2] + d[3];
+    }
+    __syncwarp();
+    trellis_lanes<4>(c3[g], trellis_tab(tab + TR_CAT3, 4), sd, h,
+                     [&](int i, int v) {
+                       if (g < 2) l3[g][i] = v;
+                     });
+  }
+}
+
+// the parameters of the body and of its two entry points
+#define INTER_MB_PARAMS \
+    const int* __restrict__ Y, const int* __restrict__ U, \
+    const int* __restrict__ V, const int* __restrict__ planes, \
+    const int* __restrict__ refu, const int* __restrict__ refv, \
+    const int* __restrict__ ptype_g, const int* __restrict__ mv_quad, \
+    const int* __restrict__ qtab_g, int* __restrict__ RY, \
+    int* __restrict__ RU, int* __restrict__ RV, int* __restrict__ blocks_z, \
+    int* __restrict__ cbp_o, int* __restrict__ chroma_dc_o, \
+    int* __restrict__ chroma_ac_o, int* __restrict__ blocks8_o, \
+    uint8_t* __restrict__ t8_sel_o, int* __restrict__ R8Y, \
+    int* __restrict__ cbp8_o, const int* __restrict__ qp_map, \
+    const int* __restrict__ trellis_g, const int* __restrict__ ref_sel, \
+    int mb_h, int mb_w, int n_planes, int decimate, int t8, const BArgs B, \
+    const int* __restrict__ nr_off4, const int* __restrict__ nr_off8, \
+    int* __restrict__ nr_abs4, int* __restrict__ nr_abs8, int lossless
+#define INTER_MB_ARGS                                                       \
+  Y, U, V, planes, refu, refv, ptype_g, mv_quad, qtab_g, RY, RU, RV,         \
+      blocks_z, cbp_o, chroma_dc_o, chroma_ac_o, blocks8_o, t8_sel_o, R8Y,   \
+      cbp8_o, qp_map, trellis_g, ref_sel, mb_h, mb_w, n_planes, decimate,    \
+      t8, B, nr_off4, nr_off8, nr_abs4, nr_abs8, lossless
+
+// one MB of K6 / K22 on a CTA of 64 threads, or 256 with the trellis
+// phase (TR)
+template <int BP, bool TR>
+__device__ __forceinline__ void inter_mb_body(INTER_MB_PARAMS) {
+  constexpr int NT = TR ? 256 : 64;
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
   const int tid = threadIdx.x;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
@@ -180,20 +254,34 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
   __shared__ int had4[16], had8[4], lv8[4][64], score8[4], nz8[4], kill8[4];
   __shared__ int sel8, off4[16], off8[64];
   __shared__ int pred1[BP == 1 ? 256 : 1], pc1[BP == 1 ? 2 : 1][64], bsel;
+  // the trellis phase's table, coefficients in scan order, levels of the
+  // chroma DC and history bytes (TR only)
+  constexpr int TRS = TR ? 1 : 0;
+  __shared__ int trt[TR ? TR_K6_INTS : 1];
+  // (a block's coefficients 24 or 72 words apart: the 4 blocks of a
+  // warp on 4 banks)
+  __shared__ int tc2[16 * TRS + 1 - TRS][24], tc5[4 * TRS + 1 - TRS][72];
+  __shared__ int tc4[8 * TRS + 1 - TRS][24], tc3[4][4], tl3[2][4];
+  __shared__ unsigned char trh[TR ? 4 * TR_WORDS : 1];
+  __shared__ float trsd[TR ? TR_WORDS : 1];
   // the joint chroma AC decimation: K6's, off in B pass 1
   const int cdecim = BP == 1 ? 0 : decimate;
 
   // ---------------------------------------------------------- fetch
   // with a QP map (variance AQ) qtab_g is the 52-QP stack: the MB's row
   const int* qrow = qtab_g + (qp_map ? qp_map[mb] * QTABP_INTS : 0);
-  // the trellis table (trellis.cuh's TR_ layout), the MB's row with a map
-  const int* tr = trellis_g ? trellis_g + (qp_map ? qp_map[mb] * TR_K6_INTS : 0)
-                            : nullptr;
+  // the trellis table (trellis.cuh's TR_ layout), the MB's row with a
+  // map, staged in shared memory (TR: given a table)
+  const bool tr = TR;
+  if (TR) {
+    const int* trg = trellis_g + (qp_map ? qp_map[mb] * TR_K6_INTS : 0);
+    for (int i = tid; i < TR_K6_INTS; i += NT) trt[i] = trg[i];
+  }
   for (int i = tid; i < QTABP_INTS; i += NT)
     reinterpret_cast<int*>(&q)[i] = qrow[i];
   // the noise reduction's offsets (null: NR off)
   if (nr_off4 && tid < 16) off4[tid] = nr_off4[tid];
-  if (nr_off8) off8[tid] = nr_off8[tid];
+  if (nr_off8 && tid < 64) off8[tid] = nr_off8[tid];
   if (BP > 0) {
     // both lists' predictions: pass 2 keeps the MB's final one, pass 1
     // both until the decision below
@@ -321,23 +409,17 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
         dd[4 * r + c] = fenc[o] - pred[o];
       }
     if (t8 == 1) had4[tid] = abs_had4x4(dd);
-    int zz[16];
     if (lossless) {                    // the bypass: the samples are the levels
       for (int i = 0; i < 16; ++i) lv[tid][i] = dd[i];
     } else {
     dct4x4(dd, co);
     if (nr_off4) nr_block(co, off4, nr_abs4 + (mb * 16 + tid) * 16, 16);
-    if (tr) {                          // cat-2 trellis in zig-zag
-      int cz[16];
-      for (int j = 0; j < 16; ++j) cz[j] = co[kZig4P[j]];
-      trellis_block<16>(cz, trellis_tab(tr + TR_CAT2, 16), zz);
-      for (int j = 0; j < 16; ++j) lv[tid][kZig4P[j]] = zz[j];
+    if (tr) {                          // cat 2 in zig-zag: the trellis phase
+      for (int j = 0; j < 16; ++j) tc2[tid][j] = co[kZig4P[j]];
     } else {
       for (int i = 0; i < 16; ++i) lv[tid][i] = quant(co[i], q.py_mf[i], q.py_bias[i]);
     }
     }
-    for (int j = 0; j < 16; ++j) zz[j] = lv[tid][kZig4P[j]];
-    score[tid] = decimate_score(zz, 16);
   } else if (t8 && tid >= 48 && tid < 56) {  // 8x8 block k: levels, or Hadamard
     const int k = tid & 3, r0 = 8 * (k >> 1), c0 = 8 * (k & 1);
     int dd[64];
@@ -346,19 +428,14 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
       dd[i] = fenc[o] - pred[o];
     }
     if (tid < 52) {
-      int co[64], zz[64];
+      int co[64];
       dct8x8(dd, co);
       if (nr_off8) nr_block(co, off8, nr_abs8 + (mb * 4 + k) * 64, 64);
-      if (tr) {                        // cat-5 trellis in ZIGZAG8
-        int cz[64];
-        for (int j = 0; j < 64; ++j) cz[j] = co[kZig8[j]];
-        trellis_block<64>(cz, trellis_tab(tr + TR_CAT5, 64), zz);
-        for (int j = 0; j < 64; ++j) lv8[k][kZig8[j]] = zz[j];
+      if (tr) {                        // cat 5 in ZIGZAG8: the trellis phase
+        for (int j = 0; j < 64; ++j) tc5[k][j] = co[kZig8[j]];
       } else {
         for (int i = 0; i < 64; ++i) lv8[k][i] = quant(co[i], q.p8_mf[i], q.p8_bias[i]);
       }
-      for (int j = 0; j < 64; ++j) zz[j] = lv8[k][kZig8[j]];
-      score8[k] = decimate_score8(zz);
     } else if (t8 == 1) {
       had8[k] = abs_had8x8(dd);
     }
@@ -370,7 +447,6 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
         int o = (4 * by + r) * 8 + 4 * bx + c;
         dd[4 * r + c] = fc[ch][o] - pc[ch][o];
       }
-    int zz[15];
     if (lossless) {                    // the bypass: sample 0 rides the DC
       cdc[ch][blk] = dd[0];
       clv[ch][blk][0] = 0;
@@ -379,16 +455,38 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     dct4x4(dd, co);
     cdc[ch][blk] = co[0];
     co[0] = 0;
-    if (tr) {                          // cat-4 trellis on zig-zag 1..15
-      int cz[15];
-      for (int j = 1; j < 16; ++j) cz[j - 1] = co[kZig4P[j]];
-      trellis_block<15>(cz, trellis_tab(tr + TR_CAT4, 15), zz);
+    if (tr) {                          // cat 4 on zig-zag 1..15: the trellis
       clv[ch][blk][0] = 0;
-      for (int j = 1; j < 16; ++j) clv[ch][blk][kZig4P[j]] = zz[j - 1];
+      for (int j = 1; j < 16; ++j) tc4[k][j - 1] = co[kZig4P[j]];
     } else {
       for (int i = 0; i < 16; ++i) clv[ch][blk][i] = quant(co[i], q.pc_mf[i], q.pc_bias[i]);
     }
     }
+  }
+
+  // ------------------------------------------------ the trellis phase
+  if constexpr (TR) {
+    if (!lossless) {
+      __syncthreads();
+      trellis_phase(trt, tc2, tc5, tc4, cdc, tc3, trh, trsd, lv, lv8, clv,
+                    tl3, t8);
+      __syncthreads();
+    }
+  }
+
+  // ------------------------------------------------ decimation scores
+  if (tid < 16) {
+    int zz[16];
+    for (int j = 0; j < 16; ++j) zz[j] = lv[tid][kZig4P[j]];
+    score[tid] = decimate_score(zz, 16);
+  } else if (t8 && tid >= 48 && tid < 52) {
+    const int k = tid & 3;
+    int zz[64];
+    for (int j = 0; j < 64; ++j) zz[j] = lv8[k][kZig8[j]];
+    score8[k] = decimate_score8(zz);
+  } else if (tid >= 32 && tid < 40) {
+    const int k = tid - 32, ch = k >> 2, blk = k & 3;
+    int zz[15];
     for (int j = 1; j < 16; ++j) zz[j - 1] = clv[ch][blk][kZig4P[j]];
     cscore[k] = decimate_score(zz, 15);
   }
@@ -492,8 +590,8 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
     int l[4];
     if (lossless)                      // the samples, untransformed
       for (int i = 0; i < 4; ++i) l[i] = cdc[ch][i];
-    else if (tr)                       // cat-3 trellis, raster order
-      trellis_block<4>(h, trellis_tab(tr + TR_CAT3, 4), l);
+    else if (tr)                       // the trellis phase's cat 3
+      for (int i = 0; i < 4; ++i) l[i] = tl3[ch][i];
     else
       for (int i = 0; i < 4; ++i) l[i] = quant(h[i], q.pc_mf_dc, q.pc_bias_dc);
     int gg[4] = {l[0] + l[1] + l[2] + l[3], l[0] - l[1] + l[2] - l[3],
@@ -532,6 +630,29 @@ __global__ void __launch_bounds__(NT) inter_mb_kernel(
   }
 }
 
+// K6 / K22 without the trellis: 64 threads a CTA
+template <int BP>
+__global__ void __launch_bounds__(64) inter_mb_kernel(INTER_MB_PARAMS) {
+  inter_mb_body<BP, false>(INTER_MB_ARGS);
+}
+
+// K6 / K22 with the trellis phase: 256 threads a CTA, their registers
+// held to 64 so that an SM holds 4 CTAs
+template <int BP>
+__global__ void __launch_bounds__(256, 4)
+    inter_mb_trellis_kernel(INTER_MB_PARAMS) {
+  inter_mb_body<BP, true>(INTER_MB_ARGS);
+}
+
+// one MB a CTA: the trellis kernel given a table, else the 64-thread one
+template <int BP, class... A>
+void launch_inter(const int* trellis, int nmb, cudaStream_t s, A... a) {
+  if (trellis)
+    inter_mb_trellis_kernel<BP><<<nmb, 256, 0, s>>>(a...);
+  else
+    inter_mb_kernel<BP><<<nmb, 64, 0, s>>>(a...);
+}
+
 }  // namespace
 
 extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
@@ -548,11 +669,12 @@ extern "C" int p_inter_mb(const int* y, const int* u, const int* v,
                           int t8, int lossless, void* stream) {
   // ref_sel: null with one reference; else each MB's, and n_planes the
   // half-pel planes of each reference in the stack
-  inter_mb_kernel<0><<<mb_h * mb_w, NT, 0, (cudaStream_t)stream>>>(
-      y, u, v, planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
-      recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac, blocks8, t8_sel,
-      recon8_y, cbp8, qp_map, trellis, ref_sel, mb_h, mb_w, n_planes,
-      decimate, t8, BArgs{}, nr_off4, nr_off8, nr_abs4, nr_abs8, lossless);
+  launch_inter<0>(trellis, mb_h * mb_w, (cudaStream_t)stream, y, u, v,
+                  planes, refu_pad, refv_pad, ptype, mv_quad, qtab, recon_y,
+                  recon_u, recon_v, blocks_z, cbp, chroma_dc, chroma_ac,
+                  blocks8, t8_sel, recon8_y, cbp8, qp_map, trellis, ref_sel,
+                  mb_h, mb_w, n_planes, decimate, t8, BArgs{}, nr_off4,
+                  nr_off8, nr_abs4, nr_abs8, lossless);
   return (int)cudaGetLastError();
 }
 
@@ -573,16 +695,16 @@ extern "C" int b_inter_mb(const int* y, const int* u, const int* v,
                 r1, bmode, cost_inter, lam};
   cudaStream_t s = (cudaStream_t)stream;
   if (satd0 != nullptr)
-    inter_mb_kernel<1><<<mb_h * mb_w, NT, 0, s>>>(
-        y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
-        recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
-        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B,
-        nullptr, nullptr, nullptr, nullptr, 0);
+    launch_inter<1>(trellis, mb_h * mb_w, s, y, u, v, planes0, cu0, cv0,
+                    nullptr, nullptr, qtab, recon_y, recon_u, recon_v,
+                    blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w,
+                    4, 1, 0, B, nullptr, nullptr, nullptr, nullptr, 0);
   else
-    inter_mb_kernel<2><<<mb_h * mb_w, NT, 0, s>>>(
-        y, u, v, planes0, cu0, cv0, nullptr, nullptr, qtab, recon_y, recon_u,
-        recon_v, blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
-        nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w, 4, 1, 0, B,
-        nullptr, nullptr, nullptr, nullptr, 0);
+    launch_inter<2>(trellis, mb_h * mb_w, s, y, u, v, planes0, cu0, cv0,
+                    nullptr, nullptr, qtab, recon_y, recon_u, recon_v,
+                    blocks_z, cbp, chroma_dc, chroma_ac, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, trellis, nullptr, mb_h, mb_w,
+                    4, 1, 0, B, nullptr, nullptr, nullptr, nullptr, 0);
   return (int)cudaGetLastError();
 }

@@ -11,19 +11,26 @@
 // names without _plain.
 //
 // Design.
-//   K10, one 128-thread CTA per block (16x16, 16x8, 8x16 or 8x8; one
-//   launch per batch of blocks). Every candidate of a block shares the
-//   full-pel start, so the CTA stages the (bh+3)x(bw+3) window of each
-//   of the four half-pel planes (start taken as dynamic_slice takes it,
-//   ds_start) and the source block in shared memory. The work items are
-//   (candidate, 4x4 block) pairs: the prediction is (a + b + 1) >> 1 of
-//   the two planes the qpel phase names (the hpel_ref0/1 tables), and
-//   each item stores its 4x4 Hadamard abs-sum. One thread per candidate
-//   then halves the sums per 8x4 pair (per 4x4 block for 4-wide shapes,
-//   pixel.py:satd) and adds lam * mv bits. Candidates run dy outer, dx
-//   inner (9 half-pel ones at steps (2,), all 49 within +-3 at (2, 1));
-//   the winner is the minimum of (cost << 32 | candidate), so the first
-//   of equal costs wins, as argmin does.
+//   K10, a warp per block and four blocks to a 128-thread CTA, the
+//   block shape (16x16, 16x8, 8x16 or 8x8) and the candidate set
+//   template parameters, so that every index division is by a constant.
+//   Every candidate of a block shares the full-pel start, so the warp
+//   stages the (bh+3)x(bw+3) window of each of the four half-pel planes
+//   (start taken as dynamic_slice takes it, ds_start) in its share of
+//   shared memory, with no barrier beyond __syncwarp. Each lane owns one
+//   8x4 pair of 4x4 blocks (its 32 source samples in registers) and
+//   takes it for 32 / (pairs a block) candidates a round: the
+//   prediction is (a + b + 1) >> 1 of the two planes the qpel phase
+//   names (the hpel_ref0/1 tables as two 32-bit constants), the pair's
+//   two Hadamard abs-sums are halved together (pixel.py:satd), and xor
+//   shuffles over the lanes of a candidate sum its SATD; the lane that
+//   holds it adds lam * mv bits. Candidates run dy outer, dx inner (9
+//   half-pel ones at steps (2,), all 49 within +-3 at (2, 1)); the
+//   winner is the warp's minimum of (cost << 32 | candidate), so the
+//   first of equal costs wins, as argmin does. The partition layouts of
+//   a P frame (16x8, 8x16, and 8x8 with P8x8) run in one launch
+//   (subpel_refine_parts): their blocks on CTAs of their own, each CTA
+//   taking its shape from its index.
 //   K11, one 256-thread CTA per MB: the 22x22 window of the padded
 //   reference around the clamped 16x16 full-pel winner and the 16x16
 //   source in shared memory; the 49 offsets x 4 quadrants are SADs of 64
@@ -45,14 +52,14 @@
 //   chroma planes of each channel; K11 the two padded luma planes). The
 //   index only moves the base pointer a block reads from, so one launch
 //   serves both references; a null index reads reference 0.
-// What bounds them on the H100, at 1080p (8160 MBs): operations.
-//   K10 at (2, 1) on 16x16 blocks: 49 x 16 4x4 blocks of ~180 integer
-//   ops per MB, 1.15 G ops (~17 us at the ALU rate) against ~13 MB of
-//   window, source and MV traffic (~4 us); the partition calls do the
-//   same work over their blocks. K11: 49 x 256 samples x 3 ops per MB,
-//   0.31 G ops (~4.6 us). K12: 5 x 24 4x4 SATDs and the fetches per MB,
-//   ~0.2 G ops (~3 us). One block per CTA leaves most threads idle in
-//   the reduction phases; a later PR can batch blocks per CTA.
+// What bounds them on the H100: operations, by the count (K10: the
+// 4x4 Hadamards of every candidate and block; K11: the SADs of 49
+// offsets; K12: 5 x 24 4x4 SATDs and the fetches an MB), the windows
+// and sources being few bytes. K10's lanes are busy in every round but
+// the last; the staging of the windows from global memory and the
+// rounds' shared loads are what keep it above the count's time. K11
+// and K12 keep one MB to a CTA with threads idle in their reduction
+// steps.
 #include "common.cuh"
 
 using namespace x264t;
@@ -62,89 +69,156 @@ namespace {
 constexpr int PAD = 32, CPAD = 16;
 
 // ---------------------------------------------------------------- K10
-constexpr int SP_NT = 128;
-constexpr int SP_MAXW = 19;                      // bh + 3 at most
+constexpr int SP_WARPS = 4, SP_NT = 32 * SP_WARPS;
+// the qpel phase's two half-pel planes (kHpelRef0 / kHpelRef1), two bits
+// a phase: a shift, where the phases of a warp's lanes differ
+constexpr unsigned kRef0Bits = 0x54fe5454u, kRef1Bits = 0xbababa10u;
 
+// the windows' ints of one warp: four (bh + 3) x (bw + 3) planes
+template <int BH, int BW>
+__host__ __device__ constexpr int sp_win() { return 4 * (BH + 3) * (BW + 3); }
+
+// One block of K10 on one warp: the four plane windows (their start as
+// dynamic_slice takes it) staged in the warp's shared ints `win`; each
+// lane takes one 8x4 pair of the block (its source samples in registers)
+// for CPR candidates a round, so a candidate's SATD is the sum over NP
+// consecutive lanes (xor shuffles) of the pairs' halved Hadamard sums;
+// the first minimum of (cost << 32 | candidate), candidates dy outer and
+// dx inner, by a warp reduction. Writes mv_o[2 * o .. 2 * o + 1] and
+// satd_o[o].
+template <int BH, int BW, bool QPEL>
+__device__ __forceinline__ void subpel_warp(
+    const int* __restrict__ cur, const int* __restrict__ P, int H, int W,
+    int by0, int bx0, int mvx, int mvy, int px, int py, int lam, int* win,
+    int* csatd, int* __restrict__ mv_o, int* __restrict__ satd_o, int o) {
+  constexpr int WY = BH + 3, WX = BW + 3, WN = WY * WX;
+  constexpr int NCAND = QPEL ? 49 : 9, SIDE = QPEL ? 7 : 3, STEP = QPEL ? 1 : 2;
+  constexpr int NP = (BH / 4) * (BW / 8), CPR = 32 / NP;
+  constexpr int ROUNDS = (NCAND + CPR - 1) / CPR;
+  const int lane = threadIdx.x & 31;
+  const int Hp = H + 2 * PAD, Wp = W + 2 * PAD;
+  const size_t plane = (size_t)Hp * Wp;
+  const int y0 = ds_start(by0 + (mvy >> 2) - 1 + PAD, Hp, WY);
+  const int x0 = ds_start(bx0 + (mvx >> 2) - 1 + PAD, Wp, WX);
+#pragma unroll 4
+  for (int i = lane; i < 4 * WN; i += 32) {
+    const int p = i / WN, k = i - p * WN, r = k / WX, c = k - r * WX;
+    win[i] = P[p * plane + (size_t)(y0 + r) * Wp + x0 + c];
+  }
+  // the lane's 8x4 pair of the source block
+  const int pr = lane % NP;
+  const int r0 = (pr / (BW / 8)) * 4, c0 = (pr % (BW / 8)) * 8;
+  int src[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    src[i] = cur[(size_t)(by0 + r0 + (i >> 3)) * W + bx0 + c0 + (i & 7)];
+  __syncwarp();
+  unsigned long long best = ~0ull;
+#pragma unroll 1
+  for (int rd = 0; rd < ROUNDS; ++rd) {
+    const int cand = rd * CPR + lane / NP;
+    const int cc = min(cand, NCAND - 1);      // past the last: a duplicate
+    const int ox = (cc % SIDE - SIDE / 2) * STEP;
+    const int oy = (cc / SIDE - SIDE / 2) * STEP;
+    const int fx = ox & 3, fy = oy & 3, q = (fy << 2) | fx;
+    const int* pa = win + (int)((kRef0Bits >> (2 * q)) & 3u) * WN
+                  + (1 + (oy >> 2) + (fy == 3) + r0) * WX + 1 + (ox >> 2) + c0;
+    const int* pb = win + (int)((kRef1Bits >> (2 * q)) & 3u) * WN
+                  + (1 + (oy >> 2) + r0) * WX + 1 + (ox >> 2) + (fx == 3) + c0;
+    int sh[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int d[16];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int at = r * WX + 4 * h + c;
+          d[4 * r + c] = src[8 * r + 4 * h + c] - ((pa[at] + pb[at] + 1) >> 1);
+        }
+      sh[h] = abs_had4x4(d);
+    }
+    int satd = (sh[0] + sh[1]) >> 1;
+#pragma unroll
+    for (int off = NP / 2; off >= 1; off >>= 1)
+      satd += __shfl_xor_sync(0xffffffffu, satd, off);
+    if (pr == 0 && cand < NCAND) {
+      csatd[cand] = satd;
+      const int cost = satd + lam * (se_bits(mvx + ox - px) + se_bits(mvy + oy - py));
+      const unsigned long long key =
+          ((unsigned long long)(unsigned)cost << 32) | (unsigned)cand;
+      best = key < best ? key : best;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, off);
+    best = other < best ? other : best;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    const int cand = (int)(best & 0xffffffffu);
+    mv_o[2 * o] = mvx + (cand % SIDE - SIDE / 2) * STEP;
+    mv_o[2 * o + 1] = mvy + (cand / SIDE - SIDE / 2) * STEP;
+    satd_o[o] = csatd[cand];
+  }
+}
+
+// K10 on n blocks of one shape at top-left (ys, xs), a warp a block
+template <int BH, int BW, bool QPEL>
 __global__ void __launch_bounds__(SP_NT) subpel_kernel(
     const int* __restrict__ cur, const int* __restrict__ planes,
     const int* __restrict__ mv, const int* __restrict__ mvp,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const int* __restrict__ ref_sel, int* __restrict__ mv_o,
-    int* __restrict__ satd_o, int H, int W, int bh, int bw, int lam,
-    int qpel) {
-  const int n = blockIdx.x, tid = threadIdx.x;
-  const int Hp = H + 2 * PAD, Wp = W + 2 * PAD;
-  const size_t plane = (size_t)Hp * Wp;
-  const int* P = planes + (ref_sel ? 4 * ref_sel[n] * plane : 0);
-  const int wy = bh + 3, wx = bw + 3;
-  const int by0 = ys[n], bx0 = xs[n];
-  const int mvx = mv[2 * n], mvy = mv[2 * n + 1];
-  const int px = mvp[2 * n], py = mvp[2 * n + 1];
-  const int ncand = qpel ? 49 : 9, side = qpel ? 7 : 3;
-  const int b4w = bw / 4, nb4 = (bh / 4) * b4w;
+    int* __restrict__ satd_o, int n, int H, int W, int lam) {
+  __shared__ int win[SP_WARPS][sp_win<BH, BW>()];
+  __shared__ int csatd[SP_WARPS][49];
+  const int w = threadIdx.x >> 5, b = blockIdx.x * SP_WARPS + w;
+  if (b >= n) return;
+  const size_t plane = (size_t)(H + 2 * PAD) * (W + 2 * PAD);
+  const int* P = planes + (ref_sel ? 4 * ref_sel[b] * plane : 0);
+  subpel_warp<BH, BW, QPEL>(cur, P, H, W, ys[b], xs[b], mv[2 * b],
+                            mv[2 * b + 1], mvp[2 * b], mvp[2 * b + 1], lam,
+                            win[w], csatd[w], mv_o, satd_o, b);
+}
 
-  __shared__ int win[4][SP_MAXW * SP_MAXW];
-  __shared__ int cb[256];
-  __shared__ int s44[49 * 16];
-  __shared__ unsigned long long best;
-  __shared__ int csatd[49];
-
-  const int y0 = ds_start(by0 + (mvy >> 2) - 1 + PAD, Hp, wy);
-  const int x0 = ds_start(bx0 + (mvx >> 2) - 1 + PAD, Wp, wx);
-  for (int i = tid; i < 4 * wy * wx; i += SP_NT) {
-    const int p = i / (wy * wx), k = i % (wy * wx), r = k / wx, c = k % wx;
-    win[p][k] = P[p * plane + (size_t)(y0 + r) * Wp + x0 + c];
-  }
-  for (int i = tid; i < bh * bw; i += SP_NT)
-    cb[i] = cur[(size_t)(by0 + i / bw) * W + bx0 + i % bw];
-  if (tid == 0) best = ~0ull;
-  __syncthreads();
-
-  for (int k = tid; k < ncand * nb4; k += SP_NT) {
-    const int cand = k / nb4, b = k % nb4;
-    const int step = qpel ? 1 : 2;
-    const int ox = (cand % side - side / 2) * step;
-    const int oy = (cand / side - side / 2) * step;
-    const int fx = ox & 3, fy = oy & 3, q = (fy << 2) | fx;
-    const int* pa = win[kHpelRef0[q]];
-    const int* pb = win[kHpelRef1[q]];
-    const int ay = 1 + (oy >> 2) + (fy == 3), ax = 1 + (ox >> 2);
-    const int byy = 1 + (oy >> 2), bxx = 1 + (ox >> 2) + (fx == 3);
-    const int r0 = (b / b4w) * 4, c0 = (b % b4w) * 4;
-    int d[16];
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) {
-        const int rr = r0 + r, cc = c0 + c;
-        const int pred = (pa[(ay + rr) * wx + ax + cc] + pb[(byy + rr) * wx + bxx + cc] + 1) >> 1;
-        d[4 * r + c] = cb[rr * bw + cc] - pred;
-      }
-    s44[cand * 16 + b] = abs_had4x4(d);
-  }
-  __syncthreads();
-  if (tid < ncand) {
-    const int cand = tid;
-    const int step = qpel ? 1 : 2;
-    const int ox = (cand % side - side / 2) * step;
-    const int oy = (cand / side - side / 2) * step;
-    const int* s = s44 + cand * 16;
-    int satd = 0;
-    if (b4w % 2 == 0) {
-      for (int b = 0; b < nb4; b += 2) satd += (s[b] + s[b + 1]) >> 1;
-    } else {
-      for (int b = 0; b < nb4; ++b) satd += s[b] >> 1;
-    }
-    csatd[cand] = satd;
-    const int cost = satd + lam * (se_bits(mvx + ox - px) + se_bits(mvy + oy - py));
-    atomicMin(&best, ((unsigned long long)(unsigned)cost << 32) | (unsigned)cand);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const int cand = (int)(best & 0xffffffffu);
-    const int step = qpel ? 1 : 2;
-    mv_o[2 * n] = mvx + (cand % side - side / 2) * step;
-    mv_o[2 * n + 1] = mvy + (cand / side - side / 2) * step;
-    satd_o[n] = csatd[cand];
-  }
+// K10 on the partition layouts of a P frame in one launch: the rows of
+// partition_fullpel's result (0-1 16x8 top / bottom, 2-3 8x16 left /
+// right, 4-7 the 8x8 quadrants; nk 4 or 8 rows), block k = row * nmb +
+// mb, each layout's blocks on CTAs of their own, a CTA's shape chosen
+// from its index; every block of an MB takes the MB's predictor and
+// reference
+template <bool QPEL>
+__global__ void __launch_bounds__(SP_NT) subpel_parts_kernel(
+    const int* __restrict__ cur, const int* __restrict__ planes,
+    const int* __restrict__ mv, const int* __restrict__ mvp,
+    const int* __restrict__ ref_sel, int* __restrict__ mv_o,
+    int* __restrict__ satd_o, int mb_h, int mb_w, int nk, int lam) {
+  __shared__ int win[SP_WARPS][sp_win<8, 16>()];
+  __shared__ int csatd[SP_WARPS][49];
+  const int nmb = mb_h * mb_w, w = threadIdx.x >> 5;
+  const int c2 = (2 * nmb + SP_WARPS - 1) / SP_WARPS;   // CTAs of a 2-row layout
+  const int layout = min((int)blockIdx.x / c2, 2);
+  const int k = 2 * layout * nmb + ((int)blockIdx.x - layout * c2) * SP_WARPS + w;
+  if (k >= (layout < 2 ? 2 * layout + 2 : nk) * nmb) return;
+  const int row = k / nmb, mb = k - row * nmb;
+  const int H = mb_h * 16, W = mb_w * 16;
+  const size_t plane = (size_t)(H + 2 * PAD) * (W + 2 * PAD);
+  const int* P = planes + (ref_sel ? 4 * ref_sel[mb] * plane : 0);
+  const int by = (mb / mb_w) * 16, bx = (mb % mb_w) * 16;
+  const int mvx = mv[2 * k], mvy = mv[2 * k + 1];
+  const int px = mvp[2 * mb], py = mvp[2 * mb + 1];
+  if (layout == 0)
+    subpel_warp<8, 16, QPEL>(cur, P, H, W, by + 8 * row, bx, mvx, mvy, px,
+                             py, lam, win[w], csatd[w], mv_o, satd_o, k);
+  else if (layout == 1)
+    subpel_warp<16, 8, QPEL>(cur, P, H, W, by, bx + 8 * (row - 2), mvx, mvy,
+                             px, py, lam, win[w], csatd[w], mv_o, satd_o, k);
+  else
+    subpel_warp<8, 8, QPEL>(cur, P, H, W, by + 8 * ((row - 4) >> 1),
+                            bx + 8 * (row & 1), mvx, mvy, px, py, lam, win[w],
+                            csatd[w], mv_o, satd_o, k);
 }
 
 // ---------------------------------------------------------------- K11
@@ -304,21 +378,69 @@ __global__ void __launch_bounds__(CR_NT) rerank_kernel(
   }
 }
 
+template <int BH, int BW, bool QPEL>
+void launch_subpel(cudaStream_t s, const int* cur, const int* planes,
+                   const int* mv, const int* mvp, const int* ys, const int* xs,
+                   const int* ref_sel, int* mv_o, int* satd_o, int n, int H,
+                   int W, int lam) {
+  subpel_kernel<BH, BW, QPEL><<<(n + SP_WARPS - 1) / SP_WARPS, SP_NT, 0, s>>>(
+      cur, planes, mv, mvp, ys, xs, ref_sel, mv_o, satd_o, n, H, W, lam);
+}
+
+template <bool QPEL>
+int subpel_shape(cudaStream_t s, int bh, int bw, const int* cur,
+                 const int* planes, const int* mv, const int* mvp,
+                 const int* ys, const int* xs, const int* ref_sel, int* mv_o,
+                 int* satd_o, int n, int H, int W, int lam) {
+  if (bh == 16 && bw == 16)
+    launch_subpel<16, 16, QPEL>(s, cur, planes, mv, mvp, ys, xs, ref_sel, mv_o, satd_o, n, H, W, lam);
+  else if (bh == 8 && bw == 16)
+    launch_subpel<8, 16, QPEL>(s, cur, planes, mv, mvp, ys, xs, ref_sel, mv_o, satd_o, n, H, W, lam);
+  else if (bh == 16 && bw == 8)
+    launch_subpel<16, 8, QPEL>(s, cur, planes, mv, mvp, ys, xs, ref_sel, mv_o, satd_o, n, H, W, lam);
+  else if (bh == 8 && bw == 8)
+    launch_subpel<8, 8, QPEL>(s, cur, planes, mv, mvp, ys, xs, ref_sel, mv_o, satd_o, n, H, W, lam);
+  else
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
-// ref_sel (K10: one per block; K11, K12: one per MB) may be null: one
-// reference
+// ref_sel (K10: one per block, or per MB for the partition layouts; K11,
+// K12: one per MB) may be null: one reference
 extern "C" int subpel_refine(const int* cur, const int* planes, const int* mv,
                              const int* mvp, const int* ys, const int* xs,
                              const int* ref_sel, int* mv_o, int* satd_o,
                              int n, int H, int W, int bh, int bw, int lam,
                              int qpel, void* stream) {
-  if (bh + 3 > SP_MAXW || bw + 3 > SP_MAXW || bh * bw > 256)
-    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  subpel_kernel<<<n, SP_NT, 0, (cudaStream_t)stream>>>(
-      cur, planes, mv, mvp, ys, xs, ref_sel, mv_o, satd_o, H, W, bh, bw, lam,
-      qpel);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = qpel ? subpel_shape<true>(s, bh, bw, cur, planes, mv, mvp, ys, xs,
+                                            ref_sel, mv_o, satd_o, n, H, W, lam)
+                       : subpel_shape<false>(s, bh, bw, cur, planes, mv, mvp, ys, xs,
+                                             ref_sel, mv_o, satd_o, n, H, W, lam);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// the 16x8, 8x16 and (nk 8) 8x8 layouts in one launch: mv (nk, mb_h,
+// mb_w, 2) partition_fullpel's rows, mvp and ref_sel per MB; mv_o / satd_o
+// as mv / its first three axes
+extern "C" int subpel_refine_parts(const int* cur, const int* planes,
+                                   const int* mv, const int* mvp,
+                                   const int* ref_sel, int* mv_o, int* satd_o,
+                                   int mb_h, int mb_w, int nk, int lam,
+                                   int qpel, void* stream) {
+  if (nk != 4 && nk != 8) return (int)cudaErrorInvalidValue;
+  const int nmb = mb_h * mb_w, c2 = (2 * nmb + SP_WARPS - 1) / SP_WARPS;
+  const int grid = 2 * c2 + (nk == 8 ? (4 * nmb + SP_WARPS - 1) / SP_WARPS : 0);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (qpel)
+    subpel_parts_kernel<true><<<grid, SP_NT, 0, s>>>(
+        cur, planes, mv, mvp, ref_sel, mv_o, satd_o, mb_h, mb_w, nk, lam);
+  else
+    subpel_parts_kernel<false><<<grid, SP_NT, 0, s>>>(
+        cur, planes, mv, mvp, ref_sel, mv_o, satd_o, mb_h, mb_w, nk, lam);
   return (int)cudaGetLastError();
 }
 

@@ -5,39 +5,51 @@
 // shared by every block, or row-gathered from the 52-QP stacks of
 // make_consts_all_qp by a per-block qp_idx). Plain twin:
 // x264_tpu_torch/ops/trellis.py:trellis_scan_plain; wrapper:
-// trellis_scan. The device code is trellis.cuh's trellis_block, which K6
-// runs inside its inter residual too.
+// trellis_scan. The device code is trellis.cuh's trellis_lanes, which K6
+// and K22 run inside their inter residual too.
 //
-// Design. One thread per block, 128 threads a CTA, one launch. The
-// thread reads its C coefficients and its table row (the shared table,
-// or row qp_idx[b] of the stack) from global memory, keeps the 8 node
-// scores in registers and the backtrack history (one byte per position
-// and node) in local memory, and writes its C levels.
-// What bounds it on the H100: operations. Per position it scores 2
-// candidates from 8 nodes (a handful of float and integer operations
-// each); the bytes are the coefficients in and the levels out. A thread
-// per block with scattered row reads keeps it far from either bound; a
-// later PR can give a block a warp.
+// Design. 8 lanes a block (one per trellis node), 4 blocks a warp, 16 a
+// 128-thread CTA, one launch. The CTA stages its blocks' coefficients
+// (one coalesced run of 16 * C ints) and, with a shared table, the
+// category's table in shared memory; with a QP index each block's lanes
+// read their row of the stack through L1. A block past N runs on a copy
+// of the last block and writes nothing, so that every lane of a warp
+// takes part in the shuffles.
+// What bounds it on the H100: latency and the instructions a position
+// takes on every lane, as trellis.cuh says; the bytes are the
+// coefficients in and the levels out.
 #include "trellis.cuh"
 
 using namespace x264t;
 
 namespace {
 
-constexpr int NT = 128;
+constexpr int NT = 128, NB = NT / 8;
 
 template <int C>
 __global__ void __launch_bounds__(NT) trellis_kernel(
     const int* __restrict__ coefs, const int* __restrict__ tab,
     const int* __restrict__ qp_idx, int* __restrict__ out, int n) {
-  const int b = blockIdx.x * NT + threadIdx.x;
-  if (b >= n) return;
-  const int* row = tab + (qp_idx ? (size_t)qp_idx[b] * trellis_ints(C) : 0);
-  const TrellisTab t = trellis_tab(row, C);
-  int cf[C], lv[C];
-  for (int i = 0; i < C; ++i) cf[i] = coefs[(size_t)b * C + i];
-  trellis_block<C>(cf, t, lv);
-  for (int i = 0; i < C; ++i) out[(size_t)b * C + i] = lv[i];
+  // each block's coefficients, distortions and history bytes, a block's
+  // rows tr_pad apart
+  __shared__ int cf[NB][tr_pad(C)];
+  __shared__ int st[trellis_ints(C)];
+  __shared__ float ssd[NB][tr_pad(2 * C)];
+  __shared__ unsigned char hist[NB][4 * tr_pad(2 * C)];
+  const int tid = threadIdx.x, b0 = blockIdx.x * NB;
+  for (int i = tid; i < NB * C; i += NT)
+    cf[i / C][i % C] = coefs[(size_t)min(b0 + i / C, n - 1) * C + i % C];
+  if (!qp_idx)
+    for (int i = tid; i < trellis_ints(C); i += NT) st[i] = tab[i];
+  __syncthreads();
+  const int k = tid >> 3, b = min(b0 + k, n - 1);
+  const int* row = qp_idx ? tab + (size_t)qp_idx[b] * trellis_ints(C) : st;
+  int* o = out + (size_t)b * C;
+  const bool live = b0 + k < n;
+  trellis_lanes<C>(cf[k], trellis_tab(row, C), ssd[k], hist[k],
+                   [&](int i, int v) {
+                     if (live) o[i] = v;
+                   });
 }
 
 }  // namespace
@@ -45,7 +57,7 @@ __global__ void __launch_bounds__(NT) trellis_kernel(
 extern "C" int trellis_scan(const int* coefs, const int* tab, const int* qp_idx,
                             int* out, int n, int C, void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid((n + NT - 1) / NT);
+  const dim3 grid((n + NB - 1) / NB);
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
     case 4: trellis_kernel<4><<<grid, NT, 0, s>>>(coefs, tab, qp_idx, out, n); break;

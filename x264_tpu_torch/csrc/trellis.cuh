@@ -1,6 +1,6 @@
 // The CABAC trellis's device code, shared by K20 (trellis.cu, the
-// standalone batched trellis) and K6 (inter.cu, which runs it in place of
-// its deadzone quant when given a trellis table).
+// standalone batched trellis) and K6 / K22 (inter.cu, which run it in
+// place of their deadzone quant when given a trellis table).
 //
 // The per-block form of x264_tpu_torch/ops/trellis.py:trellis_scan_plain
 // (x264_tpu/ops/trellis.py:236 trellis_scan; quant_trellis_cabac,
@@ -12,6 +12,31 @@
 // nothing on its own: ssd = (d * d) * w2, base = score + ssd, and the
 // candidate's score base + bits * lam2, as one __fmaf_rn where x264_tpu's
 // XLA CPU code rounds it once (trellis.py:_score says where).
+//
+// Design. A block takes 8 lanes of a warp, one lane per node (lane j of
+// the group keeps node j's score in a register). The lanes first work
+// out, a position each in turn, what no node changes (q and the two
+// candidates' distortions) into shared memory. At each position every
+// lane then scores its own node's contribution for both candidates, and
+// each destination node gathers the contributions that reach it with
+// __shfl_sync from a fixed set of lanes in its group (the previous node,
+// and for node 4 nodes 0-2 as well) and keeps the first strict minimum
+// by selects: a handful of dependent float steps and eight shuffles, the
+// same instructions on every lane, instead of 16 node updates on one
+// thread. Where every block of the warp quantises the position to zero
+// (most positions at the usual QPs) each node only takes its own zero,
+// with no shuffle. A lane writes its node's history byte (parent * 4 +
+// choice) for each position to shared memory, 8 * C bytes a block; the
+// first argmin node is found by three xor shuffles, and every lane of
+// the group then walks the same backtrack through shared memory and
+// writes the positions congruent to its node mod 8. Every lane of a warp
+// runs every shuffle (a group whose q is 0 runs the second candidate and
+// drops it), so a warp must hold blocks of one length.
+// What bounds it on the H100: latency. The work of a position is a few
+// dozen operations a lane, but each position depends on the one after
+// it, and the backtrack is C dependent shared loads: a block's chain is
+// C x (the float steps and the shuffle rounds) long. Many blocks in
+// flight (4 a warp, many warps an SM) are what hide it.
 #pragma once
 #include "rdcost.cuh"
 
@@ -57,37 +82,65 @@ constexpr int TR_K6_INTS = TR_CAT5 + trellis_ints(64);
 
 constexpr float TR_BIG = 1e30f;
 
-// the node machine (trellis.py:NODE_TRANS) as functions of a constant j
-__device__ __forceinline__ constexpr int tr_next1(int j) { return j < 3 ? j + 1 : j; }
-__device__ __forceinline__ constexpr int tr_next2(int j) { return j < 4 ? 4 : (j < 7 ? j + 1 : 7); }
-
-// the score of one contribution: base + bits * lam2, rounded as x264_tpu
-// rounds it (trellis.py:_score): one FMA for a level > 1 (kind 2), a
-// separate multiply and add for a zero (kind 0) or a level of 1 (kind 1)
-__device__ __forceinline__ float tr_contrib(int kind, float bits, float lam2,
-                                            float base) {
-  return kind == 2 ? __fmaf_rn(bits, lam2, base)
-                   : __fadd_rn(base, __fmul_rn(bits, lam2));
-}
+// the words between two blocks' shared arrays of n words: a multiple of
+// 32 plus 8, so that the 4 blocks of a warp sit on 4 different banks
+__host__ __device__ constexpr int tr_pad(int n) { return (n + 31) / 32 * 32 + 8; }
+constexpr unsigned TR_FULL = 0xffffffffu;
 
 // the level of a stored choice: 0 q, 1 max(q - 1, 0), 2 zero
 __device__ __forceinline__ int tr_level(int choice, int q) {
   return choice == 0 ? max(q, 0) : (choice == 1 ? max(q - 1, 0) : 0);
 }
 
-// The trellis of one block: coef (C) forward-transform coefficients in
-// scan order -> out (C) signed levels in scan order. The history keeps
-// one byte per (position, node), parent * 4 + choice, packed eight to a
-// 64-bit word: C * 8 bytes of local memory.
-template <int C>
-__device__ void trellis_block(const int* coef, const TrellisTab& t, int* out) {
-  float score[8];
-  unsigned long long hist[C];
+// position i's quantised magnitude q (no deadzone)
+__device__ __forceinline__ int tr_q(int a, int qmf) {
+  return (int)((unsigned)wmul(a, qmf) + (1u << 15)) >> 16;
+}
+
+// take (s, from node j, candidate cand) where `on` and s is strictly
+// below the node's best so far (the serial loop's first strict
+// minimum), as selects: no branch, whatever the lane
+__device__ __forceinline__ void tr_take(bool on, float s, int j, int cand,
+                                        float& ns, unsigned& nh) {
+  const bool t = on & (s < ns);
+  ns = t ? s : ns;
+  nh = t ? (unsigned)(j << 2) | (unsigned)cand : nh;
+}
+
+// The trellis of one block on the 8 lanes of a group (lanes 8g .. 8g + 7
+// of a warp; every lane of the warp must call it with blocks of the same
+// C). coef: the block's C coefficients in scan order in shared memory,
+// overwritten with each position's q * 2 + (coefficient < 0);
+// ssd: 2 * C floats and hist: 8 * C bytes of shared memory for the
+// group; out(i, level) is called once for each position i with its
+// signed level, by the lane i % 8 of the group.
+template <int C, class Out>
+__device__ __forceinline__ void trellis_lanes(int* coef, const TrellisTab& t,
+                                              float* ssd, unsigned char* hist,
+                                              Out out) {
+  const int lane = threadIdx.x & 31, j = lane & 7, g0 = lane & ~7;
+  // what the node does not change: each position's q and the distortion
+  // of its two candidate levels, C / 8 positions a lane
+  for (int i = j; i < C; i += 8) {
+    const int c = coef[i], a = abs(c), q = tr_q(a, t.qmf[i]);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) score[j] = j ? TR_BIG : 0.f;
+    for (int cand = 0; cand < 2; ++cand) {
+      const int lvl = max(q - cand, 0);
+      const int unq = (int)((unsigned)wmul(t.uqmf[i], lvl) + 128u) >> 8;
+      const float d = __int2float_rn(a - unq);
+      ssd[2 * i + cand] = __fmul_rn(__fmul_rn(d, d), t.w2[i]);
+    }
+    coef[i] = q * 2 + (c < 0);
+  }
+  __syncwarp();
+  // node j's own bit costs
+  const float l1a = t.l1[2 * j], l1b = t.l1[2 * j + 1];
+  const float* unary = t.unary + 15 * j;
+  const int up_lane = g0 + max(j - 1, 0);
+  float score = j ? TR_BIG : 0.f;
+#pragma unroll 1
   for (int i = C - 1; i >= 0; --i) {
-    const int a = abs(coef[i]);
-    const int q = (int)((unsigned)wmul(a, t.qmf[i]) + (1u << 15)) >> 16;
+    const int q = coef[i] >> 1;
     float sig0 = 0.f, sig1 = 0.f, last0 = 0.f, last1 = 0.f;
     if (i < C - 1) {
       sig0 = t.sig[2 * i];
@@ -95,67 +148,77 @@ __device__ void trellis_block(const int* coef, const TrellisTab& t, int* out) {
       last0 = t.last[2 * i];
       last1 = t.last[2 * i + 1];
     }
-    float ns[8];
-    unsigned nh[8];
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      ns[d] = TR_BIG;
-      nh[d] = 2;                                // level 0, parent 0
+    const float bits0 = j ? sig0 : 0.f;         // the bits of a zero
+    float ns = TR_BIG;
+    unsigned nh = 2;                            // level 0, parent 0
+    if (__all_sync(TR_FULL, q == 0)) {
+      // every block of the warp quantises position i to zero: the one
+      // candidate is a zero, which each node takes from itself
+      tr_take(true, __fadd_rn(__fadd_rn(score, ssd[2 * i]),
+                              __fmul_rn(bits0, t.lam2)),
+              j, 0, ns, nh);
+      score = ns;
+      hist[8 * i + j] = (unsigned char)nh;
+      continue;
     }
+    // the bits of a level of 1 (the same for both candidates), and the
+    // common head of a level > 1's
+    const float sl = __fadd_rn(sig1, j == 0 ? last1 : last0);
+    const float bits1 = __fadd_rn(__fadd_rn(sl, l1a), 256.f);
+    const float head2 = __fadd_rn(sl, l1b);
+#pragma unroll
     for (int cand = 0; cand < 2; ++cand) {
-      if (cand == 1 && q <= 0) break;           // q - 1 duplicates q
       const int lvl = max(q - cand, 0);
-      const int unq = (int)((unsigned)wmul(t.uqmf[i], lvl) + 128u) >> 8;
-      const float d = __int2float_rn(a - unq);
-      const float ssd = __fmul_rn(__fmul_rn(d, d), t.w2[i]);
-      const int kind = lvl == 0 ? 0 : (lvl == 1 ? 1 : 2);
-      const int prefix = min(max(lvl - 1, 0), 14);
+      const float base = __fadd_rn(score, ssd[2 * i + cand]);
       const float ue = lvl >= 15 ? __int2float_rn(ue_big_f8(lvl - 15)) : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float base = __fadd_rn(score[j], ssd);
-        const float last_j = j == 0 ? last1 : last0;
-        const unsigned h = (unsigned)(j << 2) | (unsigned)cand;
-        if (kind == 0) {
-          const float s = tr_contrib(0, j ? sig0 : 0.f, t.lam2, base);
-          if (s < ns[j]) { ns[j] = s; nh[j] = h; }
-        } else if (kind == 1) {
-          const float bits = __fadd_rn(
-              __fadd_rn(__fadd_rn(sig1, last_j), t.l1[2 * j]), 256.f);
-          const float s = tr_contrib(1, bits, t.lam2, base);
-          if (s < ns[tr_next1(j)]) { ns[tr_next1(j)] = s; nh[tr_next1(j)] = h; }
-        } else {
-          const float bits = __fadd_rn(
-              __fadd_rn(__fadd_rn(__fadd_rn(sig1, last_j), t.l1[2 * j + 1]),
-                        t.unary[15 * j + prefix]),
-              ue);
-          const float s = tr_contrib(2, bits, t.lam2, base);
-          if (s < ns[tr_next2(j)]) { ns[tr_next2(j)] = s; nh[tr_next2(j)] = h; }
-        }
-      }
+      const float bits2 = __fadd_rn(
+          __fadd_rn(head2, unary[min(max(lvl - 1, 0), 14)]), ue);
+      // the score as x264_tpu rounds it (trellis.py:_score): one FMA for
+      // a level > 1, a separate multiply and add for 0 or 1
+      const float s = lvl >= 2 ? __fmaf_rn(bits2, t.lam2, base)
+                               : __fadd_rn(base, __fmul_rn(lvl ? bits1 : bits0,
+                                                           t.lam2));
+      // the sources of node j: itself (a zero; a level of 1 at nodes
+      // 3-7; a level > 1 at node 7), node j - 1 (levels 1 and > 1) and,
+      // for node 4 at a level > 1, nodes 0-2; every lane shuffles, also
+      // where it drops the result
+      const float up = __shfl_sync(TR_FULL, s, up_lane);
+      const float s0 = __shfl_sync(TR_FULL, s, g0);
+      const float s1 = __shfl_sync(TR_FULL, s, g0 + 1);
+      const float s2 = __shfl_sync(TR_FULL, s, g0 + 2);
+      const bool live = cand == 0 || q > 0;     // q - 1 duplicates q
+      const bool k1 = live & (lvl == 1), k2 = live & (lvl >= 2);
+      tr_take(k2 & (j == 4), s0, 0, cand, ns, nh);
+      tr_take(k2 & (j == 4), s1, 1, cand, ns, nh);
+      tr_take(k2 & (j == 4), s2, 2, cand, ns, nh);
+      tr_take((k1 & (j >= 1) & (j <= 3)) | (k2 & (j >= 4)), up, j - 1, cand,
+              ns, nh);
+      tr_take((live & (lvl == 0)) | (k1 & (j >= 3)) | (k2 & (j == 7)), s, j,
+              cand, ns, nh);
     }
-    unsigned long long w = 0;
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      score[d] = ns[d];
-      w |= (unsigned long long)nh[d] << (8 * d);
-    }
-    hist[i] = w;
+    score = ns;
+    hist[8 * i + j] = (unsigned char)nh;
   }
-  int node = 0;                                 // the first argmin
-  float best = score[0];
+  // the first argmin node of the group
+  float best = score;
+  int node = j;
 #pragma unroll
-  for (int j = 1; j < 8; ++j)
-    if (score[j] < best) {
-      best = score[j];
-      node = j;
+  for (int off = 4; off >= 1; off >>= 1) {
+    const float os = __shfl_xor_sync(TR_FULL, best, off);
+    const int on = __shfl_xor_sync(TR_FULL, node, off);
+    if (os < best || (os == best && on < node)) {
+      best = os;
+      node = on;
     }
+  }
+  __syncwarp();
+#pragma unroll 4
   for (int i = 0; i < C; ++i) {
-    const unsigned h = (unsigned)(hist[i] >> (8 * node)) & 255u;
-    const int a = abs(coef[i]);
-    const int q = (int)((unsigned)wmul(a, t.qmf[i]) + (1u << 15)) >> 16;
-    const int lvl = tr_level((int)(h & 3u), q);
-    out[i] = coef[i] < 0 ? -lvl : lvl;
+    const unsigned h = hist[8 * i + node];
+    if ((i & 7) == j) {
+      const int qs = coef[i], lvl = tr_level((int)(h & 3u), qs >> 1);
+      out(i, qs & 1 ? -lvl : lvl);
+    }
     node = (int)(h >> 2);
   }
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -131,3 +132,62 @@ def check(t: torch.Tensor, shape, dtype, what: str) -> None:
                          f"{tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _tool(name: str) -> str | None:
+    """A CUDA toolkit program: PATH, then beside nvcc."""
+    found = shutil.which(name)
+    if found:
+        return found
+    path = os.path.join(os.path.dirname(nvcc()), name)
+    return path if os.path.exists(path) else None
+
+
+def resources(name: str, build_dir: str = BUILD_DIR) -> list:
+    """Each kernel of build_dir/libx264torch_<name>.so as the card holds
+    it: [{kernel, regs, local, shared, threads, ctas}], registers a
+    thread, local-memory bytes a thread, static shared bytes a CTA, the
+    CTA size its launch bounds give and the CTAs an SM can hold at that
+    size (libcuda's occupancy query). cuobjdump extracts the sm_90a
+    cubin and lists its functions; libcuda loads it into the current
+    context (the caller has used the card through torch)."""
+    import tempfile
+    so = os.path.abspath(os.path.join(build_dir, f"libx264torch_{name}.so"))
+    dump, filt = _tool("cuobjdump"), _tool("cu++filt")
+    torch.empty(1, device="cuda")            # the context, made current
+    if dump is None:
+        raise RuntimeError("cuobjdump not found")
+    drv = ctypes.CDLL("libcuda.so.1")
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([dump, "-xelf", "all", so], cwd=tmp, check=True,
+                       capture_output=True)
+        for cubin in sorted(f for f in os.listdir(tmp) if f.endswith(".cubin")):
+            path = os.path.join(tmp, cubin)
+            usage = subprocess.run([dump, "--dump-resource-usage", path],
+                                   check=True, capture_output=True,
+                                   text=True).stdout
+            mod = ctypes.c_void_p()
+            if drv.cuModuleLoad(ctypes.byref(mod), path.encode()) != 0:
+                raise RuntimeError(f"libcuda did not load {cubin}")
+            for fn in re.findall(r"Function (\S+):", usage):
+                f = ctypes.c_void_p()
+                if drv.cuModuleGetFunction(ctypes.byref(f), mod,
+                                           fn.encode()) != 0:
+                    raise RuntimeError(f"{cubin} has no function {fn}")
+                val = {}
+                for key, attr in (("threads", 0), ("shared", 1),
+                                  ("local", 3), ("regs", 4)):
+                    v = ctypes.c_int()
+                    drv.cuFuncGetAttribute(ctypes.byref(v), attr, f)
+                    val[key] = v.value
+                n = ctypes.c_int()
+                drv.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+                    ctypes.byref(n), f, val["threads"], ctypes.c_size_t(0))
+                readable = fn
+                if filt:
+                    readable = subprocess.run([filt, fn], capture_output=True,
+                                              text=True).stdout.strip() or fn
+                out.append(dict(kernel=readable, ctas=n.value, **val))
+            drv.cuModuleUnload(mod)
+    return out

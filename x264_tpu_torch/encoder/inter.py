@@ -952,19 +952,8 @@ intra_in_p.launches = intra_in_p.launches_aq = \
 
 
 # ------------------------------------------------------------ the body
-def _block_origins(mb_h: int, mb_w: int, offs, device):
-    """Stacked top-left (ys, xs) of one block per (dy, dx) in offs inside
-    every MB: (len(offs), mb_h, mb_w) int32 each."""
-    ys, xs = ome.mb_origins(mb_h, mb_w, device)
-    return (torch.stack([ys + dy for dy, _ in offs]),
-            torch.stack([xs + dx for _, dx in offs]))
-
-
-# the batched partition refinements of stage 1b: (block height, width,
-# the blocks' offsets in the MB, their rows of partition_fullpel's result)
-PART_LAYOUTS = ((8, 16, ((0, 0), (8, 0)), (0, 2)),
-                (16, 8, ((0, 0), (0, 8)), (2, 4)),
-                (8, 8, ((0, 0), (0, 8), (8, 0), (8, 8)), (4, 8)))
+# the partition refinements of stage 1b (ops/me.py)
+PART_LAYOUTS = ome.PART_LAYOUTS
 # lambda * bits of each layout's mb_type beyond the 16x16's one bit: ue(1)
 # and ue(2) of 16x8 / 8x16 are 3 bits, P8x8's ue(3) 5 bits plus four
 # one-bit sub_mb_types
@@ -975,9 +964,9 @@ def partition_search(y, ref_pad, planes, mv_fp, mv16, cost16, lam: int,
                      mvp_seed, me_range: int, steps, p8x8: bool,
                      ref_sel=None):
     """Stage 1b (inter_p16x8 / p8x16 / p8x8, encoder/analyse.c:1222-1404):
-    the full-pel window search of the partitions (K11), one batched
-    sub-pel refinement per layout (K10), and each MB's partition type of
-    least cost among [16x16, 16x8, 8x16, 8x8]. ref_sel: each MB's
+    the full-pel window search of the partitions (K11), the sub-pel
+    refinement of every layout in one K10 launch, and each MB's partition
+    type of least cost among [16x16, 16x8, 8x16, 8x8]. ref_sel: each MB's
     reference under two references (ref_pad / planes then the stacks of
     both), which every partition of the MB carries and pays one ref_idx
     bit for on reference 1. Returns (ptype, cost_inter, mv_quad (mb_h,
@@ -986,16 +975,11 @@ def partition_search(y, ref_pad, planes, mv_fp, mv16, cost16, lam: int,
     pf = ome.partition_fullpel(y, ref_pad, mv_fp, lam, mvp_seed, me_range,
                                p8x8, ref_sel)
     costs, mvs = [cost16], []
-    for (bh, bw, offs, (a, b)), extra in zip(
-            PART_LAYOUTS[:3 if p8x8 else 2], PART_TYPE_BITS):
-        n = len(offs)
-        ys, xs = _block_origins(mb_h, mb_w, offs, y.device)
-        mvp = mvp_seed.expand(n, mb_h, mb_w, 2).contiguous()
-        sel = None if ref_sel is None \
-            else ref_sel.expand(n, mb_h, mb_w).contiguous()
-        mv, satd = ome.subpel_refine_blocks(y, planes, pf[a:b], lam, mvp,
-                                            ys, xs, bh, bw, steps, sel)
-        bits = ome.mv_cost_bits(mv, mvp).sum(0, dtype=I32) + extra
+    for (mv, satd), extra in zip(
+            ome.subpel_refine_parts(y, planes, pf, lam, mvp_seed, steps,
+                                    ref_sel), PART_TYPE_BITS):
+        n = mv.shape[0]
+        bits = ome.mv_cost_bits(mv, mvp_seed).sum(0, dtype=I32) + extra
         if ref_sel is not None:
             bits = bits + n * ref_sel
         costs.append(satd.sum(0, dtype=I32) + lam * bits)

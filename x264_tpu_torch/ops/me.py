@@ -40,6 +40,12 @@ PART_M = 3
 PART_KEYS = ("t", "b", "l", "r", "q0", "q1", "q2", "q3")
 # chroma_rerank's quarter-pel diamond, in update order
 DIAMOND = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+# the partition layouts K10 refines after partition_fullpel: (block
+# height, width, the blocks' (dy, dx) in the MB, their rows of
+# partition_fullpel's result)
+PART_LAYOUTS = ((8, 16, ((0, 0), (8, 0)), (0, 2)),
+                (16, 8, ((0, 0), (0, 8)), (2, 4)),
+                (8, 8, ((0, 0), (0, 8), (8, 0), (8, 8)), (4, 8)))
 
 
 def _ptr(t) -> int:
@@ -312,11 +318,11 @@ def subpel_refine_blocks(cur, planes, mv_qpel, lam: int, mvp_qpel, ys, xs,
     """K10 `subpel_refine`: the sub-pel refinement of a batch of blocks.
 
     Replaces x264_tpu/ops/me.py:subpel_refine_blocks (and subpel_refine,
-    its 16x16 case). On CUDA tensors it runs csrc/subpel.cu, one CTA per
-    block: the block and its four (bh + 3, bw + 3) plane windows sit in
-    shared memory and the 9 or 49 candidates are scored from there (with
-    ref_sel from its block's reference's four planes); on CPU tensors the
-    plain version. Arguments and results as subpel_refine_blocks_plain."""
+    its 16x16 case). On CUDA tensors it runs csrc/subpel.cu, one warp per
+    block: its four (bh + 3, bw + 3) plane windows sit in shared memory
+    and its lanes score the 9 or 49 candidates from there (with ref_sel
+    from its block's reference's four planes); on CPU tensors the plain
+    version. Arguments and results as subpel_refine_blocks_plain."""
     if cur.device.type == "cpu":
         return subpel_refine_blocks_plain(cur, planes, mv_qpel, lam,
                                           mvp_qpel, ys, xs, bh, bw, steps,
@@ -355,12 +361,86 @@ def subpel_refine_blocks(cur, planes, mv_qpel, lam: int, mvp_qpel, ys, xs,
 subpel_refine_blocks.launches = subpel_refine_blocks.launches_ref2 = 0
 
 
+def subpel_refine_parts_plain(cur, planes, mv_parts, lam: int, mvp_qpel,
+                              steps, ref_sel=None):
+    """Plain version of subpel_refine_parts: subpel_refine_blocks_plain
+    once per layout, on the layout's rows of mv_parts, every block of an
+    MB with the MB's predictor and reference."""
+    nk, mb_h, mb_w = mv_parts.shape[:3]
+    out = []
+    for bh, bw, offs, (a, b) in PART_LAYOUTS[:nk // 4 + 1]:
+        n = len(offs)
+        ys, xs = block_origins(mb_h, mb_w, offs, cur.device)
+        sel = None if ref_sel is None \
+            else ref_sel.expand(n, mb_h, mb_w).contiguous()
+        out.append(subpel_refine_blocks_plain(
+            cur, planes, mv_parts[a:b], lam,
+            mvp_qpel.expand(n, mb_h, mb_w, 2).contiguous(), ys, xs, bh, bw,
+            steps, sel))
+    return out
+
+
+def subpel_refine_parts(cur, planes, mv_parts, lam: int, mvp_qpel, steps,
+                        ref_sel=None):
+    """K10 on the partition layouts of a P frame in one launch.
+
+    mv_parts: partition_fullpel's (nk, mb_h, mb_w, 2) result (nk 4: the
+    16x8 and 8x16 blocks; 8: the P8x8 quadrants too), each row refined as
+    the PART_LAYOUTS layout it belongs to; mvp_qpel (mb_h, mb_w, 2) and
+    ref_sel (mb_h, mb_w) or None: each MB's, for every block of it.
+    Returns [(mv, satd)] per layout, each as subpel_refine_blocks returns
+    it for the layout's (n, mb_h, mb_w) blocks. On CUDA tensors
+    csrc/subpel.cu's subpel_refine_parts, every layout's blocks in one
+    launch, a CTA's shape taken from its index; on CPU tensors the plain
+    version."""
+    if cur.device.type == "cpu":
+        return subpel_refine_parts_plain(cur, planes, mv_parts, lam,
+                                         mvp_qpel, steps, ref_sel)
+    nk, mb_h, mb_w = mv_parts.shape[:3]
+    dev = cur.device
+    n_cand = len(subpel_offsets(steps))
+    if nk not in (4, 8):
+        raise ValueError(f"subpel_refine_parts: {nk} partition rows")
+    H, W = mb_h * 16, mb_w * 16
+    cuda.check(cur, (H, W), I32, "cur")
+    n_refs = 1 if ref_sel is None else planes.shape[0] // 4
+    cuda.check(planes, (4 * n_refs, H + 2 * PAD, W + 2 * PAD), I32,
+               "planes")
+    cuda.check(mv_parts, (nk, mb_h, mb_w, 2), I32, "mv_parts")
+    cuda.check(mvp_qpel, (mb_h, mb_w, 2), I32, "mvp_qpel")
+    if ref_sel is not None:
+        cuda.check(ref_sel, (mb_h, mb_w), I32, "ref_sel")
+    mv = torch.empty((nk, mb_h, mb_w, 2), dtype=I32, device=dev)
+    satd = torch.empty((nk, mb_h, mb_w), dtype=I32, device=dev)
+    cuda.launch("subpel", "subpel_refine_parts", "ppppppp" + "iiiii" + "p",
+                cur.data_ptr(), planes.data_ptr(), mv_parts.data_ptr(),
+                mvp_qpel.data_ptr(), _ptr(ref_sel), mv.data_ptr(),
+                satd.data_ptr(), mb_h, mb_w, nk, lam, int(n_cand == 49),
+                cuda.stream(dev))
+    subpel_refine_parts.launches += 1
+    subpel_refine_parts.launches_ref2 += int(ref_sel is not None)
+    return [(mv[a:b], satd[a:b])
+            for _, _, _, (a, b) in PART_LAYOUTS[:nk // 4 + 1]]
+
+
+# launches, and those of them with a reference per MB
+subpel_refine_parts.launches = subpel_refine_parts.launches_ref2 = 0
+
+
 def mb_origins(mb_h: int, mb_w: int, device):
     """Top-left pixel (ys, xs) of every MB, (mb_h, mb_w) int32 each."""
     ys = torch.arange(mb_h, dtype=I32, device=device)[:, None] * 16
     xs = torch.arange(mb_w, dtype=I32, device=device)[None, :] * 16
     return (ys.expand(mb_h, mb_w).contiguous(),
             xs.expand(mb_h, mb_w).contiguous())
+
+
+def block_origins(mb_h: int, mb_w: int, offs, device):
+    """Stacked top-left (ys, xs) of one block per (dy, dx) in offs inside
+    every MB: (len(offs), mb_h, mb_w) int32 each."""
+    ys, xs = mb_origins(mb_h, mb_w, device)
+    return (torch.stack([ys + dy for dy, _ in offs]),
+            torch.stack([xs + dx for _, dx in offs]))
 
 
 def subpel_refine(cur, planes, mv_qpel, lam: int, mvp_qpel, steps,

@@ -217,6 +217,34 @@ def make_consts_all_qp(cat: int, cqm_list: int, slice_is_i: bool,
     return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
 
 
+def tie_coefs(qmf, n: int, seed: int) -> np.ndarray:
+    """(n, C) int32 coefficient rows in scan order on which the trellis's
+    ties and edges occur, for holding its kernel against its plain
+    version: all-zero rows; magnitudes on either side of a position's
+    rounding edge (|c| * qmf + 2^15 at a multiple of 2^16, so that q
+    steps by one), at random positions and signs, and as the row's one
+    nonzero coefficient; and edges high enough that the levels pass the
+    ue escape (>= 15). qmf: the category's (C,) quant multipliers."""
+    rng = np.random.default_rng(seed)
+    qmf = np.asarray(qmf, np.int64).reshape(-1)
+    C = qmf.size
+
+    def edge(k, rows):
+        a = -(-(k * 65536 - 32768) // qmf)          # the least |c| of q = k
+        return a - rng.integers(0, 2, (rows, C))
+
+    n0, n1, n2 = n // 8, n // 3, n // 4
+    near = edge(rng.integers(1, 4, (n1, C)), n1) \
+        * (rng.random((n1, C)) < 0.5)
+    single = np.zeros((n2, C), np.int64)
+    at = rng.integers(0, C, n2)
+    single[np.arange(n2), at] = edge(rng.integers(1, 3, (n2, 1)), n2)[
+        np.arange(n2), at]
+    big = edge(rng.integers(1, 24, (n - n0 - n1 - n2, C)), n - n0 - n1 - n2)
+    rows = np.concatenate([np.zeros((n0, C), np.int64), near, single, big])
+    return (rows * rng.choice([-1, 1], rows.shape)).astype(np.int32)
+
+
 # ------------------------------------------------------------ the trellis
 BIG = 1e30          # the score of an unreachable node (float32)
 # the packed int32 layout of one category (pack_trellis), C <= 64 scan
@@ -417,7 +445,7 @@ def trellis_scan(coefs_scan, tab, qp_idx=None):
     """K20 `trellis_scan`: the batched CABAC trellis.
 
     Replaces x264_tpu/ops/trellis.py:trellis_scan. On CUDA tensors it runs
-    csrc/trellis.cu, one thread per block in one launch; on CPU tensors
+    csrc/trellis.cu, 8 lanes a block in one launch; on CPU tensors
     the plain version. tab: one category's pack_trellis table (one row,
     or the 52-row stack read by qp_idx). Arguments and result as
     trellis_scan_plain."""
