@@ -255,7 +255,7 @@ band launches of every kernel), phase 19a for K1's I16x16-only branch
 19e for K29, phase 9 for the others, the other
 phases' beside it); the
 last line is
-{"ok": true, "device": {...}}. Needs one CUDA card, nvcc, and triton.
+{"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -747,6 +747,10 @@ def params(EncoderParams, frame_parallel: int, keyint: int = 1,
     return p
 
 
+# K7's kernels (csrc/intra_p.cu), whose launches launch_split times
+K7_KERNELS = ("sweep0_kernel", "decide_kernel", "list_sweep_kernel")
+
+
 def event_ms(fn, reps: int, setup=None) -> float:
     """Median device time of fn() over reps, by CUDA events; setup() runs
     before each rep, outside the timed span."""
@@ -762,6 +766,104 @@ def event_ms(fn, reps: int, setup=None) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def launch_split(fn, names=K7_KERNELS, reps: int = 10) -> list:
+    """Device ms of each launch of fn()'s kernels whose names hold one of
+    `names`, by its place in the call, from a torch.profiler trace of
+    reps calls after one warm-up (as device_split traces): [(kernel name,
+    mean ms)] in launch order; [] where the trace holds no such kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(n in e.name for n in names)),
+                key=lambda e: e.time_range.start)
+    n = len(ev) // reps
+    if n == 0 or n * reps != len(ev):
+        return []
+    return [(ev[i].name.replace("(anonymous namespace)::", "").split("(")[0],
+             sum(ev[i + k * n].time_range.elapsed_us()
+                 for k in range(reps)) / reps / 1e3) for i in range(n)]
+
+
+def split_text(split: list) -> str:
+    return ", ".join(f"{name} {ms:.4f}" for name, ms in split) \
+        or "not measured (no device events in the trace)"
+
+
+def k7_edges(dev, exact) -> int:
+    """K7 exact against its plain version on its edge inputs: frames one
+    MB wide (9 x 1 MBs), one MB tall (1 x 9) and 4 x 6, a textured source
+    over an inter recon off by noise, with no MB wanting intra, every MB
+    wanting intra (the chains deeper than three sweeps demoted) and some;
+    the P sequence at SATD, with the RD decision and psy-RD, with a QP
+    map over 0-51 and lossless, and both B sequences (the sweeps with the
+    B decision and with every MB intra). Returns the max error, 0."""
+    from x264_tpu_torch import tables
+    from x264_tpu_torch.encoder import aq, inter
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev)
+    st = aq.qtab_stacks(aq.full_tables(tables.DEFAULT_QUANT, dev), 0)
+    err = 0
+    for mb_h, mb_w in ((9, 1), (1, 9), (4, 6)):
+        h, w = mb_h * 16, mb_w * 16
+        yy, xx = np.mgrid[0:h, 0:w]
+        src = [((xx // 3 + yy // 2) % 200 + rng.integers(0, 24, (h, w)))
+               .clip(0, 255), rng.integers(0, 256, (h // 2, w // 2)),
+               128 + rng.integers(-20, 20, (h // 2, w // 2))]
+        planes = [t(a) for a in src] + [
+            t((a + rng.integers(-12, 13, a.shape)).clip(0, 255))
+            for a in src]
+        shape = (mb_h, mb_w)
+        for want, cost, rd_cost in (
+                ("none", np.zeros(shape), np.full(shape, -1.0)),
+                ("all", np.full(shape, 1 << 29), np.full(shape, 1e30)),
+                ("some", rng.integers(0, 16000, shape),
+                 rng.uniform(0.0, 60000.0, shape))):
+            for mode in ("satd", "rd", "aq", "lossless"):
+                qp = 0 if mode == "lossless" else 26
+                q = inter.make_qtab_p(
+                    qp, tables.chroma_qp(qp, 0), dev,
+                    **(dict(rd_idc=0, f_psy_rd=1.0) if mode == "rd" else {}))
+                kw = {}
+                if mode == "rd":
+                    kw["rd"] = (torch.as_tensor(rd_cost, dtype=torch.float32,
+                                                device=dev),
+                                t(rng.integers(0, 3000, shape)))
+                elif mode == "aq":
+                    q = {**q, "aq_stack": st["intra"]}
+                    kw["qp_map"] = t(rng.integers(0, 52, shape))
+                elif mode == "lossless":
+                    kw["lossless"] = True
+                a7 = (mb_h, mb_w, *planes, t(cost), q,
+                      int(tables.LAMBDA_TABLE[qp]), mode != "lossless")
+                tag = f"K7 intra_in_p {mb_h}x{mb_w} MBs, {want} wanting intra"
+                err = max(err, exact(f"{tag}, {mode}", inter.intra_in_p(
+                    *a7, **kw), inter.intra_in_p_plain(*a7, **kw)))
+                if mode != "satd":
+                    continue
+                im = inter.intra_in_b_decide(*a7[:11])
+                err = max(err, exact(f"{tag}, B decision", [im], [
+                    inter.intra_in_p_plain(*a7[:11], True,
+                                           decide_only=True)]))
+                for fixed in (im, torch.ones_like(im)):
+                    err = max(err, exact(
+                        f"{tag}, B sweeps", inter.intra_in_b_sweeps(
+                            *a7[:8], fixed, *a7[9:11]),
+                        inter.intra_in_p_plain(*a7[:8], None, *a7[9:11],
+                                               True, intra_mb=fixed)))
+    print("K7 exact one MB wide, one MB tall and at 4 x 6 MBs with no, "
+          "some and every MB wanting intra: SATD, RD + psy, a QP map, "
+          "lossless, the B decision and sweeps", flush=True)
+    return err
 
 
 def enqueue_ms(fn, reps: int, setup=None) -> float:
@@ -1045,10 +1147,9 @@ KERNEL_GROUPS = (("hwpack_", "K27"), ("halo_kernel", "K28"),
                  ("inter_mb_trellis_kernel<2>", "K22"),
                  ("emit_kernel", "K3"),
                  ("scan_kernel", "K3/K8/K18/K19/K25 scan"),
-                 ("scatter_kernel", "K3/K8 scatter"), ("ssd_kernel", "K4"),
-                 ("ssim_kernel", "K4"), ("reduce_kernel", "K4"),
+                 ("scatter_kernel", "K3/K8 scatter"), ("metrics_kernel", "K4"),
                  ("half_kernel", "K5"), ("search_kernel", "K5"),
-                 ("sweep_kernel", "K7"),
+                 ("sweep0_kernel", "K7"), ("list_sweep_kernel", "K7"),
                  ("decide_kernel", "K7"), ("hpel_kernel", "K9"),
                  ("subpel_kernel", "K10"), ("subpel_parts_kernel", "K10"),
                  ("part_kernel", "K11"),
@@ -1288,11 +1389,25 @@ def main() -> None:
     if max(rel[:3]) > 1e-6 or rel[3] > 1e-5 or not torch.isfinite(m_k).all():
         fail(f"K4 frame_metrics {m_k.tolist()} vs plain {m_p['m'].tolist()}")
     err4 = float((m_k - m_p["m"]).abs().max())
+    # one launch a call, the same sum from call to call (the last CTA adds
+    # the partials in a fixed order)
+    n4 = stats.frame_metrics.launches
+    again = [stats.frame_metrics(y, u, v, ry, ru, rv, W, H) for _ in range(20)]
+    if stats.frame_metrics.launches != n4 + 20:
+        fail(f"K4 frame_metrics counted {stats.frame_metrics.launches - n4} "
+             f"launches in 20 calls")
+    if not all(torch.equal(m_k, m) for m in again):
+        fail("K4 frame_metrics differs from call to call")
     ms4 = event_ms(lambda: stats.frame_metrics(y, u, v, ry, ru, rv, W, H), 20)
-    lib4 = event_ms(lambda: torch.sum((y - ry) ** 2), 20)
-    record("frame_metrics", "triton", "x264_tpu_torch/encoder/stats.py",
+    # no single PyTorch call computes the four metrics; the luma SSD alone
+    # is timed as an aside
+    ssd4 = event_ms(lambda: torch.sum((y - ry) ** 2), 20)
+    record("frame_metrics", "cuda", "x264_tpu_torch/csrc/metrics.cu",
            "x264_tpu/encoder/pipeline.py:32", err4, ms4, plain4_ms,
-           nbytes(y, u, v, ry, ru, rv) + 16, K4_OPS_PER_PX * H * W, lib4)
+           nbytes(y, u, v, ry, ru, rv) + 16, K4_OPS_PER_PX * H * W)
+    print(f"K4 frame_metrics: bit-identical in 20 calls, one launch each; "
+          f"aside, the luma SSD alone as torch.sum((y - ry) ** 2) "
+          f"{ssd4:.3f} ms [{smi_line}]", flush=True)
 
     q1 = enqueue_ms(lambda: intra.encode_i16_frame(mb_h, mb_w, y, u, v, qtab,
                                                    lam), 5)
@@ -1365,6 +1480,9 @@ def main() -> None:
         if err7:
             bad = [k for k in p7 if not torch.equal(k7[k], p7[k])]
             fail(f"K7 intra_in_p ({tag}) differs in {bad}")
+        print(f"K7 intra_in_p per launch ({tag}, the SATD decision): "
+              f"{split_text(launch_split(lambda: inter.intra_in_p(*a7)))} ms "
+              f"[{smi_line}]", flush=True)
         # K8 cabac_p_ops on the merged planes of stages 1-3
         front = inter.encode_p_front(mb_h, mb_w, me_range, y1, u1, v1, *ref,
                                      qtab_p, lam, mvp0, True)
@@ -1739,6 +1857,11 @@ def main() -> None:
               f"under RD, {int(satd_im.sum())} under the SATD decision "
               f"({to_i} go intra and {to_p} inter by RD alone); launches "
               f"per frame K13 {n13}, K7 {n7r}", flush=True)
+        print(f"K7 intra_in_p per launch ({tag}, the RD decision): "
+              f"{split_text(launch_split(lambda: inter.intra_in_p(*a7)))} ms; "
+              f"the SATD decision on the same inputs "
+              f"{split_text(launch_split(lambda: inter.intra_in_p(*a7[:12])))}"
+              f" ms [{smi_line}]", flush=True)
         if tag.startswith("frame 1 on frame 0"):
             rd_ms.update(
                 k13=event_ms(lambda: inter.rd_inter(*a13), 10),
@@ -1751,6 +1874,7 @@ def main() -> None:
             fail(f"the gray-masked reference sent {int(rd_im.sum())} MBs "
                  f"intra under RD, {to_i + to_p} decided otherwise than by "
                  f"SATD: the RD decision did not run on many MBs")
+    k7_edges(dev, exact)
     a13, a7 = rd_ms["a13"], rd_ms["a7"]
     it13 = a13[5]
     record("rd_inter", "cuda", "x264_tpu_torch/csrc/rdcost.cu",
@@ -2658,6 +2782,9 @@ def main() -> None:
         *a7d, True, decide_only=True)])
     timed("k7d", lambda: inter.intra_in_b_decide(*a7d),
           lambda: inter.intra_in_p_plain(*a7d, True, decide_only=True))
+    print(f"K7 intra_in_b_decide per launch: "
+          f"{split_text(launch_split(lambda: inter.intra_in_b_decide(*a7d)))}"
+          f" ms [{smi_line}]", flush=True)
     a23 = (mb_h, mb_w, yb, *fetch_b, im_b, k22["bmode"], *mvs_b,
            k22["cost_inter"], col_ref4, col_mv4, lam)
     k23 = inter.b_direct(*a23)
@@ -2697,6 +2824,9 @@ def main() -> None:
     timed("k7s", lambda: inter.intra_in_b_sweeps(*a7s, im_b, qtab_b, lam),
           lambda: inter.intra_in_p_plain(*a7s, None, qtab_b, lam, True,
                                          intra_mb=im_b))
+    print(f"K7 intra_in_b_sweeps per launch ({int(im_b.sum())} intra MBs): "
+          f"{split_text(launch_split(lambda: inter.intra_in_b_sweeps(*a7s, im_b, qtab_b, lam)))}"
+          f" ms [{smi_line}]", flush=True)
     front_b = dict(inter.merge_intra(ip_b, it_b, mb_h, mb_w),
                    bmode=k22["bmode"], direct_mb=direct_b, r0=r0, r1=r1,
                    m0=m0, m1=m1)
@@ -3720,6 +3850,9 @@ def main() -> None:
                         or k in trellis_only or k in standalone
                         or k in b_only or k in later):
             fail(f"kernel {k} was launched {n} times on {what9}")
+    if launches_9["frame_metrics"] != N_DEFAULTS:
+        fail(f"{what9}: K4 launched {launches_9['frame_metrics']} times for "
+             f"{N_DEFAULTS} frames")
     if any(d is None for v in seen9.values() for d in v):
         fail(f"{what9}: a frame ran without the mb_qp_delta planes")
     dqp_nz = [int((d != 0).sum()) for v in seen9.values() for d in v]

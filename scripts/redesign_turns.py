@@ -1,11 +1,15 @@
 """Card times of the redesigned kernels, for one tree of the port: K6
 p_inter_mb with and without the trellis (t8 0 / 1 / 2, at QP 26 and with
 a variance-AQ QP map), K22 b_inter_mb's two passes with and without it,
-K20 trellis_scan's four categories and K10 subpel_refine (the 16x16
-call, each partition layout, and a P frame's whole K10 work: four
-launches where the tree has no subpel_refine_parts, two where it has),
-at 1080p on make_frames' content (frame 1 against frame 0; a B frame
-between frames 0 and 2).
+K20 trellis_scan's four categories, K10 subpel_refine (the 16x16 call,
+each partition layout, and a P frame's whole K10 work: four launches
+where the tree has no subpel_refine_parts, two where it has), K4
+frame_metrics, and K7: intra_in_p with the SATD and the RD decision on
+frame 1 against frame 0 and against a reference with 30% of its 64x64
+blocks gray (the arguments of encode_p_front's own call at subme 6), and
+the B decision and sweeps on frame 1 as a B frame, each also split by
+launch (a torch.profiler trace). At 1080p on make_frames' content (frame
+1 against frame 0; a B frame between frames 0 and 2).
 
     python scripts/redesign_turns.py ROOT [TAG] [--busy]
 
@@ -30,6 +34,7 @@ def main() -> None:
     root = os.path.abspath(argv[0])
     tag = argv[1] if len(argv) > 1 else os.path.basename(root)
     sys.path.insert(0, root)
+    import numpy as np
     import torch
 
     import x264_tpu_torch
@@ -76,6 +81,28 @@ def main() -> None:
 
     def line(what, t):
         print(f"{tag}: {what} {t:.4f} ms", flush=True)
+
+    def split(what, fn, reps=10):
+        """Each launch's device ms by its place in fn()'s call."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+        n = len(ev) // reps
+        parts = "not measured (no device events in the trace)"
+        if n and n * reps == len(ev):
+            parts = ", ".join(
+                f"{ev[i].name.replace('(anonymous namespace)::', '').split('(')[0]} "
+                f"{sum(ev[i + k * n].time_range.elapsed_us() for k in range(reps)) / reps / 1e3:.4f}"
+                for i in range(n))
+        print(f"{tag}: {what} per launch: {parts} ms", flush=True)
 
     # K6: the arguments encode_p_front gives it at subme 6 with the 8x8
     # transform, then at each t8 with and without the trellis
@@ -187,6 +214,56 @@ def main() -> None:
     line("K10 subpel_refine the three partition layouts", ms(layouts))
     line(f"K10 subpel_refine a P frame ({n_launch} launches)",
          ms(lambda: (me.subpel_refine_blocks(*a16), layouts())))
+
+    # K4: frame 1's planes against frame 0's, the 1080p crop of 1088 rows
+    from x264_tpu_torch.encoder import stats
+    a4 = (y1, u1, v1, *ref, W, H)
+    line("K4 frame_metrics", ms(lambda: stats.frame_metrics(*a4), 20))
+    split("K4 frame_metrics", lambda: stats.frame_metrics(*a4))
+
+    # K7: the arguments of encode_p_front's call at subme 6 (with K13's RD
+    # costs), on frame 0 and on frame 0 with 30% of its 64x64 blocks gray
+    rng = np.random.default_rng(0)
+    g = rng.random(((mb_h + 3) // 4, (mb_w + 3) // 4)) < 0.3
+    g = torch.as_tensor(g.repeat(4, 0).repeat(4, 1)[:mb_h, :mb_w], device=dev)
+    gray = tuple(torch.where(g.repeat_interleave(n, 0).repeat_interleave(
+        n, 1), 128, t) for t, n in zip(ref, (16, 8, 8)))
+    kept7, seen7 = inter.intra_in_p, {}
+
+    def spy7(*a, **k):
+        seen7["a"] = a
+        return kept7(*a, **k)
+
+    spy7.__dict__.update(kept7.__dict__)
+    for r, what in ((ref, "frame 0"), (gray, "the 30%-gray reference")):
+        inter.intra_in_p = spy7
+        try:
+            inter.encode_p_front(mb_h, mb_w, 16, y1, u1, v1, *r, qtab_rd,
+                                 lam, mvp0, True, (2, 1), True, True, True,
+                                 True, False, None)
+        finally:
+            kept7.__dict__.update(spy7.__dict__)
+            inter.intra_in_p = kept7
+        a7 = seen7["a"]
+        n_in = int(inter.intra_in_p(*a7)["intra_mb"].sum())
+        for args, dec in ((a7[:12], "SATD"), (a7, "RD")):
+            name = f"K7 intra_in_p on {what}, the {dec} decision"
+            line(f"{name} ({n_in} intra MBs under RD)",
+                 ms(lambda: inter.intra_in_p(*args)))
+            split(name, lambda: inter.intra_in_p(*args))
+    # K7's B sequences on K22's pass-1 and pass-2 outputs
+    p1 = inter.b_inter_mb(*a22, qtab_b, *mvs, **kw1)
+    a7d = (mb_h, mb_w, y1, u1, v1, p1["recon_y"], p1["recon_u"],
+           p1["recon_v"], p1["cost_inter"], qtab_b, lam)
+    im = inter.intra_in_b_decide(*a7d)
+    p2 = inter.b_inter_mb(*a22, qtab_b, *mvs, refs=refs)
+    a7s = (mb_h, mb_w, y1, u1, v1, p2["recon_y"], p2["recon_u"],
+           p2["recon_v"], im, qtab_b, lam)
+    for fn, args, what in ((inter.intra_in_b_decide, a7d, "decide"),
+                           (inter.intra_in_b_sweeps, a7s,
+                            f"sweeps ({int(im.sum())} intra MBs)")):
+        line(f"K7 intra_in_b_{what}", ms(lambda: fn(*args)))
+        split(f"K7 intra_in_b_{what}", lambda: fn(*args))
 
     if busy:                           # ROOT's chip_smoke, its phases' settings
         import chip_smoke as cs

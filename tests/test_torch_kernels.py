@@ -1,4 +1,4 @@
-"""The port's CUDA / Triton kernels against their plain PyTorch versions
+"""The port's CUDA kernels against their plain PyTorch versions
 on the card, at small frames (K1-K24 and K8's pass A alone, K6 and K8
 also with random partition layouts and quarter-pel MVs, K7 also with
 the RD decision; K1 with I8x8, K3 / K2 on its output, K6 / K13 / K8 / K2
@@ -31,7 +31,10 @@ lossless; K20 on tie-heavy rows (trellis.tie_coefs, lam2 0 and 1e7,
 stack rows at QP 0 / 1 / 51), K6's trellis kernel at the edges (a
 zero-residual MB row, QP 1, QP-map rows 0 / 1 / 51), K22 with the
 trellis at QP 4 and 51, K10 on flat content at lam 0, from the corners
-into the pad, and its one launch for the partition layouts.
+into the pad, and its one launch for the partition layouts; K7 (P
+sequence, with RD, a QP map and lossless, and both B sequences) one MB
+wide and one MB tall with no, some and every MB wanting intra, and K4 on
+partial tiles and odd crops, bit-identical from call to call.
 Marked `cuda`: they skip where there is no card. On a machine with one:
 
     python -m pytest --noconftest tests/test_torch_kernels.py
@@ -249,6 +252,35 @@ def test_metrics_kernel_matches_plain(card, crop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("crop", [(0, 0), (6, 4), (13, 7), (0, 330)])
+def test_metrics_kernel_tiles(card, crop):
+    """K4 on 23 x 21 MBs, whose SSIM windows (90 x 82) leave partial
+    tiles in both directions, at crops with odd remainders and one (6
+    rows) without any window: one launch a call, the SSDs exact, the SSIM
+    sum within 1e-5 of the plain version's and bit-identical in 20
+    calls."""
+    rng = np.random.default_rng(6)
+    h, w = 21 * 16, 23 * 16
+    t = lambda a: torch.as_tensor(a.clip(0, 255), dtype=torch.int32,
+                                  device=card)
+    src = [rng.integers(0, 256, (h, w)), rng.integers(0, 256, (h // 2, w // 2)),
+           rng.integers(0, 256, (h // 2, w // 2))]
+    rec = [t(a + rng.integers(-9, 10, a.shape)) for a in src]
+    src = [t(a) for a in src]
+    cw, ch = w - crop[0], h - crop[1]
+    n = stats.frame_metrics.launches
+    k = [stats.frame_metrics(*src, *rec, cw, ch) for _ in range(20)]
+    assert stats.frame_metrics.launches == n + 20
+    assert all(torch.equal(k[0], x) for x in k[1:])
+    p = stats.frame_metrics_plain(*src, *rec, cw, ch).double()
+    kd = k[0].double()
+    assert torch.equal(kd[:3], p[:3])
+    assert abs(float(kd[3] - p[3])) <= 1e-5 * max(abs(float(p[3])), 1e-30)
+    if crop[1] == 330:
+        assert float(p[3]) == 0.0
+
+
+@pytest.mark.cuda
 def test_encoder_on_the_card_matches_the_cpu(card):
     w, h = MB_W * 16 - 6, MB_H * 16 - 4
     rng = np.random.default_rng(7)
@@ -446,6 +478,92 @@ def test_intra_in_p_rd_kernel_matches_plain(card, kind, psy):
         assert torch.equal(k[key], p[key]), key
     if kind == "intra":
         assert p["intra_mb"].any()
+
+
+def _k7_edge(dev, mb_h, mb_w, want, mode, seed=11):
+    """K7's arguments on a synthetic frame of mb_h x mb_w MBs: a textured
+    source and its inter recon off by noise; no MB wanting intra (want
+    "none"), every MB ("all": the chains deeper than three sweeps are
+    demoted) or some. mode: "satd", "rd" (the RD decision with psy-RD on
+    random inter RD costs), "aq" (a QP map over 0-51 and the 52-QP stacks)
+    or "lossless" (CQP 0, the bypass). Returns intra_in_p's (args,
+    kwargs)."""
+    rng = np.random.default_rng(seed)
+    h, w = mb_h * 16, mb_w * 16
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev)
+    yy, xx = np.mgrid[0:h, 0:w]
+    src = [((xx // 3 + yy // 2) % 200 + rng.integers(0, 24, (h, w)))
+           .clip(0, 255), rng.integers(0, 256, (h // 2, w // 2)),
+           128 + rng.integers(-20, 20, (h // 2, w // 2))]
+    rec = [(a + rng.integers(-12, 13, a.shape)).clip(0, 255) for a in src]
+    qp = 0 if mode == "lossless" else 26
+    q = inter.make_qtab_p(qp, tables.chroma_qp(qp), dev,
+                          **(dict(rd_idc=0, f_psy_rd=1.0) if mode == "rd"
+                             else {}))
+    shape = (mb_h, mb_w)
+    cost = {"none": np.zeros(shape), "all": np.full(shape, 1 << 29),
+            "some": rng.integers(0, 16000, shape)}[want]
+    kw = {}
+    if mode == "rd":
+        rd_cost = {"none": np.full(shape, -1.0), "all": np.full(shape, 1e30),
+                   "some": rng.uniform(0.0, 60000.0, shape)}[want]
+        kw["rd"] = (torch.as_tensor(rd_cost, dtype=torch.float32,
+                                    device=dev),
+                    t(rng.integers(0, 3000, shape)))
+    elif mode == "aq":
+        q = _with_stacks(q, dev)
+        kw["qp_map"] = t(rng.integers(0, 52, shape))
+    elif mode == "lossless":
+        kw["lossless"] = True
+    args = (mb_h, mb_w, *(t(a) for a in src), *(t(a) for a in rec), t(cost),
+            q, int(tables.LAMBDA_TABLE[qp]), mode != "lossless")
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_h,mb_w", [(1, 9), (9, 1), (4, 6)])
+@pytest.mark.parametrize("want", ["none", "all", "some"])
+@pytest.mark.parametrize("mode", ["satd", "rd", "aq", "lossless"])
+def test_intra_in_p_kernel_edges(card, mb_h, mb_w, want, mode):
+    """K7 (its decision listing the intra MBs on the card, sweeps 1 and 2
+    over that list) one MB wide and one MB tall, with no intra MB, with
+    every MB wanting intra and with some, at SATD, RD + psy, a QP map and
+    lossless: exact, 4 launches."""
+    args, kw = _k7_edge(card, mb_h, mb_w, want, mode)
+    n = inter.intra_in_p.launches
+    k = inter.intra_in_p(*args, **kw)
+    assert inter.intra_in_p.launches == n + 4
+    p = inter.intra_in_p_plain(*args, **kw)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    im = p["intra_mb"]
+    if want == "none":
+        assert not im.any()
+    elif want == "all":
+        assert im.any() and not im.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_h,mb_w", [(1, 9), (9, 1), (4, 6)])
+@pytest.mark.parametrize("want", ["none", "all", "some"])
+def test_intra_in_b_kernels_edges(card, mb_h, mb_w, want):
+    """K7's B decision, and its B sweeps with that decision and with
+    every MB intra, one MB wide, one MB tall and 4 x 6: exact, 2 and 4
+    launches."""
+    args, _ = _k7_edge(card, mb_h, mb_w, want, "satd")
+    nd, ns = inter.intra_in_b_decide.launches, inter.intra_in_b_sweeps.launches
+    im = inter.intra_in_b_decide(*args[:11])
+    assert torch.equal(im, inter.intra_in_p_plain(*args[:11], True,
+                                                  decide_only=True))
+    for fixed in (im, torch.ones_like(im)):
+        k = inter.intra_in_b_sweeps(*args[:8], fixed, *args[9:11])
+        p = inter.intra_in_p_plain(*args[:8], None, *args[9:11], True,
+                                   intra_mb=fixed)
+        for key in p:
+            assert torch.equal(k[key], p[key]), key
+    assert inter.intra_in_b_decide.launches == nd + 2
+    assert inter.intra_in_b_sweeps.launches == ns + 8
 
 
 @pytest.mark.cuda

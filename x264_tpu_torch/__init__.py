@@ -2,8 +2,8 @@
 
 The package mirrors x264_tpu's layout and its public entry points
 (``EncoderParams``, ``Encoder.headers / encode / flush / close``,
-``Frame``). Device work runs as hand-written CUDA kernels (csrc/) and one
-Triton kernel, each beside a plain PyTorch version of the same function;
+``Frame``). Device work runs as hand-written CUDA kernels (csrc/), each
+beside a plain PyTorch version of the same function;
 the serial CABAC arithmetic coder runs in C on the host (native/).
 
 The port encodes all-intra streams (keyint 1) and IPPP streams (one

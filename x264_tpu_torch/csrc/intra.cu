@@ -188,8 +188,9 @@ __global__ void __launch_bounds__(NT) intra_diag_kernel(
   // ------------------------------------------------------------ load
   // with a QP map (variance AQ) qtab_g is the 52-QP stack and the MB
   // reads the row of its QP
-  imb_load(S, qtab_g + (qp_map ? qp_map[mb] * QTAB_INTS : 0), Y, U, V, RY,
-           RU, RV, mb_w, mx, my, has_top, has_left);
+  const ImbNbr rec{RY, RU, RV};
+  imb_load(S, qtab_g + (qp_map ? qp_map[mb] * QTAB_INTS : 0), Y, U, V, rec,
+           rec, rec, mb_w, mx, my, has_top, has_left);
   if (tid >= 40 && tid < 44) {
     int k = tid - 40;
     nmt[k] = has_top ? i4_modes_o[((my - 1) * mb_w + mx) * 16 + 12 + k] : 2;

@@ -26,7 +26,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 # kernel sources; each builds into its own shared library
 SOURCES = ("intra", "deblock", "cabac_ops", "me", "inter", "intra_p", "mc",
            "subpel", "rdcost", "lookahead", "aq", "cavlc", "trellis",
-           "badapt", "direct", "nr", "hwpack", "halo", "pixel")
+           "badapt", "direct", "nr", "hwpack", "halo", "pixel", "metrics")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

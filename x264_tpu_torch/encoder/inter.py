@@ -877,6 +877,32 @@ def intra_in_p_plain(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
         chroma_ac=z(grid(torch.stack([cu[2], cv[2]], 1))))
 
 
+# the widest frame K7's decision takes (csrc/intra_p.cu MAX_MB_W)
+MAX_MB_W = 512
+
+
+def _check_intra_args(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
+                      inter_v, cost_inter=None) -> None:
+    """Raise unless K7's planes are contiguous int32 CUDA tensors of the
+    frame's shapes, the inter planes 16-byte aligned (the merge copies
+    them 4 samples a thread), and the frame is at most MAX_MB_W MBs
+    wide."""
+    if mb_w > MAX_MB_W:
+        raise ValueError(f"K7 takes frames up to {MAX_MB_W} MBs wide, got "
+                         f"{mb_w}")
+    H, W = mb_h * 16, mb_w * 16
+    for t, shape, name in (
+            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
+            (v, (H // 2, W // 2), "v"), (inter_y, (H, W), "inter_y"),
+            (inter_u, (H // 2, W // 2), "inter_u"),
+            (inter_v, (H // 2, W // 2), "inter_v"),
+            (cost_inter, (mb_h, mb_w), "cost_inter")):
+        if t is not None:
+            cuda.check(t, shape, I32, name)
+    if any(t.data_ptr() % 16 for t in (inter_y, inter_u, inter_v)):
+        raise ValueError("K7: the inter planes must start 16-byte aligned")
+
+
 def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
                cost_inter, qtab, lam: int, decimate: bool, rd=None,
                qp_map=None, lossless: bool = False):
@@ -889,23 +915,20 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
     and the resolved fixpoint; the lossless bypass of the I16 and chroma
     paths, inter.py:634, :654). On CUDA tensors it runs
     csrc/intra_p.cu: sweep 0 over every MB (with the intra RD cost under
-    rd), the decision with the demotion of deep chains, then sweeps 1
-    and 2 (4 launches, one CTA per MB each), with per-MB tables under a
-    QP map; on CPU tensors the plain version. Arguments and results as
+    rd), the decision a thread an MB, which lists the intra MBs on the
+    card and gives the others the inter recon and zero syntax, then
+    sweeps 1 and 2 over that list alone (4 launches, no host sync), with
+    per-MB tables under a QP map; on CPU tensors the plain version.
+    Frames up to MAX_MB_W MBs wide. Arguments and results as
     intra_in_p_plain."""
     if y.device.type == "cpu":
         return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
                                 inter_v, cost_inter, qtab, lam, decimate, rd,
                                 qp_map, lossless=lossless)
+    _check_intra_args(mb_h, mb_w, y, u, v, inter_y, inter_u, inter_v,
+                      cost_inter)
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
-    for t, shape, name in (
-            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
-            (v, (H // 2, W // 2), "v"), (inter_y, (H, W), "inter_y"),
-            (inter_u, (H // 2, W // 2), "inter_u"),
-            (inter_v, (H // 2, W // 2), "inter_v"),
-            (cost_inter, (mb_h, mb_w), "cost_inter")):
-        cuda.check(t, shape, I32, name)
     e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
     o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
              recon_v=e(H // 2, W // 2),
@@ -914,7 +937,9 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
              luma_dc=e(mb_h, mb_w, 16), luma_ac=e(mb_h, mb_w, 16, 16),
              chroma_dc=e(mb_h, mb_w, 2, 4),
              chroma_ac=e(mb_h, mb_w, 2, 4, 16))
-    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2), e(mb_h, mb_w))
+    # plane B of the sweeps, sweep 0's costs, the intra list
+    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2), e(mb_h, mb_w),
+               e(mb_h * mb_w + 1))
     if qp_map is None:
         tab, qp_ptr = intra.pack_qtab(qtab), 0
     else:
@@ -935,7 +960,7 @@ def intra_in_p(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u, inter_v,
         rd_ptrs = (rd_cost.data_ptr(), ce_psy.data_ptr(),
                    qtab["rdtab"].data_ptr(), cost_i_rd.data_ptr())
         lam2, psy = qtab["rd_lam2"], qtab.get("psy_rd", 0.0)
-    cuda.launch("intra_p", "intra_in_p", "p" * 27 + "iiiiffi" + "p",
+    cuda.launch("intra_p", "intra_in_p", "p" * 28 + "iiiiffi" + "p",
                 *[t.data_ptr() for t in ins], *[o[k].data_ptr() for k in o],
                 *[t.data_ptr() for t in scratch], *rd_ptrs, qp_ptr, mb_h,
                 mb_w, lam, int(decimate), lam2, psy, int(lossless),
@@ -1450,34 +1475,25 @@ def intra_in_b_decide(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
     sweep 0's I16 + chroma path of every MB against residual pass 1's
     reconstruction, an MB going intra where its cost + lam *
     INTRA_PEN_BITS < cost_inter unless its chain is deeper than K_SWEEPS.
-    On CUDA tensors csrc/intra_p.cu's sweep and decision kernels (2
-    launches); on CPU tensors intra_in_p_plain(decide_only=True). Returns
-    intra_mb (mb_h, mb_w) bool."""
+    On CUDA tensors csrc/intra_p.cu's sweep-0 kernel (its costs alone)
+    and decision kernel (2 launches); on CPU tensors
+    intra_in_p_plain(decide_only=True). Returns intra_mb (mb_h, mb_w)
+    bool."""
     if y.device.type == "cpu":
         return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
                                 inter_v, cost_inter, qtab, lam, True,
                                 decide_only=True)
+    _check_intra_args(mb_h, mb_w, y, u, v, inter_y, inter_u, inter_v,
+                      cost_inter)
     dev = y.device
-    H, W = mb_h * 16, mb_w * 16
-    for t, shape, name in (
-            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
-            (v, (H // 2, W // 2), "v"), (inter_y, (H, W), "inter_y"),
-            (inter_u, (H // 2, W // 2), "inter_u"),
-            (inter_v, (H // 2, W // 2), "inter_v"),
-            (cost_inter, (mb_h, mb_w), "cost_inter")):
-        cuda.check(t, shape, I32, name)
-    e = lambda *s, dt=I32: torch.empty(s, dtype=dt, device=dev)
-    intra_mb = e(mb_h, mb_w, dt=torch.bool)
-    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2), e(mb_h, mb_w),
-               e(mb_h, mb_w), e(mb_h, mb_w), e(mb_h, mb_w, 16),
-               e(mb_h, mb_w, 16, 16), e(mb_h, mb_w, 2, 4),
-               e(mb_h, mb_w, 2, 4, 16))
-    cuda.launch("intra_p", "intra_in_b_decide", "p" * 19 + "iii" + "p",
+    intra_mb = torch.empty((mb_h, mb_w), dtype=torch.bool, device=dev)
+    cost_i = torch.empty((mb_h, mb_w), dtype=I32, device=dev)
+    tab = intra.pack_qtab(qtab)
+    cuda.launch("intra_p", "intra_in_b_decide", "p" * 10 + "iii" + "p",
                 *[t.data_ptr() for t in (y, u, v, inter_y, inter_u, inter_v,
                                          cost_inter)],
-                intra.pack_qtab(qtab).data_ptr(), intra_mb.data_ptr(),
-                *[t.data_ptr() for t in scratch], mb_h, mb_w, lam,
-                cuda.stream(dev))
+                tab.data_ptr(), intra_mb.data_ptr(),
+                cost_i.data_ptr(), mb_h, mb_w, lam, cuda.stream(dev))
     intra_in_b_decide.launches += 2     # sweep 0, decision
     return intra_mb
 
@@ -1491,21 +1507,17 @@ def intra_in_b_sweeps(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
     1137-1160): with the decision intra_mb fixed, three sweeps of the
     intra MBs against residual pass 2's reconstruction, the first choosing
     the I16 and chroma modes, the next two keeping them. On CUDA tensors
-    csrc/intra_p.cu's sweep kernel (3 launches); on CPU tensors
-    intra_in_p_plain(intra_mb=...). Returns as intra_in_p_plain."""
+    csrc/intra_p.cu: the merge, which lists the intra MBs on the card,
+    then the three sweeps over that list alone (4 launches); on CPU
+    tensors intra_in_p_plain(intra_mb=...). Returns as intra_in_p_plain."""
     if y.device.type == "cpu":
         return intra_in_p_plain(mb_h, mb_w, y, u, v, inter_y, inter_u,
                                 inter_v, None, qtab, lam, True,
                                 intra_mb=intra_mb)
+    _check_intra_args(mb_h, mb_w, y, u, v, inter_y, inter_u, inter_v)
+    cuda.check(intra_mb, (mb_h, mb_w), torch.bool, "intra_mb")
     dev = y.device
     H, W = mb_h * 16, mb_w * 16
-    for t, shape, name in (
-            (y, (H, W), "y"), (u, (H // 2, W // 2), "u"),
-            (v, (H // 2, W // 2), "v"), (inter_y, (H, W), "inter_y"),
-            (inter_u, (H // 2, W // 2), "inter_u"),
-            (inter_v, (H // 2, W // 2), "inter_v")):
-        cuda.check(t, shape, I32, name)
-    cuda.check(intra_mb, (mb_h, mb_w), torch.bool, "intra_mb")
     e = lambda *s: torch.empty(s, dtype=I32, device=dev)
     o = dict(recon_y=e(H, W), recon_u=e(H // 2, W // 2),
              recon_v=e(H // 2, W // 2), intra_mb=intra_mb,
@@ -1513,15 +1525,18 @@ def intra_in_b_sweeps(mb_h: int, mb_w: int, y, u, v, inter_y, inter_u,
              luma_dc=e(mb_h, mb_w, 16), luma_ac=e(mb_h, mb_w, 16, 16),
              chroma_dc=e(mb_h, mb_w, 2, 4),
              chroma_ac=e(mb_h, mb_w, 2, 4, 16))
-    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2))
-    cuda.launch("intra_p", "intra_in_b_sweeps", "p" * 20 + "iii" + "p",
+    # plane B of the sweeps, the intra list
+    scratch = (e(H, W), e(H // 2, W // 2), e(H // 2, W // 2),
+               e(mb_h * mb_w + 1))
+    tab = intra.pack_qtab(qtab)
+    cuda.launch("intra_p", "intra_in_b_sweeps", "p" * 21 + "iii" + "p",
                 *[t.data_ptr() for t in (y, u, v, inter_y, inter_u,
                                          inter_v)],
-                intra.pack_qtab(qtab).data_ptr(),
+                tab.data_ptr(),
                 *[o[k].data_ptr() for k in o],
                 *[t.data_ptr() for t in scratch], mb_h, mb_w, lam,
                 cuda.stream(dev))
-    intra_in_b_sweeps.launches += 3
+    intra_in_b_sweeps.launches += 4     # the merge, three sweeps
     return o
 
 

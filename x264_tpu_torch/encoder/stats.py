@@ -2,7 +2,7 @@
 accounting (x264_t.stat, common/common.h:560-614; accumulation at
 encoder/encoder.c:1034-1056; final report x264_encoder_close:1878-2080),
 and the frame metrics: the plain PyTorch version and the wrapper of its
-Triton kernel (kernel K4).
+CUDA kernel (kernel K4, csrc/metrics.cu).
 """
 
 from __future__ import annotations
@@ -32,127 +32,51 @@ def frame_metrics_plain(oy, ou, ov, ry, ru, rv, w: int, h: int):
 
 
 # ---------------------------------------------------------------- K4
-_SSD_BR, _SSD_BC = 32, 64        # SSD tile (rows, cols)
-_SSIM_BR, _SSIM_BC = 8, 64       # SSIM tile of 8x8-window positions
-
-
-def _kernels():
-    """The Triton kernels of K4, defined on first use: Triton is imported
-    only where a card is."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def ssd_kernel(a_ptr, b_ptr, part_ptr, part_off, h, w, stride,
-                   BR: tl.constexpr, BC: tl.constexpr):
-        pr, pc = tl.program_id(0), tl.program_id(1)
-        r = pr * BR + tl.arange(0, BR)[:, None]
-        c = pc * BC + tl.arange(0, BC)[None, :]
-        m = (r < h) & (c < w)
-        a = tl.load(a_ptr + r * stride + c, mask=m, other=0)
-        b = tl.load(b_ptr + r * stride + c, mask=m, other=0)
-        d = a - b
-        s = tl.sum(tl.sum((d * d).to(tl.int64), axis=1), axis=0)
-        tl.store(part_ptr + part_off + pr * tl.num_programs(1) + pc, s)
-
-    @triton.jit
-    def ssim_kernel(a_ptr, b_ptr, part_ptr, nh, nw, stride, C1, C2,
-                    BR: tl.constexpr, BC: tl.constexpr):
-        # position (i, j) sums the 8x8 window at (2 + 4i, 2 + 4j): the
-        # four 4x4 block sums of ssim_4x4x2_core, as ssim_end1 adds them
-        pr, pc = tl.program_id(0), tl.program_id(1)
-        i = pr * BR + tl.arange(0, BR)[:, None]
-        j = pc * BC + tl.arange(0, BC)[None, :]
-        m = (i < nh) & (j < nw)
-        base = (2 + 4 * i) * stride + 2 + 4 * j
-        s1 = tl.zeros((BR, BC), tl.int32)
-        s2 = tl.zeros((BR, BC), tl.int32)
-        ss = tl.zeros((BR, BC), tl.int32)
-        s12 = tl.zeros((BR, BC), tl.int32)
-        for dy in tl.static_range(8):
-            for dx in tl.static_range(8):
-                a = tl.load(a_ptr + base + dy * stride + dx, mask=m, other=0)
-                b = tl.load(b_ptr + base + dy * stride + dx, mask=m, other=0)
-                s1 += a
-                s2 += b
-                ss += a * a + b * b
-                s12 += a * b
-        vars_ = ss * 64 - s1 * s1 - s2 * s2
-        covar = s12 * 64 - s1 * s2
-        num = (2 * s1 * s2 + C1).to(tl.float32) \
-            * (2 * covar + C2).to(tl.float32)
-        den = (s1 * s1 + s2 * s2 + C1).to(tl.float32) \
-            * (vars_ + C2).to(tl.float32)
-        val = tl.where(m, num / den, 0.0)
-        s = tl.sum(tl.sum(val, axis=1), axis=0)
-        tl.store(part_ptr + pr * tl.num_programs(1) + pc, s)
-
-    @triton.jit
-    def range_sum(ptr, n, zero, B: tl.constexpr):
-        k = tl.arange(0, B)
-        acc = tl.zeros((B,), zero.dtype)
-        for s in range(0, n, B):
-            acc += tl.load(ptr + s + k, mask=s + k < n, other=0)
-        return tl.sum(acc, axis=0)
-
-    @triton.jit
-    def reduce_kernel(ssd_ptr, n_y, n_u, n_v, ssim_ptr, n_s, out_ptr,
-                      B: tl.constexpr):
-        z64 = tl.zeros((1,), tl.int64)
-        tl.store(out_ptr + 0, range_sum(ssd_ptr, n_y, z64, B).to(tl.float32))
-        tl.store(out_ptr + 1,
-                 range_sum(ssd_ptr + n_y, n_u, z64, B).to(tl.float32))
-        tl.store(out_ptr + 2, range_sum(ssd_ptr + n_y + n_u, n_v, z64,
-                                        B).to(tl.float32))
-        tl.store(out_ptr + 3,
-                 range_sum(ssim_ptr, n_s, tl.zeros((1,), tl.float32), B))
-
-    return ssd_kernel, ssim_kernel, reduce_kernel
-
-
-_KERNELS = []
+# per device and stream: the kernel's ticket and partials (the kernel
+# leaves the ticket cleared, so calls on one stream may share them)
+_SCRATCH: dict = {}
+# (w, h) -> the launch's CTAs (csrc/metrics.cu frame_metrics_ctas)
+_CTAS: dict = {}
 
 
 def frame_metrics(oy, ou, ov, ry, ru, rv, w: int, h: int):
     """K4 `frame_metrics`: SSD of the three planes and the SSIM sum.
 
     Replaces the metric half of x264_tpu/encoder/pipeline.py:host32_pack
-    (with ops/pixel.py:ssim_sum). On CUDA tensors it runs three Triton
-    kernels (per-tile SSD partials in int64 for the three planes, per-tile
-    SSIM partials, one reduction: five launches); on CPU tensors the
-    plain version. Inputs are int32 (H, W) / (H/2, W/2) planes, the crop
-    w x h. Returns float32 (4,) = (ssd_y, ssd_u, ssd_v, ssim_sum)."""
+    (with ops/pixel.py:ssim_sum). On CUDA tensors it runs csrc/metrics.cu
+    in one launch: the SSIM windows from 4x4 block sums in shared memory,
+    the exact int64 SSDs, the partials summed by the last CTA in a fixed
+    order (the same result from call to call); on CPU tensors the plain
+    version. Inputs are int32 (H, W) / (H/2, W/2) planes, the crop w x h.
+    Returns float32 (4,) = (ssd_y, ssd_u, ssd_v, ssim_sum)."""
     if oy.device.type == "cpu":
         return frame_metrics_plain(oy, ou, ov, ry, ru, rv, w, h)
-    import triton
-
     for name, t in (("oy", oy), ("ou", ou), ("ov", ov), ("ry", ry),
                     ("ru", ru), ("rv", rv)):
         ref = oy if name.endswith("y") else ou
         cuda.check(t, tuple(ref.shape), I32, name)
-    if not _KERNELS:
-        _KERNELS.extend(_kernels())
-    ssd_k, ssim_k, red_k = _KERNELS
+    if not (0 < w <= oy.shape[1] and 0 < h <= oy.shape[0]
+            and tuple(ou.shape) == (oy.shape[0] // 2, oy.shape[1] // 2)):
+        raise ValueError(f"frame_metrics: a {w}x{h} crop of "
+                         f"{tuple(oy.shape)} / {tuple(ou.shape)} planes")
     dev = oy.device
-    grids = [(triton.cdiv(hh, _SSD_BR), triton.cdiv(ww, _SSD_BC))
-             for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
-    ns = [g[0] * g[1] for g in grids]
-    ssd_parts = torch.empty(sum(ns), dtype=torch.int64, device=dev)
-    off = 0
-    for (a, b, hh, ww), g, n in zip(((oy, ry, h, w), (ou, ru, h // 2, w // 2),
-                                     (ov, rv, h // 2, w // 2)), grids, ns):
-        ssd_k[g](a, b, ssd_parts, off, hh, ww, a.stride(0),
-                 BR=_SSD_BR, BC=_SSD_BC)
-        off += n
-    nh, nw = (h - 2) // 4 - 1, (w - 2) // 4 - 1
-    sg = (triton.cdiv(nh, _SSIM_BR), triton.cdiv(nw, _SSIM_BC))
-    ssim_parts = torch.empty(sg[0] * sg[1], dtype=F32, device=dev)
-    ssim_k[sg](oy, ry, ssim_parts, nh, nw, oy.stride(0), opix.SSIM_C1,
-               opix.SSIM_C2, BR=_SSIM_BR, BC=_SSIM_BC)
+    if (w, h) not in _CTAS:
+        _CTAS[w, h] = cuda.function("metrics", "frame_metrics_ctas",
+                                    "ii")(w, h)
+    n = _CTAS[w, h]
+    stream = cuda.stream(dev)
+    key = (str(dev), stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None or scratch.numel() < 1 + 2 * n:
+        scratch = _SCRATCH[key] = torch.zeros(1 + 2 * n, dtype=torch.int64,
+                                              device=dev)
     out = torch.empty(4, dtype=F32, device=dev)
-    red_k[(1,)](ssd_parts, ns[0], ns[1], ns[2], ssim_parts, ssim_parts.numel(),
-                out, B=1024)
-    frame_metrics.launches += 5
+    base = scratch.data_ptr()
+    cuda.launch("metrics", "frame_metrics", "p" * 10 + "iiii" + "p",
+                *[t.data_ptr() for t in (oy, ou, ov, ry, ru, rv)], base,
+                base + 8, base + 8 + 8 * n, out.data_ptr(), w, h,
+                oy.shape[1], ou.shape[1], stream)
+    frame_metrics.launches += 1
     return out
 
 

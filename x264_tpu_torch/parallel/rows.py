@@ -66,8 +66,8 @@ def split_rows(t, devs, rows: int) -> list:
 
 
 def on_device(dev):
-    """dev as the current device (where Triton and the CUDA runtime
-    launch), or nothing on the CPU."""
+    """dev as the current device (where the CUDA runtime launches), or
+    nothing on the CPU."""
     return torch.cuda.device(dev) if dev.type == "cuda" \
         else contextlib.nullcontext()
 
