@@ -9,8 +9,8 @@ Phases; any failure exits non-zero before the result line:
   2. build: the CUDA kernels of x264_tpu_torch/csrc (one nvcc per source,
      started together) and the host CABAC engine, with the seconds; then
      the registers and local bytes a thread and the resident CTAs an SM
-     of the kernels of inter.cu (K6, K22), trellis.cu (K20) and
-     subpel.cu (K10-K12), as libcuda reports them;
+     of the kernels of inter.cu (K6, K22), me.cu (K5, K29), trellis.cu
+     (K20) and subpel.cu (K10-K12), as libcuda reports them;
   3. kernels: K1-K4 at 1080p on seeded frames, each held against its
      plain PyTorch version on the card (K1-K3 exact, K4 within relative
      1e-6 on the SSDs and 1e-5 on the SSIM sum) and timed beside it;
@@ -22,7 +22,10 @@ Phases; any failure exits non-zero before the result line:
      row wavefront's memory ordering, and on a band's 17 MB rows); K5-K8 once
      more against that recon with 30% of its 64x64 blocks (seeded)
      flattened to gray, so that many MBs go intra and intra chains deeper
-     than the three sweeps are demoted; and one P frame's split;
+     than the three sweeps are demoted; K5 also at R 4 and 24 and on a
+     flat reference, and its two launches by device time (and, with K6
+     without the trellis and K22's two passes, on frames one MB wide and
+     one MB tall: k5_k6_edges); and one P frame's split;
   4. the all-intra main path: x264_tpu_torch.Encoder on four 1920x1080
      frames, all-intra (keyint 1), CQP 26, CABAC, no 8x8 transform,
      deblocking and PSNR / SSIM on, i_frame_parallel 3. K1-K4's launch
@@ -771,26 +774,36 @@ def event_ms(fn, reps: int, setup=None) -> float:
 def launch_split(fn, names=K7_KERNELS, reps: int = 10) -> list:
     """Device ms of each launch of fn()'s kernels whose names hold one of
     `names`, by its place in the call, from a torch.profiler trace of
-    reps calls after one warm-up (as device_split traces): [(kernel name,
-    mean ms)] in launch order; [] where the trace holds no such kernels."""
+    reps calls after one warm-up (as device_split traces; where that trace
+    holds no whole calls, once more with the device activity alone, as
+    scripts/redesign_turns.py traces): [(kernel name, mean ms)] in launch
+    order; [] where neither trace holds them, after a line that counts
+    what the traces held."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(n in e.name for n in names)),
-                key=lambda e: e.time_range.start)
-    n = len(ev) // reps
-    if n == 0 or n * reps != len(ev):
-        return []
-    return [(ev[i].name.replace("(anonymous namespace)::", "").split("(")[0],
-             sum(ev[i + k * n].time_range.elapsed_us()
-                 for k in range(reps)) / reps / 1e3) for i in range(n)]
+    seen = []
+    for acts in ([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 [ProfilerActivity.CUDA]):
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_ev = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = sorted((e for e in dev_ev if any(n in e.name for n in names)),
+                    key=lambda e: e.time_range.start)
+        n = len(ev) // reps
+        if n and n * reps == len(ev):
+            return [(ev[i].name.replace("(anonymous namespace)::", "")
+                     .split("(")[0],
+                     sum(ev[i + k * n].time_range.elapsed_us()
+                         for k in range(reps)) / reps / 1e3)
+                    for i in range(n)]
+        seen.append(f"{len(dev_ev)} device events, {len(ev)} of {names}")
+    print(f"launch_split: no whole calls in {reps} traced ({'; '.join(seen)})",
+          flush=True)
+    return []
 
 
 def split_text(split: list) -> str:
@@ -863,6 +876,121 @@ def k7_edges(dev, exact) -> int:
     print("K7 exact one MB wide, one MB tall and at 4 x 6 MBs with no, "
           "some and every MB wanting intra: SATD, RD + psy, a QP map, "
           "lossless, the B decision and sweeps", flush=True)
+    return err
+
+
+def edge_frames(dev, mb_h: int, mb_w: int, seed: int = 21):
+    """A textured frame of mb_h x mb_w MBs (y, u, v) and a reference that
+    is it moved by a few samples under fresh noise, as int32 planes."""
+    rng = np.random.default_rng(seed)
+    h, w = mb_h * 16, mb_w * 16
+    yy, xx = np.mgrid[0:h, 0:w]
+    t = lambda a: torch.as_tensor(np.clip(a, 0, 255), dtype=torch.int32,
+                                  device=dev)
+    y = (xx * 3 + yy * 2) // 2 % 200 + rng.integers(0, 30, (h, w))
+    u = rng.integers(90, 170, (h // 2, w // 2))
+    v = 128 + rng.integers(-25, 25, (h // 2, w // 2))
+    ref = [np.roll(y, (2, 3), (0, 1)) + rng.integers(-4, 5, (h, w)),
+           np.roll(u, (1, 1), (0, 1)), np.roll(v, (1, 2), (0, 1))]
+    return tuple(t(a) for a in (y, u, v)), [t(a) for a in ref]
+
+
+def k5_k6_edges(dev, exact) -> int:
+    """K5 me_hier, K6 p_inter_mb without the trellis and K22 b_inter_mb's
+    two passes without it, exact against their plain versions on frames
+    one MB wide (9 x 1 MBs), one MB tall (1 x 9) and 2 x 3 (K5 also 1 x
+    1), where every window clamps and the fetch starts wrap: K5 at R 4, 16
+    and 24 on a moved and a flat reference (every SAD equal; at lam 0
+    every candidate ties) with a zero and a wide predictor; K6 with MVs
+    past the pad and random partition types at t8 0 / 1 / 2, with a QP map
+    of rows 0-51, lossless, with the noise reduction and with two
+    references; K22's passes with random ME costs (every B mode taken)
+    and random final references. Returns the max error, 0."""
+    from x264_tpu_torch import tables
+    from x264_tpu_torch.encoder import aq, inter
+    from x264_tpu_torch.ops import mc, me
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                  device=dev)
+    lam26 = int(tables.LAMBDA_TABLE[26])
+    st = aq.qtab_stacks(aq.full_tables(tables.DEFAULT_QUANT, dev), 0)
+    err = 0
+    for mb_h, mb_w in ((9, 1), (1, 9), (2, 3), (1, 1)):
+        (y, u, v), ref = edge_frames(dev, mb_h, mb_w)
+        rng = np.random.default_rng(mb_h * 31 + mb_w)
+        # K5
+        for flat in (False, True):
+            ref_y = torch.full_like(ref[0], 117) if flat else ref[0]
+            ref_pad = mc.pad_plane(ref_y)
+            for wide in (False, True):
+                mvp = t(rng.integers(-140, 141, (mb_h, mb_w, 2)) if wide
+                        else np.zeros((mb_h, mb_w, 2)))
+                lam = 0 if flat and not wide else lam26
+                for r in (4, 16, 24):
+                    a5 = (y, ref_pad, mb_h, mb_w, r, lam, mvp)
+                    err = max(err, exact(
+                        f"K5 me_hier {mb_h}x{mb_w} MBs, R {r}, "
+                        f"{'flat' if flat else 'moved'} reference, "
+                        f"{'wide' if wide else 'zero'} predictor",
+                        me.hier_search(*a5), me.hier_search_plain(*a5)))
+        if (mb_h, mb_w) == (1, 1):
+            continue
+        # K6 without the trellis
+        pads = [mc.pad_plane(ref[0]), mc.pad_plane(ref[1], mc.PAD // 2),
+                mc.pad_plane(ref[2], mc.PAD // 2)]
+        planes = mc.hpel_planes(pads[0])
+        ptype = t(rng.integers(0, 4, (mb_h, mb_w)))
+        mv_quad = t(rng.integers(-150, 151, (mb_h, mb_w, 4, 2)))
+        old = [torch.roll(a, (1, -2), (0, 1)) for a in (y, u, v)]
+        for mode, t8 in (("plain", 0), ("plain", 1), ("plain", 2),
+                         ("aq", 1), ("aq", 2), ("lossless", 0), ("nr", 0),
+                         ("nr", 2), ("ref2", 2)):
+            qp = 0 if mode == "lossless" else 26
+            q = inter.make_qtab_p(qp, tables.chroma_qp(qp), dev)
+            pl, cu, cv = planes, pads[1], pads[2]
+            kw = {}
+            if mode == "aq":
+                q = {**q, "aq_stack": st["intra"], "aq_stack_p": st["inter"]}
+                kw["qp_map"] = t(rng.choice([0, 1, 18, 26, 38, 51],
+                                            (mb_h, mb_w)))
+            elif mode == "ref2":
+                pl = torch.cat([planes, mc.hpel_planes(mc.pad_plane(old[0]))])
+                cu, cv = (torch.stack([p, mc.pad_plane(o, mc.PAD // 2)])
+                          for p, o in zip(pads[1:], old[1:]))
+                kw["ref_sel"] = t(rng.integers(0, 2, (mb_h, mb_w)))
+            elif mode == "nr":
+                kw["nr_offset4"] = t(rng.integers(0, 300, 16))
+                if t8:
+                    kw["nr_offset8"] = t(rng.integers(0, 300, 64))
+            elif mode == "lossless":
+                kw["lossless"] = True
+            a6 = (mb_h, mb_w, y, u, v, pl, cu, cv, ptype, mv_quad, q,
+                  mode != "lossless", t8)
+            err = max(err, exact(
+                f"K6 p_inter_mb {mb_h}x{mb_w} MBs, {mode}, t8 {t8}",
+                inter.p_inter_mb(*a6, **kw),
+                inter.p_inter_mb_plain(*a6, **kw)))
+        # K22's two passes without the trellis
+        _, ref1 = edge_frames(dev, mb_h, mb_w, seed=22)
+        fetch = [inter.b_list_fetch(*r)[0] for r in (ref, ref1)]
+        mvs = [t(rng.integers(-150, 151, (mb_h, mb_w, 2))) for _ in range(2)]
+        kw1 = dict(satd=[t(rng.integers(0, 6000, (mb_h, mb_w)))
+                         for _ in range(2)],
+                   seeds=[t(rng.integers(-20, 21, (mb_h, mb_w, 2)))
+                          for _ in range(2)], lam=lam26)
+        kw2 = dict(refs=tuple(t(rng.choice([-1, 0], (mb_h, mb_w)))
+                              for _ in range(2)))
+        a22 = (mb_h, mb_w, y, u, v, *fetch,
+               inter.make_qtab_p(26, tables.chroma_qp(26), dev), *mvs)
+        for n, kw in ((1, kw1), (2, kw2)):
+            err = max(err, exact(
+                f"K22 b_inter_mb pass {n} {mb_h}x{mb_w} MBs",
+                inter.b_inter_mb(*a22, **kw),
+                inter.b_inter_mb_plain(*a22, **kw)))
+    print("K5 exact one MB wide, one MB tall, at 2 x 3 and 1 x 1 MBs at R "
+          "4 / 16 / 24 on a moved and a flat reference with a zero and a "
+          "wide predictor; K6 without the trellis and K22's two passes "
+          "exact there (K6 at t8 0 / 1 / 2, a QP map, lossless, NR, two "
+          "references)", flush=True)
     return err
 
 
@@ -1282,10 +1410,10 @@ def main() -> None:
         fail("the host CABAC engine (native/cabac.c) did not build")
     print(f"build: nvcc {t_nvcc:.2f} s for {len(cuda.SOURCES)} sources, "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
-    # the registers, local memory and resident CTAs of K6 / K22, K20 and
-    # K10-K12 as the card holds them
+    # the registers, local memory and resident CTAs of K6 / K22, K5, K20
+    # and K10-K12 as the card holds them
     from x264_tpu_torch.tools import kernel_resources
-    for line in kernel_resources.report(("inter", "trellis", "subpel"),
+    for line in kernel_resources.report(("inter", "me", "trellis", "subpel"),
                                         (cuda.BUILD_DIR,)):
         print(f"resources: {line}", flush=True)
 
@@ -1560,6 +1688,21 @@ def main() -> None:
               f"runs, host enqueue {q2p:.3f} ms; at {bh} MB rows (a band) "
               f"{ms2band:.3f} ms, exact, {n_band} launch; {smi_line}",
               flush=True)
+        # K5 at R 4 and 24 (coarse radius 3 and 13) and on a flat
+        # reference (every SAD of a window equal), then split by launch
+        for r5, ref5, what in ((4, ref_pad, "R 4"), (24, ref_pad, "R 24"),
+                               (me_range, torch.full_like(ref_pad, 117),
+                                "a flat reference")):
+            a5x = (y1, ref5, mb_h, mb_w, r5, lam, mvp0)
+            if max_err(dict(zip(("mv", "sad"), me.hier_search(*a5x))),
+                       dict(zip(("mv", "sad"), me.hier_search_plain(*a5x)))):
+                fail(f"K5 me_hier ({tag}, {what}) differs from its plain "
+                     f"version")
+        split5 = launch_split(lambda: me.hier_search(*a5),
+                              ("half_kernel", "search_kernel"))
+        print(f"K5 me_hier ({tag}): exact at R 4, 16 and 24 and on a flat "
+              f"reference; per launch at R {me_range}: {split_text(split5)} "
+              f"ms [{smi_line}]", flush=True)
         # times, bounds
         ms5 = event_ms(lambda: me.hier_search(*a5), 10)
         pl5 = event_ms(lambda: me.hier_search_plain(*a5), 1)
@@ -1875,6 +2018,7 @@ def main() -> None:
                  f"intra under RD, {to_i + to_p} decided otherwise than by "
                  f"SATD: the RD decision did not run on many MBs")
     k7_edges(dev, exact)
+    k5_k6_edges(dev, exact)
     a13, a7 = rd_ms["a13"], rd_ms["a7"]
     it13 = a13[5]
     record("rd_inter", "cuda", "x264_tpu_torch/csrc/rdcost.cu",

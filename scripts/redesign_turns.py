@@ -1,6 +1,8 @@
 """Card times of the redesigned kernels, for one tree of the port: K6
 p_inter_mb with and without the trellis (t8 0 / 1 / 2, at QP 26 and with
 a variance-AQ QP map), K22 b_inter_mb's two passes with and without it,
+K5 me_hier at R 16 (one reference, two references, and a B frame's two
+lists, each also split by launch),
 K20 trellis_scan's four categories, K10 subpel_refine (the 16x16 call,
 each partition layout, and a P frame's whole K10 work: four launches
 where the tree has no subpel_refine_parts, two where it has), K4
@@ -18,7 +20,7 @@ built (into ROOT/build); run it on two checkouts in turns (A, B, B, A)
 in one call to compare them on one card. Each line starts with TAG
 (default ROOT's name). With --busy it then runs ROOT's own
 chip_smoke.device_split (a torch.profiler trace of 8 frames) at the
-settings of chip_smoke.py's phases 9, 12 and 14: each kernel's device
+settings of chip_smoke.py's phases 9, 12, 13 and 14: each kernel's device
 time a frame and the busy sum. Needs the card."""
 
 from __future__ import annotations
@@ -134,10 +136,11 @@ def main() -> None:
     for qt, qtt, qmap, what in ((qtab_rd, tr_frame, None, f"QP {QP}"),
                                 (qtab_aq, tr_stack, qm, "QP map")):
         for t8 in (inter.T8_OFF, inter.T8_SA8D, inter.T8_RD):
-            line(f"K6 p_inter_mb {what} t8 {t8} without the trellis",
-                 ms(lambda: inter.p_inter_mb(*a6, qt, True, t8, qmap)))
-            line(f"K6 p_inter_mb {what} t8 {t8} with the trellis",
-                 ms(lambda: inter.p_inter_mb(*a6, qtt, True, t8, qmap)))
+            for tab, tr in ((qt, "without"), (qtt, "with")):
+                name = f"K6 p_inter_mb {what} t8 {t8} {tr} the trellis"
+                fn = lambda: inter.p_inter_mb(*a6, tab, True, t8, qmap)
+                line(name, ms(fn))
+                split(name, fn)
 
     # K22: frame 1 as a B frame between frame 0 (L0) and frame 2 (L1)
     fetch, mvs, satds = [], [], []
@@ -156,10 +159,29 @@ def main() -> None:
     refs = (torch.where(bmode != 1, 0, -1).to(torch.int32),
             torch.where(bmode != 0, 0, -1).to(torch.int32))
     for qt, what in ((qtab_b, "without"), (qtab_bt, "with")):
-        line(f"K22 b_inter_mb pass 1 {what} the trellis",
-             ms(lambda: inter.b_inter_mb(*a22, qt, *mvs, **kw1)))
-        line(f"K22 b_inter_mb pass 2 {what} the trellis",
-             ms(lambda: inter.b_inter_mb(*a22, qt, *mvs, refs=refs)))
+        for n, kw in ((1, kw1), (2, dict(refs=refs))):
+            name = f"K22 b_inter_mb pass {n} {what} the trellis"
+            fn = lambda: inter.b_inter_mb(*a22, qt, *mvs, **kw)
+            line(name, ms(fn))
+            split(name, fn)
+
+    # K5: frame 1 against frame 0 (one reference), then also against
+    # frame 2 (--ref 2's second call), and as a B frame's two lists, L1
+    # (frame 2) from the negated L0 result as its seed
+    pad0, pad2 = mc.pad_plane(ref[0]), mc.pad_plane(f2[0])
+    mv_l0 = me.hier_search(y1, pad0, mb_h, mb_w, 16, lam, mvp0)[0]
+    seed1 = (-mv_l0).contiguous()
+    for what, fn in (
+            ("one reference", lambda: me.hier_search(y1, pad0, mb_h, mb_w, 16,
+                                                     lam, mvp0)),
+            ("two references", lambda: (
+                me.hier_search(y1, pad0, mb_h, mb_w, 16, lam, mvp0),
+                me.hier_search(y1, pad2, mb_h, mb_w, 16, lam, mvp0))),
+            ("a B frame's two lists", lambda: (
+                me.hier_search(y1, pad0, mb_h, mb_w, 16, lam, mvp0),
+                me.hier_search(y1, pad2, mb_h, mb_w, 16, lam, seed1)))):
+        line(f"K5 me_hier R 16, {what}", ms(fn))
+        split(f"K5 me_hier R 16, {what}", fn)
 
     # K20: each category's coefficients of frame 1 - frame 0 at QP 26
     zig4 = torch.as_tensor(tables.ZIGZAG4, device=dev).long()
@@ -270,6 +292,7 @@ def main() -> None:
         cut = cs.cut_frames(W, H, cs.N_RD, x264_tpu_torch.Frame)
         for phase, n_warm, make in ((9, 4, cs.defaults_params),
                                     (12, 4, cs.trellis_params),
+                                    (13, 24, cs.bframes_params),
                                     (14, 24, cs.preset_params)):
             cs.device_split(x264_tpu_torch, cut, n_warm, 8, 6, 40, make=make,
                             tag=f"{tag} phase {phase}")

@@ -355,6 +355,155 @@ def test_me_kernel_matches_plain(card, mvp_kind):
     assert torch.equal(kmv, pmv) and torch.equal(ksad, psad)
 
 
+def _edge_frames(dev, mb_h, mb_w, seed=21):
+    """A textured frame of mb_h x mb_w MBs and a reference that is it
+    moved by a few pixels under fresh noise."""
+    rng = np.random.default_rng(seed)
+    h, w = mb_h * 16, mb_w * 16
+    yy, xx = np.mgrid[0:h, 0:w]
+    t = lambda a: torch.as_tensor(np.clip(a, 0, 255), dtype=torch.int32,
+                                  device=dev)
+    y = (xx * 3 + yy * 2) // 2 % 200 + rng.integers(0, 30, (h, w))
+    u = rng.integers(90, 170, (h // 2, w // 2))
+    v = 128 + rng.integers(-25, 25, (h // 2, w // 2))
+    ref = [np.roll(y, (2, 3), (0, 1)) + rng.integers(-4, 5, (h, w)),
+           np.roll(u, (1, 1), (0, 1)), np.roll(v, (1, 2), (0, 1))]
+    return tuple(t(a) for a in (y, u, v)), [t(a) for a in ref]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [4, 16, 24])
+@pytest.mark.parametrize("mb_h,mb_w,content", [
+    (MB_H, MB_W, "moved"), (MB_H, MB_W, "flat"), (1, 9, "moved"),
+    (9, 1, "moved"), (1, 1, "flat")])
+@pytest.mark.parametrize("mvp_kind", ["zero", "wide"])
+def test_me_kernel_edges(card, r, mb_h, mb_w, content, mvp_kind):
+    """K5 at R 4, 16 and 24 (coarse radius 3, 9, 13), on one-MB-wide and
+    one-MB-tall frames, where the half-res window clamps at every edge and
+    the full-res windows' starts wrap and clamp, and on a flat reference
+    (every SAD of a window equal: the cost ties between MVs of equal bits,
+    and at lam 0 every candidate ties), with a zero or a wide predictor."""
+    (y, _, _), ref = _edge_frames(card, mb_h, mb_w)
+    lam = int(tables.LAMBDA_TABLE[26])
+    if content == "flat":
+        ref[0] = torch.full_like(ref[0], 117)
+        lam = 0 if mvp_kind == "zero" else lam
+    mvp = torch.as_tensor(np.random.default_rng(r).integers(
+        -140, 141, (mb_h, mb_w, 2)), dtype=torch.int32, device=card)
+    if mvp_kind == "zero":
+        mvp = torch.zeros_like(mvp)
+    args = (y, mc.pad_plane(ref[0]), mb_h, mb_w, r, lam, mvp)
+    n5 = me.hier_search.launches
+    kmv, ksad = me.hier_search(*args)
+    assert me.hier_search.launches == n5 + 2
+    pmv, psad = me.hier_search_plain(*args)
+    assert torch.equal(kmv, pmv) and torch.equal(ksad, psad)
+    for _ in range(3):                 # the same result from call to call
+        k2 = me.hier_search(*args)
+        assert torch.equal(k2[0], kmv) and torch.equal(k2[1], ksad)
+
+
+def _k6_edge_args(dev, mb_h, mb_w, mode):
+    """K6's arguments on an mb_h x mb_w frame: random partition types and
+    quarter-pel quadrant MVs that reach past the pad (the fetch starts
+    wrap and clamp), at QP 26 or in mode "lossless" QP 0 without
+    decimation; "aq" a QP map and the 52-QP stacks, "ref2" two references
+    and a per-MB index. Returns the positional arguments and the
+    keyword ones."""
+    (y, u, v), ref = _edge_frames(dev, mb_h, mb_w)
+    rng = np.random.default_rng(mb_h * 31 + mb_w)
+    qp = 0 if mode == "lossless" else 26
+    q = inter.make_qtab_p(qp, tables.chroma_qp(qp), dev)
+    pads = [mc.pad_plane(ref[0]), mc.pad_plane(ref[1], mc.PAD // 2),
+            mc.pad_plane(ref[2], mc.PAD // 2)]
+    planes = mc.hpel_planes(pads[0])
+    ptype = torch.as_tensor(rng.integers(0, 4, (mb_h, mb_w)),
+                            dtype=torch.int32, device=dev)
+    mv_quad = torch.as_tensor(rng.integers(-150, 151, (mb_h, mb_w, 4, 2)),
+                              dtype=torch.int32, device=dev)
+    kw = {}
+    if mode == "aq":
+        q = _with_stacks(q, dev)
+        kw["qp_map"] = torch.as_tensor(rng.choice(
+            [0, 1, 18, 26, 38, 51], (mb_h, mb_w)), dtype=torch.int32,
+            device=dev)
+    if mode == "ref2":
+        old = [torch.roll(t, (1, -2), (0, 1)) for t in (y, u, v)]
+        planes = torch.cat([planes, mc.hpel_planes(mc.pad_plane(old[0]))])
+        for k in (1, 2):
+            pads[k] = torch.stack([pads[k], mc.pad_plane(old[k],
+                                                         mc.PAD // 2)])
+        kw["ref_sel"] = torch.as_tensor(rng.integers(0, 2, (mb_h, mb_w)),
+                                        dtype=torch.int32, device=dev)
+    if mode == "nr":
+        kw["nr_offset4"] = torch.as_tensor(rng.integers(0, 300, 16),
+                                           dtype=torch.int32, device=dev)
+        kw["nr_offset8"] = torch.as_tensor(rng.integers(0, 300, 64),
+                                           dtype=torch.int32, device=dev)
+    if mode == "lossless":
+        kw["lossless"] = True
+    return (mb_h, mb_w, y, u, v, planes, *pads[1:], ptype, mv_quad, q,
+            mode != "lossless"), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_h,mb_w", [(1, 9), (9, 1), (2, 3)])
+@pytest.mark.parametrize("mode,t8", [
+    ("plain", inter.T8_OFF), ("plain", inter.T8_SA8D),
+    ("plain", inter.T8_RD), ("aq", inter.T8_RD), ("aq", inter.T8_SA8D),
+    ("lossless", inter.T8_OFF), ("nr", inter.T8_RD), ("nr", inter.T8_OFF),
+    ("ref2", inter.T8_RD)])
+def test_inter_kernel_edges(card, mb_h, mb_w, mode, t8):
+    """K6 without the trellis one MB wide and one MB tall, at t8 0 / 1 / 2,
+    with a QP map of rows 0 / 1 / 18 / 26 / 38 / 51, lossless, with the
+    noise reduction and with two references, bit-identical from call to
+    call."""
+    args, kw = _k6_edge_args(card, mb_h, mb_w, mode)
+    n0 = inter.p_inter_mb.launches
+    k = inter.p_inter_mb(*args, t8, **kw)
+    assert inter.p_inter_mb.launches == n0 + 1
+    if "nr_offset8" in kw and t8 == inter.T8_OFF:
+        kw["nr_offset8"] = None
+    p = inter.p_inter_mb_plain(*args, t8, **kw)
+    assert set(k) == set(p)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+    k2 = inter.p_inter_mb(*args, t8, **kw)
+    for key in p:
+        assert torch.equal(k2[key], k[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_h,mb_w", [(1, 9), (9, 1), (3, 4)])
+def test_b_kernels_edges(card, mb_h, mb_w):
+    """K22's passes 1 and 2 without the trellis one MB wide and one MB
+    tall, with MVs past the pad, random ME costs (every B mode chosen) and
+    random final references (intra MBs at MV 0 included)."""
+    (y, u, v), ref = _edge_frames(card, mb_h, mb_w)
+    (_, ref1) = _edge_frames(card, mb_h, mb_w, seed=22)
+    fetch = [inter.b_list_fetch(*r)[0] for r in (ref, ref1)]
+    rng = np.random.default_rng(mb_h + 7 * mb_w)
+    t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=card)
+    mvs = [t(rng.integers(-150, 151, (mb_h, mb_w, 2))) for _ in range(2)]
+    seeds = [t(rng.integers(-20, 21, (mb_h, mb_w, 2))) for _ in range(2)]
+    satds = [t(rng.integers(0, 6000, (mb_h, mb_w))) for _ in range(2)]
+    q = inter.make_qtab_p(26, tables.chroma_qp(26), card)
+    lam = int(tables.LAMBDA_TABLE[26])
+    a = (mb_h, mb_w, y, u, v, *fetch, q, *mvs)
+    n22 = inter.b_inter_mb.launches
+    k1 = inter.b_inter_mb(*a, satd=satds, seeds=seeds, lam=lam)
+    p1 = inter.b_inter_mb_plain(*a, satd=satds, seeds=seeds, lam=lam)
+    for key in p1:
+        assert torch.equal(k1[key], p1[key]), key
+    refs = (t(rng.choice([-1, 0], (mb_h, mb_w))),
+            t(rng.choice([-1, 0], (mb_h, mb_w))))
+    k2 = inter.b_inter_mb(*a, refs=refs)
+    p2 = inter.b_inter_mb_plain(*a, refs=refs)
+    assert inter.b_inter_mb.launches == n22 + 2
+    for key in p2:
+        assert torch.equal(k2[key], p2[key]), key
+
+
 def _inter_args(dev, kind, decimate, wild_mvs=False, parts=False):
     """K6's arguments on frame 1: full-pel ME MVs on one plane, or (wild)
     MVs whose fetch starts wrap and clamp; with parts, the half-pel stack

@@ -36,11 +36,21 @@ def _planes(mb_h, mb_w, seed, shift):
     return cur.astype(np.int32), ref.astype(np.int32)
 
 
-@pytest.mark.parametrize("shift,mvp_kind", [
-    ((3, -5), "random"), ((-7, 9), "zero"), ((1, 2), "beyond_clamp")])
-def test_hier_search_matches_jax(shift, mvp_kind):
-    mb_h, mb_w, R, lam = 3, 4, 16, 4
+@pytest.mark.parametrize("shift,mvp_kind,R,flat", [
+    ((3, -5), "random", 16, False), ((-7, 9), "zero", 16, False),
+    ((1, 2), "beyond_clamp", 16, False), ((2, -3), "random", 4, False),
+    ((-9, 6), "random", 24, False), ((0, 0), "zero", 16, True),
+    ((0, 0), "random", 24, True)],
+    ids=["shift0-random", "shift1-zero", "shift2-beyond_clamp", "r4",
+         "r24", "flat-r16", "flat-r24"])
+def test_hier_search_matches_jax(shift, mvp_kind, R, flat):
+    """R 4, 16 and 24 (the coarse radius rq 3, 9 and 13); on a flat
+    reference every candidate's SAD is equal and the cost ties between
+    MVs of equal bits, where the first in x264_tpu's order wins."""
+    mb_h, mb_w, lam = 3, 4, 4
     cur, ref = _planes(mb_h, mb_w, 11, shift)
+    if flat:
+        ref = np.full_like(ref, 117)
     rng = np.random.default_rng(5)
     mvp = {"random": rng.integers(-40, 41, (mb_h, mb_w, 2)),
            "zero": np.zeros((mb_h, mb_w, 2)),
@@ -56,6 +66,8 @@ def test_hier_search_matches_jax(shift, mvp_kind):
     np.testing.assert_array_equal(np.asarray(jmv), tmv.numpy())
     np.testing.assert_array_equal(np.asarray(jsad), tsad.numpy())
     assert (tmv.numpy() % 4 == 0).all()          # full-pel, in qpel units
+    if flat:
+        return
     # the search beats the zero vector on the displaced frame
     zero_sad = np.abs(cur - ref).reshape(mb_h, 16, mb_w, 16).sum((1, 3))
     assert tsad.numpy().sum() < zero_sad.sum()

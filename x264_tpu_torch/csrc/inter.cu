@@ -9,30 +9,37 @@
 // x264_tpu_torch/encoder/inter.py:p_inter_mb_plain; wrapper: p_inter_mb.
 //
 // Design. Inter prediction reads only the reference, so there is no
-// wavefront: one launch, one CTA per MB (64 threads; 256 with the
-// trellis, a template instantiation of its own). The CTA fetches its
-// luma prediction partition by partition (ptype 0 16x16, 1 16x8, 2
-// 8x16, 3 8x8; each partition takes the MV of its top-left 8x8
-// quadrant): a sample is the rounding average of the two half-pel
-// planes its quarter-pel phase names (kHpelRef0/1), each block start
-// taken as jax.lax.dynamic_slice takes it (ds_start: a negative start
-// wraps once, then clamps, and the plane index clamps into the stack, so
-// a one-plane stack serves full-pel MVs). The chroma predictions (8x8,
-// 8x4, 4x8 or 4x4 blocks) come from the 1/8-pel bilinear filter
-// ((ca*s00 + cb*s01 + cc*s10 + cd*s11 + 32) >> 6). Threads 0-15 then run
-// one luma 4x4 block each (DCT, P-matrix quant, decimate score) and
-// threads 32-39 one chroma block each. The 8x8-group / whole-MB luma
-// kill (score < 4 / total < 6) and the joint chroma AC kill (score < 7)
-// are decided by one thread between the phases, then dequant, IDCT and
-// reconstruction. With the 8x8 transform (t8 = 1 or 2) threads 48-51
-// run one 8x8 block each on the same prediction in shared memory (DCT8,
-// CQM_8PY quant, DECIMATE_TAB8 score; a block scoring < 4, or all four
-// when the total is < 6, is zeroed; dequant, IDCT8, reconstruction:
-// t8.cuh). At t8 = 1 (below subme 6) the MB's transform is chosen here:
-// threads 0-15 and 52-55 take the 4x4 and 8x8 Hadamard abs-sums of the
-// prediction error, and the 8x8 coding is taken where sa8d_16x16 <
-// satd, strictly; its recon, its cbp and zero 4x4 levels are written.
-// At t8 = 2 (the RD ladder) both codings are written for K13.
+// wavefront: one launch, one CTA per MB (128 threads; 256 with the
+// trellis, a template instantiation of its own). Four threads set up the
+// fetch of the MB's four quadrants once (each quadrant's partition:
+// ptype 0 16x16, 1 16x8, 2 8x16, 3 8x8, with the MV of the partition's
+// top-left 8x8 quadrant): the offsets of its sample (0, 0) in the two
+// half-pel planes its quarter-pel phase names (kHpelRef0/1), each block
+// start taken as jax.lax.dynamic_slice takes it (ds_start: a negative
+// start wraps once, then clamps, and the plane index clamps into the
+// stack, so a one-plane stack serves full-pel MVs), and its chroma
+// block's start and bilinear weights. Every thread then fetches luma
+// samples (the rounding average of the two planes) and chroma samples
+// (the 1/8-pel bilinear filter, (ca*s00 + cb*s01 + cc*s10 + cd*s11 +
+// 32) >> 6) into shared memory. The residual runs a lane a row of a
+// block, by role: warps 0-1 the 16 luma 4x4 blocks (DCT, P-matrix
+// quant, decimate score), warp 3 the eight chroma blocks, and with the
+// 8x8 transform (t8 = 1 or 2) warp 2 the four 8x8 blocks on the same
+// prediction (DCT8, CQM_8PY quant, DECIMATE_TAB8 score; t8.cuh); each
+// transform's two passes are the serial butterflies with a transpose
+// through the warp's shared scratch. The decimation scores come from
+// each block's nonzero mask in scan order by shuffles; the 8x8-group /
+// whole-MB luma kill (score < 4 / total < 6), the 8x8 blocks' kill (a
+// block < 4, or all four when the total is < 6) and the joint chroma AC
+// kill (score < 7) from warp reductions; then dequant, IDCT and
+// reconstruction on the same lanes. At t8 = 1 (below subme 6) the MB's
+// transform is chosen here: warps 0-1 and 2 take the 4x4 and 8x8
+// Hadamard abs-sums of the prediction error, and the 8x8 coding is
+// taken where sa8d_16x16 < satd, strictly; its recon, its cbp and zero
+// 4x4 levels are written. At t8 = 2 (the RD ladder) both codings are
+// written for K13. The recon, the levels in scan order and the chroma
+// AC are staged in shared memory and stored by the whole CTA as 16-byte
+// vectors.
 // With a trellis table (analyse.i_trellis under CABAC; x264_tpu
 // inter.py:123-133, :182-192 and intra.py:185-221, each calling
 // ops/trellis.py:236 trellis_scan) the transform threads leave their
@@ -69,12 +76,12 @@
 // 1 (inter.py:958-963) and 2 (:1103-1135). Plain twin:
 // x264_tpu_torch/encoder/inter.py:b_inter_mb_plain; wrapper: b_inter_mb.
 // The CTA fetches both lists' 16x16 luma (through each list's half-pel
-// stack) and 8x8 chroma predictions. Pass 1: threads 0-15 take the 4x4
-// Hadamards of the source minus the rounding average, thread 0 forms the
-// BI SATD and picks argmin(satd + lam * (mv bits + 3 | 3 | 5)) over L0,
-// L1, BI (first on ties), every thread then keeps the chosen prediction
-// (the average for BI); pass 2 keeps the average where both of the MB's
-// final references are used, else the one list's. The residual follows
+// stack) and 8x8 chroma predictions. Pass 1: warps 0-1 take the 4x4
+// Hadamards of the source minus the rounding average on lanes, thread 0
+// forms the BI SATD and picks argmin(satd + lam * (mv bits + 3 | 3 |
+// 5)) over L0, L1, BI (first on ties), every thread then keeps the
+// chosen prediction (the average for BI); pass 2 keeps the average where
+// both of the MB's final references are used, else the one list's. The residual follows
 // as K6's, decimated, with the trellis phase where given (warp 4 idle:
 // no 8x8 transform), and with the joint chroma AC decimation in pass 2
 // only (pass 1 has none). Bounded as K6 by bytes, by the count: pass 1
@@ -84,8 +91,9 @@
 // planes out, as int32), with few operations an MB. In practice an MB's
 // chain of dependent phases (fetch, transform, decimation, recon; with
 // the trellis its 64-position cat-5 Viterbi and backtrack) and the CTAs
-// an SM holds set the time: one MB a CTA with most threads idle outside
-// the transform phases keeps it well above the bound.
+// an SM holds set the time: the lanes shorten the chain (no thread
+// carries a whole block), and the kernel without the trellis is held to
+// 32 registers so that an SM holds 16 CTAs.
 #include "t8.cuh"
 #include "trellis.cuh"
 
@@ -131,27 +139,240 @@ struct BArgs {
   int lam;
 };
 
-// one list's 8x8 chroma prediction sample (r, c) (1/8-pel bilinear)
-__device__ __forceinline__ int fetch8c(const int* R, int Hcp, int Wcp, int mx,
-                                       int my, int mvx, int mvy, int r, int c) {
-  const int dx = mvx & 7, dy = mvy & 7;
-  const int y0 = ds_start(my * 8 + (mvy >> 3) + CPAD, Hcp, 9);
-  const int x0 = ds_start(mx * 8 + (mvx >> 3) + CPAD, Wcp, 9);
-  const int* s = R + (y0 + r) * Wcp + x0 + c;
-  return ((8 - dx) * (8 - dy) * s[0] + dx * (8 - dy) * s[1]
-          + (8 - dx) * dy * s[Wcp] + dx * dy * s[Wcp + 1] + 32) >> 6;
+// inverse scans: raster position -> scan index (kZig4P, t8.cuh's kZig8)
+__constant__ int kInvZig4[16] = {0, 1, 5, 6, 2, 4, 7, 12, 3, 8, 11, 13, 9, 10, 14, 15};
+__constant__ int kInvZig8[64] = {
+    0,  1,  5,  6, 14, 15, 27, 28,  2,  4,  7, 13, 16, 26, 29, 42,
+    3,  8, 12, 17, 25, 30, 41, 43,  9, 11, 18, 24, 31, 40, 44, 53,
+   10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+   21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+
+// The lanes' transforms. A 4x4 block is 4 lanes (lane j: column j, then
+// row j), an 8x8 block 8 lanes (lane r: column r, then row r); the
+// transpose between the passes goes through a warp's scratch in shared
+// memory, skewed so that a row and a column of every block of the warp
+// each fall on distinct banks: element (i, j) of 4x4 block b (b < 8) at
+// 32 i + 4 b + ((i + j) & 3), of 8x8 block k (k < 4) at 32 i + 8 k +
+// ((i + j) & 7). Each pass is the serial function's own butterfly
+// (common.cuh dct4x4 / idct4x4 / had4x4, t8.cuh dct8_1d / idct8_1d /
+// had8_1d; ops/dct.py, ops/pixel.py), so every value is the serial
+// one. Every lane of the warp
+// calls them (__syncwarp).
+__device__ __forceinline__ int sk4(int i, int j, int b) {
+  return 32 * i + 4 * b + ((i + j) & 3);
+}
+__device__ __forceinline__ int sk8(int i, int j, int k) {
+  return 32 * i + 8 * k + ((i + j) & 7);
 }
 
-// x264_denoise_dct (common/quant.c:180) on one block's n coefficients:
-// the pre-shrink |c| of every position to abs_out (for K26), then every
-// AC |c| less its position's offset, floored at 0, the sign kept
-__device__ __forceinline__ void nr_block(int* co, const int* off,
-                                         int* abs_out, int n) {
-  for (int i = 0; i < n; ++i) {
-    const int a = abs(co[i]);
-    abs_out[i] = a;
-    if (i > 0) co[i] = co[i] < 0 ? -max(a - off[i], 0) : max(a - off[i], 0);
+// forward 4x4 DCT (dct4x4): x column j of the residual -> y row j
+__device__ __forceinline__ void dct4_lanes(const int (&x)[4], int (&y)[4],
+                                           int* sk, int b, int j) {
+  sk[sk4(0, j, b)] = x[0] + x[1] + x[2] + x[3];
+  sk[sk4(1, j, b)] = 2 * x[0] + x[1] - x[2] - 2 * x[3];
+  sk[sk4(2, j, b)] = x[0] - x[1] - x[2] + x[3];
+  sk[sk4(3, j, b)] = x[0] - 2 * x[1] + 2 * x[2] - x[3];
+  __syncwarp();
+  const int a0 = sk[sk4(j, 0, b)], a1 = sk[sk4(j, 1, b)];
+  const int a2 = sk[sk4(j, 2, b)], a3 = sk[sk4(j, 3, b)];
+  __syncwarp();
+  y[0] = a0 + a1 + a2 + a3;
+  y[1] = 2 * a0 + a1 - a2 - 2 * a3;
+  y[2] = a0 - a1 - a2 + a3;
+  y[3] = a0 - 2 * a1 + 2 * a2 - a3;
+}
+
+// inverse 4x4 (idct4x4, rows first): x row j of the coefficients -> y
+// column j of the residual, (+ 32) >> 6 taken
+__device__ __forceinline__ void idct4_lanes(const int (&x)[4], int (&y)[4],
+                                            int* sk, int b, int j) {
+  {
+    const int e0 = x[0] + x[2], e1 = x[0] - x[2];
+    const int e2 = (x[1] >> 1) - x[3], e3 = x[1] + (x[3] >> 1);
+    sk[sk4(j, 0, b)] = e0 + e3;
+    sk[sk4(j, 1, b)] = e1 + e2;
+    sk[sk4(j, 2, b)] = e1 - e2;
+    sk[sk4(j, 3, b)] = e0 - e3;
   }
+  __syncwarp();
+  const int a0 = sk[sk4(0, j, b)], a1 = sk[sk4(1, j, b)];
+  const int a2 = sk[sk4(2, j, b)], a3 = sk[sk4(3, j, b)];
+  __syncwarp();
+  const int e0 = a0 + a2, e1 = a0 - a2, e2 = (a1 >> 1) - a3, e3 = a1 + (a3 >> 1);
+  y[0] = (e0 + e3 + 32) >> 6;
+  y[1] = (e1 + e2 + 32) >> 6;
+  y[2] = (e1 - e2 + 32) >> 6;
+  y[3] = (e0 - e3 + 32) >> 6;
+}
+
+// sum |H d H| of the 4x4 block (common.cuh abs_had4x4) from column j of
+// d, in each of its 4 lanes
+__device__ __forceinline__ int had4_lanes(const int (&x)[4], int* sk, int b,
+                                          int j) {
+  sk[sk4(0, j, b)] = x[0] + x[1] + x[2] + x[3];
+  sk[sk4(1, j, b)] = x[0] + x[1] - x[2] - x[3];
+  sk[sk4(2, j, b)] = x[0] - x[1] - x[2] + x[3];
+  sk[sk4(3, j, b)] = x[0] - x[1] + x[2] - x[3];
+  __syncwarp();
+  const int a0 = sk[sk4(j, 0, b)], a1 = sk[sk4(j, 1, b)];
+  const int a2 = sk[sk4(j, 2, b)], a3 = sk[sk4(j, 3, b)];
+  __syncwarp();
+  int s = abs(a0 + a1 + a2 + a3) + abs(a0 + a1 - a2 - a3)
+          + abs(a0 - a1 - a2 + a3) + abs(a0 - a1 + a2 - a3);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+// forward 8x8 DCT (dct.py:dct8x8, columns first): x column r -> y row r
+__device__ __forceinline__ void dct8_lanes(const int (&x)[8], int (&y)[8],
+                                           int* sk, int k, int r) {
+  int t[8];
+  dct8_1d(x, 1, t, 1);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sk[sk8(i, r, k)] = t[i];
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < 8; ++m) t[m] = sk[sk8(r, m, k)];
+  __syncwarp();
+  dct8_1d(t, 1, y, 1);
+}
+
+// inverse 8x8 (dct.py:idct8x8, rows first, + 32 at [0][0], >> 6): x row r of
+// the coefficients -> y column r of the residual
+__device__ __forceinline__ void idct8_lanes(const int (&x)[8], int (&y)[8],
+                                            int* sk, int k, int r) {
+  int in[8], t[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) in[m] = x[m];
+  if (r == 0) in[0] += 32;
+  idct8_1d(in, 1, t, 1);
+#pragma unroll
+  for (int m = 0; m < 8; ++m) sk[sk8(r, m, k)] = t[m];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = sk[sk8(i, r, k)];
+  __syncwarp();
+  idct8_1d(t, 1, in, 1);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y[i] = in[i] >> 6;
+}
+
+// sum |H8 d H8| of the 8x8 block (pixel.py:sa8d_8x8 before its (+2) >>
+// 2) from column r of d, in each of its 8 lanes
+__device__ __forceinline__ int had8_lanes(const int (&x)[8], int* sk, int k,
+                                          int r) {
+  int a[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a[i] = x[i];
+  had8_1d(a);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sk[sk8(i, r, k)] = a[i];
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < 8; ++m) a[m] = sk[sk8(r, m, k)];
+  __syncwarp();
+  had8_1d(a);
+  int s = 0;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) s += abs(a[m]);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  return s;
+}
+
+// decimate_score of a 4x4 block whose 4 lanes each hold a row of 4
+// raster levels (l, row j), in each of them: 9 if any |level| > 1, else
+// the sum over the nonzero levels of kDecimateTab4[the zeros before it
+// in scan order], from the block's nonzero mask in scan order (OR over
+// the lanes). ac: the 15 AC levels of a chroma block (scan 1..15; the
+// raster DC is left out, and a run starts at scan position 1).
+__device__ __forceinline__ int decimate_lanes4(const int* l, int j,
+                                               bool ac) {
+  unsigned m = 0;
+  int big = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (l[c] != 0 && (!ac || 4 * j + c > 0)) {
+      m |= 1u << kInvZig4[4 * j + c];
+      big |= abs(l[c]) > 1;
+    }
+  m |= __shfl_xor_sync(0xffffffffu, m, 1);
+  m |= __shfl_xor_sync(0xffffffffu, m, 2);
+  big |= __shfl_xor_sync(0xffffffffu, big, 1);
+  big |= __shfl_xor_sync(0xffffffffu, big, 2);
+  int s = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (l[c] != 0 && (!ac || 4 * j + c > 0)) {
+      const int z = kInvZig4[4 * j + c];
+      const unsigned below = m & ((1u << z) - 1u);
+      const int prev = below ? 31 - __clz(below) : (ac ? 0 : -1);
+      s += kDecimateTab4[z - prev - 1];
+    }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return big ? 9 : s;
+}
+
+// decimate_score of an 8x8 block (DECIMATE_TAB8) from its 8 lanes' rows
+// (lane r: row r)
+__device__ __forceinline__ int decimate_lanes8(const int* l, int r) {
+  unsigned long long m = 0;
+  int big = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    if (l[c] != 0) {
+      m |= 1ull << kInvZig8[8 * r + c];
+      big |= abs(l[c]) > 1;
+    }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+    m |= __shfl_xor_sync(0xffffffffu, m, o);
+    big |= __shfl_xor_sync(0xffffffffu, big, o);
+  }
+  int s = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    if (l[c] != 0) {
+      const int z = kInvZig8[8 * r + c];
+      const unsigned long long below = m & ((1ull << z) - 1ull);
+      const int prev = below ? 63 - __clzll((long long)below) : -1;
+      s += kDecimateTab8[z - prev - 1];
+    }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return big ? 9 : s;
+}
+
+// a partition's fetch, set up once a CTA: the offsets of its luma
+// sample (0, 0) in the two half-pel planes averaged (from the plane
+// stack's base; sample (r, c) of the MB at + r * Wp + c), and of its
+// chroma sample (0, 0) with the four bilinear weights
+struct FetchAt {
+  long long a, b;
+  int c, w0, w1, w2, w3;
+};
+
+__device__ __forceinline__ void chroma_weights(FetchAt& f, int mvx, int mvy) {
+  const int dx = mvx & 7, dy = mvy & 7;
+  f.w0 = (8 - dx) * (8 - dy);
+  f.w1 = dx * (8 - dy);
+  f.w2 = (8 - dx) * dy;
+  f.w3 = dx * dy;
+}
+
+__device__ __forceinline__ int chroma_at(const FetchAt& f, const int* R,
+                                         int Wcp, int r, int c) {
+  const int* s = R + f.c + r * Wcp + c;
+  return (f.w0 * s[0] + f.w1 * s[1] + f.w2 * s[Wcp] + f.w3 * s[Wcp + 1] + 32) >> 6;
+}
+
+__device__ __forceinline__ int luma_at(const FetchAt& f, const int* P,
+                                       int Wp, int r, int c) {
+  const long long o = (long long)r * Wp + c;
+  return (P[f.a + o] + P[f.b + o] + 1) >> 1;
 }
 
 // the trellis phase's scratch a block, in words: its 8 * C history bytes
@@ -234,25 +455,49 @@ __device__ __forceinline__ void trellis_phase(
       cbp8_o, qp_map, trellis_g, ref_sel, mb_h, mb_w, n_planes, decimate,    \
       t8, B, nr_off4, nr_off8, nr_abs4, nr_abs8, lossless
 
-// one MB of K6 / K22 on a CTA of 64 threads, or 256 with the trellis
-// phase (TR)
+// the MB's samples in shared memory, each array 16-byte aligned
+struct alignas(16) Stage {
+  int fenc[256], pred[256], rec[256], rec8[256];
+  int fc[2][64], pc[2][64], recc[2][64];
+};
+
+// one MB of K6 / K22 on a CTA of 128 threads, or 256 with the trellis
+// phase (TR). Warps 0-3 take the residual by role, a lane a row of a
+// block: warps 0-1 the 16 luma 4x4 blocks (lane 4 b + j, b the raster
+// block within the warp), warp 2 the four 8x8 blocks (lane 8 k + r), warp
+// 3 the eight chroma blocks (lane 4 (4 ch + blk) + j); with TR, warps 4-7
+// join the fetch, the trellis phase and the stores.
 template <int BP, bool TR>
 __device__ __forceinline__ void inter_mb_body(INTER_MB_PARAMS) {
-  constexpr int NT = TR ? 256 : 64;
+  constexpr int NT = TR ? 256 : 128;
+  constexpr unsigned ALL = 0xffffffffu;
   const int mb = blockIdx.x, mx = mb % mb_w, my = mb / mb_w;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int W = mb_w * 16, H = mb_h * 16, Wc = mb_w * 8, Hc = mb_h * 8;
   const int Wp = W + 2 * PAD, Hp = H + 2 * PAD;
   const int Wcp = Wc + 2 * CPAD, Hcp = Hc + 2 * CPAD;
   const size_t plane = (size_t)Hp * Wp;
-  const int pt = BP == 0 ? ptype_g[mb] : 0;
 
   __shared__ QTabP q;
-  __shared__ int fenc[256], pred[256], lv[16][16], score[16], nzb[16];
-  __shared__ int fc[2][64], pc[2][64], clv[2][4][16], cdc[2][4], cscore[8];
-  __shared__ int cdcl[2][4], cdcr[2][4], cnz[2], killg[4], ackill;
-  __shared__ int had4[16], had8[4], lv8[4][64], score8[4], nz8[4], kill8[4];
-  __shared__ int sel8, off4[16], off8[64];
+  // the MB's source and prediction, and its recon staged for the stores
+  // (rec: the 4x4 coding's luma, rec8: the 8x8 coding's)
+  __shared__ Stage st;
+  int(&fenc)[256] = st.fenc;
+  int(&pred)[256] = st.pred;
+  int(&rec)[256] = st.rec;
+  int(&rec8)[256] = st.rec8;
+  int(&fc)[2][64] = st.fc;
+  int(&pc)[2][64] = st.pc;
+  int(&recc)[2][64] = st.recc;
+  __shared__ int lv[16][16], lv8[4][64], clv[2][4][16], cdc[2][4];
+  // the warps' transpose scratch (warps 0, 1, 3: 128 words, warp 2: 256)
+  __shared__ int skr[640];
+  __shared__ int off4[16], off8[64];
+  __shared__ FetchAt fa[4];
+  // each luma 8x8 group's decimation score (2 gy + gx), the SATD halves of
+  // the two luma warps and the 8x8 warp's SA8D, the cbp bits of the two
+  // luma warps and the 8x8 warp
+  __shared__ int gsum[4], part[3], cbits[3];
   __shared__ int pred1[BP == 1 ? 256 : 1], pc1[BP == 1 ? 2 : 1][64], bsel;
   // the trellis phase's table, coefficients in scan order, levels of the
   // chroma DC and history bytes (TR only)
@@ -266,14 +511,14 @@ __device__ __forceinline__ void inter_mb_body(INTER_MB_PARAMS) {
   __shared__ float trsd[TR ? TR_WORDS : 1];
   // the joint chroma AC decimation: K6's, off in B pass 1
   const int cdecim = BP == 1 ? 0 : decimate;
+  int* sk = skr + (warp == 0 ? 0 : warp == 1 ? 128 : warp == 2 ? 256 : 512);
 
-  // ---------------------------------------------------------- fetch
+  // ------------------------------------------ tables, source, set-up
   // with a QP map (variance AQ) qtab_g is the 52-QP stack: the MB's row
   const int* qrow = qtab_g + (qp_map ? qp_map[mb] * QTABP_INTS : 0);
-  // the trellis table (trellis.cuh's TR_ layout), the MB's row with a
-  // map, staged in shared memory (TR: given a table)
-  const bool tr = TR;
   if (TR) {
+    // the trellis table (trellis.cuh's TR_ layout), the MB's row with a
+    // map, staged in shared memory
     const int* trg = trellis_g + (qp_map ? qp_map[mb] * TR_K6_INTS : 0);
     for (int i = tid; i < TR_K6_INTS; i += NT) trt[i] = trg[i];
   }
@@ -282,59 +527,111 @@ __device__ __forceinline__ void inter_mb_body(INTER_MB_PARAMS) {
   // the noise reduction's offsets (null: NR off)
   if (nr_off4 && tid < 16) off4[tid] = nr_off4[tid];
   if (nr_off8 && tid < 64) off8[tid] = nr_off8[tid];
+  for (int i = tid; i < 256; i += NT)
+    fenc[i] = Y[(my * 16 + (i >> 4)) * W + mx * 16 + (i & 15)];
+  for (int i = tid; i < 128; i += NT) {
+    const int ch = i >> 6, k = i & 63;
+    fc[ch][k] = (ch ? V : U)[(my * 8 + (k >> 3)) * Wc + mx * 8 + (k & 7)];
+  }
+  // the MB's reference (K6): n_planes half-pel planes and one padded
+  // chroma plane of each channel per reference
+  const int rs = BP == 0 && ref_sel ? ref_sel[mb] : 0;
+  const int* PL = planes + (size_t)rs * n_planes * plane;
+  const int* CU = refu + (size_t)rs * Hcp * Wcp;
+  const int* CV = refv + (size_t)rs * Hcp * Wcp;
+  if (BP == 0 && tid < 4) {
+    // quadrant tid's partition (ptype 0 16x16, 1 16x8, 2 8x16, 3 8x8,
+    // each with the MV of its top-left quadrant), its block starts taken
+    // as jax.lax.dynamic_slice takes them (ds_start)
+    const Part p = part_of(ptype_g[mb], 8 * (tid >> 1), 8 * (tid & 1));
+    const int kq = 2 * (p.top >> 3) + (p.left >> 3);
+    const int mvx = mv_quad[(mb * 4 + kq) * 2], mvy = mv_quad[(mb * 4 + kq) * 2 + 1];
+    const int fx = mvx & 3, fy = mvy & 3, qi = (fy << 2) | fx;
+    const int p0 = ds_start(kHpelRef0[qi], n_planes, 1);
+    const int p1 = ds_start(kHpelRef1[qi], n_planes, 1);
+    const int iy = my * 16 + p.top + (mvy >> 2) + PAD;
+    const int ix = mx * 16 + p.left + (mvx >> 2) + PAD;
+    const int ya = ds_start(iy + (fy == 3), Hp, p.bh), xa = ds_start(ix, Wp, p.bw);
+    const int yb = ds_start(iy, Hp, p.bh), xb = ds_start(ix + (fx == 3), Wp, p.bw);
+    FetchAt f;
+    f.a = (long long)p0 * plane + (long long)(ya - p.top) * Wp + xa - p.left;
+    f.b = (long long)p1 * plane + (long long)(yb - p.top) * Wp + xb - p.left;
+    const int ctop = p.top >> 1, cleft = p.left >> 1;
+    const int y0 = ds_start(my * 8 + ctop + (mvy >> 3) + CPAD, Hcp, p.bh / 2 + 1);
+    const int x0 = ds_start(mx * 8 + cleft + (mvx >> 3) + CPAD, Wcp, p.bw / 2 + 1);
+    f.c = (y0 - ctop) * Wcp + x0 - cleft;
+    chroma_weights(f, mvx, mvy);
+    fa[tid] = f;
+  } else if (BP > 0 && tid < 2) {
+    // list tid's 16x16 luma and 8x8 chroma fetch at the MB's MV
+    const int* mvl = tid ? B.mv1 : B.mv0;
+    const int mvx = mvl[2 * mb], mvy = mvl[2 * mb + 1];
+    const int fx = mvx & 3, fy = mvy & 3, qi = (fy << 2) | fx;
+    const int iy = my * 16 + (mvy >> 2) + PAD, ix = mx * 16 + (mvx >> 2) + PAD;
+    const int ya = ds_start(iy + (fy == 3), Hp, 16), xa = ds_start(ix, Wp, 16);
+    const int yb = ds_start(iy, Hp, 16), xb = ds_start(ix + (fx == 3), Wp, 16);
+    FetchAt f;
+    f.a = (long long)kHpelRef0[qi] * plane + (long long)ya * Wp + xa;
+    f.b = (long long)kHpelRef1[qi] * plane + (long long)yb * Wp + xb;
+    const int y0 = ds_start(my * 8 + (mvy >> 3) + CPAD, Hcp, 9);
+    const int x0 = ds_start(mx * 8 + (mvx >> 3) + CPAD, Wcp, 9);
+    f.c = y0 * Wcp + x0;
+    chroma_weights(f, mvx, mvy);
+    fa[tid] = f;
+  }
+  __syncthreads();
+
+  // ------------------------------------------------------ predictions
   if (BP > 0) {
     // both lists' predictions: pass 2 keeps the MB's final one, pass 1
-    // both until the decision below
-    const int m0x = B.mv0[2 * mb], m0y = B.mv0[2 * mb + 1];
-    const int m1x = B.mv1[2 * mb], m1y = B.mv1[2 * mb + 1];
-    // pass 2: the average where both lists are used, else L0 where it is,
-    // else L1 (at MV 0 on intra MBs, as encode_b_body's where() takes it)
+    // both until the decision below. Pass 2: the average where both
+    // lists are used, else L0 where it is, else L1 (at MV 0 on intra
+    // MBs, as encode_b_body's where() takes it)
     const bool u0 = BP == 1 || B.r0[mb] >= 0;
     const bool u1 = BP == 1 || B.r1[mb] >= 0 || !u0;
     for (int i = tid; i < 256; i += NT) {
       const int r = i >> 4, c = i & 15;
-      const int a = u0 ? mc_luma16(planes, plane, Hp, Wp, PAD, mx, my, m0x, m0y, r, c) : 0;
-      const int b = u1 ? mc_luma16(B.planes1, plane, Hp, Wp, PAD, mx, my, m1x, m1y, r,
-                                     c) : 0;
+      const int a = u0 ? luma_at(fa[0], planes, Wp, r, c) : 0;
+      const int b = u1 ? luma_at(fa[1], B.planes1, Wp, r, c) : 0;
       if (BP == 1) {
         pred[i] = a;
         pred1[i] = b;
       } else {
         pred[i] = u0 && u1 ? (a + b + 1) >> 1 : u0 ? a : b;
       }
-      fenc[i] = Y[(my * 16 + r) * W + mx * 16 + c];
     }
     for (int i = tid; i < 128; i += NT) {
       const int ch = i >> 6, k = i & 63, r = k >> 3, c = k & 7;
-      const int a = u0 ? fetch8c(ch ? refv : refu, Hcp, Wcp, mx, my, m0x, m0y, r, c) : 0;
-      const int b = u1 ? fetch8c(ch ? B.refv1 : B.refu1, Hcp, Wcp, mx, my, m1x, m1y, r, c)
-                       : 0;
+      const int a = u0 ? chroma_at(fa[0], ch ? refv : refu, Wcp, r, c) : 0;
+      const int b = u1 ? chroma_at(fa[1], ch ? B.refv1 : B.refu1, Wcp, r, c) : 0;
       if (BP == 1) {
         pc[ch][k] = a;
         pc1[ch][k] = b;
       } else {
         pc[ch][k] = u0 && u1 ? (a + b + 1) >> 1 : u0 ? a : b;
       }
-      fc[ch][k] = (ch ? V : U)[(my * 8 + r) * Wc + mx * 8 + c];
     }
     if (BP == 1) {
       __syncthreads();
-      if (tid < 16) {                  // the BI average's 4x4 Hadamards
-        const int by = tid >> 2, bx = tid & 3;
-        int dd[16];
-        for (int r = 0; r < 4; ++r)
-          for (int c = 0; c < 4; ++c) {
-            const int o = (4 * by + r) * 16 + 4 * bx + c;
-            dd[4 * r + c] = fenc[o] - ((pred[o] + pred1[o] + 1) >> 1);
-          }
-        had4[tid] = abs_had4x4(dd);
+      if (warp < 2) {                  // the BI average's 4x4 Hadamards
+        const int b = tid >> 2, j = tid & 3, by = b >> 2, bx = b & 3;
+        int x[4];
+        #pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int o = (4 * by + r) * 16 + 4 * bx + j;
+          x[r] = fenc[o] - ((pred[o] + pred1[o] + 1) >> 1);
+        }
+        const int h = had4_lanes(x, sk, b & 7, j);
+        // satd: the pairs (bx 2p, 2p + 1) of each block row, each >> 1
+        const int pair = (h + __shfl_xor_sync(ALL, h, 4)) >> 1;
+        const int s = __reduce_add_sync(ALL, j == 0 && !(b & 1) ? pair : 0);
+        if (lane == 0) part[warp] = s;
       }
       __syncthreads();
       if (tid == 0) {                  // argmin over L0, L1, BI
-        int satd = 0;
-        for (int by = 0; by < 4; ++by)
-          for (int p = 0; p < 2; ++p)
-            satd += (had4[4 * by + 2 * p] + had4[4 * by + 2 * p + 1]) >> 1;
+        const int satd = part[0] + part[1];
+        const int m0x = B.mv0[2 * mb], m0y = B.mv0[2 * mb + 1];
+        const int m1x = B.mv1[2 * mb], m1y = B.mv1[2 * mb + 1];
         const int b0 = se_bits(m0x - B.seed0[2 * mb]) + se_bits(m0y - B.seed0[2 * mb + 1]);
         const int b1 = se_bits(m1x - B.seed1[2 * mb]) + se_bits(m1y - B.seed1[2 * mb + 1]);
         const int c0 = B.satd0[mb] + B.lam * (b0 + 3);
@@ -357,111 +654,137 @@ __device__ __forceinline__ void inter_mb_body(INTER_MB_PARAMS) {
       }
     }
   } else {
-  // the MB's reference: n_planes half-pel planes and one padded chroma
-  // plane of each channel per reference
-  const int rs = ref_sel ? ref_sel[mb] : 0;
-  const int* PL = planes + (size_t)rs * n_planes * plane;
-  const int* RU = refu + (size_t)rs * Hcp * Wcp;
-  const int* RV = refv + (size_t)rs * Hcp * Wcp;
-  for (int i = tid; i < 256; i += NT) {
-    const int r = i >> 4, c = i & 15;
-    const Part p = part_of(pt, r, c);
-    const int k = 2 * (p.top >> 3) + (p.left >> 3);
-    const int mvx = mv_quad[(mb * 4 + k) * 2], mvy = mv_quad[(mb * 4 + k) * 2 + 1];
-    const int fx = mvx & 3, fy = mvy & 3, qi = (fy << 2) | fx;
-    const int p0 = ds_start(kHpelRef0[qi], n_planes, 1);
-    const int p1 = ds_start(kHpelRef1[qi], n_planes, 1);
-    const int iy = my * 16 + p.top + (mvy >> 2) + PAD;
-    const int ix = mx * 16 + p.left + (mvx >> 2) + PAD;
-    const int ya = ds_start(iy + (fy == 3), Hp, p.bh), xa = ds_start(ix, Wp, p.bw);
-    const int yb = ds_start(iy, Hp, p.bh), xb = ds_start(ix + (fx == 3), Wp, p.bw);
-    const int rr = r - p.top, cc = c - p.left;
-    const int a = PL[p0 * plane + (size_t)(ya + rr) * Wp + xa + cc];
-    const int b = PL[p1 * plane + (size_t)(yb + rr) * Wp + xb + cc];
-    pred[i] = (a + b + 1) >> 1;
-    fenc[i] = Y[(my * 16 + r) * W + mx * 16 + c];
-  }
-  for (int i = tid; i < 128; i += NT) {
-    const int ch = i >> 6, k = i & 63, r = k >> 3, c = k & 7;
-    const Part p = part_of(pt, 2 * r, 2 * c);
-    const int kq = 2 * (p.top >> 3) + (p.left >> 3);
-    const int mvx = mv_quad[(mb * 4 + kq) * 2], mvy = mv_quad[(mb * 4 + kq) * 2 + 1];
-    const int dx = mvx & 7, dy = mvy & 7;
-    const int ca = (8 - dx) * (8 - dy), cb = dx * (8 - dy);
-    const int cc = (8 - dx) * dy, cd = dx * dy;
-    const int ctop = p.top >> 1, cleft = p.left >> 1;
-    const int y0 = ds_start(my * 8 + ctop + (mvy >> 3) + CPAD, Hcp, p.bh / 2 + 1);
-    const int x0 = ds_start(mx * 8 + cleft + (mvx >> 3) + CPAD, Wcp, p.bw / 2 + 1);
-    const int* R = ch ? RV : RU;
-    const int* s = R + (y0 + r - ctop) * Wcp + x0 + c - cleft;
-    pc[ch][k] = (ca * s[0] + cb * s[1] + cc * s[Wcp] + cd * s[Wcp + 1] + 32) >> 6;
-    fc[ch][k] = (ch ? V : U)[(my * 8 + r) * Wc + mx * 8 + c];
-  }
+    for (int i = tid; i < 256; i += NT) {
+      const int r = i >> 4, c = i & 15;
+      pred[i] = luma_at(fa[2 * (r >> 3) + (c >> 3)], PL, Wp, r, c);
+    }
+    for (int i = tid; i < 128; i += NT) {
+      const int ch = i >> 6, k = i & 63, r = k >> 3, c = k & 7;
+      pc[ch][k] = chroma_at(fa[2 * (r >> 2) + (c >> 2)], ch ? CV : CU, Wcp, r, c);
+    }
   }
   __syncthreads();
 
   // ------------------------------------------- transform + quant
-  if (tid < 16) {                      // luma raster block tid
-    int by = tid >> 2, bx = tid & 3, dd[16], co[16];
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) {
-        int o = (4 * by + r) * 16 + 4 * bx + c;
-        dd[4 * r + c] = fenc[o] - pred[o];
-      }
-    if (t8 == 1) had4[tid] = abs_had4x4(dd);
+  // (with TR the coefficients go to the trellis phase in scan order)
+  if (warp < 2) {                      // luma 4x4 block b, row / column j
+    const int b = tid >> 2, j = tid & 3, by = b >> 2, bx = b & 3;
+    int x[4], l[4];
+    #pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int o = (4 * by + r) * 16 + 4 * bx + j;
+      x[r] = fenc[o] - pred[o];
+    }
+    if (t8 == 1) {                     // SATD's half of the pair (bx 2p, 2p + 1)
+      const int h = had4_lanes(x, sk, b & 7, j);
+      const int pair = (h + __shfl_xor_sync(ALL, h, 4)) >> 1;
+      const int s = __reduce_add_sync(ALL, j == 0 && !(b & 1) ? pair : 0);
+      if (lane == 0) part[warp] = s;
+    }
     if (lossless) {                    // the bypass: the samples are the levels
-      for (int i = 0; i < 16; ++i) lv[tid][i] = dd[i];
-    } else {
-    dct4x4(dd, co);
-    if (nr_off4) nr_block(co, off4, nr_abs4 + (mb * 16 + tid) * 16, 16);
-    if (tr) {                          // cat 2 in zig-zag: the trellis phase
-      for (int j = 0; j < 16; ++j) tc2[tid][j] = co[kZig4P[j]];
-    } else {
-      for (int i = 0; i < 16; ++i) lv[tid][i] = quant(co[i], q.py_mf[i], q.py_bias[i]);
-    }
-    }
-  } else if (t8 && tid >= 48 && tid < 56) {  // 8x8 block k: levels, or Hadamard
-    const int k = tid & 3, r0 = 8 * (k >> 1), c0 = 8 * (k & 1);
-    int dd[64];
-    for (int i = 0; i < 64; ++i) {
-      const int o = (r0 + (i >> 3)) * 16 + c0 + (i & 7);
-      dd[i] = fenc[o] - pred[o];
-    }
-    if (tid < 52) {
-      int co[64];
-      dct8x8(dd, co);
-      if (nr_off8) nr_block(co, off8, nr_abs8 + (mb * 4 + k) * 64, 64);
-      if (tr) {                        // cat 5 in ZIGZAG8: the trellis phase
-        for (int j = 0; j < 64; ++j) tc5[k][j] = co[kZig8[j]];
-      } else {
-        for (int i = 0; i < 64; ++i) lv8[k][i] = quant(co[i], q.p8_mf[i], q.p8_bias[i]);
-      }
-    } else if (t8 == 1) {
-      had8[k] = abs_had8x8(dd);
-    }
-  } else if (tid >= 32 && tid < 40) {  // chroma block (ch, blk)
-    int k = tid - 32, ch = k >> 2, blk = k & 3, by = blk >> 1, bx = blk & 1;
-    int dd[16], co[16];
-    for (int r = 0; r < 4; ++r)
+      #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        int o = (4 * by + r) * 8 + 4 * bx + c;
-        dd[4 * r + c] = fc[ch][o] - pc[ch][o];
+        const int o = (4 * by + j) * 16 + 4 * bx + c;
+        l[c] = fenc[o] - pred[o];
       }
+    } else {
+      int co[4];
+      dct4_lanes(x, co, sk, b & 7, j);
+      if (nr_off4) {                   // x264_denoise_dct: |coef| out, AC shrunk
+        int a[4];
+        #pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * j + c;
+          a[c] = abs(co[c]);
+          if (i > 0) co[c] = co[c] < 0 ? -max(a[c] - off4[i], 0) : max(a[c] - off4[i], 0);
+        }
+        *reinterpret_cast<int4*>(nr_abs4 + (mb * 16 + b) * 16 + 4 * j) =
+            make_int4(a[0], a[1], a[2], a[3]);
+      }
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (TR)                        // cat 2 in zig-zag: the trellis phase
+          tc2[b][kInvZig4[4 * j + c]] = co[c];
+        else
+          l[c] = quant(co[c], q.py_mf[4 * j + c], q.py_bias[4 * j + c]);
+      }
+    }
+    if (!TR || lossless)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) lv[b][4 * j + c] = l[c];
+  } else if (warp == 2 && t8) {        // 8x8 block k, row / column r
+    const int k = lane >> 3, r = lane & 7, r0 = 8 * (k >> 1), c0 = 8 * (k & 1);
+    int x[8], co[8];
+    #pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int o = (r0 + i) * 16 + c0 + r;
+      x[i] = fenc[o] - pred[o];
+    }
+    if (t8 == 1) {                     // SA8D (sa8d_16x16 before its (+2) >> 2)
+      const int h = had8_lanes(x, sk, k, r);
+      const int s = __reduce_add_sync(ALL, r == 0 ? h : 0);
+      if (lane == 0) part[2] = s;
+    }
+    dct8_lanes(x, co, sk, k, r);
+    if (nr_off8) {
+      int a[8];
+      #pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int i = 8 * r + c;
+        a[c] = abs(co[c]);
+        if (i > 0) co[c] = co[c] < 0 ? -max(a[c] - off8[i], 0) : max(a[c] - off8[i], 0);
+      }
+      int4* o = reinterpret_cast<int4*>(nr_abs8 + (mb * 4 + k) * 64 + 8 * r);
+      o[0] = make_int4(a[0], a[1], a[2], a[3]);
+      o[1] = make_int4(a[4], a[5], a[6], a[7]);
+    }
+    #pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if (TR)                          // cat 5 in ZIGZAG8: the trellis phase
+        tc5[k][kInvZig8[8 * r + c]] = co[c];
+      else
+        lv8[k][8 * r + c] = quant(co[c], q.p8_mf[8 * r + c], q.p8_bias[8 * r + c]);
+    }
+  } else if (warp == 3) {              // chroma block (ch, blk), row / column j
+    const int k = lane >> 2, ch = k >> 2, blk = k & 3, j = lane & 3;
+    const int by = blk >> 1, bx = blk & 1;
+    int x[4], l[4];
+    #pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int o = (4 * by + r) * 8 + 4 * bx + j;
+      x[r] = fc[ch][o] - pc[ch][o];
+    }
     if (lossless) {                    // the bypass: sample 0 rides the DC
-      cdc[ch][blk] = dd[0];
-      clv[ch][blk][0] = 0;
-      for (int i = 1; i < 16; ++i) clv[ch][blk][i] = dd[i];
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int o = (4 * by + j) * 8 + 4 * bx + c;
+        l[c] = fc[ch][o] - pc[ch][o];
+      }
+      if (j == 0) {
+        cdc[ch][blk] = l[0];
+        l[0] = 0;
+      }
     } else {
-    dct4x4(dd, co);
-    cdc[ch][blk] = co[0];
-    co[0] = 0;
-    if (tr) {                          // cat 4 on zig-zag 1..15: the trellis
-      clv[ch][blk][0] = 0;
-      for (int j = 1; j < 16; ++j) tc4[k][j - 1] = co[kZig4P[j]];
-    } else {
-      for (int i = 0; i < 16; ++i) clv[ch][blk][i] = quant(co[i], q.pc_mf[i], q.pc_bias[i]);
+      int co[4];
+      dct4_lanes(x, co, sk, k, j);
+      if (j == 0) {
+        cdc[ch][blk] = co[0];
+        co[0] = 0;
+      }
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * j + c;
+        if (TR) {                      // cat 4 on zig-zag 1..15: the trellis
+          if (i > 0) tc4[k][kInvZig4[i] - 1] = co[c];
+          else clv[ch][blk][0] = 0;
+        } else {
+          l[c] = quant(co[c], q.pc_mf[i], q.pc_bias[i]);
+        }
+      }
     }
-    }
+    if (!TR || lossless)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) clv[ch][blk][4 * j + c] = l[c];
   }
 
   // ------------------------------------------------ the trellis phase
@@ -474,165 +797,190 @@ __device__ __forceinline__ void inter_mb_body(INTER_MB_PARAMS) {
     }
   }
 
-  // ------------------------------------------------ decimation scores
-  if (tid < 16) {
-    int zz[16];
-    for (int j = 0; j < 16; ++j) zz[j] = lv[tid][kZig4P[j]];
-    score[tid] = decimate_score(zz, 16);
-  } else if (t8 && tid >= 48 && tid < 52) {
-    const int k = tid & 3;
-    int zz[64];
-    for (int j = 0; j < 64; ++j) zz[j] = lv8[k][kZig8[j]];
-    score8[k] = decimate_score8(zz);
-  } else if (tid >= 32 && tid < 40) {
-    const int k = tid - 32, ch = k >> 2, blk = k & 3;
-    int zz[15];
-    for (int j = 1; j < 16; ++j) zz[j - 1] = clv[ch][blk][kZig4P[j]];
-    cscore[k] = decimate_score(zz, 15);
+  // ------------------------------ decimation scores, by warp reductions
+  // (each lane reads back its own row of levels; a block's score in
+  // each of its lanes)
+  int l[8], score = 0, sum = 0;
+  if (warp < 2) {
+    const int b = tid >> 2, j = tid & 3;
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) l[c] = lv[b][4 * j + c];
+    score = decimate_lanes4(l, j, false);
+    // the 8x8 group's sum (blocks b ^ 1 and b ^ 4 of the warp: lanes ^ 4
+    // and ^ 16), recorded by lane 0 (group gx 0) and lane 8 (gx 1)
+    int g = score + __shfl_xor_sync(ALL, score, 4);
+    g += __shfl_xor_sync(ALL, g, 16);
+    if (lane == 0 || lane == 8) gsum[2 * warp + (lane >> 3)] = g;
+  } else if (warp == 2 && t8) {
+    const int k = lane >> 3, r = lane & 7;
+    #pragma unroll
+    for (int c = 0; c < 8; ++c) l[c] = lv8[k][8 * r + c];
+    score = decimate_lanes8(l, r);
+    sum = __reduce_add_sync(ALL, r == 0 ? score : 0);
+  } else if (warp == 3) {
+    const int k = lane >> 2, ch = k >> 2, blk = k & 3, j = lane & 3;
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) l[c] = clv[ch][blk][4 * j + c];
+    score = decimate_lanes4(l, j, true);
+    sum = __reduce_add_sync(ALL, j == 0 ? score : 0);
   }
   __syncthreads();
 
-  // ------------------------------------------------ decimation
-  if (tid == 0) {
-    int g[4], tot = 0;
-    for (int gi = 0; gi < 4; ++gi) {     // 8x8 group (gy, gx) = (gi>>1, gi&1)
-      int gy = gi >> 1, gx = gi & 1, s = 0;
-      for (int iy = 0; iy < 2; ++iy)
-        for (int ix = 0; ix < 2; ++ix) s += score[(2 * gy + iy) * 4 + 2 * gx + ix];
-      g[gi] = s;
-      tot += s;
+  // ------------------------------------- decimation, dequant + recon
+  // the transform choice below subme 6: sa8d_16x16 < satd, strictly
+  const bool sel8 = t8 == 1 && (part[2] + 2) >> 2 < part[0] + part[1];
+  if (warp < 2) {
+    const int b = tid >> 2, j = tid & 3, by = b >> 2, bx = b & 3;
+    // the 8x8 group (score < 4) or whole-MB (total < 6) kill; the bypass
+    // codes every sample: no decimation (x264_tpu inter.py:497)
+    const int tot = gsum[0] + gsum[1] + gsum[2] + gsum[3];
+    const bool kill = decimate && !lossless
+                      && (gsum[2 * warp + (bx >> 1)] < 4 || tot < 6);
+    int nz = 0, dq[4], res[4];
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (kill) l[c] = 0;
+      lv[b][4 * j + c] = l[c];
+      nz |= l[c] != 0;
+      dq[c] = dequant(l[c], q.py_dmf[4 * j + c], q.py_qpdiv6);
     }
-    // the bypass codes every sample: no decimation (x264_tpu
-    // inter.py:497)
-    for (int gi = 0; gi < 4; ++gi)
-      killg[gi] = decimate && !lossless && (g[gi] < 4 || tot < 6);
-    int csc = 0;
-    for (int k = 0; k < 8; ++k) csc += cscore[k];
-    ackill = cdecim && !lossless && csc < 7;
-    int sel = 0;
-    if (t8) {
-      const int tot8 = score8[0] + score8[1] + score8[2] + score8[3];
-      // the 8x8 trellis is its own decimation (encoder/macroblock.c:630)
-      for (int k = 0; k < 4; ++k)
-        kill8[k] = decimate && !tr && (score8[k] < 4 || tot8 < 6);
-    }
-    if (t8 == 1) {                     // sa8d_16x16 < satd, strictly
-      int satd = 0;
-      for (int by = 0; by < 4; ++by)
-        for (int p = 0; p < 2; ++p)
-          satd += (had4[4 * by + 2 * p] + had4[4 * by + 2 * p + 1]) >> 1;
-      const int sa8d = (had8[0] + had8[1] + had8[2] + had8[3] + 2) >> 2;
-      sel = sa8d < satd;
-    }
-    sel8 = sel;
-  }
-  __syncthreads();
-
-  // ------------------------------------- dequant + recon, outputs
-  if (tid < 16) {
-    int by = tid >> 2, bx = tid & 3, dq[16], res[16], nz = 0;
-    const bool kill = killg[(by >> 1) * 2 + (bx >> 1)];
-    for (int i = 0; i < 16; ++i) {
-      if (kill) lv[tid][i] = 0;
-      nz |= lv[tid][i] != 0;
-      dq[i] = dequant(lv[tid][i], q.py_dmf[i], q.py_qpdiv6);
-    }
-    nzb[tid] = nz;
-    if (lossless)                      // the recon is the source
-      for (int i = 0; i < 16; ++i) res[i] = lv[tid][i];
-    else
-      idct4x4(dq, res);
-    if (!sel8)
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c)
-          RY[(my * 16 + 4 * by + r) * W + mx * 16 + 4 * bx + c] =
-              clip255(pred[(4 * by + r) * 16 + 4 * bx + c] + res[4 * r + c]);
-    int* bz = blocks_z + (mb * 16 + kZOfRaster[tid]) * 16;
-    for (int j = 0; j < 16; ++j) bz[j] = sel8 ? 0 : lv[tid][kZig4P[j]];
-  } else if (t8 && tid >= 48 && tid < 52) {   // 8x8 block: dequant, recon
-    const int k = tid - 48, r0 = 8 * (k >> 1), c0 = 8 * (k & 1);
-    int dq[64], res[64], nz = 0;
-    for (int i = 0; i < 64; ++i) {
-      if (kill8[k]) lv8[k][i] = 0;
-      nz |= lv8[k][i] != 0;
-      dq[i] = dequant8(lv8[k][i], q.p8_dmf[i], q.py_qpdiv6);
-    }
-    nz8[k] = nz;
-    idct8x8(dq, res);
-    int* R = t8 == 2 ? R8Y : sel8 ? RY : nullptr;
-    if (R)
-      for (int i = 0; i < 64; ++i) {
-        const int r = r0 + (i >> 3), c = c0 + (i & 7);
-        R[(my * 16 + r) * W + mx * 16 + c] = clip255(pred[r * 16 + c] + res[i]);
+    // the cbp bits of the warp's two groups (lanes 0-7 and 16-23: gx 0)
+    const unsigned m = __ballot_sync(ALL, nz);
+    if (lane == 0)
+      cbits[warp] = ((m & 0x00ff00ffu) != 0) | ((m & 0xff00ff00u) != 0) << 1;
+    if (lossless) {                    // the recon is the source
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int o = (4 * by + j) * 16 + 4 * bx + c;
+        rec[o] = clip255(pred[o] + l[c]);
       }
-    for (int j = 0; j < 64; ++j) blocks8_o[(mb * 4 + k) * 64 + j] = lv8[k][kZig8[j]];
-  } else if (tid >= 32 && tid < 40 && ackill) {
-    int k = tid - 32;
-    for (int i = 0; i < 16; ++i) clv[k >> 2][k & 3][i] = 0;
+    } else {
+      idct4_lanes(dq, res, sk, b & 7, j);
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = (4 * by + i) * 16 + 4 * bx + j;
+        rec[o] = clip255(pred[o] + res[i]);
+      }
+    }
+  } else if (warp == 2 && t8) {        // 8x8 block k: kill, dequant, recon
+    const int k = lane >> 3, r = lane & 7, r0 = 8 * (k >> 1), c0 = 8 * (k & 1);
+    // a block scoring < 4, or all four when the total is < 6; the 8x8
+    // trellis is its own decimation (encoder/macroblock.c:630)
+    const bool kill = decimate && !TR && (score < 4 || sum < 6);
+    int nz = 0, dq[8], res[8];
+    #pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if (kill) l[c] = 0;
+      lv8[k][8 * r + c] = l[c];
+      nz |= l[c] != 0;
+      dq[c] = dequant8(l[c], q.p8_dmf[8 * r + c], q.py_qpdiv6);
+    }
+    const unsigned m = __ballot_sync(ALL, nz);
+    if (lane == 0)
+      cbits[2] = ((m & 0xffu) != 0) | ((m & 0xff00u) != 0) << 1
+                 | ((m & 0xff0000u) != 0) << 2 | ((m & 0xff000000u) != 0) << 3;
+    idct8_lanes(dq, res, sk, k, r);
+    #pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int o = (r0 + i) * 16 + c0 + r;
+      rec8[o] = clip255(pred[o] + res[i]);
+    }
+  } else if (warp == 3) {
+    const int k = lane >> 2, ch = k >> 2, blk = k & 3, j = lane & 3;
+    const int by = blk >> 1, bx = blk & 1;
+    // the joint two-channel AC kill (score < 7)
+    const bool ackill = cdecim && !lossless && sum < 7;
+    int nz = 0, dq[4], res[4];
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (ackill) l[c] = 0;
+      clv[ch][blk][4 * j + c] = l[c];
+      nz |= l[c] != 0;
+      dq[c] = dequant(l[c], q.pc_dmf[4 * j + c], q.pc_qpdiv6);
+    }
+    const bool cnz = (__ballot_sync(ALL, nz) >> (16 * ch)) & 0xffffu;
+    // the channel's DC: its 2x2 Hadamard, quant (the trellis phase's cat
+    // 3, or the samples under the bypass), inverse and dequant
+    const int* d = cdc[ch];
+    const int h[4] = {d[0] + d[1] + d[2] + d[3], d[0] - d[1] + d[2] - d[3],
+                      d[0] + d[1] - d[2] - d[3], d[0] - d[1] - d[2] + d[3]};
+    int dl[4];
+    #pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dl[i] = lossless ? d[i] : TR ? tl3[ch][i] : quant(h[i], q.pc_mf_dc, q.pc_bias_dc);
+    const int gg[4] = {dl[0] + dl[1] + dl[2] + dl[3], dl[0] - dl[1] + dl[2] - dl[3],
+                       dl[0] + dl[1] - dl[2] - dl[3], dl[0] - dl[1] - dl[2] + dl[3]};
+    const int dcr = dequant_2x2_dc(gg[blk], q.pc_dmf0, q.pc_qpdiv6);
+    if (j == 0) chroma_dc_o[mb * 8 + ch * 4 + blk] = dl[blk];
+    if (lossless) {                    // the recon is the source
+      if (j == 0) l[0] = d[blk];
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int o = (4 * by + j) * 8 + 4 * bx + c;
+        recc[ch][o] = clip255(pc[ch][o] + l[c]);
+      }
+    } else {
+      if (j == 0) dq[0] = dcr;
+      idct4_lanes(dq, res, sk, k, j);
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = (4 * by + i) * 8 + 4 * bx + j;
+        recc[ch][o] = clip255(pc[ch][o] + (cnz ? res[i] : (dcr + 32) >> 6));
+      }
+    }
   }
   __syncthreads();
-  if (tid == 0) {
-    int bits = 0;
-    for (int gi = 0; gi < 4; ++gi) {
-      int gy = gi >> 1, gx = gi & 1;
-      if (nzb[(2 * gy) * 4 + 2 * gx] | nzb[(2 * gy) * 4 + 2 * gx + 1]
-          | nzb[(2 * gy + 1) * 4 + 2 * gx] | nzb[(2 * gy + 1) * 4 + 2 * gx + 1])
-        bits |= 1 << gi;
+
+  // ------------------------------------- coalesced stores of the MB
+  // (16-byte vectors: the wrappers allocate every output, so each
+  // plane and each MB's run of levels starts 16-byte aligned)
+  const int4* r4 = reinterpret_cast<const int4*>(sel8 ? rec8 : rec);
+  for (int i = tid; i < 64; i += NT)
+    *reinterpret_cast<int4*>(RY + (my * 16 + (i >> 2)) * W + mx * 16 + 4 * (i & 3)) = r4[i];
+  if (t8 == 2)
+    for (int i = tid; i < 64; i += NT)
+      *reinterpret_cast<int4*>(R8Y + (my * 16 + (i >> 2)) * W + mx * 16 + 4 * (i & 3)) =
+          reinterpret_cast<const int4*>(rec8)[i];
+  for (int i = tid; i < 32; i += NT) {
+    const int ch = i >> 4, r = (i >> 1) & 7, h = i & 1;
+    *reinterpret_cast<int4*>((ch ? RV : RU) + (my * 8 + r) * Wc + mx * 8 + 4 * h) =
+        reinterpret_cast<const int4*>(recc[ch])[2 * r + h];
+  }
+  // blocks_z: z-order block zb is raster block kZOfRaster[zb] (an
+  // involution), in zig-zag; zero where the 8x8 coding was chosen
+  for (int i = tid; i < 64; i += NT) {
+    const int b = kZOfRaster[i >> 2], j = 4 * (i & 3);
+    const int4 v = sel8 ? make_int4(0, 0, 0, 0)
+                        : make_int4(lv[b][kZig4P[j]], lv[b][kZig4P[j + 1]],
+                                    lv[b][kZig4P[j + 2]], lv[b][kZig4P[j + 3]]);
+    *reinterpret_cast<int4*>(blocks_z + mb * 256 + 4 * i) = v;
+  }
+  if (t8)
+    for (int i = tid; i < 64; i += NT) {
+      const int k = i >> 4, j = 4 * (i & 15);
+      *reinterpret_cast<int4*>(blocks8_o + mb * 256 + 4 * i) =
+          make_int4(lv8[k][kZig8[j]], lv8[k][kZig8[j + 1]],
+                    lv8[k][kZig8[j + 2]], lv8[k][kZig8[j + 3]]);
     }
-    const int bits8 = t8 ? nz8[0] | nz8[1] << 1 | nz8[2] << 2 | nz8[3] << 3 : 0;
+  for (int i = tid; i < 32; i += NT) {
+    const int ch = i >> 4, blk = (i >> 2) & 3, j = 4 * (i & 3);
+    const int* c = clv[ch][blk];
+    *reinterpret_cast<int4*>(chroma_ac_o + mb * 128 + 4 * i) =
+        make_int4(c[kZig4P[j]], c[kZig4P[j + 1]], c[kZig4P[j + 2]], c[kZig4P[j + 3]]);
+  }
+  if (tid == 0) {
+    const int bits = cbits[0] | cbits[1] << 2, bits8 = t8 ? cbits[2] : 0;
     cbp_o[mb] = sel8 ? bits8 : bits;
     if (t8 == 1) t8_sel_o[mb] = sel8 ? 1 : 0;
     if (t8 == 2) cbp8_o[mb] = bits8;
-  } else if (tid >= 32 && tid < 34) {  // chroma DC of channel ch
-    const int ch = tid - 32;
-    int a = cdc[ch][0], b = cdc[ch][1], c = cdc[ch][2], e = cdc[ch][3];
-    int h[4] = {a + b + c + e, a - b + c - e, a + b - c - e, a - b - c + e};
-    int l[4];
-    if (lossless)                      // the samples, untransformed
-      for (int i = 0; i < 4; ++i) l[i] = cdc[ch][i];
-    else if (tr)                       // the trellis phase's cat 3
-      for (int i = 0; i < 4; ++i) l[i] = tl3[ch][i];
-    else
-      for (int i = 0; i < 4; ++i) l[i] = quant(h[i], q.pc_mf_dc, q.pc_bias_dc);
-    int gg[4] = {l[0] + l[1] + l[2] + l[3], l[0] - l[1] + l[2] - l[3],
-                 l[0] + l[1] - l[2] - l[3], l[0] - l[1] - l[2] + l[3]};
-    int nz = 0;
-    for (int i = 0; i < 4; ++i) {
-      cdcl[ch][i] = l[i];
-      cdcr[ch][i] = dequant_2x2_dc(gg[i], q.pc_dmf0, q.pc_qpdiv6);
-      for (int j = 0; j < 16; ++j) nz |= clv[ch][i][j] != 0;
-    }
-    cnz[ch] = nz;
-  }
-  __syncthreads();
-  if (tid >= 32 && tid < 40) {
-    int k = tid - 32, ch = k >> 2, blk = k & 3, by = blk >> 1, bx = blk & 1;
-    int dq[16], res[16];
-    if (lossless) {                    // the recon is the source
-      for (int i = 0; i < 16; ++i) res[i] = clv[ch][blk][i];
-      res[0] = cdc[ch][blk];
-    } else if (cnz[ch]) {
-      for (int i = 0; i < 16; ++i) dq[i] = dequant(clv[ch][blk][i], q.pc_dmf[i], q.pc_qpdiv6);
-      dq[0] = cdcr[ch][blk];
-      idct4x4(dq, res);
-    } else {
-      for (int i = 0; i < 16; ++i) res[i] = (cdcr[ch][blk] + 32) >> 6;
-    }
-    int* R = ch ? RV : RU;
-    for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c) {
-        int o = (4 * by + r) * 8 + 4 * bx + c;
-        R[(my * 8 + 4 * by + r) * Wc + mx * 8 + 4 * bx + c] = clip255(pc[ch][o] + res[4 * r + c]);
-      }
-    chroma_dc_o[mb * 8 + ch * 4 + blk] = cdcl[ch][blk];
-    for (int j = 0; j < 16; ++j)
-      chroma_ac_o[mb * 128 + ch * 64 + blk * 16 + j] = clv[ch][blk][kZig4P[j]];
   }
 }
 
-// K6 / K22 without the trellis: 64 threads a CTA
+// K6 / K22 without the trellis: 128 threads a CTA, their registers held
+// to 32 so that an SM holds 16 CTAs (a few words spill; faster than 40
+// registers and 12 CTAs in turns on the H100)
 template <int BP>
-__global__ void __launch_bounds__(64) inter_mb_kernel(INTER_MB_PARAMS) {
+__global__ void __launch_bounds__(128, 16) inter_mb_kernel(INTER_MB_PARAMS) {
   inter_mb_body<BP, false>(INTER_MB_ARGS);
 }
 
@@ -644,13 +992,13 @@ __global__ void __launch_bounds__(256, 4)
   inter_mb_body<BP, true>(INTER_MB_ARGS);
 }
 
-// one MB a CTA: the trellis kernel given a table, else the 64-thread one
+// one MB a CTA: the trellis kernel given a table, else the 128-thread one
 template <int BP, class... A>
 void launch_inter(const int* trellis, int nmb, cudaStream_t s, A... a) {
   if (trellis)
     inter_mb_trellis_kernel<BP><<<nmb, 256, 0, s>>>(a...);
   else
-    inter_mb_kernel<BP><<<nmb, 64, 0, s>>>(a...);
+    inter_mb_kernel<BP><<<nmb, 128, 0, s>>>(a...);
 }
 
 }  // namespace

@@ -8,26 +8,39 @@
 //   1. half_kernel: the half-resolution planes of the current frame and
 //      of the reference interior ((sum of 2x2 + 2) >> 2), one thread per
 //      half-res sample of both planes.
-//   2. search_kernel, one 128-thread CTA per MB:
-//      stage 1, the dense coarse search: the MB's 8x8 half-res block and
-//      the (8 + 2 rq)^2 reference window around it (edge-clamped, which
-//      is the edge padding by rq) sit in shared memory; the (2 rq + 1)^2
-//      candidates (rq = min((R + 1) / 2 + 1, PAD / 2), 361 at R = 16) are
-//      spread over the threads; cost = 4 sad + lam * bits(8 cand - mvp);
-//      stage 2, three full-res windows of m = 3, 2, 1 around the coarse
-//      winner, (mvp + 2) >> 2 and zero, each centre clamped to
-//      +-min(R, PAD - m - 1) and each window start taken as
-//      dynamic_slice takes it (ds_start): 49 + 25 + 9 = 83 candidates of
-//      256-sample SADs with the 16x16 block and the window in shared
-//      memory; cost = sad + lam * bits(4 mv - mvp).
+//   2. search_kernel, one 128-thread CTA per MB, every SAD split over
+//      lanes and every minimum a reduction:
+//      the MB's 8x8 half-res block, the (8 + 2 rq)^2 half-res reference
+//      window around it (edge-clamped, which is the edge padding by rq;
+//      rows 4 mod 8 words apart), and the full-res windows of stage 2's
+//      second and third centres ((mvp + 2) >> 2 and zero, which do not
+//      depend on the coarse search) are staged first, each window's rows
+//      an odd number of words apart;
+//      then windows 2 and 3 (m = 2, 1: 25 + 9 candidates) on half-warps:
+//      lane r holds row r of the MB's 16x16 block in registers and sums
+//      |diff| over its row of the candidate, the 16 row sums added by
+//      xor shuffles; cost = sad + lam * bits(4 mv - mvp);
+//      then stage 1, the dense coarse search, on lane pairs: each lane of
+//      a pair holds four rows of the 8x8 half-res block in registers, the
+//      (2 rq + 1)^2 candidates (rq = min((R + 1) / 2 + 1, PAD / 2), 361
+//      at R = 16) spread over the pairs; cost = 4 sad + lam * bits(8 cand
+//      - mvp); each lane keeps its least (cost << 32 | candidate), the
+//      CTA's least by warp shuffles and a shared word a warp;
+//      then window 1 (m = 3, 49 candidates) around the coarse winner on
+//      half-warps as above.
+//      Each centre is clamped to +-min(R, PAD - m - 1) and each window
+//      start taken as dynamic_slice takes it (ds_start).
 //   Ties: the winner is the minimum of (cost << 32 | candidate index), so
 //   the first candidate in x264_tpu's order wins, as argmin does: y outer,
-//   x inner in stage 1; window 1, 2, 3, each oy outer, ox inner, in stage 2.
+//   x inner in stage 1; window 1, 2, 3 (indices 0-48, 49-73, 74-82), each
+//   oy outer, ox inner, in stage 2. The sums are integers: splitting them
+//   over lanes changes no value.
 // What bounds it on the H100: operations. At 1080p it reads ~17.6 MB
 // (source and padded reference as int32, ~5 us at 3.35 TB/s) and does
 // ~1.1 G integer ops (361 coarse candidates over 960x544, 83 x 256 per
-// MB; ~16 us at the ALU rate). Stage 2 keeps at most 49 of 128 threads
-// busy; a later PR can give each thread a slice of a candidate.
+// MB; ~16 us at the ALU rate). In practice the shared-memory reads set
+// the time: one per |diff| term now that the MB's samples sit in
+// registers (two before), and ~1 in 16 lanes idle at the rounds' ends.
 //
 // K29 fullpel_search: the exhaustive full-pel search of every MB.
 //
@@ -64,7 +77,25 @@ namespace {
 constexpr int NT = 128;
 constexpr int MAX_RQ = 16;                       // PAD / 2
 constexpr int QWIN = 8 + 2 * MAX_RQ;             // half-res window side
+// a packed row of the half-res window, in words (a slack word past the
+// last: each 8-sample read takes 3 words from its first)
+constexpr int QROW = QWIN / 4 + 1;
 constexpr int NCAND2 = 49 + 25 + 9;
+// the three full-res windows (m = 3, 2, 1: 22, 20 and 18 samples a
+// side), a packed row 7 words apart (16 lanes' rows on 16 banks; a
+// 16-sample read takes 5 words from its first), one after another
+constexpr int WROW = 7;
+constexpr int WIN_WORDS = 3 * 22 * WROW;
+
+// four 8-bit samples, the first in the low byte
+__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
+  return (unsigned)a | (unsigned)b << 8 | (unsigned)c << 16 | (unsigned)d << 24;
+}
+
+// samples o .. o + 3 of a packed row
+__device__ __forceinline__ unsigned bytes_at(const unsigned* row, int o) {
+  return __funnelshift_r(row[o >> 2], row[(o >> 2) + 1], 8 * (o & 3));
+}
 
 __global__ void half_kernel(const int* __restrict__ cur,
                             const int* __restrict__ ref_pad,
@@ -79,6 +110,81 @@ __global__ void half_kernel(const int* __restrict__ cur,
   half[Hq * Wq + i] = (r[0] + r[1] + r[Wp] + r[Wp + 1] + 2) >> 2;
 }
 
+// stage 2's window w around centre (cx, cy) for the MB at (mx, my): the
+// clamped centre, and the window packed at win + 22 * WROW * w (the
+// words past its right edge hold zeros)
+__device__ __forceinline__ void stage_window(
+    const int* __restrict__ ref_pad, unsigned* win, int w, int& cx, int& cy,
+    int mx, int my, int R, int pad, int Hp, int Wp) {
+  const int m = 3 - w, wn = 16 + 2 * m;
+  const int lim = min(R, pad - m - 1);
+  cx = min(max(cx, -lim), lim);
+  cy = min(max(cy, -lim), lim);
+  const int y0 = ds_start(16 * my + cy - m + pad, Hp, wn);
+  const int x0 = ds_start(16 * mx + cx - m + pad, Wp, wn);
+  for (int i = threadIdx.x; i < wn * (WROW - 1); i += NT) {
+    const int y = i / (WROW - 1), c = 4 * (i % (WROW - 1));
+    const int* src = ref_pad + (y0 + y) * Wp + x0 + c;
+    int v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = c + e < wn ? src[e] : 0;
+    win[22 * WROW * w + y * WROW + c / 4] = pack4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// window w's candidates on the CTA's 8 half-warps: lane r sums row r
+// (the MB's row r packed in row[]); lane 0 of a half-warp records each
+// candidate's SAD and MV at its index and keeps the least key in best
+__device__ __forceinline__ void search_window(
+    const unsigned* win, int w, int cx, int cy, const unsigned (&row)[4],
+    int px, int py, int lam, int* csad, int* cmvx, int* cmvy,
+    unsigned long long& best) {
+  const int m = 3 - w, n = 2 * m + 1;
+  const int base = w == 0 ? 0 : w == 1 ? 49 : 74;
+  const int r = threadIdx.x & 15;
+  // both half-warps of a warp run every round (the shuffles take the
+  // whole warp), past the last candidate on a copy of candidate 0
+  const int rounds = (n * n + NT / 16 - 1) / (NT / 16);
+  for (int t = 0; t < rounds; ++t) {
+    const int jj = (threadIdx.x >> 4) + t * (NT / 16);
+    const int j = jj < n * n ? jj : 0;
+    const int oy = j / n, ox = j % n;
+    const unsigned* wr = win + 22 * WROW * w + (oy + r) * WROW + (ox >> 2);
+    const int sh = 8 * (ox & 3);
+    unsigned wd[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) wd[i] = wr[i];
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s += __vsadu4(row[i], __funnelshift_r(wd[i], wd[i + 1], sh));
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (r == 0 && jj < n * n) {
+      const int mvx = 4 * (cx + ox - m), mvy = 4 * (cy + oy - m);
+      const int cost = s + lam * (se_bits(mvx - px) + se_bits(mvy - py));
+      const int idx = base + j;
+      csad[idx] = s;
+      cmvx[idx] = mvx;
+      cmvy[idx] = mvy;
+      best = min(best, ((unsigned long long)(unsigned)cost << 32) | (unsigned)idx);
+    }
+  }
+}
+
+// the least key of the CTA, in every thread (red: a word a warp)
+__device__ __forceinline__ unsigned long long cta_min(unsigned long long v,
+                                                      unsigned long long* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int k = 1; k < NT / 32; ++k) v = min(v, red[k]);
+  return v;
+}
+
 __global__ void __launch_bounds__(NT) search_kernel(
     const int* __restrict__ cur, const int* __restrict__ ref_pad,
     const int* __restrict__ mvp, const int* __restrict__ half,
@@ -91,72 +197,77 @@ __global__ void __launch_bounds__(NT) search_kernel(
   const int rq = min((R + 1) / 2 + 1, pad / 2), nq = 2 * rq + 1, qw = 8 + 2 * rq;
   const int px = mvp[2 * mb], py = mvp[2 * mb + 1];
 
-  __shared__ int cq[64], rwin[QWIN * QWIN];
-  __shared__ int cb[256], win[22 * 22];
+  __shared__ unsigned cq[16], rwin[QWIN * QROW], win[WIN_WORDS];
   __shared__ int csad[NCAND2], cmvx[NCAND2], cmvy[NCAND2];
-  __shared__ unsigned long long best1, best2;
+  __shared__ unsigned long long red[NT / 32], red2[NT / 32];
 
-  // ---------------------------------------------- stage 1: coarse
+  // ------------------------------------------------ staging
   const int* cur_q = half;
   const int* ref_q = half + Hq * Wq;
-  for (int i = tid; i < 64; i += NT)
-    cq[i] = cur_q[(8 * my + (i >> 3)) * Wq + 8 * mx + (i & 7)];
-  for (int i = tid; i < qw * qw; i += NT) {
-    int y = min(max(8 * my - rq + i / qw, 0), Hq - 1);
-    int x = min(max(8 * mx - rq + i % qw, 0), Wq - 1);
-    rwin[i] = ref_q[y * Wq + x];
+  if (tid < 16) {
+    const int* src = cur_q + (8 * my + (tid >> 1)) * Wq + 8 * mx + 4 * (tid & 1);
+    cq[tid] = pack4(src[0], src[1], src[2], src[3]);
   }
-  for (int i = tid; i < 256; i += NT)
-    cb[i] = cur[(16 * my + (i >> 4)) * W + 16 * mx + (i & 15)];
-  if (tid == 0) { best1 = ~0ull; best2 = ~0ull; }
-  __syncthreads();
-  for (int k = tid; k < nq * nq; k += NT) {
-    const int oy = k / nq, ox = k % nq;          // window offsets rq + d
-    int s = 0;
-    for (int r = 0; r < 8; ++r)
-      for (int c = 0; c < 8; ++c)
-        s += abs(cq[r * 8 + c] - rwin[(oy + r) * qw + ox + c]);
-    const int dx = ox - rq, dy = oy - rq;
-    const int cost = s * 4 + lam * (se_bits(dx * 8 - px) + se_bits(dy * 8 - py));
-    atomicMin(&best1, ((unsigned long long)(unsigned)cost << 32) | (unsigned)k);
+  for (int i = tid; i < qw * (QROW - 1); i += NT) {
+    const int y = min(max(8 * my - rq + i / (QROW - 1), 0), Hq - 1);
+    const int c = 4 * (i % (QROW - 1));
+    int v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = ref_q[y * Wq + min(max(8 * mx - rq + c + e, 0), Wq - 1)];
+    rwin[(i / (QROW - 1)) * QROW + c / 4] = pack4(v[0], v[1], v[2], v[3]);
+  }
+  int c2x = (px + 2) >> 2, c2y = (py + 2) >> 2, c3x = 0, c3y = 0;
+  stage_window(ref_pad, win, 1, c2x, c2y, mx, my, R, pad, Hp, Wp);
+  stage_window(ref_pad, win, 2, c3x, c3y, mx, my, R, pad, Hp, Wp);
+  // the MB's row r = tid & 15, packed in registers
+  unsigned row[4];
+  {
+    const int* src = cur + (16 * my + (tid & 15)) * W + 16 * mx;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      row[i] = pack4(src[4 * i], src[4 * i + 1], src[4 * i + 2], src[4 * i + 3]);
   }
   __syncthreads();
-  const int kb = (int)(best1 & 0xffffffffu);
-  const int cx = 2 * (kb % nq - rq), cy = 2 * (kb / nq - rq);
 
-  // ---------------------------------------------- stage 2: windows
-  int base = 0;
-  for (int w = 0; w < 3; ++w) {
-    const int m = 3 - w, n = 2 * m + 1, wn = 16 + 2 * m;
-    const int lim = min(R, pad - m - 1);
-    int ccx = w == 0 ? cx : w == 1 ? (px + 2) >> 2 : 0;
-    int ccy = w == 0 ? cy : w == 1 ? (py + 2) >> 2 : 0;
-    ccx = min(max(ccx, -lim), lim);
-    ccy = min(max(ccy, -lim), lim);
-    const int y0 = ds_start(16 * my + ccy - m + pad, Hp, wn);
-    const int x0 = ds_start(16 * mx + ccx - m + pad, Wp, wn);
-    for (int i = tid; i < wn * wn; i += NT)
-      win[i] = ref_pad[(y0 + i / wn) * Wp + x0 + i % wn];
-    __syncthreads();
-    if (tid < n * n) {
-      const int oy = tid / n, ox = tid % n;
+  // ------------------------------- stage 2's windows 2 and 3
+  unsigned long long best = ~0ull;
+  search_window(win, 1, c2x, c2y, row, px, py, lam, csad, cmvx, cmvy, best);
+  search_window(win, 2, c3x, c3y, row, px, py, lam, csad, cmvx, cmvy, best);
+
+  // ---------------------------------------- stage 1: coarse
+  // a thread a candidate, the MB's half-res block packed in registers
+  unsigned long long best1 = ~0ull;
+  {
+    unsigned q[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[i] = cq[i];
+    for (int k = tid; k < nq * nq; k += NT) {
+      const int oy = k / nq, ox = k % nq;          // window offsets rq + d
+      const unsigned* wr = rwin + oy * QROW + (ox >> 2);
+      const int sh = 8 * (ox & 3);
       int s = 0;
-      for (int r = 0; r < 16; ++r)
-        for (int c = 0; c < 16; ++c)
-          s += abs(cb[r * 16 + c] - win[(oy + r) * wn + ox + c]);
-      const int mvx = 4 * (ccx + ox - m), mvy = 4 * (ccy + oy - m);
-      const int cost = s + lam * (se_bits(mvx - px) + se_bits(mvy - py));
-      const int idx = base + tid;
-      csad[idx] = s;
-      cmvx[idx] = mvx;
-      cmvy[idx] = mvy;
-      atomicMin(&best2, ((unsigned long long)(unsigned)cost << 32) | (unsigned)idx);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const unsigned a = wr[r * QROW], b = wr[r * QROW + 1], c = wr[r * QROW + 2];
+        s += __vsadu4(q[2 * r], __funnelshift_r(a, b, sh));
+        s += __vsadu4(q[2 * r + 1], __funnelshift_r(b, c, sh));
+      }
+      const int dx = ox - rq, dy = oy - rq;
+      const int cost = s * 4 + lam * (se_bits(dx * 8 - px) + se_bits(dy * 8 - py));
+      best1 = min(best1, ((unsigned long long)(unsigned)cost << 32) | (unsigned)k);
     }
-    base += n * n;
-    __syncthreads();
   }
+  const int kb = (int)(cta_min(best1, red) & 0xffffffffu);
+
+  // --------------------------- stage 2's window 1: the coarse winner
+  int c1x = 2 * (kb % nq - rq), c1y = 2 * (kb / nq - rq);
+  stage_window(ref_pad, win, 0, c1x, c1y, mx, my, R, pad, Hp, Wp);
+  __syncthreads();
+  search_window(win, 0, c1x, c1y, row, px, py, lam, csad, cmvx, cmvy, best);
+  const unsigned long long b2 = cta_min(best, red2);
   if (tid == 0) {
-    const int idx = (int)(best2 & 0xffffffffu);
+    const int idx = (int)(b2 & 0xffffffffu);
     mv_o[2 * mb] = cmvx[idx];
     mv_o[2 * mb + 1] = cmvy[idx];
     sad_o[mb] = csad[idx];

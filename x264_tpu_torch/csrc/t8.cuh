@@ -3,10 +3,10 @@
 // the SA8D transform choice) and K13 (rdcost.cu, the RD transform
 // choice).
 //
-// Per-block forms of x264_tpu_torch/ops/dct.py (dct8x8, idct8x8),
-// ops/quant.py (dequant at shift base 6, decimate_score on
+// The 1-D passes of x264_tpu_torch/ops/dct.py (dct8x8, idct8x8), and
+// the forms of ops/quant.py (dequant at shift base 6, decimate_score's
 // DECIMATE_TAB8) and ops/pixel.py (the 8x8 Hadamard of sa8d_8x8 and
-// sa8d_16x16), bit-exact with them: int32 arithmetic, arithmetic right
+// sa8d_16x16) that the kernels run on lanes, bit-exact with them: int32 arithmetic, arithmetic right
 // shifts on negative values (checked below at compile time), no floats;
 // and the cat-5 bit walk of the RD choice (ops/rdcost.py:
 // residual_bits_i32 on the cat5 table).
@@ -76,25 +76,6 @@ __device__ __forceinline__ void idct8_1d(const int* x, int s, int* y, int t) {
   y[7 * t] = b0 - b7;
 }
 
-// forward 8x8 transform of a raster residual (dct.py:dct8x8): columns
-// first, then rows (the intermediates truncate, so the order matters)
-__device__ __forceinline__ void dct8x8(const int* d, int* out) {
-  int t[64];
-  for (int c = 0; c < 8; ++c) dct8_1d(d + c, 8, t + c, 8);
-  for (int r = 0; r < 8; ++r) dct8_1d(t + 8 * r, 1, out + 8 * r, 1);
-}
-
-// inverse 8x8 transform incl. the +32 at [0][0] and the >> 6
-// (dct.py:idct8x8): rows first, then columns
-__device__ __forceinline__ void idct8x8(const int* c, int* out) {
-  int in[64], t[64];
-  for (int i = 0; i < 64; ++i) in[i] = c[i];
-  in[0] += 32;
-  for (int r = 0; r < 8; ++r) idct8_1d(in + 8 * r, 1, t + 8 * r, 1);
-  for (int k = 0; k < 8; ++k) idct8_1d(t + k, 8, in + k, 8);
-  for (int i = 0; i < 64; ++i) out[i] = in[i] >> 6;
-}
-
 // dequant_8x8: i_qbits = qp/6 - 6, a rounded right shift when negative
 // (quant.py:dequant with shift_base 6)
 __device__ __forceinline__ int dequant8(int lv, int dmf, int qpdiv6) {
@@ -104,7 +85,7 @@ __device__ __forceinline__ int dequant8(int lv, int dmf, int qpdiv6) {
   return (int)((unsigned)prod + (1u << (-qbits - 1))) >> -qbits;
 }
 
-// the 8-point Hadamard butterfly of abs_had8x8, in place
+// the 8-point Hadamard butterfly of sa8d_8x8, in place
 __device__ __forceinline__ void had8_1d(int* a) {
   for (int h = 1; h < 8; h <<= 1)
     for (int i = 0; i < 8; ++i)
@@ -113,37 +94,6 @@ __device__ __forceinline__ void had8_1d(int* a) {
         a[i] = p + q;
         a[i + h] = p - q;
       }
-}
-
-// sum |H8 d H8| of one raster 8x8 difference block (pixel.py:sa8d_8x8
-// before its (+2) >> 2)
-__device__ __forceinline__ int abs_had8x8(const int* d) {
-  int t[64];
-  for (int c = 0; c < 8; ++c) {          // columns: H8 d
-    int a[8];
-    for (int i = 0; i < 8; ++i) a[i] = d[8 * i + c];
-    had8_1d(a);
-    for (int i = 0; i < 8; ++i) t[8 * i + c] = a[i];
-  }
-  int s = 0;
-  for (int r = 0; r < 8; ++r) {          // rows: (H8 d) H8
-    had8_1d(t + 8 * r);
-    for (int i = 0; i < 8; ++i) s += abs(t[8 * r + i]);
-  }
-  return s;
-}
-
-// x264_decimate_score_internal of 64 levels in 8x8 scan order
-// (quant.py:decimate_score with DECIMATE_TAB8)
-__device__ __forceinline__ int decimate_score8(const int* lv) {
-  int score = 0, run = 0;
-  for (int i = 0; i < 64; ++i) {
-    if (lv[i] == 0) { ++run; continue; }
-    if (abs(lv[i]) > 1) return 9;
-    score += kDecimateTab8[run];
-    run = 0;
-  }
-  return score;
 }
 
 // CABAC bits (1/256 units) of one 8x8 block's 64 levels in scan order

@@ -5,8 +5,8 @@ libcuda).
 
     python -m x264_tpu_torch.tools.kernel_resources [--build DIR ...] [SOURCE ...]
 
-SOURCE: csrc/ sources by name (default inter, trellis, subpel, intra_p,
-metrics: the redesigned kernels'); each
+SOURCE: csrc/ sources by name (default inter, me, trellis, subpel,
+intra_p, metrics: the redesigned kernels'); each
 --build DIR (default build/ at the repository root) is a directory of
 libx264torch_<SOURCE>.so files, e.g. a second tree's, built first with
 its own x264_tpu_torch.cuda.build(). Needs the card."""
@@ -35,8 +35,8 @@ def report(sources, build_dirs) -> list:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sources", nargs="*",
-                    default=["inter", "trellis", "subpel", "intra_p",
-                             "metrics"])
+                    default=["inter", "me", "trellis", "subpel",
+                             "intra_p", "metrics"])
     ap.add_argument("--build", action="append", default=None)
     a = ap.parse_args(sys.argv[1:] if argv is None else argv)
     dirs = a.build or [cuda.BUILD_DIR]
